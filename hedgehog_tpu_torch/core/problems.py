@@ -1,0 +1,55 @@
+"""Problem container and the solution types the ported methods return.
+
+Port of ``hedgehog_tpu/core/problems.py`` (reference
+src/pricing_methods/pricing_methods.jl:19-22 and
+src/solutions/pricing_solutions.jl), for the methods of this slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+__all__ = [
+    "PricingProblem",
+    "AnalyticSolution",
+    "MonteCarloSolution",
+    "CarrMadanSolution",
+]
+
+_frozen = dataclasses.dataclass(frozen=True)
+
+
+@_frozen
+class PricingProblem:
+    """Payoff + market inputs: the unit of work for every pricing method."""
+
+    payoff: Any
+    market_inputs: Any
+
+
+@_frozen
+class AnalyticSolution:
+    problem: Any
+    method: Any
+    price: Any
+
+
+@_frozen
+class MonteCarloSolution:
+    """Price plus the per-path ensemble: terminal prices (g, paths) for
+    terminal-sample strategies, undiscounted conditional values for the
+    mixing strategies."""
+
+    problem: Any
+    method: Any
+    price: Any
+    ensemble: Any
+
+
+@_frozen
+class CarrMadanSolution:
+    problem: Any
+    method: Any
+    price: Any
+    integral_solution: Any

@@ -1,0 +1,315 @@
+// Exact-transition Heston mixing kernels for sm_90a: per-path values (K2)
+// and the accumulating serving price (K3).
+//
+// Replaces hedgehog_tpu/ops/heston_exact_kernel.py:
+//   heston_exact_mixing_values          (pallas_call at :406 QMC, :428 PRNG;
+//                                        bodies _exact_values_kernel[_qmc])
+//   heston_exact_mixing_vanilla_price   (pallas_call at :490 QMC, :511 PRNG;
+//                                        bodies _exact_price_kernel[_qmc])
+//
+// Per segment a path draws the exact CIR transition (Poisson count by CDF
+// inversion, then a boosted corrected-saddlepoint gamma quantile), the exact
+// conditional moments of the integrated variance through the Bessel ratio,
+// and a moment-matched gamma integrated variance; the path closes with the
+// conditional Black-Scholes formula.  The plain PyTorch twin is
+// hedgehog_tpu_torch/ops/heston_exact_kernel.py; keep the two in step.
+//
+// What bounds it on this card: issue rate of FP32 and of the special
+// function unit (per segment ~4 lambda(eta) solves with 2-3 Newton trips of
+// a log and a reciprocal each, 16 continued-fraction reciprocals, exp/log
+// pairs of the Poisson and boost draws) and registers.  Memory is no
+// bound: K2 writes 4 bytes per path, K3 nothing per path (one double per
+// block).  The design therefore keeps one antithetic pair per thread with
+// all state in registers, evaluates only the branch a lane takes (the TPU
+// kernel computes both sides of every select), leaves the data-dependent
+// Poisson loop as soon as the count is settled (the count cannot change
+// once u <= cdf), and for K3 runs one resident wave of blocks that each
+// walk a fixed stride of pairs, so no path data touches memory.
+// Parameters and the Sobol' table sit in shared memory.
+
+#include "hh_device.cuh"
+
+namespace {
+
+// Field order is _P_NAMES of heston_exact_kernel.py; the first seven are
+// hh::CloseParams.
+struct ExactParams {
+  hh::CloseParams close;
+  float v0, lam_fac, d_half, two_cfac;
+  float nu, nu2, z_fac, an1, an2, an3, ad1, ad2, ad3;
+  float l1c, l1x, l2c, l2x, q, p_c, q2, m1f, s2f, inv_kappa;
+  float c_j, k_over_sigma, inv_sigma;
+};
+constexpr int kNumParams = 33;
+static_assert(sizeof(ExactParams) == kNumParams * sizeof(float), "parameter layout");
+
+constexpr int kCfIters = 16;
+constexpr float kCfSwitch = 24.0f;
+constexpr int kGqNewton = 3;
+constexpr int kGqNewtonE1 = 2;
+constexpr int kMaxKmax = 65;  // poisson_kmax never returns more
+constexpr int kThreads = 256;
+
+// 1/k rounded from double, as the TPU kernel's Python constant (1.0 / k).
+__constant__ float kInvK[kMaxKmax + 1] = {
+    0.0f, (float)(1.0 / 1), (float)(1.0 / 2), (float)(1.0 / 3), (float)(1.0 / 4),
+    (float)(1.0 / 5), (float)(1.0 / 6), (float)(1.0 / 7), (float)(1.0 / 8),
+    (float)(1.0 / 9), (float)(1.0 / 10), (float)(1.0 / 11), (float)(1.0 / 12),
+    (float)(1.0 / 13), (float)(1.0 / 14), (float)(1.0 / 15), (float)(1.0 / 16),
+    (float)(1.0 / 17), (float)(1.0 / 18), (float)(1.0 / 19), (float)(1.0 / 20),
+    (float)(1.0 / 21), (float)(1.0 / 22), (float)(1.0 / 23), (float)(1.0 / 24),
+    (float)(1.0 / 25), (float)(1.0 / 26), (float)(1.0 / 27), (float)(1.0 / 28),
+    (float)(1.0 / 29), (float)(1.0 / 30), (float)(1.0 / 31), (float)(1.0 / 32),
+    (float)(1.0 / 33), (float)(1.0 / 34), (float)(1.0 / 35), (float)(1.0 / 36),
+    (float)(1.0 / 37), (float)(1.0 / 38), (float)(1.0 / 39), (float)(1.0 / 40),
+    (float)(1.0 / 41), (float)(1.0 / 42), (float)(1.0 / 43), (float)(1.0 / 44),
+    (float)(1.0 / 45), (float)(1.0 / 46), (float)(1.0 / 47), (float)(1.0 / 48),
+    (float)(1.0 / 49), (float)(1.0 / 50), (float)(1.0 / 51), (float)(1.0 / 52),
+    (float)(1.0 / 53), (float)(1.0 / 54), (float)(1.0 / 55), (float)(1.0 / 56),
+    (float)(1.0 / 57), (float)(1.0 / 58), (float)(1.0 / 59), (float)(1.0 / 60),
+    (float)(1.0 / 61), (float)(1.0 / 62), (float)(1.0 / 63), (float)(1.0 / 64),
+    (float)(1.0 / 65),
+};
+
+// Corrected saddlepoint fit (models/heston_exact.py GQ_P2 / GQ_P3).
+__constant__ float kGqP2[15] = {
+    (float)-1.76222600e-02, (float)-2.93765073e-02, (float)2.14155241e-01,
+    (float)-2.72541844e-01, (float)-8.34309734e-01, (float)1.90338824e+00,
+    (float)1.60407347e+00, (float)-5.14361722e+00, (float)-1.51201354e+00,
+    (float)7.20404411e+00, (float)3.65575150e-01, (float)-5.21675853e+00,
+    (float)4.56357262e-01, (float)1.55081017e+00, (float)-2.78395827e-01};
+__constant__ float kGqP3[11] = {
+    (float)5.39443911e-03, (float)-1.14541171e-02, (float)-3.45087047e-02,
+    (float)1.30529962e-01, (float)4.88113067e-02, (float)-4.25758711e-01,
+    (float)6.65709220e-02, (float)5.57799053e-01, (float)-1.97560263e-01,
+    (float)-2.55404255e-01, (float)1.14194771e-01};
+
+// I_{nu+1}(z)/I_nu(z): backward Perron continued fraction below z = 24,
+// the 4-term asymptotic ratio above.
+__device__ __forceinline__ float bessel_ratio(float z, const ExactParams& c) {
+  if (z < kCfSwitch) {
+    float r = 0.0f;
+#pragma unroll
+    for (int m = kCfIters; m >= 1; --m) r = z * hh::rcp(2.0f * (c.nu + (float)m) + z * r);
+    return r;
+  }
+  const float it = hh::rcp(8.0f * z);
+  const float num = 1.0f + it * (-c.an1 + it * (c.an2 - it * c.an3));
+  const float den = 1.0f + it * (-c.ad1 + it * (c.ad2 - it * c.ad3));
+  return num * hh::rcp(den);
+}
+
+// lambda from lambda - 1 - ln(lambda) = eta^2/2, sign(eta) = sign(lambda-1):
+// series for |eta| < 0.5, fixed-trip Newton otherwise.
+__device__ __forceinline__ float lam_of_eta(float eta, int trips) {
+  if (fabsf(eta) < 0.5f) {
+    return 1.0f + eta * (1.0f + eta * ((float)(1.0 / 3.0) + eta * ((float)(1.0 / 36.0) +
+           eta * ((float)(-1.0 / 270.0) + eta * (float)(1.0 / 4320.0)))));
+  }
+  float cube = 1.0f + eta * (float)(1.0 / 3.0);
+  cube = fmaxf(cube * cube * cube, (float)1e-12);
+  float lam = eta >= 0.0f ? cube : fmaxf(cube, expf(-1.0f - 0.5f * eta * eta));
+  const float tgt = 0.5f * eta * eta;
+  for (int t = 0; t < trips; ++t) {
+    const float f = lam - 1.0f - logf(fmaxf(lam, (float)1e-30)) - tgt;
+    const float den = fabsf(lam - 1.0f) < (float)1e-12 ? (float)1e-12 : lam - 1.0f;
+    lam = fmaxf(lam - f * lam * hh::rcp(den), (float)1e-30);
+  }
+  return lam;
+}
+
+// Gamma(alpha, 1) quantile at Phi(z), corrected saddlepoint inversion.
+__device__ __forceinline__ float gamma_qtl(float alpha, float z) {
+  const float inv_a = hh::rcp(alpha);
+  const float eta0 = z * sqrtf(inv_a);
+  float e1;
+  if (fabsf(eta0) >= (float)0.1) {
+    const float w = lam_of_eta(eta0, kGqNewtonE1) - 1.0f;
+    e1 = logf(fmaxf(eta0 * hh::rcp(w), (float)1e-30)) * hh::rcp(eta0);
+  } else {
+    e1 = (float)(-1.0 / 3.0) + eta0 * (float)(1.0 / 36.0) + eta0 * eta0 * (float)(1.0 / 1620.0);
+  }
+  const float t = fminf(fmaxf(eta0 * (float)(1.0 / 7.5), -1.0f), 1.0f);
+  float q2 = kGqP2[14];
+#pragma unroll
+  for (int i = 13; i >= 0; --i) q2 = q2 * t + kGqP2[i];
+  float q3 = kGqP3[10];
+#pragma unroll
+  for (int i = 9; i >= 0; --i) q3 = q3 * t + kGqP3[i];
+  const float eta = eta0 + inv_a * (e1 + inv_a * (q2 + inv_a * q3));
+  return alpha * lam_of_eta(eta, kGqNewton);
+}
+
+// One exact segment: (V, integrated V so far) -> (V', integrated V').
+__device__ __forceinline__ void exact_segment(float& v, float& iv, float u_pois, float z_gam,
+                                              float u_boost, float z_iv, const ExactParams& c,
+                                              int kmax) {
+  // Poisson(lambda/2) count by CDF inversion; the count is final once
+  // u <= cdf, since cdf only grows.
+  const float mu = v * c.lam_fac;
+  float p = expf(-mu);
+  float cdf = p;
+  float n = 0.0f;
+  for (int k = 1; k <= kmax; ++k) {
+    if (!(u_pois > cdf)) break;
+    n = (float)k;
+    p = p * mu * kInvK[k];
+    cdf = cdf + p;
+  }
+
+  // Gamma(d/2 + N, 2c) through the boosted corrected-saddlepoint quantile.
+  const float alpha = c.d_half + n;
+  const float u_safe = fmaxf(u_boost, (float)1e-30);
+  const float g = gamma_qtl(alpha + 1.0f, z_gam) * expf(logf(u_safe) * hh::rcp(alpha));
+  const float y = c.two_cfac * g;
+
+  // Exact conditional moments of the integrated variance given (v, y).
+  const float z = c.z_fac * sqrtf(fmaxf(v * y, (float)1e-30));
+  const float W = z * bessel_ratio(z, c) + c.nu;
+  const float xy = v + y;
+  const float l1 = c.l1c - xy * c.l1x + W * c.q;
+  const float l2 = c.l2c + xy * c.l2x + (z * z + c.nu2 - W - W * W) * c.q2 + W * c.p_c;
+  const float m1 = fmaxf(c.m1f * l1, (float)1e-10);
+  const float s2 = fmaxf(c.s2f * (l2 - l1 * c.inv_kappa), (float)1e-14);
+
+  // Gamma-matched integrated-variance draw.
+  const float inv_s2 = hh::rcp(s2);
+  const float shape = m1 * m1 * inv_s2;
+  const float scale = s2 * hh::rcp(m1);
+  const float iv_seg = fmaxf(scale * gamma_qtl(shape, z_iv), (float)1e-10);
+  v = y;
+  iv = iv + iv_seg;
+}
+
+// Conditional BS close through J = (V_T - V_0 - kappa*theta*T)/sigma + (kappa/sigma)*IV.
+__device__ __forceinline__ float exact_close(float v, float iv, const ExactParams& c) {
+  const float j = (v - c.c_j) * c.inv_sigma + iv * c.k_over_sigma;
+  return hh::cond_bs_value(iv, j, c.close);
+}
+
+// The (value, antithetic value) of global pair `pair`.  `sobol` is the
+// (4*segments, 31) table in shared memory for QMC, or null for Philox.
+__device__ __forceinline__ void exact_pair(unsigned long long pair, const ExactParams& c,
+                                           const int* sobol, int segments, int kmax,
+                                           bool antithetic, uint32_t seed, uint32_t device_id,
+                                           long long point_offset, float& val, float& val_a) {
+  float v = c.v0, iv = 0.0f, va = c.v0, iva = 0.0f;
+  const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
+  for (int s = 0; s < segments; ++s) {
+    float u_pois, z_gam, u_boost, z_iv;
+    if (sobol) {
+      const int* rows = sobol + 4 * s * (hh::kSobolBits + 1);
+      u_pois = hh::sobol_uniform(idx, rows);
+      z_gam = hh::ndtri_approx(hh::sobol_uniform(idx, rows + (hh::kSobolBits + 1)));
+      u_boost = hh::sobol_uniform(idx, rows + 2 * (hh::kSobolBits + 1));
+      z_iv = hh::ndtri_approx(hh::sobol_uniform(idx, rows + 3 * (hh::kSobolBits + 1)));
+    } else {
+      const hh::U4 w = hh::philox_block(pair, (uint32_t)s, seed, device_id);
+      hh::box_muller(w.x, w.y, z_gam, z_iv);
+      u_pois = hh::uniform_from_bits(w.z);
+      u_boost = hh::uniform_from_bits(w.w);
+    }
+    exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax);
+    if (antithetic) {
+      exact_segment(va, iva, 1.0f - u_pois, -z_gam, 1.0f - u_boost, -z_iv, c, kmax);
+    }
+  }
+  val = exact_close(v, iv, c);
+  val_a = antithetic ? exact_close(va, iva, c) : 0.0f;
+}
+
+// Stage the parameter vector and the Sobol' table in shared memory.
+__device__ __forceinline__ const int* stage_inputs(const float* params, const int* sobol,
+                                                   int segments, ExactParams& sp, int* ssob) {
+  float* dst = reinterpret_cast<float*>(&sp);
+  for (int i = threadIdx.x; i < kNumParams; i += blockDim.x) dst[i] = params[i];
+  if (sobol) {
+    const int n = 4 * segments * (hh::kSobolBits + 1);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) ssob[i] = sobol[i];
+  }
+  __syncthreads();
+  return sobol ? ssob : nullptr;
+}
+
+__global__ void __launch_bounds__(kThreads)
+exact_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
+                    float* __restrict__ out, long long n_paths, int segments, int antithetic,
+                    int kmax, uint32_t seed, uint32_t device_id, long long point_offset) {
+  __shared__ ExactParams sp;
+  extern __shared__ int ssob[];
+  const int* table = stage_inputs(params, sobol, segments, sp, ssob);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_paths) return;
+  float val, val_a;
+  exact_pair((unsigned long long)i, sp, table, segments, kmax, antithetic != 0, seed, device_id,
+             point_offset, val, val_a);
+  out[i] = val;
+  if (antithetic) out[n_paths + i] = val_a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+exact_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
+                   double* __restrict__ partials, long long total_pairs, int segments, int kmax,
+                   uint32_t seed, uint32_t device_id, long long point_offset) {
+  __shared__ ExactParams sp;
+  __shared__ double red[kThreads];
+  extern __shared__ int ssob[];
+  const int* table = stage_inputs(params, sobol, segments, sp, ssob);
+  float acc = 0.0f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs; g += stride) {
+    float val, val_a;
+    exact_pair((unsigned long long)g, sp, table, segments, kmax, true, seed, device_id,
+               point_offset, val, val_a);
+    acc += val + val_a;
+  }
+  red[threadIdx.x] = (double)acc;
+  __syncthreads();
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) partials[blockIdx.x] = red[0];
+}
+
+size_t sobol_smem(const int* sobol, int segments) {
+  return sobol ? sizeof(int) * 4 * segments * (hh::kSobolBits + 1) : 0;
+}
+
+}  // namespace
+
+// Per-path undiscounted values: out is (1 or 2, n_paths) float32.
+extern "C" int hh_exact_values(const float* params, const int* sobol, float* out,
+                               long long n_paths, int segments, int antithetic, int kmax,
+                               unsigned seed, unsigned device_id, long long point_offset,
+                               void* stream) {
+  const long long blocks = (n_paths + kThreads - 1) / kThreads;
+  exact_values_kernel<<<(unsigned)blocks, kThreads, sobol_smem(sobol, segments),
+                        (cudaStream_t)stream>>>(params, sobol, out, n_paths, segments,
+                                                antithetic, kmax, seed, device_id,
+                                                point_offset);
+  return (int)cudaGetLastError();
+}
+
+// Sums of (value + antithetic value): partials is (grid,) float64, one per block.
+extern "C" int hh_exact_price(const float* params, const int* sobol, double* partials, int grid,
+                              long long total_pairs, int segments, int kmax, unsigned seed,
+                              unsigned device_id, long long point_offset, void* stream) {
+  exact_price_kernel<<<grid, kThreads, sobol_smem(sobol, segments), (cudaStream_t)stream>>>(
+      params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// The price kernel's grid: one resident wave on the current device.
+extern "C" int hh_exact_price_grid(int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_price_kernel, kThreads,
+                                                        sizeof(int) * 16 * (hh::kSobolBits + 1));
+  }
+  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  return (int)err;
+}
+

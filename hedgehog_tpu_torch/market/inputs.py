@@ -1,0 +1,94 @@
+"""Market-input containers: Black-Scholes and Heston.
+
+Port of ``hedgehog_tpu/market/inputs.py`` for the two markets of this slice
+(reference src/market_inputs/market_inputs.jl:28-88).  Scalar rates and vols
+are wrapped into a flat curve / flat surface as the reference's convenience
+constructors do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..core.dates import ACT365F, to_ticks, yearfrac
+from ..utils import f64
+from .rate_curve import FlatRateCurve
+from .vol_surface import FlatVolSurface
+
+__all__ = [
+    "BlackScholesInputs",
+    "HestonInputs",
+    "carry_yield",
+    "forward_spot",
+    "market_yearfrac",
+]
+
+_frozen = dataclasses.dataclass(frozen=True)
+
+
+def _wrap_rate(rate, reference_date, daycount):
+    if isinstance(rate, FlatRateCurve):
+        return rate
+    return FlatRateCurve(reference_date, rate, daycount)
+
+
+def carry_yield(market):
+    """Continuous dividend/borrow yield q of a market (0.0 when absent)."""
+    return getattr(market, "dividend_yield", 0.0)
+
+
+def forward_spot(market, T) -> torch.Tensor:
+    """The carry-adjusted spot ``spot·e^{−qT}``; divide by D(T) for the
+    T-forward."""
+    return f64(market.spot) * torch.exp(-f64(carry_yield(market)) * f64(T))
+
+
+def market_yearfrac(market, t):
+    """Year fraction from a market's reference date to ``t`` under the
+    market's day-count convention."""
+    return yearfrac(market.reference_date, t, getattr(market, "daycount", None))
+
+
+@_frozen
+class BlackScholesInputs:
+    """Black-Scholes market data: reference date (ticks), rate curve, spot,
+    vol surface, continuous dividend yield."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    sigma: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount))
+        if not isinstance(self.sigma, FlatVolSurface):
+            object.__setattr__(self, "sigma", FlatVolSurface(self.sigma, ref))
+
+
+@_frozen
+class HestonInputs:
+    """Heston market data: dS/S = r dt + √V dW₁; dV = κ(θ−V) dt + σ√V dW₂,
+    corr(dW₁, dW₂) = ρ."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    V0: Any
+    kappa: Any
+    theta: Any
+    sigma: Any
+    rho: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount))

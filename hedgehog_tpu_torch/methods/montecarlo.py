@@ -1,0 +1,221 @@
+"""Monte Carlo pricing: dynamics × strategy × config, for the Heston main path.
+
+Port of the slice of ``hedgehog_tpu/methods/montecarlo.py`` that prices a
+European vanilla under Heston (reference montecarlo.jl): the configuration
+taxonomy, the two dispatchers and the solver.  The estimators live beside
+it: ``heston_euler.py`` (full-truncation log-Euler) and
+``heston_exact_mixing.py`` (exact-transition mixing); ``use_kernel=True``
+routes them through the CUDA kernels of ``hedgehog_tpu_torch.ops``.
+
+``MonteCarlo.device`` names where the paths are simulated.  A CUDA device
+without a GPU raises; on a CUDA device ``use_kernel=True`` launches the
+kernels and never falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..core.payoffs import VanillaOption, require_european
+from ..core.problems import MonteCarloSolution, PricingProblem
+from ..core.solve import AbstractPricingMethod, register_solver
+from ..market.inputs import carry_yield, market_yearfrac
+from ..market.rate_curve import df, zero_rate_yf
+from ..models.dynamics import HestonDynamics
+from ..utils import resolve_device
+
+__all__ = [
+    "SimulationConfig",
+    "MonteCarlo",
+    "EulerMaruyama",
+    "HestonExactMixing",
+    "NoVarianceReduction",
+    "Antithetic",
+    "simulate_terminal_prices",
+    "simulate_conditional_values",
+    "reduce_payoffs",
+]
+
+_frozen = dataclasses.dataclass(frozen=True)
+
+
+class VarianceReductionStrategy:
+    pass
+
+
+@_frozen
+class NoVarianceReduction(VarianceReductionStrategy):
+    pass
+
+
+@_frozen
+class Antithetic(VarianceReductionStrategy):
+    """Antithetic pairs: negated normals, mirrored (1 − u) uniforms."""
+
+
+class SimulationStrategy:
+    pass
+
+
+@_frozen
+class EulerMaruyama(SimulationStrategy):
+    """Full-truncation log-Euler stepping; ``use_kernel=True`` runs the
+    CUDA kernel (ops/heston_kernel.py)."""
+
+    use_kernel: bool = False
+
+
+@_frozen
+class HestonExactMixing(SimulationStrategy):
+    """Exact-transition segmented mixing estimator (models/heston_exact.py):
+    exact noncentral-χ² CIR transitions, gamma-matched exact conditional ∫V,
+    conditional Black-Scholes close.  Sub-bp scheme bias at
+    ``config.steps = 2`` segments.  It prices through ``solve`` only (no
+    terminal samples); ``use_kernel=True`` runs the CUDA kernel
+    (ops/heston_exact_kernel.py)."""
+
+    use_kernel: bool = False
+
+
+@_frozen
+class SimulationConfig:
+    """MC run configuration (montecarlo.jl:58-79): ``trajectories`` paths
+    (antithetic pairs under :class:`Antithetic`), ``steps`` time steps (or
+    exact segments), the base ``seed`` of the counter-based streams, and
+    ``qmc=True`` for digitally shifted Sobol' points."""
+
+    trajectories: int = 10_000
+    steps: int = 1
+    variance_reduction: VarianceReductionStrategy = NoVarianceReduction()
+    seed: int = 0
+    qmc: bool = False
+
+    def __post_init__(self):
+        if self.qmc and self.trajectories > 2**30:
+            raise ValueError(
+                f"Sobol' sequence period is 2^30 points; trajectories "
+                f"({self.trajectories}) would wrap and duplicate points"
+            )
+
+
+@_frozen
+class MonteCarlo(AbstractPricingMethod):
+    """Monte Carlo pricing of ``dynamics`` by ``strategy`` under ``config``,
+    simulated on ``device``.  The defaults differ from the JAX package's
+    (LognormalDynamics, BlackScholesExact), a strategy this slice has not
+    ported."""
+
+    dynamics: Any = HestonDynamics()
+    strategy: Any = EulerMaruyama()
+    config: SimulationConfig = SimulationConfig()
+    device: str = "cpu"
+
+
+def sim_params(prob: PricingProblem):
+    """(market, T, r0): the drift is the zero rate at time 0 less the carry
+    (montecarlo.jl:176, :200)."""
+    market = prob.market_inputs
+    T = market_yearfrac(market, prob.payoff.expiry)
+    r0 = float(zero_rate_yf(market.rate, 0.0)) - float(carry_yield(market))
+    return market, T, r0
+
+
+def _is_conditional_strategy(strat) -> bool:
+    return isinstance(strat, HestonExactMixing)
+
+
+def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=None,
+                                device_id=0, point_offset=0) -> torch.Tensor:
+    """Per-path undiscounted conditional vanilla values (n_groups, paths),
+    float64 on ``method.device``."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    if not (isinstance(strat, HestonExactMixing) and isinstance(dyn, HestonDynamics)):
+        raise TypeError(
+            "conditional Monte Carlo requires HestonDynamics with "
+            f"HestonExactMixing; got ({type(dyn).__name__}, {type(strat).__name__})"
+        )
+    require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
+    device = resolve_device(method.device)
+    if strat.use_kernel:
+        if torch.as_tensor(prob.payoff.strike).ndim > 0:
+            raise TypeError(
+                "strike grids with conditional MC are a pure-torch feature "
+                "(one V-path set prices every strike); drop use_kernel=True"
+            )
+        if not isinstance(prob.payoff, VanillaOption):
+            raise TypeError(
+                "the fused mixing kernels close vanilla payoffs only; "
+                f"{type(prob.payoff).__name__} needs the pure-torch estimator "
+                "(drop use_kernel=True)"
+            )
+        from ..ops.heston_exact_kernel import heston_exact_mixing_values_adapter
+
+        return heston_exact_mixing_values_adapter(
+            prob, config, strat, key=key, device_id=device_id, point_offset=point_offset,
+            device=device,
+        )
+    from .heston_exact_mixing import heston_exact_mixing_values
+
+    return heston_exact_mixing_values(prob, config, key=key, device_id=device_id,
+                                      point_offset=point_offset, device=device)
+
+
+def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
+                             device_id=0, point_offset=0) -> torch.Tensor:
+    """Terminal asset prices (n_groups, trajectories), n_groups = 2 under
+    antithetic pairing, float64 on ``method.device``.  Under QMC,
+    ``point_offset`` selects a disjoint slice of one Sobol' sequence."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    if _is_conditional_strategy(strat):
+        raise TypeError(
+            f"{type(strat).__name__} is a conditional (mixing) strategy and "
+            "never materializes terminal samples (logS_T is integrated out "
+            "analytically); price through solve(...)"
+        )
+    if not (isinstance(strat, EulerMaruyama) and isinstance(dyn, HestonDynamics)):
+        raise TypeError(
+            f"unsupported (dynamics, strategy) = ({type(dyn).__name__}, {type(strat).__name__})"
+        )
+    device = resolve_device(method.device)
+    if strat.use_kernel:
+        if config.qmc:
+            # the Euler kernel draws its own PRNG stream: a silent pseudo-random
+            # fallback would betray the accuracy the caller sized for
+            raise ValueError("qmc=True is not supported with the Euler kernel strategy")
+        from ..ops.heston_kernel import heston_euler_terminal_adapter
+
+        return heston_euler_terminal_adapter(prob, config, key=key, device_id=device_id,
+                                             device=device)
+    from .heston_euler import heston_euler_paths
+
+    return heston_euler_paths(prob, config, key=key, device_id=device_id,
+                              point_offset=point_offset, device=device)
+
+
+def reduce_payoffs(samples: torch.Tensor, payoff) -> torch.Tensor:
+    """Per-path payoffs, antithetic groups averaged pairwise
+    (montecarlo.jl:428-432); a strike grid gives (m, paths)."""
+    if torch.as_tensor(payoff.strike).ndim > 0:
+        strikes = torch.as_tensor(payoff.strike, dtype=samples.dtype, device=samples.device)
+        payoff = dataclasses.replace(payoff, strike=strikes[:, None])
+        return torch.mean(payoff(samples[:, None, :]), dim=0)
+    return torch.mean(payoff(samples), dim=0)
+
+
+@register_solver(MonteCarlo)
+def _solve_montecarlo(prob: PricingProblem, method: MonteCarlo) -> MonteCarloSolution:
+    payoff = prob.payoff
+    require_european(payoff, "MonteCarlo", spot_only=True)
+    device = resolve_device(method.device)
+    discount = df(prob.market_inputs.rate, payoff.expiry).to(device)
+    if _is_conditional_strategy(method.strategy):
+        values = simulate_conditional_values(prob, method)
+        price = discount * torch.mean(values, dim=(0, -1))
+        return MonteCarloSolution(prob, method, price, values)
+    samples = simulate_terminal_prices(prob, method)
+    payoffs = reduce_payoffs(samples, payoff)
+    price = discount * torch.mean(payoffs, dim=-1)
+    return MonteCarloSolution(prob, method, price, samples)

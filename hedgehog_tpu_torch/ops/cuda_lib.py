@@ -1,0 +1,127 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources in ``hedgehog_tpu_torch/csrc`` are compiled by ``nvcc`` into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) and loaded with ``ctypes``.  The build happens at first use,
+into ``build/hedgehog_tpu_torch/<hash>/`` beside the package, keyed by a
+hash of the sources and flags; nothing is built when the package is
+imported.  Each kernel's entry point returns ``cudaGetLastError()`` after
+its launch, and :class:`CudaKernel` raises on a nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+__all__ = ["CudaKernel", "build_library", "load_library", "BUILD_ROOT", "NVCC_FLAGS"]
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "hedgehog_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB_NAME = "libhh_kernels.so"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, cuhs = _sources()
+    for path in cus + cuhs:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> tuple[pathlib.Path, float]:
+    """Compile the kernels unless a library for these sources exists.
+    Returns (library path, seconds spent building; 0.0 when cached).  The
+    compiler's output, register counts included, is kept in ``build.log``
+    beside the library."""
+    out_dir = BUILD_ROOT / _source_hash()
+    lib = out_dir / _LIB_NAME
+    if lib.exists():
+        return lib, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
+    cus, _ = _sources()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build_library()[0]))
+    lib.hh_error_string.argtypes = [ctypes.c_int]
+    lib.hh_error_string.restype = ctypes.c_char_p
+    lib.hh_exact_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_exact_price_grid.restype = ctypes.c_int
+    return lib
+
+
+class CudaKernel:
+    """One kernel's C entry point, with the count of its launches.
+
+    ``launches`` grows by one for each launch that the CUDA runtime
+    accepted, and nowhere else; a run reads it to show that its path went
+    through the kernel."""
+
+    def __init__(self, symbol: str, argtypes: list):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        fn = getattr(load_library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            msg = load_library().hh_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless ``t`` has the dtype, shape and layout a kernel takes."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(f"the CUDA kernels take cuda tensors; got {t.device}")

@@ -1,0 +1,414 @@
+"""Exact-transition mixing kernels (K2 values, K3 serving price) and their
+plain PyTorch twins.
+
+Port of ``hedgehog_tpu/ops/heston_exact_kernel.py``.  For tensors on a GPU
+the work goes to ``csrc/heston_exact.cu``; for tensors on the CPU to the
+float32 twins below, which repeat the kernels' arithmetic: the same Sobol'
+or Philox bits, the same ``ndtri_approx``, the same polished reciprocal and
+the same trip counts (16 continued-fraction trips, the market's Poisson
+``kmax``).  The public functions keep the JAX signatures, with ``device``
+in place of ``interpret``; ``n_blocks``/``n_batches`` keep their meaning
+(``n_blocks·n_batches·32768`` antithetic pairs per price call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..models.heston_exact import (
+    GQ_NEWTON,
+    GQ_NEWTON_E1,
+    GQ_P2,
+    GQ_P3,
+    GQ_SC,
+    cir_exact_kernel_coeffs,
+    cir_exact_shared_coeffs,
+    poisson_kmax,
+)
+from ..math.counter_rng import uniform_from_bits
+from ..utils import resolve_device
+from .cuda_lib import CudaKernel, check_tensor, load_library, require_cuda
+from .hh_device import (
+    SOBOL_BITS,
+    box_muller,
+    cond_bs_value,
+    ndtri_approx,
+    philox_block,
+    rcp,
+    sobol_masks,
+    sobol_table,
+    sobol_uniforms_tile,
+)
+
+__all__ = [
+    "EXACT_VALUES_KERNEL",
+    "EXACT_PRICE_KERNEL",
+    "heston_exact_mixing_values",
+    "heston_exact_mixing_values_adapter",
+    "heston_exact_mixing_values_plain",
+    "heston_exact_mixing_price_sum_plain",
+    "heston_exact_mixing_vanilla_price",
+]
+
+#: antithetic pairs per TPU program (256 × 128): the unit of ``n_blocks``
+PAIRS_PER_BLOCK = 256 * 128
+#: Bessel-ratio continued-fraction trips and switch point of the kernels
+_CF_ITERS = 16
+_CF_SWITCH = 24.0
+#: the largest Poisson trip count the CUDA kernels take (poisson_kmax's cap + 1)
+_KMAX_LIMIT = 65
+#: segments the QMC kernels stage in shared memory at most
+_QMC_MAX_SEGMENTS = 16
+_MASK32 = 0xFFFFFFFF
+#: pairs per chunk of the K3 twin
+_PLAIN_CHUNK = 2**18
+
+_P_NAMES = (
+    # conditional-BS close (csrc/hh_device.cuh CloseParams)
+    "f_base", "strike", "rho", "rho2_half", "rho_bar2", "cp", "log_f_over_k",
+    # exact CIR transition
+    "v0", "lam_fac", "d_half", "two_cfac",
+    # Bessel ratio (ν, ν² and the asymptotic-series coefficients)
+    "nu", "nu2", "z_fac", "an1", "an2", "an3", "ad1", "ad2", "ad3",
+    # conditional ∫V moment assembly
+    "l1c", "l1x", "l2c", "l2x", "q", "p_c", "q2", "m1f", "s2f", "inv_kappa",
+    # J closure
+    "c_j", "k_over_sigma", "inv_sigma",
+)
+
+_VALUES_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+]
+_PRICE_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+]
+EXACT_VALUES_KERNEL = CudaKernel("hh_exact_values", _VALUES_ARGS)
+EXACT_PRICE_KERNEL = CudaKernel("hh_exact_price", _PRICE_ARGS)
+
+
+def _exact_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, segments, strike, cp) -> np.ndarray:
+    """(33,) float32 parameter vector: float64 host math, cast once; the
+    coefficient formulas are models/heston_exact.py's."""
+    T = dt * segments
+    f_base = float(np.exp(log_s0 + r * T))
+    vals = dict(
+        cir_exact_shared_coeffs(kappa, theta, sigma),
+        **cir_exact_kernel_coeffs(kappa, theta, sigma, dt),
+        f_base=f_base, strike=strike, rho=rho, rho2_half=0.5 * rho**2,
+        rho_bar2=1.0 - rho**2, cp=cp,
+        log_f_over_k=np.log(f_base) - np.log(strike),
+        v0=v0,
+        c_j=v0 + kappa * theta * T, k_over_sigma=kappa / sigma,
+        inv_sigma=1.0 / sigma,
+    )
+    return np.array([float(vals[n]) for n in _P_NAMES], dtype=np.float64).astype(np.float32)
+
+
+def _exact_c(params: torch.Tensor) -> dict:
+    return dict(zip(_P_NAMES, params.unbind()))
+
+
+# ---- the per-path twin ------------------------------------------------------
+
+
+def _bessel_ratio_tile(z, c):
+    """I_{ν+1}(z)/I_ν(z): backward Perron CF below z = 24, asymptotic above."""
+    zc = torch.clamp(z, max=_CF_SWITCH)
+    r = torch.zeros_like(z)
+    for m in range(_CF_ITERS, 0, -1):
+        r = zc * rcp(2.0 * (c["nu"] + m) + zc * r)
+    za = torch.clamp(z, min=_CF_SWITCH)
+    it = rcp(8.0 * za)
+    num = 1.0 + it * (-c["an1"] + it * (c["an2"] - it * c["an3"]))
+    den = 1.0 + it * (-c["ad1"] + it * (c["ad2"] - it * c["ad3"]))
+    return torch.where(z < _CF_SWITCH, r, num * rcp(den))
+
+
+def _lam_of_eta(eta, trips: int):
+    """λ from λ − 1 − ln λ = η²/2: series below |η| = 0.5, Newton above."""
+    lam_s = 1.0 + eta * (1.0 + eta * (1.0 / 3.0 + eta * (1.0 / 36.0
+            + eta * (-1.0 / 270.0 + eta * (1.0 / 4320.0)))))
+    cube = 1.0 + eta * (1.0 / 3.0)
+    cube = torch.clamp(cube * cube * cube, min=1e-12)
+    lam = torch.where(eta >= 0.0, cube,
+                      torch.maximum(cube, torch.exp(-1.0 - 0.5 * eta * eta)))
+    tgt = 0.5 * eta * eta
+    tiny = torch.full_like(eta, 1e-12)
+    for _ in range(trips):
+        f = lam - 1.0 - torch.log(torch.clamp(lam, min=1e-30)) - tgt
+        den = torch.where(torch.abs(lam - 1.0) < 1e-12, tiny, lam - 1.0)
+        lam = torch.clamp(lam - f * lam * rcp(den), min=1e-30)
+    return torch.where(torch.abs(eta) < 0.5, lam_s, lam)
+
+
+def _gamma_qtl(alpha, z):
+    """Gamma(α, 1) quantile at Φ(z), corrected saddlepoint inversion."""
+    inv_a = rcp(alpha)
+    eta0 = z * torch.sqrt(inv_a)
+    lam0 = _lam_of_eta(eta0, GQ_NEWTON_E1)
+    w = lam0 - 1.0
+    safe = torch.abs(eta0) >= 0.1
+    one = torch.ones_like(eta0)
+    w_s = torch.where(safe, w, one)
+    eta_s = torch.where(safe, eta0, one)
+    e1 = torch.where(
+        safe,
+        torch.log(torch.clamp(eta_s * rcp(w_s), min=1e-30)) * rcp(eta_s),
+        -1.0 / 3.0 + eta0 * (1.0 / 36.0) + eta0 * eta0 * (1.0 / 1620.0),
+    )
+    t = torch.clamp(eta0 * (1.0 / GQ_SC), -1.0, 1.0)
+    q2 = torch.full_like(t, GQ_P2[-1])
+    for cf in GQ_P2[-2::-1]:
+        q2 = q2 * t + cf
+    q3 = torch.full_like(t, GQ_P3[-1])
+    for cf in GQ_P3[-2::-1]:
+        q3 = q3 * t + cf
+    eta = eta0 + inv_a * (e1 + inv_a * (q2 + inv_a * q3))
+    return alpha * _lam_of_eta(eta, GQ_NEWTON)
+
+
+_INV_K = [np.float32(0.0)] + [np.float32(1.0 / k) for k in range(1, _KMAX_LIMIT + 1)]
+
+
+def _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax: int):
+    """One exact segment on float32 tensors: (V, ∫V) → (V', ∫V + draw)."""
+    mu = v * c["lam_fac"]
+    p = torch.exp(-mu)
+    cdf = p
+    n = torch.zeros_like(v)
+    for k in range(1, kmax + 1):
+        n = torch.where(u_pois > cdf, float(k), n)
+        p = p * mu * float(_INV_K[k])
+        cdf = cdf + p
+
+    alpha = c["d_half"] + n
+    u_safe = torch.clamp(u_boost, min=1e-30)
+    g = _gamma_qtl(alpha + 1.0, z_gam) * torch.exp(torch.log(u_safe) * rcp(alpha))
+    y = c["two_cfac"] * g
+
+    z = c["z_fac"] * torch.sqrt(torch.clamp(v * y, min=1e-30))
+    W = z * _bessel_ratio_tile(z, c) + c["nu"]
+    xy = v + y
+    l1 = c["l1c"] - xy * c["l1x"] + W * c["q"]
+    l2 = (c["l2c"] + xy * c["l2x"]
+          + (z * z + c["nu2"] - W - W * W) * c["q2"] + W * c["p_c"])
+    m1 = torch.clamp(c["m1f"] * l1, min=1e-10)
+    s2 = torch.clamp(c["s2f"] * (l2 - l1 * c["inv_kappa"]), min=1e-14)
+
+    inv_s2 = rcp(s2)
+    shape = m1 * m1 * inv_s2
+    scale = s2 * rcp(m1)
+    iv_seg = torch.clamp(scale * _gamma_qtl(shape, z_iv), min=1e-10)
+    return y, iv + iv_seg
+
+
+def _exact_close(v, iv, c):
+    """Conditional BS close through J = (V_T − V_0 − κθT)/σ + (κ/σ)·IV."""
+    j = (v - c["c_j"]) * c["inv_sigma"] + iv * c["k_over_sigma"]
+    return cond_bs_value(iv, j, c)
+
+
+def _exact_draws(pair, s, masks, table, seed, device_id):
+    """(u_pois, z_gam, u_boost, z_iv) of segment ``s``: Sobol' dims 4s..4s+3
+    (``masks`` of the point indices ``point_offset + pair``) when ``table``
+    is given, else Philox draw block ``s`` of the pair (csrc/hh_device.cuh)."""
+    if table is not None:
+        u_pois, u_gam, u_boost, u_iv = sobol_uniforms_tile(masks, table, range(4 * s, 4 * s + 4))
+        return u_pois, ndtri_approx(u_gam), u_boost, ndtri_approx(u_iv)
+    w = philox_block(pair, s, seed & _MASK32, device_id & _MASK32)
+    z_gam, z_iv = box_muller(w[0], w[1])
+    return uniform_from_bits(w[2]), z_gam, uniform_from_bits(w[3]), z_iv
+
+
+def _exact_pairs_plain(params, table, pair, segments, antithetic, kmax, seed, device_id,
+                       point_offset):
+    c = _exact_c(params)
+    v = c["v0"].expand(pair.shape)
+    iv = torch.zeros_like(v)
+    va, iva = v, iv
+    masks = sobol_masks(pair + point_offset) if table is not None else None
+    for s in range(segments):
+        u_pois, z_gam, u_boost, z_iv = _exact_draws(pair, s, masks, table, seed, device_id)
+        v, iv = _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax)
+        if antithetic:
+            va, iva = _exact_segment(va, iva, 1.0 - u_pois, -z_gam, 1.0 - u_boost, -z_iv, c, kmax)
+    rows = [_exact_close(v, iv, c)]
+    if antithetic:
+        rows.append(_exact_close(va, iva, c))
+    return torch.stack(rows)
+
+
+def heston_exact_mixing_values_plain(params, table, n_paths: int, segments: int,
+                                     antithetic: bool, kmax: int, seed: int, device_id: int,
+                                     point_offset: int) -> torch.Tensor:
+    """Twin of K2: (1 or 2, n_paths) float32 undiscounted values on
+    ``params.device``; ``table`` is the Sobol' table (QMC) or None (Philox)."""
+    pair = torch.arange(n_paths, dtype=torch.int64, device=params.device)
+    return _exact_pairs_plain(params, table, pair, segments, antithetic, kmax, seed, device_id,
+                              point_offset)
+
+
+def heston_exact_mixing_price_sum_plain(params, table, total_pairs: int, segments: int,
+                                        kmax: int, seed: int, device_id: int,
+                                        point_offset: int) -> torch.Tensor:
+    """Twin of K3: the float64 sum of (value + antithetic value) over the
+    pairs ``[0, total_pairs)``, i.e. the points
+    ``[point_offset, point_offset + total_pairs)``, in chunks of
+    ``_PLAIN_CHUNK`` pairs so that serving sizes fit in memory."""
+    total = torch.zeros((), dtype=torch.float64, device=params.device)
+    for start in range(0, total_pairs, _PLAIN_CHUNK):
+        pair = torch.arange(start, min(start + _PLAIN_CHUNK, total_pairs), dtype=torch.int64,
+                            device=params.device)
+        vals = _exact_pairs_plain(params, table, pair, segments, True, kmax, seed, device_id,
+                                  point_offset)
+        total = total + (vals[0] + vals[1]).to(torch.float64).sum()
+    return total
+
+
+# ---- launch or twin ---------------------------------------------------------
+
+
+def _check_inputs(params, table, segments: int, kmax: int):
+    check_tensor(params, "params", torch.float32, (len(_P_NAMES),))
+    if segments < 1:
+        raise ValueError(f"need segments >= 1; got {segments}")
+    if not 1 <= kmax <= _KMAX_LIMIT:
+        raise ValueError(f"Poisson trip count {kmax} outside [1, {_KMAX_LIMIT}]")
+    if table is not None:
+        if segments > _QMC_MAX_SEGMENTS:
+            raise ValueError(f"QMC kernels take at most {_QMC_MAX_SEGMENTS} segments; got {segments}")
+        check_tensor(table, "sobol table", torch.int32, (4 * segments, SOBOL_BITS + 1))
+        if table.device != params.device:
+            raise ValueError("params and the Sobol' table must be on one device")
+
+
+def _exact_values(params, table, n_paths, segments, antithetic, kmax, seed, device_id,
+                  point_offset) -> torch.Tensor:
+    """Launch K2 for inputs on a GPU; the twin for inputs on the CPU."""
+    _check_inputs(params, table, segments, kmax)
+    if n_paths < 1:
+        raise ValueError(f"need n_paths >= 1; got {n_paths}")
+    if params.device.type == "cpu":
+        return heston_exact_mixing_values_plain(params, table, n_paths, segments, antithetic,
+                                                kmax, seed, device_id, point_offset)
+    require_cuda(params)
+    out = torch.empty((2 if antithetic else 1, n_paths), dtype=torch.float32, device=params.device)
+    EXACT_VALUES_KERNEL.launch(
+        params.device, params.data_ptr(), None if table is None else table.data_ptr(),
+        out.data_ptr(), n_paths, segments, int(antithetic), kmax, seed & _MASK32,
+        device_id & _MASK32, point_offset,
+    )
+    return out
+
+
+def _price_grid(device: torch.device) -> int:
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = load_library().hh_exact_price_grid(ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"hh_exact_price_grid: CUDA error {err}")
+    return grid.value
+
+
+def _exact_price_sum(params, table, total_pairs, segments, kmax, seed, device_id,
+                     point_offset) -> torch.Tensor:
+    """Launch K3 for inputs on a GPU (the float64 sum of its per-block
+    partials); the twin for inputs on the CPU."""
+    _check_inputs(params, table, segments, kmax)
+    if params.device.type == "cpu":
+        return heston_exact_mixing_price_sum_plain(params, table, total_pairs, segments, kmax,
+                                                   seed, device_id, point_offset)
+    require_cuda(params)
+    grid = min(_price_grid(params.device), -(-total_pairs // 256))
+    partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
+    EXACT_PRICE_KERNEL.launch(
+        params.device, params.data_ptr(), None if table is None else table.data_ptr(),
+        partials.data_ptr(), grid, total_pairs, segments, kmax, seed & _MASK32,
+        device_id & _MASK32, point_offset,
+    )
+    return partials.sum()
+
+
+def _inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, segments, seed, qmc, device):
+    dev = resolve_device(device)
+    params = torch.as_tensor(
+        _exact_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, segments, strike, cp), device=dev
+    )
+    table = torch.as_tensor(sobol_table(seed, 4 * segments), device=dev) if qmc else None
+    return params, table, poisson_kmax(kappa, theta, sigma, dt, v0)
+
+
+def heston_exact_mixing_values(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
+    *, n_paths: int, segments: int, seed, antithetic: bool = False, device_id=0,
+    qmc: bool = False, point_offset: int = 0, device="cpu",
+) -> torch.Tensor:
+    """Per-path UNDISCOUNTED conditional vanilla values, (n_groups, n_paths)
+    float32.  QMC is antithetic-only (the Sobol' stream is laid out in
+    mirrored pairs) and guarded against the 2^30 Sobol' period."""
+    if qmc and not antithetic:
+        raise ValueError("kernel QMC path is antithetic-only")
+    if qmc:
+        padded = -(-n_paths // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
+        if point_offset + padded > 2**SOBOL_BITS:
+            raise ValueError(
+                f"Sobol' period is 2^{SOBOL_BITS} points; offset "
+                f"{point_offset} + {padded} paths would wrap"
+            )
+    params, table, kmax = _inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
+                                  segments, seed, qmc, device)
+    return _exact_values(params, table, n_paths, segments, antithetic, kmax, int(seed),
+                         int(device_id), point_offset)
+
+
+def heston_exact_mixing_vanilla_price(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
+    *, n_blocks: int, n_batches: int, segments: int, seed, device_id=0, cp=1.0,
+    qmc: bool = False, point_offset: int = 0, device="cpu",
+) -> torch.Tensor:
+    """Discounted European vanilla price over n_blocks·n_batches·32768
+    antithetic exact-mixing pairs in ONE launch, accumulated on the device:
+    the serving configuration.  Returns a float64 0-dim tensor."""
+    total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    if qmc and point_offset + total_pairs > 2**SOBOL_BITS:
+        raise ValueError(
+            f"Sobol' period is 2^{SOBOL_BITS} points; offset {point_offset} + "
+            f"{total_pairs} pairs would wrap"
+        )
+    params, table, kmax = _inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
+                                  segments, seed, qmc, device)
+    sums = _exact_price_sum(params, table, total_pairs, segments, kmax, int(seed),
+                            int(device_id), point_offset)
+    return discount * sums / (2 * total_pairs)
+
+
+def heston_exact_mixing_values_adapter(prob, config, strat, key=None, device_id=0,
+                                       point_offset=0, device="cpu"):
+    """``MonteCarlo(HestonDynamics(), HestonExactMixing(use_kernel=True))``:
+    float64 per-path values (n_groups, trajectories) from the kernel, the
+    counterpart of the JAX ``heston_exact_mixing_values_pallas``.  Under QMC
+    the seed is always ``config.seed`` (devices slice one shared sequence by
+    ``point_offset``); under PRNG an explicit ``key`` reseeds the stream."""
+    from ..market.inputs import carry_yield, market_yearfrac
+    from ..market.rate_curve import zero_rate_yf
+    from ..methods.montecarlo import Antithetic
+    from .heston_kernel import seed_from_key
+
+    market = prob.market_inputs
+    T = market_yearfrac(market, prob.payoff.expiry)
+    r0 = float(zero_rate_yf(market.rate, 0.0)) - float(carry_yield(market))
+    out = heston_exact_mixing_values(
+        np.log(float(market.spot)), float(market.V0), r0, float(market.kappa),
+        float(market.theta), float(market.sigma), float(market.rho), T / config.steps,
+        float(prob.payoff.strike), prob.payoff.call_put(),
+        n_paths=config.trajectories, segments=config.steps,
+        seed=config.seed if config.qmc else seed_from_key(config, key),
+        antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
+        qmc=config.qmc, point_offset=point_offset, device=device,
+    )
+    return out.to(torch.float64)

@@ -1,0 +1,142 @@
+"""Plain PyTorch twins of the shared device helpers in ``csrc/hh_device.cuh``.
+
+Port of the helpers the Pallas kernels share (ops/heston_kernel.py
+``_uniform_from_bits``/``_box_muller``; ops/heston_qe_kernel.py
+``_sobol_table``/``_sobol_masks``/``_sobol_uniforms_tile``/``_ndtri_approx``/
+``_rcp``/``_norm_cdf``/``_cond_bs_value``).  Everything is float32 on
+float32 tensors, with the constants and the operation order of the CUDA
+header, so that a kernel and its twin agree to fp32 rounding.  The twins
+evaluate both sides of every branch and select, as the TPU kernels do; the
+CUDA helpers evaluate only the side a lane takes, which gives the same value.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..math.counter_rng import philox4x32, prng_key, uniform_from_bits
+from ..math.sobol import _BITS as SOBOL_BITS
+from ..math.sobol import _direction_numbers, sobol_shift
+
+__all__ = [
+    "SOBOL_BITS",
+    "box_muller",
+    "philox_block",
+    "rcp",
+    "sobol_table",
+    "sobol_masks",
+    "sobol_uniforms_tile",
+    "ndtri_approx",
+    "norm_cdf",
+    "cond_bs_value",
+]
+
+_MASK32 = 0xFFFFFFFF
+_SOBOL_SCALE = 2.0**-SOBOL_BITS
+
+
+def philox_block(pair: torch.Tensor, block: int, seed: int, device_id: int):
+    """The four Philox words of draw block ``block`` of each antithetic pair
+    (int64 tensor of global pair indices); layout in math/counter_rng.py."""
+    ctr = (pair & _MASK32, pair >> 32, torch.full_like(pair, block), torch.zeros_like(pair))
+    return philox4x32(ctr, (seed, device_id))
+
+
+def box_muller(b0: torch.Tensor, b1: torch.Tensor, dtype=torch.float32):
+    """Two iid N(0, 1) tensors from two words of random bits; the
+    arithmetic runs in ``dtype`` from the (exact) float32 uniforms."""
+    u1 = torch.clamp(uniform_from_bits(b0), min=1.1754944e-38).to(dtype)  # avoid log(0)
+    u2 = uniform_from_bits(b1).to(dtype)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = (2.0 * math.pi) * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def rcp(x: torch.Tensor) -> torch.Tensor:
+    """Reciprocal estimate plus one Newton polish (the TPU kernels' ``_rcp``;
+    the estimate is the exact reciprocal here and MUFU.RCP on the card)."""
+    r = torch.reciprocal(x)
+    return r * (2.0 - x * r)
+
+
+def sobol_table(seed: int, n_dims: int) -> np.ndarray:
+    """(n_dims, 31) int32 table: 30 Joe–Kuo direction numbers per dimension
+    plus the digital shift, derived from ``seed`` only (never the device
+    id: devices slice ONE shared sequence by point offset)."""
+    V = _direction_numbers(n_dims).astype(np.int64)
+    shift = sobol_shift(prng_key(seed), n_dims).astype(np.int64)
+    return np.concatenate([V, shift[:, None]], axis=1).astype(np.int32)
+
+
+def sobol_masks(idx: torch.Tensor):
+    """The 30 per-bit masks of the point indices, computed once per path."""
+    return [((idx >> b) & 1).bool() for b in range(SOBOL_BITS)]
+
+
+def sobol_uniforms_tile(masks, table: torch.Tensor, dims):
+    """float32 Sobol' uniforms in (0, 1) of the dimensions ``dims``."""
+    out = []
+    for d in dims:
+        acc = torch.zeros(masks[0].shape, dtype=torch.int64, device=masks[0].device)
+        for b in range(SOBOL_BITS):
+            acc = torch.where(masks[b], acc ^ table[d, b], acc)
+        acc = acc ^ table[d, SOBOL_BITS]
+        out.append((acc.to(torch.float32) + 0.5) * _SOBOL_SCALE)
+    return out
+
+
+_BSM_A = (2.50662823884, -18.61500062529, 41.39119773534, -25.44106049637)
+_BSM_B = (-8.47351093090, 23.08336743743, -21.06224101826, 3.13082909833)
+_BSM_C = (
+    0.3374754822726147, 0.9761690190917186, 0.1607979714918209,
+    0.0276438810333863, 0.0038405729373609, 0.0003951896511919,
+    0.0000321767881768, 0.0000002888167364, 0.0000003960315187,
+)
+
+
+def ndtri_approx(u: torch.Tensor) -> torch.Tensor:
+    """Beasley-Springer-Moro Φ⁻¹(u), float32, for u in (0, 1)."""
+    r = u - 0.5
+    t = r * r
+    num = r * (_BSM_A[0] + t * (_BSM_A[1] + t * (_BSM_A[2] + t * _BSM_A[3])))
+    den = 1.0 + t * (_BSM_B[0] + t * (_BSM_B[1] + t * (_BSM_B[2] + t * _BSM_B[3])))
+    x_central = num * rcp(den)
+    u_min = torch.minimum(u, 1.0 - u)
+    s = torch.log(-torch.log(torch.clamp(u_min, min=1e-30)))
+    x_tail = torch.full_like(u, _BSM_C[-1])
+    for c in reversed(_BSM_C[:-1]):
+        x_tail = x_tail * s + c
+    x_tail = torch.where(r > 0.0, x_tail, -x_tail)
+    return torch.where(torch.abs(r) <= 0.42, x_central, x_tail)
+
+
+_NCDF_P = 0.2316419
+_NCDF_B = (0.319381530, -0.356563782, 1.781477937, -1.821255978, 1.330274429)
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def norm_cdf(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 26.2.17 Φ(x), float32, |err| < 7.5e-8."""
+    ax = torch.abs(x)
+    t = rcp(1.0 + _NCDF_P * ax)
+    poly = t * (_NCDF_B[0] + t * (_NCDF_B[1] + t * (
+        _NCDF_B[2] + t * (_NCDF_B[3] + t * _NCDF_B[4]))))
+    upper = 1.0 - _INV_SQRT_2PI * torch.exp(-0.5 * ax * ax) * poly
+    return torch.where(x >= 0.0, upper, 1.0 - upper)
+
+
+def cond_bs_value(iv: torch.Tensor, j: torch.Tensor, c: dict) -> torch.Tensor:
+    """Undiscounted conditional Black-Scholes vanilla value given (IV, J);
+    ``c`` maps the parameter names to float32 0-dim tensors."""
+    e_arg = c["rho"] * j - c["rho2_half"] * iv
+    f_eff = c["f_base"] * torch.exp(e_arg)
+    var = torch.clamp(c["rho_bar2"] * iv, min=1e-10)
+    sd = torch.sqrt(var)
+    inv_sd = rcp(sd)
+    d1 = (c["log_f_over_k"] + e_arg + 0.5 * var) * inv_sd
+    d2 = d1 - sd
+    cp = c["cp"]
+    return cp * (f_eff * norm_cdf(cp * d1) - c["strike"] * norm_cdf(cp * d2))
