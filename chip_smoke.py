@@ -10,12 +10,23 @@ Phases (any failure exits nonzero before the last line):
    CUDA kernels from ``hedgehog_tpu_torch/csrc`` (timed);
 2. each kernel against its plain PyTorch twin on the card, on identical
    Sobol' or Philox bits, with the tolerance and its reason printed, and each
-   kernel's time beside its twin's (CUDA events);
+   kernel's time beside its twin's (CUDA events): K1-K3, then the QE mixing
+   kernels K7 (values), K8 (price), K10 (price + 7 greeks; its price equal to
+   K8's) and K11 (the values VJP), and autograd through K7 -> K11 against
+   K10's greeks; then every kernel again at the shape the main path gives
+   it (``solve``'s pairs, and the serving grid of 2^27 pairs against the
+   chunked summing twins), so the kernels' grid-stride trip counts and
+   per-thread fp32 sums are checked where they run;
 3. the main path through ``solve`` on ``device="cuda"``: exact-transition
-   mixing (QMC and PRNG) and full-truncation Euler, each against the port's
-   Carr-Madan price within 4 standard errors plus the scheme's bias allowance;
-4. the serving dispatch ``heston_exact_mixing_vanilla_price`` at 2^27
-   antithetic pairs (268M paths) per call: paths/s and bp error.
+   mixing and QE mixing (QMC and PRNG) and full-truncation Euler, each
+   against the port's Carr-Madan price within 4 standard errors plus the
+   scheme's bias allowance, and ``torch.autograd.grad`` through the QE
+   mixing ``solve`` against K10's greeks;
+4. the serving dispatches at 2^27 antithetic pairs (268M paths) per call:
+   ``heston_exact_mixing_vanilla_price`` and ``heston_qe_mixing_vanilla_price``
+   (paths/s and bp error), and ``heston_qe_mixing_price_and_greeks`` (its time
+   over the price's, the greek-vector / price ratio, and its greeks against
+   central Carr-Madan differences).
 
 The launch counters are reset just before phase 3 and read after phase 4; a
 kernel of the path with no launch in that window fails the run.  The
@@ -37,8 +48,11 @@ R, SPOT, STRIKE = 0.03, 100.0, 100.0
 HESTON = dict(V0=0.04, kappa=2.0, theta=0.04, sigma=0.3, rho=-0.7)
 SEGMENTS = 2
 EULER_STEPS = 100
-CHECK_PAIRS = 2**20  # kernel-vs-twin shape: one main-path batch a twin can hold
+CHECK_PAIRS = 2**20  # kernel-vs-twin shape of the timings (twins are slow)
+SOLVE_PAIRS = 2**22  # solve's pairs for the mixing kernels, and autograd's
+EULER_PAIRS = 2**23  # solve's pairs for the Euler kernel
 SERVING_BLOCKS, SERVING_BATCHES = 256, 16  # 256·16·32768 = 2^27 pairs per call
+SERVING_CHECK_SEED = 1  # the first timed serving seed
 SERVING_REPS = 6
 BP_CONTRACT = 5.0
 
@@ -51,6 +65,17 @@ MEAN_RTOL = 1e-6  # the same ulp-level noise averaged over 2^21 values
 PRICE_RTOL = 1e-6  # K3 sums the values K2 returns, in another order
 EULER_ALLOWANCE_BP = 10.0  # O(dt) full-truncation bias at 100 steps: a few bp
 EXACT_ALLOWANCE_BP = 1.0  # sub-bp scheme bias of 2 exact segments, plus fp32
+QE_STEPS = 11  # the QE mixing serving step count (bench.py MIX_STEPS); odd: the PRNG tail runs
+QE_ALLOWANCE_BP = 5.0  # the QE-11 scheme bias, about +3.5 bp (bench.py:40), plus fp32
+# K10/K11 sums against their twins: fp32 per thread over a few pairs, in
+# another order than the twins' float64 sums of fp32 terms; a sum near zero
+# is cancellation, so the bound scales with the largest sum
+SUM_RTOL = 1e-5
+AUTOGRAD_RTOL = 1e-5  # K7 -> K11 against K10: the same fp32 tangents, other sums
+# greeks against central Carr-Madan differences: tests/agreement/test_flagship_greeks.py:62-66
+FD_CHECKS = (("spot", 0, 0.5, dict(rel=3e-2)), ("sigma", 4, 1e-3, dict(rel=1.5e-1, abs=5e-2)),
+             ("rate", 6, 1e-4, dict(rel=1e-2)))
+GREEK_ORDER = ("spot", "V0", "kappa", "theta", "sigma", "rho", "rate")
 
 
 class PhaseError(RuntimeError):
@@ -84,6 +109,7 @@ def time_ms(fn, reps: int = 5) -> float:
 
 MARKET_ARGS = (math.log(SPOT), HESTON["V0"], R, HESTON["kappa"], HESTON["theta"],
                HESTON["sigma"], HESTON["rho"])
+PARAMS7 = (SPOT, HESTON["V0"], HESTON["kappa"], HESTON["theta"], HESTON["sigma"], HESTON["rho"], R)
 
 
 def compare_values(name: str, got, want) -> float:
@@ -103,6 +129,21 @@ def compare_values(name: str, got, want) -> float:
     check(share >= VALUES_TOL["share"], f"{name}: only {share:.6f} of values within tolerance")
     check(mean_rel <= MEAN_RTOL, f"{name}: mean differs by {mean_rel:.3e} > {MEAN_RTOL:g}")
     return max_abs
+
+
+def compare_vectors(name: str, got, want, rtol: float) -> float:
+    """Element-wise check of a vector of sums or greeks within
+    rtol·max|want| + rtol·|want|; returns the largest absolute difference."""
+    import torch
+
+    got, want = (torch.as_tensor(x).detach().double().cpu() for x in (got, want))
+    diff = (got - want).abs()
+    bound = rtol * float(want.abs().max()) + rtol * want.abs()
+    say(f"  {name}: max abs diff {float(diff.max()):.3e}, max diff / bound "
+        f"{float((diff / bound).max()):.3f} (rtol {rtol:g} of the largest and of each)")
+    check(bool(torch.isfinite(got).all()) and bool((diff <= bound).all()),
+          f"{name}: {got.tolist()} against {want.tolist()}")
+    return float(diff.max())
 
 
 def phase_kernels(T: float, pairs: int, device: str) -> dict:
@@ -188,6 +229,218 @@ def phase_kernels(T: float, pairs: int, device: str) -> dict:
     return records
 
 
+def phase_qe_kernels(T: float, pairs: int, device: str) -> dict:
+    """The QE mixing kernels against their plain twins on the card, both
+    streams, and autograd through K7 -> K11 against K10 (PRNG); returns the
+    kernels' records (serving stream, without launch counts)."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    say(f"phase 2 (QE mixing): kernels against their plain twins at {pairs} antithetic pairs, "
+        f"{QE_STEPS} steps")
+    say(f"  tolerance: K7 per path as K1-K3; K8 against the mean of K7 over the same points "
+        f"within rel {PRICE_RTOL:g}; K10's price equal to K8's (same stream, grid and "
+        f"reduction); K10 and K11 sums against their twins within {SUM_RTOL:g} of the largest "
+        f"sum plus {SUM_RTOL:g} of each (fp32 per-thread sums in another order); autograd "
+        f"through K7 -> K11 against K10's greeks within {AUTOGRAD_RTOL:g} likewise")
+    dev = torch.device(device)
+    dt_q = T / QE_STEPS
+    disc = math.exp(-R * T)
+    args = (*MARKET_ARGS, dt_q, STRIKE, 1.0)
+    n_blocks, n_batches = pairs // (4 * qk.PAIRS_PER_BLOCK), 4
+    check(n_blocks * n_batches * qk.PAIRS_PER_BLOCK == pairs, "K8 shape must cover the K7 points")
+    price_kw = dict(n_blocks=n_blocks, n_batches=n_batches, steps=QE_STEPS, seed=5, device=dev)
+    tables = {n: torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                                 HESTON["sigma"], dt_q, QE_STEPS, n), device=dev)
+              for n in (4, 5)}
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=dev, dtype=torch.float32))).reshape(
+        2, pairs)
+    records = {}
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        params, table = qk.mix_inputs(*args, QE_STEPS, 5, qmc, dev)
+        run = (params, table)
+
+        got = qk.heston_qe_mixing_values(*args, n_paths=pairs, steps=QE_STEPS, seed=5,
+                                         antithetic=True, qmc=qmc, device=dev)
+        torch.cuda.synchronize()
+        want = qk.heston_qe_mixing_values_plain(*run, pairs, QE_STEPS, True, 5, 0, 0)
+        err7 = compare_values(f"K7 heston_qe_mixing_values ({stream})", got, want)
+        ms7 = time_ms(lambda: qk._qe_values(*run, pairs, QE_STEPS, True, 5, 0, 0))
+        plain7 = time_ms(lambda: qk.heston_qe_mixing_values_plain(*run, pairs, QE_STEPS, True, 5,
+                                                                  0, 0))
+
+        price = float(qk.heston_qe_mixing_vanilla_price(*MARKET_ARGS, dt_q, STRIKE, disc,
+                                                        qmc=qmc, **price_kw))
+        mean = disc * float(got.double().mean())
+        err8 = abs(price - mean)
+        say(f"  K8 heston_qe_mixing_vanilla_price ({stream}): {price:.10f} vs K7 mean "
+            f"{mean:.10f}, rel {err8 / abs(mean):.3e}")
+        check(math.isfinite(price) and err8 <= PRICE_RTOL * abs(mean),
+              f"K8 ({stream}) disagrees with the K7 mean by {err8 / abs(mean):.3e}")
+        ms8 = time_ms(lambda: qk._qe_price_sum(*run, pairs, QE_STEPS, 5, 0, 0))
+        plain8 = time_ms(lambda: qk.heston_qe_mixing_price_sum_plain(*run, pairs, QE_STEPS, 5, 0,
+                                                                     0))
+
+        g_price, greeks = gk.heston_qe_mixing_price_and_greeks(*MARKET_ARGS, dt_q, STRIKE, disc,
+                                                               qmc=qmc, **price_kw)
+        say(f"  K10 price {float(g_price)!r} vs K8 price {price!r}: "
+            f"{'bit-identical' if float(g_price) == price else 'DIFFERENT'}")
+        check(float(g_price) == price, f"K10 ({stream}) price differs from K8's")
+        sums = gk._greek_sums(params, tables[4], table, pairs, QE_STEPS, 5, 0, 0)
+        want10 = gk.heston_qe_mixing_greek_sums_plain(params, tables[4], table, pairs, QE_STEPS,
+                                                      5, 0, 0)
+        compare_vectors(f"K10 sums against the twin ({stream})", sums, want10, SUM_RTOL)
+        twin_greeks = gk._assemble_grad7(want10 / (2 * pairs), MARKET_ARGS[0], R, T, disc,
+                                         disc * want10[0] / (2 * pairs))
+        err10 = float((greeks.cpu() - twin_greeks.cpu()).abs().max())
+        say(f"  K10 greeks {[round(float(g), 8) for g in greeks]} (twin max abs diff {err10:.3e})")
+        ms10 = time_ms(lambda: gk._greek_sums(params, tables[4], table, pairs, QE_STEPS, 5, 0, 0))
+        plain10 = time_ms(lambda: gk.heston_qe_mixing_greek_sums_plain(
+            params, tables[4], table, pairs, QE_STEPS, 5, 0, 0), reps=2)
+
+        sums11 = gk._vjp_sums(params, tables[5], table, ct, pairs, QE_STEPS, True, 5, 0, 0)
+        want11 = gk.heston_qe_mixing_vjp_sums_plain(params, tables[5], table, ct, pairs, QE_STEPS,
+                                                    True, 5, 0, 0)
+        compare_vectors(f"K11 sums against the twin ({stream})", sums11, want11, SUM_RTOL)
+        err11 = float(((sums11 - want11) / (2 * pairs)).abs().max())
+        ms11 = time_ms(lambda: gk._vjp_sums(params, tables[5], table, ct, pairs, QE_STEPS, True,
+                                            5, 0, 0))
+        plain11 = time_ms(lambda: gk.heston_qe_mixing_vjp_sums_plain(
+            params, tables[5], table, ct, pairs, QE_STEPS, True, 5, 0, 0), reps=2)
+        for name, ms, plain in (("K7", ms7, plain7), ("K8", ms8, plain8), ("K10", ms10, plain10),
+                                ("K11", ms11, plain11)):
+            say(f"  {name} ({stream}): kernel {ms:.4f} ms, plain twin {plain:.4f} ms")
+        if qmc:
+            continue
+        # autograd of D·mean(values) through the Function (K7 forward, K11
+        # backward) on the PRNG stream, against K10's greeks on the same pairs
+        leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in MARKET_ARGS]
+        vals = gk.heston_qe_mixing_values_diff(*leaves, dt_q, STRIKE, 1.0, n_paths=pairs,
+                                               steps=QE_STEPS, seed=5, antithetic=True, device=dev)
+        disc_t = torch.exp(-leaves[2] * T).to(dev)
+        g = torch.autograd.grad(disc_t * vals.double().mean(), leaves)
+        ad = torch.stack([g[0] / SPOT, g[1], g[3], g[4], g[5], g[6], g[2]])
+        compare_vectors("autograd K7 -> K11 against K10 greeks (PRNG)", ad, greeks,
+                        AUTOGRAD_RTOL)
+        src, src_g = "hedgehog_tpu_torch/csrc/heston_qe.cu", "hedgehog_tpu_torch/csrc/heston_qe_greeks.cu"
+        records["heston_qe_mixing_values"] = dict(
+            source=src, replaces="hedgehog_tpu/ops/heston_qe_kernel.py:715", max_abs_err=err7,
+            ms=ms7, plain_ms=plain7)
+        records["heston_qe_mixing_vanilla_price"] = dict(
+            source=src, replaces="hedgehog_tpu/ops/heston_qe_kernel.py:880", max_abs_err=err8,
+            ms=ms8, plain_ms=plain8)
+        records["heston_qe_mixing_price_and_greeks"] = dict(
+            source=src_g, replaces="hedgehog_tpu/ops/heston_qe_greeks_kernel.py:407",
+            max_abs_err=err10, ms=ms10, plain_ms=plain10)
+        records["_mixing_values_vjp"] = dict(
+            source=src_g, replaces="hedgehog_tpu/ops/heston_qe_greeks_kernel.py:593",
+            max_abs_err=err11, ms=ms11, plain_ms=plain11)
+    return records
+
+
+def phase_main_shapes(T: float, solve_pairs: int, euler_pairs: int, n_blocks: int,
+                      n_batches: int, device: str) -> dict:
+    """Each kernel against its plain twin at the shape the main path gives
+    it, with the tolerances of the checks above: K1 at solve's Euler pairs;
+    K2, K7 and K11 at solve's (and autograd's) pairs on both streams, seed 0
+    as ``solve`` draws them; the serving kernels K3, K8 and K10 at
+    n_blocks x n_batches blocks on the serving PRNG stream against their
+    chunked summing twins.  Returns each kernel's largest absolute
+    difference (values; or price, greeks and gradient means)."""
+    import torch
+
+    from hedgehog_tpu_torch.models.heston_exact import poisson_kmax
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_kernel as hk
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    serve_pairs = n_blocks * n_batches * qk.PAIRS_PER_BLOCK
+    seed = SERVING_CHECK_SEED
+    say(f"phase 2 (main-path shapes): K1 at {euler_pairs} pairs x {EULER_STEPS} steps; K2, K7 "
+        f"and K11 at {solve_pairs} pairs; K3, K8 and K10 at {n_blocks} x {n_batches} blocks "
+        f"({serve_pairs} pairs, PRNG seed {seed}) against the chunked twins")
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    mkt = MARKET_ARGS
+    disc = math.exp(-R * T)
+    errs = {}
+
+    def compare_sum(name, got, want) -> float:
+        got, want = float(got), float(want)
+        rel = abs(got - want) / abs(want)
+        say(f"  {name}: {got!r} vs twin {want!r}, rel {rel:.3e} (limit {PRICE_RTOL:g})")
+        check(math.isfinite(got) and rel <= PRICE_RTOL, f"{name}: differs from its twin by {rel:.3e}")
+        return disc * abs(got - want) / (2 * serve_pairs)
+
+    dt_e = T / EULER_STEPS
+    pe = torch.as_tensor(hk._euler_params(*mkt, dt_e), device=dev)
+    got = hk.heston_euler_terminal(*mkt, dt_e, n_paths=euler_pairs, steps=EULER_STEPS, seed=0,
+                                   antithetic=True, device=dev)
+    want = hk.heston_euler_terminal_plain(pe, euler_pairs, EULER_STEPS, 0, True, 0)
+    errs["heston_euler_terminal"] = compare_values(f"K1 (PRNG, {euler_pairs} pairs)", got, want)
+
+    dt_x = T / SEGMENTS
+    kmax = poisson_kmax(HESTON["kappa"], HESTON["theta"], HESTON["sigma"], dt_x, HESTON["V0"])
+    px = torch.as_tensor(ek._exact_params(*mkt, dt_x, SEGMENTS, STRIKE, 1.0), device=dev)
+    dt_q = T / QE_STEPS
+    args = (*mkt, dt_q, STRIKE, 1.0)
+    tab4, tab5 = (torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                                  HESTON["sigma"], dt_q, QE_STEPS, n), device=dev)
+                  for n in (4, 5))
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * solve_pairs, device=dev, dtype=torch.float32))
+          ).reshape(2, solve_pairs)
+    e2, e7, e11 = [], [], []
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        table = torch.as_tensor(ek.sobol_table(0, 4 * SEGMENTS), device=dev) if qmc else None
+        got = ek.heston_exact_mixing_values(*mkt, dt_x, STRIKE, 1.0, n_paths=solve_pairs,
+                                            segments=SEGMENTS, seed=0, antithetic=True, qmc=qmc,
+                                            device=dev)
+        want = ek.heston_exact_mixing_values_plain(px, table, solve_pairs, SEGMENTS, True, kmax, 0,
+                                                   0, 0)
+        e2.append(compare_values(f"K2 ({stream}, {solve_pairs} pairs)", got, want))
+
+        params, table = qk.mix_inputs(*args, QE_STEPS, 0, qmc, dev)
+        got = qk.heston_qe_mixing_values(*args, n_paths=solve_pairs, steps=QE_STEPS, seed=0,
+                                         antithetic=True, qmc=qmc, device=dev)
+        want = qk.heston_qe_mixing_values_plain(params, table, solve_pairs, QE_STEPS, True, 0, 0, 0)
+        e7.append(compare_values(f"K7 ({stream}, {solve_pairs} pairs)", got, want))
+        sums = gk._vjp_sums(params, tab5, table, ct, solve_pairs, QE_STEPS, True, 0, 0, 0)
+        want = gk.heston_qe_mixing_vjp_sums_plain(params, tab5, table, ct, solve_pairs, QE_STEPS,
+                                                  True, 0, 0, 0)
+        compare_vectors(f"K11 sums ({stream}, {solve_pairs} pairs)", sums, want, SUM_RTOL)
+        e11.append(float(((sums - want) / (2 * solve_pairs)).abs().max()))
+    errs["heston_exact_mixing_values"] = max(e2)
+    errs["heston_qe_mixing_values"] = max(e7)
+    errs["_mixing_values_vjp"] = max(e11)
+
+    errs["heston_exact_mixing_vanilla_price"] = compare_sum(
+        f"K3 sum ({serve_pairs} pairs)",
+        ek._exact_price_sum(px, None, serve_pairs, SEGMENTS, kmax, seed, 0, 0),
+        ek.heston_exact_mixing_price_sum_plain(px, None, serve_pairs, SEGMENTS, kmax, seed, 0, 0))
+    params, _ = qk.mix_inputs(*args, QE_STEPS, seed, False, dev)
+    errs["heston_qe_mixing_vanilla_price"] = compare_sum(
+        f"K8 sum ({serve_pairs} pairs)",
+        qk._qe_price_sum(params, None, serve_pairs, QE_STEPS, seed, 0, 0),
+        qk.heston_qe_mixing_price_sum_plain(params, None, serve_pairs, QE_STEPS, seed, 0, 0))
+    sums = gk._greek_sums(params, tab4, None, serve_pairs, QE_STEPS, seed, 0, 0)
+    want = gk.heston_qe_mixing_greek_sums_plain(params, tab4, None, serve_pairs, QE_STEPS, seed, 0, 0)
+    compare_vectors(f"K10 sums ({serve_pairs} pairs)", sums, want, SUM_RTOL)
+    n = 2 * serve_pairs
+    got, want = (torch.cat([disc * s[:1] / n, gk._assemble_grad7(s / n, mkt[0], R, T, disc,
+                                                                 disc * s[0] / n)]).cpu()
+                 for s in (sums, want))
+    errs["heston_qe_mixing_price_and_greeks"] = float((got - want).abs().max())
+    say(f"  price and greeks against the twin's: max abs diff "
+        f"{errs['heston_qe_mixing_price_and_greeks']:.3e}; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return errs
+
+
 def phase_main_path(prob, cm: float, trajectories_exact: int, trajectories_euler: int,
                     device: str) -> None:
     """The main path through solve on the device, against Carr-Madan."""
@@ -209,6 +462,13 @@ def phase_main_path(prob, cm: float, trajectories_exact: int, trajectories_euler
          ht.EulerMaruyama(use_kernel=True),
          ht.SimulationConfig(trajectories_euler, EULER_STEPS, ht.Antithetic(), 0, False),
          EULER_ALLOWANCE_BP),
+    ] + [
+        (f"HestonQE(conditional=True, use_kernel=True) qmc={qmc} {QE_STEPS} steps "
+         f"{trajectories_exact} pairs",
+         ht.HestonQE(use_kernel=True, conditional=True),
+         ht.SimulationConfig(trajectories_exact, QE_STEPS, ht.Antithetic(), 0, qmc),
+         QE_ALLOWANCE_BP)
+        for qmc in (True, False)
     ]
     for label, strat, cfg, allowance_bp in runs:
         method = ht.MonteCarlo(ht.HestonDynamics(), strat, cfg, device=device)
@@ -228,6 +488,35 @@ def phase_main_path(prob, cm: float, trajectories_exact: int, trajectories_euler
         say(f"  {label}: price {price:.10f}, err {err:+.3e} ({err / cm * 1e4:+.3f} bp), "
             f"4 SE + {allowance_bp:g} bp = {bound:.3e}, host {seconds:.3f} s")
         check(math.isfinite(price) and abs(err) <= bound, f"{label}: outside the statistical bound")
+
+
+def phase_qe_autograd(prob, pairs: int, device: str) -> None:
+    """torch.autograd.grad through the kernel-backed QE mixing solve (K7
+    forward, K11 backward) against K10's greeks over the same PRNG pairs."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import heston_qe_mixing_price_and_greeks
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import PAIRS_PER_BLOCK
+
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in PARAMS7]
+    spot, v0, kappa, theta, sigma, rho, r = leaves
+    market = ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho)
+    cfg = ht.SimulationConfig(pairs, QE_STEPS, ht.Antithetic(), 0, False)
+    method = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(use_kernel=True, conditional=True),
+                           cfg, device=device)
+    t0 = time.perf_counter()
+    sol = ht.solve(ht.PricingProblem(prob.payoff, market), method)
+    grads = torch.stack(torch.autograd.grad(sol.price, leaves))
+    seconds = time.perf_counter() - t0
+    T = float(ht.yearfrac(REF, EXPIRY))
+    price, greeks = heston_qe_mixing_price_and_greeks(
+        *MARKET_ARGS, T / QE_STEPS, STRIKE, math.exp(-R * T), n_blocks=pairs // (4 * PAIRS_PER_BLOCK),
+        n_batches=4, steps=QE_STEPS, seed=0, device=device)
+    say(f"  autograd through solve (QE mixing, {pairs} pairs, PRNG): price "
+        f"{float(sol.price.detach()):.10f} (K10 {float(price):.10f}), greeks "
+        f"{[round(float(g), 8) for g in grads]}, host {seconds:.3f} s")
+    compare_vectors("autograd through solve against K10 greeks", grads, greeks, AUTOGRAD_RTOL)
 
 
 def phase_serving(T: float, cm: float, n_blocks: int, n_batches: int, device: str) -> dict:
@@ -267,6 +556,76 @@ def phase_serving(T: float, cm: float, n_blocks: int, n_batches: int, device: st
     return dict(ms=ms, paths_per_s=paths_per_s, err_bp=err_bp, price=mc)
 
 
+def phase_qe_serving(T: float, cm: float, prob, n_blocks: int, n_batches: int,
+                     device: str) -> dict:
+    """The QE mixing serving dispatch (K8) and the greek kernel (K10) at the
+    same shape: ms, paths/s, bp error, the greek-vector / price time ratio,
+    and K10's greeks against central Carr-Madan differences."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import heston_qe_mixing_price_and_greeks
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import (
+        PAIRS_PER_BLOCK,
+        heston_qe_mixing_vanilla_price,
+    )
+
+    pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    say(f"phase 4 (QE mixing): serving dispatch, {pairs} antithetic pairs ({2 * pairs} paths), "
+        f"{QE_STEPS} steps per call")
+    disc = math.exp(-R * T)
+    kw = dict(n_blocks=n_blocks, n_batches=n_batches, steps=QE_STEPS, device=device)
+    args = (*MARKET_ARGS, T / QE_STEPS, STRIKE, disc)
+
+    def timed(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [fn(i + 1) for i in range(SERVING_REPS)]
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / SERVING_REPS, outs
+
+    ms, prices = timed(lambda seed: heston_qe_mixing_vanilla_price(*args, seed=seed, **kw))
+    g_ms, outs = timed(lambda seed: heston_qe_mixing_price_and_greeks(*args, seed=seed, **kw))
+    values = [float(p) for p in prices]
+    check(all(math.isfinite(v) for v in values), "QE serving: non-finite price")
+    check([float(p) for p, _ in outs] == values, "QE serving: K10 prices differ from K8's")
+    mc = sum(values) / len(values)
+    err_bp = (mc - cm) / cm * 1e4
+    paths_per_s = 2 * pairs / (ms * 1e-3)
+    ratio = g_ms / ms
+    say(f"  {SERVING_REPS} reps: {ms:.3f} ms per call, {paths_per_s:.6e} paths/s, price "
+        f"{mc:.10f} vs Carr-Madan {cm:.10f}: {err_bp:+.4f} bp (contract < {BP_CONTRACT:g} bp)")
+    say(f"  price + 7 greeks: {g_ms:.3f} ms per call; greek-vector / price time ratio "
+        f"{ratio:.4f}; K10 prices equal K8's on all {SERVING_REPS} seeds")
+    check(abs(err_bp) < BP_CONTRACT, f"QE serving: {err_bp:+.4f} bp is outside the contract")
+
+    greeks = torch.stack([g.cpu() for _, g in outs]).mean(dim=0)
+    say(f"  greeks (mean of {SERVING_REPS}): "
+        + ", ".join(f"{k} {float(g):.8f}" for k, g in zip(GREEK_ORDER, greeks)))
+
+    def cm_price(i, h):
+        p = list(PARAMS7)
+        p[i] += h
+        spot, v0, kappa, theta, sigma, rho, r = p
+        market = ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho)
+        return float(ht.solve(ht.PricingProblem(prob.payoff, market),
+                              ht.CarrMadan(1.0, 32.0, ht.HestonDynamics())).price)
+
+    for name, i, h, tol in FD_CHECKS:
+        fd = (cm_price(i, h) - cm_price(i, -h)) / (2 * h)
+        got = float(greeks[GREEK_ORDER.index(name)])
+        ok = abs(got - fd) <= max(tol.get("rel", 0.0) * abs(fd), tol.get("abs", 0.0))
+        say(f"  {name}: K10 {got:.8f} vs Carr-Madan central difference (h={h:g}) {fd:.8f} ({tol})")
+        check(ok, f"QE serving: {name} greek {got} against the Carr-Madan difference {fd}")
+    for name in ("V0", "theta"):
+        check(float(greeks[GREEK_ORDER.index(name)]) > 0, f"QE serving: {name} greek not positive")
+    return dict(ms=ms, paths_per_s=paths_per_s, err_bp=err_bp, price=mc, greeks_ms=g_ms,
+                greek_price_ratio=ratio, greeks=[float(g) for g in greeks])
+
+
 def main() -> int:
     import torch
 
@@ -278,6 +637,8 @@ def main() -> int:
     from hedgehog_tpu_torch.ops import cuda_lib
     from hedgehog_tpu_torch.ops.heston_exact_kernel import EXACT_PRICE_KERNEL, EXACT_VALUES_KERNEL
     from hedgehog_tpu_torch.ops.heston_kernel import EULER_KERNEL
+    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import QE_GREEKS_KERNEL, QE_VJP_KERNEL
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import QE_PRICE_KERNEL, QE_VALUES_KERNEL
 
     say("phase 1: device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -299,20 +660,31 @@ def main() -> int:
     cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics())).price)
 
     records = phase_kernels(T, CHECK_PAIRS, "cuda")
+    records.update(phase_qe_kernels(T, CHECK_PAIRS, "cuda"))
+    errs = phase_main_shapes(T, SOLVE_PAIRS, EULER_PAIRS, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
+    for name, err in errs.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
 
     kernels = {"heston_euler_terminal": EULER_KERNEL,
                "heston_exact_mixing_values": EXACT_VALUES_KERNEL,
-               "heston_exact_mixing_vanilla_price": EXACT_PRICE_KERNEL}
+               "heston_exact_mixing_vanilla_price": EXACT_PRICE_KERNEL,
+               "heston_qe_mixing_values": QE_VALUES_KERNEL,
+               "heston_qe_mixing_vanilla_price": QE_PRICE_KERNEL,
+               "heston_qe_mixing_price_and_greeks": QE_GREEKS_KERNEL,
+               "_mixing_values_vjp": QE_VJP_KERNEL}
     for k in kernels.values():
         k.launches = 0
-    phase_main_path(prob, cm, 2**22, 2**23, "cuda")
+    phase_main_path(prob, cm, SOLVE_PAIRS, EULER_PAIRS, "cuda")
+    phase_qe_autograd(prob, SOLVE_PAIRS, "cuda")
     serving = phase_serving(T, cm, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
+    qe_serving = phase_qe_serving(T, cm, prob, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     launches = {name: k.launches for name, k in kernels.items()}
     say(f"launches on the main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
-    say(json.dumps({"serving": serving, "build_s": build_s, "nvidia_smi": smi[0]}))
+    say(json.dumps({"serving": serving, "qe_serving": qe_serving, "build_s": build_s,
+                    "nvidia_smi": smi[0]}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)
         for name, rec in records.items()

@@ -1,11 +1,13 @@
 """hedgehog_tpu_torch — the PyTorch/CUDA port of hedgehog_tpu.
 
 The JAX package ``hedgehog_tpu`` stays the reference; this package ports it
-slice by slice and keeps its module tree and public names.  This slice
-prices a European vanilla under Heston by Monte Carlo through
+slice by slice and keeps its module tree and public names.  It prices a
+European vanilla under Heston by Monte Carlo through
 ``solve(PricingProblem(...), MonteCarlo(...))``, with hand-written CUDA
-kernels for the Euler and exact-mixing schemes (``ops/``, sources in
-``csrc/``), checked against the Carr–Madan Fourier price.  Deterministic
+kernels for the Euler, exact-mixing and QE-mixing schemes (``ops/``,
+sources in ``csrc/``), checked against the Carr–Madan Fourier price, and
+its 7-parameter greek vector (``heston_mixing_price_and_greeks``, the greek
+kernel, or ``torch.autograd.grad`` through ``solve``).  Deterministic
 layers run in float64; the kernels and their plain twins in float32.
 Importing the package imports no jax and builds nothing.
 """
@@ -52,6 +54,7 @@ from .methods.montecarlo import (
     Antithetic,
     EulerMaruyama,
     HestonExactMixing,
+    HestonQE,
     MonteCarlo,
     NoVarianceReduction,
     SimulationConfig,
@@ -59,6 +62,7 @@ from .methods.montecarlo import (
     simulate_conditional_values,
     simulate_terminal_prices,
 )
+from .methods.mixing_greeks import GREEK_ORDER, heston_mixing_price_and_greeks
 from .models.dynamics import HestonDynamics, LognormalDynamics
 from .interop import from_reference
 
@@ -74,9 +78,10 @@ __all__ = [
     "FlatRateCurve", "df", "df_yf", "zero_rate", "zero_rate_yf",
     "FlatVolSurface", "get_vol",
     "BlackScholesAnalytic", "CarrMadan",
-    "Antithetic", "EulerMaruyama", "HestonExactMixing", "MonteCarlo",
+    "Antithetic", "EulerMaruyama", "HestonExactMixing", "HestonQE", "MonteCarlo",
     "NoVarianceReduction", "SimulationConfig", "reduce_payoffs",
     "simulate_conditional_values", "simulate_terminal_prices",
+    "GREEK_ORDER", "heston_mixing_price_and_greeks",
     "HestonDynamics", "LognormalDynamics",
     "from_reference",
 ]

@@ -1,0 +1,182 @@
+// Forward-tangent helpers of the QE mixing greek kernels (sm_90a), shared by
+// heston_qe_greeks.cu (K10 price + 7 greeks, K11 the values VJP).
+//
+// Replaces the helpers of hedgehog_tpu/ops/heston_qe_greeks_kernel.py:
+//   _qe_v_coeffs, _tan_init, _tan_step, _div_real, _dj_terms,
+//   _cond_bs_partials
+// Their plain PyTorch twins live in hedgehog_tpu_torch/ops/
+// heston_qe_greeks_kernel.py; keep the two in step.
+//
+// Tangent directions, in table-row order: V0, kappa, theta, sigma [, T].
+// The (n_dirs, 8) tangent table holds per direction the tangents of the
+// V-draw constants (theta_c, e, c_s2_v, c_s2_c, and d(half_dt)/half_dt in
+// column 4) and (alpha, beta, gamma) closing the telescoped J chain
+// J = (V_T - V0 - kappa theta T + kappa IV)/sigma at the end of the path.
+// Per step a path carries dV and the running sum S = sum_k dV_k for each
+// direction; dIV = half_dt (2S - dV_0 - dV_T) closes at the end.
+#pragma once
+
+#include "hh_device.cuh"
+
+namespace hh {
+
+constexpr int kTanCols = 8;
+
+// The QE draw and its tangent coefficients: dvn = cm dm + cs ds2 for the
+// two moment channels m = theta + (v - theta) e and s2 = v c_s2_v + c_s2_c.
+// The primal is qe_v_draw's, to the bit; the coefficients reuse its
+// intermediates.  Clamped lanes (psi at its floor, p at its clip, 1/beta at
+// its cap, u <= p) have zero slope through the clamped quantity.
+__device__ __forceinline__ float qe_v_coeffs(float v, float z, float u, const MixParams& c,
+                                             float& cm, float& cs) {
+  QeDraw d;
+  const float vn = qe_v_draw(v, z, u, c, d);
+  float coef_m = 0.0f, coef_psi = 0.0f;
+  if (d.quad) {
+    // on quad lanes t1 = 2/psi - 1 >= 1/3, so its clamp is never active
+    const float t_psi = -d.top * d.inv_psi;
+    const float rcp_prod = rcp(fmaxf(d.sqw * d.sqb, (float)1e-30));
+    const float rcp_sqw = d.sqb * rcp_prod;
+    const float rcp_sqb = d.sqw * rcp_prod;
+    const float db2_dpsi = t_psi * (1.0f + 0.5f * rcp_sqw * (d.t1 + d.top));
+    const float q_m = d.q * d.q * d.rb;
+    coef_m = q_m;
+    coef_psi = d.a * (d.q * rcp_sqb - q_m) * db2_dpsi;
+  } else if (d.e_live) {
+    // p below its clip <=> (psi + 1)/2 below the 1/beta cap: one mask for
+    // both plateaus; there d(v_exp)/dpsi = m (L - 1)/2
+    coef_m = d.lterm * d.capfac;
+    if (d.p_raw < (float)(1.0 - 1e-6)) coef_psi = (0.5f * d.m_safe) * (d.lterm - 1.0f);
+  }
+  if (!(d.psi_raw > (float)1e-6)) coef_psi = 0.0f;  // psi-floor plateau
+  cm = coef_m - 2.0f * d.psi * d.inv_m * coef_psi;
+  cs = coef_psi * d.inv_m * d.inv_m;
+  return vn;
+}
+
+template <int kDirs>
+struct TanState {
+  float v, iv, j;
+  float dv[kDirs], s[kDirs];
+};
+
+template <int kDirs>
+__device__ __forceinline__ void tan_init(TanState<kDirs>& st, const MixParams& c) {
+  st.v = c.v0;
+  st.iv = 0.0f;
+  st.j = 0.0f;
+#pragma unroll
+  for (int d = 0; d < kDirs; ++d) {
+    st.dv[d] = d == 0 ? 1.0f : 0.0f;  // dV/dV0 = 1 at t = 0
+    st.s[d] = st.dv[d];
+  }
+}
+
+// One mixing step with forward tangents.  Which V-draw constants a direction
+// moves: V0 none; kappa e, c_s2_v, c_s2_c; theta theta_c, c_s2_c; sigma
+// c_s2_v, c_s2_c; T e, c_s2_v, c_s2_c (and half_dt, closed in div_real).
+template <int kDirs>
+__device__ __forceinline__ void tan_step(TanState<kDirs>& st, float z, float u,
+                                         const MixParams& c, const float (*tab)[kTanCols]) {
+  float cm, cs;
+  const float vn = qe_v_coeffs(st.v, z, u, c, cm, cs);
+  const float a_coef = cm * c.e + cs * c.c_s2_v;
+  const float col0 = cm * (1.0f - c.e);
+  const float col1 = cm * (st.v - c.theta);
+  const float col2 = cs * st.v;
+  const float col3 = cs;
+  float dvn[kDirs];
+  dvn[0] = a_coef * st.dv[0];
+  dvn[1] = a_coef * st.dv[1] + col1 * tab[1][1] + col2 * tab[1][2] + col3 * tab[1][3];
+  dvn[2] = a_coef * st.dv[2] + col0 * tab[2][0] + col3 * tab[2][3];
+  dvn[3] = a_coef * st.dv[3] + col2 * tab[3][2] + col3 * tab[3][3];
+  if constexpr (kDirs > 4) {
+    dvn[4] = a_coef * st.dv[4] + col1 * tab[4][1] + col2 * tab[4][2] + col3 * tab[4][3];
+  }
+#pragma unroll
+  for (int d = 0; d < kDirs; ++d) {
+    st.dv[d] = dvn[d];
+    st.s[d] = st.s[d] + dvn[d];
+  }
+  mix_update(st.v, st.iv, st.j, vn, c);
+}
+
+// dIV of direction d from the running sum: half_dt (2S - dV_0 - dV_T), plus
+// (d half_dt / half_dt) IV for the T direction.
+template <int kDirs>
+__device__ __forceinline__ float div_real(const TanState<kDirs>& st, const MixParams& c,
+                                          const float (*tab)[kTanCols], int d) {
+  float trap = 2.0f * st.s[d] - st.dv[d];
+  if (d == 0) trap = trap - 1.0f;
+  float out = c.half_dt * trap;
+  if (kDirs > 4 && d == 4) out = out + tab[kDirs - 1][4] * st.iv;
+  return out;
+}
+
+// dJ of direction d: dV_T/sigma + (kappa/sigma) dIV + alpha IV + beta + gamma J.
+template <int kDirs>
+__device__ __forceinline__ float dj_terms(const TanState<kDirs>& st, const MixParams& c,
+                                          const float (*tab)[kTanCols], int d, float div_d) {
+  return c.inv_sigma * st.dv[d] + c.k_over_sigma * div_d + tab[d][5] * st.iv + tab[d][6] +
+         tab[d][7] * st.j;
+}
+
+// The conditional BS value and its partials: y, dY/dIV, dY/dJ, dY/drho,
+// w = (dY/dF) F (= dY/dlogS0), and Phi(cp d2) for dY/dK = -cp Phi(cp d2).
+struct BsPartials {
+  float y, y_iv, y_j, y_rho, w, phi2;
+};
+
+__device__ __forceinline__ BsPartials cond_bs_partials(float iv, float j, const CloseParams& c) {
+  BsClose b;
+  BsPartials o;
+  o.y = cond_bs_close(iv, j, c, b);
+  o.w = c.cp * b.phi1 * b.f_eff;
+  const float vega_sd = b.f_eff * (float)0.3989422804014327 * expf(-0.5f * b.d1 * b.d1);
+  o.y_iv = o.w * (-c.rho2_half) + vega_sd * c.rho_bar2 * 0.5f * b.inv_sd;
+  o.y_j = o.w * c.rho;
+  o.y_rho = o.w * (j - c.rho * iv) - vega_sd * c.rho * iv * b.inv_sd;
+  o.phi2 = b.phi2;
+  return o;
+}
+
+// Parameters, the tangent table (kDirs rows; none for the primal kernels)
+// and the Sobol' table into shared memory.
+template <int kDirs>
+__device__ __forceinline__ const int* stage_mix_inputs(const float* params, const float* tab,
+                                                       const int* sobol, int steps, MixParams& sp,
+                                                       float (*stab)[kTanCols], int* ssob) {
+  float* dst = reinterpret_cast<float*>(&sp);
+  for (int i = threadIdx.x; i < 16; i += blockDim.x) dst[i] = params[i];
+  for (int i = threadIdx.x; i < kDirs * kTanCols; i += blockDim.x) {
+    stab[i / kTanCols][i % kTanCols] = tab[i];
+  }
+  if (sobol) {
+    const int n = 2 * steps * (kSobolBits + 1);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) ssob[i] = sobol[i];
+  }
+  __syncthreads();
+  return sobol ? ssob : nullptr;
+}
+
+// Sum kCols per-thread float columns over the block in float64 with a
+// halving tree in shared memory (one tree for the price kernel and the
+// greek kernels alike) and write column k's sum to
+// partials[k * gridDim.x + blockIdx.x].
+template <int kThreads, int kCols>
+__device__ __forceinline__ void block_sums(const float (&acc)[kCols], double* red,
+                                           double* partials) {
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    red[threadIdx.x] = (double)acc[k];
+    __syncthreads();
+    for (int h = kThreads / 2; h > 0; h >>= 1) {
+      if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) partials[(long long)k * gridDim.x + blockIdx.x] = red[0];
+    __syncthreads();
+  }
+}
+
+}  // namespace hh

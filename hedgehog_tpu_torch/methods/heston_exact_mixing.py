@@ -54,9 +54,10 @@ def conditional_payoff_close(payoff, f_eff, iv_var):
 
 
 def _conditional_bs_close(prob, market, T, r0, iv, j):
-    """Close (IV, J) mixing factors with the conditional closed form."""
-    rho = float(market.rho)
-    f_eff = float(market.spot) * torch.exp(r0 * T + rho * j - 0.5 * rho**2 * iv)
+    """Close (IV, J) mixing factors with the conditional closed form; spot,
+    ρ and the drift r0 keep their autograd history."""
+    spot, rho, r0 = (f64(x, device=iv.device) for x in (market.spot, market.rho, r0))
+    f_eff = spot * torch.exp(r0 * T + rho * j - 0.5 * rho**2 * iv)
     return conditional_payoff_close(prob.payoff, f_eff, (1.0 - rho**2) * iv)
 
 

@@ -3,9 +3,15 @@
 Port of the slice of ``hedgehog_tpu/methods/montecarlo.py`` that prices a
 European vanilla under Heston (reference montecarlo.jl): the configuration
 taxonomy, the two dispatchers and the solver.  The estimators live beside
-it: ``heston_euler.py`` (full-truncation log-Euler) and
-``heston_exact_mixing.py`` (exact-transition mixing); ``use_kernel=True``
-routes them through the CUDA kernels of ``hedgehog_tpu_torch.ops``.
+it: ``heston_euler.py`` (full-truncation log-Euler),
+``heston_exact_mixing.py`` (exact-transition mixing) and
+``heston_qe_mixing.py`` (QE variance path, conditional close);
+``use_kernel=True`` routes them through the CUDA kernels of
+``hedgehog_tpu_torch.ops``.
+
+On the QE mixing path, market fields that are 0-dim tensors stay tensors
+(spot, V0, κ, θ, σ, ρ and a flat rate), so ``torch.autograd.grad`` of a
+``solve`` price reaches them, through the kernels' backward as well.
 
 ``MonteCarlo.device`` names where the paths are simulated.  A CUDA device
 without a GPU raises; on a CUDA device ``use_kernel=True`` launches the
@@ -25,13 +31,14 @@ from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import carry_yield, market_yearfrac
 from ..market.rate_curve import df, zero_rate_yf
 from ..models.dynamics import HestonDynamics
-from ..utils import resolve_device
+from ..utils import f64, resolve_device
 
 __all__ = [
     "SimulationConfig",
     "MonteCarlo",
     "EulerMaruyama",
     "HestonExactMixing",
+    "HestonQE",
     "NoVarianceReduction",
     "Antithetic",
     "simulate_terminal_prices",
@@ -81,6 +88,24 @@ class HestonExactMixing(SimulationStrategy):
 
 
 @_frozen
+class HestonQE(SimulationStrategy):
+    """Andersen Quadratic-Exponential discretization (models/heston_qe.py).
+
+    ``conditional=True`` prices European vanillas by the Romano–Touzi
+    conditional (mixing) estimator: only the variance path is simulated (one
+    normal and one uniform per step) and each path closes with the
+    conditional Black-Scholes formula; it prices through ``solve`` only.
+    ``use_kernel=True`` runs the CUDA kernels (ops/heston_qe_kernel.py),
+    whose backward is a kernel too (ops/heston_qe_greeks_kernel.py).  The
+    QE-M terminal sampler (``conditional=False``) is not ported yet and
+    raises."""
+
+    martingale_correction: bool = True
+    use_kernel: bool = False
+    conditional: bool = False
+
+
+@_frozen
 class SimulationConfig:
     """MC run configuration (montecarlo.jl:58-79): ``trajectories`` paths
     (antithetic pairs under :class:`Antithetic`), ``steps`` time steps (or
@@ -115,16 +140,20 @@ class MonteCarlo(AbstractPricingMethod):
 
 
 def sim_params(prob: PricingProblem):
-    """(market, T, r0): the drift is the zero rate at time 0 less the carry
-    (montecarlo.jl:176, :200)."""
+    """(market, T, r0): the drift r0 is the zero rate at time 0 less the
+    carry (montecarlo.jl:176, :200), a float64 0-dim tensor that keeps the
+    rate's autograd history."""
     market = prob.market_inputs
     T = market_yearfrac(market, prob.payoff.expiry)
-    r0 = float(zero_rate_yf(market.rate, 0.0)) - float(carry_yield(market))
+    r0 = zero_rate_yf(market.rate, 0.0) - f64(carry_yield(market))
     return market, T, r0
 
 
 def _is_conditional_strategy(strat) -> bool:
-    return isinstance(strat, HestonExactMixing)
+    """True for the strategies that price through the conditional (mixing)
+    estimator and never materialize terminal samples."""
+    return (isinstance(strat, HestonQE) and strat.conditional) or isinstance(
+        strat, HestonExactMixing)
 
 
 def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=None,
@@ -132,9 +161,9 @@ def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=No
     """Per-path undiscounted conditional vanilla values (n_groups, paths),
     float64 on ``method.device``."""
     dyn, strat, config = method.dynamics, method.strategy, method.config
-    if not (isinstance(strat, HestonExactMixing) and isinstance(dyn, HestonDynamics)):
+    if not (isinstance(strat, (HestonQE, HestonExactMixing)) and isinstance(dyn, HestonDynamics)):
         raise TypeError(
-            "conditional Monte Carlo requires HestonDynamics with "
+            "conditional Monte Carlo requires HestonDynamics with HestonQE or "
             f"HestonExactMixing; got ({type(dyn).__name__}, {type(strat).__name__})"
         )
     require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
@@ -151,16 +180,18 @@ def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=No
                 f"{type(prob.payoff).__name__} needs the pure-torch estimator "
                 "(drop use_kernel=True)"
             )
-        from ..ops.heston_exact_kernel import heston_exact_mixing_values_adapter
-
-        return heston_exact_mixing_values_adapter(
-            prob, config, strat, key=key, device_id=device_id, point_offset=point_offset,
-            device=device,
-        )
-    from .heston_exact_mixing import heston_exact_mixing_values
-
-    return heston_exact_mixing_values(prob, config, key=key, device_id=device_id,
-                                      point_offset=point_offset, device=device)
+        if isinstance(strat, HestonExactMixing):
+            from ..ops.heston_exact_kernel import heston_exact_mixing_values_adapter as adapter
+        else:
+            from ..ops.heston_qe_kernel import heston_qe_mixing_values_adapter as adapter
+        return adapter(prob, config, strat, key=key, device_id=device_id,
+                       point_offset=point_offset, device=device)
+    if isinstance(strat, HestonExactMixing):
+        from .heston_exact_mixing import heston_exact_mixing_values as values
+    else:
+        from .heston_qe_mixing import heston_qe_mixing_values as values
+    return values(prob, config, key=key, device_id=device_id, point_offset=point_offset,
+                  device=device)
 
 
 def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
@@ -174,6 +205,11 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
             f"{type(strat).__name__} is a conditional (mixing) strategy and "
             "never materializes terminal samples (logS_T is integrated out "
             "analytically); price through solve(...)"
+        )
+    if isinstance(strat, HestonQE):
+        raise TypeError(
+            "the QE-M terminal sampler (HestonQE(conditional=False)) is not ported "
+            "yet; use HestonQE(conditional=True), HestonExactMixing or EulerMaruyama"
         )
     if not (isinstance(strat, EulerMaruyama) and isinstance(dyn, HestonDynamics)):
         raise TypeError(

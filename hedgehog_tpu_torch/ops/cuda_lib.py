@@ -2,7 +2,8 @@
 
 The sources in ``hedgehog_tpu_torch/csrc`` are compiled by ``nvcc`` into one
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) and loaded with ``ctypes``.  The build happens at first use,
+takes seconds) and loaded with ``ctypes``: one ``nvcc -c`` per ``.cu`` file,
+all started together, then one link.  The build happens at first use,
 into ``build/hedgehog_tpu_torch/<hash>/`` beside the package, keyed by a
 hash of the sources and flags; nothing is built when the package is
 imported.  Each kernel's entry point returns ``cudaGetLastError()`` after
@@ -27,7 +28,7 @@ __all__ = ["CudaKernel", "build_library", "load_library", "BUILD_ROOT", "NVCC_FL
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "hedgehog_tpu_torch"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libhh_kernels.so"
@@ -63,15 +64,28 @@ def build_library() -> tuple[pathlib.Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
+    pid = os.getpid()
     cus, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    objs = [out_dir / f"{cu.stem}.{pid}.o" for cu in cus]
+    tmp = out_dir / f"{_LIB_NAME}.{pid}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)] for cu, obj in zip(cus, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    steps = [(cmd, *proc.communicate(), proc.returncode) for cmd, proc in zip(compiles, procs)]
+    if all(rc == 0 for *_, rc in steps):
+        link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.stdout, proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    (out_dir / "build.log").write_text(
+        "".join(" ".join(cmd) + "\n" + out + err for cmd, out, err, _ in steps))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, _, err, rc in steps:
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({rc}):\n{err[-6000:]}")
     os.replace(tmp, lib)
     return lib, seconds
 
@@ -84,6 +98,8 @@ def load_library() -> ctypes.CDLL:
     lib.hh_error_string.restype = ctypes.c_char_p
     lib.hh_exact_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.hh_exact_price_grid.restype = ctypes.c_int
+    lib.hh_qe_price_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.hh_qe_price_grid.restype = ctypes.c_int
     return lib
 
 

@@ -1,0 +1,386 @@
+"""QE mixing greek kernels (K10 price + 7 greeks, K11 the values VJP), their
+plain PyTorch twins, and the differentiable view of the values kernel.
+
+Port of the mixing part of ``hedgehog_tpu/ops/heston_qe_greeks_kernel.py``.
+Both kernels replay the values/price kernels' stream (ops/heston_qe_kernel.py)
+and push forward tangents through the QE scan: per step the draw's two
+coefficients (∂vn = cm·∂m + cs·∂s2) are computed once and applied to every
+direction (V0, κ, θ, σ, and T for K11); J's tangent closes at the end of the
+path from (dV_T, dIV), and spot, ρ, rate (and the strike) close from the
+conditional Black-Scholes partials.  For tensors on a GPU the work goes to
+``csrc/heston_qe_greeks.cu`` (helpers in ``csrc/heston_qe.cuh``); for tensors
+on the CPU to the float32 twins below.
+
+:func:`heston_qe_mixing_values_diff` is K7 as a ``torch.autograd.Function``
+whose backward is K11, so ``torch.autograd.grad`` of a kernel-backed
+``solve`` price runs at kernel speed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .cuda_lib import CudaKernel, check_tensor, require_cuda
+from .heston_qe_kernel import (
+    PAIRS_PER_BLOCK,
+    PLAIN_CHUNK,
+    check_inputs,
+    check_period,
+    heston_qe_mixing_values,
+    mix_draws,
+    mix_inputs,
+    price_grid,
+)
+from .hh_device import mix_c, mix_update, norm_cdf, qe_v_draw, rcp
+
+__all__ = [
+    "QE_GREEKS_KERNEL",
+    "QE_VJP_KERNEL",
+    "heston_qe_mixing_price_and_greeks",
+    "heston_qe_mixing_greek_sums_plain",
+    "heston_qe_mixing_vjp_sums_plain",
+    "heston_qe_mixing_values_diff",
+]
+
+#: columns of the tangent table: tangents of (θc, e, c_s2_v, c_s2_c,
+#: half_dt relative) and (α, β, γ) of the J closure
+N_COLS = 8
+N_GREEK_DIRS = 4  # V0, κ, θ, σ
+N_VJP_DIRS = 5  # V0, κ, θ, σ, T
+_MASK32 = 0xFFFFFFFF
+
+QE_GREEKS_KERNEL = CudaKernel("hh_qe_greeks", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong,
+    ctypes.c_void_p,
+])
+QE_VJP_KERNEL = CudaKernel("hh_qe_values_vjp", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+    ctypes.c_longlong, ctypes.c_void_p,
+])
+
+
+# ---- the tangent helpers' twins (csrc/heston_qe.cuh) -----------------------------
+
+
+def qe_v_coeffs(v, z, u, c):
+    """The QE draw plus its tangent coefficients (vn, cm, cs), fp32: the
+    primal is hh_device.qe_v_draw's, and the coefficients reuse its
+    intermediates.  Both branches are evaluated and selected (a dead branch
+    stays finite); clamped lanes (ψ at its floor, p at its clip, 1/β at its
+    cap, u ≤ p) have zero slope."""
+    vn, d = qe_v_draw(v, z, u, c)
+    t_psi = -d["top"] * d["inv_psi"]
+    rcp_prod = rcp(torch.clamp(d["sqw"] * d["sqb"], min=1e-30))
+    rcp_sqw = d["sqb"] * rcp_prod
+    rcp_sqb = d["sqw"] * rcp_prod
+    db2_dpsi = t_psi * (1.0 + 0.5 * rcp_sqw * (d["t1"] + d["top"]))
+    q = d["q"]
+    q_m = q * q * d["rb"]
+    q_psi = d["a"] * (q * rcp_sqb - q_m) * db2_dpsi
+
+    e_live = d["e_live"].to(v.dtype)
+    cap_live = (d["p_raw"] < 1.0 - 1e-6).to(v.dtype)
+    e_m = e_live * d["lterm"] * d["capfac"]
+    e_psi = e_live * cap_live * (0.5 * d["m_safe"]) * (d["lterm"] - 1.0)
+
+    coef_m = torch.where(d["quad"], q_m, e_m)
+    coef_psi = torch.where(d["quad"], q_psi, e_psi)
+    coef_psi = torch.where(d["psi_raw"] > 1e-6, coef_psi, torch.zeros_like(coef_psi))  # ψ floor
+    inv_m = d["inv_m"]
+    cm = coef_m - 2.0 * d["psi"] * inv_m * coef_psi
+    cs = coef_psi * inv_m * inv_m
+    return vn, cm, cs
+
+
+def tan_init(c, n_dirs: int, shape):
+    """(v, iv, j, dv per direction, running sums S per direction)."""
+    v = c["v0"].expand(shape)
+    zero = torch.zeros_like(v)
+    dvs = [torch.ones_like(v) if d == 0 else zero for d in range(n_dirs)]  # ∂V/∂V0 = 1
+    return v, zero, zero, dvs, list(dvs)
+
+
+def tan_step(state, z, u, c, dtab, n_dirs: int):
+    """One mixing step with forward tangents; ``dtab`` is the (n_dirs, 8)
+    tangent table, applied dense (the constants a direction does not move
+    are exact zeros in it)."""
+    v, iv, j, dvs, sums = state
+    vn, cm, cs = qe_v_coeffs(v, z, u, c)
+    a_coef = cm * c["e"] + cs * c["c_s2_v"]
+    cols = (cm * (1.0 - c["e"]), cm * (v - c["theta"]), cs * v, cs)
+    new_dvs = []
+    for d in range(n_dirs):
+        dvn = a_coef * dvs[d]
+        for k, col in enumerate(cols):
+            dvn = dvn + col * dtab[d, k]
+        new_dvs.append(dvn)
+    v, iv, j = mix_update(v, iv, j, vn, c)
+    return v, iv, j, new_dvs, [s + dv for s, dv in zip(sums, new_dvs)]
+
+
+def div_real(state, c, dtab, d: int):
+    """dIV of direction d: half_dt·(2S − dV_0 − dV_T) + (dhalf_dt/half_dt)·IV
+    (nonzero for the T direction only)."""
+    _v, iv, _j, dvs, sums = state
+    trap = 2.0 * sums[d] - dvs[d]
+    if d == 0:
+        trap = trap - 1.0
+    return c["half_dt"] * trap + dtab[d, 4] * iv
+
+
+def dj_terms(state, c, dtab, d: int, div_d):
+    """dJ of direction d: dV_T/σ + (κ/σ)·dIV + α·IV + β + γ·J."""
+    _v, iv, j, dvs, _sums = state
+    return (c["inv_sigma"] * dvs[d] + c["k_over_sigma"] * div_d + dtab[d, 5] * iv + dtab[d, 6]
+            + dtab[d, 7] * j)
+
+
+def cond_bs_partials(iv, j, c):
+    """fp32 conditional BS value and partials (y, y_iv, y_j, y_rho, w, Φ(cp·d2))
+    with w = ∂Y/∂logS0; ∂Y/∂K = −cp·Φ(cp·d2)."""
+    e_arg = c["rho"] * j - c["rho2_half"] * iv
+    f_eff = c["f_base"] * torch.exp(e_arg)
+    var = torch.clamp(c["rho_bar2"] * iv, min=1e-10)
+    sd = torch.sqrt(var)
+    inv_sd = rcp(sd)
+    d1 = (c["log_f_over_k"] + e_arg + 0.5 * var) * inv_sd
+    d2 = d1 - sd
+    cp = c["cp"]
+    phi1, phi2 = norm_cdf(cp * d1), norm_cdf(cp * d2)
+    y = cp * (f_eff * phi1 - c["strike"] * phi2)
+    w = cp * phi1 * f_eff
+    vega_sd = f_eff * 0.3989422804014327 * torch.exp(-0.5 * d1 * d1)
+    y_iv = w * (-c["rho2_half"]) + vega_sd * c["rho_bar2"] * 0.5 * inv_sd
+    y_j = w * c["rho"]
+    y_rho = w * (j - c["rho"] * iv) - vega_sd * c["rho"] * iv * inv_sd
+    return y, y_iv, y_j, y_rho, w, phi2
+
+
+def _tangent_paths(params, dtab, table, pair, steps, antithetic, seed, device_id,
+                   point_offset, n_dirs):
+    """The tangent states of the pairs ``pair`` (and their antithetic twins)."""
+    c = mix_c(params)
+    s = tan_init(c, n_dirs, pair.shape)
+    sa = tan_init(c, n_dirs, pair.shape) if antithetic else None
+    for z, u in mix_draws(pair, steps, table, seed, device_id, point_offset):
+        s = tan_step(s, z, u, c, dtab, n_dirs)
+        if antithetic:
+            sa = tan_step(sa, -z, 1.0 - u, c, dtab, n_dirs)
+    return c, [s] if sa is None else [s, sa]
+
+
+def _chunks(total: int, device):
+    for start in range(0, total, PLAIN_CHUNK):
+        yield torch.arange(start, min(start + PLAIN_CHUNK, total), dtype=torch.int64,
+                           device=device)
+
+
+def heston_qe_mixing_greek_sums_plain(params, dtab, table, total_pairs: int, steps: int,
+                                      seed: int, device_id: int, point_offset: int):
+    """Twin of K10: float64 sums over the pairs [0, total_pairs) of
+    [y, chain_V0, chain_κ, chain_θ, chain_σ, w, y_ρ], each term the fp32
+    sum over a pair and its antithetic twin."""
+    total = torch.zeros(7, dtype=torch.float64, device=params.device)
+    for pair in _chunks(total_pairs, params.device):
+        c, (s, sa) = _tangent_paths(params, dtab, table, pair, steps, True, seed, device_id,
+                                    point_offset, N_GREEK_DIRS)
+        y, y_iv, y_j, y_rho, w, _ = cond_bs_partials(s[1], s[2], c)
+        ya, ya_iv, ya_j, ya_rho, wa, _ = cond_bs_partials(sa[1], sa[2], c)
+        cols = [y + ya]
+        for d in range(N_GREEK_DIRS):
+            div_d, diva_d = div_real(s, c, dtab, d), div_real(sa, c, dtab, d)
+            cols.append(y_iv * div_d + y_j * dj_terms(s, c, dtab, d, div_d)
+                        + ya_iv * diva_d + ya_j * dj_terms(sa, c, dtab, d, diva_d))
+        cols += [w + wa, y_rho + ya_rho]
+        total = total + torch.stack([x.to(torch.float64).sum() for x in cols])
+    return total
+
+
+def heston_qe_mixing_vjp_sums_plain(params, dtab, table, ct, n_paths: int, steps: int,
+                                    antithetic: bool, seed: int, device_id: int,
+                                    point_offset: int):
+    """Twin of K11: float64 sums over the paths of the cotangent-weighted
+    [chain_V0, chain_κ, chain_θ, chain_σ, chain_T, w, y_ρ, y_K]."""
+    total = torch.zeros(8, dtype=torch.float64, device=params.device)
+    for pair in _chunks(n_paths, params.device):
+        c, states = _tangent_paths(params, dtab, table, pair, steps, antithetic, seed, device_id,
+                                   point_offset, N_VJP_DIRS)
+        cols = [0.0] * 8
+        for st, ct_g in zip(states, ct[:, pair]):
+            _y, y_iv, y_j, y_rho, w, phi2 = cond_bs_partials(st[1], st[2], c)
+            for d in range(N_VJP_DIRS):
+                div_d = div_real(st, c, dtab, d)
+                cols[d] = cols[d] + ct_g * (y_iv * div_d + y_j * dj_terms(st, c, dtab, d, div_d))
+            cols[5] = cols[5] + ct_g * w
+            cols[6] = cols[6] + ct_g * y_rho
+            cols[7] = cols[7] + ct_g * (-c["cp"] * phi2)
+        total = total + torch.stack([x.to(torch.float64).sum() for x in cols])
+    return total
+
+
+# ---- host side ----------------------------------------------------------------------
+
+
+def _greek_table(v0, kappa, theta, sigma, dt, steps: int, n_dirs: int) -> np.ndarray:
+    """(n_dirs, 8) float32 tangent table of the directions (V0, κ, θ, σ[, T]):
+    columns 0-4 the tangents of (θc, e, c_s2_v, c_s2_c, half_dt), column 4
+    relative (dhalf_dt/half_dt); columns 5-7 (α, β, γ) of the J closure.
+    Derived from methods/mixing_greeks.greek_tables, the float64 forward
+    greeks' tables, so the two cannot drift."""
+    from ..methods.mixing_greeks import greek_tables
+
+    dc, djc = greek_tables(kappa, theta, sigma, dt * steps, steps)
+    dc = dc.clone()
+    dc[:, 4] = dc[:, 4] / (0.5 * dt)
+    return torch.cat([dc, djc], dim=1)[:n_dirs].numpy().astype(np.float32)
+
+
+def _assemble_grad7(tot, log_s0, r, T, discount, price):
+    """The greek vector in GREEK_ORDER (spot, V0, κ, θ, σ, ρ, flat rate) from
+    the per-path means tot = [ȳ, chain_V0, chain_κ, chain_θ, chain_σ, w̄, ρ̄];
+    the rate greek assumes ``discount = e^{−rT}``."""
+    spot = float(np.exp(log_s0))
+    return torch.stack([
+        discount * tot[5] / spot,  # spot (w = ∂Y/∂logS0)
+        discount * tot[1],  # V0
+        discount * tot[2],  # kappa
+        discount * tot[3],  # theta
+        discount * tot[4],  # sigma
+        discount * tot[6],  # rho
+        discount * tot[5] * T - T * price,  # flat rate, discount term included
+    ])
+
+
+def _greek_sums(params, dtab, table, total_pairs, steps, seed, device_id,
+                point_offset) -> torch.Tensor:
+    """Launch K10 for inputs on a GPU (seven float64 sums of its per-block
+    partials); the twin for inputs on the CPU."""
+    check_inputs(params, table, steps)
+    check_tensor(dtab, "tangent table", torch.float32, (N_GREEK_DIRS, N_COLS))
+    if params.device.type == "cpu":
+        return heston_qe_mixing_greek_sums_plain(params, dtab, table, total_pairs, steps, seed,
+                                                 device_id, point_offset)
+    require_cuda(params)
+    grid = price_grid(params.device, table)
+    partials = torch.empty((7, grid), dtype=torch.float64, device=params.device)
+    QE_GREEKS_KERNEL.launch(
+        params.device, params.data_ptr(), dtab.data_ptr(),
+        None if table is None else table.data_ptr(), partials.data_ptr(), grid, total_pairs,
+        steps, seed & _MASK32, device_id & _MASK32, point_offset,
+    )
+    # one sum per contiguous (grid,) row: the price row takes the reduction
+    # K8's partials take, so the two prices are equal to the bit
+    return torch.stack([row.sum() for row in partials])
+
+
+def _vjp_sums(params, dtab, table, ct, n_paths, steps, antithetic, seed, device_id,
+              point_offset) -> torch.Tensor:
+    """Launch K11 for inputs on a GPU (eight float64 sums); the twin for
+    inputs on the CPU."""
+    check_inputs(params, table, steps)
+    check_tensor(dtab, "tangent table", torch.float32, (N_VJP_DIRS, N_COLS))
+    check_tensor(ct, "cotangent", torch.float32, (2 if antithetic else 1, n_paths))
+    if params.device.type == "cpu":
+        return heston_qe_mixing_vjp_sums_plain(params, dtab, table, ct, n_paths, steps,
+                                               antithetic, seed, device_id, point_offset)
+    require_cuda(params)
+    blocks = -(-n_paths // 256)
+    partials = torch.empty((8, blocks), dtype=torch.float64, device=params.device)
+    QE_VJP_KERNEL.launch(
+        params.device, params.data_ptr(), dtab.data_ptr(),
+        None if table is None else table.data_ptr(), ct.data_ptr(), partials.data_ptr(),
+        n_paths, steps, int(antithetic), seed & _MASK32, device_id & _MASK32, point_offset,
+    )
+    return partials.sum(dim=1)
+
+
+def heston_qe_mixing_price_and_greeks(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
+    *, n_blocks: int, n_batches: int, steps: int, seed, device_id=0, cp=1.0,
+    qmc: bool = False, point_offset: int = 0, device="cpu",
+):
+    """Discounted European vanilla price AND its 7-parameter greek vector
+    (methods/mixing_greeks.GREEK_ORDER: spot, V0, κ, θ, σ, ρ, flat rate) over
+    n_blocks·n_batches·32768 antithetic mixing pairs in ONE launch.  The
+    stream and the pairs per thread are those of
+    :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.heston_qe_mixing_vanilla_price`,
+    so the price equals the price kernel's; the greeks are the exact pathwise
+    derivatives of that estimator.  Returns (float64 0-dim, float64 (7,))."""
+    total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    check_period(qmc, point_offset, total_pairs)
+    params, table = mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps,
+                               seed, qmc, device)
+    dtab = torch.as_tensor(_greek_table(v0, kappa, theta, sigma, dt, steps, N_GREEK_DIRS),
+                           device=params.device)
+    sums = _greek_sums(params, dtab, table, total_pairs, steps, int(seed), int(device_id),
+                       point_offset)
+    total_paths = 2 * total_pairs
+    price = discount * sums[0] / total_paths
+    return price, _assemble_grad7(sums / total_paths, log_s0, r, dt * steps, discount, price)
+
+
+def _mixing_values_vjp(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, ct,
+    *, n_paths: int, steps: int, seed, antithetic: bool, device_id=0,
+    qmc: bool = False, point_offset: int = 0,
+):
+    """Gradients of sum(ct·values) in the nine differentiable scalars of
+    :func:`heston_qe_mixing_values` (log_s0, v0, r, κ, θ, σ, ρ, dt, strike),
+    float64 0-dim tensors on ``ct.device``, from one K11 launch replaying the
+    values' stream.  QMC is antithetic-only here."""
+    if qmc and not antithetic:
+        raise ValueError("kernel QMC path is antithetic-only")
+    params, table = mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps,
+                               seed, qmc, ct.device)
+    dtab = torch.as_tensor(_greek_table(v0, kappa, theta, sigma, dt, steps, N_VJP_DIRS),
+                           device=params.device)
+    sums = _vjp_sums(params, dtab, table, ct.to(torch.float32).contiguous(), n_paths, steps,
+                     antithetic, int(seed), int(device_id), point_offset)
+    ch_v0, ch_k, ch_th, ch_sig, ch_T, w_sum, rho_sum, k_sum = sums.unbind()
+    T = dt * steps
+    # f_base = e^{logS0 + rT}; the values are undiscounted
+    return (w_sum, ch_v0, w_sum * T, ch_k, ch_th, ch_sig, rho_sum, (ch_T + w_sum * r) * steps,
+            k_sum)
+
+
+class _MixingValues(torch.autograd.Function):
+    """K7 forward, K11 backward, over the nine differentiable scalars."""
+
+    @staticmethod
+    def forward(ctx, log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, opts):
+        inputs = (log_s0, v0, r, kappa, theta, sigma, rho, dt, strike)
+        ctx.args = tuple(float(x) for x in inputs)
+        ctx.metas = [(x.dtype, x.device) for x in inputs]
+        ctx.opts = opts
+        cp, kw = opts
+        return heston_qe_mixing_values(*ctx.args, cp, **kw)
+
+    @staticmethod
+    def backward(ctx, ct):
+        cp, kw = ctx.opts
+        kw = {k: v for k, v in kw.items() if k != "device"}
+        grads = _mixing_values_vjp(*ctx.args, cp, ct, **kw)
+        return (*(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas)),
+                None)
+
+
+def heston_qe_mixing_values_diff(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
+    *, n_paths: int, steps: int, seed, antithetic: bool = False, device_id=0,
+    qmc: bool = False, point_offset: int = 0, device="cpu",
+):
+    """Differentiable view of :func:`heston_qe_mixing_values`: the same
+    values, and a backward that runs K11 on the same stream, so
+    ``torch.autograd.grad`` of any reduction of the values works.  The nine
+    leading scalars (numbers or 0-dim tensors) are differentiable, ``dt`` and
+    ``strike`` included."""
+    args = tuple(torch.as_tensor(x, dtype=torch.float64)
+                 for x in (log_s0, v0, r, kappa, theta, sigma, rho, dt, strike))
+    kw = dict(n_paths=n_paths, steps=steps, seed=seed, antithetic=antithetic,
+              device_id=device_id, qmc=qmc, point_offset=point_offset, device=device)
+    return _MixingValues.apply(*args, (cp, kw))

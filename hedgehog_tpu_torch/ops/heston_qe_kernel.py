@@ -1,0 +1,290 @@
+"""QE mixing kernels (K7 values, K8 serving price) and their plain PyTorch
+twins.
+
+Port of the mixing part of ``hedgehog_tpu/ops/heston_qe_kernel.py``.  For
+tensors on a GPU the work goes to ``csrc/heston_qe.cu``; for tensors on the
+CPU to the float32 twins below, which repeat the kernels' arithmetic: the
+same Sobol' or Philox bits, the same ``ndtri_approx``, the same polished
+reciprocal, the same fp32 guards.  The public functions keep the JAX
+signatures, with ``device`` in place of ``interpret``; ``n_blocks`` and
+``n_batches`` keep their meaning (``n_blocks·n_batches·32768`` antithetic
+pairs per price call).
+
+Streams (csrc/hh_device.cuh): under QMC the table is
+``sobol_table(seed, 2·steps)`` and pair i is point ``point_offset + i``,
+dims 2s (z) and 2s + 1 (u) at step s; K8 covers exactly the points
+``[point_offset, point_offset + n_blocks·n_batches·32768)``.  Under PRNG
+pair i draws Philox block s // 2 at step s (words 0, 1 → Box–Muller, words
+2, 3 → the even and odd step's uniforms).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..math.counter_rng import uniform_from_bits
+from ..utils import f64, resolve_device
+from .cuda_lib import CudaKernel, check_tensor, load_library, require_cuda
+from .hh_device import (
+    MIX_NAMES,
+    SOBOL_BITS,
+    box_muller,
+    cond_bs_value,
+    mix_advance,
+    mix_c,
+    ndtri_approx,
+    philox_block,
+    sobol_masks,
+    sobol_table,
+    sobol_uniforms_tile,
+)
+
+__all__ = [
+    "QE_VALUES_KERNEL",
+    "QE_PRICE_KERNEL",
+    "heston_qe_mixing_values",
+    "heston_qe_mixing_values_adapter",
+    "heston_qe_mixing_values_plain",
+    "heston_qe_mixing_price_sum_plain",
+    "heston_qe_mixing_vanilla_price",
+]
+
+#: antithetic pairs per TPU program (256 × 128): the unit of ``n_blocks``
+PAIRS_PER_BLOCK = 256 * 128
+#: QMC steps whose Sobol' table the kernels stage in shared memory at most
+#: (2·128 dims × 31 words = 31.7 KB)
+QMC_MAX_STEPS = 128
+_MASK32 = 0xFFFFFFFF
+#: pairs per chunk of the summing twins
+PLAIN_CHUNK = 2**18
+
+_VALUES_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+]
+_PRICE_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+]
+QE_VALUES_KERNEL = CudaKernel("hh_qe_values", _VALUES_ARGS)
+QE_PRICE_KERNEL = CudaKernel("hh_qe_price", _PRICE_ARGS)
+
+
+def _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp) -> np.ndarray:
+    """(16,) float32 parameter vector (layout ``MIX_NAMES``): float64 host
+    math, cast once; the QE constants are models/heston_qe.py's."""
+    from ..models.heston_qe import qe_constants
+
+    c = qe_constants(kappa, theta, sigma, rho, r, dt)
+    T = dt * steps
+    f_base = np.exp(log_s0 + r * T)
+    vals = dict(
+        v0=v0, theta=theta, e=float(c["e"]), c_s2_v=float(c["c_s2_v"]),
+        c_s2_c=float(c["c_s2_c"]), half_dt=0.5 * dt, inv_sigma=1.0 / sigma,
+        k_over_sigma=kappa / sigma, ktd_over_sigma=kappa * theta * dt / sigma,
+        f_base=f_base, strike=strike, rho=rho, rho2_half=0.5 * rho**2, rho_bar2=1.0 - rho**2,
+        cp=cp, log_f_over_k=np.log(f_base) - np.log(strike),
+    )
+    return np.array([float(vals[n]) for n in MIX_NAMES], dtype=np.float64).astype(np.float32)
+
+
+# ---- the twins ----------------------------------------------------------------
+
+
+def mix_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: int):
+    """Yields (z, u) of each step for the pairs ``pair`` (int64 tensor of
+    global pair indices), in the kernels' draw order: Sobol' dims (2s, 2s + 1)
+    when ``table`` is given, else the QE mixing Philox layout."""
+    if table is not None:
+        masks = sobol_masks(pair + point_offset)
+        for s in range(steps):
+            u1, u2 = sobol_uniforms_tile(masks, table, (2 * s, 2 * s + 1))
+            yield ndtri_approx(u1), u2
+        return
+    for s in range(steps):
+        if s % 2 == 0:
+            w = philox_block(pair, s // 2, seed & _MASK32, device_id & _MASK32)
+            normals = box_muller(w[0], w[1])
+        yield normals[s % 2], uniform_from_bits(w[2 + s % 2])
+
+
+def _qe_pairs_plain(params, table, pair, steps, antithetic, seed, device_id, point_offset):
+    c = mix_c(params)
+    v = c["v0"].expand(pair.shape)
+    iv = j = torch.zeros_like(v)
+    va, iva, ja = v, iv, j
+    for z, u in mix_draws(pair, steps, table, seed, device_id, point_offset):
+        v, iv, j = mix_advance(v, iv, j, z, u, c)
+        if antithetic:
+            va, iva, ja = mix_advance(va, iva, ja, -z, 1.0 - u, c)
+    rows = [cond_bs_value(iv, j, c)]
+    if antithetic:
+        rows.append(cond_bs_value(iva, ja, c))
+    return torch.stack(rows)
+
+
+def heston_qe_mixing_values_plain(params, table, n_paths: int, steps: int, antithetic: bool,
+                                  seed: int, device_id: int, point_offset: int) -> torch.Tensor:
+    """Twin of K7: (1 or 2, n_paths) float32 undiscounted values on
+    ``params.device``; ``table`` is the Sobol' table (QMC) or None (Philox)."""
+    pair = torch.arange(n_paths, dtype=torch.int64, device=params.device)
+    return _qe_pairs_plain(params, table, pair, steps, antithetic, seed, device_id, point_offset)
+
+
+def heston_qe_mixing_price_sum_plain(params, table, total_pairs: int, steps: int, seed: int,
+                                     device_id: int, point_offset: int) -> torch.Tensor:
+    """Twin of K8: the float64 sum of (value + antithetic value) over the
+    pairs ``[0, total_pairs)``, in chunks of ``PLAIN_CHUNK`` pairs."""
+    total = torch.zeros((), dtype=torch.float64, device=params.device)
+    for start in range(0, total_pairs, PLAIN_CHUNK):
+        pair = torch.arange(start, min(start + PLAIN_CHUNK, total_pairs), dtype=torch.int64,
+                            device=params.device)
+        vals = _qe_pairs_plain(params, table, pair, steps, True, seed, device_id, point_offset)
+        total = total + (vals[0] + vals[1]).to(torch.float64).sum()
+    return total
+
+
+# ---- launch or twin -------------------------------------------------------------
+
+
+def check_inputs(params, table, steps: int) -> None:
+    """Raise on a parameter vector or Sobol' table the kernels do not take."""
+    check_tensor(params, "params", torch.float32, (len(MIX_NAMES),))
+    if steps < 1:
+        raise ValueError(f"need steps >= 1; got {steps}")
+    if table is not None:
+        if steps > QMC_MAX_STEPS:
+            raise ValueError(f"QMC kernels take at most {QMC_MAX_STEPS} steps; got {steps}")
+        check_tensor(table, "sobol table", torch.int32, (2 * steps, SOBOL_BITS + 1))
+        if table.device != params.device:
+            raise ValueError("params and the Sobol' table must be on one device")
+
+
+def _qe_values(params, table, n_paths, steps, antithetic, seed, device_id,
+               point_offset) -> torch.Tensor:
+    """Launch K7 for inputs on a GPU; the twin for inputs on the CPU."""
+    check_inputs(params, table, steps)
+    if n_paths < 1:
+        raise ValueError(f"need n_paths >= 1; got {n_paths}")
+    if params.device.type == "cpu":
+        return heston_qe_mixing_values_plain(params, table, n_paths, steps, antithetic, seed,
+                                             device_id, point_offset)
+    require_cuda(params)
+    out = torch.empty((2 if antithetic else 1, n_paths), dtype=torch.float32, device=params.device)
+    QE_VALUES_KERNEL.launch(
+        params.device, params.data_ptr(), None if table is None else table.data_ptr(),
+        out.data_ptr(), n_paths, steps, int(antithetic), seed & _MASK32, device_id & _MASK32,
+        point_offset,
+    )
+    return out
+
+
+def price_grid(device: torch.device, table) -> int:
+    """Blocks of the price kernels K8 and K10 (one resident wave of K8):
+    both walk the pairs with this grid, so K10's price equals K8's."""
+    grid = ctypes.c_int(0)
+    smem = 0 if table is None else 4 * table.numel()
+    with torch.cuda.device(device):
+        err = load_library().hh_qe_price_grid(smem, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"hh_qe_price_grid: CUDA error {err}")
+    return grid.value
+
+
+def _qe_price_sum(params, table, total_pairs, steps, seed, device_id,
+                  point_offset) -> torch.Tensor:
+    """Launch K8 for inputs on a GPU (the float64 sum of its per-block
+    partials); the twin for inputs on the CPU."""
+    check_inputs(params, table, steps)
+    if params.device.type == "cpu":
+        return heston_qe_mixing_price_sum_plain(params, table, total_pairs, steps, seed,
+                                                device_id, point_offset)
+    require_cuda(params)
+    grid = price_grid(params.device, table)
+    partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
+    QE_PRICE_KERNEL.launch(
+        params.device, params.data_ptr(), None if table is None else table.data_ptr(),
+        partials.data_ptr(), grid, total_pairs, steps, seed & _MASK32, device_id & _MASK32,
+        point_offset,
+    )
+    return partials.sum()
+
+
+def mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps, seed, qmc,
+               device):
+    """(params, Sobol' table or None) on ``device``."""
+    dev = resolve_device(device)
+    params = torch.as_tensor(
+        _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp), device=dev)
+    table = torch.as_tensor(sobol_table(seed, 2 * steps), device=dev) if qmc else None
+    return params, table
+
+
+def check_period(qmc: bool, point_offset: int, n_points: int) -> None:
+    """The Sobol' period guard: a QMC call may not reach past point 2^30."""
+    if qmc and point_offset + n_points > 2**SOBOL_BITS:
+        raise ValueError(
+            f"Sobol' period is 2^{SOBOL_BITS} points; offset {point_offset} + "
+            f"{n_points} points would wrap"
+        )
+
+
+def heston_qe_mixing_values(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
+    *, n_paths: int, steps: int, seed, antithetic: bool = False, device_id=0,
+    qmc: bool = False, point_offset: int = 0, device="cpu",
+) -> torch.Tensor:
+    """Per-path UNDISCOUNTED conditional vanilla values, (n_groups, n_paths)
+    float32, n_groups = 2 under antithetic pairing; ``cp`` is +1 for a call,
+    −1 for a put.  Under QMC ``device_id`` is unused (devices slice one
+    sequence by ``point_offset``)."""
+    check_period(qmc, point_offset, -(-n_paths // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK)
+    params, table = mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps,
+                               seed, qmc, device)
+    return _qe_values(params, table, n_paths, steps, antithetic, int(seed), int(device_id),
+                      point_offset)
+
+
+def heston_qe_mixing_vanilla_price(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
+    *, n_blocks: int, n_batches: int, steps: int, seed, device_id=0, cp=1.0,
+    qmc: bool = False, point_offset: int = 0, device="cpu",
+) -> torch.Tensor:
+    """Discounted European vanilla price over n_blocks·n_batches·32768
+    antithetic mixing pairs in ONE launch, accumulated on the device: the
+    serving configuration.  Returns a float64 0-dim tensor."""
+    total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    check_period(qmc, point_offset, total_pairs)
+    params, table = mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps,
+                               seed, qmc, device)
+    sums = _qe_price_sum(params, table, total_pairs, steps, int(seed), int(device_id),
+                         point_offset)
+    return discount * sums / (2 * total_pairs)
+
+
+def heston_qe_mixing_values_adapter(prob, config, strat, key=None, device_id=0,
+                                    point_offset=0, device="cpu"):
+    """``MonteCarlo(HestonDynamics(), HestonQE(conditional=True,
+    use_kernel=True))``: float64 per-path values (n_groups, trajectories)
+    from K7, through the differentiable view whose backward is K11 (the
+    counterpart of the JAX ``heston_qe_mixing_values_pallas``).  Under QMC
+    the seed is always ``config.seed`` (every device, and the float64
+    estimator, randomize one shared sequence); under PRNG an explicit ``key``
+    reseeds the stream."""
+    from ..methods.montecarlo import Antithetic, sim_params
+    from .heston_kernel import seed_from_key
+    from .heston_qe_greeks_kernel import heston_qe_mixing_values_diff
+
+    market, T, r0 = sim_params(prob)
+    out = heston_qe_mixing_values_diff(
+        torch.log(f64(market.spot)), market.V0, r0, market.kappa, market.theta, market.sigma,
+        market.rho, T / config.steps, prob.payoff.strike, prob.payoff.call_put(),
+        n_paths=config.trajectories, steps=config.steps,
+        seed=config.seed if config.qmc else seed_from_key(config, key),
+        antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
+        qmc=config.qmc, point_offset=point_offset, device=device,
+    )
+    return out.to(torch.float64)

@@ -3,7 +3,10 @@
 Port of the helpers the Pallas kernels share (ops/heston_kernel.py
 ``_uniform_from_bits``/``_box_muller``; ops/heston_qe_kernel.py
 ``_sobol_table``/``_sobol_masks``/``_sobol_uniforms_tile``/``_ndtri_approx``/
-``_rcp``/``_norm_cdf``/``_cond_bs_value``).  Everything is float32 on
+``_rcp``/``_norm_cdf``/``_cond_bs_value``, and for the QE mixing kernels
+``_mix_c``'s parameter layout, ``_qe_v_advance`` and ``_mix_advance``; the
+QE draw is written once, :func:`qe_v_draw`, as the header's ``qe_v_draw``).
+Everything is float32 on
 float32 tensors, with the constants and the operation order of the CUDA
 header, so that a kernel and its twin agree to fp32 rounding.  The twins
 evaluate both sides of every branch and select, as the TPU kernels do; the
@@ -20,6 +23,7 @@ import torch
 from ..math.counter_rng import philox4x32, prng_key, uniform_from_bits
 from ..math.sobol import _BITS as SOBOL_BITS
 from ..math.sobol import _direction_numbers, sobol_shift
+from ..models.heston_qe import PSI_CRIT
 
 __all__ = [
     "SOBOL_BITS",
@@ -32,6 +36,12 @@ __all__ = [
     "ndtri_approx",
     "norm_cdf",
     "cond_bs_value",
+    "MIX_NAMES",
+    "mix_c",
+    "qe_v_draw",
+    "qe_v_advance",
+    "mix_update",
+    "mix_advance",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -140,3 +150,75 @@ def cond_bs_value(iv: torch.Tensor, j: torch.Tensor, c: dict) -> torch.Tensor:
     d2 = d1 - sd
     cp = c["cp"]
     return cp * (f_eff * norm_cdf(cp * d1) - c["strike"] * norm_cdf(cp * d2))
+
+
+# ---- QE mixing ----------------------------------------------------------------
+
+#: the 16-entry parameter vector of the QE mixing kernels (csrc/hh_device.cuh
+#: MixParams; the TPU kernels' ``_mix_c``); the last seven are the close's
+MIX_NAMES = (
+    "v0", "theta", "e", "c_s2_v", "c_s2_c", "half_dt", "inv_sigma", "k_over_sigma",
+    "ktd_over_sigma", "f_base", "strike", "rho", "rho2_half", "rho_bar2", "cp", "log_f_over_k",
+)
+
+
+def mix_c(params: torch.Tensor) -> dict:
+    """The parameter vector as a dict of float32 0-dim tensors."""
+    return dict(zip(MIX_NAMES, params.unbind()))
+
+
+def qe_v_draw(v, z, u, c):
+    """V → V' by the QE scheme with the fp32 guards of the kernels (m ≥ 1e-20,
+    ψ ≥ 1e-6, p ≤ 1 − 1e-6, 1/β = m·(ψ + 1)/2 capped at m·1e6, u clamped to
+    [1e-7, 1 − 1e-7]).  Returns (vn, d): ``d`` holds the intermediates the
+    tangent coefficients read (the header's ``QeDraw``).  Both branches are
+    evaluated and selected; the dead side stays finite."""
+    theta = c["theta"]
+    m = theta + (v - theta) * c["e"]
+    s2 = v * c["c_s2_v"] + c["c_s2_c"]
+    m_safe = torch.clamp(m, min=1e-20)
+    inv_m = rcp(m_safe)
+    psi_raw = s2 * inv_m * inv_m
+    psi = torch.clamp(psi_raw, min=1e-6)
+
+    inv_psi = rcp(psi)
+    top = 2.0 * inv_psi
+    t1 = torch.clamp(top - 1.0, min=0.0)
+    sqw = torch.sqrt(top * t1)
+    b2 = t1 + sqw
+    rb = rcp(1.0 + b2)
+    a = m * rb
+    sqb = torch.sqrt(b2)
+    q = sqb + z
+
+    p_raw = (psi - 1.0) * rcp(psi + 1.0)
+    p = torch.clamp(p_raw, 0.0, 1.0 - 1e-6)
+    capfac = torch.clamp((psi + 1.0) * 0.5, max=1e6)
+    u_safe = torch.clamp(u, 1e-7, 1.0 - 1e-7)
+    lterm = torch.log((1.0 - p) * rcp(torch.clamp(1.0 - u_safe, min=1e-20)))
+    e_live = u_safe > p
+    quad = psi <= PSI_CRIT
+    v_exp = torch.where(e_live, lterm * (m_safe * capfac), torch.zeros_like(p))
+    vn = torch.where(quad, a * (q * q), v_exp)
+    d = dict(m_safe=m_safe, inv_m=inv_m, psi_raw=psi_raw, psi=psi, quad=quad, inv_psi=inv_psi,
+             top=top, t1=t1, sqw=sqw, rb=rb, a=a, sqb=sqb, q=q, p_raw=p_raw, capfac=capfac,
+             lterm=lterm, e_live=e_live)
+    return vn, d
+
+
+def qe_v_advance(v, z, u, c):
+    """V → V' by the QE scheme (:func:`qe_v_draw`'s draw)."""
+    return qe_v_draw(v, z, u, c)[0]
+
+
+def mix_update(v, iv, j, vn, c):
+    """The mixing carries after a draw ``vn``: (V', IV', J') with the
+    trapezoid IV and the exact-identity J."""
+    iv_step = c["half_dt"] * (v + vn)
+    j = j + (vn - v) * c["inv_sigma"] + iv_step * c["k_over_sigma"] - c["ktd_over_sigma"]
+    return vn, iv + iv_step, j
+
+
+def mix_advance(v, iv, j, z, u, c):
+    """One mixing step: QE V-draw, trapezoid IV, J update."""
+    return mix_update(v, iv, j, qe_v_advance(v, z, u, c), c)

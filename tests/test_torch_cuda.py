@@ -79,3 +79,70 @@ def test_solve_on_cuda_runs_the_kernels(gpu):
                                        device="cuda"))
     assert ek.EXACT_VALUES_KERNEL.launches == before + 1
     assert sol.ensemble.device.type == "cuda" and math.isfinite(float(sol.price))
+
+
+QE_STEPS = 11  # the serving step count: odd, so the PRNG layout's tail runs
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_qe_kernels_match_twins(gpu, qmc):
+    """K7 per path; K8 against K7's mean; K10's price equal to K8's (same
+    stream, grid and reduction) and its greeks against its twin; K11 against
+    its twin under a smooth cotangent.  Sums: fp32 per thread in another
+    order than the twins', so rel 1e-5 (greeks: plus 1e-5 of the largest)."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    dt_ = T / QE_STEPS
+    args = (*MKT, dt_, 100.0, 1.0)
+    before = [k.launches for k in (qk.QE_VALUES_KERNEL, qk.QE_PRICE_KERNEL, gk.QE_GREEKS_KERNEL,
+                                   gk.QE_VJP_KERNEL)]
+    got = qk.heston_qe_mixing_values(*args, n_paths=PAIRS, steps=QE_STEPS, seed=5,
+                                     antithetic=True, qmc=qmc, device=gpu)
+    torch.cuda.synchronize()
+    params, table = qk.mix_inputs(*args, QE_STEPS, 5, qmc, gpu)
+    _assert_values_close(got, qk.heston_qe_mixing_values_plain(params, table, PAIRS, QE_STEPS,
+                                                               True, 5, 0, 0))
+    kw = dict(n_blocks=2, n_batches=2, steps=QE_STEPS, seed=5, qmc=qmc, device=gpu)
+    price = qk.heston_qe_mixing_vanilla_price(*MKT, dt_, 100.0, 1.0, **kw)
+    assert float(price) == pytest.approx(float(got.double().mean()), rel=1e-6)
+    g_price, greeks = gk.heston_qe_mixing_price_and_greeks(*MKT, dt_, 100.0, 1.0, **kw)
+    assert float(g_price) == float(price)
+    dtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, dt_, QE_STEPS, 4), device=gpu)
+    want = gk.heston_qe_mixing_greek_sums_plain(params, dtab, table, PAIRS, QE_STEPS, 5, 0, 0)
+    sums = gk._greek_sums(params, dtab, table, PAIRS, QE_STEPS, 5, 0, 0)
+    scale = float(want.abs().max())
+    assert ((sums - want).abs() <= 1e-5 * scale + 1e-5 * want.abs()).all()
+    ct = 0.5 + 0.5 * torch.sin(torch.arange(2 * PAIRS, device=gpu, dtype=torch.float32)).reshape(
+        2, PAIRS)
+    vdtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, dt_, QE_STEPS, 5), device=gpu)
+    want = gk.heston_qe_mixing_vjp_sums_plain(params, vdtab, table, ct, PAIRS, QE_STEPS, True, 5,
+                                              0, 0)
+    sums = gk._vjp_sums(params, vdtab, table, ct, PAIRS, QE_STEPS, True, 5, 0, 0)
+    scale = float(want.abs().max())
+    assert ((sums - want).abs() <= 1e-5 * scale + 1e-5 * want.abs()).all()
+    after = [k.launches for k in (qk.QE_VALUES_KERNEL, qk.QE_PRICE_KERNEL, gk.QE_GREEKS_KERNEL,
+                                  gk.QE_VJP_KERNEL)]
+    assert all(a > b for a, b in zip(after, before))
+
+
+def test_qe_solve_on_cuda_is_differentiable(gpu):
+    """solve with HestonQE(conditional=True, use_kernel=True) on cuda launches
+    K7, and torch.autograd.grad of its price launches K11."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    spot = torch.tensor(100.0, dtype=torch.float64, requires_grad=True)
+    sigma = torch.tensor(0.3, dtype=torch.float64, requires_grad=True)
+    prob = ht.PricingProblem(
+        ht.VanillaOption(100.0, dt.date(2025, 1, 1)),
+        ht.HestonInputs(dt.date(2024, 1, 1), 0.03, spot, 0.04, 2.0, 0.04, sigma, -0.7))
+    cfg = ht.SimulationConfig(PAIRS, QE_STEPS, ht.Antithetic(), 0, False)
+    before = (qk.QE_VALUES_KERNEL.launches, gk.QE_VJP_KERNEL.launches)
+    sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(use_kernel=True,
+                                                                        conditional=True),
+                                       cfg, device="cuda"))
+    delta, vega = torch.autograd.grad(sol.price, (spot, sigma))
+    assert (qk.QE_VALUES_KERNEL.launches, gk.QE_VJP_KERNEL.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert 0.5 < float(delta) < 0.8 and math.isfinite(float(vega))

@@ -111,7 +111,7 @@ def test_from_reference_round_trip():
 
 def test_from_reference_rejects_what_the_port_lacks():
     with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.HestonQE())
+        ht.from_reference(hh.BlackScholesExact())
     with pytest.raises(TypeError, match="no counterpart"):
         ht.from_reference(hh.CarrMadan(1.0, "auto", hh.HestonDynamics(), quadrature="gl"))
 
