@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's Heston Monte Carlo main path on one GPU.
+"""Drive the PyTorch/CUDA port's Monte Carlo main paths on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and ``nvcc``; without either it exits nonzero and prints no result.
@@ -13,23 +13,32 @@ Phases (any failure exits nonzero before the last line):
    kernel's time beside its twin's (CUDA events): K1-K3, then the QE mixing
    kernels K7 (values), K8 (price), K10 (price + 7 greeks; its price equal to
    K8's) and K11 (the values VJP), and autograd through K7 -> K11 against
-   K10's greeks; then every kernel again at the shape the main path gives
+   K10's greeks, then the terminal samplers K5 (QE-M terminal prices), K6
+   (QE-M call price, against the mean of K5's payoffs) and K13 (exact
+   lognormal draw); then every kernel again at the shape the main path gives
    it (``solve``'s pairs, and the serving grid of 2^27 pairs against the
    chunked summing twins), so the kernels' grid-stride trip counts and
-   per-thread fp32 sums are checked where they run;
+   per-thread sums are checked where they run;
 3. the main path through ``solve`` on ``device="cuda"``: exact-transition
-   mixing and QE mixing (QMC and PRNG) and full-truncation Euler, each
-   against the port's Carr-Madan price within 4 standard errors plus the
-   scheme's bias allowance, and ``torch.autograd.grad`` through the QE
-   mixing ``solve`` against K10's greeks;
+   mixing, QE mixing (QMC and PRNG), full-truncation Euler and the QE-M
+   terminal sampler (QMC and PRNG), each against the port's Carr-Madan price
+   within 4 standard errors plus the scheme's bias allowance; the exact
+   lognormal kernel and the all-defaults ``MonteCarlo`` against the
+   Black-Scholes formula; ``torch.autograd.grad`` through the QE mixing
+   ``solve`` against K10's greeks;
 4. the serving dispatches at 2^27 antithetic pairs (268M paths) per call:
-   ``heston_exact_mixing_vanilla_price`` and ``heston_qe_mixing_vanilla_price``
-   (paths/s and bp error), and ``heston_qe_mixing_price_and_greeks`` (its time
-   over the price's, the greek-vector / price ratio, and its greeks against
-   central Carr-Madan differences).
+   ``heston_exact_mixing_vanilla_price``, ``heston_qe_mixing_vanilla_price``
+   and ``heston_qe_call_price`` (paths/s and bp error), and
+   ``heston_qe_mixing_price_and_greeks`` (its time over the price's, the
+   greek-vector / price ratio, and its greeks against central Carr-Madan
+   differences).
 
 The launch counters are reset just before phase 3 and read after phase 4; a
-kernel of the path with no launch in that window fails the run.  The
+kernel of the path with no launch in that window fails the run.  Each
+kernel's record carries its bound: the least time the card could take for
+the operations and bytes of the timed call (see ``work``), and where one
+PyTorch call computes the same function (K13: ``Tensor.log_normal_``) that
+call's time as ``library_ms``, else null.  The
 second-to-last line is the ``{"kernels": [...]}`` JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -67,6 +76,13 @@ EULER_ALLOWANCE_BP = 10.0  # O(dt) full-truncation bias at 100 steps: a few bp
 EXACT_ALLOWANCE_BP = 1.0  # sub-bp scheme bias of 2 exact segments, plus fp32
 QE_STEPS = 11  # the QE mixing serving step count (bench.py MIX_STEPS); odd: the PRNG tail runs
 QE_ALLOWANCE_BP = 5.0  # the QE-11 scheme bias, about +3.5 bp (bench.py:40), plus fp32
+QEM_STEPS = 10  # the QE-M serving step count (bench.py QE_STEPS)
+QEM_ALLOWANCE_BP = 5.0  # the QE-M-10 scheme bias, -3.4 bp on the TPU (bench.py:45), plus fp32
+QEM_SOLVE_PAIRS = 2**23  # solve's pairs for the QE-M kernel
+TPU_QEM_BIAS = "-3.4 +- 0.1 bp"  # bench.py:45, measured on a TPU
+BS_SIGMA = 0.2
+GBM_PAIRS = 2**24  # solve's pairs for the lognormal kernel
+GBM_ALLOWANCE_BP = 0.1  # no scheme bias; fp32 exp and the float64 reduction
 # K10/K11 sums against their twins: fp32 per thread over a few pairs, in
 # another order than the twins' float64 sums of fp32 terms; a sum near zero
 # is cancellation, so the bound scales with the largest sum
@@ -144,6 +160,83 @@ def compare_vectors(name: str, got, want, rtol: float) -> float:
     check(bool(torch.isfinite(got).all()) and bool((diff <= bound).all()),
           f"{name}: {got.tolist()} against {want.tolist()}")
     return float(diff.max())
+
+
+# ---- bounds: the least time the card could take for a kernel's work ----------
+#
+# Operations per unit, counted by hand from csrc/ as (fp32 FLOPs, an FMA as
+# two; MUFU operations).  MUFU: rcp.approx (hh::rcp), the ex2 of expf, the
+# rsqrt of sqrtf; logf and sincosf are fp32 polynomials.  Integer work
+# (Philox, the Sobol' XOR walk) is not counted.  Where a lane takes one of two
+# branches, the cheaper side is counted, so the bound is a lower bound on
+# what this run's data needs (the QE draw: the exponential branch with
+# u <= p; the exact segment: no Poisson trip, the large-argument Bessel
+# ratio, the short gamma-quantile series).  K10 and K11 count their primal
+# only.  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
+# operations per clock per SM on 132 SMs, 3.35 TB/s.
+FP32_PEAK, MEM_PEAK, SMS, MUFU_PER_CLK = 67e12, 3.35e12, 132, 16
+
+
+def _ops(*terms):
+    """Sum of (flops, mufu) terms, each a pair or (count, pair)."""
+    f = m = 0.0
+    for t in terms:
+        k, (a, b) = (t if isinstance(t[1], tuple) else (1, t))
+        f, m = f + k * a, m + k * b
+    return f, m
+
+
+RCP, SQRT, EXP = (3, 1), (4, 1), (8, 1)
+LOG, SINCOS = (14, 0), (20, 0)
+BOX_MULLER = _ops((7, 0), LOG, SQRT, SINCOS)  # two normals
+NDTRI = _ops((19, 0), RCP)  # central branch
+SOBOL_U = (2, 0)
+QE_DRAW = _ops((21, 0), (2, RCP))
+MIX_STEP = _ops(QE_DRAW, (8, 0))
+QEM_STEP = _ops(QE_DRAW, (24, 0), RCP, LOG, SQRT)
+NCDF = _ops((18, 0), RCP, EXP)
+CLOSE = _ops((16, 0), EXP, SQRT, RCP, (2, NCDF))
+EULER_STEP = _ops((19, 0), SQRT)
+GAMMA_QTL = _ops((76, 0), RCP, SQRT)
+EXACT_SEG = _ops((54, 0), (2, GAMMA_QTL), (2, EXP), LOG, SQRT, (5, RCP))
+
+
+def work(name: str, pairs: int, steps: int, qmc: bool = False):
+    """(fp32 FLOPs, MUFU operations, bytes) of one call of kernel ``name``
+    on ``pairs`` antithetic pairs and ``steps`` steps (segments for K2/K3);
+    bytes count each output written once (K11: its cotangent read once)."""
+    mix_draw = _ops((2, SOBOL_U), NDTRI, (1, 0)) if qmc else _ops((0.5, BOX_MULLER), (2, 0))
+    mix = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (2, CLOSE))
+    qem_draw = _ops((3, SOBOL_U), (2, NDTRI), (1, 0)) if qmc else _ops(BOX_MULLER, (2, 0))
+    qem = _ops((steps, _ops(qem_draw, (2, QEM_STEP))), (2, EXP))
+    exact_draw = _ops((4, SOBOL_U), (2, NDTRI), (2, 0)) if qmc else _ops(BOX_MULLER, (4, 0))
+    exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))), (2, _ops((3, 0), CLOSE)))
+    per_pair, out_bytes = {
+        "heston_euler_terminal": (_ops((steps, _ops(BOX_MULLER, (2, EULER_STEP))), (2, EXP)), 8),
+        "heston_exact_mixing_values": (exact, 8),
+        "heston_exact_mixing_vanilla_price": (_ops(exact, (2, 0)), 0),
+        "heston_qe_mixing_values": (mix, 8),
+        "heston_qe_mixing_vanilla_price": (_ops(mix, (2, 0)), 0),
+        "heston_qe_mixing_price_and_greeks": (_ops(mix, (2, 0)), 0),
+        "_mixing_values_vjp": (mix, 8),
+        "heston_qe_terminal": (qem, 8),
+        "heston_qe_call_price": (_ops(qem, (5, 0)), 0),
+        "gbm_exact_terminal": (_ops((0.5, BOX_MULLER), (4, 0), (2, EXP)), 8),
+    }[name]
+    return per_pair[0] * pairs, per_pair[1] * pairs, out_bytes * pairs
+
+
+def bound(name: str, pairs: int, steps: int, sm_clock_hz: float, qmc: bool = False) -> dict:
+    """The bound of one call: the largest of fp32 FLOPs over the fp32 peak,
+    MUFU operations over the MUFU rate at ``sm_clock_hz``, and bytes over
+    the memory rate; ``bound_by`` names the largest (MUFU and fp32 both
+    count as operations)."""
+    flops, mufu, nbytes = work(name, pairs, steps, qmc)
+    t_ops = max(flops / FP32_PEAK, mufu / (MUFU_PER_CLK * SMS * sm_clock_hz))
+    t_bytes = nbytes / MEM_PEAK
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, mufu=mufu, bytes=nbytes)
 
 
 def phase_kernels(T: float, pairs: int, device: str) -> dict:
@@ -341,6 +434,141 @@ def phase_qe_kernels(T: float, pairs: int, device: str) -> dict:
     return records
 
 
+def lognormal_law(T: float):
+    """(mean, std) of log S_T for the bench spot and rate at ``BS_SIGMA``."""
+    return math.log(SPOT) + (R - 0.5 * BS_SIGMA**2) * T, BS_SIGMA * math.sqrt(T)
+
+
+def phase_terminal_kernels(T: float, pairs: int, device: str) -> dict:
+    """The terminal samplers against their plain twins on the card: K5 on
+    both streams, K6 on exactly K5's PRNG pairs against the discounted mean
+    of K5's call payoffs, and K13; returns the kernels' records (serving
+    stream, without launch counts)."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    say(f"phase 2 (terminal samplers): kernels against their plain twins at {pairs} antithetic "
+        f"pairs; QE-M at {QEM_STEPS} steps")
+    say(f"  tolerance: K5 and K13 per path as K1-K3; K6 against the discounted mean of K5's call "
+        f"payoffs over the same pairs within rel {PRICE_RTOL:g} (the same fp32 payoffs, summed "
+        "in another order)")
+    dev = torch.device(device)
+    dt_m = T / QEM_STEPS
+    disc = math.exp(-R * T)
+    records = {}
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        params, table = qk.qem_inputs(*MARKET_ARGS, dt_m, QEM_STEPS, 5, qmc, dev)
+        run = (params, table, pairs, QEM_STEPS, True, True, 5, 0, 0)
+        got = qk.heston_qe_terminal(*MARKET_ARGS, dt_m, n_paths=pairs, steps=QEM_STEPS, seed=5,
+                                    antithetic=True, qmc=qmc, device=dev)
+        torch.cuda.synchronize()
+        err5 = compare_values(f"K5 heston_qe_terminal ({stream})", got,
+                              qk.heston_qe_terminal_plain(*run))
+        ms5 = time_ms(lambda: qk._qem_terminal(*run))
+        plain5 = time_ms(lambda: qk.heston_qe_terminal_plain(*run))
+        say(f"  K5 ({stream}): kernel {ms5:.4f} ms, plain twin {plain5:.4f} ms")
+    records["heston_qe_terminal"] = dict(
+        source="hedgehog_tpu_torch/csrc/heston_qe_terminal.cu",
+        replaces="hedgehog_tpu/ops/heston_qe_kernel.py:306", max_abs_err=err5, ms=ms5,
+        plain_ms=plain5)
+
+    n_blocks, n_batches = pairs // (4 * qk.PAIRS_PER_BLOCK), 4
+    check(n_blocks * n_batches * qk.PAIRS_PER_BLOCK == pairs, "K6 shape must cover the K5 pairs")
+    price = float(qk.heston_qe_call_price(*MARKET_ARGS, dt_m, STRIKE, disc, n_blocks=n_blocks,
+                                          n_batches=n_batches, steps=QEM_STEPS, seed=5,
+                                          device=dev))
+    mean = disc * float(torch.clamp(got - STRIKE, min=0.0).double().sum()) / (2 * pairs)
+    err6 = abs(price - mean)
+    say(f"  K6 heston_qe_call_price (PRNG): {price:.10f} vs K5 payoff mean {mean:.10f}, "
+        f"rel {err6 / mean:.3e}")
+    check(math.isfinite(price) and err6 <= PRICE_RTOL * mean,
+          f"K6 disagrees with the K5 payoff mean by {err6 / mean:.3e}")
+    p15 = torch.as_tensor(qk._qem_params(*MARKET_ARGS, dt_m, strike=STRIKE), device=dev)
+    ms6 = time_ms(lambda: qk._qem_price_sum(p15, pairs, QEM_STEPS, 5, 0))
+    plain6 = time_ms(lambda: qk.heston_qe_call_price_sum_plain(p15, pairs, QEM_STEPS, 5, 0))
+    say(f"  K6 (PRNG): kernel {ms6:.4f} ms, plain twin {plain6:.4f} ms")
+    records["heston_qe_call_price"] = dict(
+        source="hedgehog_tpu_torch/csrc/heston_qe_terminal.cu",
+        replaces="hedgehog_tpu/ops/heston_qe_kernel.py:480", max_abs_err=err6, ms=ms6,
+        plain_ms=plain6)
+
+    mean_g, std_g = lognormal_law(T)
+    pg = torch.tensor([mean_g, std_g], dtype=torch.float32, device=dev)
+    got = gbk.gbm_exact_terminal(mean_g, std_g, n_paths=pairs, seed=7, antithetic=True,
+                                 device=dev)
+    torch.cuda.synchronize()
+    err13 = compare_values("K13 gbm_exact_terminal (PRNG)", got,
+                           gbk.gbm_exact_terminal_plain(pg, pairs, True, 7, 0))
+    # timed at solve's pairs (phase_terminal_shapes): at this size a call
+    # is a few microseconds of card time under the host's launch path
+    records["gbm_exact_terminal"] = dict(
+        source="hedgehog_tpu_torch/csrc/gbm.cu", replaces="hedgehog_tpu/ops/gbm_kernel.py:39",
+        max_abs_err=err13)
+    return records
+
+
+def phase_terminal_shapes(T: float, solve_pairs: int, gbm_pairs: int, n_blocks: int,
+                          n_batches: int, device: str):
+    """The terminal samplers against their twins at the main path's shapes:
+    K5 at solve's pairs on both streams and K13 at solve's pairs (seed 0, as
+    ``solve`` draws them; timed there), K6 at the serving grid on the
+    serving PRNG stream against its chunked summing twin.  Returns each
+    kernel's largest absolute difference (K6: of the price) and K13's
+    times."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    serve_pairs = n_blocks * n_batches * qk.PAIRS_PER_BLOCK
+    seed = SERVING_CHECK_SEED
+    say(f"phase 2 (terminal samplers at the main-path shapes): K5 at {solve_pairs} pairs x "
+        f"{QEM_STEPS} steps; K13 at {gbm_pairs} pairs; K6 at {n_blocks} x {n_batches} blocks "
+        f"({serve_pairs} pairs, PRNG seed {seed}) against the chunked twin")
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    dt_m = T / QEM_STEPS
+    errs, e5 = {}, []
+    for qmc in (True, False):
+        params, table = qk.qem_inputs(*MARKET_ARGS, dt_m, QEM_STEPS, 0, qmc, dev)
+        got = qk.heston_qe_terminal(*MARKET_ARGS, dt_m, n_paths=solve_pairs, steps=QEM_STEPS,
+                                    seed=0, antithetic=True, qmc=qmc, device=dev)
+        want = qk.heston_qe_terminal_plain(params, table, solve_pairs, QEM_STEPS, True, True, 0,
+                                           0, 0)
+        e5.append(compare_values(f"K5 ({'QMC' if qmc else 'PRNG'}, {solve_pairs} pairs)", got,
+                                 want))
+    errs["heston_qe_terminal"] = max(e5)
+
+    mean_g, std_g = lognormal_law(T)
+    pg = torch.tensor([mean_g, std_g], dtype=torch.float32, device=dev)
+    got = gbk.gbm_exact_terminal(mean_g, std_g, n_paths=gbm_pairs, seed=0, antithetic=True,
+                                 device=dev)
+    errs["gbm_exact_terminal"] = compare_values(
+        f"K13 (PRNG, {gbm_pairs} pairs)", got,
+        gbk.gbm_exact_terminal_plain(pg, gbm_pairs, True, 0, 0))
+    ms13 = time_ms(lambda: gbk._gbm_terminal(pg, gbm_pairs, True, 0, 0))
+    plain13 = time_ms(lambda: gbk.gbm_exact_terminal_plain(pg, gbm_pairs, True, 0, 0))
+    # the library's one call for the same law: exp(N(mean, std)) into the same
+    # (2, pairs) fp32 output, on its own Philox stream (the port never calls it)
+    lib13 = time_ms(lambda: torch.empty(2, gbm_pairs, device=dev).log_normal_(mean_g, std_g))
+    say(f"  K13 (PRNG, {gbm_pairs} pairs): kernel {ms13:.4f} ms, plain twin {plain13:.4f} ms, "
+        f"library log_normal_ {lib13:.4f} ms")
+
+    p15 = torch.as_tensor(qk._qem_params(*MARKET_ARGS, dt_m, strike=STRIKE), device=dev)
+    got = float(qk._qem_price_sum(p15, serve_pairs, QEM_STEPS, seed, 0))
+    want = float(qk.heston_qe_call_price_sum_plain(p15, serve_pairs, QEM_STEPS, seed, 0))
+    rel = abs(got - want) / abs(want)
+    say(f"  K6 sum ({serve_pairs} pairs): {got!r} vs twin {want!r}, rel {rel:.3e} "
+        f"(limit {PRICE_RTOL:g})")
+    check(math.isfinite(got) and rel <= PRICE_RTOL, f"K6 sum differs from its twin by {rel:.3e}")
+    errs["heston_qe_call_price"] = math.exp(-R * T) * abs(got - want) / (2 * serve_pairs)
+    say(f"  phase took {time.perf_counter() - t0:.1f} s")
+    return errs, dict(ms=ms13, plain_ms=plain13, library_ms=lib13)
+
+
 def phase_main_shapes(T: float, solve_pairs: int, euler_pairs: int, n_blocks: int,
                       n_batches: int, device: str) -> dict:
     """Each kernel against its plain twin at the shape the main path gives
@@ -490,6 +718,65 @@ def phase_main_path(prob, cm: float, trajectories_exact: int, trajectories_euler
         check(math.isfinite(price) and abs(err) <= bound, f"{label}: outside the statistical bound")
 
 
+def check_solve(label: str, sol, ref: float, allowance_bp: float, seconds: float) -> None:
+    """A terminal-sampler ``solve``: finite (2, pairs) ensemble on the card,
+    price within 4 standard errors of the per-pair payoffs plus
+    ``allowance_bp`` of the reference price ``ref``."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    prob, cfg = sol.problem, sol.method.config
+    ens = sol.ensemble
+    check(ens.shape == (2, cfg.trajectories) and ens.device.type == "cuda",
+          f"{label}: ensemble {tuple(ens.shape)} on {ens.device}")
+    check(bool(torch.isfinite(ens).all()), f"{label}: non-finite ensemble")
+    disc = float(ht.df(prob.market_inputs.rate, prob.payoff.expiry))
+    se = disc * float(ht.reduce_payoffs(ens, prob.payoff).std()) / math.sqrt(cfg.trajectories)
+    price = float(sol.price)
+    bound = 4.0 * se + allowance_bp * 1e-4 * ref
+    err = price - ref
+    say(f"  {label}: price {price:.10f}, err {err:+.3e} ({err / ref * 1e4:+.4f} bp, SE "
+        f"{se / ref * 1e4:.4f} bp), 4 SE + {allowance_bp:g} bp = {bound:.3e}, host {seconds:.3f} s")
+    check(math.isfinite(price) and abs(err) <= bound, f"{label}: outside the statistical bound")
+
+
+def phase_terminal_path(prob, cm: float, bs_prob, bs_price: float, device: str) -> None:
+    """The terminal samplers through solve on the device: QE-M (K5, both
+    streams) against Carr-Madan, the lognormal kernel (K13) and the
+    all-defaults MonteCarlo against the Black-Scholes formula."""
+    import hedgehog_tpu_torch as ht
+
+    say(f"phase 3 (terminal samplers): solve on {device}; Carr-Madan {cm:.10f}, Black-Scholes "
+        f"{bs_price:.10f}")
+    for qmc in (True, False):
+        cfg = ht.SimulationConfig(QEM_SOLVE_PAIRS, QEM_STEPS, ht.Antithetic(), 0, qmc)
+        method = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(use_kernel=True), cfg,
+                               device=device)
+        t0 = time.perf_counter()
+        sol = ht.solve(prob, method)
+        float(sol.price)
+        check_solve(f"HestonQE(use_kernel=True) qmc={qmc} {QEM_STEPS} steps {QEM_SOLVE_PAIRS} "
+                    "pairs", sol, cm, QEM_ALLOWANCE_BP, time.perf_counter() - t0)
+    cfg = ht.SimulationConfig(GBM_PAIRS, 1, ht.Antithetic(), 0)
+    runs = [(f"BlackScholesExact(use_kernel=True) {GBM_PAIRS} pairs",
+             ht.MonteCarlo(ht.LognormalDynamics(), ht.BlackScholesExact(use_kernel=True), cfg,
+                           device=device)),
+            (f"MonteCarlo(config=...) with every other default {GBM_PAIRS} pairs",
+             ht.MonteCarlo(config=cfg))]
+    for label, method in runs:
+        t0 = time.perf_counter()
+        sol = ht.solve(bs_prob, method)
+        float(sol.price)
+        check_solve(label, sol, bs_price, GBM_ALLOWANCE_BP, time.perf_counter() - t0)
+    default = runs[1][1]
+    say(f"  defaults: {type(default.dynamics).__name__}, {default.strategy}, device "
+        f"{default.device!r}")
+    check((type(default.dynamics), type(default.strategy), default.device)
+          == (ht.LognormalDynamics, ht.BlackScholesExact, "cuda"),
+          "MonteCarlo's defaults are not (LognormalDynamics, BlackScholesExact) on cuda")
+
+
 def phase_qe_autograd(prob, pairs: int, device: str) -> None:
     """torch.autograd.grad through the kernel-backed QE mixing solve (K7
     forward, K11 backward) against K10's greeks over the same PRNG pairs."""
@@ -626,6 +913,48 @@ def phase_qe_serving(T: float, cm: float, prob, n_blocks: int, n_batches: int,
                 greek_price_ratio=ratio, greeks=[float(g) for g in greeks])
 
 
+def phase_qem_serving(T: float, cm: float, n_blocks: int, n_batches: int, device: str) -> dict:
+    """The QE-M serving dispatch (K6): ms per call, paths/s, and the bp
+    error of the mean price against Carr-Madan with its standard error over
+    the timed seeds, beside the TPU's QE-M-10 bias."""
+    import torch
+
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import PAIRS_PER_BLOCK, heston_qe_call_price
+
+    pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    say(f"phase 4 (QE-M): serving dispatch, {pairs} antithetic pairs ({2 * pairs} paths), "
+        f"{QEM_STEPS} steps per call")
+    disc = math.exp(-R * T)
+
+    def price(seed):
+        return heston_qe_call_price(*MARKET_ARGS, T / QEM_STEPS, STRIKE, disc, n_blocks=n_blocks,
+                                    n_batches=n_batches, steps=QEM_STEPS, seed=seed,
+                                    device=device)
+
+    price(0)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    prices = [price(i + 1) for i in range(SERVING_REPS)]
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / SERVING_REPS
+    values = [float(p) for p in prices]
+    check(all(math.isfinite(v) for v in values), "QE-M serving: non-finite price")
+    mc = sum(values) / len(values)
+    sd = math.sqrt(sum((v - mc) ** 2 for v in values) / (len(values) - 1))
+    err_bp, se_bp = (mc - cm) / cm * 1e4, sd / math.sqrt(len(values)) / cm * 1e4
+    paths_per_s = 2 * pairs / (ms * 1e-3)
+    say(f"  {SERVING_REPS} reps: {ms:.3f} ms per call, {paths_per_s:.6e} paths/s, price "
+        f"{mc:.10f} vs Carr-Madan {cm:.10f}: {err_bp:+.4f} +- {se_bp:.4f} bp (contract < "
+        f"{BP_CONTRACT:g} bp)")
+    say(f"  QE-M-{QEM_STEPS} bias on this card {err_bp:+.4f} +- {se_bp:.4f} bp; on the TPU "
+        f"(bench.py:45) {TPU_QEM_BIAS}")
+    check(abs(err_bp) < BP_CONTRACT, f"QE-M serving: {err_bp:+.4f} bp is outside the contract")
+    return dict(ms=ms, paths_per_s=paths_per_s, err_bp=err_bp, se_bp=se_bp, price=mc,
+                prices=values)
+
+
 def main() -> int:
     import torch
 
@@ -635,17 +964,30 @@ def main() -> int:
         return 2
     import hedgehog_tpu_torch as ht
     from hedgehog_tpu_torch.ops import cuda_lib
+    from hedgehog_tpu_torch.ops.gbm_kernel import GBM_KERNEL
     from hedgehog_tpu_torch.ops.heston_exact_kernel import EXACT_PRICE_KERNEL, EXACT_VALUES_KERNEL
     from hedgehog_tpu_torch.ops.heston_kernel import EULER_KERNEL
     from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import QE_GREEKS_KERNEL, QE_VJP_KERNEL
-    from hedgehog_tpu_torch.ops.heston_qe_kernel import QE_PRICE_KERNEL, QE_VALUES_KERNEL
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import (
+        QE_PRICE_KERNEL,
+        QE_VALUES_KERNEL,
+        QEM_PRICE_KERNEL,
+        QEM_TERMINAL_KERNEL,
+    )
 
     say("phase 1: device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    say(f"  nvidia-smi: {smi[0]}")
+
+    def smi_query(fields: str) -> str:
+        return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                              capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+
+    smi = smi_query("name,power.limit")
+    say(smi)
+    sm_clock_hz = float(smi_query("clocks.max.sm").split()[0]) * 1e6
     say(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+        f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
+        f"max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     lib, build_s = cuda_lib.build_library()
     cuda_lib.load_library()
     say(f"  kernels built in {build_s:.3f} s into {lib.parent}")
@@ -658,12 +1000,30 @@ def main() -> int:
     payoff = ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(), ht.Spot())
     prob = ht.PricingProblem(payoff, market)
     cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics())).price)
+    bs_prob = ht.PricingProblem(payoff, ht.BlackScholesInputs(REF, R, SPOT, BS_SIGMA))
+    bs_price = float(ht.solve(bs_prob, ht.BlackScholesAnalytic()).price)
 
     records = phase_kernels(T, CHECK_PAIRS, "cuda")
     records.update(phase_qe_kernels(T, CHECK_PAIRS, "cuda"))
+    records.update(phase_terminal_kernels(T, CHECK_PAIRS, "cuda"))
     errs = phase_main_shapes(T, SOLVE_PAIRS, EULER_PAIRS, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
+    terminal_errs, k13_times = phase_terminal_shapes(T, QEM_SOLVE_PAIRS, GBM_PAIRS,
+                                                     SERVING_BLOCKS, SERVING_BATCHES, "cuda")
+    errs.update(terminal_errs)
+    records["gbm_exact_terminal"].update(k13_times)
     for name, err in errs.items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    # the timed calls' shapes: CHECK_PAIRS pairs on the PRNG stream, K13 solve's pairs
+    timed_steps = {"heston_euler_terminal": EULER_STEPS, "heston_exact_mixing_values": SEGMENTS,
+                   "heston_exact_mixing_vanilla_price": SEGMENTS, "heston_qe_terminal": QEM_STEPS,
+                   "heston_qe_call_price": QEM_STEPS, "gbm_exact_terminal": 1}
+    for name, rec in records.items():
+        pairs = GBM_PAIRS if name == "gbm_exact_terminal" else CHECK_PAIRS
+        b = bound(name, pairs, timed_steps.get(name, QE_STEPS), sm_clock_hz)
+        say(f"  bound {name}: {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['flops']:.4g} fp32 "
+            f"FLOPs, {b['mufu']:.4g} MUFU, {b['bytes']:.4g} bytes); kernel {rec['ms']:.4f} ms")
+        rec.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        rec.setdefault("library_ms", None)
 
     kernels = {"heston_euler_terminal": EULER_KERNEL,
                "heston_exact_mixing_values": EXACT_VALUES_KERNEL,
@@ -671,20 +1031,25 @@ def main() -> int:
                "heston_qe_mixing_values": QE_VALUES_KERNEL,
                "heston_qe_mixing_vanilla_price": QE_PRICE_KERNEL,
                "heston_qe_mixing_price_and_greeks": QE_GREEKS_KERNEL,
-               "_mixing_values_vjp": QE_VJP_KERNEL}
+               "_mixing_values_vjp": QE_VJP_KERNEL,
+               "heston_qe_terminal": QEM_TERMINAL_KERNEL,
+               "heston_qe_call_price": QEM_PRICE_KERNEL,
+               "gbm_exact_terminal": GBM_KERNEL}
     for k in kernels.values():
         k.launches = 0
     phase_main_path(prob, cm, SOLVE_PAIRS, EULER_PAIRS, "cuda")
+    phase_terminal_path(prob, cm, bs_prob, bs_price, "cuda")
     phase_qe_autograd(prob, SOLVE_PAIRS, "cuda")
     serving = phase_serving(T, cm, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     qe_serving = phase_qe_serving(T, cm, prob, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
+    qem_serving = phase_qem_serving(T, cm, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     launches = {name: k.launches for name, k in kernels.items()}
     say(f"launches on the main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
-    say(json.dumps({"serving": serving, "qe_serving": qe_serving, "build_s": build_s,
-                    "nvidia_smi": smi[0]}))
+    say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
+                    "build_s": build_s, "nvidia_smi": smi}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)
         for name, rec in records.items()

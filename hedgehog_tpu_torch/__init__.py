@@ -2,14 +2,16 @@
 
 The JAX package ``hedgehog_tpu`` stays the reference; this package ports it
 slice by slice and keeps its module tree and public names.  It prices a
-European vanilla under Heston by Monte Carlo through
+European vanilla under Heston or Black-Scholes by Monte Carlo through
 ``solve(PricingProblem(...), MonteCarlo(...))``, with hand-written CUDA
-kernels for the Euler, exact-mixing and QE-mixing schemes (``ops/``,
-sources in ``csrc/``), checked against the Carr–Madan Fourier price, and
-its 7-parameter greek vector (``heston_mixing_price_and_greeks``, the greek
-kernel, or ``torch.autograd.grad`` through ``solve``).  Deterministic
-layers run in float64; the kernels and their plain twins in float32.
-Importing the package imports no jax and builds nothing.
+kernels for the Euler, exact-mixing, QE-mixing and QE-M schemes and the
+exact lognormal draw (``ops/``, sources in ``csrc/``), checked against the
+Carr–Madan Fourier price, and its 7-parameter greek vector
+(``heston_mixing_price_and_greeks``, the greek kernel, or
+``torch.autograd.grad`` through ``solve``).  ``MonteCarlo`` and the kernel
+wrappers run on the GPU unless the caller asks for ``device="cpu"``.
+Deterministic layers run in float64; the kernels and their plain twins in
+float32.  Importing the package imports no jax and builds nothing.
 """
 
 from .core.dates import (
@@ -52,6 +54,7 @@ from .methods.black_scholes import BlackScholesAnalytic
 from .methods.carr_madan import CarrMadan
 from .methods.montecarlo import (
     Antithetic,
+    BlackScholesExact,
     EulerMaruyama,
     HestonExactMixing,
     HestonQE,
@@ -78,7 +81,8 @@ __all__ = [
     "FlatRateCurve", "df", "df_yf", "zero_rate", "zero_rate_yf",
     "FlatVolSurface", "get_vol",
     "BlackScholesAnalytic", "CarrMadan",
-    "Antithetic", "EulerMaruyama", "HestonExactMixing", "HestonQE", "MonteCarlo",
+    "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonExactMixing", "HestonQE",
+    "MonteCarlo",
     "NoVarianceReduction", "SimulationConfig", "reduce_payoffs",
     "simulate_conditional_values", "simulate_terminal_prices",
     "GREEK_ORDER", "heston_mixing_price_and_greeks",

@@ -50,7 +50,7 @@ qe_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol
                  uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ hh::MixParams sp;
   extern __shared__ int ssob[];
-  const int* table = hh::stage_mix_inputs<0>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const int* table = hh::stage_inputs<0, 2>(params, nullptr, sobol, steps, sp, nullptr, ssob);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
   float val, val_a;
@@ -67,7 +67,7 @@ qe_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
   __shared__ hh::MixParams sp;
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table = hh::stage_mix_inputs<0>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const int* table = hh::stage_inputs<0, 2>(params, nullptr, sobol, steps, sp, nullptr, ssob);
   float acc[1] = {0.0f};
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;

@@ -140,31 +140,35 @@ __device__ __forceinline__ BsPartials cond_bs_partials(float iv, float j, const 
   return o;
 }
 
-// Parameters, the tangent table (kDirs rows; none for the primal kernels)
-// and the Sobol' table into shared memory.
-template <int kDirs>
-__device__ __forceinline__ const int* stage_mix_inputs(const float* params, const float* tab,
-                                                       const int* sobol, int steps, MixParams& sp,
-                                                       float (*stab)[kTanCols], int* ssob) {
+// The parameter struct P (floats only), the tangent table (kDirs rows; none
+// for the primal kernels) and the Sobol' table (kDimsPerStep dims per step:
+// 2 for mixing, 3 for QE-M) into shared memory, for the QE kernels of
+// heston_qe.cu, heston_qe_greeks.cu and heston_qe_terminal.cu.
+template <int kDirs, int kDimsPerStep, class P>
+__device__ __forceinline__ const int* stage_inputs(const float* params, const float* tab,
+                                                   const int* sobol, int steps, P& sp,
+                                                   float (*stab)[kTanCols], int* ssob) {
   float* dst = reinterpret_cast<float*>(&sp);
-  for (int i = threadIdx.x; i < 16; i += blockDim.x) dst[i] = params[i];
+  for (int i = threadIdx.x; i < (int)(sizeof(P) / sizeof(float)); i += blockDim.x) {
+    dst[i] = params[i];
+  }
   for (int i = threadIdx.x; i < kDirs * kTanCols; i += blockDim.x) {
     stab[i / kTanCols][i % kTanCols] = tab[i];
   }
   if (sobol) {
-    const int n = 2 * steps * (kSobolBits + 1);
+    const int n = kDimsPerStep * steps * (kSobolBits + 1);
     for (int i = threadIdx.x; i < n; i += blockDim.x) ssob[i] = sobol[i];
   }
   __syncthreads();
   return sobol ? ssob : nullptr;
 }
 
-// Sum kCols per-thread float columns over the block in float64 with a
-// halving tree in shared memory (one tree for the price kernel and the
-// greek kernels alike) and write column k's sum to
+// Sum kCols per-thread columns (float or double) over the block in float64
+// with a halving tree in shared memory (one tree for the price kernels and
+// the greek kernels alike) and write column k's sum to
 // partials[k * gridDim.x + blockIdx.x].
-template <int kThreads, int kCols>
-__device__ __forceinline__ void block_sums(const float (&acc)[kCols], double* red,
+template <int kThreads, int kCols, class T>
+__device__ __forceinline__ void block_sums(const T (&acc)[kCols], double* red,
                                            double* partials) {
 #pragma unroll
   for (int k = 0; k < kCols; ++k) {

@@ -43,7 +43,7 @@ qe_greeks_kernel(const float* __restrict__ params, const float* __restrict__ tab
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
   const int* table =
-      hh::stage_mix_inputs<kGreekDirs>(params, tab, sobol, steps, sp, stab, ssob);
+      hh::stage_inputs<kGreekDirs, 2>(params, tab, sobol, steps, sp, stab, ssob);
   float acc[kGreekCols] = {};
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
@@ -96,7 +96,7 @@ qe_vjp_kernel(const float* __restrict__ params, const float* __restrict__ tab,
   __shared__ float stab[kVjpDirs][hh::kTanCols];
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table = hh::stage_mix_inputs<kVjpDirs>(params, tab, sobol, steps, sp, stab, ssob);
+  const int* table = hh::stage_inputs<kVjpDirs, 2>(params, tab, sobol, steps, sp, stab, ssob);
   float acc[kVjpCols] = {};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_paths) {

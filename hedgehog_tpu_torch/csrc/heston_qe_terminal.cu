@@ -1,0 +1,129 @@
+// QE-M terminal-sampler kernels for sm_90a: terminal prices (K5) and the
+// accumulating serving call price (K6).
+//
+// Replaces hedgehog_tpu/ops/heston_qe_kernel.py:
+//   heston_qe_terminal    (pallas_call at :400 QMC, :422 PRNG;
+//                          bodies _qe_kernel_qmc :266, _qe_kernel :220)
+//   heston_qe_call_price  (pallas_call at :498; body _qe_price_kernel :436)
+//
+// Per step a path draws two normals and a uniform, moves V by the QE scheme
+// and log S by the martingale-corrected QE-M update (hh_device.cuh
+// qem_advance, the TPU's _qe_advance).  K5 writes S_T = exp(log S_T); K6
+// sums the call payoffs of both paths of every pair.  The plain PyTorch
+// twins are in hedgehog_tpu_torch/ops/heston_qe_kernel.py; keep the two in
+// step.
+//
+// What bounds it on this card: FP32 and special-function issue, not memory.
+// Per step and path: two or three polished reciprocals, a square root and
+// one or two logs for the QE draw and the martingale correction, the
+// square root of the log-price variance, and for the stream a Philox call
+// and a Box-Muller pair (or a Sobol' XOR walk over three dimensions).  K5
+// writes 4 bytes per path once, K6 one double per block.  The design keeps
+// one antithetic pair per thread with (log S, V) of both paths in registers,
+// shares the pair's draws (normals negated, u mirrored), evaluates only the
+// QE branch and the martingale-correction branch a lane takes (the TPU
+// kernel computes both and selects), and writes K5's rows coalesced:
+// neighbouring threads write neighbouring paths.  K6 runs one resident wave
+// of blocks that each walk a fixed stride of pairs, so a thread sums ~1000
+// pairs at the serving shape; that running sum is float64 (one DADD per
+// pair, against a few hundred fp32 operations), because an fp32 running sum
+// of ~1000 payoffs of up to ~100 each rounds with a bias of order 1e-7 of
+// the price (K8's fp32 sum drifted 1.27e-7 from its twin at 2^27 pairs).
+// The block tree and the per-block partials are heston_qe.cuh block_sums.
+
+#include "heston_qe.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct QemPriceParams {
+  hh::QemParams c;
+  float strike;
+};
+static_assert(sizeof(QemPriceParams) == 15 * sizeof(float), "QE-M price parameter layout");
+
+// Terminal log-prices (x, x_a) of global pair `pair`.
+__device__ __forceinline__ void qem_pair(unsigned long long pair, const hh::QemParams& c,
+                                         const int* sobol, int steps, bool antithetic, bool mcorr,
+                                         uint32_t seed, uint32_t device_id, long long point_offset,
+                                         float& x, float& xa) {
+  float v = c.v0, va = c.v0;
+  x = c.log_s0;
+  xa = c.log_s0;
+  hh::qem_draws(pair, sobol, steps, seed, device_id, point_offset,
+                [&](float z_v, float z_x, float u) {
+                  hh::qem_advance(x, v, z_v, z_x, u, c, mcorr);
+                  if (antithetic) hh::qem_advance(xa, va, -z_v, -z_x, 1.0f - u, c, mcorr);
+                });
+}
+
+__global__ void __launch_bounds__(kThreads)
+qem_terminal_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
+                    float* __restrict__ out, long long n_paths, int steps, int antithetic,
+                    int mcorr, uint32_t seed, uint32_t device_id, long long point_offset) {
+  __shared__ hh::QemParams sp;
+  extern __shared__ int ssob[];
+  const int* table = hh::stage_inputs<0, 3>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_paths) return;
+  float x, xa;
+  qem_pair((unsigned long long)i, sp, table, steps, antithetic != 0, mcorr != 0, seed, device_id,
+           point_offset, x, xa);
+  out[i] = expf(x);
+  if (antithetic) out[n_paths + i] = expf(xa);
+}
+
+__global__ void __launch_bounds__(kThreads)
+qem_price_kernel(const float* __restrict__ params, double* __restrict__ partials,
+                 long long total_pairs, int steps, uint32_t seed, uint32_t device_id) {
+  __shared__ QemPriceParams sp;
+  __shared__ double red[kThreads];
+  hh::stage_inputs<0, 3>(params, nullptr, nullptr, steps, sp, nullptr, nullptr);
+  double acc[1] = {0.0};
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
+       g += stride) {
+    float x, xa;
+    qem_pair((unsigned long long)g, sp.c, nullptr, steps, true, true, seed, device_id, 0, x, xa);
+    acc[0] += (double)(fmaxf(expf(x) - sp.strike, 0.0f) + fmaxf(expf(xa) - sp.strike, 0.0f));
+  }
+  hh::block_sums<kThreads>(acc, red, partials);
+}
+
+}  // namespace
+
+// Terminal prices: out is (1 or 2, n_paths) float32; params (14,) float32;
+// sobol the (3*steps, 31) table or null (Philox).
+extern "C" int hh_qem_terminal(const float* params, const int* sobol, float* out,
+                               long long n_paths, int steps, int antithetic, int mcorr,
+                               unsigned seed, unsigned device_id, long long point_offset,
+                               void* stream) {
+  const long long blocks = (n_paths + kThreads - 1) / kThreads;
+  const size_t smem = sobol ? sizeof(int) * 3 * steps * (hh::kSobolBits + 1) : 0;
+  qem_terminal_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      params, sobol, out, n_paths, steps, antithetic, mcorr, seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// Sums of the pairs' two call payoffs: partials is (grid,) float64, one per
+// block; params (15,) float32, the strike last.
+extern "C" int hh_qem_price(const float* params, double* partials, int grid,
+                            long long total_pairs, int steps, unsigned seed, unsigned device_id,
+                            void* stream) {
+  qem_price_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(params, partials, total_pairs,
+                                                                steps, seed, device_id);
+  return (int)cudaGetLastError();
+}
+
+// K6's grid: one resident wave of qem_price_kernel on the current device.
+extern "C" int hh_qem_price_grid(int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qem_price_kernel, kThreads, 0);
+  }
+  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  return (int)err;
+}

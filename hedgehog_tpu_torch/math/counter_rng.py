@@ -4,9 +4,11 @@ Two generators, each a pure function of (key, counter):
 
 - **Threefry-2x32** (20 rounds) in numpy, only to reproduce the JAX package's
   Sobol' digital shift ``jax.random.bits(PRNGKey(seed), (dims,), uint32)``
-  without importing jax.  With ``jax_threefry_partitionable`` on (the
-  default of current jax), word ``i`` of that call is ``x0 ^ x1`` of
-  ``threefry2x32(key, (0, i))``, with key ``(seed >> 32, seed & 0xffffffff)``.
+  and the key split ``jax.random.split`` that the QE-M estimator draws its
+  shift key from, without importing jax.  With ``jax_threefry_partitionable``
+  on (the default of current jax), word ``i`` of the bits is ``x0 ^ x1`` of
+  ``threefry2x32(key, (0, i))`` and subkey ``i`` of a split is ``(x0, x1)``,
+  with key ``(seed >> 32, seed & 0xffffffff)``.
 - **Philox-4x32-10** in torch (int64 tensors holding uint32 values), the
   stream of every PRNG (non-QMC) path of the port.  ``csrc/hh_device.cuh``
   implements the same function, so a CUDA kernel and its plain twin draw
@@ -25,6 +27,7 @@ __all__ = [
     "prng_key",
     "threefry2x32",
     "random_bits",
+    "split",
     "philox4x32",
     "uniform_from_bits",
 ]
@@ -64,6 +67,15 @@ def random_bits(key, n: int) -> np.ndarray:
     i = np.arange(n, dtype=np.uint32)
     x0, x1 = threefry2x32(key, np.zeros_like(i), i)
     return x0 ^ x1
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` under partitionable threefry: a
+    (num, 2) uint32 array whose row ``i`` is both words of
+    ``threefry2x32(key, (0, i))``."""
+    i = np.arange(num, dtype=np.uint32)
+    x0, x1 = threefry2x32(key, np.zeros_like(i), i)
+    return np.stack([x0, x1], axis=1)
 
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57

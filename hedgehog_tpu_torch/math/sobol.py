@@ -35,8 +35,8 @@ def sobol_shift(key, dims: int) -> np.ndarray:
     return random_bits(key, dims) >> np.uint32(32 - _BITS)
 
 
-def sobol_uniforms(key, n_points: int, dims: int, skip: int = 0,
-                   device="cpu") -> torch.Tensor:
+def sobol_uniforms(key, n_points: int, dims: int, skip: int = 0, *,
+                   device) -> torch.Tensor:
     """(n_points, dims) float64 Sobol' uniforms in (0, 1) on ``device``.
 
     ``skip`` offsets the sequence index (devices take disjoint slices of one

@@ -42,8 +42,8 @@ def _bridge_normals(config, key, dt, point_offset, device) -> torch.Tensor:
     return dw.permute(2, 0, 1) / math.sqrt(dt)  # (2, paths, steps) → (steps, 2, paths)
 
 
-def heston_euler_paths(prob, config, key=None, device_id=0, point_offset=0,
-                       device="cpu") -> torch.Tensor:
+def heston_euler_paths(prob, config, key=None, device_id=0, point_offset=0, *,
+                       device) -> torch.Tensor:
     """Terminal prices (n_groups, trajectories), float64."""
     market, T, r0 = sim_params(prob)
     steps = config.steps

@@ -93,8 +93,8 @@ def _draws(config, key, segments, paths, anti, device_id, point_offset, device):
     return groups(u_pois, True), groups(z_gam, False), groups(u_boost, True), groups(z_iv, False)
 
 
-def heston_exact_mixing_values(prob, config, key=None, device_id=0, point_offset=0,
-                               device="cpu"):
+def heston_exact_mixing_values(prob, config, key=None, device_id=0, point_offset=0, *,
+                               device):
     """Per-path UNDISCOUNTED conditional vanilla values (n_groups, paths),
     float64, from the exact-transition segmented mixing scheme."""
     market, T, r0 = sim_params(prob)

@@ -38,7 +38,7 @@ __all__ = ["heston_qe_mixing_values", "qe_mixing_draws"]
 _MASK32 = 0xFFFFFFFF
 
 
-def qe_mixing_draws(config, key=None, device_id=0, point_offset=0, device="cpu"):
+def qe_mixing_draws(config, key=None, device_id=0, point_offset=0, *, device):
     """(z, u), each (steps, n_groups, trajectories) float64 on ``device``;
     the antithetic group holds −z and 1 − u."""
     steps, paths = config.steps, config.trajectories
@@ -64,8 +64,8 @@ def qe_mixing_draws(config, key=None, device_id=0, point_offset=0, device="cpu")
     return z[:, None], u[:, None]
 
 
-def heston_qe_mixing_values(prob, config, key=None, device_id=0, point_offset=0,
-                            device="cpu"):
+def heston_qe_mixing_values(prob, config, key=None, device_id=0, point_offset=0, *,
+                            device):
     """Per-path UNDISCOUNTED conditional vanilla values (n_groups, paths),
     float64; a strike grid gives (n_groups, m, paths) from one path set."""
     market, T, r0 = sim_params(prob)
@@ -74,7 +74,7 @@ def heston_qe_mixing_values(prob, config, key=None, device_id=0, point_offset=0,
         f64(x, device=device)
         for x in (market.V0, market.kappa, market.theta, market.sigma, market.rho, r0))
     c = qe_constants(kappa, theta, sigma, rho, r0, dt)
-    zs, us = qe_mixing_draws(config, key, device_id, point_offset, device)
+    zs, us = qe_mixing_draws(config, key, device_id, point_offset, device=device)
     ktd = kappa * theta * dt
     v = v0 + torch.zeros(zs.shape[1:], dtype=torch.float64, device=device)
     iv = torch.zeros_like(v)

@@ -170,7 +170,7 @@ def heston_mixing_price_and_greeks(prob, method, key=None):
                            market.rho, r0))
     steps = config.steps
     dt = T / steps
-    zs, us = qe_mixing_draws(config, key, 0, 0, device)
+    zs, us = qe_mixing_draws(config, key, 0, 0, device=device)
     c = dict(qe_constants(kappa, theta, sigma, rho, r0, dt), half_dt=0.5 * dt,
              inv_sigma=1.0 / sigma, k_over_sigma=kappa / sigma,
              ktd_over_sigma=kappa * theta * dt / sigma)

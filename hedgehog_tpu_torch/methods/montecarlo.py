@@ -1,21 +1,24 @@
-"""Monte Carlo pricing: dynamics × strategy × config, for the Heston main path.
+"""Monte Carlo pricing: dynamics × strategy × config, for European vanillas
+under Black-Scholes and Heston.
 
 Port of the slice of ``hedgehog_tpu/methods/montecarlo.py`` that prices a
-European vanilla under Heston (reference montecarlo.jl): the configuration
-taxonomy, the two dispatchers and the solver.  The estimators live beside
-it: ``heston_euler.py`` (full-truncation log-Euler),
-``heston_exact_mixing.py`` (exact-transition mixing) and
-``heston_qe_mixing.py`` (QE variance path, conditional close);
+European vanilla under Heston and Black-Scholes (reference montecarlo.jl):
+the configuration taxonomy, the two dispatchers and the solver.  The
+estimators live beside it: ``gbm_exact.py`` (exact lognormal draw),
+``heston_euler.py`` (full-truncation log-Euler), ``heston_qe_paths.py``
+(the QE-M terminal sampler), ``heston_exact_mixing.py`` (exact-transition
+mixing) and ``heston_qe_mixing.py`` (QE variance path, conditional close);
 ``use_kernel=True`` routes them through the CUDA kernels of
 ``hedgehog_tpu_torch.ops``.
 
-On the QE mixing path, market fields that are 0-dim tensors stay tensors
-(spot, V0, κ, θ, σ, ρ and a flat rate), so ``torch.autograd.grad`` of a
-``solve`` price reaches them, through the kernels' backward as well.
+On the QE paths and the exact GBM draw, market fields that are 0-dim
+tensors stay tensors, so ``torch.autograd.grad`` of a ``solve`` price
+reaches them (on the QE mixing path through the kernels' backward as well).
 
-``MonteCarlo.device`` names where the paths are simulated.  A CUDA device
-without a GPU raises; on a CUDA device ``use_kernel=True`` launches the
-kernels and never falls back to the plain versions.
+``MonteCarlo.device`` names where the paths are simulated, the GPU unless
+the caller asks for the CPU.  A CUDA device without a GPU raises; on a CUDA
+device ``use_kernel=True`` launches the kernels and never falls back to the
+plain versions.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ..core.problems import MonteCarloSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import carry_yield, market_yearfrac
 from ..market.rate_curve import df, zero_rate_yf
-from ..models.dynamics import HestonDynamics
+from ..models.dynamics import HestonDynamics, LognormalDynamics
 from ..utils import f64, resolve_device
 
 __all__ = [
@@ -39,6 +42,7 @@ __all__ = [
     "EulerMaruyama",
     "HestonExactMixing",
     "HestonQE",
+    "BlackScholesExact",
     "NoVarianceReduction",
     "Antithetic",
     "simulate_terminal_prices",
@@ -91,18 +95,29 @@ class HestonExactMixing(SimulationStrategy):
 class HestonQE(SimulationStrategy):
     """Andersen Quadratic-Exponential discretization (models/heston_qe.py).
 
+    By default the QE-M terminal sampler: per step two normals and a uniform
+    move (log S, V), with the martingale correction that makes E[S'] =
+    S·e^{rΔ} exactly (methods/heston_qe_paths.py; ``use_kernel=True`` runs
+    the CUDA kernel K5, whose in-kernel Sobol' stream serves ``qmc=True``).
     ``conditional=True`` prices European vanillas by the Romano–Touzi
-    conditional (mixing) estimator: only the variance path is simulated (one
-    normal and one uniform per step) and each path closes with the
-    conditional Black-Scholes formula; it prices through ``solve`` only.
-    ``use_kernel=True`` runs the CUDA kernels (ops/heston_qe_kernel.py),
-    whose backward is a kernel too (ops/heston_qe_greeks_kernel.py).  The
-    QE-M terminal sampler (``conditional=False``) is not ported yet and
-    raises."""
+    conditional (mixing) estimator instead: only the variance path is
+    simulated (one normal and one uniform per step) and each path closes
+    with the conditional Black-Scholes formula; it prices through ``solve``
+    only.  ``use_kernel=True`` then runs the mixing kernels
+    (ops/heston_qe_kernel.py), whose backward is a kernel too
+    (ops/heston_qe_greeks_kernel.py)."""
 
     martingale_correction: bool = True
     use_kernel: bool = False
     conditional: bool = False
+
+
+@_frozen
+class BlackScholesExact(SimulationStrategy):
+    """Exact terminal lognormal draw (no path discretization error);
+    ``use_kernel=True`` runs the CUDA kernel K13 (ops/gbm_kernel.py)."""
+
+    use_kernel: bool = False
 
 
 @_frozen
@@ -129,14 +144,14 @@ class SimulationConfig:
 @_frozen
 class MonteCarlo(AbstractPricingMethod):
     """Monte Carlo pricing of ``dynamics`` by ``strategy`` under ``config``,
-    simulated on ``device``.  The defaults differ from the JAX package's
-    (LognormalDynamics, BlackScholesExact), a strategy this slice has not
-    ported."""
+    simulated on ``device``: by default exact lognormal draws
+    (LognormalDynamics, BlackScholesExact), as in the JAX package, on the
+    GPU; the CPU only when asked for (``device="cpu"``)."""
 
-    dynamics: Any = HestonDynamics()
-    strategy: Any = EulerMaruyama()
+    dynamics: Any = LognormalDynamics()
+    strategy: Any = BlackScholesExact()
     config: SimulationConfig = SimulationConfig()
-    device: str = "cpu"
+    device: str = "cuda"
 
 
 def sim_params(prob: PricingProblem):
@@ -206,29 +221,51 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
             "never materializes terminal samples (logS_T is integrated out "
             "analytically); price through solve(...)"
         )
-    if isinstance(strat, HestonQE):
-        raise TypeError(
-            "the QE-M terminal sampler (HestonQE(conditional=False)) is not ported "
-            "yet; use HestonQE(conditional=True), HestonExactMixing or EulerMaruyama"
-        )
-    if not (isinstance(strat, EulerMaruyama) and isinstance(dyn, HestonDynamics)):
+    route = None
+    if isinstance(dyn, LognormalDynamics) and isinstance(strat, (EulerMaruyama, BlackScholesExact)):
+        if isinstance(strat, EulerMaruyama) and not strat.use_kernel:
+            raise TypeError(
+                "(LognormalDynamics, EulerMaruyama(use_kernel=False)), the JAX package's "
+                "_gbm_euler_paths, is not ported yet; use BlackScholesExact"
+            )
+        route = "gbm"
+    elif isinstance(dyn, HestonDynamics) and isinstance(strat, (EulerMaruyama, HestonQE)):
+        route = "euler" if isinstance(strat, EulerMaruyama) else "qe"
+    if route is None:
         raise TypeError(
             f"unsupported (dynamics, strategy) = ({type(dyn).__name__}, {type(strat).__name__})"
         )
+    if config.qmc and strat.use_kernel and route != "qe":
+        # the GBM and Euler kernels draw their own PRNG streams: a silent
+        # pseudo-random fallback would betray the accuracy the caller sized
+        # for (the QE-M kernel has an in-kernel Sobol' stream)
+        raise ValueError(
+            "qmc=True is not supported with the GBM/Euler kernel strategies; use the "
+            "float64 samplers or HestonQE(use_kernel=True)"
+        )
     device = resolve_device(method.device)
+    kw = dict(key=key, device_id=device_id, device=device)
+    if route == "gbm":
+        if strat.use_kernel:
+            from ..ops.gbm_kernel import gbm_exact_terminal_adapter
+
+            return gbm_exact_terminal_adapter(prob, config, **kw)
+        from .gbm_exact import gbm_exact_terminal
+
+        return gbm_exact_terminal(prob, config, point_offset=point_offset, **kw)
+    if route == "qe":
+        if strat.use_kernel:
+            from ..ops.heston_qe_kernel import heston_qe_terminal_adapter as qe_paths
+        else:
+            from .heston_qe_paths import heston_qe_paths as qe_paths
+        return qe_paths(prob, config, strat, point_offset=point_offset, **kw)
     if strat.use_kernel:
-        if config.qmc:
-            # the Euler kernel draws its own PRNG stream: a silent pseudo-random
-            # fallback would betray the accuracy the caller sized for
-            raise ValueError("qmc=True is not supported with the Euler kernel strategy")
         from ..ops.heston_kernel import heston_euler_terminal_adapter
 
-        return heston_euler_terminal_adapter(prob, config, key=key, device_id=device_id,
-                                             device=device)
+        return heston_euler_terminal_adapter(prob, config, **kw)
     from .heston_euler import heston_euler_paths
 
-    return heston_euler_paths(prob, config, key=key, device_id=device_id,
-                              point_offset=point_offset, device=device)
+    return heston_euler_paths(prob, config, point_offset=point_offset, **kw)
 
 
 def reduce_payoffs(samples: torch.Tensor, payoff) -> torch.Tensor:

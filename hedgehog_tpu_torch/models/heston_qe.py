@@ -1,24 +1,24 @@
 """Andersen Quadratic-Exponential (QE) variance step for Heston, float64.
 
-Port of the variance part of ``hedgehog_tpu/models/heston_qe.py``: the
-per-step constants, the QE draw V → V' (quadratic branch for ψ ≤ 1.5,
-exponential branch above) and the same draw with its hand-derived tangent
-coefficients.  The conditional (Romano–Touzi mixing) estimator
-(methods/heston_qe_mixing.py) and the forward-mode greeks
-(methods/mixing_greeks.py) build on it.  The f64 guards are the JAX
-package's, unchanged (1e-30, 1e-12, the double-``where`` square-root
-guards that keep reverse-mode gradients finite through the dead branch);
-the fp32 kernels and their twins use their own set (ops/hh_device.py).
-
-The QE-M log-price step ``qe_step`` belongs to the terminal sampler, which
-the port has not taken over yet.
+Port of ``hedgehog_tpu/models/heston_qe.py``: the per-step constants, the
+QE draw V → V' (quadratic branch for ψ ≤ 1.5, exponential branch above),
+the same draw with its hand-derived tangent coefficients, and the QE(-M)
+step of (log S, V).  The conditional (Romano–Touzi mixing) estimator
+(methods/heston_qe_mixing.py), the forward-mode greeks
+(methods/mixing_greeks.py) and the QE-M terminal sampler
+(methods/heston_qe_paths.py) build on it.  The f64 guards are the JAX
+package's, unchanged (1e-30, 1e-12, 1 − 1e-9, 1e-300, the double-``where``
+square-root guards that keep reverse-mode gradients finite through the dead
+branch); the fp32 kernels and their twins use their own set
+(ops/hh_device.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["PSI_CRIT", "qe_v_step", "qe_v_step_with_coeffs", "qe_constants", "matched_gammas"]
+__all__ = ["PSI_CRIT", "qe_step", "qe_v_step", "qe_v_step_with_coeffs", "qe_constants",
+           "matched_gammas"]
 
 PSI_CRIT = 1.5
 
@@ -163,3 +163,23 @@ def qe_v_step_with_coeffs(v, z, u, c):
     cm = coef_m - 2.0 * psi * inv_m * coef_psi
     cs = coef_psi * inv_m * inv_m
     return vn, cm, cs
+
+
+def qe_step(x, v, z_v, z_x, u, c, *, martingale_correction: bool = True):
+    """One QE(-M) step (log S, V) → (log S', V') given normals z_v, z_x and a
+    uniform u; ``c`` is :func:`qe_constants`' dict.  With the martingale
+    correction K0* = −log M − (K1 + K3/2)·V, M the exact exponential moment
+    of the V' draw (Andersen 2008 §4.3), so E[S'] = S·e^{rΔ} per step."""
+    v_new, use_quad, a, b2, p, beta = _qe_v_draw(v, z_v, u, c)
+    K1, K2, K3, K4, A = c["K1"], c["K2"], c["K3"], c["K4"], c["A"]
+    if martingale_correction:
+        safe_quad = torch.clamp(2.0 * A * a, max=1.0 - 1e-9)
+        log_m_quad = A * b2 * a / (1.0 - safe_quad) - 0.5 * torch.log1p(-safe_quad)
+        denom = torch.clamp(beta - A, min=1e-30)
+        log_m_exp = torch.log(torch.clamp(p + beta * (1.0 - p) / denom, min=1e-300))
+        k0_star = -torch.where(use_quad, log_m_quad, log_m_exp) - (K1 + 0.5 * K3) * v
+    else:
+        k0_star = c["K0"]
+    var_x = torch.clamp(K3 * v + K4 * v_new, min=0.0)
+    x_new = x + c["r_dt"] + k0_star + K1 * v + K2 * v_new + torch.sqrt(var_x) * z_x
+    return x_new, v_new

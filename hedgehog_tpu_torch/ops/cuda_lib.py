@@ -23,7 +23,8 @@ import time
 
 import torch
 
-__all__ = ["CudaKernel", "build_library", "load_library", "BUILD_ROOT", "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "build_library", "load_library", "resident_grid", "BUILD_ROOT",
+           "NVCC_FLAGS"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "hedgehog_tpu_torch"
@@ -100,7 +101,20 @@ def load_library() -> ctypes.CDLL:
     lib.hh_exact_price_grid.restype = ctypes.c_int
     lib.hh_qe_price_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.hh_qe_price_grid.restype = ctypes.c_int
+    lib.hh_qem_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_qem_price_grid.restype = ctypes.c_int
     return lib
+
+
+def resident_grid(symbol: str, device: torch.device, *args) -> int:
+    """The grid of an accumulating price kernel on ``device``: one resident
+    wave of it, from the library's ``symbol(*args, int* grid)``."""
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(load_library(), symbol)(*args, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return grid.value
 
 
 class CudaKernel:

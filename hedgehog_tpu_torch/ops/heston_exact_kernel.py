@@ -30,7 +30,7 @@ from ..models.heston_exact import (
 )
 from ..math.counter_rng import uniform_from_bits
 from ..utils import resolve_device
-from .cuda_lib import CudaKernel, check_tensor, load_library, require_cuda
+from .cuda_lib import CudaKernel, check_tensor, require_cuda, resident_grid
 from .hh_device import (
     SOBOL_BITS,
     box_muller,
@@ -306,15 +306,6 @@ def _exact_values(params, table, n_paths, segments, antithetic, kmax, seed, devi
     return out
 
 
-def _price_grid(device: torch.device) -> int:
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = load_library().hh_exact_price_grid(ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"hh_exact_price_grid: CUDA error {err}")
-    return grid.value
-
-
 def _exact_price_sum(params, table, total_pairs, segments, kmax, seed, device_id,
                      point_offset) -> torch.Tensor:
     """Launch K3 for inputs on a GPU (the float64 sum of its per-block
@@ -324,7 +315,7 @@ def _exact_price_sum(params, table, total_pairs, segments, kmax, seed, device_id
         return heston_exact_mixing_price_sum_plain(params, table, total_pairs, segments, kmax,
                                                    seed, device_id, point_offset)
     require_cuda(params)
-    grid = min(_price_grid(params.device), -(-total_pairs // 256))
+    grid = min(resident_grid("hh_exact_price_grid", params.device), -(-total_pairs // 256))
     partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
     EXACT_PRICE_KERNEL.launch(
         params.device, params.data_ptr(), None if table is None else table.data_ptr(),
@@ -346,7 +337,7 @@ def _inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, segments, s
 def heston_exact_mixing_values(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
     *, n_paths: int, segments: int, seed, antithetic: bool = False, device_id=0,
-    qmc: bool = False, point_offset: int = 0, device="cpu",
+    qmc: bool = False, point_offset: int = 0, device="cuda",
 ) -> torch.Tensor:
     """Per-path UNDISCOUNTED conditional vanilla values, (n_groups, n_paths)
     float32.  QMC is antithetic-only (the Sobol' stream is laid out in
@@ -369,7 +360,7 @@ def heston_exact_mixing_values(
 def heston_exact_mixing_vanilla_price(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
     *, n_blocks: int, n_batches: int, segments: int, seed, device_id=0, cp=1.0,
-    qmc: bool = False, point_offset: int = 0, device="cpu",
+    qmc: bool = False, point_offset: int = 0, device="cuda",
 ) -> torch.Tensor:
     """Discounted European vanilla price over n_blocks·n_batches·32768
     antithetic exact-mixing pairs in ONE launch, accumulated on the device:
@@ -388,7 +379,7 @@ def heston_exact_mixing_vanilla_price(
 
 
 def heston_exact_mixing_values_adapter(prob, config, strat, key=None, device_id=0,
-                                       point_offset=0, device="cpu"):
+                                       point_offset=0, *, device):
     """``MonteCarlo(HestonDynamics(), HestonExactMixing(use_kernel=True))``:
     float64 per-path values (n_groups, trajectories) from the kernel, the
     counterpart of the JAX ``heston_exact_mixing_values_pallas``.  Under QMC

@@ -108,7 +108,7 @@ def _euler_terminal(params: torch.Tensor, n_paths: int, steps: int, seed: int,
 
 def heston_euler_terminal(log_s0, v0, r, kappa, theta, sigma, rho, dt, *, n_paths: int,
                           steps: int, seed, antithetic: bool = False, device_id=0,
-                          device="cpu") -> torch.Tensor:
+                          device="cuda") -> torch.Tensor:
     """Terminal Heston prices, (n_groups, n_paths) float32 with n_groups = 2
     under antithetic pairing (the JAX signature with ``device`` in place of
     ``interpret``)."""
@@ -118,7 +118,7 @@ def heston_euler_terminal(log_s0, v0, r, kappa, theta, sigma, rho, dt, *, n_path
     return _euler_terminal(params, n_paths, steps, int(seed), antithetic, int(device_id))
 
 
-def heston_euler_terminal_adapter(prob, config, key=None, device_id=0, device="cpu"):
+def heston_euler_terminal_adapter(prob, config, key=None, device_id=0, *, device):
     """``MonteCarlo(HestonDynamics(), EulerMaruyama(use_kernel=True))``:
     float64 terminal prices (n_groups, trajectories) from the kernel, the
     counterpart of the JAX ``heston_euler_terminal_pallas``.  An explicit

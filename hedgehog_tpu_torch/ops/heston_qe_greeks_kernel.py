@@ -302,7 +302,7 @@ def _vjp_sums(params, dtab, table, ct, n_paths, steps, antithetic, seed, device_
 def heston_qe_mixing_price_and_greeks(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
     *, n_blocks: int, n_batches: int, steps: int, seed, device_id=0, cp=1.0,
-    qmc: bool = False, point_offset: int = 0, device="cpu",
+    qmc: bool = False, point_offset: int = 0, device="cuda",
 ):
     """Discounted European vanilla price AND its 7-parameter greek vector
     (methods/mixing_greeks.GREEK_ORDER: spot, V0, κ, θ, σ, ρ, flat rate) over
@@ -372,7 +372,7 @@ class _MixingValues(torch.autograd.Function):
 def heston_qe_mixing_values_diff(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
     *, n_paths: int, steps: int, seed, antithetic: bool = False, device_id=0,
-    qmc: bool = False, point_offset: int = 0, device="cpu",
+    qmc: bool = False, point_offset: int = 0, device="cuda",
 ):
     """Differentiable view of :func:`heston_qe_mixing_values`: the same
     values, and a backward that runs K11 on the same stream, so

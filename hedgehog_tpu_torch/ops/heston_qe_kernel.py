@@ -1,21 +1,25 @@
-"""QE mixing kernels (K7 values, K8 serving price) and their plain PyTorch
-twins.
+"""QE kernels and their plain PyTorch twins: mixing (K7 values, K8 serving
+price) and the QE-M terminal sampler (K5 terminal prices, K6 serving call
+price).
 
-Port of the mixing part of ``hedgehog_tpu/ops/heston_qe_kernel.py``.  For
-tensors on a GPU the work goes to ``csrc/heston_qe.cu``; for tensors on the
-CPU to the float32 twins below, which repeat the kernels' arithmetic: the
-same Sobol' or Philox bits, the same ``ndtri_approx``, the same polished
+Port of the mixing and terminal parts of
+``hedgehog_tpu/ops/heston_qe_kernel.py``.  For tensors on a GPU the work
+goes to ``csrc/heston_qe.cu`` and ``csrc/heston_qe_terminal.cu``; for tensors
+on the CPU to the float32 twins below, which repeat the kernels' arithmetic:
+the same Sobol' or Philox bits, the same ``ndtri_approx``, the same polished
 reciprocal, the same fp32 guards.  The public functions keep the JAX
-signatures, with ``device`` in place of ``interpret``; ``n_blocks`` and
-``n_batches`` keep their meaning (``n_blocks·n_batches·32768`` antithetic
-pairs per price call).
+signatures, with ``device`` (default the GPU) in place of ``interpret``;
+``n_blocks`` and ``n_batches`` keep their meaning (``n_blocks·n_batches·32768``
+antithetic pairs per price call).
 
-Streams (csrc/hh_device.cuh): under QMC the table is
-``sobol_table(seed, 2·steps)`` and pair i is point ``point_offset + i``,
-dims 2s (z) and 2s + 1 (u) at step s; K8 covers exactly the points
-``[point_offset, point_offset + n_blocks·n_batches·32768)``.  Under PRNG
-pair i draws Philox block s // 2 at step s (words 0, 1 → Box–Muller, words
-2, 3 → the even and odd step's uniforms).
+Streams (csrc/hh_device.cuh): under QMC pair i is point ``point_offset + i``
+of the table ``sobol_table(seed, 2·steps)`` (mixing: dims 2s (z) and 2s + 1
+(u) at step s) or ``sobol_table(seed, 3·steps)`` (QE-M: dims 3s (z_v), 3s + 1
+(z_x), 3s + 2 (u)); K8 covers exactly the points ``[point_offset,
+point_offset + n_blocks·n_batches·32768)``.  Under PRNG a mixing pair draws
+Philox block s // 2 at step s (words 0, 1 → Box–Muller, words 2, 3 → the
+even and odd step's uniforms), a QE-M pair block s (words 0, 1 → Box–Muller
+(z_v, z_x), word 2 → u); K6 walks K5's pairs ``[0, n_blocks·n_batches·32768)``.
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ import torch
 
 from ..math.counter_rng import uniform_from_bits
 from ..utils import f64, resolve_device
-from .cuda_lib import CudaKernel, check_tensor, load_library, require_cuda
+from .cuda_lib import CudaKernel, check_tensor, require_cuda, resident_grid
 from .hh_device import (
     MIX_NAMES,
+    QEM_NAMES,
     SOBOL_BITS,
     box_muller,
     cond_bs_value,
@@ -37,6 +42,8 @@ from .hh_device import (
     mix_c,
     ndtri_approx,
     philox_block,
+    qem_advance,
+    qem_c,
     sobol_masks,
     sobol_table,
     sobol_uniforms_tile,
@@ -45,17 +52,25 @@ from .hh_device import (
 __all__ = [
     "QE_VALUES_KERNEL",
     "QE_PRICE_KERNEL",
+    "QEM_TERMINAL_KERNEL",
+    "QEM_PRICE_KERNEL",
     "heston_qe_mixing_values",
     "heston_qe_mixing_values_adapter",
     "heston_qe_mixing_values_plain",
     "heston_qe_mixing_price_sum_plain",
     "heston_qe_mixing_vanilla_price",
+    "heston_qe_terminal",
+    "heston_qe_terminal_adapter",
+    "heston_qe_terminal_plain",
+    "heston_qe_call_price",
+    "heston_qe_call_price_sum_plain",
 ]
 
 #: antithetic pairs per TPU program (256 × 128): the unit of ``n_blocks``
 PAIRS_PER_BLOCK = 256 * 128
 #: QMC steps whose Sobol' table the kernels stage in shared memory at most
-#: (2·128 dims × 31 words = 31.7 KB)
+#: (mixing: 2·128 dims × 31 words = 31.7 KB; QE-M: 3·128 dims = 47.6 KB, under
+#: the 48 KB of dynamic shared memory a block takes without opting in)
 QMC_MAX_STEPS = 128
 _MASK32 = 0xFFFFFFFF
 #: pairs per chunk of the summing twins
@@ -150,15 +165,18 @@ def heston_qe_mixing_price_sum_plain(params, table, total_pairs: int, steps: int
 # ---- launch or twin -------------------------------------------------------------
 
 
-def check_inputs(params, table, steps: int) -> None:
-    """Raise on a parameter vector or Sobol' table the kernels do not take."""
-    check_tensor(params, "params", torch.float32, (len(MIX_NAMES),))
+def check_inputs(params, table, steps: int, n_params: int = len(MIX_NAMES),
+                 dims_per_step: int = 2) -> None:
+    """Raise on a parameter vector or Sobol' table the kernels do not take
+    (mixing kernels: 16 parameters and 2 Sobol' dims per step; QE-M: 14 or
+    15 and 3)."""
+    check_tensor(params, "params", torch.float32, (n_params,))
     if steps < 1:
         raise ValueError(f"need steps >= 1; got {steps}")
     if table is not None:
         if steps > QMC_MAX_STEPS:
             raise ValueError(f"QMC kernels take at most {QMC_MAX_STEPS} steps; got {steps}")
-        check_tensor(table, "sobol table", torch.int32, (2 * steps, SOBOL_BITS + 1))
+        check_tensor(table, "sobol table", torch.int32, (dims_per_step * steps, SOBOL_BITS + 1))
         if table.device != params.device:
             raise ValueError("params and the Sobol' table must be on one device")
 
@@ -185,13 +203,7 @@ def _qe_values(params, table, n_paths, steps, antithetic, seed, device_id,
 def price_grid(device: torch.device, table) -> int:
     """Blocks of the price kernels K8 and K10 (one resident wave of K8):
     both walk the pairs with this grid, so K10's price equals K8's."""
-    grid = ctypes.c_int(0)
-    smem = 0 if table is None else 4 * table.numel()
-    with torch.cuda.device(device):
-        err = load_library().hh_qe_price_grid(smem, ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"hh_qe_price_grid: CUDA error {err}")
-    return grid.value
+    return resident_grid("hh_qe_price_grid", device, 0 if table is None else 4 * table.numel())
 
 
 def _qe_price_sum(params, table, total_pairs, steps, seed, device_id,
@@ -235,7 +247,7 @@ def check_period(qmc: bool, point_offset: int, n_points: int) -> None:
 def heston_qe_mixing_values(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
     *, n_paths: int, steps: int, seed, antithetic: bool = False, device_id=0,
-    qmc: bool = False, point_offset: int = 0, device="cpu",
+    qmc: bool = False, point_offset: int = 0, device="cuda",
 ) -> torch.Tensor:
     """Per-path UNDISCOUNTED conditional vanilla values, (n_groups, n_paths)
     float32, n_groups = 2 under antithetic pairing; ``cp`` is +1 for a call,
@@ -251,7 +263,7 @@ def heston_qe_mixing_values(
 def heston_qe_mixing_vanilla_price(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
     *, n_blocks: int, n_batches: int, steps: int, seed, device_id=0, cp=1.0,
-    qmc: bool = False, point_offset: int = 0, device="cpu",
+    qmc: bool = False, point_offset: int = 0, device="cuda",
 ) -> torch.Tensor:
     """Discounted European vanilla price over n_blocks·n_batches·32768
     antithetic mixing pairs in ONE launch, accumulated on the device: the
@@ -266,7 +278,7 @@ def heston_qe_mixing_vanilla_price(
 
 
 def heston_qe_mixing_values_adapter(prob, config, strat, key=None, device_id=0,
-                                    point_offset=0, device="cpu"):
+                                    point_offset=0, *, device):
     """``MonteCarlo(HestonDynamics(), HestonQE(conditional=True,
     use_kernel=True))``: float64 per-path values (n_groups, trajectories)
     from K7, through the differentiable view whose backward is K11 (the
@@ -286,5 +298,190 @@ def heston_qe_mixing_values_adapter(prob, config, strat, key=None, device_id=0,
         seed=config.seed if config.qmc else seed_from_key(config, key),
         antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
         qmc=config.qmc, point_offset=point_offset, device=device,
+    )
+    return out.to(torch.float64)
+
+
+# ---- QE-M terminal sampler: K5 terminal prices, K6 serving call price ----------
+
+_QEM_TERMINAL_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+]
+_QEM_PRICE_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+]
+QEM_TERMINAL_KERNEL = CudaKernel("hh_qem_terminal", _QEM_TERMINAL_ARGS)
+QEM_PRICE_KERNEL = CudaKernel("hh_qem_price", _QEM_PRICE_ARGS)
+
+
+def _qem_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, gamma1=0.5, gamma2=0.5,
+                strike=None) -> np.ndarray:
+    """(14,) float32 parameter vector (layout ``QEM_NAMES``), (15,) with the
+    call-price kernel's strike: float64 host math, each entry cast once, as
+    the TPU wrappers build it."""
+    from ..models.heston_qe import qe_constants
+
+    c = {k: float(x) for k, x in qe_constants(kappa, theta, sigma, rho, r, dt, gamma1,
+                                                gamma2).items()}
+    vals = dict(c, log_s0=log_s0, v0=v0, theta=theta, K1_half_K3=c["K1"] + 0.5 * c["K3"])
+    row = [float(vals[n]) for n in QEM_NAMES] + ([] if strike is None else [float(strike)])
+    return np.array(row, dtype=np.float64).astype(np.float32)
+
+
+def qem_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: int,
+              dtype=torch.float32):
+    """Yields (z_v, z_x, u) of each step for the pairs ``pair`` (int64
+    tensor of global pair indices), in the kernels' draw order: Sobol' dims
+    (3s, 3s + 1, 3s + 2) when ``table`` is given, else Philox block s
+    (words 0, 1 → Box–Muller, word 2 → u), whose arithmetic runs in
+    ``dtype`` (the float64 estimator draws the same stream)."""
+    if table is not None:
+        masks = sobol_masks(pair + point_offset)
+        for s in range(steps):
+            u1, u2, u3 = sobol_uniforms_tile(masks, table, (3 * s, 3 * s + 1, 3 * s + 2))
+            yield ndtri_approx(u1), ndtri_approx(u2), u3
+        return
+    for s in range(steps):
+        w = philox_block(pair, s, seed & _MASK32, device_id & _MASK32)
+        z_v, z_x = box_muller(w[0], w[1], dtype=dtype)
+        yield z_v, z_x, uniform_from_bits(w[2]).to(dtype)
+
+
+def _qem_pairs_plain(params, table, pair, steps, antithetic, mcorr, seed, device_id,
+                     point_offset):
+    c = qem_c(params)
+    x, v = c["log_s0"].expand(pair.shape), c["v0"].expand(pair.shape)
+    xa, va = x, v
+    for z_v, z_x, u in qem_draws(pair, steps, table, seed, device_id, point_offset):
+        x, v = qem_advance(x, v, z_v, z_x, u, c, mcorr)
+        if antithetic:
+            xa, va = qem_advance(xa, va, -z_v, -z_x, 1.0 - u, c, mcorr)
+    return torch.stack([torch.exp(x), torch.exp(xa)] if antithetic else [torch.exp(x)])
+
+
+def heston_qe_terminal_plain(params, table, n_paths: int, steps: int, antithetic: bool,
+                             mcorr: bool, seed: int, device_id: int,
+                             point_offset: int) -> torch.Tensor:
+    """Twin of K5: (1 or 2, n_paths) float32 terminal prices on
+    ``params.device``; ``table`` is the (3·steps, 31) Sobol' table (QMC) or
+    None (Philox)."""
+    pair = torch.arange(n_paths, dtype=torch.int64, device=params.device)
+    return _qem_pairs_plain(params, table, pair, steps, antithetic, mcorr, seed, device_id,
+                            point_offset)
+
+
+def heston_qe_call_price_sum_plain(params, total_pairs: int, steps: int, seed: int,
+                                   device_id: int) -> torch.Tensor:
+    """Twin of K6: the float64 sum over the pairs ``[0, total_pairs)`` of
+    each pair's two fp32 call payoffs (their fp32 sum, as the kernel adds
+    them), in chunks of ``PLAIN_CHUNK`` pairs."""
+    strike = params[len(QEM_NAMES)]
+    total = torch.zeros((), dtype=torch.float64, device=params.device)
+    for start in range(0, total_pairs, PLAIN_CHUNK):
+        pair = torch.arange(start, min(start + PLAIN_CHUNK, total_pairs), dtype=torch.int64,
+                            device=params.device)
+        s = _qem_pairs_plain(params, None, pair, steps, True, True, seed, device_id, 0)
+        pay = torch.clamp(s - strike, min=0.0)
+        total = total + (pay[0] + pay[1]).to(torch.float64).sum()
+    return total
+
+
+def _qem_terminal(params, table, n_paths, steps, antithetic, mcorr, seed, device_id,
+                  point_offset) -> torch.Tensor:
+    """Launch K5 for inputs on a GPU; the twin for inputs on the CPU."""
+    check_inputs(params, table, steps, len(QEM_NAMES), 3)
+    if n_paths < 1:
+        raise ValueError(f"need n_paths >= 1; got {n_paths}")
+    if params.device.type == "cpu":
+        return heston_qe_terminal_plain(params, table, n_paths, steps, antithetic, mcorr, seed,
+                                        device_id, point_offset)
+    require_cuda(params)
+    out = torch.empty((2 if antithetic else 1, n_paths), dtype=torch.float32, device=params.device)
+    QEM_TERMINAL_KERNEL.launch(
+        params.device, params.data_ptr(), None if table is None else table.data_ptr(),
+        out.data_ptr(), n_paths, steps, int(antithetic), int(mcorr), seed & _MASK32,
+        device_id & _MASK32, point_offset,
+    )
+    return out
+
+
+def _qem_price_sum(params, total_pairs, steps, seed, device_id) -> torch.Tensor:
+    """Launch K6 for inputs on a GPU (the float64 sum of its per-block
+    partials); the twin for inputs on the CPU."""
+    check_inputs(params, None, steps, len(QEM_NAMES) + 1)
+    if params.device.type == "cpu":
+        return heston_qe_call_price_sum_plain(params, total_pairs, steps, seed, device_id)
+    require_cuda(params)
+    grid = resident_grid("hh_qem_price_grid", params.device)
+    partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
+    QEM_PRICE_KERNEL.launch(params.device, params.data_ptr(), partials.data_ptr(), grid,
+                            total_pairs, steps, seed & _MASK32, device_id & _MASK32)
+    return partials.sum()
+
+
+def qem_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, seed, qmc, device):
+    """(params, Sobol' table or None) of K5 on ``device``."""
+    dev = resolve_device(device)
+    params = torch.as_tensor(_qem_params(log_s0, v0, r, kappa, theta, sigma, rho, dt), device=dev)
+    table = torch.as_tensor(sobol_table(seed, 3 * steps), device=dev) if qmc else None
+    return params, table
+
+
+def heston_qe_terminal(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt,
+    *, n_paths: int, steps: int, seed, antithetic: bool = False, device_id=0,
+    martingale_correction: bool = True, qmc: bool = False, point_offset: int = 0,
+    device="cuda",
+) -> torch.Tensor:
+    """Terminal Heston prices by the QE(-M) scheme, (n_groups, n_paths)
+    float32, n_groups = 2 under antithetic pairing.  ``qmc=True`` draws each
+    (z_v, z_x, u) from the in-kernel Sobol' stream randomized by ``seed``
+    (point ``point_offset`` + pair; ``device_id`` unused), guarded against the
+    2^30 period over the TPU's padded tile count."""
+    check_period(qmc, point_offset, -(-n_paths // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK)
+    params, table = qem_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, seed, qmc,
+                               device)
+    return _qem_terminal(params, table, n_paths, steps, antithetic, martingale_correction,
+                         int(seed), int(device_id), point_offset)
+
+
+def heston_qe_call_price(
+    log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, discount,
+    *, n_blocks: int, n_batches: int, steps: int, seed, device_id=0, gamma1=0.5, gamma2=0.5,
+    device="cuda",
+) -> torch.Tensor:
+    """Discounted European call price over n_blocks·n_batches·32768
+    antithetic QE-M pairs (PRNG, martingale corrected) in ONE launch, the
+    payoffs accumulated on the device: K5's pairs ``[0, total)`` on K5's
+    stream.  Returns a float64 0-dim tensor."""
+    total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    params = torch.as_tensor(
+        _qem_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, gamma1, gamma2, strike),
+        device=resolve_device(device))
+    sums = _qem_price_sum(params, total_pairs, steps, int(seed), int(device_id))
+    return discount * sums / (2 * total_pairs)
+
+
+def heston_qe_terminal_adapter(prob, config, strat, key=None, device_id=0, point_offset=0, *,
+                               device):
+    """``MonteCarlo(HestonDynamics(), HestonQE(use_kernel=True))``: float64
+    terminal prices (n_groups, trajectories) from K5 (the counterpart of the
+    JAX ``heston_qe_terminal_pallas``).  Under QMC the seed is always
+    ``config.seed`` (one shared sequence, sliced by ``point_offset``); under
+    PRNG an explicit ``key`` reseeds the stream."""
+    from ..methods.montecarlo import Antithetic, sim_params
+    from .heston_kernel import seed_from_key
+
+    market, T, r0 = sim_params(prob)
+    out = heston_qe_terminal(
+        np.log(float(market.spot)), float(market.V0), float(r0), float(market.kappa),
+        float(market.theta), float(market.sigma), float(market.rho), T / config.steps,
+        n_paths=config.trajectories, steps=config.steps,
+        seed=config.seed if config.qmc else seed_from_key(config, key),
+        antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
+        martingale_correction=strat.martingale_correction, qmc=config.qmc,
+        point_offset=point_offset, device=device,
     )
     return out.to(torch.float64)

@@ -3,9 +3,11 @@
 Port of the helpers the Pallas kernels share (ops/heston_kernel.py
 ``_uniform_from_bits``/``_box_muller``; ops/heston_qe_kernel.py
 ``_sobol_table``/``_sobol_masks``/``_sobol_uniforms_tile``/``_ndtri_approx``/
-``_rcp``/``_norm_cdf``/``_cond_bs_value``, and for the QE mixing kernels
-``_mix_c``'s parameter layout, ``_qe_v_advance`` and ``_mix_advance``; the
-QE draw is written once, :func:`qe_v_draw`, as the header's ``qe_v_draw``).
+``_rcp``/``_norm_cdf``/``_cond_bs_value``, for the QE mixing kernels
+``_mix_c``'s parameter layout, ``_qe_v_advance`` and ``_mix_advance``, and
+for the QE-M terminal kernels their parameter layout and ``_qe_advance``;
+the QE draw is written once, :func:`qe_v_draw`, as the header's
+``qe_v_draw``).
 Everything is float32 on
 float32 tensors, with the constants and the operation order of the CUDA
 header, so that a kernel and its twin agree to fp32 rounding.  The twins
@@ -42,6 +44,9 @@ __all__ = [
     "qe_v_advance",
     "mix_update",
     "mix_advance",
+    "QEM_NAMES",
+    "qem_c",
+    "qem_advance",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -201,8 +206,8 @@ def qe_v_draw(v, z, u, c):
     v_exp = torch.where(e_live, lterm * (m_safe * capfac), torch.zeros_like(p))
     vn = torch.where(quad, a * (q * q), v_exp)
     d = dict(m_safe=m_safe, inv_m=inv_m, psi_raw=psi_raw, psi=psi, quad=quad, inv_psi=inv_psi,
-             top=top, t1=t1, sqw=sqw, rb=rb, a=a, sqb=sqb, q=q, p_raw=p_raw, capfac=capfac,
-             lterm=lterm, e_live=e_live)
+             top=top, t1=t1, sqw=sqw, b2=b2, rb=rb, a=a, sqb=sqb, q=q, p_raw=p_raw, p=p,
+             capfac=capfac, lterm=lterm, e_live=e_live)
     return vn, d
 
 
@@ -222,3 +227,43 @@ def mix_update(v, iv, j, vn, c):
 def mix_advance(v, iv, j, z, u, c):
     """One mixing step: QE V-draw, trapezoid IV, J update."""
     return mix_update(v, iv, j, qe_v_advance(v, z, u, c), c)
+
+
+# ---- QE-M terminal sampler ------------------------------------------------------
+
+#: the 14-entry parameter vector of the QE-M terminal kernels (csrc/hh_device.cuh
+#: QemParams; the TPU's ``_heston_qe_terminal_impl`` layout); the call-price
+#: kernel appends the strike
+QEM_NAMES = (
+    "log_s0", "v0", "theta", "e", "c_s2_v", "c_s2_c", "K1", "K2", "K3", "K4", "A", "r_dt",
+    "K1_half_K3", "K0",
+)
+
+
+def qem_c(params: torch.Tensor) -> dict:
+    """The first 14 entries of a parameter vector as a dict of float32 0-dim
+    tensors."""
+    return dict(zip(QEM_NAMES, params.unbind()))
+
+
+def qem_advance(x, v, z_v, z_x, u, c, mcorr: bool):
+    """One QE(-M) step of (x = log S, v): :func:`qe_v_draw`, then the
+    log-price update with the martingale-corrected K0* under the kernels'
+    fp32 guards (2·A·a ≤ 1 − 1e-6, ``log`` not ``log1p``, 1e-20 floors), or
+    the plain K0 when ``mcorr`` is False.  Both branches are evaluated and
+    selected."""
+    vn, d = qe_v_draw(v, z_v, u, c)
+    k0 = c["K0"]
+    if mcorr:
+        A = c["A"]
+        two_aa = torch.clamp(2.0 * A * d["a"], max=1.0 - 1e-6)
+        inv_1m2aa = rcp(1.0 - two_aa)
+        log_m_quad = A * d["b2"] * d["a"] * inv_1m2aa - 0.5 * torch.log(1.0 - two_aa)
+        one_m_p = 1.0 - d["p"]
+        beta = one_m_p * d["inv_m"]
+        denom = torch.clamp(beta - A, min=1e-20)
+        log_m_exp = torch.log(torch.clamp(d["p"] + beta * one_m_p * rcp(denom), min=1e-20))
+        k0 = -torch.where(d["quad"], log_m_quad, log_m_exp) - c["K1_half_K3"] * v
+    var_x = torch.clamp(c["K3"] * v + c["K4"] * vn, min=0.0)
+    x = x + c["r_dt"] + k0 + c["K1"] * v + c["K2"] * vn + torch.sqrt(var_x) * z_x
+    return x, vn

@@ -146,3 +146,73 @@ def test_qe_solve_on_cuda_is_differentiable(gpu):
     assert (qk.QE_VALUES_KERNEL.launches, gk.QE_VJP_KERNEL.launches) == (before[0] + 1,
                                                                          before[1] + 1)
     assert 0.5 < float(delta) < 0.8 and math.isfinite(float(vega))
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_qe_terminal_kernels_match_twins(gpu, qmc):
+    """K5 per path against its twin on both streams (10 steps, the QE-M
+    serving count); K6 over 2 × 2 blocks, exactly K5's PRNG pairs, against
+    the mean of K5's call payoffs within rel 1e-6 (another summation order
+    of the same fp32 payoffs)."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    steps = 10
+    dt_ = T / steps
+    before = qk.QEM_TERMINAL_KERNEL.launches
+    got = qk.heston_qe_terminal(*MKT, dt_, n_paths=PAIRS, steps=steps, seed=5, antithetic=True,
+                                qmc=qmc, device=gpu)
+    torch.cuda.synchronize()
+    assert qk.QEM_TERMINAL_KERNEL.launches == before + 1
+    params, table = qk.qem_inputs(*MKT, dt_, steps, 5, qmc, gpu)
+    _assert_values_close(got, qk.heston_qe_terminal_plain(params, table, PAIRS, steps, True, True,
+                                                          5, 0, 0))
+    if qmc:
+        return
+    before = qk.QEM_PRICE_KERNEL.launches
+    price = qk.heston_qe_call_price(*MKT, dt_, 100.0, 1.0, n_blocks=2, n_batches=2, steps=steps,
+                                    seed=5, device=gpu)
+    assert qk.QEM_PRICE_KERNEL.launches == before + 1
+    pay = torch.clamp(got - 100.0, min=0.0)
+    assert float(price) == pytest.approx(float((pay[0] + pay[1]).double().sum()) / (2 * PAIRS),
+                                         rel=1e-6)
+
+
+@pytest.mark.parametrize("n_paths", [PAIRS, PAIRS + 3], ids=["aligned", "ragged"])
+def test_gbm_kernel_matches_twin(gpu, n_paths):
+    """K13 per path: 16-byte stores where the rows are aligned, scalar stores
+    at a ragged end."""
+    from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+
+    before = gbk.GBM_KERNEL.launches
+    got = gbk.gbm_exact_terminal(4.6, 0.2, n_paths=n_paths, seed=7, antithetic=True, device=gpu)
+    torch.cuda.synchronize()
+    assert gbk.GBM_KERNEL.launches == before + 1
+    params = torch.tensor([4.6, 0.2], dtype=torch.float32, device=gpu)
+    _assert_values_close(got, gbk.gbm_exact_terminal_plain(params, n_paths, True, 7, 0))
+
+
+def test_terminal_solves_on_cuda_run_the_kernels(gpu):
+    """HestonQE(use_kernel=True) launches K5 (both streams),
+    BlackScholesExact(use_kernel=True) K13, and the default MonteCarlo
+    simulates on the card."""
+    from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    heston = ht.PricingProblem(
+        ht.VanillaOption(100.0, dt.date(2025, 1, 1)),
+        ht.HestonInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7))
+    bs = ht.PricingProblem(ht.VanillaOption(100.0, dt.date(2025, 1, 1)),
+                           ht.BlackScholesInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.2))
+    before = (qk.QEM_TERMINAL_KERNEL.launches, gbk.GBM_KERNEL.launches)
+    for qmc in (True, False):
+        sol = ht.solve(heston, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(use_kernel=True),
+                                             ht.SimulationConfig(PAIRS, 10, ht.Antithetic(), 0,
+                                                                 qmc)))
+        assert sol.ensemble.device.type == "cuda" and math.isfinite(float(sol.price))
+    cfg = ht.SimulationConfig(PAIRS, 1, ht.Antithetic(), 0)
+    sol = ht.solve(bs, ht.MonteCarlo(ht.LognormalDynamics(), ht.BlackScholesExact(True), cfg))
+    assert sol.ensemble.device.type == "cuda" and math.isfinite(float(sol.price))
+    assert (qk.QEM_TERMINAL_KERNEL.launches, gbk.GBM_KERNEL.launches) == (before[0] + 2,
+                                                                          before[1] + 1)
+    sol = ht.solve(bs, ht.MonteCarlo(config=cfg))
+    assert sol.ensemble.device.type == "cuda" and math.isfinite(float(sol.price))

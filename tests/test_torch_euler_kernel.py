@@ -67,8 +67,9 @@ def test_twin_matches_float64_stepper_per_path():
     prob = ht.from_reference(PROB)
     cfg = ht.SimulationConfig(2048, 50, ht.Antithetic(), 4)
     twin = ht.simulate_terminal_prices(prob, ht.MonteCarlo(ht.HestonDynamics(),
-                                                           ht.EulerMaruyama(True), cfg))
-    f64 = heston_euler_paths(prob, cfg)
+                                                           ht.EulerMaruyama(True), cfg,
+                                                           device="cpu"))
+    f64 = heston_euler_paths(prob, cfg, device="cpu")
     assert twin.dtype == f64.dtype == torch.float64 and twin.shape == (2, 2048)
     np.testing.assert_allclose(twin.numpy(), f64.numpy(), rtol=1e-4)
 
@@ -91,7 +92,7 @@ def test_twin_price_against_carr_madan_and_jax_stepper():
     p_j, se_j = _price_and_se(s_j, PROB.payoff, disc)
     prob = ht.from_reference(PROB)
     sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.EulerMaruyama(use_kernel=True),
-                                       ht.from_reference(cfg_j)))
+                                       ht.from_reference(cfg_j), device="cpu"))
     p_t, se_t = _price_and_se(sol.ensemble.numpy(), PROB.payoff, disc)
     assert float(sol.price) == pytest.approx(p_t, rel=1e-12)
     assert abs(p_t - cm) <= 4 * se_t + 1e-3 * cm
@@ -102,7 +103,8 @@ def test_euler_kernel_guards():
     prob = ht.from_reference(PROB)
     cfg = ht.SimulationConfig(64, 4, ht.Antithetic(), 0, True)
     with pytest.raises(ValueError, match="qmc"):
-        ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.EulerMaruyama(True), cfg))
+        ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.EulerMaruyama(True), cfg,
+                                     device="cpu"))
     params = torch.as_tensor(pk._euler_params(4.6, 0.04, 0.03, 2.0, 0.04, 0.3, -0.7, 0.01))
     with pytest.raises(ValueError, match="steps"):
         pk._euler_terminal(params, 8, 0, 0, True, 0)
@@ -134,5 +136,6 @@ def test_float64_stepper_under_qmc_matches_reference_per_path(steps, offset):
     want = np.asarray(jax_euler_paths(PROB, cfg, jax.random.PRNGKey(6), return_grid=False,
                                       point_offset=offset))
     got = ht.simulate_terminal_prices(ht.from_reference(PROB), ht.MonteCarlo(
-        ht.HestonDynamics(), ht.EulerMaruyama(), ht.from_reference(cfg)), point_offset=offset)
+        ht.HestonDynamics(), ht.EulerMaruyama(), ht.from_reference(cfg), device="cpu"),
+        point_offset=offset)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10)

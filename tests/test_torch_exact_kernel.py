@@ -47,7 +47,7 @@ def jax_values():
 
 def _twin_values():
     return pk.heston_exact_mixing_values(*ARGS, n_paths=PAIRS, segments=SEGMENTS, seed=SEED,
-                                         antithetic=True, qmc=True).numpy()
+                                         antithetic=True, qmc=True, device="cpu").numpy()
 
 
 def test_parameter_vector_matches_reference():
@@ -95,33 +95,33 @@ def test_price_twin_matches_values_twin_mean(qmc):
     mean of K2's twin over the same points (another summation order)."""
     disc = math.exp(-0.03 * T)
     vals = pk.heston_exact_mixing_values(*ARGS, n_paths=2 * PAIRS, segments=SEGMENTS, seed=11,
-                                         antithetic=True, qmc=qmc)
+                                         antithetic=True, qmc=qmc, device="cpu")
     want = disc * float(vals.double().mean())
     got = float(pk.heston_exact_mixing_vanilla_price(
         *MKT, T / SEGMENTS, 100.0, disc, n_blocks=1, n_batches=2, segments=SEGMENTS, seed=11,
-        qmc=qmc))
+        qmc=qmc, device="cpu"))
     assert got == pytest.approx(want, rel=1e-6)
 
 
 def test_cpu_tensors_take_the_twin_and_launch_nothing():
     before = (pk.EXACT_VALUES_KERNEL.launches, pk.EXACT_PRICE_KERNEL.launches)
-    pk.heston_exact_mixing_values(*ARGS, n_paths=64, segments=SEGMENTS, seed=0)
+    pk.heston_exact_mixing_values(*ARGS, n_paths=64, segments=SEGMENTS, seed=0, device="cpu")
     pk.heston_exact_mixing_vanilla_price(*MKT, T / SEGMENTS, 100.0, 1.0, n_blocks=1,
-                                         n_batches=1, segments=1, seed=0)
+                                         n_batches=1, segments=1, seed=0, device="cpu")
     assert (pk.EXACT_VALUES_KERNEL.launches, pk.EXACT_PRICE_KERNEL.launches) == before
 
 
 def test_guards():
     with pytest.raises(ValueError, match="antithetic-only"):
         pk.heston_exact_mixing_values(*ARGS, n_paths=64, segments=SEGMENTS, seed=0,
-                                      antithetic=False, qmc=True)
+                                      antithetic=False, qmc=True, device="cpu")
     with pytest.raises(ValueError, match="period"):
         pk.heston_exact_mixing_values(*ARGS, n_paths=PAIRS, segments=SEGMENTS, seed=0,
-                                      antithetic=True, qmc=True, point_offset=2**30 - 1)
+                                      antithetic=True, qmc=True, point_offset=2**30 - 1, device="cpu")
     with pytest.raises(ValueError, match="period"):
         pk.heston_exact_mixing_vanilla_price(*MKT, T / SEGMENTS, 100.0, 1.0, n_blocks=2**15,
                                              n_batches=1, segments=SEGMENTS, seed=0, qmc=True,
-                                             point_offset=1)
+                                             point_offset=1, device="cpu")
     params = torch.as_tensor(pk._exact_params(*MKT, T / SEGMENTS, SEGMENTS, 100.0, 1.0))
     with pytest.raises(TypeError, match="float32"):
         pk._exact_values(params.double(), None, 8, SEGMENTS, True, 20, 0, 0, 0)

@@ -126,6 +126,6 @@ def test_pure_estimator_per_path_matches_reference(cp):
                               seed=3, qmc=True)
     want = np.asarray(jax_exact_values(prob, cfg, jax.random.PRNGKey(3), point_offset=64))
     got = heston_exact_mixing_values(ht.from_reference(prob), ht.from_reference(cfg),
-                                     point_offset=64).numpy()
+                                     point_offset=64, device="cpu").numpy()
     assert got.shape == want.shape == (2, 4096)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)

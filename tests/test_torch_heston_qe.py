@@ -33,6 +33,11 @@ def _method(use_kernel=False, trajectories=2048, steps=5, seed=3, qmc=True, cond
                          hh.HestonQE(use_kernel=use_kernel, conditional=conditional), cfg)
 
 
+def _cpu(method):
+    """The port's counterpart of a JAX method, run on the CPU."""
+    return dataclasses.replace(ht.from_reference(method), device="cpu")
+
+
 @pytest.mark.parametrize("match_gammas", [False, True])
 def test_qe_constants_match_reference(match_gammas):
     args = (2.0, 0.04, 0.3, -0.7, 0.03, 0.25)
@@ -89,7 +94,7 @@ def test_pure_estimator_solve_matches_reference(strike, cp):
     strike from one path set on both sides)."""
     prob, method = _problem(strike, cp), _method()
     want = np.asarray(hh.solve(prob, method).price)
-    got = ht.solve(ht.from_reference(prob), ht.from_reference(method))
+    got = ht.solve(ht.from_reference(prob), _cpu(method))
     assert got.price.shape == want.shape
     np.testing.assert_allclose(got.price.numpy(), want, rtol=1e-9)
     assert got.ensemble.dtype == torch.float64
@@ -105,7 +110,7 @@ def test_values_match_reference_per_path():
     want = np.asarray(_heston_qe_mixing_values(prob, method.config, jax.random.PRNGKey(3),
                                                point_offset=4096))
     got = heston_qe_mixing_values(ht.from_reference(prob), ht.from_reference(method.config),
-                                  point_offset=4096)
+                                  point_offset=4096, device="cpu")
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9)
 
 
@@ -116,7 +121,7 @@ def test_kernel_strategy_on_cpu_matches_reference():
     rel 1e-5 covers the fp32 arithmetic over 8192 paths."""
     prob, method = _problem(), _method(True, trajectories=4096, steps=11)
     want = float(hh.solve(prob, method).price)
-    got = ht.solve(ht.from_reference(prob), ht.from_reference(method))
+    got = ht.solve(ht.from_reference(prob), _cpu(method))
     assert float(got.price) == pytest.approx(want, rel=1e-5)
     assert got.ensemble.shape == (2, 4096) and bool(torch.isfinite(got.ensemble).all())
 
@@ -129,23 +134,29 @@ def test_main_path_against_carr_madan(use_kernel):
     cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics())).price)
     cfg = ht.SimulationConfig(16384, 11, ht.Antithetic(), 4, False)
     sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(),
-                                       ht.HestonQE(use_kernel=use_kernel, conditional=True), cfg))
+                                       ht.HestonQE(use_kernel=use_kernel, conditional=True), cfg,
+                                       device="cpu"))
     disc = float(ht.df(prob.market_inputs.rate, prob.payoff.expiry))
     se = disc * float(sol.ensemble.mean(dim=0).std()) / np.sqrt(16384)
     assert abs(float(sol.price) - cm) <= 4 * se + 5e-4 * cm
 
 
 def test_strategy_carries_across_and_dispatches():
-    method = ht.from_reference(_method(True))
+    """The mixing strategy carries across and never gives terminal samples;
+    the default ``HestonQE()`` is the QE-M terminal sampler, which ``solve``
+    and ``simulate_terminal_prices`` run."""
+    method = _cpu(_method(True))
     assert method.strategy == ht.HestonQE(martingale_correction=True, use_kernel=True,
                                           conditional=True)
     prob = ht.from_reference(_problem())
     with pytest.raises(TypeError, match="never materializes"):
         ht.simulate_terminal_prices(prob, method)
-    qe_m = dataclasses.replace(method, strategy=ht.HestonQE())
-    for call in (ht.solve, ht.simulate_terminal_prices):
-        with pytest.raises(TypeError, match="QE-M terminal sampler"):
-            call(prob, qe_m)
+    qe_m = dataclasses.replace(method, strategy=ht.HestonQE(),
+                               config=ht.SimulationConfig(64, 3, ht.Antithetic(), 3, True))
+    samples = ht.simulate_terminal_prices(prob, qe_m)
+    assert samples.shape == (2, 64) and bool(torch.isfinite(samples).all())
+    sol = ht.solve(prob, qe_m)
+    assert torch.equal(sol.ensemble, samples)
     with pytest.raises(TypeError, match="strike grids"):
         ht.solve(ht.from_reference(_problem(np.array([90.0, 110.0]))), method)
 

@@ -3,6 +3,7 @@
 the port's own seeded ``solve``, and the differentiable kernel-backed
 ``solve`` (K7 forward, K11 backward; their twins on the CPU)."""
 
+import dataclasses
 import datetime as dt
 
 import jax.numpy as jnp
@@ -29,6 +30,11 @@ def _method(n_pairs=2048, steps=6, qmc=True, seed=0, use_kernel=False):
                          hh.HestonQE(conditional=True, use_kernel=use_kernel), cfg)
 
 
+def _cpu(method):
+    """The port's counterpart of a JAX method, run on the CPU."""
+    return dataclasses.replace(ht.from_reference(method), device="cpu")
+
+
 def _problem(cp, strike):
     return hh.PricingProblem(hh.VanillaOption(strike, EXPIRY, hh.European(), cp, hh.Spot()),
                              hh.HestonInputs(REF, R, SPOT, *H.values()))
@@ -41,7 +47,7 @@ def test_price_and_greeks_match_reference(cp, strike):
     prob, method = _problem(cp, strike), _method()
     p_ref, g_ref = jmg.heston_mixing_price_and_greeks(prob, method)
     price, greeks = ht.heston_mixing_price_and_greeks(ht.from_reference(prob),
-                                                      ht.from_reference(method))
+                                                      _cpu(method))
     np.testing.assert_allclose(float(price), float(p_ref), rtol=1e-12)
     assert tuple(greeks) == ht.GREEK_ORDER == jmg.GREEK_ORDER
     for k in ht.GREEK_ORDER:
@@ -83,7 +89,7 @@ def test_forward_greeks_match_reverse_ad(qmc, cp, strike):
     solve (the same draws, the same estimator, another derivation): the
     price to rel 1e-12, the greeks to rel 1e-9 (mirrors
     tests/agreement/test_kernel_greeks.py:48-72)."""
-    method = ht.from_reference(_method(4096, 8, qmc=qmc))
+    method = _cpu(_method(4096, 8, qmc=qmc))
     port_cp = ht.Call() if isinstance(cp, hh.Call) else ht.Put()
     params = _params()
     price = _solve_price(params, port_cp, strike, method)
@@ -103,12 +109,12 @@ def test_autograd_through_kernel_solve(qmc):
     largest greek, plus 2e-4 relative); under PRNG the twin's float32 and
     the estimator's float64 Box–Muller normals differ in the last bits, so
     the same bound holds (both follow the same Philox layout)."""
-    method = ht.from_reference(_method(4096, 6, qmc=qmc, use_kernel=True))
+    method = _cpu(_method(4096, 6, qmc=qmc, use_kernel=True))
     params = _params()
     price = _solve_price(params, ht.Call(), 100.0, method)
     grads = np.array([float(g) for g in torch.autograd.grad(price, params)])
     assert np.isfinite(grads).all()
-    ref_method = ht.from_reference(_method(4096, 6, qmc=qmc))
+    ref_method = _cpu(_method(4096, 6, qmc=qmc))
     p_ref, g_ref = ht.heston_mixing_price_and_greeks(
         ht.from_reference(_problem(hh.Call(), 100.0)), ref_method)
     want = np.array([float(g_ref[k]) for k in ht.GREEK_ORDER])
@@ -119,16 +125,18 @@ def test_autograd_through_kernel_solve(qmc):
 
 def test_wrong_methods_raise():
     prob = ht.from_reference(_problem(hh.Call(), 100.0))
-    qe_m = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(), ht.SimulationConfig(64, 2))
-    exact = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(), ht.SimulationConfig(64, 2))
+    qe_m = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(), ht.SimulationConfig(64, 2),
+                         device="cpu")
+    exact = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(), ht.SimulationConfig(64, 2),
+                          device="cpu")
     for bad in (qe_m, exact):
         with pytest.raises(TypeError, match="requires MonteCarlo"):
             ht.heston_mixing_price_and_greeks(prob, bad)
     with pytest.raises(TypeError, match="use_kernel=True"):
-        ht.heston_mixing_price_and_greeks(prob, ht.from_reference(_method(use_kernel=True)))
+        ht.heston_mixing_price_and_greeks(prob, _cpu(_method(use_kernel=True)))
     grid = ht.from_reference(_problem(hh.Call(), np.array([90.0, 110.0])))
     with pytest.raises(TypeError, match="scalar strike"):
-        ht.heston_mixing_price_and_greeks(grid, ht.from_reference(_method()))
+        ht.heston_mixing_price_and_greeks(grid, _cpu(_method()))
     # the reference raises the same for the QE-M strategy
     with pytest.raises(TypeError):
         jmg.heston_mixing_price_and_greeks(
@@ -143,7 +151,7 @@ def test_greek_vector_against_carr_madan_differences():
     3e-2; σ h = 1e-3 within rel 1.5e-1 or abs 5e-2; rate h = 1e-4 within rel
     1e-2; V0 and θ positive for an ATM call."""
     prob = ht.from_reference(_problem(hh.Call(), 100.0))
-    _, g = ht.heston_mixing_price_and_greeks(prob, ht.from_reference(_method(2**15, 12)))
+    _, g = ht.heston_mixing_price_and_greeks(prob, _cpu(_method(2**15, 12)))
 
     def cm(i, h):
         vals = [SPOT, *H.values(), R]

@@ -97,7 +97,7 @@ def test_values_twin_per_path_matches_interpret_kernel(jax_values, monkeypatch):
     for mod in (hh_device, pg):
         monkeypatch.setattr(mod, "rcp", _interpret_rcp)
     got = pq.heston_qe_mixing_values(*ARGS, n_paths=PAIRS, steps=STEPS, seed=SEED,
-                                     antithetic=True, qmc=True).numpy()
+                                     antithetic=True, qmc=True, device="cpu").numpy()
     assert got.shape == jax_values.shape == (2, PAIRS)
     rel = np.abs(got - jax_values) / np.maximum(np.abs(jax_values), 1e-3)
     assert np.sum(rel > 1e-4) <= 1e-3 * rel.size
@@ -110,7 +110,7 @@ def test_values_twin_mean_matches_interpret_kernel(jax_values):
     reference's bf16-estimate reciprocal error, measured 8.7e-6 relative here
     (under 0.1 bp); 2e-5 bounds it."""
     got = pq.heston_qe_mixing_values(*ARGS, n_paths=PAIRS, steps=STEPS, seed=SEED,
-                                     antithetic=True, qmc=True).numpy()
+                                     antithetic=True, qmc=True, device="cpu").numpy()
     assert got.astype(np.float64).mean() == pytest.approx(
         jax_values.astype(np.float64).mean(), rel=2e-5)
 
@@ -118,7 +118,7 @@ def test_values_twin_mean_matches_interpret_kernel(jax_values):
 def test_price_twin_matches_interpret_kernel(jax_price):
     """K8 over the same 32768 Sobol' pairs: rtol 3e-4, the JAX package's
     interpret-test tolerance (measured 8.7e-6, the reciprocal again)."""
-    got = float(pq.heston_qe_mixing_vanilla_price(*MKT, T / STEPS, 100.0, D, **PRICE_KW))
+    got = float(pq.heston_qe_mixing_vanilla_price(*MKT, T / STEPS, 100.0, D, **PRICE_KW, device="cpu"))
     assert got == pytest.approx(jax_price, rel=3e-4)
 
 
@@ -127,7 +127,7 @@ def test_greeks_twin_matches_interpret_kernel(jax_greeks):
     max(5e-3·|g|, 1e-3·max|g|), the tolerances of
     tests/agreement/test_kernel_greeks.py:109-117 (fp32 sums; a greek near
     zero is all cancellation)."""
-    price, greeks = pg.heston_qe_mixing_price_and_greeks(*MKT, T / STEPS, 120.0, D, **PRICE_KW)
+    price, greeks = pg.heston_qe_mixing_price_and_greeks(*MKT, T / STEPS, 120.0, D, **PRICE_KW, device="cpu")
     want_price, want = jax_greeks
     assert float(price) == pytest.approx(want_price, rel=2e-4)
     got = greeks.numpy()
@@ -158,10 +158,10 @@ def test_price_twins_agree_with_the_values_twin(qmc, steps):
     sums)."""
     kw = dict(n_blocks=1, n_batches=2, steps=steps, seed=11, qmc=qmc)
     vals = pq.heston_qe_mixing_values(*MKT, T / steps, 100.0, 1.0, n_paths=2 * PAIRS, steps=steps,
-                                      seed=11, antithetic=True, qmc=qmc)
-    price = float(pq.heston_qe_mixing_vanilla_price(*MKT, T / steps, 100.0, D, **kw))
+                                      seed=11, antithetic=True, qmc=qmc, device="cpu")
+    price = float(pq.heston_qe_mixing_vanilla_price(*MKT, T / steps, 100.0, D, **kw, device="cpu"))
     assert price == pytest.approx(D * float(vals.double().mean()), rel=1e-6)
-    greek_price, greeks = pg.heston_qe_mixing_price_and_greeks(*MKT, T / steps, 100.0, D, **kw)
+    greek_price, greeks = pg.heston_qe_mixing_price_and_greeks(*MKT, T / steps, 100.0, D, **kw, device="cpu")
     assert float(greek_price) == price
     assert bool(torch.isfinite(greeks).all())
 
@@ -178,7 +178,7 @@ def test_autograd_through_the_values_twin_matches_the_greeks_twin(qmc):
     log_s0, v0, r, kappa, theta, sigma, rho = params
     vals = pg.heston_qe_mixing_values_diff(log_s0, v0, r, kappa, theta, sigma, rho, T / steps,
                                            100.0, 1.0, n_paths=n, steps=steps, seed=3,
-                                           antithetic=True, qmc=qmc)
+                                           antithetic=True, qmc=qmc, device="cpu")
     assert vals.shape == (2, n) and vals.dtype == torch.float32
     price = torch.exp(-r * T) * vals.double().mean()
     grads = torch.autograd.grad(price, params)
@@ -186,7 +186,7 @@ def test_autograd_through_the_values_twin_matches_the_greeks_twin(qmc):
     got = got[[0, 1, 3, 4, 5, 6, 2]]  # GREEK_ORDER
     k_price, want = pg.heston_qe_mixing_price_and_greeks(*MKT, T / steps, 100.0, D, n_blocks=1,
                                                          n_batches=1, steps=steps, seed=3,
-                                                         qmc=qmc)
+                                                         qmc=qmc, device="cpu")
     want = want.numpy()
     assert float(price.detach()) == pytest.approx(float(k_price), rel=1e-6)
     assert (np.abs(got - want) <= 1e-5 * np.abs(want).max() + 1e-5 * np.abs(want)).all(), (got, want)
@@ -195,11 +195,11 @@ def test_autograd_through_the_values_twin_matches_the_greeks_twin(qmc):
 def test_cpu_tensors_take_the_twins_and_launch_nothing():
     kernels = (pq.QE_VALUES_KERNEL, pq.QE_PRICE_KERNEL, pg.QE_GREEKS_KERNEL, pg.QE_VJP_KERNEL)
     before = [k.launches for k in kernels]
-    pq.heston_qe_mixing_values(*ARGS, n_paths=64, steps=3, seed=0)
+    pq.heston_qe_mixing_values(*ARGS, n_paths=64, steps=3, seed=0, device="cpu")
     pq.heston_qe_mixing_vanilla_price(*MKT, T / 3, 100.0, 1.0, n_blocks=1, n_batches=1, steps=1,
-                                      seed=0)
+                                      seed=0, device="cpu")
     pg.heston_qe_mixing_price_and_greeks(*MKT, T / 1, 100.0, 1.0, n_blocks=1, n_batches=1,
-                                         steps=1, seed=0)
+                                         steps=1, seed=0, device="cpu")
     pg._mixing_values_vjp(*ARGS, torch.ones(1, 64), n_paths=64, steps=3, seed=0, antithetic=False)
     assert [k.launches for k in kernels] == before
 
@@ -210,17 +210,17 @@ def test_guards():
                               antithetic=False, qmc=True)
     with pytest.raises(ValueError, match="period"):
         pq.heston_qe_mixing_values(*ARGS, n_paths=PAIRS, steps=STEPS, seed=0, antithetic=True,
-                                   qmc=True, point_offset=2**30 - 1)
+                                   qmc=True, point_offset=2**30 - 1, device="cpu")
     with pytest.raises(ValueError, match="period"):
         pq.heston_qe_mixing_vanilla_price(*MKT, T / STEPS, 100.0, 1.0, n_blocks=2**15,
                                           n_batches=1, steps=STEPS, seed=0, qmc=True,
-                                          point_offset=1)
+                                          point_offset=1, device="cpu")
     with pytest.raises(ValueError, match="period"):
         pg.heston_qe_mixing_price_and_greeks(*MKT, T / STEPS, 100.0, 1.0, n_blocks=2**15,
-                                             n_batches=2, steps=STEPS, seed=0, qmc=True)
+                                             n_batches=2, steps=STEPS, seed=0, qmc=True, device="cpu")
     with pytest.raises(ValueError, match="at most"):
         pq.heston_qe_mixing_values(*MKT, T / 200, 100.0, 1.0, n_paths=8, steps=200, seed=0,
-                                   antithetic=True, qmc=True)
+                                   antithetic=True, qmc=True, device="cpu")
     params = torch.as_tensor(pq._mix_params(*MKT, T / STEPS, STEPS, 100.0, 1.0))
     with pytest.raises(TypeError, match="float32"):
         pq._qe_values(params.double(), None, 8, STEPS, True, 0, 0, 0)
@@ -243,8 +243,9 @@ def test_kernel_strategy_solve_on_cpu_runs_the_twins():
         ht.HestonInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7))
     cfg = ht.SimulationConfig(4096, STEPS, ht.Antithetic(), SEED, True)
     sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(use_kernel=True,
-                                                                        conditional=True), cfg))
+                                                                        conditional=True), cfg,
+                                       device="cpu"))
     want = pq.heston_qe_mixing_values(*ARGS, n_paths=4096, steps=STEPS, seed=SEED,
-                                      antithetic=True, qmc=True)
+                                      antithetic=True, qmc=True, device="cpu")
     assert sol.ensemble.dtype == torch.float64
     torch.testing.assert_close(sol.ensemble, want.double(), rtol=0.0, atol=0.0)

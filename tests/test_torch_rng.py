@@ -1,7 +1,7 @@
 """The port's random streams against their definitions and the JAX package:
 Philox-4x32-10 known answers, the threefry Sobol' shift against
-``jax.random.bits``, and Sobol' points bit-identical to
-``hedgehog_tpu.math.sobol``."""
+``jax.random.bits``, the key split against ``jax.random.split``, and Sobol'
+points bit-identical to ``hedgehog_tpu.math.sobol``."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +15,7 @@ from hedgehog_tpu_torch.math.counter_rng import (
     philox4x32,
     prng_key,
     random_bits,
+    split,
     uniform_from_bits,
 )
 from hedgehog_tpu_torch.math.sobol import sobol_uniforms
@@ -53,19 +54,30 @@ def test_threefry_bits_match_jax(seed, dims):
     np.testing.assert_array_equal(random_bits(prng_key(seed), dims), want)
 
 
+@pytest.mark.parametrize("seed", [0, 3, 11, 2**33 + 5, 2**40 + 12345])
+@pytest.mark.parametrize("num", [2, 3])
+def test_split_matches_jax(seed, num):
+    """Bit-exact: subkey i is both words of threefry2x32(key, (0, i))."""
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    got = split(prng_key(seed), num)
+    assert got.dtype == np.uint32 and got.shape == (num, 2)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(split(got[0]), np.asarray(jax.random.split(want[0])))
+
+
 @pytest.mark.parametrize("n,dims,skip,seed", [(1000, 8, 0, 0), (777, 5, 12345, 7),
                                               (64, 3, 2**29, 2**33 + 5)])
 def test_sobol_uniforms_bit_identical(n, dims, skip, seed):
     want = np.asarray(jax_sobol_uniforms(jax.random.PRNGKey(seed), n, dims, skip=skip))
-    got = sobol_uniforms(prng_key(seed), n, dims, skip=skip).numpy()
+    got = sobol_uniforms(prng_key(seed), n, dims, skip=skip, device="cpu").numpy()
     assert got.dtype == np.float64
     np.testing.assert_array_equal(got, want)
 
 
 def test_sobol_period_guard():
     with pytest.raises(ValueError, match="period"):
-        sobol_uniforms(prng_key(0), 16, 2, skip=2**30 - 8)
-    sobol_uniforms(prng_key(0), 8, 2, skip=2**30 - 8)  # the last points are fine
+        sobol_uniforms(prng_key(0), 16, 2, skip=2**30 - 8, device="cpu")
+    sobol_uniforms(prng_key(0), 8, 2, skip=2**30 - 8, device="cpu")  # the last points are fine
 
 
 @pytest.mark.parametrize("seed,dims", [(3, 8), (11, 16), (0, 4)])

@@ -27,6 +27,11 @@ def _method(use_kernel, trajectories=4096, seed=2):
     return hh.MonteCarlo(hh.HestonDynamics(), hh.HestonExactMixing(use_kernel=use_kernel), cfg)
 
 
+def _cpu(method):
+    """The port's counterpart of a JAX method, run on the CPU."""
+    return dataclasses.replace(ht.from_reference(method), device="cpu")
+
+
 @pytest.mark.parametrize("strike,cp", [(100.0, hh.Call()), (90.0, hh.Put()),
                                        (np.array([90.0, 100.0, 110.0]), hh.Call())])
 def test_pure_estimator_solve_matches_reference(strike, cp):
@@ -35,7 +40,7 @@ def test_pure_estimator_solve_matches_reference(strike, cp):
     strike from one path set on both sides)."""
     prob, method = _problem(strike, cp), _method(False)
     want = np.asarray(hh.solve(prob, method).price)
-    got = ht.solve(ht.from_reference(prob), ht.from_reference(method))
+    got = ht.solve(ht.from_reference(prob), _cpu(method))
     assert got.price.shape == want.shape
     np.testing.assert_allclose(got.price.numpy(), want, rtol=1e-9)
     assert got.ensemble.dtype == torch.float64
@@ -48,7 +53,7 @@ def test_kernel_strategy_on_cpu_matches_reference():
     rel 1e-5 covers the fp32 arithmetic over 8192 paths."""
     prob, method = _problem(), _method(True)
     want = float(hh.solve(prob, method).price)
-    got = ht.solve(ht.from_reference(prob), ht.from_reference(method))
+    got = ht.solve(ht.from_reference(prob), _cpu(method))
     assert float(got.price) == pytest.approx(want, rel=1e-5)
     assert got.ensemble.shape == (2, 4096) and bool(torch.isfinite(got.ensemble).all())
 
@@ -59,7 +64,8 @@ def test_main_path_against_carr_madan():
     prob = ht.from_reference(_problem())
     cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics())).price)
     cfg = ht.SimulationConfig(16384, 2, ht.Antithetic(), 4, False)
-    sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True), cfg))
+    sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True), cfg,
+                                       device="cpu"))
     disc = float(ht.df(prob.market_inputs.rate, prob.payoff.expiry))
     se = disc * float(sol.ensemble.mean(dim=0).std()) / np.sqrt(16384)
     assert abs(float(sol.price) - cm) <= 4 * se + 1e-4 * cm
@@ -67,10 +73,10 @@ def test_main_path_against_carr_madan():
 
 def test_american_payoff_raises():
     prob = ht.from_reference(_problem(exercise=hh.American()))
-    for method in (ht.from_reference(_method(True)), ht.from_reference(_method(False)),
+    for method in (_cpu(_method(True)), _cpu(_method(False)),
                    ht.CarrMadan(1.0, "auto", ht.HestonDynamics()),
                    ht.MonteCarlo(ht.HestonDynamics(), ht.EulerMaruyama(True),
-                                 ht.SimulationConfig(64, 4))):
+                                 ht.SimulationConfig(64, 4), device="cpu")):
         with pytest.raises(TypeError, match="European"):
             ht.solve(prob, method)
 
@@ -78,7 +84,7 @@ def test_american_payoff_raises():
 def test_strike_grid_with_kernel_raises():
     prob = ht.from_reference(_problem(np.array([90.0, 110.0])))
     with pytest.raises(TypeError, match="strike grids"):
-        ht.solve(prob, ht.from_reference(_method(True)))
+        ht.solve(prob, _cpu(_method(True)))
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
@@ -92,12 +98,15 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 def test_unsupported_combinations_raise():
     prob = ht.from_reference(_problem())
     with pytest.raises(TypeError, match="never materializes"):
-        ht.simulate_terminal_prices(prob, ht.from_reference(_method(True)))
-    with pytest.raises(TypeError, match="unsupported"):
+        ht.simulate_terminal_prices(prob, _cpu(_method(True)))
+    with pytest.raises(TypeError, match="_gbm_euler_paths, is not ported"):
         ht.solve(prob, ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(),
-                                     ht.SimulationConfig(64, 4)))
+                                     ht.SimulationConfig(64, 4), device="cpu"))
+    with pytest.raises(TypeError, match="unsupported"):
+        ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.BlackScholesExact(),
+                                     ht.SimulationConfig(64, 4), device="cpu"))
     with pytest.raises(TypeError, match="conditional Monte Carlo"):
         ht.simulate_conditional_values(
-            prob, ht.MonteCarlo(ht.LognormalDynamics(), ht.HestonExactMixing()))
+            prob, ht.MonteCarlo(ht.LognormalDynamics(), ht.HestonExactMixing(), device="cpu"))
     with pytest.raises(ValueError, match="period"):
         ht.SimulationConfig(trajectories=2**30 + 1, qmc=True)

@@ -1,12 +1,14 @@
 """The port's substrate and oracle against the JAX package: day counts,
-payoffs, the Black-Scholes goldens, Carr-Madan, ``from_reference`` and the
-rule that the port never imports jax.
+payoffs, the Black-Scholes goldens, Carr-Madan, ``from_reference``, the
+JAX defaults of ``MonteCarlo``, the rule that the entry points run on the
+GPU unless asked for the CPU, and the rule that the port never imports jax.
 
 The JAX reference runs on the CPU in float64 (tests/conftest.py); inputs are
 built once on the JAX side and carried across with ``from_reference``."""
 
 import dataclasses
 import datetime as dt
+import math
 import pathlib
 import subprocess
 import sys
@@ -18,6 +20,11 @@ import torch
 
 import hedgehog_tpu as hh
 import hedgehog_tpu_torch as ht
+from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+from hedgehog_tpu_torch.ops import heston_kernel as hk
+from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
 REF, EXPIRY = dt.date(2024, 1, 1), dt.date(2025, 1, 1)
 BENCH = hh.HestonInputs(REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
@@ -105,20 +112,85 @@ def test_from_reference_round_trip():
     assert p.market_inputs.reference_date == BENCH.reference_date
     assert m.strategy == ht.HestonExactMixing(use_kernel=True)
     assert m.config == ht.SimulationConfig(4096, 2, ht.Antithetic(), 5, True)
-    assert m.device == "cpu"
+    assert m.device == "cuda"  # the port's default; the JAX method names no device
     assert dataclasses.replace(m.config, seed=6).seed == 6
 
 
 def test_from_reference_rejects_what_the_port_lacks():
     with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.BlackScholesExact())
+        ht.from_reference(hh.HestonBroadieKaya())
     with pytest.raises(TypeError, match="no counterpart"):
         ht.from_reference(hh.CarrMadan(1.0, "auto", hh.HestonDynamics(), quadrature="gl"))
 
 
+def test_montecarlo_defaults_are_the_reference_ones():
+    """``MonteCarlo()`` is the JAX package's ``MonteCarlo()``
+    (LognormalDynamics, BlackScholesExact, SimulationConfig()), simulated on
+    the GPU."""
+    port, ref = ht.MonteCarlo(), hh.MonteCarlo()
+    assert port.device == "cuda"
+    assert [type(x).__name__ for x in (port.dynamics, port.strategy, port.config)] == [
+        type(x).__name__ for x in (ref.dynamics, ref.strategy, ref.config)]
+    assert ht.from_reference(ref) == port
+    assert ht.from_reference(hh.BlackScholesExact(use_kernel=True)) == ht.BlackScholesExact(True)
+
+
+MKT = (math.log(100.0), 0.04, 0.03, 2.0, 0.04, 0.3, -0.7)
+BLOCK = dict(n_blocks=1, n_batches=1, seed=0)
+WRAPPERS = {
+    "heston_euler_terminal": lambda: hk.heston_euler_terminal(*MKT, 0.1, n_paths=8, steps=2,
+                                                              seed=0),
+    "heston_exact_mixing_values": lambda: ek.heston_exact_mixing_values(
+        *MKT, 0.5, 100.0, 1.0, n_paths=8, segments=1, seed=0),
+    "heston_exact_mixing_vanilla_price": lambda: ek.heston_exact_mixing_vanilla_price(
+        *MKT, 0.5, 100.0, 1.0, segments=1, **BLOCK),
+    "heston_qe_mixing_values": lambda: qk.heston_qe_mixing_values(
+        *MKT, 0.1, 100.0, 1.0, n_paths=8, steps=2, seed=0),
+    "heston_qe_mixing_vanilla_price": lambda: qk.heston_qe_mixing_vanilla_price(
+        *MKT, 0.1, 100.0, 1.0, steps=2, **BLOCK),
+    "heston_qe_mixing_price_and_greeks": lambda: gk.heston_qe_mixing_price_and_greeks(
+        *MKT, 0.1, 100.0, 1.0, steps=2, **BLOCK),
+    "heston_qe_mixing_values_diff": lambda: gk.heston_qe_mixing_values_diff(
+        *MKT, 0.1, 100.0, 1.0, n_paths=8, steps=2, seed=0),
+    "heston_qe_terminal": lambda: qk.heston_qe_terminal(*MKT, 0.1, n_paths=8, steps=2, seed=0),
+    "heston_qe_call_price": lambda: qk.heston_qe_call_price(*MKT, 0.1, 100.0, 1.0, steps=2,
+                                                            **BLOCK),
+    "gbm_exact_terminal": lambda: gbk.gbm_exact_terminal(4.6, 0.2, n_paths=8, seed=0),
+}
+
+
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_default_device_wrapper_raises_without_a_gpu(name, monkeypatch):
+    """Every public kernel wrapper defaults to the GPU: with no usable GPU a
+    call that names no device raises instead of running the plain twin on
+    the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        WRAPPERS[name]()
+
+
+@pytest.mark.parametrize("method", [
+    ht.MonteCarlo(config=ht.SimulationConfig(64, 1)),
+    ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(), ht.SimulationConfig(64, 2)),
+    ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True, use_kernel=True),
+                  ht.SimulationConfig(64, 2)),
+], ids=["defaults", "qe_m", "qe_mixing_kernel"])
+def test_default_device_solve_raises_without_a_gpu(method, monkeypatch):
+    """``solve`` with the default device and no usable GPU raises; the same
+    method with ``device="cpu"`` prices."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    market = BS if isinstance(method.dynamics, ht.LognormalDynamics) else BENCH
+    prob = ht.from_reference(hh.PricingProblem(
+        hh.VanillaOption(100.0, EXPIRY, hh.European(), hh.Call(), hh.Spot()), market))
+    with pytest.raises(RuntimeError, match="is_available"):
+        ht.solve(prob, method)
+    assert math.isfinite(float(ht.solve(prob, dataclasses.replace(method, device="cpu")).price))
+
+
 def test_import_never_reaches_jax():
-    """Import the package and price once in a fresh process in which any
-    import of jax fails."""
+    """Import every module of the package and chip_smoke.py, and price
+    once, in a fresh process in which any import of jax or of the JAX
+    package fails."""
     code = textwrap.dedent("""
         import sys
         for name in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]:
@@ -126,19 +198,32 @@ def test_import_never_reaches_jax():
 
         class NoJax:
             def find_spec(self, name, path=None, target=None):
-                if name == "jax" or name.startswith(("jax.", "jaxlib")):
+                if name in ("jax", "hedgehog_tpu") or name.startswith(
+                        ("jax.", "jaxlib", "hedgehog_tpu.")):
                     raise ImportError("the port must not import " + name)
                 return None
 
         sys.meta_path.insert(0, NoJax())
         import datetime as dt
+        import importlib
+        import pkgutil
         import hedgehog_tpu_torch as ht
+        modules = [m.name for m in pkgutil.walk_packages(ht.__path__, "hedgehog_tpu_torch.")]
+        for name in modules:
+            importlib.import_module(name)
+        assert "hedgehog_tpu_torch.methods.heston_qe_paths" in modules, modules
+        import chip_smoke
         mkt = ht.HestonInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
         prob = ht.PricingProblem(ht.VanillaOption(100.0, dt.date(2025, 1, 1)), mkt)
         cfg = ht.SimulationConfig(64, 2, ht.Antithetic(), 0, True)
-        ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True), cfg))
+        ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True), cfg,
+                                     device="cpu"))
         ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics()))
-        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+        ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(), cfg, device="cpu"))
+        bs = ht.BlackScholesInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.2)
+        ht.solve(ht.PricingProblem(prob.payoff, bs), ht.MonteCarlo(config=cfg, device="cpu"))
+        assert not any(m in ("jax", "hedgehog_tpu") or m.startswith(("jax.", "hedgehog_tpu."))
+                       for m in sys.modules)
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
