@@ -33,8 +33,21 @@ Phases (any failure exits nonzero before the last line):
    greek-vector / price ratio, and its greeks against central Carr-Madan
    differences).
 
-The launch counters are reset just before phase 3 and read after phase 4; a
-kernel of the path with no launch in that window fails the run.  Each
+The surface path (bench.py's 3 x 5 surface of calls at 2^26 pairs) has its
+own phases: in phase 2 the surface kernels K9 (QE), K12 (QE + Jacobian; its
+surface equal to K9's to the bit) and K4 (exact) against their twins at the
+full-width grid on both streams, the one-expiry surfaces against K8 and K3,
+K9 and K12 at the 3 x 17 calibration shape, and the three at 2^24 pairs of
+the serving batches against their chunked twins; phase 3 drives
+``heston_surface_mc_adapter`` on the card (QE-32 PRNG through the
+differentiable view, QE-32 QMC, exact-4 on both streams) against Carr-Madan
+per point, autograd of a least-squares surface loss against K12's jacᵀ·ct,
+and a damped Gauss-Newton recovery driven by K12; phase 4 times 6 serving
+dispatches of each surface kernel.
+
+The launch counters are reset just before phase 3 and read after phase 4,
+once for the main path and once for the surface path; a kernel of a path
+with no launch in its window fails the run.  Each
 kernel's record carries its bound: the least time the card could take for
 the operations and bytes of the timed call (see ``work``), and where one
 PyTorch call computes the same function (K13: ``Tensor.log_normal_``) that
@@ -92,6 +105,37 @@ AUTOGRAD_RTOL = 1e-5  # K7 -> K11 against K10: the same fp32 tangents, other sum
 FD_CHECKS = (("spot", 0, 0.5, dict(rel=3e-2)), ("sigma", 4, 1e-3, dict(rel=1.5e-1, abs=5e-2)),
              ("rate", 6, 1e-4, dict(rel=1e-2)))
 GREEK_ORDER = ("spot", "V0", "kappa", "theta", "sigma", "rho", "rate")
+
+# The surface path: bench.py's surface serving metric (bench.py:596-604;
+# benchmarks/surface_kernel_bench.py:15-18), 3 expiries x 5 strikes of calls
+SURF_EXPIRIES = (dt.date(2024, 7, 1), dt.date(2025, 1, 1), dt.date(2026, 1, 1))
+SURF_STRIKES = (85.0, 95.0, 100.0, 105.0, 120.0)
+SURF_QE_STEPS = 32  # QE: K9 and K12
+SURF_EXACT_STEPS = 4  # exact segments (K4): (2, 1, 2) with the first gap floored at 2
+SURF_BLOCKS, SURF_BATCHES = 128, 16  # 128·16·32768 = 2^26 pairs (134M paths) per surface
+# the twins at the serving size: 2^26 pairs would cost minutes of twin time,
+# so the grid-stride walk is checked at 2^24 pairs (16 rounds of K9's grid)
+SURF_FULL_CHECK_BLOCKS = 32  # x SURF_BATCHES x 32768 = 2^24 pairs
+# the calibration shape (BASELINE config 5, bench.py:716-731): 3 x 17
+CAL_EXPIRY_DAYS = (90, 180, 365)
+CAL_STRIKES = tuple(60.0 + 5.0 * k for k in range(17))
+# kernel vs twin per point: the same fp32 per-pair values (to FMA contraction
+# and transcendental ulps), the kernel's per-warp fp32 sums in float64 rows
+# against the twin's float64 sums.  At strikes far from the money the close
+# runs in the tails of the fp32 normal CDF (1 - upper), where the card's and
+# the host's roundings differ in one direction over many paths: 1.6e-7 at
+# the 3 x 5 grid, up to 1.6e-6 at the 3 x 17 grid's 60 and 140 strikes; K12's
+# Jacobian columns as K10's sums
+SURF_RTOL = 1e-5
+SURF_EXACT_ALLOWANCE_BP = 2.0  # sub-bp exact-4 scheme bias (TPU 0.65 bp, bench.py:590) + fp32
+SURF_QE_ALLOWANCE_BP = 25.0  # QE-32 scheme bias: the TPU's worst point 19.9 bp (bench.py:592)
+SE_SEEDS = 16  # seeds of 2^20 pairs whose spread gives each point's standard error
+# Gauss-Newton recovery (examples/kernel_surface_calibration.py:30-83)
+GN_TRUE = (0.04, 2.0, 0.045, 0.35, -0.65)  # V0, kappa, theta, sigma, rho
+GN_START = (0.06, 1.0, 0.03, 0.5, -0.4)
+GN_EXPIRIES = (dt.date(2024, 7, 1), dt.date(2025, 1, 1))
+GN_STRIKES = (85.0, 95.0, 100.0, 105.0, 115.0)
+GN_STEPS, GN_BLOCKS, GN_BATCHES, GN_ITERS = 16, 64, 4, 12
 
 
 class PhaseError(RuntimeError):
@@ -201,9 +245,11 @@ GAMMA_QTL = _ops((76, 0), RCP, SQRT)
 EXACT_SEG = _ops((54, 0), (2, GAMMA_QTL), (2, EXP), LOG, SQRT, (5, RCP))
 
 
-def work(name: str, pairs: int, steps: int, qmc: bool = False):
+def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     """(fp32 FLOPs, MUFU operations, bytes) of one call of kernel ``name``
-    on ``pairs`` antithetic pairs and ``steps`` steps (segments for K2/K3);
+    on ``pairs`` antithetic pairs and ``steps`` steps (segments for K2/K3;
+    for the surfaces K4/K9/K12 the steps or segments of all expiry segments
+    and ``points`` (expiry, strike) points, each closed twice per pair);
     bytes count each output written once (K11: its cotangent read once)."""
     mix_draw = _ops((2, SOBOL_U), NDTRI, (1, 0)) if qmc else _ops((0.5, BOX_MULLER), (2, 0))
     mix = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (2, CLOSE))
@@ -211,6 +257,17 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False):
     qem = _ops((steps, _ops(qem_draw, (2, QEM_STEP))), (2, EXP))
     exact_draw = _ops((4, SOBOL_U), (2, NDTRI), (2, 0)) if qmc else _ops(BOX_MULLER, (4, 0))
     exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))), (2, _ops((3, 0), CLOSE)))
+    surf_qe = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (points, _ops((2, CLOSE), (1, 0))))
+    surf_exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))),
+                      (points, _ops((2, _ops((3, 0), CLOSE)), (1, 0))))
+    surfaces = {  # per pair; bytes: one float64 per point and column, written once
+        "heston_qe_mixing_surface_price": (surf_qe, 8 * points),
+        "heston_exact_mixing_surface_price": (surf_exact, 8 * points),
+        "heston_qe_mixing_surface_price_and_jacobian": (surf_qe, 56 * points),
+    }
+    if name in surfaces:
+        (f, m), nbytes = surfaces[name]
+        return f * pairs, m * pairs, nbytes
     per_pair, out_bytes = {
         "heston_euler_terminal": (_ops((steps, _ops(BOX_MULLER, (2, EULER_STEP))), (2, EXP)), 8),
         "heston_exact_mixing_values": (exact, 8),
@@ -226,12 +283,13 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False):
     return per_pair[0] * pairs, per_pair[1] * pairs, out_bytes * pairs
 
 
-def bound(name: str, pairs: int, steps: int, sm_clock_hz: float, qmc: bool = False) -> dict:
+def bound(name: str, pairs: int, steps: int, sm_clock_hz: float, qmc: bool = False,
+          points: int = 1) -> dict:
     """The bound of one call: the largest of fp32 FLOPs over the fp32 peak,
     MUFU operations over the MUFU rate at ``sm_clock_hz``, and bytes over
     the memory rate; ``bound_by`` names the largest (MUFU and fp32 both
     count as operations)."""
-    flops, mufu, nbytes = work(name, pairs, steps, qmc)
+    flops, mufu, nbytes = work(name, pairs, steps, qmc, points)
     t_ops = max(flops / FP32_PEAK, mufu / (MUFU_PER_CLK * SMS * sm_clock_hz))
     t_bytes = nbytes / MEM_PEAK
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
@@ -955,6 +1013,422 @@ def phase_qem_serving(T: float, cm: float, n_blocks: int, n_batches: int, device
                 prices=values)
 
 
+def surface_grid():
+    """(T_host, discounts, QE steps per segment, exact segments per gap) of
+    the full-width surface."""
+    from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+
+    T_host = [float(yearfrac(REF, e)) for e in SURF_EXPIRIES]
+    return (T_host, [math.exp(-R * t) for t in T_host],
+            tuple(surface_seg_steps(T_host, SURF_QE_STEPS)[1]),
+            tuple(surface_seg_steps(T_host, SURF_EXACT_STEPS, min_first=2)[1]))
+
+
+def surface_inputs(device):
+    """The full-width surface kernels' inputs on ``device``: K9/K12's
+    parameter vector and tangent rows, K4's parameter vector and its
+    per-gap Poisson trip counts."""
+    import torch
+
+    from hedgehog_tpu_torch.models.heston_exact import poisson_kmax
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host, _, qe_seg, ex_seg = surface_grid()
+    dct, djt = (torch.as_tensor(t, dtype=torch.float32, device=device)
+                for t in gk._surface_greek_tables(*MARKET_ARGS[3:6], T_host, qe_seg))
+    return dict(
+        p9=torch.as_tensor(qk._surf_params(*MARKET_ARGS, T_host, qe_seg, SURF_STRIKES, 1.0),
+                           device=device),
+        p4=torch.as_tensor(ek._exact_surf_params(*MARKET_ARGS, T_host, ex_seg, SURF_STRIKES, 1.0),
+                           device=device),
+        dct=dct, djt=djt,
+        kmaxes=[poisson_kmax(*MARKET_ARGS[3:6], d, MARKET_ARGS[1])
+                for d in qk.segment_dts(T_host, ex_seg)])
+
+
+def carr_madan_surface(market, expiries, strikes):
+    """(n_exp, m) float64 Carr-Madan call prices, one strike-vector solve
+    per expiry."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    method = ht.CarrMadan(1.0, "auto", ht.HestonDynamics())
+    k = torch.tensor(strikes, dtype=torch.float64)
+    return torch.stack([ht.solve(ht.PricingProblem(ht.VanillaOption(k, e, ht.European(), ht.Call(),
+                                                                    ht.Spot()), market),
+                                 method).price for e in expiries])
+
+
+def compare_points(name: str, got, want, pairs: int, discount: float) -> float:
+    """Per-point check of a surface kernel's float64 sums against its
+    twin's: the mean values (sums over 2·pairs paths) within ``SURF_RTOL``
+    relative, values below ``VALUES_TOL['floor']`` compared absolutely (a
+    deep out-of-the-money point); returns the largest absolute difference
+    of the discounted means."""
+    import torch
+
+    got, want = (x.double().cpu() / (2 * pairs) for x in (got, want))
+    rels = (got - want).abs() / want.abs().clamp(min=VALUES_TOL["floor"])
+    rel, worst = float(rels.max()), int(rels.argmax())
+    say(f"  {name}: {got.numel()} points, max rel diff {rel:.3e} at point {worst} (mean value "
+        f"{float(want[worst]):.6g}; limit {SURF_RTOL:g}, floor {VALUES_TOL['floor']:g})")
+    check(bool(torch.isfinite(got).all()) and rel <= SURF_RTOL, f"{name}: max rel diff {rel:.3e}")
+    return discount * float((got - want).abs().max())
+
+
+def phase_surface_kernels(pairs: int, device: str) -> dict:
+    """The surface kernels against their plain twins on the card at the
+    full-width grid (both streams), K12's surface against K9's, the
+    one-expiry surfaces against K8 and K3, and K9/K12 at the calibration
+    shape; returns the kernels' records (serving stream, without launch
+    counts)."""
+    import torch
+
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host, disc, qe_seg, ex_seg = surface_grid()
+    m = len(SURF_STRIKES)
+    say(f"phase 2 (surfaces): K9, K12 (QE, steps {qe_seg}) and K4 (exact, segments {ex_seg}) "
+        f"against their plain twins at {pairs} antithetic pairs x {len(T_host)} expiries x {m} "
+        "strikes")
+    say(f"  tolerance: each point's mean within rel {SURF_RTOL:g} of the twin's (the same fp32 "
+        "per-pair values to FMA and ulp-level transcendentals, summed per warp into float64 "
+        f"rows against the twin's float64 sums); K12's columns within {SUM_RTOL:g} of the "
+        f"largest plus {SUM_RTOL:g} of each (as K10); K12's surface equal to K9's to the bit; a "
+        f"one-expiry one-strike K9 against K8 and K4 against K3 within rel {PRICE_RTOL:g} (the "
+        "same per-path values; K8/K3 sum per thread in fp32 over their own grid)")
+    dev = torch.device(device)
+    kw = dict(n_strikes=m, n_blocks=pairs // qk.PAIRS_PER_BLOCK, n_batches=1, seed=5, device=dev)
+    inp = surface_inputs(dev)
+    p9, p4, dct, djt, kmaxes = (inp[k] for k in ("p9", "p4", "dct", "djt", "kmaxes"))
+    scale = max(disc) / (2 * pairs)
+    records = {}
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        t9 = torch.as_tensor(qk.sobol_table(5, 2 * sum(qe_seg)), device=dev) if qmc else None
+        t4 = torch.as_tensor(qk.sobol_table(5, 4 * sum(ex_seg)), device=dev) if qmc else None
+        run9 = (p9, t9, qe_seg, m, pairs, 5, 0, 0)
+        run12 = (p9, dct, djt, t9, qe_seg, m, pairs, 5, 0, 0)
+        run4 = (p4, t4, ex_seg, kmaxes, m, pairs, 5, 0, 0)
+
+        s9 = qk.heston_qe_mixing_surface_price(*MARKET_ARGS, T_host, SURF_STRIKES, disc,
+                                               seg_steps=qe_seg, qmc=qmc, **kw)
+        s12, jac = gk.heston_qe_mixing_surface_price_and_jacobian(
+            *MARKET_ARGS, T_host, SURF_STRIKES, disc, seg_steps=qe_seg, qmc=qmc, **kw)
+        s4 = ek.heston_exact_mixing_surface_price(*MARKET_ARGS, T_host, SURF_STRIKES, disc,
+                                                  seg_steps=ex_seg, qmc=qmc, **kw)
+        torch.cuda.synchronize()
+        check(tuple(s9.shape) == tuple(s4.shape) == (len(T_host), m) and tuple(jac.shape)
+              == (len(T_host), m, 7), "surface shapes")
+        say(f"  K12 surface against K9's ({stream}): "
+            f"{'bit-identical' if torch.equal(s9, s12) else 'DIFFERENT'}")
+        check(torch.equal(s9, s12), f"K12's surface differs from K9's ({stream})")
+        err9 = compare_points(f"K9 sums ({stream})", qk._qe_surface_sums(*run9),
+                              qk.heston_qe_mixing_surface_sums_plain(*run9), pairs, max(disc))
+        sums12, want12 = gk._surface_jac_sums(*run12), gk.heston_qe_mixing_surface_jac_sums_plain(*run12)
+        err12 = scale * compare_vectors(f"K12 sums ({stream})", sums12, want12, SUM_RTOL)
+        err4 = compare_points(f"K4 sums ({stream})", ek._exact_surface_sums(*run4),
+                              ek.heston_exact_mixing_surface_sums_plain(*run4), pairs, max(disc))
+        times = {}
+        for name, fn, plain in (("K9", qk._qe_surface_sums, qk.heston_qe_mixing_surface_sums_plain),
+                                ("K12", gk._surface_jac_sums,
+                                 gk.heston_qe_mixing_surface_jac_sums_plain),
+                                ("K4", ek._exact_surface_sums,
+                                 ek.heston_exact_mixing_surface_sums_plain)):
+            run = {"K9": run9, "K12": run12, "K4": run4}[name]
+            times[name] = (time_ms(lambda: fn(*run)), time_ms(lambda: plain(*run), reps=2))
+            say(f"  {name} ({stream}): kernel {times[name][0]:.4f} ms, plain twin "
+                f"{times[name][1]:.4f} ms")
+
+        # one expiry, one strike: K9 against K8, K4 against K3
+        T1, D1 = T_host[1], disc[1]
+        one = dict(n_blocks=pairs // qk.PAIRS_PER_BLOCK, n_batches=1, seed=5, qmc=qmc, device=dev)
+        for name, surf, price in (
+                ("K9 against K8", qk.heston_qe_mixing_surface_price(
+                    *MARKET_ARGS, [T1], [STRIKE], [D1], seg_steps=(QE_STEPS,), n_strikes=1, **one),
+                 qk.heston_qe_mixing_vanilla_price(*MARKET_ARGS, T1 / QE_STEPS, STRIKE, D1,
+                                                   steps=QE_STEPS, **one)),
+                ("K4 against K3", ek.heston_exact_mixing_surface_price(
+                    *MARKET_ARGS, [T1], [STRIKE], [D1], seg_steps=(SEGMENTS,), n_strikes=1, **one),
+                 ek.heston_exact_mixing_vanilla_price(*MARKET_ARGS, T1 / SEGMENTS, STRIKE, D1,
+                                                      segments=SEGMENTS, **one))):
+            a, b = float(surf[0, 0]), float(price)
+            rel = abs(a - b) / abs(b)
+            say(f"  one-expiry {name} ({stream}): {a!r} vs {b!r}, rel {rel:.3e}"
+                f"{' (bit-identical)' if a == b else ''}")
+            check(math.isfinite(a) and rel <= PRICE_RTOL, f"one-expiry {name} ({stream}): {rel:.3e}")
+        if qmc:
+            continue
+        src = "hedgehog_tpu_torch/csrc/heston_surface.cu"
+        records["heston_qe_mixing_surface_price"] = dict(
+            source=src, replaces="hedgehog_tpu/ops/heston_qe_kernel.py:1077", max_abs_err=err9,
+            ms=times["K9"][0], plain_ms=times["K9"][1])
+        records["heston_exact_mixing_surface_price"] = dict(
+            source="hedgehog_tpu_torch/csrc/heston_exact.cu",
+            replaces="hedgehog_tpu/ops/heston_exact_kernel.py:717", max_abs_err=err4,
+            ms=times["K4"][0], plain_ms=times["K4"][1])
+        records["heston_qe_mixing_surface_price_and_jacobian"] = dict(
+            source=src, replaces="hedgehog_tpu/ops/heston_qe_greeks_kernel.py:960",
+            max_abs_err=err12, ms=times["K12"][0], plain_ms=times["K12"][1])
+
+    # the calibration shape: 3 expiries x 17 strikes (51 points; K12 357 columns)
+    cal_T = [d / 365.0 for d in CAL_EXPIRY_DAYS]
+    cal_seg = tuple(surface_seg_steps(cal_T, SURF_QE_STEPS)[1])
+    pc = torch.as_tensor(qk._surf_params(*MARKET_ARGS, cal_T, cal_seg, CAL_STRIKES, 1.0), device=dev)
+    cdct, cdjt = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                  for t in gk._surface_greek_tables(*MARKET_ARGS[3:6], cal_T, cal_seg))
+    m_cal = len(CAL_STRIKES)
+    run9 = (pc, None, cal_seg, m_cal, pairs, 5, 0, 0)
+    run12 = (pc, cdct, cdjt, None, cal_seg, m_cal, pairs, 5, 0, 0)
+    say(f"  calibration shape {len(cal_T)} x {m_cal}, steps {cal_seg} (PRNG):")
+    cal9 = qk._qe_surface_sums(*run9)
+    compare_points("K9 sums (3 x 17)", cal9, qk.heston_qe_mixing_surface_sums_plain(*run9), pairs,
+                   max(disc))
+    cal12 = gk._surface_jac_sums(*run12)
+    compare_vectors("K12 sums (3 x 17)", cal12, gk.heston_qe_mixing_surface_jac_sums_plain(*run12),
+                    SUM_RTOL)
+    check(torch.equal(cal12.reshape(-1, 7)[:, 0], cal9), "K12's 3 x 17 surface differs from K9's")
+    say(f"  K9 {time_ms(lambda: qk._qe_surface_sums(*run9)):.4f} ms, K12 "
+        f"{time_ms(lambda: gk._surface_jac_sums(*run12)):.4f} ms at 3 x 17")
+    return records
+
+
+def phase_surface_shapes(device: str) -> dict:
+    """K9, K12 and K4 against their chunked twins at the serving grid's
+    batches, on the serving PRNG stream: the grid-stride walk where it runs
+    (SURF_FULL_CHECK_BLOCKS x SURF_BATCHES blocks).  Returns each kernel's
+    largest absolute difference in price units."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host, disc, qe_seg, ex_seg = surface_grid()
+    m = len(SURF_STRIKES)
+    pairs = SURF_FULL_CHECK_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK
+    seed = SERVING_CHECK_SEED
+    say(f"phase 2 (surfaces at the serving batches): K9, K12, K4 at {pairs} pairs (PRNG seed "
+        f"{seed}) against the chunked twins")
+    t0 = time.perf_counter()
+    inp = surface_inputs(torch.device(device))
+    p9, p4, dct, djt, kmaxes = (inp[k] for k in ("p9", "p4", "dct", "djt", "kmaxes"))
+    scale = max(disc) / (2 * pairs)
+    errs = {}
+    run = (p9, None, qe_seg, m, pairs, seed, 0, 0)
+    t1 = time.perf_counter()
+    errs["heston_qe_mixing_surface_price"] = compare_points(
+        f"K9 sums ({pairs} pairs)", qk._qe_surface_sums(*run),
+        qk.heston_qe_mixing_surface_sums_plain(*run), pairs, max(disc))
+    t2 = time.perf_counter()
+    run = (p9, dct, djt, None, qe_seg, m, pairs, seed, 0, 0)
+    errs["heston_qe_mixing_surface_price_and_jacobian"] = scale * compare_vectors(
+        f"K12 sums ({pairs} pairs)", gk._surface_jac_sums(*run),
+        gk.heston_qe_mixing_surface_jac_sums_plain(*run), SUM_RTOL)
+    t3 = time.perf_counter()
+    run = (p4, None, ex_seg, kmaxes, m, pairs, seed, 0, 0)
+    errs["heston_exact_mixing_surface_price"] = compare_points(
+        f"K4 sums ({pairs} pairs)", ek._exact_surface_sums(*run),
+        ek.heston_exact_mixing_surface_sums_plain(*run), pairs, max(disc))
+    t4 = time.perf_counter()
+    say(f"  twin seconds: K9 {t2 - t1:.1f}, K12 {t3 - t2:.1f}, K4 {t4 - t3:.1f}; phase took "
+        f"{t4 - t0:.1f} s")
+    return errs
+
+
+def phase_surface_path(cm_surf, device: str) -> dict:
+    """The surface path through ``heston_surface_mc_adapter`` on the card at
+    full width (QE-32 PRNG through the differentiable view, QE-32 QMC
+    through K9, exact-4 through K4 on both streams), every point against
+    Carr-Madan within 4 standard errors plus the scheme's allowance; then
+    autograd of a least-squares surface loss through the view against
+    jacᵀ·ct from K12.  Returns the per-point bias in bp of each run."""
+    import dataclasses
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    pairs = SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK
+    say(f"phase 3 (surfaces): heston_surface_mc_adapter on {device}, {len(SURF_EXPIRIES)} x "
+        f"{len(SURF_STRIKES)} calls, {pairs} antithetic pairs, against Carr-Madan per point; "
+        f"each point's standard error from the spread of {SE_SEEDS} seeds at 2^20 pairs, "
+        "scaled to the run's pairs (QMC: an upper bound)")
+    market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    runs = [(f"QE-{SURF_QE_STEPS} {'QMC (K9)' if qmc else 'PRNG (differentiable view)'}", None,
+             SURF_QE_STEPS, qmc, SURF_QE_ALLOWANCE_BP) for qmc in (False, True)]
+    runs += [(f"exact-{SURF_EXACT_STEPS} {'QMC' if qmc else 'PRNG'} (K4)", ht.HestonExactMixing(),
+              SURF_EXACT_STEPS, qmc, SURF_EXACT_ALLOWANCE_BP) for qmc in (False, True)]
+    biases = {}
+    for label, strat, steps, qmc, allowance_bp in runs:
+        cfg = ht.SimulationConfig(pairs, steps, ht.Antithetic(), 0, qmc)
+        t0 = time.perf_counter()
+        surf = qk.heston_surface_mc_adapter(market, SURF_EXPIRIES, SURF_STRIKES, cfg,
+                                            strategy=strat, device=device)
+        float(surf.sum())
+        seconds = time.perf_counter() - t0
+        check(tuple(surf.shape) == tuple(cm_surf.shape) and surf.device.type == "cuda"
+              and bool(torch.isfinite(surf).all()), f"{label}: surface {tuple(surf.shape)}")
+        small = dataclasses.replace(cfg, trajectories=2**20)
+        spread = torch.stack([qk.heston_surface_mc_adapter(market, SURF_EXPIRIES, SURF_STRIKES,
+                                                           small, seed=100 + s, strategy=strat,
+                                                           device=device)
+                              for s in range(SE_SEEDS)]).cpu()
+        se = spread.std(dim=0) * math.sqrt(2**20 / pairs)
+        err = surf.cpu() - cm_surf
+        bp = err / cm_surf * 1e4
+        limit = 4.0 * se + allowance_bp * 1e-4 * cm_surf
+        say(f"  {label}: host {seconds:.3f} s; bias bp per point (rows: expiries, columns: "
+            f"strikes {SURF_STRIKES}), then 4 SE + {allowance_bp:g} bp in bp:")
+        for i, e in enumerate(SURF_EXPIRIES):
+            say(f"    {e}: " + " ".join(f"{float(x):+8.3f}" for x in bp[i])
+                + "  | " + " ".join(f"{float(x):7.3f}" for x in (limit / cm_surf * 1e4)[i]))
+        check(bool((err.abs() <= limit).all()), f"{label}: a point is outside 4 SE + {allowance_bp} bp")
+        biases[label] = [[round(float(x), 4) for x in row] for row in bp]
+
+    # autograd of a least-squares loss through the view (K12 forward) against
+    # jacᵀ·ct from a direct K12 call on the same pairs
+    T_host, disc, qe_seg, _ = surface_grid()
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in PARAMS7]
+    spot, v0, kappa, theta, sigma, rho, r = leaves
+    cfg = ht.SimulationConfig(pairs, SURF_QE_STEPS, ht.Antithetic(), 0, False)
+    t0 = time.perf_counter()
+    surf = qk.heston_surface_mc_adapter(ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho),
+                                        SURF_EXPIRIES, SURF_STRIKES, cfg, device=device)
+    loss = 0.5 * ((surf - cm_surf.to(surf.device)) ** 2).sum()
+    grads = torch.stack(torch.autograd.grad(loss, leaves))
+    seconds = time.perf_counter() - t0
+    s12, jac = gk.heston_qe_mixing_surface_price_and_jacobian(
+        *MARKET_ARGS, T_host, SURF_STRIKES, disc, seg_steps=qe_seg, n_strikes=len(SURF_STRIKES),
+        n_blocks=SURF_BLOCKS, n_batches=SURF_BATCHES, seed=0, device=device)
+    check(torch.equal(s12, surf.detach()), "the view's surface differs from K12's")
+    want = torch.einsum("emp,em->p", jac, s12 - cm_surf.to(s12.device))
+    say(f"  autograd of the least-squares loss through the view: {[float(g) for g in grads]} "
+        f"(host {seconds:.3f} s)")
+    compare_vectors("autograd through the view against jacᵀ·ct (GREEK_ORDER)", grads, want, 1e-6)
+    return biases
+
+
+def phase_surface_calibration(device: str) -> dict:
+    """Damped Gauss-Newton recovery of (V0, κ, θ, σ, ρ) from a Carr-Madan
+    quote surface with K12's surface and Jacobian per iteration (the
+    example's 2 x 5 grid, 16 steps, 64 x 4 blocks, PRNG)."""
+    import numpy as np
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host = [float(ht.yearfrac(REF, e)) for e in GN_EXPIRIES]
+    disc = [math.exp(-R * t) for t in T_host]
+    seg = tuple(surface_seg_steps(T_host, GN_STEPS)[1])
+    quotes = carr_madan_surface(ht.HestonInputs(REF, R, SPOT, *GN_TRUE), GN_EXPIRIES,
+                                GN_STRIKES).numpy()
+    kw = dict(seg_steps=seg, n_strikes=len(GN_STRIKES), n_blocks=GN_BLOCKS, n_batches=GN_BATCHES,
+              seed=0, device=device)
+    say(f"phase 3 (calibration): damped Gauss-Newton with K12, {len(T_host)} x {len(GN_STRIKES)} "
+        f"quotes from Carr-Madan at {GN_TRUE}, start {GN_START}, steps {seg}, "
+        f"{GN_BLOCKS} x {GN_BATCHES} blocks")
+    x = np.array(GN_START, dtype=np.float64)
+    free, lam, rmses = [1, 2, 3, 4, 5], 1e-4, []
+    t0 = time.perf_counter()
+    for it in range(GN_ITERS):
+        surf, jac = gk.heston_qe_mixing_surface_price_and_jacobian(
+            math.log(SPOT), x[0], R, x[1], x[2], x[3], x[4], T_host, GN_STRIKES, disc, **kw)
+        r_vec = (surf.cpu().numpy() - quotes).ravel()
+        J = jac.cpu().numpy()[:, :, free].reshape(-1, len(free))
+        step = np.linalg.solve(J.T @ J + lam * np.eye(len(free)), J.T @ r_vec)
+        x = x - step
+        x[0], x[2] = max(x[0], 1e-4), max(x[2], 1e-4)
+        x[3], x[4] = min(max(x[3], 0.05), 1.5), min(max(x[4], -0.95), 0.0)
+        rmses.append(float(np.sqrt(np.mean(r_vec**2))))
+        say(f"  iter {it:2d}: rmse {rmses[-1]:.6f}, x {[round(float(v), 5) for v in x]}")
+        if rmses[-1] < 5e-3 and np.linalg.norm(step) < 1e-4:
+            break
+    final = qk.heston_qe_mixing_surface_price(math.log(SPOT), x[0], R, x[1], x[2], x[3], x[4],
+                                              T_host, GN_STRIKES, disc, **kw)
+    rmse = float(np.sqrt(np.mean((final.cpu().numpy() - quotes) ** 2)))
+    seconds = time.perf_counter() - t0
+    names = ("V0", "kappa", "theta", "sigma", "rho")
+    say(f"  recovered {dict(zip(names, (round(float(v), 5) for v in x)))} (true "
+        f"{dict(zip(names, GN_TRUE))}); final rmse {rmse:.6f} against the first {rmses[0]:.6f} "
+        f"(limits: 1/10 of the first and 0.02); {len(rmses)} iterations, {seconds:.3f} s")
+    check(rmse <= rmses[0] / 10 and rmse <= 0.02, f"Gauss-Newton: final rmse {rmse} (first {rmses[0]})")
+    return dict(x=[float(v) for v in x], rmse=rmse, first_rmse=rmses[0], iterations=len(rmses),
+                seconds=seconds)
+
+
+def phase_surface_serving(cm_surf, device: str) -> dict:
+    """6 timed dispatches each of K9 (QE-32), K4 (exact-4) and K12 at 2^26
+    pairs (PRNG): ms per surface, paths/s, point-paths/s, max |bp| of the
+    mean surface against Carr-Madan, and the K12/K9 time ratio."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host, disc, qe_seg, ex_seg = surface_grid()
+    pairs = SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK
+    points = len(T_host) * len(SURF_STRIKES)
+    say(f"phase 4 (surfaces): serving dispatches, {pairs} antithetic pairs ({2 * pairs} paths) x "
+        f"{points} points per call")
+    kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=SURF_BLOCKS, n_batches=SURF_BATCHES,
+              device=device)
+    args = (*MARKET_ARGS, T_host, SURF_STRIKES, disc)
+    runs = {
+        f"K9 QE-{SURF_QE_STEPS}": lambda seed: qk.heston_qe_mixing_surface_price(
+            *args, seg_steps=qe_seg, seed=seed, **kw),
+        f"K4 exact-{SURF_EXACT_STEPS}": lambda seed: ek.heston_exact_mixing_surface_price(
+            *args, seg_steps=ex_seg, seed=seed, **kw),
+        f"K12 QE-{SURF_QE_STEPS} + Jacobian": lambda seed: gk.heston_qe_mixing_surface_price_and_jacobian(
+            *args, seg_steps=qe_seg, seed=seed, **kw)[0],
+    }
+    out, surfaces = {}, {}
+    for name, fn in runs.items():
+        fn(0)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        surfs = [fn(i + 1) for i in range(SERVING_REPS)]
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / SERVING_REPS
+        mean = torch.stack(surfs).mean(dim=0).cpu()
+        check(bool(torch.isfinite(mean).all()), f"{name}: non-finite surface")
+        bp = (mean - cm_surf) / cm_surf * 1e4
+        paths_per_s = 2 * pairs / (ms * 1e-3)
+        t0 = time.perf_counter()  # one more dispatch on the host clock: the idle share
+        fn(SERVING_REPS + 1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        say(f"  {name}: {ms:.3f} ms per surface, {paths_per_s:.6e} paths/s, "
+            f"{points * paths_per_s:.6e} point-paths/s, max |bp| {float(bp.abs().max()):.4f} "
+            f"(mean of {SERVING_REPS} seeds); one synchronised dispatch {wall_ms:.3f} ms of host "
+            f"time, idle share {1.0 - ms / wall_ms:.3f}")
+        surfaces[name] = surfs
+        out[name] = dict(ms=ms, paths_per_s=paths_per_s, point_paths_per_s=points * paths_per_s,
+                         max_abs_bp=float(bp.abs().max()), wall_ms=wall_ms)
+    k9, k4, k12 = runs
+    check(all(torch.equal(a, b) for a, b in zip(surfaces[k9], surfaces[k12])),
+          "surface serving: K12's surfaces differ from K9's")
+    ratio = out[k12]["ms"] / out[k9]["ms"]
+    say(f"  K12 / K9 time ratio {ratio:.4f} (each Gauss-Newton iteration pays it); K12 surfaces "
+        f"equal K9's on all {SERVING_REPS} seeds")
+    out["jacobian_price_ratio"] = ratio
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -965,11 +1439,20 @@ def main() -> int:
     import hedgehog_tpu_torch as ht
     from hedgehog_tpu_torch.ops import cuda_lib
     from hedgehog_tpu_torch.ops.gbm_kernel import GBM_KERNEL
-    from hedgehog_tpu_torch.ops.heston_exact_kernel import EXACT_PRICE_KERNEL, EXACT_VALUES_KERNEL
+    from hedgehog_tpu_torch.ops.heston_exact_kernel import (
+        EXACT_PRICE_KERNEL,
+        EXACT_SURFACE_KERNEL,
+        EXACT_VALUES_KERNEL,
+    )
     from hedgehog_tpu_torch.ops.heston_kernel import EULER_KERNEL
-    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import QE_GREEKS_KERNEL, QE_VJP_KERNEL
+    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import (
+        QE_GREEKS_KERNEL,
+        QE_SURFACE_JAC_KERNEL,
+        QE_VJP_KERNEL,
+    )
     from hedgehog_tpu_torch.ops.heston_qe_kernel import (
         QE_PRICE_KERNEL,
+        QE_SURFACE_KERNEL,
         QE_VALUES_KERNEL,
         QEM_PRICE_KERNEL,
         QEM_TERMINAL_KERNEL,
@@ -1006,20 +1489,29 @@ def main() -> int:
     records = phase_kernels(T, CHECK_PAIRS, "cuda")
     records.update(phase_qe_kernels(T, CHECK_PAIRS, "cuda"))
     records.update(phase_terminal_kernels(T, CHECK_PAIRS, "cuda"))
+    records.update(phase_surface_kernels(CHECK_PAIRS, "cuda"))
     errs = phase_main_shapes(T, SOLVE_PAIRS, EULER_PAIRS, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     terminal_errs, k13_times = phase_terminal_shapes(T, QEM_SOLVE_PAIRS, GBM_PAIRS,
                                                      SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     errs.update(terminal_errs)
+    errs.update(phase_surface_shapes("cuda"))
     records["gbm_exact_terminal"].update(k13_times)
     for name, err in errs.items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
-    # the timed calls' shapes: CHECK_PAIRS pairs on the PRNG stream, K13 solve's pairs
+    # the timed calls' shapes: CHECK_PAIRS pairs on the PRNG stream, K13 solve's pairs;
+    # the surfaces at the full-width grid (steps or segments over all expiries)
+    _, _, qe_seg, ex_seg = surface_grid()
     timed_steps = {"heston_euler_terminal": EULER_STEPS, "heston_exact_mixing_values": SEGMENTS,
                    "heston_exact_mixing_vanilla_price": SEGMENTS, "heston_qe_terminal": QEM_STEPS,
-                   "heston_qe_call_price": QEM_STEPS, "gbm_exact_terminal": 1}
+                   "heston_qe_call_price": QEM_STEPS, "gbm_exact_terminal": 1,
+                   "heston_qe_mixing_surface_price": sum(qe_seg),
+                   "heston_qe_mixing_surface_price_and_jacobian": sum(qe_seg),
+                   "heston_exact_mixing_surface_price": sum(ex_seg)}
+    surface_points = len(SURF_EXPIRIES) * len(SURF_STRIKES)
     for name, rec in records.items():
         pairs = GBM_PAIRS if name == "gbm_exact_terminal" else CHECK_PAIRS
-        b = bound(name, pairs, timed_steps.get(name, QE_STEPS), sm_clock_hz)
+        b = bound(name, pairs, timed_steps.get(name, QE_STEPS), sm_clock_hz,
+                  points=surface_points if "surface" in name else 1)
         say(f"  bound {name}: {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['flops']:.4g} fp32 "
             f"FLOPs, {b['mufu']:.4g} MUFU, {b['bytes']:.4g} bytes); kernel {rec['ms']:.4f} ms")
         rec.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
@@ -1048,8 +1540,27 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
+    # the surface path, with its own launch window
+    surface_kernels = {"heston_qe_mixing_surface_price": QE_SURFACE_KERNEL,
+                       "heston_exact_mixing_surface_price": EXACT_SURFACE_KERNEL,
+                       "heston_qe_mixing_surface_price_and_jacobian": QE_SURFACE_JAC_KERNEL}
+    for k in (*kernels.values(), *surface_kernels.values()):
+        k.launches = 0
+    surf_market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    cm_surf = carr_madan_surface(surf_market, SURF_EXPIRIES, SURF_STRIKES)
+    say(f"Carr-Madan surface {[[round(float(x), 6) for x in row] for row in cm_surf]}")
+    biases = phase_surface_path(cm_surf, "cuda")
+    calibration = phase_surface_calibration("cuda")
+    surface_serving = phase_surface_serving(cm_surf, "cuda")
+    surface_launches = {name: k.launches for name, k in surface_kernels.items()}
+    say(f"launches on the surface path: {surface_launches}")
+    for name, n in surface_launches.items():
+        check(n > 0, f"{name} was not launched on the surface path")
+    launches.update(surface_launches)
+
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
-                    "build_s": build_s, "nvidia_smi": smi}))
+                    "surface_serving": surface_serving, "surface_bias_bp": biases,
+                    "calibration": calibration, "build_s": build_s, "nvidia_smi": smi}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)
         for name, rec in records.items()

@@ -8,7 +8,10 @@ kernels for the Euler, exact-mixing, QE-mixing and QE-M schemes and the
 exact lognormal draw (``ops/``, sources in ``csrc/``), checked against the
 Carr–Madan Fourier price, and its 7-parameter greek vector
 (``heston_mixing_price_and_greeks``, the greek kernel, or
-``torch.autograd.grad`` through ``solve``).  ``MonteCarlo`` and the kernel
+``torch.autograd.grad`` through ``solve``), and whole (expiry × strike)
+surfaces from one variance simulation (``heston_surface_mc``; the surface
+kernels and their Jacobian through ``ops.heston_qe_kernel
+.heston_surface_mc_adapter``).  ``MonteCarlo`` and the kernel
 wrappers run on the GPU unless the caller asks for ``device="cpu"``.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
@@ -65,6 +68,7 @@ from .methods.montecarlo import (
     simulate_conditional_values,
     simulate_terminal_prices,
 )
+from .methods.heston_surface import heston_surface_mc
 from .methods.mixing_greeks import GREEK_ORDER, heston_mixing_price_and_greeks
 from .models.dynamics import HestonDynamics, LognormalDynamics
 from .interop import from_reference
@@ -85,7 +89,7 @@ __all__ = [
     "MonteCarlo",
     "NoVarianceReduction", "SimulationConfig", "reduce_payoffs",
     "simulate_conditional_values", "simulate_terminal_prices",
-    "GREEK_ORDER", "heston_mixing_price_and_greeks",
+    "GREEK_ORDER", "heston_mixing_price_and_greeks", "heston_surface_mc",
     "HestonDynamics", "LognormalDynamics",
     "from_reference",
 ]

@@ -181,10 +181,38 @@ __device__ __forceinline__ void exact_segment(float& v, float& iv, float u_pois,
   iv = iv + iv_seg;
 }
 
-// Conditional BS close through J = (V_T - V_0 - kappa*theta*T)/sigma + (kappa/sigma)*IV.
-__device__ __forceinline__ float exact_close(float v, float iv, const ExactParams& c) {
+// Conditional BS close through J = (V_T - V_0 - kappa*theta*T)/sigma +
+// (kappa/sigma)*IV, with c_j = V_0 + kappa*theta*T of `c` and the strike's
+// constants `cl`.
+__device__ __forceinline__ float exact_point_close(float v, float iv, const ExactParams& c,
+                                                   const hh::CloseParams& cl) {
   const float j = (v - c.c_j) * c.inv_sigma + iv * c.k_over_sigma;
-  return hh::cond_bs_value(iv, j, c.close);
+  return hh::cond_bs_value(iv, j, cl);
+}
+
+__device__ __forceinline__ float exact_close(float v, float iv, const ExactParams& c) {
+  return exact_point_close(v, iv, c, c.close);
+}
+
+// The four draws of segment s of pair `pair` (point idx under QMC): Sobol'
+// dims 4s..4s+3 of the (4*segments, 31) table `sobol` in shared memory, or
+// Philox block s when `sobol` is null.
+__device__ __forceinline__ void exact_draw(unsigned long long pair, uint32_t idx,
+                                           const int* sobol, int s, uint32_t seed,
+                                           uint32_t device_id, float& u_pois, float& z_gam,
+                                           float& u_boost, float& z_iv) {
+  if (sobol) {
+    const int* rows = sobol + 4 * s * (hh::kSobolBits + 1);
+    u_pois = hh::sobol_uniform(idx, rows);
+    z_gam = hh::ndtri_approx(hh::sobol_uniform(idx, rows + (hh::kSobolBits + 1)));
+    u_boost = hh::sobol_uniform(idx, rows + 2 * (hh::kSobolBits + 1));
+    z_iv = hh::ndtri_approx(hh::sobol_uniform(idx, rows + 3 * (hh::kSobolBits + 1)));
+  } else {
+    const hh::U4 w = hh::philox_block(pair, (uint32_t)s, seed, device_id);
+    hh::box_muller(w.x, w.y, z_gam, z_iv);
+    u_pois = hh::uniform_from_bits(w.z);
+    u_boost = hh::uniform_from_bits(w.w);
+  }
 }
 
 // The (value, antithetic value) of global pair `pair`.  `sobol` is the
@@ -197,18 +225,7 @@ __device__ __forceinline__ void exact_pair(unsigned long long pair, const ExactP
   const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
   for (int s = 0; s < segments; ++s) {
     float u_pois, z_gam, u_boost, z_iv;
-    if (sobol) {
-      const int* rows = sobol + 4 * s * (hh::kSobolBits + 1);
-      u_pois = hh::sobol_uniform(idx, rows);
-      z_gam = hh::ndtri_approx(hh::sobol_uniform(idx, rows + (hh::kSobolBits + 1)));
-      u_boost = hh::sobol_uniform(idx, rows + 2 * (hh::kSobolBits + 1));
-      z_iv = hh::ndtri_approx(hh::sobol_uniform(idx, rows + 3 * (hh::kSobolBits + 1)));
-    } else {
-      const hh::U4 w = hh::philox_block(pair, (uint32_t)s, seed, device_id);
-      hh::box_muller(w.x, w.y, z_gam, z_iv);
-      u_pois = hh::uniform_from_bits(w.z);
-      u_boost = hh::uniform_from_bits(w.w);
-    }
+    exact_draw(pair, idx, sobol, s, seed, device_id, u_pois, z_gam, u_boost, z_iv);
     exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax);
     if (antithetic) {
       exact_segment(va, iva, 1.0f - u_pois, -z_gam, 1.0f - u_boost, -z_iv, c, kmax);
@@ -276,6 +293,157 @@ size_t sobol_smem(const int* sobol, int segments) {
   return sobol ? sizeof(int) * 4 * segments * (hh::kSobolBits + 1) : 0;
 }
 
+// ---- K4: the exact-transition surface ----
+//
+// Replaces hedgehog_tpu/ops/heston_exact_kernel.py:
+//   heston_exact_mixing_surface_price  (pallas_call at :779 QMC, :801 PRNG;
+//                                       bodies _exact_surface_kernel[_qmc])
+//
+// One variance path per antithetic pair through the expiry gaps (gap i:
+// ints[i] exact segments with that gap's constants and Poisson trip count
+// ints[n_exp + i], the segment index running across gaps); at each expiry the
+// (V, IV) carries close every strike through J_i = (V - V0 - kappa theta
+// T_i + kappa IV)/sigma.  Bound and design as K3 and K9: one pair per thread,
+// a grid-stride walk with one resident wave, the per-gap ExactParams and the
+// per-point close constants in shared memory, per-point sums in per-warp
+// float64 rows (hh::warp_accumulate).  The plain twin is
+// ops/heston_exact_kernel.py heston_exact_mixing_surface_sums_plain.
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kXsGlobals = 7;  // v0, rho, rho2_half, rho_bar2, cp, inv_sigma, k_over_sigma
+constexpr int kXsShared = 12;  // d_half, nu, nu2, an1, an2, an3, ad1, ad2, ad3, m1f, s2f, inv_kappa
+constexpr int kXsPerGap = 10;  // lam_fac, two_cfac, z_fac, l1c, l1x, l2c, l2x, q, q2, p_c
+
+// Dynamic shared memory: per-warp sums, per-gap ExactParams, per-point close
+// constants, segment counts then trip counts, the Sobol' table.
+struct XsLayout {
+  int n_cols;
+  size_t gaps, close, ints, sobol, bytes;
+};
+
+__host__ __device__ inline XsLayout xs_layout(int n_exp, int m, int total_segs, bool qmc) {
+  XsLayout l;
+  l.n_cols = n_exp * m;
+  size_t off = sizeof(double) * kWarps * l.n_cols;
+  l.gaps = off;
+  off += sizeof(ExactParams) * n_exp;
+  l.close = off;
+  off += sizeof(hh::CloseParams) * l.n_cols;
+  l.ints = off;
+  off += sizeof(int) * 2 * n_exp;
+  l.sobol = off;
+  off += qmc ? sizeof(int) * 4 * total_segs * (hh::kSobolBits + 1) : 0;
+  l.bytes = off;
+  return l;
+}
+
+// Expands the flat parameter vector (ops/heston_exact_kernel.py XS_GLOBALS,
+// XS_SHARED, XS_PER_GAP per gap, f_base and c_j per expiry, strikes, log(F/K))
+// into per-gap ExactParams and per-point CloseParams; zeroes the sums.
+__device__ __forceinline__ void stage_surface(const float* params, const int* ints,
+                                              const int* sobol, int n_exp, int m, int total_segs,
+                                              const XsLayout& l, char* smem) {
+  double* wacc = reinterpret_cast<double*>(smem);
+  for (int i = threadIdx.x; i < kWarps * l.n_cols; i += blockDim.x) wacc[i] = 0.0;
+  const float* g = params;
+  const float* sh = g + kXsGlobals;
+  const float* f_base = sh + kXsShared + kXsPerGap * n_exp;
+  const float* c_j = f_base + n_exp;
+  const float* strike = c_j + n_exp;
+  const float* lfk = strike + m;
+  ExactParams* gaps = reinterpret_cast<ExactParams*>(smem + l.gaps);
+  for (int i = threadIdx.x; i < n_exp; i += blockDim.x) {
+    const float* gp = sh + kXsShared + kXsPerGap * i;
+    ExactParams& e = gaps[i];
+    e.close = hh::CloseParams{f_base[i], 0.0f, g[1], g[2], g[3], g[4], 0.0f};
+    e.v0 = g[0];
+    e.lam_fac = gp[0];
+    e.d_half = sh[0];
+    e.two_cfac = gp[1];
+    e.nu = sh[1];
+    e.nu2 = sh[2];
+    e.z_fac = gp[2];
+    e.an1 = sh[3];
+    e.an2 = sh[4];
+    e.an3 = sh[5];
+    e.ad1 = sh[6];
+    e.ad2 = sh[7];
+    e.ad3 = sh[8];
+    e.l1c = gp[3];
+    e.l1x = gp[4];
+    e.l2c = gp[5];
+    e.l2x = gp[6];
+    e.q = gp[7];
+    e.q2 = gp[8];
+    e.p_c = gp[9];
+    e.m1f = sh[9];
+    e.s2f = sh[10];
+    e.inv_kappa = sh[11];
+    e.c_j = c_j[i];
+    e.k_over_sigma = g[6];
+    e.inv_sigma = g[5];
+  }
+  hh::CloseParams* close = reinterpret_cast<hh::CloseParams*>(smem + l.close);
+  for (int p = threadIdx.x; p < l.n_cols; p += blockDim.x) {
+    close[p] = hh::CloseParams{f_base[p / m], strike[p % m], g[1], g[2], g[3], g[4], lfk[p]};
+  }
+  int* sints = reinterpret_cast<int*>(smem + l.ints);
+  for (int i = threadIdx.x; i < 2 * n_exp; i += blockDim.x) sints[i] = ints[i];
+  if (sobol) {
+    int* ssob = reinterpret_cast<int*>(smem + l.sobol);
+    const int n = 4 * total_segs * (hh::kSobolBits + 1);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) ssob[i] = sobol[i];
+  }
+  __syncthreads();
+}
+
+// The grid-stride round is uniform over the block, so every lane of a warp
+// reaches the shuffles of a round; a lane past the last pair adds 0.
+__global__ void __launch_bounds__(kThreads)
+exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ ints,
+                     const int* __restrict__ sobol, double* __restrict__ partials, int n_exp,
+                     int m, int total_segs, long long total_pairs, uint32_t seed,
+                     uint32_t device_id, long long point_offset) {
+  extern __shared__ __align__(16) char xs_smem[];
+  const XsLayout l = xs_layout(n_exp, m, total_segs, sobol != nullptr);
+  stage_surface(params, ints, sobol, n_exp, m, total_segs, l, xs_smem);
+  double* wacc = reinterpret_cast<double*>(xs_smem);
+  const ExactParams* gaps = reinterpret_cast<const ExactParams*>(xs_smem + l.gaps);
+  const hh::CloseParams* close = reinterpret_cast<const hh::CloseParams*>(xs_smem + l.close);
+  const int* nseg = reinterpret_cast<const int*>(xs_smem + l.ints);
+  const int* kmaxes = nseg + n_exp;
+  const int* table = sobol ? reinterpret_cast<const int*>(xs_smem + l.sobol) : nullptr;
+  const float v0 = params[0];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < total_pairs; base += stride) {
+    const long long g = base + threadIdx.x;
+    const bool live = g < total_pairs;
+    const unsigned long long pair = (unsigned long long)g;
+    const uint32_t idx = (uint32_t)(point_offset + g);
+    float v = v0, iv = 0.0f, va = v0, iva = 0.0f;
+    int seg = 0;
+    for (int i = 0; i < n_exp; ++i) {
+      const ExactParams& c = gaps[i];
+      if (live) {
+        for (int k = 0; k < nseg[i]; ++k, ++seg) {
+          float u_pois, z_gam, u_boost, z_iv;
+          exact_draw(pair, idx, table, seg, seed, device_id, u_pois, z_gam, u_boost, z_iv);
+          exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmaxes[i]);
+          exact_segment(va, iva, 1.0f - u_pois, -z_gam, 1.0f - u_boost, -z_iv, c, kmaxes[i]);
+        }
+      }
+      for (int k = 0; k < m; ++k) {
+        const int p = i * m + k;
+        const float y = live ? exact_point_close(v, iv, c, close[p]) +
+                                   exact_point_close(va, iva, c, close[p])
+                             : 0.0f;
+        hh::warp_accumulate(y, wacc, l.n_cols, p);
+      }
+    }
+  }
+  hh::block_columns(wacc, l.n_cols, partials);
+}
+
 }  // namespace
 
 // Per-path undiscounted values: out is (1 or 2, n_paths) float32.
@@ -313,3 +481,37 @@ extern "C" int hh_exact_price_grid(int* grid) {
   return (int)err;
 }
 
+
+// K4: out[n_exp * m] float64 sums over the pairs [0, total_pairs) of each
+// point's (value + antithetic value), point-major; partials is (n_exp * m,
+// grid) scratch; ints is [segments per gap..., Poisson trip count per
+// gap...] int32; sobol the (4 * total_segs, 31) table for QMC or null.
+extern "C" int hh_exact_surface(const float* params, const int* ints, const int* sobol,
+                                double* partials, double* out, int grid, int n_exp, int m,
+                                int total_segs, long long total_pairs, unsigned seed,
+                                unsigned device_id, long long point_offset, void* stream) {
+  const XsLayout l = xs_layout(n_exp, m, total_segs, sobol != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(exact_surface_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)l.bytes);
+  if (err != cudaSuccess) return (int)err;
+  exact_surface_kernel<<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
+      params, ints, sobol, partials, n_exp, m, total_segs, total_pairs, seed, device_id,
+      point_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return hh::launch_column_sums(partials, l.n_cols, grid, out, (cudaStream_t)stream);
+}
+
+// K4's grid: one resident wave on the current device (occupancy without
+// dynamic shared memory: the register limit).
+extern "C" int hh_exact_surface_grid(int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_surface_kernel, kThreads, 0);
+  }
+  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  return (int)err;
+}

@@ -27,8 +27,10 @@ constexpr int kTanCols = 8;
 // The primal is qe_v_draw's, to the bit; the coefficients reuse its
 // intermediates.  Clamped lanes (psi at its floor, p at its clip, 1/beta at
 // its cap, u <= p) have zero slope through the clamped quantity.
-__device__ __forceinline__ float qe_v_coeffs(float v, float z, float u, const MixParams& c,
-                                             float& cm, float& cs) {
+// P is MixParams or SurfSeg.
+template <class P>
+__device__ __forceinline__ float qe_v_coeffs(float v, float z, float u, const P& c, float& cm,
+                                             float& cs) {
   QeDraw d;
   const float vn = qe_v_draw(v, z, u, c, d);
   float coef_m = 0.0f, coef_psi = 0.0f;

@@ -103,6 +103,9 @@ def load_library() -> ctypes.CDLL:
     lib.hh_qe_price_grid.restype = ctypes.c_int
     lib.hh_qem_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.hh_qem_price_grid.restype = ctypes.c_int
+    for grid_fn in (lib.hh_surface_grid, lib.hh_exact_surface_grid):
+        grid_fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        grid_fn.restype = ctypes.c_int
     return lib
 
 

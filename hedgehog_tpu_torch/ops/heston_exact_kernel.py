@@ -1,5 +1,5 @@
-"""Exact-transition mixing kernels (K2 values, K3 serving price) and their
-plain PyTorch twins.
+"""Exact-transition mixing kernels (K2 values, K3 serving price, K4 the
+(expiry × strike) surface) and their plain PyTorch twins.
 
 Port of ``hedgehog_tpu/ops/heston_exact_kernel.py``.  For tensors on a GPU
 the work goes to ``csrc/heston_exact.cu``; for tensors on the CPU to the
@@ -31,6 +31,13 @@ from ..models.heston_exact import (
 from ..math.counter_rng import uniform_from_bits
 from ..utils import resolve_device
 from .cuda_lib import CudaKernel, check_tensor, require_cuda, resident_grid
+from .heston_qe_kernel import (
+    check_surface,
+    pair_chunks,
+    segment_dts,
+    strike_chunks,
+    surface_args,
+)
 from .hh_device import (
     SOBOL_BITS,
     box_muller,
@@ -51,6 +58,9 @@ __all__ = [
     "heston_exact_mixing_values_plain",
     "heston_exact_mixing_price_sum_plain",
     "heston_exact_mixing_vanilla_price",
+    "EXACT_SURFACE_KERNEL",
+    "heston_exact_mixing_surface_price",
+    "heston_exact_mixing_surface_sums_plain",
 ]
 
 #: antithetic pairs per TPU program (256 × 128): the unit of ``n_blocks``
@@ -63,8 +73,6 @@ _KMAX_LIMIT = 65
 #: segments the QMC kernels stage in shared memory at most
 _QMC_MAX_SEGMENTS = 16
 _MASK32 = 0xFFFFFFFF
-#: pairs per chunk of the K3 twin
-_PLAIN_CHUNK = 2**18
 
 _P_NAMES = (
     # conditional-BS close (csrc/hh_device.cuh CloseParams)
@@ -258,12 +266,9 @@ def heston_exact_mixing_price_sum_plain(params, table, total_pairs: int, segment
                                         point_offset: int) -> torch.Tensor:
     """Twin of K3: the float64 sum of (value + antithetic value) over the
     pairs ``[0, total_pairs)``, i.e. the points
-    ``[point_offset, point_offset + total_pairs)``, in chunks of
-    ``_PLAIN_CHUNK`` pairs so that serving sizes fit in memory."""
+    ``[point_offset, point_offset + total_pairs)``, in chunks of pairs."""
     total = torch.zeros((), dtype=torch.float64, device=params.device)
-    for start in range(0, total_pairs, _PLAIN_CHUNK):
-        pair = torch.arange(start, min(start + _PLAIN_CHUNK, total_pairs), dtype=torch.int64,
-                            device=params.device)
+    for pair in pair_chunks(total_pairs, params.device):
         vals = _exact_pairs_plain(params, table, pair, segments, True, kmax, seed, device_id,
                                   point_offset)
         total = total + (vals[0] + vals[1]).to(torch.float64).sum()
@@ -376,6 +381,163 @@ def heston_exact_mixing_vanilla_price(
     sums = _exact_price_sum(params, table, total_pairs, segments, kmax, int(seed),
                             int(device_id), point_offset)
     return discount * sums / (2 * total_pairs)
+
+
+# ---- exact-transition surface: K4, a whole (expiry × strike) grid per launch ----
+
+#: the surface kernel's parameter vector (the TPU kernels' ``_exact_surf_params``):
+#: globals, the Δ-independent block, ``XS_PER_GAP`` per expiry gap, then f_base
+#: and c_j = V0 + κθT_i per expiry, the m strikes and log(f_base_i / K_k)
+XS_GLOBALS = ("v0", "rho", "rho2_half", "rho_bar2", "cp", "inv_sigma", "k_over_sigma")
+XS_SHARED = ("d_half", "nu", "nu2", "an1", "an2", "an3", "ad1", "ad2", "ad3", "m1f", "s2f",
+             "inv_kappa")
+XS_PER_GAP = ("lam_fac", "two_cfac", "z_fac", "l1c", "l1x", "l2c", "l2x", "q", "q2", "p_c")
+#: shared-memory bytes per expiry of K4: a 33-float parameter struct, the
+#: Poisson trip count and the segment count
+_XS_EXP_BYTES = 4 * len(_P_NAMES) + 8
+
+EXACT_SURFACE_KERNEL = CudaKernel("hh_exact_surface", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
+    ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+])
+
+
+def exact_surf_nparams(n_exp: int, m: int) -> int:
+    return (len(XS_GLOBALS) + len(XS_SHARED) + len(XS_PER_GAP) * n_exp + 2 * n_exp + m
+            + n_exp * m)
+
+
+def _exact_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host, seg_steps, strikes,
+                       cp) -> np.ndarray:
+    """K4's parameter vector: float64 host math, each entry cast once; the
+    coefficient formulas are models/heston_exact.py's, as ``_exact_params``'s."""
+    log_s0, v0, r, kappa, theta, sigma, rho, cp = (
+        float(x) for x in (log_s0, v0, r, kappa, theta, sigma, rho, cp))
+    strikes = [float(k) for k in strikes]
+    entries = [v0, rho, 0.5 * rho**2, 1.0 - rho**2, cp, 1.0 / sigma, kappa / sigma]
+    shared = cir_exact_shared_coeffs(kappa, theta, sigma)
+    entries += [shared[n] for n in XS_SHARED]
+    for dt_i in segment_dts(T_host, seg_steps):
+        gap = cir_exact_kernel_coeffs(kappa, theta, sigma, dt_i)
+        entries += [gap[n] for n in XS_PER_GAP]
+    f_bases = [float(np.exp(log_s0 + r * T_i)) for T_i in T_host]
+    entries += f_bases + [v0 + kappa * theta * T_i for T_i in T_host] + strikes
+    entries += [np.log(f) - np.log(k) for f in f_bases for k in strikes]
+    return np.array([float(x) for x in entries], dtype=np.float64).astype(np.float32)
+
+
+def exact_surf_c(params: torch.Tensor, n_exp: int, i: int) -> dict:
+    """Gap i's constants in the layout ``_exact_segment`` reads (the TPU
+    kernels' ``_exact_surf_c``)."""
+    vals = params.unbind()
+    c = dict(zip(XS_GLOBALS, vals))
+    off = len(XS_GLOBALS)
+    c.update(zip(XS_SHARED, vals[off:off + len(XS_SHARED)]))
+    off += len(XS_SHARED) + len(XS_PER_GAP) * i
+    c.update(zip(XS_PER_GAP, vals[off:off + len(XS_PER_GAP)]))
+    return c
+
+
+def _exact_surf_close(params, c, n_exp: int, m: int, i: int, k: int) -> dict:
+    """Point (i, k)'s close constants over gap constants ``c`` (the TPU
+    kernels' ``_exact_surf_fold``): c_j = V0 + κθT_i closes J by the
+    full-horizon CIR identity."""
+    f_off = len(XS_GLOBALS) + len(XS_SHARED) + len(XS_PER_GAP) * n_exp
+    k_off = f_off + 2 * n_exp
+    return dict(c, f_base=params[f_off + i], c_j=params[f_off + n_exp + i],
+                strike=params[k_off + k], log_f_over_k=params[k_off + m + i * m + k])
+
+
+def _exact_surface_pairs_plain(params, table, seg_steps, kmaxes, m, pair, seed, device_id,
+                               point_offset):
+    """(n_exp·m, len(pair)) fp32 values, each the sum of a pair's two paths,
+    of every surface point."""
+    n_exp = len(seg_steps)
+    c = exact_surf_c(params, n_exp, 0)
+    v = c["v0"].expand(pair.shape)
+    iv = torch.zeros_like(v)
+    va, iva = v, iv
+    masks = sobol_masks(pair + point_offset) if table is not None else None
+    rows, s = [], 0
+    for i, steps_i in enumerate(seg_steps):
+        c = exact_surf_c(params, n_exp, i)
+        for _ in range(steps_i):
+            u_pois, z_gam, u_boost, z_iv = _exact_draws(pair, s, masks, table, seed, device_id)
+            v, iv = _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmaxes[i])
+            va, iva = _exact_segment(va, iva, 1.0 - u_pois, -z_gam, 1.0 - u_boost, -z_iv, c,
+                                     kmaxes[i])
+            s += 1
+        for k in range(m):
+            ck = _exact_surf_close(params, c, n_exp, m, i, k)
+            rows.append(_exact_close(v, iv, ck) + _exact_close(va, iva, ck))
+    return torch.stack(rows)
+
+
+def heston_exact_mixing_surface_sums_plain(params, table, seg_steps, kmaxes, m: int,
+                                           total_pairs: int, seed: int, device_id: int,
+                                           point_offset: int) -> torch.Tensor:
+    """Twin of K4: the float64 sum over the pairs [0, total_pairs) of each
+    point's per-pair fp32 value, (n_exp·m,) point-major."""
+    total = torch.zeros(len(seg_steps) * m, dtype=torch.float64, device=params.device)
+    for pair in pair_chunks(total_pairs, params.device):
+        vals = _exact_surface_pairs_plain(params, table, seg_steps, kmaxes, m, pair, seed,
+                                          device_id, point_offset)
+        total = total + vals.to(torch.float64).sum(dim=1)
+    return total
+
+
+def _exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs, seed, device_id,
+                        point_offset) -> torch.Tensor:
+    """Launch K4 for inputs on a GPU (per-point float64 sums); the twin for
+    inputs on the CPU."""
+    n_exp = len(seg_steps)
+    check_surface(params, table, seg_steps, m, exact_surf_nparams(n_exp, m), 4,
+                  _QMC_MAX_SEGMENTS)
+    if len(kmaxes) != n_exp or not all(1 <= k <= _KMAX_LIMIT for k in kmaxes):
+        raise ValueError(f"Poisson trip counts {kmaxes} outside [1, {_KMAX_LIMIT}]")
+    if params.device.type == "cpu":
+        return heston_exact_mixing_surface_sums_plain(params, table, seg_steps, kmaxes, m,
+                                                      total_pairs, seed, device_id, point_offset)
+    require_cuda(params)
+    grid = resident_grid("hh_exact_surface_grid", params.device)
+    ints = torch.tensor([*seg_steps, *kmaxes], dtype=torch.int32, device=params.device)
+    partials = torch.empty((n_exp * m, grid), dtype=torch.float64, device=params.device)
+    out = torch.empty((n_exp * m,), dtype=torch.float64, device=params.device)
+    EXACT_SURFACE_KERNEL.launch(
+        params.device, params.data_ptr(), ints.data_ptr(),
+        None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
+        n_exp, m, sum(seg_steps), total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+    )
+    return out
+
+
+def heston_exact_mixing_surface_price(
+    log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
+    *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
+    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
+) -> torch.Tensor:
+    """(n_exp, n_strikes) DISCOUNTED exact-transition surface prices over
+    n_blocks·n_batches·32768 antithetic pairs: per expiry gap
+    ``seg_steps[i]`` exact segments (the segment index running across gaps)
+    with that gap's Poisson trip count, every strike closed at each expiry.
+    Returns float64 on the device."""
+    T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
+        T_host, seg_steps, strikes, n_strikes, discounts, n_blocks, n_batches, qmc,
+        point_offset, device)
+    kmaxes = [poisson_kmax(kappa, theta, sigma, dt_i, v0) for dt_i in segment_dts(T_host, seg_steps)]
+    table = torch.as_tensor(sobol_table(seed, 4 * sum(seg_steps)), device=dev) if qmc else None
+    rows = []
+    for sl in strike_chunks(len(T_host), n_strikes, 1, 0 if table is None else table.shape[0],
+                            _XS_EXP_BYTES):
+        params = torch.as_tensor(_exact_surf_params(log_s0, v0, r, kappa, theta, sigma, rho,
+                                                    T_host, seg_steps, strikes[sl], cp),
+                                 device=dev)
+        m = len(strikes[sl])
+        rows.append(_exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs,
+                                        int(seed), int(device_id),
+                                        point_offset).reshape(len(T_host), m))
+    return disc[:, None] * (torch.cat(rows, dim=1) / (2 * total_pairs))
 
 
 def heston_exact_mixing_values_adapter(prob, config, strat, key=None, device_id=0,

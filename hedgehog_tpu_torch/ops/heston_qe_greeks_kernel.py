@@ -1,5 +1,6 @@
-"""QE mixing greek kernels (K10 price + 7 greeks, K11 the values VJP), their
-plain PyTorch twins, and the differentiable view of the values kernel.
+"""QE mixing greek kernels (K10 price + 7 greeks, K11 the values VJP, K12
+the surface and its 7-parameter Jacobian), their plain PyTorch twins, and
+the differentiable views of the values kernel and of the surface.
 
 Port of the mixing part of ``hedgehog_tpu/ops/heston_qe_greeks_kernel.py``.
 Both kernels replay the values/price kernels' stream (ops/heston_qe_kernel.py)
@@ -13,7 +14,10 @@ on the CPU to the float32 twins below.
 
 :func:`heston_qe_mixing_values_diff` is K7 as a ``torch.autograd.Function``
 whose backward is K11, so ``torch.autograd.grad`` of a kernel-backed
-``solve`` price runs at kernel speed.
+``solve`` price runs at kernel speed; :func:`heston_qe_mixing_surface_price_diff`
+is the surface as one whose forward runs K12 when a gradient is wanted (K9
+otherwise) and whose backward contracts K12's Jacobian.  K12 carries dIV
+directly (the segments' dt differ), not K10's telescoped running sum.
 """
 
 from __future__ import annotations
@@ -24,17 +28,37 @@ import numpy as np
 import torch
 
 from .cuda_lib import CudaKernel, check_tensor, require_cuda
+from ..utils import f64
 from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
-    PLAIN_CHUNK,
+    QMC_MAX_STEPS,
+    SURF_EXP_BYTES,
+    _surf_params,
     check_inputs,
     check_period,
+    check_surface,
+    heston_qe_mixing_surface_price,
     heston_qe_mixing_values,
     mix_draws,
     mix_inputs,
+    pair_chunks,
     price_grid,
+    segment_dts,
+    strike_chunks,
+    surf_nparams,
+    surface_args,
+    surface_grid,
 )
-from .hh_device import mix_c, mix_update, norm_cdf, qe_v_draw, rcp
+from .hh_device import (
+    mix_c,
+    mix_update,
+    norm_cdf,
+    qe_v_draw,
+    rcp,
+    sobol_table,
+    surf_c,
+    surf_close,
+)
 
 __all__ = [
     "QE_GREEKS_KERNEL",
@@ -43,6 +67,10 @@ __all__ = [
     "heston_qe_mixing_greek_sums_plain",
     "heston_qe_mixing_vjp_sums_plain",
     "heston_qe_mixing_values_diff",
+    "QE_SURFACE_JAC_KERNEL",
+    "heston_qe_mixing_surface_price_and_jacobian",
+    "heston_qe_mixing_surface_jac_sums_plain",
+    "heston_qe_mixing_surface_price_diff",
 ]
 
 #: columns of the tangent table: tangents of (θc, e, c_s2_v, c_s2_c,
@@ -174,19 +202,13 @@ def _tangent_paths(params, dtab, table, pair, steps, antithetic, seed, device_id
     return c, [s] if sa is None else [s, sa]
 
 
-def _chunks(total: int, device):
-    for start in range(0, total, PLAIN_CHUNK):
-        yield torch.arange(start, min(start + PLAIN_CHUNK, total), dtype=torch.int64,
-                           device=device)
-
-
 def heston_qe_mixing_greek_sums_plain(params, dtab, table, total_pairs: int, steps: int,
                                       seed: int, device_id: int, point_offset: int):
     """Twin of K10: float64 sums over the pairs [0, total_pairs) of
     [y, chain_V0, chain_κ, chain_θ, chain_σ, w, y_ρ], each term the fp32
     sum over a pair and its antithetic twin."""
     total = torch.zeros(7, dtype=torch.float64, device=params.device)
-    for pair in _chunks(total_pairs, params.device):
+    for pair in pair_chunks(total_pairs, params.device):
         c, (s, sa) = _tangent_paths(params, dtab, table, pair, steps, True, seed, device_id,
                                     point_offset, N_GREEK_DIRS)
         y, y_iv, y_j, y_rho, w, _ = cond_bs_partials(s[1], s[2], c)
@@ -207,7 +229,7 @@ def heston_qe_mixing_vjp_sums_plain(params, dtab, table, ct, n_paths: int, steps
     """Twin of K11: float64 sums over the paths of the cotangent-weighted
     [chain_V0, chain_κ, chain_θ, chain_σ, chain_T, w, y_ρ, y_K]."""
     total = torch.zeros(8, dtype=torch.float64, device=params.device)
-    for pair in _chunks(n_paths, params.device):
+    for pair in pair_chunks(n_paths, params.device):
         c, states = _tangent_paths(params, dtab, table, pair, steps, antithetic, seed, device_id,
                                    point_offset, N_VJP_DIRS)
         cols = [0.0] * 8
@@ -384,3 +406,239 @@ def heston_qe_mixing_values_diff(
     kw = dict(n_paths=n_paths, steps=steps, seed=seed, antithetic=antithetic,
               device_id=device_id, qmc=qmc, point_offset=point_offset, device=device)
     return _MixingValues.apply(*args, (cp, kw))
+
+
+# ---- surface Jacobian: K12, the surface and its 7-parameter Jacobian ---------------
+
+N_SURF_DIRS = 4  # V0, κ, θ, σ (spot, ρ, rate close analytically)
+N_SURF_COLS = 7  # per point: y, chain × 4, w, y_ρ
+#: constant-tangent columns (θc, e, c_s2_v, c_s2_c) each direction moves
+_SURF_SPARSITY = ((), (1, 2, 3), (0, 3), (2, 3))
+#: shared-memory bytes per expiry of K12: K9's plus the (4, 4) and (4, 3)
+#: tangent rows
+_JAC_EXP_BYTES = SURF_EXP_BYTES + 4 * N_SURF_DIRS * (4 + 3)
+
+QE_SURFACE_JAC_KERNEL = CudaKernel("hh_qe_surface_jacobian", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+])
+
+
+def tan_init_surface(c, shape):
+    """(v, iv, j, dV per direction, dIV per direction) at t = 0."""
+    v = c["v0"].expand(shape)
+    zero = torch.zeros_like(v)
+    dvs = [torch.ones_like(v) if d == 0 else zero for d in range(N_SURF_DIRS)]  # ∂V/∂V0 = 1
+    return v, zero, zero, dvs, [zero] * N_SURF_DIRS
+
+
+def tan_step_surface(state, z, u, c, dct, row0: int):
+    """One surface step with forward tangents.  dIV is carried directly
+    (dIV += half_dt·(dV + dV')): the segments' dt differ, so K10's running
+    sum does not telescope.  ``dct`` rows ``row0 .. row0 + 3`` hold the
+    segment's constant tangents (θc, e, c_s2_v, c_s2_c)."""
+    v, iv, j, dvs, divs = state
+    vn, cm, cs = qe_v_coeffs(v, z, u, c)
+    a_coef = cm * c["e"] + cs * c["c_s2_v"]
+    cols = (cm * (1.0 - c["e"]), cm * (v - c["theta"]), cs * v, cs)
+    half_dt = c["half_dt"]
+    new_dvs, new_divs = [], []
+    for d in range(N_SURF_DIRS):
+        dvn = a_coef * dvs[d]
+        for col in _SURF_SPARSITY[d]:
+            dvn = dvn + cols[col] * dct[row0 + d, col]
+        new_dvs.append(dvn)
+        new_divs.append(divs[d] + half_dt * (dvs[d] + dvn))
+    v, iv, j = mix_update(v, iv, j, vn, c)
+    return v, iv, j, new_dvs, new_divs
+
+
+def surf_dj(state, c, djt, i: int, d: int):
+    """dJ at expiry i in direction d: dV/σ + (κ/σ)·dIV + α·IV + β + γ·J with
+    expiry i's (α, β, γ) (the elapsed time enters β)."""
+    _v, iv, j, dvs, divs = state
+    r = i * N_SURF_DIRS + d
+    return (c["inv_sigma"] * dvs[d] + c["k_over_sigma"] * divs[d] + djt[r, 0] * iv + djt[r, 1]
+            + djt[r, 2] * j)
+
+
+def _surface_jac_pairs_plain(params, dct, djt, table, seg_steps, m, pair, seed, device_id,
+                             point_offset):
+    """(n_exp·m·7, len(pair)) fp32 per-pair sums of each point's columns
+    [y, chain_V0, chain_κ, chain_θ, chain_σ, w, y_ρ], point-major."""
+    n_exp = len(seg_steps)
+    c0 = surf_c(params, 0)
+    s, sa = tan_init_surface(c0, pair.shape), tan_init_surface(c0, pair.shape)
+    draws = mix_draws(pair, sum(seg_steps), table, seed, device_id, point_offset)
+    rows = []
+    for i, steps_i in enumerate(seg_steps):
+        c = surf_c(params, i)
+        for _ in range(steps_i):
+            z, u = next(draws)
+            s = tan_step_surface(s, z, u, c, dct, N_SURF_DIRS * i)
+            sa = tan_step_surface(sa, -z, 1.0 - u, c, dct, N_SURF_DIRS * i)
+        djs = [surf_dj(s, c, djt, i, d) for d in range(N_SURF_DIRS)]
+        djsa = [surf_dj(sa, c, djt, i, d) for d in range(N_SURF_DIRS)]
+        for k in range(m):
+            ck = surf_close(params, c, n_exp, m, i, k)
+            y, y_iv, y_j, y_rho, w, _ = cond_bs_partials(s[1], s[2], ck)
+            ya, ya_iv, ya_j, ya_rho, wa, _ = cond_bs_partials(sa[1], sa[2], ck)
+            rows.append(y + ya)
+            for d in range(N_SURF_DIRS):
+                rows.append(y_iv * s[4][d] + y_j * djs[d] + ya_iv * sa[4][d] + ya_j * djsa[d])
+            rows += [w + wa, y_rho + ya_rho]
+    return torch.stack(rows)
+
+
+def heston_qe_mixing_surface_jac_sums_plain(params, dct, djt, table, seg_steps, m: int,
+                                            total_pairs: int, seed: int, device_id: int,
+                                            point_offset: int) -> torch.Tensor:
+    """Twin of K12: float64 sums over the pairs [0, total_pairs) of each
+    point's seven columns, (n_exp·m·7,)."""
+    total = torch.zeros(len(seg_steps) * m * N_SURF_COLS, dtype=torch.float64,
+                        device=params.device)
+    for pair in pair_chunks(total_pairs, params.device):
+        vals = _surface_jac_pairs_plain(params, dct, djt, table, seg_steps, m, pair, seed,
+                                        device_id, point_offset)
+        total = total + vals.to(torch.float64).sum(dim=1)
+    return total
+
+
+def _surface_greek_tables(kappa, theta, sigma, T_host, seg_steps):
+    """Per-segment constant tangents (n_exp·4, 4) of (θc, e, c_s2_v, c_s2_c)
+    and per-expiry J-closure rows (n_exp·4, 3) of (α, β, γ), directions
+    (V0, κ, θ, σ), float64 numpy: the closed forms of
+    methods/mixing_greeks.greek_tables at segment i's dt and at expiry T_i
+    (the derivatives the JAX package takes with ``jax.jacfwd``)."""
+    from ..methods.mixing_greeks import greek_tables
+
+    dct, djt = [], []
+    for T_i, dt_i in zip(T_host, segment_dts(T_host, seg_steps)):
+        dc, _ = greek_tables(kappa, theta, sigma, dt_i, 1)
+        _, djc = greek_tables(kappa, theta, sigma, T_i, 1)
+        dct.append(dc[:N_SURF_DIRS, :4])
+        djt.append(djc[:N_SURF_DIRS])
+    return torch.cat(dct).numpy(), torch.cat(djt).numpy()
+
+
+def _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, seed, device_id,
+                      point_offset) -> torch.Tensor:
+    """Launch K12 for inputs on a GPU (per-point float64 sums of the seven
+    columns); the twin for inputs on the CPU."""
+    n_exp = len(seg_steps)
+    check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2, QMC_MAX_STEPS)
+    check_tensor(dct, "constant tangents", torch.float32, (N_SURF_DIRS * n_exp, 4))
+    check_tensor(djt, "J-closure rows", torch.float32, (N_SURF_DIRS * n_exp, 3))
+    if params.device.type == "cpu":
+        return heston_qe_mixing_surface_jac_sums_plain(params, dct, djt, table, seg_steps, m,
+                                                       total_pairs, seed, device_id,
+                                                       point_offset)
+    require_cuda(params)
+    grid = surface_grid(params.device)
+    steps = torch.tensor(seg_steps, dtype=torch.int32, device=params.device)
+    n_cols = n_exp * m * N_SURF_COLS
+    partials = torch.empty((n_cols, grid), dtype=torch.float64, device=params.device)
+    out = torch.empty((n_cols,), dtype=torch.float64, device=params.device)
+    QE_SURFACE_JAC_KERNEL.launch(
+        params.device, params.data_ptr(), steps.data_ptr(), dct.data_ptr(), djt.data_ptr(),
+        None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
+        n_exp, m, sum(seg_steps), total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+    )
+    return out
+
+
+def heston_qe_mixing_surface_price_and_jacobian(
+    log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
+    *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
+    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
+):
+    """(surface (n_exp, m), jacobian (n_exp, m, 7)): DISCOUNTED prices and
+    their derivatives in (spot, V0, κ, θ, σ, ρ, flat rate) from ONE pass of
+    forward tangents over the pairs, stream and grid of
+    :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.heston_qe_mixing_surface_price`,
+    so the surface equals that kernel's.  The rate column includes the
+    discount term (``discounts`` must be e^{−r·T_i}).  float64 on the
+    device."""
+    T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
+        T_host, seg_steps, strikes, n_strikes, discounts, n_blocks, n_batches, qmc,
+        point_offset, device)
+    n_exp = len(T_host)
+    dct, djt = (torch.as_tensor(t.astype(np.float32), device=dev)
+                for t in _surface_greek_tables(kappa, theta, sigma, T_host, seg_steps))
+    table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
+    rows = []
+    for sl in strike_chunks(n_exp, n_strikes, N_SURF_COLS,
+                            0 if table is None else table.shape[0], _JAC_EXP_BYTES):
+        params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
+                                              seg_steps, strikes[sl], cp), device=dev)
+        m = len(strikes[sl])
+        sums = _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, int(seed),
+                                 int(device_id), point_offset)
+        rows.append(sums.reshape(n_exp, m, N_SURF_COLS))
+    tot = torch.cat(rows, dim=1) / (2 * total_pairs)
+    D = disc[:, None]
+    T_arr = f64(T_host, device=dev)[:, None]
+    surface = D * tot[:, :, 0]
+    spot = float(np.exp(float(log_s0)))
+    jac = torch.stack([
+        D * tot[:, :, 5] / spot,  # spot (w = ∂Y/∂logS0)
+        D * tot[:, :, 1],  # V0
+        D * tot[:, :, 2],  # kappa
+        D * tot[:, :, 3],  # theta
+        D * tot[:, :, 4],  # sigma
+        D * tot[:, :, 6],  # rho
+        D * tot[:, :, 5] * T_arr - T_arr * surface,  # flat rate, discount term included
+    ], dim=-1)
+    return surface, jac
+
+
+class _SurfacePrice(torch.autograd.Function):
+    """The surface over (log S0, V0, r, κ, θ, σ, ρ): K9 forward, or K12
+    when an input needs a gradient, whose Jacobian the backward contracts."""
+
+    @staticmethod
+    def forward(ctx, log_s0, v0, r, kappa, theta, sigma, rho, opts):
+        inputs = (log_s0, v0, r, kappa, theta, sigma, rho)
+        ctx.metas = [(x.dtype, x.device) for x in inputs]
+        log_s0, v0, r, kappa, theta, sigma, rho = (float(x) for x in inputs)
+        T_host, strikes, carry, kw = opts
+        discounts = [np.exp(-r * t) for t in T_host]
+        args = (log_s0, v0, r - carry, kappa, theta, sigma, rho, T_host, strikes, discounts)
+        if not any(ctx.needs_input_grad[:7]):
+            return heston_qe_mixing_surface_price(*args, **kw)
+        surface, jac = heston_qe_mixing_surface_price_and_jacobian(*args, **kw)
+        ctx.save_for_backward(jac)
+        ctx.spot = float(np.exp(log_s0))
+        return surface
+
+    @staticmethod
+    def backward(ctx, ct):
+        (jac,) = ctx.saved_tensors
+        g = torch.einsum("emp,em->p", jac, ct.to(jac))
+        spot_g, v0_g, k_g, th_g, sig_g, rho_g, r_g = g.unbind()
+        # the Jacobian's spot column is ∂/∂spot; the argument is log S0
+        grads = (spot_g * ctx.spot, v0_g, r_g, k_g, th_g, sig_g, rho_g)
+        return (*(x.to(dtype=dtype, device=dev) for x, (dtype, dev) in zip(grads, ctx.metas)),
+                None)
+
+
+def heston_qe_mixing_surface_price_diff(
+    log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes,
+    *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
+    device_id=0, carry=0.0, device="cuda",
+) -> torch.Tensor:
+    """Differentiable view of the PRNG surface kernel: the primal of
+    :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.heston_qe_mixing_surface_price`
+    and a backward that contracts K12's Jacobian, so ``torch.autograd.grad``
+    of any surface loss runs at kernel speed.  Differentiable in the seven
+    leading scalars (numbers or 0-dim tensors); expiries and strikes are
+    fixed.  ``r`` is the flat short rate: the discounts are e^{−r·T_i} and
+    the simulated drift r − ``carry`` (the dividend yield, fixed), so the
+    rate gradient keeps both terms."""
+    args = tuple(torch.as_tensor(x, dtype=torch.float64)
+                 for x in (log_s0, v0, r, kappa, theta, sigma, rho))
+    kw = dict(seg_steps=seg_steps, n_strikes=n_strikes, n_blocks=n_blocks, n_batches=n_batches,
+              seed=seed, cp=cp, device_id=device_id, device=device)
+    opts = (tuple(float(t) for t in T_host), [float(k) for k in strikes], float(carry), kw)
+    return _SurfacePrice.apply(*args, opts)

@@ -1,10 +1,10 @@
 """QE kernels and their plain PyTorch twins: mixing (K7 values, K8 serving
-price) and the QE-M terminal sampler (K5 terminal prices, K6 serving call
-price).
+price), the QE-M terminal sampler (K5 terminal prices, K6 serving call
+price) and the QE mixing surface (K9, with the surface adapter).
 
-Port of the mixing and terminal parts of
-``hedgehog_tpu/ops/heston_qe_kernel.py``.  For tensors on a GPU the work
-goes to ``csrc/heston_qe.cu`` and ``csrc/heston_qe_terminal.cu``; for tensors
+Port of ``hedgehog_tpu/ops/heston_qe_kernel.py``.  For tensors on a GPU the
+work goes to ``csrc/heston_qe.cu``, ``csrc/heston_qe_terminal.cu`` and
+``csrc/heston_surface.cu``; for tensors
 on the CPU to the float32 twins below, which repeat the kernels' arithmetic:
 the same Sobol' or Philox bits, the same ``ndtri_approx``, the same polished
 reciprocal, the same fp32 guards.  The public functions keep the JAX
@@ -20,6 +20,8 @@ point_offset + n_blocks·n_batches·32768)``.  Under PRNG a mixing pair draws
 Philox block s // 2 at step s (words 0, 1 → Box–Muller, words 2, 3 → the
 even and odd step's uniforms), a QE-M pair block s (words 0, 1 → Box–Muller
 (z_v, z_x), word 2 → u); K6 walks K5's pairs ``[0, n_blocks·n_batches·32768)``.
+A surface (K9, K12) counts its steps across all expiry segments and draws
+step s as a mixing path draws its step s.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from .hh_device import (
     MIX_NAMES,
     QEM_NAMES,
     SOBOL_BITS,
+    SURF_GLOBALS,
+    SURF_PER_SEG,
     box_muller,
     cond_bs_value,
     mix_advance,
@@ -47,6 +51,8 @@ from .hh_device import (
     sobol_masks,
     sobol_table,
     sobol_uniforms_tile,
+    surf_c,
+    surf_close,
 )
 
 __all__ = [
@@ -54,6 +60,10 @@ __all__ = [
     "QE_PRICE_KERNEL",
     "QEM_TERMINAL_KERNEL",
     "QEM_PRICE_KERNEL",
+    "QE_SURFACE_KERNEL",
+    "heston_qe_mixing_surface_price",
+    "heston_qe_mixing_surface_sums_plain",
+    "heston_surface_mc_adapter",
     "heston_qe_mixing_values",
     "heston_qe_mixing_values_adapter",
     "heston_qe_mixing_values_plain",
@@ -109,6 +119,14 @@ def _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp) 
 # ---- the twins ----------------------------------------------------------------
 
 
+def pair_chunks(total: int, device):
+    """The pairs [0, total) in chunks of ``PLAIN_CHUNK`` (the summing twins'
+    unit of work, so that serving sizes fit in memory)."""
+    for start in range(0, total, PLAIN_CHUNK):
+        yield torch.arange(start, min(start + PLAIN_CHUNK, total), dtype=torch.int64,
+                           device=device)
+
+
 def mix_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: int):
     """Yields (z, u) of each step for the pairs ``pair`` (int64 tensor of
     global pair indices), in the kernels' draw order: Sobol' dims (2s, 2s + 1)
@@ -154,9 +172,7 @@ def heston_qe_mixing_price_sum_plain(params, table, total_pairs: int, steps: int
     """Twin of K8: the float64 sum of (value + antithetic value) over the
     pairs ``[0, total_pairs)``, in chunks of ``PLAIN_CHUNK`` pairs."""
     total = torch.zeros((), dtype=torch.float64, device=params.device)
-    for start in range(0, total_pairs, PLAIN_CHUNK):
-        pair = torch.arange(start, min(start + PLAIN_CHUNK, total_pairs), dtype=torch.int64,
-                            device=params.device)
+    for pair in pair_chunks(total_pairs, params.device):
         vals = _qe_pairs_plain(params, table, pair, steps, True, seed, device_id, point_offset)
         total = total + (vals[0] + vals[1]).to(torch.float64).sum()
     return total
@@ -277,6 +293,255 @@ def heston_qe_mixing_vanilla_price(
     return discount * sums / (2 * total_pairs)
 
 
+# ---- QE mixing surface: K9, a whole (expiry × strike) grid per launch ------------
+
+_SURFACE_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
+    ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+]
+QE_SURFACE_KERNEL = CudaKernel("hh_qe_surface", _SURFACE_ARGS)
+#: warps of a surface kernel's block: each keeps a float64 row of per-point sums
+SURFACE_WARPS = 8
+#: dynamic shared memory a surface launch may take; wider grids are split
+#: into strike chunks, each a launch replaying the same pairs
+SURFACE_SMEM_LIMIT = 200 * 1024
+#: shared-memory bytes per expiry of K9: its SurfSeg (8 floats) and step count
+SURF_EXP_BYTES = 36
+
+
+def segment_dts(T_host, seg_steps) -> list:
+    """The step (segment) length of each expiry segment of a surface."""
+    bounds = [0.0, *T_host]
+    return [(bounds[i + 1] - bounds[i]) / steps_i for i, steps_i in enumerate(seg_steps)]
+
+
+def surf_nparams(n_exp: int, m: int) -> int:
+    return len(SURF_GLOBALS) + len(SURF_PER_SEG) * n_exp + n_exp + m + n_exp * m
+
+
+def _surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host, seg_steps, strikes,
+                 cp) -> np.ndarray:
+    """The surface kernels' parameter vector (layout ``SURF_GLOBALS``,
+    ``SURF_PER_SEG`` per segment, f_base per expiry, strikes, log(F/K)
+    point-major): float64 host math, each entry cast once, as the TPU
+    wrapper builds it."""
+    from ..models.heston_qe import qe_constants
+
+    log_s0, v0, r, kappa, theta, sigma, rho, cp = (
+        float(x) for x in (log_s0, v0, r, kappa, theta, sigma, rho, cp))
+    strikes = [float(k) for k in strikes]
+    entries = [v0, theta, 1.0 / sigma, kappa / sigma, rho, 0.5 * rho**2, 1.0 - rho**2, cp]
+    for dt_i in segment_dts(T_host, seg_steps):
+        c = qe_constants(kappa, theta, sigma, rho, r, dt_i)
+        entries += [float(c["e"]), float(c["c_s2_v"]), float(c["c_s2_c"]), 0.5 * dt_i,
+                    kappa * theta * dt_i / sigma]
+    f_bases = [float(np.exp(log_s0 + r * T_i)) for T_i in T_host]
+    entries += f_bases + strikes
+    entries += [np.log(f) - np.log(k) for f in f_bases for k in strikes]
+    return np.array(entries, dtype=np.float64).astype(np.float32)
+
+
+def _qe_surface_pairs_plain(params, table, seg_steps, m, pair, seed, device_id, point_offset):
+    """(n_exp·m, len(pair)) fp32 values, each the sum of a pair's two paths,
+    of every surface point: one variance path per pair through the
+    segments, every strike closed at each segment's end."""
+    n_exp = len(seg_steps)
+    c0 = surf_c(params, 0)
+    v = c0["v0"].expand(pair.shape)
+    iv = j = torch.zeros_like(v)
+    va, iva, ja = v, iv, j
+    draws = mix_draws(pair, sum(seg_steps), table, seed, device_id, point_offset)
+    rows = []
+    for i, steps_i in enumerate(seg_steps):
+        c = surf_c(params, i)
+        for _ in range(steps_i):
+            z, u = next(draws)
+            v, iv, j = mix_advance(v, iv, j, z, u, c)
+            va, iva, ja = mix_advance(va, iva, ja, -z, 1.0 - u, c)
+        for k in range(m):
+            ck = surf_close(params, c, n_exp, m, i, k)
+            rows.append(cond_bs_value(iv, j, ck) + cond_bs_value(iva, ja, ck))
+    return torch.stack(rows)
+
+
+def heston_qe_mixing_surface_sums_plain(params, table, seg_steps, m: int, total_pairs: int,
+                                        seed: int, device_id: int,
+                                        point_offset: int) -> torch.Tensor:
+    """Twin of K9: the float64 sum over the pairs [0, total_pairs) of each
+    point's per-pair fp32 value, (n_exp·m,) point-major."""
+    total = torch.zeros(len(seg_steps) * m, dtype=torch.float64, device=params.device)
+    for pair in pair_chunks(total_pairs, params.device):
+        vals = _qe_surface_pairs_plain(params, table, seg_steps, m, pair, seed, device_id,
+                                       point_offset)
+        total = total + vals.to(torch.float64).sum(dim=1)
+    return total
+
+
+def surface_grid(device: torch.device) -> int:
+    """Blocks of K9 and K12: both walk the pairs with this grid (a whole
+    number of resident waves of each), so K12's surface equals K9's."""
+    return resident_grid("hh_surface_grid", device)
+
+
+def surface_smem_bytes(n_exp: int, m: int, cols_per_point: int, table_rows: int,
+                       per_exp_bytes: int) -> int:
+    """Dynamic shared memory of a surface launch (the layout of
+    csrc/heston_surface.cu and csrc/heston_exact.cu): a float64 row of sums
+    per warp, 28 bytes of close constants per point, ``per_exp_bytes`` per
+    expiry (segment constants, step counts, tangent rows) and the Sobol'
+    table, with alignment slack."""
+    return (8 * SURFACE_WARPS * n_exp * m * cols_per_point + 28 * n_exp * m
+            + per_exp_bytes * n_exp + 4 * (SOBOL_BITS + 1) * table_rows + 64)
+
+
+def strike_chunks(n_exp: int, m: int, cols_per_point: int, table_rows: int,
+                  per_exp_bytes: int) -> list:
+    """Slices of the strikes whose launches fit ``SURFACE_SMEM_LIMIT``."""
+    fixed = surface_smem_bytes(n_exp, 0, cols_per_point, table_rows, per_exp_bytes)
+    per_strike = surface_smem_bytes(n_exp, 1, cols_per_point, 0, 0) - 64
+    width = (SURFACE_SMEM_LIMIT - fixed) // per_strike
+    if width < 1:
+        raise ValueError(
+            f"a surface of {n_exp} expiries with a {table_rows}-row Sobol' table does not fit "
+            f"{SURFACE_SMEM_LIMIT} bytes of shared memory")
+    return [slice(k, min(k + width, m)) for k in range(0, m, width)]
+
+
+def check_surface(params, table, seg_steps, m: int, n_params: int, dims_per_step: int,
+                  max_steps: int) -> None:
+    """Raise on surface inputs the kernels do not take."""
+    check_tensor(params, "params", torch.float32, (n_params,))
+    if not seg_steps or min(seg_steps) < 1 or m < 1:
+        raise ValueError(f"need >= 1 step per segment and >= 1 strike; got {seg_steps}, m={m}")
+    if table is not None:
+        total = sum(seg_steps)
+        if total > max_steps:
+            raise ValueError(f"QMC surface kernels take at most {max_steps} steps; got {total}")
+        check_tensor(table, "sobol table", torch.int32, (dims_per_step * total, SOBOL_BITS + 1))
+        if table.device != params.device:
+            raise ValueError("params and the Sobol' table must be on one device")
+
+
+def _qe_surface_sums(params, table, seg_steps, m, total_pairs, seed, device_id,
+                     point_offset) -> torch.Tensor:
+    """Launch K9 for inputs on a GPU (per-point float64 sums, (n_exp·m,));
+    the twin for inputs on the CPU."""
+    n_exp = len(seg_steps)
+    check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2, QMC_MAX_STEPS)
+    if params.device.type == "cpu":
+        return heston_qe_mixing_surface_sums_plain(params, table, seg_steps, m, total_pairs, seed,
+                                                   device_id, point_offset)
+    require_cuda(params)
+    grid = surface_grid(params.device)
+    steps = torch.tensor(seg_steps, dtype=torch.int32, device=params.device)
+    partials = torch.empty((n_exp * m, grid), dtype=torch.float64, device=params.device)
+    out = torch.empty((n_exp * m,), dtype=torch.float64, device=params.device)
+    QE_SURFACE_KERNEL.launch(
+        params.device, params.data_ptr(), steps.data_ptr(),
+        None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
+        n_exp, m, sum(seg_steps), total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+    )
+    return out
+
+
+def surface_args(T_host, seg_steps, strikes, n_strikes: int, discounts, n_blocks: int,
+                 n_batches: int, qmc: bool, point_offset: int, device):
+    """Normalised surface arguments: (T_host, seg_steps, strikes as floats,
+    discounts (n_exp,) float64 on the device, total pairs, device)."""
+    T_host = tuple(float(t) for t in T_host)
+    seg_steps = tuple(int(s) for s in seg_steps)
+    strikes = [float(k) for k in strikes]
+    if len(strikes) != n_strikes or len(seg_steps) != len(T_host):
+        raise ValueError(f"{len(strikes)} strikes for n_strikes={n_strikes}; {len(seg_steps)} "
+                         f"segment counts for {len(T_host)} expiries")
+    total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    check_period(qmc, point_offset, total_pairs)
+    dev = resolve_device(device)
+    return T_host, seg_steps, strikes, f64(discounts, device=dev), total_pairs, dev
+
+
+def heston_qe_mixing_surface_price(
+    log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
+    *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
+    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
+) -> torch.Tensor:
+    """(n_exp, n_strikes) DISCOUNTED surface prices over
+    n_blocks·n_batches·32768 antithetic QE mixing pairs: one variance path per
+    pair through the expiry segments (``seg_steps`` steps each, the step
+    index running across segments), every strike closed at each expiry.
+    ``T_host``: increasing expiry year fractions; ``discounts``: (n_exp,)
+    discount factors.  Returns float64 on the device."""
+    T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
+        T_host, seg_steps, strikes, n_strikes, discounts, n_blocks, n_batches, qmc,
+        point_offset, device)
+    table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
+    rows = []
+    for sl in strike_chunks(len(T_host), n_strikes, 1, 0 if table is None else table.shape[0],
+                            SURF_EXP_BYTES):
+        params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
+                                              seg_steps, strikes[sl], cp), device=dev)
+        m = len(strikes[sl])
+        rows.append(_qe_surface_sums(params, table, seg_steps, m, total_pairs, int(seed),
+                                     int(device_id), point_offset).reshape(len(T_host), m))
+    return disc[:, None] * (torch.cat(rows, dim=1) / (2 * total_pairs))
+
+
+def heston_surface_mc_adapter(market, expiries, strikes, config, cp=1.0, seed=None,
+                              strategy=None, *, device="cuda") -> torch.Tensor:
+    """Kernel surface with the step allocation of the float64
+    :func:`~hedgehog_tpu_torch.methods.heston_surface.heston_surface_mc`
+    (the counterpart of the JAX ``heston_surface_mc_tpu``).  Antithetic runs
+    go to the kernels: ``strategy=HestonExactMixing()`` to K4, PRNG QE to the
+    differentiable view (K9 forward, K12 when a gradient is wanted), QMC QE
+    to K9; runs without variance reduction to the float64 estimator.
+    ``seed`` overrides ``config.seed``.  Returns (n_exp, m) float64."""
+    import dataclasses
+
+    from ..market.inputs import carry_yield
+    from ..market.rate_curve import df_yf, zero_rate_yf
+    from ..methods.heston_surface import (
+        heston_surface_mc,
+        surface_seg_steps,
+        validate_surface_expiries,
+    )
+    from ..methods.montecarlo import Antithetic, HestonExactMixing
+
+    T_host = validate_surface_expiries(market, expiries)
+    if seed is not None:
+        config = dataclasses.replace(config, seed=seed)
+    dev = resolve_device(device)
+    if not isinstance(config.variance_reduction, Antithetic):
+        return heston_surface_mc(market, expiries, strikes, config, cp=cp, strategy=strategy,
+                                 device=dev)
+    exact = isinstance(strategy, HestonExactMixing)
+    _, seg_steps = surface_seg_steps(T_host, config.steps, min_first=2 if exact else 1)
+    q = f64(carry_yield(market))
+    r0 = zero_rate_yf(market.rate, 0.0) - q
+    n_blocks = max(1, -(-config.trajectories // (PAIRS_PER_BLOCK * 16)))
+    n_batches = -(-config.trajectories // (PAIRS_PER_BLOCK * n_blocks))
+    strikes = [float(k) for k in strikes]
+    kw = dict(seg_steps=tuple(seg_steps), n_strikes=len(strikes), n_blocks=n_blocks,
+              n_batches=n_batches, seed=config.seed, cp=cp, device=dev)
+    log_s0 = torch.log(f64(market.spot))
+    heston = (market.V0, r0, market.kappa, market.theta, market.sigma, market.rho)
+    if exact or config.qmc:
+        from .heston_exact_kernel import heston_exact_mixing_surface_price
+
+        price = heston_exact_mixing_surface_price if exact else heston_qe_mixing_surface_price
+        discounts = torch.stack([df_yf(market.rate, t) for t in T_host])
+        v0, r0, kappa, theta, sigma, rho = (float(x) for x in heston)
+        return price(float(log_s0), v0, r0, kappa, theta, sigma, rho, T_host, strikes,
+                     discounts, qmc=config.qmc, **kw)
+    # the view discounts at e^{-r T_i} and drifts at r - carry: give it the
+    # rate and the carry, so the rate gradient keeps both terms
+    from .heston_qe_greeks_kernel import heston_qe_mixing_surface_price_diff
+
+    v0, r0, kappa, theta, sigma, rho = heston
+    return heston_qe_mixing_surface_price_diff(log_s0, v0, r0 + q, kappa, theta, sigma, rho,
+                                               T_host, strikes, carry=float(q), **kw)
+
+
 def heston_qe_mixing_values_adapter(prob, config, strat, key=None, device_id=0,
                                     point_offset=0, *, device):
     """``MonteCarlo(HestonDynamics(), HestonQE(conditional=True,
@@ -379,9 +644,7 @@ def heston_qe_call_price_sum_plain(params, total_pairs: int, steps: int, seed: i
     them), in chunks of ``PLAIN_CHUNK`` pairs."""
     strike = params[len(QEM_NAMES)]
     total = torch.zeros((), dtype=torch.float64, device=params.device)
-    for start in range(0, total_pairs, PLAIN_CHUNK):
-        pair = torch.arange(start, min(start + PLAIN_CHUNK, total_pairs), dtype=torch.int64,
-                            device=params.device)
+    for pair in pair_chunks(total_pairs, params.device):
         s = _qem_pairs_plain(params, None, pair, steps, True, True, seed, device_id, 0)
         pay = torch.clamp(s - strike, min=0.0)
         total = total + (pay[0] + pay[1]).to(torch.float64).sum()

@@ -44,6 +44,10 @@ __all__ = [
     "qe_v_advance",
     "mix_update",
     "mix_advance",
+    "SURF_GLOBALS",
+    "SURF_PER_SEG",
+    "surf_c",
+    "surf_close",
     "QEM_NAMES",
     "qem_c",
     "qem_advance",
@@ -227,6 +231,34 @@ def mix_update(v, iv, j, vn, c):
 def mix_advance(v, iv, j, z, u, c):
     """One mixing step: QE V-draw, trapezoid IV, J update."""
     return mix_update(v, iv, j, qe_v_advance(v, z, u, c), c)
+
+
+# ---- QE mixing surfaces -----------------------------------------------------------
+
+#: the surface kernels' parameter vector (the TPU kernels' ``_surf_params``):
+#: these globals, then ``SURF_PER_SEG`` for each expiry segment, then one
+#: f_base per expiry, the m strikes, and log(f_base_i / K_k) point-major
+SURF_GLOBALS = ("v0", "theta", "inv_sigma", "k_over_sigma", "rho", "rho2_half", "rho_bar2", "cp")
+SURF_PER_SEG = ("e", "c_s2_v", "c_s2_c", "half_dt", "ktd_over_sigma")
+
+
+def surf_c(params: torch.Tensor, i: int) -> dict:
+    """Segment i's step constants merged with the globals (the TPU kernels'
+    ``_surf_c``; csrc/hh_device.cuh ``SurfSeg``)."""
+    vals = params.unbind()
+    base = len(SURF_GLOBALS) + len(SURF_PER_SEG) * i
+    c = dict(zip(SURF_GLOBALS, vals))
+    c.update(zip(SURF_PER_SEG, vals[base:base + len(SURF_PER_SEG)]))
+    return c
+
+
+def surf_close(params: torch.Tensor, c: dict, n_exp: int, m: int, i: int, k: int) -> dict:
+    """Point (i, k)'s close constants over segment constants ``c``: f_base of
+    expiry i, strike k, log(f_base_i / K_k) (csrc/hh_device.cuh
+    ``CloseParams``)."""
+    f_off = len(SURF_GLOBALS) + len(SURF_PER_SEG) * n_exp
+    return dict(c, f_base=params[f_off + i], strike=params[f_off + n_exp + k],
+                log_f_over_k=params[f_off + n_exp + m + i * m + k])
 
 
 # ---- QE-M terminal sampler ------------------------------------------------------

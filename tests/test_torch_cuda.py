@@ -216,3 +216,73 @@ def test_terminal_solves_on_cuda_run_the_kernels(gpu):
                                                                           before[1] + 1)
     sol = ht.solve(bs, ht.MonteCarlo(config=cfg))
     assert sol.ensemble.device.type == "cuda" and math.isfinite(float(sol.price))
+
+
+SURF_T = (182 / 365, 366 / 365, 731 / 365)
+SURF_K = (85.0, 95.0, 100.0, 105.0, 120.0)
+SURF_D = tuple(math.exp(-0.03 * t) for t in SURF_T)
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_surface_kernels_match_twins(gpu, qmc):
+    """K9, K4 and K12 at the 3 × 5 grid against their twins (each point
+    within rel 1e-5: the same fp32 per-pair values summed per warp into
+    float64 against the twin's float64 sums, with the tails of the fp32
+    normal CDF rounding differently on the card; K12's columns within 1e-5
+    of the largest plus 1e-5 of each, as K10); K12's surface equal to K9's
+    to the bit; one-expiry K9 and K4 against K8 and K3 within rel 1e-6."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    qe_seg, ex_seg, pairs = (8, 8, 16), (2, 1, 2), 2 * qk.PAIRS_PER_BLOCK
+    kernels = (qk.QE_SURFACE_KERNEL, gk.QE_SURFACE_JAC_KERNEL, ek.EXACT_SURFACE_KERNEL)
+    before = [k.launches for k in kernels]
+    kw = dict(n_strikes=5, n_blocks=2, n_batches=1, seed=5, qmc=qmc, device=gpu)
+    s9 = qk.heston_qe_mixing_surface_price(*MKT, SURF_T, SURF_K, SURF_D, seg_steps=qe_seg, **kw)
+    s12, jac = gk.heston_qe_mixing_surface_price_and_jacobian(*MKT, SURF_T, SURF_K, SURF_D,
+                                                              seg_steps=qe_seg, **kw)
+    s4 = ek.heston_exact_mixing_surface_price(*MKT, SURF_T, SURF_K, SURF_D, seg_steps=ex_seg, **kw)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    assert torch.equal(s9, s12) and bool(torch.isfinite(jac).all())
+    cpu = dict(kw, device="cpu")
+    torch.testing.assert_close(s9.cpu(), qk.heston_qe_mixing_surface_price(
+        *MKT, SURF_T, SURF_K, SURF_D, seg_steps=qe_seg, **cpu), rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(s4.cpu(), ek.heston_exact_mixing_surface_price(
+        *MKT, SURF_T, SURF_K, SURF_D, seg_steps=ex_seg, **cpu), rtol=1e-5, atol=0.0)
+    _, want = gk.heston_qe_mixing_surface_price_and_jacobian(*MKT, SURF_T, SURF_K, SURF_D,
+                                                             seg_steps=qe_seg, **cpu)
+    scale = want.abs().amax(dim=(0, 1), keepdim=True)
+    assert ((jac.cpu() - want).abs() <= 1e-5 * scale + 1e-5 * want.abs()).all()
+    one = dict(n_blocks=2, n_batches=1, seed=5, qmc=qmc, device=gpu)
+    k8 = qk.heston_qe_mixing_vanilla_price(*MKT, T / QE_STEPS, 100.0, 1.0, steps=QE_STEPS, **one)
+    k9 = qk.heston_qe_mixing_surface_price(*MKT, [T], [100.0], [1.0], seg_steps=(QE_STEPS,),
+                                           n_strikes=1, **one)
+    assert float(k9[0, 0]) == pytest.approx(float(k8), rel=1e-6)
+    k3 = ek.heston_exact_mixing_vanilla_price(*MKT, T / 2, 100.0, 1.0, segments=2, **one)
+    k4 = ek.heston_exact_mixing_surface_price(*MKT, [T], [100.0], [1.0], seg_steps=(2,),
+                                              n_strikes=1, **one)
+    assert float(k4[0, 0]) == pytest.approx(float(k3), rel=1e-6)
+
+
+def test_surface_adapter_on_cuda_is_differentiable(gpu):
+    """The PRNG QE surface through the adapter launches K12 under a gradient
+    request, and its gradient is K12's jacᵀ·ct."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+              for x in (100.0, 0.04, 2.0, 0.04, 0.3, -0.7, 0.03)]
+    spot, v0, kappa, theta, sigma, rho, r = leaves
+    market = ht.HestonInputs(dt.date(2024, 1, 1), r, spot, v0, kappa, theta, sigma, rho)
+    expiries = [dt.date(2024, 7, 1), dt.date(2025, 1, 1)]
+    cfg = ht.SimulationConfig(2 * 32768, 8, ht.Antithetic(), 0, False)
+    before = gk.QE_SURFACE_JAC_KERNEL.launches
+    surf = qk.heston_surface_mc_adapter(market, expiries, [95.0, 105.0], cfg, device="cuda")
+    grads = torch.stack(torch.autograd.grad(surf.sum(), leaves))
+    assert gk.QE_SURFACE_JAC_KERNEL.launches == before + 1
+    _, jac = gk.heston_qe_mixing_surface_price_and_jacobian(
+        math.log(100.0), 0.04, 0.03, 2.0, 0.04, 0.3, -0.7, [182 / 365, 366 / 365], [95.0, 105.0],
+        [math.exp(-0.03 * 182 / 365), math.exp(-0.03 * 366 / 365)], seg_steps=(4, 4),
+        n_strikes=2, n_blocks=1, n_batches=2, seed=0, device="cuda")
+    torch.testing.assert_close(grads, jac.sum(dim=(0, 1)).cpu(), rtol=1e-10, atol=1e-12)
