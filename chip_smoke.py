@@ -45,9 +45,22 @@ per point, autograd of a least-squares surface loss against K12's jacᵀ·ct,
 and a damped Gauss-Newton recovery driven by K12; phase 4 times 6 serving
 dispatches of each surface kernel.
 
+The rough-Bergomi path (bench.py's rbergomi_kernel market, 64 steps) has
+its own phases too: in phase 2 K14 (values), K15 (serving price), K16
+(price + 6 greeks; its price equal to K15's to the bit) and K17 (the values
+VJP) against their twins at 2^20 pairs on both streams, autograd through
+K14 -> K17 against K16, and K15/K16 at the serving 2^24 pairs against the
+chunked twins; phase 3 drives ``solve`` with RoughBergomiMixing(use_kernel
+=True) at 2^22 pairs against the three checks that stand in for a closed
+form (eta = 0 against Black-Scholes, put-call parity, the float64 estimator
+on the card) and autograd through it against K16; phase 4 times 6 serving
+dispatches of K15 and K16 (the greek-vector / price ratio) and holds K16's
+spot, xi0 and rate greeks against central differences of K15.
+
 The launch counters are reset just before phase 3 and read after phase 4,
-once for the main path and once for the surface path; a kernel of a path
-with no launch in its window fails the run.  Each
+once for the main path, once for the surface path and once for the
+rough-Bergomi path; a kernel of a path with no launch in its window fails
+the run.  Each
 kernel's record carries its bound: the least time the card could take for
 the operations and bytes of the timed call (see ``work``), and where one
 PyTorch call computes the same function (K13: ``Tensor.log_normal_``) that
@@ -84,6 +97,13 @@ BP_CONTRACT = 5.0
 # threshold (a Poisson count, the |eta| < 0.5 series switch) and differ more.
 VALUES_TOL = dict(rel=1e-4, floor=1e-3, share=0.999)
 MEAN_RTOL = 1e-6  # the same ulp-level noise averaged over 2^21 values
+# rough Bergomi: the kernel sums a Z row's up to 2n = 128 terms with FMAs in
+# its own order, the twin through cuBLAS: Z moves by ~1e-6, e^{eta Z} (eta =
+# 1.9) and an out-of-the-money close amplify it to 1e-4 on a share of paths
+# (0.84% beyond 1e-4 on the card at 2^17 pairs; at 2^20 pairs 0.999042 of
+# the QMC values and 0.999243 of the PRNG values within 1e-3); the means
+# within MEAN_RTOL
+RB_VALUES_TOL = dict(rel=1e-3, floor=1e-3, share=0.998)
 PRICE_RTOL = 1e-6  # K3 sums the values K2 returns, in another order
 EULER_ALLOWANCE_BP = 10.0  # O(dt) full-truncation bias at 100 steps: a few bp
 EXACT_ALLOWANCE_BP = 1.0  # sub-bp scheme bias of 2 exact segments, plus fp32
@@ -137,6 +157,25 @@ GN_EXPIRIES = (dt.date(2024, 7, 1), dt.date(2025, 1, 1))
 GN_STRIKES = (85.0, 95.0, 100.0, 105.0, 115.0)
 GN_STEPS, GN_BLOCKS, GN_BATCHES, GN_ITERS = 16, 64, 4, 12
 
+# The rough-Bergomi path: bench.py's serving metric rbergomi_kernel
+# (bench.py:668-713): xi0 0.04, eta 1.9, H 0.08, rho -0.9, a call K = 100
+# expiring 2024-12-31, 64 steps, 128 x 64 blocks of 2048 pairs = 2^24 pairs
+RB_MARKET = dict(xi0=0.04, eta=1.9, hurst=0.08, rho=-0.9)
+RB_EXPIRY = dt.date(2024, 12, 31)
+RB_STEPS = 64
+RB_BLOCKS, RB_BATCHES = 128, 64
+RB_F64_PAIRS = 2**20  # the float64 estimator materialises (2, 128, pairs) doubles: 2 GB
+# the kernel route against the float64 estimator on the same QMC points: fp32
+# and the approximate ndtri against float64 and the exact one, amplified per
+# path by e^{eta Z} (eta 1.9); the means within a tenth of a basis point
+RB_F64_TOL = dict(rel=1e-2, floor=1e-3, share=0.999)
+RB_F64_MEAN_RTOL = 1e-5
+RB_ETA0_ALLOWANCE_BP = 0.1
+# the serving greeks against central differences of K15 on the same stream
+# (tests/unit/test_rbergomi_kernel.py:194-196)
+RB_FD_CHECKS = (("spot", 0.2, 2e-3), ("xi0", 1e-4, 1e-4), ("rate", 1e-4, 1e-3))
+TPU_RB_SERVING = "76 ms per 2^24-pair dispatch, 4.4e8 paths/s (SERVING_METRICS.json:77-83, TPU v5e)"
+
 
 class PhaseError(RuntimeError):
     pass
@@ -172,22 +211,26 @@ MARKET_ARGS = (math.log(SPOT), HESTON["V0"], R, HESTON["kappa"], HESTON["theta"]
 PARAMS7 = (SPOT, HESTON["V0"], HESTON["kappa"], HESTON["theta"], HESTON["sigma"], HESTON["rho"], R)
 
 
-def compare_values(name: str, got, want) -> float:
-    """Per-path check of a kernel's values against its twin's; returns the
+def compare_values(name: str, got, want, tol=None, mean_rtol: float = MEAN_RTOL) -> float:
+    """Per-path check of a kernel's values against its twin's (``tol``:
+    ``VALUES_TOL`` unless given), the means within ``mean_rtol``; returns the
     largest absolute difference."""
     import torch
 
+    tol = tol or VALUES_TOL
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
     diff = (got.double() - want.double()).abs()
-    scale = want.double().abs().clamp(min=VALUES_TOL["floor"])
-    share = float((diff / scale <= VALUES_TOL["rel"]).double().mean())
+    scale = want.double().abs().clamp(min=tol["floor"])
+    share = float((diff / scale <= tol["rel"]).double().mean())
     mean_rel = abs(float(got.double().mean() / want.double().mean()) - 1.0)
     max_abs = float(diff.max())
-    say(f"  {name}: {share:.6f} of {got.numel()} values within rel {VALUES_TOL['rel']:g} "
-        f"(floor {VALUES_TOL['floor']:g}); mean rel diff {mean_rel:.3e}; max abs diff {max_abs:.3e}")
-    check(share >= VALUES_TOL["share"], f"{name}: only {share:.6f} of values within tolerance")
-    check(mean_rel <= MEAN_RTOL, f"{name}: mean differs by {mean_rel:.3e} > {MEAN_RTOL:g}")
+    worst = int(diff.argmax())
+    say(f"  {name}: {share:.6f} of {got.numel()} values within rel {tol['rel']:g} "
+        f"(floor {tol['floor']:g}); mean rel diff {mean_rel:.3e}; max abs diff {max_abs:.3e} "
+        f"(kernel {float(got.reshape(-1)[worst]):.8g}, twin {float(want.reshape(-1)[worst]):.8g})")
+    check(share >= tol["share"], f"{name}: only {share:.6f} of values within tolerance")
+    check(mean_rel <= mean_rtol, f"{name}: mean differs by {mean_rel:.3e} > {mean_rtol:g}")
     return max_abs
 
 
@@ -216,7 +259,7 @@ def compare_vectors(name: str, got, want, rtol: float) -> float:
 # what this run's data needs (the QE draw: the exponential branch with
 # u <= p; the exact segment: no Poisson trip, the large-argument Bessel
 # ratio, the short gamma-quantile series).  K10 and K11 count their primal
-# only.  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
+# only; K16 and K17 their tangents too.  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
 # operations per clock per SM on 132 SMs, 3.35 TB/s.
 FP32_PEAK, MEM_PEAK, SMS, MUFU_PER_CLK = 67e12, 3.35e12, 132, 16
 
@@ -250,7 +293,7 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     on ``pairs`` antithetic pairs and ``steps`` steps (segments for K2/K3;
     for the surfaces K4/K9/K12 the steps or segments of all expiry segments
     and ``points`` (expiry, strike) points, each closed twice per pair);
-    bytes count each output written once (K11: its cotangent read once)."""
+    bytes count each output written once (K11, K17: the cotangent read once)."""
     mix_draw = _ops((2, SOBOL_U), NDTRI, (1, 0)) if qmc else _ops((0.5, BOX_MULLER), (2, 0))
     mix = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (2, CLOSE))
     qem_draw = _ops((3, SOBOL_U), (2, NDTRI), (1, 0)) if qmc else _ops(BOX_MULLER, (2, 0))
@@ -260,6 +303,16 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     surf_qe = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (points, _ops((2, CLOSE), (1, 0))))
     surf_exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))),
                       (points, _ops((2, _ops((3, 0), CLOSE)), (1, 0))))
+    # rough Bergomi: the draws of 2n - 1 normals, the product's n(n - 1)
+    # nonzero FMAs and n increments, per step and group exp/sqrt (+) or two
+    # rcp (mirror) and the left-point sums, two closes; the greek kernels add
+    # the second product, the tangent sums and the partials
+    rb_draw = (_ops((2 * steps - 1, SOBOL_U), (2 * steps - 1, NDTRI)) if qmc
+               else _ops((steps, BOX_MULLER)))
+    rb_product = (2 * steps * (steps - 1) + steps, 0)
+    rb_step = _ops((11, 0), EXP, SQRT, (2, RCP))
+    rb = _ops(rb_draw, rb_product, (steps - 1, rb_step), (2, _ops((4, 0), CLOSE)))
+    rb_tan = _ops(rb, rb_product, (steps - 1, (26, 0)), (2, _ops((24, 0), EXP)))
     surfaces = {  # per pair; bytes: one float64 per point and column, written once
         "heston_qe_mixing_surface_price": (surf_qe, 8 * points),
         "heston_exact_mixing_surface_price": (surf_exact, 8 * points),
@@ -279,6 +332,10 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
         "heston_qe_terminal": (qem, 8),
         "heston_qe_call_price": (_ops(qem, (5, 0)), 0),
         "gbm_exact_terminal": (_ops((0.5, BOX_MULLER), (4, 0), (2, EXP)), 8),
+        "rbergomi_mixing_values": (rb, 8),
+        "rbergomi_mixing_vanilla_price": (_ops(rb, (2, 0)), 0),
+        "rbergomi_mixing_price_and_greeks": (_ops(rb_tan, (12, 0)), 0),
+        "_rb_values_vjp": (_ops(rb_tan, (28, 0)), 8),
     }[name]
     return per_pair[0] * pairs, per_pair[1] * pairs, out_bytes * pairs
 
@@ -1429,6 +1486,407 @@ def phase_surface_serving(cm_surf, device: str) -> dict:
     return out
 
 
+def rb_problem(cp: str = "call", eta=None, rho=None):
+    """The rough-Bergomi serving problem (bench.py:681-683), optionally at
+    another eta or rho (floats or 0-dim tensors)."""
+    import hedgehog_tpu_torch as ht
+
+    m = dict(RB_MARKET, **{k: v for k, v in (("eta", eta), ("rho", rho)) if v is not None})
+    market = ht.RoughBergomiInputs(REF, R, SPOT, m["xi0"], m["eta"], m["hurst"], m["rho"])
+    payoff = ht.VanillaOption(STRIKE, RB_EXPIRY, ht.European(),
+                              ht.Call() if cp == "call" else ht.Put(), ht.Spot())
+    return ht.PricingProblem(payoff, market)
+
+
+def rb_config(pairs: int, qmc: bool, seed: int = 0):
+    import hedgehog_tpu_torch as ht
+
+    return ht.SimulationConfig(pairs, RB_STEPS, ht.Antithetic(), seed, qmc)
+
+
+def rb_device_inputs(pairs: int, qmc: bool, seed: int, device, tangent: bool, vjp: bool = False):
+    """(host trace, RbInputs on the device) of the serving problem: the price
+    trace, or with ``tangent`` the greek trace (dL/dH and the tangent
+    parameters; the VJP's Hη and 1/T too when ``vjp``)."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    cfg = rb_config(pairs, qmc, seed)
+    trace = (rk._rb_greek_trace_inputs if tangent else rk._rb_trace_inputs)(rb_problem(), cfg, 64)
+    return trace, rk.rb_inputs_from_trace(trace, seed=seed, qmc=qmc, device=device,
+                                          hurst=RB_MARKET["hurst"] if vjp else None)
+
+
+def phase_rb_kernels(pairs: int, device: str) -> dict:
+    """K14-K17 against their plain twins on the card at ``pairs`` antithetic
+    pairs x 64 steps, both streams: K14 per path, K15 against K14's mean,
+    K16's price equal to K15's, K16 and K17 sums against their twins,
+    autograd through K14 -> K17 against K16's greeks.  Returns the kernels'
+    records (PRNG stream, without launch counts)."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    say(f"phase 2 (rough Bergomi): K14-K17 against their plain twins at {pairs} antithetic pairs "
+        f"x {RB_STEPS} steps")
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "the twins' Volterra product must run in full fp32 (allow_tf32 is set)")
+    say("  torch.backends.cuda.matmul.allow_tf32 is False: the twins' torch.matmul runs in full "
+        "fp32")
+    say(f"  tolerance: K14 per path >= {RB_VALUES_TOL['share']} within rel {RB_VALUES_TOL['rel']:g} "
+        f"and the means within rel {MEAN_RTOL:g} (the kernel sums a Z row's terms in its own "
+        f"order with FMAs, the twin through cuBLAS; exp(eta Z) and the close amplify the "
+        f"difference); K15 against the mean of K14 over the same points within rel {PRICE_RTOL:g}; "
+        f"K16's price equal to K15's; K16 and K17 sums within {SUM_RTOL:g} of the largest plus "
+        f"{SUM_RTOL:g} of each; autograd K14 -> K17 against K16 within {AUTOGRAD_RTOL:g} likewise")
+    dev = torch.device(device)
+    n_blocks, n_batches = pairs // rk.PAIRS_PER_BLOCK, 1
+    check(n_blocks * n_batches * rk.PAIRS_PER_BLOCK == pairs, "K15 shape must cover the K14 points")
+    price_kw = dict(n_blocks=n_blocks, n_batches=n_batches, steps=RB_STEPS, seed=5, device=dev)
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=dev, dtype=torch.float32))).reshape(
+        2, pairs)
+    records = {}
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        ins, inp = rb_device_inputs(pairs, qmc, 5, dev, tangent=False)
+        g_ins, g_inp = rb_device_inputs(pairs, qmc, 5, dev, tangent=True)
+        _, v_inp = rb_device_inputs(pairs, qmc, 5, dev, tangent=True, vjp=True)
+        disc = ins.discount
+
+        got = rk.rbergomi_mixing_values(*ins.values_args(), n_paths=pairs, steps=RB_STEPS, seed=5,
+                                        antithetic=True, qmc=qmc, device=dev)
+        torch.cuda.synchronize()
+        want = rk.rbergomi_mixing_values_plain(inp, pairs, True, 5, 0, 0)
+        err14 = compare_values(f"K14 rbergomi_mixing_values ({stream})", got, want, RB_VALUES_TOL)
+        ms14 = time_ms(lambda: rk._rb_values(inp, pairs, True, 5, 0, 0))
+        plain14 = time_ms(lambda: rk.rbergomi_mixing_values_plain(inp, pairs, True, 5, 0, 0),
+                          reps=2)
+
+        price = float(rk.rbergomi_mixing_vanilla_price(*ins.price_args(), qmc=qmc, **price_kw))
+        mean = disc * float(got.double().mean())
+        err15 = abs(price - mean)
+        say(f"  K15 rbergomi_mixing_vanilla_price ({stream}): {price:.10f} vs K14 mean {mean:.10f}, "
+            f"rel {err15 / abs(mean):.3e}")
+        check(math.isfinite(price) and err15 <= PRICE_RTOL * abs(mean),
+              f"K15 ({stream}) disagrees with the K14 mean by {err15 / abs(mean):.3e}")
+        ms15 = time_ms(lambda: rk._rb_price_sum(inp, pairs, 5, 0, 0))
+        plain15 = time_ms(lambda: rk.rbergomi_mixing_price_sum_plain(inp, pairs, 5, 0, 0), reps=2)
+
+        g_price, greeks = rk.rbergomi_mixing_price_and_greeks(*g_ins, qmc=qmc, **price_kw)
+        say(f"  K16 price {float(g_price)!r} vs K15 price {price!r}: "
+            f"{'bit-identical' if float(g_price) == price else 'DIFFERENT'}")
+        check(float(g_price) == price, f"K16 ({stream}) price differs from K15's")
+        sums = rk._rb_greek_sums(g_inp, pairs, 5, 0, 0)
+        want16 = rk.rbergomi_mixing_greek_sums_plain(g_inp, pairs, 5, 0, 0)
+        compare_vectors(f"K16 sums against the twin ({stream})", sums, want16, SUM_RTOL)
+        err16 = disc * float(((sums - want16) / (2 * pairs)).abs().max())
+        say(f"  K16 greeks {dict(zip(rk.GREEK_ORDER_RB, (round(float(x), 8) for x in greeks)))}")
+        ms16 = time_ms(lambda: rk._rb_greek_sums(g_inp, pairs, 5, 0, 0))
+        plain16 = time_ms(lambda: rk.rbergomi_mixing_greek_sums_plain(g_inp, pairs, 5, 0, 0),
+                          reps=2)
+
+        sums17 = rk._rb_vjp_sums(v_inp, ct, pairs, True, 5, 0, 0)
+        want17 = rk.rbergomi_mixing_vjp_sums_plain(v_inp, ct, pairs, True, 5, 0, 0)
+        compare_vectors(f"K17 sums against the twin ({stream})", sums17, want17, SUM_RTOL)
+        err17 = float(((sums17 - want17) / (2 * pairs)).abs().max())
+        ms17 = time_ms(lambda: rk._rb_vjp_sums(v_inp, ct, pairs, True, 5, 0, 0))
+        plain17 = time_ms(lambda: rk.rbergomi_mixing_vjp_sums_plain(v_inp, ct, pairs, True, 5, 0,
+                                                                     0), reps=2)
+        for name, ms, plain in (("K14", ms14, plain14), ("K15", ms15, plain15),
+                                ("K16", ms16, plain16), ("K17", ms17, plain17)):
+            say(f"  {name} ({stream}): kernel {ms:.4f} ms, plain twin {plain:.4f} ms")
+
+        # autograd of D·mean(values) through the view (K14 forward, K17
+        # backward) against K16's greeks on the same pairs
+        T = g_ins.horizon
+        leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+                  for x in (SPOT, RB_MARKET["xi0"], RB_MARKET["eta"], RB_MARKET["hurst"],
+                            RB_MARKET["rho"], R)]
+        spot, xi0, eta, hurst, rho, r = leaves
+        vals = rk.rbergomi_mixing_values_diff(spot, xi0, eta, hurst, rho, r, T, STRIKE, 1.0,
+                                              n_paths=pairs, steps=RB_STEPS, seed=5,
+                                              antithetic=True, qmc=qmc, device=dev)
+        g = torch.autograd.grad(torch.exp(-r * T).to(dev) * vals.double().mean(), leaves)
+        ad = torch.stack([g[0], g[1], g[2], g[4], g[3], g[5]])  # GREEK_ORDER_RB
+        compare_vectors(f"autograd K14 -> K17 against K16 greeks ({stream})", ad, greeks,
+                        AUTOGRAD_RTOL)
+        if qmc:
+            continue
+        src = "hedgehog_tpu_torch/csrc/rbergomi.cu"
+        for name, line, err, ms, plain in (
+                ("rbergomi_mixing_values", 235, err14, ms14, plain14),
+                ("rbergomi_mixing_vanilla_price", 339, err15, ms15, plain15),
+                ("rbergomi_mixing_price_and_greeks", 613, err16, ms16, plain16),
+                ("_rb_values_vjp", 923, err17, ms17, plain17)):
+            records[name] = dict(source=src, replaces=f"hedgehog_tpu/ops/rbergomi_kernel.py:{line}",
+                                 max_abs_err=err, ms=ms, plain_ms=plain)
+    return records
+
+
+def phase_rb_shapes(device: str) -> dict:
+    """Each kernel against its plain twin at the shape the rough-Bergomi path
+    gives it, with the tolerances of phase_rb_kernels: K14 and K17 at
+    solve's (and autograd's) pairs on both streams, seed 0 as ``solve`` draws
+    them, K17 under the cotangent of solve's backward (discount / (2 pairs)
+    on every value); K15 and K16 at the serving shape (2^24 pairs, the
+    serving PRNG stream) against their chunked twins.  Returns each kernel's
+    largest absolute difference (values; price; greek or gradient sums in
+    price units)."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
+    seed = SERVING_CHECK_SEED
+    say(f"phase 2 (rough-Bergomi path shapes): K14 and K17 at {SOLVE_PAIRS} pairs x {RB_STEPS} "
+        f"steps (seed 0, both streams; K17 under solve's cotangent); K15 and K16 at {pairs} pairs "
+        f"(PRNG seed {seed}) against the chunked twins ({rk.PLAIN_CHUNK} pairs a chunk)")
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    e14, e17 = [], []
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        ins, inp = rb_device_inputs(SOLVE_PAIRS, qmc, 0, dev, tangent=False)
+        got = rk.rbergomi_mixing_values(*ins.values_args(), n_paths=SOLVE_PAIRS, steps=RB_STEPS,
+                                        seed=0, antithetic=True, qmc=qmc, device=dev)
+        want = rk.rbergomi_mixing_values_plain(inp, SOLVE_PAIRS, True, 0, 0, 0)
+        e14.append(compare_values(f"K14 ({stream}, {SOLVE_PAIRS} pairs)", got, want,
+                                  RB_VALUES_TOL))
+        del got, want
+        _, v_inp = rb_device_inputs(SOLVE_PAIRS, qmc, 0, dev, tangent=True, vjp=True)
+        ct = torch.full((2, SOLVE_PAIRS), ins.discount / (2 * SOLVE_PAIRS), dtype=torch.float32,
+                        device=dev)
+        sums = rk._rb_vjp_sums(v_inp, ct, SOLVE_PAIRS, True, 0, 0, 0)
+        want = rk.rbergomi_mixing_vjp_sums_plain(v_inp, ct, SOLVE_PAIRS, True, 0, 0, 0)
+        e17.append(compare_vectors(f"K17 sums under solve's cotangent ({stream}, {SOLVE_PAIRS} "
+                                   f"pairs)", sums, want, SUM_RTOL))
+    t1 = time.perf_counter()
+    ins, inp = rb_device_inputs(pairs, False, seed, dev, tangent=False)
+    _, g_inp = rb_device_inputs(pairs, False, seed, dev, tangent=True)
+    disc = ins.discount
+    got, want = rk._rb_price_sum(inp, pairs, seed, 0, 0), rk.rbergomi_mixing_price_sum_plain(
+        inp, pairs, seed, 0, 0)
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    say(f"  K15 sum: {float(got)!r} vs twin {float(want)!r}, rel {rel:.3e} (limit {PRICE_RTOL:g})")
+    check(math.isfinite(float(got)) and rel <= PRICE_RTOL, f"K15 at {pairs} pairs: rel {rel:.3e}")
+    sums = rk._rb_greek_sums(g_inp, pairs, seed, 0, 0)
+    check(float(sums[0]) == float(got), "K16's price sum differs from K15's at the serving shape")
+    want16 = rk.rbergomi_mixing_greek_sums_plain(g_inp, pairs, seed, 0, 0)
+    compare_vectors(f"K16 sums ({pairs} pairs)", sums, want16, SUM_RTOL)
+    say(f"  phase took {time.perf_counter() - t0:.1f} s (K14 and K17 {t1 - t0:.1f} s)")
+    return {"rbergomi_mixing_values": max(e14), "_rb_values_vjp": max(e17),
+            "rbergomi_mixing_vanilla_price": disc * abs(float(got) - float(want)) / (2 * pairs),
+            "rbergomi_mixing_price_and_greeks": disc * float(((sums - want16) / (2 * pairs))
+                                                             .abs().max())}
+
+
+def phase_rb_occupancy(device: str) -> dict:
+    """The resident blocks per SM of K15 (the grid K15 and K16 walk, from the
+    library's occupancy query) on each stream, beside the shared memory a
+    block holds: a pair's ξ column per thread (csrc/rbergomi.cu rb_smem),
+    plus the Sobol' table under QMC."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    dev = torch.device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads = 64  # csrc/rbergomi.cu kThreads
+    out = {}
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        _, inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=False)
+        per_sm = rk.price_grid(inp) // sms
+        smem = 4 * (RB_STEPS + rk.zcols(RB_STEPS)) * threads + (
+            4 * int(inp.table.numel()) if qmc else 0)
+        say(f"  K15 occupancy ({stream}, {RB_STEPS} steps): {per_sm} blocks of {threads} threads "
+            f"per SM = {per_sm * threads // 32} warps of 64 ({smem / 1024:.1f} KB of shared "
+            f"memory a block)")
+        out[stream] = dict(blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
+                           smem_bytes=smem)
+    return out
+
+
+def rb_se(values, pairs: int, disc: float) -> float:
+    """The standard error of a mixing price from its (2, pairs) ensemble."""
+    return disc * float(values.mean(dim=0).std()) / math.sqrt(pairs)
+
+
+def phase_rb_path(device: str) -> dict:
+    """``solve`` with RoughBergomiMixing(use_kernel=True) on the card at
+    2^22 pairs x 64 steps, QMC and PRNG, against the three checks that stand
+    in for the missing closed form: eta = 0 against Black-Scholes at
+    sigma = sqrt(xi0); put-call parity; the float64 estimator on the card
+    (use_kernel=False, QMC, 2^20 pairs); then autograd through the
+    kernel-backed solve against K16.  Returns the prices and errors."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs = SOLVE_PAIRS
+    say(f"phase 3 (rough Bergomi): solve on {device}, RoughBergomiMixing(use_kernel=True), "
+        f"{pairs} pairs x {RB_STEPS} steps; no closed form (benchmarks/rbergomi_bench.py:5-6)")
+    kernel = ht.RoughBergomiMixing(use_kernel=True)
+    disc = float(ht.df(rb_problem().market_inputs.rate, RB_EXPIRY))
+    T = float(ht.yearfrac(REF, RB_EXPIRY))
+    out = {}
+
+    def solve(prob, strat, cfg):
+        t0 = time.perf_counter()
+        sol = ht.solve(prob, ht.MonteCarlo(ht.RoughBergomiDynamics(), strat, cfg, device=device))
+        price = float(sol.price)
+        ens = sol.ensemble
+        check(ens.shape == (2, cfg.trajectories) and ens.device.type == torch.device(device).type
+              and bool(torch.isfinite(ens).all()), f"rough Bergomi solve: ensemble {tuple(ens.shape)}")
+        return price, ens, time.perf_counter() - t0
+
+    sigma = math.sqrt(RB_MARKET["xi0"])
+    bs = float(ht.solve(ht.PricingProblem(rb_problem().payoff, ht.BlackScholesInputs(REF, R, SPOT,
+                                                                                      sigma)),
+                        ht.BlackScholesAnalytic()).price)
+    f64_price, f64_ens, f64_s = solve(rb_problem(), ht.RoughBergomiMixing(),
+                                      rb_config(RB_F64_PAIRS, True))
+    f64_se = rb_se(f64_ens, RB_F64_PAIRS, disc)
+    say(f"  float64 estimator (use_kernel=False, QMC, {RB_F64_PAIRS} pairs): {f64_price:.10f} "
+        f"+- {f64_se:.3e} (SE, {f64_se / f64_price * 1e4:.4f} bp), host {f64_s:.3f} s")
+    # the kernel route on the same QMC points: per path and in the mean at an
+    # fp32 tolerance, which sees a scheme difference far below the 4-SE checks
+    same_price, same_ens, _ = solve(rb_problem(), kernel, rb_config(RB_F64_PAIRS, True))
+    say(f"  kernel solve on the same points ({RB_F64_PAIRS} pairs, QMC): {same_price:.10f}, "
+        f"{(same_price - f64_price) / f64_price * 1e4:+.5f} bp from the float64 estimator "
+        f"(limit {RB_F64_MEAN_RTOL * 1e4:g} bp)")
+    same_err = compare_values("kernel solve against the float64 estimator per path (QMC)",
+                              same_ens, f64_ens, RB_F64_TOL, mean_rtol=RB_F64_MEAN_RTOL)
+    del f64_ens, same_ens
+    out["float64"] = dict(price=f64_price, se=f64_se, pairs=RB_F64_PAIRS,
+                          kernel_same_points_bp=(same_price - f64_price) / f64_price * 1e4,
+                          kernel_same_points_max_abs=same_err)
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        cfg = rb_config(pairs, qmc)
+        call, ens_c, sec = solve(rb_problem(), kernel, cfg)
+        se = rb_se(ens_c, pairs, disc)
+        diff = call - f64_price
+        lim = 4.0 * math.hypot(se, f64_se)
+        say(f"  {stream}: price {call:.10f} (SE {se / call * 1e4:.4f} bp), host {sec:.3f} s; "
+            f"against the float64 estimator {diff:+.3e} ({diff / f64_price * 1e4:+.4f} bp), "
+            f"4 combined SE = {lim:.3e}")
+        check(abs(diff) <= lim, f"rough Bergomi {stream}: kernel and float64 estimator disagree")
+        put, ens_p, _ = solve(rb_problem("put"), kernel, cfg)
+        parity = disc * (SPOT / disc - STRIKE)
+        pse = rb_se(ens_c - ens_p, pairs, disc)
+        say(f"  {stream} put-call parity: C - P = {call - put:.10f} vs DF (F - K) = {parity:.10f}, "
+            f"err {call - put - parity:+.3e}, 4 SE = {4 * pse:.3e}")
+        check(abs(call - put - parity) <= 4 * pse, f"rough Bergomi {stream}: parity fails")
+        eta0, ens0, _ = solve(rb_problem(eta=0.0), kernel, cfg)
+        lim0 = 4 * rb_se(ens0, pairs, disc) + RB_ETA0_ALLOWANCE_BP * 1e-4 * bs
+        say(f"  {stream} eta = 0: {eta0:.10f} vs Black-Scholes at sigma {sigma:g} {bs:.10f}, err "
+            f"{eta0 - bs:+.3e} ({(eta0 - bs) / bs * 1e4:+.4f} bp), 4 SE + "
+            f"{RB_ETA0_ALLOWANCE_BP:g} bp = {lim0:.3e}")
+        check(abs(eta0 - bs) <= lim0, f"rough Bergomi {stream}: eta = 0 is not Black-Scholes")
+        out[stream] = dict(price=call, se=se, vs_float64_bp=diff / f64_price * 1e4,
+                           parity_err=call - put - parity, eta0_err_bp=(eta0 - bs) / bs * 1e4)
+
+    # autograd through the kernel-backed solve (K14 forward, K17 backward)
+    # against K16 over the same PRNG pairs
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+              for x in (SPOT, RB_MARKET["xi0"], RB_MARKET["eta"], RB_MARKET["hurst"],
+                        RB_MARKET["rho"], R)]
+    spot, xi0, eta, hurst, rho, r = leaves
+    prob = ht.PricingProblem(rb_problem().payoff,
+                             ht.RoughBergomiInputs(REF, r, spot, xi0, eta, hurst, rho))
+    t0 = time.perf_counter()
+    sol = ht.solve(prob, ht.MonteCarlo(ht.RoughBergomiDynamics(), kernel, rb_config(pairs, False),
+                                       device=device))
+    g = torch.autograd.grad(sol.price, leaves)
+    seconds = time.perf_counter() - t0
+    grads = torch.stack([g[0], g[1], g[2], g[4], g[3], g[5]])  # GREEK_ORDER_RB
+    price, greeks = rk.rbergomi_kernel_price_and_greeks(
+        rb_problem(), rb_config(pairs, False), n_blocks=pairs // rk.PAIRS_PER_BLOCK, n_batches=1,
+        device=device)
+    greeks = torch.stack(list(greeks.values()))
+    say(f"  autograd through solve (PRNG, {pairs} pairs): price {float(sol.price.detach()):.10f} "
+        f"(K16 {float(price):.10f}), greeks {[round(float(x), 8) for x in grads]}, host "
+        f"{seconds:.3f} s")
+    compare_vectors("autograd through solve against K16 greeks", grads, greeks, AUTOGRAD_RTOL)
+    out["autograd_s"] = seconds
+    return out
+
+
+def phase_rb_serving(f64: dict, device: str) -> dict:
+    """6 timed dispatches of K15 at 2^24 pairs x 64 steps (bench.py:692) and
+    of K16 at the same shape: ms, paths/s, the price against the float64
+    estimator, the greek-vector / price ratio, and K16's spot, xi0 and rate
+    greeks against central differences of K15 on the same stream."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
+    say(f"phase 4 (rough Bergomi): serving dispatch, {pairs} antithetic pairs ({2 * pairs} paths) "
+        f"x {RB_STEPS} steps per call")
+    cfg = rb_config(pairs, False)
+    ins = rk._rb_trace_inputs(rb_problem(), cfg, 64)
+    g_ins = rk._rb_greek_trace_inputs(rb_problem(), cfg, 64)
+    kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, steps=RB_STEPS, device=device)
+
+    def timed(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [fn(i + 1) for i in range(SERVING_REPS)]
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / SERVING_REPS, outs
+
+    ms, prices = timed(lambda seed: rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed,
+                                                                     **kw))
+    g_ms, outs = timed(lambda seed: rk.rbergomi_mixing_price_and_greeks(*g_ins, seed=seed, **kw))
+    values = [float(p) for p in prices]
+    check(all(math.isfinite(v) for v in values), "rough Bergomi serving: non-finite price")
+    check([float(p) for p, _ in outs] == values, "rough Bergomi serving: K16 prices differ from K15's")
+    mc = sum(values) / len(values)
+    diff_bp = (mc - f64["price"]) / f64["price"] * 1e4
+    paths_per_s = 2 * pairs / (ms * 1e-3)
+    ratio = g_ms / ms
+    t0 = time.perf_counter()  # one more dispatch on the host clock: the idle share
+    rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=SERVING_REPS + 1, **kw)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    say(f"  {SERVING_REPS} reps: {ms:.3f} ms per call, {paths_per_s:.6e} paths/s, price {mc:.10f} "
+        f"vs the float64 estimator {f64['price']:.10f}: {diff_bp:+.4f} bp (its SE "
+        f"{f64['se'] / f64['price'] * 1e4:.4f} bp); one synchronised dispatch {wall_ms:.3f} ms of "
+        f"host time, idle share {1.0 - ms / wall_ms:.3f}")
+    say(f"  for comparison only: {TPU_RB_SERVING}")
+    check(abs(mc - f64["price"]) <= 4 * f64["se"] + 1e-7 * mc,
+          "rough Bergomi serving: the price disagrees with the float64 estimator")
+    say(f"  price + 6 greeks: {g_ms:.3f} ms per call; greek-vector / price time ratio {ratio:.4f}; "
+        f"K16 prices equal K15's on all {SERVING_REPS} seeds")
+    greeks = dict(zip(rk.GREEK_ORDER_RB, (float(x) for x in outs[0][1])))
+    say(f"  greeks (seed 1): {greeks}")
+
+    def price_at(name, h):
+        spot, xi0, rate = SPOT, RB_MARKET["xi0"], R
+        spot += h if name == "spot" else 0.0
+        xi0 += h if name == "xi0" else 0.0
+        rate += h if name == "rate" else 0.0
+        import hedgehog_tpu_torch as ht
+
+        market = ht.RoughBergomiInputs(REF, rate, spot, xi0, RB_MARKET["eta"], RB_MARKET["hurst"],
+                                       RB_MARKET["rho"])
+        p_ins = rk._rb_trace_inputs(ht.PricingProblem(rb_problem().payoff, market), cfg, 64)
+        return float(rk.rbergomi_mixing_vanilla_price(*p_ins.price_args(), seed=1, **kw))
+
+    for name, h, rtol in RB_FD_CHECKS:
+        fd = (price_at(name, h) - price_at(name, -h)) / (2 * h)
+        say(f"  {name}: K16 {greeks[name]:.8f} vs central difference of K15 (h={h:g}, same stream) "
+            f"{fd:.8f} (rtol {rtol:g})")
+        check(abs(greeks[name] - fd) <= rtol * abs(fd), f"rough Bergomi serving: {name} greek")
+    return dict(ms=ms, paths_per_s=paths_per_s, price=mc, vs_float64_bp=diff_bp, greeks_ms=g_ms,
+                greek_price_ratio=ratio, greeks=greeks, wall_ms=wall_ms)
+
+
 def main() -> int:
     import torch
 
@@ -1456,6 +1914,12 @@ def main() -> int:
         QE_VALUES_KERNEL,
         QEM_PRICE_KERNEL,
         QEM_TERMINAL_KERNEL,
+    )
+    from hedgehog_tpu_torch.ops.rbergomi_kernel import (
+        RB_GREEKS_KERNEL,
+        RB_PRICE_KERNEL,
+        RB_VALUES_KERNEL,
+        RB_VJP_KERNEL,
     )
 
     say("phase 1: device")
@@ -1490,11 +1954,14 @@ def main() -> int:
     records.update(phase_qe_kernels(T, CHECK_PAIRS, "cuda"))
     records.update(phase_terminal_kernels(T, CHECK_PAIRS, "cuda"))
     records.update(phase_surface_kernels(CHECK_PAIRS, "cuda"))
+    records.update(phase_rb_kernels(CHECK_PAIRS, "cuda"))
+    rb_occupancy = phase_rb_occupancy("cuda")
     errs = phase_main_shapes(T, SOLVE_PAIRS, EULER_PAIRS, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     terminal_errs, k13_times = phase_terminal_shapes(T, QEM_SOLVE_PAIRS, GBM_PAIRS,
                                                      SERVING_BLOCKS, SERVING_BATCHES, "cuda")
     errs.update(terminal_errs)
     errs.update(phase_surface_shapes("cuda"))
+    errs.update(phase_rb_shapes("cuda"))
     records["gbm_exact_terminal"].update(k13_times)
     for name, err in errs.items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -1506,7 +1973,9 @@ def main() -> int:
                    "heston_qe_call_price": QEM_STEPS, "gbm_exact_terminal": 1,
                    "heston_qe_mixing_surface_price": sum(qe_seg),
                    "heston_qe_mixing_surface_price_and_jacobian": sum(qe_seg),
-                   "heston_exact_mixing_surface_price": sum(ex_seg)}
+                   "heston_exact_mixing_surface_price": sum(ex_seg),
+                   "rbergomi_mixing_values": RB_STEPS, "rbergomi_mixing_vanilla_price": RB_STEPS,
+                   "rbergomi_mixing_price_and_greeks": RB_STEPS, "_rb_values_vjp": RB_STEPS}
     surface_points = len(SURF_EXPIRIES) * len(SURF_STRIKES)
     for name, rec in records.items():
         pairs = GBM_PAIRS if name == "gbm_exact_terminal" else CHECK_PAIRS
@@ -1558,9 +2027,26 @@ def main() -> int:
         check(n > 0, f"{name} was not launched on the surface path")
     launches.update(surface_launches)
 
+    # the rough-Bergomi path, with its own launch window
+    rb_kernels = {"rbergomi_mixing_values": RB_VALUES_KERNEL,
+                  "rbergomi_mixing_vanilla_price": RB_PRICE_KERNEL,
+                  "rbergomi_mixing_price_and_greeks": RB_GREEKS_KERNEL,
+                  "_rb_values_vjp": RB_VJP_KERNEL}
+    for k in (*kernels.values(), *surface_kernels.values(), *rb_kernels.values()):
+        k.launches = 0
+    rb_path = phase_rb_path("cuda")
+    rb_serving = phase_rb_serving(rb_path["float64"], "cuda")
+    rb_launches = {name: k.launches for name, k in rb_kernels.items()}
+    say(f"launches on the rough-Bergomi path: {rb_launches}")
+    for name, n in rb_launches.items():
+        check(n > 0, f"{name} was not launched on the rough-Bergomi path")
+    launches.update(rb_launches)
+
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
-                    "calibration": calibration, "build_s": build_s, "nvidia_smi": smi}))
+                    "calibration": calibration, "rb_path": rb_path, "rb_serving": rb_serving,
+                    "rb_occupancy": rb_occupancy,
+                    "build_s": build_s, "nvidia_smi": smi}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)
         for name, rec in records.items()

@@ -2,16 +2,19 @@
 
 The JAX package ``hedgehog_tpu`` stays the reference; this package ports it
 slice by slice and keeps its module tree and public names.  It prices a
-European vanilla under Heston or Black-Scholes by Monte Carlo through
-``solve(PricingProblem(...), MonteCarlo(...))``, with hand-written CUDA
-kernels for the Euler, exact-mixing, QE-mixing and QE-M schemes and the
-exact lognormal draw (``ops/``, sources in ``csrc/``), checked against the
+European vanilla under Heston, Black-Scholes or rough Bergomi by Monte
+Carlo through ``solve(PricingProblem(...), MonteCarlo(...))``, with
+hand-written CUDA kernels for the Euler, exact-mixing, QE-mixing and QE-M
+schemes and the exact lognormal draw (``ops/``, sources in ``csrc/``), checked against the
 Carr–Madan Fourier price, and its 7-parameter greek vector
 (``heston_mixing_price_and_greeks``, the greek kernel, or
 ``torch.autograd.grad`` through ``solve``), and whole (expiry × strike)
 surfaces from one variance simulation (``heston_surface_mc``; the surface
 kernels and their Jacobian through ``ops.heston_qe_kernel
-.heston_surface_mc_adapter``).  ``MonteCarlo`` and the kernel
+.heston_surface_mc_adapter``); the rough-Bergomi mixing estimator
+(``RoughBergomiMixing``) with its kernels for values, the serving price,
+the price + 6-greek vector and the values' backward
+(``ops.rbergomi_kernel``).  ``MonteCarlo`` and the kernel
 wrappers run on the GPU unless the caller asks for ``device="cpu"``.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
@@ -50,7 +53,7 @@ from .core.problems import (
     PricingProblem,
 )
 from .core.solve import AbstractPricingMethod, register_solver, solve
-from .market.inputs import BlackScholesInputs, HestonInputs
+from .market.inputs import BlackScholesInputs, HestonInputs, RoughBergomiInputs
 from .market.rate_curve import FlatRateCurve, df, df_yf, zero_rate, zero_rate_yf
 from .market.vol_surface import FlatVolSurface, get_vol
 from .methods.black_scholes import BlackScholesAnalytic
@@ -63,6 +66,7 @@ from .methods.montecarlo import (
     HestonQE,
     MonteCarlo,
     NoVarianceReduction,
+    RoughBergomiMixing,
     SimulationConfig,
     reduce_payoffs,
     simulate_conditional_values,
@@ -70,7 +74,9 @@ from .methods.montecarlo import (
 )
 from .methods.heston_surface import heston_surface_mc
 from .methods.mixing_greeks import GREEK_ORDER, heston_mixing_price_and_greeks
-from .models.dynamics import HestonDynamics, LognormalDynamics
+from .models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
+from .models.rough_bergomi import ForwardVarianceCurve
+from .ops.rbergomi_kernel import GREEK_ORDER_RB
 from .interop import from_reference
 
 __all__ = [
@@ -81,15 +87,16 @@ __all__ = [
     "parity_transform",
     "AnalyticSolution", "CarrMadanSolution", "MonteCarloSolution", "PricingProblem",
     "AbstractPricingMethod", "register_solver", "solve",
-    "BlackScholesInputs", "HestonInputs",
+    "BlackScholesInputs", "HestonInputs", "RoughBergomiInputs",
     "FlatRateCurve", "df", "df_yf", "zero_rate", "zero_rate_yf",
     "FlatVolSurface", "get_vol",
     "BlackScholesAnalytic", "CarrMadan",
     "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonExactMixing", "HestonQE",
     "MonteCarlo",
-    "NoVarianceReduction", "SimulationConfig", "reduce_payoffs",
+    "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig", "reduce_payoffs",
     "simulate_conditional_values", "simulate_terminal_prices",
     "GREEK_ORDER", "heston_mixing_price_and_greeks", "heston_surface_mc",
-    "HestonDynamics", "LognormalDynamics",
+    "HestonDynamics", "LognormalDynamics", "RoughBergomiDynamics", "ForwardVarianceCurve",
+    "GREEK_ORDER_RB",
     "from_reference",
 ]

@@ -1,0 +1,540 @@
+// Rough-Bergomi mixing kernels for sm_90a: per-path values (K14), the
+// accumulating serving price (K15), the price + 6-greek vector (K16) and the
+// cotangent-weighted VJP of the values (K17).
+//
+// Replaces hedgehog_tpu/ops/rbergomi_kernel.py:
+//   rbergomi_mixing_values           (pallas_call at :273 QMC, :288 PRNG;
+//                                     bodies _rb_values_kernel[_qmc])
+//   rbergomi_mixing_vanilla_price    (pallas_call at :371 QMC, :386 PRNG;
+//                                     bodies _rb_price_kernel[_qmc])
+//   rbergomi_mixing_price_and_greeks (pallas_call at :673 QMC, :695 PRNG;
+//                                     bodies _rb_greeks_kernel[_qmc])
+//   _rb_values_vjp                   (pallas_call at :992 QMC, :1015 PRNG;
+//                                     bodies _rb_weighted_kernel[_qmc])
+// The plain PyTorch twins are in hedgehog_tpu_torch/ops/rbergomi_kernel.py;
+// keep the two in step.
+//
+// Per pair: 2n standard normals xi (ops/rbergomi_kernel.py: Philox block b ->
+// rows 4b..4b+3 through hh::box_muller_open, or Sobol' dims 0..2n-1), the
+// Volterra product X = L xi, the left-point sums IV = dt (C_0 + sum_k C_k
+// e^{eta Z_k}) and J = sum_k sqrt(C_k e^{eta Z_k}) dW_k of both antithetic
+// groups (the mirror's variance through rcp of the + group's exponentials:
+// X(-xi) = -X), then the conditional Black-Scholes close.  K16 and K17 carry
+// forward tangents in (xi0, eta, H) beside it, H through a second product
+// Xd = (dL/dH) xi.
+//
+// What bounds them on this card: operations, not memory (K14 writes 8 bytes
+// a pair, K15/K16 a few doubles per block, K17 reads the 8-byte cotangent of
+// a pair).  By the factor's structure (the ΔW block is diagonal; the Z row
+// at t_{j+1} weighs increments 0..j and Z columns 0..j) the product costs
+// n(n-1) FMAs a pair, about 4K at n = 64, against the TPU kernel's dense
+// (2n)^2 on a 128-padded tile; a step adds two exponentials' worth of MUFU
+// (ex2, rsqrt, two rcp) and a dozen FLOPs, and the Philox or Sobol' draw of
+// 2n normals comes on top.  On an H100 the kernels run 7-10x above that
+// operation bound (PERF.md); unrolling the column loop's loads moved nothing.
+// The first candidate is occupancy: the xi columns hold a 64-thread block to
+// 32 KB of shared memory at 64 steps (48 KB with the Sobol' table), which
+// leaves a few blocks an SM for a latency-bound FMA and MUFU chain
+// (chip_smoke.py prints K15's blocks per SM).
+//
+// Design: one antithetic pair per thread.  The thread draws its xi column
+// into shared memory (row-major, one float per thread a row: conflict-free),
+// then walks the consumed Z rows in tiles of kTile rows whose kTile
+// accumulators live in registers: for each column one shared load of each xi
+// it multiplies and warp-uniform float4 loads of the factor's packed entries
+// (one L1 broadcast a load; the factor is read from global memory, so L adds
+// no shared memory and sets no step limit).  Step k consumes Z row k-1 and
+// dW_k as soon as its tile is done, so the state is O(1) a path.  The step
+// limit (ops/rbergomi_kernel.py MAX_STEPS) comes from the xi column (2n rows
+// padded to whole tiles) and the Sobol' table in shared memory.  The primal
+// sums round each product and sum separately (__fmul_rn/__fadd_rn, as the
+// twins do) and the product uses explicit fmaf in one order, so K15 and K16
+// compute each pair's values to the same bits; both walk the pairs with K15's
+// resident grid and reduce with heston_qe.cuh block_sums, so K16's price is
+// K15's to the bit.
+
+#include "heston_qe.cuh"
+
+namespace {
+
+constexpr int kThreads = 64;
+constexpr int kTile = 8;
+constexpr int kGreekCols = 6;  // y, chain_xi0, chain_eta, chain_H, w, y_rho
+constexpr int kVjpCols = 7;    // chain_xi0, chain_eta, chain_H, chain_T, w, y_rho, y_K
+
+// Field order is ops/rbergomi_kernel.py RB_NAMES.
+struct RbParams {
+  float eta, dt;
+  hh::CloseParams close;
+  float inv_xi0, h_eta, inv_t;
+};
+static_assert(sizeof(RbParams) == 12 * sizeof(float), "rough-Bergomi parameter layout");
+
+// One step's coefficients: two float4 (C_k, sqrt C_k, L[k][k], dL[k][k]/dH)
+// and (ae_k, bh_k, 0, 0).
+struct RbShape {
+  int n, tiles, zcols, xi_rows;
+};
+
+__host__ __device__ inline RbShape rb_shape(int n) {
+  RbShape s;
+  s.n = n;
+  s.tiles = (n - 1 + kTile - 1) / kTile;
+  s.zcols = s.tiles * kTile;
+  s.xi_rows = n + s.zcols;
+  return s;
+}
+
+size_t rb_smem(int steps, bool qmc) {
+  const RbShape s = rb_shape(steps);
+  return sizeof(float) * (size_t)s.xi_rows * kThreads +
+         (qmc ? sizeof(int) * 2 * steps * (hh::kSobolBits + 1) : 0);
+}
+
+// The Sobol' table into shared memory after the xi columns; returns it (or
+// null for the Philox stream).
+__device__ __forceinline__ const int* stage_table(const int* sobol, int n, int* ssob) {
+  if (sobol) {
+    const int count = 2 * n * (hh::kSobolBits + 1);
+    for (int i = threadIdx.x; i < count; i += blockDim.x) ssob[i] = sobol[i];
+  }
+  __syncthreads();
+  return sobol ? ssob : nullptr;
+}
+
+// The xi column of global pair `pair` into xs[r * kThreads + threadIdx.x]:
+// rows 0..2n-2 drawn (row 2n-1 feeds no consumed row), the rest up to
+// xi_rows zero.  Each thread reads only its own column: no barrier.
+__device__ __forceinline__ void draw_xi(float* xs, unsigned long long pair, const int* sobol,
+                                        const RbShape& s, uint32_t seed, uint32_t device_id,
+                                        long long point_offset) {
+  const int t = threadIdx.x;
+  const int rows = 2 * s.n - 1;
+  if (sobol) {
+    const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
+    for (int r = 0; r < rows; ++r) {
+      xs[r * kThreads + t] = hh::ndtri_approx(hh::sobol_uniform(idx, sobol + r * (hh::kSobolBits + 1)));
+    }
+  } else {
+    for (int b = 0; 4 * b < rows; ++b) {
+      const hh::U4 w = hh::philox_block(pair, (uint32_t)b, seed, device_id);
+      float z[4];
+      hh::box_muller_open(w.x, w.y, z[0], z[1]);
+      hh::box_muller_open(w.z, w.w, z[2], z[3]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (4 * b + q < rows) xs[(4 * b + q) * kThreads + t] = z[q];
+      }
+    }
+  }
+  for (int r = rows; r < s.xi_rows; ++r) xs[r * kThreads + t] = 0.0f;
+}
+
+// One antithetic group's running sums: the primal (sum C_k e, sum s_k dW_k)
+// and the tangent sums of the greek kernels.
+struct Group {
+  float iv, j;
+  float div_eta, dj_eta, div_h, djh_g, djh_s;
+};
+
+// Tangent sums of one group at one step: p = C e, s = sqrt(C e), sdw = s dW,
+// with the group's signed z, zd = dZ/dH and dwd = d(dW)/dH.
+__device__ __forceinline__ void tangent_step(Group& g, float p, float s, float sdw, float z,
+                                             float zd, float dwd, float ae, float bh, float eta) {
+  const float a = z + ae;             // d ln P_k / d eta
+  const float gh = fmaf(eta, zd, bh);  // d ln P_k / d H
+  g.div_eta = fmaf(p, a, g.div_eta);
+  g.dj_eta = fmaf(a, sdw, g.dj_eta);
+  g.div_h = fmaf(p, gh, g.div_h);
+  g.djh_g = fmaf(gh, sdw, g.djh_g);
+  g.djh_s = fmaf(s, dwd, g.djh_s);
+}
+
+// 2 * kTile packed entries of the factor at (tile, column): kTile of the
+// increments' block then kTile of the Z block, as four float4.
+__device__ __forceinline__ void load_col(const float4* __restrict__ pack, int idx, float* v) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 f = __ldg(pack + 4 * idx + q);
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
+
+// Adds column c's terms to the tile's accumulators, rows r >= first.
+template <int kFirst>
+__device__ __forceinline__ void add_col(const float* v, float xa, float xb, float* acc) {
+#pragma unroll
+  for (int r = kFirst; r < kTile; ++r) {
+    acc[r] = fmaf(v[r], xa, acc[r]);
+    acc[r] = fmaf(v[kTile + r], xb, acc[r]);
+  }
+}
+
+template <int kCC, bool kTan>
+__device__ __forceinline__ void triangle_col(const float* xs, const float4* lpack,
+                                             const float4* dpack, const RbShape& s, int tile,
+                                             float* acc, float* accd) {
+  const int t = threadIdx.x;
+  const int c = tile * kTile + kCC;
+  const float xa = xs[c * kThreads + t], xb = xs[(s.n + c) * kThreads + t];
+  float v[2 * kTile];
+  load_col(lpack, tile * s.zcols + c, v);
+  add_col<kCC>(v, xa, xb, acc);
+  if (kTan) {
+    load_col(dpack, tile * s.zcols + c, v);
+    add_col<kCC>(v, xa, xb, accd);
+  }
+}
+
+// Step k (1 <= k < n) of both groups from Z_{t_k} = z (and its H tangent
+// zd): the left-point sums with each product and sum rounded on its own, the
+// mirror through rcp of the + group's exponentials; the tangent sums when
+// kTan.
+template <bool kTan>
+__device__ __forceinline__ void rb_step(const float* xs, const RbParams& p,
+                                        const float4* __restrict__ coef, int k, float z, float zd,
+                                        bool anti, Group& gp, Group& gm) {
+  const float4 ck = __ldg(coef + 2 * k);
+  const float xk = xs[k * kThreads + threadIdx.x];
+  const float dw = __fmul_rn(ck.z, xk);
+  const float ep = expf(__fmul_rn(p.eta, z));
+  const float sep = sqrtf(ep);
+  const float pp = __fmul_rn(ck.x, ep);
+  const float sp = __fmul_rn(ck.y, sep);
+  const float sdw_p = __fmul_rn(sp, dw);
+  gp.iv = __fadd_rn(gp.iv, pp);
+  gp.j = __fadd_rn(gp.j, sdw_p);
+  float pm = 0.0f, sm = 0.0f, sdw_m = 0.0f;
+  if (anti) {
+    pm = __fmul_rn(ck.x, hh::rcp(ep));
+    sm = __fmul_rn(ck.y, hh::rcp(sep));
+    sdw_m = __fmul_rn(sm, dw);
+    gm.iv = __fadd_rn(gm.iv, pm);
+    gm.j = __fadd_rn(gm.j, sdw_m);
+  }
+  if (kTan) {
+    const float4 ck2 = __ldg(coef + 2 * k + 1);
+    const float dwd = __fmul_rn(ck.w, xk);
+    tangent_step(gp, pp, sp, sdw_p, z, zd, dwd, ck2.x, ck2.y, p.eta);
+    if (anti) tangent_step(gm, pm, sm, -sdw_m, -z, -zd, -dwd, ck2.x, ck2.y, p.eta);
+  }
+}
+
+// The pair's two groups over all steps from its xi column: the product in
+// tiles, each step consumed as its Z row is done.  dw0 (and dwd0) return the
+// first increment (and its H tangent).
+template <bool kTan>
+__device__ __forceinline__ void rb_groups(const float* xs, const RbParams& p,
+                                          const float4* __restrict__ coef,
+                                          const float4* __restrict__ lpack,
+                                          const float4* __restrict__ dpack, const RbShape& s,
+                                          bool anti, float& dw0, float& dwd0, Group& gp,
+                                          Group& gm) {
+  const int t = threadIdx.x;
+  const float4 c0 = __ldg(coef);
+  dw0 = __fmul_rn(c0.z, xs[t]);
+  dwd0 = kTan ? __fmul_rn(c0.w, xs[t]) : 0.0f;
+  gp = Group{};
+  gm = Group{};
+  for (int tile = 0; tile < s.tiles; ++tile) {
+    float acc[kTile], accd[kTile];
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) acc[r] = accd[r] = 0.0f;
+    const int j0 = tile * kTile;
+    for (int c = 0; c < j0; ++c) {
+      const float xa = xs[c * kThreads + t], xb = xs[(s.n + c) * kThreads + t];
+      float v[2 * kTile];
+      load_col(lpack, tile * s.zcols + c, v);
+      add_col<0>(v, xa, xb, acc);
+      if (kTan) {
+        load_col(dpack, tile * s.zcols + c, v);
+        add_col<0>(v, xa, xb, accd);
+      }
+    }
+    triangle_col<0, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<1, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<2, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<3, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<4, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<5, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<6, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    triangle_col<7, kTan>(xs, lpack, dpack, s, tile, acc, accd);
+    static_assert(kTile == 8, "one triangle_col per tile row");
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      const int k = j0 + r + 1;  // step k consumes Z_{t_k} = Z row k - 1 and dW_k
+      if (k < s.n) rb_step<kTan>(xs, p, coef, k, acc[r], accd[r], anti, gp, gm);
+    }
+  }
+}
+
+// The groups' (IV, J): IV = dt (C_0 + sum), J = +-(sqrt(C_0) dW_0) +- sum.
+__device__ __forceinline__ void close_factors(const Group& g, bool mirror, float c0, float s0dw0,
+                                              float dt, float& iv, float& j) {
+  iv = __fmul_rn(dt, __fadd_rn(c0, g.iv));
+  j = mirror ? __fsub_rn(-s0dw0, g.j) : __fadd_rn(s0dw0, g.j);
+}
+
+// The tangent rows of one group (greeks: 6; the VJP: 7, with chain_T and
+// y_K, without y) from its (IV, J) and sums; `s0dwd0` is the group's
+// signed sqrt(C_0) dWd_0.
+template <bool kVjp>
+__device__ __forceinline__ void group_rows(const Group& g, float iv, float j, float s0dwd0,
+                                           const RbParams& p, float* rows) {
+  const float div_eta = p.dt * g.div_eta;
+  const float dj_eta = 0.5f * g.dj_eta;
+  const float div_h = p.dt * g.div_h;
+  const float dj_h = 0.5f * g.djh_g + s0dwd0 + g.djh_s;
+  const hh::BsPartials b = hh::cond_bs_partials(iv, j, p.close);
+  const float ch_xi0 = (b.y_iv * iv + b.y_j * 0.5f * j) * p.inv_xi0;
+  const float ch_eta = b.y_iv * div_eta + b.y_j * dj_eta;
+  const float ch_h = b.y_iv * div_h + b.y_j * dj_h;
+  if (!kVjp) {
+    rows[0] = b.y;
+    rows[1] = ch_xi0;
+    rows[2] = ch_eta;
+    rows[3] = ch_h;
+    rows[4] = b.w;
+    rows[5] = b.y_rho;
+    return;
+  }
+  const float div_t = p.inv_t * (iv + p.h_eta * div_eta);
+  const float dj_t = p.inv_t * (p.h_eta * dj_eta + 0.5f * j);
+  rows[0] = ch_xi0;
+  rows[1] = ch_eta;
+  rows[2] = ch_h;
+  rows[3] = b.y_iv * div_t + b.y_j * dj_t;
+  rows[4] = b.w;
+  rows[5] = b.y_rho;
+  rows[6] = -p.close.cp * b.phi2;
+}
+
+// The (value, antithetic value) of global pair `pair` (K14, K15).
+__device__ __forceinline__ void rb_pair_values(float* xs, unsigned long long pair,
+                                               const RbParams& p, const float4* coef,
+                                               const float4* lpack, const int* table,
+                                               const RbShape& s, bool anti, uint32_t seed,
+                                               uint32_t device_id, long long point_offset,
+                                               float& val, float& val_a) {
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
+  float dw0, dwd0;
+  Group gp, gm;
+  rb_groups<false>(xs, p, coef, lpack, nullptr, s, anti, dw0, dwd0, gp, gm);
+  const float4 c0 = __ldg(coef);
+  const float s0dw0 = __fmul_rn(c0.y, dw0);
+  float iv, j;
+  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
+  val = hh::cond_bs_value(iv, j, p.close);
+  val_a = 0.0f;
+  if (anti) {
+    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
+    val_a = hh::cond_bs_value(iv, j, p.close);
+  }
+}
+
+// The tangent rows of global pair `pair`, each group's rows weighted by
+// ct_p and ct_m (K16: 1, 1; K17: the pair's cotangents) and added into acc.
+template <bool kVjp, int kCols>
+__device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair, const RbParams& p,
+                                             const float4* coef, const float4* lpack,
+                                             const float4* dpack, const int* table,
+                                             const RbShape& s, bool anti, uint32_t seed,
+                                             uint32_t device_id, long long point_offset,
+                                             float ct_p, float ct_m, float* acc) {
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
+  float dw0, dwd0;
+  Group gp, gm;
+  rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
+  const float4 c0 = __ldg(coef);
+  const float s0dw0 = __fmul_rn(c0.y, dw0);
+  const float s0dwd0 = c0.y * dwd0;
+  float iv, j, rp[kCols], rm[kCols] = {};
+  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
+  group_rows<kVjp>(gp, iv, j, s0dwd0, p, rp);
+  if (anti) {
+    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
+    group_rows<kVjp>(gm, iv, j, -s0dwd0, p, rm);
+  }
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    if (kVjp) {
+      acc[k] += anti ? ct_p * rp[k] + ct_m * rm[k] : ct_p * rp[k];
+    } else {
+      acc[k] += rp[k] + rm[k];  // as K15 adds value + antithetic value
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
+                 const float4* __restrict__ lpack, const int* __restrict__ sobol,
+                 float* __restrict__ out, long long n_paths, int steps, int antithetic,
+                 uint32_t seed, uint32_t device_id, long long point_offset) {
+  extern __shared__ float smem[];
+  const RbShape s = rb_shape(steps);
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_paths) return;
+  float val, val_a;
+  rb_pair_values(smem, (unsigned long long)i, p, coef, lpack, table, s, antithetic != 0, seed,
+                 device_id, point_offset, val, val_a);
+  out[i] = val;
+  if (antithetic) out[n_paths + i] = val_a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
+                const float4* __restrict__ lpack, const int* __restrict__ sobol,
+                double* __restrict__ partials, long long total_pairs, int steps, uint32_t seed,
+                uint32_t device_id, long long point_offset) {
+  extern __shared__ float smem[];
+  __shared__ double red[kThreads];
+  const RbShape s = rb_shape(steps);
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  float acc[1] = {0.0f};
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
+       g += stride) {
+    float val, val_a;
+    rb_pair_values(smem, (unsigned long long)g, p, coef, lpack, table, s, true, seed, device_id,
+                   point_offset, val, val_a);
+    acc[0] += val + val_a;
+  }
+  hh::block_sums<kThreads>(acc, red, partials);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
+                 const float4* __restrict__ lpack, const float4* __restrict__ dpack,
+                 const int* __restrict__ sobol, double* __restrict__ partials,
+                 long long total_pairs, int steps, uint32_t seed, uint32_t device_id,
+                 long long point_offset) {
+  extern __shared__ float smem[];
+  __shared__ double red[kThreads];
+  const RbShape s = rb_shape(steps);
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  float acc[kGreekCols] = {};
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
+       g += stride) {
+    rb_pair_rows<false, kGreekCols>(smem, (unsigned long long)g, p, coef, lpack, dpack, table, s,
+                                    true, seed, device_id, point_offset, 1.0f, 1.0f, acc);
+  }
+  hh::block_sums<kThreads>(acc, red, partials);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
+              const float4* __restrict__ lpack, const float4* __restrict__ dpack,
+              const int* __restrict__ sobol, const float* __restrict__ ct,
+              double* __restrict__ partials, long long n_paths, int steps, int antithetic,
+              uint32_t seed, uint32_t device_id, long long point_offset) {
+  extern __shared__ float smem[];
+  __shared__ double red[kThreads];
+  const RbShape s = rb_shape(steps);
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  float acc[kVjpCols] = {};
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_paths) {
+    rb_pair_rows<true, kVjpCols>(smem, (unsigned long long)i, p, coef, lpack, dpack, table, s,
+                                 antithetic != 0, seed, device_id, point_offset, ct[i],
+                                 antithetic ? ct[n_paths + i] : 0.0f, acc);
+  }
+  hh::block_sums<kThreads>(acc, red, partials);
+}
+
+// Opts the kernel into `smem` bytes of dynamic shared memory (above 48 KB a
+// block must ask).
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+}  // namespace
+
+// Per-path undiscounted values: out is (1 or 2, n_paths) float32.
+extern "C" int hh_rb_values(const float* params, const float* coef, const float* lpack,
+                            const int* sobol, float* out, long long n_paths, int steps,
+                            int antithetic, unsigned seed, unsigned device_id,
+                            long long point_offset, void* stream) {
+  const size_t smem = rb_smem(steps, sobol != nullptr);
+  cudaError_t err = allow_smem(rb_values_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_paths + kThreads - 1) / kThreads;
+  rb_values_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
+      out, n_paths, steps, antithetic, seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// Sums of (value + antithetic value) over the pairs [0, total_pairs):
+// partials is (grid,) float64, one per block.
+extern "C" int hh_rb_price(const float* params, const float* coef, const float* lpack,
+                           const int* sobol, double* partials, int grid, long long total_pairs,
+                           int steps, unsigned seed, unsigned device_id, long long point_offset,
+                           void* stream) {
+  const size_t smem = rb_smem(steps, sobol != nullptr);
+  cudaError_t err = allow_smem(rb_price_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  rb_price_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
+      partials, total_pairs, steps, seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// Price and greek sums over the pairs [0, total_pairs): partials is
+// (6, grid) float64, column-major by sum.
+extern "C" int hh_rb_greeks(const float* params, const float* coef, const float* lpack,
+                            const float* dpack, const int* sobol, double* partials, int grid,
+                            long long total_pairs, int steps, unsigned seed, unsigned device_id,
+                            long long point_offset, void* stream) {
+  const size_t smem = rb_smem(steps, sobol != nullptr);
+  cudaError_t err = allow_smem(rb_greeks_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  rb_greeks_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
+      reinterpret_cast<const float4*>(dpack), sobol, partials, total_pairs, steps, seed,
+      device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// Cotangent-weighted sums over the paths: ct is (1 or 2, n_paths) float32,
+// partials (7, ceil(n_paths / 64)) float64.
+extern "C" int hh_rb_values_vjp(const float* params, const float* coef, const float* lpack,
+                                const float* dpack, const int* sobol, const float* ct,
+                                double* partials, long long n_paths, int steps, int antithetic,
+                                unsigned seed, unsigned device_id, long long point_offset,
+                                void* stream) {
+  const size_t smem = rb_smem(steps, sobol != nullptr);
+  cudaError_t err = allow_smem(rb_vjp_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_paths + kThreads - 1) / kThreads;
+  rb_vjp_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
+      reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
+      seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// The price kernels' grid (K15, and K16, which must walk the same pairs per
+// thread for its price to equal K15's): one resident wave of K15 on the
+// current device at `steps` steps, with or without the Sobol' table.
+extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = rb_smem(steps, qmc != 0);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = allow_smem(rb_price_kernel, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rb_price_kernel, kThreads, smem);
+  }
+  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  return (int)err;
+}

@@ -23,11 +23,11 @@ def _port_classes() -> dict:
     from .core import dates, payoffs, problems
     from .market import inputs, rate_curve, vol_surface
     from .methods import black_scholes, carr_madan, montecarlo
-    from .models import dynamics
+    from .models import dynamics, rough_bergomi
 
     classes = {}
     for mod in (dates, payoffs, problems, inputs, rate_curve, vol_surface, black_scholes,
-                carr_madan, montecarlo, dynamics):
+                carr_madan, montecarlo, dynamics, rough_bergomi):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:
                 classes[name] = obj

@@ -1,6 +1,6 @@
-"""Market-input containers: Black-Scholes and Heston.
+"""Market-input containers: Black-Scholes, Heston and rough Bergomi.
 
-Port of ``hedgehog_tpu/market/inputs.py`` for the two markets of this slice
+Port of ``hedgehog_tpu/market/inputs.py`` for the markets the port prices
 (reference src/market_inputs/market_inputs.jl:28-88).  Scalar rates and vols
 are wrapped into a flat curve / flat surface as the reference's convenience
 constructors do.
@@ -21,6 +21,7 @@ from .vol_surface import FlatVolSurface
 __all__ = [
     "BlackScholesInputs",
     "HestonInputs",
+    "RoughBergomiInputs",
     "carry_yield",
     "forward_spot",
     "market_yearfrac",
@@ -84,6 +85,31 @@ class HestonInputs:
     kappa: Any
     theta: Any
     sigma: Any
+    rho: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount))
+
+
+@_frozen
+class RoughBergomiInputs:
+    """Rough Bergomi market data (models/rough_bergomi.py):
+    V_t = ξ₀·exp(η·Z_t − ½η²·t^{2H}) with Z a Riemann–Liouville fBM of Hurst
+    index H; dS/S = (r − q) dt + √V (ρ dW₁ + √(1−ρ²) dW⊥).  ``xi0`` is the
+    flat forward-variance level or a
+    :class:`~hedgehog_tpu_torch.models.rough_bergomi.ForwardVarianceCurve`.
+    Fields that are 0-dim float64 tensors keep their autograd history."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    xi0: Any
+    eta: Any
+    hurst: Any
     rho: Any
     dividend_yield: Any = 0.0
     daycount: Any = ACT365F

@@ -1,19 +1,22 @@
 """Monte Carlo pricing: dynamics × strategy × config, for European vanillas
-under Black-Scholes and Heston.
+under Black-Scholes, Heston and rough Bergomi.
 
 Port of the slice of ``hedgehog_tpu/methods/montecarlo.py`` that prices a
-European vanilla under Heston and Black-Scholes (reference montecarlo.jl):
+European vanilla under Heston, Black-Scholes and rough Bergomi (reference
+montecarlo.jl):
 the configuration taxonomy, the two dispatchers and the solver.  The
 estimators live beside it: ``gbm_exact.py`` (exact lognormal draw),
 ``heston_euler.py`` (full-truncation log-Euler), ``heston_qe_paths.py``
 (the QE-M terminal sampler), ``heston_exact_mixing.py`` (exact-transition
-mixing) and ``heston_qe_mixing.py`` (QE variance path, conditional close);
+mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
+``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close);
 ``use_kernel=True`` routes them through the CUDA kernels of
 ``hedgehog_tpu_torch.ops``.
 
-On the QE paths and the exact GBM draw, market fields that are 0-dim
-tensors stay tensors, so ``torch.autograd.grad`` of a ``solve`` price
-reaches them (on the QE mixing path through the kernels' backward as well).
+On the QE paths, the rough-Bergomi mixing path and the exact GBM draw,
+market fields that are 0-dim tensors stay tensors, so
+``torch.autograd.grad`` of a ``solve`` price reaches them (on the QE and
+rough-Bergomi mixing paths through the kernels' backward as well).
 
 ``MonteCarlo.device`` names where the paths are simulated, the GPU unless
 the caller asks for the CPU.  A CUDA device without a GPU raises; on a CUDA
@@ -33,7 +36,7 @@ from ..core.problems import MonteCarloSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import carry_yield, market_yearfrac
 from ..market.rate_curve import df, zero_rate_yf
-from ..models.dynamics import HestonDynamics, LognormalDynamics
+from ..models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
 from ..utils import f64, resolve_device
 
 __all__ = [
@@ -42,6 +45,7 @@ __all__ = [
     "EulerMaruyama",
     "HestonExactMixing",
     "HestonQE",
+    "RoughBergomiMixing",
     "BlackScholesExact",
     "NoVarianceReduction",
     "Antithetic",
@@ -113,6 +117,25 @@ class HestonQE(SimulationStrategy):
 
 
 @_frozen
+class RoughBergomiMixing(SimulationStrategy):
+    """Exact-Volterra mixing estimator for rough Bergomi (pair with
+    RoughBergomiDynamics and RoughBergomiInputs; scheme in
+    models/rough_bergomi.py): the joint Gaussian (ΔW1, Z) vector is drawn
+    exactly from its covariance through one Cholesky factor, and each
+    variance path closes with the conditional Black-Scholes formula.  The
+    only discretization is the left-point sum for (∫V, ∫√V dW1);
+    ``config.steps`` is the grid size n.  It prices through ``solve`` only.
+    ``quad_nodes`` sizes the Gauss–Legendre panel behind the Z covariance;
+    ``fp32=True`` runs the draws, the product and the sums in float32.
+    ``use_kernel=True`` runs scalar-strike vanillas through the CUDA kernel
+    K14 (ops/rbergomi_kernel.py), whose backward is the kernel K17."""
+
+    quad_nodes: int = 64
+    fp32: bool = False
+    use_kernel: bool = False
+
+
+@_frozen
 class BlackScholesExact(SimulationStrategy):
     """Exact terminal lognormal draw (no path discretization error);
     ``use_kernel=True`` runs the CUDA kernel K13 (ops/gbm_kernel.py)."""
@@ -168,7 +191,7 @@ def _is_conditional_strategy(strat) -> bool:
     """True for the strategies that price through the conditional (mixing)
     estimator and never materialize terminal samples."""
     return (isinstance(strat, HestonQE) and strat.conditional) or isinstance(
-        strat, HestonExactMixing)
+        strat, (HestonExactMixing, RoughBergomiMixing))
 
 
 def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=None,
@@ -176,6 +199,8 @@ def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=No
     """Per-path undiscounted conditional vanilla values (n_groups, paths),
     float64 on ``method.device``."""
     dyn, strat, config = method.dynamics, method.strategy, method.config
+    if isinstance(dyn, RoughBergomiDynamics) or isinstance(strat, RoughBergomiMixing):
+        return _rbergomi_conditional_values(prob, method, key, device_id, point_offset)
     if not (isinstance(strat, (HestonQE, HestonExactMixing)) and isinstance(dyn, HestonDynamics)):
         raise TypeError(
             "conditional Monte Carlo requires HestonDynamics with HestonQE or "
@@ -207,6 +232,32 @@ def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=No
         from .heston_qe_mixing import heston_qe_mixing_values as values
     return values(prob, config, key=key, device_id=device_id, point_offset=point_offset,
                   device=device)
+
+
+def _rbergomi_conditional_values(prob, method, key, device_id, point_offset):
+    """The rough-Bergomi branch of :func:`simulate_conditional_values`, with
+    the JAX package's guards."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    if not (isinstance(dyn, RoughBergomiDynamics) and isinstance(strat, RoughBergomiMixing)):
+        raise TypeError(
+            "rough Bergomi conditional MC pairs RoughBergomiDynamics with RoughBergomiMixing; "
+            f"got ({type(dyn).__name__}, {type(strat).__name__})"
+        )
+    require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
+    device = resolve_device(method.device)
+    kw = dict(key=key, device_id=device_id, point_offset=point_offset, device=device)
+    if strat.use_kernel:
+        if not isinstance(prob.payoff, VanillaOption) or torch.as_tensor(prob.payoff.strike).ndim > 0:
+            raise TypeError(
+                "the fused rough-Bergomi kernel closes scalar-strike vanillas only; other "
+                "payoffs and strike grids price through the torch estimator (drop use_kernel=True)"
+            )
+        from ..ops.rbergomi_kernel import rbergomi_mixing_values_adapter
+
+        return rbergomi_mixing_values_adapter(prob, config, strat, **kw)
+    from .rough_bergomi_mixing import rbergomi_mixing_values
+
+    return rbergomi_mixing_values(prob, config, quad_nodes=strat.quad_nodes, fp32=strat.fp32, **kw)
 
 
 def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,

@@ -1,7 +1,7 @@
 """Price dynamics markers, the lognormal terminal law and the characteristic
 functions of log S_T, in native complex128.
 
-Port of the Black-Scholes and Heston parts of
+Port of the Black-Scholes, Heston and rough-Bergomi parts of
 ``hedgehog_tpu/models/dynamics.py`` (reference montecarlo.jl:286-320 and
 src/distributions/heston.jl:307-319).  The JAX package also carries a
 split real/imaginary form for the TPU, which has no complex128; the port
@@ -21,6 +21,7 @@ from ..utils import f64
 __all__ = [
     "LognormalDynamics",
     "HestonDynamics",
+    "RoughBergomiDynamics",
     "lognormal_terminal_law",
     "lognormal_cf",
     "heston_cf",
@@ -36,6 +37,13 @@ class LognormalDynamics:
 @dataclasses.dataclass(frozen=True)
 class HestonDynamics:
     """Heston stochastic volatility (CIR variance)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RoughBergomiDynamics:
+    """Rough Bergomi (Bayer–Friz–Gatheral 2016): no characteristic function,
+    so Monte Carlo is its only pricer (models/rough_bergomi.py).  Markets
+    carry :class:`~hedgehog_tpu_torch.market.inputs.RoughBergomiInputs`."""
 
 
 def _c128(u) -> torch.Tensor:

@@ -119,12 +119,11 @@ def _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp) 
 # ---- the twins ----------------------------------------------------------------
 
 
-def pair_chunks(total: int, device):
-    """The pairs [0, total) in chunks of ``PLAIN_CHUNK`` (the summing twins'
+def pair_chunks(total: int, device, chunk: int = PLAIN_CHUNK):
+    """The pairs [0, total) in chunks of ``chunk`` pairs (the summing twins'
     unit of work, so that serving sizes fit in memory)."""
-    for start in range(0, total, PLAIN_CHUNK):
-        yield torch.arange(start, min(start + PLAIN_CHUNK, total), dtype=torch.int64,
-                           device=device)
+    for start in range(0, total, chunk):
+        yield torch.arange(start, min(start + chunk, total), dtype=torch.int64, device=device)
 
 
 def mix_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: int):

@@ -30,6 +30,7 @@ from ..models.heston_qe import PSI_CRIT
 __all__ = [
     "SOBOL_BITS",
     "box_muller",
+    "box_muller_open",
     "philox_block",
     "rcp",
     "sobol_table",
@@ -64,14 +65,24 @@ def philox_block(pair: torch.Tensor, block: int, seed: int, device_id: int):
     return philox4x32(ctr, (seed, device_id))
 
 
+def _polar(u1: torch.Tensor, b1: torch.Tensor, dtype):
+    """Two normals from the radius uniform ``u1`` and the angle word ``b1``."""
+    r = torch.sqrt(-2.0 * torch.log(u1.to(dtype)))
+    theta = (2.0 * math.pi) * uniform_from_bits(b1).to(dtype)
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
 def box_muller(b0: torch.Tensor, b1: torch.Tensor, dtype=torch.float32):
     """Two iid N(0, 1) tensors from two words of random bits; the
     arithmetic runs in ``dtype`` from the (exact) float32 uniforms."""
-    u1 = torch.clamp(uniform_from_bits(b0), min=1.1754944e-38).to(dtype)  # avoid log(0)
-    u2 = uniform_from_bits(b1).to(dtype)
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    theta = (2.0 * math.pi) * u2
-    return r * torch.cos(theta), r * torch.sin(theta)
+    return _polar(torch.clamp(uniform_from_bits(b0), min=1.1754944e-38), b1, dtype)  # avoid log(0)
+
+
+def box_muller_open(b0: torch.Tensor, b1: torch.Tensor, dtype=torch.float32):
+    """:func:`box_muller` with the radius uniform centred in its 2^-23 cell,
+    in (0, 1), so |z| ≤ √(−2 ln 2^-24) = 5.77 (the rough-Bergomi stream: a
+    13-sigma normal from a floored zero uniform explodes e^{ηZ})."""
+    return _polar(((b0 >> 9).to(torch.float32) + 0.5) * 2.0**-23, b1, dtype)
 
 
 def rcp(x: torch.Tensor) -> torch.Tensor:
