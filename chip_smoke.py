@@ -7,7 +7,8 @@ CUDA card and ``nvcc``; without either it exits nonzero and prints no result.
 Phases (any failure exits nonzero before the last line):
 
 1. device: the card's name and power limit, then the build of the hand-written
-   CUDA kernels from ``hedgehog_tpu_torch/csrc`` (timed);
+   CUDA kernels from ``hedgehog_tpu_torch/csrc`` (timed; each kernel's ptxas
+   registers and spill);
 2. each kernel against its plain PyTorch twin on the card, on identical
    Sobol' or Philox bits, with the tolerance and its reason printed, and each
    kernel's time beside its twin's (CUDA events): K1-K3, then the QE mixing
@@ -47,15 +48,22 @@ dispatches of each surface kernel.
 
 The rough-Bergomi path (bench.py's rbergomi_kernel market, 64 steps) has
 its own phases too: in phase 2 K14 (values), K15 (serving price), K16
-(price + 6 greeks; its price equal to K15's to the bit) and K17 (the values
-VJP) against their twins at 2^20 pairs on both streams, autograd through
-K14 -> K17 against K16, and K15/K16 at the serving 2^24 pairs against the
-chunked twins; phase 3 drives ``solve`` with RoughBergomiMixing(use_kernel
-=True) at 2^22 pairs against the three checks that stand in for a closed
-form (eta = 0 against Black-Scholes, put-call parity, the float64 estimator
-on the card) and autograd through it against K16; phase 4 times 6 serving
-dispatches of K15 and K16 (the greek-vector / price ratio) and holds K16's
-spot, xi0 and rate greeks against central differences of K15.
+(price + 6 greeks; its price equal to K15's to the bit), K17 (the values
+VJP), K18 (its per-step variant under a forward-variance curve; under a
+flat curve its bucket vegas sum to K17's xi0 gradient) and K19 (the
+17-strike smile) against their twins at 2^20 pairs on both streams,
+autograd through K14 -> K17 against K16, and K15/K16 and K19 (each strike
+equal to K15's to the bit) at the serving 2^24 pairs against the chunked
+twins; phase 3 drives ``solve`` with RoughBergomiMixing(use_kernel=True) at
+2^22 pairs against the three checks that stand in for a closed form (eta =
+0 against Black-Scholes, put-call parity, the float64 estimator on the
+card) and autograd through it against K16, then under a sloped
+forward-variance curve (autograd through K18 against the float64
+estimator's), the K19 smile (parity, monotone, the float64 estimator's
+strike grid) and the float64 ``rbergomi_surface_mc`` against K19 row by
+row; phase 4 times 6 serving dispatches of K15, K16 and K19 (the
+greek-vector / price and smile / price ratios), K18 beside K17, and holds
+K16's spot, xi0 and rate greeks against central differences of K15.
 
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
@@ -74,6 +82,7 @@ from __future__ import annotations
 import datetime as dt
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -161,6 +170,7 @@ GN_STEPS, GN_BLOCKS, GN_BATCHES, GN_ITERS = 16, 64, 4, 12
 # (bench.py:668-713): xi0 0.04, eta 1.9, H 0.08, rho -0.9, a call K = 100
 # expiring 2024-12-31, 64 steps, 128 x 64 blocks of 2048 pairs = 2^24 pairs
 RB_MARKET = dict(xi0=0.04, eta=1.9, hurst=0.08, rho=-0.9)
+RB_SCALARS = (RB_MARKET["eta"], RB_MARKET["hurst"], RB_MARKET["rho"], R)  # eta, H, rho, r0
 RB_EXPIRY = dt.date(2024, 12, 31)
 RB_STEPS = 64
 RB_BLOCKS, RB_BATCHES = 128, 64
@@ -175,6 +185,25 @@ RB_ETA0_ALLOWANCE_BP = 0.1
 # (tests/unit/test_rbergomi_kernel.py:194-196)
 RB_FD_CHECKS = (("spot", 0.2, 2e-3), ("xi0", 1e-4, 1e-4), ("rate", 1e-4, 1e-3))
 TPU_RB_SERVING = "76 ms per 2^24-pair dispatch, 4.4e8 paths/s (SERVING_METRICS.json:77-83, TPU v5e)"
+# the (point, Sobol' dim) cells of the float64 estimator's 2^20 QMC points
+# (seed 0, 128 dims) whose fp32 uniform rounds to 1.0; before the repair the
+# kernels drew 11.46 sigma there (tests/test_torch_rbergomi_kernel.py finds them)
+RB_UNIT_CELLS = ((894640, 0), (747354, 60), (410584, 94))
+# the sloped forward-variance curve of the curve route (K18)
+RB_CURVE_TENORS, RB_CURVE_LEVELS = (0.25, 0.5, 1.0), (0.035, 0.04, 0.045)
+RB_CURVE = (RB_CURVE_TENORS, RB_CURVE_LEVELS)  # xi0's place in rb_vjp_inputs: K18's inputs
+# the kernel's curve gradients against the float64 estimator's on the same
+# QMC points (tests/test_torch_rbergomi_curve.py CURVE_GRAD_RTOL: 5.9e-7 at
+# 65,536 pairs on the CPU), of each gradient plus of the largest
+RB_CURVE_GRAD_RTOL = 1e-4
+RB_FLAT_RTOL = 1e-5  # K18's n per-step fp32 rows summed against K17's one row
+# the rough-Bergomi surface on the 3 x 5 grid: 128 steps over two years
+# split (32, 32, 64) over the gaps, so each expiry's grid has K19's step count
+# at that expiry (32, 64, 128), uniform to 1% of a step
+RB_SURF_STEPS = 128
+RB_SURF_PAIRS, RB_SURF_SEEDS = 2**19, 8  # float64 surface: 8 seeds give each point's SE
+RB_SURF_SMILE_BLOCKS = 1024  # K19 at each expiry: 1024 x 2048 = 2^21 pairs a seed
+RB_ALLOWANCE_PAIRS = 2**12  # the CPU's coupled scheme gaps (rb_surface_allowance)
 
 
 class PhaseError(RuntimeError):
@@ -226,9 +255,11 @@ def compare_values(name: str, got, want, tol=None, mean_rtol: float = MEAN_RTOL)
     mean_rel = abs(float(got.double().mean() / want.double().mean()) - 1.0)
     max_abs = float(diff.max())
     worst = int(diff.argmax())
+    index = tuple(int(i) for i in torch.unravel_index(torch.tensor(worst), got.shape))
     say(f"  {name}: {share:.6f} of {got.numel()} values within rel {tol['rel']:g} "
         f"(floor {tol['floor']:g}); mean rel diff {mean_rel:.3e}; max abs diff {max_abs:.3e} "
-        f"(kernel {float(got.reshape(-1)[worst]):.8g}, twin {float(want.reshape(-1)[worst]):.8g})")
+        f"at index {index} (kernel {float(got.reshape(-1)[worst]):.8g}, twin "
+        f"{float(want.reshape(-1)[worst]):.8g})")
     check(share >= tol["share"], f"{name}: only {share:.6f} of values within tolerance")
     check(mean_rel <= mean_rtol, f"{name}: mean differs by {mean_rel:.3e} > {mean_rtol:g}")
     return max_abs
@@ -292,8 +323,9 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     """(fp32 FLOPs, MUFU operations, bytes) of one call of kernel ``name``
     on ``pairs`` antithetic pairs and ``steps`` steps (segments for K2/K3;
     for the surfaces K4/K9/K12 the steps or segments of all expiry segments
-    and ``points`` (expiry, strike) points, each closed twice per pair);
-    bytes count each output written once (K11, K17: the cotangent read once)."""
+    and ``points`` (expiry, strike) points, each closed twice per pair; for
+    K19 ``points`` strikes); bytes count each output written once (K11, K17,
+    K18: the cotangent read once)."""
     mix_draw = _ops((2, SOBOL_U), NDTRI, (1, 0)) if qmc else _ops((0.5, BOX_MULLER), (2, 0))
     mix = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (2, CLOSE))
     qem_draw = _ops((3, SOBOL_U), (2, NDTRI), (1, 0)) if qmc else _ops(BOX_MULLER, (2, 0))
@@ -313,6 +345,13 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     rb_step = _ops((11, 0), EXP, SQRT, (2, RCP))
     rb = _ops(rb_draw, rb_product, (steps - 1, rb_step), (2, _ops((4, 0), CLOSE)))
     rb_tan = _ops(rb, rb_product, (steps - 1, (26, 0)), (2, _ops((24, 0), EXP)))
+    # K18: K17's work, then the replayed product and steps and one row a step
+    rb_curve = _ops(rb_tan, (28, 0), rb_product, (steps - 1, rb_step), (steps, (12, 0)))
+    # K19: the primal sums, each group's strike-free close once, then per
+    # point and group d1, d2, two normal CDFs and the value
+    rb_smile = _ops(rb_draw, rb_product, (steps - 1, rb_step),
+                    (2, _ops((6, 0), EXP, SQRT, RCP)),
+                    (points, _ops((2, _ops((10, 0), (2, NCDF))), (1, 0))))
     surfaces = {  # per pair; bytes: one float64 per point and column, written once
         "heston_qe_mixing_surface_price": (surf_qe, 8 * points),
         "heston_exact_mixing_surface_price": (surf_exact, 8 * points),
@@ -336,6 +375,8 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
         "rbergomi_mixing_vanilla_price": (_ops(rb, (2, 0)), 0),
         "rbergomi_mixing_price_and_greeks": (_ops(rb_tan, (12, 0)), 0),
         "_rb_values_vjp": (_ops(rb_tan, (28, 0)), 8),
+        "_rb_values_vjp_curve": (rb_curve, 8),
+        "rbergomi_mixing_smile_price": (rb_smile, 0),
     }[name]
     return per_pair[0] * pairs, per_pair[1] * pairs, out_bytes * pairs
 
@@ -1517,11 +1558,14 @@ def rb_device_inputs(pairs: int, qmc: bool, seed: int, device, tangent: bool, vj
 
 
 def phase_rb_kernels(pairs: int, device: str) -> dict:
-    """K14-K17 against their plain twins on the card at ``pairs`` antithetic
+    """K14-K19 against their plain twins on the card at ``pairs`` antithetic
     pairs x 64 steps, both streams: K14 per path, K15 against K14's mean,
     K16's price equal to K15's, K16 and K17 sums against their twins,
-    autograd through K14 -> K17 against K16's greeks.  Returns the kernels'
-    records (PRNG stream, without launch counts)."""
+    autograd through K14 -> K17 against K16's greeks; K18's n + 6 sums under
+    the sloped curve against its twin and, under a flat curve, its bucket
+    vegas against K17's xi0 gradient; K19's 17 strike sums against its twin,
+    its strike 100 equal to K15's.  Returns the kernels' records (PRNG
+    stream, without launch counts)."""
     import torch
 
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
@@ -1591,8 +1635,47 @@ def phase_rb_kernels(pairs: int, device: str) -> dict:
         ms17 = time_ms(lambda: rk._rb_vjp_sums(v_inp, ct, pairs, True, 5, 0, 0))
         plain17 = time_ms(lambda: rk.rbergomi_mixing_vjp_sums_plain(v_inp, ct, pairs, True, 5, 0,
                                                                      0), reps=2)
+
+        # K18 under the sloped curve against its twin, then under a flat curve
+        # against K17 on K17's stream and cotangent
+        c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, g_ins.horizon, STRIKE, 1.0,
+                                 steps=RB_STEPS, seed=5, qmc=qmc, device=dev)
+        sums18 = rk._rb_vjp_sums(c_inp, ct, pairs, True, 5, 0, 0, per_step=True)
+        want18 = rk.rbergomi_mixing_vjp_curve_sums_plain(c_inp, ct, pairs, True, 5, 0, 0)
+        compare_vectors(f"K18 sums against the twin ({stream}, {RB_STEPS} per-step rows + 6)",
+                        sums18, want18, SUM_RTOL)
+        err18 = float(((sums18 - want18) / (2 * pairs)).abs().max())
+        ms18 = time_ms(lambda: rk._rb_vjp_sums(c_inp, ct, pairs, True, 5, 0, 0, per_step=True))
+        plain18 = time_ms(lambda: rk.rbergomi_mixing_vjp_curve_sums_plain(c_inp, ct, pairs, True, 5,
+                                                                           0, 0), reps=2)
+        rest = (*RB_SCALARS, g_ins.horizon, STRIKE, 1.0, ct)
+        kw = dict(n_paths=pairs, steps=RB_STEPS, seed=5, antithetic=True, qmc=qmc)
+        flat18 = rk._rb_values_vjp_curve(SPOT, [RB_MARKET["xi0"]] * 3, RB_CURVE_TENORS, *rest, **kw)
+        flat17 = rk._rb_values_vjp(SPOT, RB_MARKET["xi0"], *rest, **kw)
+        vegas = float(flat18[1].sum())
+        rel = abs(vegas / float(flat17[1]) - 1.0)
+        say(f"  K18 under a flat curve ({stream}): bucket vegas {flat18[1].tolist()} sum to "
+            f"{vegas!r}, K17's xi0 gradient {float(flat17[1])!r}: rel {rel:.3e} (limit "
+            f"{RB_FLAT_RTOL:g}); tenor sensitivities {flat18[2].tolist()}")
+        check(rel <= RB_FLAT_RTOL, f"K18 ({stream}): flat-curve vegas disagree with K17's xi0")
+        check(flat18[2].tolist() == [0.0] * 3, f"K18 ({stream}): tenor sensitivities of a flat curve")
+
+        # K19 on the 17-strike grid against its twin; its strike 100 against K15
+        ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
+        sums19 = rk._rb_smile_sums(inp, ks, pairs, 5, 0, 0)
+        want19 = rk.rbergomi_mixing_smile_sums_plain(inp, ks, pairs, 5, 0, 0)
+        compare_vectors(f"K19 sums against the twin ({stream}, {len(CAL_STRIKES)} strikes)",
+                        sums19, want19, SURF_RTOL)
+        k15_sum = float(rk._rb_price_sum(inp, pairs, 5, 0, 0))
+        at_k = CAL_STRIKES.index(STRIKE)
+        check(float(sums19[at_k]) == k15_sum, f"K19 ({stream}) at K = {STRIKE:g} differs from K15")
+        err19 = disc * float(((sums19 - want19) / (2 * pairs)).abs().max())
+        ms19 = time_ms(lambda: rk._rb_smile_sums(inp, ks, pairs, 5, 0, 0))
+        plain19 = time_ms(lambda: rk.rbergomi_mixing_smile_sums_plain(inp, ks, pairs, 5, 0, 0),
+                          reps=2)
         for name, ms, plain in (("K14", ms14, plain14), ("K15", ms15, plain15),
-                                ("K16", ms16, plain16), ("K17", ms17, plain17)):
+                                ("K16", ms16, plain16), ("K17", ms17, plain17),
+                                ("K18", ms18, plain18), ("K19", ms19, plain19)):
             say(f"  {name} ({stream}): kernel {ms:.4f} ms, plain twin {plain:.4f} ms")
 
         # autograd of D·mean(values) through the view (K14 forward, K17
@@ -1616,7 +1699,9 @@ def phase_rb_kernels(pairs: int, device: str) -> dict:
                 ("rbergomi_mixing_values", 235, err14, ms14, plain14),
                 ("rbergomi_mixing_vanilla_price", 339, err15, ms15, plain15),
                 ("rbergomi_mixing_price_and_greeks", 613, err16, ms16, plain16),
-                ("_rb_values_vjp", 923, err17, ms17, plain17)):
+                ("_rb_values_vjp", 923, err17, ms17, plain17),
+                ("_rb_values_vjp_curve", 1115, err18, ms18, plain18),
+                ("rbergomi_mixing_smile_price", 1398, err19, ms19, plain19)):
             records[name] = dict(source=src, replaces=f"hedgehog_tpu/ops/rbergomi_kernel.py:{line}",
                                  max_abs_err=err, ms=ms, plain_ms=plain)
     return records
@@ -1627,22 +1712,28 @@ def phase_rb_shapes(device: str) -> dict:
     gives it, with the tolerances of phase_rb_kernels: K14 and K17 at
     solve's (and autograd's) pairs on both streams, seed 0 as ``solve`` draws
     them, K17 under the cotangent of solve's backward (discount / (2 pairs)
-    on every value); K15 and K16 at the serving shape (2^24 pairs, the
-    serving PRNG stream) against their chunked twins.  Returns each kernel's
-    largest absolute difference (values; price; greek or gradient sums in
-    price units)."""
+    on every value), K18 under the same cotangent and the sloped curve;
+    K15 and K16 at the serving shape (2^24 pairs, the serving PRNG stream)
+    against their chunked twins; K19 at the serving shape on both streams,
+    each of its 17 strikes equal to K15's at that strike to the bit and its
+    sums against the chunked twin, and at each expiry of the surface phase
+    with its step count there (2^21 pairs, PRNG).  Returns each
+    kernel's largest absolute difference (values; price; greek or gradient
+    sums in price units)."""
     import torch
 
+    import hedgehog_tpu_torch as ht
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
     pairs = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
     seed = SERVING_CHECK_SEED
-    say(f"phase 2 (rough-Bergomi path shapes): K14 and K17 at {SOLVE_PAIRS} pairs x {RB_STEPS} "
-        f"steps (seed 0, both streams; K17 under solve's cotangent); K15 and K16 at {pairs} pairs "
-        f"(PRNG seed {seed}) against the chunked twins ({rk.PLAIN_CHUNK} pairs a chunk)")
+    say(f"phase 2 (rough-Bergomi path shapes): K14, K17 and K18 at {SOLVE_PAIRS} pairs x "
+        f"{RB_STEPS} steps (seed 0, both streams; K17 and K18 under solve's cotangent); K15, K16 "
+        f"and K19 at {pairs} pairs (seed {seed}) against the chunked twins ({rk.PLAIN_CHUNK} "
+        f"pairs a chunk); K19 at the surface's step counts {rb_surface_steps()}")
     t0 = time.perf_counter()
     dev = torch.device(device)
-    e14, e17 = [], []
+    e14, e17, e18 = [], [], []
     for qmc in (True, False):
         stream = "QMC" if qmc else "PRNG"
         ins, inp = rb_device_inputs(SOLVE_PAIRS, qmc, 0, dev, tangent=False)
@@ -1659,6 +1750,13 @@ def phase_rb_shapes(device: str) -> dict:
         want = rk.rbergomi_mixing_vjp_sums_plain(v_inp, ct, SOLVE_PAIRS, True, 0, 0, 0)
         e17.append(compare_vectors(f"K17 sums under solve's cotangent ({stream}, {SOLVE_PAIRS} "
                                    f"pairs)", sums, want, SUM_RTOL))
+        c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0, steps=RB_STEPS,
+                                 seed=0, qmc=qmc, device=dev)
+        sums = rk._rb_vjp_sums(c_inp, ct, SOLVE_PAIRS, True, 0, 0, 0, per_step=True)
+        want = rk.rbergomi_mixing_vjp_curve_sums_plain(c_inp, ct, SOLVE_PAIRS, True, 0, 0, 0)
+        e18.append(compare_vectors(f"K18 sums under solve's cotangent and the sloped curve "
+                                   f"({stream}, {SOLVE_PAIRS} pairs)", sums, want, SUM_RTOL))
+        del sums, want
     t1 = time.perf_counter()
     ins, inp = rb_device_inputs(pairs, False, seed, dev, tangent=False)
     _, g_inp = rb_device_inputs(pairs, False, seed, dev, tangent=True)
@@ -1672,11 +1770,48 @@ def phase_rb_shapes(device: str) -> dict:
     check(float(sums[0]) == float(got), "K16's price sum differs from K15's at the serving shape")
     want16 = rk.rbergomi_mixing_greek_sums_plain(g_inp, pairs, seed, 0, 0)
     compare_vectors(f"K16 sums ({pairs} pairs)", sums, want16, SUM_RTOL)
-    say(f"  phase took {time.perf_counter() - t0:.1f} s (K14 and K17 {t1 - t0:.1f} s)")
+    t2 = time.perf_counter()
+    # K19 at the serving shape: each strike K15's to the bit, the sums
+    # against the chunked twin
+    e19 = []
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        s_ins, s_inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=False)
+        ks = rk.smile_strikes(s_ins.f_base, CAL_STRIKES, dev)
+        smile = rk._rb_smile_sums(s_inp, ks, pairs, seed, 0, 0)
+        k15 = [float(rk._rb_price_sum(rk.rb_inputs_from_trace(
+            s_ins._replace(strike=k, log_f_over_k=math.log(s_ins.f_base / k)), seed=seed, qmc=qmc,
+            device=dev), pairs, seed, 0, 0)) for k in CAL_STRIKES]
+        equal = sum(float(a) == b for a, b in zip(smile, k15))
+        say(f"  K19 ({stream}, {pairs} pairs, {len(CAL_STRIKES)} strikes): {equal} of "
+            f"{len(CAL_STRIKES)} strike sums equal K15's at that strike to the bit")
+        check(equal == len(CAL_STRIKES), f"K19 ({stream}) differs from K15 at the serving shape")
+        want19 = rk.rbergomi_mixing_smile_sums_plain(s_inp, ks, pairs, seed, 0, 0)
+        compare_vectors(f"K19 sums ({stream}, {pairs} pairs)", smile, want19, SURF_RTOL)
+        e19.append(disc * float(((smile - want19) / (2 * pairs)).abs().max()))
+    # K19 at the other step counts the surface phase gives it: each expiry of
+    # the surface grid on the first seed of its PRNG smiles
+    market = rb_problem().market_inputs
+    surf_pairs = RB_SURF_SMILE_BLOCKS * rk.PAIRS_PER_BLOCK
+    for expiry, n in zip(SURF_EXPIRIES, rb_surface_steps()):
+        cfg = ht.SimulationConfig(surf_pairs, n, ht.Antithetic(), 200, False)
+        s_ins = rk._rb_trace_inputs(ht.PricingProblem(ht.VanillaOption(STRIKE, expiry), market),
+                                    cfg, 64)
+        s_inp = rk.rb_inputs_from_trace(s_ins, seed=200, qmc=False, device=dev)
+        ks = rk.smile_strikes(s_ins.f_base, SURF_STRIKES, dev)
+        smile = rk._rb_smile_sums(s_inp, ks, surf_pairs, 200, 0, 0)
+        want19 = rk.rbergomi_mixing_smile_sums_plain(s_inp, ks, surf_pairs, 200, 0, 0)
+        compare_vectors(f"K19 sums (PRNG, {surf_pairs} pairs, {n} steps to {expiry}, "
+                        f"{len(SURF_STRIKES)} strikes)", smile, want19, SURF_RTOL)
+        e19.append(s_ins.discount * float(((smile - want19) / (2 * surf_pairs)).abs().max()))
+    say(f"  phase took {time.perf_counter() - t0:.1f} s (K14, K17 and K18 {t1 - t0:.1f} s, K19 "
+        f"{time.perf_counter() - t2:.1f} s)")
     return {"rbergomi_mixing_values": max(e14), "_rb_values_vjp": max(e17),
+            "_rb_values_vjp_curve": max(e18),
             "rbergomi_mixing_vanilla_price": disc * abs(float(got) - float(want)) / (2 * pairs),
             "rbergomi_mixing_price_and_greeks": disc * float(((sums - want16) / (2 * pairs))
-                                                             .abs().max())}
+                                                             .abs().max()),
+            "rbergomi_mixing_smile_price": max(e19)}
 
 
 def phase_rb_occupancy(device: str) -> dict:
@@ -1757,6 +1892,12 @@ def phase_rb_path(device: str) -> dict:
         f"(limit {RB_F64_MEAN_RTOL * 1e4:g} bp)")
     same_err = compare_values("kernel solve against the float64 estimator per path (QMC)",
                               same_ens, f64_ens, RB_F64_TOL, mean_rtol=RB_F64_MEAN_RTOL)
+    for point, dim in RB_UNIT_CELLS:  # the cells whose fp32 uniform rounds to 1.0
+        got, want = same_ens[:, point].double(), f64_ens[:, point].double()
+        rel = float(((got - want).abs() / want.abs().clamp(min=RB_F64_TOL["floor"])).max())
+        say(f"  point {point} (Sobol' dim {dim} at u = 1.0 in fp32): kernel {got.tolist()} vs "
+            f"float64 {want.tolist()}, rel {rel:.3e} (limit {RB_F64_TOL['rel']:g})")
+        check(rel <= RB_F64_TOL["rel"], f"rough Bergomi: point {point} off the float64 estimator")
     del f64_ens, same_ens
     out["float64"] = dict(price=f64_price, se=f64_se, pairs=RB_F64_PAIRS,
                           kernel_same_points_bp=(same_price - f64_price) / f64_price * 1e4,
@@ -1785,7 +1926,8 @@ def phase_rb_path(device: str) -> dict:
             f"{RB_ETA0_ALLOWANCE_BP:g} bp = {lim0:.3e}")
         check(abs(eta0 - bs) <= lim0, f"rough Bergomi {stream}: eta = 0 is not Black-Scholes")
         out[stream] = dict(price=call, se=se, vs_float64_bp=diff / f64_price * 1e4,
-                           parity_err=call - put - parity, eta0_err_bp=(eta0 - bs) / bs * 1e4)
+                           parity_err=call - put - parity, parity_se=pse,
+                           eta0_err_bp=(eta0 - bs) / bs * 1e4)
 
     # autograd through the kernel-backed solve (K14 forward, K17 backward)
     # against K16 over the same PRNG pairs
@@ -1811,6 +1953,211 @@ def phase_rb_path(device: str) -> dict:
     compare_vectors("autograd through solve against K16 greeks", grads, greeks, AUTOGRAD_RTOL)
     out["autograd_s"] = seconds
     return out
+
+
+def phase_rb_curve(device: str) -> dict:
+    """``solve`` with RoughBergomiMixing(use_kernel=True) under the sloped
+    forward-variance curve: on the float64 estimator's 2^20 QMC points its
+    autograd (K14 forward, K18 backward) against the float64 estimator's in
+    the three bucket vegas, spot, eta, H, rho and the rate; at 2^22 pairs on
+    both streams its price within 4 combined SE of the float64 estimator and
+    finite gradients through K18."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    say(f"phase 3 (rough Bergomi, forward-variance curve): tenors {RB_CURVE_TENORS}, levels "
+        f"{RB_CURVE_LEVELS}; gradients of the kernel solve (K14 -> K18) against the float64 "
+        f"estimator's within {RB_CURVE_GRAD_RTOL:g} of each plus of the largest "
+        "(tests/test_torch_rbergomi_curve.py)")
+    disc = float(ht.df(rb_problem().market_inputs.rate, RB_EXPIRY))
+    names = [f"xi@{t:g}" for t in RB_CURVE_TENORS] + ["spot", "eta", "hurst", "rho", "rate"]
+
+    def run(strat, cfg):
+        xi = torch.tensor(RB_CURVE_LEVELS, dtype=torch.float64, requires_grad=True)
+        scalars = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+                   for x in (SPOT, *RB_SCALARS)]
+        spot, eta, hurst, rho, r = scalars
+        market = ht.RoughBergomiInputs(REF, r, spot, ht.ForwardVarianceCurve(RB_CURVE_TENORS, xi),
+                                       eta, hurst, rho)
+        t0 = time.perf_counter()
+        sol = ht.solve(ht.PricingProblem(rb_problem().payoff, market),
+                       ht.MonteCarlo(ht.RoughBergomiDynamics(), strat, cfg, device=device))
+        grads = torch.autograd.grad(sol.price, [xi, *scalars])
+        seconds = time.perf_counter() - t0
+        ens = sol.ensemble.detach()
+        check(bool(torch.isfinite(ens).all()), "curve solve: non-finite values")
+        return (float(sol.price.detach()), rb_se(ens, cfg.trajectories, disc),
+                torch.cat([g.reshape(-1) for g in grads]).cpu(), seconds)
+
+    kernel = ht.RoughBergomiMixing(use_kernel=True)
+    f64_price, f64_se, f64_grads, f64_s = run(ht.RoughBergomiMixing(), rb_config(RB_F64_PAIRS, True))
+    say(f"  float64 estimator (QMC, {RB_F64_PAIRS} pairs): {f64_price:.10f} +- {f64_se:.3e}, "
+        f"gradients {dict(zip(names, (round(float(g), 8) for g in f64_grads)))}, host "
+        f"{f64_s:.3f} s (forward + backward)")
+    before = rk.RB_VJP_CURVE_KERNEL.launches
+    k_price, _, k_grads, k_s = run(kernel, rb_config(RB_F64_PAIRS, True))
+    check(rk.RB_VJP_CURVE_KERNEL.launches == before + 1, "the curve solve's backward ran no K18")
+    rel = abs(k_price / f64_price - 1.0)
+    say(f"  kernel solve on the same points: {k_price:.10f} (rel {rel:.3e}, limit "
+        f"{RB_F64_MEAN_RTOL:g}), host {k_s:.3f} s (forward + backward)")
+    check(rel <= RB_F64_MEAN_RTOL, "curve solve: kernel and float64 prices on the same points")
+    err = compare_vectors("curve gradients: K14 -> K18 against the float64 estimator's autograd",
+                          k_grads, f64_grads, RB_CURVE_GRAD_RTOL)
+    out = dict(float64=dict(price=f64_price, se=f64_se, grads=f64_grads.tolist()),
+               same_points=dict(price=k_price, grads=k_grads.tolist(), max_abs=err))
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        price, se, grads, seconds = run(kernel, rb_config(SOLVE_PAIRS, qmc))
+        diff = price - f64_price
+        lim = 4.0 * math.hypot(se, f64_se)
+        say(f"  {stream}, {SOLVE_PAIRS} pairs: {price:.10f} (SE {se:.3e}), against the float64 "
+            f"estimator {diff:+.3e}, 4 combined SE {lim:.3e}; gradients "
+            f"{dict(zip(names, (round(float(g), 8) for g in grads)))}, host {seconds:.3f} s")
+        check(abs(diff) <= lim, f"curve solve ({stream}): kernel and float64 estimator disagree")
+        check(bool(torch.isfinite(grads).all()), f"curve solve ({stream}): non-finite gradients")
+        out[stream] = dict(price=price, se=se, grads=grads.tolist(), host_s=seconds)
+    return out
+
+
+def phase_rb_smile(rb_path: dict, device: str) -> dict:
+    """``rbergomi_kernel_smile`` (K19) on the 17-strike grid: at 2^24 pairs on
+    both streams, calls falling in the strike and put-call parity per strike
+    within 4 SE (the forward's SE from solve's call - put ensemble, scaled to
+    2^24 pairs); on the float64 estimator's 2^20 QMC points, against its
+    strike-grid solve within RB_F64_MEAN_RTOL of each plus of the largest."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
+    say(f"phase 3 (rough Bergomi, smile): rbergomi_kernel_smile at {pairs} pairs x {RB_STEPS} "
+        f"steps, strikes {CAL_STRIKES[0]:g}-{CAL_STRIKES[-1]:g}")
+    disc = float(ht.df(rb_problem().market_inputs.rate, RB_EXPIRY))
+    strikes = torch.tensor(CAL_STRIKES, dtype=torch.float64)
+    out = {}
+    for qmc in (True, False):
+        stream = "QMC" if qmc else "PRNG"
+        kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, device=device)
+        calls = rk.rbergomi_kernel_smile(rb_problem(), rb_config(pairs, qmc), CAL_STRIKES, **kw)
+        puts = rk.rbergomi_kernel_smile(rb_problem("put"), rb_config(pairs, qmc), CAL_STRIKES, **kw)
+        calls, puts = calls.cpu(), puts.cpu()
+        check(bool(torch.isfinite(calls).all() and torch.isfinite(puts).all()),
+              f"smile ({stream}): non-finite prices")
+        check(bool((calls[1:] < calls[:-1]).all()), f"smile ({stream}): calls not falling in K")
+        parity_err = calls - puts - (SPOT - disc * strikes)
+        se = rb_path[stream]["parity_se"] * math.sqrt(SOLVE_PAIRS / pairs)
+        worst = float(parity_err.abs().max())
+        say(f"  {stream}: calls {[round(float(c), 6) for c in calls]}; C - P - DF (F - K) within "
+            f"{worst:.3e} over the strikes (4 SE = {4 * se:.3e})")
+        check(worst <= 4 * se, f"smile ({stream}): put-call parity fails")
+        out[stream] = dict(calls=calls.tolist(), parity_err=worst, parity_se=se)
+    grid = ht.PricingProblem(ht.VanillaOption(strikes, RB_EXPIRY), rb_problem().market_inputs)
+    f64 = ht.solve(grid, ht.MonteCarlo(ht.RoughBergomiDynamics(), ht.RoughBergomiMixing(),
+                                       rb_config(RB_F64_PAIRS, True), device=device)).price
+    same = rk.rbergomi_kernel_smile(rb_problem(), rb_config(RB_F64_PAIRS, True), CAL_STRIKES,
+                                    n_blocks=RB_F64_PAIRS // rk.PAIRS_PER_BLOCK, n_batches=1,
+                                    device=device)
+    err = compare_vectors(f"K19 against the float64 estimator's strike grid ({RB_F64_PAIRS} QMC "
+                          "pairs, the same points)", same, f64, RB_F64_MEAN_RTOL)
+    out["float64_same_points_max_abs"] = err
+    return out
+
+
+def rb_surface_allowance(market) -> list:
+    """Per expiry and strike, the scheme gap between the surface's grid up to
+    that expiry and K19's uniform grid with as many steps, measured on the
+    CPU on coupled paths: the float64 surface over the expiries up to it
+    against the one-expiry surface with the same step count (the same
+    Sobol' points feed the same roles, so the gap is the grids', not noise).
+    The first expiry's grid is uniform already: its gap is 0."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    steps = rb_surface_steps()
+    rows = [torch.zeros(len(SURF_STRIKES), dtype=torch.float64)]
+    for i in range(1, len(SURF_EXPIRIES)):
+        cfg = ht.SimulationConfig(RB_ALLOWANCE_PAIRS, steps[i], ht.Antithetic(), 0, True)
+        multi = ht.rbergomi_surface_mc(market, SURF_EXPIRIES[: i + 1], SURF_STRIKES, cfg,
+                                       device="cpu")[i]
+        single = ht.rbergomi_surface_mc(market, SURF_EXPIRIES[i: i + 1], SURF_STRIKES, cfg,
+                                        device="cpu")[0]
+        rows.append((multi - single).abs())
+    return rows
+
+
+def rb_surface_steps() -> list:
+    """The steps of the rough-Bergomi surface's grid up to each expiry: K19's
+    step count at that expiry."""
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.methods.rough_bergomi_surface import surface_times
+
+    _, idx = surface_times([float(ht.yearfrac(REF, e)) for e in SURF_EXPIRIES], RB_SURF_STEPS)
+    return [k + 1 for k in idx]
+
+
+def phase_rb_surface(device: str) -> dict:
+    """The float64 ``rbergomi_surface_mc`` on the card (PRNG, 8 seeds of 2^19
+    pairs, 128 steps over the 3 x 5 surface grid) against K19 at each expiry
+    with the surface's step count there (8 seeds of 2^21 pairs): each point
+    within 4 combined SE plus the CPU's coupled scheme gap; then
+    d(sum surface)/dH finite on the card."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    market = rb_problem().market_inputs
+    steps = rb_surface_steps()
+    say(f"phase 3 (rough Bergomi, surface): rbergomi_surface_mc float64 on {device}, "
+        f"{len(SURF_EXPIRIES)} x {len(SURF_STRIKES)} points, {RB_SURF_STEPS} steps (grid steps to "
+        f"each expiry {steps}), {RB_SURF_SEEDS} PRNG seeds of {RB_SURF_PAIRS} pairs; K19 at each "
+        f"expiry with those steps, {RB_SURF_SEEDS} seeds of "
+        f"{RB_SURF_SMILE_BLOCKS * rk.PAIRS_PER_BLOCK} pairs")
+    t0 = time.perf_counter()
+    allowance = torch.stack(rb_surface_allowance(market))
+    say(f"  scheme allowance (CPU, coupled QMC paths, {RB_ALLOWANCE_PAIRS} pairs; "
+        f"{time.perf_counter() - t0:.1f} s): {[[float(f'{x:.3e}') for x in row] for row in allowance]}")
+    t0 = time.perf_counter()
+    surfs = torch.stack([ht.rbergomi_surface_mc(
+        market, SURF_EXPIRIES, SURF_STRIKES,
+        ht.SimulationConfig(RB_SURF_PAIRS, RB_SURF_STEPS, ht.Antithetic(), 100 + s, False),
+        device=device).cpu() for s in range(RB_SURF_SEEDS)])
+    torch.cuda.synchronize()
+    surf_s = time.perf_counter() - t0
+    smiles = torch.stack([torch.stack([rk.rbergomi_kernel_smile(
+        ht.PricingProblem(ht.VanillaOption(STRIKE, e), market),
+        ht.SimulationConfig(RB_SURF_SMILE_BLOCKS * rk.PAIRS_PER_BLOCK, n, ht.Antithetic(), 200 + s,
+                            False), SURF_STRIKES,
+        n_blocks=RB_SURF_SMILE_BLOCKS, n_batches=1, device=device).cpu()
+        for e, n in zip(SURF_EXPIRIES, steps)]) for s in range(RB_SURF_SEEDS)])
+    check(bool(torch.isfinite(surfs).all() and torch.isfinite(smiles).all()),
+          "surface: non-finite prices")
+    surf, smile = surfs.mean(dim=0), smiles.mean(dim=0)
+    se = torch.hypot(surfs.std(dim=0), smiles.std(dim=0)) / math.sqrt(RB_SURF_SEEDS)
+    diff = surf - smile
+    ratio = diff.abs() / (4 * se + allowance)
+    say(f"  surface ({surf_s:.2f} s for {RB_SURF_SEEDS} surfaces): "
+        f"{[[round(float(x), 6) for x in row] for row in surf]}")
+    bp = diff / smile * 1e4
+    say(f"  surface - K19 in bp: {[[round(float(x), 3) for x in row] for row in bp]}; worst "
+        f"|diff| / (4 combined SE + allowance) {float(ratio.max()):.3f}")
+    check(bool((ratio <= 1.0).all()), "surface: a point off K19 beyond 4 SE + the scheme allowance")
+    hurst = torch.tensor(RB_MARKET["hurst"], dtype=torch.float64, requires_grad=True)
+    small = ht.RoughBergomiInputs(REF, R, SPOT, RB_MARKET["xi0"], RB_MARKET["eta"], hurst,
+                                  RB_MARKET["rho"])
+    total = ht.rbergomi_surface_mc(small, SURF_EXPIRIES, SURF_STRIKES,
+                                   ht.SimulationConfig(2**16, RB_SURF_STEPS, ht.Antithetic(), 1,
+                                                       False), device=device).sum()
+    (g,) = torch.autograd.grad(total, hurst)
+    say(f"  d(sum surface)/dH on {device} (2^16 pairs): {float(g):.6f}")
+    check(bool(torch.isfinite(g)), "surface: non-finite dH")
+    return dict(surface=surf.tolist(), vs_k19_bp=bp.tolist(),
+                worst_ratio=float(ratio.max()), allowance=allowance.tolist(), surface_s=surf_s,
+                d_sum_dH=float(g))
 
 
 def phase_rb_serving(f64: dict, device: str) -> dict:
@@ -1883,11 +2230,173 @@ def phase_rb_serving(f64: dict, device: str) -> dict:
         say(f"  {name}: K16 {greeks[name]:.8f} vs central difference of K15 (h={h:g}, same stream) "
             f"{fd:.8f} (rtol {rtol:g})")
         check(abs(greeks[name] - fd) <= rtol * abs(fd), f"rough Bergomi serving: {name} greek")
+
+    # K19: the 17-strike smile from one dispatch of the same shape; its strike
+    # 100 is K15's price on the same seed
+    smile_args = (*ins.price_args()[:5], CAL_STRIKES, ins.cp, ins.rho, ins.discount)
+    s_ms, smiles = timed(lambda seed: rk.rbergomi_mixing_smile_price(*smile_args, seed=seed, **kw))
+    at_k = CAL_STRIKES.index(STRIKE)
+    check([float(s[at_k]) for s in smiles] == values,
+          "rough Bergomi serving: K19's strike 100 differs from K15's price")
+    check(all(bool(torch.isfinite(s).all()) for s in smiles), "rough Bergomi serving: K19 prices")
+    s_ratio = s_ms / ms
+    say(f"  smile, {len(CAL_STRIKES)} strikes: {s_ms:.3f} ms per call, {2 * pairs / (s_ms * 1e-3):.6e} "
+        f"paths/s, {len(CAL_STRIKES) * 2 * pairs / (s_ms * 1e-3):.6e} point-paths/s; K19 / K15 time "
+        f"ratio {s_ratio:.4f}; its K = {STRIKE:g} price equals K15's on all {SERVING_REPS} seeds")
+
+    # K18 at solve's shape (the backward of a curve solve) beside K17 (of a
+    # scalar-xi0 solve), under solve's cotangent
+    disc = ins.discount
+    ct = torch.full((2, SOLVE_PAIRS), disc / (2 * SOLVE_PAIRS), dtype=torch.float32,
+                    device=device)
+    c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0, steps=RB_STEPS,
+                             seed=0, qmc=False, device=device)
+    _, v_inp = rb_device_inputs(SOLVE_PAIRS, False, 0, device, tangent=True, vjp=True)
+    ms18 = time_ms(lambda: rk._rb_vjp_sums(c_inp, ct, SOLVE_PAIRS, True, 0, 0, 0, per_step=True))
+    ms17 = time_ms(lambda: rk._rb_vjp_sums(v_inp, ct, SOLVE_PAIRS, True, 0, 0, 0))
+    say(f"  backward at solve's {SOLVE_PAIRS} pairs (PRNG): K18 (curve) {ms18:.4f} ms, K17 (scalar "
+        f"xi0) {ms17:.4f} ms, K18 / K17 {ms18 / ms17:.4f}")
     return dict(ms=ms, paths_per_s=paths_per_s, price=mc, vs_float64_bp=diff_bp, greeks_ms=g_ms,
-                greek_price_ratio=ratio, greeks=greeks, wall_ms=wall_ms)
+                greek_price_ratio=ratio, greeks=greeks, wall_ms=wall_ms, smile_ms=s_ms,
+                smile_price_ratio=s_ratio, k18_solve_ms=ms18, k17_solve_ms=ms17)
+
+
+def kernel_name(mangled: str) -> str:
+    """The ``..._kernel`` identifier in a mangled entry name (a length
+    prefix then the identifier), else the name itself."""
+    for found in re.finditer(r"\d+", mangled):
+        for i in range(found.start(), found.end()):
+            n = int(mangled[i:found.end()])
+            ident = mangled[found.end():found.end() + n]
+            if len(ident) == n and ident.endswith("kernel"):
+                return ident
+    return mangled[:60]
+
+
+def output_digests(device: str) -> dict:
+    """The sha256 of each kernel's output bytes at ``CHECK_PAIRS`` antithetic
+    pairs, seed 5, on every stream the kernel draws: phase 2's calls through
+    the same entry points, without the twins.  The kernels the imported
+    package lacks are left out, so two trees compare on what both have."""
+    import hashlib
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_kernel as hk
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    dev, pairs, seed, mkt = torch.device(device), CHECK_PAIRS, 5, MARKET_ARGS
+    out = {}
+
+    def put(key, *outputs):
+        h = hashlib.sha256()
+        for x in outputs:
+            x = x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.float64)
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+        out[key] = h.hexdigest()
+
+    T = float(ht.yearfrac(REF, EXPIRY))
+    disc, dt_q, dt_m = math.exp(-R * T), T / QE_STEPS, T / QEM_STEPS
+    blocks = pairs // (4 * qk.PAIRS_PER_BLOCK)  # x 4 batches
+    T_host, discs, qe_seg, ex_seg = surface_grid()
+    vjp_table = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                                HESTON["sigma"], dt_q, QE_STEPS, 5), device=dev)
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=dev, dtype=torch.float32))).reshape(
+        2, pairs)
+    put("K1 PRNG", hk.heston_euler_terminal(*mkt, T / EULER_STEPS, n_paths=pairs, steps=EULER_STEPS,
+                                            seed=seed, antithetic=True, device=dev))
+    put("K6 PRNG", qk.heston_qe_call_price(*mkt, dt_m, STRIKE, disc, n_blocks=blocks, n_batches=4,
+                                           steps=QEM_STEPS, seed=seed, device=dev))
+    put("K13 PRNG", gbk.gbm_exact_terminal(*lognormal_law(T), n_paths=pairs, seed=seed,
+                                           antithetic=True, device=dev))
+    for qmc in (True, False):
+        s = "QMC" if qmc else "PRNG"
+        kw = dict(seed=seed, qmc=qmc, device=dev)
+        put(f"K2 {s}", ek.heston_exact_mixing_values(*mkt, T / SEGMENTS, STRIKE, 1.0, n_paths=pairs,
+                                                     segments=SEGMENTS, antithetic=True, **kw))
+        put(f"K3 {s}", ek.heston_exact_mixing_vanilla_price(*mkt, T / SEGMENTS, STRIKE, disc,
+                                                            n_blocks=blocks, n_batches=4,
+                                                            segments=SEGMENTS, **kw))
+        put(f"K5 {s}", qk.heston_qe_terminal(*mkt, dt_m, n_paths=pairs, steps=QEM_STEPS,
+                                             antithetic=True, **kw))
+        put(f"K7 {s}", qk.heston_qe_mixing_values(*mkt, dt_q, STRIKE, 1.0, n_paths=pairs,
+                                                  steps=QE_STEPS, antithetic=True, **kw))
+        price_kw = dict(n_blocks=blocks, n_batches=4, steps=QE_STEPS, **kw)
+        put(f"K8 {s}", qk.heston_qe_mixing_vanilla_price(*mkt, dt_q, STRIKE, disc, **price_kw))
+        put(f"K10 {s}", *gk.heston_qe_mixing_price_and_greeks(*mkt, dt_q, STRIKE, disc, **price_kw))
+        params, table = qk.mix_inputs(*mkt, dt_q, STRIKE, 1.0, QE_STEPS, seed, qmc, dev)
+        put(f"K11 {s}", gk._vjp_sums(params, vjp_table, table, ct, pairs, QE_STEPS, True, seed, 0, 0))
+        surf_kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=pairs // qk.PAIRS_PER_BLOCK,
+                       n_batches=1, **kw)
+        put(f"K9 {s}", qk.heston_qe_mixing_surface_price(*mkt, T_host, SURF_STRIKES, discs,
+                                                         seg_steps=qe_seg, **surf_kw))
+        put(f"K12 {s}", *gk.heston_qe_mixing_surface_price_and_jacobian(
+            *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
+        put(f"K4 {s}", ek.heston_exact_mixing_surface_price(*mkt, T_host, SURF_STRIKES, discs,
+                                                            seg_steps=ex_seg, **surf_kw))
+        ins, inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=False)
+        g_ins, _ = rb_device_inputs(pairs, qmc, seed, dev, tangent=True)
+        _, v_inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=True, vjp=True)
+        rb_kw = dict(n_blocks=pairs // rk.PAIRS_PER_BLOCK, n_batches=1, steps=RB_STEPS, **kw)
+        put(f"K14 {s}", rk.rbergomi_mixing_values(*ins.values_args(), n_paths=pairs, steps=RB_STEPS,
+                                                  antithetic=True, **kw))
+        put(f"K15 {s}", rk.rbergomi_mixing_vanilla_price(*ins.price_args(), **rb_kw))
+        put(f"K16 {s}", *rk.rbergomi_mixing_price_and_greeks(*g_ins, **rb_kw))
+        put(f"K17 {s}", rk._rb_vjp_sums(v_inp, ct, pairs, True, seed, 0, 0))
+        if hasattr(rk, "RB_SMILE_KERNEL"):
+            c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
+                                     steps=RB_STEPS, **kw)
+            put(f"K18 {s}", rk._rb_vjp_sums(c_inp, ct, pairs, True, seed, 0, 0, per_step=True))
+            ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
+            put(f"K19 {s}", rk._rb_smile_sums(inp, ks, pairs, seed, 0, 0))
+    return out
+
+
+def digest_main(argv: list) -> int:
+    """``--digest OUT [--root DIR]``: build the kernels of the package in DIR
+    (default: beside this script) and write its :func:`output_digests` to
+    OUT as JSON.  ``--compare A B``: print, for every output either digest
+    file holds, whether the two trees' bytes are equal, then the counts."""
+    if argv[0] == "--compare" and len(argv) == 3:
+        a, b = (json.loads(open(p).read()) for p in argv[1:])
+        keys = sorted(set(a) | set(b), key=lambda k: (int(k.split()[0][1:]), k))
+        same = [k for k in keys if k in a and k in b and a[k] == b[k]]
+        for k in keys:
+            state = "only in one" if (k in a) != (k in b) else "equal" if k in same else "DIFFERENT"
+            say(f"  {k}: {state}")
+        both = sum(k in a and k in b for k in keys)
+        say(json.dumps({"compared": both, "equal": len(same),
+                        "different": [k for k in keys if k in a and k in b and k not in same],
+                        "only_in_one": [k for k in keys if (k in a) != (k in b)]}))
+        return 0
+    if argv[0] != "--digest" or len(argv) not in (2, 4) or (len(argv) == 4 and argv[2] != "--root"):
+        print("usage: chip_smoke.py [--digest OUT [--root DIR] | --compare A B]", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if len(argv) == 4:
+        sys.path.insert(0, argv[3])
+    from hedgehog_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.build_library()
+    cuda_lib.load_library()
+    digests = output_digests("cuda")
+    with open(argv[1], "w") as f:
+        json.dump(digests, f, indent=1)
+    say(f"{len(digests)} output digests of the kernels built into {lib.parent}")
+    return 0
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1918,7 +2427,9 @@ def main() -> int:
     from hedgehog_tpu_torch.ops.rbergomi_kernel import (
         RB_GREEKS_KERNEL,
         RB_PRICE_KERNEL,
+        RB_SMILE_KERNEL,
         RB_VALUES_KERNEL,
+        RB_VJP_CURVE_KERNEL,
         RB_VJP_KERNEL,
     )
 
@@ -1938,9 +2449,14 @@ def main() -> int:
     lib, build_s = cuda_lib.build_library()
     cuda_lib.load_library()
     say(f"  kernels built in {build_s:.3f} s into {lib.parent}")
+    kernel, spill = "?", ""
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            say(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}; {spill}")
 
     T = float(ht.yearfrac(REF, EXPIRY))
     market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
@@ -1975,12 +2491,15 @@ def main() -> int:
                    "heston_qe_mixing_surface_price_and_jacobian": sum(qe_seg),
                    "heston_exact_mixing_surface_price": sum(ex_seg),
                    "rbergomi_mixing_values": RB_STEPS, "rbergomi_mixing_vanilla_price": RB_STEPS,
-                   "rbergomi_mixing_price_and_greeks": RB_STEPS, "_rb_values_vjp": RB_STEPS}
-    surface_points = len(SURF_EXPIRIES) * len(SURF_STRIKES)
+                   "rbergomi_mixing_price_and_greeks": RB_STEPS, "_rb_values_vjp": RB_STEPS,
+                   "_rb_values_vjp_curve": RB_STEPS, "rbergomi_mixing_smile_price": RB_STEPS}
+    points = {"rbergomi_mixing_smile_price": len(CAL_STRIKES)}
+    points.update((name, len(SURF_EXPIRIES) * len(SURF_STRIKES)) for name in records
+                  if "surface" in name)
     for name, rec in records.items():
         pairs = GBM_PAIRS if name == "gbm_exact_terminal" else CHECK_PAIRS
         b = bound(name, pairs, timed_steps.get(name, QE_STEPS), sm_clock_hz,
-                  points=surface_points if "surface" in name else 1)
+                  points=points.get(name, 1))
         say(f"  bound {name}: {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['flops']:.4g} fp32 "
             f"FLOPs, {b['mufu']:.4g} MUFU, {b['bytes']:.4g} bytes); kernel {rec['ms']:.4f} ms")
         rec.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
@@ -2031,10 +2550,15 @@ def main() -> int:
     rb_kernels = {"rbergomi_mixing_values": RB_VALUES_KERNEL,
                   "rbergomi_mixing_vanilla_price": RB_PRICE_KERNEL,
                   "rbergomi_mixing_price_and_greeks": RB_GREEKS_KERNEL,
-                  "_rb_values_vjp": RB_VJP_KERNEL}
+                  "_rb_values_vjp": RB_VJP_KERNEL,
+                  "_rb_values_vjp_curve": RB_VJP_CURVE_KERNEL,
+                  "rbergomi_mixing_smile_price": RB_SMILE_KERNEL}
     for k in (*kernels.values(), *surface_kernels.values(), *rb_kernels.values()):
         k.launches = 0
     rb_path = phase_rb_path("cuda")
+    rb_curve = phase_rb_curve("cuda")
+    rb_smile = phase_rb_smile(rb_path, "cuda")
+    rb_surface = phase_rb_surface("cuda")
     rb_serving = phase_rb_serving(rb_path["float64"], "cuda")
     rb_launches = {name: k.launches for name, k in rb_kernels.items()}
     say(f"launches on the rough-Bergomi path: {rb_launches}")
@@ -2045,8 +2569,9 @@ def main() -> int:
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
                     "calibration": calibration, "rb_path": rb_path, "rb_serving": rb_serving,
-                    "rb_occupancy": rb_occupancy,
-                    "build_s": build_s, "nvidia_smi": smi}))
+                    "rb_occupancy": rb_occupancy, "rb_curve": rb_curve, "rb_smile": rb_smile,
+                    "rb_surface": rb_surface, "build_s": build_s, "nvidia_smi": smi,
+                    "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)
         for name, rec in records.items()
@@ -2059,7 +2584,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(digest_main(sys.argv[1:]) if len(sys.argv) > 1 else main())
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

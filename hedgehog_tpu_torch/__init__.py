@@ -13,8 +13,10 @@ surfaces from one variance simulation (``heston_surface_mc``; the surface
 kernels and their Jacobian through ``ops.heston_qe_kernel
 .heston_surface_mc_adapter``); the rough-Bergomi mixing estimator
 (``RoughBergomiMixing``) with its kernels for values, the serving price,
-the price + 6-greek vector and the values' backward
-(``ops.rbergomi_kernel``).  ``MonteCarlo`` and the kernel
+the price + 6-greek vector, the values' backward (bucketed
+forward-variance vegas included) and the one-simulation smile
+(``ops.rbergomi_kernel``), and its float64 (expiry × strike) surface
+(``rbergomi_surface_mc``).  ``MonteCarlo`` and the kernel
 wrappers run on the GPU unless the caller asks for ``device="cpu"``.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
@@ -74,6 +76,7 @@ from .methods.montecarlo import (
 )
 from .methods.heston_surface import heston_surface_mc
 from .methods.mixing_greeks import GREEK_ORDER, heston_mixing_price_and_greeks
+from .methods.rough_bergomi_surface import rbergomi_surface_mc
 from .models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
 from .models.rough_bergomi import ForwardVarianceCurve
 from .ops.rbergomi_kernel import GREEK_ORDER_RB
@@ -95,7 +98,7 @@ __all__ = [
     "MonteCarlo",
     "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig", "reduce_payoffs",
     "simulate_conditional_values", "simulate_terminal_prices",
-    "GREEK_ORDER", "heston_mixing_price_and_greeks", "heston_surface_mc",
+    "GREEK_ORDER", "heston_mixing_price_and_greeks", "heston_surface_mc", "rbergomi_surface_mc",
     "HestonDynamics", "LognormalDynamics", "RoughBergomiDynamics", "ForwardVarianceCurve",
     "GREEK_ORDER_RB",
     "from_reference",

@@ -1,6 +1,7 @@
 // Rough-Bergomi mixing kernels for sm_90a: per-path values (K14), the
-// accumulating serving price (K15), the price + 6-greek vector (K16) and the
-// cotangent-weighted VJP of the values (K17).
+// accumulating serving price (K15), the price + 6-greek vector (K16), the
+// cotangent-weighted VJP of the values (K17), its per-step variant under a
+// forward-variance curve (K18) and the one-simulation smile (K19).
 //
 // Replaces hedgehog_tpu/ops/rbergomi_kernel.py:
 //   rbergomi_mixing_values           (pallas_call at :273 QMC, :288 PRNG;
@@ -11,11 +12,16 @@
 //                                     bodies _rb_greeks_kernel[_qmc])
 //   _rb_values_vjp                   (pallas_call at :992 QMC, :1015 PRNG;
 //                                     bodies _rb_weighted_kernel[_qmc])
+//   _rb_values_vjp_curve             (pallas_call at :1191 QMC, :1215 PRNG;
+//                                     the same bodies with per_step=True)
+//   rbergomi_mixing_smile_price      (pallas_call at :1452 QMC, :1474 PRNG;
+//                                     bodies _rb_smile_kernel[_qmc])
 // The plain PyTorch twins are in hedgehog_tpu_torch/ops/rbergomi_kernel.py;
 // keep the two in step.
 //
 // Per pair: 2n standard normals xi (ops/rbergomi_kernel.py: Philox block b ->
-// rows 4b..4b+3 through hh::box_muller_open, or Sobol' dims 0..2n-1), the
+// rows 4b..4b+3 through hh::box_muller_open, or Sobol' dims 0..2n-1 through
+// hh::sobol_normal, which never sees u = 1.0), the
 // Volterra product X = L xi, the left-point sums IV = dt (C_0 + sum_k C_k
 // e^{eta Z_k}) and J = sum_k sqrt(C_k e^{eta Z_k}) dW_k of both antithetic
 // groups (the mirror's variance through rcp of the + group's exponentials:
@@ -52,6 +58,28 @@
 // compute each pair's values to the same bits; both walk the pairs with K15's
 // resident grid and reduce with heston_qe.cuh block_sums, so K16's price is
 // K15's to the bit.
+//
+// K18 (the backward of the values under a ForwardVarianceCurve) adds one row
+// per step, R_k = ct (y_IV dt P_k + y_J/2 s_k dW_k) = d(ct value)/d ln C_k,
+// whose weights y_IV and y_J are known only after the close.  Keeping each
+// pair's Z (or P_k and s_k dW_k) through the product would cost another n
+// floats a thread of shared memory (64 KB more a block at 256 steps, over
+// the 227 KB limit with the xi column and the Sobol' table), so K18 replays
+// the L product once the close is done and forms R_k as its tile ends: the
+// same fp32 operations, so the same P_k and s_k dW_k bits, for one more
+// n(n-1) FMAs a pair and K17's step limit.  Each R_k is summed over a warp in
+// float64 by a butterfly and over the block's two warps in a fixed order into
+// (n + 6, blocks) float64 partials, the six scalar chains by block_sums.
+//
+// K19 (one path set closing m strikes) walks K15's pairs with K15's grid and
+// closes each strike with the operations of hh::cond_bs_close in their
+// order, split at the strike (the strike-free part once per group), so each
+// strike's price equals K15's at that strike to the bit.  Unlike the TPU
+// kernel it takes log(f_base/K) cast once from float64 (the TPU wrapper forms
+// it in float32) and forms d1 as (log(f/K) + e_arg + var/2)/sd, K15's order
+// (the TPU kernel adds log(f/K)/sd last).  The m fp32 accumulators of a
+// thread live in shared memory beside the xi column (one float a thread a
+// strike, conflict-free), so m costs no registers: at most kMaxStrikes.
 
 #include "heston_qe.cuh"
 
@@ -61,6 +89,8 @@ constexpr int kThreads = 64;
 constexpr int kTile = 8;
 constexpr int kGreekCols = 6;  // y, chain_xi0, chain_eta, chain_H, w, y_rho
 constexpr int kVjpCols = 7;    // chain_xi0, chain_eta, chain_H, chain_T, w, y_rho, y_K
+constexpr int kCurveCols = 6;  // K18's scalar rows: kVjpCols without chain_xi0
+constexpr int kMaxStrikes = 64;
 
 // Field order is ops/rbergomi_kernel.py RB_NAMES.
 struct RbParams {
@@ -85,10 +115,15 @@ __host__ __device__ inline RbShape rb_shape(int n) {
   return s;
 }
 
+// The 4-byte words of the Sobol' table, staged after the xi column.
+__host__ __device__ inline int table_words(int steps, bool qmc) {
+  return qmc ? 2 * steps * (hh::kSobolBits + 1) : 0;
+}
+
+// Dynamic shared memory of K14-K17 (K18 and K19 add theirs after it).
 size_t rb_smem(int steps, bool qmc) {
   const RbShape s = rb_shape(steps);
-  return sizeof(float) * (size_t)s.xi_rows * kThreads +
-         (qmc ? sizeof(int) * 2 * steps * (hh::kSobolBits + 1) : 0);
+  return sizeof(float) * ((size_t)s.xi_rows * kThreads + table_words(steps, qmc));
 }
 
 // The Sobol' table into shared memory after the xi columns; returns it (or
@@ -113,7 +148,7 @@ __device__ __forceinline__ void draw_xi(float* xs, unsigned long long pair, cons
   if (sobol) {
     const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
     for (int r = 0; r < rows; ++r) {
-      xs[r * kThreads + t] = hh::ndtri_approx(hh::sobol_uniform(idx, sobol + r * (hh::kSobolBits + 1)));
+      xs[r * kThreads + t] = hh::sobol_normal(idx, sobol + r * (hh::kSobolBits + 1));
     }
   } else {
     for (int b = 0; 4 * b < rows; ++b) {
@@ -189,56 +224,62 @@ __device__ __forceinline__ void triangle_col(const float* xs, const float4* lpac
   }
 }
 
+// Step k's primal terms of both groups from Z_{t_k} = z: P = C_k e^{eta z},
+// s = sqrt(P) and s dW_k (the mirror's from rcp of the + group's
+// exponentials, its s dW unsigned), each product rounded on its own.
+struct StepTerms {
+  float xk, pp, sp, sdw_p, pm, sm, sdw_m;
+};
+
+__device__ __forceinline__ StepTerms step_terms(const float* xs, const RbParams& p,
+                                                const float4& ck, int k, float z, bool anti) {
+  StepTerms o;
+  o.xk = xs[k * kThreads + threadIdx.x];
+  const float dw = __fmul_rn(ck.z, o.xk);
+  const float ep = expf(__fmul_rn(p.eta, z));
+  const float sep = sqrtf(ep);
+  o.pp = __fmul_rn(ck.x, ep);
+  o.sp = __fmul_rn(ck.y, sep);
+  o.sdw_p = __fmul_rn(o.sp, dw);
+  o.pm = o.sm = o.sdw_m = 0.0f;
+  if (anti) {
+    o.pm = __fmul_rn(ck.x, hh::rcp(ep));
+    o.sm = __fmul_rn(ck.y, hh::rcp(sep));
+    o.sdw_m = __fmul_rn(o.sm, dw);
+  }
+  return o;
+}
+
 // Step k (1 <= k < n) of both groups from Z_{t_k} = z (and its H tangent
-// zd): the left-point sums with each product and sum rounded on its own, the
-// mirror through rcp of the + group's exponentials; the tangent sums when
-// kTan.
+// zd): the left-point sums with each sum rounded on its own; the tangent
+// sums when kTan.
 template <bool kTan>
 __device__ __forceinline__ void rb_step(const float* xs, const RbParams& p,
                                         const float4* __restrict__ coef, int k, float z, float zd,
                                         bool anti, Group& gp, Group& gm) {
   const float4 ck = __ldg(coef + 2 * k);
-  const float xk = xs[k * kThreads + threadIdx.x];
-  const float dw = __fmul_rn(ck.z, xk);
-  const float ep = expf(__fmul_rn(p.eta, z));
-  const float sep = sqrtf(ep);
-  const float pp = __fmul_rn(ck.x, ep);
-  const float sp = __fmul_rn(ck.y, sep);
-  const float sdw_p = __fmul_rn(sp, dw);
-  gp.iv = __fadd_rn(gp.iv, pp);
-  gp.j = __fadd_rn(gp.j, sdw_p);
-  float pm = 0.0f, sm = 0.0f, sdw_m = 0.0f;
+  const StepTerms st = step_terms(xs, p, ck, k, z, anti);
+  gp.iv = __fadd_rn(gp.iv, st.pp);
+  gp.j = __fadd_rn(gp.j, st.sdw_p);
   if (anti) {
-    pm = __fmul_rn(ck.x, hh::rcp(ep));
-    sm = __fmul_rn(ck.y, hh::rcp(sep));
-    sdw_m = __fmul_rn(sm, dw);
-    gm.iv = __fadd_rn(gm.iv, pm);
-    gm.j = __fadd_rn(gm.j, sdw_m);
+    gm.iv = __fadd_rn(gm.iv, st.pm);
+    gm.j = __fadd_rn(gm.j, st.sdw_m);
   }
   if (kTan) {
     const float4 ck2 = __ldg(coef + 2 * k + 1);
-    const float dwd = __fmul_rn(ck.w, xk);
-    tangent_step(gp, pp, sp, sdw_p, z, zd, dwd, ck2.x, ck2.y, p.eta);
-    if (anti) tangent_step(gm, pm, sm, -sdw_m, -z, -zd, -dwd, ck2.x, ck2.y, p.eta);
+    const float dwd = __fmul_rn(ck.w, st.xk);
+    tangent_step(gp, st.pp, st.sp, st.sdw_p, z, zd, dwd, ck2.x, ck2.y, p.eta);
+    if (anti) tangent_step(gm, st.pm, st.sm, -st.sdw_m, -z, -zd, -dwd, ck2.x, ck2.y, p.eta);
   }
 }
 
-// The pair's two groups over all steps from its xi column: the product in
-// tiles, each step consumed as its Z row is done.  dw0 (and dwd0) return the
-// first increment (and its H tangent).
-template <bool kTan>
-__device__ __forceinline__ void rb_groups(const float* xs, const RbParams& p,
-                                          const float4* __restrict__ coef,
-                                          const float4* __restrict__ lpack,
-                                          const float4* __restrict__ dpack, const RbShape& s,
-                                          bool anti, float& dw0, float& dwd0, Group& gp,
-                                          Group& gm) {
+// The Volterra product of the pair's xi column in tiles: f(k, Z_{t_k}, its H
+// tangent) for each step k = 1..n-1, in order, as Z row k-1's tile is done.
+template <bool kTan, class F>
+__device__ __forceinline__ void rb_walk(const float* xs, const float4* __restrict__ lpack,
+                                        const float4* __restrict__ dpack, const RbShape& s,
+                                        F&& f) {
   const int t = threadIdx.x;
-  const float4 c0 = __ldg(coef);
-  dw0 = __fmul_rn(c0.z, xs[t]);
-  dwd0 = kTan ? __fmul_rn(c0.w, xs[t]) : 0.0f;
-  gp = Group{};
-  gm = Group{};
   for (int tile = 0; tile < s.tiles; ++tile) {
     float acc[kTile], accd[kTile];
 #pragma unroll
@@ -266,9 +307,29 @@ __device__ __forceinline__ void rb_groups(const float* xs, const RbParams& p,
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
       const int k = j0 + r + 1;  // step k consumes Z_{t_k} = Z row k - 1 and dW_k
-      if (k < s.n) rb_step<kTan>(xs, p, coef, k, acc[r], accd[r], anti, gp, gm);
+      if (k < s.n) f(k, acc[r], accd[r]);
     }
   }
+}
+
+// The pair's two groups over all steps from its xi column, each step consumed
+// as its Z row is done.  dw0 (and dwd0) return the first increment (and its
+// H tangent).
+template <bool kTan>
+__device__ __forceinline__ void rb_groups(const float* xs, const RbParams& p,
+                                          const float4* __restrict__ coef,
+                                          const float4* __restrict__ lpack,
+                                          const float4* __restrict__ dpack, const RbShape& s,
+                                          bool anti, float& dw0, float& dwd0, Group& gp,
+                                          Group& gm) {
+  const float4 c0 = __ldg(coef);
+  dw0 = __fmul_rn(c0.z, xs[threadIdx.x]);
+  dwd0 = kTan ? __fmul_rn(c0.w, xs[threadIdx.x]) : 0.0f;
+  gp = Group{};
+  gm = Group{};
+  rb_walk<kTan>(xs, lpack, dpack, s, [&](int k, float z, float zd) {
+    rb_step<kTan>(xs, p, coef, k, z, zd, anti, gp, gm);
+  });
 }
 
 // The groups' (IV, J): IV = dt (C_0 + sum), J = +-(sqrt(C_0) dW_0) +- sum.
@@ -280,10 +341,11 @@ __device__ __forceinline__ void close_factors(const Group& g, bool mirror, float
 
 // The tangent rows of one group (greeks: 6; the VJP: 7, with chain_T and
 // y_K, without y) from its (IV, J) and sums; `s0dwd0` is the group's
-// signed sqrt(C_0) dWd_0.
+// signed sqrt(C_0) dWd_0.  Returns the close's partials.
 template <bool kVjp>
-__device__ __forceinline__ void group_rows(const Group& g, float iv, float j, float s0dwd0,
-                                           const RbParams& p, float* rows) {
+__device__ __forceinline__ hh::BsPartials group_rows(const Group& g, float iv, float j,
+                                                     float s0dwd0, const RbParams& p,
+                                                     float* rows) {
   const float div_eta = p.dt * g.div_eta;
   const float dj_eta = 0.5f * g.dj_eta;
   const float div_h = p.dt * g.div_h;
@@ -299,7 +361,7 @@ __device__ __forceinline__ void group_rows(const Group& g, float iv, float j, fl
     rows[3] = ch_h;
     rows[4] = b.w;
     rows[5] = b.y_rho;
-    return;
+    return b;
   }
   const float div_t = p.inv_t * (iv + p.h_eta * div_eta);
   const float dj_t = p.inv_t * (p.h_eta * dj_eta + 0.5f * j);
@@ -310,6 +372,25 @@ __device__ __forceinline__ void group_rows(const Group& g, float iv, float j, fl
   rows[4] = b.w;
   rows[5] = b.y_rho;
   rows[6] = -p.close.cp * b.phi2;
+  return b;
+}
+
+// The (IV, J) of both groups of global pair `pair` (K14, K15, K19); the
+// mirror's are left unset unless `anti`.
+__device__ __forceinline__ void rb_pair_factors(float* xs, unsigned long long pair,
+                                                const RbParams& p, const float4* coef,
+                                                const float4* lpack, const int* table,
+                                                const RbShape& s, bool anti, uint32_t seed,
+                                                uint32_t device_id, long long point_offset,
+                                                float& iv, float& j, float& iv_a, float& j_a) {
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
+  float dw0, dwd0;
+  Group gp, gm;
+  rb_groups<false>(xs, p, coef, lpack, nullptr, s, anti, dw0, dwd0, gp, gm);
+  const float4 c0 = __ldg(coef);
+  const float s0dw0 = __fmul_rn(c0.y, dw0);
+  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
+  if (anti) close_factors(gm, true, c0.x, s0dw0, p.dt, iv_a, j_a);
 }
 
 // The (value, antithetic value) of global pair `pair` (K14, K15).
@@ -319,20 +400,11 @@ __device__ __forceinline__ void rb_pair_values(float* xs, unsigned long long pai
                                                const RbShape& s, bool anti, uint32_t seed,
                                                uint32_t device_id, long long point_offset,
                                                float& val, float& val_a) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
-  float dw0, dwd0;
-  Group gp, gm;
-  rb_groups<false>(xs, p, coef, lpack, nullptr, s, anti, dw0, dwd0, gp, gm);
-  const float4 c0 = __ldg(coef);
-  const float s0dw0 = __fmul_rn(c0.y, dw0);
-  float iv, j;
-  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
+  float iv, j, iv_a = 0.0f, j_a = 0.0f;
+  rb_pair_factors(xs, pair, p, coef, lpack, table, s, anti, seed, device_id, point_offset, iv, j,
+                  iv_a, j_a);
   val = hh::cond_bs_value(iv, j, p.close);
-  val_a = 0.0f;
-  if (anti) {
-    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
-    val_a = hh::cond_bs_value(iv, j, p.close);
-  }
+  val_a = anti ? hh::cond_bs_value(iv_a, j_a, p.close) : 0.0f;
 }
 
 // The tangent rows of global pair `pair`, each group's rows weighted by
@@ -366,6 +438,88 @@ __device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair,
       acc[k] += rp[k] + rm[k];  // as K15 adds value + antithetic value
     }
   }
+}
+
+// The float64 sum of x over the warp, the same bits in every lane (a
+// butterfly).
+__device__ __forceinline__ double warp_sum(double x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// K18's rows of global pair `pair` under the cotangents ct_p and ct_m: the
+// six scalar chains (K17's rows without chain_xi0) added into acc, and each
+// per-step row R_k = d(ct value)/d ln C_k summed over the warp into
+// wrow[warp * n + k].  Every lane of the warp calls it (a dead lane with zero
+// cotangents).  After the close, the L product is replayed to form R_k.
+__device__ __forceinline__ void rb_pair_curve_rows(
+    float* xs, unsigned long long pair, const RbParams& p, const float4* coef,
+    const float4* lpack, const float4* dpack, const int* table, const RbShape& s, bool anti,
+    uint32_t seed, uint32_t device_id, long long point_offset, float ct_p, float ct_m,
+    float* acc, double* wrow) {
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
+  float dw0, dwd0;
+  Group gp, gm;
+  rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
+  const float4 c0 = __ldg(coef);
+  const float s0dw0 = __fmul_rn(c0.y, dw0);
+  const float s0dwd0 = c0.y * dwd0;
+  float iv, j, rp[kVjpCols], rm[kVjpCols] = {};
+  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
+  const hh::BsPartials bp = group_rows<true>(gp, iv, j, s0dwd0, p, rp);
+  hh::BsPartials bm{};
+  if (anti) {
+    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
+    bm = group_rows<true>(gm, iv, j, -s0dwd0, p, rm);
+  }
+#pragma unroll
+  for (int k = 0; k < kCurveCols; ++k) {
+    acc[k] += anti ? ct_p * rp[k + 1] + ct_m * rm[k + 1] : ct_p * rp[k + 1];
+  }
+  // per group R_k = (y_IV dt) P_k + (y_J / 2) s_k dW_k, the mirror's s dW
+  // negated (step_terms returns it unsigned)
+  const float ivw_p = bp.y_iv * p.dt, jw_p = bp.y_j * 0.5f;
+  const float ivw_m = bm.y_iv * p.dt, jw_m = bm.y_j * 0.5f;
+  const auto row = [&](float pp, float sdw_p, float pm, float sdw_m) {
+    const float r = ct_p * (ivw_p * pp + jw_p * sdw_p);
+    return anti ? r + ct_m * (ivw_m * pm - jw_m * sdw_m) : r;
+  };
+  const int base = (int)(threadIdx.x >> 5) * s.n;
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  const double r0 = warp_sum((double)row(c0.x, s0dw0, c0.x, s0dw0));
+  if (lane0) wrow[base] = r0;
+  rb_walk<false>(xs, lpack, nullptr, s, [&](int k, float z, float) {
+    const StepTerms st = step_terms(xs, p, __ldg(coef + 2 * k), k, z, anti);
+    const double r = warp_sum((double)row(st.pp, st.sdw_p, st.pm, st.sdw_m));
+    if (lane0) wrow[base + k] = r;
+  });
+}
+
+// The strike-free part of hh::cond_bs_close for one group's (IV, J), in its
+// operations and order (K19 closes every strike from it).
+struct SmileGroup {
+  float e_arg, f_eff, var, sd, inv_sd;
+};
+
+__device__ __forceinline__ SmileGroup smile_group(float iv, float j, const hh::CloseParams& c) {
+  SmileGroup g;
+  g.e_arg = c.rho * j - c.rho2_half * iv;
+  g.f_eff = c.f_base * expf(g.e_arg);
+  g.var = fmaxf(c.rho_bar2 * iv, (float)1e-10);
+  g.sd = sqrtf(g.var);
+  g.inv_sd = hh::rcp(g.sd);
+  return g;
+}
+
+// The rest of hh::cond_bs_close at one strike: the undiscounted value.
+__device__ __forceinline__ float smile_value(const SmileGroup& g, float log_f_over_k,
+                                             float strike, float cp) {
+  const float d1 = (log_f_over_k + g.e_arg + 0.5f * g.var) * g.inv_sd;
+  const float d2 = d1 - g.sd;
+  const float phi1 = hh::norm_cdf(cp * d1);
+  const float phi2 = hh::norm_cdf(cp * d2);
+  return cp * (g.f_eff * phi1 - strike * phi2);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -450,6 +604,77 @@ rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
   hh::block_sums<kThreads>(acc, red, partials);
 }
 
+// K18: one pair a thread; the block's n per-step rows, then its six scalar
+// rows, into partials[row * gridDim.x + blockIdx.x].
+__global__ void __launch_bounds__(kThreads)
+rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
+                    const float4* __restrict__ lpack, const float4* __restrict__ dpack,
+                    const int* __restrict__ sobol, const float* __restrict__ ct,
+                    double* __restrict__ partials, long long n_paths, int steps, int antithetic,
+                    uint32_t seed, uint32_t device_id, long long point_offset) {
+  extern __shared__ float smem[];
+  __shared__ double red[kThreads];
+  const RbShape s = rb_shape(steps);
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  double* wrow = reinterpret_cast<double*>(smem + s.xi_rows * kThreads +
+                                           table_words(steps, sobol != nullptr));
+  const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  float acc[kCurveCols] = {};
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n_paths;
+  rb_pair_curve_rows(smem, (unsigned long long)i, p, coef, lpack, dpack, table, s,
+                     antithetic != 0, seed, device_id, point_offset, live ? ct[i] : 0.0f,
+                     live && antithetic ? ct[n_paths + i] : 0.0f, acc, wrow);
+  __syncthreads();
+  for (int k = threadIdx.x; k < s.n; k += blockDim.x) {
+    partials[(long long)k * gridDim.x + blockIdx.x] = wrow[k] + wrow[s.n + k];
+  }
+  hh::block_sums<kThreads>(acc, red, partials + (long long)s.n * gridDim.x);
+}
+
+// K19: K15's grid-stride walk, m strikes closed from each pair's (IV, J);
+// the m fp32 sums of a thread in shared memory, each reduced as block_sums
+// reduces K15's one column.
+__global__ void __launch_bounds__(kThreads)
+rb_smile_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
+                const float4* __restrict__ lpack, const int* __restrict__ sobol,
+                const float2* __restrict__ ks, int m, double* __restrict__ partials,
+                long long total_pairs, int steps, uint32_t seed, uint32_t device_id,
+                long long point_offset) {
+  extern __shared__ float smem[];
+  __shared__ double red[kThreads];
+  const RbShape s = rb_shape(steps);
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  float* acc = smem + s.xi_rows * kThreads + table_words(steps, sobol != nullptr);
+  const int t = threadIdx.x;
+  for (int k = 0; k < m; ++k) acc[k * kThreads + t] = 0.0f;
+  const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + t; g < total_pairs; g += stride) {
+    float iv, j, iv_a = 0.0f, j_a = 0.0f;
+    rb_pair_factors(smem, (unsigned long long)g, p, coef, lpack, table, s, true, seed, device_id,
+                    point_offset, iv, j, iv_a, j_a);
+    const SmileGroup gp = smile_group(iv, j, p.close);
+    const SmileGroup gm = smile_group(iv_a, j_a, p.close);
+    for (int k = 0; k < m; ++k) {
+      const float2 q = __ldg(ks + k);  // (log(f_base / K), K)
+      const float val = smile_value(gp, q.x, q.y, p.close.cp);
+      const float val_a = smile_value(gm, q.x, q.y, p.close.cp);
+      acc[k * kThreads + t] += val + val_a;
+    }
+  }
+  for (int k = 0; k < m; ++k) {
+    red[t] = (double)acc[k * kThreads + t];
+    __syncthreads();
+    for (int h = kThreads / 2; h > 0; h >>= 1) {
+      if (t < h) red[t] += red[t + h];
+      __syncthreads();
+    }
+    if (t == 0) partials[(long long)k * gridDim.x + blockIdx.x] = red[0];
+    __syncthreads();
+  }
+}
+
 // Opts the kernel into `smem` bytes of dynamic shared memory (above 48 KB a
 // block must ask).
 template <class K>
@@ -520,6 +745,43 @@ extern "C" int hh_rb_values_vjp(const float* params, const float* coef, const fl
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
       seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// K18's sums: ct is (1 or 2, n_paths) float32, partials (n + 6,
+// ceil(n_paths / 64)) float64: the n per-step rows d/d ln C_k, then chain_eta,
+// chain_H, chain_T, w, y_rho, y_K.
+extern "C" int hh_rb_values_vjp_curve(const float* params, const float* coef, const float* lpack,
+                                      const float* dpack, const int* sobol, const float* ct,
+                                      double* partials, long long n_paths, int steps,
+                                      int antithetic, unsigned seed, unsigned device_id,
+                                      long long point_offset, void* stream) {
+  const size_t smem = rb_smem(steps, sobol != nullptr) + sizeof(double) * (kThreads / 32) * steps;
+  cudaError_t err = allow_smem(rb_vjp_curve_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_paths + kThreads - 1) / kThreads;
+  rb_vjp_curve_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
+      reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
+      seed, device_id, point_offset);
+  return (int)cudaGetLastError();
+}
+
+// K19's sums of (value + antithetic value) per strike over the pairs
+// [0, total_pairs): ks is (m, 2) float32 (log(f_base / K), K), partials
+// (m, grid) float64; grid is K15's (hh_rb_price_grid).
+extern "C" int hh_rb_smile(const float* params, const float* coef, const float* lpack,
+                           const int* sobol, const float* ks, int m, double* partials, int grid,
+                           long long total_pairs, int steps, unsigned seed, unsigned device_id,
+                           long long point_offset, void* stream) {
+  if (m < 1 || m > kMaxStrikes) return (int)cudaErrorInvalidValue;
+  const size_t smem = rb_smem(steps, sobol != nullptr) + sizeof(float) * m * kThreads;
+  cudaError_t err = allow_smem(rb_smile_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  rb_smile_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
+      reinterpret_cast<const float2*>(ks), m, partials, total_pairs, steps, seed, device_id,
+      point_offset);
   return (int)cudaGetLastError();
 }
 

@@ -127,9 +127,10 @@ def volterra_chol_dh(hurst, horizon, steps: int, quad_nodes: int = _QUAD_NODES) 
 
 
 def _interp(x, xp, fp) -> torch.Tensor:
-    """``jnp.interp``: piecewise linear in ``xp``, flat outside; every
-    argument keeps its autograd history."""
-    x, xp, fp = f64(x), f64(xp, device=f64(x).device), f64(fp, device=f64(x).device)
+    """``jnp.interp``: piecewise linear in ``xp``, flat outside, on the
+    device of ``x``; every argument keeps its autograd history."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    xp, fp = f64(xp, device=x.device), f64(fp, device=x.device)
     i = torch.clamp(torch.searchsorted(xp.detach(), x.detach(), right=True), 1, xp.shape[0] - 1)
     df = fp[i] - fp[i - 1]
     dx = xp[i] - xp[i - 1]

@@ -35,7 +35,9 @@ __all__ = [
     "rcp",
     "sobol_table",
     "sobol_masks",
+    "sobol_bits",
     "sobol_uniforms_tile",
+    "sobol_normals_tile",
     "ndtri_approx",
     "norm_cdf",
     "cond_bs_value",
@@ -106,15 +108,36 @@ def sobol_masks(idx: torch.Tensor):
     return [((idx >> b) & 1).bool() for b in range(SOBOL_BITS)]
 
 
+def sobol_bits(masks, table: torch.Tensor, d: int) -> torch.Tensor:
+    """The 30-bit Sobol' integers (int64) of dimension ``d``."""
+    acc = torch.zeros(masks[0].shape, dtype=torch.int64, device=masks[0].device)
+    for b in range(SOBOL_BITS):
+        acc = torch.where(masks[b], acc ^ table[d, b], acc)
+    return acc ^ table[d, SOBOL_BITS]
+
+
+def _centred(a: torch.Tensor) -> torch.Tensor:
+    """(a + 1/2)·2^-30 in float32: integers a ≥ 2^30 − 32 round to 1.0."""
+    return (a.to(torch.float32) + 0.5) * _SOBOL_SCALE
+
+
 def sobol_uniforms_tile(masks, table: torch.Tensor, dims):
-    """float32 Sobol' uniforms in (0, 1) of the dimensions ``dims``."""
+    """float32 Sobol' uniforms in (0, 1] of the dimensions ``dims`` (1.0 in
+    the 32 top cells of each, as the TPU kernels')."""
+    return [_centred(sobol_bits(masks, table, d)) for d in dims]
+
+
+def sobol_normals_tile(masks, table: torch.Tensor, dims):
+    """float32 normals of the dimensions ``dims`` (the header's
+    ``sobol_normal``): ``ndtri_approx`` of the uniform, except where the
+    uniform is 1.0, where the tail takes u_min from the integer,
+    (2^30 − 1 − a + 1/2)·2^-30, instead of returning 11.46."""
     out = []
     for d in dims:
-        acc = torch.zeros(masks[0].shape, dtype=torch.int64, device=masks[0].device)
-        for b in range(SOBOL_BITS):
-            acc = torch.where(masks[b], acc ^ table[d, b], acc)
-        acc = acc ^ table[d, SOBOL_BITS]
-        out.append((acc.to(torch.float32) + 0.5) * _SOBOL_SCALE)
+        a = sobol_bits(masks, table, d)
+        u = _centred(a)
+        top = _ndtri_tail(_centred((1 << SOBOL_BITS) - 1 - a))
+        out.append(torch.where(u < 1.0, ndtri_approx(u), top))
     return out
 
 
@@ -127,18 +150,24 @@ _BSM_C = (
 )
 
 
+def _ndtri_tail(u_min: torch.Tensor) -> torch.Tensor:
+    """The Beasley-Springer-Moro tail: |Φ⁻¹(u)| from u_min = min(u, 1 − u)."""
+    s = torch.log(-torch.log(torch.clamp(u_min, min=1e-30)))
+    x = torch.full_like(u_min, _BSM_C[-1])
+    for c in reversed(_BSM_C[:-1]):
+        x = x * s + c
+    return x
+
+
 def ndtri_approx(u: torch.Tensor) -> torch.Tensor:
-    """Beasley-Springer-Moro Φ⁻¹(u), float32, for u in (0, 1)."""
+    """Beasley-Springer-Moro Φ⁻¹(u), float32, for u in (0, 1) (at u = 1.0
+    the tail sees u_min = 0 and returns +11.46)."""
     r = u - 0.5
     t = r * r
     num = r * (_BSM_A[0] + t * (_BSM_A[1] + t * (_BSM_A[2] + t * _BSM_A[3])))
     den = 1.0 + t * (_BSM_B[0] + t * (_BSM_B[1] + t * (_BSM_B[2] + t * _BSM_B[3])))
     x_central = num * rcp(den)
-    u_min = torch.minimum(u, 1.0 - u)
-    s = torch.log(-torch.log(torch.clamp(u_min, min=1e-30)))
-    x_tail = torch.full_like(u, _BSM_C[-1])
-    for c in reversed(_BSM_C[:-1]):
-        x_tail = x_tail * s + c
+    x_tail = _ndtri_tail(torch.minimum(u, 1.0 - u))
     x_tail = torch.where(r > 0.0, x_tail, -x_tail)
     return torch.where(torch.abs(r) <= 0.42, x_central, x_tail)
 

@@ -1,6 +1,8 @@
 """Rough-Bergomi mixing kernels and their plain PyTorch twins: K14 values,
-K15 the serving price, K16 the price + 6-greek vector, K17 the values VJP;
-the differentiable view of the values (K14 forward, K17 backward) and the
+K15 the serving price, K16 the price + 6-greek vector, K17 the values VJP,
+K18 its per-step variant under a forward-variance curve, K19 the
+one-simulation smile; the differentiable view of the values (K14 forward,
+K17 backward; under a ``ForwardVarianceCurve`` K18 backward) and the
 adapter behind ``RoughBergomiMixing(use_kernel=True)``.
 
 Port of ``hedgehog_tpu/ops/rbergomi_kernel.py``.  For tensors on a GPU the
@@ -21,9 +23,12 @@ Streams.  PRNG: pair i draws ξ rows 4b..4b+3 from Philox block b (words
 ``hh_device.box_muller_open``), key (seed, device_id); its antithetic
 twin is −ξ, so its X is −X and its variance C_k·rcp(e^{ηZ}).  QMC: ξ row r
 is Sobol' dim r of point ``point_offset + i`` of ``sobol_table(seed, 2n)``
-through ``ndtri_approx``: the TPU kernels' points.  K15 and K16 walk the
-pairs ``[0, n_blocks·n_batches·2048)`` with one grid, so K16's price is
-K15's to the bit; K17 replays K14's stream.
+through ``hh_device.sobol_normals_tile``: the TPU kernels' points, except
+that the 32 top cells of a dimension, whose float32 uniform rounds to 1.0,
+give Φ⁻¹((a + ½)·2^-30) (5.4 to 6.1) and not the TPU kernels' 11.46.  K15,
+K16 and K19 walk the pairs ``[0, n_blocks·n_batches·2048)`` with one grid,
+so K16's price and each of K19's strikes are K15's to the bit; K17 and K18
+replay K14's stream.
 """
 
 from __future__ import annotations
@@ -42,23 +47,26 @@ from .heston_qe_kernel import check_period, pair_chunks
 from .hh_device import (
     box_muller_open,
     cond_bs_value,
-    ndtri_approx,
     philox_block,
     rcp,
     sobol_masks,
+    sobol_normals_tile,
     sobol_table,
-    sobol_uniforms_tile,
 )
 
 __all__ = [
     "GREEK_ORDER_RB",
+    "MAX_STRIKES",
     "RB_VALUES_KERNEL",
     "RB_PRICE_KERNEL",
     "RB_GREEKS_KERNEL",
     "RB_VJP_KERNEL",
+    "RB_VJP_CURVE_KERNEL",
+    "RB_SMILE_KERNEL",
     "RbGreekTrace",
     "RbTrace",
     "rb_inputs",
+    "rb_vjp_inputs",
     "rb_inputs_from_trace",
     "rbergomi_mixing_values",
     "rbergomi_mixing_values_plain",
@@ -69,7 +77,11 @@ __all__ = [
     "rbergomi_kernel_price_and_greeks",
     "rbergomi_mixing_vjp_sums_plain",
     "rbergomi_mixing_values_diff",
+    "rbergomi_mixing_vjp_curve_sums_plain",
     "rbergomi_mixing_values_adapter",
+    "rbergomi_mixing_smile_price",
+    "rbergomi_mixing_smile_sums_plain",
+    "rbergomi_kernel_smile",
 ]
 
 GREEK_ORDER_RB = ("spot", "xi0", "eta", "rho", "hurst", "rate")
@@ -77,7 +89,8 @@ GREEK_ORDER_RB = ("spot", "xi0", "eta", "rho", "hurst", "rate")
 PAIRS_PER_BLOCK = 2048
 #: the kernels keep a pair's ξ column (2·steps rows, padded to whole tiles)
 #: in shared memory, 64 threads a block, beside the 2·steps-row Sobol'
-#: table: 256 steps take 192 KB of the 227 KB a block may use
+#: table: 256 steps take 192 KB of the 227 KB a block may use (K18 adds 4 KB
+#: of per-step warp sums, K19 256 bytes a strike)
 MAX_STEPS = 256
 #: Z rows per register tile of the kernels' product (csrc/rbergomi.cu kTile)
 TILE = 8
@@ -89,6 +102,11 @@ RB_NAMES = ("eta", "dt", "f_base", "strike", "rho", "rho2_half", "rho_bar2", "cp
             "log_f_over_k", "inv_xi0", "h_eta", "inv_t")
 #: per-step coefficient columns: C_k, √C_k, L[k, k], dL[k, k]/dH, ae_k, bh_k
 COEF_COLS = 8
+#: K19's strikes: its per-thread sums live in shared memory, one float a
+#: thread a strike (csrc/rbergomi.cu kMaxStrikes)
+MAX_STRIKES = 64
+#: K18's rows after the n per-step ones: K17's without chain_xi0
+CURVE_ROWS = ("eta", "hurst", "T", "w", "rho", "strike")
 _MASK32 = 0xFFFFFFFF
 
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
@@ -98,6 +116,10 @@ RB_GREEKS_KERNEL = CudaKernel("hh_rb_greeks",
                               [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P])
 RB_VJP_KERNEL = CudaKernel("hh_rb_values_vjp",
                            [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _P])
+RB_VJP_CURVE_KERNEL = CudaKernel("hh_rb_values_vjp_curve",
+                                 [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _P])
+RB_SMILE_KERNEL = CudaKernel("hh_rb_smile",
+                             [_P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _U, _U, _LL, _P])
 
 
 def zcols(steps: int) -> int:
@@ -202,11 +224,10 @@ def rb_inputs(chol, coefs, eta, dt, f_base, log_f_over_k, strike, cp, rho, *, st
 def rb_xi(pair, rows: int, table, seed: int, device_id: int, point_offset: int) -> torch.Tensor:
     """(rows, len(pair)) float32 ξ of the pairs ``pair`` (int64 global
     indices) in the kernels' draw order: Sobol' dims 0..rows−1 through
-    ``ndtri_approx`` when ``table`` is given, else Philox block b → rows
-    4b..4b+3."""
+    ``sobol_normals_tile`` when ``table`` is given, else Philox block b →
+    rows 4b..4b+3."""
     if table is not None:
-        masks = sobol_masks(pair + point_offset)
-        return torch.stack([ndtri_approx(u) for u in sobol_uniforms_tile(masks, table, range(rows))])
+        return torch.stack(sobol_normals_tile(sobol_masks(pair + point_offset), table, range(rows)))
     out = []
     for b in range(-(-rows // 4)):
         w = philox_block(pair, b, seed & _MASK32, device_id & _MASK32)
@@ -224,9 +245,10 @@ def _products(inp: RbInputs, pair, seed, device_id, point_offset, tangent: bool)
     return x, xd, dict(zip(RB_NAMES, inp.params.unbind())), inp.coef.unbind(dim=1)
 
 
-def _primal_pairs(inp: RbInputs, pair, antithetic, seed, device_id, point_offset):
-    """(1 or 2, len(pair)) float32 values: the left-point sums in the
-    kernels' order and rounding, then the close."""
+def _pair_factors(inp: RbInputs, pair, antithetic, seed, device_id, point_offset):
+    """([(IV, J) of the + group, and of the mirror group when antithetic],
+    the parameter dict): the left-point sums in the kernels' order and
+    rounding."""
     n = inp.steps
     x, _, c, (C, sc, *_rest) = _products(inp, pair, seed, device_id, point_offset, False)
     ivp = jp = ivm = jm = torch.zeros_like(x[0])
@@ -240,10 +262,17 @@ def _primal_pairs(inp: RbInputs, pair, antithetic, seed, device_id, point_offset
             ivm = ivm + C[k] * rcp(ep)
             jm = jm + (sc[k] * rcp(sep)) * dw
     s0dw0 = sc[0] * x[0]
-    rows = [cond_bs_value(c["dt"] * (C[0] + ivp), s0dw0 + jp, c)]
+    factors = [(c["dt"] * (C[0] + ivp), s0dw0 + jp)]
     if antithetic:
-        rows.append(cond_bs_value(c["dt"] * (C[0] + ivm), -s0dw0 - jm, c))
-    return torch.stack(rows)
+        factors.append((c["dt"] * (C[0] + ivm), -s0dw0 - jm))
+    return factors, c
+
+
+def _primal_pairs(inp: RbInputs, pair, antithetic, seed, device_id, point_offset):
+    """(1 or 2, len(pair)) float32 values: the pairs' (IV, J), then the
+    close."""
+    factors, c = _pair_factors(inp, pair, antithetic, seed, device_id, point_offset)
+    return torch.stack([cond_bs_value(iv, j, c) for iv, j in factors])
 
 
 def rbergomi_mixing_values_plain(inp: RbInputs, n_paths: int, antithetic: bool, seed: int,
@@ -264,16 +293,37 @@ def rbergomi_mixing_price_sum_plain(inp: RbInputs, total_pairs: int, seed: int, 
     return total
 
 
-def _group_rows(inp: RbInputs, x, xd, c, cols, sign: float, vjp: bool):
+def rbergomi_mixing_smile_sums_plain(inp: RbInputs, ks, total_pairs: int, seed: int,
+                                     device_id: int, point_offset: int) -> torch.Tensor:
+    """Twin of K19: (m,) float64 sums over the pairs [0, total_pairs) of each
+    pair's fp32 (value + antithetic value) at each strike of ``ks`` ((m, 2)
+    float32: log(f_base/K), K); each strike's sum is K15's twin's at that
+    strike to the bit."""
+    total = torch.zeros(ks.shape[0], dtype=torch.float64, device=inp.params.device)
+    for pair in pair_chunks(total_pairs, inp.params.device, PLAIN_CHUNK):
+        factors, c = _pair_factors(inp, pair, True, seed, device_id, point_offset)
+        sums = []
+        for log_f_over_k, strike in ks:
+            ck = dict(c, log_f_over_k=log_f_over_k, strike=strike)
+            plus, minus = (cond_bs_value(iv, j, ck) for iv, j in factors)
+            sums.append((plus + minus).to(torch.float64).sum())
+        total = total + torch.stack(sums)
+    return total
+
+
+def _group_rows(inp: RbInputs, x, xd, c, cols, sign: float, vjp: bool, per_step: bool = False):
     """One antithetic group's tangent rows, as the TPU kernels' ``group``:
     [y, chain_xi0, chain_eta, chain_H, w, y_rho] (greeks) or [chain_xi0,
-    chain_eta, chain_H, chain_T, w, y_rho, y_K] (VJP), fp32.  The mirror
-    group (``sign`` −1) takes rcp of the + group's exponentials, so its y is
-    the price kernel's to the bit."""
+    chain_eta, chain_H, chain_T, w, y_rho, y_K] (VJP), fp32; with
+    ``per_step`` (the VJP under a curve, K18) the n rows d/d ln C_k =
+    y_IV·dt·P_k + y_J/2·s_k·ΔW_k in place of chain_xi0.  The mirror group
+    (``sign`` −1) takes rcp of the + group's exponentials, so its y is the
+    price kernel's to the bit."""
     n = inp.steps
     C, sc, _d, _dd, ae, bh = cols[:6]
     zero = torch.zeros_like(x[0])
     iv_a = j_a = div_eta = dj_eta = div_h = djh_g = djh_s = zero
+    step_terms = []
     for k in range(1, n):
         ep = torch.exp(c["eta"] * x[n + k - 1])
         sep = torch.sqrt(ep)
@@ -290,6 +340,8 @@ def _group_rows(inp: RbInputs, x, xd, c, cols, sign: float, vjp: bool):
         div_h = div_h + p * g
         djh_g = djh_g + g * sdw
         djh_s = djh_s + s * (sign * xd[k])
+        if per_step:
+            step_terms.append((p, sdw))
     iv = c["dt"] * (C[0] + iv_a)
     j = sc[0] * (sign * x[0]) + j_a
     div_eta, dj_eta, div_h = c["dt"] * div_eta, 0.5 * dj_eta, c["dt"] * div_h
@@ -302,7 +354,12 @@ def _group_rows(inp: RbInputs, x, xd, c, cols, sign: float, vjp: bool):
         return [y, ch_xi0, ch_eta, ch_h, w, y_rho]
     div_t = c["inv_t"] * (iv + c["h_eta"] * div_eta)
     dj_t = c["inv_t"] * (c["h_eta"] * dj_eta + 0.5 * j)
-    return [ch_xi0, ch_eta, ch_h, y_iv * div_t + y_j * dj_t, w, y_rho, -c["cp"] * phi2]
+    rows = [ch_xi0, ch_eta, ch_h, y_iv * div_t + y_j * dj_t, w, y_rho, -c["cp"] * phi2]
+    if not per_step:
+        return rows
+    ivw, jw = y_iv * c["dt"], y_j * 0.5
+    s0dw0 = sc[0] * (sign * x[0])
+    return [ivw * C[0] + jw * s0dw0] + [ivw * p + jw * sdw for p, sdw in step_terms] + rows[1:]
 
 
 def rbergomi_mixing_greek_sums_plain(inp: RbInputs, total_pairs: int, seed: int, device_id: int,
@@ -319,19 +376,34 @@ def rbergomi_mixing_greek_sums_plain(inp: RbInputs, total_pairs: int, seed: int,
     return total
 
 
+def _weighted_sums_plain(inp: RbInputs, ct, n_paths, antithetic, seed, device_id, point_offset,
+                         per_step: bool) -> torch.Tensor:
+    total = torch.zeros(inp.steps + len(CURVE_ROWS) if per_step else 7, dtype=torch.float64,
+                        device=inp.params.device)
+    for pair in pair_chunks(n_paths, inp.params.device, PLAIN_CHUNK):
+        x, xd, c, cols = _products(inp, pair, seed, device_id, point_offset, True)
+        rows = [ct[0, pair] * r for r in _group_rows(inp, x, xd, c, cols, 1.0, True, per_step)]
+        if antithetic:
+            minus = _group_rows(inp, x, xd, c, cols, -1.0, True, per_step)
+            rows = [a + ct[1, pair] * b for a, b in zip(rows, minus)]
+        total = total + torch.stack([r.to(torch.float64).sum() for r in rows])
+    return total
+
+
 def rbergomi_mixing_vjp_sums_plain(inp: RbInputs, ct, n_paths: int, antithetic: bool, seed: int,
                                    device_id: int, point_offset: int) -> torch.Tensor:
     """Twin of K17: float64 sums over the paths of the cotangent-weighted
     [chain_xi0, chain_eta, chain_H, chain_T, w, y_rho, y_K]."""
-    total = torch.zeros(7, dtype=torch.float64, device=inp.params.device)
-    for pair in pair_chunks(n_paths, inp.params.device, PLAIN_CHUNK):
-        x, xd, c, cols = _products(inp, pair, seed, device_id, point_offset, True)
-        rows = [ct[0, pair] * r for r in _group_rows(inp, x, xd, c, cols, 1.0, True)]
-        if antithetic:
-            minus = _group_rows(inp, x, xd, c, cols, -1.0, True)
-            rows = [a + ct[1, pair] * b for a, b in zip(rows, minus)]
-        total = total + torch.stack([r.to(torch.float64).sum() for r in rows])
-    return total
+    return _weighted_sums_plain(inp, ct, n_paths, antithetic, seed, device_id, point_offset, False)
+
+
+def rbergomi_mixing_vjp_curve_sums_plain(inp: RbInputs, ct, n_paths: int, antithetic: bool,
+                                         seed: int, device_id: int,
+                                         point_offset: int) -> torch.Tensor:
+    """Twin of K18: (n + 6,) float64 sums over the paths of the
+    cotangent-weighted per-step rows d/d ln C_k (k = 0..n−1), then
+    [chain_eta, chain_H, chain_T, w, y_rho, y_K] (``CURVE_ROWS``)."""
+    return _weighted_sums_plain(inp, ct, n_paths, antithetic, seed, device_id, point_offset, True)
 
 
 # ---- launch or twin -------------------------------------------------------------
@@ -415,23 +487,55 @@ def _rb_greek_sums(inp: RbInputs, total_pairs, seed, device_id, point_offset) ->
     return torch.stack([row.sum() for row in partials])
 
 
-def _rb_vjp_sums(inp: RbInputs, ct, n_paths, antithetic, seed, device_id,
-                 point_offset) -> torch.Tensor:
-    """Launch K17 for inputs on a GPU (seven float64 sums); the twin for
-    inputs on the CPU."""
+def _rb_vjp_sums(inp: RbInputs, ct, n_paths, antithetic, seed, device_id, point_offset,
+                 per_step: bool = False) -> torch.Tensor:
+    """Launch K17 (seven float64 sums), or with ``per_step`` K18 (n + 6),
+    for inputs on a GPU; the twin for inputs on the CPU."""
     _check(inp, True)
     check_tensor(ct, "cotangent", torch.float32, (2 if antithetic else 1, n_paths))
     if inp.params.device.type == "cpu":
-        return rbergomi_mixing_vjp_sums_plain(inp, ct, n_paths, antithetic, seed, device_id,
-                                              point_offset)
+        return _weighted_sums_plain(inp, ct, n_paths, antithetic, seed, device_id, point_offset,
+                                    per_step)
     require_cuda(inp.params)
     blocks = -(-n_paths // 64)
-    partials = torch.empty((7, blocks), dtype=torch.float64, device=inp.params.device)
-    RB_VJP_KERNEL.launch(
+    rows = inp.steps + len(CURVE_ROWS) if per_step else 7
+    partials = torch.empty((rows, blocks), dtype=torch.float64, device=inp.params.device)
+    (RB_VJP_CURVE_KERNEL if per_step else RB_VJP_KERNEL).launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
         inp.dpack.data_ptr(), _ptr(inp.table), ct.data_ptr(), partials.data_ptr(), n_paths,
         inp.steps, int(antithetic), seed & _MASK32, device_id & _MASK32, point_offset)
     return partials.sum(dim=1)
+
+
+def smile_strikes(f_base: float, strikes, device) -> torch.Tensor:
+    """K19's (m, 2) float32 strike table: log(f_base/K) in float64 cast once
+    (as the price trace casts it), then K."""
+    ks = [float(k) for k in np.atleast_1d(_np64(strikes)).reshape(-1)]
+    table = np.array([(math.log(float(f_base) / k), k) for k in ks], dtype=np.float64)
+    return torch.as_tensor(table.astype(np.float32), device=resolve_device(device))
+
+
+def _rb_smile_sums(inp: RbInputs, ks, total_pairs, seed, device_id, point_offset) -> torch.Tensor:
+    """Launch K19 for inputs on a GPU ((m,) float64 sums of its per-block
+    partials, each strike's row reduced as K15's partials are); the twin for
+    inputs on the CPU."""
+    _check(inp, False)
+    m = ks.shape[0]
+    if not 1 <= m <= MAX_STRIKES:
+        raise ValueError(f"the smile kernel takes 1 to {MAX_STRIKES} strikes; got {m}")
+    check_tensor(ks, "strikes", torch.float32, (m, 2))
+    if ks.device != inp.params.device:
+        raise ValueError("a kernel's inputs must be on one device")
+    if inp.params.device.type == "cpu":
+        return rbergomi_mixing_smile_sums_plain(inp, ks, total_pairs, seed, device_id, point_offset)
+    require_cuda(inp.params)
+    grid = price_grid(inp)
+    partials = torch.empty((m, grid), dtype=torch.float64, device=inp.params.device)
+    RB_SMILE_KERNEL.launch(
+        inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
+        _ptr(inp.table), ks.data_ptr(), m, partials.data_ptr(), grid, total_pairs, inp.steps,
+        seed & _MASK32, device_id & _MASK32, point_offset)
+    return torch.stack([row.sum() for row in partials])
 
 
 # ---- the public wrappers ----------------------------------------------------------
@@ -499,6 +603,27 @@ def rbergomi_mixing_price_and_greeks(
         discount * tot[4] * horizon - horizon * price,  # flat rate
     ])
     return price, grad
+
+
+def rbergomi_mixing_smile_price(
+    chol, coefs, eta, dt, f_base, strikes, cp, rho, discount,
+    *, n_blocks: int, n_batches: int, steps: int, seed, device_id=0,
+    qmc: bool = False, point_offset: int = 0, device="cuda",
+) -> torch.Tensor:
+    """Discounted vanilla prices (m,) float64 for a whole strike grid from
+    ONE launch over n_blocks·n_batches·2048 antithetic pairs: every strike
+    closes the same variance paths.  K15's stream, pairs and grid: each
+    strike's price equals :func:`rbergomi_mixing_vanilla_price` at that
+    strike to the bit."""
+    if steps < 2:
+        raise ValueError("the smile kernel needs steps >= 2")
+    total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
+    check_period(qmc, point_offset, total_pairs)
+    inp = rb_inputs(chol, coefs, eta, dt, f_base, 0.0, 0.0, cp, rho, steps=steps, seed=seed,
+                    qmc=qmc, device=device)
+    ks = smile_strikes(f_base, strikes, inp.params.device)
+    sums = _rb_smile_sums(inp, ks, total_pairs, int(seed), int(device_id), point_offset)
+    return discount * sums / (2 * total_pairs)
 
 
 # ---- host-side inputs from a problem or from the raw scalars ---------------------
@@ -616,7 +741,8 @@ def _rb_greek_trace_inputs(prob, config, quad_nodes: int) -> RbGreekTrace:
     if isinstance(market.xi0, ForwardVarianceCurve):
         raise TypeError(
             "the rough-Bergomi greeks kernel covers scalar xi0; bucketed ForwardVarianceCurve "
-            "vegas come from torch.autograd through the torch estimator")
+            "vegas come from torch.autograd through solve (the values kernel's K18 backward, "
+            "or the float64 estimator)")
     t = _rb_trace_inputs(prob, config, quad_nodes)
     n = config.steps
     hurst = float(market.hurst)
@@ -645,18 +771,58 @@ def rbergomi_kernel_price_and_greeks(prob, config, *, n_blocks: int, n_batches: 
     return price, dict(zip(GREEK_ORDER_RB, grad))
 
 
+def rbergomi_kernel_smile(prob, config, strikes, *, n_blocks: int, n_batches: int,
+                          quad_nodes: int = 64, seed=None, device_id=0, point_offset=0,
+                          device="cuda") -> torch.Tensor:
+    """Discounted prices (m,) for ``strikes`` under the problem's
+    rough-Bergomi market from K19: the payoff's expiry and call/put apply
+    to every strike, its own strike is not read.  ``config.trajectories``
+    is not read: the pairs are n_blocks·n_batches·2048."""
+    t = _rb_trace_inputs(prob, config, quad_nodes)
+    return rbergomi_mixing_smile_price(
+        t.chol, t.coefs, t.eta, t.dt, t.f_base, strikes, t.cp, t.rho, t.discount,
+        n_blocks=n_blocks, n_batches=n_batches, steps=config.steps,
+        seed=config.seed if seed is None else seed, device_id=device_id, qmc=config.qmc,
+        point_offset=point_offset, device=device)
+
+
 def _rb_diff_coeffs(xi0, eta, hurst, T, steps: int, quad_nodes: int, tangent: bool = True):
     """(chol, chol_h or None, coefs, ae, bh) from the raw scalars: what
-    :func:`_rb_greek_trace_inputs` derives from a problem."""
-    from ..models.rough_bergomi import volterra_chol, volterra_chol_dh
+    :func:`_rb_greek_trace_inputs` derives from a problem.  ``xi0`` is a
+    number, or under a piecewise-linear forward-variance curve the pair
+    (tenors, xi) of float64 CPU tensors: C_k = ξ₀(t_k)·exp(−½η²t_k^{2H})."""
+    from ..models.rough_bergomi import _interp, volterra_chol, volterra_chol_dh
 
     chol = volterra_chol(hurst, T, steps, quad_nodes=quad_nodes)
     chol_h = volterra_chol_dh(hurst, T, steps, quad_nodes=quad_nodes) if tangent else None
     t2h, ae, bh = _coef_columns(eta, hurst, T, steps)
-    return chol, chol_h, xi0 * torch.exp(-0.5 * eta**2 * t2h), ae, bh
+    level = _interp(_t_left(T, steps), *xi0) if isinstance(xi0, tuple) else xi0
+    return chol, chol_h, level * torch.exp(-0.5 * eta**2 * t2h), ae, bh
 
 
-# ---- the values' backward: K17, and the differentiable view -----------------------
+def _curve(tenors, xi) -> tuple:
+    """(tenors, xi) as detached float64 CPU tensors."""
+    return tuple(torch.as_tensor(v, dtype=torch.float64).detach().cpu() for v in (tenors, xi))
+
+
+def rb_vjp_inputs(spot, xi0, eta, hurst, rho, r0, T, strike, cp, *, steps: int, seed, qmc: bool,
+                  device, quad_nodes: int = 64) -> RbInputs:
+    """K17's device inputs from the raw scalars, or K18's when ``xi0`` is a
+    curve (tenors, xi): the factor, dL/dH, the C_k and (ae, bh) columns, Hη
+    and 1/T, and 1/ξ₀ in the inv_xi0 slot (0 under a curve: per-step mode)."""
+    spot, eta, hurst, rho, r0, T, strike = (float(x) for x in (spot, eta, hurst, rho, r0, T,
+                                                                strike))
+    curve = isinstance(xi0, tuple)
+    xi0 = _curve(*xi0) if curve else float(xi0)
+    chol, chol_h, coefs, ae, bh = _rb_diff_coeffs(xi0, eta, hurst, T, steps, quad_nodes)
+    f_base = spot * math.exp(r0 * T)
+    return rb_inputs(chol, coefs, eta, T / steps, f_base, math.log(f_base / strike), strike, cp,
+                     rho, steps=steps, seed=seed, qmc=qmc, device=device, chol_h=chol_h,
+                     coefs_h=(ae, bh), inv_xi0=0.0 if curve else 1.0 / xi0, h_eta=hurst * eta,
+                     inv_t=1.0 / T)
+
+
+# ---- the values' backward: K17, K18 under a curve, and the differentiable view ------
 
 
 def _rb_values_vjp(
@@ -671,31 +837,68 @@ def _rb_values_vjp(
     dJ/dT = (Hη·dJ/dη + J/2)/T."""
     if steps < 2:
         raise ValueError("the weighted VJP kernel needs steps >= 2")
-    spot, xi0, eta, hurst, rho, r0, T, strike = (
-        float(x) for x in (spot, xi0, eta, hurst, rho, r0, T, strike))
-    chol, chol_h, coefs, ae, bh = _rb_diff_coeffs(xi0, eta, hurst, T, steps, quad_nodes)
-    f_base = spot * math.exp(r0 * T)
-    inp = rb_inputs(chol, coefs, eta, T / steps, f_base, math.log(f_base / strike), strike, cp,
-                    rho, steps=steps, seed=seed, qmc=qmc, device=ct.device, chol_h=chol_h,
-                    coefs_h=(ae, bh), inv_xi0=1.0 / xi0, h_eta=hurst * eta, inv_t=1.0 / T)
+    inp = rb_vjp_inputs(spot, xi0, eta, hurst, rho, r0, T, strike, cp, steps=steps, seed=seed,
+                        qmc=qmc, device=ct.device, quad_nodes=quad_nodes)
     sums = _rb_vjp_sums(inp, ct.to(torch.float32).contiguous(), n_paths, antithetic, int(seed),
                         int(device_id), point_offset)
     ch_xi0, ch_eta, ch_h, ch_t, w_sum, rho_sum, k_sum = sums.unbind()
+    spot, r0, T = float(spot), float(r0), float(T)
     return (w_sum / spot, ch_xi0, ch_eta, ch_h, rho_sum, w_sum * T, ch_t + w_sum * r0, k_sum)
 
 
+def _rb_values_vjp_curve(
+    spot, xi, tenors, eta, hurst, rho, r0, T, strike, cp, ct,
+    *, n_paths: int, steps: int, seed, antithetic: bool, device_id=0,
+    qmc: bool = False, point_offset: int = 0, quad_nodes: int = 64,
+):
+    """Gradients of sum(ct·values) under the curve (tenors, xi) in (spot,
+    xi, tenors, eta, hurst, rho, r0, T, strike), from one K18 launch
+    replaying the values' stream: its per-step rows R_k = ∂/∂ln C_k chain
+    through ln ξ₀(t_k) into the bucket vegas, the tenor sensitivities and
+    the curve part of the maturity chain (t_k = (k/n)·T slides along the
+    spine) by ``torch.autograd.grad`` through the interpolation.  float64
+    tensors on the CPU (``xi`` and ``tenors`` of their length)."""
+    from ..models.rough_bergomi import _interp
+
+    n = steps
+    if n < 2:
+        raise ValueError("the weighted VJP kernel needs steps >= 2")
+    tenors, xi = _curve(tenors, xi)
+    inp = rb_vjp_inputs(spot, (tenors, xi), eta, hurst, rho, r0, T, strike, cp, steps=n,
+                        seed=seed, qmc=qmc, device=ct.device, quad_nodes=quad_nodes)
+    sums = _rb_vjp_sums(inp, ct.to(torch.float32).contiguous(), n_paths, antithetic, int(seed),
+                        int(device_id), point_offset, per_step=True).cpu()
+    R = sums[:n]
+    ch_eta, ch_h, ch_t, w_sum, rho_sum, k_sum = sums[n:].unbind()
+    spot, r0, T = float(spot), float(r0), float(T)
+    with torch.enable_grad():
+        xi_, ten_ = xi.clone().requires_grad_(), tenors.clone().requires_grad_()
+        T_ = torch.tensor(T, dtype=torch.float64, requires_grad=True)
+        level = torch.log(_interp(_t_left(T, n), ten_, xi_))
+        level_t = torch.log(_interp((torch.arange(n, dtype=torch.float64) / n) * T_, tenors, xi))
+        g_xi, g_ten = torch.autograd.grad(level, (xi_, ten_), R, allow_unused=True)
+        (g_t,) = torch.autograd.grad(level_t, (T_,), R, allow_unused=True)
+    zero = lambda g, like: torch.zeros_like(like) if g is None else g  # noqa: E731
+    return (w_sum / spot, zero(g_xi, xi), zero(g_ten, tenors), ch_eta, ch_h, rho_sum, w_sum * T,
+            ch_t + w_sum * r0 + zero(g_t, T_.detach()), k_sum)
+
+
 class _RbValues(torch.autograd.Function):
-    """K14 forward, K17 backward, over the eight differentiable scalars."""
+    """K14 forward over (spot, xi0, eta, hurst, rho, r0, T, strike); the
+    backward K17, or K18 when the level is a curve (xi, tenors) in xi0's
+    place."""
 
     @staticmethod
-    def forward(ctx, spot, xi0, eta, hurst, rho, r0, T, strike, opts):
-        inputs = (spot, xi0, eta, hurst, rho, r0, T, strike)
-        ctx.args = tuple(float(x) for x in inputs)
-        ctx.metas = [(x.dtype, x.device) for x in inputs]
-        ctx.opts = opts
-        spot, xi0, eta, hurst, rho, r0, T, strike = ctx.args
+    def forward(ctx, opts, spot, *rest):
         cp, quad_nodes, kw = opts
-        chol, _, coefs, _, _ = _rb_diff_coeffs(xi0, eta, hurst, T, kw["steps"], quad_nodes,
+        ctx.metas = [(x.dtype, x.device) for x in (spot, *rest)]
+        ctx.opts = opts
+        head = len(rest) - 6  # 1: xi0; 2: (xi, tenors)
+        ctx.head = tuple(v.detach().cpu() for v in rest[:head])
+        ctx.args = tuple(float(x) for x in (spot, *rest[head:]))
+        spot, eta, hurst, rho, r0, T, strike = ctx.args
+        level = ctx.head[::-1] if head == 2 else float(ctx.head[0])
+        chol, _, coefs, _, _ = _rb_diff_coeffs(level, eta, hurst, T, kw["steps"], quad_nodes,
                                                tangent=False)
         f_base = spot * math.exp(r0 * T)
         return rbergomi_mixing_values(chol, coefs, eta, T / kw["steps"], f_base,
@@ -705,9 +908,10 @@ class _RbValues(torch.autograd.Function):
     def backward(ctx, ct):
         cp, quad_nodes, kw = ctx.opts
         kw = {k: v for k, v in kw.items() if k != "device"}
-        grads = _rb_values_vjp(*ctx.args, cp, ct, quad_nodes=quad_nodes, **kw)
-        return (*(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas)),
-                None)
+        vjp = _rb_values_vjp_curve if len(ctx.head) == 2 else _rb_values_vjp
+        grads = vjp(ctx.args[0], *ctx.head, *ctx.args[1:], cp, ct, quad_nodes=quad_nodes, **kw)
+        return (None,
+                *(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas)))
 
 
 def rbergomi_mixing_values_diff(
@@ -716,18 +920,23 @@ def rbergomi_mixing_values_diff(
     qmc: bool = False, point_offset: int = 0, quad_nodes: int = 64, device="cuda",
 ) -> torch.Tensor:
     """Differentiable view of :func:`rbergomi_mixing_values`: the factor and
-    coefficients derived from the raw scalars, and a backward that runs K17
-    on the same stream, so ``torch.autograd.grad`` of any reduction of the
-    values works.  The eight leading scalars (numbers or 0-dim tensors) are
-    differentiable, the maturity ``T`` and ``strike`` included.  Scalar
-    ``xi0`` only."""
+    coefficients derived from the raw scalars, and a backward on the same
+    stream, so ``torch.autograd.grad`` of any reduction of the values
+    works.  The eight leading scalars (numbers or 0-dim tensors) are
+    differentiable, the maturity ``T`` and ``strike`` included.  A scalar
+    ``xi0`` takes K17 backward; a ``ForwardVarianceCurve`` (flat outside
+    its spine) takes K18, whose gradients reach its ``xi`` (the bucket
+    vegas) and ``tenors``."""
+    from ..models.rough_bergomi import ForwardVarianceCurve
+
     if steps < 2:
         raise ValueError("the differentiable values kernel needs steps >= 2")
+    head = (xi0.xi, xi0.tenors) if isinstance(xi0, ForwardVarianceCurve) else (xi0,)
     args = tuple(torch.as_tensor(x, dtype=torch.float64)
-                 for x in (spot, xi0, eta, hurst, rho, r0, T, strike))
+                 for x in (spot, *head, eta, hurst, rho, r0, T, strike))
     kw = dict(n_paths=n_paths, steps=steps, seed=seed, antithetic=antithetic,
               device_id=device_id, qmc=qmc, point_offset=point_offset, device=device)
-    return _RbValues.apply(*args, (cp, quad_nodes, kw))
+    return _RbValues.apply((cp, quad_nodes, kw), *args)
 
 
 class _PrimalOnly(torch.autograd.Function):
@@ -748,11 +957,11 @@ def rbergomi_mixing_values_adapter(prob, config, strat, key=None, device_id=0, p
                                    *, device) -> torch.Tensor:
     """``MonteCarlo(RoughBergomiDynamics(), RoughBergomiMixing(use_kernel=True))``:
     float64 per-path values (n_groups, trajectories) from K14 (the
-    counterpart of the JAX ``rbergomi_mixing_values_pallas``).  With scalar
-    xi0 and ``steps >= 2`` through the differentiable view (backward K17);
-    under a ForwardVarianceCurve, or one step, the values are primal only.
-    Under QMC the seed is always ``config.seed``; under PRNG an explicit
-    ``key`` reseeds the stream."""
+    counterpart of the JAX ``rbergomi_mixing_values_pallas``).  At ``steps
+    >= 2`` through a differentiable view: backward K17 with scalar xi0, K18
+    under a ForwardVarianceCurve (bucket vegas); at one step the values are
+    primal only.  Under QMC the seed is always ``config.seed``; under PRNG
+    an explicit ``key`` reseeds the stream."""
     from ..methods.montecarlo import Antithetic, sim_params
     from ..models.rough_bergomi import ForwardVarianceCurve
     from .heston_kernel import seed_from_key
@@ -762,18 +971,18 @@ def rbergomi_mixing_values_adapter(prob, config, strat, key=None, device_id=0, p
               seed=config.seed if config.qmc else seed_from_key(config, key),
               antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
               qmc=config.qmc, point_offset=point_offset, device=device)
-    curve = isinstance(market.xi0, ForwardVarianceCurve)
-    if config.steps >= 2 and not curve:
-        out = rbergomi_mixing_values_diff(
-            market.spot, market.xi0, market.eta, market.hurst, market.rho, r0, T,
-            prob.payoff.strike, prob.payoff.call_put(), quad_nodes=strat.quad_nodes, **kw)
+    if config.steps >= 2:
+        out = rbergomi_mixing_values_diff(market.spot, market.xi0, market.eta, market.hurst,
+                                          market.rho, r0, T, prob.payoff.strike,
+                                          prob.payoff.call_put(), quad_nodes=strat.quad_nodes,
+                                          **kw)
         return out.to(torch.float64)
+    curve = isinstance(market.xi0, ForwardVarianceCurve)
     trace = _rb_trace_inputs(prob, config, strat.quad_nodes)
     out = rbergomi_mixing_values(*trace.values_args(), **kw)
-    reason = ("gradients through the rough-Bergomi kernel under a ForwardVarianceCurve need "
-              "the per-step VJP kernel, which is not ported yet; use use_kernel=False"
-              if curve else "the rough-Bergomi values kernel is differentiable at steps >= 2")
     leaves = [x for x in (market.spot, market.eta, market.hurst, market.rho, market.rate.rate,
                           *((market.xi0.xi, market.xi0.tenors) if curve else (market.xi0,)))
               if isinstance(x, torch.Tensor) and x.requires_grad]
-    return _PrimalOnly.apply(out.to(torch.float64), reason, *leaves)
+    return _PrimalOnly.apply(out.to(torch.float64),
+                             "the rough-Bergomi values kernel is differentiable at steps >= 2",
+                             *leaves)

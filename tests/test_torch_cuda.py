@@ -360,3 +360,58 @@ def test_rbergomi_solve_on_cuda_is_differentiable(gpu):
     got = torch.stack([grads[0], grads[1], grads[2], grads[4], grads[3]])
     want = torch.stack([greeks[k] for k in ("spot", "xi0", "eta", "rho", "hurst")]).cpu()
     assert ((got - want).abs() <= 1e-5 * float(want.abs().max()) + 1e-5 * want.abs()).all()
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_rbergomi_curve_kernel_flat_identity(gpu, qmc):
+    """K18 under a flat curve (every level 0.04) on K17's stream and
+    cotangent: the bucket vegas sum to K17's xi0 gradient within rel 1e-5
+    (n per-step fp32 rows against one), the tenor sensitivities are exactly
+    0; and K18's n + 6 sums against its twin within rel 1e-5 of the largest
+    plus 1e-5 of each."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    ct = 0.5 + 0.5 * torch.sin(torch.arange(2 * PAIRS, device=gpu, dtype=torch.float32)).reshape(
+        2, PAIRS)
+    kw = dict(n_paths=PAIRS, steps=RB_STEPS, seed=5, antithetic=True, qmc=qmc)
+    rest = (1.9, 0.08, -0.9, 0.03, 1.0, 100.0, 1.0, ct)
+    before = rk.RB_VJP_CURVE_KERNEL.launches
+    curve = rk._rb_values_vjp_curve(100.0, [0.04] * 3, [0.25, 0.5, 1.0], *rest, **kw)
+    assert rk.RB_VJP_CURVE_KERNEL.launches == before + 1
+    flat = rk._rb_values_vjp(100.0, 0.04, *rest, **kw)
+    assert float(curve[1].sum()) == pytest.approx(float(flat[1]), rel=1e-5)
+    assert curve[2].tolist() == [0.0, 0.0, 0.0]
+    inp = rk.rb_vjp_inputs(100.0, ([0.25, 0.5, 1.0], [0.04] * 3), 1.9, 0.08, -0.9, 0.03, 1.0,
+                           100.0, 1.0, steps=RB_STEPS, seed=5, qmc=qmc, device=gpu)
+    sums = rk._rb_vjp_sums(inp, ct, PAIRS, True, 5, 0, 0, per_step=True)
+    want = rk.rbergomi_mixing_vjp_curve_sums_plain(inp, ct, PAIRS, True, 5, 0, 0)
+    assert sums.shape == (RB_STEPS + 6,)
+    assert ((sums - want).abs() <= 1e-5 * float(want.abs().max()) + 1e-5 * want.abs()).all()
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_rbergomi_smile_kernel_equals_the_price_kernel(gpu, qmc):
+    """K19 at strikes 80, 100, 120: each price equals K15's at that strike to
+    the bit (K15's pairs, grid, close and reduction), and its sums agree
+    with the twin's within rel 1e-6."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    strikes = (80.0, 100.0, 120.0)
+    cfg = ht.SimulationConfig(PAIRS, RB_STEPS, ht.Antithetic(), 5, qmc)
+    kw = dict(n_blocks=PAIRS // rk.PAIRS_PER_BLOCK, n_batches=1, device=gpu)
+    before = rk.RB_SMILE_KERNEL.launches
+    smile = rk.rbergomi_kernel_smile(_rb_problem(), cfg, strikes, **kw)
+    assert rk.RB_SMILE_KERNEL.launches == before + 1
+    for k, strike in enumerate(strikes):
+        prob = ht.PricingProblem(ht.VanillaOption(strike, dt.date(2024, 12, 31)),
+                                 _rb_problem().market_inputs)
+        ins = rk._rb_trace_inputs(prob, cfg, 64)
+        price = rk.rbergomi_mixing_vanilla_price(*ins.price_args(), steps=RB_STEPS, seed=5,
+                                                 qmc=qmc, **kw)
+        assert float(smile[k]) == float(price), strike
+    ins = rk._rb_trace_inputs(_rb_problem(), cfg, 64)
+    inp = rk.rb_inputs_from_trace(ins, seed=5, qmc=qmc, device=gpu)
+    ks = rk.smile_strikes(ins.f_base, strikes, gpu)
+    torch.testing.assert_close(rk._rb_smile_sums(inp, ks, PAIRS, 5, 0, 0),
+                               rk.rbergomi_mixing_smile_sums_plain(inp, ks, PAIRS, 5, 0, 0),
+                               rtol=1e-6, atol=0)

@@ -310,8 +310,10 @@ def test_kernel_route_per_path_matches_the_float64_estimator(steps):
 
 
 def test_curve_and_one_step_routes_are_primal_only():
-    """Under a ForwardVarianceCurve (and at one step) the adapter runs K14
-    for the primal; a gradient request raises, naming what is missing."""
+    """Under a ForwardVarianceCurve the adapter runs K14 forward and K18
+    backward: ``torch.autograd.grad`` gives finite, positive bucket vegas of
+    an at-the-money call.  At one step the values are primal only and a
+    gradient request raises, naming why."""
     xi = torch.tensor([0.04, 0.05], dtype=torch.float64, requires_grad=True)
     mkt = ht.RoughBergomiInputs(REF, 0.03, 100.0, ht.ForwardVarianceCurve([0.5, 1.0], xi), 1.5, 0.1,
                                 -0.7)
@@ -322,18 +324,132 @@ def test_curve_and_one_step_routes_are_primal_only():
                                            ht.RoughBergomiMixing(use_kernel=True), cfg,
                                            device="cpu"))
         assert sol.ensemble.shape == (2, 256) and bool(torch.isfinite(sol.ensemble).all())
-        with pytest.raises(NotImplementedError, match="not ported|steps >= 2"):
-            torch.autograd.grad(sol.price, xi)
+        if steps >= 2:
+            (vegas,) = torch.autograd.grad(sol.price, xi)
+            assert vegas.shape == (2,) and bool(torch.isfinite(vegas).all())
+            assert bool((vegas > 0).all()), vegas
+        else:
+            with pytest.raises(NotImplementedError, match="steps >= 2"):
+                torch.autograd.grad(sol.price, xi)
+
+
+def _unit_hits(seed: int, n_dims: int, n_points: int) -> list:
+    """The (point, dim) pairs among the first ``n_points`` points of
+    ``sobol_table(seed, n_dims)`` whose float32 uniform rounds to 1.0
+    (integer ≥ 2^30 − 32), sorted.  The integer is linear over GF(2) in the
+    index bits, so each dimension is searched by meeting the low 15 index
+    bits' terms against the high bits' in the top 25 integer bits."""
+    bits = hh_device.SOBOL_BITS
+    table = hh_device.sobol_table(seed, n_dims).astype(np.int64)
+    lo, top = 15, (1 << (bits - 5)) - 1
+    low = np.arange(1 << lo, dtype=np.int64)
+    highs = np.arange(((n_points - 1) >> lo) + 1, dtype=np.int64)
+    hits = []
+    for d in range(n_dims):
+        g = np.zeros_like(low)
+        for b in range(lo):
+            g ^= np.where((low >> b) & 1, table[d, b], 0)
+        f = np.full_like(highs, table[d, bits])
+        for b in range(lo, bits):
+            f ^= np.where((highs >> (b - lo)) & 1, table[d, b], 0)
+        order = np.argsort(g >> 5, kind="stable")
+        keys = (g >> 5)[order]
+        want = (f >> 5) ^ top
+        first, last = np.searchsorted(keys, want, "left"), np.searchsorted(keys, want, "right")
+        for h, i0, i1 in zip(highs, first, last):
+            hits += [(int(p), d) for p in (h << lo) + order[i0:i1] if p < n_points]
+    return sorted(hits)
+
+
+#: the Sobol' dims each scheme draws as normals (the rest are uniforms):
+#: exact mixing 4 a segment (the normals at 4s + 1, 4s + 3), QE mixing 2 a
+#: step (z at 2s), QE-M 3 a step (z_v, z_x; u at 3s + 2), rough Bergomi all
+_NORMAL_DIMS = {"exact": lambda d: d % 4 in (1, 3), "QE": lambda d: d % 2 == 0,
+                "QE-M": lambda d: d % 3 != 2, "rBergomi": lambda d: True}
+
+
+@pytest.mark.parametrize("scheme, seed, dims, points, normals, uniforms", [
+    ("exact", 5, 8, 2**20, 0, 1),  # K2/K3 against their twins (chip_smoke.py phase 2)
+    ("exact", 0, 8, 2**22, 0, 2),  # K2 under solve
+    ("QE", 5, 22, 2**20, 1, 0),  # K7/K8/K10/K11 against their twins, 11 steps
+    ("QE", 0, 22, 2**22, 2, 0),  # K7 under solve
+    ("QE-M", 5, 30, 2**20, 0, 1),  # K5 against its twin, 10 steps
+    ("QE-M", 0, 30, 2**23, 5, 1),  # K5 under solve
+    ("QE", 5, 64, 2**20, 3, 1),  # K9/K12 against their twins, 32 steps
+    ("QE", 0, 64, 2**26, 64, 64),  # K9 behind the surface adapter
+    ("exact", 5, 20, 2**20, 0, 1),  # K4 against its twin, 5 segments
+    ("exact", 0, 20, 2**26, 20, 20),  # K4 behind the surface adapter
+    ("rBergomi", 5, 127, 2**20, 4, 0),  # K14-K19 against their twins, 64 steps
+    ("rBergomi", 0, 127, 2**20, 3, 0),  # K14 under solve on the float64 estimator's points
+    ("rBergomi", 0, 127, 2**22, 18, 0),  # K14 and K18 under solve
+], ids=["K2-twin", "K2-solve", "K7-twin", "K7-solve", "K5-twin", "K5-solve", "K9-twin",
+        "K9-adapter", "K4-twin", "K4-adapter", "rB-twin", "rB-f64-points", "rB-solve"])
+def test_sobol_unit_cells_of_the_qmc_calls(scheme, seed, dims, points, normals, uniforms):
+    """The Sobol' cells whose fp32 uniform rounds to 1.0 among the points
+    of each QMC kernel call of chip_smoke.py, split into normal and uniform
+    draws: the Heston kernels keep the TPU kernels' arithmetic there (an
+    11.46-sigma normal; a uniform the QE draw clamps to 1 − 1e-7), the
+    rough-Bergomi stream repairs its normals.  2^26 points put exactly two
+    in each dimension's 32 top cells."""
+    hits = _unit_hits(seed, dims, points)
+    got = sum(_NORMAL_DIMS[scheme](d) for _, d in hits)
+    assert (got, len(hits) - got) == (normals, uniforms)
+    table = torch.as_tensor(hh_device.sobol_table(seed, dims))
+    for point, d in hits[:4]:
+        a = int(hh_device.sobol_bits(hh_device.sobol_masks(torch.tensor([point])), table, d))
+        assert a >= 2**30 - 32, (point, d, a)
+
+
+def test_sobol_unit_cells_draw_the_tail_normal():
+    """A Sobol' integer a ≥ 2^30 − 32 rounds to u = 1.0 in float32, where the
+    TPU kernels' ndtri returns 11.46; the rough-Bergomi stream draws
+    Φ⁻¹((a + ½)·2^-30) there.  At seed 0 and 64 steps (128 dimensions) the
+    first 2^20 points hit three such cells.  At point 410584, ξ row 94 (a Z
+    row) lies within 1e-3 of the float64 Φ⁻¹, every other row keeps the TPU
+    arithmetic's bits, and the K14 twin's values there agree with the
+    float64 estimator's (exact ndtri) within chip_smoke.py's RB_F64_TOL, rel
+    1e-2 (values below 1e-3 absolutely)."""
+    from hedgehog_tpu_torch.methods.rough_bergomi_mixing import rbergomi_mixing_values
+
+    assert _unit_hits(0, 128, 2**20) == [(410584, 94), (747354, 60), (894640, 0)]
+    offset = 410584
+    table = torch.as_tensor(hh_device.sobol_table(0, 128))
+    pair = torch.zeros(1, dtype=torch.int64)
+    xi = pr.rb_xi(pair, 128, table, 0, 0, offset)[:, 0]
+    masks = hh_device.sobol_masks(pair + offset)
+    tpu = torch.stack([hh_device.ndtri_approx(u)
+                       for u in hh_device.sobol_uniforms_tile(masks, table, range(128))])[:, 0]
+    a = int(hh_device.sobol_bits(masks, table, 94))
+    exact = float(torch.special.ndtri(torch.tensor((a + 0.5) * 2.0**-30, dtype=torch.float64)))
+    assert a >= 2**30 - 32 and float(tpu[94]) == pytest.approx(11.464, abs=1e-3)
+    assert abs(float(xi[94]) - exact) <= 1e-3, (float(xi[94]), exact)
+    keep = torch.arange(128) != 94
+    torch.testing.assert_close(xi[keep], tpu[keep], rtol=0, atol=0)
+
+    mkt = ht.RoughBergomiInputs(REF, 0.03, 100.0, 0.04, 1.9, 0.08, -0.9)
+    prob = ht.PricingProblem(ht.VanillaOption(100.0, dt.date(2024, 12, 31)), mkt)
+    cfg = ht.SimulationConfig(1, 64, ht.Antithetic(), 0, True)
+    got = pr.rbergomi_mixing_values(*pr._rb_trace_inputs(prob, cfg, 64).values_args(), n_paths=1,
+                                    steps=64, seed=0, antithetic=True, qmc=True,
+                                    point_offset=offset, device="cpu")
+    want = rbergomi_mixing_values(prob, cfg, point_offset=offset, device="cpu")
+    rel = (got.double() - want).abs() / want.abs().clamp(min=1e-3)
+    assert float(rel.max()) <= 1e-2, (got, want)
 
 
 def test_cpu_tensors_take_the_twins_and_launch_nothing():
-    kernels = (pr.RB_VALUES_KERNEL, pr.RB_PRICE_KERNEL, pr.RB_GREEKS_KERNEL, pr.RB_VJP_KERNEL)
+    kernels = (pr.RB_VALUES_KERNEL, pr.RB_PRICE_KERNEL, pr.RB_GREEKS_KERNEL, pr.RB_VJP_KERNEL,
+               pr.RB_VJP_CURVE_KERNEL, pr.RB_SMILE_KERNEL)
     before = [k.launches for k in kernels]
     ins = _port_inputs(steps=3)
     pr.rbergomi_mixing_values(*ins.values_args(), n_paths=64, steps=3, seed=0, device="cpu")
     pr.rbergomi_mixing_vanilla_price(*ins.price_args(), n_blocks=1, n_batches=1, steps=3, seed=0,
                                      device="cpu")
     pr._rb_values_vjp(*P0, 1.0, torch.ones(1, 64), n_paths=64, steps=3, seed=0, antithetic=False)
+    pr._rb_values_vjp_curve(P0[0], [0.04, 0.05], [0.5, 1.0], *P0[2:], 1.0, torch.ones(1, 64),
+                            n_paths=64, steps=3, seed=0, antithetic=False)
+    pr.rbergomi_mixing_smile_price(*ins.price_args()[:5], [90.0, 110.0], *ins.price_args()[7:],
+                                   n_blocks=1, n_batches=1, steps=3, seed=0, device="cpu")
     assert [k.launches for k in kernels] == before
 
 
