@@ -185,6 +185,9 @@ RB_ETA0_ALLOWANCE_BP = 0.1
 # (tests/unit/test_rbergomi_kernel.py:194-196)
 RB_FD_CHECKS = (("spot", 0.2, 2e-3), ("xi0", 1e-4, 1e-4), ("rate", 1e-4, 1e-3))
 TPU_RB_SERVING = "76 ms per 2^24-pair dispatch, 4.4e8 paths/s (SERVING_METRICS.json:77-83, TPU v5e)"
+# one pair a thread through rb_walk, before the chunked product of K15/K19
+# (PERF.md section 5, chip_smoke.py phase 4 on an H100 80GB HBM3, 700.00 W)
+ONE_PAIR_A_THREAD_RB_SERVING = "K15 27.010 ms, K19 (17 strikes) 29.780 ms a 2^24-pair dispatch"
 # the (point, Sobol' dim) cells of the float64 estimator's 2^20 QMC points
 # (seed 0, 128 dims) whose fp32 uniform rounds to 1.0; before the repair the
 # kernels drew 11.46 sigma there (tests/test_torch_rbergomi_kernel.py finds them)
@@ -1815,29 +1818,25 @@ def phase_rb_shapes(device: str) -> dict:
 
 
 def phase_rb_occupancy(device: str) -> dict:
-    """The resident blocks per SM of K15 (the grid K15 and K16 walk, from the
-    library's occupancy query) on each stream, beside the shared memory a
-    block holds: a pair's ξ column per thread (csrc/rbergomi.cu rb_smem),
-    plus the Sobol' table under QMC."""
+    """K15's occupancy on each stream from the CUDA runtime (the grid K15,
+    K16 and K19 walk): resident blocks and warps per SM, the shared memory a
+    block holds (the 64 pairs' ξ columns, the chunk of Z rows, the Sobol'
+    table under QMC, the reduction's doubles), registers and spill."""
     import torch
 
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
     dev = torch.device(device)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    threads = 64  # csrc/rbergomi.cu kThreads
     out = {}
     for qmc in (True, False):
         stream = "QMC" if qmc else "PRNG"
         _, inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=False)
-        per_sm = rk.price_grid(inp) // sms
-        smem = 4 * (RB_STEPS + rk.zcols(RB_STEPS)) * threads + (
-            4 * int(inp.table.numel()) if qmc else 0)
-        say(f"  K15 occupancy ({stream}, {RB_STEPS} steps): {per_sm} blocks of {threads} threads "
-            f"per SM = {per_sm * threads // 32} warps of 64 ({smem / 1024:.1f} KB of shared "
-            f"memory a block)")
-        out[stream] = dict(blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
-                           smem_bytes=smem)
+        occ = rk.price_occupancy(inp)
+        say(f"  K15 occupancy ({stream}, {RB_STEPS} steps): {occ['blocks_per_sm']} blocks of "
+            f"{occ['threads']} threads per SM = {occ['warps_per_sm']} warps of 64; "
+            f"{occ['smem_bytes'] / 1024:.1f} KB of shared memory a block; {occ['registers']} "
+            f"registers a thread, {occ['local_bytes']} B local")
+        out[stream] = occ
     return out
 
 
@@ -2205,7 +2204,8 @@ def phase_rb_serving(f64: dict, device: str) -> dict:
         f"vs the float64 estimator {f64['price']:.10f}: {diff_bp:+.4f} bp (its SE "
         f"{f64['se'] / f64['price'] * 1e4:.4f} bp); one synchronised dispatch {wall_ms:.3f} ms of "
         f"host time, idle share {1.0 - ms / wall_ms:.3f}")
-    say(f"  for comparison only: {TPU_RB_SERVING}")
+    say(f"  for comparison only: {TPU_RB_SERVING}; one pair a thread (PERF.md): "
+        f"{ONE_PAIR_A_THREAD_RB_SERVING}")
     check(abs(mc - f64["price"]) <= 4 * f64["se"] + 1e-7 * mc,
           "rough Bergomi serving: the price disagrees with the float64 estimator")
     say(f"  price + 6 greeks: {g_ms:.3f} ms per call; greek-vector / price time ratio {ratio:.4f}; "
@@ -2357,11 +2357,62 @@ def output_digests(device: str) -> dict:
     return out
 
 
+def smi_query(fields: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu=FIELDS`` line."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def rb_times(device: str) -> dict:
+    """K15's and K19's times for the package imported (this tree's, or
+    ``--root``'s), to compare two trees in turns in one call: K15 per serving
+    dispatch (2^24 pairs x 64 steps, PRNG, the public wrapper on 6 seeds, as
+    phase 4), and per kernel call on fixed inputs (CUDA events, 5 after a
+    warm-up) K15, K19 (17 strikes) and K16 at 2^20 pairs (PERF.md's rows)
+    and 2^24 on both streams; K16 keeps one pair a thread on K15's grid, so
+    its time shows what the grid alone moves.  With K15's occupancy where the
+    package reports it."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    dev = torch.device(device)
+    serving = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
+    out = {"nvidia_smi": smi_query("name,power.limit"), "package": rk.__file__}
+    ins = rk._rb_trace_inputs(rb_problem(), rb_config(serving, False), 64)
+    kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, steps=RB_STEPS, device=dev)
+    rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=0, **kw)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for seed in range(1, SERVING_REPS + 1):
+        rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    out["K15 serving dispatch"] = start.elapsed_time(stop) / SERVING_REPS
+    ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
+    for pairs in (CHECK_PAIRS, serving):
+        for qmc in (False, True):
+            key = f"{'QMC' if qmc else 'PRNG'} {pairs}"
+            _, inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=False)
+            _, g_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True)
+            out[f"K15 {key}"] = time_ms(lambda: rk._rb_price_sum(inp, pairs, 1, 0, 0))
+            out[f"K19 {key}"] = time_ms(lambda: rk._rb_smile_sums(inp, ks, pairs, 1, 0, 0))
+            out[f"K16 {key}"] = time_ms(lambda: rk._rb_greek_sums(g_inp, pairs, 1, 0, 0))
+            out[f"grid {key}"] = rk.price_grid(inp)
+            if hasattr(rk, "price_occupancy") and pairs == serving:
+                out[f"occupancy {key}"] = rk.price_occupancy(inp)
+    for key, val in out.items():
+        say(f"  {key}: {val}")
+    return out
+
+
 def digest_main(argv: list) -> int:
     """``--digest OUT [--root DIR]``: build the kernels of the package in DIR
     (default: beside this script) and write its :func:`output_digests` to
-    OUT as JSON.  ``--compare A B``: print, for every output either digest
-    file holds, whether the two trees' bytes are equal, then the counts."""
+    OUT as JSON; ``--times OUT [--root DIR]`` likewise its :func:`rb_times`.
+    ``--compare A B``: print, for every output either digest file holds,
+    whether the two trees' bytes are equal, then the counts."""
     if argv[0] == "--compare" and len(argv) == 3:
         a, b = (json.loads(open(p).read()) for p in argv[1:])
         keys = sorted(set(a) | set(b), key=lambda k: (int(k.split()[0][1:]), k))
@@ -2374,8 +2425,10 @@ def digest_main(argv: list) -> int:
                         "different": [k for k in keys if k in a and k in b and k not in same],
                         "only_in_one": [k for k in keys if (k in a) != (k in b)]}))
         return 0
-    if argv[0] != "--digest" or len(argv) not in (2, 4) or (len(argv) == 4 and argv[2] != "--root"):
-        print("usage: chip_smoke.py [--digest OUT [--root DIR] | --compare A B]", file=sys.stderr)
+    if (argv[0] not in ("--digest", "--times") or len(argv) not in (2, 4)
+            or (len(argv) == 4 and argv[2] != "--root")):
+        print("usage: chip_smoke.py [--digest OUT [--root DIR] | --times OUT [--root DIR] | "
+              "--compare A B]", file=sys.stderr)
         return 2
     import torch
 
@@ -2388,10 +2441,10 @@ def digest_main(argv: list) -> int:
 
     lib, _ = cuda_lib.build_library()
     cuda_lib.load_library()
-    digests = output_digests("cuda")
+    result = output_digests("cuda") if argv[0] == "--digest" else rb_times("cuda")
     with open(argv[1], "w") as f:
-        json.dump(digests, f, indent=1)
-    say(f"{len(digests)} output digests of the kernels built into {lib.parent}")
+        json.dump(result, f, indent=1)
+    say(f"{len(result)} {argv[0][2:]} entries of the kernels built into {lib.parent}")
     return 0
 
 
@@ -2434,11 +2487,6 @@ def main() -> int:
     )
 
     say("phase 1: device")
-
-    def smi_query(fields: str) -> str:
-        return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
-                              capture_output=True, text=True,
-                              check=True).stdout.strip().splitlines()[0]
 
     smi = smi_query("name,power.limit")
     say(smi)

@@ -36,28 +36,47 @@
 // n(n-1) FMAs a pair, about 4K at n = 64, against the TPU kernel's dense
 // (2n)^2 on a 128-padded tile; a step adds two exponentials' worth of MUFU
 // (ex2, rsqrt, two rcp) and a dozen FLOPs, and the Philox or Sobol' draw of
-// 2n normals comes on top.  On an H100 the kernels run 7-10x above that
-// operation bound (PERF.md); unrolling the column loop's loads moved nothing.
-// The first candidate is occupancy: the xi columns hold a 64-thread block to
-// 32 KB of shared memory at 64 steps (48 KB with the Sobol' table), which
-// leaves a few blocks an SM for a latency-bound FMA and MUFU chain
-// (chip_smoke.py prints K15's blocks per SM).
+// 2n normals comes on top.  On an H100 K14 and K16-K18 run 7-10x above that
+// operation bound, K15 5x (PERF.md): latency-bound chains at few warps an SM,
+// not the issue rate of any one pipe.
 //
-// Design: one antithetic pair per thread.  The thread draws its xi column
-// into shared memory (row-major, one float per thread a row: conflict-free),
-// then walks the consumed Z rows in tiles of kTile rows whose kTile
-// accumulators live in registers: for each column one shared load of each xi
-// it multiplies and warp-uniform float4 loads of the factor's packed entries
-// (one L1 broadcast a load; the factor is read from global memory, so L adds
-// no shared memory and sets no step limit).  Step k consumes Z row k-1 and
-// dW_k as soon as its tile is done, so the state is O(1) a path.  The step
-// limit (ops/rbergomi_kernel.py MAX_STEPS) comes from the xi column (2n rows
-// padded to whole tiles) and the Sobol' table in shared memory.  The primal
-// sums round each product and sum separately (__fmul_rn/__fadd_rn, as the
-// twins do) and the product uses explicit fmaf in one order, so K15 and K16
-// compute each pair's values to the same bits; both walk the pairs with K15's
-// resident grid and reduce with heston_qe.cuh block_sums, so K16's price is
-// K15's to the bit.
+// K14 and K16-K18: one antithetic pair per thread (rb_walk).  The thread
+// draws its xi column into shared memory (row-major, one float per thread a
+// row: conflict-free), then walks the consumed Z rows in tiles of kTile rows
+// whose kTile accumulators live in registers: for each column one shared
+// load of each xi it multiplies and warp-uniform float4 loads of the
+// factor's packed entries (6 loads per 16 FMAs, each factor value feeding
+// one pair).  Step k consumes Z row k-1 and dW_k as soon as its tile is
+// done, so the state is O(1) a path.  The step limit (ops/rbergomi_kernel.py
+// MAX_STEPS) comes from the xi column (2n rows padded to whole tiles) and
+// the Sobol' table in shared memory.  The primal sums round each product and
+// sum separately (__fmul_rn/__fadd_rn, as the twins do) and the product uses
+// explicit fmaf in one order, so every kernel computes a pair's values to
+// the same bits.
+//
+// K15 and K19: the block-cooperative product over row chunks.  A block of
+// 128 threads takes 64 consecutive pairs a trip: the threads draw the 64 xi
+// columns (two a column), then for each chunk of 32 Z rows every warp forms
+// one tile's rows for all 64 pairs, a lane 4 pairs x 4 rows in registers
+// (one LDS.128 of each xi and two warp-uniform LDG.128 of the factor per
+// column: 4 loads per 32 FMAs, each factor value feeding 4 pairs), into an
+// 8 KB chunk buffer; after a barrier each thread walks one antithetic group
+// of one pair through the chunk's steps (the mirror's thread takes rcp of
+// the exponentials it recomputes).  A row still sums its columns in
+// rb_walk's order with rb_walk's fmaf, and a step rounds as rb_step, so each
+// pair's (IV, J) keeps its bits; the whole X is never held (at 256 steps
+// under QMC the xi columns and the Sobol' table take 192 KB).  Slot t of a
+// trip walks the pairs one thread would (blockIdx.x * 64 + t + trip * grid
+// * 64) and the 64 slot sums reduce by block_sums's tree, and K16 walks
+// K15's grid (one resident wave of K15), so K16's price is K15's to the
+// bit.  Measured (PERF.md, H100): 5 blocks (20 warps) an SM on PRNG, 4
+// (16) under QMC, against 6 (12) and 4 (8) one pair a thread; 64
+// registers; K15 1.6x and K19 1.3x faster than one pair a thread.  What is
+// left, each phase's marginal share of K15 at 2^24 pairs (PRNG / QMC): the
+// walk 32 / 26%, the product 29 / 16%, the draw 10 / 38%.  The
+// Sobol' table read through L1 instead of staged was slower (QMC K15 39.7
+// against 28.7 ms at 2^24 pairs); 16-row chunks (6 blocks an SM, one
+// pair a thread's grid) matched K15 but left K19, 5 resident of 6, no faster.
 //
 // K18 (the backward of the values under a ForwardVarianceCurve) adds one row
 // per step, R_k = ct (y_IV dt P_k + y_J/2 s_k dW_k) = d(ct value)/d ln C_k,
@@ -137,21 +156,23 @@ __device__ __forceinline__ const int* stage_table(const int* sobol, int n, int* 
   return sobol ? ssob : nullptr;
 }
 
-// The xi column of global pair `pair` into xs[r * kThreads + threadIdx.x]:
-// rows 0..2n-2 drawn (row 2n-1 feeds no consumed row), the rest up to
-// xi_rows zero.  Each thread reads only its own column: no barrier.
+// The xi column of global pair `pair` into xs[r * kThreads + t]: rows
+// 0..2n-2 drawn (row 2n-1 feeds no consumed row), the rest up to xi_rows
+// zero.  With `parts` > 1 the caller draws only its share: every parts-th
+// Sobol' row, Philox block and zero row from its `part`-th.
+// Each value depends on (pair, row) alone, so the split keeps its bits.
 __device__ __forceinline__ void draw_xi(float* xs, unsigned long long pair, const int* sobol,
                                         const RbShape& s, uint32_t seed, uint32_t device_id,
-                                        long long point_offset) {
-  const int t = threadIdx.x;
+                                        long long point_offset, int t, int part = 0,
+                                        int parts = 1) {
   const int rows = 2 * s.n - 1;
   if (sobol) {
     const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
-    for (int r = 0; r < rows; ++r) {
+    for (int r = part; r < rows; r += parts) {
       xs[r * kThreads + t] = hh::sobol_normal(idx, sobol + r * (hh::kSobolBits + 1));
     }
   } else {
-    for (int b = 0; 4 * b < rows; ++b) {
+    for (int b = part; 4 * b < rows; b += parts) {
       const hh::U4 w = hh::philox_block(pair, (uint32_t)b, seed, device_id);
       float z[4];
       hh::box_muller_open(w.x, w.y, z[0], z[1]);
@@ -162,7 +183,7 @@ __device__ __forceinline__ void draw_xi(float* xs, unsigned long long pair, cons
       }
     }
   }
-  for (int r = rows; r < s.xi_rows; ++r) xs[r * kThreads + t] = 0.0f;
+  for (int r = rows + part; r < s.xi_rows; r += parts) xs[r * kThreads + t] = 0.0f;
 }
 
 // One antithetic group's running sums: the primal (sum C_k e, sum s_k dW_k)
@@ -375,36 +396,28 @@ __device__ __forceinline__ hh::BsPartials group_rows(const Group& g, float iv, f
   return b;
 }
 
-// The (IV, J) of both groups of global pair `pair` (K14, K15, K19); the
-// mirror's are left unset unless `anti`.
-__device__ __forceinline__ void rb_pair_factors(float* xs, unsigned long long pair,
-                                                const RbParams& p, const float4* coef,
-                                                const float4* lpack, const int* table,
-                                                const RbShape& s, bool anti, uint32_t seed,
-                                                uint32_t device_id, long long point_offset,
-                                                float& iv, float& j, float& iv_a, float& j_a) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
-  float dw0, dwd0;
-  Group gp, gm;
-  rb_groups<false>(xs, p, coef, lpack, nullptr, s, anti, dw0, dwd0, gp, gm);
-  const float4 c0 = __ldg(coef);
-  const float s0dw0 = __fmul_rn(c0.y, dw0);
-  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
-  if (anti) close_factors(gm, true, c0.x, s0dw0, p.dt, iv_a, j_a);
-}
-
-// The (value, antithetic value) of global pair `pair` (K14, K15).
+// The (value, antithetic value) of global pair `pair` (K14); the
+// antithetic value is 0 unless `anti`.
 __device__ __forceinline__ void rb_pair_values(float* xs, unsigned long long pair,
                                                const RbParams& p, const float4* coef,
                                                const float4* lpack, const int* table,
                                                const RbShape& s, bool anti, uint32_t seed,
                                                uint32_t device_id, long long point_offset,
                                                float& val, float& val_a) {
-  float iv, j, iv_a = 0.0f, j_a = 0.0f;
-  rb_pair_factors(xs, pair, p, coef, lpack, table, s, anti, seed, device_id, point_offset, iv, j,
-                  iv_a, j_a);
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
+  float dw0, dwd0;
+  Group gp, gm;
+  rb_groups<false>(xs, p, coef, lpack, nullptr, s, anti, dw0, dwd0, gp, gm);
+  const float4 c0 = __ldg(coef);
+  const float s0dw0 = __fmul_rn(c0.y, dw0);
+  float iv, j;
+  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
   val = hh::cond_bs_value(iv, j, p.close);
-  val_a = anti ? hh::cond_bs_value(iv_a, j_a, p.close) : 0.0f;
+  val_a = 0.0f;
+  if (anti) {
+    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
+    val_a = hh::cond_bs_value(iv, j, p.close);
+  }
 }
 
 // The tangent rows of global pair `pair`, each group's rows weighted by
@@ -416,7 +429,7 @@ __device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair,
                                              const RbShape& s, bool anti, uint32_t seed,
                                              uint32_t device_id, long long point_offset,
                                              float ct_p, float ct_m, float* acc) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
   float dw0, dwd0;
   Group gp, gm;
   rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
@@ -458,7 +471,7 @@ __device__ __forceinline__ void rb_pair_curve_rows(
     const float4* lpack, const float4* dpack, const int* table, const RbShape& s, bool anti,
     uint32_t seed, uint32_t device_id, long long point_offset, float ct_p, float ct_m,
     float* acc, double* wrow) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset);
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
   float dw0, dwd0;
   Group gp, gm;
   rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
@@ -522,6 +535,147 @@ __device__ __forceinline__ float smile_value(const SmileGroup& g, float log_f_ov
   return cp * (g.f_eff * phi1 - strike * phi2);
 }
 
+// ---- K15 and K19: the block-cooperative product over row chunks -----------
+//
+// A block of kChunkThreads threads takes kThreads consecutive pairs a trip
+// (slot t of the trip at `base` is pair base + t, so slot t walks the pairs
+// one thread a pair would: blockIdx.x * 64 + t + trip * gridDim.x * 64).
+
+constexpr int kChunkThreads = 128;
+constexpr int kChunkWarps = kChunkThreads / 32;
+constexpr int kChunkRows = kChunkWarps * kTile;  // Z rows a chunk: one tile a warp
+constexpr int kQuad = 4;                          // pairs of a register tile
+constexpr int kHalf = kTile / 2;                  // rows of a register tile
+static_assert(kChunkThreads == 2 * kThreads, "the walk takes one antithetic group a thread");
+static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2 half tiles");
+
+// Dynamic shared memory of K15 (K19 adds its strike sums): the xi columns,
+// the chunk of Z rows, then the Sobol' table.
+size_t rb_chunk_smem(int steps, bool qmc) {
+  return rb_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Column c's terms of a register tile (kHalf rows x kQuad pairs): the
+// increments' entries fa and the Z entries fb of its rows, the pairs' xi_c
+// in xa and xi_{n+c} in xb; per output the two FMAs of add_col in its order.
+// Rows i < skip are left as they are (the triangle's columns).
+__device__ __forceinline__ void quad_col(const float4& fa, const float4& fb, const float4& xa,
+                                         const float4& xb, int skip,
+                                         float (&acc)[kHalf][kQuad]) {
+  const float a[kHalf] = {fa.x, fa.y, fa.z, fa.w}, b[kHalf] = {fb.x, fb.y, fb.z, fb.w};
+  const float pa[kQuad] = {xa.x, xa.y, xa.z, xa.w}, pb[kQuad] = {xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+#pragma unroll
+    for (int q = 0; q < kQuad; ++q) {
+      const float v = fmaf(b[i], pb[q], fmaf(a[i], pa[q], acc[i][q]));
+      acc[i][q] = i >= skip ? v : acc[i][q];
+    }
+  }
+}
+
+// Z rows [chunk * kChunkRows, + kChunkRows) of the trip's pairs into
+// xbuf[(row - chunk * kChunkRows) * kThreads + slot]: warp w takes tile
+// chunk * kChunkWarps + w, lane l pairs 4 (l % 16)..+3 and the tile's rows
+// 4 (l / 16)..+3.  Each row sums columns 0..row as rb_walk's tile does: the
+// packed entries of each column, the same fmaf in the same order, so each
+// pair's Z has rb_walk's bits.
+__device__ __forceinline__ void chunk_product(const float* xs, const float4* __restrict__ lpack,
+                                              const RbShape& s, int chunk, float* xbuf) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int tile = chunk * kChunkWarps + w;
+  if (tile >= s.tiles) return;
+  const int q0 = kQuad * (l & 15), h = l >> 4;
+  const int j0 = tile * kTile;
+  // float4 (tile, c, quarter): quarters 0-1 the increments' rows, 2-3 Z's
+  const float4* col = lpack + 4 * (tile * s.zcols) + h;
+  float acc[kHalf][kQuad] = {};
+#pragma unroll 2
+  for (int c = 0; c < j0; ++c) {
+    quad_col(__ldg(col + 4 * c), __ldg(col + 4 * c + 2), lds4(xs + c * kThreads + q0),
+             lds4(xs + (s.n + c) * kThreads + q0), 0, acc);
+  }
+  // column j0 + cc feeds the tile's rows r >= cc
+#pragma unroll
+  for (int cc = 0; cc < kTile; ++cc) {
+    const int c = j0 + cc;
+    quad_col(__ldg(col + 4 * c), __ldg(col + 4 * c + 2), lds4(xs + c * kThreads + q0),
+             lds4(xs + (s.n + c) * kThreads + q0), cc - kHalf * h, acc);
+  }
+  float* rows = xbuf + (w * kTile + kHalf * h) * kThreads + q0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    *reinterpret_cast<float4*>(rows + i * kThreads) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// The chunk's steps of one antithetic group of slot `slot`: the + group, or
+// the mirror from rcp of the + group's exponentials; step_terms's operations
+// and rounding, each sum in step order.
+__device__ __forceinline__ void chunk_walk(const float* xs, const float* xbuf, const RbParams& p,
+                                           const float4* __restrict__ coef, const RbShape& s,
+                                           int chunk, bool mirror, int slot, Group& g) {
+  const int k0 = chunk * kChunkRows + 1;  // step k consumes Z row k - 1 and dW_k
+  const int count = min(kChunkRows, s.n - k0);
+#pragma unroll 4
+  for (int r = 0; r < count; ++r) {
+    const int k = k0 + r;
+    const float4 ck = __ldg(coef + 2 * k);
+    const float dw = __fmul_rn(ck.z, xs[k * kThreads + slot]);
+    const float ep = expf(__fmul_rn(p.eta, xbuf[r * kThreads + slot]));
+    const float sep = sqrtf(ep);
+    const float e = mirror ? hh::rcp(ep) : ep;
+    const float se = mirror ? hh::rcp(sep) : sep;
+    g.iv = __fadd_rn(g.iv, __fmul_rn(ck.x, e));
+    g.j = __fadd_rn(g.j, __fmul_rn(__fmul_rn(ck.y, se), dw));
+  }
+}
+
+// The (IV, J) of this thread's group of the trip's slot threadIdx.x / 2
+// (even threads the + group, odd ones the mirror): the block draws the
+// trip's xi columns (two threads a column), then each chunk's product and
+// walk.  Every thread of the block calls it: it holds the barriers.
+__device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned long long base,
+                                                const RbParams& p, const float4* coef,
+                                                const float4* lpack, const int* table,
+                                                const RbShape& s, uint32_t seed,
+                                                uint32_t device_id, long long point_offset,
+                                                float& iv, float& j) {
+  const int t = threadIdx.x, slot = t >> 1;
+  const bool mirror = t & 1;
+  __syncthreads();  // the last trip's reads of xs are done
+  draw_xi(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
+          t / kThreads, kChunkThreads / kThreads);
+  __syncthreads();
+  const float x0 = xs[slot];
+  Group g{};
+  for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
+    chunk_product(xs, lpack, s, chunk, xbuf);
+    __syncthreads();
+    chunk_walk(xs, xbuf, p, coef, s, chunk, mirror, slot, g);
+    __syncthreads();
+  }
+  const float4 c0 = __ldg(coef);
+  close_factors(g, mirror, c0.x, __fmul_rn(c0.y, __fmul_rn(c0.z, x0)), p.dt, iv, j);
+}
+
+// The float64 sum of the 64 slots' values in red[0..63] by block_sums's
+// tree (so a slot's sum reduces as one thread's does in K16) into *out.
+__device__ __forceinline__ void slot_tree(double* red, double* out) {
+  __syncthreads();
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = red[0];
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads)
 rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                  const float4* __restrict__ lpack, const int* __restrict__ sobol,
@@ -540,26 +694,36 @@ rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ co
   if (antithetic) out[n_paths + i] = val_a;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K15: the chunked product, kThreads pairs a trip; the + thread of slot t
+// adds the slot's (value + antithetic value), the slots' sums reduced as
+// block_sums<64> reduces one thread's a pair.  A slot past total_pairs is
+// masked: every thread stays for the barriers.
+__global__ void __launch_bounds__(kChunkThreads)
 rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                 const float4* __restrict__ lpack, const int* __restrict__ sobol,
                 double* __restrict__ partials, long long total_pairs, int steps, uint32_t seed,
                 uint32_t device_id, long long point_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
+  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  float* xbuf = xs + s.xi_rows * kThreads;
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
-  float acc[1] = {0.0f};
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
-       g += stride) {
-    float val, val_a;
-    rb_pair_values(smem, (unsigned long long)g, p, coef, lpack, table, s, true, seed, device_id,
-                   point_offset, val, val_a);
-    acc[0] += val + val_a;
+  const int slot = threadIdx.x >> 1;
+  const bool plus = (threadIdx.x & 1) == 0;
+  float acc = 0.0f;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads; base < total_pairs; base += stride) {
+    float iv, j;
+    rb_trip_factors(xs, xbuf, (unsigned long long)base, p, coef, lpack, table, s, seed, device_id,
+                    point_offset, iv, j);
+    const float val = hh::cond_bs_value(iv, j, p.close);
+    const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);
+    if (plus && base + slot < total_pairs) acc += val + val_a;
   }
-  hh::block_sums<kThreads>(acc, red, partials);
+  if (plus) red[slot] = (double)acc;
+  slot_tree(red, partials + blockIdx.x);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -632,46 +796,44 @@ rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__
   hh::block_sums<kThreads>(acc, red, partials + (long long)s.n * gridDim.x);
 }
 
-// K19: K15's grid-stride walk, m strikes closed from each pair's (IV, J);
-// the m fp32 sums of a thread in shared memory, each reduced as block_sums
-// reduces K15's one column.
-__global__ void __launch_bounds__(kThreads)
+// K19: K15's trips, m strikes closed from each group's (IV, J); slot t's m
+// fp32 sums in shared memory (added by its + thread), each strike's 64 sums
+// reduced as K15's.
+__global__ void __launch_bounds__(kChunkThreads)
 rb_smile_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                 const float4* __restrict__ lpack, const int* __restrict__ sobol,
                 const float2* __restrict__ ks, int m, double* __restrict__ partials,
                 long long total_pairs, int steps, uint32_t seed, uint32_t device_id,
                 long long point_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
+  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
-  float* acc = smem + s.xi_rows * kThreads + table_words(steps, sobol != nullptr);
-  const int t = threadIdx.x;
-  for (int k = 0; k < m; ++k) acc[k * kThreads + t] = 0.0f;
+  float* xbuf = xs + s.xi_rows * kThreads;
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
+  float* acc = xbuf + kChunkRows * kThreads + table_words(steps, sobol != nullptr);
+  for (int i = threadIdx.x; i < m * kThreads; i += kChunkThreads) acc[i] = 0.0f;
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + t; g < total_pairs; g += stride) {
-    float iv, j, iv_a = 0.0f, j_a = 0.0f;
-    rb_pair_factors(smem, (unsigned long long)g, p, coef, lpack, table, s, true, seed, device_id,
-                    point_offset, iv, j, iv_a, j_a);
-    const SmileGroup gp = smile_group(iv, j, p.close);
-    const SmileGroup gm = smile_group(iv_a, j_a, p.close);
+  const int slot = threadIdx.x >> 1;
+  const bool plus = (threadIdx.x & 1) == 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads; base < total_pairs; base += stride) {
+    float iv, j;
+    rb_trip_factors(xs, xbuf, (unsigned long long)base, p, coef, lpack, table, s, seed, device_id,
+                    point_offset, iv, j);
+    const SmileGroup g = smile_group(iv, j, p.close);
+    const bool live = plus && base + slot < total_pairs;
     for (int k = 0; k < m; ++k) {
       const float2 q = __ldg(ks + k);  // (log(f_base / K), K)
-      const float val = smile_value(gp, q.x, q.y, p.close.cp);
-      const float val_a = smile_value(gm, q.x, q.y, p.close.cp);
-      acc[k * kThreads + t] += val + val_a;
+      const float val = smile_value(g, q.x, q.y, p.close.cp);
+      const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);
+      if (live) acc[k * kThreads + slot] += val + val_a;
     }
   }
+  __syncthreads();
   for (int k = 0; k < m; ++k) {
-    red[t] = (double)acc[k * kThreads + t];
-    __syncthreads();
-    for (int h = kThreads / 2; h > 0; h >>= 1) {
-      if (t < h) red[t] += red[t + h];
-      __syncthreads();
-    }
-    if (t == 0) partials[(long long)k * gridDim.x + blockIdx.x] = red[0];
-    __syncthreads();
+    if (threadIdx.x < kThreads) red[threadIdx.x] = (double)acc[k * kThreads + threadIdx.x];
+    slot_tree(red, partials + (long long)k * gridDim.x + blockIdx.x);
   }
 }
 
@@ -705,10 +867,10 @@ extern "C" int hh_rb_price(const float* params, const float* coef, const float* 
                            const int* sobol, double* partials, int grid, long long total_pairs,
                            int steps, unsigned seed, unsigned device_id, long long point_offset,
                            void* stream) {
-  const size_t smem = rb_smem(steps, sobol != nullptr);
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr);
   cudaError_t err = allow_smem(rb_price_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_price_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  rb_price_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
       partials, total_pairs, steps, seed, device_id, point_offset);
   return (int)cudaGetLastError();
@@ -775,28 +937,43 @@ extern "C" int hh_rb_smile(const float* params, const float* coef, const float* 
                            long long total_pairs, int steps, unsigned seed, unsigned device_id,
                            long long point_offset, void* stream) {
   if (m < 1 || m > kMaxStrikes) return (int)cudaErrorInvalidValue;
-  const size_t smem = rb_smem(steps, sobol != nullptr) + sizeof(float) * m * kThreads;
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr) + sizeof(float) * m * kThreads;
   cudaError_t err = allow_smem(rb_smile_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_smile_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  rb_smile_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
       reinterpret_cast<const float2*>(ks), m, partials, total_pairs, steps, seed, device_id,
       point_offset);
   return (int)cudaGetLastError();
 }
 
-// The price kernels' grid (K15, and K16, which must walk the same pairs per
-// thread for its price to equal K15's): one resident wave of K15 on the
-// current device at `steps` steps, with or without the Sobol' table.
-extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
+// K15's occupancy on the current device at `steps` steps, with or without
+// the Sobol' table: out = (threads a block, resident blocks per SM, SMs,
+// dynamic shared bytes, static shared bytes, registers a thread, local
+// (spill) bytes a thread).
+extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = rb_smem(steps, qmc != 0);
+  const size_t smem = rb_chunk_smem(steps, qmc != 0);
+  cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = allow_smem(rb_price_kernel, smem);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rb_price_kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rb_price_kernel, kChunkThreads,
+                                                        smem);
   }
-  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, rb_price_kernel);
+  const int vals[7] = {kChunkThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
+}
+
+// The price kernels' grid (K15, and K16, which walks the same pairs per
+// thread for its price to equal K15's; K19): one resident wave of K15.
+extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
+  int occ[7];
+  const int err = hh_rb_price_occupancy(steps, qmc, occ);
+  *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
+  return err;
 }

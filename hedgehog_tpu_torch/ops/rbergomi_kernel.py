@@ -13,8 +13,11 @@ of the mirror group).  The twins form the Volterra product with
 ``torch.matmul`` on the full factor; the kernels compute it themselves on
 the entries the factor's structure leaves (models/rough_bergomi.py): the
 diagonal of the ΔW rows, and for the Z row at t_{j+1} the increments'
-columns 0..j and the Z columns 0..j.  The public functions keep the JAX
-signatures, with ``device`` (default the GPU) in place of ``interpret``;
+columns 0..j and the Z columns 0..j, packed by ``_pack`` (K14, K16-K18 one
+pair a thread; K15 and K19 a block of 64 pairs together, in register tiles
+of 4 pairs × 4 rows, with the same FMAs per pair in the same order).  The
+public functions keep the JAX signatures, with ``device`` (default the
+GPU) in place of ``interpret``;
 ``n_blocks·n_batches·2048`` antithetic pairs per price call, as the TPU's
 tiles of 2048 paths.
 
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from ..utils import f64, resolve_device
-from .cuda_lib import CudaKernel, check_tensor, require_cuda, resident_grid
+from .cuda_lib import CudaKernel, check_tensor, load_library, require_cuda, resident_grid
 from .heston_qe_greeks_kernel import cond_bs_partials
 from .heston_qe_kernel import check_period, pair_chunks
 from .hh_device import (
@@ -88,9 +91,10 @@ GREEK_ORDER_RB = ("spot", "xi0", "eta", "rho", "hurst", "rate")
 #: antithetic pairs per TPU program and batch: the unit of ``n_blocks``
 PAIRS_PER_BLOCK = 2048
 #: the kernels keep a pair's ξ column (2·steps rows, padded to whole tiles)
-#: in shared memory, 64 threads a block, beside the 2·steps-row Sobol'
-#: table: 256 steps take 192 KB of the 227 KB a block may use (K18 adds 4 KB
-#: of per-step warp sums, K19 256 bytes a strike)
+#: in shared memory, 64 pairs a block, beside the 2·steps-row Sobol' table:
+#: 256 steps take 192 KB of the 227 KB a block may use (K15 and K19 add an
+#: 8 KB chunk of Z rows, K18 4 KB of per-step warp sums, K19 256 bytes a
+#: strike)
 MAX_STEPS = 256
 #: Z rows per register tile of the kernels' product (csrc/rbergomi.cu kTile)
 TILE = 8
@@ -447,10 +451,26 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
 
 
 def price_grid(inp: RbInputs) -> int:
-    """Blocks of K15 and K16 (one resident wave of K15): both walk the pairs
-    with this grid, so K16's price equals K15's."""
+    """Blocks of K15, K16 and K19 (one resident wave of K15): all three walk
+    the pairs with this grid, so K16's price and K19's strikes equal K15's."""
     return resident_grid("hh_rb_price_grid", inp.params.device, inp.steps,
                          int(inp.table is not None))
+
+
+def price_occupancy(inp: RbInputs) -> dict:
+    """K15's occupancy at the inputs' steps and stream, from the CUDA
+    runtime (``hh_rb_price_occupancy``): threads a block, resident blocks
+    and warps per SM, shared bytes a block (dynamic and static), registers
+    and local (spill) bytes a thread."""
+    require_cuda(inp.params)
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(inp.params.device):
+        err = load_library().hh_rb_price_occupancy(inp.steps, int(inp.table is not None), out)
+    if err != 0:
+        raise RuntimeError(f"hh_rb_price_occupancy: CUDA error {err}")
+    threads, per_sm, _sms, dynamic, static, registers, local = out
+    return dict(threads=threads, blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
+                smem_bytes=dynamic + static, registers=registers, local_bytes=local)
 
 
 def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> torch.Tensor:

@@ -415,3 +415,45 @@ def test_rbergomi_smile_kernel_equals_the_price_kernel(gpu, qmc):
     torch.testing.assert_close(rk._rb_smile_sums(inp, ks, PAIRS, 5, 0, 0),
                                rk.rbergomi_mixing_smile_sums_plain(inp, ks, PAIRS, 5, 0, 0),
                                rtol=1e-6, atol=0)
+
+
+# the step counts at the chunked product's edges: one step (no product), the
+# 8-row tiles (8, 9), the 32-row chunks (32, 33; csrc/rbergomi.cu
+# kChunkRows), the serving 64 and 65, and the 256-step limit (MAX_STEPS)
+RB_EDGE_STEPS = (1, 2, 8, 9, 32, 33, 64, 65, 255, 256)
+RB_EDGE_PAIRS = 3 * 2**14 + 5  # no multiple of 64 x the grid: the last trip masks slots
+
+
+@pytest.mark.parametrize("steps", RB_EDGE_STEPS)
+@pytest.mark.parametrize("qmc", [True, False])
+def test_rbergomi_chunked_product_keeps_each_pairs_bits(gpu, qmc, steps):
+    """K15 and K19 (the block-cooperative product over row chunks) at the
+    chunks' and tiles' edges: K15 against its twin within rel 1e-6; K16
+    (one pair a thread through ``rb_walk``, on K15's grid) equal to K15's
+    sum to the bit, so each pair's fp32 value kept its bits; K19 at each
+    strike equal to K15's at that strike to the bit and against its twin
+    within rel 1e-6."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs, strikes = RB_EDGE_PAIRS, (80.0, 100.0, 120.0)
+    cfg = ht.SimulationConfig(pairs, steps, ht.Antithetic(), 5, qmc)
+    ins = rk._rb_trace_inputs(_rb_problem(), cfg, 64)
+    inp = rk.rb_inputs_from_trace(ins, seed=5, qmc=qmc, device=gpu)
+    before = (rk.RB_PRICE_KERNEL.launches, rk.RB_SMILE_KERNEL.launches)
+    k15 = float(rk._rb_price_sum(inp, pairs, 5, 0, 0))
+    assert k15 == pytest.approx(float(rk.rbergomi_mixing_price_sum_plain(inp, pairs, 5, 0, 0)),
+                                rel=1e-6)
+    g_inp = rk.rb_inputs_from_trace(rk._rb_greek_trace_inputs(_rb_problem(), cfg, 64), seed=5,
+                                    qmc=qmc, device=gpu)
+    assert float(rk._rb_greek_sums(g_inp, pairs, 5, 0, 0)[0]) == k15
+    ks = rk.smile_strikes(ins.f_base, strikes, gpu)
+    smile = rk._rb_smile_sums(inp, ks, pairs, 5, 0, 0)
+    for k, strike in enumerate(strikes):
+        k_inp = rk.rb_inputs_from_trace(
+            ins._replace(strike=strike, log_f_over_k=math.log(ins.f_base / strike)), seed=5,
+            qmc=qmc, device=gpu)
+        assert float(smile[k]) == float(rk._rb_price_sum(k_inp, pairs, 5, 0, 0)), strike
+    torch.testing.assert_close(smile, rk.rbergomi_mixing_smile_sums_plain(inp, ks, pairs, 5, 0, 0),
+                               rtol=1e-6, atol=0)
+    assert (rk.RB_PRICE_KERNEL.launches, rk.RB_SMILE_KERNEL.launches) == (before[0] + 4,
+                                                                           before[1] + 1)

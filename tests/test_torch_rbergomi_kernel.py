@@ -532,3 +532,37 @@ def test_greek_closure_matches_the_qe_partials():
     dn = dict(c, f_base=c["f_base"] * math.exp(-h), log_f_over_k=c["log_f_over_k"] - h)
     fd = (hh_device.cond_bs_value(iv, j, up) - hh_device.cond_bs_value(iv, j, dn)) / (2 * h)
     torch.testing.assert_close(w, fd, rtol=2e-3, atol=2e-3)
+
+
+CHUNK_ROWS = 32  # Z rows of a chunk of K15's and K19's product (csrc/rbergomi.cu kChunkRows)
+
+
+def test_pack_as_the_chunked_product_reads_it():
+    """For every step count 1..MAX_STEPS, a factor with the Volterra
+    structure (random entries) packs to (tiles, zcols, 2·TILE); read as the
+    chunked product reads it (the chunk's warp w takes tile 4·chunk + w, a
+    lane's rows 4h..4h+3 from float4 quarter h of (tile, column c) for the
+    increments and 2 + h for Z, columns 0..row in order), the pack gives L's
+    entries at every consumed row and column and zero past a row's last
+    column and in the padding rows; the chunks cover the n − 1 consumed rows."""
+    rng = np.random.default_rng(7)
+    for n in range(1, pr.MAX_STEPS + 1):
+        m = np.zeros((2 * n, 2 * n), dtype=np.float32)
+        m[np.arange(n), np.arange(n)] = rng.uniform(0.5, 1.0, n)
+        for j in range(n - 1):
+            m[n + j, : j + 1] = rng.uniform(-1.0, 1.0, j + 1)
+            m[n + j, n: n + j + 1] = rng.uniform(-1.0, 1.0, j + 1)
+        pack = pr._pack(m, n, "chol")
+        tiles, cols = -(-(n - 1) // pr.TILE), pr.zcols(n)
+        assert pack.shape == (tiles, cols, 2 * pr.TILE) and cols == tiles * pr.TILE
+        chunks = -(-(n - 1) // CHUNK_ROWS)
+        assert chunks * CHUNK_ROWS >= n - 1 and (chunks - 1) * CHUNK_ROWS < max(n - 1, 1)
+        # float4 (tile, c, quarter) -> row tile·TILE + 4·h + i, column c
+        quads = pack.reshape(tiles, cols, 4, 4)
+        got_inc, got_z = (quads[:, :, q: q + 2, :].transpose(0, 2, 3, 1).reshape(tiles * pr.TILE, cols)
+                          for q in (0, 2))
+        want_inc, want_z = (np.zeros((tiles * pr.TILE, cols), np.float32) for _ in range(2))
+        want_inc[: n - 1, : n - 1] = np.tril(m[n: 2 * n - 1, : n - 1])
+        want_z[: n - 1, : n - 1] = np.tril(m[n: 2 * n - 1, n: 2 * n - 1])
+        np.testing.assert_array_equal(got_inc, want_inc)
+        np.testing.assert_array_equal(got_z, want_z)
