@@ -203,10 +203,10 @@ __device__ __forceinline__ void exact_draw(unsigned long long pair, uint32_t idx
                                            float& u_boost, float& z_iv) {
   if (sobol) {
     const int* rows = sobol + 4 * s * (hh::kSobolBits + 1);
-    u_pois = hh::sobol_uniform(idx, rows);
-    z_gam = hh::ndtri_approx(hh::sobol_uniform(idx, rows + (hh::kSobolBits + 1)));
-    u_boost = hh::sobol_uniform(idx, rows + 2 * (hh::kSobolBits + 1));
-    z_iv = hh::ndtri_approx(hh::sobol_uniform(idx, rows + 3 * (hh::kSobolBits + 1)));
+    u_pois = hh::sobol_uniform_open(idx, rows);
+    z_gam = hh::sobol_normal(idx, rows + (hh::kSobolBits + 1));
+    u_boost = hh::sobol_uniform_open(idx, rows + 2 * (hh::kSobolBits + 1));
+    z_iv = hh::sobol_normal(idx, rows + 3 * (hh::kSobolBits + 1));
   } else {
     const hh::U4 w = hh::philox_block(pair, (uint32_t)s, seed, device_id);
     hh::box_muller(w.x, w.y, z_gam, z_iv);

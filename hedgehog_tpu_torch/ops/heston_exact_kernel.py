@@ -4,7 +4,10 @@
 Port of ``hedgehog_tpu/ops/heston_exact_kernel.py``.  For tensors on a GPU
 the work goes to ``csrc/heston_exact.cu``; for tensors on the CPU to the
 float32 twins below, which repeat the kernels' arithmetic: the same Sobol'
-or Philox bits, the same ``ndtri_approx``, the same polished reciprocal and
+or Philox bits, the same draws (``sobol_normals_tile`` and
+``sobol_uniforms_open_tile``, which repair the Sobol' cells whose float32
+uniform rounds to 1.0; Box–Muller with its zero cell centred), the same
+polished reciprocal and
 the same trip counts (16 continued-fraction trips, the market's Poisson
 ``kmax``).  The public functions keep the JAX signatures, with ``device``
 in place of ``interpret``; ``n_blocks``/``n_batches`` keep their meaning
@@ -42,12 +45,12 @@ from .hh_device import (
     SOBOL_BITS,
     box_muller,
     cond_bs_value,
-    ndtri_approx,
     philox_block,
     rcp,
     sobol_masks,
+    sobol_normals_tile,
     sobol_table,
-    sobol_uniforms_tile,
+    sobol_uniforms_open_tile,
 )
 
 __all__ = [
@@ -226,8 +229,9 @@ def _exact_draws(pair, s, masks, table, seed, device_id):
     (``masks`` of the point indices ``point_offset + pair``) when ``table``
     is given, else Philox draw block ``s`` of the pair (csrc/hh_device.cuh)."""
     if table is not None:
-        u_pois, u_gam, u_boost, u_iv = sobol_uniforms_tile(masks, table, range(4 * s, 4 * s + 4))
-        return u_pois, ndtri_approx(u_gam), u_boost, ndtri_approx(u_iv)
+        u_pois, u_boost = sobol_uniforms_open_tile(masks, table, (4 * s, 4 * s + 2))
+        z_gam, z_iv = sobol_normals_tile(masks, table, (4 * s + 1, 4 * s + 3))
+        return u_pois, z_gam, u_boost, z_iv
     w = philox_block(pair, s, seed & _MASK32, device_id & _MASK32)
     z_gam, z_iv = box_muller(w[0], w[1])
     return uniform_from_bits(w[2]), z_gam, uniform_from_bits(w[3]), z_iv

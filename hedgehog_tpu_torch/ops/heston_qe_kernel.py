@@ -6,8 +6,10 @@ Port of ``hedgehog_tpu/ops/heston_qe_kernel.py``.  For tensors on a GPU the
 work goes to ``csrc/heston_qe.cu``, ``csrc/heston_qe_terminal.cu`` and
 ``csrc/heston_surface.cu``; for tensors
 on the CPU to the float32 twins below, which repeat the kernels' arithmetic:
-the same Sobol' or Philox bits, the same ``ndtri_approx``, the same polished
-reciprocal, the same fp32 guards.  The public functions keep the JAX
+the same Sobol' or Philox bits, the same draws (``sobol_normals_tile`` and
+``sobol_uniforms_open_tile``, which repair the Sobol' cells whose float32
+uniform rounds to 1.0; Box–Muller with its zero cell centred), the same
+polished reciprocal, the same fp32 guards.  The public functions keep the JAX
 signatures, with ``device`` (default the GPU) in place of ``interpret``;
 ``n_blocks`` and ``n_batches`` keep their meaning (``n_blocks·n_batches·32768``
 antithetic pairs per price call).
@@ -44,13 +46,13 @@ from .hh_device import (
     cond_bs_value,
     mix_advance,
     mix_c,
-    ndtri_approx,
     philox_block,
     qem_advance,
     qem_c,
     sobol_masks,
+    sobol_normals_tile,
     sobol_table,
-    sobol_uniforms_tile,
+    sobol_uniforms_open_tile,
     surf_c,
     surf_close,
 )
@@ -133,8 +135,9 @@ def mix_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: 
     if table is not None:
         masks = sobol_masks(pair + point_offset)
         for s in range(steps):
-            u1, u2 = sobol_uniforms_tile(masks, table, (2 * s, 2 * s + 1))
-            yield ndtri_approx(u1), u2
+            (z,), (u,) = (sobol_normals_tile(masks, table, (2 * s,)),
+                          sobol_uniforms_open_tile(masks, table, (2 * s + 1,)))
+            yield z, u
         return
     for s in range(steps):
         if s % 2 == 0:
@@ -604,8 +607,9 @@ def qem_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: 
     if table is not None:
         masks = sobol_masks(pair + point_offset)
         for s in range(steps):
-            u1, u2, u3 = sobol_uniforms_tile(masks, table, (3 * s, 3 * s + 1, 3 * s + 2))
-            yield ndtri_approx(u1), ndtri_approx(u2), u3
+            z_v, z_x = sobol_normals_tile(masks, table, (3 * s, 3 * s + 1))
+            (u,) = sobol_uniforms_open_tile(masks, table, (3 * s + 2,))
+            yield z_v, z_x, u
         return
     for s in range(steps):
         w = philox_block(pair, s, seed & _MASK32, device_id & _MASK32)

@@ -37,6 +37,7 @@ __all__ = [
     "sobol_masks",
     "sobol_bits",
     "sobol_uniforms_tile",
+    "sobol_uniforms_open_tile",
     "sobol_normals_tile",
     "ndtri_approx",
     "norm_cdf",
@@ -58,6 +59,8 @@ __all__ = [
 
 _MASK32 = 0xFFFFFFFF
 _SOBOL_SCALE = 2.0**-SOBOL_BITS
+#: the largest float32 below 1: a Sobol' uniform of the 32 top cells
+_U_OPEN_MAX = 1.0 - 2.0**-24
 
 
 def philox_block(pair: torch.Tensor, block: int, seed: int, device_id: int):
@@ -125,6 +128,14 @@ def sobol_uniforms_tile(masks, table: torch.Tensor, dims):
     """float32 Sobol' uniforms in (0, 1] of the dimensions ``dims`` (1.0 in
     the 32 top cells of each, as the TPU kernels')."""
     return [_centred(sobol_bits(masks, table, d)) for d in dims]
+
+
+def sobol_uniforms_open_tile(masks, table: torch.Tensor, dims):
+    """:func:`sobol_uniforms_tile` in (0, 1) (the header's
+    ``sobol_uniform_open``): 1 − 2^-24, the float32 in (0, 1) nearest
+    (a + 1/2)·2^-30, in the 32 top cells, so their antithetic 1 − u is
+    2^-24; every other cell keeps its bits."""
+    return [torch.clamp(u, max=_U_OPEN_MAX) for u in sobol_uniforms_tile(masks, table, dims)]
 
 
 def sobol_normals_tile(masks, table: torch.Tensor, dims):
