@@ -59,6 +59,8 @@ __all__ = [
 
 _MASK32 = 0xFFFFFFFF
 _SOBOL_SCALE = 2.0**-SOBOL_BITS
+#: the centre of the Box–Muller radius uniform's zero cell
+_BM_ZERO_CELL = 2.0**-24
 #: the largest float32 below 1: a Sobol' uniform of the 32 top cells
 _U_OPEN_MAX = 1.0 - 2.0**-24
 
@@ -79,8 +81,11 @@ def _polar(u1: torch.Tensor, b1: torch.Tensor, dtype):
 
 def box_muller(b0: torch.Tensor, b1: torch.Tensor, dtype=torch.float32):
     """Two iid N(0, 1) tensors from two words of random bits; the
-    arithmetic runs in ``dtype`` from the (exact) float32 uniforms."""
-    return _polar(torch.clamp(uniform_from_bits(b0), min=1.1754944e-38), b1, dtype)  # avoid log(0)
+    arithmetic runs in ``dtype`` from the (exact) float32 uniforms.  The
+    radius uniform's zero cell is taken at its centre, 2^-24 (|z| ≤ 5.77);
+    every other word keeps its uniform (the TPU kernels floor zero at
+    FLT_MIN: a 13.2-sigma normal once in 2^23 draws)."""
+    return _polar(torch.clamp(uniform_from_bits(b0), min=_BM_ZERO_CELL), b1, dtype)
 
 
 def box_muller_open(b0: torch.Tensor, b1: torch.Tensor, dtype=torch.float32):
