@@ -79,7 +79,9 @@ second-to-last line is the ``{"kernels": [...]}`` JSON record, the last line
 
 from __future__ import annotations
 
+import contextlib
 import datetime as dt
+import functools
 import json
 import math
 import re
@@ -192,6 +194,16 @@ ONE_PAIR_A_THREAD_RB_SERVING = "K15 27.010 ms, K19 (17 strikes) 29.780 ms a 2^24
 # (seed 0, 128 dims) whose fp32 uniform rounds to 1.0; before the repair the
 # kernels drew 11.46 sigma there (tests/test_torch_rbergomi_kernel.py finds them)
 RB_UNIT_CELLS = ((894640, 0), (747354, 60), (410584, 94))
+# the Heston (kernel, point, Sobol' dim, draw) cells of seed 0 whose fp32
+# uniform rounds to 1.0: the K2 and K7 QMC solve calls' (2^22 points; their
+# dims 0 and 4 are K2's u_pois and K7's z) and K2's normal pinned in
+# tests/test_torch_heston_draws.py; each held with CELL_WINDOW points around
+# it against the float64 estimator (HESTON_PATH_TOL, the tests' PATH_TOL)
+HESTON_CELLS = (("K2", 15512210, 1, "normal"), ("K2", 894640, 0, "uniform"),
+                ("K2", 3671734, 4, "uniform"), ("K7", 894640, 0, "normal"),
+                ("K7", 3671734, 4, "normal"))
+CELL_WINDOW = 4096
+HESTON_PATH_TOL = dict(rel=1e-2, share_rel=1e-3, share=0.999, floor=1e-3)
 # the sloped forward-variance curve of the curve route (K18)
 RB_CURVE_TENORS, RB_CURVE_LEVELS = (0.25, 0.5, 1.0), (0.035, 0.04, 0.045)
 RB_CURVE = (RB_CURVE_TENORS, RB_CURVE_LEVELS)  # xi0's place in rb_vjp_inputs: K18's inputs
@@ -199,6 +211,11 @@ RB_CURVE = (RB_CURVE_TENORS, RB_CURVE_LEVELS)  # xi0's place in rb_vjp_inputs: K
 # QMC points (tests/test_torch_rbergomi_curve.py CURVE_GRAD_RTOL: 5.9e-7 at
 # 65,536 pairs on the CPU), of each gradient plus of the largest
 RB_CURVE_GRAD_RTOL = 1e-4
+# K18's digests at the chunked product's edges (tests/test_torch_cuda.py):
+# one step, the 8-row tiles, the 32-row chunks, 64/65 and the 256-step limit,
+# over pairs whose last block holds 5
+RB_EDGE_STEPS = (1, 2, 8, 9, 32, 33, 64, 65, 255, 256)
+RB_EDGE_PAIRS = 3 * 2**14 + 5
 RB_FLAT_RTOL = 1e-5  # K18's n per-step fp32 rows summed against K17's one row
 # the rough-Bergomi surface on the 3 x 5 grid: 128 steps over two years
 # split (32, 32, 64) over the gaps, so each expiry's grid has K19's step count
@@ -875,6 +892,53 @@ def phase_main_path(prob, cm: float, trajectories_exact: int, trajectories_euler
         say(f"  {label}: price {price:.10f}, err {err:+.3e} ({err / cm * 1e4:+.3f} bp), "
             f"4 SE + {allowance_bp:g} bp = {bound:.3e}, host {seconds:.3f} s")
         check(math.isfinite(price) and abs(err) <= bound, f"{label}: outside the statistical bound")
+
+
+def phase_heston_cells(prob, device: str) -> dict:
+    """The kernel route of ``solve`` (the K2 and K7 adapters) on the card at
+    the Sobol' cells whose float32 uniform rounds to 1.0 (HESTON_CELLS:
+    those of the QMC ``solve`` calls above, seed 0, and the CPU tests'
+    pinned K2 normal), each over the CELL_WINDOW points around it, against
+    the float64 estimator on the same points: per path within
+    HESTON_PATH_TOL, the cell's path too where the cell is a normal's.  A
+    uniform's cell prints only: float32 cannot hold (a + 1/2) 2^-30 there,
+    and the repaired 1 - 2^-24 can end a Poisson count one earlier."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.methods import heston_exact_mixing, heston_qe_mixing
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    say(f"phase 3: the Heston kernel routes at the repaired Sobol' cells against the float64 "
+        f"estimators ({CELL_WINDOW} points around each, seed 0)")
+    routes = {"K2": (SEGMENTS, ht.HestonExactMixing(use_kernel=True),
+                     ek.heston_exact_mixing_values_adapter,
+                     heston_exact_mixing.heston_exact_mixing_values),
+              "K7": (QE_STEPS, ht.HestonQE(use_kernel=True, conditional=True),
+                     qk.heston_qe_mixing_values_adapter, heston_qe_mixing.heston_qe_mixing_values)}
+    tol = HESTON_PATH_TOL
+    out = {}
+    for name, point, dim, kind in HESTON_CELLS:
+        steps, strat, route, f64 = routes[name]
+        base = point - CELL_WINDOW // 2
+        cfg = ht.SimulationConfig(CELL_WINDOW, steps, ht.Antithetic(), 0, True)
+        got = route(prob, cfg, strat, point_offset=base, device=device).double()
+        want = f64(prob, cfg, point_offset=base, device=device).double()
+        rel = (got - want).abs() / want.abs().clamp(min=tol["floor"])
+        share = float((rel <= tol["share_rel"]).double().mean())
+        cell = rel[:, point - base]
+        say(f"  {name} point {point} (Sobol' dim {dim}, a {kind} at u = 1.0 in fp32): kernel "
+            f"{got[:, point - base].tolist()} vs float64 {want[:, point - base].tolist()}, rel "
+            f"{[f'{x:.3e}' for x in cell.tolist()]}; window: {share:.6f} within "
+            f"{tol['share_rel']:g}, max rel {float(rel.max()):.3e}")
+        window_ok = share >= tol["share"] and float(rel.max()) <= tol["rel"]
+        check(window_ok or kind == "uniform", f"{name} around point {point}: window off the "
+              f"float64 estimator")
+        check(kind == "uniform" or float(cell.max()) <= tol["rel"],
+              f"{name} point {point}: off the float64 estimator")
+        out[f"{name} {point}"] = dict(dim=dim, kind=kind, rel=cell.tolist(), window_share=share)
+    return out
 
 
 def check_solve(label: str, sol, ref: float, allowance_bp: float, seconds: float) -> None:
@@ -1817,26 +1881,38 @@ def phase_rb_shapes(device: str) -> dict:
             "rbergomi_mixing_smile_price": max(e19)}
 
 
+def say_occupancy(name: str, occ: dict) -> None:
+    say(f"  {name}: {occ['blocks_per_sm']} blocks of {occ['threads']} threads per SM = "
+        f"{occ['warps_per_sm']} warps of 64; {occ['smem_bytes'] / 1024:.1f} KB of shared memory "
+        f"a block; {occ['registers']} registers a thread, {occ['local_bytes']} B local")
+
+
 def phase_rb_occupancy(device: str) -> dict:
     """K15's occupancy on each stream from the CUDA runtime (the grid K15,
     K16 and K19 walk): resident blocks and warps per SM, the shared memory a
     block holds (the 64 pairs' ξ columns, the chunk of Z rows, the Sobol'
-    table under QMC, the reduction's doubles), registers and spill."""
+    table under QMC, the reduction's doubles), registers and spill; then
+    K18's (64 steps) and K4's (the full-width surface) likewise."""
     import torch
 
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
     dev = torch.device(device)
+    _, _, _, ex_seg = surface_grid()
     out = {}
     for qmc in (True, False):
         stream = "QMC" if qmc else "PRNG"
         _, inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=False)
-        occ = rk.price_occupancy(inp)
-        say(f"  K15 occupancy ({stream}, {RB_STEPS} steps): {occ['blocks_per_sm']} blocks of "
-            f"{occ['threads']} threads per SM = {occ['warps_per_sm']} warps of 64; "
-            f"{occ['smem_bytes'] / 1024:.1f} KB of shared memory a block; {occ['registers']} "
-            f"registers a thread, {occ['local_bytes']} B local")
-        out[stream] = occ
+        out[stream] = rk.price_occupancy(inp)
+        say_occupancy(f"K15 occupancy ({stream}, {RB_STEPS} steps)", out[stream])
+        _, c_inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=True, vjp=True)
+        out[f"K18 {stream}"] = rk.vjp_curve_occupancy(c_inp)
+        say_occupancy(f"K18 occupancy ({stream}, {RB_STEPS} steps)", out[f"K18 {stream}"])
+        out[f"K4 {stream}"] = ek.exact_surface_occupancy(
+            len(SURF_EXPIRIES), len(SURF_STRIKES), sum(ex_seg), qmc, dev)
+        say_occupancy(f"K4 occupancy ({stream}, {len(SURF_EXPIRIES)} x {len(SURF_STRIKES)}, "
+                      f"{sum(ex_seg)} segments)", out[f"K4 {stream}"])
     return out
 
 
@@ -2277,8 +2353,12 @@ def output_digests(device: str) -> dict:
     """The sha256 of each kernel's output bytes at ``CHECK_PAIRS`` antithetic
     pairs, seed 5, on every stream the kernel draws: phase 2's calls through
     the same entry points, without the twins.  The kernels the imported
-    package lacks are left out, so two trees compare on what both have."""
+    package lacks are left out, so two trees compare on what both have.  K4
+    runs at the grid of the one-pair-a-thread kernel (``K4 QMC``, to
+    compare with trees before the two-threads-a-pair K4) and, where the
+    package takes a grid, at its own resident grid (``K4 QMC resident``)."""
     import hashlib
+    import inspect
 
     import torch
 
@@ -2291,6 +2371,7 @@ def output_digests(device: str) -> dict:
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
     dev, pairs, seed, mkt = torch.device(device), CHECK_PAIRS, 5, MARKET_ARGS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
 
     def put(key, *outputs):
@@ -2337,8 +2418,16 @@ def output_digests(device: str) -> dict:
                                                          seg_steps=qe_seg, **surf_kw))
         put(f"K12 {s}", *gk.heston_qe_mixing_surface_price_and_jacobian(
             *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
-        put(f"K4 {s}", ek.heston_exact_mixing_surface_price(*mkt, T_host, SURF_STRIKES, discs,
-                                                            seg_steps=ex_seg, **surf_kw))
+        for label, n_blocks in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * 32768)):
+            k4 = functools.partial(ek.heston_exact_mixing_surface_price, *mkt, T_host,
+                                   SURF_STRIKES, discs, seg_steps=ex_seg,
+                                   **dict(surf_kw, n_blocks=n_blocks // qk.PAIRS_PER_BLOCK))
+            if "grid" in inspect.signature(ek._exact_surface_sums).parameters:
+                put(f"K4 {s}{label} resident", k4())
+                with exact_surface_at(ek, K4_ONE_PAIR_A_THREAD_BLOCKS * sms):
+                    put(f"K4 {s}{label}", k4())
+            else:
+                put(f"K4 {s}{label}", k4())
         ins, inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=False)
         g_ins, _ = rb_device_inputs(pairs, qmc, seed, dev, tangent=True)
         _, v_inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=True, vjp=True)
@@ -2352,8 +2441,87 @@ def output_digests(device: str) -> dict:
             c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
                                      steps=RB_STEPS, **kw)
             put(f"K18 {s}", rk._rb_vjp_sums(c_inp, ct, pairs, True, seed, 0, 0, per_step=True))
+            ct22 = torch.full((2, SOLVE_PAIRS), 0.5 / SOLVE_PAIRS, device=dev)
+            put(f"K18 {s} 2^22", rk._rb_vjp_sums(c_inp, ct22, SOLVE_PAIRS, True, seed, 0, 0,
+                                                 per_step=True))
+            for steps in RB_EDGE_STEPS:  # the chunked product's edges, a ragged last block
+                e_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
+                                         steps=steps, **kw)
+                for anti in (True, False):
+                    e_ct = ct[:2 if anti else 1, :RB_EDGE_PAIRS].contiguous()
+                    put(f"K18 {s} {steps} steps{'' if anti else ' one group'}",
+                        rk._rb_vjp_sums(e_inp, e_ct, RB_EDGE_PAIRS, anti, seed, 0, 0,
+                                        per_step=True))
             ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
             put(f"K19 {s}", rk._rb_smile_sums(inp, ks, pairs, seed, 0, 0))
+    return out
+
+
+#: the one-pair-a-thread K4's resident blocks an SM (80 registers, 256
+#: threads); its grid is this times the SMs (396 on an H100)
+K4_ONE_PAIR_A_THREAD_BLOCKS = 3
+
+
+@contextlib.contextmanager
+def exact_surface_at(ek, grid: int):
+    """The public K4 wrapper launches at ``grid`` blocks inside the block."""
+    sums = ek._exact_surface_sums
+    ek._exact_surface_sums = functools.partial(sums, grid=grid)
+    try:
+        yield
+    finally:
+        ek._exact_surface_sums = sums
+
+
+def repaired_cells(device: str) -> dict:
+    """Per output of :func:`output_digests` that draws Heston or GBM normals,
+    the draws in a cell the repairs of the Heston streams changed, counted
+    on the card from the streams' bits: Sobol' integers a >= 2^30 - 32 (u =
+    1.0 in fp32) in the dimensions drawn as normals and as uniforms, and
+    Philox radius words whose top 23 bits are zero (a zero Box-Muller
+    radius uniform).  Rough Bergomi's streams are not Heston's (unchanged)."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import hh_device as hd
+
+    dev, seed, chunk = torch.device(device), 5, 2**22
+    _, _, qe_seg, ex_seg = surface_grid()
+
+    def chunks(n):
+        for start in range(0, n, chunk):
+            yield torch.arange(start, min(start + chunk, n), dtype=torch.int64, device=dev)
+
+    def sobol(steps, period, normals, pairs=CHECK_PAIRS):
+        """Sobol' cells of ``steps`` steps of ``period`` dims over points
+        [0, pairs), dims with residue in ``normals`` drawn as normals."""
+        table = torch.as_tensor(hd.sobol_table(seed, period * steps), device=dev)
+        hits = [0] * (period * steps)
+        for idx in chunks(pairs):
+            masks = hd.sobol_masks(idx)
+            for d in range(period * steps):
+                hits[d] += int((hd.sobol_bits(masks, table, d) >= (1 << 30) - 32).sum())
+        normal = sum(h for d, h in enumerate(hits) if d % period in normals)
+        return dict(sobol_normal=normal, sobol_uniform=sum(hits) - normal)
+
+    def philox(blocks, words=(0,), counters=CHECK_PAIRS):
+        """Zero radius words among ``words`` of Philox blocks 0..blocks-1 of
+        counters [0, counters)."""
+        return dict(box_muller_zero=sum(
+            int(((hd.philox_block(c, b, seed, 0)[w] >> 9) == 0).sum())
+            for c in chunks(counters) for b in range(blocks) for w in words))
+
+    out = {"K1 PRNG": philox(EULER_STEPS // 2, (0, 2)), "K6 PRNG": philox(QEM_STEPS),
+           "K13 PRNG": philox(1, (0, 2), CHECK_PAIRS // 4)}
+    for steps, names in ((QE_STEPS, ("K7", "K8", "K10", "K11")), (sum(qe_seg), ("K9", "K12"))):
+        for k in names:
+            out[f"{k} QMC"], out[f"{k} PRNG"] = sobol(steps, 2, (0,)), philox((steps + 1) // 2)
+    for segs, names in ((SEGMENTS, ("K2", "K3")), (sum(ex_seg), ("K4",))):
+        for k in names:
+            out[f"{k} QMC"], out[f"{k} PRNG"] = sobol(segs, 4, (1, 3)), philox(segs)
+    surface = SURF_BLOCKS * SURF_BATCHES * 32768
+    out["K4 QMC 2^26"] = sobol(sum(ex_seg), 4, (1, 3), surface)
+    out["K4 PRNG 2^26"] = philox(sum(ex_seg), counters=surface)
+    out["K5 QMC"], out["K5 PRNG"] = sobol(QEM_STEPS, 3, (0, 1)), philox(QEM_STEPS)
     return out
 
 
@@ -2363,22 +2531,54 @@ def smi_query(fields: str) -> str:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def rb_times(device: str) -> dict:
-    """K15's and K19's times for the package imported (this tree's, or
-    ``--root``'s), to compare two trees in turns in one call: K15 per serving
-    dispatch (2^24 pairs x 64 steps, PRNG, the public wrapper on 6 seeds, as
-    phase 4), and per kernel call on fixed inputs (CUDA events, 5 after a
-    warm-up) K15, K19 (17 strikes) and K16 at 2^20 pairs (PERF.md's rows)
-    and 2^24 on both streams; K16 keeps one pair a thread on K15's grid, so
-    its time shows what the grid alone moves.  With K15's occupancy where the
-    package reports it."""
+def kernel_times(device: str, only=None) -> dict:
+    """The redesigned kernels' times for the package imported (this tree's,
+    or ``--root``'s), to compare trees in turns in one call, with the card's
+    name and power limit: :func:`rb_kernel_times`, and K4 (CUDA events, 5
+    calls after a warm-up) at 2^20 pairs (PERF.md's row) and at the
+    2^26-pair surface dispatch (3 x 5, exact-4 = 5 segments) on both
+    streams, with K4's occupancy where the package reports it.  ``only``
+    (kernel names) keeps K4 or the rough-Bergomi kernels alone."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    dev = torch.device(device)
+    out = {"nvidia_smi": smi_query("name,power.limit"), "package": ek.__file__}
+    if only is None or any(k != "K4" for k in only):
+        out.update(rb_kernel_times(dev))
+    T_host, _, _, ex_seg = surface_grid()
+    inp = surface_inputs(dev)
+    for pairs in (CHECK_PAIRS, SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK):
+        if only is not None and "K4" not in only:
+            break
+        for qmc in (False, True):
+            key = f"{'QMC' if qmc else 'PRNG'} {pairs}"
+            t4 = torch.as_tensor(qk.sobol_table(5, 4 * sum(ex_seg)), device=dev) if qmc else None
+            run4 = (inp["p4"], t4, ex_seg, inp["kmaxes"], len(SURF_STRIKES), pairs, 5, 0, 0)
+            out[f"K4 {key}"] = time_ms(lambda: ek._exact_surface_sums(*run4))
+            if pairs == CHECK_PAIRS and hasattr(ek, "exact_surface_occupancy"):
+                out[f"K4 occupancy {key}"] = ek.exact_surface_occupancy(
+                    len(T_host), len(SURF_STRIKES), sum(ex_seg), qmc, dev)
+    for key, val in out.items():
+        say(f"  {key}: {val}")
+    return out
+
+
+def rb_kernel_times(dev) -> dict:
+    """The rough-Bergomi kernels' times: K15 per serving dispatch (2^24
+    pairs x 64 steps, PRNG, the public wrapper on 6 seeds, as phase 4); per
+    kernel call on fixed inputs on both streams K14, K15, K16 and K19 (17
+    strikes) at 2^20 pairs (PERF.md's rows) and 2^24, K17 and K18 (the
+    sloped curve) at 2^20 and at ``solve``'s 2^22; K15's and K18's
+    occupancy where the package reports it."""
     import torch
 
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
-    dev = torch.device(device)
     serving = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
-    out = {"nvidia_smi": smi_query("name,power.limit"), "package": rk.__file__}
+    out = {}
     ins = rk._rb_trace_inputs(rb_problem(), rb_config(serving, False), 64)
     kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, steps=RB_STEPS, device=dev)
     rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=0, **kw)
@@ -2391,44 +2591,62 @@ def rb_times(device: str) -> dict:
     torch.cuda.synchronize()
     out["K15 serving dispatch"] = start.elapsed_time(stop) / SERVING_REPS
     ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
-    for pairs in (CHECK_PAIRS, serving):
+    for pairs in (CHECK_PAIRS, SOLVE_PAIRS, serving):
+        ct = torch.full((2, pairs), 0.5 / pairs, dtype=torch.float32, device=dev)
         for qmc in (False, True):
             key = f"{'QMC' if qmc else 'PRNG'} {pairs}"
             _, inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=False)
-            _, g_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True)
-            out[f"K15 {key}"] = time_ms(lambda: rk._rb_price_sum(inp, pairs, 1, 0, 0))
-            out[f"K19 {key}"] = time_ms(lambda: rk._rb_smile_sums(inp, ks, pairs, 1, 0, 0))
-            out[f"K16 {key}"] = time_ms(lambda: rk._rb_greek_sums(g_inp, pairs, 1, 0, 0))
-            out[f"grid {key}"] = rk.price_grid(inp)
-            if hasattr(rk, "price_occupancy") and pairs == serving:
-                out[f"occupancy {key}"] = rk.price_occupancy(inp)
-    for key, val in out.items():
-        say(f"  {key}: {val}")
+            if pairs != SOLVE_PAIRS:
+                _, g_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True)
+                out[f"K14 {key}"] = time_ms(lambda: rk._rb_values(inp, pairs, True, 1, 0, 0))
+                out[f"K15 {key}"] = time_ms(lambda: rk._rb_price_sum(inp, pairs, 1, 0, 0))
+                out[f"K19 {key}"] = time_ms(lambda: rk._rb_smile_sums(inp, ks, pairs, 1, 0, 0))
+                out[f"K16 {key}"] = time_ms(lambda: rk._rb_greek_sums(g_inp, pairs, 1, 0, 0))
+                out[f"grid {key}"] = rk.price_grid(inp)
+                if hasattr(rk, "price_occupancy") and pairs == serving:
+                    out[f"occupancy {key}"] = rk.price_occupancy(inp)
+            if pairs != serving:
+                _, v_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True, vjp=True)
+                c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
+                                         steps=RB_STEPS, seed=1, qmc=qmc, device=dev)
+                out[f"K17 {key}"] = time_ms(lambda: rk._rb_vjp_sums(v_inp, ct, pairs, True, 1, 0,
+                                                                    0))
+                out[f"K18 {key}"] = time_ms(lambda: rk._rb_vjp_sums(c_inp, ct, pairs, True, 1, 0,
+                                                                    0, per_step=True))
+                if pairs == CHECK_PAIRS and hasattr(rk, "vjp_curve_occupancy"):
+                    out[f"K18 occupancy {key}"] = rk.vjp_curve_occupancy(c_inp)
     return out
 
 
 def digest_main(argv: list) -> int:
     """``--digest OUT [--root DIR]``: build the kernels of the package in DIR
     (default: beside this script) and write its :func:`output_digests` to
-    OUT as JSON; ``--times OUT [--root DIR]`` likewise its :func:`rb_times`.
-    ``--compare A B``: print, for every output either digest file holds,
-    whether the two trees' bytes are equal, then the counts."""
+    OUT as JSON, with :func:`repaired_cells` under ``cells``; ``--times OUT
+    [--root DIR]`` likewise its :func:`kernel_times`.  ``--compare A B``:
+    print, for every output either digest file holds, whether the two trees'
+    bytes are equal (with its repaired cells), then the counts."""
     if argv[0] == "--compare" and len(argv) == 3:
         a, b = (json.loads(open(p).read()) for p in argv[1:])
+        cells = b.pop("cells", None) or a.pop("cells", None) or {}
+        a.pop("cells", None)
         keys = sorted(set(a) | set(b), key=lambda k: (int(k.split()[0][1:]), k))
         same = [k for k in keys if k in a and k in b and a[k] == b[k]]
         for k in keys:
             state = "only in one" if (k in a) != (k in b) else "equal" if k in same else "DIFFERENT"
-            say(f"  {k}: {state}")
+            hits = cells.get(k.removesuffix(" resident"))
+            say(f"  {k}: {state}" + (f" (repaired cells in its draws: {hits})" if hits else ""))
         both = sum(k in a and k in b for k in keys)
         say(json.dumps({"compared": both, "equal": len(same),
                         "different": [k for k in keys if k in a and k in b and k not in same],
                         "only_in_one": [k for k in keys if (k in a) != (k in b)]}))
         return 0
+    only = None
+    if argv[0] == "--times" and len(argv) >= 4 and argv[-2] == "--only":
+        only, argv = tuple(argv[-1].split(",")), argv[:-2]
     if (argv[0] not in ("--digest", "--times") or len(argv) not in (2, 4)
             or (len(argv) == 4 and argv[2] != "--root")):
-        print("usage: chip_smoke.py [--digest OUT [--root DIR] | --times OUT [--root DIR] | "
-              "--compare A B]", file=sys.stderr)
+        print("usage: chip_smoke.py [--digest OUT [--root DIR] | --times OUT [--root DIR] "
+              "[--only K4,K18,...] | --compare A B]", file=sys.stderr)
         return 2
     import torch
 
@@ -2441,7 +2659,11 @@ def digest_main(argv: list) -> int:
 
     lib, _ = cuda_lib.build_library()
     cuda_lib.load_library()
-    result = output_digests("cuda") if argv[0] == "--digest" else rb_times("cuda")
+    if argv[0] == "--digest":
+        result = output_digests("cuda")
+        result["cells"] = repaired_cells("cuda")
+    else:
+        result = kernel_times("cuda", only)
     with open(argv[1], "w") as f:
         json.dump(result, f, indent=1)
     say(f"{len(result)} {argv[0][2:]} entries of the kernels built into {lib.parent}")
@@ -2566,6 +2788,7 @@ def main() -> int:
     for k in kernels.values():
         k.launches = 0
     phase_main_path(prob, cm, SOLVE_PAIRS, EULER_PAIRS, "cuda")
+    heston_cells = phase_heston_cells(prob, "cuda")
     phase_terminal_path(prob, cm, bs_prob, bs_price, "cuda")
     phase_qe_autograd(prob, SOLVE_PAIRS, "cuda")
     serving = phase_serving(T, cm, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
@@ -2618,7 +2841,8 @@ def main() -> int:
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
                     "calibration": calibration, "rb_path": rb_path, "rb_serving": rb_serving,
                     "rb_occupancy": rb_occupancy, "rb_curve": rb_curve, "rb_smile": rb_smile,
-                    "rb_surface": rb_surface, "build_s": build_s, "nvidia_smi": smi,
+                    "rb_surface": rb_surface, "heston_cells": heston_cells,
+                    "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)

@@ -299,32 +299,60 @@ size_t sobol_smem(const int* sobol, int segments) {
 //   heston_exact_mixing_surface_price  (pallas_call at :779 QMC, :801 PRNG;
 //                                       bodies _exact_surface_kernel[_qmc])
 //
-// One variance path per antithetic pair through the expiry gaps (gap i:
+// One variance path per antithetic group through the expiry gaps (gap i:
 // ints[i] exact segments with that gap's constants and Poisson trip count
 // ints[n_exp + i], the segment index running across gaps); at each expiry the
 // (V, IV) carries close every strike through J_i = (V - V0 - kappa theta
-// T_i + kappa IV)/sigma.  Bound and design as K3 and K9: one pair per thread,
-// a grid-stride walk with one resident wave, the per-gap ExactParams and the
-// per-point close constants in shared memory, per-point sums in per-warp
-// float64 rows (hh::warp_accumulate).  The plain twin is
-// ops/heston_exact_kernel.py heston_exact_mixing_surface_sums_plain.
+// T_i + kappa IV)/sigma.  The plain twin is ops/heston_exact_kernel.py
+// heston_exact_mixing_surface_sums_plain.
+//
+// The segment is a long serial chain (the data-dependent Poisson loop, two
+// gamma quantiles of fixed-trip Newton logs and reciprocals, a continued
+// fraction of 16 dependent reciprocals), so the kernel is latency-bound.
+// Two threads take a pair, one antithetic group each (thread 2q + h of a
+// block, pair q of the round, h = 1 the mirror): twice the chains in flight
+// of one pair a thread at 80 registers.  Under QMC each thread of a pair
+// draws two of the segment's four Sobol' dimensions and the two swap them
+// by a shuffle; a Philox block is drawn by both.  At each expiry a thread
+// forms its group's strike-free close once (hh::close_group) and each
+// strike's value from it (hh::close_value, cond_bs_close's operations in
+// their order); the pair's value + antithetic value is one shuffle.  Each
+// pair's values therefore keep their bits, and the sums keep theirs: a
+// round of a block is 256 consecutive pairs as before, staged per point in
+// shared memory so that one warp adds each 32 consecutive pairs by the same
+// butterfly into the same float64 row (kXsRows rows, summed in row order).
+// A grid-stride walk with one resident wave (hh_exact_surface_grid counts
+// the dynamic shared memory below); the per-gap ExactParams and per-point
+// close constants in shared memory.  Measured (PERF.md, H100): 40 registers,
+// three blocks (48 warps) an SM, a 2^26-pair exact-4 surface 1.26x faster
+// than one pair a thread on Philox (1.18x under QMC); the shared Philox
+// draws gave 2% of it and the third block 1%.  What is left is the gamma
+// quantiles' and the Bessel fraction's dependent chains, which keep each
+// value's bits only in their order.
 
-constexpr int kWarps = kThreads / 32;
+constexpr int kXsThreads = 512;              // two threads a pair
+constexpr int kXsPairs = kXsThreads / 2;     // pairs a round of a block
+constexpr int kXsRows = kXsPairs / 32;       // float64 rows: one a 32 consecutive pairs
+constexpr int kXsWarps = kXsThreads / 32;
 constexpr int kXsGlobals = 7;  // v0, rho, rho2_half, rho_bar2, cp, inv_sigma, k_over_sigma
 constexpr int kXsShared = 12;  // d_half, nu, nu2, an1, an2, an3, ad1, ad2, ad3, m1f, s2f, inv_kappa
 constexpr int kXsPerGap = 10;  // lam_fac, two_cfac, z_fac, l1c, l1x, l2c, l2x, q, q2, p_c
 
-// Dynamic shared memory: per-warp sums, per-gap ExactParams, per-point close
-// constants, segment counts then trip counts, the Sobol' table.
+// Dynamic shared memory: the float64 row sums, a round's per-point pair
+// values, per-gap ExactParams, per-point close constants, segment counts then
+// trip counts, the Sobol' table (ops/heston_exact_kernel.py
+// exact_surface_smem_bytes mirrors it).
 struct XsLayout {
   int n_cols;
-  size_t gaps, close, ints, sobol, bytes;
+  size_t ys, gaps, close, ints, sobol, bytes;
 };
 
 __host__ __device__ inline XsLayout xs_layout(int n_exp, int m, int total_segs, bool qmc) {
   XsLayout l;
   l.n_cols = n_exp * m;
-  size_t off = sizeof(double) * kWarps * l.n_cols;
+  size_t off = sizeof(double) * kXsRows * l.n_cols;
+  l.ys = off;
+  off += sizeof(float) * kXsPairs * l.n_cols;
   l.gaps = off;
   off += sizeof(ExactParams) * n_exp;
   l.close = off;
@@ -344,7 +372,7 @@ __device__ __forceinline__ void stage_surface(const float* params, const int* in
                                               const int* sobol, int n_exp, int m, int total_segs,
                                               const XsLayout& l, char* smem) {
   double* wacc = reinterpret_cast<double*>(smem);
-  for (int i = threadIdx.x; i < kWarps * l.n_cols; i += blockDim.x) wacc[i] = 0.0;
+  for (int i = threadIdx.x; i < kXsRows * l.n_cols; i += blockDim.x) wacc[i] = 0.0;
   const float* g = params;
   const float* sh = g + kXsGlobals;
   const float* f_base = sh + kXsShared + kXsPerGap * n_exp;
@@ -397,9 +425,51 @@ __device__ __forceinline__ void stage_surface(const float* params, const int* in
   __syncthreads();
 }
 
-// The grid-stride round is uniform over the block, so every lane of a warp
-// reaches the shuffles of a round; a lane past the last pair adds 0.
-__global__ void __launch_bounds__(kThreads)
+// The four draws (u_pois, z_gam, u_boost, z_iv) of segment s of a pair.
+struct ExactDraw {
+  float u_pois, z_gam, u_boost, z_iv;
+};
+
+__device__ __forceinline__ ExactDraw swap_draw(const ExactDraw& d) {
+  return ExactDraw{__shfl_xor_sync(0xffffffffu, d.u_pois, 1),
+                   __shfl_xor_sync(0xffffffffu, d.z_gam, 1),
+                   __shfl_xor_sync(0xffffffffu, d.u_boost, 1),
+                   __shfl_xor_sync(0xffffffffu, d.z_iv, 1)};
+}
+
+// exact_draw shared by the two threads of a pair (`odd`: the second), each
+// drawing half: under QMC the even thread draws dims 4s, 4s+1 (u_pois,
+// z_gam) and the odd one 4s+2, 4s+3 (u_boost, z_iv); under Philox, at each
+// even s the even thread draws block s and the odd one block s + 1, kept in
+// `next` for segment s + 1.  Shuffles hand each thread the other's half.
+// Steps come in increasing order, and every lane of the warp calls it.
+__device__ __forceinline__ ExactDraw exact_draw_shared(unsigned long long pair, uint32_t idx,
+                                                       const int* sobol, int s, uint32_t seed,
+                                                       uint32_t device_id, bool odd,
+                                                       ExactDraw& next) {
+  if (sobol) {
+    const int* rows = sobol + (4 * s + 2 * (int)odd) * (hh::kSobolBits + 1);
+    const float u = hh::sobol_uniform_open(idx, rows);
+    const float z = hh::sobol_normal(idx, rows + (hh::kSobolBits + 1));
+    const float u_o = __shfl_xor_sync(0xffffffffu, u, 1);
+    const float z_o = __shfl_xor_sync(0xffffffffu, z, 1);
+    return odd ? ExactDraw{u_o, z_o, u, z} : ExactDraw{u, z, u_o, z_o};
+  }
+  if (s & 1) return next;
+  ExactDraw own;
+  exact_draw(pair, idx, sobol, s + (int)odd, seed, device_id, own.u_pois, own.z_gam, own.u_boost,
+             own.z_iv);
+  const ExactDraw other = swap_draw(own);
+  next = odd ? own : other;
+  return odd ? other : own;
+}
+
+// A round's pairs base + q, q < kXsPairs: each thread walks its group, and
+// the even thread of pair q puts the pair's value + antithetic value of
+// point p at ys[p * kXsPairs + q] (0 past total_pairs).  Then warp w adds
+// each (row, point) task w, w + kXsWarps, ... into its float64 row.  The
+// rounds are uniform over the block, so every lane reaches the shuffles.
+__global__ void __launch_bounds__(kXsThreads, 3)
 exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ ints,
                      const int* __restrict__ sobol, double* __restrict__ partials, int n_exp,
                      int m, int total_segs, long long total_pairs, uint32_t seed,
@@ -408,40 +478,50 @@ exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ i
   const XsLayout l = xs_layout(n_exp, m, total_segs, sobol != nullptr);
   stage_surface(params, ints, sobol, n_exp, m, total_segs, l, xs_smem);
   double* wacc = reinterpret_cast<double*>(xs_smem);
+  float* ys = reinterpret_cast<float*>(xs_smem + l.ys);
   const ExactParams* gaps = reinterpret_cast<const ExactParams*>(xs_smem + l.gaps);
   const hh::CloseParams* close = reinterpret_cast<const hh::CloseParams*>(xs_smem + l.close);
   const int* nseg = reinterpret_cast<const int*>(xs_smem + l.ints);
   const int* kmaxes = nseg + n_exp;
   const int* table = sobol ? reinterpret_cast<const int*>(xs_smem + l.sobol) : nullptr;
+  const int q = threadIdx.x >> 1;
+  const bool odd = threadIdx.x & 1;
   const float v0 = params[0];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long base = (long long)blockIdx.x * blockDim.x; base < total_pairs; base += stride) {
-    const long long g = base + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kXsPairs;
+  for (long long base = (long long)blockIdx.x * kXsPairs; base < total_pairs; base += stride) {
+    const long long g = base + q;
     const bool live = g < total_pairs;
     const unsigned long long pair = (unsigned long long)g;
     const uint32_t idx = (uint32_t)(point_offset + g);
-    float v = v0, iv = 0.0f, va = v0, iva = 0.0f;
+    float v = v0, iv = 0.0f;
+    ExactDraw next{};
     int seg = 0;
     for (int i = 0; i < n_exp; ++i) {
       const ExactParams& c = gaps[i];
-      if (live) {
-        for (int k = 0; k < nseg[i]; ++k, ++seg) {
-          float u_pois, z_gam, u_boost, z_iv;
-          exact_draw(pair, idx, table, seg, seed, device_id, u_pois, z_gam, u_boost, z_iv);
-          exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmaxes[i]);
-          exact_segment(va, iva, 1.0f - u_pois, -z_gam, 1.0f - u_boost, -z_iv, c, kmaxes[i]);
-        }
+      for (int k = 0; k < nseg[i]; ++k, ++seg) {
+        const ExactDraw d = exact_draw_shared(pair, idx, table, seg, seed, device_id, odd, next);
+        // one exact_segment for both threads (the mirror's draws by select)
+        exact_segment(v, iv, odd ? 1.0f - d.u_pois : d.u_pois, odd ? -d.z_gam : d.z_gam,
+                      odd ? 1.0f - d.u_boost : d.u_boost, odd ? -d.z_iv : d.z_iv, c, kmaxes[i]);
       }
+      const float j = (v - c.c_j) * c.inv_sigma + iv * c.k_over_sigma;
+      const hh::CloseGroup cg = hh::close_group(iv, j, close[i * m]);
       for (int k = 0; k < m; ++k) {
         const int p = i * m + k;
-        const float y = live ? exact_point_close(v, iv, c, close[p]) +
-                                   exact_point_close(va, iva, c, close[p])
-                             : 0.0f;
-        hh::warp_accumulate(y, wacc, l.n_cols, p);
+        const float val = hh::close_value(cg, close[p].log_f_over_k, close[p].strike, close[p].cp);
+        const float y = val + __shfl_xor_sync(0xffffffffu, val, 1);
+        if (!odd) ys[p * kXsPairs + q] = live ? y : 0.0f;
       }
     }
+    __syncthreads();
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int task = w; task < kXsRows * l.n_cols; task += kXsWarps) {
+      const int row = task % kXsRows, p = task / kXsRows;
+      hh::warp_accumulate(ys[p * kXsPairs + row * 32 + lane], wacc, l.n_cols, p, row);
+    }
+    __syncthreads();
   }
-  hh::block_columns(wacc, l.n_cols, partials);
+  hh::block_columns(wacc, l.n_cols, kXsRows, partials);
 }
 
 }  // namespace
@@ -495,7 +575,7 @@ extern "C" int hh_exact_surface(const float* params, const int* ints, const int*
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)l.bytes);
   if (err != cudaSuccess) return (int)err;
-  exact_surface_kernel<<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
+  exact_surface_kernel<<<grid, kXsThreads, l.bytes, (cudaStream_t)stream>>>(
       params, ints, sobol, partials, n_exp, m, total_segs, total_pairs, seed, device_id,
       point_offset);
   err = cudaGetLastError();
@@ -503,15 +583,36 @@ extern "C" int hh_exact_surface(const float* params, const int* ints, const int*
   return hh::launch_column_sums(partials, l.n_cols, grid, out, (cudaStream_t)stream);
 }
 
-// K4's grid: one resident wave on the current device (occupancy without
-// dynamic shared memory: the register limit).
-extern "C" int hh_exact_surface_grid(int* grid) {
+// K4's occupancy on the current device for a surface of n_exp expiries, m
+// strikes and total_segs segments, with or without the Sobol' table: out =
+// (threads a block, resident blocks per SM, SMs, dynamic shared bytes, static
+// shared bytes, registers a thread, local (spill) bytes a thread).
+extern "C" int hh_exact_surface_occupancy(int n_exp, int m, int total_segs, int qmc, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = xs_layout(n_exp, m, total_segs, qmc != 0).bytes;
+  cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_surface_kernel, kThreads, 0);
+    err = cudaFuncSetAttribute(exact_surface_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
   }
-  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_surface_kernel, kXsThreads,
+                                                        smem);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, exact_surface_kernel);
+  const int vals[7] = {kXsThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
+}
+
+// K4's grid: one resident wave on the current device at the launch's
+// dynamic shared memory.
+extern "C" int hh_exact_surface_grid(int n_exp, int m, int total_segs, int qmc, int* grid) {
+  int occ[7];
+  const int err = hh_exact_surface_occupancy(n_exp, m, total_segs, qmc, occ);
+  *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
+  return err;
 }

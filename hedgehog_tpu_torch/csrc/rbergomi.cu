@@ -36,11 +36,11 @@
 // n(n-1) FMAs a pair, about 4K at n = 64, against the TPU kernel's dense
 // (2n)^2 on a 128-padded tile; a step adds two exponentials' worth of MUFU
 // (ex2, rsqrt, two rcp) and a dozen FLOPs, and the Philox or Sobol' draw of
-// 2n normals comes on top.  On an H100 K14 and K16-K18 run 7-10x above that
-// operation bound, K15 5x (PERF.md): latency-bound chains at few warps an SM,
-// not the issue rate of any one pipe.
+// 2n normals comes on top.  On an H100 K14, K16 and K17 run 7-10x above that
+// operation bound, K15 5x and K18 5.5x (PERF.md): latency-bound chains at few
+// warps an SM, not the issue rate of any one pipe.
 //
-// K14 and K16-K18: one antithetic pair per thread (rb_walk).  The thread
+// K14, K16 and K17: one antithetic pair per thread (rb_walk).  The thread
 // draws its xi column into shared memory (row-major, one float per thread a
 // row: conflict-free), then walks the consumed Z rows in tiles of kTile rows
 // whose kTile accumulators live in registers: for each column one shared
@@ -82,17 +82,27 @@
 // per step, R_k = ct (y_IV dt P_k + y_J/2 s_k dW_k) = d(ct value)/d ln C_k,
 // whose weights y_IV and y_J are known only after the close.  Keeping each
 // pair's Z (or P_k and s_k dW_k) through the product would cost another n
-// floats a thread of shared memory (64 KB more a block at 256 steps, over
-// the 227 KB limit with the xi column and the Sobol' table), so K18 replays
-// the L product once the close is done and forms R_k as its tile ends: the
-// same fp32 operations, so the same P_k and s_k dW_k bits, for one more
-// n(n-1) FMAs a pair and K17's step limit.  Each R_k is summed over a warp in
-// float64 by a butterfly and over the block's two warps in a fixed order into
-// (n + 6, blocks) float64 partials, the six scalar chains by block_sums.
+// floats a pair of shared memory (64 KB more a block at 256 steps, over
+// the 227 KB limit with the xi columns and the Sobol' table), so K18 replays
+// the L product once the close is done: the same fp32 operations, so the
+// same P_k and s_k dW_k bits, for one more n(n-1) FMAs a pair.  It runs on
+// the block-cooperative product (below): a block of 128 threads takes one
+// trip of 64 pairs, forms Z and its H tangent Zd = (dL/dH) xi chunk by chunk
+// (rb_trip_tangents: two chunk_products, one over dpack, then each thread's
+// group through rb_step's tangent operations), closes each group on its own
+// thread, and the + thread of a slot takes the mirror's rows by shuffles to
+// form the pair's six scalar chains and, over the replay, its R_k in the
+// expressions of one pair a thread.  R_k is summed over the 64 slots in
+// float64 as two 32-slot butterflies added in order (one pair a thread's
+// two warps) into (n + 6, blocks) float64 partials, the chains by
+// block_sums<64>'s tree, so K18's sums keep the bits of one pair a thread's
+// (its 64-thread blocks, the same pairs a block).  Measured (PERF.md, H100):
+// 1.37x faster on Philox, 1.72x under QMC at 64 steps.
 //
 // K19 (one path set closing m strikes) walks K15's pairs with K15's grid and
 // closes each strike with the operations of hh::cond_bs_close in their
-// order, split at the strike (the strike-free part once per group), so each
+// order, split at the strike (hh::close_group once per group, then
+// hh::close_value per strike), so each
 // strike's price equals K15's at that strike to the bit.  Unlike the TPU
 // kernel it takes log(f_base/K) cast once from float64 (the TPU wrapper forms
 // it in float32) and forms d1 as (log(f/K) + e_arg + var/2)/sd, K15's order
@@ -461,80 +471,6 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-// K18's rows of global pair `pair` under the cotangents ct_p and ct_m: the
-// six scalar chains (K17's rows without chain_xi0) added into acc, and each
-// per-step row R_k = d(ct value)/d ln C_k summed over the warp into
-// wrow[warp * n + k].  Every lane of the warp calls it (a dead lane with zero
-// cotangents).  After the close, the L product is replayed to form R_k.
-__device__ __forceinline__ void rb_pair_curve_rows(
-    float* xs, unsigned long long pair, const RbParams& p, const float4* coef,
-    const float4* lpack, const float4* dpack, const int* table, const RbShape& s, bool anti,
-    uint32_t seed, uint32_t device_id, long long point_offset, float ct_p, float ct_m,
-    float* acc, double* wrow) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
-  float dw0, dwd0;
-  Group gp, gm;
-  rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
-  const float4 c0 = __ldg(coef);
-  const float s0dw0 = __fmul_rn(c0.y, dw0);
-  const float s0dwd0 = c0.y * dwd0;
-  float iv, j, rp[kVjpCols], rm[kVjpCols] = {};
-  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
-  const hh::BsPartials bp = group_rows<true>(gp, iv, j, s0dwd0, p, rp);
-  hh::BsPartials bm{};
-  if (anti) {
-    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
-    bm = group_rows<true>(gm, iv, j, -s0dwd0, p, rm);
-  }
-#pragma unroll
-  for (int k = 0; k < kCurveCols; ++k) {
-    acc[k] += anti ? ct_p * rp[k + 1] + ct_m * rm[k + 1] : ct_p * rp[k + 1];
-  }
-  // per group R_k = (y_IV dt) P_k + (y_J / 2) s_k dW_k, the mirror's s dW
-  // negated (step_terms returns it unsigned)
-  const float ivw_p = bp.y_iv * p.dt, jw_p = bp.y_j * 0.5f;
-  const float ivw_m = bm.y_iv * p.dt, jw_m = bm.y_j * 0.5f;
-  const auto row = [&](float pp, float sdw_p, float pm, float sdw_m) {
-    const float r = ct_p * (ivw_p * pp + jw_p * sdw_p);
-    return anti ? r + ct_m * (ivw_m * pm - jw_m * sdw_m) : r;
-  };
-  const int base = (int)(threadIdx.x >> 5) * s.n;
-  const bool lane0 = (threadIdx.x & 31) == 0;
-  const double r0 = warp_sum((double)row(c0.x, s0dw0, c0.x, s0dw0));
-  if (lane0) wrow[base] = r0;
-  rb_walk<false>(xs, lpack, nullptr, s, [&](int k, float z, float) {
-    const StepTerms st = step_terms(xs, p, __ldg(coef + 2 * k), k, z, anti);
-    const double r = warp_sum((double)row(st.pp, st.sdw_p, st.pm, st.sdw_m));
-    if (lane0) wrow[base + k] = r;
-  });
-}
-
-// The strike-free part of hh::cond_bs_close for one group's (IV, J), in its
-// operations and order (K19 closes every strike from it).
-struct SmileGroup {
-  float e_arg, f_eff, var, sd, inv_sd;
-};
-
-__device__ __forceinline__ SmileGroup smile_group(float iv, float j, const hh::CloseParams& c) {
-  SmileGroup g;
-  g.e_arg = c.rho * j - c.rho2_half * iv;
-  g.f_eff = c.f_base * expf(g.e_arg);
-  g.var = fmaxf(c.rho_bar2 * iv, (float)1e-10);
-  g.sd = sqrtf(g.var);
-  g.inv_sd = hh::rcp(g.sd);
-  return g;
-}
-
-// The rest of hh::cond_bs_close at one strike: the undiscounted value.
-__device__ __forceinline__ float smile_value(const SmileGroup& g, float log_f_over_k,
-                                             float strike, float cp) {
-  const float d1 = (log_f_over_k + g.e_arg + 0.5f * g.var) * g.inv_sd;
-  const float d2 = d1 - g.sd;
-  const float phi1 = hh::norm_cdf(cp * d1);
-  const float phi2 = hh::norm_cdf(cp * d2);
-  return cp * (g.f_eff * phi1 - strike * phi2);
-}
-
 // ---- K15 and K19: the block-cooperative product over row chunks -----------
 //
 // A block of kChunkThreads threads takes kThreads consecutive pairs a trip
@@ -553,6 +489,12 @@ static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2
 // the chunk of Z rows, then the Sobol' table.
 size_t rb_chunk_smem(int steps, bool qmc) {
   return rb_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
+}
+
+// K18's: the xi columns, the chunks of Z and of its H tangent (in the replay
+// the rows R_k), then the Sobol' table.
+size_t rb_curve_smem(int steps, bool qmc) {
+  return rb_chunk_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -664,6 +606,70 @@ __device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned
   close_factors(g, mirror, c0.x, __fmul_rn(c0.y, __fmul_rn(c0.z, x0)), p.dt, iv, j);
 }
 
+// chunk_walk with the tangent sums: the chunk's steps of one antithetic
+// group, from its Z rows in xbuf and their H tangents in dbuf, in rb_step<true>'s
+// operations and order (the mirror's s dW, Z, dZ/dH and d(dW)/dH negated, as
+// rb_step passes them to tangent_step).
+__device__ __forceinline__ void chunk_walk_tan(const float* xs, const float* xbuf,
+                                               const float* dbuf, const RbParams& p,
+                                               const float4* __restrict__ coef, const RbShape& s,
+                                               int chunk, bool mirror, int slot, Group& g) {
+  const int k0 = chunk * kChunkRows + 1;  // step k consumes Z row k - 1 and dW_k
+  const int count = min(kChunkRows, s.n - k0);
+#pragma unroll 2
+  for (int r = 0; r < count; ++r) {
+    const int k = k0 + r;
+    const float4 ck = __ldg(coef + 2 * k);
+    const float4 ck2 = __ldg(coef + 2 * k + 1);
+    const float xk = xs[k * kThreads + slot];
+    const float z = xbuf[r * kThreads + slot], zd = dbuf[r * kThreads + slot];
+    const float dw = __fmul_rn(ck.z, xk);
+    const float ep = expf(__fmul_rn(p.eta, z));
+    const float sep = sqrtf(ep);
+    const float pk = __fmul_rn(ck.x, mirror ? hh::rcp(ep) : ep);
+    const float sk = __fmul_rn(ck.y, mirror ? hh::rcp(sep) : sep);
+    const float sdw = __fmul_rn(sk, dw);
+    g.iv = __fadd_rn(g.iv, pk);
+    g.j = __fadd_rn(g.j, sdw);
+    const float dwd = __fmul_rn(ck.w, xk);
+    tangent_step(g, pk, sk, mirror ? -sdw : sdw, mirror ? -z : z, mirror ? -zd : zd,
+                 mirror ? -dwd : dwd, ck2.x, ck2.y, p.eta);
+  }
+}
+
+// The tangent chunk product: rb_trip_factors's draw and product, with the H
+// tangent Zd = (dL/dH) xi formed beside Z by a second chunk_product over
+// dpack into dbuf, and each thread's group walked with its tangent sums
+// (rb_groups<true>'s, to the bit).  Returns the group's sums in g and its
+// signed sqrt(C_0) dW_0 and sqrt(C_0) dWd_0 (as rb_pair_rows forms them);
+// the caller closes.  Every thread of the block calls it: it holds the
+// barriers.
+__device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* dbuf,
+                                                 unsigned long long base, const RbParams& p,
+                                                 const float4* coef, const float4* lpack,
+                                                 const float4* dpack, const int* table,
+                                                 const RbShape& s, uint32_t seed,
+                                                 uint32_t device_id, long long point_offset,
+                                                 Group& g, float& s0dw0, float& s0dwd0) {
+  const int t = threadIdx.x, slot = t >> 1;
+  const bool mirror = t & 1;
+  __syncthreads();  // the last trip's reads of xs are done
+  draw_xi(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
+          t / kThreads, kChunkThreads / kThreads);
+  __syncthreads();
+  g = Group{};
+  for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
+    chunk_product(xs, lpack, s, chunk, xbuf);
+    chunk_product(xs, dpack, s, chunk, dbuf);
+    __syncthreads();
+    chunk_walk_tan(xs, xbuf, dbuf, p, coef, s, chunk, mirror, slot, g);
+    __syncthreads();
+  }
+  const float4 c0 = __ldg(coef);
+  s0dw0 = __fmul_rn(c0.y, __fmul_rn(c0.z, xs[slot]));
+  s0dwd0 = c0.y * __fmul_rn(c0.w, xs[slot]);
+}
+
 // The float64 sum of the 64 slots' values in red[0..63] by block_sums's
 // tree (so a slot's sum reduces as one thread's does in K16) into *out.
 __device__ __forceinline__ void slot_tree(double* red, double* out) {
@@ -768,32 +774,100 @@ rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
   hh::block_sums<kThreads>(acc, red, partials);
 }
 
-// K18: one pair a thread; the block's n per-step rows, then its six scalar
-// rows, into partials[row * gridDim.x + blockIdx.x].
-__global__ void __launch_bounds__(kThreads)
+// K18: one trip of 64 pairs a block (kChunkThreads threads, one antithetic
+// group each) on the tangent chunk product; partials[row * gridDim.x +
+// blockIdx.x] gets the block's n per-step rows, then its six scalar rows.
+// After the close the + thread of a slot holds both groups' weights (one
+// shuffle) and forms the pair's scalar chains and, over a replay of the L
+// product, its rows R_k in one_pair_a_thread's expressions; R_k is summed
+// over the 64 slots in float64 as two 32-slot butterflies added in order
+// (one pair a thread's two warps), the chains by slot_tree (block_sums<64>'s).
+__global__ void __launch_bounds__(kChunkThreads)
 rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                     const float4* __restrict__ lpack, const float4* __restrict__ dpack,
                     const int* __restrict__ sobol, const float* __restrict__ ct,
                     double* __restrict__ partials, long long n_paths, int steps, int antithetic,
                     uint32_t seed, uint32_t device_id, long long point_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
+  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
-  double* wrow = reinterpret_cast<double*>(smem + s.xi_rows * kThreads +
-                                           table_words(steps, sobol != nullptr));
+  float* xbuf = xs + s.xi_rows * kThreads;
+  float* dbuf = xbuf + kChunkRows * kThreads;  // the replay's rows R_k, fp32
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
-  float acc[kCurveCols] = {};
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool anti = antithetic != 0;
+  const int slot = threadIdx.x >> 1;
+  const bool mirror = threadIdx.x & 1;
+  const long long i = (long long)blockIdx.x * kThreads + slot;
   const bool live = i < n_paths;
-  rb_pair_curve_rows(smem, (unsigned long long)i, p, coef, lpack, dpack, table, s,
-                     antithetic != 0, seed, device_id, point_offset, live ? ct[i] : 0.0f,
-                     live && antithetic ? ct[n_paths + i] : 0.0f, acc, wrow);
-  __syncthreads();
-  for (int k = threadIdx.x; k < s.n; k += blockDim.x) {
-    partials[(long long)k * gridDim.x + blockIdx.x] = wrow[k] + wrow[s.n + k];
+  const float ct_p = live ? ct[i] : 0.0f;
+  const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
+  Group g;
+  float s0dw0, s0dwd0;
+  rb_trip_tangents(xs, xbuf, dbuf, (unsigned long long)blockIdx.x * kThreads, p, coef, lpack, dpack,
+                   table, s, seed, device_id, point_offset, g, s0dw0, s0dwd0);
+  const float4 c0 = __ldg(coef);
+  float iv, j, rows[kVjpCols];
+  close_factors(g, mirror, c0.x, s0dw0, p.dt, iv, j);
+  const hh::BsPartials b = group_rows<true>(g, iv, j, mirror ? -s0dwd0 : s0dwd0, p, rows);
+  // the + thread takes the mirror's rows and weights (rm = {} and weight 0 unless anti)
+  float rp[kVjpCols], rm[kVjpCols];
+#pragma unroll
+  for (int k = 0; k < kVjpCols; ++k) {
+    rp[k] = rows[k];
+    rm[k] = anti ? __shfl_xor_sync(0xffffffffu, rows[k], 1) : 0.0f;
   }
-  hh::block_sums<kThreads>(acc, red, partials + (long long)s.n * gridDim.x);
+  const float ivw_p = b.y_iv * p.dt, jw_p = b.y_j * 0.5f;
+  const float ivw_m = anti ? __shfl_xor_sync(0xffffffffu, ivw_p, 1) : 0.0f;
+  const float jw_m = anti ? __shfl_xor_sync(0xffffffffu, jw_p, 1) : 0.0f;
+  float acc[kCurveCols] = {};
+#pragma unroll
+  for (int k = 0; k < kCurveCols; ++k) {
+    acc[k] += anti ? ct_p * rp[k + 1] + ct_m * rm[k + 1] : ct_p * rp[k + 1];
+  }
+  // per group R_k = (y_IV dt) P_k + (y_J / 2) s_k dW_k, the mirror's s dW
+  // negated (its walk forms it unsigned)
+  const auto row = [&](float pp, float sdw_p, float pm, float sdw_m) {
+    const float r = ct_p * (ivw_p * pp + jw_p * sdw_p);
+    return anti ? r + ct_m * (ivw_m * pm - jw_m * sdw_m) : r;
+  };
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // R_0, then each chunk's R_k through dbuf: two 32-slot butterflies a row
+  const auto sum_rows = [&](int k0, int count) {
+    __syncthreads();
+    for (int r = w; r < count; r += kChunkWarps) {
+      const double h0 = warp_sum((double)dbuf[r * kThreads + lane]);
+      const double h1 = warp_sum((double)dbuf[r * kThreads + 32 + lane]);
+      if (lane == 0) partials[(long long)(k0 + r) * gridDim.x + blockIdx.x] = h0 + h1;
+    }
+    __syncthreads();
+  };
+  if (!mirror) dbuf[slot] = row(c0.x, s0dw0, c0.x, s0dw0);
+  sum_rows(0, 1);
+  for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
+    chunk_product(xs, lpack, s, chunk, xbuf);
+    __syncthreads();
+    const int k0 = chunk * kChunkRows + 1;
+    const int count = min(kChunkRows, s.n - k0);
+    for (int r = 0; r < count; ++r) {
+      const int k = k0 + r;
+      const float4 ck = __ldg(coef + 2 * k);
+      const float dw = __fmul_rn(ck.z, xs[k * kThreads + slot]);
+      const float ep = expf(__fmul_rn(p.eta, xbuf[r * kThreads + slot]));
+      const float sep = sqrtf(ep);
+      const float pk = __fmul_rn(ck.x, mirror ? hh::rcp(ep) : ep);
+      const float sdw = __fmul_rn(__fmul_rn(ck.y, mirror ? hh::rcp(sep) : sep), dw);
+      const float pm = anti ? __shfl_xor_sync(0xffffffffu, pk, 1) : 0.0f;
+      const float sdw_m = anti ? __shfl_xor_sync(0xffffffffu, sdw, 1) : 0.0f;
+      if (!mirror) dbuf[r * kThreads + slot] = row(pk, sdw, pm, sdw_m);
+    }
+    sum_rows(k0, count);
+  }
+  for (int k = 0; k < kCurveCols; ++k) {
+    if (!mirror) red[slot] = (double)acc[k];
+    slot_tree(red, partials + (long long)(s.n + k) * gridDim.x + blockIdx.x);
+  }
 }
 
 // K19: K15's trips, m strikes closed from each group's (IV, J); slot t's m
@@ -821,11 +895,11 @@ rb_smile_kernel(const float* __restrict__ params, const float4* __restrict__ coe
     float iv, j;
     rb_trip_factors(xs, xbuf, (unsigned long long)base, p, coef, lpack, table, s, seed, device_id,
                     point_offset, iv, j);
-    const SmileGroup g = smile_group(iv, j, p.close);
+    const hh::CloseGroup g = hh::close_group(iv, j, p.close);
     const bool live = plus && base + slot < total_pairs;
     for (int k = 0; k < m; ++k) {
       const float2 q = __ldg(ks + k);  // (log(f_base / K), K)
-      const float val = smile_value(g, q.x, q.y, p.close.cp);
+      const float val = hh::close_value(g, q.x, q.y, p.close.cp);
       const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);
       if (live) acc[k * kThreads + slot] += val + val_a;
     }
@@ -918,11 +992,11 @@ extern "C" int hh_rb_values_vjp_curve(const float* params, const float* coef, co
                                       double* partials, long long n_paths, int steps,
                                       int antithetic, unsigned seed, unsigned device_id,
                                       long long point_offset, void* stream) {
-  const size_t smem = rb_smem(steps, sobol != nullptr) + sizeof(double) * (kThreads / 32) * steps;
+  const size_t smem = rb_curve_smem(steps, sobol != nullptr);
   cudaError_t err = allow_smem(rb_vjp_curve_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  rb_vjp_curve_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  rb_vjp_curve_kernel<<<(unsigned)blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
       seed, device_id, point_offset);
@@ -947,26 +1021,35 @@ extern "C" int hh_rb_smile(const float* params, const float* coef, const float* 
   return (int)cudaGetLastError();
 }
 
-// K15's occupancy on the current device at `steps` steps, with or without
-// the Sobol' table: out = (threads a block, resident blocks per SM, SMs,
-// dynamic shared bytes, static shared bytes, registers a thread, local
-// (spill) bytes a thread).
-extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
+// The occupancy on the current device at `steps` steps, with or without
+// the Sobol' table, of the block-cooperative kernels: out = (threads a
+// block, resident blocks per SM, SMs, dynamic shared bytes, static shared
+// bytes, registers a thread, local (spill) bytes a thread).
+template <class K>
+int chunk_occupancy(K kernel, size_t smem, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = rb_chunk_smem(steps, qmc != 0);
   cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = allow_smem(rb_price_kernel, smem);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rb_price_kernel, kChunkThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kChunkThreads, smem);
   }
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, rb_price_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   const int vals[7] = {kChunkThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
                        attr.numRegs, (int)attr.localSizeBytes};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
+}
+
+// K15's.
+extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
+  return chunk_occupancy(rb_price_kernel, rb_chunk_smem(steps, qmc != 0), out);
+}
+
+// K18's.
+extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int* out) {
+  return chunk_occupancy(rb_vjp_curve_kernel, rb_curve_smem(steps, qmc != 0), out);
 }
 
 // The price kernels' grid (K15, and K16, which walks the same pairs per

@@ -103,9 +103,10 @@ def load_library() -> ctypes.CDLL:
     lib.hh_qe_price_grid.restype = ctypes.c_int
     lib.hh_qem_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.hh_qem_price_grid.restype = ctypes.c_int
-    for grid_fn in (lib.hh_surface_grid, lib.hh_exact_surface_grid):
-        grid_fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        grid_fn.restype = ctypes.c_int
+    lib.hh_surface_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_surface_grid.restype = ctypes.c_int
+    lib.hh_exact_surface_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_exact_surface_grid.restype = ctypes.c_int
     return lib
 
 
@@ -118,6 +119,21 @@ def resident_grid(symbol: str, device: torch.device, *args) -> int:
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err}")
     return grid.value
+
+
+def launch_occupancy(symbol: str, device: torch.device, *args) -> dict:
+    """A kernel's occupancy from the library's ``symbol(*args, int out[7])``
+    (threads a block, resident blocks per SM, SMs, dynamic and static shared
+    bytes, registers and local (spill) bytes a thread, from the CUDA
+    runtime) as a dict."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = getattr(load_library(), symbol)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    threads, per_sm, _sms, dynamic, static, registers, local = out
+    return dict(threads=threads, blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
+                smem_bytes=dynamic + static, registers=registers, local_bytes=local)
 
 
 class CudaKernel:

@@ -33,12 +33,12 @@ from ..models.heston_exact import (
 )
 from ..math.counter_rng import uniform_from_bits
 from ..utils import resolve_device
-from .cuda_lib import CudaKernel, check_tensor, require_cuda, resident_grid
+from .cuda_lib import CudaKernel, check_tensor, launch_occupancy, require_cuda, resident_grid
 from .heston_qe_kernel import (
+    SURFACE_SMEM_LIMIT,
     check_surface,
     pair_chunks,
     segment_dts,
-    strike_chunks,
     surface_args,
 )
 from .hh_device import (
@@ -396,9 +396,32 @@ XS_GLOBALS = ("v0", "rho", "rho2_half", "rho_bar2", "cp", "inv_sigma", "k_over_s
 XS_SHARED = ("d_half", "nu", "nu2", "an1", "an2", "an3", "ad1", "ad2", "ad3", "m1f", "s2f",
              "inv_kappa")
 XS_PER_GAP = ("lam_fac", "two_cfac", "z_fac", "l1c", "l1x", "l2c", "l2x", "q", "q2", "p_c")
-#: shared-memory bytes per expiry of K4: a 33-float parameter struct, the
-#: Poisson trip count and the segment count
-_XS_EXP_BYTES = 4 * len(_P_NAMES) + 8
+#: K4's pairs a round of a block (two threads a pair) and its float64 rows
+#: of sums, one a 32 consecutive pairs (csrc/heston_exact.cu)
+_XS_PAIRS = 256
+_XS_ROWS = _XS_PAIRS // 32
+
+
+def exact_surface_smem_bytes(n_exp: int, m: int, total_segs: int, qmc: bool) -> int:
+    """K4's dynamic shared memory (csrc/heston_exact.cu ``xs_layout``): the
+    float64 rows of sums and a round's fp32 pair values per point, a
+    33-float parameter struct, the segment count and the Poisson trip count
+    per expiry, 28 bytes of close constants per point, the Sobol' table."""
+    n_cols = n_exp * m
+    return (8 * _XS_ROWS * n_cols + 4 * _XS_PAIRS * n_cols + (4 * len(_P_NAMES) + 8) * n_exp
+            + 28 * n_cols + (4 * 4 * total_segs * (SOBOL_BITS + 1) if qmc else 0))
+
+
+def exact_strike_chunks(n_exp: int, m: int, total_segs: int, qmc: bool) -> list:
+    """Slices of the strikes whose K4 launches fit ``SURFACE_SMEM_LIMIT``."""
+    fixed = exact_surface_smem_bytes(n_exp, 0, total_segs, qmc)
+    per_strike = exact_surface_smem_bytes(n_exp, 1, 0, False) - exact_surface_smem_bytes(
+        n_exp, 0, 0, False)
+    width = (SURFACE_SMEM_LIMIT - fixed) // per_strike
+    if width < 1:
+        raise ValueError(f"a surface of {n_exp} expiries and {total_segs} segments does not fit "
+                         f"{SURFACE_SMEM_LIMIT} bytes of shared memory")
+    return [slice(k, min(k + width, m)) for k in range(0, m, width)]
 
 EXACT_SURFACE_KERNEL = CudaKernel("hh_exact_surface", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -492,28 +515,45 @@ def heston_exact_mixing_surface_sums_plain(params, table, seg_steps, kmaxes, m: 
 
 
 def _exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs, seed, device_id,
-                        point_offset) -> torch.Tensor:
+                        point_offset, grid=None) -> torch.Tensor:
     """Launch K4 for inputs on a GPU (per-point float64 sums); the twin for
-    inputs on the CPU."""
+    inputs on the CPU.  ``grid`` (blocks of 256 pairs a round) defaults to
+    one resident wave; another grid sums the same pair values in another
+    order (the earlier kernel's grid gives its bits)."""
     n_exp = len(seg_steps)
     check_surface(params, table, seg_steps, m, exact_surf_nparams(n_exp, m), 4,
                   _QMC_MAX_SEGMENTS)
     if len(kmaxes) != n_exp or not all(1 <= k <= _KMAX_LIMIT for k in kmaxes):
         raise ValueError(f"Poisson trip counts {kmaxes} outside [1, {_KMAX_LIMIT}]")
+    if grid is not None and (isinstance(grid, bool) or not isinstance(grid, int) or grid < 1):
+        raise ValueError(f"grid must be a positive int or None; got {grid!r}")
     if params.device.type == "cpu":
         return heston_exact_mixing_surface_sums_plain(params, table, seg_steps, kmaxes, m,
                                                       total_pairs, seed, device_id, point_offset)
     require_cuda(params)
-    grid = resident_grid("hh_exact_surface_grid", params.device)
+    total_segs = sum(seg_steps)
+    if grid is None:
+        grid = resident_grid("hh_exact_surface_grid", params.device, n_exp, m, total_segs,
+                             int(table is not None))
     ints = torch.tensor([*seg_steps, *kmaxes], dtype=torch.int32, device=params.device)
     partials = torch.empty((n_exp * m, grid), dtype=torch.float64, device=params.device)
     out = torch.empty((n_exp * m,), dtype=torch.float64, device=params.device)
     EXACT_SURFACE_KERNEL.launch(
         params.device, params.data_ptr(), ints.data_ptr(),
         None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
-        n_exp, m, sum(seg_steps), total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+        n_exp, m, total_segs, total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
     )
     return out
+
+
+def exact_surface_occupancy(n_exp: int, m: int, total_segs: int, qmc: bool,
+                            device="cuda") -> dict:
+    """K4's occupancy on ``device`` at one launch's shared memory, from the
+    CUDA runtime: threads a block, resident blocks and warps per SM, SMs,
+    dynamic and static shared bytes, registers and local (spill) bytes a
+    thread."""
+    return launch_occupancy("hh_exact_surface_occupancy", torch.device(device), n_exp, m,
+                            total_segs, int(qmc))
 
 
 def heston_exact_mixing_surface_price(
@@ -532,8 +572,7 @@ def heston_exact_mixing_surface_price(
     kmaxes = [poisson_kmax(kappa, theta, sigma, dt_i, v0) for dt_i in segment_dts(T_host, seg_steps)]
     table = torch.as_tensor(sobol_table(seed, 4 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-    for sl in strike_chunks(len(T_host), n_strikes, 1, 0 if table is None else table.shape[0],
-                            _XS_EXP_BYTES):
+    for sl in exact_strike_chunks(len(T_host), n_strikes, sum(seg_steps), qmc):
         params = torch.as_tensor(_exact_surf_params(log_s0, v0, r, kappa, theta, sigma, rho,
                                                     T_host, seg_steps, strikes[sl], cp),
                                  device=dev)

@@ -44,10 +44,11 @@ import numpy as np
 import torch
 
 from ..utils import f64, resolve_device
-from .cuda_lib import CudaKernel, check_tensor, load_library, require_cuda, resident_grid
+from .cuda_lib import CudaKernel, check_tensor, launch_occupancy, require_cuda, resident_grid
 from .heston_qe_greeks_kernel import cond_bs_partials
 from .heston_qe_kernel import check_period, pair_chunks
 from .hh_device import (
+    SOBOL_BITS,
     box_muller_open,
     cond_bs_value,
     philox_block,
@@ -93,9 +94,14 @@ PAIRS_PER_BLOCK = 2048
 #: the kernels keep a pair's ξ column (2·steps rows, padded to whole tiles)
 #: in shared memory, 64 pairs a block, beside the 2·steps-row Sobol' table:
 #: 256 steps take 192 KB of the 227 KB a block may use (K15 and K19 add an
-#: 8 KB chunk of Z rows, K18 4 KB of per-step warp sums, K19 256 bytes a
-#: strike)
+#: 8 KB chunk of Z rows, K18 two, K19 256 bytes a strike)
 MAX_STEPS = 256
+#: the pairs a block of the kernels holds, and the Z rows of one chunk of
+#: the block-cooperative product (csrc/rbergomi.cu kThreads, kChunkRows)
+BLOCK_PAIRS = 64
+CHUNK_ROWS = 32
+#: the shared memory a block may use on the H100
+SMEM_PER_BLOCK = 227 * 1024
 #: Z rows per register tile of the kernels' product (csrc/rbergomi.cu kTile)
 TILE = 8
 #: pairs per chunk of the summing twins (ξ is 0.5 GB a chunk at 64 steps)
@@ -457,20 +463,32 @@ def price_grid(inp: RbInputs) -> int:
                          int(inp.table is not None))
 
 
+def curve_smem_bytes(steps: int, qmc: bool) -> int:
+    """K18's dynamic shared memory (csrc/rbergomi.cu ``rb_curve_smem``): the
+    ξ columns of a block's pairs (2·steps rows padded to whole tiles), two
+    chunks of Z rows (Z and its H tangent; the replay's rows R_k), the
+    Sobol' table."""
+    zcols = -(-(steps - 1) // TILE) * TILE
+    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
+    return 4 * ((steps + zcols) * BLOCK_PAIRS + 2 * CHUNK_ROWS * BLOCK_PAIRS + table)
+
+
+def vjp_curve_occupancy(inp: RbInputs) -> dict:
+    """K18's occupancy at the inputs' steps and stream, from the CUDA
+    runtime (``hh_rb_vjp_curve_occupancy``), as :func:`price_occupancy`."""
+    require_cuda(inp.params)
+    return launch_occupancy("hh_rb_vjp_curve_occupancy", inp.params.device, inp.steps,
+                            int(inp.table is not None))
+
+
 def price_occupancy(inp: RbInputs) -> dict:
     """K15's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_price_occupancy``): threads a block, resident blocks
     and warps per SM, shared bytes a block (dynamic and static), registers
     and local (spill) bytes a thread."""
     require_cuda(inp.params)
-    out = (ctypes.c_int * 7)()
-    with torch.cuda.device(inp.params.device):
-        err = load_library().hh_rb_price_occupancy(inp.steps, int(inp.table is not None), out)
-    if err != 0:
-        raise RuntimeError(f"hh_rb_price_occupancy: CUDA error {err}")
-    threads, per_sm, _sms, dynamic, static, registers, local = out
-    return dict(threads=threads, blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
-                smem_bytes=dynamic + static, registers=registers, local_bytes=local)
+    return launch_occupancy("hh_rb_price_occupancy", inp.params.device, inp.steps,
+                            int(inp.table is not None))
 
 
 def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> torch.Tensor:

@@ -457,3 +457,106 @@ def test_rbergomi_chunked_product_keeps_each_pairs_bits(gpu, qmc, steps):
                                rtol=1e-6, atol=0)
     assert (rk.RB_PRICE_KERNEL.launches, rk.RB_SMILE_KERNEL.launches) == (before[0] + 4,
                                                                            before[1] + 1)
+
+
+@pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "one-group"])
+@pytest.mark.parametrize("steps", RB_EDGE_STEPS)
+@pytest.mark.parametrize("qmc", [True, False])
+def test_rbergomi_curve_kernel_at_the_chunk_edges(gpu, qmc, steps, antithetic):
+    """K18 on the tangent chunk product at the chunks' and tiles' edges,
+    with a last block of 5 pairs: its n + 6 sums against its twin within
+    rel 1e-5 of the largest plus 1e-5 of each under a sloped curve, and
+    (steps >= 2, where the curve route runs) under a flat curve its bucket
+    vegas sum to K17's xi0 gradient within rel 1e-5, tenor sensitivities 0."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs, groups = RB_EDGE_PAIRS, 2 if antithetic else 1
+    ct = 0.5 + 0.5 * torch.sin(torch.arange(groups * pairs, device=gpu, dtype=torch.float32))
+    ct = ct.reshape(groups, pairs)
+    inp = rk.rb_vjp_inputs(100.0, ([0.25, 0.5, 1.0], [0.035, 0.04, 0.045]), 1.9, 0.08, -0.9, 0.03,
+                           1.0, 100.0, 1.0, steps=steps, seed=5, qmc=qmc, device=gpu)
+    before = rk.RB_VJP_CURVE_KERNEL.launches
+    sums = rk._rb_vjp_sums(inp, ct, pairs, antithetic, 5, 0, 0, per_step=True)
+    assert rk.RB_VJP_CURVE_KERNEL.launches == before + 1
+    want = rk.rbergomi_mixing_vjp_curve_sums_plain(inp, ct, pairs, antithetic, 5, 0, 0)
+    assert sums.shape == (steps + 6,) and bool(torch.isfinite(sums).all())
+    assert ((sums - want).abs() <= 1e-5 * float(want.abs().max()) + 1e-5 * want.abs()).all()
+    if steps < 2:
+        return
+    kw = dict(n_paths=pairs, steps=steps, seed=5, antithetic=antithetic, qmc=qmc)
+    rest = (1.9, 0.08, -0.9, 0.03, 1.0, 100.0, 1.0, ct)
+    curve = rk._rb_values_vjp_curve(100.0, [0.04] * 3, [0.25, 0.5, 1.0], *rest, **kw)
+    flat = rk._rb_values_vjp(100.0, 0.04, *rest, **kw)
+    assert float(curve[1].sum()) == pytest.approx(float(flat[1]), rel=1e-5)
+    assert curve[2].tolist() == [0.0, 0.0, 0.0]
+
+
+def _exact_surface_run(gpu, seg_steps, m, qmc, pairs):
+    """K4's launch arguments for m strikes from 60 to 140 and an expiry after
+    each gap of seg_steps[i] exact segments of a quarter year each (the
+    Poisson trip count of shorter segments outgrows its limit at this
+    market)."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host = [0.25 * sum(seg_steps[:i + 1]) for i in range(len(seg_steps))]
+    strikes = [60.0 + 80.0 * k / max(m - 1, 1) for k in range(m)]
+    params = torch.as_tensor(ek._exact_surf_params(*MKT, T_host, seg_steps, strikes, 1.0),
+                             device=gpu)
+    kmaxes = [poisson_kmax(*MKT[3:6], d, MKT[1]) for d in qk.segment_dts(T_host, seg_steps)]
+    table = (torch.as_tensor(qk.sobol_table(5, 4 * sum(seg_steps)), device=gpu) if qmc else None)
+    return (params, table, tuple(seg_steps), kmaxes, m, pairs, 5, 0, 0)
+
+
+@pytest.mark.parametrize("seg_steps, m", [((1,), 1), ((2, 1, 2), 5), ((16,), 3), ((6, 5, 5), 17)],
+                         ids=["1x1", "3x5", "16-segments", "3x17"])
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_surface_kernel_matches_twin(gpu, qmc, seg_steps, m):
+    """K4 (two threads a pair) at 1 to 16 segments and up to 3 × 17 points,
+    over 3·2^12 + 37 pairs (no multiple of a block's 256 a round): each
+    point's sum against the twin's within rel 1e-5, at the resident grid
+    and at the one-pair-a-thread kernel's (3 blocks an SM), and the two
+    grids' sums within 1e-12 of each other."""
+    run = _exact_surface_run(gpu, seg_steps, m, qmc, 3 * 2**12 + 37)
+    before = ek.EXACT_SURFACE_KERNEL.launches
+    got = ek._exact_surface_sums(*run)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    at_parent = ek._exact_surface_sums(*run, grid=3 * sms)
+    assert ek.EXACT_SURFACE_KERNEL.launches == before + 2
+    want = ek.heston_exact_mixing_surface_sums_plain(*run)
+    assert got.shape == (len(seg_steps) * m,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(at_parent, got, rtol=1e-12, atol=0.0)
+
+
+# sha256 of the one-pair-a-thread K4's 3 x 5 surface (bench.py's grid,
+# exact-4 = 5 segments) at 2^20 pairs, seed 5, with the repaired Heston
+# draws: chip_smoke.py --digest's "K4 QMC" and "K4 PRNG" of that tree
+K4_ONE_PAIR_A_THREAD_DIGESTS = {
+    True: "73342e046b9e343f4e2a12d2cc0d06579005983bd992b611335f1af7c300b2ae",
+    False: "1b670d75bf3ed06995e8dd41400c7444c6382b13edf1bfb87f0e2445024cdc67",
+}
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_surface_kernel_at_the_earlier_grid_keeps_its_bits(gpu, qmc, monkeypatch):
+    """Two threads a pair, at the one-pair-a-thread kernel's grid (3 blocks
+    an SM of 256 pairs a round), sum every pair's fp32 value in that
+    kernel's order: the surface's bytes equal its stored digest."""
+    import functools
+    import hashlib
+
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+
+    ref = dt.date(2024, 1, 1)
+    T_host = [float(ht.yearfrac(ref, e)) for e in
+              (dt.date(2024, 7, 1), dt.date(2025, 1, 1), dt.date(2026, 1, 1))]
+    disc = [math.exp(-0.03 * t) for t in T_host]
+    ex_seg = tuple(surface_seg_steps(T_host, 4, min_first=2)[1])
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    monkeypatch.setattr(ek, "_exact_surface_sums",
+                        functools.partial(ek._exact_surface_sums, grid=3 * sms))
+    surf = ek.heston_exact_mixing_surface_price(
+        *MKT, T_host, (85.0, 95.0, 100.0, 105.0, 120.0), disc, seg_steps=ex_seg, n_strikes=5,
+        n_blocks=32, n_batches=1, seed=5, qmc=qmc, device=gpu)
+    digest = hashlib.sha256(surf.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    assert digest == K4_ONE_PAIR_A_THREAD_DIGESTS[qmc]

@@ -537,6 +537,21 @@ def test_greek_closure_matches_the_qe_partials():
 CHUNK_ROWS = 32  # Z rows of a chunk of K15's and K19's product (csrc/rbergomi.cu kChunkRows)
 
 
+@pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
+@pytest.mark.parametrize("steps", [1, 64, 256])
+def test_curve_vjp_shared_memory_fits(steps, qmc):
+    """K18's layout on the chunked product (csrc/rbergomi.cu rb_curve_smem:
+    64 pairs' ξ columns of 2·steps rows padded to whole tiles, two 32-row
+    chunks, the Sobol' table) counted by hand, under the H100's 227 KB a
+    block up to MAX_STEPS."""
+    zcols = 8 * -(-(steps - 1) // 8)
+    want = 4 * 64 * (steps + zcols + 64) + (4 * 2 * steps * 31 if qmc else 0)
+    got = pr.curve_smem_bytes(steps, qmc)
+    assert got == want <= pr.SMEM_PER_BLOCK
+    if steps == pr.MAX_STEPS and qmc:
+        assert got == 206 * 1024  # the largest: 128 KB of ξ, 16 KB of chunks, 62 KB of table
+
+
 def test_pack_as_the_chunked_product_reads_it():
     """For every step count 1..MAX_STEPS, a factor with the Volterra
     structure (random entries) packs to (tiles, zcols, 2·TILE); read as the

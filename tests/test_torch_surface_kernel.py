@@ -325,6 +325,37 @@ def test_strike_chunks_cover_wide_grids():
     assert pq.strike_chunks(3, 17, 7, 64, 148) == [slice(0, 17)]
 
 
+@pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
+@pytest.mark.parametrize("segments", [1, 5, 16])
+def test_exact_surface_shared_memory_fits(segments, qmc):
+    """K4's layout (csrc/heston_exact.cu xs_layout: the float64 row sums
+    and a round's 256 fp32 pair values per point, per-gap parameters, per
+    point close constants, counts, the Sobol' table) counted by hand, under
+    the H100's 227 KB a block at the calibration shape and 1-16 segments;
+    the strike chunks keep each launch within SURFACE_SMEM_LIMIT."""
+    n_exp, m = 3, 17
+    table = 4 * 4 * segments * 31 if qmc else 0
+    want = (8 * 8 + 4 * 256 + 28) * n_exp * m + (4 * 33 + 8) * n_exp + table
+    assert pk.exact_surface_smem_bytes(n_exp, m, segments, qmc) == want <= 227 * 1024
+    assert pk.exact_strike_chunks(n_exp, m, segments, qmc) == [slice(0, m)]
+    chunks = pk.exact_strike_chunks(n_exp, 1000, segments, qmc)
+    assert len(chunks) > 1 and chunks[-1].stop == 1000
+    assert all(a.stop == b.start for a, b in zip(chunks, chunks[1:]))
+    assert all(pk.exact_surface_smem_bytes(n_exp, c.stop - c.start, segments, qmc)
+               <= pq.SURFACE_SMEM_LIMIT for c in chunks)
+
+
+def test_exact_surface_grid_guards():
+    """``_exact_surface_sums``'s optional grid: a positive int or None; the
+    twin on the CPU sums the same values whatever the grid."""
+    params = torch.as_tensor(pk._exact_surf_params(*MKT, T_HOST, XS_SEG, XS_STRIKES, 1.0))
+    run = (params, None, XS_SEG, [20, 20], 2, 8, 0, 0, 0)
+    for bad in (0, -3, 1.5, True, "396"):
+        with pytest.raises(ValueError, match="grid"):
+            pk._exact_surface_sums(*run, grid=bad)
+    assert torch.equal(pk._exact_surface_sums(*run, grid=396), pk._exact_surface_sums(*run))
+
+
 def test_guards():
     with pytest.raises(ValueError, match="period"):
         _k9(point_offset=2**30 - 1)
