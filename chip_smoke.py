@@ -25,8 +25,10 @@ Phases (any failure exits nonzero before the last line):
    terminal sampler (QMC and PRNG), each against the port's Carr-Madan price
    within 4 standard errors plus the scheme's bias allowance; the exact
    lognormal kernel and the all-defaults ``MonteCarlo`` against the
-   Black-Scholes formula; ``torch.autograd.grad`` through the QE mixing
-   ``solve`` against K10's greeks;
+   Black-Scholes formula; the K2 and K7 routes at the Sobol' cells whose
+   float32 uniform rounds to 1.0 against the float64 estimators;
+   ``torch.autograd.grad`` through the QE mixing ``solve`` against K10's
+   greeks;
 4. the serving dispatches at 2^27 antithetic pairs (268M paths) per call:
    ``heston_exact_mixing_vanilla_price``, ``heston_qe_mixing_vanilla_price``
    and ``heston_qe_call_price`` (paths/s and bp error), and
@@ -52,9 +54,9 @@ its own phases too: in phase 2 K14 (values), K15 (serving price), K16
 VJP), K18 (its per-step variant under a forward-variance curve; under a
 flat curve its bucket vegas sum to K17's xi0 gradient) and K19 (the
 17-strike smile) against their twins at 2^20 pairs on both streams,
-autograd through K14 -> K17 against K16, and K15/K16 and K19 (each strike
-equal to K15's to the bit) at the serving 2^24 pairs against the chunked
-twins; phase 3 drives ``solve`` with RoughBergomiMixing(use_kernel=True) at
+autograd through K14 -> K17 against K16, K15's, K18's and K4's occupancy,
+and K15/K16 and K19 (each strike equal to K15's to the bit) at the serving
+2^24 pairs against the chunked twins; phase 3 drives ``solve`` with RoughBergomiMixing(use_kernel=True) at
 2^22 pairs against the three checks that stand in for a closed form (eta =
 0 against Black-Scholes, put-call parity, the float64 estimator on the
 card) and autograd through it against K16, then under a sloped

@@ -181,17 +181,15 @@ __device__ __forceinline__ void exact_segment(float& v, float& iv, float u_pois,
   iv = iv + iv_seg;
 }
 
-// Conditional BS close through J = (V_T - V_0 - kappa*theta*T)/sigma +
-// (kappa/sigma)*IV, with c_j = V_0 + kappa*theta*T of `c` and the strike's
-// constants `cl`.
-__device__ __forceinline__ float exact_point_close(float v, float iv, const ExactParams& c,
-                                                   const hh::CloseParams& cl) {
-  const float j = (v - c.c_j) * c.inv_sigma + iv * c.k_over_sigma;
-  return hh::cond_bs_value(iv, j, cl);
+// J = (V_T - V_0 - kappa*theta*T)/sigma + (kappa/sigma)*IV, with c_j = V_0 +
+// kappa*theta*T of `c`.
+__device__ __forceinline__ float exact_j(float v, float iv, const ExactParams& c) {
+  return (v - c.c_j) * c.inv_sigma + iv * c.k_over_sigma;
 }
 
+// The conditional BS close of (V_T, IV).
 __device__ __forceinline__ float exact_close(float v, float iv, const ExactParams& c) {
-  return exact_point_close(v, iv, c, c.close);
+  return hh::cond_bs_value(iv, exact_j(v, iv, c), c.close);
 }
 
 // The four draws of segment s of pair `pair` (point idx under QMC): Sobol'
@@ -504,8 +502,7 @@ exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ i
         exact_segment(v, iv, odd ? 1.0f - d.u_pois : d.u_pois, odd ? -d.z_gam : d.z_gam,
                       odd ? 1.0f - d.u_boost : d.u_boost, odd ? -d.z_iv : d.z_iv, c, kmaxes[i]);
       }
-      const float j = (v - c.c_j) * c.inv_sigma + iv * c.k_over_sigma;
-      const hh::CloseGroup cg = hh::close_group(iv, j, close[i * m]);
+      const hh::CloseGroup cg = hh::close_group(iv, exact_j(v, iv, c), close[i * m]);
       for (int k = 0; k < m; ++k) {
         const int p = i * m + k;
         const float val = hh::close_value(cg, close[p].log_f_over_k, close[p].strike, close[p].cp);

@@ -7,9 +7,8 @@ float32 twins below, which repeat the kernels' arithmetic: the same Sobol'
 or Philox bits, the same draws (``sobol_normals_tile`` and
 ``sobol_uniforms_open_tile``, which repair the Sobol' cells whose float32
 uniform rounds to 1.0; Box–Muller with its zero cell centred), the same
-polished reciprocal and
-the same trip counts (16 continued-fraction trips, the market's Poisson
-``kmax``).  The public functions keep the JAX signatures, with ``device``
+polished reciprocal and the same trip counts (16 continued-fraction trips,
+the market's Poisson ``kmax``).  The public functions keep the JAX signatures, with ``device``
 in place of ``interpret``; ``n_blocks``/``n_batches`` keep their meaning
 (``n_blocks·n_batches·32768`` antithetic pairs per price call).
 """
@@ -422,6 +421,7 @@ def exact_strike_chunks(n_exp: int, m: int, total_segs: int, qmc: bool) -> list:
         raise ValueError(f"a surface of {n_exp} expiries and {total_segs} segments does not fit "
                          f"{SURFACE_SMEM_LIMIT} bytes of shared memory")
     return [slice(k, min(k + width, m)) for k in range(0, m, width)]
+
 
 EXACT_SURFACE_KERNEL = CudaKernel("hh_exact_surface", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -135,8 +135,8 @@ def mix_draws(pair, steps: int, table, seed: int, device_id: int, point_offset: 
     if table is not None:
         masks = sobol_masks(pair + point_offset)
         for s in range(steps):
-            (z,), (u,) = (sobol_normals_tile(masks, table, (2 * s,)),
-                          sobol_uniforms_open_tile(masks, table, (2 * s + 1,)))
+            (z,) = sobol_normals_tile(masks, table, (2 * s,))
+            (u,) = sobol_uniforms_open_tile(masks, table, (2 * s + 1,))
             yield z, u
         return
     for s in range(steps):
