@@ -81,7 +81,6 @@ second-to-last line is the ``{"kernels": [...]}`` JSON record, the last line
 
 from __future__ import annotations
 
-import contextlib
 import datetime as dt
 import functools
 import json
@@ -201,8 +200,8 @@ RB_UNIT_CELLS = ((894640, 0), (747354, 60), (410584, 94))
 # dims 0 and 4 are K2's u_pois and K7's z) and K2's normal pinned in
 # tests/test_torch_heston_draws.py; each held with CELL_WINDOW points around
 # it against the float64 estimator (HESTON_PATH_TOL, the tests' PATH_TOL)
-HESTON_CELLS = (("K2", 15512210, 1, "normal"), ("K2", 894640, 0, "uniform"),
-                ("K2", 3671734, 4, "uniform"), ("K7", 894640, 0, "normal"),
+HESTON_CELLS = (("K2", 15512210, 1, "normal"), ("K2", 894640, 0, "u_pois"),
+                ("K2", 3671734, 4, "u_pois"), ("K7", 894640, 0, "normal"),
                 ("K7", 3671734, 4, "normal"))
 CELL_WINDOW = 4096
 HESTON_PATH_TOL = dict(rel=1e-2, share_rel=1e-3, share=0.999, floor=1e-3)
@@ -902,9 +901,8 @@ def phase_heston_cells(prob, device: str) -> dict:
     those of the QMC ``solve`` calls above, seed 0, and the CPU tests'
     pinned K2 normal), each over the CELL_WINDOW points around it, against
     the float64 estimator on the same points: per path within
-    HESTON_PATH_TOL, the cell's path too where the cell is a normal's.  A
-    uniform's cell prints only: float32 cannot hold (a + 1/2) 2^-30 there,
-    and the repaired 1 - 2^-24 can end a Poisson count one earlier."""
+    HESTON_PATH_TOL, the cell's path too.  Run outside the main path's
+    launch window: these calls are checks, not the path."""
     import torch
 
     import hedgehog_tpu_torch as ht
@@ -930,15 +928,13 @@ def phase_heston_cells(prob, device: str) -> dict:
         rel = (got - want).abs() / want.abs().clamp(min=tol["floor"])
         share = float((rel <= tol["share_rel"]).double().mean())
         cell = rel[:, point - base]
-        say(f"  {name} point {point} (Sobol' dim {dim}, a {kind} at u = 1.0 in fp32): kernel "
+        say(f"  {name} point {point} (Sobol' dim {dim}, {kind} at u = 1.0 in fp32): kernel "
             f"{got[:, point - base].tolist()} vs float64 {want[:, point - base].tolist()}, rel "
             f"{[f'{x:.3e}' for x in cell.tolist()]}; window: {share:.6f} within "
             f"{tol['share_rel']:g}, max rel {float(rel.max()):.3e}")
-        window_ok = share >= tol["share"] and float(rel.max()) <= tol["rel"]
-        check(window_ok or kind == "uniform", f"{name} around point {point}: window off the "
-              f"float64 estimator")
-        check(kind == "uniform" or float(cell.max()) <= tol["rel"],
-              f"{name} point {point}: off the float64 estimator")
+        check(share >= tol["share"] and float(rel.max()) <= tol["rel"],
+              f"{name} around point {point}: window off the float64 estimator")
+        check(float(cell.max()) <= tol["rel"], f"{name} point {point}: off the float64 estimator")
         out[f"{name} {point}"] = dict(dim=dim, kind=kind, rel=cell.tolist(), window_share=share)
     return out
 
@@ -2358,7 +2354,8 @@ def output_digests(device: str) -> dict:
     package lacks are left out, so two trees compare on what both have.  K4
     runs at the grid of the one-pair-a-thread kernel (``K4 QMC``, to
     compare with trees before the two-threads-a-pair K4) and, where the
-    package takes a grid, at its own resident grid (``K4 QMC resident``)."""
+    package takes a grid, at its own resident grid (``K4 QMC resident``):
+    the float64 sums of the 3 x 5 surface at 2^20 and 2^26 pairs."""
     import hashlib
     import inspect
 
@@ -2387,6 +2384,7 @@ def output_digests(device: str) -> dict:
     disc, dt_q, dt_m = math.exp(-R * T), T / QE_STEPS, T / QEM_STEPS
     blocks = pairs // (4 * qk.PAIRS_PER_BLOCK)  # x 4 batches
     T_host, discs, qe_seg, ex_seg = surface_grid()
+    surf = surface_inputs(dev)
     vjp_table = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
                                                 HESTON["sigma"], dt_q, QE_STEPS, 5), device=dev)
     ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=dev, dtype=torch.float32))).reshape(
@@ -2420,16 +2418,15 @@ def output_digests(device: str) -> dict:
                                                          seg_steps=qe_seg, **surf_kw))
         put(f"K12 {s}", *gk.heston_qe_mixing_surface_price_and_jacobian(
             *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
-        for label, n_blocks in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * 32768)):
-            k4 = functools.partial(ek.heston_exact_mixing_surface_price, *mkt, T_host,
-                                   SURF_STRIKES, discs, seg_steps=ex_seg,
-                                   **dict(surf_kw, n_blocks=n_blocks // qk.PAIRS_PER_BLOCK))
+        t4 = torch.as_tensor(qk.sobol_table(seed, 4 * sum(ex_seg)), device=dev) if qmc else None
+        for label, n in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK)):
+            run4 = (surf["p4"], t4, ex_seg, surf["kmaxes"], len(SURF_STRIKES), n, seed, 0, 0)
             if "grid" in inspect.signature(ek._exact_surface_sums).parameters:
-                put(f"K4 {s}{label} resident", k4())
-                with exact_surface_at(ek, K4_ONE_PAIR_A_THREAD_BLOCKS * sms):
-                    put(f"K4 {s}{label}", k4())
-            else:
-                put(f"K4 {s}{label}", k4())
+                put(f"K4 {s}{label} resident", ek._exact_surface_sums(*run4))
+                put(f"K4 {s}{label}", ek._exact_surface_sums(
+                    *run4, grid=K4_ONE_PAIR_A_THREAD_BLOCKS * sms))
+            else:  # a tree whose K4 takes no grid: one pair a thread
+                put(f"K4 {s}{label}", ek._exact_surface_sums(*run4))
         ins, inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=False)
         g_ins, _ = rb_device_inputs(pairs, qmc, seed, dev, tangent=True)
         _, v_inp = rb_device_inputs(pairs, qmc, seed, dev, tangent=True, vjp=True)
@@ -2459,20 +2456,12 @@ def output_digests(device: str) -> dict:
     return out
 
 
+#: a wide calibration surface for K4's times: quarterly expiries to 2.5 years
+#: (one exact segment a gap), 20 strikes from 60 to 140, 2^24 pairs
+K4_WIDE = dict(expiries=10, strikes=20, pairs=2**24)
 #: the one-pair-a-thread K4's resident blocks an SM (80 registers, 256
 #: threads); its grid is this times the SMs (396 on an H100)
 K4_ONE_PAIR_A_THREAD_BLOCKS = 3
-
-
-@contextlib.contextmanager
-def exact_surface_at(ek, grid: int):
-    """The public K4 wrapper launches at ``grid`` blocks inside the block."""
-    sums = ek._exact_surface_sums
-    ek._exact_surface_sums = functools.partial(sums, grid=grid)
-    try:
-        yield
-    finally:
-        ek._exact_surface_sums = sums
 
 
 def repaired_cells(device: str) -> dict:
@@ -2539,17 +2528,31 @@ def kernel_times(device: str, only=None) -> dict:
     name and power limit: :func:`rb_kernel_times`, and K4 (CUDA events, 5
     calls after a warm-up) at 2^20 pairs (PERF.md's row) and at the
     2^26-pair surface dispatch (3 x 5, exact-4 = 5 segments) on both
-    streams, with K4's occupancy where the package reports it.  ``only``
-    (kernel names) keeps K4 or the rough-Bergomi kernels alone."""
+    streams, with K4's occupancy where the package reports it, and the
+    public K4 wrapper on the wide calibration surface (K4_WIDE: its launches
+    and strike chunks as a user pays them); K2 and K3 (the exact kernels
+    that share K4's Poisson draw) at 2^20 pairs, 2 segments, both streams.
+    ``only`` (kernel names) keeps K4, K2/K3 or the rough-Bergomi kernels
+    alone."""
     import torch
 
+    from hedgehog_tpu_torch.core.dates import yearfrac
     from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
     from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
     dev = torch.device(device)
     out = {"nvidia_smi": smi_query("name,power.limit"), "package": ek.__file__}
-    if only is None or any(k != "K4" for k in only):
+    if only is None or any(k not in ("K2", "K3", "K4") for k in only):
         out.update(rb_kernel_times(dev))
+    if only is None or "K2" in only or "K3" in only:
+        dt_x = float(yearfrac(REF, EXPIRY)) / SEGMENTS
+        for qmc in (False, True):
+            px, tx, kmax = ek._inputs(*MARKET_ARGS, dt_x, STRIKE, 1.0, SEGMENTS, 5, qmc, dev)
+            s = "QMC" if qmc else "PRNG"
+            out[f"K2 {s} {CHECK_PAIRS}"] = time_ms(
+                lambda: ek._exact_values(px, tx, CHECK_PAIRS, SEGMENTS, True, kmax, 5, 0, 0))
+            out[f"K3 {s} {CHECK_PAIRS}"] = time_ms(
+                lambda: ek._exact_price_sum(px, tx, CHECK_PAIRS, SEGMENTS, kmax, 5, 0, 0))
     T_host, _, _, ex_seg = surface_grid()
     inp = surface_inputs(dev)
     for pairs in (CHECK_PAIRS, SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK):
@@ -2563,6 +2566,19 @@ def kernel_times(device: str, only=None) -> dict:
             if pairs == CHECK_PAIRS and hasattr(ek, "exact_surface_occupancy"):
                 out[f"K4 occupancy {key}"] = ek.exact_surface_occupancy(
                     len(T_host), len(SURF_STRIKES), sum(ex_seg), qmc, dev)
+    for qmc in (False, True) if only is None or "K4" in only else ():
+        n_exp, m, pairs = K4_WIDE["expiries"], K4_WIDE["strikes"], K4_WIDE["pairs"]
+        T_w = [0.25 * (i + 1) for i in range(n_exp)]
+        strikes = [60.0 + 80.0 * k / (m - 1) for k in range(m)]
+        wide = functools.partial(
+            ek.heston_exact_mixing_surface_price, *MARKET_ARGS, T_w, strikes,
+            [math.exp(-R * t) for t in T_w], seg_steps=(1,) * n_exp, n_strikes=m,
+            n_blocks=pairs // qk.PAIRS_PER_BLOCK, n_batches=1, seed=5, qmc=qmc, device=dev)
+        key = f"K4 wide {n_exp}x{m} {'QMC' if qmc else 'PRNG'} {pairs}"
+        out[key] = time_ms(wide)
+        if hasattr(ek, "exact_surface_occupancy"):
+            out[f"K4 occupancy wide {'QMC' if qmc else 'PRNG'}"] = ek.exact_surface_occupancy(
+                n_exp, m, n_exp, qmc, dev)
     for key, val in out.items():
         say(f"  {key}: {val}")
     return out
@@ -2790,7 +2806,6 @@ def main() -> int:
     for k in kernels.values():
         k.launches = 0
     phase_main_path(prob, cm, SOLVE_PAIRS, EULER_PAIRS, "cuda")
-    heston_cells = phase_heston_cells(prob, "cuda")
     phase_terminal_path(prob, cm, bs_prob, bs_price, "cuda")
     phase_qe_autograd(prob, SOLVE_PAIRS, "cuda")
     serving = phase_serving(T, cm, SERVING_BLOCKS, SERVING_BATCHES, "cuda")
@@ -2800,6 +2815,7 @@ def main() -> int:
     say(f"launches on the main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    heston_cells = phase_heston_cells(prob, "cuda")
 
     # the surface path, with its own launch window
     surface_kernels = {"heston_qe_mixing_surface_price": QE_SURFACE_KERNEL,

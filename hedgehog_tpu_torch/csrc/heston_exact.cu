@@ -140,21 +140,50 @@ __device__ __forceinline__ float gamma_qtl(float alpha, float z) {
   return alpha * lam_of_eta(eta, kGqNewton);
 }
 
-// One exact segment: (V, integrated V so far) -> (V', integrated V').
+// The Poisson(mu) count at u = 1 - w of a Sobol' top cell, which no fp32 cdf
+// below 1 tells from 1: the smallest n <= kmax with P(N > n) <= w, from the
+// tail summed downward.  The sum starts at kmax or at the first term past
+// the mode below w 2^-24 (the rest of the tail is below w 2^-23), where the
+// terms still sit far above FLT_MIN.
+__device__ __forceinline__ float poisson_top_count(float mu, float w, int kmax) {
+  float p = expf(-mu);
+  int top = 0;
+  for (int k = 1; k <= kmax; ++k) {
+    const float q = p * mu * kInvK[k];
+    if ((float)k > mu && q < w * (float)(1.0 / 16777216.0)) break;
+    p = q;
+    top = k;
+  }
+  float tail = 0.0f, n = (float)top;
+  for (int k = top; k >= 1; --k) {
+    tail = tail + p;  // P(N >= k)
+    if (tail > w) break;
+    n = (float)(k - 1);
+    p = p * (float)k * hh::rcp(mu);
+  }
+  return n;
+}
+
+// One exact segment: (V, integrated V so far) -> (V', integrated V').  A
+// negative u_pois is -w of a Sobol' top cell (hh::sobol_uniform_top).
 __device__ __forceinline__ void exact_segment(float& v, float& iv, float u_pois, float z_gam,
                                               float u_boost, float z_iv, const ExactParams& c,
                                               int kmax) {
   // Poisson(lambda/2) count by CDF inversion; the count is final once
   // u <= cdf, since cdf only grows.
   const float mu = v * c.lam_fac;
-  float p = expf(-mu);
-  float cdf = p;
   float n = 0.0f;
-  for (int k = 1; k <= kmax; ++k) {
-    if (!(u_pois > cdf)) break;
-    n = (float)k;
-    p = p * mu * kInvK[k];
-    cdf = cdf + p;
+  if (u_pois < 0.0f) {
+    n = poisson_top_count(mu, -u_pois, kmax);
+  } else {
+    float p = expf(-mu);
+    float cdf = p;
+    for (int k = 1; k <= kmax; ++k) {
+      if (!(u_pois > cdf)) break;
+      n = (float)k;
+      p = p * mu * kInvK[k];
+      cdf = cdf + p;
+    }
   }
 
   // Gamma(d/2 + N, 2c) through the boosted corrected-saddlepoint quantile.
@@ -192,6 +221,11 @@ __device__ __forceinline__ float exact_close(float v, float iv, const ExactParam
   return hh::cond_bs_value(iv, exact_j(v, iv, c), c.close);
 }
 
+// The mirror's Poisson uniform: 1 - u, or w of a top cell's u_pois = -w.
+__device__ __forceinline__ float mirror_pois(float u_pois) {
+  return u_pois < 0.0f ? -u_pois : 1.0f - u_pois;
+}
+
 // The four draws of segment s of pair `pair` (point idx under QMC): Sobol'
 // dims 4s..4s+3 of the (4*segments, 31) table `sobol` in shared memory, or
 // Philox block s when `sobol` is null.
@@ -201,7 +235,7 @@ __device__ __forceinline__ void exact_draw(unsigned long long pair, uint32_t idx
                                            float& u_boost, float& z_iv) {
   if (sobol) {
     const int* rows = sobol + 4 * s * (hh::kSobolBits + 1);
-    u_pois = hh::sobol_uniform_open(idx, rows);
+    u_pois = hh::sobol_uniform_top(idx, rows);
     z_gam = hh::sobol_normal(idx, rows + (hh::kSobolBits + 1));
     u_boost = hh::sobol_uniform_open(idx, rows + 2 * (hh::kSobolBits + 1));
     z_iv = hh::sobol_normal(idx, rows + 3 * (hh::kSobolBits + 1));
@@ -226,7 +260,7 @@ __device__ __forceinline__ void exact_pair(unsigned long long pair, const ExactP
     exact_draw(pair, idx, sobol, s, seed, device_id, u_pois, z_gam, u_boost, z_iv);
     exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax);
     if (antithetic) {
-      exact_segment(va, iva, 1.0f - u_pois, -z_gam, 1.0f - u_boost, -z_iv, c, kmax);
+      exact_segment(va, iva, mirror_pois(u_pois), -z_gam, 1.0f - u_boost, -z_iv, c, kmax);
     }
   }
   val = exact_close(v, iv, c);
@@ -316,17 +350,18 @@ size_t sobol_smem(const int* sobol, int segments) {
 // strike's value from it (hh::close_value, cond_bs_close's operations in
 // their order); the pair's value + antithetic value is one shuffle.  Each
 // pair's values therefore keep their bits, and the sums keep theirs: a
-// round of a block is 256 consecutive pairs as before, staged per point in
-// shared memory so that one warp adds each 32 consecutive pairs by the same
-// butterfly into the same float64 row (kXsRows rows, summed in row order).
+// round of a block is 256 consecutive pairs as before, staged in shared
+// memory (up to kXsStage points, whole expiries) so that one warp adds each
+// 32 consecutive pairs by the same butterfly into the same float64 row
+// (kXsRows rows, summed in row order).
 // A grid-stride walk with one resident wave (hh_exact_surface_grid counts
 // the dynamic shared memory below); the per-gap ExactParams and per-point
-// close constants in shared memory.  Measured (PERF.md, H100): 40 registers,
-// three blocks (48 warps) an SM, a 2^26-pair exact-4 surface 1.26x faster
-// than one pair a thread on Philox (1.18x under QMC); the shared Philox
-// draws gave 2% of it and the third block 1%.  What is left is the gamma
-// quantiles' and the Bessel fraction's dependent chains, which keep each
-// value's bits only in their order.
+// close constants in shared memory.  Measured (PERF.md §6, H100): 40
+// registers with a little spill (the Poisson top-cell branch), three blocks
+// (48 warps) an SM; the shared Philox draws and the third block gave a few
+// percent each, staging whole expiries rather than one at a time about 2%.
+// What is left is the gamma quantiles' and the Bessel fraction's dependent
+// chains, which keep each value's bits only in their order.
 
 constexpr int kXsThreads = 512;              // two threads a pair
 constexpr int kXsPairs = kXsThreads / 2;     // pairs a round of a block
@@ -335,22 +370,25 @@ constexpr int kXsWarps = kXsThreads / 32;
 constexpr int kXsGlobals = 7;  // v0, rho, rho2_half, rho_bar2, cp, inv_sigma, k_over_sigma
 constexpr int kXsShared = 12;  // d_half, nu, nu2, an1, an2, an3, ad1, ad2, ad3, m1f, s2f, inv_kappa
 constexpr int kXsPerGap = 10;  // lam_fac, two_cfac, z_fac, l1c, l1x, l2c, l2x, q, q2, p_c
+constexpr int kXsStage = 48;   // points a round stages before it adds them (whole expiries)
 
-// Dynamic shared memory: the float64 row sums, a round's per-point pair
-// values, per-gap ExactParams, per-point close constants, segment counts then
-// trip counts, the Sobol' table (ops/heston_exact_kernel.py
-// exact_surface_smem_bytes mirrors it).
+// Dynamic shared memory: the float64 row sums, a round's pair values at
+// `cap` points (whole expiries: up to kXsStage points, or one expiry's m
+// strikes where m is more), per-gap ExactParams, per-point close constants,
+// segment counts then trip counts, the Sobol' table
+// (ops/heston_exact_kernel.py exact_surface_smem_bytes mirrors it).
 struct XsLayout {
-  int n_cols;
+  int n_cols, cap;
   size_t ys, gaps, close, ints, sobol, bytes;
 };
 
 __host__ __device__ inline XsLayout xs_layout(int n_exp, int m, int total_segs, bool qmc) {
   XsLayout l;
   l.n_cols = n_exp * m;
+  l.cap = m > kXsStage ? m : (l.n_cols < kXsStage ? l.n_cols : kXsStage);
   size_t off = sizeof(double) * kXsRows * l.n_cols;
   l.ys = off;
-  off += sizeof(float) * kXsPairs * l.n_cols;
+  off += sizeof(float) * kXsPairs * l.cap;
   l.gaps = off;
   off += sizeof(ExactParams) * n_exp;
   l.close = off;
@@ -447,7 +485,7 @@ __device__ __forceinline__ ExactDraw exact_draw_shared(unsigned long long pair, 
                                                        ExactDraw& next) {
   if (sobol) {
     const int* rows = sobol + (4 * s + 2 * (int)odd) * (hh::kSobolBits + 1);
-    const float u = hh::sobol_uniform_open(idx, rows);
+    const float u = odd ? hh::sobol_uniform_open(idx, rows) : hh::sobol_uniform_top(idx, rows);
     const float z = hh::sobol_normal(idx, rows + (hh::kSobolBits + 1));
     const float u_o = __shfl_xor_sync(0xffffffffu, u, 1);
     const float z_o = __shfl_xor_sync(0xffffffffu, z, 1);
@@ -462,11 +500,26 @@ __device__ __forceinline__ ExactDraw exact_draw_shared(unsigned long long pair, 
   return odd ? other : own;
 }
 
+// Adds `count` staged points' pair values (points p0, p0 + 1, ...) into
+// their float64 rows between two barriers: warp w takes each (row, point)
+// task w, w + kXsWarps, ...
+__device__ __forceinline__ void flush_points(const float* ys, double* wacc, int n_cols, int p0,
+                                             int count) {
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int task = w; task < kXsRows * count; task += kXsWarps) {
+    const int row = task % kXsRows, k = task / kXsRows;
+    hh::warp_accumulate(ys[k * kXsPairs + row * 32 + lane], wacc, n_cols, p0 + k, row);
+  }
+  __syncthreads();
+}
+
 // A round's pairs base + q, q < kXsPairs: each thread walks its group, and
-// the even thread of pair q puts the pair's value + antithetic value of
-// point p at ys[p * kXsPairs + q] (0 past total_pairs).  Then warp w adds
-// each (row, point) task w, w + kXsWarps, ... into its float64 row.  The
-// rounds are uniform over the block, so every lane reaches the shuffles.
+// at each expiry the even thread of pair q puts the pair's value +
+// antithetic value at the staged point j at ys[j * kXsPairs + q] (0 past
+// total_pairs); the staged points are added when the next expiry would not
+// fit and at the round's end.  The rounds and expiries are uniform over the
+// block, so every lane reaches the shuffles and barriers.
 __global__ void __launch_bounds__(kXsThreads, 3)
 exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ ints,
                      const int* __restrict__ sobol, double* __restrict__ partials, int n_exp,
@@ -493,30 +546,29 @@ exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ i
     const uint32_t idx = (uint32_t)(point_offset + g);
     float v = v0, iv = 0.0f;
     ExactDraw next{};
-    int seg = 0;
+    int seg = 0, filled = 0;
     for (int i = 0; i < n_exp; ++i) {
       const ExactParams& c = gaps[i];
       for (int k = 0; k < nseg[i]; ++k, ++seg) {
         const ExactDraw d = exact_draw_shared(pair, idx, table, seg, seed, device_id, odd, next);
         // one exact_segment for both threads (the mirror's draws by select)
-        exact_segment(v, iv, odd ? 1.0f - d.u_pois : d.u_pois, odd ? -d.z_gam : d.z_gam,
+        exact_segment(v, iv, odd ? mirror_pois(d.u_pois) : d.u_pois, odd ? -d.z_gam : d.z_gam,
                       odd ? 1.0f - d.u_boost : d.u_boost, odd ? -d.z_iv : d.z_iv, c, kmaxes[i]);
+      }
+      if (filled + m > l.cap) {
+        flush_points(ys, wacc, l.n_cols, i * m - filled, filled);
+        filled = 0;
       }
       const hh::CloseGroup cg = hh::close_group(iv, exact_j(v, iv, c), close[i * m]);
       for (int k = 0; k < m; ++k) {
         const int p = i * m + k;
         const float val = hh::close_value(cg, close[p].log_f_over_k, close[p].strike, close[p].cp);
         const float y = val + __shfl_xor_sync(0xffffffffu, val, 1);
-        if (!odd) ys[p * kXsPairs + q] = live ? y : 0.0f;
+        if (!odd) ys[(filled + k) * kXsPairs + q] = live ? y : 0.0f;
       }
+      filled += m;
     }
-    __syncthreads();
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int task = w; task < kXsRows * l.n_cols; task += kXsWarps) {
-      const int row = task % kXsRows, p = task / kXsRows;
-      hh::warp_accumulate(ys[p * kXsPairs + row * 32 + lane], wacc, l.n_cols, p, row);
-    }
-    __syncthreads();
+    flush_points(ys, wacc, l.n_cols, l.n_cols - filled, filled);
   }
   hh::block_columns(wacc, l.n_cols, kXsRows, partials);
 }

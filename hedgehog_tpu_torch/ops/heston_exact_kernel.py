@@ -4,13 +4,15 @@
 Port of ``hedgehog_tpu/ops/heston_exact_kernel.py``.  For tensors on a GPU
 the work goes to ``csrc/heston_exact.cu``; for tensors on the CPU to the
 float32 twins below, which repeat the kernels' arithmetic: the same Sobol'
-or Philox bits, the same draws (``sobol_normals_tile`` and
-``sobol_uniforms_open_tile``, which repair the Sobol' cells whose float32
-uniform rounds to 1.0; Box–Muller with its zero cell centred), the same
-polished reciprocal and the same trip counts (16 continued-fraction trips,
-the market's Poisson ``kmax``).  The public functions keep the JAX signatures, with ``device``
-in place of ``interpret``; ``n_blocks``/``n_batches`` keep their meaning
-(``n_blocks·n_batches·32768`` antithetic pairs per price call).
+or Philox bits, the same draws (``sobol_normals_tile``,
+``sobol_uniforms_open_tile`` for u_boost and ``sobol_uniform_top`` for the
+Poisson u_pois, which repair the Sobol' cells whose float32 uniform rounds
+to 1.0; Box–Muller with its zero cell centred), the same polished
+reciprocal and the same trip counts (16 continued-fraction trips, the
+market's Poisson ``kmax``).  The public functions keep the JAX signatures,
+with ``device`` in place of ``interpret``; ``n_blocks``/``n_batches`` keep
+their meaning (``n_blocks·n_batches·32768`` antithetic pairs per price
+call).
 """
 
 from __future__ import annotations
@@ -34,10 +36,10 @@ from ..math.counter_rng import uniform_from_bits
 from ..utils import resolve_device
 from .cuda_lib import CudaKernel, check_tensor, launch_occupancy, require_cuda, resident_grid
 from .heston_qe_kernel import (
-    SURFACE_SMEM_LIMIT,
     check_surface,
     pair_chunks,
     segment_dts,
+    strike_chunks,
     surface_args,
 )
 from .hh_device import (
@@ -49,6 +51,7 @@ from .hh_device import (
     sobol_masks,
     sobol_normals_tile,
     sobol_table,
+    sobol_uniform_top,
     sobol_uniforms_open_tile,
 )
 
@@ -185,8 +188,34 @@ def _gamma_qtl(alpha, z):
 _INV_K = [np.float32(0.0)] + [np.float32(1.0 / k) for k in range(1, _KMAX_LIMIT + 1)]
 
 
+def _poisson_top_count(mu, w, kmax: int):
+    """The Poisson(mu) count at u = 1 − w of a Sobol' top cell
+    (csrc/heston_exact.cu ``poisson_top_count``): the smallest n ≤ kmax with
+    P(N > n) ≤ w, the tail summed downward from kmax or from the first term
+    past the mode below w·2^-24."""
+    p = torch.exp(-mu)
+    top = torch.zeros_like(mu)
+    going = torch.ones_like(mu, dtype=torch.bool)
+    for k in range(1, kmax + 1):
+        q = p * mu * float(_INV_K[k])
+        going = going & ~((k > mu) & (q < w * 2.0**-24))
+        p = torch.where(going, q, p)
+        top = torch.where(going, float(k), top)
+    tail, n = torch.zeros_like(mu), top
+    going = torch.ones_like(going)
+    for k in range(kmax, 0, -1):
+        live = going & (top >= k)
+        tail = torch.where(live, tail + p, tail)
+        going = going & ~(live & (tail > w))
+        step = live & going
+        n = torch.where(step, float(k - 1), n)
+        p = torch.where(step, p * float(k) * rcp(mu), p)
+    return n
+
+
 def _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax: int):
-    """One exact segment on float32 tensors: (V, ∫V) → (V', ∫V + draw)."""
+    """One exact segment on float32 tensors: (V, ∫V) → (V', ∫V + draw); a
+    negative ``u_pois`` is −w of a Sobol' top cell (``sobol_uniform_top``)."""
     mu = v * c["lam_fac"]
     p = torch.exp(-mu)
     cdf = p
@@ -195,6 +224,9 @@ def _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax: int):
         n = torch.where(u_pois > cdf, float(k), n)
         p = p * mu * float(_INV_K[k])
         cdf = cdf + p
+    top = u_pois < 0.0
+    if bool(top.any()):
+        n = torch.where(top, _poisson_top_count(mu, torch.where(top, -u_pois, 1.0), kmax), n)
 
     alpha = c["d_half"] + n
     u_safe = torch.clamp(u_boost, min=1e-30)
@@ -228,12 +260,18 @@ def _exact_draws(pair, s, masks, table, seed, device_id):
     (``masks`` of the point indices ``point_offset + pair``) when ``table``
     is given, else Philox draw block ``s`` of the pair (csrc/hh_device.cuh)."""
     if table is not None:
-        u_pois, u_boost = sobol_uniforms_open_tile(masks, table, (4 * s, 4 * s + 2))
+        u_pois = sobol_uniform_top(masks, table, 4 * s)
+        (u_boost,) = sobol_uniforms_open_tile(masks, table, (4 * s + 2,))
         z_gam, z_iv = sobol_normals_tile(masks, table, (4 * s + 1, 4 * s + 3))
         return u_pois, z_gam, u_boost, z_iv
     w = philox_block(pair, s, seed & _MASK32, device_id & _MASK32)
     z_gam, z_iv = box_muller(w[0], w[1])
     return uniform_from_bits(w[2]), z_gam, uniform_from_bits(w[3]), z_iv
+
+
+def _mirror_pois(u_pois):
+    """The mirror's Poisson uniform: 1 − u, or w of a top cell's u_pois = −w."""
+    return torch.where(u_pois < 0.0, -u_pois, 1.0 - u_pois)
 
 
 def _exact_pairs_plain(params, table, pair, segments, antithetic, kmax, seed, device_id,
@@ -247,7 +285,8 @@ def _exact_pairs_plain(params, table, pair, segments, antithetic, kmax, seed, de
         u_pois, z_gam, u_boost, z_iv = _exact_draws(pair, s, masks, table, seed, device_id)
         v, iv = _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax)
         if antithetic:
-            va, iva = _exact_segment(va, iva, 1.0 - u_pois, -z_gam, 1.0 - u_boost, -z_iv, c, kmax)
+            va, iva = _exact_segment(va, iva, _mirror_pois(u_pois), -z_gam, 1.0 - u_boost, -z_iv,
+                                     c, kmax)
     rows = [_exact_close(v, iv, c)]
     if antithetic:
         rows.append(_exact_close(va, iva, c))
@@ -395,32 +434,24 @@ XS_GLOBALS = ("v0", "rho", "rho2_half", "rho_bar2", "cp", "inv_sigma", "k_over_s
 XS_SHARED = ("d_half", "nu", "nu2", "an1", "an2", "an3", "ad1", "ad2", "ad3", "m1f", "s2f",
              "inv_kappa")
 XS_PER_GAP = ("lam_fac", "two_cfac", "z_fac", "l1c", "l1x", "l2c", "l2x", "q", "q2", "p_c")
-#: K4's pairs a round of a block (two threads a pair) and its float64 rows
-#: of sums, one a 32 consecutive pairs (csrc/heston_exact.cu)
+#: K4's pairs a round of a block (two threads a pair), its float64 rows of
+#: sums (one a 32 consecutive pairs) and the points a round stages before
+#: adding them (whole expiries; csrc/heston_exact.cu)
 _XS_PAIRS = 256
 _XS_ROWS = _XS_PAIRS // 32
+_XS_STAGE = 48
 
 
 def exact_surface_smem_bytes(n_exp: int, m: int, total_segs: int, qmc: bool) -> int:
     """K4's dynamic shared memory (csrc/heston_exact.cu ``xs_layout``): the
-    float64 rows of sums and a round's fp32 pair values per point, a
+    float64 rows of sums per point, a round's fp32 pair values at the staged
+    points (up to 48, or one expiry's ``m`` strikes where ``m`` is more), a
     33-float parameter struct, the segment count and the Poisson trip count
     per expiry, 28 bytes of close constants per point, the Sobol' table."""
     n_cols = n_exp * m
-    return (8 * _XS_ROWS * n_cols + 4 * _XS_PAIRS * n_cols + (4 * len(_P_NAMES) + 8) * n_exp
+    cap = m if m > _XS_STAGE else min(n_cols, _XS_STAGE)
+    return (8 * _XS_ROWS * n_cols + 4 * _XS_PAIRS * cap + (4 * len(_P_NAMES) + 8) * n_exp
             + 28 * n_cols + (4 * 4 * total_segs * (SOBOL_BITS + 1) if qmc else 0))
-
-
-def exact_strike_chunks(n_exp: int, m: int, total_segs: int, qmc: bool) -> list:
-    """Slices of the strikes whose K4 launches fit ``SURFACE_SMEM_LIMIT``."""
-    fixed = exact_surface_smem_bytes(n_exp, 0, total_segs, qmc)
-    per_strike = exact_surface_smem_bytes(n_exp, 1, 0, False) - exact_surface_smem_bytes(
-        n_exp, 0, 0, False)
-    width = (SURFACE_SMEM_LIMIT - fixed) // per_strike
-    if width < 1:
-        raise ValueError(f"a surface of {n_exp} expiries and {total_segs} segments does not fit "
-                         f"{SURFACE_SMEM_LIMIT} bytes of shared memory")
-    return [slice(k, min(k + width, m)) for k in range(0, m, width)]
 
 
 EXACT_SURFACE_KERNEL = CudaKernel("hh_exact_surface", [
@@ -492,8 +523,8 @@ def _exact_surface_pairs_plain(params, table, seg_steps, kmaxes, m, pair, seed, 
         for _ in range(steps_i):
             u_pois, z_gam, u_boost, z_iv = _exact_draws(pair, s, masks, table, seed, device_id)
             v, iv = _exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmaxes[i])
-            va, iva = _exact_segment(va, iva, 1.0 - u_pois, -z_gam, 1.0 - u_boost, -z_iv, c,
-                                     kmaxes[i])
+            va, iva = _exact_segment(va, iva, _mirror_pois(u_pois), -z_gam, 1.0 - u_boost, -z_iv,
+                                     c, kmaxes[i])
             s += 1
         for k in range(m):
             ck = _exact_surf_close(params, c, n_exp, m, i, k)
@@ -572,7 +603,9 @@ def heston_exact_mixing_surface_price(
     kmaxes = [poisson_kmax(kappa, theta, sigma, dt_i, v0) for dt_i in segment_dts(T_host, seg_steps)]
     table = torch.as_tensor(sobol_table(seed, 4 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-    for sl in exact_strike_chunks(len(T_host), n_strikes, sum(seg_steps), qmc):
+    n_exp, total_segs = len(T_host), sum(seg_steps)
+    for sl in strike_chunks(n_strikes, lambda w: exact_surface_smem_bytes(n_exp, w, total_segs,
+                                                                          qmc)):
         params = torch.as_tensor(_exact_surf_params(log_s0, v0, r, kappa, theta, sigma, rho,
                                                     T_host, seg_steps, strikes[sl], cp),
                                  device=dev)

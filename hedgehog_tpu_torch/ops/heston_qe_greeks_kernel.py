@@ -48,6 +48,7 @@ from .heston_qe_kernel import (
     surf_nparams,
     surface_args,
     surface_grid,
+    surface_smem_bytes,
 )
 from .hh_device import (
     mix_c,
@@ -568,8 +569,9 @@ def heston_qe_mixing_surface_price_and_jacobian(
                 for t in _surface_greek_tables(kappa, theta, sigma, T_host, seg_steps))
     table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-    for sl in strike_chunks(n_exp, n_strikes, N_SURF_COLS,
-                            0 if table is None else table.shape[0], _JAC_EXP_BYTES):
+    table_rows = 0 if table is None else table.shape[0]
+    for sl in strike_chunks(n_strikes, lambda w: surface_smem_bytes(n_exp, w, N_SURF_COLS,
+                                                                    table_rows, _JAC_EXP_BYTES)):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])

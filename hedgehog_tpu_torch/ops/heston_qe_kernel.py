@@ -388,8 +388,8 @@ def surface_grid(device: torch.device) -> int:
 
 def surface_smem_bytes(n_exp: int, m: int, cols_per_point: int, table_rows: int,
                        per_exp_bytes: int) -> int:
-    """Dynamic shared memory of a surface launch (the layout of
-    csrc/heston_surface.cu and csrc/heston_exact.cu): a float64 row of sums
+    """Dynamic shared memory of a K9 or K12 launch (the layout of
+    csrc/heston_surface.cu): a float64 row of sums
     per warp, 28 bytes of close constants per point, ``per_exp_bytes`` per
     expiry (segment constants, step counts, tangent rows) and the Sobol'
     table, with alignment slack."""
@@ -397,16 +397,17 @@ def surface_smem_bytes(n_exp: int, m: int, cols_per_point: int, table_rows: int,
             + per_exp_bytes * n_exp + 4 * (SOBOL_BITS + 1) * table_rows + 64)
 
 
-def strike_chunks(n_exp: int, m: int, cols_per_point: int, table_rows: int,
-                  per_exp_bytes: int) -> list:
-    """Slices of the strikes whose launches fit ``SURFACE_SMEM_LIMIT``."""
-    fixed = surface_smem_bytes(n_exp, 0, cols_per_point, table_rows, per_exp_bytes)
-    per_strike = surface_smem_bytes(n_exp, 1, cols_per_point, 0, 0) - 64
-    width = (SURFACE_SMEM_LIMIT - fixed) // per_strike
+def strike_chunks(m: int, smem_bytes) -> list:
+    """Slices of the ``m`` strikes whose launches fit ``SURFACE_SMEM_LIMIT``,
+    each as wide as fits; ``smem_bytes(width)`` is a launch's shared memory
+    at ``width`` strikes, growing with the width (:func:`surface_smem_bytes`
+    for K9 and K12, ``heston_exact_kernel.exact_surface_smem_bytes`` for K4)."""
+    width = 0
+    while width < m and smem_bytes(width + 1) <= SURFACE_SMEM_LIMIT:
+        width += 1
     if width < 1:
-        raise ValueError(
-            f"a surface of {n_exp} expiries with a {table_rows}-row Sobol' table does not fit "
-            f"{SURFACE_SMEM_LIMIT} bytes of shared memory")
+        raise ValueError(f"a surface launch of one strike needs {smem_bytes(1)} bytes of shared "
+                         f"memory, more than {SURFACE_SMEM_LIMIT}")
     return [slice(k, min(k + width, m)) for k in range(0, m, width)]
 
 
@@ -479,8 +480,9 @@ def heston_qe_mixing_surface_price(
         point_offset, device)
     table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-    for sl in strike_chunks(len(T_host), n_strikes, 1, 0 if table is None else table.shape[0],
-                            SURF_EXP_BYTES):
+    n_exp, table_rows = len(T_host), 0 if table is None else table.shape[0]
+    for sl in strike_chunks(n_strikes,
+                            lambda w: surface_smem_bytes(n_exp, w, 1, table_rows, SURF_EXP_BYTES)):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])

@@ -38,6 +38,7 @@ __all__ = [
     "sobol_bits",
     "sobol_uniforms_tile",
     "sobol_uniforms_open_tile",
+    "sobol_uniform_top",
     "sobol_normals_tile",
     "ndtri_approx",
     "norm_cdf",
@@ -143,6 +144,22 @@ def sobol_uniforms_open_tile(masks, table: torch.Tensor, dims):
     return [torch.clamp(u, max=_U_OPEN_MAX) for u in sobol_uniforms_tile(masks, table, dims)]
 
 
+def _sobol_complement(a: torch.Tensor) -> torch.Tensor:
+    """1 − (a + 1/2)·2^-30 of a top cell, (2^30 − 1 − a + 1/2)·2^-30: exact in
+    float32 (the header's ``sobol_complement``)."""
+    return _centred((1 << SOBOL_BITS) - 1 - a)
+
+
+def sobol_uniform_top(masks, table: torch.Tensor, dim: int):
+    """The exact kernels' Poisson uniform of dimension ``dim`` (the header's
+    ``sobol_uniform_top``): the float32 Sobol' uniform, except in the 32 top
+    cells (1.0 in float32), which give −w, minus the exact complement w = 1 −
+    (a + 1/2)·2^-30."""
+    a = sobol_bits(masks, table, dim)
+    u = _centred(a)
+    return torch.where(u < 1.0, u, -_sobol_complement(a))
+
+
 def sobol_normals_tile(masks, table: torch.Tensor, dims):
     """float32 normals of the dimensions ``dims`` (the header's
     ``sobol_normal``): ``ndtri_approx`` of the uniform, except where the
@@ -152,7 +169,7 @@ def sobol_normals_tile(masks, table: torch.Tensor, dims):
     for d in dims:
         a = sobol_bits(masks, table, d)
         u = _centred(a)
-        top = _ndtri_tail(_centred((1 << SOBOL_BITS) - 1 - a))
+        top = _ndtri_tail(_sobol_complement(a))
         out.append(torch.where(u < 1.0, ndtri_approx(u), top))
     return out
 

@@ -528,35 +528,50 @@ def test_exact_surface_kernel_matches_twin(gpu, qmc, seg_steps, m):
     torch.testing.assert_close(at_parent, got, rtol=1e-12, atol=0.0)
 
 
-# sha256 of the one-pair-a-thread K4's 3 x 5 surface (bench.py's grid,
-# exact-4 = 5 segments) at 2^20 pairs, seed 5, with the repaired Heston
-# draws: chip_smoke.py --digest's "K4 QMC" and "K4 PRNG" of that tree
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_surface_kernel_wide_surface_matches_twin(gpu, qmc):
+    """K4 on a 10 × 20 surface (quarterly expiries, one launch) over 3·2^12 +
+    37 pairs: each point's mean value against the twin's within rel 1e-5,
+    means below 1e-3 compared absolutely (chip_smoke's compare_points: the
+    deep out-of-the-money points of the first expiries)."""
+    pairs = 3 * 2**12 + 37
+    run = _exact_surface_run(gpu, (1,) * 10, 20, qmc, pairs)
+    got = ek._exact_surface_sums(*run).cpu() / (2 * pairs)
+    want = ek.heston_exact_mixing_surface_sums_plain(*run).cpu() / (2 * pairs)
+    assert got.shape == (200,) and bool(torch.isfinite(got).all())
+    assert float(((got - want).abs() / want.abs().clamp(min=1e-3)).max()) <= 1e-5
+
+
+# sha256 of the one-pair-a-thread K4's float64 sums of the 3 x 5 surface
+# (bench.py's grid, exact-4 = 5 segments) at 2^20 pairs, seed 5, with the
+# repaired Heston draws: chip_smoke.py --digest's "K4 QMC" and "K4 PRNG" of
+# that tree
 K4_ONE_PAIR_A_THREAD_DIGESTS = {
-    True: "73342e046b9e343f4e2a12d2cc0d06579005983bd992b611335f1af7c300b2ae",
-    False: "1b670d75bf3ed06995e8dd41400c7444c6382b13edf1bfb87f0e2445024cdc67",
+    True: "4db2a4b4a05b75f9a7c8084b9ae4f6fece6ab8252832e1da66bd4b4ec3caa9f5",
+    False: "932415da32146a120ee456d92d232c31ccf6a81082c93d92b2e56531c20e43d5",
 }
 
 
 @pytest.mark.parametrize("qmc", [True, False])
-def test_exact_surface_kernel_at_the_earlier_grid_keeps_its_bits(gpu, qmc, monkeypatch):
+def test_exact_surface_kernel_at_the_earlier_grid_keeps_its_bits(gpu, qmc):
     """Two threads a pair, at the one-pair-a-thread kernel's grid (3 blocks
     an SM of 256 pairs a round), sum every pair's fp32 value in that
-    kernel's order: the surface's bytes equal its stored digest."""
-    import functools
+    kernel's order: the surface's sums equal its stored digest."""
     import hashlib
 
     from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
     ref = dt.date(2024, 1, 1)
     T_host = [float(ht.yearfrac(ref, e)) for e in
               (dt.date(2024, 7, 1), dt.date(2025, 1, 1), dt.date(2026, 1, 1))]
-    disc = [math.exp(-0.03 * t) for t in T_host]
     ex_seg = tuple(surface_seg_steps(T_host, 4, min_first=2)[1])
+    params = torch.as_tensor(ek._exact_surf_params(*MKT, T_host, ex_seg,
+                                                   (85.0, 95.0, 100.0, 105.0, 120.0), 1.0),
+                             device=gpu)
+    kmaxes = [poisson_kmax(*MKT[3:6], d, MKT[1]) for d in qk.segment_dts(T_host, ex_seg)]
+    table = torch.as_tensor(qk.sobol_table(5, 4 * sum(ex_seg)), device=gpu) if qmc else None
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    monkeypatch.setattr(ek, "_exact_surface_sums",
-                        functools.partial(ek._exact_surface_sums, grid=3 * sms))
-    surf = ek.heston_exact_mixing_surface_price(
-        *MKT, T_host, (85.0, 95.0, 100.0, 105.0, 120.0), disc, seg_steps=ex_seg, n_strikes=5,
-        n_blocks=32, n_batches=1, seed=5, qmc=qmc, device=gpu)
-    digest = hashlib.sha256(surf.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    sums = ek._exact_surface_sums(params, table, ex_seg, kmaxes, 5, 2**20, 5, 0, 0, grid=3 * sms)
+    digest = hashlib.sha256(sums.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
     assert digest == K4_ONE_PAIR_A_THREAD_DIGESTS[qmc]

@@ -317,32 +317,43 @@ def test_strike_chunks_cover_wide_grids():
     """A grid whose per-warp sums exceed the shared-memory budget is split
     into strike chunks, each a launch over the same pairs; a surface's
     points do not depend on the chunking."""
-    chunks = pq.strike_chunks(3, 1000, 7, 64, 148)
+    def smem(width):
+        return pq.surface_smem_bytes(3, width, 7, 64, 148)
+
+    chunks = pq.strike_chunks(1000, smem)
     assert len(chunks) > 1 and chunks[0].start == 0 and chunks[-1].stop == 1000
     assert all(a.stop == b.start for a, b in zip(chunks, chunks[1:]))
     widest = chunks[0].stop - chunks[0].start
-    assert pq.surface_smem_bytes(3, widest, 7, 64, 148) <= pq.SURFACE_SMEM_LIMIT
-    assert pq.strike_chunks(3, 17, 7, 64, 148) == [slice(0, 17)]
+    assert smem(widest) <= pq.SURFACE_SMEM_LIMIT < smem(widest + 1)
+    assert pq.strike_chunks(17, smem) == [slice(0, 17)]
+    with pytest.raises(ValueError, match="one strike"):
+        pq.strike_chunks(17, lambda width: pq.SURFACE_SMEM_LIMIT + width)
 
 
 @pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
 @pytest.mark.parametrize("segments", [1, 5, 16])
 def test_exact_surface_shared_memory_fits(segments, qmc):
     """K4's layout (csrc/heston_exact.cu xs_layout: the float64 row sums
-    and a round's 256 fp32 pair values per point, per-gap parameters, per
+    per point, a round's 256 fp32 pair values at up to 48 staged points
+    (one expiry's strikes where there are more), per-gap parameters, per
     point close constants, counts, the Sobol' table) counted by hand, under
-    the H100's 227 KB a block at the calibration shape and 1-16 segments;
-    the strike chunks keep each launch within SURFACE_SMEM_LIMIT."""
-    n_exp, m = 3, 17
+    the H100's 227 KB a block at the calibration shape and 1-16 segments,
+    and a 10 x 20 surface in one launch; the strike chunks keep each launch
+    within SURFACE_SMEM_LIMIT."""
     table = 4 * 4 * segments * 31 if qmc else 0
-    want = (8 * 8 + 4 * 256 + 28) * n_exp * m + (4 * 33 + 8) * n_exp + table
-    assert pk.exact_surface_smem_bytes(n_exp, m, segments, qmc) == want <= 227 * 1024
-    assert pk.exact_strike_chunks(n_exp, m, segments, qmc) == [slice(0, m)]
-    chunks = pk.exact_strike_chunks(n_exp, 1000, segments, qmc)
+    for n_exp, m, staged in ((3, 17, 48), (10, 20, 48), (1, 60, 60), (2, 5, 10)):
+        want = (8 * 8 + 28) * n_exp * m + 4 * 256 * staged + (4 * 33 + 8) * n_exp + table
+        assert pk.exact_surface_smem_bytes(n_exp, m, segments, qmc) == want <= 227 * 1024
+
+        def smem(width):
+            return pk.exact_surface_smem_bytes(n_exp, width, segments, qmc)
+
+        assert pq.strike_chunks(m, smem) == [slice(0, m)]
+    chunks = pq.strike_chunks(1000, smem)
     assert len(chunks) > 1 and chunks[-1].stop == 1000
     assert all(a.stop == b.start for a, b in zip(chunks, chunks[1:]))
-    assert all(pk.exact_surface_smem_bytes(n_exp, c.stop - c.start, segments, qmc)
-               <= pq.SURFACE_SMEM_LIMIT for c in chunks)
+    widest = chunks[0].stop - chunks[0].start
+    assert smem(widest) <= pq.SURFACE_SMEM_LIMIT < smem(widest + 1)
 
 
 def test_exact_surface_grid_guards():
