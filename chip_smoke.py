@@ -1890,7 +1890,9 @@ def phase_rb_occupancy(device: str) -> dict:
     K16 and K19 walk): resident blocks and warps per SM, the shared memory a
     block holds (the 64 pairs' ξ columns, the chunk of Z rows, the Sobol'
     table under QMC, the reduction's doubles), registers and spill; then
-    K18's (64 steps) and K4's (the full-width surface) likewise."""
+    K16's (which must hold at least K15's blocks an SM, so that K15's grid
+    is one wave of it too), K18's (64 steps) and K4's (the full-width
+    surface) likewise."""
     import torch
 
     from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
@@ -1904,6 +1906,11 @@ def phase_rb_occupancy(device: str) -> dict:
         _, inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=False)
         out[stream] = rk.price_occupancy(inp)
         say_occupancy(f"K15 occupancy ({stream}, {RB_STEPS} steps)", out[stream])
+        _, g_inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=True)
+        out[f"K16 {stream}"] = rk.greeks_occupancy(g_inp)
+        say_occupancy(f"K16 occupancy ({stream}, {RB_STEPS} steps)", out[f"K16 {stream}"])
+        check(out[f"K16 {stream}"]["blocks_per_sm"] >= out[stream]["blocks_per_sm"],
+              f"K16 holds fewer blocks an SM than K15 ({stream}): K15's grid is not one wave of it")
         _, c_inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=True, vjp=True)
         out[f"K18 {stream}"] = rk.vjp_curve_occupancy(c_inp)
         say_occupancy(f"K18 occupancy ({stream}, {RB_STEPS} steps)", out[f"K18 {stream}"])
@@ -2418,6 +2425,15 @@ def output_digests(device: str) -> dict:
                                                          seg_steps=qe_seg, **surf_kw))
         put(f"K12 {s}", *gk.heston_qe_mixing_surface_price_and_jacobian(
             *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
+        # K9's and K12's float64 sums at the grid before K9's redesign
+        t9 = torch.as_tensor(qk.sobol_table(seed, 2 * sum(qe_seg)), device=dev) if qmc else None
+        at = ({"grid": K9_PARENT_BLOCKS * sms}
+              if "grid" in inspect.signature(qk._qe_surface_sums).parameters else {})
+        for label, n in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK)):
+            put(f"K9 {s}{label} sums", qk._qe_surface_sums(surf["p9"], t9, qe_seg,
+                                                           len(SURF_STRIKES), n, seed, 0, 0, **at))
+        put(f"K12 {s} sums", gk._surface_jac_sums(surf["p9"], surf["dct"], surf["djt"], t9, qe_seg,
+                                                  len(SURF_STRIKES), pairs, seed, 0, 0, **at))
         t4 = torch.as_tensor(qk.sobol_table(seed, 4 * sum(ex_seg)), device=dev) if qmc else None
         for label, n in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK)):
             run4 = (surf["p4"], t4, ex_seg, surf["kmaxes"], len(SURF_STRIKES), n, seed, 0, 0)
@@ -2435,6 +2451,15 @@ def output_digests(device: str) -> dict:
                                                   antithetic=True, **kw))
         put(f"K15 {s}", rk.rbergomi_mixing_vanilla_price(*ins.price_args(), **rb_kw))
         put(f"K16 {s}", *rk.rbergomi_mixing_price_and_greeks(*g_ins, **rb_kw))
+        _, g24 = rb_device_inputs(RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK, qmc, seed, dev,
+                                  tangent=True)
+        put(f"K16 {s} 2^24", rk._rb_greek_sums(g24, RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK,
+                                               seed, 0, 0))
+        for steps in RB_EDGE_STEPS:  # the chunked product's edges, a ragged last trip
+            cfg = ht.SimulationConfig(RB_EDGE_PAIRS, steps, ht.Antithetic(), seed, qmc)
+            e_inp = rk.rb_inputs_from_trace(rk._rb_greek_trace_inputs(rb_problem(), cfg, 64),
+                                            seed=seed, qmc=qmc, device=dev)
+            put(f"K16 {s} {steps} steps", rk._rb_greek_sums(e_inp, RB_EDGE_PAIRS, seed, 0, 0))
         put(f"K17 {s}", rk._rb_vjp_sums(v_inp, ct, pairs, True, seed, 0, 0))
         if hasattr(rk, "RB_SMILE_KERNEL"):
             c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
@@ -2525,15 +2550,15 @@ def smi_query(fields: str) -> str:
 def kernel_times(device: str, only=None) -> dict:
     """The redesigned kernels' times for the package imported (this tree's,
     or ``--root``'s), to compare trees in turns in one call, with the card's
-    name and power limit: :func:`rb_kernel_times`, and K4 (CUDA events, 5
-    calls after a warm-up) at 2^20 pairs (PERF.md's row) and at the
-    2^26-pair surface dispatch (3 x 5, exact-4 = 5 segments) on both
-    streams, with K4's occupancy where the package reports it, and the
-    public K4 wrapper on the wide calibration surface (K4_WIDE: its launches
-    and strike chunks as a user pays them); K2 and K3 (the exact kernels
-    that share K4's Poisson draw) at 2^20 pairs, 2 segments, both streams.
-    ``only`` (kernel names) keeps K4, K2/K3 or the rough-Bergomi kernels
-    alone."""
+    name and power limit: :func:`rb_kernel_times`, :func:`surface_kernel_times`
+    (K9, K12), and K4 (CUDA events, 5 calls after a warm-up) at 2^20 pairs
+    (PERF.md's row) and at the 2^26-pair surface dispatch (3 x 5, exact-4 =
+    5 segments) on both streams, with K4's occupancy where the package
+    reports it, and the public K4 wrapper on the wide calibration surface
+    (K4_WIDE: its launches and strike chunks as a user pays them); K2 and K3
+    (the exact kernels that share K4's Poisson draw) at 2^20 pairs, 2
+    segments, both streams.  ``only`` (kernel names, e.g. K4 or K9,K12 or
+    K15,K16) keeps the kernels named."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -2542,8 +2567,10 @@ def kernel_times(device: str, only=None) -> dict:
 
     dev = torch.device(device)
     out = {"nvidia_smi": smi_query("name,power.limit"), "package": ek.__file__}
-    if only is None or any(k not in ("K2", "K3", "K4") for k in only):
-        out.update(rb_kernel_times(dev))
+    if only is None or set(only) & set(RB_KERNELS):
+        out.update(rb_kernel_times(dev, only))
+    if only is None or {"K9", "K12"} & set(only):
+        out.update(surface_kernel_times(dev, only))
     if only is None or "K2" in only or "K3" in only:
         dt_x = float(yearfrac(REF, EXPIRY)) / SEGMENTS
         for qmc in (False, True):
@@ -2584,30 +2611,73 @@ def kernel_times(device: str, only=None) -> dict:
     return out
 
 
-def rb_kernel_times(dev) -> dict:
+#: the rough-Bergomi kernels, for ``--times --only``
+RB_KERNELS = ("K14", "K15", "K16", "K17", "K18", "K19")
+#: the QE surface kernels' resident blocks an SM before K9's redesign (K9 63
+#: registers: 4 blocks of 256 threads, K12 114: 2); their grid was this
+#: times the SMs (528 on an H100)
+K9_PARENT_BLOCKS = 4
+
+
+def surface_kernel_times(dev, only=None) -> dict:
+    """K9 and K12 (CUDA events, 5 calls after a warm-up) on the 3 x 5 QE-32
+    surface at 2^20 pairs (PERF.md's rows) and at the 2^26-pair surface
+    dispatch, both streams, through ``_qe_surface_sums`` and
+    ``_surface_jac_sums`` at the package's grid; the grid, and K9's
+    occupancy where the package reports it."""
+    import torch
+
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T_host, _, qe_seg, _ = surface_grid()
+    inp, m = surface_inputs(dev), len(SURF_STRIKES)
+    out = {"K9 grid": qk.surface_grid(dev)}
+    for pairs in (CHECK_PAIRS, SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK):
+        for qmc in (False, True):
+            key = f"{'QMC' if qmc else 'PRNG'} {pairs}"
+            t9 = torch.as_tensor(qk.sobol_table(5, 2 * sum(qe_seg)), device=dev) if qmc else None
+            run = (t9, qe_seg, m, pairs, 5, 0, 0)
+            if only is None or "K9" in only:
+                out[f"K9 {key}"] = time_ms(lambda: qk._qe_surface_sums(inp["p9"], *run))
+            if only is None or "K12" in only:
+                out[f"K12 {key}"] = time_ms(
+                    lambda: gk._surface_jac_sums(inp["p9"], inp["dct"], inp["djt"], *run))
+            if pairs == CHECK_PAIRS and hasattr(qk, "surface_occupancy"):
+                out[f"K9 occupancy {key}"] = qk.surface_occupancy(
+                    len(T_host), m, sum(qe_seg), qmc, dev)
+    return out
+
+
+def rb_kernel_times(dev, only=None) -> dict:
     """The rough-Bergomi kernels' times: K15 per serving dispatch (2^24
     pairs x 64 steps, PRNG, the public wrapper on 6 seeds, as phase 4); per
     kernel call on fixed inputs on both streams K14, K15, K16 and K19 (17
     strikes) at 2^20 pairs (PERF.md's rows) and 2^24, K17 and K18 (the
-    sloped curve) at 2^20 and at ``solve``'s 2^22; K15's and K18's
-    occupancy where the package reports it."""
+    sloped curve) at 2^20 and at ``solve``'s 2^22; K15's, K16's and K18's
+    occupancy where the package reports it.  ``only`` keeps the kernels
+    named."""
     import torch
 
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    def want(k):
+        return only is None or k in only
 
     serving = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
     out = {}
     ins = rk._rb_trace_inputs(rb_problem(), rb_config(serving, False), 64)
     kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, steps=RB_STEPS, device=dev)
-    rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=0, **kw)
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for seed in range(1, SERVING_REPS + 1):
-        rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed, **kw)
-    stop.record()
-    torch.cuda.synchronize()
-    out["K15 serving dispatch"] = start.elapsed_time(stop) / SERVING_REPS
+    if want("K15"):
+        rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=0, **kw)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for seed in range(1, SERVING_REPS + 1):
+            rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        out["K15 serving dispatch"] = start.elapsed_time(stop) / SERVING_REPS
     ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
     for pairs in (CHECK_PAIRS, SOLVE_PAIRS, serving):
         ct = torch.full((2, pairs), 0.5 / pairs, dtype=torch.float32, device=dev)
@@ -2616,22 +2686,31 @@ def rb_kernel_times(dev) -> dict:
             _, inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=False)
             if pairs != SOLVE_PAIRS:
                 _, g_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True)
-                out[f"K14 {key}"] = time_ms(lambda: rk._rb_values(inp, pairs, True, 1, 0, 0))
-                out[f"K15 {key}"] = time_ms(lambda: rk._rb_price_sum(inp, pairs, 1, 0, 0))
-                out[f"K19 {key}"] = time_ms(lambda: rk._rb_smile_sums(inp, ks, pairs, 1, 0, 0))
-                out[f"K16 {key}"] = time_ms(lambda: rk._rb_greek_sums(g_inp, pairs, 1, 0, 0))
+                if want("K14"):
+                    out[f"K14 {key}"] = time_ms(lambda: rk._rb_values(inp, pairs, True, 1, 0, 0))
+                if want("K15"):
+                    out[f"K15 {key}"] = time_ms(lambda: rk._rb_price_sum(inp, pairs, 1, 0, 0))
+                if want("K19"):
+                    out[f"K19 {key}"] = time_ms(
+                        lambda: rk._rb_smile_sums(inp, ks, pairs, 1, 0, 0))
+                if want("K16"):
+                    out[f"K16 {key}"] = time_ms(lambda: rk._rb_greek_sums(g_inp, pairs, 1, 0, 0))
                 out[f"grid {key}"] = rk.price_grid(inp)
                 if hasattr(rk, "price_occupancy") and pairs == serving:
                     out[f"occupancy {key}"] = rk.price_occupancy(inp)
+                if hasattr(rk, "greeks_occupancy") and pairs == serving:
+                    out[f"K16 occupancy {key}"] = rk.greeks_occupancy(g_inp)
             if pairs != serving:
                 _, v_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True, vjp=True)
                 c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
                                          steps=RB_STEPS, seed=1, qmc=qmc, device=dev)
-                out[f"K17 {key}"] = time_ms(lambda: rk._rb_vjp_sums(v_inp, ct, pairs, True, 1, 0,
-                                                                    0))
-                out[f"K18 {key}"] = time_ms(lambda: rk._rb_vjp_sums(c_inp, ct, pairs, True, 1, 0,
-                                                                    0, per_step=True))
-                if pairs == CHECK_PAIRS and hasattr(rk, "vjp_curve_occupancy"):
+                if want("K17"):
+                    out[f"K17 {key}"] = time_ms(
+                        lambda: rk._rb_vjp_sums(v_inp, ct, pairs, True, 1, 0, 0))
+                if want("K18"):
+                    out[f"K18 {key}"] = time_ms(
+                        lambda: rk._rb_vjp_sums(c_inp, ct, pairs, True, 1, 0, 0, per_step=True))
+                if pairs == CHECK_PAIRS and hasattr(rk, "vjp_curve_occupancy") and want("K18"):
                     out[f"K18 occupancy {key}"] = rk.vjp_curve_occupancy(c_inp)
     return out
 

@@ -31,6 +31,19 @@
 // the grid (51 points x 7 columns at the calibration shape).  K12 walks K9's
 // pairs with K9's grid, and its surface column goes through the same primal,
 // close and sums as K9's, so the two surfaces are equal to the bit.
+//
+// K9 (measured on an H100 at 2^26 pairs, 3 x 5, QE-32: PERF.md) spent a
+// third of its time in the walk, a quarter in 30 full closes a pair and on
+// Philox a quarter (under QMC half) in the draw: hh::sobol_bits walks all 30
+// bits of the point for each dimension.  It now closes each path once per
+// expiry up to the strike (hh::close_group) and each strike from there
+// (hh::close_value, cond_bs_value's bits); draws Philox two steps a block
+// across the segments without MixStream's per-step parity branch; and under
+// QMC splits each Sobol' integer at bit 5: a warp's 32 consecutive points
+// share their high bits, so the warp stages the two candidate high words of
+// every dimension once a round (stage_high) and each point XORs in its low
+// five rows.  The numbers drawn are MixStream's, so every pair keeps its
+// bits and the sums theirs at the same grid.  K12 keeps MixStream.
 
 #include <numeric>
 
@@ -48,10 +61,12 @@ constexpr int kPerSeg = 5;   // e, c_s2_v, c_s2_c, half_dt, ktd_over_sigma
 // Dynamic shared memory of one launch, in this order (the float64 rows first
 // for their alignment): per-warp sums, segment constants, per-point close
 // constants, K12's (4, 4) constant tangents and (4, 3) J-closure rows per
-// expiry, step counts, the Sobol' table.
+// expiry, step counts, the Sobol' table, and K9's per-warp high Sobol' words
+// (two candidates a dimension: hh::sobol_high of the warp's first point
+// rounded down to 32, and of the next 32).
 struct Layout {
   int n_cols;
-  size_t segs, close, dct, djt, steps, sobol, bytes;
+  size_t segs, close, dct, djt, steps, sobol, high, bytes;
 };
 
 __host__ __device__ inline Layout layout(int n_exp, int m, int total_steps, bool jac, bool qmc) {
@@ -71,6 +86,8 @@ __host__ __device__ inline Layout layout(int n_exp, int m, int total_steps, bool
   off += sizeof(int) * n_exp;
   l.sobol = off;
   off += qmc ? sizeof(int) * 2 * total_steps * (hh::kSobolBits + 1) : 0;
+  l.high = off;
+  off += qmc && !jac ? sizeof(uint32_t) * kWarps * 2 * (2 * total_steps) : 0;
   l.bytes = off;
   return l;
 }
@@ -112,27 +129,86 @@ __device__ __forceinline__ void stage(const float* params, const int* nsteps, co
   __syncthreads();
 }
 
-// K9: the pair's value at every point, added to the per-warp sums.
-__device__ __forceinline__ void price_pair(hh::MixStream& ds, bool live, float v0,
+// The high Sobol' words of this warp's round into hw[2 d + c], dimension
+// d, candidate c: the warp's points are p0 + lane, and point idx takes
+// candidate (idx >> 5) - (p0 >> 5), 0 or 1.  The warp's lanes share the
+// work; __syncwarp on both sides (the last round's reads, this one's).
+__device__ __forceinline__ void stage_high(const int* table, int dims, uint32_t p0, uint32_t* hw) {
+  const uint32_t lo = p0 & ~31u;
+  __syncwarp();
+  for (int d = (int)(threadIdx.x & 31); d < dims; d += 32) {
+    const int* row = table + d * (hh::kSobolBits + 1);
+    hw[2 * d] = hh::sobol_high(lo, row);
+    hw[2 * d + 1] = hh::sobol_high(lo + 32u, row);
+  }
+  __syncwarp();
+}
+
+// K9: the pair's value at every point, added to the per-warp sums.  The
+// steps draw hh::MixStream's numbers without its per-step parity branch.
+// Under Philox: one block per two steps in hh::mix_draws's order, running
+// across the segments (the step index counts the whole trajectory, so a
+// segment that ends on an even step leaves the block's second normal and
+// word to the next segment's first step).  Under QMC: the Sobol' pair of
+// step s, each integer the warp's staged high word (hw, candidate c) XOR
+// hh::sobol_low of the point.  At each expiry each path's close is split at
+// the strike (hh::close_group once, hh::close_value per strike:
+// cond_bs_value's bits).
+__device__ __forceinline__ void price_pair(unsigned long long pair, bool live, const int* sobol,
+                                           const uint32_t* hw, int c, uint32_t seed,
+                                           uint32_t device_id, long long point_offset, float v0,
                                            const hh::SurfSeg* segs,
                                            const hh::CloseParams* close, const int* nsteps,
                                            int n_exp, int m, double* wacc, int n_cols) {
   float v = v0, iv = 0.0f, j = 0.0f, va = v0, iva = 0.0f, ja = 0.0f;
+  const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
+  float z_odd = 0.0f;  // the second normal and word of the last block drawn
+  uint32_t w_odd = 0u;
   int step = 0;
   for (int i = 0; i < n_exp; ++i) {
-    const hh::SurfSeg& c = segs[i];
-    if (live) {
-      for (int k = 0; k < nsteps[i]; ++k, ++step) {
-        float z, u;
-        ds.draw(step, z, u);
-        hh::mix_advance(v, iv, j, z, u, c);
-        hh::mix_advance(va, iva, ja, -z, 1.0f - u, c);
+    const hh::SurfSeg sc = segs[i];
+    const int end = step + nsteps[i];
+    const auto advance = [&](float z, float u) {
+      hh::mix_advance(v, iv, j, z, u, sc);
+      hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);
+    };
+    if (live && sobol) {
+      for (int s = step; s < end; ++s) {
+        const int* rows = sobol + 2 * s * (hh::kSobolBits + 1);
+        const uint32_t az = hw[4 * s + c] ^ hh::sobol_low(idx, rows);
+        const uint32_t au = hw[4 * s + 2 + c] ^ hh::sobol_low(idx, rows + hh::kSobolBits + 1);
+        advance(hh::sobol_normal_of(az), hh::sobol_uniform_open_of(au));
+      }
+    } else if (live) {
+      int s = step;
+      if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
+        advance(z_odd, hh::uniform_from_bits(w_odd));
+        ++s;
+      }
+      for (; s + 1 < end; s += 2) {
+        const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+        float z0, z1;
+        hh::box_muller(w.x, w.y, z0, z1);
+        advance(z0, hh::uniform_from_bits(w.z));
+        advance(z1, hh::uniform_from_bits(w.w));
+      }
+      if (s < end) {
+        const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+        float z0;
+        hh::box_muller(w.x, w.y, z0, z_odd);
+        advance(z0, hh::uniform_from_bits(w.z));
+        w_odd = w.w;
       }
     }
+    step = end;
+    const hh::CloseGroup g = hh::close_group(iv, j, close[i * m]);
+    const hh::CloseGroup ga = hh::close_group(iva, ja, close[i * m]);
     for (int k = 0; k < m; ++k) {
       const int p = i * m + k;
-      const float y =
-          live ? hh::cond_bs_value(iv, j, close[p]) + hh::cond_bs_value(iva, ja, close[p]) : 0.0f;
+      const hh::CloseParams& q = close[p];
+      const float y = live ? hh::close_value(g, q.log_f_over_k, q.strike, q.cp) +
+                                 hh::close_value(ga, q.log_f_over_k, q.strike, q.cp)
+                           : 0.0f;
       hh::warp_accumulate(y, wacc, n_cols, p);
     }
   }
@@ -258,14 +334,21 @@ surface_kernel(const float* __restrict__ params, const int* __restrict__ nsteps,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long base = (long long)blockIdx.x * blockDim.x; base < total_pairs; base += stride) {
     const long long g = base + threadIdx.x;
-    hh::MixStream ds((unsigned long long)g, table, seed, device_id, point_offset);
     if constexpr (kJac) {
+      hh::MixStream ds((unsigned long long)g, table, seed, device_id, point_offset);
       jac_pair(ds, g < total_pairs, v0, segs, close,
                reinterpret_cast<const float(*)[4]>(smem + l.dct),
                reinterpret_cast<const float(*)[3]>(smem + l.djt), ssteps, n_exp, m, wacc,
                l.n_cols);
     } else {
-      price_pair(ds, g < total_pairs, v0, segs, close, ssteps, n_exp, m, wacc, l.n_cols);
+      // the warp's points are p0 + lane; this lane's high word is candidate c
+      const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
+      uint32_t* hw =
+          reinterpret_cast<uint32_t*>(smem + l.high) + (threadIdx.x >> 5) * 4 * total_steps;
+      if (table) stage_high(table, 2 * total_steps, p0, hw);
+      const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
+      price_pair((unsigned long long)g, g < total_pairs, table, hw, c, seed, device_id,
+                 point_offset, v0, segs, close, ssteps, n_exp, m, wacc, l.n_cols);
     }
   }
   hh::block_columns(wacc, l.n_cols, partials);
@@ -353,5 +436,30 @@ extern "C" int hh_surface_grid(int* grid) {
                                                         0);
   }
   *grid = sms * std::lcm(per_price > 0 ? per_price : 1, per_jac > 0 ? per_jac : 1);
+  return (int)err;
+}
+
+// The occupancy of K9 (jac = 0) or K12 (jac = 1) on the current device at
+// one launch's shared memory: out = (threads a block, resident blocks per
+// SM, SMs, dynamic shared bytes, static shared bytes, registers a thread,
+// local (spill) bytes a thread).
+extern "C" int hh_surface_occupancy(int jac, int n_exp, int m, int total_steps, int qmc,
+                                    int* out) {
+  const Layout l = layout(n_exp, m, total_steps, jac != 0, qmc != 0);
+  const void* kernel = jac ? (const void*)surface_kernel<true> : (const void*)surface_kernel<false>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.bytes);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, l.bytes);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  const int vals[7] = {kThreads, per_sm, sms, (int)l.bytes, (int)attr.sharedSizeBytes,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
 }

@@ -36,11 +36,11 @@
 // n(n-1) FMAs a pair, about 4K at n = 64, against the TPU kernel's dense
 // (2n)^2 on a 128-padded tile; a step adds two exponentials' worth of MUFU
 // (ex2, rsqrt, two rcp) and a dozen FLOPs, and the Philox or Sobol' draw of
-// 2n normals comes on top.  On an H100 K14, K16 and K17 run 7-10x above that
+// 2n normals comes on top.  On an H100 K14 and K17 run 7-10x above that
 // operation bound, K15 5x and K18 5.5x (PERF.md): latency-bound chains at few
 // warps an SM, not the issue rate of any one pipe.
 //
-// K14, K16 and K17: one antithetic pair per thread (rb_walk).  The thread
+// K14 and K17: one antithetic pair per thread (rb_walk).  The thread
 // draws its xi column into shared memory (row-major, one float per thread a
 // row: conflict-free), then walks the consumed Z rows in tiles of kTile rows
 // whose kTile accumulators live in registers: for each column one shared
@@ -68,15 +68,19 @@
 // under QMC the xi columns and the Sobol' table take 192 KB).  Slot t of a
 // trip walks the pairs one thread would (blockIdx.x * 64 + t + trip * grid
 // * 64) and the 64 slot sums reduce by block_sums's tree, and K16 walks
-// K15's grid (one resident wave of K15), so K16's price is K15's to the
-// bit.  Measured (PERF.md, H100): 5 blocks (20 warps) an SM on PRNG, 4
-// (16) under QMC, against 6 (12) and 4 (8) one pair a thread; 64
-// registers; K15 1.6x and K19 1.3x faster than one pair a thread.  What is
-// left, each phase's marginal share of K15 at 2^24 pairs (PRNG / QMC): the
-// walk 32 / 26%, the product 29 / 16%, the draw 10 / 38%.  The
-// Sobol' table read through L1 instead of staged was slower (QMC K15 39.7
-// against 28.7 ms at 2^24 pairs); 16-row chunks (6 blocks an SM, one
-// pair a thread's grid) matched K15 but left K19, 5 resident of 6, no faster.
+// K15's trips on K15's grid (one resident wave of K15 and of K16), so
+// K16's price is K15's to the bit.  Measured (PERF.md, H100): 5 blocks (20
+// warps) an SM on PRNG, 4 (16) under QMC, against 6 (12) and 4 (8) one
+// pair a thread; 64 registers; K15 1.6x and K19 1.3x faster than one pair
+// a thread.  What is left, each phase's marginal share of K15 at 2^24
+// pairs (PRNG / QMC): the walk 32 / 26%, the product 29 / 16%, the draw
+// 10 / 38%.  The Sobol' table read through L1 instead of staged was slower
+// (QMC K15 39.7 against 28.7 ms at 2^24 pairs); 16-row chunks (6 blocks an
+// SM, one pair a thread's grid) matched K15 but left K19, 5 resident of 6,
+// no faster.  K16 on the tangent chunk product (16-row chunks, K15's 40.5 /
+// 56 KB and blocks an SM) is 1.84x faster on Philox and 1.26x under QMC
+// than one pair a thread; under QMC its draw, most of it ndtri_approx's two
+// branches in every warp, is a third of its time.
 //
 // K18 (the backward of the values under a ForwardVarianceCurve) adds one row
 // per step, R_k = ct (y_IV dt P_k + y_J/2 s_k dW_k) = d(ct value)/d ln C_k,
@@ -171,6 +175,13 @@ __device__ __forceinline__ const int* stage_table(const int* sobol, int n, int* 
 // zero.  With `parts` > 1 the caller draws only its share: every parts-th
 // Sobol' row, Philox block and zero row from its `part`-th.
 // Each value depends on (pair, row) alone, so the split keeps its bits.
+// kSplit (the caller's warp holds 32 consecutive pairs and one `part`)
+// forms each Sobol' integer split at bit 5: a row's high word is one of
+// two warp-uniform candidates (hh::sobol_high), lane j forming those of
+// the warp's j-th row of each 32 and passing them by shuffles, and each
+// point XORs in hh::sobol_low; the integers, so the normals, are the
+// unsplit ones.
+template <bool kSplit = false>
 __device__ __forceinline__ void draw_xi(float* xs, unsigned long long pair, const int* sobol,
                                         const RbShape& s, uint32_t seed, uint32_t device_id,
                                         long long point_offset, int t, int part = 0,
@@ -178,8 +189,30 @@ __device__ __forceinline__ void draw_xi(float* xs, unsigned long long pair, cons
   const int rows = 2 * s.n - 1;
   if (sobol) {
     const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
-    for (int r = part; r < rows; r += parts) {
-      xs[r * kThreads + t] = hh::sobol_normal(idx, sobol + r * (hh::kSobolBits + 1));
+    if constexpr (kSplit) {
+      const int lane = threadIdx.x & 31;
+      const uint32_t p0 = idx - (uint32_t)lane, lo = p0 & ~31u;  // the warp's first point
+      const bool c = (((p0 & 31u) + (uint32_t)lane) >> 5) != 0u;
+      for (int r0 = part; r0 < rows; r0 += 32 * parts) {
+        const int rj = r0 + lane * parts;
+        uint32_t h0 = 0u, h1 = 0u;
+        if (rj < rows) {
+          h0 = hh::sobol_high(lo, sobol + rj * (hh::kSobolBits + 1));
+          h1 = hh::sobol_high(lo + 32u, sobol + rj * (hh::kSobolBits + 1));
+        }
+        const int count = min(32, (rows - r0 + parts - 1) / parts);
+        for (int k = 0; k < count; ++k) {
+          const int r = r0 + k * parts;
+          const uint32_t a0 = __shfl_sync(0xffffffffu, h0, k);
+          const uint32_t a1 = __shfl_sync(0xffffffffu, h1, k);
+          const uint32_t a = (c ? a1 : a0) ^ hh::sobol_low(idx, sobol + r * (hh::kSobolBits + 1));
+          xs[r * kThreads + t] = hh::sobol_normal_of(a);
+        }
+      }
+    } else {
+      for (int r = part; r < rows; r += parts) {
+        xs[r * kThreads + t] = hh::sobol_normal(idx, sobol + r * (hh::kSobolBits + 1));
+      }
     }
   } else {
     for (int b = part; 4 * b < rows; b += parts) {
@@ -387,7 +420,9 @@ __device__ __forceinline__ hh::BsPartials group_rows(const Group& g, float iv, f
   const float ch_h = b.y_iv * div_h + b.y_j * dj_h;
   if (!kVjp) {
     rows[0] = b.y;
-    rows[1] = ch_xi0;
+    // chain_xi0 before its 1/xi0 scale: add_pair_rows scales and adds the
+    // two groups' in one FMA, as one pair a thread's close contracted them
+    rows[1] = __fmaf_rn(b.y_j * 0.5f, j, __fmul_rn(b.y_iv, iv));
     rows[2] = ch_eta;
     rows[3] = ch_h;
     rows[4] = b.w;
@@ -430,20 +465,16 @@ __device__ __forceinline__ void rb_pair_values(float* xs, unsigned long long pai
   }
 }
 
-// The tangent rows of global pair `pair`, each group's rows weighted by
-// ct_p and ct_m (K16: 1, 1; K17: the pair's cotangents) and added into acc.
+// One pair's close in one thread: each group's tangent rows (group_rows on
+// close_factors) from its sums, weighted by ct_p and ct_m (K16: 1, 1; K17:
+// the pair's cotangents) and added into acc where `add`.  dw0 and dwd0 are
+// the pair's first increment and its H tangent.  K16 and K17 close through
+// this one function, so their rows have one pair a thread's bits.
 template <bool kVjp, int kCols>
-__device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair, const RbParams& p,
-                                             const float4* coef, const float4* lpack,
-                                             const float4* dpack, const int* table,
-                                             const RbShape& s, bool anti, uint32_t seed,
-                                             uint32_t device_id, long long point_offset,
-                                             float ct_p, float ct_m, float* acc) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
-  float dw0, dwd0;
-  Group gp, gm;
-  rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
-  const float4 c0 = __ldg(coef);
+__device__ __forceinline__ void add_pair_rows(const Group& gp, const Group& gm, bool anti,
+                                              float dw0, float dwd0, const float4& c0,
+                                              const RbParams& p, float ct_p, float ct_m, bool add,
+                                              float* acc) {
   const float s0dw0 = __fmul_rn(c0.y, dw0);
   const float s0dwd0 = c0.y * dwd0;
   float iv, j, rp[kCols], rm[kCols] = {};
@@ -455,12 +486,31 @@ __device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair,
   }
 #pragma unroll
   for (int k = 0; k < kCols; ++k) {
+    if (!add) continue;
     if (kVjp) {
       acc[k] += anti ? ct_p * rp[k] + ct_m * rm[k] : ct_p * rp[k];
+    } else if (k == 1) {
+      acc[k] += __fmaf_rn(p.inv_xi0, rp[k], __fmul_rn(p.inv_xi0, rm[k]));
     } else {
       acc[k] += rp[k] + rm[k];  // as K15 adds value + antithetic value
     }
   }
+}
+
+// K17's rows of global pair `pair` (one pair a thread), weighted by the
+// pair's cotangents ct_p and ct_m and added into acc.
+template <int kCols>
+__device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair, const RbParams& p,
+                                             const float4* coef, const float4* lpack,
+                                             const float4* dpack, const int* table,
+                                             const RbShape& s, bool anti, uint32_t seed,
+                                             uint32_t device_id, long long point_offset,
+                                             float ct_p, float ct_m, float* acc) {
+  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
+  float dw0, dwd0;
+  Group gp, gm;
+  rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
+  add_pair_rows<true, kCols>(gp, gm, anti, dw0, dwd0, __ldg(coef), p, ct_p, ct_m, true, acc);
 }
 
 // The float64 sum of x over the warp, the same bits in every lane (a
@@ -482,6 +532,8 @@ constexpr int kChunkWarps = kChunkThreads / 32;
 constexpr int kChunkRows = kChunkWarps * kTile;  // Z rows a chunk: one tile a warp
 constexpr int kQuad = 4;                          // pairs of a register tile
 constexpr int kHalf = kTile / 2;                  // rows of a register tile
+constexpr int kHalfChunkRows = kChunkRows / 2;    // Z rows of a chunk of K16
+constexpr int kGreeksBlocks = 5;                  // K16's blocks an SM on Philox at 64 steps
 static_assert(kChunkThreads == 2 * kThreads, "the walk takes one antithetic group a thread");
 static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2 half tiles");
 
@@ -489,6 +541,12 @@ static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2
 // the chunk of Z rows, then the Sobol' table.
 size_t rb_chunk_smem(int steps, bool qmc) {
   return rb_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
+}
+
+// K16's: the xi columns, the half-height chunks of Z and of its H tangent,
+// then the Sobol' table: K15's bytes.
+size_t rb_greeks_smem(int steps, bool qmc) {
+  return rb_smem(steps, qmc) + sizeof(float) * 2 * kHalfChunkRows * kThreads;
 }
 
 // K18's: the xi columns, the chunks of Z and of its H tangent (in the replay
@@ -520,21 +578,27 @@ __device__ __forceinline__ void quad_col(const float4& fa, const float4& fb, con
   }
 }
 
-// Z rows [chunk * kChunkRows, + kChunkRows) of the trip's pairs into
-// xbuf[(row - chunk * kChunkRows) * kThreads + slot]: warp w takes tile
-// chunk * kChunkWarps + w, lane l pairs 4 (l % 16)..+3 and the tile's rows
-// 4 (l / 16)..+3.  Each row sums columns 0..row as rb_walk's tile does: the
-// packed entries of each column, the same fmaf in the same order, so each
-// pair's Z has rb_walk's bits.
-__device__ __forceinline__ void chunk_product(const float* xs, const float4* __restrict__ lpack,
-                                              const RbShape& s, int chunk, float* xbuf) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int tile = chunk * kChunkWarps + w;
+// Z rows [chunk * kTiles * kTile, + kTiles * kTile) of the trip's pairs
+// (their H tangent when `pack` is dpack) into buf[(row - chunk * kTiles *
+// kTile) * kThreads + slot]: warp w takes tile chunk * kTiles + w % kTiles
+// (K15, K18, K19: kTiles = kChunkWarps, a chunk of kChunkRows rows), lane l
+// pairs 4 (l % 16)..+3 and the tile's rows 4 (l / 16)..+3.  Each row sums
+// columns 0..row as rb_walk's tile does: the packed entries of each column,
+// the same fmaf in the same order, so each pair's Z has rb_walk's bits
+// whatever the chunk that holds its tile.
+template <int kTiles>
+__device__ __forceinline__ void chunk_product(const float* xs, const float4* __restrict__ pack,
+                                              const RbShape& s, int chunk, float* buf) {
+  // w is the warp itself where a chunk holds a tile a warp: K15's, K18's
+  // and K19's registers and spills move with how the product is written
+  const int w = kTiles == kChunkWarps ? threadIdx.x >> 5 : (threadIdx.x >> 5) % kTiles;
+  const int l = threadIdx.x & 31;
+  const int tile = chunk * kTiles + w;
   if (tile >= s.tiles) return;
   const int q0 = kQuad * (l & 15), h = l >> 4;
   const int j0 = tile * kTile;
   // float4 (tile, c, quarter): quarters 0-1 the increments' rows, 2-3 Z's
-  const float4* col = lpack + 4 * (tile * s.zcols) + h;
+  const float4* col = pack + 4 * (tile * s.zcols) + h;
   float acc[kHalf][kQuad] = {};
 #pragma unroll 2
   for (int c = 0; c < j0; ++c) {
@@ -548,7 +612,7 @@ __device__ __forceinline__ void chunk_product(const float* xs, const float4* __r
     quad_col(__ldg(col + 4 * c), __ldg(col + 4 * c + 2), lds4(xs + c * kThreads + q0),
              lds4(xs + (s.n + c) * kThreads + q0), cc - kHalf * h, acc);
   }
-  float* rows = xbuf + (w * kTile + kHalf * h) * kThreads + q0;
+  float* rows = buf + (w * kTile + kHalf * h) * kThreads + q0;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
     *reinterpret_cast<float4*>(rows + i * kThreads) =
@@ -597,7 +661,7 @@ __device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned
   const float x0 = xs[slot];
   Group g{};
   for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
-    chunk_product(xs, lpack, s, chunk, xbuf);
+    chunk_product<kChunkWarps>(xs, lpack, s, chunk, xbuf);
     __syncthreads();
     chunk_walk(xs, xbuf, p, coef, s, chunk, mirror, slot, g);
     __syncthreads();
@@ -606,16 +670,17 @@ __device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned
   close_factors(g, mirror, c0.x, __fmul_rn(c0.y, __fmul_rn(c0.z, x0)), p.dt, iv, j);
 }
 
-// chunk_walk with the tangent sums: the chunk's steps of one antithetic
-// group, from its Z rows in xbuf and their H tangents in dbuf, in rb_step<true>'s
-// operations and order (the mirror's s dW, Z, dZ/dH and d(dW)/dH negated, as
-// rb_step passes them to tangent_step).
+// chunk_walk with the tangent sums: the steps of one antithetic group over
+// a chunk of kRows Z rows, from the rows in xbuf and their H tangents in
+// dbuf, in rb_step<true>'s operations and order (the mirror's s dW, Z, dZ/dH
+// and d(dW)/dH negated, as rb_step passes them to tangent_step).
+template <int kRows>
 __device__ __forceinline__ void chunk_walk_tan(const float* xs, const float* xbuf,
                                                const float* dbuf, const RbParams& p,
                                                const float4* __restrict__ coef, const RbShape& s,
                                                int chunk, bool mirror, int slot, Group& g) {
-  const int k0 = chunk * kChunkRows + 1;  // step k consumes Z row k - 1 and dW_k
-  const int count = min(kChunkRows, s.n - k0);
+  const int k0 = chunk * kRows + 1;  // step k consumes Z row k - 1 and dW_k
+  const int count = min(kRows, s.n - k0);
 #pragma unroll 2
   for (int r = 0; r < count; ++r) {
     const int k = k0 + r;
@@ -638,12 +703,16 @@ __device__ __forceinline__ void chunk_walk_tan(const float* xs, const float* xbu
 }
 
 // The tangent chunk product: rb_trip_factors's draw and product, with the H
-// tangent Zd = (dL/dH) xi formed beside Z by a second chunk_product over
-// dpack into dbuf, and each thread's group walked with its tangent sums
-// (rb_groups<true>'s, to the bit).  Returns the group's sums in g and its
-// signed sqrt(C_0) dW_0 and sqrt(C_0) dWd_0 (as rb_pair_rows forms them);
-// the caller closes.  Every thread of the block calls it: it holds the
-// barriers.
+// tangent Zd = (dL/dH) xi formed beside Z (over dpack into dbuf), and each
+// thread's group walked with its tangent sums (rb_groups<true>'s, to the
+// bit).  Chunks of kRows Z rows: kChunkRows (K18), every warp one tile of Z
+// then one of Zd; or kChunkRows / 2 (K16), warps 0-1 a tile of Z each and
+// warps 2-3 a tile of Zd each, in half the buffers.  Returns the group's
+// sums in g and its signed sqrt(C_0) dW_0 and sqrt(C_0) dWd_0 (as
+// rb_pair_rows forms them); the caller closes.  kSplit draws the Sobol'
+// rows by draw_xi<true> (the same normals; K16).  Every thread of the block
+// calls it: it holds the barriers.
+template <int kRows, bool kSplit>
 __device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* dbuf,
                                                  unsigned long long base, const RbParams& p,
                                                  const float4* coef, const float4* lpack,
@@ -654,15 +723,21 @@ __device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* 
   const int t = threadIdx.x, slot = t >> 1;
   const bool mirror = t & 1;
   __syncthreads();  // the last trip's reads of xs are done
-  draw_xi(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
-          t / kThreads, kChunkThreads / kThreads);
+  draw_xi<kSplit>(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
+                  t / kThreads, kChunkThreads / kThreads);
   __syncthreads();
   g = Group{};
-  for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
-    chunk_product(xs, lpack, s, chunk, xbuf);
-    chunk_product(xs, dpack, s, chunk, dbuf);
+  for (int chunk = 0; chunk * kRows < s.n - 1; ++chunk) {
+    if constexpr (kRows == kChunkRows) {
+      chunk_product<kChunkWarps>(xs, lpack, s, chunk, xbuf);
+      chunk_product<kChunkWarps>(xs, dpack, s, chunk, dbuf);
+    } else {
+      static_assert(2 * kRows == kChunkRows, "a half chunk: two tiles of Z and two of Zd");
+      const bool zd = (t >> 5) >= 2;
+      chunk_product<2>(xs, zd ? dpack : lpack, s, chunk, zd ? dbuf : xbuf);
+    }
     __syncthreads();
-    chunk_walk_tan(xs, xbuf, dbuf, p, coef, s, chunk, mirror, slot, g);
+    chunk_walk_tan<kRows>(xs, xbuf, dbuf, p, coef, s, chunk, mirror, slot, g);
     __syncthreads();
   }
   const float4 c0 = __ldg(coef);
@@ -671,7 +746,8 @@ __device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* 
 }
 
 // The float64 sum of the 64 slots' values in red[0..63] by block_sums's
-// tree (so a slot's sum reduces as one thread's does in K16) into *out.
+// tree (so a slot's sum reduces as one thread's does in block_sums<64>)
+// into *out.
 __device__ __forceinline__ void slot_tree(double* red, double* out) {
   __syncthreads();
   for (int h = kThreads / 2; h > 0; h >>= 1) {
@@ -732,25 +808,61 @@ rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coe
   slot_tree(red, partials + blockIdx.x);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K16: K15's trips on the tangent chunk product over half-height chunks
+// (rb_trip_tangents<kHalfChunkRows, true>: the Sobol' rows drawn split at
+// bit 5), one trip of 64 pairs a block per round on K15's grid.  The +
+// thread of a slot takes the mirror's sums by shuffles and closes the pair
+// in one pair a thread's expressions (add_pair_rows), adding its six rows
+// to the slot's fp32 sums, and each column's 64 slot sums reduce by
+// slot_tree (block_sums<64>'s tree).  Slot t sums the pairs that thread t
+// of a one-pair-a-thread block summed, in the same order, so K16's price is
+// K15's to the bit and its columns keep the one-pair-a-thread kernel's
+// bits at the same grid.  A slot past total_pairs is masked: every thread
+// stays for the barriers and shuffles.  Its shared memory is K15's (the two
+// half-height chunks take one chunk's bytes), so it holds K15's blocks an
+// SM where its registers allow: at most 96 for 5 blocks on Philox.
+__global__ void __launch_bounds__(kChunkThreads, kGreeksBlocks)
 rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                  const float4* __restrict__ lpack, const float4* __restrict__ dpack,
                  const int* __restrict__ sobol, double* __restrict__ partials,
                  long long total_pairs, int steps, uint32_t seed, uint32_t device_id,
                  long long point_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
+  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  float* xbuf = xs + s.xi_rows * kThreads;
+  float* dbuf = xbuf + kHalfChunkRows * kThreads;
+  const int* table =
+      stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kHalfChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  const int slot = threadIdx.x >> 1;
+  const bool mirror = threadIdx.x & 1;
+  const float4 c0 = __ldg(coef);
   float acc[kGreekCols] = {};
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
-       g += stride) {
-    rb_pair_rows<false, kGreekCols>(smem, (unsigned long long)g, p, coef, lpack, dpack, table, s,
-                                    true, seed, device_id, point_offset, 1.0f, 1.0f, acc);
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads; base < total_pairs; base += stride) {
+    Group g, gm;
+    float s0dw0, s0dwd0;
+    rb_trip_tangents<kHalfChunkRows, true>(xs, xbuf, dbuf, (unsigned long long)base, p, coef,
+                                           lpack, dpack, table, s, seed, device_id, point_offset,
+                                           g, s0dw0, s0dwd0);
+    // the + thread takes the mirror's sums and closes the pair
+    gm.iv = __shfl_xor_sync(0xffffffffu, g.iv, 1);
+    gm.j = __shfl_xor_sync(0xffffffffu, g.j, 1);
+    gm.div_eta = __shfl_xor_sync(0xffffffffu, g.div_eta, 1);
+    gm.dj_eta = __shfl_xor_sync(0xffffffffu, g.dj_eta, 1);
+    gm.div_h = __shfl_xor_sync(0xffffffffu, g.div_h, 1);
+    gm.djh_g = __shfl_xor_sync(0xffffffffu, g.djh_g, 1);
+    gm.djh_s = __shfl_xor_sync(0xffffffffu, g.djh_s, 1);
+    const float x0 = xs[slot];  // the next trip draws xs after a barrier
+    add_pair_rows<false, kGreekCols>(g, gm, true, __fmul_rn(c0.z, x0), __fmul_rn(c0.w, x0), c0, p,
+                                     1.0f, 1.0f, !mirror && base + slot < total_pairs, acc);
   }
-  hh::block_sums<kThreads>(acc, red, partials);
+  for (int k = 0; k < kGreekCols; ++k) {
+    if (!mirror) red[slot] = (double)acc[k];
+    slot_tree(red, partials + (long long)k * gridDim.x + blockIdx.x);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -767,9 +879,9 @@ rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
   float acc[kVjpCols] = {};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_paths) {
-    rb_pair_rows<true, kVjpCols>(smem, (unsigned long long)i, p, coef, lpack, dpack, table, s,
-                                 antithetic != 0, seed, device_id, point_offset, ct[i],
-                                 antithetic ? ct[n_paths + i] : 0.0f, acc);
+    rb_pair_rows<kVjpCols>(smem, (unsigned long long)i, p, coef, lpack, dpack, table, s,
+                           antithetic != 0, seed, device_id, point_offset, ct[i],
+                           antithetic ? ct[n_paths + i] : 0.0f, acc);
   }
   hh::block_sums<kThreads>(acc, red, partials);
 }
@@ -805,8 +917,9 @@ rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__
   const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
   Group g;
   float s0dw0, s0dwd0;
-  rb_trip_tangents(xs, xbuf, dbuf, (unsigned long long)blockIdx.x * kThreads, p, coef, lpack, dpack,
-                   table, s, seed, device_id, point_offset, g, s0dw0, s0dwd0);
+  rb_trip_tangents<kChunkRows, false>(xs, xbuf, dbuf, (unsigned long long)blockIdx.x * kThreads, p,
+                                      coef, lpack, dpack, table, s, seed, device_id, point_offset,
+                                      g, s0dw0, s0dwd0);
   const float4 c0 = __ldg(coef);
   float iv, j, rows[kVjpCols];
   close_factors(g, mirror, c0.x, s0dw0, p.dt, iv, j);
@@ -846,7 +959,7 @@ rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__
   if (!mirror) dbuf[slot] = row(c0.x, s0dw0, c0.x, s0dw0);
   sum_rows(0, 1);
   for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
-    chunk_product(xs, lpack, s, chunk, xbuf);
+    chunk_product<kChunkWarps>(xs, lpack, s, chunk, xbuf);
     __syncthreads();
     const int k0 = chunk * kChunkRows + 1;
     const int count = min(kChunkRows, s.n - k0);
@@ -956,10 +1069,10 @@ extern "C" int hh_rb_greeks(const float* params, const float* coef, const float*
                             const float* dpack, const int* sobol, double* partials, int grid,
                             long long total_pairs, int steps, unsigned seed, unsigned device_id,
                             long long point_offset, void* stream) {
-  const size_t smem = rb_smem(steps, sobol != nullptr);
+  const size_t smem = rb_greeks_smem(steps, sobol != nullptr);
   cudaError_t err = allow_smem(rb_greeks_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_greeks_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  rb_greeks_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, partials, total_pairs, steps, seed,
       device_id, point_offset);
@@ -1047,13 +1160,19 @@ extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(rb_price_kernel, rb_chunk_smem(steps, qmc != 0), out);
 }
 
+// K16's.
+extern "C" int hh_rb_greeks_occupancy(int steps, int qmc, int* out) {
+  return chunk_occupancy(rb_greeks_kernel, rb_greeks_smem(steps, qmc != 0), out);
+}
+
 // K18's.
 extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(rb_vjp_curve_kernel, rb_curve_smem(steps, qmc != 0), out);
 }
 
-// The price kernels' grid (K15, and K16, which walks the same pairs per
-// thread for its price to equal K15's; K19): one resident wave of K15.
+// The price kernels' grid (K15; K16, which walks K15's trips for its price
+// to equal K15's, and holds as many blocks an SM; K19): one resident wave
+// of K15.
 extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
   int occ[7];
   const int err = hh_rb_price_occupancy(steps, qmc, occ);

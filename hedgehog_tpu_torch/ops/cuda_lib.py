@@ -107,6 +107,10 @@ def load_library() -> ctypes.CDLL:
     lib.hh_surface_grid.restype = ctypes.c_int
     lib.hh_exact_surface_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.hh_exact_surface_grid.restype = ctypes.c_int
+    lib.hh_surface_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_surface_occupancy.restype = ctypes.c_int
+    lib.hh_rb_greeks_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_rb_greeks_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -169,6 +173,13 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_grid(grid) -> None:
+    """Raise unless ``grid`` (a launch's blocks, where a wrapper takes one)
+    is a positive int or None."""
+    if grid is not None and (isinstance(grid, bool) or not isinstance(grid, int) or grid < 1):
+        raise ValueError(f"grid must be a positive int or None; got {grid!r}")
 
 
 def require_cuda(t: torch.Tensor) -> None:

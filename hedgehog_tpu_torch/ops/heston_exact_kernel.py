@@ -34,7 +34,14 @@ from ..models.heston_exact import (
 )
 from ..math.counter_rng import uniform_from_bits
 from ..utils import resolve_device
-from .cuda_lib import CudaKernel, check_tensor, launch_occupancy, require_cuda, resident_grid
+from .cuda_lib import (
+    CudaKernel,
+    check_grid,
+    check_tensor,
+    launch_occupancy,
+    require_cuda,
+    resident_grid,
+)
 from .heston_qe_kernel import (
     check_surface,
     pair_chunks,
@@ -556,8 +563,7 @@ def _exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs, seed, 
                   _QMC_MAX_SEGMENTS)
     if len(kmaxes) != n_exp or not all(1 <= k <= _KMAX_LIMIT for k in kmaxes):
         raise ValueError(f"Poisson trip counts {kmaxes} outside [1, {_KMAX_LIMIT}]")
-    if grid is not None and (isinstance(grid, bool) or not isinstance(grid, int) or grid < 1):
-        raise ValueError(f"grid must be a positive int or None; got {grid!r}")
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_exact_mixing_surface_sums_plain(params, table, seg_steps, kmaxes, m,
                                                       total_pairs, seed, device_id, point_offset)

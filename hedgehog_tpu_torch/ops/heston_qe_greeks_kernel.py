@@ -27,7 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .cuda_lib import CudaKernel, check_tensor, require_cuda
+from .cuda_lib import CudaKernel, check_grid, check_tensor, require_cuda
 from ..utils import f64
 from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
@@ -524,19 +524,21 @@ def _surface_greek_tables(kappa, theta, sigma, T_host, seg_steps):
 
 
 def _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, seed, device_id,
-                      point_offset) -> torch.Tensor:
+                      point_offset, grid=None) -> torch.Tensor:
     """Launch K12 for inputs on a GPU (per-point float64 sums of the seven
-    columns); the twin for inputs on the CPU."""
+    columns); the twin for inputs on the CPU.  ``grid`` as K9's
+    (``heston_qe_kernel._qe_surface_sums``)."""
     n_exp = len(seg_steps)
     check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2, QMC_MAX_STEPS)
     check_tensor(dct, "constant tangents", torch.float32, (N_SURF_DIRS * n_exp, 4))
     check_tensor(djt, "J-closure rows", torch.float32, (N_SURF_DIRS * n_exp, 3))
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_qe_mixing_surface_jac_sums_plain(params, dct, djt, table, seg_steps, m,
                                                        total_pairs, seed, device_id,
                                                        point_offset)
     require_cuda(params)
-    grid = surface_grid(params.device)
+    grid = surface_grid(params.device) if grid is None else grid
     steps = torch.tensor(seg_steps, dtype=torch.int32, device=params.device)
     n_cols = n_exp * m * N_SURF_COLS
     partials = torch.empty((n_cols, grid), dtype=torch.float64, device=params.device)

@@ -35,7 +35,14 @@ import torch
 
 from ..math.counter_rng import uniform_from_bits
 from ..utils import f64, resolve_device
-from .cuda_lib import CudaKernel, check_tensor, require_cuda, resident_grid
+from .cuda_lib import (
+    CudaKernel,
+    check_grid,
+    check_tensor,
+    launch_occupancy,
+    require_cuda,
+    resident_grid,
+)
 from .hh_device import (
     MIX_NAMES,
     QEM_NAMES,
@@ -386,15 +393,27 @@ def surface_grid(device: torch.device) -> int:
     return resident_grid("hh_surface_grid", device)
 
 
+def surface_occupancy(n_exp: int, m: int, total_steps: int, qmc: bool, device="cuda",
+                      jac: bool = False) -> dict:
+    """K9's (or with ``jac`` K12's) occupancy on ``device`` at one launch's
+    shared memory, from the CUDA runtime: threads a block, resident blocks
+    and warps per SM, shared bytes a block (dynamic and static), registers
+    and local (spill) bytes a thread."""
+    return launch_occupancy("hh_surface_occupancy", torch.device(device), int(jac), n_exp, m,
+                            total_steps, int(qmc))
+
+
 def surface_smem_bytes(n_exp: int, m: int, cols_per_point: int, table_rows: int,
-                       per_exp_bytes: int) -> int:
+                       per_exp_bytes: int, high: bool = False) -> int:
     """Dynamic shared memory of a K9 or K12 launch (the layout of
     csrc/heston_surface.cu): a float64 row of sums
     per warp, 28 bytes of close constants per point, ``per_exp_bytes`` per
     expiry (segment constants, step counts, tangent rows) and the Sobol'
-    table, with alignment slack."""
+    table, with alignment slack; with ``high`` (K9) each warp's high Sobol'
+    words, two a table row."""
     return (8 * SURFACE_WARPS * n_exp * m * cols_per_point + 28 * n_exp * m
-            + per_exp_bytes * n_exp + 4 * (SOBOL_BITS + 1) * table_rows + 64)
+            + per_exp_bytes * n_exp + 4 * (SOBOL_BITS + 1) * table_rows
+            + (4 * 2 * SURFACE_WARPS * table_rows if high else 0) + 64)
 
 
 def strike_chunks(m: int, smem_bytes) -> list:
@@ -427,16 +446,19 @@ def check_surface(params, table, seg_steps, m: int, n_params: int, dims_per_step
 
 
 def _qe_surface_sums(params, table, seg_steps, m, total_pairs, seed, device_id,
-                     point_offset) -> torch.Tensor:
+                     point_offset, grid=None) -> torch.Tensor:
     """Launch K9 for inputs on a GPU (per-point float64 sums, (n_exp·m,));
-    the twin for inputs on the CPU."""
+    the twin for inputs on the CPU.  ``grid`` (blocks) defaults to
+    :func:`surface_grid`; another grid walks the same pairs in other rounds,
+    so only the sums' last bits move (the check of an earlier grid's bits)."""
     n_exp = len(seg_steps)
     check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2, QMC_MAX_STEPS)
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_qe_mixing_surface_sums_plain(params, table, seg_steps, m, total_pairs, seed,
                                                    device_id, point_offset)
     require_cuda(params)
-    grid = surface_grid(params.device)
+    grid = surface_grid(params.device) if grid is None else grid
     steps = torch.tensor(seg_steps, dtype=torch.int32, device=params.device)
     partials = torch.empty((n_exp * m, grid), dtype=torch.float64, device=params.device)
     out = torch.empty((n_exp * m,), dtype=torch.float64, device=params.device)
@@ -482,7 +504,8 @@ def heston_qe_mixing_surface_price(
     rows = []
     n_exp, table_rows = len(T_host), 0 if table is None else table.shape[0]
     for sl in strike_chunks(n_strikes,
-                            lambda w: surface_smem_bytes(n_exp, w, 1, table_rows, SURF_EXP_BYTES)):
+                            lambda w: surface_smem_bytes(n_exp, w, 1, table_rows, SURF_EXP_BYTES,
+                                                         high=True)):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])

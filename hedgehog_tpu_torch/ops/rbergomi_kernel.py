@@ -97,7 +97,8 @@ PAIRS_PER_BLOCK = 2048
 #: 8 KB chunk of Z rows, K18 two, K19 256 bytes a strike)
 MAX_STEPS = 256
 #: the pairs a block of the kernels holds, and the Z rows of one chunk of
-#: the block-cooperative product (csrc/rbergomi.cu kThreads, kChunkRows)
+#: the block-cooperative product (csrc/rbergomi.cu kThreads, kChunkRows;
+#: K16's chunks are half as high, kHalfChunkRows)
 BLOCK_PAIRS = 64
 CHUNK_ROWS = 32
 #: the shared memory a block may use on the H100
@@ -458,9 +459,19 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
 
 def price_grid(inp: RbInputs) -> int:
     """Blocks of K15, K16 and K19 (one resident wave of K15): all three walk
-    the pairs with this grid, so K16's price and K19's strikes equal K15's."""
+    the pairs with this grid, 64 a block a trip, so K16's price and K19's
+    strikes equal K15's."""
     return resident_grid("hh_rb_price_grid", inp.params.device, inp.steps,
                          int(inp.table is not None))
+
+
+def greeks_smem_bytes(steps: int, qmc: bool) -> int:
+    """K16's dynamic shared memory (csrc/rbergomi.cu ``rb_greeks_smem``): the
+    ξ columns of a block's pairs, two half-height chunks (Z and its H
+    tangent, CHUNK_ROWS / 2 rows each), the Sobol' table; K15's bytes."""
+    zcols = -(-(steps - 1) // TILE) * TILE
+    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
+    return 4 * ((steps + zcols) * BLOCK_PAIRS + CHUNK_ROWS * BLOCK_PAIRS + table)
 
 
 def curve_smem_bytes(steps: int, qmc: bool) -> int:
@@ -478,6 +489,14 @@ def vjp_curve_occupancy(inp: RbInputs) -> dict:
     runtime (``hh_rb_vjp_curve_occupancy``), as :func:`price_occupancy`."""
     require_cuda(inp.params)
     return launch_occupancy("hh_rb_vjp_curve_occupancy", inp.params.device, inp.steps,
+                            int(inp.table is not None))
+
+
+def greeks_occupancy(inp: RbInputs) -> dict:
+    """K16's occupancy at the inputs' steps and stream, from the CUDA
+    runtime (``hh_rb_greeks_occupancy``), as :func:`price_occupancy`."""
+    require_cuda(inp.params)
+    return launch_occupancy("hh_rb_greeks_occupancy", inp.params.device, inp.steps,
                             int(inp.table is not None))
 
 

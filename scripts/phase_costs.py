@@ -1,0 +1,222 @@
+"""Marginal cost of each phase of the QE mixing surface kernel (K9) or the
+rough-Bergomi price + greek kernel (K16) on the card.
+
+For each phase the script copies a tree's package (``--root``, default the
+repository) to ``build/phase_costs/<kernel> <phase>/``, rewrites the
+kernel's source there so that the phase does almost no work (the rest still
+consumes what the phase would have produced), and times the copy with
+``chip_smoke.py --times OUT --root COPY --only KERNEL``.  A phase's marginal
+cost is the full kernel's time less the copy's.  The full tree is timed
+before and after the copies, in one call on one card.  A rewritten copy
+computes wrong values: it exists only to be timed.
+
+Run on a GPU host, from the repository root:
+
+    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K9|K16]
+
+Each rewrite names the source text it replaces (the kernel before its
+redesign, or after it); a tree with neither raises, so the phases are
+always the ones named here.
+"""
+
+import argparse
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+# Per phase, alternatives: the rewrite of the kernel before its redesign
+# (K9 one close per strike and MixStream's draw; K16 one pair a thread),
+# then of the kernel after it, tried from the last (K17 keeps the one pair
+# a thread close that the first K16 rewrites name).  An alternative is a
+# list of edits (file under hedgehog_tpu_torch/csrc, text, replacement); a
+# text given as (start, end) is the source from start up to end.
+K9_PHASES = {
+    "walk": [
+        [("heston_surface.cu",
+          "        hh::mix_advance(v, iv, j, z, u, c);\n"
+          "        hh::mix_advance(va, iva, ja, -z, 1.0f - u, c);\n",
+          "        iv += c.half_dt * u;\n        j += z;\n"
+          "        iva += c.half_dt * (1.0f - u);\n        ja -= z;\n")],
+        [("heston_surface.cu",
+          "      hh::mix_advance(v, iv, j, z, u, sc);\n"
+          "      hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);\n",
+          "      iv += sc.half_dt * u;\n      j += z;\n"
+          "      iva += sc.half_dt * (1.0f - u);\n      ja -= z;\n")],
+    ],
+    "draw": [
+        [("heston_surface.cu",
+          "        ds.draw(step, z, u);\n        hh::mix_advance(v, iv, j, z, u, c);\n",
+          "        {\n"
+          "          const uint32_t h = (uint32_t)ds.pair * 2654435761u + step * 40503u;\n"
+          "          u = (float)(h >> 8) * (1.0f / 16777216.0f);\n"
+          "          z = 4.0f * u - 2.0f;\n        }\n"
+          "        hh::mix_advance(v, iv, j, z, u, c);\n")],
+        [("heston_surface.cu",
+          ("    if (live && sobol) {\n", "    step = end;\n"),
+          "    for (int s = step; live && s < end; ++s) {\n"
+          "      const uint32_t h = (uint32_t)pair * 2654435761u + s * 40503u;\n"
+          "      const float u = (float)(h >> 8) * (1.0f / 16777216.0f);\n"
+          "      advance(4.0f * u - 2.0f, u);\n    }\n"),
+         ("heston_surface.cu",
+          "      if (table) stage_high(table, 2 * total_steps, p0, hw);\n", "")],
+    ],
+    "closes": [
+        [("heston_surface.cu",
+          "          live ? hh::cond_bs_value(iv, j, close[p]) + "
+          "hh::cond_bs_value(iva, ja, close[p]) : 0.0f;\n",
+          "          live ? (iv + j + iva + ja) * close[p].strike : 0.0f;\n")],
+        [("heston_surface.cu",
+          ("    const hh::CloseGroup g = hh::close_group(iv, j, close[i * m]);\n",
+           "      hh::warp_accumulate(y, wacc, n_cols, p);\n"),
+          "    for (int k = 0; k < m; ++k) {\n      const int p = i * m + k;\n"
+          "      const float y = live ? (iv + j + iva + ja) * close[p].strike : 0.0f;\n")],
+    ],
+    "sums": [
+        [("heston_surface.cu",
+          "      hh::warp_accumulate(y, wacc, n_cols, p);\n    }\n  }\n}\n\n// One path's state",
+          "      if (y == -1.0f) wacc[p] = y;\n    }\n  }\n}\n\n// One path's state")],
+    ],
+}
+
+K16_PHASES = {
+    "draw": [
+        [("rbergomi.cu",
+          "                                             float ct_p, float ct_m, float* acc) {\n"
+          "  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);\n",
+          "                                             float ct_p, float ct_m, float* acc) {\n"
+          "  for (int r = 0; r < s.xi_rows; ++r) {\n"
+          "    xs[r * kThreads + threadIdx.x] =\n"
+          "        r < 2 * s.n - 1 ? (float)((pair + r) & 7) * 0.125f - 0.4375f : 0.0f;\n"
+          "  }\n")],
+        [("rbergomi.cu",
+          "  draw_xi<kSplit>(xs, base + t % kThreads, table, s, seed, device_id, point_offset, "
+          "t % kThreads,\n"
+          "                  t / kThreads, kChunkThreads / kThreads);\n",
+          "  for (int r = t / kThreads; r < s.xi_rows; r += kChunkThreads / kThreads) {\n"
+          "    xs[r * kThreads + t % kThreads] =\n"
+          "        r < 2 * s.n - 1 ? (float)((base + t + r) & 7) * 0.125f - 0.4375f : 0.0f;\n"
+          "  }\n")],
+    ],
+    "tangent product": [
+        [("rbergomi.cu",
+          "      if (kTan) {\n        load_col(dpack, tile * s.zcols + c, v);\n"
+          "        add_col<0>(v, xa, xb, accd);\n      }\n", ""),
+         ("rbergomi.cu",
+          "  if (kTan) {\n    load_col(dpack, tile * s.zcols + c, v);\n"
+          "    add_col<kCC>(v, xa, xb, accd);\n  }\n", "")],
+        [("rbergomi.cu",
+          "      chunk_product<2>(xs, zd ? dpack : lpack, s, chunk, zd ? dbuf : xbuf);\n",
+          "      if (!zd) chunk_product<2>(xs, lpack, s, chunk, xbuf);\n")],
+    ],
+    "steps": [
+        [("rbergomi.cu",
+          "    rb_step<kTan>(xs, p, coef, k, z, zd, anti, gp, gm);\n",
+          "    gp.iv += z;\n    gp.div_h += zd;\n    gm.j += xs[k * kThreads + threadIdx.x];\n")],
+        [("rbergomi.cu",
+          "    chunk_walk_tan<kRows>(xs, xbuf, dbuf, p, coef, s, chunk, mirror, slot, g);\n",
+          "    g.iv += xbuf[slot];\n    g.div_h += dbuf[slot];\n")],
+    ],
+    "closes": [
+        [("rbergomi.cu",
+          "  group_rows<kVjp>(gp, iv, j, s0dwd0, p, rp);\n",
+          "  {\n"
+          "    const float t_[7] = {iv, j, gp.div_eta, gp.dj_eta, gp.div_h, gp.djh_g, s0dwd0};\n"
+          "    for (int q_ = 0; q_ < kCols; ++q_) rp[q_] = t_[q_];\n  }\n"),
+         ("rbergomi.cu",
+          "    group_rows<kVjp>(gm, iv, j, -s0dwd0, p, rm);\n",
+          "    {\n      const float t_[7] = {iv, j, gm.div_eta, gm.dj_eta, gm.div_h, gm.djh_g,\n"
+          "                           s0dwd0};\n"
+          "      for (int q_ = 0; q_ < kCols; ++q_) rm[q_] = t_[q_];\n    }\n")],
+        [("rbergomi.cu",
+          ("    add_pair_rows<false, kGreekCols>(",
+           "  }\n  for (int k = 0; k < kGreekCols; ++k) {\n"),
+          "    if (!mirror && base + slot < total_pairs) {\n"
+          "      const float t_[kGreekCols] = {g.iv + gm.iv, g.j + gm.j, g.div_eta + gm.div_eta,\n"
+          "                                    g.dj_eta + gm.dj_eta, g.div_h + gm.div_h + x0,\n"
+          "                                    g.djh_g + gm.djh_s};\n"
+          "      for (int q_ = 0; q_ < kGreekCols; ++q_) acc[q_] += t_[q_];\n    }\n")],
+    ],
+}
+
+PHASES = {"K9": K9_PHASES, "K16": K16_PHASES}
+
+
+def _span(text: str, old) -> tuple:
+    """(count, start, end) of ``old`` (a text, or (start, end) markers) in
+    ``text``."""
+    if isinstance(old, str):
+        i = text.find(old)
+        return text.count(old), i, i + len(old)
+    start, end = old
+    i = text.find(start)
+    j = text.find(end, i + 1) if i >= 0 else -1
+    return (text.count(start) if j >= 0 else 0), i, j
+
+
+def make_copy(root: pathlib.Path, dest: pathlib.Path, alternatives) -> None:
+    """``root``'s package at ``dest`` with the last of ``alternatives`` whose
+    every text occurs once in ``root``'s sources applied to them."""
+    csrc = root / "hedgehog_tpu_torch" / "csrc"
+    for edits in reversed(alternatives):
+        if all(_span((csrc / name).read_text(), old)[0] == 1 for name, old, _ in edits):
+            break
+    else:
+        raise SystemExit(f"no rewrite of this phase matches the sources under {csrc}")
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(root / "hedgehog_tpu_torch", dest / "hedgehog_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for name, old, new in edits:
+        path = dest / "hedgehog_tpu_torch" / "csrc" / name
+        text = path.read_text()
+        _, i, j = _span(text, old)
+        path.write_text(text[:i] + new + text[j:])
+
+
+def times(tree: pathlib.Path, kernel: str, out: pathlib.Path) -> dict:
+    """``chip_smoke.py --times`` of ``tree``'s package, ``kernel`` only."""
+    cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--times", str(out), "--root", str(tree),
+           "--only", kernel]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"{' '.join(cmd)} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(out.read_text())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out")
+    ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--kernel", choices=sorted(PHASES), default="K9")
+    args = ap.parse_args()
+    root, work = pathlib.Path(args.root).resolve(), REPO / "build" / "phase_costs"
+    work.mkdir(parents=True, exist_ok=True)
+    runs = {"full": times(root, args.kernel, work / "full.json")}
+    for phase, alternatives in PHASES[args.kernel].items():
+        dest = work / f"{args.kernel} {phase}"
+        make_copy(root, dest, alternatives)
+        runs[f"without {phase}"] = times(dest, args.kernel, work / f"{args.kernel} {phase}.json")
+    runs["full again"] = times(root, args.kernel, work / "full again.json")
+    keys = [k for k, v in runs["full"].items()
+            if k.startswith(args.kernel + " ") and isinstance(v, float)]
+    marginal = {}
+    for phase in PHASES[args.kernel]:
+        for k in keys:
+            full = (runs["full"][k] + runs["full again"][k]) / 2
+            marginal[f"{phase}: {k}"] = full - runs[f"without {phase}"][k]
+    result = {"kernel": args.kernel, "root": str(root), "runs": runs, "marginal_ms": marginal}
+    pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
+    for k, v in marginal.items():
+        print(f"  {k}: {v:.4f} ms")
+    for k in keys:
+        print(f"  {k}: full {runs['full'][k]:.4f}, again {runs['full again'][k]:.4f}, "
+              + ", ".join(f"{name} {run[k]:.4f}" for name, run in runs.items()
+                          if name.startswith("without")))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -288,6 +288,43 @@ def test_surface_adapter_on_cuda_is_differentiable(gpu):
     torch.testing.assert_close(grads, jac.sum(dim=(0, 1)).cpu(), rtol=1e-10, atol=1e-12)
 
 
+# K9's resident blocks an SM before its redesign (63 registers, 256 threads;
+# K12 2): the surface kernels' grid was this times the SMs
+K9_PARENT_BLOCKS = 4
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_surface_kernels_share_their_pairs_at_each_grid(gpu, qmc):
+    """K9 and K12 on the 3 × 5 grid over 3·2^12 + 37 pairs (a ragged last
+    round), at the default grid and at the grid before K9's redesign
+    (K9_PARENT_BLOCKS an SM): K12's surface column equal to K9's sums to
+    the bit at each grid; K9 at the earlier grid against its twin within rel
+    1e-5 (test_surface_kernels_match_twins's tolerance), and the two grids'
+    sums within 1e-12 of each other."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    qe_seg, m, pairs = (8, 8, 16), len(SURF_K), 3 * 2**12 + 37
+    params = torch.as_tensor(qk._surf_params(*MKT, SURF_T, qe_seg, SURF_K, 1.0), device=gpu)
+    dct, djt = (torch.as_tensor(t, dtype=torch.float32, device=gpu)
+                for t in gk._surface_greek_tables(*MKT[3:6], SURF_T, qe_seg))
+    table = torch.as_tensor(qk.sobol_table(5, 2 * sum(qe_seg)), device=gpu) if qmc else None
+    run = (table, qe_seg, m, pairs, 5, 0, 0)
+    earlier = K9_PARENT_BLOCKS * torch.cuda.get_device_properties(gpu).multi_processor_count
+    before = (qk.QE_SURFACE_KERNEL.launches, gk.QE_SURFACE_JAC_KERNEL.launches)
+    sums = {}
+    for grid in (None, earlier):
+        sums[grid] = qk._qe_surface_sums(params, *run, grid=grid)
+        jac = gk._surface_jac_sums(params, dct, djt, *run, grid=grid).reshape(-1, 7)
+        assert torch.equal(jac[:, 0], sums[grid]) and bool(torch.isfinite(jac).all())
+    assert (qk.QE_SURFACE_KERNEL.launches, gk.QE_SURFACE_JAC_KERNEL.launches) == (
+        before[0] + 2, before[1] + 2)
+    want = qk.heston_qe_mixing_surface_sums_plain(
+        params.cpu(), None if table is None else table.cpu(), qe_seg, m, pairs, 5, 0, 0)
+    torch.testing.assert_close(sums[earlier].cpu(), want, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(sums[None], sums[earlier], rtol=1e-12, atol=0.0)
+
+
 RB_STEPS = 64  # the rough-Bergomi serving width (bench.py:681-692)
 
 
@@ -429,8 +466,8 @@ RB_EDGE_PAIRS = 3 * 2**14 + 5  # no multiple of 64 x the grid: the last trip mas
 def test_rbergomi_chunked_product_keeps_each_pairs_bits(gpu, qmc, steps):
     """K15 and K19 (the block-cooperative product over row chunks) at the
     chunks' and tiles' edges: K15 against its twin within rel 1e-6; K16
-    (one pair a thread through ``rb_walk``, on K15's grid) equal to K15's
-    sum to the bit, so each pair's fp32 value kept its bits; K19 at each
+    (the tangent chunk product, on K15's grid) equal to K15's sum to the
+    bit, so each pair's fp32 value kept its bits; K19 at each
     strike equal to K15's at that strike to the bit and against its twin
     within rel 1e-6."""
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
@@ -457,6 +494,34 @@ def test_rbergomi_chunked_product_keeps_each_pairs_bits(gpu, qmc, steps):
                                rtol=1e-6, atol=0)
     assert (rk.RB_PRICE_KERNEL.launches, rk.RB_SMILE_KERNEL.launches) == (before[0] + 4,
                                                                            before[1] + 1)
+
+
+@pytest.mark.parametrize("steps, qmc, pairs", [
+    (2, True, RB_EDGE_PAIRS), (2, False, RB_EDGE_PAIRS), (3, True, RB_EDGE_PAIRS),
+    (3, False, RB_EDGE_PAIRS), (17, True, RB_EDGE_PAIRS), (17, False, RB_EDGE_PAIRS),
+    (64, True, RB_EDGE_PAIRS), (64, False, RB_EDGE_PAIRS), (64, True, 2**20),
+    (64, False, 2**20), (256, True, RB_EDGE_PAIRS)])
+def test_rbergomi_greek_kernel_on_the_tangent_chunk_product(gpu, qmc, steps, pairs):
+    """K16 (two threads a pair on the tangent chunk product, 16-row chunks:
+    17 steps fill one) at the chunks' edges over RB_EDGE_PAIRS pairs (the
+    last trip masks slots) and at the serving 64 steps over 2^20 pairs: its
+    price equal to K15's sum to the bit, and its six sums against its twin
+    within rel 1e-5 of the largest plus 1e-5 of each
+    (test_rbergomi_kernels_match_twins's tolerance)."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    cfg = ht.SimulationConfig(pairs, steps, ht.Antithetic(), 5, qmc)
+    inp = rk.rb_inputs_from_trace(rk._rb_trace_inputs(_rb_problem(), cfg, 64), seed=5, qmc=qmc,
+                                  device=gpu)
+    g_inp = rk.rb_inputs_from_trace(rk._rb_greek_trace_inputs(_rb_problem(), cfg, 64), seed=5,
+                                    qmc=qmc, device=gpu)
+    before = rk.RB_GREEKS_KERNEL.launches
+    sums = rk._rb_greek_sums(g_inp, pairs, 5, 0, 0)
+    assert rk.RB_GREEKS_KERNEL.launches == before + 1
+    assert float(sums[0]) == float(rk._rb_price_sum(inp, pairs, 5, 0, 0))
+    want = rk.rbergomi_mixing_greek_sums_plain(g_inp, pairs, 5, 0, 0)
+    assert sums.shape == (6,) and bool(torch.isfinite(sums).all())
+    assert ((sums - want).abs() <= 1e-5 * float(want.abs().max()) + 1e-5 * want.abs()).all()
 
 
 @pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "one-group"])

@@ -552,6 +552,33 @@ def test_curve_vjp_shared_memory_fits(steps, qmc):
         assert got == 206 * 1024  # the largest: 128 KB of ξ, 16 KB of chunks, 62 KB of table
 
 
+# an H100 SM's shared memory, what the runtime reserves a block, and the
+# price kernels' static float64 reduction (csrc/rbergomi.cu red[64])
+SM_SMEM, BLOCK_RESERVED, RED_BYTES = 228 * 1024, 1024, 8 * 64
+
+
+@pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
+@pytest.mark.parametrize("steps", [2, 3, 33, 64, 256])
+def test_greek_kernel_shared_memory_is_the_price_kernels(steps, qmc):
+    """K16's layout on the tangent chunk product (csrc/rbergomi.cu
+    rb_greeks_smem: 64 pairs' ξ columns of 2·steps rows padded to whole
+    tiles, two 16-row chunks for Z and its H tangent, the Sobol' table)
+    counted by hand is K15's (one 32-row chunk), under 227 KB a block up to
+    MAX_STEPS; so by shared memory an H100 SM holds as many K16 blocks as
+    K15 blocks: 5 on Philox and 4 under QMC at 64 steps, K15's grid one
+    wave of both."""
+    zcols = 8 * -(-(steps - 1) // 8)
+    table = 4 * 2 * steps * 31 if qmc else 0
+    k15 = 4 * 64 * (steps + zcols + CHUNK_ROWS) + table
+    got = pr.greeks_smem_bytes(steps, qmc)
+    assert got == 4 * 64 * (steps + zcols + 2 * (CHUNK_ROWS // 2)) + table == k15
+    assert got <= pr.SMEM_PER_BLOCK
+    blocks = SM_SMEM // (got + RED_BYTES + BLOCK_RESERVED)
+    assert blocks == SM_SMEM // (k15 + RED_BYTES + BLOCK_RESERVED) >= 1
+    if steps == 64:
+        assert blocks == (4 if qmc else 5)
+
+
 def test_pack_as_the_chunked_product_reads_it():
     """For every step count 1..MAX_STEPS, a factor with the Volterra
     structure (random entries) packs to (tiles, zcols, 2·TILE); read as the

@@ -331,6 +331,34 @@ def test_strike_chunks_cover_wide_grids():
 
 
 @pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
+def test_qe_surface_shared_memory_fits(qmc):
+    """K9's and K12's layout (csrc/heston_surface.cu layout: a float64 row
+    of sums per warp and column, 32 B of segment constants and a step count
+    per expiry, K12's 112 B of tangent rows per expiry, 28 B of close
+    constants per point, the Sobol' table, and under QMC K9's per-warp high
+    Sobol' words, 8 warps x 2 candidates a dimension) counted by hand with
+    64 B of slack: the QE-32 3 x 5 surface and the 3 x 17 calibration shape
+    up to QMC_MAX_STEPS fit one launch; K9's widest strike chunk of a 1000
+    strike surface at QMC_MAX_STEPS is as wide as fits."""
+    for n_exp, m, steps in ((3, 5, 32), (3, 17, 48), (3, 17, pq.QMC_MAX_STEPS), (1, 1, 1)):
+        dims = 2 * steps if qmc else 0
+        for jac, cols, per_exp in ((False, 1, pq.SURF_EXP_BYTES), (True, 7, 148)):
+            want = ((8 * 8 * cols + 28) * n_exp * m + (36 + 112 * jac) * n_exp + 4 * 31 * dims
+                    + (0 if jac else 4 * 2 * 8 * dims) + 64)
+            got = pq.surface_smem_bytes(n_exp, m, cols, dims, per_exp, high=not jac)
+            assert got == want <= pq.SURFACE_SMEM_LIMIT
+
+    def smem(width):
+        return pq.surface_smem_bytes(3, width, 1, 2 * pq.QMC_MAX_STEPS if qmc else 0,
+                                     pq.SURF_EXP_BYTES, high=True)
+
+    chunks = pq.strike_chunks(1000, smem)
+    widest = chunks[0].stop - chunks[0].start
+    assert smem(widest) <= pq.SURFACE_SMEM_LIMIT < smem(widest + 1)
+    assert chunks[-1].stop == 1000 and all(a.stop == b.start for a, b in zip(chunks, chunks[1:]))
+
+
+@pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
 @pytest.mark.parametrize("segments", [1, 5, 16])
 def test_exact_surface_shared_memory_fits(segments, qmc):
     """K4's layout (csrc/heston_exact.cu xs_layout: the float64 row sums
