@@ -54,7 +54,7 @@ its own phases too: in phase 2 K14 (values), K15 (serving price), K16
 VJP), K18 (its per-step variant under a forward-variance curve; under a
 flat curve its bucket vegas sum to K17's xi0 gradient) and K19 (the
 17-strike smile) against their twins at 2^20 pairs on both streams,
-autograd through K14 -> K17 against K16, K15's, K18's and K4's occupancy,
+autograd through K14 -> K17 against K16, K14's to K18's and K4's occupancy,
 and K15/K16 and K19 (each strike equal to K15's to the bit) at the serving
 2^24 pairs against the chunked twins; phase 3 drives ``solve`` with RoughBergomiMixing(use_kernel=True) at
 2^22 pairs against the three checks that stand in for a closed form (eta =
@@ -1891,8 +1891,9 @@ def phase_rb_occupancy(device: str) -> dict:
     block holds (the 64 pairs' ξ columns, the chunk of Z rows, the Sobol'
     table under QMC, the reduction's doubles), registers and spill; then
     K16's (which must hold at least K15's blocks an SM, so that K15's grid
-    is one wave of it too), K18's (64 steps) and K4's (the full-width
-    surface) likewise."""
+    is one wave of it too), K14's (at least K15's blocks an SM: K15's bytes
+    and trips), K17's, K18's (64 steps) and K4's (the full-width surface)
+    likewise."""
     import torch
 
     from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
@@ -1911,6 +1912,13 @@ def phase_rb_occupancy(device: str) -> dict:
         say_occupancy(f"K16 occupancy ({stream}, {RB_STEPS} steps)", out[f"K16 {stream}"])
         check(out[f"K16 {stream}"]["blocks_per_sm"] >= out[stream]["blocks_per_sm"],
               f"K16 holds fewer blocks an SM than K15 ({stream}): K15's grid is not one wave of it")
+        out[f"K14 {stream}"] = rk.values_occupancy(inp)
+        say_occupancy(f"K14 occupancy ({stream}, {RB_STEPS} steps)", out[f"K14 {stream}"])
+        check(out[f"K14 {stream}"]["blocks_per_sm"] >= out[stream]["blocks_per_sm"],
+              f"K14 holds fewer blocks an SM than K15 ({stream})")
+        _, v_inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=True, vjp=True)
+        out[f"K17 {stream}"] = rk.vjp_occupancy(v_inp)
+        say_occupancy(f"K17 occupancy ({stream}, {RB_STEPS} steps)", out[f"K17 {stream}"])
         _, c_inp = rb_device_inputs(rk.PAIRS_PER_BLOCK, qmc, 0, dev, tangent=True, vjp=True)
         out[f"K18 {stream}"] = rk.vjp_curve_occupancy(c_inp)
         say_occupancy(f"K18 occupancy ({stream}, {RB_STEPS} steps)", out[f"K18 {stream}"])
@@ -2362,7 +2370,11 @@ def output_digests(device: str) -> dict:
     runs at the grid of the one-pair-a-thread kernel (``K4 QMC``, to
     compare with trees before the two-threads-a-pair K4) and, where the
     package takes a grid, at its own resident grid (``K4 QMC resident``):
-    the float64 sums of the 3 x 5 surface at 2^20 and 2^26 pairs."""
+    the float64 sums of the 3 x 5 surface at 2^20 and 2^26 pairs.  K14 and
+    K17 run also at ``solve``'s 2^22 pairs and at ``RB_EDGE_STEPS`` over
+    ``RB_EDGE_PAIRS`` (a ragged last trip), antithetic and one group (K17
+    at 2 steps and more), through entry points every tree since their
+    port has."""
     import hashlib
     import inspect
 
@@ -2461,6 +2473,26 @@ def output_digests(device: str) -> dict:
                                             seed=seed, qmc=qmc, device=dev)
             put(f"K16 {s} {steps} steps", rk._rb_greek_sums(e_inp, RB_EDGE_PAIRS, seed, 0, 0))
         put(f"K17 {s}", rk._rb_vjp_sums(v_inp, ct, pairs, True, seed, 0, 0))
+        # K14 and K17 at solve's pairs, and at the chunked product's edges with
+        # a ragged last trip, antithetic and one group
+        _, inp22 = rb_device_inputs(SOLVE_PAIRS, qmc, seed, dev, tangent=False)
+        _, v22 = rb_device_inputs(SOLVE_PAIRS, qmc, seed, dev, tangent=True, vjp=True)
+        ct22 = torch.full((2, SOLVE_PAIRS), 0.5 / SOLVE_PAIRS, device=dev)
+        put(f"K14 {s} 2^22", rk._rb_values(inp22, SOLVE_PAIRS, True, seed, 0, 0))
+        put(f"K17 {s} 2^22", rk._rb_vjp_sums(v22, ct22, SOLVE_PAIRS, True, seed, 0, 0))
+        for steps in RB_EDGE_STEPS:
+            cfg = ht.SimulationConfig(RB_EDGE_PAIRS, steps, ht.Antithetic(), seed, qmc)
+            e_inp = rk.rb_inputs_from_trace(rk._rb_trace_inputs(rb_problem(), cfg, 64), seed=seed,
+                                            qmc=qmc, device=dev)
+            v_e = rk.rb_vjp_inputs(SPOT, RB_MARKET["xi0"], *RB_SCALARS, ins.T, STRIKE, 1.0,
+                                   steps=steps, **kw)
+            for anti in (True, False):
+                label = f"{steps} steps{'' if anti else ' one group'}"
+                put(f"K14 {s} {label}", rk._rb_values(e_inp, RB_EDGE_PAIRS, anti, seed, 0, 0))
+                if steps >= 2:
+                    e_ct = ct[:2 if anti else 1, :RB_EDGE_PAIRS].contiguous()
+                    put(f"K17 {s} {label}", rk._rb_vjp_sums(v_e, e_ct, RB_EDGE_PAIRS, anti, seed,
+                                                            0, 0))
         if hasattr(rk, "RB_SMILE_KERNEL"):
             c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, ins.T, STRIKE, 1.0,
                                      steps=RB_STEPS, **kw)
@@ -2652,11 +2684,11 @@ def surface_kernel_times(dev, only=None) -> dict:
 def rb_kernel_times(dev, only=None) -> dict:
     """The rough-Bergomi kernels' times: K15 per serving dispatch (2^24
     pairs x 64 steps, PRNG, the public wrapper on 6 seeds, as phase 4); per
-    kernel call on fixed inputs on both streams K14, K15, K16 and K19 (17
-    strikes) at 2^20 pairs (PERF.md's rows) and 2^24, K17 and K18 (the
-    sloped curve) at 2^20 and at ``solve``'s 2^22; K15's, K16's and K18's
-    occupancy where the package reports it.  ``only`` keeps the kernels
-    named."""
+    kernel call on fixed inputs on both streams K15, K16 and K19 (17
+    strikes) at 2^20 pairs (PERF.md's rows) and 2^24, K14 at those and at
+    ``solve``'s 2^22, K17 and K18 (the sloped curve) at 2^20 and 2^22;
+    K14's, K15's, K16's, K17's and K18's occupancy where the package
+    reports it.  ``only`` keeps the kernels named."""
     import torch
 
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
@@ -2684,10 +2716,12 @@ def rb_kernel_times(dev, only=None) -> dict:
         for qmc in (False, True):
             key = f"{'QMC' if qmc else 'PRNG'} {pairs}"
             _, inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=False)
+            if want("K14"):
+                out[f"K14 {key}"] = time_ms(lambda: rk._rb_values(inp, pairs, True, 1, 0, 0))
+                if pairs == CHECK_PAIRS and hasattr(rk, "values_occupancy"):
+                    out[f"K14 occupancy {key}"] = rk.values_occupancy(inp)
             if pairs != SOLVE_PAIRS:
                 _, g_inp = rb_device_inputs(pairs, qmc, 1, dev, tangent=True)
-                if want("K14"):
-                    out[f"K14 {key}"] = time_ms(lambda: rk._rb_values(inp, pairs, True, 1, 0, 0))
                 if want("K15"):
                     out[f"K15 {key}"] = time_ms(lambda: rk._rb_price_sum(inp, pairs, 1, 0, 0))
                 if want("K19"):
@@ -2707,6 +2741,8 @@ def rb_kernel_times(dev, only=None) -> dict:
                 if want("K17"):
                     out[f"K17 {key}"] = time_ms(
                         lambda: rk._rb_vjp_sums(v_inp, ct, pairs, True, 1, 0, 0))
+                    if pairs == CHECK_PAIRS and hasattr(rk, "vjp_occupancy"):
+                        out[f"K17 occupancy {key}"] = rk.vjp_occupancy(v_inp)
                 if want("K18"):
                     out[f"K18 {key}"] = time_ms(
                         lambda: rk._rb_vjp_sums(c_inp, ct, pairs, True, 1, 0, 0, per_step=True))

@@ -36,51 +36,54 @@
 // n(n-1) FMAs a pair, about 4K at n = 64, against the TPU kernel's dense
 // (2n)^2 on a 128-padded tile; a step adds two exponentials' worth of MUFU
 // (ex2, rsqrt, two rcp) and a dozen FLOPs, and the Philox or Sobol' draw of
-// 2n normals comes on top.  On an H100 K14 and K17 run 7-10x above that
-// operation bound, K15 5x and K18 5.5x (PERF.md): latency-bound chains at few
-// warps an SM, not the issue rate of any one pipe.
+// 2n normals comes on top.  On an H100 they run 4-6x above that operation
+// bound (PERF.md): latency-bound chains, not the issue rate of any one pipe.
 //
-// K14 and K17: one antithetic pair per thread (rb_walk).  The thread
-// draws its xi column into shared memory (row-major, one float per thread a
-// row: conflict-free), then walks the consumed Z rows in tiles of kTile rows
-// whose kTile accumulators live in registers: for each column one shared
-// load of each xi it multiplies and warp-uniform float4 loads of the
-// factor's packed entries (6 loads per 16 FMAs, each factor value feeding
-// one pair).  Step k consumes Z row k-1 and dW_k as soon as its tile is
-// done, so the state is O(1) a path.  The step limit (ops/rbergomi_kernel.py
-// MAX_STEPS) comes from the xi column (2n rows padded to whole tiles) and
-// the Sobol' table in shared memory.  The primal sums round each product and
-// sum separately (__fmul_rn/__fadd_rn, as the twins do) and the product uses
-// explicit fmaf in one order, so every kernel computes a pair's values to
-// the same bits.
-//
-// K15 and K19: the block-cooperative product over row chunks.  A block of
+// All six run one block-cooperative product over row chunks.  A block of
 // 128 threads takes 64 consecutive pairs a trip: the threads draw the 64 xi
-// columns (two a column), then for each chunk of 32 Z rows every warp forms
-// one tile's rows for all 64 pairs, a lane 4 pairs x 4 rows in registers
-// (one LDS.128 of each xi and two warp-uniform LDG.128 of the factor per
-// column: 4 loads per 32 FMAs, each factor value feeding 4 pairs), into an
-// 8 KB chunk buffer; after a barrier each thread walks one antithetic group
-// of one pair through the chunk's steps (the mirror's thread takes rcp of
-// the exponentials it recomputes).  A row still sums its columns in
-// rb_walk's order with rb_walk's fmaf, and a step rounds as rb_step, so each
-// pair's (IV, J) keeps its bits; the whole X is never held (at 256 steps
-// under QMC the xi columns and the Sobol' table take 192 KB).  Slot t of a
-// trip walks the pairs one thread would (blockIdx.x * 64 + t + trip * grid
-// * 64) and the 64 slot sums reduce by block_sums's tree, and K16 walks
-// K15's trips on K15's grid (one resident wave of K15 and of K16), so
-// K16's price is K15's to the bit.  Measured (PERF.md, H100): 5 blocks (20
-// warps) an SM on PRNG, 4 (16) under QMC, against 6 (12) and 4 (8) one
-// pair a thread; 64 registers; K15 1.6x and K19 1.3x faster than one pair
-// a thread.  What is left, each phase's marginal share of K15 at 2^24
-// pairs (PRNG / QMC): the walk 32 / 26%, the product 29 / 16%, the draw
-// 10 / 38%.  The Sobol' table read through L1 instead of staged was slower
-// (QMC K15 39.7 against 28.7 ms at 2^24 pairs); 16-row chunks (6 blocks an
-// SM, one pair a thread's grid) matched K15 but left K19, 5 resident of 6,
-// no faster.  K16 on the tangent chunk product (16-row chunks, K15's 40.5 /
-// 56 KB and blocks an SM) is 1.84x faster on Philox and 1.26x under QMC
-// than one pair a thread; under QMC its draw, most of it ndtri_approx's two
-// branches in every warp, is a third of its time.
+// columns into shared memory (two threads a column; row-major, one float a
+// pair a row), then for each chunk of 32 Z rows every warp forms one 8-row
+// tile's rows for all 64 pairs, a lane 4 pairs x 4 rows in registers (one
+// LDS.128 of each xi and two warp-uniform LDG.128 of the factor's packed
+// entries per column: 4 loads per 32 FMAs, each factor value feeding 4
+// pairs), into an 8 KB chunk buffer; after a barrier each thread walks one
+// antithetic group of one pair through the chunk's steps (the mirror's
+// thread takes rcp of the exponentials it recomputes: X(-xi) = -X), so the
+// state is O(1) a path and the whole X is never held.  Z row j sums its
+// columns 0..j in order, each column's increment entry then its Z entry by
+// fmaf, and a step rounds each product and sum on its own
+// (__fmul_rn/__fadd_rn, as the twins do), so every kernel computes a pair's
+// (IV, J) to the same bits whatever the chunk that holds its tile, the
+// trip or the grid.  The step limit (ops/rbergomi_kernel.py MAX_STEPS) comes
+// from the xi columns (2n rows padded to whole tiles) and the Sobol' table
+// in shared memory: at 256 steps under QMC they take 192 KB.
+//
+// Trips and grids.  Slot t of the trip at `base` walks pair base + t.  K15
+// and K19 walk trips on one resident wave of K15 (blockIdx.x * 64 + t +
+// trip * grid * 64), the 64 slot sums reduced by block_sums<64>'s tree, and
+// K16 walks K15's trips on K15's grid, so K16's price and each of K19's
+// strikes are K15's to the bit.  K14 walks trips on a resident wave of its
+// own (each value is its pair's whatever the grid), so a block stages the
+// Sobol' table once.  K17 and K18 take one trip a block, ceil(n / 64)
+// blocks: slot t is thread t of a 64-thread block one pair a thread, so
+// their float64 partials keep that grid's bits.  K14, K16 and K17 draw
+// their Sobol' rows split at bit 5 (draw_xi<true>: the same integers, so
+// the same normals), K15, K18 and K19 through hh::sobol_normal.
+//
+// The tangent product (K16, K17, K18; rb_trip_tangents) forms the H tangent
+// Zd = (dL/dH) xi beside Z and walks each group with its tangent sums in
+// (xi0, eta, H).  K16 and K17 take 16-row chunks, warps 0-1 a tile of Z
+// each and warps 2-3 a tile of Zd, in K15's bytes, so they hold K15's
+// blocks an SM where their registers allow (at most 96 for 5 on Philox).
+// Their + thread takes the mirror's sums by shuffles and closes both groups
+// in one function (add_pair_rows), K16 unweighted into its six columns, K17
+// weighted by the pair's two cotangents into its seven.  Measured (PERF.md,
+// H100) against one pair a thread, PRNG and QMC: K14 1.86x and 1.75x, K15
+// 1.6x, K16 1.84x and 1.26x, K17 1.98x and 2.17x, K18 1.37x and 1.72x, K19
+// 1.3x faster.  The Sobol' table read through L1 instead of staged was
+// slower (QMC K15 39.7 against 28.7 ms at 2^24 pairs); under QMC the draw,
+// most of it ndtri_approx's two branches in every warp, is a third of K16's
+// time.
 //
 // K18 (the backward of the values under a ForwardVarianceCurve) adds one row
 // per step, R_k = ct (y_IV dt P_k + y_J/2 s_k dW_k) = d(ct value)/d ln C_k,
@@ -89,19 +92,13 @@
 // floats a pair of shared memory (64 KB more a block at 256 steps, over
 // the 227 KB limit with the xi columns and the Sobol' table), so K18 replays
 // the L product once the close is done: the same fp32 operations, so the
-// same P_k and s_k dW_k bits, for one more n(n-1) FMAs a pair.  It runs on
-// the block-cooperative product (below): a block of 128 threads takes one
-// trip of 64 pairs, forms Z and its H tangent Zd = (dL/dH) xi chunk by chunk
-// (rb_trip_tangents: two chunk_products, one over dpack, then each thread's
-// group through rb_step's tangent operations), closes each group on its own
-// thread, and the + thread of a slot takes the mirror's rows by shuffles to
-// form the pair's six scalar chains and, over the replay, its R_k in the
-// expressions of one pair a thread.  R_k is summed over the 64 slots in
-// float64 as two 32-slot butterflies added in order (one pair a thread's
-// two warps) into (n + 6, blocks) float64 partials, the chains by
-// block_sums<64>'s tree, so K18's sums keep the bits of one pair a thread's
-// (its 64-thread blocks, the same pairs a block).  Measured (PERF.md, H100):
-// 1.37x faster on Philox, 1.72x under QMC at 64 steps.
+// same P_k and s_k dW_k bits, for one more n(n-1) FMAs a pair.  It takes
+// 32-row chunks of Z and of Zd (two chunk_products), closes each group on
+// its own thread, and the + thread of a slot takes the mirror's rows by
+// shuffles to form the pair's six scalar chains and, over the replay, its
+// R_k.  R_k is summed over the 64 slots in float64 as two 32-slot
+// butterflies added in order (a 64-thread block's two warps) into (n + 6,
+// blocks) float64 partials, the chains by block_sums<64>'s tree.
 //
 // K19 (one path set closing m strikes) walks K15's pairs with K15's grid and
 // closes each strike with the operations of hh::cond_bs_close in their
@@ -153,7 +150,8 @@ __host__ __device__ inline int table_words(int steps, bool qmc) {
   return qmc ? 2 * steps * (hh::kSobolBits + 1) : 0;
 }
 
-// Dynamic shared memory of K14-K17 (K18 and K19 add theirs after it).
+// The xi columns and the Sobol' table: the chunk kernels add their chunk
+// buffers between the two.
 size_t rb_smem(int steps, bool qmc) {
   const RbShape s = rb_shape(steps);
   return sizeof(float) * ((size_t)s.xi_rows * kThreads + table_words(steps, qmc));
@@ -249,153 +247,6 @@ __device__ __forceinline__ void tangent_step(Group& g, float p, float s, float s
   g.djh_s = fmaf(s, dwd, g.djh_s);
 }
 
-// 2 * kTile packed entries of the factor at (tile, column): kTile of the
-// increments' block then kTile of the Z block, as four float4.
-__device__ __forceinline__ void load_col(const float4* __restrict__ pack, int idx, float* v) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 f = __ldg(pack + 4 * idx + q);
-    v[4 * q] = f.x;
-    v[4 * q + 1] = f.y;
-    v[4 * q + 2] = f.z;
-    v[4 * q + 3] = f.w;
-  }
-}
-
-// Adds column c's terms to the tile's accumulators, rows r >= first.
-template <int kFirst>
-__device__ __forceinline__ void add_col(const float* v, float xa, float xb, float* acc) {
-#pragma unroll
-  for (int r = kFirst; r < kTile; ++r) {
-    acc[r] = fmaf(v[r], xa, acc[r]);
-    acc[r] = fmaf(v[kTile + r], xb, acc[r]);
-  }
-}
-
-template <int kCC, bool kTan>
-__device__ __forceinline__ void triangle_col(const float* xs, const float4* lpack,
-                                             const float4* dpack, const RbShape& s, int tile,
-                                             float* acc, float* accd) {
-  const int t = threadIdx.x;
-  const int c = tile * kTile + kCC;
-  const float xa = xs[c * kThreads + t], xb = xs[(s.n + c) * kThreads + t];
-  float v[2 * kTile];
-  load_col(lpack, tile * s.zcols + c, v);
-  add_col<kCC>(v, xa, xb, acc);
-  if (kTan) {
-    load_col(dpack, tile * s.zcols + c, v);
-    add_col<kCC>(v, xa, xb, accd);
-  }
-}
-
-// Step k's primal terms of both groups from Z_{t_k} = z: P = C_k e^{eta z},
-// s = sqrt(P) and s dW_k (the mirror's from rcp of the + group's
-// exponentials, its s dW unsigned), each product rounded on its own.
-struct StepTerms {
-  float xk, pp, sp, sdw_p, pm, sm, sdw_m;
-};
-
-__device__ __forceinline__ StepTerms step_terms(const float* xs, const RbParams& p,
-                                                const float4& ck, int k, float z, bool anti) {
-  StepTerms o;
-  o.xk = xs[k * kThreads + threadIdx.x];
-  const float dw = __fmul_rn(ck.z, o.xk);
-  const float ep = expf(__fmul_rn(p.eta, z));
-  const float sep = sqrtf(ep);
-  o.pp = __fmul_rn(ck.x, ep);
-  o.sp = __fmul_rn(ck.y, sep);
-  o.sdw_p = __fmul_rn(o.sp, dw);
-  o.pm = o.sm = o.sdw_m = 0.0f;
-  if (anti) {
-    o.pm = __fmul_rn(ck.x, hh::rcp(ep));
-    o.sm = __fmul_rn(ck.y, hh::rcp(sep));
-    o.sdw_m = __fmul_rn(o.sm, dw);
-  }
-  return o;
-}
-
-// Step k (1 <= k < n) of both groups from Z_{t_k} = z (and its H tangent
-// zd): the left-point sums with each sum rounded on its own; the tangent
-// sums when kTan.
-template <bool kTan>
-__device__ __forceinline__ void rb_step(const float* xs, const RbParams& p,
-                                        const float4* __restrict__ coef, int k, float z, float zd,
-                                        bool anti, Group& gp, Group& gm) {
-  const float4 ck = __ldg(coef + 2 * k);
-  const StepTerms st = step_terms(xs, p, ck, k, z, anti);
-  gp.iv = __fadd_rn(gp.iv, st.pp);
-  gp.j = __fadd_rn(gp.j, st.sdw_p);
-  if (anti) {
-    gm.iv = __fadd_rn(gm.iv, st.pm);
-    gm.j = __fadd_rn(gm.j, st.sdw_m);
-  }
-  if (kTan) {
-    const float4 ck2 = __ldg(coef + 2 * k + 1);
-    const float dwd = __fmul_rn(ck.w, st.xk);
-    tangent_step(gp, st.pp, st.sp, st.sdw_p, z, zd, dwd, ck2.x, ck2.y, p.eta);
-    if (anti) tangent_step(gm, st.pm, st.sm, -st.sdw_m, -z, -zd, -dwd, ck2.x, ck2.y, p.eta);
-  }
-}
-
-// The Volterra product of the pair's xi column in tiles: f(k, Z_{t_k}, its H
-// tangent) for each step k = 1..n-1, in order, as Z row k-1's tile is done.
-template <bool kTan, class F>
-__device__ __forceinline__ void rb_walk(const float* xs, const float4* __restrict__ lpack,
-                                        const float4* __restrict__ dpack, const RbShape& s,
-                                        F&& f) {
-  const int t = threadIdx.x;
-  for (int tile = 0; tile < s.tiles; ++tile) {
-    float acc[kTile], accd[kTile];
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) acc[r] = accd[r] = 0.0f;
-    const int j0 = tile * kTile;
-    for (int c = 0; c < j0; ++c) {
-      const float xa = xs[c * kThreads + t], xb = xs[(s.n + c) * kThreads + t];
-      float v[2 * kTile];
-      load_col(lpack, tile * s.zcols + c, v);
-      add_col<0>(v, xa, xb, acc);
-      if (kTan) {
-        load_col(dpack, tile * s.zcols + c, v);
-        add_col<0>(v, xa, xb, accd);
-      }
-    }
-    triangle_col<0, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<1, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<2, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<3, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<4, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<5, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<6, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    triangle_col<7, kTan>(xs, lpack, dpack, s, tile, acc, accd);
-    static_assert(kTile == 8, "one triangle_col per tile row");
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) {
-      const int k = j0 + r + 1;  // step k consumes Z_{t_k} = Z row k - 1 and dW_k
-      if (k < s.n) f(k, acc[r], accd[r]);
-    }
-  }
-}
-
-// The pair's two groups over all steps from its xi column, each step consumed
-// as its Z row is done.  dw0 (and dwd0) return the first increment (and its
-// H tangent).
-template <bool kTan>
-__device__ __forceinline__ void rb_groups(const float* xs, const RbParams& p,
-                                          const float4* __restrict__ coef,
-                                          const float4* __restrict__ lpack,
-                                          const float4* __restrict__ dpack, const RbShape& s,
-                                          bool anti, float& dw0, float& dwd0, Group& gp,
-                                          Group& gm) {
-  const float4 c0 = __ldg(coef);
-  dw0 = __fmul_rn(c0.z, xs[threadIdx.x]);
-  dwd0 = kTan ? __fmul_rn(c0.w, xs[threadIdx.x]) : 0.0f;
-  gp = Group{};
-  gm = Group{};
-  rb_walk<kTan>(xs, lpack, dpack, s, [&](int k, float z, float zd) {
-    rb_step<kTan>(xs, p, coef, k, z, zd, anti, gp, gm);
-  });
-}
-
 // The groups' (IV, J): IV = dt (C_0 + sum), J = +-(sqrt(C_0) dW_0) +- sum.
 __device__ __forceinline__ void close_factors(const Group& g, bool mirror, float c0, float s0dw0,
                                               float dt, float& iv, float& j) {
@@ -441,35 +292,12 @@ __device__ __forceinline__ hh::BsPartials group_rows(const Group& g, float iv, f
   return b;
 }
 
-// The (value, antithetic value) of global pair `pair` (K14); the
-// antithetic value is 0 unless `anti`.
-__device__ __forceinline__ void rb_pair_values(float* xs, unsigned long long pair,
-                                               const RbParams& p, const float4* coef,
-                                               const float4* lpack, const int* table,
-                                               const RbShape& s, bool anti, uint32_t seed,
-                                               uint32_t device_id, long long point_offset,
-                                               float& val, float& val_a) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
-  float dw0, dwd0;
-  Group gp, gm;
-  rb_groups<false>(xs, p, coef, lpack, nullptr, s, anti, dw0, dwd0, gp, gm);
-  const float4 c0 = __ldg(coef);
-  const float s0dw0 = __fmul_rn(c0.y, dw0);
-  float iv, j;
-  close_factors(gp, false, c0.x, s0dw0, p.dt, iv, j);
-  val = hh::cond_bs_value(iv, j, p.close);
-  val_a = 0.0f;
-  if (anti) {
-    close_factors(gm, true, c0.x, s0dw0, p.dt, iv, j);
-    val_a = hh::cond_bs_value(iv, j, p.close);
-  }
-}
-
 // One pair's close in one thread: each group's tangent rows (group_rows on
 // close_factors) from its sums, weighted by ct_p and ct_m (K16: 1, 1; K17:
 // the pair's cotangents) and added into acc where `add`.  dw0 and dwd0 are
 // the pair's first increment and its H tangent.  K16 and K17 close through
-// this one function, so their rows have one pair a thread's bits.
+// this one function, in the expressions of their one-pair-a-thread
+// kernels, so their rows keep those kernels' bits.
 template <bool kVjp, int kCols>
 __device__ __forceinline__ void add_pair_rows(const Group& gp, const Group& gm, bool anti,
                                               float dw0, float dwd0, const float4& c0,
@@ -497,22 +325,6 @@ __device__ __forceinline__ void add_pair_rows(const Group& gp, const Group& gm, 
   }
 }
 
-// K17's rows of global pair `pair` (one pair a thread), weighted by the
-// pair's cotangents ct_p and ct_m and added into acc.
-template <int kCols>
-__device__ __forceinline__ void rb_pair_rows(float* xs, unsigned long long pair, const RbParams& p,
-                                             const float4* coef, const float4* lpack,
-                                             const float4* dpack, const int* table,
-                                             const RbShape& s, bool anti, uint32_t seed,
-                                             uint32_t device_id, long long point_offset,
-                                             float ct_p, float ct_m, float* acc) {
-  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);
-  float dw0, dwd0;
-  Group gp, gm;
-  rb_groups<true>(xs, p, coef, lpack, dpack, s, anti, dw0, dwd0, gp, gm);
-  add_pair_rows<true, kCols>(gp, gm, anti, dw0, dwd0, __ldg(coef), p, ct_p, ct_m, true, acc);
-}
-
 // The float64 sum of x over the warp, the same bits in every lane (a
 // butterfly).
 __device__ __forceinline__ double warp_sum(double x) {
@@ -521,11 +333,11 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-// ---- K15 and K19: the block-cooperative product over row chunks -----------
+// ---- the block-cooperative product over row chunks ---------------------------
 //
-// A block of kChunkThreads threads takes kThreads consecutive pairs a trip
-// (slot t of the trip at `base` is pair base + t, so slot t walks the pairs
-// one thread a pair would: blockIdx.x * 64 + t + trip * gridDim.x * 64).
+// A block of kChunkThreads threads takes kThreads consecutive pairs a trip:
+// slot t of the trip at `base` is pair base + t, walked by threads 2t (the
+// + group) and 2t + 1 (the mirror).
 
 constexpr int kChunkThreads = 128;
 constexpr int kChunkWarps = kChunkThreads / 32;
@@ -533,18 +345,18 @@ constexpr int kChunkRows = kChunkWarps * kTile;  // Z rows a chunk: one tile a w
 constexpr int kQuad = 4;                          // pairs of a register tile
 constexpr int kHalf = kTile / 2;                  // rows of a register tile
 constexpr int kHalfChunkRows = kChunkRows / 2;    // Z rows of a chunk of K16
-constexpr int kGreeksBlocks = 5;                  // K16's blocks an SM on Philox at 64 steps
+constexpr int kChunkBlocks = 5;  // K14's, K16's and K17's blocks an SM on Philox at 64 steps
 static_assert(kChunkThreads == 2 * kThreads, "the walk takes one antithetic group a thread");
 static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2 half tiles");
 
-// Dynamic shared memory of K15 (K19 adds its strike sums): the xi columns,
-// the chunk of Z rows, then the Sobol' table.
+// Dynamic shared memory of K15 and K14 (K19 adds its strike sums): the xi
+// columns, the chunk of Z rows, then the Sobol' table.
 size_t rb_chunk_smem(int steps, bool qmc) {
   return rb_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
 }
 
-// K16's: the xi columns, the half-height chunks of Z and of its H tangent,
-// then the Sobol' table: K15's bytes.
+// K16's and K17's: the xi columns, the half-height chunks of Z and of its H
+// tangent, then the Sobol' table: K15's bytes.
 size_t rb_greeks_smem(int steps, bool qmc) {
   return rb_smem(steps, qmc) + sizeof(float) * 2 * kHalfChunkRows * kThreads;
 }
@@ -561,7 +373,7 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 
 // Column c's terms of a register tile (kHalf rows x kQuad pairs): the
 // increments' entries fa and the Z entries fb of its rows, the pairs' xi_c
-// in xa and xi_{n+c} in xb; per output the two FMAs of add_col in its order.
+// in xa and xi_{n+c} in xb; per output the increment's FMA, then Z's.
 // Rows i < skip are left as they are (the triangle's columns).
 __device__ __forceinline__ void quad_col(const float4& fa, const float4& fb, const float4& xa,
                                          const float4& xb, int skip,
@@ -583,8 +395,7 @@ __device__ __forceinline__ void quad_col(const float4& fa, const float4& fb, con
 // kTile) * kThreads + slot]: warp w takes tile chunk * kTiles + w % kTiles
 // (K15, K18, K19: kTiles = kChunkWarps, a chunk of kChunkRows rows), lane l
 // pairs 4 (l % 16)..+3 and the tile's rows 4 (l / 16)..+3.  Each row sums
-// columns 0..row as rb_walk's tile does: the packed entries of each column,
-// the same fmaf in the same order, so each pair's Z has rb_walk's bits
+// columns 0..row in order (quad_col), so each pair's Z has the same bits
 // whatever the chunk that holds its tile.
 template <int kTiles>
 __device__ __forceinline__ void chunk_product(const float* xs, const float4* __restrict__ pack,
@@ -621,8 +432,8 @@ __device__ __forceinline__ void chunk_product(const float* xs, const float4* __r
 }
 
 // The chunk's steps of one antithetic group of slot `slot`: the + group, or
-// the mirror from rcp of the + group's exponentials; step_terms's operations
-// and rounding, each sum in step order.
+// the mirror from rcp of the + group's exponentials; P = C_k e^{eta Z},
+// s = sqrt(P) and s dW_k each rounded on its own, each sum in step order.
 __device__ __forceinline__ void chunk_walk(const float* xs, const float* xbuf, const RbParams& p,
                                            const float4* __restrict__ coef, const RbShape& s,
                                            int chunk, bool mirror, int slot, Group& g) {
@@ -642,10 +453,27 @@ __device__ __forceinline__ void chunk_walk(const float* xs, const float* xbuf, c
   }
 }
 
+// The trip's xi columns, from pair `base`: two threads a column (thread t
+// draws every other row of slot t % 64, from its t / 64-th), so each warp
+// holds 32 consecutive pairs and one part, as draw_xi<true> needs.  kSplit
+// draws the Sobol' rows split at bit 5 (the same normals).  Every thread of
+// the block calls it: it holds the barriers.
+template <bool kSplit>
+__device__ __forceinline__ void draw_trip(float* xs, unsigned long long base, const int* table,
+                                          const RbShape& s, uint32_t seed, uint32_t device_id,
+                                          long long point_offset) {
+  const int t = threadIdx.x;
+  __syncthreads();  // the last trip's reads of xs are done
+  draw_xi<kSplit>(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
+                  t / kThreads, kChunkThreads / kThreads);
+  __syncthreads();
+}
+
 // The (IV, J) of this thread's group of the trip's slot threadIdx.x / 2
 // (even threads the + group, odd ones the mirror): the block draws the
-// trip's xi columns (two threads a column), then each chunk's product and
-// walk.  Every thread of the block calls it: it holds the barriers.
+// trip's xi columns (draw_trip<kSplit>), then each chunk's product and walk.
+// Every thread of the block calls it: it holds the barriers.
+template <bool kSplit = false>
 __device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned long long base,
                                                 const RbParams& p, const float4* coef,
                                                 const float4* lpack, const int* table,
@@ -654,10 +482,7 @@ __device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned
                                                 float& iv, float& j) {
   const int t = threadIdx.x, slot = t >> 1;
   const bool mirror = t & 1;
-  __syncthreads();  // the last trip's reads of xs are done
-  draw_xi(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
-          t / kThreads, kChunkThreads / kThreads);
-  __syncthreads();
+  draw_trip<kSplit>(xs, base, table, s, seed, device_id, point_offset);
   const float x0 = xs[slot];
   Group g{};
   for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
@@ -672,8 +497,8 @@ __device__ __forceinline__ void rb_trip_factors(float* xs, float* xbuf, unsigned
 
 // chunk_walk with the tangent sums: the steps of one antithetic group over
 // a chunk of kRows Z rows, from the rows in xbuf and their H tangents in
-// dbuf, in rb_step<true>'s operations and order (the mirror's s dW, Z, dZ/dH
-// and d(dW)/dH negated, as rb_step passes them to tangent_step).
+// dbuf, chunk_walk's primal operations and order, then tangent_step's (the
+// mirror's s dW, Z, dZ/dH and d(dW)/dH negated).
 template <int kRows>
 __device__ __forceinline__ void chunk_walk_tan(const float* xs, const float* xbuf,
                                                const float* dbuf, const RbParams& p,
@@ -704,14 +529,13 @@ __device__ __forceinline__ void chunk_walk_tan(const float* xs, const float* xbu
 
 // The tangent chunk product: rb_trip_factors's draw and product, with the H
 // tangent Zd = (dL/dH) xi formed beside Z (over dpack into dbuf), and each
-// thread's group walked with its tangent sums (rb_groups<true>'s, to the
-// bit).  Chunks of kRows Z rows: kChunkRows (K18), every warp one tile of Z
-// then one of Zd; or kChunkRows / 2 (K16), warps 0-1 a tile of Z each and
-// warps 2-3 a tile of Zd each, in half the buffers.  Returns the group's
-// sums in g and its signed sqrt(C_0) dW_0 and sqrt(C_0) dWd_0 (as
-// rb_pair_rows forms them); the caller closes.  kSplit draws the Sobol'
-// rows by draw_xi<true> (the same normals; K16).  Every thread of the block
-// calls it: it holds the barriers.
+// thread's group walked with its tangent sums (chunk_walk_tan).  Chunks of
+// kRows Z rows: kChunkRows (K18), every warp one tile of Z then one of Zd;
+// or kChunkRows / 2 (K16, K17), warps 0-1 a tile of Z each and warps 2-3 a
+// tile of Zd each, in half the buffers.  Returns the group's sums in g and
+// the + group's sqrt(C_0) dW_0 and sqrt(C_0) dWd_0; the caller closes.
+// kSplit draws the Sobol' rows split at bit 5 (the same normals; K16, K17).
+// Every thread of the block calls it: it holds the barriers.
 template <int kRows, bool kSplit>
 __device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* dbuf,
                                                  unsigned long long base, const RbParams& p,
@@ -722,10 +546,7 @@ __device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* 
                                                  Group& g, float& s0dw0, float& s0dwd0) {
   const int t = threadIdx.x, slot = t >> 1;
   const bool mirror = t & 1;
-  __syncthreads();  // the last trip's reads of xs are done
-  draw_xi<kSplit>(xs, base + t % kThreads, table, s, seed, device_id, point_offset, t % kThreads,
-                  t / kThreads, kChunkThreads / kThreads);
-  __syncthreads();
+  draw_trip<kSplit>(xs, base, table, s, seed, device_id, point_offset);
   g = Group{};
   for (int chunk = 0; chunk * kRows < s.n - 1; ++chunk) {
     if constexpr (kRows == kChunkRows) {
@@ -745,6 +566,20 @@ __device__ __forceinline__ void rb_trip_tangents(float* xs, float* xbuf, float* 
   s0dwd0 = c0.y * __fmul_rn(c0.w, xs[slot]);
 }
 
+// The mirror's sums, for the + thread of each slot (by shuffles; every
+// thread of the warp calls it).
+__device__ __forceinline__ Group mirror_sums(const Group& g) {
+  Group m;
+  m.iv = __shfl_xor_sync(0xffffffffu, g.iv, 1);
+  m.j = __shfl_xor_sync(0xffffffffu, g.j, 1);
+  m.div_eta = __shfl_xor_sync(0xffffffffu, g.div_eta, 1);
+  m.dj_eta = __shfl_xor_sync(0xffffffffu, g.dj_eta, 1);
+  m.div_h = __shfl_xor_sync(0xffffffffu, g.div_h, 1);
+  m.djh_g = __shfl_xor_sync(0xffffffffu, g.djh_g, 1);
+  m.djh_s = __shfl_xor_sync(0xffffffffu, g.djh_s, 1);
+  return m;
+}
+
 // The float64 sum of the 64 slots' values in red[0..63] by block_sums's
 // tree (so a slot's sum reduces as one thread's does in block_sums<64>)
 // into *out.
@@ -758,22 +593,36 @@ __device__ __forceinline__ void slot_tree(double* red, double* out) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K14: trips of 64 pairs on one resident wave of K14 (rb_trip_factors<true>:
+// K15's product, the Sobol' rows drawn split at bit 5); each thread closes
+// its group, the + thread of slot t writing out[base + t] and, under
+// antithetic, the mirror thread out[n_paths + base + t] (a non-antithetic
+// call discards the mirror's group).  A value depends on its pair alone,
+// not on the grid or the trip.  A slot past n_paths is masked: every
+// thread stays for the barriers.
+__global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                  const float4* __restrict__ lpack, const int* __restrict__ sobol,
                  float* __restrict__ out, long long n_paths, int steps, int antithetic,
                  uint32_t seed, uint32_t device_id, long long point_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  float* xbuf = xs + s.xi_rows * kThreads;
+  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_paths) return;
-  float val, val_a;
-  rb_pair_values(smem, (unsigned long long)i, p, coef, lpack, table, s, antithetic != 0, seed,
-                 device_id, point_offset, val, val_a);
-  out[i] = val;
-  if (antithetic) out[n_paths + i] = val_a;
+  const int slot = threadIdx.x >> 1;
+  const bool mirror = threadIdx.x & 1;
+  float* dst = out + (mirror ? n_paths : 0);
+  const bool write = !mirror || antithetic != 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads; base < n_paths; base += stride) {
+    float iv, j;
+    rb_trip_factors<true>(xs, xbuf, (unsigned long long)base, p, coef, lpack, table, s, seed,
+                          device_id, point_offset, iv, j);
+    const float val = hh::cond_bs_value(iv, j, p.close);
+    if (base + slot < n_paths && write) dst[base + slot] = val;
+  }
 }
 
 // K15: the chunked product, kThreads pairs a trip; the + thread of slot t
@@ -821,7 +670,7 @@ rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coe
 // stays for the barriers and shuffles.  Its shared memory is K15's (the two
 // half-height chunks take one chunk's bytes), so it holds K15's blocks an
 // SM where its registers allow: at most 96 for 5 blocks on Philox.
-__global__ void __launch_bounds__(kChunkThreads, kGreeksBlocks)
+__global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                  const float4* __restrict__ lpack, const float4* __restrict__ dpack,
                  const int* __restrict__ sobol, double* __restrict__ partials,
@@ -842,19 +691,12 @@ rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ co
   float acc[kGreekCols] = {};
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long base = (long long)blockIdx.x * kThreads; base < total_pairs; base += stride) {
-    Group g, gm;
+    Group g;
     float s0dw0, s0dwd0;
     rb_trip_tangents<kHalfChunkRows, true>(xs, xbuf, dbuf, (unsigned long long)base, p, coef,
                                            lpack, dpack, table, s, seed, device_id, point_offset,
                                            g, s0dw0, s0dwd0);
-    // the + thread takes the mirror's sums and closes the pair
-    gm.iv = __shfl_xor_sync(0xffffffffu, g.iv, 1);
-    gm.j = __shfl_xor_sync(0xffffffffu, g.j, 1);
-    gm.div_eta = __shfl_xor_sync(0xffffffffu, g.div_eta, 1);
-    gm.dj_eta = __shfl_xor_sync(0xffffffffu, g.dj_eta, 1);
-    gm.div_h = __shfl_xor_sync(0xffffffffu, g.div_h, 1);
-    gm.djh_g = __shfl_xor_sync(0xffffffffu, g.djh_g, 1);
-    gm.djh_s = __shfl_xor_sync(0xffffffffu, g.djh_s, 1);
+    const Group gm = mirror_sums(g);  // the + thread closes the pair
     const float x0 = xs[slot];  // the next trip draws xs after a barrier
     add_pair_rows<false, kGreekCols>(g, gm, true, __fmul_rn(c0.z, x0), __fmul_rn(c0.w, x0), c0, p,
                                      1.0f, 1.0f, !mirror && base + slot < total_pairs, acc);
@@ -865,25 +707,52 @@ rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ co
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K17: one trip of 64 pairs a block (slot t is thread t of a 64-thread
+// block one pair a thread: pair blockIdx.x * 64 + t) on K16's tangent chunk
+// product (rb_trip_tangents<kHalfChunkRows, true>).  The + thread of a slot
+// takes the mirror's sums by shuffles and closes the pair in K16's close
+// (add_pair_rows), its seven rows weighted by the pair's cotangents; each
+// column's 64 slot rows reduce by slot_tree (block_sums<64>'s tree) into
+// partials (7, blocks).  A slot past n_paths is masked and a non-antithetic
+// call discards the mirror's group: every thread stays for the barriers
+// and shuffles.  Its shared memory is K16's (K15's bytes).
+__global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
               const float4* __restrict__ lpack, const float4* __restrict__ dpack,
               const int* __restrict__ sobol, const float* __restrict__ ct,
               double* __restrict__ partials, long long n_paths, int steps, int antithetic,
               uint32_t seed, uint32_t device_id, long long point_offset) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
+  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(smem + s.xi_rows * kThreads));
+  float* xbuf = xs + s.xi_rows * kThreads;
+  float* dbuf = xbuf + kHalfChunkRows * kThreads;
+  const int* table =
+      stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kHalfChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
+  const bool anti = antithetic != 0;
+  const int slot = threadIdx.x >> 1;
+  const bool mirror = threadIdx.x & 1;
+  const long long base = (long long)blockIdx.x * kThreads, i = base + slot;
+  const bool live = !mirror && i < n_paths;
+  Group g;
+  float s0dw0, s0dwd0;
+  rb_trip_tangents<kHalfChunkRows, true>(xs, xbuf, dbuf, (unsigned long long)base, p, coef, lpack,
+                                         dpack, table, s, seed, device_id, point_offset, g, s0dw0,
+                                         s0dwd0);
+  const Group gm = mirror_sums(g);
+  const float ct_p = live ? ct[i] : 0.0f;
+  const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
+  const float4 c0 = __ldg(coef);
+  const float x0 = xs[slot];
   float acc[kVjpCols] = {};
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_paths) {
-    rb_pair_rows<kVjpCols>(smem, (unsigned long long)i, p, coef, lpack, dpack, table, s,
-                           antithetic != 0, seed, device_id, point_offset, ct[i],
-                           antithetic ? ct[n_paths + i] : 0.0f, acc);
+  add_pair_rows<true, kVjpCols>(g, gm, anti, __fmul_rn(c0.z, x0), __fmul_rn(c0.w, x0), c0, p, ct_p,
+                                ct_m, live, acc);
+  for (int k = 0; k < kVjpCols; ++k) {
+    if (!mirror) red[slot] = (double)acc[k];
+    slot_tree(red, partials + (long long)k * gridDim.x + blockIdx.x);
   }
-  hh::block_sums<kThreads>(acc, red, partials);
 }
 
 // K18: one trip of 64 pairs a block (kChunkThreads threads, one antithetic
@@ -1033,16 +902,16 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 }  // namespace
 
-// Per-path undiscounted values: out is (1 or 2, n_paths) float32.
+// Per-path undiscounted values: out is (1 or 2, n_paths) float32; grid is
+// K14's resident wave (hh_rb_values_grid) or fewer blocks.
 extern "C" int hh_rb_values(const float* params, const float* coef, const float* lpack,
-                            const int* sobol, float* out, long long n_paths, int steps,
+                            const int* sobol, float* out, int grid, long long n_paths, int steps,
                             int antithetic, unsigned seed, unsigned device_id,
                             long long point_offset, void* stream) {
-  const size_t smem = rb_smem(steps, sobol != nullptr);
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr);
   cudaError_t err = allow_smem(rb_values_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  rb_values_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  rb_values_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
       out, n_paths, steps, antithetic, seed, device_id, point_offset);
   return (int)cudaGetLastError();
@@ -1086,11 +955,11 @@ extern "C" int hh_rb_values_vjp(const float* params, const float* coef, const fl
                                 double* partials, long long n_paths, int steps, int antithetic,
                                 unsigned seed, unsigned device_id, long long point_offset,
                                 void* stream) {
-  const size_t smem = rb_smem(steps, sobol != nullptr);
+  const size_t smem = rb_greeks_smem(steps, sobol != nullptr);
   cudaError_t err = allow_smem(rb_vjp_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  rb_vjp_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  rb_vjp_kernel<<<(unsigned)blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
       seed, device_id, point_offset);
@@ -1155,6 +1024,11 @@ int chunk_occupancy(K kernel, size_t smem, int* out) {
   return (int)err;
 }
 
+// K14's.
+extern "C" int hh_rb_values_occupancy(int steps, int qmc, int* out) {
+  return chunk_occupancy(rb_values_kernel, rb_chunk_smem(steps, qmc != 0), out);
+}
+
 // K15's.
 extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(rb_price_kernel, rb_chunk_smem(steps, qmc != 0), out);
@@ -1165,9 +1039,20 @@ extern "C" int hh_rb_greeks_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(rb_greeks_kernel, rb_greeks_smem(steps, qmc != 0), out);
 }
 
+// K17's.
+extern "C" int hh_rb_vjp_occupancy(int steps, int qmc, int* out) {
+  return chunk_occupancy(rb_vjp_kernel, rb_greeks_smem(steps, qmc != 0), out);
+}
+
 // K18's.
 extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(rb_vjp_curve_kernel, rb_curve_smem(steps, qmc != 0), out);
+}
+
+// One resident wave: SMs x blocks an SM, from an occupancy's out[7].
+static int resident_wave(int err, const int* occ, int* grid) {
+  *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
+  return err;
 }
 
 // The price kernels' grid (K15; K16, which walks K15's trips for its price
@@ -1175,7 +1060,11 @@ extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int* out) {
 // of K15.
 extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
   int occ[7];
-  const int err = hh_rb_price_occupancy(steps, qmc, occ);
-  *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
-  return err;
+  return resident_wave(hh_rb_price_occupancy(steps, qmc, occ), occ, grid);
+}
+
+// K14's grid: one resident wave of K14.
+extern "C" int hh_rb_values_grid(int steps, int qmc, int* grid) {
+  int occ[7];
+  return resident_wave(hh_rb_values_occupancy(steps, qmc, occ), occ, grid);
 }

@@ -13,11 +13,12 @@ of the mirror group).  The twins form the Volterra product with
 ``torch.matmul`` on the full factor; the kernels compute it themselves on
 the entries the factor's structure leaves (models/rough_bergomi.py): the
 diagonal of the ΔW rows, and for the Z row at t_{j+1} the increments'
-columns 0..j and the Z columns 0..j, packed by ``_pack`` (K14, K16-K18 one
-pair a thread; K15 and K19 a block of 64 pairs together, in register tiles
-of 4 pairs × 4 rows, with the same FMAs per pair in the same order).  The
-public functions keep the JAX signatures, with ``device`` (default the
-GPU) in place of ``interpret``;
+columns 0..j and the Z columns 0..j, packed by ``_pack``.  All six take a
+block of 64 pairs together a trip and form Z in register tiles of 4 pairs
+× 4 rows over row chunks, with the same FMAs per pair in the same order,
+so a pair's values have the same bits in every kernel.  The public
+functions keep the JAX signatures, with ``device`` (default the GPU) in
+place of ``interpret``;
 ``n_blocks·n_batches·2048`` antithetic pairs per price call, as the TPU's
 tiles of 2048 paths.
 
@@ -30,8 +31,9 @@ through ``hh_device.sobol_normals_tile``: the TPU kernels' points, except
 that the 32 top cells of a dimension, whose float32 uniform rounds to 1.0,
 give Φ⁻¹((a + ½)·2^-30) (5.4 to 6.1) and not the TPU kernels' 11.46.  K15,
 K16 and K19 walk the pairs ``[0, n_blocks·n_batches·2048)`` with one grid,
-so K16's price and each of K19's strikes are K15's to the bit; K17 and K18
-replay K14's stream.
+so K16's price and each of K19's strikes are K15's to the bit; K14 walks
+the pairs ``[0, n_paths)`` on a grid of its own, and K17 and K18 replay
+its stream one trip a block.
 """
 
 from __future__ import annotations
@@ -93,12 +95,12 @@ GREEK_ORDER_RB = ("spot", "xi0", "eta", "rho", "hurst", "rate")
 PAIRS_PER_BLOCK = 2048
 #: the kernels keep a pair's ξ column (2·steps rows, padded to whole tiles)
 #: in shared memory, 64 pairs a block, beside the 2·steps-row Sobol' table:
-#: 256 steps take 192 KB of the 227 KB a block may use (K15 and K19 add an
+#: 256 steps take 192 KB of the 227 KB a block may use (each kernel adds an
 #: 8 KB chunk of Z rows, K18 two, K19 256 bytes a strike)
 MAX_STEPS = 256
 #: the pairs a block of the kernels holds, and the Z rows of one chunk of
 #: the block-cooperative product (csrc/rbergomi.cu kThreads, kChunkRows;
-#: K16's chunks are half as high, kHalfChunkRows)
+#: K16's and K17's chunks are half as high, kHalfChunkRows)
 BLOCK_PAIRS = 64
 CHUNK_ROWS = 32
 #: the shared memory a block may use on the H100
@@ -121,7 +123,8 @@ CURVE_ROWS = ("eta", "hurst", "T", "w", "rho", "strike")
 _MASK32 = 0xFFFFFFFF
 
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-RB_VALUES_KERNEL = CudaKernel("hh_rb_values", [_P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _P])
+RB_VALUES_KERNEL = CudaKernel("hh_rb_values",
+                              [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _U, _U, _LL, _P])
 RB_PRICE_KERNEL = CudaKernel("hh_rb_price", [_P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P])
 RB_GREEKS_KERNEL = CudaKernel("hh_rb_greeks",
                               [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P])
@@ -452,9 +455,18 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
                       device=inp.params.device)
     RB_VALUES_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
-        _ptr(inp.table), out.data_ptr(), n_paths, inp.steps, int(antithetic), seed & _MASK32,
-        device_id & _MASK32, point_offset)
+        _ptr(inp.table), out.data_ptr(), values_grid(inp, n_paths), n_paths, inp.steps,
+        int(antithetic), seed & _MASK32, device_id & _MASK32, point_offset)
     return out
+
+
+def values_grid(inp: RbInputs, n_paths: int) -> int:
+    """K14's blocks: one resident wave of K14 (``hh_rb_values_grid``), or
+    one a trip of 64 pairs where ``n_paths`` needs fewer.  A value does not
+    depend on the grid."""
+    wave = resident_grid("hh_rb_values_grid", inp.params.device, inp.steps,
+                         int(inp.table is not None))
+    return min(wave, -(-n_paths // BLOCK_PAIRS))
 
 
 def price_grid(inp: RbInputs) -> int:
@@ -465,13 +477,30 @@ def price_grid(inp: RbInputs) -> int:
                          int(inp.table is not None))
 
 
+def _smem_bytes(steps: int, qmc: bool, chunk_rows: int) -> int:
+    """A chunk kernel's dynamic shared memory: the ξ columns of a block's
+    pairs (2·steps rows padded to whole tiles), ``chunk_rows`` rows of chunk
+    buffers, the Sobol' table under QMC."""
+    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
+    return 4 * ((steps + zcols(steps)) * BLOCK_PAIRS + chunk_rows * BLOCK_PAIRS + table)
+
+
+def values_smem_bytes(steps: int, qmc: bool) -> int:
+    """K14's dynamic shared memory (csrc/rbergomi.cu ``rb_chunk_smem``, K15's):
+    the ξ columns, one chunk of Z rows, the Sobol' table."""
+    return _smem_bytes(steps, qmc, CHUNK_ROWS)
+
+
 def greeks_smem_bytes(steps: int, qmc: bool) -> int:
     """K16's dynamic shared memory (csrc/rbergomi.cu ``rb_greeks_smem``): the
     ξ columns of a block's pairs, two half-height chunks (Z and its H
     tangent, CHUNK_ROWS / 2 rows each), the Sobol' table; K15's bytes."""
-    zcols = -(-(steps - 1) // TILE) * TILE
-    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
-    return 4 * ((steps + zcols) * BLOCK_PAIRS + CHUNK_ROWS * BLOCK_PAIRS + table)
+    return _smem_bytes(steps, qmc, 2 * (CHUNK_ROWS // 2))
+
+
+def vjp_smem_bytes(steps: int, qmc: bool) -> int:
+    """K17's dynamic shared memory: K16's layout (``rb_greeks_smem``)."""
+    return greeks_smem_bytes(steps, qmc)
 
 
 def curve_smem_bytes(steps: int, qmc: bool) -> int:
@@ -479,25 +508,31 @@ def curve_smem_bytes(steps: int, qmc: bool) -> int:
     ξ columns of a block's pairs (2·steps rows padded to whole tiles), two
     chunks of Z rows (Z and its H tangent; the replay's rows R_k), the
     Sobol' table."""
-    zcols = -(-(steps - 1) // TILE) * TILE
-    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
-    return 4 * ((steps + zcols) * BLOCK_PAIRS + 2 * CHUNK_ROWS * BLOCK_PAIRS + table)
+    return _smem_bytes(steps, qmc, 2 * CHUNK_ROWS)
 
 
 def vjp_curve_occupancy(inp: RbInputs) -> dict:
     """K18's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_vjp_curve_occupancy``), as :func:`price_occupancy`."""
-    require_cuda(inp.params)
-    return launch_occupancy("hh_rb_vjp_curve_occupancy", inp.params.device, inp.steps,
-                            int(inp.table is not None))
+    return _occupancy("hh_rb_vjp_curve_occupancy", inp)
+
+
+def values_occupancy(inp: RbInputs) -> dict:
+    """K14's occupancy at the inputs' steps and stream, from the CUDA
+    runtime (``hh_rb_values_occupancy``), as :func:`price_occupancy`."""
+    return _occupancy("hh_rb_values_occupancy", inp)
+
+
+def vjp_occupancy(inp: RbInputs) -> dict:
+    """K17's occupancy at the inputs' steps and stream, from the CUDA
+    runtime (``hh_rb_vjp_occupancy``), as :func:`price_occupancy`."""
+    return _occupancy("hh_rb_vjp_occupancy", inp)
 
 
 def greeks_occupancy(inp: RbInputs) -> dict:
     """K16's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_greeks_occupancy``), as :func:`price_occupancy`."""
-    require_cuda(inp.params)
-    return launch_occupancy("hh_rb_greeks_occupancy", inp.params.device, inp.steps,
-                            int(inp.table is not None))
+    return _occupancy("hh_rb_greeks_occupancy", inp)
 
 
 def price_occupancy(inp: RbInputs) -> dict:
@@ -505,9 +540,14 @@ def price_occupancy(inp: RbInputs) -> dict:
     runtime (``hh_rb_price_occupancy``): threads a block, resident blocks
     and warps per SM, shared bytes a block (dynamic and static), registers
     and local (spill) bytes a thread."""
+    return _occupancy("hh_rb_price_occupancy", inp)
+
+
+def _occupancy(symbol: str, inp: RbInputs) -> dict:
+    """A chunk kernel's occupancy at the inputs' steps and stream from the
+    library's ``symbol``."""
     require_cuda(inp.params)
-    return launch_occupancy("hh_rb_price_occupancy", inp.params.device, inp.steps,
-                            int(inp.table is not None))
+    return launch_occupancy(symbol, inp.params.device, inp.steps, int(inp.table is not None))
 
 
 def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> torch.Tensor:

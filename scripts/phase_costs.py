@@ -1,5 +1,6 @@
-"""Marginal cost of each phase of the QE mixing surface kernel (K9) or the
-rough-Bergomi price + greek kernel (K16) on the card.
+"""Marginal cost of each phase of the QE mixing surface kernel (K9) or of a
+rough-Bergomi kernel (K14 values, K16 price + greeks, K17 the values' VJP)
+on the card.
 
 For each phase the script copies a tree's package (``--root``, default the
 repository) to ``build/phase_costs/<kernel> <phase>/``, rewrites the
@@ -12,11 +13,12 @@ computes wrong values: it exists only to be timed.
 
 Run on a GPU host, from the repository root:
 
-    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K9|K16]
+    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K9|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
-always the ones named here.
+always the ones named here.  An edit whose replacement is its own text is
+a guard: its alternative applies only to a tree that holds that text once.
 """
 
 import argparse
@@ -29,11 +31,11 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 # Per phase, alternatives: the rewrite of the kernel before its redesign
-# (K9 one close per strike and MixStream's draw; K16 one pair a thread),
-# then of the kernel after it, tried from the last (K17 keeps the one pair
-# a thread close that the first K16 rewrites name).  An alternative is a
-# list of edits (file under hedgehog_tpu_torch/csrc, text, replacement); a
-# text given as (start, end) is the source from start up to end.
+# (K9 one close per strike and MixStream's draw; K14, K16 and K17 one pair
+# a thread), then of the kernel after it, tried from the last.  An
+# alternative is a list of edits (file under hedgehog_tpu_torch/csrc, text,
+# replacement); a text given as (start, end) is the source from start up to
+# end.
 K9_PHASES = {
     "walk": [
         [("heston_surface.cu",
@@ -142,7 +144,80 @@ K16_PHASES = {
     ],
 }
 
-PHASES = {"K9": K9_PHASES, "K16": K16_PHASES}
+# The rough-Bergomi kernels' shared rewrites: the chunked trips' draw (K14,
+# K16, K17 after their redesign) and, one pair a thread, the Volterra
+# product of rb_walk (K14, K17) and its steps.
+_TRIP_DRAW = K16_PHASES["draw"][1]
+_RB_WALK_PRODUCT = [
+    ("rbergomi.cu",
+     ("    const int j0 = tile * kTile;\n    for (int c = 0; c < j0; ++c) {\n",
+      "    static_assert(kTile == 8"),
+     "    const int j0 = tile * kTile;\n"
+     "#pragma unroll\n"
+     "    for (int r = 0; r < kTile; ++r) {\n"
+     "      acc[r] = xs[(s.n + j0 + r) * kThreads + t];\n"
+     "      accd[r] = 0.5f * acc[r];\n    }\n")]
+_CHUNK_FILL = ("{\n        xbuf[i_] = xs[(s.n * kThreads + i_) % (s.xi_rows * kThreads)];\n"
+               "        dbuf[i_] = 0.5f * xbuf[i_];\n      }\n")
+# guards: text only the redesigned K14 and K17 hold
+_K14_NEW = ("rbergomi.cu", "rb_trip_factors<true>(", "rb_trip_factors<true>(")
+_K17_NEW = ("rbergomi.cu", "add_pair_rows<true, kVjpCols>(g, gm,",
+            "add_pair_rows<true, kVjpCols>(g, gm,")
+
+K14_PHASES = {
+    "draw": [
+        [("rbergomi.cu",
+          "                                               float& val, float& val_a) {\n"
+          "  draw_xi(xs, pair, table, s, seed, device_id, point_offset, threadIdx.x);\n",
+          "                                               float& val, float& val_a) {\n"
+          "  for (int r = 0; r < s.xi_rows; ++r) {\n"
+          "    xs[r * kThreads + threadIdx.x] =\n"
+          "        r < 2 * s.n - 1 ? (float)((pair + r) & 7) * 0.125f - 0.4375f : 0.0f;\n"
+          "  }\n")],
+        _TRIP_DRAW + [_K14_NEW],
+    ],
+    "product": [
+        _RB_WALK_PRODUCT,
+        [("rbergomi.cu",
+          "    chunk_product<kChunkWarps>(xs, lpack, s, chunk, xbuf);\n    __syncthreads();\n"
+          "    chunk_walk(",
+          "    for (int i_ = threadIdx.x; i_ < kChunkRows * kThreads; i_ += kChunkThreads) {\n"
+          "      xbuf[i_] = xs[(s.n * kThreads + i_) % (s.xi_rows * kThreads)];\n    }\n"
+          "    __syncthreads();\n    chunk_walk("), _K14_NEW],
+    ],
+    "steps": [
+        K16_PHASES["steps"][0],
+        [("rbergomi.cu",
+          "    chunk_walk(xs, xbuf, p, coef, s, chunk, mirror, slot, g);\n",
+          "    g.iv += xbuf[slot];\n    g.j += xbuf[kThreads + slot];\n"), _K14_NEW],
+    ],
+    "closes": [
+        [("rbergomi.cu", "  val = hh::cond_bs_value(iv, j, p.close);\n",
+          "  val = (iv + j) * p.close.strike;\n"),
+         ("rbergomi.cu", "    val_a = hh::cond_bs_value(iv, j, p.close);\n",
+          "    val_a = (iv + j) * p.close.strike;\n")],
+        [("rbergomi.cu",
+          "    const float val = hh::cond_bs_value(iv, j, p.close);\n    if (base + slot < n_paths",
+          "    const float val = (iv + j) * p.close.strike;\n    if (base + slot < n_paths"),
+         _K14_NEW],
+    ],
+}
+
+K17_PHASES = {
+    "draw": [K16_PHASES["draw"][0], _TRIP_DRAW + [_K17_NEW]],
+    "product": [
+        _RB_WALK_PRODUCT,
+        [("rbergomi.cu",
+          "      chunk_product<2>(xs, zd ? dpack : lpack, s, chunk, zd ? dbuf : xbuf);\n",
+          "      for (int i_ = threadIdx.x; i_ < kRows * kThreads; i_ += kChunkThreads) "
+          + _CHUNK_FILL), _K17_NEW],
+    ],
+    "steps": [K16_PHASES["steps"][0], K16_PHASES["steps"][1] + [_K17_NEW]],
+    # add_pair_rows: K17's close one pair a thread and on the chunked trips
+    "closes": [K16_PHASES["closes"][0]],
+}
+
+PHASES = {"K9": K9_PHASES, "K14": K14_PHASES, "K16": K16_PHASES, "K17": K17_PHASES}
 
 
 def _span(text: str, old) -> tuple:

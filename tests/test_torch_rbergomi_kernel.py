@@ -608,3 +608,57 @@ def test_pack_as_the_chunked_product_reads_it():
         want_z[: n - 1, : n - 1] = np.tril(m[n: 2 * n - 1, n: 2 * n - 1])
         np.testing.assert_array_equal(got_inc, want_inc)
         np.testing.assert_array_equal(got_z, want_z)
+
+
+@pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
+@pytest.mark.parametrize("steps", [1, 2, 3, 33, 64, 256])
+def test_values_and_vjp_shared_memory_are_the_chunk_kernels(steps, qmc):
+    """K14's layout (csrc/rbergomi.cu rb_chunk_smem: 64 pairs' ξ columns of
+    2·steps rows padded to whole tiles, one 32-row chunk of Z, the Sobol'
+    table) counted by hand is K15's, and K17's (rb_greeks_smem: two 16-row
+    chunks for Z and its H tangent) is K16's, the same bytes; under the
+    H100's 227 KB a block up to MAX_STEPS, and by shared memory 5 blocks an
+    SM on Philox and 4 under QMC at 64 steps, as K15 and K16."""
+    zcols = 8 * -(-(steps - 1) // 8)
+    table = 4 * 2 * steps * 31 if qmc else 0
+    k15 = 4 * 64 * (steps + zcols + CHUNK_ROWS) + table
+    values, vjp = pr.values_smem_bytes(steps, qmc), pr.vjp_smem_bytes(steps, qmc)
+    assert values == k15
+    assert vjp == 4 * 64 * (steps + zcols + 2 * (CHUNK_ROWS // 2)) + table
+    assert vjp == pr.greeks_smem_bytes(steps, qmc) == values
+    assert values <= pr.SMEM_PER_BLOCK
+    for got in (values, vjp):
+        blocks = SM_SMEM // (got + RED_BYTES + BLOCK_RESERVED)
+        assert blocks >= 1
+        if steps == 64:
+            assert blocks == (4 if qmc else 5)
+    if steps == pr.MAX_STEPS and qmc:
+        assert values == 198 * 1024  # 128 KB of ξ, 8 KB of chunk, 62 KB of table
+
+
+def _values_trip_writes(n_paths: int, wave: int, antithetic: bool) -> np.ndarray:
+    """The output indices K14 writes, by its trip mapping (csrc/rbergomi.cu
+    rb_values_kernel): grid min(wave, ceil(n / 64)) blocks; block b's trip r
+    takes pairs base + t, base = 64·b + 64·grid·r, t < 64, while base < n;
+    of slot t, thread 2t writes out[pair] and, under antithetic, thread
+    2t + 1 out[n + pair]; a pair >= n is masked."""
+    grid = min(wave, -(-n_paths // pr.BLOCK_PAIRS))
+    trips = -(-n_paths // (grid * pr.BLOCK_PAIRS))
+    b, r, t = np.meshgrid(np.arange(grid), np.arange(trips), np.arange(pr.BLOCK_PAIRS),
+                          indexing="ij")
+    base = pr.BLOCK_PAIRS * b + pr.BLOCK_PAIRS * grid * r
+    pair = (base + t)[(base < n_paths) & (base + t < n_paths)]
+    return np.concatenate([pair, n_paths + pair]) if antithetic else pair
+
+
+@pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "one-group"])
+@pytest.mark.parametrize("wave", [1, 7, 528, 660])
+@pytest.mark.parametrize("n_paths", [1, 63, 64, 65, 4097, 3 * 2**14 + 5, 2**20 + 5])
+def test_values_trip_mapping_writes_each_value_once(n_paths, wave, antithetic):
+    """K14's trips on a resident wave (ragged n, grids from one block to an
+    H100's 5 a SM) write every output value of the (1 or 2, n) array exactly
+    once and nothing past it."""
+    writes = _values_trip_writes(n_paths, wave, antithetic)
+    size = (2 if antithetic else 1) * n_paths
+    assert writes.min() >= 0 and writes.max() < size
+    np.testing.assert_array_equal(np.bincount(writes, minlength=size), np.ones(size, np.int64))
