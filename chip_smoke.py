@@ -227,6 +227,36 @@ RB_SURF_SMILE_BLOCKS = 1024  # K19 at each expiry: 1024 x 2048 = 2^21 pairs a se
 RB_ALLOWANCE_PAIRS = 2**12  # the CPU's coupled scheme gaps (rb_surface_allowance)
 
 
+# Sizes past the port's old limits, which the JAX kernels take: a one-year
+# QE price with daily steps under QMC (the kernels once took 128); the exact
+# kernels under QMC at 32 segments of a five-year call and a 10 x 20 surface
+# of semiannual expiries to five years, 4 segments a gap, 40 in all (once 16;
+# at this market's vol-of-vol the exact scheme's Poisson trip count caps a
+# segment at about 0.1 years, in the JAX package as here); a five-year QE-32
+# calibration surface under QMC (160 steps); rough Bergomi over two years of
+# daily steps (512; once 256) and a smile of 81 strikes (once 64).  Each
+# kernel runs at full width, and against its twin on WIDE_TWIN_PAIRS pairs.
+WIDE_QE_STEPS = 252
+WIDE_EXACT_SEGMENTS, WIDE_EXACT_YEARS = 32, 5.0
+WIDE_K4 = dict(expiries=10, strikes=20, segments=4, pairs=2**24)
+WIDE_SURF_YEARS = 5
+WIDE_RB_STEPS = 512
+WIDE_RB_PAIRS = 2**22  # K14, K17, K18
+WIDE_SMILE_STRIKES = tuple(60.0 + k for k in range(81))
+WIDE_TWIN_PAIRS = 2**16
+
+
+def chain_tol(tol: dict, steps: int, base_steps: int) -> tuple:
+    """(per-path tolerance, mean tolerance) of a kernel against its twin
+    over a chain of ``steps`` steps, from the family's ``tol`` and
+    ``MEAN_RTOL`` at ``base_steps``: the two differ by fp32 ulps a step (FMA
+    contraction, the card's transcendentals), and the differences add up
+    along the chain, so the relative limits scale with steps / base_steps;
+    the share of paths stays the family's."""
+    k = max(1.0, steps / base_steps)
+    return dict(tol, rel=tol["rel"] * k), MEAN_RTOL * k
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -310,8 +340,8 @@ def compare_vectors(name: str, got, want, rtol: float) -> float:
 # branches, the cheaper side is counted, so the bound is a lower bound on
 # what this run's data needs (the QE draw: the exponential branch with
 # u <= p; the exact segment: no Poisson trip, the large-argument Bessel
-# ratio, the short gamma-quantile series).  K10 and K11 count their primal
-# only; K16 and K17 their tangents too.  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
+# ratio, the short gamma-quantile series).  The greek kernels count their
+# tangents too (K10-K12 since PR 11, K16-K18).  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
 # operations per clock per SM on 132 SMs, 3.35 TB/s.
 FP32_PEAK, MEM_PEAK, SMS, MUFU_PER_CLK = 67e12, 3.35e12, 132, 16
 
@@ -338,6 +368,12 @@ CLOSE = _ops((16, 0), EXP, SQRT, RCP, (2, NCDF))
 EULER_STEP = _ops((19, 0), SQRT)
 GAMMA_QTL = _ops((76, 0), RCP, SQRT)
 EXACT_SEG = _ops((54, 0), (2, GAMMA_QTL), (2, EXP), LOG, SQRT, (5, RCP))
+# QE tangents: a step's draw coefficients (the exponential branch) and the
+# (V, S) or (V, IV) tangents of 4 directions (5 with T); the close's
+# partials past the value (the vega's exponential is Phi(cp d1)'s) and per
+# direction the dIV, dJ and chain terms
+QE_TAN_STEP4, QE_TAN_STEP5, SURF_TAN_STEP = (35, 0), (43, 0), (43, 0)
+PARTIALS = (17, 0)
 
 
 def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
@@ -354,6 +390,9 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     exact_draw = _ops((4, SOBOL_U), (2, NDTRI), (2, 0)) if qmc else _ops(BOX_MULLER, (4, 0))
     exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))), (2, _ops((3, 0), CLOSE)))
     surf_qe = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (points, _ops((2, CLOSE), (1, 0))))
+    surf_jac = _ops(surf_qe, (2 * steps, SURF_TAN_STEP), (2 * points, _ops(PARTIALS, (21, 0))))
+    greeks = _ops(mix, (2, 0), (2 * steps, QE_TAN_STEP4), (2, _ops(PARTIALS, (64, 0))))
+    vjp = _ops(mix, (2 * steps, QE_TAN_STEP5), (2, _ops(PARTIALS, (90, 0))))
     surf_exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))),
                       (points, _ops((2, _ops((3, 0), CLOSE)), (1, 0))))
     # rough Bergomi: the draws of 2n - 1 normals, the product's n(n - 1)
@@ -376,7 +415,7 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     surfaces = {  # per pair; bytes: one float64 per point and column, written once
         "heston_qe_mixing_surface_price": (surf_qe, 8 * points),
         "heston_exact_mixing_surface_price": (surf_exact, 8 * points),
-        "heston_qe_mixing_surface_price_and_jacobian": (surf_qe, 56 * points),
+        "heston_qe_mixing_surface_price_and_jacobian": (surf_jac, 56 * points),
     }
     if name in surfaces:
         (f, m), nbytes = surfaces[name]
@@ -387,8 +426,8 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
         "heston_exact_mixing_vanilla_price": (_ops(exact, (2, 0)), 0),
         "heston_qe_mixing_values": (mix, 8),
         "heston_qe_mixing_vanilla_price": (_ops(mix, (2, 0)), 0),
-        "heston_qe_mixing_price_and_greeks": (_ops(mix, (2, 0)), 0),
-        "_mixing_values_vjp": (mix, 8),
+        "heston_qe_mixing_price_and_greeks": (greeks, 0),
+        "_mixing_values_vjp": (vjp, 8),
         "heston_qe_terminal": (qem, 8),
         "heston_qe_call_price": (_ops(qem, (5, 0)), 0),
         "gbm_exact_terminal": (_ops((0.5, BOX_MULLER), (4, 0), (2, EXP)), 8),
@@ -1212,6 +1251,30 @@ def surface_inputs(device):
                 for d in qk.segment_dts(T_host, ex_seg)])
 
 
+def calibration_inputs(device, qmc: bool = False, seed: int = 5) -> dict:
+    """The 3 x 17 calibration shape's surface-kernel arguments on ``device``
+    before the pairs: ``price`` K9's (params, table, steps, m), ``jac``
+    K12's (params, dct, djt, table, steps, m); ``steps`` the QE steps per
+    segment."""
+    import torch
+
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    cal_T = [d / 365.0 for d in CAL_EXPIRY_DAYS]
+    cal_seg = tuple(surface_seg_steps(cal_T, SURF_QE_STEPS)[1])
+    pc = torch.as_tensor(qk._surf_params(*MARKET_ARGS, cal_T, cal_seg, CAL_STRIKES, 1.0),
+                         device=device)
+    cdct, cdjt = (torch.as_tensor(t, dtype=torch.float32, device=device)
+                  for t in gk._surface_greek_tables(*MARKET_ARGS[3:6], cal_T, cal_seg))
+    table = (torch.as_tensor(qk.sobol_table(seed, 2 * sum(cal_seg)), device=device) if qmc
+             else None)
+    m = len(CAL_STRIKES)
+    return dict(T=cal_T, steps=cal_seg, price=(pc, table, cal_seg, m),
+                jac=(pc, cdct, cdjt, table, cal_seg, m))
+
+
 def carr_madan_surface(market, expiries, strikes):
     """(n_exp, m) float64 Carr-Madan call prices, one strike-vector solve
     per expiry."""
@@ -1251,7 +1314,6 @@ def phase_surface_kernels(pairs: int, device: str) -> dict:
     counts)."""
     import torch
 
-    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
     from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
     from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
     from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
@@ -1342,15 +1404,9 @@ def phase_surface_kernels(pairs: int, device: str) -> dict:
             max_abs_err=err12, ms=times["K12"][0], plain_ms=times["K12"][1])
 
     # the calibration shape: 3 expiries x 17 strikes (51 points; K12 357 columns)
-    cal_T = [d / 365.0 for d in CAL_EXPIRY_DAYS]
-    cal_seg = tuple(surface_seg_steps(cal_T, SURF_QE_STEPS)[1])
-    pc = torch.as_tensor(qk._surf_params(*MARKET_ARGS, cal_T, cal_seg, CAL_STRIKES, 1.0), device=dev)
-    cdct, cdjt = (torch.as_tensor(t, dtype=torch.float32, device=dev)
-                  for t in gk._surface_greek_tables(*MARKET_ARGS[3:6], cal_T, cal_seg))
-    m_cal = len(CAL_STRIKES)
-    run9 = (pc, None, cal_seg, m_cal, pairs, 5, 0, 0)
-    run12 = (pc, cdct, cdjt, None, cal_seg, m_cal, pairs, 5, 0, 0)
-    say(f"  calibration shape {len(cal_T)} x {m_cal}, steps {cal_seg} (PRNG):")
+    cal = calibration_inputs(dev)
+    run9, run12 = (*cal["price"], pairs, 5, 0, 0), (*cal["jac"], pairs, 5, 0, 0)
+    say(f"  calibration shape {len(cal['T'])} x {len(CAL_STRIKES)}, steps {cal['steps']} (PRNG):")
     cal9 = qk._qe_surface_sums(*run9)
     compare_points("K9 sums (3 x 17)", cal9, qk.heston_qe_mixing_surface_sums_plain(*run9), pairs,
                    max(disc))
@@ -1604,19 +1660,20 @@ def rb_problem(cp: str = "call", eta=None, rho=None):
     return ht.PricingProblem(payoff, market)
 
 
-def rb_config(pairs: int, qmc: bool, seed: int = 0):
+def rb_config(pairs: int, qmc: bool, seed: int = 0, steps: int = RB_STEPS):
     import hedgehog_tpu_torch as ht
 
-    return ht.SimulationConfig(pairs, RB_STEPS, ht.Antithetic(), seed, qmc)
+    return ht.SimulationConfig(pairs, steps, ht.Antithetic(), seed, qmc)
 
 
-def rb_device_inputs(pairs: int, qmc: bool, seed: int, device, tangent: bool, vjp: bool = False):
+def rb_device_inputs(pairs: int, qmc: bool, seed: int, device, tangent: bool, vjp: bool = False,
+                     steps: int = RB_STEPS):
     """(host trace, RbInputs on the device) of the serving problem: the price
     trace, or with ``tangent`` the greek trace (dL/dH and the tangent
     parameters; the VJP's Hη and 1/T too when ``vjp``)."""
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
-    cfg = rb_config(pairs, qmc, seed)
+    cfg = rb_config(pairs, qmc, seed, steps)
     trace = (rk._rb_greek_trace_inputs if tangent else rk._rb_trace_inputs)(rb_problem(), cfg, 64)
     return trace, rk.rb_inputs_from_trace(trace, seed=seed, qmc=qmc, device=device,
                                           hurst=RB_MARKET["hurst"] if vjp else None)
@@ -1877,6 +1934,234 @@ def phase_rb_shapes(device: str) -> dict:
             "rbergomi_mixing_price_and_greeks": disc * float(((sums - want16) / (2 * pairs))
                                                              .abs().max()),
             "rbergomi_mixing_smile_price": max(e19)}
+
+
+def phase_past_old_limits(T: float, device: str) -> dict:
+    """Every kernel whose wrapper once refused a size the JAX kernels take,
+    past that size at full width (finite, timed), and against its plain
+    twin on ``WIDE_TWIN_PAIRS`` pairs at its family's tolerance: K5, K7,
+    K8, K10, K11 and K6 at ``WIDE_QE_STEPS`` steps (QMC; K6 is Philox only),
+    K2 and K3 at ``WIDE_EXACT_SEGMENTS`` QMC segments, K4 on ``WIDE_K4``,
+    K9 and K12 on a ``WIDE_SURF_YEARS``-year QE-32 QMC surface, K14-K18 at
+    ``WIDE_RB_STEPS`` steps on both streams, K19 at the 81 strikes of
+    ``WIDE_SMILE_STRIKES`` (each strike K15's price to the bit).  Returns
+    {kernel: (max abs error against the twin, full-width ms)}."""
+    import torch
+
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+    from hedgehog_tpu_torch.models.heston_exact import poisson_kmax
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    dev, tw, out = torch.device(device), WIDE_TWIN_PAIRS, {}
+    serving = SERVING_BLOCKS * SERVING_BATCHES * qk.PAIRS_PER_BLOCK
+    say(f"phase 2 (past the old limits): each kernel at full width and against its twin on {tw} "
+        "pairs")
+
+    def full(name, fn):
+        res = fn()
+        torch.cuda.synchronize()
+        vals = res if isinstance(res, tuple) else (res,)
+        check(all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in vals),
+              f"{name}: non-finite output at full width")
+        ms = time_ms(fn, reps=2)
+        say(f"  {name} at full width: {ms:.3f} ms")
+        return ms
+
+    n = WIDE_QE_STEPS
+    p_mix, t_mix = qk.mix_inputs(*MARKET_ARGS, T / n, STRIKE, 1.0, n, 5, True, dev)
+    tol, mean_tol = chain_tol(VALUES_TOL, n, QE_STEPS)
+    say(f"  per path: {tol['share']} of values within rel {tol['rel']:.3g} and the means within "
+        f"{mean_tol:.3g} (VALUES_TOL and MEAN_RTOL at {QE_STEPS} steps scaled by the chain's "
+        "length); sums within SUM_RTOL as at the old sizes")
+    err = compare_values(f"K7 ({n} QMC steps)", qk._qe_values(p_mix, t_mix, tw, n, True, 5, 0, 0),
+                         qk.heston_qe_mixing_values_plain(p_mix, t_mix, tw, n, True, 5, 0, 0), tol,
+                         mean_tol)
+    out["K7"] = (err, full(f"K7 ({n} QMC steps, {SOLVE_PAIRS} pairs)",
+                           lambda: qk._qe_values(p_mix, t_mix, SOLVE_PAIRS, n, True, 5, 0, 0)))
+    got8 = qk._qe_price_sum(p_mix, t_mix, tw, n, 5, 0, 0)
+    err = compare_vectors(f"K8 sum ({n} QMC steps)", got8.reshape(1),
+                          qk.heston_qe_mixing_price_sum_plain(p_mix, t_mix, tw, n, 5, 0, 0).reshape(1),
+                          SUM_RTOL)
+    out["K8"] = (err, full(f"K8 ({n} QMC steps, {serving} pairs)",
+                           lambda: qk._qe_price_sum(p_mix, t_mix, serving, n, 5, 0, 0)))
+    dtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                           HESTON["sigma"], T / n, n, 4), device=dev)
+    got10 = gk._greek_sums(p_mix, dtab, t_mix, tw, n, 5, 0, 0)
+    err = compare_vectors(f"K10 sums ({n} QMC steps)", got10,
+                          gk.heston_qe_mixing_greek_sums_plain(p_mix, dtab, t_mix, tw, n, 5, 0, 0),
+                          SUM_RTOL)
+    check(float(got10[0]) == float(got8), "K10's price sum differs from K8's")
+    out["K10"] = (err, full(f"K10 ({n} QMC steps, {serving} pairs)",
+                            lambda: gk._greek_sums(p_mix, dtab, t_mix, serving, n, 5, 0, 0)))
+    vtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                           HESTON["sigma"], T / n, n, 5), device=dev)
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * tw, device=dev, dtype=torch.float32))).reshape(
+        2, tw)
+    err = compare_vectors(f"K11 sums ({n} QMC steps)",
+                          gk._vjp_sums(p_mix, vtab, t_mix, ct, tw, n, True, 5, 0, 0),
+                          gk.heston_qe_mixing_vjp_sums_plain(p_mix, vtab, t_mix, ct, tw, n, True,
+                                                             5, 0, 0), SUM_RTOL)
+    out["K11"] = (err, None)
+    p_qem, t_qem = qk.qem_inputs(*MARKET_ARGS, T / n, n, 5, True, dev)
+    tol, mean_tol = chain_tol(VALUES_TOL, n, QEM_STEPS)
+    err = compare_values(f"K5 ({n} QMC steps)",
+                         qk._qem_terminal(p_qem, t_qem, tw, n, True, True, 5, 0, 0),
+                         qk.heston_qe_terminal_plain(p_qem, t_qem, tw, n, True, True, 5, 0, 0), tol,
+                         mean_tol)
+    out["K5"] = (err, full(f"K5 ({n} QMC steps, {QEM_SOLVE_PAIRS} pairs)",
+                           lambda: qk._qem_terminal(p_qem, t_qem, QEM_SOLVE_PAIRS, n, True, True,
+                                                    5, 0, 0)))
+    p6, _ = qk.qem_inputs(*MARKET_ARGS, T / n, n, 5, False, dev)
+    p6 = torch.cat([p6, torch.tensor([STRIKE], dtype=torch.float32, device=dev)])
+    err = compare_vectors(f"K6 sum ({n} Philox steps)", qk._qem_price_sum(p6, tw, n, 5, 0).reshape(1),
+                          qk.heston_qe_call_price_sum_plain(p6, tw, n, 5, 0).reshape(1), SUM_RTOL)
+    out["K6"] = (err, full(f"K6 ({n} Philox steps, {serving} pairs)",
+                           lambda: qk._qem_price_sum(p6, serving, n, 5, 0)))
+
+    segs = WIDE_EXACT_SEGMENTS
+    px, tx, kmax = ek._inputs(*MARKET_ARGS, WIDE_EXACT_YEARS / segs, STRIKE, 1.0, segs, 5, True,
+                              dev)
+    tol, mean_tol = chain_tol(VALUES_TOL, segs, SEGMENTS)
+    err = compare_values(f"K2 ({segs} QMC segments)",
+                         ek._exact_values(px, tx, tw, segs, True, kmax, 5, 0, 0),
+                         ek.heston_exact_mixing_values_plain(px, tx, tw, segs, True, kmax, 5, 0, 0),
+                         tol, mean_tol)
+    out["K2"] = (err, full(f"K2 ({segs} QMC segments, {SOLVE_PAIRS} pairs)",
+                           lambda: ek._exact_values(px, tx, SOLVE_PAIRS, segs, True, kmax, 5, 0, 0)))
+    err = compare_vectors(f"K3 sum ({segs} QMC segments)",
+                          ek._exact_price_sum(px, tx, tw, segs, kmax, 5, 0, 0).reshape(1),
+                          ek.heston_exact_mixing_price_sum_plain(px, tx, tw, segs, kmax, 5, 0,
+                                                                 0).reshape(1), SUM_RTOL)
+    out["K3"] = (err, full(f"K3 ({segs} QMC segments, {serving} pairs)",
+                           lambda: ek._exact_price_sum(px, tx, serving, segs, kmax, 5, 0, 0)))
+
+    # K4: 10 semiannual expiries x 20 strikes, 4 segments a gap (40 under QMC)
+    n_exp, m4 = WIDE_K4["expiries"], WIDE_K4["strikes"]
+    T4 = [WIDE_EXACT_YEARS * (i + 1) / n_exp for i in range(n_exp)]
+    k4 = [60.0 + 80.0 * k / (m4 - 1) for k in range(m4)]
+    seg4 = (WIDE_K4["segments"],) * n_exp
+    kmax4 = [poisson_kmax(*MARKET_ARGS[3:6], d, MARKET_ARGS[1]) for d in qk.segment_dts(T4, seg4)]
+    t4 = torch.as_tensor(qk.sobol_table(5, 4 * sum(seg4)), device=dev)
+    p4 = torch.as_tensor(ek._exact_surf_params(*MARKET_ARGS, T4, seg4, k4, 1.0), device=dev)
+    run4 = (p4, t4, seg4, kmax4, m4, tw, 5, 0, 0)
+    err = compare_points(f"K4 sums ({n_exp} x {m4}, {sum(seg4)} QMC segments)",
+                         ek._exact_surface_sums(*run4),
+                         ek.heston_exact_mixing_surface_sums_plain(*run4), tw, 1.0)
+    out["K4"] = (err, full(
+        f"K4 public wrapper ({n_exp} x {m4}, {sum(seg4)} QMC segments, {WIDE_K4['pairs']} pairs)",
+        lambda: ek.heston_exact_mixing_surface_price(
+            *MARKET_ARGS, T4, k4, [math.exp(-R * x) for x in T4], seg_steps=seg4, n_strikes=m4,
+            n_blocks=WIDE_K4["pairs"] // qk.PAIRS_PER_BLOCK, n_batches=1, seed=5, qmc=True,
+            device=dev)))
+
+    # K9, K12: a five-year QE-32 surface, yearly expiries x the 5 strikes
+    T9 = [float(y + 1) for y in range(WIDE_SURF_YEARS)]
+    seg9 = tuple(surface_seg_steps(T9, SURF_QE_STEPS * WIDE_SURF_YEARS)[1])
+    t9 = torch.as_tensor(qk.sobol_table(5, 2 * sum(seg9)), device=dev)
+    p9 = torch.as_tensor(qk._surf_params(*MARKET_ARGS, T9, seg9, SURF_STRIKES, 1.0), device=dev)
+    dct, djt = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in gk._surface_greek_tables(*MARKET_ARGS[3:6], T9, seg9))
+    m9 = len(SURF_STRIKES)
+    run9 = (p9, t9, seg9, m9, tw, 5, 0, 0)
+    s9 = qk._qe_surface_sums(*run9)
+    err = compare_points(f"K9 sums ({WIDE_SURF_YEARS}-year QE-32, {sum(seg9)} QMC steps)", s9,
+                         qk.heston_qe_mixing_surface_sums_plain(*run9), tw, 1.0)
+    run12 = (p9, dct, djt, t9, seg9, m9, tw, 5, 0, 0)
+    s12 = gk._surface_jac_sums(*run12)
+    err12 = compare_vectors(f"K12 sums ({WIDE_SURF_YEARS}-year QE-32, {sum(seg9)} QMC steps)",
+                            s12, gk.heston_qe_mixing_surface_jac_sums_plain(*run12), SUM_RTOL)
+    check(torch.equal(s12.reshape(-1, 7)[:, 0], s9), "K12's five-year surface differs from K9's")
+    wide = dict(seg_steps=seg9, n_strikes=m9, n_blocks=SURF_BLOCKS, n_batches=SURF_BATCHES, seed=5,
+                qmc=True, device=dev)
+    discs9 = [math.exp(-R * x) for x in T9]
+    out["K9"] = (err, full(f"K9 ({WIDE_SURF_YEARS}-year QE-32 QMC, 2^26 pairs)",
+                           lambda: qk.heston_qe_mixing_surface_price(*MARKET_ARGS, T9, SURF_STRIKES,
+                                                                     discs9, **wide)))
+    out["K12"] = (err12, full(
+        f"K12 ({WIDE_SURF_YEARS}-year QE-32 QMC, 2^26 pairs)",
+        lambda: gk.heston_qe_mixing_surface_price_and_jacobian(*MARKET_ARGS, T9, SURF_STRIKES,
+                                                               discs9, **wide)))
+    check(torch.equal(qk.heston_qe_mixing_surface_price(*MARKET_ARGS, T9, SURF_STRIKES, discs9,
+                                                        **wide),
+                      gk.heston_qe_mixing_surface_price_and_jacobian(*MARKET_ARGS, T9, SURF_STRIKES,
+                                                                     discs9, **wide)[0]),
+          "K12's five-year 2^26-pair surface differs from K9's")
+
+    # rough Bergomi at WIDE_RB_STEPS steps: K14, K17, K18 at WIDE_RB_PAIRS
+    # pairs, K15 and K16 at the serving 2^24, each against its twin
+    n = WIDE_RB_STEPS
+    rb_serving = RB_BLOCKS * RB_BATCHES * rk.PAIRS_PER_BLOCK
+    for qmc in (True, False):
+        s = "QMC" if qmc else "PRNG"
+        ins, inp = rb_device_inputs(tw, qmc, 5, dev, tangent=False, steps=n)
+        g_ins, g_inp = rb_device_inputs(tw, qmc, 5, dev, tangent=True, steps=n)
+        _, v_inp = rb_device_inputs(tw, qmc, 5, dev, tangent=True, vjp=True, steps=n)
+        say(f"  rough Bergomi at {n} steps ({s}): xi columns in a global slab: K15 "
+            f"{rk.in_slab(n, rk.values_smem_bytes)}, K18 {rk.in_slab(n, rk.curve_smem_bytes)}; "
+            f"K15 occupancy {rk.price_occupancy(inp)}")
+        tol, mean_tol = chain_tol(RB_VALUES_TOL, n, RB_STEPS)
+        e14 = compare_values(f"K14 ({n} steps, {s})", rk._rb_values(inp, tw, True, 5, 0, 0),
+                             rk.rbergomi_mixing_values_plain(inp, tw, True, 5, 0, 0), tol, mean_tol)
+        ms14 = full(f"K14 ({n} steps, {s}, {WIDE_RB_PAIRS} pairs)",
+                    lambda: rk._rb_values(inp, WIDE_RB_PAIRS, True, 5, 0, 0))
+        e15 = compare_vectors(f"K15 sum ({n} steps, {s})",
+                              rk._rb_price_sum(inp, tw, 5, 0, 0).reshape(1),
+                              rk.rbergomi_mixing_price_sum_plain(inp, tw, 5, 0, 0).reshape(1),
+                              SUM_RTOL)
+        ms15 = full(f"K15 ({n} steps, {s}, {rb_serving} pairs)",
+                    lambda: rk._rb_price_sum(inp, rb_serving, 5, 0, 0))
+        g16 = rk._rb_greek_sums(g_inp, tw, 5, 0, 0)
+        e16 = compare_vectors(f"K16 sums ({n} steps, {s})", g16,
+                              rk.rbergomi_mixing_greek_sums_plain(g_inp, tw, 5, 0, 0), SUM_RTOL)
+        check(float(g16[0]) == float(rk._rb_price_sum(g_inp, tw, 5, 0, 0)),
+              f"K16's price differs from K15's at {n} steps ({s})")
+        ms16 = full(f"K16 ({n} steps, {s}, {rb_serving} pairs)",
+                    lambda: rk._rb_greek_sums(g_inp, rb_serving, 5, 0, 0))
+        ct_rb = (0.5 + 0.5 * torch.sin(torch.arange(2 * WIDE_RB_PAIRS, device=dev,
+                                                    dtype=torch.float32))).reshape(2, -1)
+        ct_tw = ct_rb[:, :tw].contiguous()
+        e17 = compare_vectors(f"K17 sums ({n} steps, {s})",
+                              rk._rb_vjp_sums(v_inp, ct_tw, tw, True, 5, 0, 0),
+                              rk.rbergomi_mixing_vjp_sums_plain(v_inp, ct_tw, tw, True, 5, 0, 0),
+                              SUM_RTOL)
+        ms17 = full(f"K17 ({n} steps, {s}, {WIDE_RB_PAIRS} pairs)",
+                    lambda: rk._rb_vjp_sums(v_inp, ct_rb, WIDE_RB_PAIRS, True, 5, 0, 0))
+        c_inp = rk.rb_vjp_inputs(SPOT, RB_CURVE, *RB_SCALARS, g_ins.horizon, STRIKE, 1.0, steps=n,
+                                 seed=5, qmc=qmc, device=dev)
+        e18 = compare_vectors(f"K18 sums ({n} steps, {s})",
+                              rk._rb_vjp_sums(c_inp, ct_tw, tw, True, 5, 0, 0, per_step=True),
+                              rk.rbergomi_mixing_vjp_curve_sums_plain(c_inp, ct_tw, tw, True, 5, 0,
+                                                                      0), SUM_RTOL)
+        ms18 = full(f"K18 ({n} steps, {s}, {WIDE_RB_PAIRS} pairs)",
+                    lambda: rk._rb_vjp_sums(c_inp, ct_rb, WIDE_RB_PAIRS, True, 5, 0, 0,
+                                            per_step=True))
+        if not qmc:
+            out.update(K14=(e14, ms14), K15=(e15, ms15), K16=(e16, ms16), K17=(e17, ms17),
+                       K18=(e18, ms18))
+
+    # K19: 81 strikes (two launches) at 2^24 pairs x 64 steps, each strike K15's price
+    for qmc in (True, False):
+        s = "QMC" if qmc else "PRNG"
+        ins, inp = rb_device_inputs(rb_serving, qmc, 5, dev, tangent=False)
+        ks = rk.smile_strikes(ins.f_base, WIDE_SMILE_STRIKES, dev)
+        smile = rk._rb_smile_sums(inp, ks, rb_serving, 5, 0, 0)
+        k15 = [float(rk._rb_price_sum(rk.rb_inputs_from_trace(
+            ins._replace(strike=k, log_f_over_k=math.log(ins.f_base / k)), seed=5, qmc=qmc,
+            device=dev), rb_serving, 5, 0, 0)) for k in WIDE_SMILE_STRIKES]
+        same = sum(float(a) == b for a, b in zip(smile, k15))
+        say(f"  K19 at {len(ks)} strikes ({s}, {rb_serving} pairs): {same} of {len(ks)} strikes "
+            "equal K15's price to the bit")
+        check(same == len(ks), f"K19 at {len(ks)} strikes ({s}): a strike differs from K15's")
+        e19 = compare_vectors(f"K19 sums ({len(ks)} strikes, {s})",
+                              rk._rb_smile_sums(inp, ks, tw, 5, 0, 0),
+                              rk.rbergomi_mixing_smile_sums_plain(inp, ks, tw, 5, 0, 0), SURF_RTOL)
+        if not qmc:
+            out["K19"] = (e19, full(f"K19 ({len(ks)} strikes, {s}, {rb_serving} pairs)",
+                                    lambda: rk._rb_smile_sums(inp, ks, rb_serving, 5, 0, 0)))
+    return out
 
 
 def say_occupancy(name: str, occ: dict) -> None:
@@ -2352,13 +2637,16 @@ def phase_rb_serving(f64: dict, device: str) -> dict:
 
 def kernel_name(mangled: str) -> str:
     """The ``..._kernel`` identifier in a mangled entry name (a length
-    prefix then the identifier), else the name itself."""
+    prefix then the identifier), with its bool template argument where it
+    has one (``<true>``: the staged Sobol' table, or K14-K19 past the
+    staged steps), else the name itself."""
     for found in re.finditer(r"\d+", mangled):
         for i in range(found.start(), found.end()):
             n = int(mangled[i:found.end()])
             ident = mangled[found.end():found.end() + n]
             if len(ident) == n and ident.endswith("kernel"):
-                return ident
+                arg = mangled[found.end() + n:found.end() + n + 5]
+                return ident + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(arg, "")
     return mangled[:60]
 
 
@@ -2433,10 +2721,20 @@ def output_digests(device: str) -> dict:
         put(f"K11 {s}", gk._vjp_sums(params, vjp_table, table, ct, pairs, QE_STEPS, True, seed, 0, 0))
         surf_kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=pairs // qk.PAIRS_PER_BLOCK,
                        n_batches=1, **kw)
+        # the public surface wrappers at the grid before K12's redesign (528
+        # blocks on an H100: K9 and K12 both walked it), where they take one
+        old = ({"grid": K9_PARENT_BLOCKS * sms}
+               if "grid" in inspect.signature(qk.heston_qe_mixing_surface_price).parameters
+               else {})
         put(f"K9 {s}", qk.heston_qe_mixing_surface_price(*mkt, T_host, SURF_STRIKES, discs,
-                                                         seg_steps=qe_seg, **surf_kw))
+                                                         seg_steps=qe_seg, **surf_kw, **old))
         put(f"K12 {s}", *gk.heston_qe_mixing_surface_price_and_jacobian(
-            *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
+            *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw, **old))
+        if old:  # and at the package's own grid
+            put(f"K9 {s} default grid", qk.heston_qe_mixing_surface_price(
+                *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
+            put(f"K12 {s} default grid", *gk.heston_qe_mixing_surface_price_and_jacobian(
+                *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
         # K9's and K12's float64 sums at the grid before K9's redesign
         t9 = torch.as_tensor(qk.sobol_table(seed, 2 * sum(qe_seg)), device=dev) if qmc else None
         at = ({"grid": K9_PARENT_BLOCKS * sms}
@@ -2446,6 +2744,13 @@ def output_digests(device: str) -> dict:
                                                            len(SURF_STRIKES), n, seed, 0, 0, **at))
         put(f"K12 {s} sums", gk._surface_jac_sums(surf["p9"], surf["dct"], surf["djt"], t9, qe_seg,
                                                   len(SURF_STRIKES), pairs, seed, 0, 0, **at))
+        if at:  # K12 at 2^26 pairs and at the 3 x 17 calibration shape, the same grid
+            put(f"K12 {s} 2^26 sums", gk._surface_jac_sums(
+                surf["p9"], surf["dct"], surf["djt"], t9, qe_seg, len(SURF_STRIKES),
+                SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK, seed, 0, 0, **at))
+            cal = calibration_inputs(dev, qmc, seed)
+            put(f"K12 {s} 3x17 sums", gk._surface_jac_sums(*cal["jac"], pairs, seed, 0, 0, **at))
+            put(f"K9 {s} 3x17 sums", qk._qe_surface_sums(*cal["price"], pairs, seed, 0, 0, **at))
         t4 = torch.as_tensor(qk.sobol_table(seed, 4 * sum(ex_seg)), device=dev) if qmc else None
         for label, n in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK)):
             run4 = (surf["p4"], t4, ex_seg, surf["kmaxes"], len(SURF_STRIKES), n, seed, 0, 0)
@@ -2643,8 +2948,9 @@ def kernel_times(device: str, only=None) -> dict:
     return out
 
 
-#: the rough-Bergomi kernels, for ``--times --only``
-RB_KERNELS = ("K14", "K15", "K16", "K17", "K18", "K19")
+#: the rough-Bergomi kernels, for ``--times --only`` ("K15 wide": K15 past
+#: the staged steps, :func:`rb_wide_times`)
+RB_KERNELS = ("K14", "K15", "K16", "K17", "K18", "K19", "K15 wide")
 #: the QE surface kernels' resident blocks an SM before K9's redesign (K9 63
 #: registers: 4 blocks of 256 threads, K12 114: 2); their grid was this
 #: times the SMs (528 on an H100)
@@ -2654,9 +2960,10 @@ K9_PARENT_BLOCKS = 4
 def surface_kernel_times(dev, only=None) -> dict:
     """K9 and K12 (CUDA events, 5 calls after a warm-up) on the 3 x 5 QE-32
     surface at 2^20 pairs (PERF.md's rows) and at the 2^26-pair surface
-    dispatch, both streams, through ``_qe_surface_sums`` and
-    ``_surface_jac_sums`` at the package's grid; the grid, and K9's
-    occupancy where the package reports it."""
+    dispatch and on the 3 x 17 calibration shape at 2^20 pairs, both
+    streams, through ``_qe_surface_sums`` and ``_surface_jac_sums`` at the
+    package's grid; the grid, and K9's and K12's occupancy where the package
+    reports it."""
     import torch
 
     from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
@@ -2678,6 +2985,18 @@ def surface_kernel_times(dev, only=None) -> dict:
             if pairs == CHECK_PAIRS and hasattr(qk, "surface_occupancy"):
                 out[f"K9 occupancy {key}"] = qk.surface_occupancy(
                     len(T_host), m, sum(qe_seg), qmc, dev)
+                out[f"K12 occupancy {key}"] = qk.surface_occupancy(
+                    len(T_host), m, sum(qe_seg), qmc, dev, jac=True)
+    # the 3 x 17 calibration shape (51 points, K12 357 columns) at 2^20 pairs
+    for qmc in (False, True):
+        cal = calibration_inputs(dev, qmc, 5)
+        key = f"3x17 {'QMC' if qmc else 'PRNG'} {CHECK_PAIRS}"
+        if only is None or "K9" in only:
+            out[f"K9 {key}"] = time_ms(lambda: qk._qe_surface_sums(*cal["price"], CHECK_PAIRS, 5,
+                                                                   0, 0))
+        if only is None or "K12" in only:
+            out[f"K12 {key}"] = time_ms(lambda: gk._surface_jac_sums(*cal["jac"], CHECK_PAIRS, 5,
+                                                                     0, 0))
     return out
 
 
@@ -2748,6 +3067,37 @@ def rb_kernel_times(dev, only=None) -> dict:
                         lambda: rk._rb_vjp_sums(c_inp, ct, pairs, True, 1, 0, 0, per_step=True))
                 if pairs == CHECK_PAIRS and hasattr(rk, "vjp_curve_occupancy") and want("K18"):
                     out[f"K18 occupancy {key}"] = rk.vjp_curve_occupancy(c_inp)
+    if want("K15 wide") and hasattr(rk, "STAGED_STEPS"):
+        out.update(rb_wide_times(dev))
+    return out
+
+
+#: the wide kernels' step counts in ``--times --only "K15 wide"``: the
+#: staged limit, xi columns in shared memory (the table in global memory)
+#: against the slab at 320 steps, and the slab at 512
+RB_WIDE_STEPS = (256, 320, 512)
+
+
+def rb_wide_times(dev) -> dict:
+    """K15 past the staged step limit (PRNG, 2^22 pairs): at each of
+    ``RB_WIDE_STEPS`` steps, and at 320 with the xi columns forced into the
+    global slab (``rk.SLAB_STEPS``) beside them in shared memory, with the
+    grid and the occupancy of each; ms per n(n-1) of the product."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    out = {}
+    for steps in RB_WIDE_STEPS:
+        for slab in ((None, 1) if steps == 320 else (None,)):
+            saved, rk.SLAB_STEPS = rk.SLAB_STEPS, slab
+            try:
+                _, inp = rb_device_inputs(SOLVE_PAIRS, False, 1, dev, tangent=False, steps=steps)
+                key = f"K15 wide {steps}{' slab' if slab else ''} PRNG {SOLVE_PAIRS}"
+                out[key] = ms = time_ms(lambda: rk._rb_price_sum(inp, SOLVE_PAIRS, 1, 0, 0), reps=2)
+                out[f"{key} per n(n-1)"] = ms / (steps * (steps - 1))
+                out[f"{key} grid"] = rk.price_grid(inp)
+                out[f"{key} occupancy"] = rk.price_occupancy(inp)
+            finally:
+                rk.SLAB_STEPS = saved
     return out
 
 
@@ -2881,6 +3231,7 @@ def main() -> int:
     errs.update(terminal_errs)
     errs.update(phase_surface_shapes("cuda"))
     errs.update(phase_rb_shapes("cuda"))
+    past_limits = phase_past_old_limits(T, "cuda")
     records["gbm_exact_terminal"].update(k13_times)
     for name, err in errs.items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -2975,6 +3326,7 @@ def main() -> int:
                     "calibration": calibration, "rb_path": rb_path, "rb_serving": rb_serving,
                     "rb_occupancy": rb_occupancy, "rb_curve": rb_curve, "rb_smile": rb_smile,
                     "rb_surface": rb_surface, "heston_cells": heston_cells,
+                    "past_old_limits": past_limits,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

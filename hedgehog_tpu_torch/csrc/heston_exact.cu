@@ -25,7 +25,14 @@
 // Poisson loop as soon as the count is settled (the count cannot change
 // once u <= cdf), and for K3 runs one resident wave of blocks that each
 // walk a fixed stride of pairs, so no path data touches memory.
-// Parameters and the Sobol' table sit in shared memory.
+// Parameters and the Sobol' table sit in shared memory; a table too large
+// for a block's shared memory (past about 450 segments) is read from global
+// memory instead, by a second instantiation of each kernel (kStaged false):
+// the same integers, so the same draws.  K2 and K3 once refused QMC runs
+// past 16 segments: nothing in the kernels needed it (no unrolled loop over
+// segments, no register that grows with them; the table then took 7.9 KB),
+// only the price grid (hh_exact_price_grid) is taken at a fixed 16-row
+// table so that it depends on neither the stream nor the segments.
 
 #include "hh_device.cuh"
 
@@ -267,11 +274,17 @@ __device__ __forceinline__ void exact_pair(unsigned long long pair, const ExactP
   val_a = antithetic ? exact_close(va, iva, c) : 0.0f;
 }
 
-// Stage the parameter vector and the Sobol' table in shared memory.
+// Stage the parameter vector and the Sobol' table in shared memory (with
+// kStaged false the table stays in global memory and is returned as given).
+template <bool kStaged>
 __device__ __forceinline__ const int* stage_inputs(const float* params, const int* sobol,
                                                    int segments, ExactParams& sp, int* ssob) {
   float* dst = reinterpret_cast<float*>(&sp);
   for (int i = threadIdx.x; i < kNumParams; i += blockDim.x) dst[i] = params[i];
+  if constexpr (!kStaged) {
+    __syncthreads();
+    return sobol;
+  }
   if (sobol) {
     const int n = 4 * segments * (hh::kSobolBits + 1);
     for (int i = threadIdx.x; i < n; i += blockDim.x) ssob[i] = sobol[i];
@@ -280,13 +293,14 @@ __device__ __forceinline__ const int* stage_inputs(const float* params, const in
   return sobol ? ssob : nullptr;
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 exact_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                     float* __restrict__ out, long long n_paths, int segments, int antithetic,
                     int kmax, uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ ExactParams sp;
   extern __shared__ int ssob[];
-  const int* table = stage_inputs(params, sobol, segments, sp, ssob);
+  const int* table = stage_inputs<kStaged>(params, sobol, segments, sp, ssob);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
   float val, val_a;
@@ -296,6 +310,7 @@ exact_values_kernel(const float* __restrict__ params, const int* __restrict__ so
   if (antithetic) out[n_paths + i] = val_a;
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 exact_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                    double* __restrict__ partials, long long total_pairs, int segments, int kmax,
@@ -303,7 +318,7 @@ exact_price_kernel(const float* __restrict__ params, const int* __restrict__ sob
   __shared__ ExactParams sp;
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table = stage_inputs(params, sobol, segments, sp, ssob);
+  const int* table = stage_inputs<kStaged>(params, sobol, segments, sp, ssob);
   float acc = 0.0f;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs; g += stride) {
@@ -382,7 +397,8 @@ struct XsLayout {
   size_t ys, gaps, close, ints, sobol, bytes;
 };
 
-__host__ __device__ inline XsLayout xs_layout(int n_exp, int m, int total_segs, bool qmc) {
+__host__ __device__ inline XsLayout xs_layout(int n_exp, int m, int total_segs, bool qmc,
+                                              bool staged = true) {
   XsLayout l;
   l.n_cols = n_exp * m;
   l.cap = m > kXsStage ? m : (l.n_cols < kXsStage ? l.n_cols : kXsStage);
@@ -396,7 +412,7 @@ __host__ __device__ inline XsLayout xs_layout(int n_exp, int m, int total_segs, 
   l.ints = off;
   off += sizeof(int) * 2 * n_exp;
   l.sobol = off;
-  off += qmc ? sizeof(int) * 4 * total_segs * (hh::kSobolBits + 1) : 0;
+  off += qmc && staged ? sizeof(int) * 4 * total_segs * (hh::kSobolBits + 1) : 0;
   l.bytes = off;
   return l;
 }
@@ -520,21 +536,23 @@ __device__ __forceinline__ void flush_points(const float* ys, double* wacc, int 
 // total_pairs); the staged points are added when the next expiry would not
 // fit and at the round's end.  The rounds and expiries are uniform over the
 // block, so every lane reaches the shuffles and barriers.
+template <bool kStaged>
 __global__ void __launch_bounds__(kXsThreads, 3)
 exact_surface_kernel(const float* __restrict__ params, const int* __restrict__ ints,
                      const int* __restrict__ sobol, double* __restrict__ partials, int n_exp,
                      int m, int total_segs, long long total_pairs, uint32_t seed,
                      uint32_t device_id, long long point_offset) {
   extern __shared__ __align__(16) char xs_smem[];
-  const XsLayout l = xs_layout(n_exp, m, total_segs, sobol != nullptr);
-  stage_surface(params, ints, sobol, n_exp, m, total_segs, l, xs_smem);
+  const XsLayout l = xs_layout(n_exp, m, total_segs, sobol != nullptr, kStaged);
+  stage_surface(params, ints, kStaged ? sobol : nullptr, n_exp, m, total_segs, l, xs_smem);
   double* wacc = reinterpret_cast<double*>(xs_smem);
   float* ys = reinterpret_cast<float*>(xs_smem + l.ys);
   const ExactParams* gaps = reinterpret_cast<const ExactParams*>(xs_smem + l.gaps);
   const hh::CloseParams* close = reinterpret_cast<const hh::CloseParams*>(xs_smem + l.close);
   const int* nseg = reinterpret_cast<const int*>(xs_smem + l.ints);
   const int* kmaxes = nseg + n_exp;
-  const int* table = sobol ? reinterpret_cast<const int*>(xs_smem + l.sobol) : nullptr;
+  const int* table =
+      !sobol ? nullptr : kStaged ? reinterpret_cast<const int*>(xs_smem + l.sobol) : sobol;
   const int q = threadIdx.x >> 1;
   const bool odd = threadIdx.x & 1;
   const float v0 = params[0];
@@ -581,10 +599,16 @@ extern "C" int hh_exact_values(const float* params, const int* sobol, float* out
                                unsigned seed, unsigned device_id, long long point_offset,
                                void* stream) {
   const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  exact_values_kernel<<<(unsigned)blocks, kThreads, sobol_smem(sobol, segments),
-                        (cudaStream_t)stream>>>(params, sobol, out, n_paths, segments,
-                                                antithetic, kmax, seed, device_id,
-                                                point_offset);
+  const size_t smem = sobol_smem(sobol, segments);
+  if (smem <= hh::smem_room(exact_values_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(exact_values_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    exact_values_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        params, sobol, out, n_paths, segments, antithetic, kmax, seed, device_id, point_offset);
+  } else {
+    exact_values_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        params, sobol, out, n_paths, segments, antithetic, kmax, seed, device_id, point_offset);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -592,24 +616,49 @@ extern "C" int hh_exact_values(const float* params, const int* sobol, float* out
 extern "C" int hh_exact_price(const float* params, const int* sobol, double* partials, int grid,
                               long long total_pairs, int segments, int kmax, unsigned seed,
                               unsigned device_id, long long point_offset, void* stream) {
-  exact_price_kernel<<<grid, kThreads, sobol_smem(sobol, segments), (cudaStream_t)stream>>>(
-      params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
+  const size_t smem = sobol_smem(sobol, segments);
+  if (smem <= hh::smem_room(exact_price_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(exact_price_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    exact_price_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
+  } else {
+    exact_price_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
+  }
   return (int)cudaGetLastError();
 }
 
-// The price kernel's grid: one resident wave on the current device.
+// The price kernel's grid: one resident wave on the current device, taken
+// at a fixed 16-row table (4 segments under QMC) whatever the launch's
+// stream and segments, so those do not move it.
 extern "C" int hh_exact_price_grid(int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_price_kernel, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_price_kernel<true>,
+                                                        kThreads,
                                                         sizeof(int) * 16 * (hh::kSobolBits + 1));
   }
   *grid = sms * (per_sm > 0 ? per_sm : 1);
   return (int)err;
 }
 
+// K4 staged (the Sobol' table in shared memory) where its whole layout fits
+// a block, else reading the table from global memory.
+struct XsLaunch {
+  const void* kernel;
+  XsLayout l;
+};
+
+static XsLaunch xs_launch(int n_exp, int m, int total_segs, bool qmc) {
+  const XsLayout l = xs_layout(n_exp, m, total_segs, qmc, true);
+  if (l.bytes <= hh::smem_room(exact_surface_kernel<true>)) {
+    return {(const void*)exact_surface_kernel<true>, l};
+  }
+  return {(const void*)exact_surface_kernel<false>, xs_layout(n_exp, m, total_segs, qmc, false)};
+}
 
 // K4: out[n_exp * m] float64 sums over the pairs [0, total_pairs) of each
 // point's (value + antithetic value), point-major; partials is (n_exp * m,
@@ -619,17 +668,22 @@ extern "C" int hh_exact_surface(const float* params, const int* ints, const int*
                                 double* partials, double* out, int grid, int n_exp, int m,
                                 int total_segs, long long total_pairs, unsigned seed,
                                 unsigned device_id, long long point_offset, void* stream) {
-  const XsLayout l = xs_layout(n_exp, m, total_segs, sobol != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(exact_surface_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)l.bytes);
+  const XsLaunch x = xs_launch(n_exp, m, total_segs, sobol != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(x.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)x.l.bytes);
   if (err != cudaSuccess) return (int)err;
-  exact_surface_kernel<<<grid, kXsThreads, l.bytes, (cudaStream_t)stream>>>(
-      params, ints, sobol, partials, n_exp, m, total_segs, total_pairs, seed, device_id,
-      point_offset);
+  if (x.kernel == (const void*)exact_surface_kernel<true>) {
+    exact_surface_kernel<true><<<grid, kXsThreads, x.l.bytes, (cudaStream_t)stream>>>(
+        params, ints, sobol, partials, n_exp, m, total_segs, total_pairs, seed, device_id,
+        point_offset);
+  } else {
+    exact_surface_kernel<false><<<grid, kXsThreads, x.l.bytes, (cudaStream_t)stream>>>(
+        params, ints, sobol, partials, n_exp, m, total_segs, total_pairs, seed, device_id,
+        point_offset);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return hh::launch_column_sums(partials, l.n_cols, grid, out, (cudaStream_t)stream);
+  return hh::launch_column_sums(partials, x.l.n_cols, grid, out, (cudaStream_t)stream);
 }
 
 // K4's occupancy on the current device for a surface of n_exp expiries, m
@@ -638,19 +692,18 @@ extern "C" int hh_exact_surface(const float* params, const int* ints, const int*
 // shared bytes, registers a thread, local (spill) bytes a thread).
 extern "C" int hh_exact_surface_occupancy(int n_exp, int m, int total_segs, int qmc, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = xs_layout(n_exp, m, total_segs, qmc != 0).bytes;
+  const XsLaunch x = xs_launch(n_exp, m, total_segs, qmc != 0);
+  const size_t smem = x.l.bytes;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(exact_surface_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(x.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_surface_kernel, kXsThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, x.kernel, kXsThreads, smem);
   }
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, exact_surface_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, x.kernel);
   const int vals[7] = {kXsThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
                        attr.numRegs, (int)attr.localSizeBytes};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];

@@ -44,13 +44,15 @@ __device__ __forceinline__ void mix_pair(unsigned long long pair, const hh::MixP
   val_a = antithetic ? hh::cond_bs_value(iva, ja, c.close) : 0.0f;
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 qe_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                  float* __restrict__ out, long long n_paths, int steps, int antithetic,
                  uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ hh::MixParams sp;
   extern __shared__ int ssob[];
-  const int* table = hh::stage_inputs<0, 2>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const int* table =
+      hh::stage_inputs<0, 2, hh::MixParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
   float val, val_a;
@@ -60,6 +62,7 @@ qe_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol
   if (antithetic) out[n_paths + i] = val_a;
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 qe_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                 double* __restrict__ partials, long long total_pairs, int steps, uint32_t seed,
@@ -67,7 +70,8 @@ qe_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
   __shared__ hh::MixParams sp;
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table = hh::stage_inputs<0, 2>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const int* table =
+      hh::stage_inputs<0, 2, hh::MixParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
   float acc[1] = {0.0f};
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
@@ -91,9 +95,16 @@ extern "C" int hh_qe_values(const float* params, const int* sobol, float* out, l
                             int steps, int antithetic, unsigned seed, unsigned device_id,
                             long long point_offset, void* stream) {
   const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  qe_values_kernel<<<(unsigned)blocks, kThreads, sobol_smem(sobol, steps),
-                     (cudaStream_t)stream>>>(params, sobol, out, n_paths, steps, antithetic, seed,
-                                             device_id, point_offset);
+  const size_t smem = sobol_smem(sobol, steps);
+  if (smem <= hh::smem_room(qe_values_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(qe_values_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    qe_values_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        params, sobol, out, n_paths, steps, antithetic, seed, device_id, point_offset);
+  } else {
+    qe_values_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        params, sobol, out, n_paths, steps, antithetic, seed, device_id, point_offset);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -101,21 +112,38 @@ extern "C" int hh_qe_values(const float* params, const int* sobol, float* out, l
 extern "C" int hh_qe_price(const float* params, const int* sobol, double* partials, int grid,
                            long long total_pairs, int steps, unsigned seed, unsigned device_id,
                            long long point_offset, void* stream) {
-  qe_price_kernel<<<grid, kThreads, sobol_smem(sobol, steps), (cudaStream_t)stream>>>(
-      params, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
+  const size_t smem = sobol_smem(sobol, steps);
+  if (smem <= hh::smem_room(qe_price_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(qe_price_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    qe_price_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        params, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
+  } else {
+    qe_price_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        params, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
+  }
   return (int)cudaGetLastError();
 }
 
 // The price kernels' grid (K8, and K10, which must walk the same pairs per
 // thread for its price to equal K8's): one resident wave of K8 on the
-// current device with `smem` bytes of Sobol' table per block.
+// current device with `smem` bytes of Sobol' table per block (staged where
+// it fits a block, else none: the table is then read from global memory).
 extern "C" int hh_qe_price_grid(int smem, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qe_price_kernel, kThreads,
-                                                        (size_t)smem);
+    if ((size_t)smem <= hh::smem_room(qe_price_kernel<true>)) {
+      err = hh::allow_dynamic_smem(qe_price_kernel<true>, (size_t)smem);
+      if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qe_price_kernel<true>,
+                                                            kThreads, (size_t)smem);
+      }
+    } else {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qe_price_kernel<false>,
+                                                          kThreads, 0);
+    }
   }
   *grid = sms * (per_sm > 0 ? per_sm : 1);
   return (int)err;

@@ -142,11 +142,43 @@ __device__ __forceinline__ BsPartials cond_bs_partials(float iv, float j, const 
   return o;
 }
 
+// cond_bs_partials split at the strike, in its operations and order: the
+// partials at one strike from the strike-free part of the same (IV, J)
+// under the expiry's f_base (hh::close_group, formed once per path and
+// expiry), each field to the bit cond_bs_partials's in the surface kernel
+// before the split.  The vega's exponential of -d1^2/2 is the one
+// Phi(cp d1) takes (|cp d1| = |d1|, and halving and negating are exact), so
+// the two share it.  y_rho is pinned as that kernel's code formed it (its
+// SASS): w (j - rho IV), with j - rho IV one FMA, less the vega term, the
+// product rounded before the subtraction for the + group (kMirror false)
+// and fused with it for the mirror.
+template <bool kMirror>
+__device__ __forceinline__ BsPartials close_partials(const CloseGroup& g, float iv, float j,
+                                                     const CloseParams& c) {
+  BsPartials o;
+  const float d1 = (c.log_f_over_k + g.e_arg + 0.5f * g.var) * g.inv_sd;
+  const float d2 = d1 - g.sd;
+  const float e1 = expf(-0.5f * d1 * d1);
+  const float phi1 = norm_cdf_exp(c.cp * d1, e1);
+  o.phi2 = norm_cdf(c.cp * d2);
+  o.y = c.cp * (g.f_eff * phi1 - c.strike * o.phi2);
+  o.w = c.cp * phi1 * g.f_eff;
+  const float vega_sd = g.f_eff * (float)0.3989422804014327 * e1;
+  o.y_iv = o.w * (-c.rho2_half) + vega_sd * c.rho_bar2 * 0.5f * g.inv_sd;
+  o.y_j = o.w * c.rho;
+  const float jr = __fmaf_rn(-c.rho, iv, j);
+  const float vterm = __fmul_rn(__fmul_rn(__fmul_rn(vega_sd, c.rho), iv), g.inv_sd);
+  o.y_rho = kMirror ? __fmaf_rn(o.w, jr, -vterm) : __fsub_rn(__fmul_rn(o.w, jr), vterm);
+  return o;
+}
+
 // The parameter struct P (floats only), the tangent table (kDirs rows; none
 // for the primal kernels) and the Sobol' table (kDimsPerStep dims per step:
 // 2 for mixing, 3 for QE-M) into shared memory, for the QE kernels of
-// heston_qe.cu, heston_qe_greeks.cu and heston_qe_terminal.cu.
-template <int kDirs, int kDimsPerStep, class P>
+// heston_qe.cu, heston_qe_greeks.cu and heston_qe_terminal.cu.  With
+// kStaged false the table stays in global memory and is returned as given
+// (the launch takes no dynamic shared memory).
+template <int kDirs, int kDimsPerStep, class P, bool kStaged = true>
 __device__ __forceinline__ const int* stage_inputs(const float* params, const float* tab,
                                                    const int* sobol, int steps, P& sp,
                                                    float (*stab)[kTanCols], int* ssob) {
@@ -156,6 +188,10 @@ __device__ __forceinline__ const int* stage_inputs(const float* params, const fl
   }
   for (int i = threadIdx.x; i < kDirs * kTanCols; i += blockDim.x) {
     stab[i / kTanCols][i % kTanCols] = tab[i];
+  }
+  if constexpr (!kStaged) {
+    __syncthreads();
+    return sobol;
   }
   if (sobol) {
     const int n = kDimsPerStep * steps * (kSobolBits + 1);

@@ -33,6 +33,7 @@ constexpr int kVjpDirs = 5;     // V0, kappa, theta, sigma, T
 constexpr int kGreekCols = 7;   // y, chain x 4, w, y_rho
 constexpr int kVjpCols = 8;     // chain x 5, w, y_rho, y_strike
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 qe_greeks_kernel(const float* __restrict__ params, const float* __restrict__ tab,
                  const int* __restrict__ sobol, double* __restrict__ partials,
@@ -42,8 +43,8 @@ qe_greeks_kernel(const float* __restrict__ params, const float* __restrict__ tab
   __shared__ float stab[kGreekDirs][hh::kTanCols];
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table =
-      hh::stage_inputs<kGreekDirs, 2>(params, tab, sobol, steps, sp, stab, ssob);
+  const int* table = hh::stage_inputs<kGreekDirs, 2, hh::MixParams, kStaged>(params, tab, sobol,
+                                                                            steps, sp, stab, ssob);
   float acc[kGreekCols] = {};
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
@@ -87,6 +88,7 @@ __device__ __forceinline__ void weighted_sums(const hh::TanState<kVjpDirs>& st, 
   acc[7] += ct * (-c.close.cp * b.phi2);
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 qe_vjp_kernel(const float* __restrict__ params, const float* __restrict__ tab,
               const int* __restrict__ sobol, const float* __restrict__ ct,
@@ -96,7 +98,8 @@ qe_vjp_kernel(const float* __restrict__ params, const float* __restrict__ tab,
   __shared__ float stab[kVjpDirs][hh::kTanCols];
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table = hh::stage_inputs<kVjpDirs, 2>(params, tab, sobol, steps, sp, stab, ssob);
+  const int* table = hh::stage_inputs<kVjpDirs, 2, hh::MixParams, kStaged>(params, tab, sobol,
+                                                                          steps, sp, stab, ssob);
   float acc[kVjpCols] = {};
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_paths) {
@@ -121,13 +124,22 @@ size_t sobol_smem(const int* sobol, int steps) {
 }  // namespace
 
 // Price and greek sums over the pairs [0, total_pairs): partials is
-// (7, grid) float64, column-major by sum.
+// (7, grid) float64, column-major by sum.  The Sobol' table is staged in
+// shared memory where it fits a block, else read from global memory.
 extern "C" int hh_qe_greeks(const float* params, const float* tab, const int* sobol,
                             double* partials, int grid, long long total_pairs, int steps,
                             unsigned seed, unsigned device_id, long long point_offset,
                             void* stream) {
-  qe_greeks_kernel<<<grid, kThreads, sobol_smem(sobol, steps), (cudaStream_t)stream>>>(
-      params, tab, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
+  const size_t smem = sobol_smem(sobol, steps);
+  if (smem <= hh::smem_room(qe_greeks_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(qe_greeks_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    qe_greeks_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        params, tab, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
+  } else {
+    qe_greeks_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        params, tab, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -138,8 +150,17 @@ extern "C" int hh_qe_values_vjp(const float* params, const float* tab, const int
                                 int antithetic, unsigned seed, unsigned device_id,
                                 long long point_offset, void* stream) {
   const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  qe_vjp_kernel<<<(unsigned)blocks, kThreads, sobol_smem(sobol, steps),
-                  (cudaStream_t)stream>>>(params, tab, sobol, ct, partials, n_paths, steps,
-                                          antithetic, seed, device_id, point_offset);
+  const size_t smem = sobol_smem(sobol, steps);
+  if (smem <= hh::smem_room(qe_vjp_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(qe_vjp_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    qe_vjp_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        params, tab, sobol, ct, partials, n_paths, steps, antithetic, seed, device_id,
+        point_offset);
+  } else {
+    qe_vjp_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        params, tab, sobol, ct, partials, n_paths, steps, antithetic, seed, device_id,
+        point_offset);
+  }
   return (int)cudaGetLastError();
 }

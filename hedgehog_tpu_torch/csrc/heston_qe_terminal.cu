@@ -58,13 +58,15 @@ __device__ __forceinline__ void qem_pair(unsigned long long pair, const hh::QemP
                 });
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 qem_terminal_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                     float* __restrict__ out, long long n_paths, int steps, int antithetic,
                     int mcorr, uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ hh::QemParams sp;
   extern __shared__ int ssob[];
-  const int* table = hh::stage_inputs<0, 3>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const int* table =
+      hh::stage_inputs<0, 3, hh::QemParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
   float x, xa;
@@ -94,15 +96,23 @@ qem_price_kernel(const float* __restrict__ params, double* __restrict__ partials
 }  // namespace
 
 // Terminal prices: out is (1 or 2, n_paths) float32; params (14,) float32;
-// sobol the (3*steps, 31) table or null (Philox).
+// sobol the (3*steps, 31) table or null (Philox), staged in shared memory
+// where it fits a block, else read from global memory.
 extern "C" int hh_qem_terminal(const float* params, const int* sobol, float* out,
                                long long n_paths, int steps, int antithetic, int mcorr,
                                unsigned seed, unsigned device_id, long long point_offset,
                                void* stream) {
   const long long blocks = (n_paths + kThreads - 1) / kThreads;
   const size_t smem = sobol ? sizeof(int) * 3 * steps * (hh::kSobolBits + 1) : 0;
-  qem_terminal_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      params, sobol, out, n_paths, steps, antithetic, mcorr, seed, device_id, point_offset);
+  if (smem <= hh::smem_room(qem_terminal_kernel<true>)) {
+    const cudaError_t err = hh::allow_dynamic_smem(qem_terminal_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    qem_terminal_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        params, sobol, out, n_paths, steps, antithetic, mcorr, seed, device_id, point_offset);
+  } else {
+    qem_terminal_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        params, sobol, out, n_paths, steps, antithetic, mcorr, seed, device_id, point_offset);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -35,15 +35,24 @@
 // K9 (measured on an H100 at 2^26 pairs, 3 x 5, QE-32: PERF.md) spent a
 // third of its time in the walk, a quarter in 30 full closes a pair and on
 // Philox a quarter (under QMC half) in the draw: hh::sobol_bits walks all 30
-// bits of the point for each dimension.  It now closes each path once per
-// expiry up to the strike (hh::close_group) and each strike from there
-// (hh::close_value, cond_bs_value's bits); draws Philox two steps a block
-// across the segments without MixStream's per-step parity branch; and under
-// QMC splits each Sobol' integer at bit 5: a warp's 32 consecutive points
-// share their high bits, so the warp stages the two candidate high words of
-// every dimension once a round (stage_high) and each point XORs in its low
-// five rows.  The numbers drawn are MixStream's, so every pair keeps its
-// bits and the sums theirs at the same grid.  K12 keeps MixStream.
+// bits of the point for each dimension.  Both kernels now close each path
+// once per expiry up to the strike (hh::close_group) and each strike from
+// there (K9 hh::close_value, cond_bs_value's bits; K12 hh::close_partials,
+// cond_bs_partials's bits, the strike's Phi(cp d1) sharing the vega's
+// exponential); draw Philox two steps a block across the segments without
+// a per-step parity branch (draw_steps); and under QMC split each Sobol'
+// integer at bit 5: a warp's 32 consecutive points share their high bits,
+// so the warp stages the two candidate high words of every dimension once
+// a round (stage_high) and each point XORs in its low five rows.  The
+// numbers drawn are hh::mix_draws's, so every pair keeps its bits and the
+// sums theirs at the same grid.  K12 at 114 registers held 2 blocks an SM;
+// it is built for 3 (__launch_bounds__(256, kJacBlocks)), so the grid,
+// SMs x lcm(4, 3), is 1584 blocks on an H100 where it was 528.
+//
+// A Sobol' table too large for a block's shared memory (with the rest of
+// the launch's layout: past about 540 steps over all expiries) is read from
+// global memory instead (kStaged false), its integers formed unsplit by
+// hh::sobol_bits: the same numbers.
 
 #include <numeric>
 
@@ -57,21 +66,25 @@ constexpr int kDirs = 4;     // V0, kappa, theta, sigma
 constexpr int kJacCols = 7;  // y, chain x 4, w, y_rho
 constexpr int kGlobals = 8;  // v0, theta, inv_sigma, k_over_sigma, rho, rho2_half, rho_bar2, cp
 constexpr int kPerSeg = 5;   // e, c_s2_v, c_s2_c, half_dt, ktd_over_sigma
+constexpr int kJacBlocks = 3;  // K12's blocks an SM (its register budget: 85)
 
 // Dynamic shared memory of one launch, in this order (the float64 rows first
 // for their alignment): per-warp sums, segment constants, per-point close
 // constants, K12's (4, 4) constant tangents and (4, 3) J-closure rows per
-// expiry, step counts, the Sobol' table, and K9's per-warp high Sobol' words
+// expiry, step counts, the Sobol' table, and the per-warp high Sobol' words
 // (two candidates a dimension: hh::sobol_high of the warp's first point
-// rounded down to 32, and of the next 32).
+// rounded down to 32, and of the next 32).  The last two only where the
+// table is staged.
 struct Layout {
   int n_cols;
   size_t segs, close, dct, djt, steps, sobol, high, bytes;
 };
 
-__host__ __device__ inline Layout layout(int n_exp, int m, int total_steps, bool jac, bool qmc) {
+__host__ __device__ inline Layout layout(int n_exp, int m, int total_steps, bool jac, bool qmc,
+                                         bool staged) {
   Layout l;
   const int points = n_exp * m;
+  const bool table = qmc && staged;
   l.n_cols = points * (jac ? kJacCols : 1);
   size_t off = sizeof(double) * kWarps * l.n_cols;
   l.segs = off;
@@ -85,16 +98,17 @@ __host__ __device__ inline Layout layout(int n_exp, int m, int total_steps, bool
   l.steps = off;
   off += sizeof(int) * n_exp;
   l.sobol = off;
-  off += qmc ? sizeof(int) * 2 * total_steps * (hh::kSobolBits + 1) : 0;
+  off += table ? sizeof(int) * 2 * total_steps * (hh::kSobolBits + 1) : 0;
   l.high = off;
-  off += qmc && !jac ? sizeof(uint32_t) * kWarps * 2 * (2 * total_steps) : 0;
+  off += table ? sizeof(uint32_t) * kWarps * 2 * (2 * total_steps) : 0;
   l.bytes = off;
   return l;
 }
 
 // Expands the flat parameter vector (ops/hh_device.py SURF_GLOBALS,
 // SURF_PER_SEG per segment, f_base per expiry, strikes, log(F/K)) into
-// SurfSeg and CloseParams structs and copies the rest; zeroes the sums.
+// SurfSeg and CloseParams structs and copies the rest (the Sobol' table
+// when `sobol` is given); zeroes the sums.
 __device__ __forceinline__ void stage(const float* params, const int* nsteps, const float* dct,
                                       const float* djt, const int* sobol, int n_exp, int m,
                                       int total_steps, const Layout& l, char* smem) {
@@ -144,16 +158,58 @@ __device__ __forceinline__ void stage_high(const int* table, int dims, uint32_t 
   __syncwarp();
 }
 
-// K9: the pair's value at every point, added to the per-warp sums.  The
-// steps draw hh::MixStream's numbers without its per-step parity branch.
-// Under Philox: one block per two steps in hh::mix_draws's order, running
-// across the segments (the step index counts the whole trajectory, so a
-// segment that ends on an even step leaves the block's second normal and
-// word to the next segment's first step).  Under QMC: the Sobol' pair of
-// step s, each integer the warp's staged high word (hw, candidate c) XOR
-// hh::sobol_low of the point.  At each expiry each path's close is split at
-// the strike (hh::close_group once, hh::close_value per strike:
-// cond_bs_value's bits).
+// The (z, u) of steps [step, end) of one pair (point idx), passed in step
+// order to advance(z, u): hh::mix_draws's numbers over a surface's steps.
+// Under Philox one block per two steps in hh::mix_draws's order, running
+// across the segments (the step index counts the whole
+// trajectory, so a segment that ends on an even step leaves the block's
+// second normal and word, z_odd and w_odd, to the next segment's first
+// step).  Under QMC the Sobol' pair of step s: staged (kSplit), each
+// integer the warp's high word (hw, candidate c) XOR hh::sobol_low of the
+// point; else the table in global memory through hh::sobol_bits.
+template <bool kSplit, class F>
+__device__ __forceinline__ void draw_steps(unsigned long long pair, uint32_t idx, const int* sobol,
+                                           const uint32_t* hw, int c, uint32_t seed,
+                                           uint32_t device_id, int step, int end, float& z_odd,
+                                           uint32_t& w_odd, F&& advance) {
+  if (sobol) {
+    for (int s = step; s < end; ++s) {
+      const int* rows = sobol + 2 * s * (hh::kSobolBits + 1);
+      if constexpr (kSplit) {
+        const uint32_t az = hw[4 * s + c] ^ hh::sobol_low(idx, rows);
+        const uint32_t au = hw[4 * s + 2 + c] ^ hh::sobol_low(idx, rows + hh::kSobolBits + 1);
+        advance(hh::sobol_normal_of(az), hh::sobol_uniform_open_of(au));
+      } else {
+        advance(hh::sobol_normal(idx, rows), hh::sobol_uniform_open(idx, rows + hh::kSobolBits + 1));
+      }
+    }
+    return;
+  }
+  int s = step;
+  if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
+    advance(z_odd, hh::uniform_from_bits(w_odd));
+    ++s;
+  }
+  for (; s + 1 < end; s += 2) {
+    const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+    float z0, z1;
+    hh::box_muller(w.x, w.y, z0, z1);
+    advance(z0, hh::uniform_from_bits(w.z));
+    advance(z1, hh::uniform_from_bits(w.w));
+  }
+  if (s < end) {
+    const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+    float z0;
+    hh::box_muller(w.x, w.y, z0, z_odd);
+    advance(z0, hh::uniform_from_bits(w.z));
+    w_odd = w.w;
+  }
+}
+
+// K9: the pair's value at every point, added to the per-warp sums.  At each
+// expiry each path's close is split at the strike (hh::close_group once,
+// hh::close_value per strike: cond_bs_value's bits).
+template <bool kSplit>
 __device__ __forceinline__ void price_pair(unsigned long long pair, bool live, const int* sobol,
                                            const uint32_t* hw, int c, uint32_t seed,
                                            uint32_t device_id, long long point_offset, float v0,
@@ -168,37 +224,12 @@ __device__ __forceinline__ void price_pair(unsigned long long pair, bool live, c
   for (int i = 0; i < n_exp; ++i) {
     const hh::SurfSeg sc = segs[i];
     const int end = step + nsteps[i];
-    const auto advance = [&](float z, float u) {
-      hh::mix_advance(v, iv, j, z, u, sc);
-      hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);
-    };
-    if (live && sobol) {
-      for (int s = step; s < end; ++s) {
-        const int* rows = sobol + 2 * s * (hh::kSobolBits + 1);
-        const uint32_t az = hw[4 * s + c] ^ hh::sobol_low(idx, rows);
-        const uint32_t au = hw[4 * s + 2 + c] ^ hh::sobol_low(idx, rows + hh::kSobolBits + 1);
-        advance(hh::sobol_normal_of(az), hh::sobol_uniform_open_of(au));
-      }
-    } else if (live) {
-      int s = step;
-      if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
-        advance(z_odd, hh::uniform_from_bits(w_odd));
-        ++s;
-      }
-      for (; s + 1 < end; s += 2) {
-        const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
-        float z0, z1;
-        hh::box_muller(w.x, w.y, z0, z1);
-        advance(z0, hh::uniform_from_bits(w.z));
-        advance(z1, hh::uniform_from_bits(w.w));
-      }
-      if (s < end) {
-        const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
-        float z0;
-        hh::box_muller(w.x, w.y, z0, z_odd);
-        advance(z0, hh::uniform_from_bits(w.z));
-        w_odd = w.w;
-      }
+    if (live) {
+      draw_steps<kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd, w_odd,
+                         [&](float z, float u) {
+                           hh::mix_advance(v, iv, j, z, u, sc);
+                           hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);
+                         });
     }
     step = end;
     const hh::CloseGroup g = hh::close_group(iv, j, close[i * m]);
@@ -266,8 +297,14 @@ __device__ __forceinline__ float surf_dj(const SurfTan& st, const hh::SurfSeg& c
          row[2] * st.j;
 }
 
-// K12: the pair's seven columns at every point, added to the per-warp sums.
-__device__ __forceinline__ void jac_pair(hh::MixStream& ds, bool live, float v0,
+// K12: the pair's seven columns at every point, added to the per-warp sums:
+// K9's draw (draw_steps) and, at each expiry, each path's close split at
+// the strike (hh::close_group once, hh::close_partials per strike:
+// cond_bs_partials's bits, so the surface column is K9's).
+template <bool kSplit>
+__device__ __forceinline__ void jac_pair(unsigned long long pair, bool live, const int* sobol,
+                                         const uint32_t* hw, int c, uint32_t seed,
+                                         uint32_t device_id, long long point_offset, float v0,
                                          const hh::SurfSeg* segs, const hh::CloseParams* close,
                                          const float (*dct)[4], const float (*djt)[3],
                                          const int* nsteps, int n_exp, int m, double* wacc,
@@ -275,30 +312,36 @@ __device__ __forceinline__ void jac_pair(hh::MixStream& ds, bool live, float v0,
   SurfTan s, sa;
   tan_init_surface(s, v0);
   tan_init_surface(sa, v0);
+  const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
+  float z_odd = 0.0f;
+  uint32_t w_odd = 0u;
   int step = 0;
   for (int i = 0; i < n_exp; ++i) {
-    const hh::SurfSeg& c = segs[i];
+    const hh::SurfSeg& sc = segs[i];
     const float (*dc)[4] = dct + kDirs * i;
+    const int end = step + nsteps[i];
     if (live) {
-      for (int k = 0; k < nsteps[i]; ++k, ++step) {
-        float z, u;
-        ds.draw(step, z, u);
-        tan_step_surface(s, z, u, c, dc);
-        tan_step_surface(sa, -z, 1.0f - u, c, dc);
-      }
+      draw_steps<kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd, w_odd,
+                         [&](float z, float u) {
+                           tan_step_surface(s, z, u, sc, dc);
+                           tan_step_surface(sa, -z, 1.0f - u, sc, dc);
+                         });
     }
+    step = end;
     float dj[kDirs], dja[kDirs];
 #pragma unroll
     for (int d = 0; d < kDirs; ++d) {
-      dj[d] = surf_dj(s, c, djt[kDirs * i + d], d);
-      dja[d] = surf_dj(sa, c, djt[kDirs * i + d], d);
+      dj[d] = surf_dj(s, sc, djt[kDirs * i + d], d);
+      dja[d] = surf_dj(sa, sc, djt[kDirs * i + d], d);
     }
+    const hh::CloseGroup g = hh::close_group(s.iv, s.j, close[i * m]);
+    const hh::CloseGroup ga = hh::close_group(sa.iv, sa.j, close[i * m]);
     for (int k = 0; k < m; ++k) {
       const int p = i * m + k;
       float col[kJacCols] = {};
       if (live) {
-        const hh::BsPartials b = hh::cond_bs_partials(s.iv, s.j, close[p]);
-        const hh::BsPartials ba = hh::cond_bs_partials(sa.iv, sa.j, close[p]);
+        const hh::BsPartials b = hh::close_partials<false>(g, s.iv, s.j, close[p]);
+        const hh::BsPartials ba = hh::close_partials<true>(ga, sa.iv, sa.j, close[p]);
         col[0] = b.y + ba.y;
 #pragma unroll
         for (int d = 0; d < kDirs; ++d) {
@@ -315,43 +358,67 @@ __device__ __forceinline__ void jac_pair(hh::MixStream& ds, bool live, float v0,
 
 // The grid-stride round is uniform over the block (base), so every lane of
 // a warp reaches the shuffles of a round; a lane past the last pair adds 0.
-template <bool kJac>
-__global__ void __launch_bounds__(kThreads)
-surface_kernel(const float* __restrict__ params, const int* __restrict__ nsteps,
-               const float* __restrict__ dct, const float* __restrict__ djt,
-               const int* __restrict__ sobol, double* __restrict__ partials, int n_exp, int m,
-               int total_steps, long long total_pairs, uint32_t seed, uint32_t device_id,
-               long long point_offset) {
+// kStaged: the Sobol' table (and the warps' high words) in shared memory;
+// else the table is read from global memory.
+template <bool kJac, bool kStaged>
+__device__ __forceinline__ void surface_body(const float* params, const int* nsteps,
+                                             const float* dct, const float* djt, const int* sobol,
+                                             double* partials, int n_exp, int m, int total_steps,
+                                             long long total_pairs, uint32_t seed,
+                                             uint32_t device_id, long long point_offset) {
   extern __shared__ __align__(16) char smem[];
-  const Layout l = layout(n_exp, m, total_steps, kJac, sobol != nullptr);
-  stage(params, nsteps, dct, djt, sobol, n_exp, m, total_steps, l, smem);
+  const Layout l = layout(n_exp, m, total_steps, kJac, sobol != nullptr, kStaged);
+  stage(params, nsteps, dct, djt, kStaged ? sobol : nullptr, n_exp, m, total_steps, l, smem);
   double* wacc = reinterpret_cast<double*>(smem);
   const hh::SurfSeg* segs = reinterpret_cast<const hh::SurfSeg*>(smem + l.segs);
   const hh::CloseParams* close = reinterpret_cast<const hh::CloseParams*>(smem + l.close);
   const int* ssteps = reinterpret_cast<const int*>(smem + l.steps);
-  const int* table = sobol ? reinterpret_cast<const int*>(smem + l.sobol) : nullptr;
+  const int* table = !sobol ? nullptr : kStaged ? reinterpret_cast<const int*>(smem + l.sobol) : sobol;
   const float v0 = params[0];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long base = (long long)blockIdx.x * blockDim.x; base < total_pairs; base += stride) {
     const long long g = base + threadIdx.x;
+    // the warp's points are p0 + lane; this lane's high word is candidate c
+    const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
+    uint32_t* hw =
+        reinterpret_cast<uint32_t*>(smem + l.high) + (threadIdx.x >> 5) * 4 * total_steps;
+    if (kStaged && table) stage_high(table, 2 * total_steps, p0, hw);
+    const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
     if constexpr (kJac) {
-      hh::MixStream ds((unsigned long long)g, table, seed, device_id, point_offset);
-      jac_pair(ds, g < total_pairs, v0, segs, close,
-               reinterpret_cast<const float(*)[4]>(smem + l.dct),
-               reinterpret_cast<const float(*)[3]>(smem + l.djt), ssteps, n_exp, m, wacc,
-               l.n_cols);
+      jac_pair<kStaged>((unsigned long long)g, g < total_pairs, table, hw, c, seed, device_id,
+                        point_offset, v0, segs, close,
+                        reinterpret_cast<const float(*)[4]>(smem + l.dct),
+                        reinterpret_cast<const float(*)[3]>(smem + l.djt), ssteps, n_exp, m, wacc,
+                        l.n_cols);
     } else {
-      // the warp's points are p0 + lane; this lane's high word is candidate c
-      const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
-      uint32_t* hw =
-          reinterpret_cast<uint32_t*>(smem + l.high) + (threadIdx.x >> 5) * 4 * total_steps;
-      if (table) stage_high(table, 2 * total_steps, p0, hw);
-      const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
-      price_pair((unsigned long long)g, g < total_pairs, table, hw, c, seed, device_id,
-                 point_offset, v0, segs, close, ssteps, n_exp, m, wacc, l.n_cols);
+      price_pair<kStaged>((unsigned long long)g, g < total_pairs, table, hw, c, seed, device_id,
+                          point_offset, v0, segs, close, ssteps, n_exp, m, wacc, l.n_cols);
     }
   }
   hh::block_columns(wacc, l.n_cols, partials);
+}
+
+// K9.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+surface_kernel(const float* __restrict__ params, const int* __restrict__ nsteps,
+               const int* __restrict__ sobol, double* __restrict__ partials, int n_exp, int m,
+               int total_steps, long long total_pairs, uint32_t seed, uint32_t device_id,
+               long long point_offset) {
+  surface_body<false, kStaged>(params, nsteps, nullptr, nullptr, sobol, partials, n_exp, m,
+                               total_steps, total_pairs, seed, device_id, point_offset);
+}
+
+// K12.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, kJacBlocks)
+surface_jac_kernel(const float* __restrict__ params, const int* __restrict__ nsteps,
+                   const float* __restrict__ dct, const float* __restrict__ djt,
+                   const int* __restrict__ sobol, double* __restrict__ partials, int n_exp, int m,
+                   int total_steps, long long total_pairs, uint32_t seed, uint32_t device_id,
+                   long long point_offset) {
+  surface_body<true, kStaged>(params, nsteps, dct, djt, sobol, partials, n_exp, m, total_steps,
+                              total_pairs, seed, device_id, point_offset);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -369,22 +436,50 @@ column_sums_kernel(const double* __restrict__ partials, int grid, double* __rest
   if (threadIdx.x == 0) out[blockIdx.x] = red[0];
 }
 
-template <bool kJac>
-int launch_surface(const float* params, const int* nsteps, const float* dct, const float* djt,
-                   const int* sobol, double* partials, double* out, int grid, int n_exp, int m,
-                   int total_steps, long long total_pairs, unsigned seed, unsigned device_id,
-                   long long point_offset, void* stream) {
-  const Layout l = layout(n_exp, m, total_steps, kJac, sobol != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(surface_kernel<kJac>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)l.bytes);
+// The kernel (K9 or K12), staged or not, that a launch of this shape runs,
+// with its layout: the table is staged where the whole layout fits a block.
+struct SurfaceLaunch {
+  const void* kernel;
+  Layout l;
+};
+
+SurfaceLaunch surface_launch(bool jac, int n_exp, int m, int total_steps, bool qmc) {
+  const void* staged = jac ? (const void*)surface_jac_kernel<true> : (const void*)surface_kernel<true>;
+  const Layout l = layout(n_exp, m, total_steps, jac, qmc, true);
+  if (l.bytes <= hh::smem_room(staged)) return {staged, l};
+  return {jac ? (const void*)surface_jac_kernel<false> : (const void*)surface_kernel<false>,
+          layout(n_exp, m, total_steps, jac, qmc, false)};
+}
+
+int launch_surface(bool jac, const float* params, const int* nsteps, const float* dct,
+                   const float* djt, const int* sobol, double* partials, double* out, int grid,
+                   int n_exp, int m, int total_steps, long long total_pairs, unsigned seed,
+                   unsigned device_id, long long point_offset, void* stream) {
+  const SurfaceLaunch s = surface_launch(jac, n_exp, m, total_steps, sobol != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(s.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)s.l.bytes);
   if (err != cudaSuccess) return (int)err;
-  surface_kernel<kJac><<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
-      params, nsteps, dct, djt, sobol, partials, n_exp, m, total_steps, total_pairs, seed,
-      device_id, point_offset);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s.kernel == (const void*)surface_kernel<true>) {
+    surface_kernel<true><<<grid, kThreads, s.l.bytes, st>>>(
+        params, nsteps, sobol, partials, n_exp, m, total_steps, total_pairs, seed, device_id,
+        point_offset);
+  } else if (s.kernel == (const void*)surface_kernel<false>) {
+    surface_kernel<false><<<grid, kThreads, s.l.bytes, st>>>(
+        params, nsteps, sobol, partials, n_exp, m, total_steps, total_pairs, seed, device_id,
+        point_offset);
+  } else if (s.kernel == (const void*)surface_jac_kernel<true>) {
+    surface_jac_kernel<true><<<grid, kThreads, s.l.bytes, st>>>(
+        params, nsteps, dct, djt, sobol, partials, n_exp, m, total_steps, total_pairs, seed,
+        device_id, point_offset);
+  } else {
+    surface_jac_kernel<false><<<grid, kThreads, s.l.bytes, st>>>(
+        params, nsteps, dct, djt, sobol, partials, n_exp, m, total_steps, total_pairs, seed,
+        device_id, point_offset);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return hh::launch_column_sums(partials, l.n_cols, grid, out, (cudaStream_t)stream);
+  return hh::launch_column_sums(partials, s.l.n_cols, grid, out, st);
 }
 
 }  // namespace
@@ -403,9 +498,8 @@ extern "C" int hh_qe_surface(const float* params, const int* nsteps, const int* 
                              double* partials, double* out, int grid, int n_exp, int m,
                              int total_steps, long long total_pairs, unsigned seed,
                              unsigned device_id, long long point_offset, void* stream) {
-  return launch_surface<false>(params, nsteps, nullptr, nullptr, sobol, partials, out, grid,
-                               n_exp, m, total_steps, total_pairs, seed, device_id,
-                               point_offset, stream);
+  return launch_surface(false, params, nsteps, nullptr, nullptr, sobol, partials, out, grid,
+                        n_exp, m, total_steps, total_pairs, seed, device_id, point_offset, stream);
 }
 
 // K12: out[n_exp * m * 7] float64 sums of each point's seven columns; dct
@@ -415,8 +509,8 @@ extern "C" int hh_qe_surface_jacobian(const float* params, const int* nsteps, co
                                       double* out, int grid, int n_exp, int m, int total_steps,
                                       long long total_pairs, unsigned seed, unsigned device_id,
                                       long long point_offset, void* stream) {
-  return launch_surface<true>(params, nsteps, dct, djt, sobol, partials, out, grid, n_exp, m,
-                              total_steps, total_pairs, seed, device_id, point_offset, stream);
+  return launch_surface(true, params, nsteps, dct, djt, sobol, partials, out, grid, n_exp, m,
+                        total_steps, total_pairs, seed, device_id, point_offset, stream);
 }
 
 // The grid of K9 and K12 on the current device: SMs x lcm(resident blocks
@@ -428,12 +522,12 @@ extern "C" int hh_surface_grid(int* grid) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_price, surface_kernel<false>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_price, surface_kernel<true>,
                                                         kThreads, 0);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_jac, surface_kernel<true>, kThreads,
-                                                        0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_jac, surface_jac_kernel<true>,
+                                                        kThreads, 0);
   }
   *grid = sms * std::lcm(per_price > 0 ? per_price : 1, per_jac > 0 ? per_jac : 1);
   return (int)err;
@@ -445,20 +539,20 @@ extern "C" int hh_surface_grid(int* grid) {
 // local (spill) bytes a thread).
 extern "C" int hh_surface_occupancy(int jac, int n_exp, int m, int total_steps, int qmc,
                                     int* out) {
-  const Layout l = layout(n_exp, m, total_steps, jac != 0, qmc != 0);
-  const void* kernel = jac ? (const void*)surface_kernel<true> : (const void*)surface_kernel<false>;
+  const SurfaceLaunch s = surface_launch(jac != 0, n_exp, m, total_steps, qmc != 0);
   int dev = 0, sms = 0, per_sm = 0;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.bytes);
+    err = cudaFuncSetAttribute(s.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)s.l.bytes);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, l.bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s.kernel, kThreads, s.l.bytes);
   }
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  const int vals[7] = {kThreads, per_sm, sms, (int)l.bytes, (int)attr.sharedSizeBytes,
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, s.kernel);
+  const int vals[7] = {kThreads, per_sm, sms, (int)s.l.bytes, (int)attr.sharedSizeBytes,
                        attr.numRegs, (int)attr.localSizeBytes};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;

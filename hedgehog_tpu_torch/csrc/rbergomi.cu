@@ -54,9 +54,15 @@
 // fmaf, and a step rounds each product and sum on its own
 // (__fmul_rn/__fadd_rn, as the twins do), so every kernel computes a pair's
 // (IV, J) to the same bits whatever the chunk that holds its tile, the
-// trip or the grid.  The step limit (ops/rbergomi_kernel.py MAX_STEPS) comes
-// from the xi columns (2n rows padded to whole tiles) and the Sobol' table
-// in shared memory: at 256 steps under QMC they take 192 KB.
+// trip or the grid.  Up to kStagedSteps (256) steps the xi columns (2n rows
+// padded to whole tiles) and the Sobol' table sit in shared memory: at 256
+// steps under QMC they take 192 KB of the 227 KB a block may use.  Past
+// that a second instantiation of each kernel (kWide) reads the table from
+// global memory and keeps the xi columns in shared memory where they fit,
+// else in a slab of global scratch per block (`slab`, the caller's); K17 and
+// K18 then walk their trips on a resident grid (`trips` partials, trip
+// `trip` where the staged kernels have block blockIdx.x, so the same
+// bits).  The operations are the same: every pair's (IV, J) is.
 //
 // Trips and grids.  Slot t of the trip at `base` walks pair base + t.  K15
 // and K19 walk trips on one resident wave of K15 (blockIdx.x * 64 + t +
@@ -121,6 +127,7 @@ constexpr int kGreekCols = 6;  // y, chain_xi0, chain_eta, chain_H, w, y_rho
 constexpr int kVjpCols = 7;    // chain_xi0, chain_eta, chain_H, chain_T, w, y_rho, y_K
 constexpr int kCurveCols = 6;  // K18's scalar rows: kVjpCols without chain_xi0
 constexpr int kMaxStrikes = 64;
+constexpr int kStagedSteps = 256;  // ops/rbergomi_kernel.py STAGED_STEPS
 
 // Field order is ops/rbergomi_kernel.py RB_NAMES.
 struct RbParams {
@@ -150,11 +157,23 @@ __host__ __device__ inline int table_words(int steps, bool qmc) {
   return qmc ? 2 * steps * (hh::kSobolBits + 1) : 0;
 }
 
-// The xi columns and the Sobol' table: the chunk kernels add their chunk
+// The xi columns (none where they live in a global slab) and the Sobol'
+// table (staged up to kStagedSteps): the chunk kernels add their chunk
 // buffers between the two.
-size_t rb_smem(int steps, bool qmc) {
+size_t rb_smem(int steps, bool qmc, bool slab = false) {
   const RbShape s = rb_shape(steps);
-  return sizeof(float) * ((size_t)s.xi_rows * kThreads + table_words(steps, qmc));
+  return sizeof(float) * ((slab ? 0 : (size_t)s.xi_rows * kThreads) +
+                          (steps <= kStagedSteps ? table_words(steps, qmc) : 0));
+}
+
+// The block's xi columns: in shared memory at `smem`, or for a wide kernel
+// given a slab, its slab of the global scratch.
+template <bool kWide>
+__device__ __forceinline__ float* xi_columns(float* smem, float* slab, const RbShape& s) {
+  if constexpr (kWide) {
+    if (slab) return slab + (size_t)blockIdx.x * s.xi_rows * kThreads;
+  }
+  return smem;
 }
 
 // The Sobol' table into shared memory after the xi columns; returns it (or
@@ -351,20 +370,20 @@ static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2
 
 // Dynamic shared memory of K15 and K14 (K19 adds its strike sums): the xi
 // columns, the chunk of Z rows, then the Sobol' table.
-size_t rb_chunk_smem(int steps, bool qmc) {
-  return rb_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
+size_t rb_chunk_smem(int steps, bool qmc, bool slab = false) {
+  return rb_smem(steps, qmc, slab) + sizeof(float) * kChunkRows * kThreads;
 }
 
 // K16's and K17's: the xi columns, the half-height chunks of Z and of its H
 // tangent, then the Sobol' table: K15's bytes.
-size_t rb_greeks_smem(int steps, bool qmc) {
-  return rb_smem(steps, qmc) + sizeof(float) * 2 * kHalfChunkRows * kThreads;
+size_t rb_greeks_smem(int steps, bool qmc, bool slab = false) {
+  return rb_smem(steps, qmc, slab) + sizeof(float) * 2 * kHalfChunkRows * kThreads;
 }
 
 // K18's: the xi columns, the chunks of Z and of its H tangent (in the replay
 // the rows R_k), then the Sobol' table.
-size_t rb_curve_smem(int steps, bool qmc) {
-  return rb_chunk_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
+size_t rb_curve_smem(int steps, bool qmc, bool slab = false) {
+  return rb_chunk_smem(steps, qmc, slab) + sizeof(float) * kChunkRows * kThreads;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -600,16 +619,18 @@ __device__ __forceinline__ void slot_tree(double* red, double* out) {
 // call discards the mirror's group).  A value depends on its pair alone,
 // not on the grid or the trip.  A slot past n_paths is masked: every
 // thread stays for the barriers.
+template <bool kWide>
 __global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                  const float4* __restrict__ lpack, const int* __restrict__ sobol,
                  float* __restrict__ out, long long n_paths, int steps, int antithetic,
-                 uint32_t seed, uint32_t device_id, long long point_offset) {
+                 uint32_t seed, uint32_t device_id, long long point_offset, float* slab) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  float* xbuf = xs + s.xi_rows * kThreads;
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
+  float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
+  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  const int* table =
+      kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
   const int slot = threadIdx.x >> 1;
   const bool mirror = threadIdx.x & 1;
@@ -629,17 +650,19 @@ rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ co
 // adds the slot's (value + antithetic value), the slots' sums reduced as
 // block_sums<64> reduces one thread's a pair.  A slot past total_pairs is
 // masked: every thread stays for the barriers.
+template <bool kWide>
 __global__ void __launch_bounds__(kChunkThreads)
 rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                 const float4* __restrict__ lpack, const int* __restrict__ sobol,
                 double* __restrict__ partials, long long total_pairs, int steps, uint32_t seed,
-                uint32_t device_id, long long point_offset) {
+                uint32_t device_id, long long point_offset, float* slab) {
   extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
-  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  float* xbuf = xs + s.xi_rows * kThreads;
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
+  float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
+  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  const int* table =
+      kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
   const int slot = threadIdx.x >> 1;
   const bool plus = (threadIdx.x & 1) == 0;
@@ -670,20 +693,22 @@ rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coe
 // stays for the barriers and shuffles.  Its shared memory is K15's (the two
 // half-height chunks take one chunk's bytes), so it holds K15's blocks an
 // SM where its registers allow: at most 96 for 5 blocks on Philox.
+template <bool kWide>
 __global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                  const float4* __restrict__ lpack, const float4* __restrict__ dpack,
                  const int* __restrict__ sobol, double* __restrict__ partials,
                  long long total_pairs, int steps, uint32_t seed, uint32_t device_id,
-                 long long point_offset) {
+                 long long point_offset, float* slab) {
   extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
-  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  float* xbuf = xs + s.xi_rows * kThreads;
+  float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
+  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   float* dbuf = xbuf + kHalfChunkRows * kThreads;
-  const int* table =
-      stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kHalfChunkRows * kThreads));
+  const int* table = kWide ? sobol
+                           : stage_table(sobol, steps,
+                                         reinterpret_cast<int*>(dbuf + kHalfChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
   const int slot = threadIdx.x >> 1;
   const bool mirror = threadIdx.x & 1;
@@ -716,158 +741,182 @@ rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ co
 // partials (7, blocks).  A slot past n_paths is masked and a non-antithetic
 // call discards the mirror's group: every thread stays for the barriers
 // and shuffles.  Its shared memory is K16's (K15's bytes).
+template <bool kWide>
 __global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
               const float4* __restrict__ lpack, const float4* __restrict__ dpack,
               const int* __restrict__ sobol, const float* __restrict__ ct,
               double* __restrict__ partials, long long n_paths, int steps, int antithetic,
-              uint32_t seed, uint32_t device_id, long long point_offset) {
+              uint32_t seed, uint32_t device_id, long long point_offset, float* slab) {
   extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
-  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  float* xbuf = xs + s.xi_rows * kThreads;
+  float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
+  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   float* dbuf = xbuf + kHalfChunkRows * kThreads;
-  const int* table =
-      stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kHalfChunkRows * kThreads));
+  const int* table = kWide ? sobol
+                           : stage_table(sobol, steps,
+                                         reinterpret_cast<int*>(dbuf + kHalfChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
   const bool anti = antithetic != 0;
   const int slot = threadIdx.x >> 1;
   const bool mirror = threadIdx.x & 1;
-  const long long base = (long long)blockIdx.x * kThreads, i = base + slot;
-  const bool live = !mirror && i < n_paths;
-  Group g;
-  float s0dw0, s0dwd0;
-  rb_trip_tangents<kHalfChunkRows, true>(xs, xbuf, dbuf, (unsigned long long)base, p, coef, lpack,
-                                         dpack, table, s, seed, device_id, point_offset, g, s0dw0,
-                                         s0dwd0);
-  const Group gm = mirror_sums(g);
-  const float ct_p = live ? ct[i] : 0.0f;
-  const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
-  const float4 c0 = __ldg(coef);
-  const float x0 = xs[slot];
-  float acc[kVjpCols] = {};
-  add_pair_rows<true, kVjpCols>(g, gm, anti, __fmul_rn(c0.z, x0), __fmul_rn(c0.w, x0), c0, p, ct_p,
-                                ct_m, live, acc);
-  for (int k = 0; k < kVjpCols; ++k) {
-    if (!mirror) red[slot] = (double)acc[k];
-    slot_tree(red, partials + (long long)k * gridDim.x + blockIdx.x);
+  // trip `trip` of `trips` (the staged kernel: trip blockIdx.x of gridDim.x)
+  const auto trip_sums = [&](long long trip, long long trips) {
+    const long long base = trip * kThreads, i = base + slot;
+    const bool live = !mirror && i < n_paths;
+    Group g;
+    float s0dw0, s0dwd0;
+    rb_trip_tangents<kHalfChunkRows, true>(xs, xbuf, dbuf, (unsigned long long)base, p, coef,
+                                           lpack, dpack, table, s, seed, device_id, point_offset,
+                                           g, s0dw0, s0dwd0);
+    const Group gm = mirror_sums(g);
+    const float ct_p = live ? ct[i] : 0.0f;
+    const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
+    const float4 c0 = __ldg(coef);
+    const float x0 = xs[slot];
+    float acc[kVjpCols] = {};
+    add_pair_rows<true, kVjpCols>(g, gm, anti, __fmul_rn(c0.z, x0), __fmul_rn(c0.w, x0), c0, p,
+                                  ct_p, ct_m, live, acc);
+    for (int k = 0; k < kVjpCols; ++k) {
+      if (!mirror) red[slot] = (double)acc[k];
+      slot_tree(red, partials + (long long)k * trips + trip);
+    }
+  };
+  if constexpr (kWide) {
+    const long long trips = (n_paths + kThreads - 1) / kThreads;
+    for (long long trip = blockIdx.x; trip < trips; trip += gridDim.x) trip_sums(trip, trips);
+  } else {
+    trip_sums(blockIdx.x, gridDim.x);
   }
 }
 
 // K18: one trip of 64 pairs a block (kChunkThreads threads, one antithetic
-// group each) on the tangent chunk product; partials[row * gridDim.x +
-// blockIdx.x] gets the block's n per-step rows, then its six scalar rows.
+// group each) on the tangent chunk product; partials[row * trips + trip]
+// gets the trip's n per-step rows, then its six scalar rows.
 // After the close the + thread of a slot holds both groups' weights (one
 // shuffle) and forms the pair's scalar chains and, over a replay of the L
 // product, its rows R_k in one_pair_a_thread's expressions; R_k is summed
 // over the 64 slots in float64 as two 32-slot butterflies added in order
 // (one pair a thread's two warps), the chains by slot_tree (block_sums<64>'s).
+template <bool kWide>
 __global__ void __launch_bounds__(kChunkThreads)
 rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                     const float4* __restrict__ lpack, const float4* __restrict__ dpack,
                     const int* __restrict__ sobol, const float* __restrict__ ct,
                     double* __restrict__ partials, long long n_paths, int steps, int antithetic,
-                    uint32_t seed, uint32_t device_id, long long point_offset) {
+                    uint32_t seed, uint32_t device_id, long long point_offset, float* slab) {
   extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
-  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  float* xbuf = xs + s.xi_rows * kThreads;
+  float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
+  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   float* dbuf = xbuf + kChunkRows * kThreads;  // the replay's rows R_k, fp32
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kChunkRows * kThreads));
+  const int* table =
+      kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
   const bool anti = antithetic != 0;
   const int slot = threadIdx.x >> 1;
   const bool mirror = threadIdx.x & 1;
-  const long long i = (long long)blockIdx.x * kThreads + slot;
-  const bool live = i < n_paths;
-  const float ct_p = live ? ct[i] : 0.0f;
-  const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
-  Group g;
-  float s0dw0, s0dwd0;
-  rb_trip_tangents<kChunkRows, false>(xs, xbuf, dbuf, (unsigned long long)blockIdx.x * kThreads, p,
-                                      coef, lpack, dpack, table, s, seed, device_id, point_offset,
-                                      g, s0dw0, s0dwd0);
-  const float4 c0 = __ldg(coef);
-  float iv, j, rows[kVjpCols];
-  close_factors(g, mirror, c0.x, s0dw0, p.dt, iv, j);
-  const hh::BsPartials b = group_rows<true>(g, iv, j, mirror ? -s0dwd0 : s0dwd0, p, rows);
-  // the + thread takes the mirror's rows and weights (rm = {} and weight 0 unless anti)
-  float rp[kVjpCols], rm[kVjpCols];
+  // trip `trip` of `trips` (the staged kernel: trip blockIdx.x of gridDim.x)
+  const auto trip_sums = [&](long long trip, long long trips) {
+    const long long i = trip * kThreads + slot;
+    const bool live = i < n_paths;
+    const float ct_p = live ? ct[i] : 0.0f;
+    const float ct_m = live && anti ? ct[n_paths + i] : 0.0f;
+    Group g;
+    float s0dw0, s0dwd0;
+    rb_trip_tangents<kChunkRows, false>(xs, xbuf, dbuf, (unsigned long long)trip * kThreads, p,
+                                        coef, lpack, dpack, table, s, seed, device_id, point_offset,
+                                        g, s0dw0, s0dwd0);
+    const float4 c0 = __ldg(coef);
+    float iv, j, rows[kVjpCols];
+    close_factors(g, mirror, c0.x, s0dw0, p.dt, iv, j);
+    const hh::BsPartials b = group_rows<true>(g, iv, j, mirror ? -s0dwd0 : s0dwd0, p, rows);
+    // the + thread takes the mirror's rows and weights (rm = {} and weight 0 unless anti)
+    float rp[kVjpCols], rm[kVjpCols];
 #pragma unroll
-  for (int k = 0; k < kVjpCols; ++k) {
-    rp[k] = rows[k];
-    rm[k] = anti ? __shfl_xor_sync(0xffffffffu, rows[k], 1) : 0.0f;
-  }
-  const float ivw_p = b.y_iv * p.dt, jw_p = b.y_j * 0.5f;
-  const float ivw_m = anti ? __shfl_xor_sync(0xffffffffu, ivw_p, 1) : 0.0f;
-  const float jw_m = anti ? __shfl_xor_sync(0xffffffffu, jw_p, 1) : 0.0f;
-  float acc[kCurveCols] = {};
+    for (int k = 0; k < kVjpCols; ++k) {
+      rp[k] = rows[k];
+      rm[k] = anti ? __shfl_xor_sync(0xffffffffu, rows[k], 1) : 0.0f;
+    }
+    const float ivw_p = b.y_iv * p.dt, jw_p = b.y_j * 0.5f;
+    const float ivw_m = anti ? __shfl_xor_sync(0xffffffffu, ivw_p, 1) : 0.0f;
+    const float jw_m = anti ? __shfl_xor_sync(0xffffffffu, jw_p, 1) : 0.0f;
+    float acc[kCurveCols] = {};
 #pragma unroll
-  for (int k = 0; k < kCurveCols; ++k) {
-    acc[k] += anti ? ct_p * rp[k + 1] + ct_m * rm[k + 1] : ct_p * rp[k + 1];
-  }
-  // per group R_k = (y_IV dt) P_k + (y_J / 2) s_k dW_k, the mirror's s dW
-  // negated (its walk forms it unsigned)
-  const auto row = [&](float pp, float sdw_p, float pm, float sdw_m) {
-    const float r = ct_p * (ivw_p * pp + jw_p * sdw_p);
-    return anti ? r + ct_m * (ivw_m * pm - jw_m * sdw_m) : r;
-  };
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // R_0, then each chunk's R_k through dbuf: two 32-slot butterflies a row
-  const auto sum_rows = [&](int k0, int count) {
-    __syncthreads();
-    for (int r = w; r < count; r += kChunkWarps) {
-      const double h0 = warp_sum((double)dbuf[r * kThreads + lane]);
-      const double h1 = warp_sum((double)dbuf[r * kThreads + 32 + lane]);
-      if (lane == 0) partials[(long long)(k0 + r) * gridDim.x + blockIdx.x] = h0 + h1;
+    for (int k = 0; k < kCurveCols; ++k) {
+      acc[k] += anti ? ct_p * rp[k + 1] + ct_m * rm[k + 1] : ct_p * rp[k + 1];
     }
-    __syncthreads();
-  };
-  if (!mirror) dbuf[slot] = row(c0.x, s0dw0, c0.x, s0dw0);
-  sum_rows(0, 1);
-  for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
-    chunk_product<kChunkWarps>(xs, lpack, s, chunk, xbuf);
-    __syncthreads();
-    const int k0 = chunk * kChunkRows + 1;
-    const int count = min(kChunkRows, s.n - k0);
-    for (int r = 0; r < count; ++r) {
-      const int k = k0 + r;
-      const float4 ck = __ldg(coef + 2 * k);
-      const float dw = __fmul_rn(ck.z, xs[k * kThreads + slot]);
-      const float ep = expf(__fmul_rn(p.eta, xbuf[r * kThreads + slot]));
-      const float sep = sqrtf(ep);
-      const float pk = __fmul_rn(ck.x, mirror ? hh::rcp(ep) : ep);
-      const float sdw = __fmul_rn(__fmul_rn(ck.y, mirror ? hh::rcp(sep) : sep), dw);
-      const float pm = anti ? __shfl_xor_sync(0xffffffffu, pk, 1) : 0.0f;
-      const float sdw_m = anti ? __shfl_xor_sync(0xffffffffu, sdw, 1) : 0.0f;
-      if (!mirror) dbuf[r * kThreads + slot] = row(pk, sdw, pm, sdw_m);
+    // per group R_k = (y_IV dt) P_k + (y_J / 2) s_k dW_k, the mirror's s dW
+    // negated (its walk forms it unsigned)
+    const auto row = [&](float pp, float sdw_p, float pm, float sdw_m) {
+      const float r = ct_p * (ivw_p * pp + jw_p * sdw_p);
+      return anti ? r + ct_m * (ivw_m * pm - jw_m * sdw_m) : r;
+    };
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // R_0, then each chunk's R_k through dbuf: two 32-slot butterflies a row
+    const auto sum_rows = [&](int k0, int count) {
+      __syncthreads();
+      for (int r = w; r < count; r += kChunkWarps) {
+        const double h0 = warp_sum((double)dbuf[r * kThreads + lane]);
+        const double h1 = warp_sum((double)dbuf[r * kThreads + 32 + lane]);
+        if (lane == 0) partials[(long long)(k0 + r) * trips + trip] = h0 + h1;
+      }
+      __syncthreads();
+    };
+    if (!mirror) dbuf[slot] = row(c0.x, s0dw0, c0.x, s0dw0);
+    sum_rows(0, 1);
+    for (int chunk = 0; chunk * kChunkRows < s.n - 1; ++chunk) {
+      chunk_product<kChunkWarps>(xs, lpack, s, chunk, xbuf);
+      __syncthreads();
+      const int k0 = chunk * kChunkRows + 1;
+      const int count = min(kChunkRows, s.n - k0);
+      for (int r = 0; r < count; ++r) {
+        const int k = k0 + r;
+        const float4 ck = __ldg(coef + 2 * k);
+        const float dw = __fmul_rn(ck.z, xs[k * kThreads + slot]);
+        const float ep = expf(__fmul_rn(p.eta, xbuf[r * kThreads + slot]));
+        const float sep = sqrtf(ep);
+        const float pk = __fmul_rn(ck.x, mirror ? hh::rcp(ep) : ep);
+        const float sdw = __fmul_rn(__fmul_rn(ck.y, mirror ? hh::rcp(sep) : sep), dw);
+        const float pm = anti ? __shfl_xor_sync(0xffffffffu, pk, 1) : 0.0f;
+        const float sdw_m = anti ? __shfl_xor_sync(0xffffffffu, sdw, 1) : 0.0f;
+        if (!mirror) dbuf[r * kThreads + slot] = row(pk, sdw, pm, sdw_m);
+      }
+      sum_rows(k0, count);
     }
-    sum_rows(k0, count);
-  }
-  for (int k = 0; k < kCurveCols; ++k) {
-    if (!mirror) red[slot] = (double)acc[k];
-    slot_tree(red, partials + (long long)(s.n + k) * gridDim.x + blockIdx.x);
+    for (int k = 0; k < kCurveCols; ++k) {
+      if (!mirror) red[slot] = (double)acc[k];
+      slot_tree(red, partials + (long long)(s.n + k) * trips + trip);
+    }
+  };
+  if constexpr (kWide) {
+    const long long trips = (n_paths + kThreads - 1) / kThreads;
+    for (long long trip = blockIdx.x; trip < trips; trip += gridDim.x) trip_sums(trip, trips);
+  } else {
+    trip_sums(blockIdx.x, gridDim.x);
   }
 }
 
 // K19: K15's trips, m strikes closed from each group's (IV, J); slot t's m
 // fp32 sums in shared memory (added by its + thread), each strike's 64 sums
 // reduced as K15's.
+template <bool kWide>
 __global__ void __launch_bounds__(kChunkThreads)
 rb_smile_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
                 const float4* __restrict__ lpack, const int* __restrict__ sobol,
                 const float2* __restrict__ ks, int m, double* __restrict__ partials,
                 long long total_pairs, int steps, uint32_t seed, uint32_t device_id,
-                long long point_offset) {
+                long long point_offset, float* slab) {
   extern __shared__ float4 smem4[];
   __shared__ double red[kThreads];
-  float* xs = reinterpret_cast<float*>(smem4);
   const RbShape s = rb_shape(steps);
-  float* xbuf = xs + s.xi_rows * kThreads;
-  const int* table = stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
-  float* acc = xbuf + kChunkRows * kThreads + table_words(steps, sobol != nullptr);
+  float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
+  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  const int* table =
+      kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
+  float* acc = xbuf + kChunkRows * kThreads + (kWide ? 0 : table_words(steps, sobol != nullptr));
   for (int i = threadIdx.x; i < m * kThreads; i += kChunkThreads) acc[i] = 0.0f;
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
   const int slot = threadIdx.x >> 1;
@@ -900,20 +949,25 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Past kStagedSteps a launch runs the wide instantiation.
+bool wide(int steps) { return steps > kStagedSteps; }
+
 }  // namespace
 
 // Per-path undiscounted values: out is (1 or 2, n_paths) float32; grid is
-// K14's resident wave (hh_rb_values_grid) or fewer blocks.
+// K14's resident wave (hh_rb_values_grid) or fewer blocks.  slab: null, or
+// past kStagedSteps grid blocks of xi columns in global memory.
 extern "C" int hh_rb_values(const float* params, const float* coef, const float* lpack,
                             const int* sobol, float* out, int grid, long long n_paths, int steps,
                             int antithetic, unsigned seed, unsigned device_id,
-                            long long point_offset, void* stream) {
-  const size_t smem = rb_chunk_smem(steps, sobol != nullptr);
-  cudaError_t err = allow_smem(rb_values_kernel, smem);
+                            long long point_offset, float* slab, void* stream) {
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr, slab != nullptr);
+  const auto kernel = wide(steps) ? rb_values_kernel<true> : rb_values_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_values_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
-      out, n_paths, steps, antithetic, seed, device_id, point_offset);
+      out, n_paths, steps, antithetic, seed, device_id, point_offset, slab);
   return (int)cudaGetLastError();
 }
 
@@ -922,13 +976,14 @@ extern "C" int hh_rb_values(const float* params, const float* coef, const float*
 extern "C" int hh_rb_price(const float* params, const float* coef, const float* lpack,
                            const int* sobol, double* partials, int grid, long long total_pairs,
                            int steps, unsigned seed, unsigned device_id, long long point_offset,
-                           void* stream) {
-  const size_t smem = rb_chunk_smem(steps, sobol != nullptr);
-  cudaError_t err = allow_smem(rb_price_kernel, smem);
+                           float* slab, void* stream) {
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr, slab != nullptr);
+  const auto kernel = wide(steps) ? rb_price_kernel<true> : rb_price_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_price_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
-      partials, total_pairs, steps, seed, device_id, point_offset);
+      partials, total_pairs, steps, seed, device_id, point_offset, slab);
   return (int)cudaGetLastError();
 }
 
@@ -937,76 +992,85 @@ extern "C" int hh_rb_price(const float* params, const float* coef, const float* 
 extern "C" int hh_rb_greeks(const float* params, const float* coef, const float* lpack,
                             const float* dpack, const int* sobol, double* partials, int grid,
                             long long total_pairs, int steps, unsigned seed, unsigned device_id,
-                            long long point_offset, void* stream) {
-  const size_t smem = rb_greeks_smem(steps, sobol != nullptr);
-  cudaError_t err = allow_smem(rb_greeks_kernel, smem);
+                            long long point_offset, float* slab, void* stream) {
+  const size_t smem = rb_greeks_smem(steps, sobol != nullptr, slab != nullptr);
+  const auto kernel = wide(steps) ? rb_greeks_kernel<true> : rb_greeks_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_greeks_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, partials, total_pairs, steps, seed,
-      device_id, point_offset);
+      device_id, point_offset, slab);
   return (int)cudaGetLastError();
 }
 
 // Cotangent-weighted sums over the paths: ct is (1 or 2, n_paths) float32,
-// partials (7, ceil(n_paths / 64)) float64.
+// partials (7, ceil(n_paths / 64)) float64, a column a trip of 64 pairs.  Up
+// to kStagedSteps one block a trip (grid is ignored); past that grid blocks
+// walk the trips.
 extern "C" int hh_rb_values_vjp(const float* params, const float* coef, const float* lpack,
                                 const float* dpack, const int* sobol, const float* ct,
                                 double* partials, long long n_paths, int steps, int antithetic,
                                 unsigned seed, unsigned device_id, long long point_offset,
-                                void* stream) {
-  const size_t smem = rb_greeks_smem(steps, sobol != nullptr);
-  cudaError_t err = allow_smem(rb_vjp_kernel, smem);
+                                int grid, float* slab, void* stream) {
+  const size_t smem = rb_greeks_smem(steps, sobol != nullptr, slab != nullptr);
+  const auto kernel = wide(steps) ? rb_vjp_kernel<true> : rb_vjp_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  rb_vjp_kernel<<<(unsigned)blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
+  const long long blocks = wide(steps) ? grid : (n_paths + kThreads - 1) / kThreads;
+  kernel<<<(unsigned)blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
-      seed, device_id, point_offset);
+      seed, device_id, point_offset, slab);
   return (int)cudaGetLastError();
 }
 
 // K18's sums: ct is (1 or 2, n_paths) float32, partials (n + 6,
 // ceil(n_paths / 64)) float64: the n per-step rows d/d ln C_k, then chain_eta,
-// chain_H, chain_T, w, y_rho, y_K.
+// chain_H, chain_T, w, y_rho, y_K.  Blocks as hh_rb_values_vjp.
 extern "C" int hh_rb_values_vjp_curve(const float* params, const float* coef, const float* lpack,
                                       const float* dpack, const int* sobol, const float* ct,
                                       double* partials, long long n_paths, int steps,
                                       int antithetic, unsigned seed, unsigned device_id,
-                                      long long point_offset, void* stream) {
-  const size_t smem = rb_curve_smem(steps, sobol != nullptr);
-  cudaError_t err = allow_smem(rb_vjp_curve_kernel, smem);
+                                      long long point_offset, int grid, float* slab,
+                                      void* stream) {
+  const size_t smem = rb_curve_smem(steps, sobol != nullptr, slab != nullptr);
+  const auto kernel = wide(steps) ? rb_vjp_curve_kernel<true> : rb_vjp_curve_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  rb_vjp_curve_kernel<<<(unsigned)blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
+  const long long blocks = wide(steps) ? grid : (n_paths + kThreads - 1) / kThreads;
+  kernel<<<(unsigned)blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack),
       reinterpret_cast<const float4*>(dpack), sobol, ct, partials, n_paths, steps, antithetic,
-      seed, device_id, point_offset);
+      seed, device_id, point_offset, slab);
   return (int)cudaGetLastError();
 }
 
 // K19's sums of (value + antithetic value) per strike over the pairs
-// [0, total_pairs): ks is (m, 2) float32 (log(f_base / K), K), partials
-// (m, grid) float64; grid is K15's (hh_rb_price_grid).
+// [0, total_pairs): ks is (m, 2) float32 (log(f_base / K), K), m at most
+// kMaxStrikes (the caller launches wider smiles a chunk of strikes at a
+// time), partials (m, grid) float64; grid is K15's (hh_rb_price_grid).
 extern "C" int hh_rb_smile(const float* params, const float* coef, const float* lpack,
                            const int* sobol, const float* ks, int m, double* partials, int grid,
                            long long total_pairs, int steps, unsigned seed, unsigned device_id,
-                           long long point_offset, void* stream) {
+                           long long point_offset, float* slab, void* stream) {
   if (m < 1 || m > kMaxStrikes) return (int)cudaErrorInvalidValue;
-  const size_t smem = rb_chunk_smem(steps, sobol != nullptr) + sizeof(float) * m * kThreads;
-  cudaError_t err = allow_smem(rb_smile_kernel, smem);
+  const size_t smem =
+      rb_chunk_smem(steps, sobol != nullptr, slab != nullptr) + sizeof(float) * m * kThreads;
+  const auto kernel = wide(steps) ? rb_smile_kernel<true> : rb_smile_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  rb_smile_kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kChunkThreads, smem, (cudaStream_t)stream>>>(
       params, reinterpret_cast<const float4*>(coef), reinterpret_cast<const float4*>(lpack), sobol,
       reinterpret_cast<const float2*>(ks), m, partials, total_pairs, steps, seed, device_id,
-      point_offset);
+      point_offset, slab);
   return (int)cudaGetLastError();
 }
 
 // The occupancy on the current device at `steps` steps, with or without
-// the Sobol' table, of the block-cooperative kernels: out = (threads a
-// block, resident blocks per SM, SMs, dynamic shared bytes, static shared
-// bytes, registers a thread, local (spill) bytes a thread).
+// the Sobol' table and the slab, of the block-cooperative kernels: out =
+// (threads a block, resident blocks per SM, SMs, dynamic shared bytes,
+// static shared bytes, registers a thread, local (spill) bytes a thread).
 template <class K>
 int chunk_occupancy(K kernel, size_t smem, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1025,28 +1089,33 @@ int chunk_occupancy(K kernel, size_t smem, int* out) {
 }
 
 // K14's.
-extern "C" int hh_rb_values_occupancy(int steps, int qmc, int* out) {
-  return chunk_occupancy(rb_values_kernel, rb_chunk_smem(steps, qmc != 0), out);
+extern "C" int hh_rb_values_occupancy(int steps, int qmc, int slab, int* out) {
+  return chunk_occupancy(wide(steps) ? rb_values_kernel<true> : rb_values_kernel<false>,
+                         rb_chunk_smem(steps, qmc != 0, slab != 0), out);
 }
 
 // K15's.
-extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
-  return chunk_occupancy(rb_price_kernel, rb_chunk_smem(steps, qmc != 0), out);
+extern "C" int hh_rb_price_occupancy(int steps, int qmc, int slab, int* out) {
+  return chunk_occupancy(wide(steps) ? rb_price_kernel<true> : rb_price_kernel<false>,
+                         rb_chunk_smem(steps, qmc != 0, slab != 0), out);
 }
 
 // K16's.
-extern "C" int hh_rb_greeks_occupancy(int steps, int qmc, int* out) {
-  return chunk_occupancy(rb_greeks_kernel, rb_greeks_smem(steps, qmc != 0), out);
+extern "C" int hh_rb_greeks_occupancy(int steps, int qmc, int slab, int* out) {
+  return chunk_occupancy(wide(steps) ? rb_greeks_kernel<true> : rb_greeks_kernel<false>,
+                         rb_greeks_smem(steps, qmc != 0, slab != 0), out);
 }
 
 // K17's.
-extern "C" int hh_rb_vjp_occupancy(int steps, int qmc, int* out) {
-  return chunk_occupancy(rb_vjp_kernel, rb_greeks_smem(steps, qmc != 0), out);
+extern "C" int hh_rb_vjp_occupancy(int steps, int qmc, int slab, int* out) {
+  return chunk_occupancy(wide(steps) ? rb_vjp_kernel<true> : rb_vjp_kernel<false>,
+                         rb_greeks_smem(steps, qmc != 0, slab != 0), out);
 }
 
 // K18's.
-extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int* out) {
-  return chunk_occupancy(rb_vjp_curve_kernel, rb_curve_smem(steps, qmc != 0), out);
+extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int slab, int* out) {
+  return chunk_occupancy(wide(steps) ? rb_vjp_curve_kernel<true> : rb_vjp_curve_kernel<false>,
+                         rb_curve_smem(steps, qmc != 0, slab != 0), out);
 }
 
 // One resident wave: SMs x blocks an SM, from an occupancy's out[7].
@@ -1058,13 +1127,13 @@ static int resident_wave(int err, const int* occ, int* grid) {
 // The price kernels' grid (K15; K16, which walks K15's trips for its price
 // to equal K15's, and holds as many blocks an SM; K19): one resident wave
 // of K15.
-extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
+extern "C" int hh_rb_price_grid(int steps, int qmc, int slab, int* grid) {
   int occ[7];
-  return resident_wave(hh_rb_price_occupancy(steps, qmc, occ), occ, grid);
+  return resident_wave(hh_rb_price_occupancy(steps, qmc, slab, occ), occ, grid);
 }
 
 // K14's grid: one resident wave of K14.
-extern "C" int hh_rb_values_grid(int steps, int qmc, int* grid) {
+extern "C" int hh_rb_values_grid(int steps, int qmc, int slab, int* grid) {
   int occ[7];
-  return resident_wave(hh_rb_values_occupancy(steps, qmc, occ), occ, grid);
+  return resident_wave(hh_rb_values_occupancy(steps, qmc, slab, occ), occ, grid);
 }

@@ -46,6 +46,7 @@ from .heston_qe_kernel import (
     check_surface,
     pair_chunks,
     segment_dts,
+    staged_rows,
     strike_chunks,
     surface_args,
 )
@@ -82,8 +83,6 @@ _CF_ITERS = 16
 _CF_SWITCH = 24.0
 #: the largest Poisson trip count the CUDA kernels take (poisson_kmax's cap + 1)
 _KMAX_LIMIT = 65
-#: segments the QMC kernels stage in shared memory at most
-_QMC_MAX_SEGMENTS = 16
 _MASK32 = 0xFFFFFFFF
 
 _P_NAMES = (
@@ -334,8 +333,6 @@ def _check_inputs(params, table, segments: int, kmax: int):
     if not 1 <= kmax <= _KMAX_LIMIT:
         raise ValueError(f"Poisson trip count {kmax} outside [1, {_KMAX_LIMIT}]")
     if table is not None:
-        if segments > _QMC_MAX_SEGMENTS:
-            raise ValueError(f"QMC kernels take at most {_QMC_MAX_SEGMENTS} segments; got {segments}")
         check_tensor(table, "sobol table", torch.int32, (4 * segments, SOBOL_BITS + 1))
         if table.device != params.device:
             raise ValueError("params and the Sobol' table must be on one device")
@@ -559,8 +556,7 @@ def _exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs, seed, 
     one resident wave; another grid sums the same pair values in another
     order (the earlier kernel's grid gives its bits)."""
     n_exp = len(seg_steps)
-    check_surface(params, table, seg_steps, m, exact_surf_nparams(n_exp, m), 4,
-                  _QMC_MAX_SEGMENTS)
+    check_surface(params, table, seg_steps, m, exact_surf_nparams(n_exp, m), 4)
     if len(kmaxes) != n_exp or not all(1 <= k <= _KMAX_LIMIT for k in kmaxes):
         raise ValueError(f"Poisson trip counts {kmaxes} outside [1, {_KMAX_LIMIT}]")
     check_grid(grid)
@@ -610,8 +606,11 @@ def heston_exact_mixing_surface_price(
     table = torch.as_tensor(sobol_table(seed, 4 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
     n_exp, total_segs = len(T_host), sum(seg_steps)
-    for sl in strike_chunks(n_strikes, lambda w: exact_surface_smem_bytes(n_exp, w, total_segs,
-                                                                          qmc)):
+    # the table staged where a one-strike launch with it fits, else read from global memory
+    staged = staged_rows(4 * total_segs if qmc else 0,
+                         lambda w, rows: exact_surface_smem_bytes(n_exp, w, rows // 4, rows > 0))
+    for sl in strike_chunks(n_strikes, lambda w: exact_surface_smem_bytes(n_exp, w, staged // 4,
+                                                                          staged > 0)):
         params = torch.as_tensor(_exact_surf_params(log_s0, v0, r, kappa, theta, sigma, rho,
                                                     T_host, seg_steps, strikes[sl], cp),
                                  device=dev)

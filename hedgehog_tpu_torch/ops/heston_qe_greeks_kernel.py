@@ -31,7 +31,6 @@ from .cuda_lib import CudaKernel, check_grid, check_tensor, require_cuda
 from ..utils import f64
 from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
-    QMC_MAX_STEPS,
     SURF_EXP_BYTES,
     _surf_params,
     check_inputs,
@@ -44,6 +43,7 @@ from .heston_qe_kernel import (
     pair_chunks,
     price_grid,
     segment_dts,
+    staged_rows,
     strike_chunks,
     surf_nparams,
     surface_args,
@@ -529,7 +529,7 @@ def _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, seed, 
     columns); the twin for inputs on the CPU.  ``grid`` as K9's
     (``heston_qe_kernel._qe_surface_sums``)."""
     n_exp = len(seg_steps)
-    check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2, QMC_MAX_STEPS)
+    check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2)
     check_tensor(dct, "constant tangents", torch.float32, (N_SURF_DIRS * n_exp, 4))
     check_tensor(djt, "J-closure rows", torch.float32, (N_SURF_DIRS * n_exp, 3))
     check_grid(grid)
@@ -554,15 +554,15 @@ def _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, seed, 
 def heston_qe_mixing_surface_price_and_jacobian(
     log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
     *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
-    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
+    device_id=0, qmc: bool = False, point_offset: int = 0, grid=None, device="cuda",
 ):
     """(surface (n_exp, m), jacobian (n_exp, m, 7)): DISCOUNTED prices and
     their derivatives in (spot, V0, κ, θ, σ, ρ, flat rate) from ONE pass of
     forward tangents over the pairs, stream and grid of
     :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.heston_qe_mixing_surface_price`,
-    so the surface equals that kernel's.  The rate column includes the
-    discount term (``discounts`` must be e^{−r·T_i}).  float64 on the
-    device."""
+    so the surface equals that kernel's at the same ``grid``.  The rate
+    column includes the discount term (``discounts`` must be e^{−r·T_i}).
+    float64 on the device."""
     T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
         T_host, seg_steps, strikes, n_strikes, discounts, n_blocks, n_batches, qmc,
         point_offset, device)
@@ -571,14 +571,18 @@ def heston_qe_mixing_surface_price_and_jacobian(
                 for t in _surface_greek_tables(kappa, theta, sigma, T_host, seg_steps))
     table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-    table_rows = 0 if table is None else table.shape[0]
-    for sl in strike_chunks(n_strikes, lambda w: surface_smem_bytes(n_exp, w, N_SURF_COLS,
-                                                                    table_rows, _JAC_EXP_BYTES)):
+
+    def smem(width, table_rows):
+        return surface_smem_bytes(n_exp, width, N_SURF_COLS, table_rows, _JAC_EXP_BYTES,
+                                  high=True)
+
+    staged = staged_rows(0 if table is None else table.shape[0], smem)
+    for sl in strike_chunks(n_strikes, lambda w: smem(w, staged)):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])
         sums = _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, int(seed),
-                                 int(device_id), point_offset)
+                                 int(device_id), point_offset, grid)
         rows.append(sums.reshape(n_exp, m, N_SURF_COLS))
     tot = torch.cat(rows, dim=1) / (2 * total_pairs)
     D = disc[:, None]

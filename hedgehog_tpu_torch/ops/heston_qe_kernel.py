@@ -87,10 +87,6 @@ __all__ = [
 
 #: antithetic pairs per TPU program (256 × 128): the unit of ``n_blocks``
 PAIRS_PER_BLOCK = 256 * 128
-#: QMC steps whose Sobol' table the kernels stage in shared memory at most
-#: (mixing: 2·128 dims × 31 words = 31.7 KB; QE-M: 3·128 dims = 47.6 KB, under
-#: the 48 KB of dynamic shared memory a block takes without opting in)
-QMC_MAX_STEPS = 128
 _MASK32 = 0xFFFFFFFF
 #: pairs per chunk of the summing twins
 PLAIN_CHUNK = 2**18
@@ -199,8 +195,6 @@ def check_inputs(params, table, steps: int, n_params: int = len(MIX_NAMES),
     if steps < 1:
         raise ValueError(f"need steps >= 1; got {steps}")
     if table is not None:
-        if steps > QMC_MAX_STEPS:
-            raise ValueError(f"QMC kernels take at most {QMC_MAX_STEPS} steps; got {steps}")
         check_tensor(table, "sobol table", torch.int32, (dims_per_step * steps, SOBOL_BITS + 1))
         if table.device != params.device:
             raise ValueError("params and the Sobol' table must be on one device")
@@ -226,8 +220,10 @@ def _qe_values(params, table, n_paths, steps, antithetic, seed, device_id,
 
 
 def price_grid(device: torch.device, table) -> int:
-    """Blocks of the price kernels K8 and K10 (one resident wave of K8):
-    both walk the pairs with this grid, so K10's price equals K8's."""
+    """Blocks of the price kernels K8 and K10 (one resident wave of K8, its
+    Sobol' table staged in shared memory where it fits a block, else read
+    from global memory): both walk the pairs with this grid, so K10's price
+    equals K8's."""
     return resident_grid("hh_qe_price_grid", device, 0 if table is None else 4 * table.numel())
 
 
@@ -409,11 +405,20 @@ def surface_smem_bytes(n_exp: int, m: int, cols_per_point: int, table_rows: int,
     csrc/heston_surface.cu): a float64 row of sums
     per warp, 28 bytes of close constants per point, ``per_exp_bytes`` per
     expiry (segment constants, step counts, tangent rows) and the Sobol'
-    table, with alignment slack; with ``high`` (K9) each warp's high Sobol'
-    words, two a table row."""
+    table, with alignment slack; with ``high`` each warp's high Sobol'
+    words, two a table row (the kernels stage both where the table is in
+    shared memory)."""
     return (8 * SURFACE_WARPS * n_exp * m * cols_per_point + 28 * n_exp * m
             + per_exp_bytes * n_exp + 4 * (SOBOL_BITS + 1) * table_rows
             + (4 * 2 * SURFACE_WARPS * table_rows if high else 0) + 64)
+
+
+def staged_rows(table_rows: int, smem_bytes) -> int:
+    """The Sobol' table rows a surface launch stages: all of them where a
+    launch of one strike with them, ``smem_bytes(1, table_rows)``, fits
+    ``SURFACE_SMEM_LIMIT``; else none (the kernel reads the table from
+    global memory, and the strikes are chunked without it)."""
+    return table_rows if smem_bytes(1, table_rows) <= SURFACE_SMEM_LIMIT else 0
 
 
 def strike_chunks(m: int, smem_bytes) -> list:
@@ -430,16 +435,13 @@ def strike_chunks(m: int, smem_bytes) -> list:
     return [slice(k, min(k + width, m)) for k in range(0, m, width)]
 
 
-def check_surface(params, table, seg_steps, m: int, n_params: int, dims_per_step: int,
-                  max_steps: int) -> None:
+def check_surface(params, table, seg_steps, m: int, n_params: int, dims_per_step: int) -> None:
     """Raise on surface inputs the kernels do not take."""
     check_tensor(params, "params", torch.float32, (n_params,))
     if not seg_steps or min(seg_steps) < 1 or m < 1:
         raise ValueError(f"need >= 1 step per segment and >= 1 strike; got {seg_steps}, m={m}")
     if table is not None:
         total = sum(seg_steps)
-        if total > max_steps:
-            raise ValueError(f"QMC surface kernels take at most {max_steps} steps; got {total}")
         check_tensor(table, "sobol table", torch.int32, (dims_per_step * total, SOBOL_BITS + 1))
         if table.device != params.device:
             raise ValueError("params and the Sobol' table must be on one device")
@@ -452,7 +454,7 @@ def _qe_surface_sums(params, table, seg_steps, m, total_pairs, seed, device_id,
     :func:`surface_grid`; another grid walks the same pairs in other rounds,
     so only the sums' last bits move (the check of an earlier grid's bits)."""
     n_exp = len(seg_steps)
-    check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2, QMC_MAX_STEPS)
+    check_surface(params, table, seg_steps, m, surf_nparams(n_exp, m), 2)
     check_grid(grid)
     if params.device.type == "cpu":
         return heston_qe_mixing_surface_sums_plain(params, table, seg_steps, m, total_pairs, seed,
@@ -489,28 +491,32 @@ def surface_args(T_host, seg_steps, strikes, n_strikes: int, discounts, n_blocks
 def heston_qe_mixing_surface_price(
     log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
     *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
-    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
+    device_id=0, qmc: bool = False, point_offset: int = 0, grid=None, device="cuda",
 ) -> torch.Tensor:
     """(n_exp, n_strikes) DISCOUNTED surface prices over
     n_blocks·n_batches·32768 antithetic QE mixing pairs: one variance path per
     pair through the expiry segments (``seg_steps`` steps each, the step
     index running across segments), every strike closed at each expiry.
     ``T_host``: increasing expiry year fractions; ``discounts``: (n_exp,)
-    discount factors.  Returns float64 on the device."""
+    discount factors; ``grid``: K9's blocks (default :func:`surface_grid`).
+    Returns float64 on the device."""
     T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
         T_host, seg_steps, strikes, n_strikes, discounts, n_blocks, n_batches, qmc,
         point_offset, device)
     table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-    n_exp, table_rows = len(T_host), 0 if table is None else table.shape[0]
-    for sl in strike_chunks(n_strikes,
-                            lambda w: surface_smem_bytes(n_exp, w, 1, table_rows, SURF_EXP_BYTES,
-                                                         high=True)):
+    n_exp = len(T_host)
+
+    def smem(width, rows):
+        return surface_smem_bytes(n_exp, width, 1, rows, SURF_EXP_BYTES, high=True)
+
+    staged = staged_rows(0 if table is None else table.shape[0], smem)
+    for sl in strike_chunks(n_strikes, lambda w: smem(w, staged)):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])
         rows.append(_qe_surface_sums(params, table, seg_steps, m, total_pairs, int(seed),
-                                     int(device_id), point_offset).reshape(len(T_host), m))
+                                     int(device_id), point_offset, grid).reshape(len(T_host), m))
     return disc[:, None] * (torch.cat(rows, dim=1) / (2 * total_pairs))
 
 

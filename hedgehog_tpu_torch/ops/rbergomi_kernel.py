@@ -93,11 +93,17 @@ __all__ = [
 GREEK_ORDER_RB = ("spot", "xi0", "eta", "rho", "hurst", "rate")
 #: antithetic pairs per TPU program and batch: the unit of ``n_blocks``
 PAIRS_PER_BLOCK = 2048
-#: the kernels keep a pair's ξ column (2·steps rows, padded to whole tiles)
-#: in shared memory, 64 pairs a block, beside the 2·steps-row Sobol' table:
-#: 256 steps take 192 KB of the 227 KB a block may use (each kernel adds an
-#: 8 KB chunk of Z rows, K18 two, K19 256 bytes a strike)
-MAX_STEPS = 256
+#: up to this many steps the kernels keep a pair's ξ column (2·steps rows,
+#: padded to whole tiles) in shared memory, 64 pairs a block, beside the
+#: 2·steps-row Sobol' table: 256 steps take 192 KB of the 227 KB a block may
+#: use (each kernel adds an 8 KB chunk of Z rows, K18 two, K19 256 bytes a
+#: strike).  Past it the kernels read the table from global memory and keep
+#: the ξ columns in shared memory where they fit, else in a slab of global
+#: scratch per block (csrc/rbergomi.cu kStagedSteps, kWide)
+STAGED_STEPS = 256
+#: from this many steps the ξ columns always go to the slab (None: only
+#: where they do not fit a block's shared memory)
+SLAB_STEPS = None
 #: the pairs a block of the kernels holds, and the Z rows of one chunk of
 #: the block-cooperative product (csrc/rbergomi.cu kThreads, kChunkRows;
 #: K16's and K17's chunks are half as high, kHalfChunkRows)
@@ -115,25 +121,30 @@ RB_NAMES = ("eta", "dt", "f_base", "strike", "rho", "rho2_half", "rho_bar2", "cp
             "log_f_over_k", "inv_xi0", "h_eta", "inv_t")
 #: per-step coefficient columns: C_k, √C_k, L[k, k], dL[k, k]/dH, ae_k, bh_k
 COEF_COLS = 8
-#: K19's strikes: its per-thread sums live in shared memory, one float a
-#: thread a strike (csrc/rbergomi.cu kMaxStrikes)
+#: K19's strikes a launch: its per-thread sums live in shared memory, one
+#: float a thread a strike (csrc/rbergomi.cu kMaxStrikes); a wider smile is
+#: launched a chunk of MAX_STRIKES strikes at a time on the same pairs
 MAX_STRIKES = 64
+#: the static shared memory of the summing kernels (csrc/rbergomi.cu red[64])
+STATIC_SMEM = 8 * 64
 #: K18's rows after the n per-step ones: K17's without chain_xi0
 CURVE_ROWS = ("eta", "hurst", "T", "w", "rho", "strike")
 _MASK32 = 0xFFFFFFFF
 
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 RB_VALUES_KERNEL = CudaKernel("hh_rb_values",
-                              [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _U, _U, _LL, _P])
-RB_PRICE_KERNEL = CudaKernel("hh_rb_price", [_P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P])
+                              [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _U, _U, _LL, _P, _P])
+RB_PRICE_KERNEL = CudaKernel("hh_rb_price",
+                             [_P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P, _P])
 RB_GREEKS_KERNEL = CudaKernel("hh_rb_greeks",
-                              [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P])
+                              [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _U, _U, _LL, _P, _P])
 RB_VJP_KERNEL = CudaKernel("hh_rb_values_vjp",
-                           [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _P])
+                           [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _I, _P, _P])
 RB_VJP_CURVE_KERNEL = CudaKernel("hh_rb_values_vjp_curve",
-                                 [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _P])
+                                 [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _U, _U, _LL, _I, _P,
+                                  _P])
 RB_SMILE_KERNEL = CudaKernel("hh_rb_smile",
-                             [_P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _U, _U, _LL, _P])
+                             [_P, _P, _P, _P, _P, _I, _P, _I, _LL, _I, _U, _U, _LL, _P, _P])
 
 
 def zcols(steps: int) -> int:
@@ -203,10 +214,8 @@ def rb_inputs(chol, coefs, eta, dt, f_base, log_f_over_k, strike, cp, rho, *, st
     factor (and for K16/K17 its H derivative and the (ae, bh) columns) cast
     to float32 once, as the TPU wrapper casts them."""
     n = int(steps)
-    if not 1 <= n <= MAX_STEPS:
-        raise ValueError(
-            f"the rough-Bergomi kernels take 1 to {MAX_STEPS} steps (a pair's ξ column and the "
-            f"Sobol' table live in shared memory); got {n}")
+    if n < 1:
+        raise ValueError(f"the rough-Bergomi kernels need steps >= 1; got {n}")
     dev = resolve_device(device)
     L32 = _np64(chol).astype(np.float32)
     if L32.shape != (2 * n, 2 * n):
@@ -453,11 +462,42 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
     require_cuda(inp.params)
     out = torch.empty((2 if antithetic else 1, n_paths), dtype=torch.float32,
                       device=inp.params.device)
+    grid = values_grid(inp, n_paths)
+    slab = _slab(inp, grid, values_smem_bytes)
     RB_VALUES_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
-        _ptr(inp.table), out.data_ptr(), values_grid(inp, n_paths), n_paths, inp.steps,
-        int(antithetic), seed & _MASK32, device_id & _MASK32, point_offset)
+        _ptr(inp.table), out.data_ptr(), grid, n_paths, inp.steps, int(antithetic),
+        seed & _MASK32, device_id & _MASK32, point_offset, _ptr(slab))
     return out
+
+
+def in_slab(steps: int, smem_bytes) -> bool:
+    """Whether a kernel keeps its ξ columns in a slab of global scratch:
+    past ``STAGED_STEPS`` where its shared memory with them
+    (``smem_bytes(steps, False)``: the table is then read from global memory)
+    would not fit a block, or from ``SLAB_STEPS`` steps."""
+    if steps <= STAGED_STEPS:
+        return False
+    return ((SLAB_STEPS is not None and steps >= SLAB_STEPS)
+            or smem_bytes(steps, False) + STATIC_SMEM > SMEM_PER_BLOCK)
+
+
+def _slab(inp: RbInputs, grid: int, smem_bytes):
+    """The global scratch of ``grid`` blocks' ξ columns where the kernel
+    keeps them there (:func:`in_slab`), else None.  Raises where the card's
+    free memory cannot hold it, naming the most steps that would fit."""
+    if not in_slab(inp.steps, smem_bytes):
+        return None
+    dev = inp.params.device
+    per_block = 4 * BLOCK_PAIRS * (inp.steps + zcols(inp.steps))
+    free, _ = torch.cuda.mem_get_info(dev)
+    if grid * per_block > free:
+        most = max(0, (free // (4 * BLOCK_PAIRS * grid) - TILE) // 2)
+        raise ValueError(
+            f"{inp.steps} steps need {grid * per_block / 2**30:.2f} GiB of scratch for the ξ "
+            f"columns of {grid} blocks; {free / 2**30:.2f} GiB are free on {dev}, enough for "
+            f"about {most} steps")
+    return torch.empty(grid * per_block // 4, dtype=torch.float32, device=dev)
 
 
 def values_grid(inp: RbInputs, n_paths: int) -> int:
@@ -465,7 +505,7 @@ def values_grid(inp: RbInputs, n_paths: int) -> int:
     one a trip of 64 pairs where ``n_paths`` needs fewer.  A value does not
     depend on the grid."""
     wave = resident_grid("hh_rb_values_grid", inp.params.device, inp.steps,
-                         int(inp.table is not None))
+                         int(inp.table is not None), int(in_slab(inp.steps, values_smem_bytes)))
     return min(wave, -(-n_paths // BLOCK_PAIRS))
 
 
@@ -474,14 +514,14 @@ def price_grid(inp: RbInputs) -> int:
     the pairs with this grid, 64 a block a trip, so K16's price and K19's
     strikes equal K15's."""
     return resident_grid("hh_rb_price_grid", inp.params.device, inp.steps,
-                         int(inp.table is not None))
+                         int(inp.table is not None), int(in_slab(inp.steps, values_smem_bytes)))
 
 
 def _smem_bytes(steps: int, qmc: bool, chunk_rows: int) -> int:
     """A chunk kernel's dynamic shared memory: the ξ columns of a block's
     pairs (2·steps rows padded to whole tiles), ``chunk_rows`` rows of chunk
-    buffers, the Sobol' table under QMC."""
-    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
+    buffers, the Sobol' table under QMC (staged up to ``STAGED_STEPS``)."""
+    table = 2 * steps * (SOBOL_BITS + 1) if qmc and steps <= STAGED_STEPS else 0
     return 4 * ((steps + zcols(steps)) * BLOCK_PAIRS + chunk_rows * BLOCK_PAIRS + table)
 
 
@@ -511,28 +551,34 @@ def curve_smem_bytes(steps: int, qmc: bool) -> int:
     return _smem_bytes(steps, qmc, 2 * CHUNK_ROWS)
 
 
+def smile_smem_bytes(m: int):
+    """K19's dynamic shared memory at ``m`` strikes, as a function of
+    (steps, qmc): K15's plus one float a thread a strike."""
+    return lambda steps, qmc: values_smem_bytes(steps, qmc) + 4 * BLOCK_PAIRS * m
+
+
 def vjp_curve_occupancy(inp: RbInputs) -> dict:
     """K18's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_vjp_curve_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_vjp_curve_occupancy", inp)
+    return _occupancy("hh_rb_vjp_curve_occupancy", inp, curve_smem_bytes)
 
 
 def values_occupancy(inp: RbInputs) -> dict:
     """K14's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_values_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_values_occupancy", inp)
+    return _occupancy("hh_rb_values_occupancy", inp, values_smem_bytes)
 
 
 def vjp_occupancy(inp: RbInputs) -> dict:
     """K17's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_vjp_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_vjp_occupancy", inp)
+    return _occupancy("hh_rb_vjp_occupancy", inp, vjp_smem_bytes)
 
 
 def greeks_occupancy(inp: RbInputs) -> dict:
     """K16's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_greeks_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_greeks_occupancy", inp)
+    return _occupancy("hh_rb_greeks_occupancy", inp, greeks_smem_bytes)
 
 
 def price_occupancy(inp: RbInputs) -> dict:
@@ -540,14 +586,15 @@ def price_occupancy(inp: RbInputs) -> dict:
     runtime (``hh_rb_price_occupancy``): threads a block, resident blocks
     and warps per SM, shared bytes a block (dynamic and static), registers
     and local (spill) bytes a thread."""
-    return _occupancy("hh_rb_price_occupancy", inp)
+    return _occupancy("hh_rb_price_occupancy", inp, values_smem_bytes)
 
 
-def _occupancy(symbol: str, inp: RbInputs) -> dict:
+def _occupancy(symbol: str, inp: RbInputs, smem_bytes) -> dict:
     """A chunk kernel's occupancy at the inputs' steps and stream from the
-    library's ``symbol``."""
+    library's ``symbol``; ``smem_bytes`` is the kernel's layout."""
     require_cuda(inp.params)
-    return launch_occupancy(symbol, inp.params.device, inp.steps, int(inp.table is not None))
+    return launch_occupancy(symbol, inp.params.device, inp.steps, int(inp.table is not None),
+                            int(in_slab(inp.steps, smem_bytes)))
 
 
 def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> torch.Tensor:
@@ -558,11 +605,12 @@ def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> 
         return rbergomi_mixing_price_sum_plain(inp, total_pairs, seed, device_id, point_offset)
     require_cuda(inp.params)
     grid = price_grid(inp)
+    slab = _slab(inp, grid, values_smem_bytes)
     partials = torch.empty((grid,), dtype=torch.float64, device=inp.params.device)
     RB_PRICE_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
         _ptr(inp.table), partials.data_ptr(), grid, total_pairs, inp.steps, seed & _MASK32,
-        device_id & _MASK32, point_offset)
+        device_id & _MASK32, point_offset, _ptr(slab))
     return partials.sum()
 
 
@@ -574,11 +622,12 @@ def _rb_greek_sums(inp: RbInputs, total_pairs, seed, device_id, point_offset) ->
         return rbergomi_mixing_greek_sums_plain(inp, total_pairs, seed, device_id, point_offset)
     require_cuda(inp.params)
     grid = price_grid(inp)
+    slab = _slab(inp, grid, greeks_smem_bytes)
     partials = torch.empty((6, grid), dtype=torch.float64, device=inp.params.device)
     RB_GREEKS_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
         inp.dpack.data_ptr(), _ptr(inp.table), partials.data_ptr(), grid, total_pairs, inp.steps,
-        seed & _MASK32, device_id & _MASK32, point_offset)
+        seed & _MASK32, device_id & _MASK32, point_offset, _ptr(slab))
     # one sum per contiguous (grid,) row: the price row takes the reduction
     # K15's partials take, so the two prices are equal to the bit
     return torch.stack([row.sum() for row in partials])
@@ -587,20 +636,30 @@ def _rb_greek_sums(inp: RbInputs, total_pairs, seed, device_id, point_offset) ->
 def _rb_vjp_sums(inp: RbInputs, ct, n_paths, antithetic, seed, device_id, point_offset,
                  per_step: bool = False) -> torch.Tensor:
     """Launch K17 (seven float64 sums), or with ``per_step`` K18 (n + 6),
-    for inputs on a GPU; the twin for inputs on the CPU."""
+    for inputs on a GPU; the twin for inputs on the CPU.  A column of
+    partials a trip of 64 pairs: one block a trip up to ``STAGED_STEPS``,
+    past that one resident wave walking the trips."""
     _check(inp, True)
     check_tensor(ct, "cotangent", torch.float32, (2 if antithetic else 1, n_paths))
     if inp.params.device.type == "cpu":
         return _weighted_sums_plain(inp, ct, n_paths, antithetic, seed, device_id, point_offset,
                                     per_step)
     require_cuda(inp.params)
-    blocks = -(-n_paths // 64)
+    trips = -(-n_paths // BLOCK_PAIRS)
     rows = inp.steps + len(CURVE_ROWS) if per_step else 7
-    partials = torch.empty((rows, blocks), dtype=torch.float64, device=inp.params.device)
+    smem_bytes = curve_smem_bytes if per_step else vjp_smem_bytes
+    grid = trips
+    if inp.steps > STAGED_STEPS:
+        occ = (vjp_curve_occupancy if per_step else vjp_occupancy)(inp)
+        sms = torch.cuda.get_device_properties(inp.params.device).multi_processor_count
+        grid = min(trips, sms * max(occ["blocks_per_sm"], 1))
+    slab = _slab(inp, grid, smem_bytes)
+    partials = torch.empty((rows, trips), dtype=torch.float64, device=inp.params.device)
     (RB_VJP_CURVE_KERNEL if per_step else RB_VJP_KERNEL).launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
         inp.dpack.data_ptr(), _ptr(inp.table), ct.data_ptr(), partials.data_ptr(), n_paths,
-        inp.steps, int(antithetic), seed & _MASK32, device_id & _MASK32, point_offset)
+        inp.steps, int(antithetic), seed & _MASK32, device_id & _MASK32, point_offset, grid,
+        _ptr(slab))
     return partials.sum(dim=1)
 
 
@@ -614,12 +673,14 @@ def smile_strikes(f_base: float, strikes, device) -> torch.Tensor:
 
 def _rb_smile_sums(inp: RbInputs, ks, total_pairs, seed, device_id, point_offset) -> torch.Tensor:
     """Launch K19 for inputs on a GPU ((m,) float64 sums of its per-block
-    partials, each strike's row reduced as K15's partials are); the twin for
-    inputs on the CPU."""
+    partials, each strike's row reduced as K15's partials are), once per
+    chunk of at most ``MAX_STRIKES`` strikes on the same stream, pairs and
+    grid, so each strike stays K15's price to the bit; the twin for inputs
+    on the CPU."""
     _check(inp, False)
     m = ks.shape[0]
-    if not 1 <= m <= MAX_STRIKES:
-        raise ValueError(f"the smile kernel takes 1 to {MAX_STRIKES} strikes; got {m}")
+    if m < 1:
+        raise ValueError("the smile kernel needs at least one strike")
     check_tensor(ks, "strikes", torch.float32, (m, 2))
     if ks.device != inp.params.device:
         raise ValueError("a kernel's inputs must be on one device")
@@ -627,12 +688,18 @@ def _rb_smile_sums(inp: RbInputs, ks, total_pairs, seed, device_id, point_offset
         return rbergomi_mixing_smile_sums_plain(inp, ks, total_pairs, seed, device_id, point_offset)
     require_cuda(inp.params)
     grid = price_grid(inp)
-    partials = torch.empty((m, grid), dtype=torch.float64, device=inp.params.device)
-    RB_SMILE_KERNEL.launch(
-        inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
-        _ptr(inp.table), ks.data_ptr(), m, partials.data_ptr(), grid, total_pairs, inp.steps,
-        seed & _MASK32, device_id & _MASK32, point_offset)
-    return torch.stack([row.sum() for row in partials])
+    sums = []
+    for k0 in range(0, m, MAX_STRIKES):
+        chunk = ks[k0:k0 + MAX_STRIKES]
+        width = chunk.shape[0]
+        slab = _slab(inp, grid, smile_smem_bytes(width))
+        partials = torch.empty((width, grid), dtype=torch.float64, device=inp.params.device)
+        RB_SMILE_KERNEL.launch(
+            inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
+            _ptr(inp.table), chunk.data_ptr(), width, partials.data_ptr(), grid, total_pairs,
+            inp.steps, seed & _MASK32, device_id & _MASK32, point_offset, _ptr(slab))
+        sums += [row.sum() for row in partials]
+    return torch.stack(sums)
 
 
 # ---- the public wrappers ----------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Marginal cost of each phase of the QE mixing surface kernel (K9) or of a
-rough-Bergomi kernel (K14 values, K16 price + greeks, K17 the values' VJP)
-on the card.
+"""Marginal cost of each phase of a QE mixing surface kernel (K9, or K12
+with its Jacobian) or of a rough-Bergomi kernel (K14 values, K16 price +
+greeks, K17 the values' VJP) on the card.
 
 For each phase the script copies a tree's package (``--root``, default the
 repository) to ``build/phase_costs/<kernel> <phase>/``, rewrites the
@@ -13,7 +13,7 @@ computes wrong values: it exists only to be timed.
 
 Run on a GPU host, from the repository root:
 
-    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K9|K14|K16|K17]
+    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K9|K12|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
@@ -31,11 +31,25 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 # Per phase, alternatives: the rewrite of the kernel before its redesign
-# (K9 one close per strike and MixStream's draw; K14, K16 and K17 one pair
-# a thread), then of the kernel after it, tried from the last.  An
+# (K9 and K12 one close per strike and MixStream's draw; K14, K16 and K17
+# one pair a thread), then of the kernel after it, tried from the last.  An
 # alternative is a list of edits (file under hedgehog_tpu_torch/csrc, text,
 # replacement); a text given as (start, end) is the source from start up to
 # end.
+# K9 and K12 since K12's redesign: one draw (draw_steps) for both, rewritten
+# to a hash of the pair and step (each kernel is timed on its own)
+_SURFACE_DRAW = [
+    ("heston_surface.cu",
+     ("  if (sobol) {\n    for (int s = step; s < end; ++s) {\n"
+      "      const int* rows = sobol + 2 * s * (hh::kSobolBits + 1);\n      if constexpr (kSplit) {",
+      "// K9: the pair's value at every point"),
+     "  for (int s = step; s < end; ++s) {\n"
+     "    const uint32_t h = (uint32_t)pair * 2654435761u + s * 40503u;\n"
+     "    const float u = (float)(h >> 8) * (1.0f / 16777216.0f);\n"
+     "    advance(4.0f * u - 2.0f, u);\n  }\n}\n\n"),
+    ("heston_surface.cu", "    if (kStaged && table) stage_high(table, 2 * total_steps, p0, hw);\n",
+     "")]
+
 K9_PHASES = {
     "walk": [
         [("heston_surface.cu",
@@ -48,6 +62,12 @@ K9_PHASES = {
           "      hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);\n",
           "      iv += sc.half_dt * u;\n      j += z;\n"
           "      iva += sc.half_dt * (1.0f - u);\n      ja -= z;\n")],
+        [("heston_surface.cu",
+          "                           hh::mix_advance(v, iv, j, z, u, sc);\n"
+          "                           hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);\n",
+          "                           iv += sc.half_dt * u;\n                           j += z;\n"
+          "                           iva += sc.half_dt * (1.0f - u);\n"
+          "                           ja -= z;\n")],
     ],
     "draw": [
         [("heston_surface.cu",
@@ -65,6 +85,7 @@ K9_PHASES = {
           "      advance(4.0f * u - 2.0f, u);\n    }\n"),
          ("heston_surface.cu",
           "      if (table) stage_high(table, 2 * total_steps, p0, hw);\n", "")],
+        _SURFACE_DRAW,
     ],
     "closes": [
         [("heston_surface.cu",
@@ -217,7 +238,56 @@ K17_PHASES = {
     "closes": [K16_PHASES["closes"][0]],
 }
 
-PHASES = {"K9": K9_PHASES, "K14": K14_PHASES, "K16": K16_PHASES, "K17": K17_PHASES}
+K12_PHASES = {
+    "draw": [
+        [("heston_surface.cu",
+          "        ds.draw(step, z, u);\n        tan_step_surface(s, z, u, c, dc);\n",
+          "        {\n"
+          "          const uint32_t h = (uint32_t)ds.pair * 2654435761u + step * 40503u;\n"
+          "          u = (float)(h >> 8) * (1.0f / 16777216.0f);\n"
+          "          z = 4.0f * u - 2.0f;\n        }\n"
+          "        tan_step_surface(s, z, u, c, dc);\n")],
+        _SURFACE_DRAW,
+    ],
+    "tangent walk": [
+        [("heston_surface.cu",
+          "        tan_step_surface(s, z, u, c, dc);\n"
+          "        tan_step_surface(sa, -z, 1.0f - u, c, dc);\n",
+          "        s.iv += c.half_dt * u;\n        s.j += z;\n        s.div[k & 3] += z;\n"
+          "        sa.iv += c.half_dt * (1.0f - u);\n        sa.j -= z;\n"
+          "        sa.div[k & 3] -= z;\n")],
+        [("heston_surface.cu",
+          "                           tan_step_surface(s, z, u, sc, dc);\n"
+          "                           tan_step_surface(sa, -z, 1.0f - u, sc, dc);\n",
+          "                           s.iv += sc.half_dt * u;\n                           s.j += z;\n"
+          "                           s.div[0] += z;\n"
+          "                           sa.iv += sc.half_dt * (1.0f - u);\n"
+          "                           sa.j -= z;\n                           sa.div[0] -= z;\n")],
+    ],
+    "closes": [
+        [("heston_surface.cu", (f"        const hh::BsPartials b = hh::{close};\n",
+                                "      }\n#pragma unroll\n      for (int q = 0; q < kJacCols;"),
+          "        const float kp = close[p].strike;\n"
+          "        col[0] = (s.iv + s.j + sa.iv + sa.j) * kp;\n"
+          "#pragma unroll\n"
+          "        for (int d = 0; d < kDirs; ++d) {\n"
+          "          col[1 + d] = s.div[d] * kp + dj[d] + sa.div[d] * kp + dja[d];\n"
+          "        }\n"
+          "        col[5] = s.j * kp;\n        col[6] = sa.j * kp;\n")]
+        for close in ("cond_bs_partials(s.iv, s.j, close[p])",
+                      "close_partials<false>(g, s.iv, s.j, close[p])")
+    ],
+    "sums": [
+        [("heston_surface.cu",
+          "      for (int q = 0; q < kJacCols; ++q) hh::warp_accumulate(col[q], wacc, n_cols, "
+          "p * kJacCols + q);\n",
+          "      for (int q = 0; q < kJacCols; ++q) {\n"
+          "        if (col[q] == -1.0f) wacc[p * kJacCols + q] = col[q];\n      }\n")],
+    ],
+}
+
+PHASES = {"K9": K9_PHASES, "K12": K12_PHASES, "K14": K14_PHASES, "K16": K16_PHASES,
+          "K17": K17_PHASES}
 
 
 def _span(text: str, old) -> tuple:

@@ -721,3 +721,201 @@ def test_exact_surface_kernel_at_the_earlier_grid_keeps_its_bits(gpu, qmc):
     sums = ek._exact_surface_sums(params, table, ex_seg, kmaxes, 5, 2**20, 5, 0, 0, grid=3 * sms)
     digest = hashlib.sha256(sums.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
     assert digest == K4_ONE_PAIR_A_THREAD_DIGESTS[qmc]
+
+
+# ---- past the sizes the port once refused (the JAX kernels take them) ----------
+#
+# Each repaired kernel just past its old limit against its twin.  The kernel
+# and the twin differ by fp32 ulps a step, which add up along the chain, so
+# the per-path limits are this file's at the serving chain (QE 11 steps,
+# exact 2 segments, rough Bergomi 64 steps) scaled by the chain's length
+# (chip_smoke.py chain_tol); sums as elsewhere here.
+
+WIDE_PAIRS = 2**14
+
+
+def _chain_close(got, want, steps, base, rtol=1e-4, share=0.999, mean_rtol=1e-6):
+    k = max(1.0, steps / base)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    rel = (got.double() - want.double()).abs() / want.double().abs().clamp(min=1e-3)
+    assert float((rel <= rtol * k).double().mean()) >= share
+    assert float(got.double().mean()) == pytest.approx(float(want.double().mean()),
+                                                       rel=mean_rtol * k)
+
+
+def _sums_close(got, want, rtol=1e-5):
+    got, want = got.double().cpu(), want.double().cpu()
+    assert bool(torch.isfinite(got).all())
+    assert ((got - want).abs() <= rtol * float(want.abs().max()) + rtol * want.abs()).all()
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_qe_kernels_past_128_qmc_steps_match_twins(gpu, qmc):
+    """K7, K8, K10, K11 and K5 at 129 steps (QMC once stopped at 128; the
+    129-step Sobol' tables are staged past the 48 KB a block takes without
+    opting in for K5) against their twins; K10's price equal to K8's."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    n, pairs = 129, WIDE_PAIRS
+    params, table = qk.mix_inputs(*MKT, T / n, 100.0, 1.0, n, 5, qmc, gpu)
+    _chain_close(qk._qe_values(params, table, pairs, n, True, 5, 0, 0),
+                 qk.heston_qe_mixing_values_plain(params, table, pairs, n, True, 5, 0, 0), n, 11)
+    price = qk._qe_price_sum(params, table, pairs, n, 5, 0, 0)
+    _sums_close(price.reshape(1),
+                qk.heston_qe_mixing_price_sum_plain(params, table, pairs, n, 5, 0, 0).reshape(1))
+    dtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, T / n, n, 4), device=gpu)
+    sums = gk._greek_sums(params, dtab, table, pairs, n, 5, 0, 0)
+    assert float(sums[0]) == float(price)
+    _sums_close(sums, gk.heston_qe_mixing_greek_sums_plain(params, dtab, table, pairs, n, 5, 0, 0))
+    vtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, T / n, n, 5), device=gpu)
+    ct = 0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=gpu, dtype=torch.float32)).reshape(
+        2, pairs)
+    _sums_close(gk._vjp_sums(params, vtab, table, ct, pairs, n, True, 5, 0, 0),
+                gk.heston_qe_mixing_vjp_sums_plain(params, vtab, table, ct, pairs, n, True, 5, 0,
+                                                   0))
+    p5, t5 = qk.qem_inputs(*MKT, T / n, n, 5, qmc, gpu)
+    _chain_close(qk._qem_terminal(p5, t5, pairs, n, True, True, 5, 0, 0),
+                 qk.heston_qe_terminal_plain(p5, t5, pairs, n, True, True, 5, 0, 0), n, 10)
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_kernels_past_16_qmc_segments_match_twins(gpu, qmc):
+    """K2 and K3 at 17 segments of a five-year call, and K4 on two expiries
+    (2.5 and 5 years) of 9 and 8 segments (QMC once stopped at 16), against
+    their twins."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    segs, pairs = 17, WIDE_PAIRS
+    params, table, kmax = ek._inputs(*MKT, 5.0 / segs, 100.0, 1.0, segs, 5, qmc, gpu)
+    _chain_close(ek._exact_values(params, table, pairs, segs, True, kmax, 5, 0, 0),
+                 ek.heston_exact_mixing_values_plain(params, table, pairs, segs, True, kmax, 5, 0,
+                                                     0), segs, 2)
+    _sums_close(ek._exact_price_sum(params, table, pairs, segs, kmax, 5, 0, 0).reshape(1),
+                ek.heston_exact_mixing_price_sum_plain(params, table, pairs, segs, kmax, 5, 0,
+                                                       0).reshape(1))
+    T_host, seg, strikes = (2.5, 5.0), (9, 8), (80.0, 100.0, 125.0)
+    p4 = torch.as_tensor(ek._exact_surf_params(*MKT, T_host, seg, strikes, 1.0), device=gpu)
+    kmaxes = [poisson_kmax(*MKT[3:6], d, MKT[1]) for d in qk.segment_dts(T_host, seg)]
+    t4 = torch.as_tensor(qk.sobol_table(5, 4 * sum(seg)), device=gpu) if qmc else None
+    run = (p4, t4, seg, kmaxes, len(strikes), pairs, 5, 0, 0)
+    torch.testing.assert_close(ek._exact_surface_sums(*run).cpu(),
+                               ek.heston_exact_mixing_surface_sums_plain(*run).cpu(), rtol=1e-5,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_surface_kernels_past_128_qmc_steps_match_twins(gpu, qmc):
+    """K9 and K12 on the 3 × 5 grid at 129 steps over the expiries (QMC
+    once stopped at 128) against their twins; K12's surface column equal to
+    K9's sums to the bit."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    qe_seg, m, pairs = (43, 43, 43), len(SURF_K), WIDE_PAIRS
+    params = torch.as_tensor(qk._surf_params(*MKT, SURF_T, qe_seg, SURF_K, 1.0), device=gpu)
+    dct, djt = (torch.as_tensor(t, dtype=torch.float32, device=gpu)
+                for t in gk._surface_greek_tables(*MKT[3:6], SURF_T, qe_seg))
+    table = torch.as_tensor(qk.sobol_table(5, 2 * sum(qe_seg)), device=gpu) if qmc else None
+    run = (table, qe_seg, m, pairs, 5, 0, 0)
+    s9 = qk._qe_surface_sums(params, *run)
+    torch.testing.assert_close(s9.cpu(), qk.heston_qe_mixing_surface_sums_plain(params, *run).cpu(),
+                               rtol=1e-5, atol=0.0)
+    s12 = gk._surface_jac_sums(params, dct, djt, *run)
+    assert torch.equal(s12.reshape(-1, 7)[:, 0], s9)
+    _sums_close(s12, gk.heston_qe_mixing_surface_jac_sums_plain(params, dct, djt, *run))
+
+
+# K12's float64 sums on the 3 x 5 QE-32 surface at 2^20 pairs, seed 5, at
+# the grid before its redesign (K9_PARENT_BLOCKS an SM): the sha256 of the
+# kernel before the redesign (chip_smoke.py --digest "K12 QMC sums" / "K12
+# PRNG sums" of the parent tree, an H100)
+K12_PARENT_DIGESTS = {
+    True: "679a6133152192aaa9c1a36676f6c99a7196cfe19bb0df7ccff55712c2167621",
+    False: "d637c91c5cbf3477c4a40ccf7fac2a659f21f5aaef362e67e6a8126c5ffdde4b",
+}
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_surface_jacobian_kernel_keeps_its_columns_bits(gpu, qmc):
+    """K12 on K9's draw and the close split at the strike: at the earlier
+    grid its seven columns of every point sum to the bits of the kernel
+    before the redesign (its stored digest)."""
+    import hashlib
+
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    ref = dt.date(2024, 1, 1)
+    T_host = [float(ht.yearfrac(ref, e)) for e in
+              (dt.date(2024, 7, 1), dt.date(2025, 1, 1), dt.date(2026, 1, 1))]
+    qe_seg = tuple(surface_seg_steps(T_host, 32)[1])
+    strikes = (85.0, 95.0, 100.0, 105.0, 120.0)
+    params = torch.as_tensor(qk._surf_params(*MKT, T_host, qe_seg, strikes, 1.0), device=gpu)
+    dct, djt = (torch.as_tensor(t, dtype=torch.float32, device=gpu)
+                for t in gk._surface_greek_tables(*MKT[3:6], T_host, qe_seg))
+    table = torch.as_tensor(qk.sobol_table(5, 2 * sum(qe_seg)), device=gpu) if qmc else None
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    sums = gk._surface_jac_sums(params, dct, djt, table, qe_seg, len(strikes), 2**20, 5, 0, 0,
+                                grid=K9_PARENT_BLOCKS * sms)
+    digest = hashlib.sha256(sums.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    assert digest == K12_PARENT_DIGESTS[qmc]
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_rbergomi_kernels_past_256_steps_match_twins(gpu, qmc):
+    """K14-K18 at 257 steps (once stopped at 256: the Sobol' table is read
+    from global memory, the xi columns where they fit stay in shared
+    memory, else in the global slab) against their twins; K16's price equal
+    to K15's."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    n, pairs = 257, WIDE_PAIRS
+    cfg = ht.SimulationConfig(pairs, n, ht.Antithetic(), 5, qmc)
+    tr = rk._rb_trace_inputs(_rb_problem(), cfg, 64)
+    inp = rk.rb_inputs_from_trace(tr, seed=5, qmc=qmc, device=gpu)
+    g_inp = rk.rb_inputs_from_trace(rk._rb_greek_trace_inputs(_rb_problem(), cfg, 64), seed=5,
+                                    qmc=qmc, device=gpu, hurst=0.08)
+    _chain_close(rk._rb_values(inp, pairs, True, 5, 0, 0),
+                 rk.rbergomi_mixing_values_plain(inp, pairs, True, 5, 0, 0), n, RB_STEPS,
+                 rtol=1e-3, share=0.998)
+    price = rk._rb_price_sum(inp, pairs, 5, 0, 0)
+    _sums_close(price.reshape(1), rk.rbergomi_mixing_price_sum_plain(inp, pairs, 5, 0,
+                                                                     0).reshape(1))
+    greeks = rk._rb_greek_sums(g_inp, pairs, 5, 0, 0)
+    assert float(greeks[0]) == float(rk._rb_price_sum(g_inp, pairs, 5, 0, 0))
+    _sums_close(greeks, rk.rbergomi_mixing_greek_sums_plain(g_inp, pairs, 5, 0, 0))
+    ct = 0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=gpu, dtype=torch.float32)).reshape(
+        2, pairs)
+    _sums_close(rk._rb_vjp_sums(g_inp, ct, pairs, True, 5, 0, 0),
+                rk.rbergomi_mixing_vjp_sums_plain(g_inp, ct, pairs, True, 5, 0, 0))
+    c_inp = rk.rb_vjp_inputs(100.0, ((0.25, 0.5, 1.0), (0.035, 0.04, 0.045)), 1.9, 0.08, -0.9,
+                             0.03, tr.T, 100.0, 1.0, steps=n, seed=5, qmc=qmc, device=gpu)
+    _sums_close(rk._rb_vjp_sums(c_inp, ct, pairs, True, 5, 0, 0, per_step=True),
+                rk.rbergomi_mixing_vjp_curve_sums_plain(c_inp, ct, pairs, True, 5, 0, 0))
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_rbergomi_smile_past_64_strikes_equals_the_price_kernel(gpu, qmc):
+    """K19 at 65 strikes (two launches of 64 and 1 on the same pairs and
+    grid): each strike, the 64th and 65th at the chunk edge included, equal
+    to K15's price at that strike to the bit; the sums against the twin."""
+    from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
+
+    pairs, strikes = WIDE_PAIRS, [60.0 + 1.25 * k for k in range(65)]
+    tr = rk._rb_trace_inputs(_rb_problem(), ht.SimulationConfig(pairs, RB_STEPS, ht.Antithetic(),
+                                                                5, qmc), 64)
+    inp = rk.rb_inputs_from_trace(tr, seed=5, qmc=qmc, device=gpu)
+    ks = rk.smile_strikes(tr.f_base, strikes, gpu)
+    before = rk.RB_SMILE_KERNEL.launches
+    smile = rk._rb_smile_sums(inp, ks, pairs, 5, 0, 0)
+    assert rk.RB_SMILE_KERNEL.launches == before + 2 and smile.shape == (65,)
+    for k in (0, 63, 64):
+        one = rk.rb_inputs_from_trace(
+            tr._replace(strike=strikes[k], log_f_over_k=math.log(tr.f_base / strikes[k])), seed=5,
+            qmc=qmc, device=gpu)
+        assert float(smile[k]) == float(rk._rb_price_sum(one, pairs, 5, 0, 0)), k
+    torch.testing.assert_close(smile.cpu(),
+                               rk.rbergomi_mixing_smile_sums_plain(inp, ks, pairs, 5, 0, 0).cpu(),
+                               rtol=1e-5, atol=0.0)

@@ -309,6 +309,29 @@ def test_kernel_route_per_path_matches_the_float64_estimator(steps):
     assert float(got.mean()) == pytest.approx(float(want.mean()), rel=1e-5)
 
 
+def test_kernel_route_past_256_steps_matches_the_jax_float64_estimator():
+    """300 steps, past the 256 the kernels once refused (the JAX kernels
+    check only steps >= 2 and the Sobol' period): the kernel route's values
+    (its twins here: fp32, the approximate ndtri) against the JAX package's
+    float64 estimator (``_rbergomi_mixing_values``, exact ndtri) on the same
+    QMC points, 1024 pairs: ≥ 99.9% of paths within 1e-3 relative (values
+    below 1e-3 compared absolutely; measured 100%), all within 1e-2, and the
+    means within 1e-5 (measured 5.5e-8)."""
+    from hedgehog_tpu.methods.montecarlo import _rbergomi_mixing_values
+
+    steps, n = 300, 1024
+    cfg = _config(paths=n, steps=steps)
+    want = np.asarray(_rbergomi_mixing_values(_problem(), cfg, None))
+    sol = ht.solve(ht.from_reference(_problem()),
+                   ht.MonteCarlo(ht.RoughBergomiDynamics(), ht.RoughBergomiMixing(use_kernel=True),
+                                 ht.from_reference(cfg), device="cpu"))
+    got = sol.ensemble.detach().double().numpy()
+    assert got.shape == want.shape == (2, n)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-3)
+    assert np.mean(rel <= 1e-3) >= 0.999 and rel.max() <= 1e-2, rel.max()
+    assert got.mean() == pytest.approx(want.mean(), rel=1e-5)
+
+
 def test_curve_and_one_step_routes_are_primal_only():
     """Under a ForwardVarianceCurve the adapter runs K14 forward and K18
     backward: ``torch.autograd.grad`` gives finite, positive bucket vegas of
@@ -461,9 +484,8 @@ def test_guards():
     with pytest.raises(ValueError, match="period"):
         pr.rbergomi_mixing_vanilla_price(*ins.price_args(), n_blocks=2**19, n_batches=1, steps=STEPS,
                                          seed=0, qmc=True, point_offset=1, device="cpu")
-    with pytest.raises(ValueError, match=f"1 to {pr.MAX_STEPS} steps"):
-        pr.rb_inputs(np.eye(2 * 300), np.ones(300), *ins[2:9], steps=300, seed=0, qmc=False,
-                     device="cpu")
+    with pytest.raises(ValueError, match="steps >= 1"):
+        pr.rb_inputs(np.eye(2), np.ones(0), *ins[2:9], steps=0, seed=0, qmc=False, device="cpu")
     g_ins = pr._rb_greek_trace_inputs(ht.from_reference(_problem()),
                                       ht.from_reference(_config()), 64)
     with pytest.raises(ValueError, match="steps >= 2"):
@@ -543,12 +565,12 @@ def test_curve_vjp_shared_memory_fits(steps, qmc):
     """K18's layout on the chunked product (csrc/rbergomi.cu rb_curve_smem:
     64 pairs' ξ columns of 2·steps rows padded to whole tiles, two 32-row
     chunks, the Sobol' table) counted by hand, under the H100's 227 KB a
-    block up to MAX_STEPS."""
+    block up to STAGED_STEPS."""
     zcols = 8 * -(-(steps - 1) // 8)
     want = 4 * 64 * (steps + zcols + 64) + (4 * 2 * steps * 31 if qmc else 0)
     got = pr.curve_smem_bytes(steps, qmc)
     assert got == want <= pr.SMEM_PER_BLOCK
-    if steps == pr.MAX_STEPS and qmc:
+    if steps == pr.STAGED_STEPS and qmc:
         assert got == 206 * 1024  # the largest: 128 KB of ξ, 16 KB of chunks, 62 KB of table
 
 
@@ -564,7 +586,7 @@ def test_greek_kernel_shared_memory_is_the_price_kernels(steps, qmc):
     rb_greeks_smem: 64 pairs' ξ columns of 2·steps rows padded to whole
     tiles, two 16-row chunks for Z and its H tangent, the Sobol' table)
     counted by hand is K15's (one 32-row chunk), under 227 KB a block up to
-    MAX_STEPS; so by shared memory an H100 SM holds as many K16 blocks as
+    STAGED_STEPS; so by shared memory an H100 SM holds as many K16 blocks as
     K15 blocks: 5 on Philox and 4 under QMC at 64 steps, K15's grid one
     wave of both."""
     zcols = 8 * -(-(steps - 1) // 8)
@@ -580,7 +602,7 @@ def test_greek_kernel_shared_memory_is_the_price_kernels(steps, qmc):
 
 
 def test_pack_as_the_chunked_product_reads_it():
-    """For every step count 1..MAX_STEPS, a factor with the Volterra
+    """For every step count 1..STAGED_STEPS, a factor with the Volterra
     structure (random entries) packs to (tiles, zcols, 2·TILE); read as the
     chunked product reads it (the chunk's warp w takes tile 4·chunk + w, a
     lane's rows 4h..4h+3 from float4 quarter h of (tile, column c) for the
@@ -588,7 +610,7 @@ def test_pack_as_the_chunked_product_reads_it():
     entries at every consumed row and column and zero past a row's last
     column and in the padding rows; the chunks cover the n − 1 consumed rows."""
     rng = np.random.default_rng(7)
-    for n in range(1, pr.MAX_STEPS + 1):
+    for n in range(1, pr.STAGED_STEPS + 1):
         m = np.zeros((2 * n, 2 * n), dtype=np.float32)
         m[np.arange(n), np.arange(n)] = rng.uniform(0.5, 1.0, n)
         for j in range(n - 1):
@@ -617,7 +639,7 @@ def test_values_and_vjp_shared_memory_are_the_chunk_kernels(steps, qmc):
     2·steps rows padded to whole tiles, one 32-row chunk of Z, the Sobol'
     table) counted by hand is K15's, and K17's (rb_greeks_smem: two 16-row
     chunks for Z and its H tangent) is K16's, the same bytes; under the
-    H100's 227 KB a block up to MAX_STEPS, and by shared memory 5 blocks an
+    H100's 227 KB a block up to STAGED_STEPS, and by shared memory 5 blocks an
     SM on Philox and 4 under QMC at 64 steps, as K15 and K16."""
     zcols = 8 * -(-(steps - 1) // 8)
     table = 4 * 2 * steps * 31 if qmc else 0
@@ -632,7 +654,7 @@ def test_values_and_vjp_shared_memory_are_the_chunk_kernels(steps, qmc):
         assert blocks >= 1
         if steps == 64:
             assert blocks == (4 if qmc else 5)
-    if steps == pr.MAX_STEPS and qmc:
+    if steps == pr.STAGED_STEPS and qmc:
         assert values == 198 * 1024  # 128 KB of ξ, 8 KB of chunk, 62 KB of table
 
 

@@ -335,27 +335,32 @@ def test_qe_surface_shared_memory_fits(qmc):
     """K9's and K12's layout (csrc/heston_surface.cu layout: a float64 row
     of sums per warp and column, 32 B of segment constants and a step count
     per expiry, K12's 112 B of tangent rows per expiry, 28 B of close
-    constants per point, the Sobol' table, and under QMC K9's per-warp high
-    Sobol' words, 8 warps x 2 candidates a dimension) counted by hand with
-    64 B of slack: the QE-32 3 x 5 surface and the 3 x 17 calibration shape
-    up to QMC_MAX_STEPS fit one launch; K9's widest strike chunk of a 1000
-    strike surface at QMC_MAX_STEPS is as wide as fits."""
-    for n_exp, m, steps in ((3, 5, 32), (3, 17, 48), (3, 17, pq.QMC_MAX_STEPS), (1, 1, 1)):
+    constants per point, the Sobol' table, and under QMC both kernels'
+    per-warp high Sobol' words, 8 warps x 2 candidates a dimension) counted
+    by hand with 64 B of slack: the QE-32 3 x 5 surface, the 3 x 17
+    calibration shape up to 128 steps and a five-year QE-32 surface (5 x 5,
+    160 steps) fit one launch with the table staged; K9's widest strike
+    chunk of a 1000 strike surface at 128 steps is as wide as fits.  Past
+    about 540 steps a one-strike launch with the table would not fit, so
+    the table stays in global memory and the strikes are chunked without
+    it."""
+    for n_exp, m, steps in ((3, 5, 32), (3, 17, 48), (3, 17, 128), (5, 5, 160), (1, 1, 1)):
         dims = 2 * steps if qmc else 0
         for jac, cols, per_exp in ((False, 1, pq.SURF_EXP_BYTES), (True, 7, 148)):
             want = ((8 * 8 * cols + 28) * n_exp * m + (36 + 112 * jac) * n_exp + 4 * 31 * dims
-                    + (0 if jac else 4 * 2 * 8 * dims) + 64)
-            got = pq.surface_smem_bytes(n_exp, m, cols, dims, per_exp, high=not jac)
+                    + 4 * 2 * 8 * dims + 64)
+            got = pq.surface_smem_bytes(n_exp, m, cols, dims, per_exp, high=True)
             assert got == want <= pq.SURFACE_SMEM_LIMIT
 
-    def smem(width):
-        return pq.surface_smem_bytes(3, width, 1, 2 * pq.QMC_MAX_STEPS if qmc else 0,
-                                     pq.SURF_EXP_BYTES, high=True)
+    def smem(width, rows=2 * 128 if qmc else 0):
+        return pq.surface_smem_bytes(3, width, 1, rows, pq.SURF_EXP_BYTES, high=True)
 
     chunks = pq.strike_chunks(1000, smem)
     widest = chunks[0].stop - chunks[0].start
     assert smem(widest) <= pq.SURFACE_SMEM_LIMIT < smem(widest + 1)
     assert chunks[-1].stop == 1000 and all(a.stop == b.start for a, b in zip(chunks, chunks[1:]))
+    assert pq.staged_rows(2 * 160, smem) == 2 * 160
+    assert pq.staged_rows(2 * 600, smem) == 0 and pq.staged_rows(0, smem) == 0
 
 
 @pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
@@ -395,6 +400,38 @@ def test_exact_surface_grid_guards():
     assert torch.equal(pk._exact_surface_sums(*run, grid=396), pk._exact_surface_sums(*run))
 
 
+def test_qe_surface_twin_past_128_qmc_steps_matches_the_float64_surface():
+    """A QMC surface of 200 steps over its expiries, past the 128 the
+    kernels once refused: K9's twin summed over 4096 pairs against the JAX
+    package's float64 ``heston_surface_mc`` on the same pairs (its steps
+    allocated as the kernel's, the same Sobol' points; exact ndtri there,
+    fp32 and the approximate ndtri here): every point within 1e-5
+    relative (measured 9.3e-7); K12's twin's surface column is K9's twin's
+    to the bit."""
+    import hedgehog_tpu as hh
+    from hedgehog_tpu_torch.methods.heston_surface import surface_seg_steps
+
+    expiries = (dt.date(2024, 7, 1), dt.date(2025, 1, 1), dt.date(2026, 1, 1))
+    t_host = [(d - REF).days / 365.0 for d in expiries]
+    n, steps = 4096, 200
+    seg = tuple(surface_seg_steps(t_host, steps)[1])
+    assert sum(seg) == steps
+    mkt = hh.HestonInputs(REF, R, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
+    cfg = hh.SimulationConfig(trajectories=n, steps=steps, variance_reduction=hh.Antithetic(),
+                              seed=SEED, qmc=True)
+    want = np.asarray(hh.heston_surface_mc(mkt, list(expiries), list(STRIKES), cfg))
+    params = torch.as_tensor(pq._surf_params(*MKT, t_host, seg, STRIKES, 1.0))
+    table = torch.as_tensor(pq.sobol_table(SEED, 2 * steps))
+    sums = pq._qe_surface_sums(params, table, seg, len(STRIKES), n, SEED, 0, 0)
+    disc = np.exp(-R * np.asarray(t_host))[:, None]
+    got = disc * sums.numpy().reshape(len(t_host), len(STRIKES)) / (2 * n)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    dct, djt = (torch.as_tensor(x, dtype=torch.float32)
+                for x in pg._surface_greek_tables(*MKT[3:6], t_host, seg))
+    jac = pg._surface_jac_sums(params, dct, djt, table, seg, len(STRIKES), n, SEED, 0, 0)
+    assert torch.equal(jac.reshape(-1, pg.N_SURF_COLS)[:, 0], sums)
+
+
 def test_guards():
     with pytest.raises(ValueError, match="period"):
         _k9(point_offset=2**30 - 1)
@@ -409,10 +446,6 @@ def test_guards():
     with pytest.raises(ValueError, match="n_strikes"):
         pq.heston_qe_mixing_surface_price(*MKT, T_HOST, STRIKES, DISC, seg_steps=QE_SEG,
                                           n_strikes=2, n_blocks=1, n_batches=1, seed=0,
-                                          device="cpu")
-    with pytest.raises(ValueError, match="at most"):
-        pq.heston_qe_mixing_surface_price(*MKT, T_HOST, STRIKES, DISC, seg_steps=(100, 100),
-                                          n_strikes=3, n_blocks=1, n_batches=1, seed=0, qmc=True,
                                           device="cpu")
     params = torch.as_tensor(pk._exact_surf_params(*MKT, T_HOST, XS_SEG, XS_STRIKES, 1.0))
     with pytest.raises(ValueError, match="trip counts"):
