@@ -341,7 +341,7 @@ def compare_vectors(name: str, got, want, rtol: float) -> float:
 # what this run's data needs (the QE draw: the exponential branch with
 # u <= p; the exact segment: no Poisson trip, the large-argument Bessel
 # ratio, the short gamma-quantile series).  The greek kernels count their
-# tangents too (K10-K12 since PR 11, K16-K18).  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
+# tangents too (K10-K12, K16-K18).  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
 # operations per clock per SM on 132 SMs, 3.35 TB/s.
 FP32_PEAK, MEM_PEAK, SMS, MUFU_PER_CLK = 67e12, 3.35e12, 132, 16
 
@@ -1416,6 +1416,12 @@ def phase_surface_kernels(pairs: int, device: str) -> dict:
     check(torch.equal(cal12.reshape(-1, 7)[:, 0], cal9), "K12's 3 x 17 surface differs from K9's")
     say(f"  K9 {time_ms(lambda: qk._qe_surface_sums(*run9)):.4f} ms, K12 "
         f"{time_ms(lambda: gk._surface_jac_sums(*run12)):.4f} ms at 3 x 17")
+    q = calibration_inputs(dev, qmc=True)
+    q9 = qk._qe_surface_sums(*q["price"], pairs, 5, 0, 0)
+    q12 = gk._surface_jac_sums(*q["jac"], pairs, 5, 0, 0)
+    same = torch.equal(q12.reshape(-1, 7)[:, 0], q9)
+    say(f"  K12's 3 x 17 surface against K9's (QMC): {'bit-identical' if same else 'DIFFERENT'}")
+    check(same, "K12's 3 x 17 surface differs from K9's (QMC)")
     return records
 
 
@@ -2099,9 +2105,8 @@ def phase_past_old_limits(T: float, device: str) -> dict:
         ins, inp = rb_device_inputs(tw, qmc, 5, dev, tangent=False, steps=n)
         g_ins, g_inp = rb_device_inputs(tw, qmc, 5, dev, tangent=True, steps=n)
         _, v_inp = rb_device_inputs(tw, qmc, 5, dev, tangent=True, vjp=True, steps=n)
-        say(f"  rough Bergomi at {n} steps ({s}): xi columns in a global slab: K15 "
-            f"{rk.in_slab(n, rk.values_smem_bytes)}, K18 {rk.in_slab(n, rk.curve_smem_bytes)}; "
-            f"K15 occupancy {rk.price_occupancy(inp)}")
+        say(f"  rough Bergomi at {n} steps ({s}), the xi columns in the global slab: K15 "
+            f"occupancy {rk.price_occupancy(inp)}")
         tol, mean_tol = chain_tol(RB_VALUES_TOL, n, RB_STEPS)
         e14 = compare_values(f"K14 ({n} steps, {s})", rk._rb_values(inp, tw, True, 5, 0, 0),
                              rk.rbergomi_mixing_values_plain(inp, tw, True, 5, 0, 0), tol, mean_tol)
@@ -3073,31 +3078,24 @@ def rb_kernel_times(dev, only=None) -> dict:
 
 
 #: the wide kernels' step counts in ``--times --only "K15 wide"``: the
-#: staged limit, xi columns in shared memory (the table in global memory)
-#: against the slab at 320 steps, and the slab at 512
+#: staged limit (the xi columns in shared memory), then the slab past it
 RB_WIDE_STEPS = (256, 320, 512)
 
 
 def rb_wide_times(dev) -> dict:
-    """K15 past the staged step limit (PRNG, 2^22 pairs): at each of
-    ``RB_WIDE_STEPS`` steps, and at 320 with the xi columns forced into the
-    global slab (``rk.SLAB_STEPS``) beside them in shared memory, with the
-    grid and the occupancy of each; ms per n(n-1) of the product."""
+    """K15 at the staged step limit and past it (PRNG, 2^22 pairs): at each
+    of ``RB_WIDE_STEPS`` steps, with the grid and the occupancy; ms per
+    n(n-1) of the product."""
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
     out = {}
     for steps in RB_WIDE_STEPS:
-        for slab in ((None, 1) if steps == 320 else (None,)):
-            saved, rk.SLAB_STEPS = rk.SLAB_STEPS, slab
-            try:
-                _, inp = rb_device_inputs(SOLVE_PAIRS, False, 1, dev, tangent=False, steps=steps)
-                key = f"K15 wide {steps}{' slab' if slab else ''} PRNG {SOLVE_PAIRS}"
-                out[key] = ms = time_ms(lambda: rk._rb_price_sum(inp, SOLVE_PAIRS, 1, 0, 0), reps=2)
-                out[f"{key} per n(n-1)"] = ms / (steps * (steps - 1))
-                out[f"{key} grid"] = rk.price_grid(inp)
-                out[f"{key} occupancy"] = rk.price_occupancy(inp)
-            finally:
-                rk.SLAB_STEPS = saved
+        _, inp = rb_device_inputs(SOLVE_PAIRS, False, 1, dev, tangent=False, steps=steps)
+        key = f"K15 wide {steps} PRNG {SOLVE_PAIRS}"
+        out[key] = ms = time_ms(lambda: rk._rb_price_sum(inp, SOLVE_PAIRS, 1, 0, 0), reps=2)
+        out[f"{key} per n(n-1)"] = ms / (steps * (steps - 1))
+        out[f"{key} grid"] = rk.price_grid(inp)
+        out[f"{key} occupancy"] = rk.price_occupancy(inp)
     return out
 
 

@@ -359,8 +359,10 @@ __device__ __forceinline__ void jac_pair(unsigned long long pair, bool live, con
 // The grid-stride round is uniform over the block (base), so every lane of
 // a warp reaches the shuffles of a round; a lane past the last pair adds 0.
 // kStaged: the Sobol' table (and the warps' high words) in shared memory;
-// else the table is read from global memory.
-template <bool kJac, bool kStaged>
+// else the table is read from global memory.  kQmc 1 or 0 compiles one
+// stream only (K12: the other stream's draw state then holds no registers,
+// which took 8% off its QMC surface on an H100, PERF.md); -1 both.
+template <bool kJac, bool kStaged, int kQmc = -1>
 __device__ __forceinline__ void surface_body(const float* params, const int* nsteps,
                                              const float* dct, const float* djt, const int* sobol,
                                              double* partials, int n_exp, int m, int total_steps,
@@ -373,7 +375,11 @@ __device__ __forceinline__ void surface_body(const float* params, const int* nst
   const hh::SurfSeg* segs = reinterpret_cast<const hh::SurfSeg*>(smem + l.segs);
   const hh::CloseParams* close = reinterpret_cast<const hh::CloseParams*>(smem + l.close);
   const int* ssteps = reinterpret_cast<const int*>(smem + l.steps);
-  const int* table = !sobol ? nullptr : kStaged ? reinterpret_cast<const int*>(smem + l.sobol) : sobol;
+  const int* table = kQmc == 0 ? nullptr
+                     : !sobol    ? nullptr
+                     : kStaged   ? reinterpret_cast<const int*>(smem + l.sobol)
+                                 : sobol;
+  if constexpr (kQmc == 1) __builtin_assume(table != nullptr);
   const float v0 = params[0];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long base = (long long)blockIdx.x * blockDim.x; base < total_pairs; base += stride) {
@@ -409,7 +415,7 @@ surface_kernel(const float* __restrict__ params, const int* __restrict__ nsteps,
                                total_steps, total_pairs, seed, device_id, point_offset);
 }
 
-// K12.
+// K12, one body per stream.
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads, kJacBlocks)
 surface_jac_kernel(const float* __restrict__ params, const int* __restrict__ nsteps,
@@ -417,8 +423,13 @@ surface_jac_kernel(const float* __restrict__ params, const int* __restrict__ nst
                    const int* __restrict__ sobol, double* __restrict__ partials, int n_exp, int m,
                    int total_steps, long long total_pairs, uint32_t seed, uint32_t device_id,
                    long long point_offset) {
-  surface_body<true, kStaged>(params, nsteps, dct, djt, sobol, partials, n_exp, m, total_steps,
-                              total_pairs, seed, device_id, point_offset);
+  if (sobol) {
+    surface_body<true, kStaged, 1>(params, nsteps, dct, djt, sobol, partials, n_exp, m,
+                                   total_steps, total_pairs, seed, device_id, point_offset);
+  } else {
+    surface_body<true, kStaged, 0>(params, nsteps, dct, djt, sobol, partials, n_exp, m,
+                                   total_steps, total_pairs, seed, device_id, point_offset);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)

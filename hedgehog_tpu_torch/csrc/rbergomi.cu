@@ -58,11 +58,14 @@
 // padded to whole tiles) and the Sobol' table sit in shared memory: at 256
 // steps under QMC they take 192 KB of the 227 KB a block may use.  Past
 // that a second instantiation of each kernel (kWide) reads the table from
-// global memory and keeps the xi columns in shared memory where they fit,
-// else in a slab of global scratch per block (`slab`, the caller's); K17 and
-// K18 then walk their trips on a resident grid (`trips` partials, trip
-// `trip` where the staged kernels have block blockIdx.x, so the same
-// bits).  The operations are the same: every pair's (IV, J) is.
+// global memory and keeps the xi columns in a slab of global scratch per
+// block (`slab`, the caller's), so its shared memory is the chunk buffers
+// alone; K17 and K18 then walk their trips on a resident grid (`trips`
+// partials, trip `trip` where the staged kernels have block blockIdx.x, so
+// the same bits).  The operations are the same: every pair's (IV, J) is.
+// Measured (PERF.md, H100, K15 at 2^22 pairs): the xi columns kept in
+// shared memory at 320 steps hold one block an SM and took 271 ms; in the
+// slab, 7 blocks an SM, 86 ms.
 //
 // Trips and grids.  Slot t of the trip at `base` walks pair base + t.  K15
 // and K19 walk trips on one resident wave of K15 (blockIdx.x * 64 + t +
@@ -157,22 +160,22 @@ __host__ __device__ inline int table_words(int steps, bool qmc) {
   return qmc ? 2 * steps * (hh::kSobolBits + 1) : 0;
 }
 
-// The xi columns (none where they live in a global slab) and the Sobol'
-// table (staged up to kStagedSteps): the chunk kernels add their chunk
-// buffers between the two.
-size_t rb_smem(int steps, bool qmc, bool slab = false) {
+// Past kStagedSteps a launch runs the wide instantiation.
+bool wide(int steps) { return steps > kStagedSteps; }
+
+// The xi columns and the Sobol' table, staged up to kStagedSteps (none
+// past it): the chunk kernels add their chunk buffers between the two.
+size_t rb_smem(int steps, bool qmc) {
   const RbShape s = rb_shape(steps);
-  return sizeof(float) * ((slab ? 0 : (size_t)s.xi_rows * kThreads) +
-                          (steps <= kStagedSteps ? table_words(steps, qmc) : 0));
+  return wide(steps) ? 0
+                     : sizeof(float) * ((size_t)s.xi_rows * kThreads + table_words(steps, qmc));
 }
 
 // The block's xi columns: in shared memory at `smem`, or for a wide kernel
-// given a slab, its slab of the global scratch.
+// its slab of the global scratch.
 template <bool kWide>
 __device__ __forceinline__ float* xi_columns(float* smem, float* slab, const RbShape& s) {
-  if constexpr (kWide) {
-    if (slab) return slab + (size_t)blockIdx.x * s.xi_rows * kThreads;
-  }
+  if constexpr (kWide) return slab + (size_t)blockIdx.x * s.xi_rows * kThreads;
   return smem;
 }
 
@@ -370,20 +373,20 @@ static_assert(kThreads == 16 * kQuad, "a warp is one tile: 16 quads of pairs x 2
 
 // Dynamic shared memory of K15 and K14 (K19 adds its strike sums): the xi
 // columns, the chunk of Z rows, then the Sobol' table.
-size_t rb_chunk_smem(int steps, bool qmc, bool slab = false) {
-  return rb_smem(steps, qmc, slab) + sizeof(float) * kChunkRows * kThreads;
+size_t rb_chunk_smem(int steps, bool qmc) {
+  return rb_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
 }
 
 // K16's and K17's: the xi columns, the half-height chunks of Z and of its H
 // tangent, then the Sobol' table: K15's bytes.
-size_t rb_greeks_smem(int steps, bool qmc, bool slab = false) {
-  return rb_smem(steps, qmc, slab) + sizeof(float) * 2 * kHalfChunkRows * kThreads;
+size_t rb_greeks_smem(int steps, bool qmc) {
+  return rb_smem(steps, qmc) + sizeof(float) * 2 * kHalfChunkRows * kThreads;
 }
 
 // K18's: the xi columns, the chunks of Z and of its H tangent (in the replay
 // the rows R_k), then the Sobol' table.
-size_t rb_curve_smem(int steps, bool qmc, bool slab = false) {
-  return rb_chunk_smem(steps, qmc, slab) + sizeof(float) * kChunkRows * kThreads;
+size_t rb_curve_smem(int steps, bool qmc) {
+  return rb_chunk_smem(steps, qmc) + sizeof(float) * kChunkRows * kThreads;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -628,7 +631,7 @@ rb_values_kernel(const float* __restrict__ params, const float4* __restrict__ co
   extern __shared__ float4 smem4[];
   const RbShape s = rb_shape(steps);
   float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
-  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  float* xbuf = kWide ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   const int* table =
       kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
@@ -660,7 +663,7 @@ rb_price_kernel(const float* __restrict__ params, const float4* __restrict__ coe
   __shared__ double red[kThreads];
   const RbShape s = rb_shape(steps);
   float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
-  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  float* xbuf = kWide ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   const int* table =
       kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   const RbParams p = *reinterpret_cast<const RbParams*>(params);
@@ -704,7 +707,7 @@ rb_greeks_kernel(const float* __restrict__ params, const float4* __restrict__ co
   __shared__ double red[kThreads];
   const RbShape s = rb_shape(steps);
   float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
-  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  float* xbuf = kWide ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   float* dbuf = xbuf + kHalfChunkRows * kThreads;
   const int* table = kWide ? sobol
                            : stage_table(sobol, steps,
@@ -752,7 +755,7 @@ rb_vjp_kernel(const float* __restrict__ params, const float4* __restrict__ coef,
   __shared__ double red[kThreads];
   const RbShape s = rb_shape(steps);
   float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
-  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  float* xbuf = kWide ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   float* dbuf = xbuf + kHalfChunkRows * kThreads;
   const int* table = kWide ? sobol
                            : stage_table(sobol, steps,
@@ -810,7 +813,7 @@ rb_vjp_curve_kernel(const float* __restrict__ params, const float4* __restrict__
   __shared__ double red[kThreads];
   const RbShape s = rb_shape(steps);
   float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
-  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  float* xbuf = kWide ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   float* dbuf = xbuf + kChunkRows * kThreads;  // the replay's rows R_k, fp32
   const int* table =
       kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(dbuf + kChunkRows * kThreads));
@@ -913,7 +916,7 @@ rb_smile_kernel(const float* __restrict__ params, const float4* __restrict__ coe
   __shared__ double red[kThreads];
   const RbShape s = rb_shape(steps);
   float* xs = xi_columns<kWide>(reinterpret_cast<float*>(smem4), slab, s);
-  float* xbuf = kWide && slab ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
+  float* xbuf = kWide ? reinterpret_cast<float*>(smem4) : xs + s.xi_rows * kThreads;
   const int* table =
       kWide ? sobol : stage_table(sobol, steps, reinterpret_cast<int*>(xbuf + kChunkRows * kThreads));
   float* acc = xbuf + kChunkRows * kThreads + (kWide ? 0 : table_words(steps, sobol != nullptr));
@@ -949,19 +952,16 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// Past kStagedSteps a launch runs the wide instantiation.
-bool wide(int steps) { return steps > kStagedSteps; }
-
 }  // namespace
 
 // Per-path undiscounted values: out is (1 or 2, n_paths) float32; grid is
-// K14's resident wave (hh_rb_values_grid) or fewer blocks.  slab: null, or
-// past kStagedSteps grid blocks of xi columns in global memory.
+// K14's resident wave (hh_rb_values_grid) or fewer blocks.  slab: past
+// kStagedSteps the xi columns of grid blocks in global memory, else unread.
 extern "C" int hh_rb_values(const float* params, const float* coef, const float* lpack,
                             const int* sobol, float* out, int grid, long long n_paths, int steps,
                             int antithetic, unsigned seed, unsigned device_id,
                             long long point_offset, float* slab, void* stream) {
-  const size_t smem = rb_chunk_smem(steps, sobol != nullptr, slab != nullptr);
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr);
   const auto kernel = wide(steps) ? rb_values_kernel<true> : rb_values_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -977,7 +977,7 @@ extern "C" int hh_rb_price(const float* params, const float* coef, const float* 
                            const int* sobol, double* partials, int grid, long long total_pairs,
                            int steps, unsigned seed, unsigned device_id, long long point_offset,
                            float* slab, void* stream) {
-  const size_t smem = rb_chunk_smem(steps, sobol != nullptr, slab != nullptr);
+  const size_t smem = rb_chunk_smem(steps, sobol != nullptr);
   const auto kernel = wide(steps) ? rb_price_kernel<true> : rb_price_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -993,7 +993,7 @@ extern "C" int hh_rb_greeks(const float* params, const float* coef, const float*
                             const float* dpack, const int* sobol, double* partials, int grid,
                             long long total_pairs, int steps, unsigned seed, unsigned device_id,
                             long long point_offset, float* slab, void* stream) {
-  const size_t smem = rb_greeks_smem(steps, sobol != nullptr, slab != nullptr);
+  const size_t smem = rb_greeks_smem(steps, sobol != nullptr);
   const auto kernel = wide(steps) ? rb_greeks_kernel<true> : rb_greeks_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1013,7 +1013,7 @@ extern "C" int hh_rb_values_vjp(const float* params, const float* coef, const fl
                                 double* partials, long long n_paths, int steps, int antithetic,
                                 unsigned seed, unsigned device_id, long long point_offset,
                                 int grid, float* slab, void* stream) {
-  const size_t smem = rb_greeks_smem(steps, sobol != nullptr, slab != nullptr);
+  const size_t smem = rb_greeks_smem(steps, sobol != nullptr);
   const auto kernel = wide(steps) ? rb_vjp_kernel<true> : rb_vjp_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1034,7 +1034,7 @@ extern "C" int hh_rb_values_vjp_curve(const float* params, const float* coef, co
                                       int antithetic, unsigned seed, unsigned device_id,
                                       long long point_offset, int grid, float* slab,
                                       void* stream) {
-  const size_t smem = rb_curve_smem(steps, sobol != nullptr, slab != nullptr);
+  const size_t smem = rb_curve_smem(steps, sobol != nullptr);
   const auto kernel = wide(steps) ? rb_vjp_curve_kernel<true> : rb_vjp_curve_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1056,7 +1056,7 @@ extern "C" int hh_rb_smile(const float* params, const float* coef, const float* 
                            long long point_offset, float* slab, void* stream) {
   if (m < 1 || m > kMaxStrikes) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      rb_chunk_smem(steps, sobol != nullptr, slab != nullptr) + sizeof(float) * m * kThreads;
+      rb_chunk_smem(steps, sobol != nullptr) + sizeof(float) * m * kThreads;
   const auto kernel = wide(steps) ? rb_smile_kernel<true> : rb_smile_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1068,7 +1068,7 @@ extern "C" int hh_rb_smile(const float* params, const float* coef, const float* 
 }
 
 // The occupancy on the current device at `steps` steps, with or without
-// the Sobol' table and the slab, of the block-cooperative kernels: out =
+// the Sobol' table, of the block-cooperative kernels: out =
 // (threads a block, resident blocks per SM, SMs, dynamic shared bytes,
 // static shared bytes, registers a thread, local (spill) bytes a thread).
 template <class K>
@@ -1089,33 +1089,33 @@ int chunk_occupancy(K kernel, size_t smem, int* out) {
 }
 
 // K14's.
-extern "C" int hh_rb_values_occupancy(int steps, int qmc, int slab, int* out) {
+extern "C" int hh_rb_values_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(wide(steps) ? rb_values_kernel<true> : rb_values_kernel<false>,
-                         rb_chunk_smem(steps, qmc != 0, slab != 0), out);
+                         rb_chunk_smem(steps, qmc != 0), out);
 }
 
 // K15's.
-extern "C" int hh_rb_price_occupancy(int steps, int qmc, int slab, int* out) {
+extern "C" int hh_rb_price_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(wide(steps) ? rb_price_kernel<true> : rb_price_kernel<false>,
-                         rb_chunk_smem(steps, qmc != 0, slab != 0), out);
+                         rb_chunk_smem(steps, qmc != 0), out);
 }
 
 // K16's.
-extern "C" int hh_rb_greeks_occupancy(int steps, int qmc, int slab, int* out) {
+extern "C" int hh_rb_greeks_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(wide(steps) ? rb_greeks_kernel<true> : rb_greeks_kernel<false>,
-                         rb_greeks_smem(steps, qmc != 0, slab != 0), out);
+                         rb_greeks_smem(steps, qmc != 0), out);
 }
 
 // K17's.
-extern "C" int hh_rb_vjp_occupancy(int steps, int qmc, int slab, int* out) {
+extern "C" int hh_rb_vjp_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(wide(steps) ? rb_vjp_kernel<true> : rb_vjp_kernel<false>,
-                         rb_greeks_smem(steps, qmc != 0, slab != 0), out);
+                         rb_greeks_smem(steps, qmc != 0), out);
 }
 
 // K18's.
-extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int slab, int* out) {
+extern "C" int hh_rb_vjp_curve_occupancy(int steps, int qmc, int* out) {
   return chunk_occupancy(wide(steps) ? rb_vjp_curve_kernel<true> : rb_vjp_curve_kernel<false>,
-                         rb_curve_smem(steps, qmc != 0, slab != 0), out);
+                         rb_curve_smem(steps, qmc != 0), out);
 }
 
 // One resident wave: SMs x blocks an SM, from an occupancy's out[7].
@@ -1127,13 +1127,13 @@ static int resident_wave(int err, const int* occ, int* grid) {
 // The price kernels' grid (K15; K16, which walks K15's trips for its price
 // to equal K15's, and holds as many blocks an SM; K19): one resident wave
 // of K15.
-extern "C" int hh_rb_price_grid(int steps, int qmc, int slab, int* grid) {
+extern "C" int hh_rb_price_grid(int steps, int qmc, int* grid) {
   int occ[7];
-  return resident_wave(hh_rb_price_occupancy(steps, qmc, slab, occ), occ, grid);
+  return resident_wave(hh_rb_price_occupancy(steps, qmc, occ), occ, grid);
 }
 
 // K14's grid: one resident wave of K14.
-extern "C" int hh_rb_values_grid(int steps, int qmc, int slab, int* grid) {
+extern "C" int hh_rb_values_grid(int steps, int qmc, int* grid) {
   int occ[7];
-  return resident_wave(hh_rb_values_occupancy(steps, qmc, slab, occ), occ, grid);
+  return resident_wave(hh_rb_values_occupancy(steps, qmc, occ), occ, grid);
 }

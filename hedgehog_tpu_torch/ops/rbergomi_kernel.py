@@ -98,12 +98,9 @@ PAIRS_PER_BLOCK = 2048
 #: 2·steps-row Sobol' table: 256 steps take 192 KB of the 227 KB a block may
 #: use (each kernel adds an 8 KB chunk of Z rows, K18 two, K19 256 bytes a
 #: strike).  Past it the kernels read the table from global memory and keep
-#: the ξ columns in shared memory where they fit, else in a slab of global
-#: scratch per block (csrc/rbergomi.cu kStagedSteps, kWide)
+#: the ξ columns in a slab of global scratch per block (csrc/rbergomi.cu
+#: kStagedSteps, kWide)
 STAGED_STEPS = 256
-#: from this many steps the ξ columns always go to the slab (None: only
-#: where they do not fit a block's shared memory)
-SLAB_STEPS = None
 #: the pairs a block of the kernels holds, and the Z rows of one chunk of
 #: the block-cooperative product (csrc/rbergomi.cu kThreads, kChunkRows;
 #: K16's and K17's chunks are half as high, kHalfChunkRows)
@@ -125,8 +122,6 @@ COEF_COLS = 8
 #: float a thread a strike (csrc/rbergomi.cu kMaxStrikes); a wider smile is
 #: launched a chunk of MAX_STRIKES strikes at a time on the same pairs
 MAX_STRIKES = 64
-#: the static shared memory of the summing kernels (csrc/rbergomi.cu red[64])
-STATIC_SMEM = 8 * 64
 #: K18's rows after the n per-step ones: K17's without chain_xi0
 CURVE_ROWS = ("eta", "hurst", "T", "w", "rho", "strike")
 _MASK32 = 0xFFFFFFFF
@@ -463,7 +458,7 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
     out = torch.empty((2 if antithetic else 1, n_paths), dtype=torch.float32,
                       device=inp.params.device)
     grid = values_grid(inp, n_paths)
-    slab = _slab(inp, grid, values_smem_bytes)
+    slab = _slab(inp, grid)
     RB_VALUES_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
         _ptr(inp.table), out.data_ptr(), grid, n_paths, inp.steps, int(antithetic),
@@ -471,22 +466,11 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
     return out
 
 
-def in_slab(steps: int, smem_bytes) -> bool:
-    """Whether a kernel keeps its ξ columns in a slab of global scratch:
-    past ``STAGED_STEPS`` where its shared memory with them
-    (``smem_bytes(steps, False)``: the table is then read from global memory)
-    would not fit a block, or from ``SLAB_STEPS`` steps."""
-    if steps <= STAGED_STEPS:
-        return False
-    return ((SLAB_STEPS is not None and steps >= SLAB_STEPS)
-            or smem_bytes(steps, False) + STATIC_SMEM > SMEM_PER_BLOCK)
-
-
-def _slab(inp: RbInputs, grid: int, smem_bytes):
-    """The global scratch of ``grid`` blocks' ξ columns where the kernel
-    keeps them there (:func:`in_slab`), else None.  Raises where the card's
-    free memory cannot hold it, naming the most steps that would fit."""
-    if not in_slab(inp.steps, smem_bytes):
+def _slab(inp: RbInputs, grid: int):
+    """Past ``STAGED_STEPS`` the global scratch of ``grid`` blocks' ξ
+    columns, else None.  Raises where the card's free memory cannot hold
+    it, naming the most steps that would fit."""
+    if inp.steps <= STAGED_STEPS:
         return None
     dev = inp.params.device
     per_block = 4 * BLOCK_PAIRS * (inp.steps + zcols(inp.steps))
@@ -505,7 +489,7 @@ def values_grid(inp: RbInputs, n_paths: int) -> int:
     one a trip of 64 pairs where ``n_paths`` needs fewer.  A value does not
     depend on the grid."""
     wave = resident_grid("hh_rb_values_grid", inp.params.device, inp.steps,
-                         int(inp.table is not None), int(in_slab(inp.steps, values_smem_bytes)))
+                         int(inp.table is not None))
     return min(wave, -(-n_paths // BLOCK_PAIRS))
 
 
@@ -514,14 +498,17 @@ def price_grid(inp: RbInputs) -> int:
     the pairs with this grid, 64 a block a trip, so K16's price and K19's
     strikes equal K15's."""
     return resident_grid("hh_rb_price_grid", inp.params.device, inp.steps,
-                         int(inp.table is not None), int(in_slab(inp.steps, values_smem_bytes)))
+                         int(inp.table is not None))
 
 
 def _smem_bytes(steps: int, qmc: bool, chunk_rows: int) -> int:
     """A chunk kernel's dynamic shared memory: the ξ columns of a block's
     pairs (2·steps rows padded to whole tiles), ``chunk_rows`` rows of chunk
-    buffers, the Sobol' table under QMC (staged up to ``STAGED_STEPS``)."""
-    table = 2 * steps * (SOBOL_BITS + 1) if qmc and steps <= STAGED_STEPS else 0
+    buffers, the Sobol' table under QMC; past ``STAGED_STEPS`` the chunk
+    buffers alone."""
+    if steps > STAGED_STEPS:
+        return 4 * chunk_rows * BLOCK_PAIRS
+    table = 2 * steps * (SOBOL_BITS + 1) if qmc else 0
     return 4 * ((steps + zcols(steps)) * BLOCK_PAIRS + chunk_rows * BLOCK_PAIRS + table)
 
 
@@ -551,34 +538,28 @@ def curve_smem_bytes(steps: int, qmc: bool) -> int:
     return _smem_bytes(steps, qmc, 2 * CHUNK_ROWS)
 
 
-def smile_smem_bytes(m: int):
-    """K19's dynamic shared memory at ``m`` strikes, as a function of
-    (steps, qmc): K15's plus one float a thread a strike."""
-    return lambda steps, qmc: values_smem_bytes(steps, qmc) + 4 * BLOCK_PAIRS * m
-
-
 def vjp_curve_occupancy(inp: RbInputs) -> dict:
     """K18's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_vjp_curve_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_vjp_curve_occupancy", inp, curve_smem_bytes)
+    return _occupancy("hh_rb_vjp_curve_occupancy", inp)
 
 
 def values_occupancy(inp: RbInputs) -> dict:
     """K14's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_values_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_values_occupancy", inp, values_smem_bytes)
+    return _occupancy("hh_rb_values_occupancy", inp)
 
 
 def vjp_occupancy(inp: RbInputs) -> dict:
     """K17's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_vjp_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_vjp_occupancy", inp, vjp_smem_bytes)
+    return _occupancy("hh_rb_vjp_occupancy", inp)
 
 
 def greeks_occupancy(inp: RbInputs) -> dict:
     """K16's occupancy at the inputs' steps and stream, from the CUDA
     runtime (``hh_rb_greeks_occupancy``), as :func:`price_occupancy`."""
-    return _occupancy("hh_rb_greeks_occupancy", inp, greeks_smem_bytes)
+    return _occupancy("hh_rb_greeks_occupancy", inp)
 
 
 def price_occupancy(inp: RbInputs) -> dict:
@@ -586,15 +567,14 @@ def price_occupancy(inp: RbInputs) -> dict:
     runtime (``hh_rb_price_occupancy``): threads a block, resident blocks
     and warps per SM, shared bytes a block (dynamic and static), registers
     and local (spill) bytes a thread."""
-    return _occupancy("hh_rb_price_occupancy", inp, values_smem_bytes)
+    return _occupancy("hh_rb_price_occupancy", inp)
 
 
-def _occupancy(symbol: str, inp: RbInputs, smem_bytes) -> dict:
+def _occupancy(symbol: str, inp: RbInputs) -> dict:
     """A chunk kernel's occupancy at the inputs' steps and stream from the
-    library's ``symbol``; ``smem_bytes`` is the kernel's layout."""
+    library's ``symbol``."""
     require_cuda(inp.params)
-    return launch_occupancy(symbol, inp.params.device, inp.steps, int(inp.table is not None),
-                            int(in_slab(inp.steps, smem_bytes)))
+    return launch_occupancy(symbol, inp.params.device, inp.steps, int(inp.table is not None))
 
 
 def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> torch.Tensor:
@@ -605,7 +585,7 @@ def _rb_price_sum(inp: RbInputs, total_pairs, seed, device_id, point_offset) -> 
         return rbergomi_mixing_price_sum_plain(inp, total_pairs, seed, device_id, point_offset)
     require_cuda(inp.params)
     grid = price_grid(inp)
-    slab = _slab(inp, grid, values_smem_bytes)
+    slab = _slab(inp, grid)
     partials = torch.empty((grid,), dtype=torch.float64, device=inp.params.device)
     RB_PRICE_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
@@ -622,7 +602,7 @@ def _rb_greek_sums(inp: RbInputs, total_pairs, seed, device_id, point_offset) ->
         return rbergomi_mixing_greek_sums_plain(inp, total_pairs, seed, device_id, point_offset)
     require_cuda(inp.params)
     grid = price_grid(inp)
-    slab = _slab(inp, grid, greeks_smem_bytes)
+    slab = _slab(inp, grid)
     partials = torch.empty((6, grid), dtype=torch.float64, device=inp.params.device)
     RB_GREEKS_KERNEL.launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
@@ -647,13 +627,12 @@ def _rb_vjp_sums(inp: RbInputs, ct, n_paths, antithetic, seed, device_id, point_
     require_cuda(inp.params)
     trips = -(-n_paths // BLOCK_PAIRS)
     rows = inp.steps + len(CURVE_ROWS) if per_step else 7
-    smem_bytes = curve_smem_bytes if per_step else vjp_smem_bytes
     grid = trips
     if inp.steps > STAGED_STEPS:
         occ = (vjp_curve_occupancy if per_step else vjp_occupancy)(inp)
         sms = torch.cuda.get_device_properties(inp.params.device).multi_processor_count
         grid = min(trips, sms * max(occ["blocks_per_sm"], 1))
-    slab = _slab(inp, grid, smem_bytes)
+    slab = _slab(inp, grid)
     partials = torch.empty((rows, trips), dtype=torch.float64, device=inp.params.device)
     (RB_VJP_CURVE_KERNEL if per_step else RB_VJP_KERNEL).launch(
         inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),
@@ -688,11 +667,11 @@ def _rb_smile_sums(inp: RbInputs, ks, total_pairs, seed, device_id, point_offset
         return rbergomi_mixing_smile_sums_plain(inp, ks, total_pairs, seed, device_id, point_offset)
     require_cuda(inp.params)
     grid = price_grid(inp)
+    slab = _slab(inp, grid)
     sums = []
     for k0 in range(0, m, MAX_STRIKES):
         chunk = ks[k0:k0 + MAX_STRIKES]
         width = chunk.shape[0]
-        slab = _slab(inp, grid, smile_smem_bytes(width))
         partials = torch.empty((width, grid), dtype=torch.float64, device=inp.params.device)
         RB_SMILE_KERNEL.launch(
             inp.params.device, inp.params.data_ptr(), inp.coef.data_ptr(), inp.lpack.data_ptr(),

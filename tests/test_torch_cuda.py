@@ -866,9 +866,8 @@ def test_surface_jacobian_kernel_keeps_its_columns_bits(gpu, qmc):
 @pytest.mark.parametrize("qmc", [True, False])
 def test_rbergomi_kernels_past_256_steps_match_twins(gpu, qmc):
     """K14-K18 at 257 steps (once stopped at 256: the Sobol' table is read
-    from global memory, the xi columns where they fit stay in shared
-    memory, else in the global slab) against their twins; K16's price equal
-    to K15's."""
+    from global memory and the xi columns kept in a global slab) against
+    their twins; K16's price equal to K15's."""
     from hedgehog_tpu_torch.ops import rbergomi_kernel as rk
 
     n, pairs = 257, WIDE_PAIRS
