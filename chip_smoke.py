@@ -244,6 +244,20 @@ WIDE_RB_STEPS = 512
 WIDE_RB_PAIRS = 2**22  # K14, K17, K18
 WIDE_SMILE_STRIKES = tuple(60.0 + k for k in range(81))
 WIDE_TWIN_PAIRS = 2**16
+#: past the shared-memory staging limit, where the kernels read the Sobol'
+#: table from global memory (their second instantiation, ``<false>``): QE
+#: mixing at 1000 QMC steps (K7, K8, K10, K11: a 248 KB table), QE-M at 700
+#: (K5: 260 KB), exact at 480 segments (K2, K3: 238 KB) and K4 on two
+#: expiries of 240 (K9/K12/K4 stage a table only where a one-strike launch
+#: with it fits SURFACE_SMEM_LIMIT), K9 and K12 on the 3 x 5 surface at 600
+#: steps; against the twins on GLOBAL_TWIN_PAIRS pairs.  The exact cases run
+#: a 20-year call under a vol-of-vol of 0.9: at the serving market's 0.3 a
+#: segment that short needs more Poisson trips than the scheme takes
+#: (``poisson_kmax``, a refusal the JAX kernels share)
+GLOBAL_QE_STEPS, GLOBAL_QEM_STEPS, GLOBAL_EXACT_SEGMENTS = 1000, 700, 480
+GLOBAL_EXACT_YEARS, GLOBAL_EXACT_SIGMA = 20.0, 0.9
+GLOBAL_SURF_SEG = (200, 200, 200)
+GLOBAL_TWIN_PAIRS = 2**14
 
 
 def chain_tol(tol: dict, steps: int, base_steps: int) -> tuple:
@@ -365,6 +379,9 @@ MIX_STEP = _ops(QE_DRAW, (8, 0))
 QEM_STEP = _ops(QE_DRAW, (24, 0), RCP, LOG, SQRT)
 NCDF = _ops((18, 0), RCP, EXP)
 CLOSE = _ops((16, 0), EXP, SQRT, RCP, (2, NCDF))
+# CLOSE split at the strike: the strike-free part once per path and expiry,
+# the rest per strike (hh::close_group, hh::close_value)
+CLOSE_GROUP, CLOSE_POINT = _ops((6, 0), EXP, SQRT, RCP), _ops((10, 0), (2, NCDF))
 EULER_STEP = _ops((19, 0), SQRT)
 GAMMA_QTL = _ops((76, 0), RCP, SQRT)
 EXACT_SEG = _ops((54, 0), (2, GAMMA_QTL), (2, EXP), LOG, SQRT, (5, RCP))
@@ -376,12 +393,13 @@ QE_TAN_STEP4, QE_TAN_STEP5, SURF_TAN_STEP = (35, 0), (43, 0), (43, 0)
 PARTIALS = (17, 0)
 
 
-def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
+def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1,
+         expiries: int = 1):
     """(fp32 FLOPs, MUFU operations, bytes) of one call of kernel ``name``
     on ``pairs`` antithetic pairs and ``steps`` steps (segments for K2/K3;
-    for the surfaces K4/K9/K12 the steps or segments of all expiry segments
-    and ``points`` (expiry, strike) points, each closed twice per pair; for
-    K19 ``points`` strikes); bytes count each output written once (K11, K17,
+    for the surfaces K4/K9/K12 the steps or segments of all expiry segments,
+    ``expiries`` expiries and ``points`` (expiry, strike) points; for K19
+    ``points`` strikes); bytes count each output written once (K11, K17,
     K18: the cotangent read once)."""
     mix_draw = _ops((2, SOBOL_U), NDTRI, (1, 0)) if qmc else _ops((0.5, BOX_MULLER), (2, 0))
     mix = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (2, CLOSE))
@@ -389,12 +407,16 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     qem = _ops((steps, _ops(qem_draw, (2, QEM_STEP))), (2, EXP))
     exact_draw = _ops((4, SOBOL_U), (2, NDTRI), (2, 0)) if qmc else _ops(BOX_MULLER, (4, 0))
     exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))), (2, _ops((3, 0), CLOSE)))
-    surf_qe = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), (points, _ops((2, CLOSE), (1, 0))))
+    # the surfaces close each path once per expiry up to the strike
+    # (close_group) and each point from there (d1, d2, two normal CDFs, the
+    # value; K12 its partials too)
+    surf_close = _ops((2 * expiries, CLOSE_GROUP), (points, _ops((2, CLOSE_POINT), (1, 0))))
+    surf_qe = _ops((steps, _ops(mix_draw, (2, MIX_STEP))), surf_close)
     surf_jac = _ops(surf_qe, (2 * steps, SURF_TAN_STEP), (2 * points, _ops(PARTIALS, (21, 0))))
     greeks = _ops(mix, (2, 0), (2 * steps, QE_TAN_STEP4), (2, _ops(PARTIALS, (64, 0))))
     vjp = _ops(mix, (2 * steps, QE_TAN_STEP5), (2, _ops(PARTIALS, (90, 0))))
-    surf_exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))),
-                      (points, _ops((2, _ops((3, 0), CLOSE)), (1, 0))))
+    surf_exact = _ops((steps, _ops(exact_draw, (2, EXACT_SEG))), (2 * expiries, (3, 0)),
+                      surf_close)
     # rough Bergomi: the draws of 2n - 1 normals, the product's n(n - 1)
     # nonzero FMAs and n increments, per step and group exp/sqrt (+) or two
     # rcp (mirror) and the left-point sums, two closes; the greek kernels add
@@ -409,9 +431,8 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
     rb_curve = _ops(rb_tan, (28, 0), rb_product, (steps - 1, rb_step), (steps, (12, 0)))
     # K19: the primal sums, each group's strike-free close once, then per
     # point and group d1, d2, two normal CDFs and the value
-    rb_smile = _ops(rb_draw, rb_product, (steps - 1, rb_step),
-                    (2, _ops((6, 0), EXP, SQRT, RCP)),
-                    (points, _ops((2, _ops((10, 0), (2, NCDF))), (1, 0))))
+    rb_smile = _ops(rb_draw, rb_product, (steps - 1, rb_step), (2, CLOSE_GROUP),
+                    (points, _ops((2, CLOSE_POINT), (1, 0))))
     surfaces = {  # per pair; bytes: one float64 per point and column, written once
         "heston_qe_mixing_surface_price": (surf_qe, 8 * points),
         "heston_exact_mixing_surface_price": (surf_exact, 8 * points),
@@ -442,12 +463,12 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1):
 
 
 def bound(name: str, pairs: int, steps: int, sm_clock_hz: float, qmc: bool = False,
-          points: int = 1) -> dict:
+          points: int = 1, expiries: int = 1) -> dict:
     """The bound of one call: the largest of fp32 FLOPs over the fp32 peak,
     MUFU operations over the MUFU rate at ``sm_clock_hz``, and bytes over
     the memory rate; ``bound_by`` names the largest (MUFU and fp32 both
     count as operations)."""
-    flops, mufu, nbytes = work(name, pairs, steps, qmc, points)
+    flops, mufu, nbytes = work(name, pairs, steps, qmc, points, expiries)
     t_ops = max(flops / FP32_PEAK, mufu / (MUFU_PER_CLK * SMS * sm_clock_hz))
     t_bytes = nbytes / MEM_PEAK
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
@@ -1289,9 +1310,10 @@ def carr_madan_surface(market, expiries, strikes):
                                  method).price for e in expiries])
 
 
-def compare_points(name: str, got, want, pairs: int, discount: float) -> float:
+def compare_points(name: str, got, want, pairs: int, discount: float,
+                   rtol: float = SURF_RTOL) -> float:
     """Per-point check of a surface kernel's float64 sums against its
-    twin's: the mean values (sums over 2·pairs paths) within ``SURF_RTOL``
+    twin's: the mean values (sums over 2·pairs paths) within ``rtol``
     relative, values below ``VALUES_TOL['floor']`` compared absolutely (a
     deep out-of-the-money point); returns the largest absolute difference
     of the discounted means."""
@@ -1301,8 +1323,8 @@ def compare_points(name: str, got, want, pairs: int, discount: float) -> float:
     rels = (got - want).abs() / want.abs().clamp(min=VALUES_TOL["floor"])
     rel, worst = float(rels.max()), int(rels.argmax())
     say(f"  {name}: {got.numel()} points, max rel diff {rel:.3e} at point {worst} (mean value "
-        f"{float(want[worst]):.6g}; limit {SURF_RTOL:g}, floor {VALUES_TOL['floor']:g})")
-    check(bool(torch.isfinite(got).all()) and rel <= SURF_RTOL, f"{name}: max rel diff {rel:.3e}")
+        f"{float(want[worst]):.6g}; limit {rtol:g}, floor {VALUES_TOL['floor']:g})")
+    check(bool(torch.isfinite(got).all()) and rel <= rtol, f"{name}: max rel diff {rel:.3e}")
     return discount * float((got - want).abs().max())
 
 
@@ -2169,6 +2191,123 @@ def phase_past_old_limits(T: float, device: str) -> dict:
     return out
 
 
+def phase_global_tables(T: float, device: str) -> dict:
+    """Every QMC kernel of the Heston families past the size at which its
+    Sobol' table no longer fits a block's shared memory, so that it runs
+    the instantiation that reads the table from global memory, against its
+    twin on ``GLOBAL_TWIN_PAIRS`` pairs: K7, K8, K10, K11 at
+    ``GLOBAL_QE_STEPS`` steps, K5 at ``GLOBAL_QEM_STEPS``, K2 and K3 at
+    ``GLOBAL_EXACT_SEGMENTS`` segments, K4 on two expiries of half as many,
+    K9 and K12 on the 3 x 5 surface at ``GLOBAL_SURF_SEG`` (K12's surface
+    column equal to K9's to the bit).  Per path the family's tolerance
+    scaled by the chain's length (``chain_tol``); sums within the larger of
+    their usual limit and the chain's mean tolerance (a sum is the mean
+    times the pairs).  Returns {kernel: max abs error against the twin}."""
+    import torch
+
+    from hedgehog_tpu_torch.models.heston_exact import poisson_kmax
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    dev, tw, out = torch.device(device), GLOBAL_TWIN_PAIRS, {}
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
+                    227 * 1024)
+    say(f"phase 2 (past the staging limit): the Sobol' table in global memory, each kernel "
+        f"against its twin on {tw} pairs (a block opts into {optin} bytes at most)")
+
+    def over(name, rows):
+        table = 4 * (qk.SOBOL_BITS + 1) * rows
+        say(f"  {name}: a {table}-byte table, more than a block's {optin}")
+        check(table > optin, f"{name}: the table fits shared memory; the case is not past it")
+
+    n = GLOBAL_QE_STEPS
+    p_mix, t_mix = qk.mix_inputs(*MARKET_ARGS, T / n, STRIKE, 1.0, n, 5, True, dev)
+    over(f"K7, K8, K10, K11 at {n} QMC steps", t_mix.shape[0])
+    tol, mean_tol = chain_tol(VALUES_TOL, n, QE_STEPS)
+    sum_tol = max(SUM_RTOL, mean_tol)
+    out["K7"] = compare_values(f"K7 ({n} QMC steps)",
+                               qk._qe_values(p_mix, t_mix, tw, n, True, 5, 0, 0),
+                               qk.heston_qe_mixing_values_plain(p_mix, t_mix, tw, n, True, 5, 0, 0),
+                               tol, mean_tol)
+    got8 = qk._qe_price_sum(p_mix, t_mix, tw, n, 5, 0, 0)
+    out["K8"] = compare_vectors(
+        f"K8 sum ({n} QMC steps)", got8.reshape(1),
+        qk.heston_qe_mixing_price_sum_plain(p_mix, t_mix, tw, n, 5, 0, 0).reshape(1), sum_tol)
+    dtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                           HESTON["sigma"], T / n, n, 4), device=dev)
+    got10 = gk._greek_sums(p_mix, dtab, t_mix, tw, n, 5, 0, 0)
+    out["K10"] = compare_vectors(
+        f"K10 sums ({n} QMC steps)", got10,
+        gk.heston_qe_mixing_greek_sums_plain(p_mix, dtab, t_mix, tw, n, 5, 0, 0), sum_tol)
+    check(float(got10[0]) == float(got8), f"K10's price sum differs from K8's at {n} steps")
+    vtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                           HESTON["sigma"], T / n, n, 5), device=dev)
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * tw, device=dev, dtype=torch.float32))).reshape(
+        2, tw)
+    out["K11"] = compare_vectors(
+        f"K11 sums ({n} QMC steps)", gk._vjp_sums(p_mix, vtab, t_mix, ct, tw, n, True, 5, 0, 0),
+        gk.heston_qe_mixing_vjp_sums_plain(p_mix, vtab, t_mix, ct, tw, n, True, 5, 0, 0), sum_tol)
+
+    n = GLOBAL_QEM_STEPS
+    p_qem, t_qem = qk.qem_inputs(*MARKET_ARGS, T / n, n, 5, True, dev)
+    over(f"K5 at {n} QMC steps", t_qem.shape[0])
+    tol, mean_tol = chain_tol(VALUES_TOL, n, QEM_STEPS)
+    out["K5"] = compare_values(f"K5 ({n} QMC steps)",
+                               qk._qem_terminal(p_qem, t_qem, tw, n, True, True, 5, 0, 0),
+                               qk.heston_qe_terminal_plain(p_qem, t_qem, tw, n, True, True, 5, 0, 0),
+                               tol, mean_tol)
+
+    segs, years = GLOBAL_EXACT_SEGMENTS, GLOBAL_EXACT_YEARS
+    market = (*MARKET_ARGS[:5], GLOBAL_EXACT_SIGMA, MARKET_ARGS[6])
+    px, tx, kmax = ek._inputs(*market, years / segs, STRIKE, 1.0, segs, 5, True, dev)
+    over(f"K2, K3 at {segs} QMC segments ({years:g} years, vol-of-vol {GLOBAL_EXACT_SIGMA}, "
+         f"{kmax} Poisson trips)", tx.shape[0])
+    tol, mean_tol = chain_tol(VALUES_TOL, segs, SEGMENTS)
+    out["K2"] = compare_values(
+        f"K2 ({segs} QMC segments)", ek._exact_values(px, tx, tw, segs, True, kmax, 5, 0, 0),
+        ek.heston_exact_mixing_values_plain(px, tx, tw, segs, True, kmax, 5, 0, 0), tol, mean_tol)
+    out["K3"] = compare_vectors(
+        f"K3 sum ({segs} QMC segments)",
+        ek._exact_price_sum(px, tx, tw, segs, kmax, 5, 0, 0).reshape(1),
+        ek.heston_exact_mixing_price_sum_plain(px, tx, tw, segs, kmax, 5, 0, 0).reshape(1),
+        max(SUM_RTOL, mean_tol))
+    T4, seg4 = (years / 2, years), (segs // 2, segs // 2)
+    check(not ek.exact_surface_staged(len(T4), sum(seg4), True),
+          f"K4 at {sum(seg4)} QMC segments stages its table; the case is not past the limit")
+    kmax4 = [poisson_kmax(*market[3:6], d, market[1]) for d in qk.segment_dts(T4, seg4)]
+    t4 = torch.as_tensor(qk.sobol_table(5, 4 * sum(seg4)), device=dev)
+    p4 = torch.as_tensor(ek._exact_surf_params(*market, T4, seg4, SURF_STRIKES, 1.0), device=dev)
+    run4 = (p4, t4, seg4, kmax4, len(SURF_STRIKES), tw, 5, 0, 0)
+    out["K4"] = compare_points(f"K4 sums (2 x {len(SURF_STRIKES)}, {sum(seg4)} QMC segments)",
+                               ek._exact_surface_sums(*run4),
+                               ek.heston_exact_mixing_surface_sums_plain(*run4), tw, 1.0,
+                               max(SURF_RTOL, chain_tol(VALUES_TOL, segs, SURF_EXACT_STEPS)[1]))
+
+    T_host, _, _, _ = surface_grid()
+    seg9, m9 = GLOBAL_SURF_SEG, len(SURF_STRIKES)
+    check(not (qk.surface_staged(len(T_host), 2 * sum(seg9))
+               or qk.surface_staged(len(T_host), 2 * sum(seg9), jac=True)),
+          f"K9/K12 at {sum(seg9)} QMC steps stage their table; the case is not past the limit")
+    t9 = torch.as_tensor(qk.sobol_table(5, 2 * sum(seg9)), device=dev)
+    p9 = torch.as_tensor(qk._surf_params(*MARKET_ARGS, T_host, seg9, SURF_STRIKES, 1.0), device=dev)
+    dct, djt = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in gk._surface_greek_tables(*MARKET_ARGS[3:6], T_host, seg9))
+    surf_tol = max(SURF_RTOL, chain_tol(VALUES_TOL, sum(seg9), SURF_QE_STEPS)[1])
+    run9 = (p9, t9, seg9, m9, tw, 5, 0, 0)
+    s9 = qk._qe_surface_sums(*run9)
+    out["K9"] = compare_points(f"K9 sums (3 x {m9}, {sum(seg9)} QMC steps)", s9,
+                               qk.heston_qe_mixing_surface_sums_plain(*run9), tw, 1.0, surf_tol)
+    run12 = (p9, dct, djt, t9, seg9, m9, tw, 5, 0, 0)
+    s12 = gk._surface_jac_sums(*run12)
+    out["K12"] = compare_vectors(f"K12 sums (3 x {m9}, {sum(seg9)} QMC steps)", s12,
+                                 gk.heston_qe_mixing_surface_jac_sums_plain(*run12), surf_tol)
+    check(torch.equal(s12.reshape(-1, 7)[:, 0], s9),
+          f"K12's surface at {sum(seg9)} QMC steps differs from K9's")
+    say(f"  K12's surface at {sum(seg9)} QMC steps against K9's: bit-identical")
+    return out
+
+
 def say_occupancy(name: str, occ: dict) -> None:
     say(f"  {name}: {occ['blocks_per_sm']} blocks of {occ['threads']} threads per SM = "
         f"{occ['warps_per_sm']} warps of 64; {occ['smem_bytes'] / 1024:.1f} KB of shared memory "
@@ -2663,7 +2802,11 @@ def output_digests(device: str) -> dict:
     runs at the grid of the one-pair-a-thread kernel (``K4 QMC``, to
     compare with trees before the two-threads-a-pair K4) and, where the
     package takes a grid, at its own resident grid (``K4 QMC resident``):
-    the float64 sums of the 3 x 5 surface at 2^20 and 2^26 pairs.  K14 and
+    the float64 sums of the 3 x 5 surface at 2^20 and 2^26 pairs.  K9 and
+    K12 run through the public wrappers at the package's grid (``K9 QMC``,
+    whose last bits move with the grid) and their float64 sums at
+    ``K9_PARENT_BLOCKS`` an SM (``K9 QMC sums``, ``K12 QMC sums``...),
+    comparable with every tree since K9's redesign.  K14 and
     K17 run also at ``solve``'s 2^22 pairs and at ``RB_EDGE_STEPS`` over
     ``RB_EDGE_PAIRS`` (a ragged last trip), antithetic and one group (K17
     at 2 steps and more), through entry points every tree since their
@@ -2726,21 +2869,15 @@ def output_digests(device: str) -> dict:
         put(f"K11 {s}", gk._vjp_sums(params, vjp_table, table, ct, pairs, QE_STEPS, True, seed, 0, 0))
         surf_kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=pairs // qk.PAIRS_PER_BLOCK,
                        n_batches=1, **kw)
-        # the public surface wrappers at the grid before K12's redesign (528
-        # blocks on an H100: K9 and K12 both walked it), where they take one
-        old = ({"grid": K9_PARENT_BLOCKS * sms}
-               if "grid" in inspect.signature(qk.heston_qe_mixing_surface_price).parameters
-               else {})
+        # the public surface wrappers at the package's grid (its last bits
+        # move with the grid: 528 blocks on an H100 before K12's redesign,
+        # 1584 after)
         put(f"K9 {s}", qk.heston_qe_mixing_surface_price(*mkt, T_host, SURF_STRIKES, discs,
-                                                         seg_steps=qe_seg, **surf_kw, **old))
+                                                         seg_steps=qe_seg, **surf_kw))
         put(f"K12 {s}", *gk.heston_qe_mixing_surface_price_and_jacobian(
-            *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw, **old))
-        if old:  # and at the package's own grid
-            put(f"K9 {s} default grid", qk.heston_qe_mixing_surface_price(
-                *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
-            put(f"K12 {s} default grid", *gk.heston_qe_mixing_surface_price_and_jacobian(
-                *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
-        # K9's and K12's float64 sums at the grid before K9's redesign
+            *mkt, T_host, SURF_STRIKES, discs, seg_steps=qe_seg, **surf_kw))
+        # K9's and K12's float64 sums at the grid before K12's redesign, the
+        # bits every tree since K9's redesign gives
         t9 = torch.as_tensor(qk.sobol_table(seed, 2 * sum(qe_seg)), device=dev) if qmc else None
         at = ({"grid": K9_PARENT_BLOCKS * sms}
               if "grid" in inspect.signature(qk._qe_surface_sums).parameters else {})
@@ -3230,6 +3367,7 @@ def main() -> int:
     errs.update(phase_surface_shapes("cuda"))
     errs.update(phase_rb_shapes("cuda"))
     past_limits = phase_past_old_limits(T, "cuda")
+    global_tables = phase_global_tables(T, "cuda")
     records["gbm_exact_terminal"].update(k13_times)
     for name, err in errs.items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -3251,7 +3389,8 @@ def main() -> int:
     for name, rec in records.items():
         pairs = GBM_PAIRS if name == "gbm_exact_terminal" else CHECK_PAIRS
         b = bound(name, pairs, timed_steps.get(name, QE_STEPS), sm_clock_hz,
-                  points=points.get(name, 1))
+                  points=points.get(name, 1),
+                  expiries=len(SURF_EXPIRIES) if "surface" in name else 1)
         say(f"  bound {name}: {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['flops']:.4g} fp32 "
             f"FLOPs, {b['mufu']:.4g} MUFU, {b['bytes']:.4g} bytes); kernel {rec['ms']:.4f} ms")
         rec.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
@@ -3324,7 +3463,7 @@ def main() -> int:
                     "calibration": calibration, "rb_path": rb_path, "rb_serving": rb_serving,
                     "rb_occupancy": rb_occupancy, "rb_curve": rb_curve, "rb_smile": rb_smile,
                     "rb_surface": rb_surface, "heston_cells": heston_cells,
-                    "past_old_limits": past_limits,
+                    "past_old_limits": past_limits, "global_tables": global_tables,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

@@ -645,30 +645,31 @@ extern "C" int hh_exact_price_grid(int* grid) {
   return (int)err;
 }
 
-// K4 staged (the Sobol' table in shared memory) where its whole layout fits
-// a block, else reading the table from global memory.
+// K4 staged (the Sobol' table in shared memory) or reading the table from
+// global memory: the caller decides (ops/heston_exact_kernel.py
+// exact_surface_staged) and chunks the strikes to fit.
 struct XsLaunch {
   const void* kernel;
   XsLayout l;
 };
 
-static XsLaunch xs_launch(int n_exp, int m, int total_segs, bool qmc) {
-  const XsLayout l = xs_layout(n_exp, m, total_segs, qmc, true);
-  if (l.bytes <= hh::smem_room(exact_surface_kernel<true>)) {
-    return {(const void*)exact_surface_kernel<true>, l};
-  }
-  return {(const void*)exact_surface_kernel<false>, xs_layout(n_exp, m, total_segs, qmc, false)};
+static XsLaunch xs_launch(int n_exp, int m, int total_segs, bool qmc, bool staged) {
+  const void* kernel = staged ? (const void*)exact_surface_kernel<true>
+                              : (const void*)exact_surface_kernel<false>;
+  return {kernel, xs_layout(n_exp, m, total_segs, qmc, staged)};
 }
 
 // K4: out[n_exp * m] float64 sums over the pairs [0, total_pairs) of each
 // point's (value + antithetic value), point-major; partials is (n_exp * m,
 // grid) scratch; ints is [segments per gap..., Poisson trip count per
-// gap...] int32; sobol the (4 * total_segs, 31) table for QMC or null.
+// gap...] int32; sobol the (4 * total_segs, 31) table for QMC or null,
+// staged in shared memory where `staged`.
 extern "C" int hh_exact_surface(const float* params, const int* ints, const int* sobol,
                                 double* partials, double* out, int grid, int n_exp, int m,
                                 int total_segs, long long total_pairs, unsigned seed,
-                                unsigned device_id, long long point_offset, void* stream) {
-  const XsLaunch x = xs_launch(n_exp, m, total_segs, sobol != nullptr);
+                                unsigned device_id, long long point_offset, int staged,
+                                void* stream) {
+  const XsLaunch x = xs_launch(n_exp, m, total_segs, sobol != nullptr, staged != 0);
   cudaError_t err = cudaFuncSetAttribute(x.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)x.l.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -687,12 +688,14 @@ extern "C" int hh_exact_surface(const float* params, const int* ints, const int*
 }
 
 // K4's occupancy on the current device for a surface of n_exp expiries, m
-// strikes and total_segs segments, with or without the Sobol' table: out =
-// (threads a block, resident blocks per SM, SMs, dynamic shared bytes, static
-// shared bytes, registers a thread, local (spill) bytes a thread).
-extern "C" int hh_exact_surface_occupancy(int n_exp, int m, int total_segs, int qmc, int* out) {
+// strikes and total_segs segments, with or without the Sobol' table, staged
+// or not: out = (threads a block, resident blocks per SM, SMs, dynamic
+// shared bytes, static shared bytes, registers a thread, local (spill)
+// bytes a thread).
+extern "C" int hh_exact_surface_occupancy(int n_exp, int m, int total_segs, int qmc, int staged,
+                                          int* out) {
   int dev = 0, sms = 0, per_sm = 0;
-  const XsLaunch x = xs_launch(n_exp, m, total_segs, qmc != 0);
+  const XsLaunch x = xs_launch(n_exp, m, total_segs, qmc != 0, staged != 0);
   const size_t smem = x.l.bytes;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
@@ -712,9 +715,10 @@ extern "C" int hh_exact_surface_occupancy(int n_exp, int m, int total_segs, int 
 
 // K4's grid: one resident wave on the current device at the launch's
 // dynamic shared memory.
-extern "C" int hh_exact_surface_grid(int n_exp, int m, int total_segs, int qmc, int* grid) {
+extern "C" int hh_exact_surface_grid(int n_exp, int m, int total_segs, int qmc, int staged,
+                                     int* grid) {
   int occ[7];
-  const int err = hh_exact_surface_occupancy(n_exp, m, total_segs, qmc, occ);
+  const int err = hh_exact_surface_occupancy(n_exp, m, total_segs, qmc, staged, occ);
   *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
   return err;
 }

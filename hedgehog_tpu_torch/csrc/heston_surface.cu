@@ -49,10 +49,11 @@
 // it is built for 3 (__launch_bounds__(256, kJacBlocks)), so the grid,
 // SMs x lcm(4, 3), is 1584 blocks on an H100 where it was 528.
 //
-// A Sobol' table too large for a block's shared memory (with the rest of
-// the launch's layout: past about 540 steps over all expiries) is read from
-// global memory instead (kStaged false), its integers formed unsplit by
-// hh::sobol_bits: the same numbers.
+// A Sobol' table that would take a one-strike launch past the shared memory
+// the wrappers allow (ops/heston_qe_kernel.py SURFACE_SMEM_LIMIT: past
+// about 540 steps over all expiries) is read from global memory instead
+// (kStaged false), its integers formed unsplit by hh::sobol_bits: the same
+// numbers.
 
 #include <numeric>
 
@@ -447,26 +448,28 @@ column_sums_kernel(const double* __restrict__ partials, int grid, double* __rest
   if (threadIdx.x == 0) out[blockIdx.x] = red[0];
 }
 
-// The kernel (K9 or K12), staged or not, that a launch of this shape runs,
-// with its layout: the table is staged where the whole layout fits a block.
+// The kernel (K9 or K12), staged or not, that a launch runs, with its
+// layout.  The caller decides whether the table is staged and chunks the
+// strikes to fit (ops/heston_qe_kernel.py surface_staged, strike_chunks); a
+// staged layout larger than a block may take fails the launch.
 struct SurfaceLaunch {
   const void* kernel;
   Layout l;
 };
 
-SurfaceLaunch surface_launch(bool jac, int n_exp, int m, int total_steps, bool qmc) {
-  const void* staged = jac ? (const void*)surface_jac_kernel<true> : (const void*)surface_kernel<true>;
-  const Layout l = layout(n_exp, m, total_steps, jac, qmc, true);
-  if (l.bytes <= hh::smem_room(staged)) return {staged, l};
-  return {jac ? (const void*)surface_jac_kernel<false> : (const void*)surface_kernel<false>,
-          layout(n_exp, m, total_steps, jac, qmc, false)};
+SurfaceLaunch surface_launch(bool jac, int n_exp, int m, int total_steps, bool qmc, bool staged) {
+  const void* kernel = jac ? (staged ? (const void*)surface_jac_kernel<true>
+                                     : (const void*)surface_jac_kernel<false>)
+                           : (staged ? (const void*)surface_kernel<true>
+                                     : (const void*)surface_kernel<false>);
+  return {kernel, layout(n_exp, m, total_steps, jac, qmc, staged)};
 }
 
 int launch_surface(bool jac, const float* params, const int* nsteps, const float* dct,
                    const float* djt, const int* sobol, double* partials, double* out, int grid,
                    int n_exp, int m, int total_steps, long long total_pairs, unsigned seed,
-                   unsigned device_id, long long point_offset, void* stream) {
-  const SurfaceLaunch s = surface_launch(jac, n_exp, m, total_steps, sobol != nullptr);
+                   unsigned device_id, long long point_offset, bool staged, void* stream) {
+  const SurfaceLaunch s = surface_launch(jac, n_exp, m, total_steps, sobol != nullptr, staged);
   cudaError_t err = cudaFuncSetAttribute(s.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)s.l.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -504,13 +507,16 @@ int hh::launch_column_sums(const double* partials, int n_cols, int grid, double*
 // K9: out[n_exp * m] float64 sums over the pairs [0, total_pairs) of each
 // point's (value + antithetic value), point-major; partials is (n_exp * m,
 // grid) scratch.  nsteps[n_exp] int32; sobol the (2 * total_steps, 31)
-// table for QMC or null for Philox.
+// table for QMC or null for Philox, staged in shared memory where `staged`
+// (else read from global memory).
 extern "C" int hh_qe_surface(const float* params, const int* nsteps, const int* sobol,
                              double* partials, double* out, int grid, int n_exp, int m,
                              int total_steps, long long total_pairs, unsigned seed,
-                             unsigned device_id, long long point_offset, void* stream) {
+                             unsigned device_id, long long point_offset, int staged,
+                             void* stream) {
   return launch_surface(false, params, nsteps, nullptr, nullptr, sobol, partials, out, grid,
-                        n_exp, m, total_steps, total_pairs, seed, device_id, point_offset, stream);
+                        n_exp, m, total_steps, total_pairs, seed, device_id, point_offset,
+                        staged != 0, stream);
 }
 
 // K12: out[n_exp * m * 7] float64 sums of each point's seven columns; dct
@@ -519,9 +525,10 @@ extern "C" int hh_qe_surface_jacobian(const float* params, const int* nsteps, co
                                       const float* djt, const int* sobol, double* partials,
                                       double* out, int grid, int n_exp, int m, int total_steps,
                                       long long total_pairs, unsigned seed, unsigned device_id,
-                                      long long point_offset, void* stream) {
+                                      long long point_offset, int staged, void* stream) {
   return launch_surface(true, params, nsteps, dct, djt, sobol, partials, out, grid, n_exp, m,
-                        total_steps, total_pairs, seed, device_id, point_offset, stream);
+                        total_steps, total_pairs, seed, device_id, point_offset, staged != 0,
+                        stream);
 }
 
 // The grid of K9 and K12 on the current device: SMs x lcm(resident blocks
@@ -545,12 +552,12 @@ extern "C" int hh_surface_grid(int* grid) {
 }
 
 // The occupancy of K9 (jac = 0) or K12 (jac = 1) on the current device at
-// one launch's shared memory: out = (threads a block, resident blocks per
-// SM, SMs, dynamic shared bytes, static shared bytes, registers a thread,
-// local (spill) bytes a thread).
+// one launch's shared memory, the table staged or not: out = (threads a
+// block, resident blocks per SM, SMs, dynamic shared bytes, static shared
+// bytes, registers a thread, local (spill) bytes a thread).
 extern "C" int hh_surface_occupancy(int jac, int n_exp, int m, int total_steps, int qmc,
-                                    int* out) {
-  const SurfaceLaunch s = surface_launch(jac != 0, n_exp, m, total_steps, qmc != 0);
+                                    int staged, int* out) {
+  const SurfaceLaunch s = surface_launch(jac != 0, n_exp, m, total_steps, qmc != 0, staged != 0);
   int dev = 0, sms = 0, per_sm = 0;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);

@@ -105,9 +105,9 @@ def load_library() -> ctypes.CDLL:
     lib.hh_qem_price_grid.restype = ctypes.c_int
     lib.hh_surface_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.hh_surface_grid.restype = ctypes.c_int
-    lib.hh_exact_surface_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_exact_surface_grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.hh_exact_surface_grid.restype = ctypes.c_int
-    lib.hh_surface_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.hh_surface_occupancy.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     lib.hh_surface_occupancy.restype = ctypes.c_int
     lib.hh_rb_greeks_occupancy.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.hh_rb_greeks_occupancy.restype = ctypes.c_int

@@ -461,8 +461,17 @@ def exact_surface_smem_bytes(n_exp: int, m: int, total_segs: int, qmc: bool) -> 
 EXACT_SURFACE_KERNEL = CudaKernel("hh_exact_surface", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
-    ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
 ])
+
+
+def exact_surface_staged(n_exp: int, total_segs: int, qmc: bool) -> bool:
+    """Whether K4 stages the Sobol' table of ``total_segs`` segments in
+    shared memory: the one staging decision of the exact surface kernel,
+    made here for every launch and followed by csrc/heston_exact.cu (a
+    one-strike launch with the table fits ``SURFACE_SMEM_LIMIT``)."""
+    return staged_rows(4 * total_segs if qmc else 0, lambda w, rows: exact_surface_smem_bytes(
+        n_exp, w, rows // 4, rows > 0)) > 0
 
 
 def exact_surf_nparams(n_exp: int, m: int) -> int:
@@ -565,9 +574,10 @@ def _exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs, seed, 
                                                       total_pairs, seed, device_id, point_offset)
     require_cuda(params)
     total_segs = sum(seg_steps)
+    staged = exact_surface_staged(n_exp, total_segs, table is not None)
     if grid is None:
         grid = resident_grid("hh_exact_surface_grid", params.device, n_exp, m, total_segs,
-                             int(table is not None))
+                             int(table is not None), int(staged))
     ints = torch.tensor([*seg_steps, *kmaxes], dtype=torch.int32, device=params.device)
     partials = torch.empty((n_exp * m, grid), dtype=torch.float64, device=params.device)
     out = torch.empty((n_exp * m,), dtype=torch.float64, device=params.device)
@@ -575,18 +585,20 @@ def _exact_surface_sums(params, table, seg_steps, kmaxes, m, total_pairs, seed, 
         params.device, params.data_ptr(), ints.data_ptr(),
         None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
         n_exp, m, total_segs, total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+        int(staged),
     )
     return out
 
 
 def exact_surface_occupancy(n_exp: int, m: int, total_segs: int, qmc: bool,
                             device="cuda") -> dict:
-    """K4's occupancy on ``device`` at one launch's shared memory, from the
-    CUDA runtime: threads a block, resident blocks and warps per SM, SMs,
-    dynamic and static shared bytes, registers and local (spill) bytes a
-    thread."""
+    """K4's occupancy on ``device`` at one launch's shared memory (the
+    table staged as :func:`exact_surface_staged` decides), from the CUDA
+    runtime: threads a block, resident blocks and warps per SM, SMs, dynamic
+    and static shared bytes, registers and local (spill) bytes a thread."""
+    staged = exact_surface_staged(n_exp, total_segs, qmc)
     return launch_occupancy("hh_exact_surface_occupancy", torch.device(device), n_exp, m,
-                            total_segs, int(qmc))
+                            total_segs, int(qmc), int(staged))
 
 
 def heston_exact_mixing_surface_price(
@@ -606,11 +618,9 @@ def heston_exact_mixing_surface_price(
     table = torch.as_tensor(sobol_table(seed, 4 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
     n_exp, total_segs = len(T_host), sum(seg_steps)
-    # the table staged where a one-strike launch with it fits, else read from global memory
-    staged = staged_rows(4 * total_segs if qmc else 0,
-                         lambda w, rows: exact_surface_smem_bytes(n_exp, w, rows // 4, rows > 0))
-    for sl in strike_chunks(n_strikes, lambda w: exact_surface_smem_bytes(n_exp, w, staged // 4,
-                                                                          staged > 0)):
+    staged = exact_surface_staged(n_exp, total_segs, qmc)
+    for sl in strike_chunks(n_strikes, lambda w: exact_surface_smem_bytes(
+            n_exp, w, total_segs if staged else 0, staged)):
         params = torch.as_tensor(_exact_surf_params(log_s0, v0, r, kappa, theta, sigma, rho,
                                                     T_host, seg_steps, strikes[sl], cp),
                                  device=dev)

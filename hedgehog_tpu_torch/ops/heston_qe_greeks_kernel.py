@@ -31,7 +31,7 @@ from .cuda_lib import CudaKernel, check_grid, check_tensor, require_cuda
 from ..utils import f64
 from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
-    SURF_EXP_BYTES,
+    SURF_JAC_COLS,
     _surf_params,
     check_inputs,
     check_period,
@@ -43,12 +43,11 @@ from .heston_qe_kernel import (
     pair_chunks,
     price_grid,
     segment_dts,
-    staged_rows,
-    strike_chunks,
     surf_nparams,
     surface_args,
     surface_grid,
-    surface_smem_bytes,
+    surface_staged,
+    surface_strike_chunks,
 )
 from .hh_device import (
     mix_c,
@@ -412,17 +411,14 @@ def heston_qe_mixing_values_diff(
 # ---- surface Jacobian: K12, the surface and its 7-parameter Jacobian ---------------
 
 N_SURF_DIRS = 4  # V0, κ, θ, σ (spot, ρ, rate close analytically)
-N_SURF_COLS = 7  # per point: y, chain × 4, w, y_ρ
+N_SURF_COLS = SURF_JAC_COLS  # per point: y, chain × 4, w, y_ρ
 #: constant-tangent columns (θc, e, c_s2_v, c_s2_c) each direction moves
 _SURF_SPARSITY = ((), (1, 2, 3), (0, 3), (2, 3))
-#: shared-memory bytes per expiry of K12: K9's plus the (4, 4) and (4, 3)
-#: tangent rows
-_JAC_EXP_BYTES = SURF_EXP_BYTES + 4 * N_SURF_DIRS * (4 + 3)
-
 QE_SURFACE_JAC_KERNEL = CudaKernel("hh_qe_surface_jacobian", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p,
 ])
 
 
@@ -543,10 +539,12 @@ def _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, seed, 
     n_cols = n_exp * m * N_SURF_COLS
     partials = torch.empty((n_cols, grid), dtype=torch.float64, device=params.device)
     out = torch.empty((n_cols,), dtype=torch.float64, device=params.device)
+    staged = table is not None and surface_staged(n_exp, table.shape[0], jac=True)
     QE_SURFACE_JAC_KERNEL.launch(
         params.device, params.data_ptr(), steps.data_ptr(), dct.data_ptr(), djt.data_ptr(),
         None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
         n_exp, m, sum(seg_steps), total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+        int(staged),
     )
     return out
 
@@ -554,13 +552,13 @@ def _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, seed, 
 def heston_qe_mixing_surface_price_and_jacobian(
     log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
     *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
-    device_id=0, qmc: bool = False, point_offset: int = 0, grid=None, device="cuda",
+    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
 ):
     """(surface (n_exp, m), jacobian (n_exp, m, 7)): DISCOUNTED prices and
     their derivatives in (spot, V0, κ, θ, σ, ρ, flat rate) from ONE pass of
     forward tangents over the pairs, stream and grid of
     :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.heston_qe_mixing_surface_price`,
-    so the surface equals that kernel's at the same ``grid``.  The rate
+    so the surface equals that kernel's.  The rate
     column includes the discount term (``discounts`` must be e^{−r·T_i}).
     float64 on the device."""
     T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
@@ -571,18 +569,13 @@ def heston_qe_mixing_surface_price_and_jacobian(
                 for t in _surface_greek_tables(kappa, theta, sigma, T_host, seg_steps))
     table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
-
-    def smem(width, table_rows):
-        return surface_smem_bytes(n_exp, width, N_SURF_COLS, table_rows, _JAC_EXP_BYTES,
-                                  high=True)
-
-    staged = staged_rows(0 if table is None else table.shape[0], smem)
-    for sl in strike_chunks(n_strikes, lambda w: smem(w, staged)):
+    for sl in surface_strike_chunks(n_exp, n_strikes, 0 if table is None else table.shape[0],
+                                    jac=True):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])
         sums = _surface_jac_sums(params, dct, djt, table, seg_steps, m, total_pairs, int(seed),
-                                 int(device_id), point_offset, grid)
+                                 int(device_id), point_offset)
         rows.append(sums.reshape(n_exp, m, N_SURF_COLS))
     tot = torch.cat(rows, dim=1) / (2 * total_pairs)
     D = disc[:, None]

@@ -303,7 +303,7 @@ def heston_qe_mixing_vanilla_price(
 _SURFACE_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
-    ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
 ]
 QE_SURFACE_KERNEL = CudaKernel("hh_qe_surface", _SURFACE_ARGS)
 #: warps of a surface kernel's block: each keeps a float64 row of per-point sums
@@ -313,6 +313,11 @@ SURFACE_WARPS = 8
 SURFACE_SMEM_LIMIT = 200 * 1024
 #: shared-memory bytes per expiry of K9: its SurfSeg (8 floats) and step count
 SURF_EXP_BYTES = 36
+#: K12's columns a point (y, the chain of 4 directions, w, y_ρ) and its
+#: shared-memory bytes per expiry: K9's, the (4, 4) constant tangents and the
+#: (4, 3) J-closure rows
+SURF_JAC_COLS = 7
+SURF_JAC_EXP_BYTES = SURF_EXP_BYTES + 4 * 4 * (4 + 3)
 
 
 def segment_dts(T_host, seg_steps) -> list:
@@ -392,11 +397,13 @@ def surface_grid(device: torch.device) -> int:
 def surface_occupancy(n_exp: int, m: int, total_steps: int, qmc: bool, device="cuda",
                       jac: bool = False) -> dict:
     """K9's (or with ``jac`` K12's) occupancy on ``device`` at one launch's
-    shared memory, from the CUDA runtime: threads a block, resident blocks
-    and warps per SM, shared bytes a block (dynamic and static), registers
-    and local (spill) bytes a thread."""
+    shared memory (the table staged as :func:`surface_staged` decides),
+    from the CUDA runtime: threads a block, resident blocks and warps per
+    SM, shared bytes a block (dynamic and static), registers and local
+    (spill) bytes a thread."""
+    staged = surface_staged(n_exp, 2 * total_steps if qmc else 0, jac)
     return launch_occupancy("hh_surface_occupancy", torch.device(device), int(jac), n_exp, m,
-                            total_steps, int(qmc))
+                            total_steps, int(qmc), int(staged))
 
 
 def surface_smem_bytes(n_exp: int, m: int, cols_per_point: int, table_rows: int,
@@ -435,6 +442,30 @@ def strike_chunks(m: int, smem_bytes) -> list:
     return [slice(k, min(k + width, m)) for k in range(0, m, width)]
 
 
+def surface_launch_bytes(n_exp: int, m: int, table_rows: int, jac: bool = False) -> int:
+    """Dynamic shared memory of a K9 (with ``jac`` K12) launch of ``m``
+    strikes that stages ``table_rows`` Sobol' rows."""
+    if jac:
+        return surface_smem_bytes(n_exp, m, SURF_JAC_COLS, table_rows, SURF_JAC_EXP_BYTES, True)
+    return surface_smem_bytes(n_exp, m, 1, table_rows, SURF_EXP_BYTES, True)
+
+
+def surface_staged(n_exp: int, table_rows: int, jac: bool = False) -> bool:
+    """Whether K9 (with ``jac`` K12) stages a Sobol' table of
+    ``table_rows`` rows in shared memory: the one staging decision of the
+    QE surface kernels, made here for every launch and followed by
+    csrc/heston_surface.cu (:func:`staged_rows`)."""
+    return staged_rows(table_rows, lambda w, rows: surface_launch_bytes(n_exp, w, rows, jac)) > 0
+
+
+def surface_strike_chunks(n_exp: int, m: int, table_rows: int, jac: bool = False) -> list:
+    """The strike chunks of a K9 (K12) surface of ``m`` strikes: each
+    launch fits ``SURFACE_SMEM_LIMIT`` with the table staged as
+    :func:`surface_staged` decides."""
+    staged = table_rows if surface_staged(n_exp, table_rows, jac) else 0
+    return strike_chunks(m, lambda w: surface_launch_bytes(n_exp, w, staged, jac))
+
+
 def check_surface(params, table, seg_steps, m: int, n_params: int, dims_per_step: int) -> None:
     """Raise on surface inputs the kernels do not take."""
     check_tensor(params, "params", torch.float32, (n_params,))
@@ -464,10 +495,12 @@ def _qe_surface_sums(params, table, seg_steps, m, total_pairs, seed, device_id,
     steps = torch.tensor(seg_steps, dtype=torch.int32, device=params.device)
     partials = torch.empty((n_exp * m, grid), dtype=torch.float64, device=params.device)
     out = torch.empty((n_exp * m,), dtype=torch.float64, device=params.device)
+    staged = table is not None and surface_staged(n_exp, table.shape[0])
     QE_SURFACE_KERNEL.launch(
         params.device, params.data_ptr(), steps.data_ptr(),
         None if table is None else table.data_ptr(), partials.data_ptr(), out.data_ptr(), grid,
         n_exp, m, sum(seg_steps), total_pairs, seed & _MASK32, device_id & _MASK32, point_offset,
+        int(staged),
     )
     return out
 
@@ -491,32 +524,26 @@ def surface_args(T_host, seg_steps, strikes, n_strikes: int, discounts, n_blocks
 def heston_qe_mixing_surface_price(
     log_s0, v0, r, kappa, theta, sigma, rho, T_host, strikes, discounts,
     *, seg_steps, n_strikes: int, n_blocks: int, n_batches: int, seed, cp=1.0,
-    device_id=0, qmc: bool = False, point_offset: int = 0, grid=None, device="cuda",
+    device_id=0, qmc: bool = False, point_offset: int = 0, device="cuda",
 ) -> torch.Tensor:
     """(n_exp, n_strikes) DISCOUNTED surface prices over
     n_blocks·n_batches·32768 antithetic QE mixing pairs: one variance path per
     pair through the expiry segments (``seg_steps`` steps each, the step
     index running across segments), every strike closed at each expiry.
     ``T_host``: increasing expiry year fractions; ``discounts``: (n_exp,)
-    discount factors; ``grid``: K9's blocks (default :func:`surface_grid`).
-    Returns float64 on the device."""
+    discount factors.  Returns float64 on the device."""
     T_host, seg_steps, strikes, disc, total_pairs, dev = surface_args(
         T_host, seg_steps, strikes, n_strikes, discounts, n_blocks, n_batches, qmc,
         point_offset, device)
     table = torch.as_tensor(sobol_table(seed, 2 * sum(seg_steps)), device=dev) if qmc else None
     rows = []
     n_exp = len(T_host)
-
-    def smem(width, rows):
-        return surface_smem_bytes(n_exp, width, 1, rows, SURF_EXP_BYTES, high=True)
-
-    staged = staged_rows(0 if table is None else table.shape[0], smem)
-    for sl in strike_chunks(n_strikes, lambda w: smem(w, staged)):
+    for sl in surface_strike_chunks(n_exp, n_strikes, 0 if table is None else table.shape[0]):
         params = torch.as_tensor(_surf_params(log_s0, v0, r, kappa, theta, sigma, rho, T_host,
                                               seg_steps, strikes[sl], cp), device=dev)
         m = len(strikes[sl])
         rows.append(_qe_surface_sums(params, table, seg_steps, m, total_pairs, int(seed),
-                                     int(device_id), point_offset, grid).reshape(len(T_host), m))
+                                     int(device_id), point_offset).reshape(len(T_host), m))
     return disc[:, None] * (torch.cat(rows, dim=1) / (2 * total_pairs))
 
 

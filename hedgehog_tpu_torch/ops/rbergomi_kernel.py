@@ -468,20 +468,23 @@ def _rb_values(inp: RbInputs, n_paths, antithetic, seed, device_id, point_offset
 
 def _slab(inp: RbInputs, grid: int):
     """Past ``STAGED_STEPS`` the global scratch of ``grid`` blocks' ξ
-    columns, else None.  Raises where the card's free memory cannot hold
-    it, naming the most steps that would fit."""
+    columns, else None.  Where the allocator cannot hold it, raises
+    ValueError naming the most steps that the free memory (the card's and
+    the allocator's cached blocks) would fit."""
     if inp.steps <= STAGED_STEPS:
         return None
     dev = inp.params.device
     per_block = 4 * BLOCK_PAIRS * (inp.steps + zcols(inp.steps))
-    free, _ = torch.cuda.mem_get_info(dev)
-    if grid * per_block > free:
+    try:
+        return torch.empty(grid * per_block // 4, dtype=torch.float32, device=dev)
+    except torch.cuda.OutOfMemoryError as err:
+        free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
         most = max(0, (free // (4 * BLOCK_PAIRS * grid) - TILE) // 2)
         raise ValueError(
             f"{inp.steps} steps need {grid * per_block / 2**30:.2f} GiB of scratch for the ξ "
             f"columns of {grid} blocks; {free / 2**30:.2f} GiB are free on {dev}, enough for "
-            f"about {most} steps")
-    return torch.empty(grid * per_block // 4, dtype=torch.float32, device=dev)
+            f"about {most} steps") from err
 
 
 def values_grid(inp: RbInputs, n_paths: int) -> int:

@@ -826,6 +826,112 @@ def test_surface_kernels_past_128_qmc_steps_match_twins(gpu, qmc):
     _sums_close(s12, gk.heston_qe_mixing_surface_jac_sums_plain(params, dct, djt, *run))
 
 
+# ---- past the staging limit: the Sobol' table read from global memory --------
+#
+# Past the table that fits a block's shared memory (227 KB on an H100 with
+# the opt-in) the QMC kernels run their second instantiation, which reads
+# the table from global memory; K9, K12 and K4 stage it only where a
+# one-strike launch with it fits SURFACE_SMEM_LIMIT.  Per path the
+# tolerances above scaled by the chain's length; sums within the larger of
+# 1e-5 and the chain's mean tolerance (1e-6 a serving chain, scaled).  The
+# exact cases run a 20-year call under a vol-of-vol of 0.9: at 0.3 a
+# segment that short needs more Poisson trips than the scheme takes.
+
+GLOBAL_EXACT_MKT = MKT[:5] + (0.9, MKT[6])
+
+
+def _optin_bytes(gpu):
+    return getattr(torch.cuda.get_device_properties(gpu), "shared_memory_per_block_optin",
+                   227 * 1024)
+
+
+def test_qe_kernels_past_the_staging_limit_match_twins(gpu):
+    """K7, K8, K10, K11 at 1000 QMC steps (a 248 KB table) and K5 at 700
+    (260 KB) against their twins; K10's price equal to K8's."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    n, pairs = 1000, WIDE_PAIRS
+    params, table = qk.mix_inputs(*MKT, T / n, 100.0, 1.0, n, 5, True, gpu)
+    assert 4 * table.numel() > _optin_bytes(gpu)
+    _chain_close(qk._qe_values(params, table, pairs, n, True, 5, 0, 0),
+                 qk.heston_qe_mixing_values_plain(params, table, pairs, n, True, 5, 0, 0), n, 11)
+    sum_rtol = max(1e-5, 1e-6 * n / 11)
+    price = qk._qe_price_sum(params, table, pairs, n, 5, 0, 0)
+    _sums_close(price.reshape(1),
+                qk.heston_qe_mixing_price_sum_plain(params, table, pairs, n, 5, 0, 0).reshape(1),
+                sum_rtol)
+    dtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, T / n, n, 4), device=gpu)
+    sums = gk._greek_sums(params, dtab, table, pairs, n, 5, 0, 0)
+    assert float(sums[0]) == float(price)
+    _sums_close(sums, gk.heston_qe_mixing_greek_sums_plain(params, dtab, table, pairs, n, 5, 0, 0),
+                sum_rtol)
+    vtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, T / n, n, 5), device=gpu)
+    ct = 0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=gpu, dtype=torch.float32)).reshape(
+        2, pairs)
+    _sums_close(gk._vjp_sums(params, vtab, table, ct, pairs, n, True, 5, 0, 0),
+                gk.heston_qe_mixing_vjp_sums_plain(params, vtab, table, ct, pairs, n, True, 5, 0,
+                                                   0), sum_rtol)
+    n = 700
+    p5, t5 = qk.qem_inputs(*MKT, T / n, n, 5, True, gpu)
+    assert 4 * t5.numel() > _optin_bytes(gpu)
+    _chain_close(qk._qem_terminal(p5, t5, pairs, n, True, True, 5, 0, 0),
+                 qk.heston_qe_terminal_plain(p5, t5, pairs, n, True, True, 5, 0, 0), n, 10)
+
+
+def test_exact_kernels_past_the_staging_limit_match_twins(gpu):
+    """K2 and K3 at 480 QMC segments (a 238 KB table), and K4 on two
+    expiries of 240, against their twins."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    segs, years, pairs = 480, 20.0, WIDE_PAIRS
+    params, table, kmax = ek._inputs(*GLOBAL_EXACT_MKT, years / segs, 100.0, 1.0, segs, 5, True,
+                                     gpu)
+    assert 4 * table.numel() > _optin_bytes(gpu)
+    _chain_close(ek._exact_values(params, table, pairs, segs, True, kmax, 5, 0, 0),
+                 ek.heston_exact_mixing_values_plain(params, table, pairs, segs, True, kmax, 5, 0,
+                                                     0), segs, 2)
+    sum_rtol = 1e-6 * segs / 2
+    _sums_close(ek._exact_price_sum(params, table, pairs, segs, kmax, 5, 0, 0).reshape(1),
+                ek.heston_exact_mixing_price_sum_plain(params, table, pairs, segs, kmax, 5, 0,
+                                                       0).reshape(1), sum_rtol)
+    T_host, seg, strikes = (years / 2, years), (segs // 2, segs // 2), (80.0, 100.0, 125.0)
+    assert not ek.exact_surface_staged(2, segs, True)
+    p4 = torch.as_tensor(ek._exact_surf_params(*GLOBAL_EXACT_MKT, T_host, seg, strikes, 1.0),
+                         device=gpu)
+    kmaxes = [poisson_kmax(*GLOBAL_EXACT_MKT[3:6], d, GLOBAL_EXACT_MKT[1])
+              for d in qk.segment_dts(T_host, seg)]
+    t4 = torch.as_tensor(qk.sobol_table(5, 4 * sum(seg)), device=gpu)
+    run = (p4, t4, seg, kmaxes, len(strikes), pairs, 5, 0, 0)
+    torch.testing.assert_close(ek._exact_surface_sums(*run).cpu(),
+                               ek.heston_exact_mixing_surface_sums_plain(*run).cpu(),
+                               rtol=1e-6 * segs / 4, atol=0.0)
+
+
+def test_surface_kernels_past_the_staging_limit_match_twins(gpu):
+    """K9 and K12 on the 3 × 5 grid at 600 QMC steps (the table in global
+    memory) against their twins; K12's surface column equal to K9's sums
+    to the bit."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    qe_seg, m, pairs = (200, 200, 200), len(SURF_K), WIDE_PAIRS
+    assert not qk.surface_staged(3, 2 * sum(qe_seg))
+    assert not qk.surface_staged(3, 2 * sum(qe_seg), jac=True)
+    params = torch.as_tensor(qk._surf_params(*MKT, SURF_T, qe_seg, SURF_K, 1.0), device=gpu)
+    dct, djt = (torch.as_tensor(t, dtype=torch.float32, device=gpu)
+                for t in gk._surface_greek_tables(*MKT[3:6], SURF_T, qe_seg))
+    table = torch.as_tensor(qk.sobol_table(5, 2 * sum(qe_seg)), device=gpu)
+    run = (table, qe_seg, m, pairs, 5, 0, 0)
+    rtol = max(1e-5, 1e-6 * sum(qe_seg) / 32)
+    s9 = qk._qe_surface_sums(params, *run)
+    torch.testing.assert_close(s9.cpu(), qk.heston_qe_mixing_surface_sums_plain(params, *run).cpu(),
+                               rtol=rtol, atol=0.0)
+    s12 = gk._surface_jac_sums(params, dct, djt, *run)
+    assert torch.equal(s12.reshape(-1, 7)[:, 0], s9)
+    _sums_close(s12, gk.heston_qe_mixing_surface_jac_sums_plain(params, dct, djt, *run), rtol)
+
+
 # K12's float64 sums on the 3 x 5 QE-32 surface at 2^20 pairs, seed 5, at
 # the grid before its redesign (K9_PARENT_BLOCKS an SM): the sha256 of the
 # kernel before the redesign (chip_smoke.py --digest "K12 QMC sums" / "K12

@@ -363,6 +363,35 @@ def test_qe_surface_shared_memory_fits(qmc):
     assert pq.staged_rows(2 * 600, smem) == 0 and pq.staged_rows(0, smem) == 0
 
 
+@pytest.mark.parametrize("jac", [False, True], ids=["K9", "K12"])
+def test_qe_surface_staging_decision(jac):
+    """K9's and K12's one staging decision (``surface_staged``, which the
+    launch follows): the table staged up to a five-year QE-32 surface and
+    the calibration shape at 128 steps, in global memory at 600 steps and
+    absent without QMC; the strikes chunked as wide as fits with that
+    table (the 3 x 17 calibration shape in one launch)."""
+    assert pq.surface_staged(3, 2 * 128, jac) and pq.surface_staged(5, 2 * 160, jac)
+    assert not pq.surface_staged(3, 2 * 600, jac) and not pq.surface_staged(3, 0, jac)
+    assert pq.surface_strike_chunks(3, 17, 2 * 128, jac) == [slice(0, 17)]
+    for rows in (2 * 128, 2 * 600):
+        staged = rows if pq.surface_staged(3, rows, jac) else 0
+        chunks = pq.surface_strike_chunks(3, 1000, rows, jac)
+        assert chunks[-1].stop == 1000 and all(a.stop == b.start for a, b in zip(chunks, chunks[1:]))
+        widest = chunks[0].stop - chunks[0].start
+        assert (pq.surface_launch_bytes(3, widest, staged, jac) <= pq.SURFACE_SMEM_LIMIT
+                < pq.surface_launch_bytes(3, widest + 1, staged, jac))
+
+
+def test_exact_surface_staging_decision():
+    """K4's one staging decision (``exact_surface_staged``): the table
+    staged at the serving and calibration shapes and up to 400 segments,
+    in global memory at 480 and absent without QMC."""
+    for n_exp, segs in ((3, 5), (3, 16), (10, 40), (2, 400)):
+        assert pk.exact_surface_staged(n_exp, segs, True)
+        assert not pk.exact_surface_staged(n_exp, segs, False)
+    assert not pk.exact_surface_staged(2, 480, True)
+
+
 @pytest.mark.parametrize("qmc", [False, True], ids=["PRNG", "QMC"])
 @pytest.mark.parametrize("segments", [1, 5, 16])
 def test_exact_surface_shared_memory_fits(segments, qmc):
