@@ -1087,10 +1087,24 @@ def phase_qe_autograd(prob, pairs: int, device: str) -> None:
     compare_vectors("autograd through solve against K10 greeks", grads, greeks, AUTOGRAD_RTOL)
 
 
-def phase_serving(T: float, cm: float, n_blocks: int, n_batches: int, device: str) -> dict:
-    """The serving dispatch: one warm-up, then timed reps with CUDA events."""
+def serving_dispatches(fn):
+    """(ms per call, outputs) of ``fn(seed)``: one warm-up on seed 0, then
+    ``SERVING_REPS`` back-to-back calls on seeds 1.. between two CUDA
+    events."""
     import torch
 
+    fn(0)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [fn(i + 1) for i in range(SERVING_REPS)]
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / SERVING_REPS, outs
+
+
+def phase_serving(T: float, cm: float, n_blocks: int, n_batches: int, device: str) -> dict:
+    """The serving dispatch: one warm-up, then timed reps with CUDA events."""
     from hedgehog_tpu_torch.ops.heston_exact_kernel import (
         PAIRS_PER_BLOCK,
         heston_exact_mixing_vanilla_price,
@@ -1105,14 +1119,7 @@ def phase_serving(T: float, cm: float, n_blocks: int, n_batches: int, device: st
             *MARKET_ARGS, T / SEGMENTS, STRIKE, disc, n_blocks=n_blocks,
             n_batches=n_batches, segments=SEGMENTS, seed=seed, device=device)
 
-    price(0)
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    prices = [price(i + 1) for i in range(SERVING_REPS)]
-    stop.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / SERVING_REPS
+    ms, prices = serving_dispatches(price)
     values = [float(p) for p in prices]
     check(all(math.isfinite(v) for v in values), "serving: non-finite price")
     mc = sum(values) / len(values)
@@ -1145,18 +1152,10 @@ def phase_qe_serving(T: float, cm: float, prob, n_blocks: int, n_batches: int,
     kw = dict(n_blocks=n_blocks, n_batches=n_batches, steps=QE_STEPS, device=device)
     args = (*MARKET_ARGS, T / QE_STEPS, STRIKE, disc)
 
-    def timed(fn):
-        fn(0)
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs = [fn(i + 1) for i in range(SERVING_REPS)]
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / SERVING_REPS, outs
-
-    ms, prices = timed(lambda seed: heston_qe_mixing_vanilla_price(*args, seed=seed, **kw))
-    g_ms, outs = timed(lambda seed: heston_qe_mixing_price_and_greeks(*args, seed=seed, **kw))
+    ms, prices = serving_dispatches(
+        lambda seed: heston_qe_mixing_vanilla_price(*args, seed=seed, **kw))
+    g_ms, outs = serving_dispatches(
+        lambda seed: heston_qe_mixing_price_and_greeks(*args, seed=seed, **kw))
     values = [float(p) for p in prices]
     check(all(math.isfinite(v) for v in values), "QE serving: non-finite price")
     check([float(p) for p, _ in outs] == values, "QE serving: K10 prices differ from K8's")
@@ -1198,8 +1197,6 @@ def phase_qem_serving(T: float, cm: float, n_blocks: int, n_batches: int, device
     """The QE-M serving dispatch (K6): ms per call, paths/s, and the bp
     error of the mean price against Carr-Madan with its standard error over
     the timed seeds, beside the TPU's QE-M-10 bias."""
-    import torch
-
     from hedgehog_tpu_torch.ops.heston_qe_kernel import PAIRS_PER_BLOCK, heston_qe_call_price
 
     pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
@@ -1212,14 +1209,7 @@ def phase_qem_serving(T: float, cm: float, n_blocks: int, n_batches: int, device
                                     n_batches=n_batches, steps=QEM_STEPS, seed=seed,
                                     device=device)
 
-    price(0)
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    prices = [price(i + 1) for i in range(SERVING_REPS)]
-    stop.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / SERVING_REPS
+    ms, prices = serving_dispatches(price)
     values = [float(p) for p in prices]
     check(all(math.isfinite(v) for v in values), "QE-M serving: non-finite price")
     mc = sum(values) / len(values)
@@ -1643,14 +1633,7 @@ def phase_surface_serving(cm_surf, device: str) -> dict:
     }
     out, surfaces = {}, {}
     for name, fn in runs.items():
-        fn(0)
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        surfs = [fn(i + 1) for i in range(SERVING_REPS)]
-        stop.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(stop) / SERVING_REPS
+        ms, surfs = serving_dispatches(fn)
         mean = torch.stack(surfs).mean(dim=0).cpu()
         check(bool(torch.isfinite(mean).all()), f"{name}: non-finite surface")
         bp = (mean - cm_surf) / cm_surf * 1e4
@@ -2694,19 +2677,10 @@ def phase_rb_serving(f64: dict, device: str) -> dict:
     g_ins = rk._rb_greek_trace_inputs(rb_problem(), cfg, 64)
     kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, steps=RB_STEPS, device=device)
 
-    def timed(fn):
-        fn(0)
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs = [fn(i + 1) for i in range(SERVING_REPS)]
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / SERVING_REPS, outs
-
-    ms, prices = timed(lambda seed: rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed,
-                                                                     **kw))
-    g_ms, outs = timed(lambda seed: rk.rbergomi_mixing_price_and_greeks(*g_ins, seed=seed, **kw))
+    ms, prices = serving_dispatches(
+        lambda seed: rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed, **kw))
+    g_ms, outs = serving_dispatches(
+        lambda seed: rk.rbergomi_mixing_price_and_greeks(*g_ins, seed=seed, **kw))
     values = [float(p) for p in prices]
     check(all(math.isfinite(v) for v in values), "rough Bergomi serving: non-finite price")
     check([float(p) for p, _ in outs] == values, "rough Bergomi serving: K16 prices differ from K15's")
@@ -2752,7 +2726,8 @@ def phase_rb_serving(f64: dict, device: str) -> dict:
     # K19: the 17-strike smile from one dispatch of the same shape; its strike
     # 100 is K15's price on the same seed
     smile_args = (*ins.price_args()[:5], CAL_STRIKES, ins.cp, ins.rho, ins.discount)
-    s_ms, smiles = timed(lambda seed: rk.rbergomi_mixing_smile_price(*smile_args, seed=seed, **kw))
+    s_ms, smiles = serving_dispatches(
+        lambda seed: rk.rbergomi_mixing_smile_price(*smile_args, seed=seed, **kw))
     at_k = CAL_STRIKES.index(STRIKE)
     check([float(s[at_k]) for s in smiles] == values,
           "rough Bergomi serving: K19's strike 100 differs from K15's price")
@@ -2840,8 +2815,17 @@ def output_digests(device: str) -> dict:
     blocks = pairs // (4 * qk.PAIRS_PER_BLOCK)  # x 4 batches
     T_host, discs, qe_seg, ex_seg = surface_grid()
     surf = surface_inputs(dev)
-    vjp_table = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
-                                                HESTON["sigma"], dt_q, QE_STEPS, 5), device=dev)
+    vjp_table, greek_table = (
+        torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                        HESTON["sigma"], dt_q, QE_STEPS, n), device=dev)
+        for n in (5, 4))
+
+    def at_grid(fn, blocks_per_sm):
+        """``grid=`` at ``blocks_per_sm`` an SM where ``fn`` takes a grid (a
+        tree before the redesign runs its own, which is that grid)."""
+        return ({"grid": blocks_per_sm * sms} if "grid" in inspect.signature(fn).parameters
+                else {})
+
     ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=dev, dtype=torch.float32))).reshape(
         2, pairs)
     put("K1 PRNG", hk.heston_euler_terminal(*mkt, T / EULER_STEPS, n_paths=pairs, steps=EULER_STEPS,
@@ -2866,6 +2850,18 @@ def output_digests(device: str) -> dict:
         put(f"K8 {s}", qk.heston_qe_mixing_vanilla_price(*mkt, dt_q, STRIKE, disc, **price_kw))
         put(f"K10 {s}", *gk.heston_qe_mixing_price_and_greeks(*mkt, dt_q, STRIKE, disc, **price_kw))
         params, table = qk.mix_inputs(*mkt, dt_q, STRIKE, 1.0, QE_STEPS, seed, qmc, dev)
+        # K3's and K10's float64 sums at the grids before their redesign
+        # (K3_PARENT_BLOCKS and K8_BLOCKS an SM), the bits every tree since
+        # their port gives; the public outputs above are at the package's
+        # grid (K8's, and K10's with it, did not move)
+        px, tx, kmax = ek._inputs(*mkt, T / SEGMENTS, STRIKE, 1.0, SEGMENTS, seed, qmc, dev)
+        for label, n in (("", pairs), (" 2^27", SERVING_PAIRS)):
+            put(f"K3 {s}{label} sums", ek._exact_price_sum(
+                px, tx, n, SEGMENTS, kmax, seed, 0, 0, **at_grid(ek._exact_price_sum,
+                                                                 K3_PARENT_BLOCKS)))
+            put(f"K10 {s}{label} sums", gk._greek_sums(
+                params, greek_table, table, n, QE_STEPS, seed, 0, 0,
+                **at_grid(gk._greek_sums, K8_BLOCKS)))
         put(f"K11 {s}", gk._vjp_sums(params, vjp_table, table, ct, pairs, QE_STEPS, True, seed, 0, 0))
         surf_kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=pairs // qk.PAIRS_PER_BLOCK,
                        n_batches=1, **kw)
@@ -2960,6 +2956,16 @@ def output_digests(device: str) -> dict:
     return out
 
 
+#: the serving dispatch's antithetic pairs (SERVING_BLOCKS x SERVING_BATCHES x 32768)
+SERVING_PAIRS = 2**27
+#: the one-pair-a-thread K3's resident blocks an SM (127 registers, 256
+#: threads); its grid was this times the SMs (264 on an H100)
+K3_PARENT_BLOCKS = 2
+#: K8's resident blocks an SM (79 registers, 256 threads): K8's and K10's
+#: grid, one wave of K8, is this times the SMs (396 on an H100)
+K8_BLOCKS = 3
+
+
 #: a wide calibration surface for K4's times: quarterly expiries to 2.5 years
 #: (one exact segment a gap), 20 strikes from 60 to 140, 2^24 pairs
 K4_WIDE = dict(expiries=10, strikes=20, pairs=2**24)
@@ -3036,8 +3042,10 @@ def kernel_times(device: str, only=None) -> dict:
     reports it, and the public K4 wrapper on the wide calibration surface
     (K4_WIDE: its launches and strike chunks as a user pays them); K2 and K3
     (the exact kernels that share K4's Poisson draw) at 2^20 pairs, 2
-    segments, both streams.  ``only`` (kernel names, e.g. K4 or K9,K12 or
-    K15,K16) keeps the kernels named."""
+    segments, both streams, and K3 per serving dispatch (2^27 pairs, PRNG)
+    with its grid and occupancy where the package reports them; K8 and K10,
+    :func:`qe_price_times`.  ``only`` (kernel names, e.g. K4 or K9,K12 or
+    K15,K16; K10 times K8 beside it) keeps the kernels named."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3051,7 +3059,8 @@ def kernel_times(device: str, only=None) -> dict:
     if only is None or {"K9", "K12"} & set(only):
         out.update(surface_kernel_times(dev, only))
     if only is None or "K2" in only or "K3" in only:
-        dt_x = float(yearfrac(REF, EXPIRY)) / SEGMENTS
+        T = float(yearfrac(REF, EXPIRY))
+        dt_x = T / SEGMENTS
         for qmc in (False, True):
             px, tx, kmax = ek._inputs(*MARKET_ARGS, dt_x, STRIKE, 1.0, SEGMENTS, 5, qmc, dev)
             s = "QMC" if qmc else "PRNG"
@@ -3059,6 +3068,18 @@ def kernel_times(device: str, only=None) -> dict:
                 lambda: ek._exact_values(px, tx, CHECK_PAIRS, SEGMENTS, True, kmax, 5, 0, 0))
             out[f"K3 {s} {CHECK_PAIRS}"] = time_ms(
                 lambda: ek._exact_price_sum(px, tx, CHECK_PAIRS, SEGMENTS, kmax, 5, 0, 0))
+        # the serving dispatch (phase 4's: the public wrapper on 6 seeds, PRNG)
+        serving = SERVING_BLOCKS * SERVING_BATCHES * ek.PAIRS_PER_BLOCK
+        out[f"K3 serving dispatch {serving}"] = ms = serving_dispatches(
+            lambda seed: ek.heston_exact_mixing_vanilla_price(
+                *MARKET_ARGS, dt_x, STRIKE, math.exp(-R * T), n_blocks=SERVING_BLOCKS,
+                n_batches=SERVING_BATCHES, segments=SEGMENTS, seed=seed, device=dev))[0]
+        out["serving K3 paths/s"] = 2 * serving / (ms * 1e-3)
+        out["K3 grid"] = ek.price_grid(dev) if hasattr(ek, "price_grid") else None
+        if hasattr(ek, "price_occupancy"):
+            out["K3 occupancy"] = ek.price_occupancy(dev)
+    if only is None or {"K8", "K10", "K10 host"} & set(only):
+        out.update(qe_price_times(dev, only))
     T_host, _, _, ex_seg = surface_grid()
     inp = surface_inputs(dev)
     for pairs in (CHECK_PAIRS, SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK):
@@ -3087,6 +3108,85 @@ def kernel_times(device: str, only=None) -> dict:
                 n_exp, m, n_exp, qmc, dev)
     for key, val in out.items():
         say(f"  {key}: {val}")
+    return out
+
+
+def qe_price_times(dev, only=None) -> dict:
+    """K8 and K10 (CUDA events, 5 calls after a warm-up) at 2^20 pairs, 11
+    steps, both streams, on fixed inputs at the package's grid (PERF.md's
+    rows: the wrappers with their float64 reductions; ``launch``: the
+    kernels alone, also at 2^27 pairs on PRNG), and per serving dispatch
+    (2^27 pairs, PRNG, the public wrappers on 6 seeds, as phase 4), with
+    K10/K8 and K10's occupancy where the package reports it.  ``K10
+    host`` (or no ``only``) adds K8's and K10's synchronised dispatch on
+    the host clock (the median of 5) against their back-to-back time (the
+    idle share) and a ``torch.profiler`` summary of one K10 dispatch."""
+    import torch
+
+    from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T = float(yearfrac(REF, EXPIRY))
+    dt_q, disc = T / QE_STEPS, math.exp(-R * T)
+    dtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                           HESTON["sigma"], dt_q, QE_STEPS, 4), device=dev)
+    serving = SERVING_BLOCKS * SERVING_BATCHES * qk.PAIRS_PER_BLOCK
+    out = {}
+    for qmc in (False, True):
+        s = "QMC" if qmc else "PRNG"
+        params, table = qk.mix_inputs(*MARKET_ARGS, dt_q, STRIKE, 1.0, QE_STEPS, 5, qmc, dev)
+        out[f"K8 {s} {CHECK_PAIRS}"] = time_ms(
+            lambda: qk._qe_price_sum(params, table, CHECK_PAIRS, QE_STEPS, 5, 0, 0))
+        out[f"K10 {s} {CHECK_PAIRS}"] = time_ms(
+            lambda: gk._greek_sums(params, dtab, table, CHECK_PAIRS, QE_STEPS, 5, 0, 0))
+        grid = out[f"grid {s}"] = qk.price_grid(dev, table)
+        # the kernels alone, without the wrappers' float64 reductions
+        partials = torch.empty((7, grid), dtype=torch.float64, device=dev)
+        sobol = None if table is None else table.data_ptr()
+        for pairs in (CHECK_PAIRS, serving) if not qmc else (CHECK_PAIRS,):
+            out[f"K8 launch {s} {pairs}"] = time_ms(lambda: qk.QE_PRICE_KERNEL.launch(
+                dev, params.data_ptr(), sobol, partials.data_ptr(), grid, pairs, QE_STEPS, 5, 0, 0))
+            out[f"K10 launch {s} {pairs}"] = time_ms(lambda: gk.QE_GREEKS_KERNEL.launch(
+                dev, params.data_ptr(), dtab.data_ptr(), sobol, partials.data_ptr(), grid, pairs,
+                QE_STEPS, 5, 0, 0))
+        if hasattr(gk, "greeks_occupancy"):
+            out[f"K10 occupancy {s}"] = gk.greeks_occupancy(QE_STEPS, qmc, dev)
+    kw = dict(n_blocks=SERVING_BLOCKS, n_batches=SERVING_BATCHES, steps=QE_STEPS, device=dev)
+    k8 = functools.partial(qk.heston_qe_mixing_vanilla_price, *MARKET_ARGS, dt_q, STRIKE, disc,
+                           **kw)
+    k10 = functools.partial(gk.heston_qe_mixing_price_and_greeks, *MARKET_ARGS, dt_q, STRIKE, disc,
+                            **kw)
+    out[f"K8 serving dispatch {serving}"] = ms8 = serving_dispatches(lambda seed: k8(seed=seed))[0]
+    out[f"K10 serving dispatch {serving}"] = ms10 = serving_dispatches(
+        lambda seed: k10(seed=seed))[0]
+    out["serving K10/K8"] = ms10 / ms8
+    if only is None or "K10 host" in only:
+        for name, fn, ms in (("K8", k8, ms8), ("K10", k10, ms10)):
+            walls = []
+            for seed in range(7, 12):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                price = fn(seed=seed)
+                float(price if name == "K8" else price[0])  # the caller reads the price
+                walls.append(1e3 * (time.perf_counter() - t0))
+            wall = sorted(walls)[2]
+            out[f"serving {name} synchronised wall ms"] = wall  # the median of 5
+            out[f"serving {name} idle share"] = 1.0 - ms / wall
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            greeks = k10(seed=8)[1]
+            greeks.cpu()
+        events = prof.key_averages()
+
+        def device_ms(e):
+            return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+        out["K10 profile device ms"] = sum(device_ms(e) for e in events)
+        out["K10 profile host"] = [
+            [e.key, e.count, e.cpu_time_total / 1e3, device_ms(e)]
+            for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:15]]
     return out
 
 
@@ -3162,15 +3262,8 @@ def rb_kernel_times(dev, only=None) -> dict:
     ins = rk._rb_trace_inputs(rb_problem(), rb_config(serving, False), 64)
     kw = dict(n_blocks=RB_BLOCKS, n_batches=RB_BATCHES, steps=RB_STEPS, device=dev)
     if want("K15"):
-        rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=0, **kw)
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for seed in range(1, SERVING_REPS + 1):
-            rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed, **kw)
-        stop.record()
-        torch.cuda.synchronize()
-        out["K15 serving dispatch"] = start.elapsed_time(stop) / SERVING_REPS
+        out["K15 serving dispatch"] = serving_dispatches(
+            lambda seed: rk.rbergomi_mixing_vanilla_price(*ins.price_args(), seed=seed, **kw))[0]
     ks = rk.smile_strikes(ins.f_base, CAL_STRIKES, dev)
     for pairs in (CHECK_PAIRS, SOLVE_PAIRS, serving):
         ct = torch.full((2, pairs), 0.5 / pairs, dtype=torch.float32, device=dev)

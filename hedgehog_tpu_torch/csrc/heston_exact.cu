@@ -19,12 +19,18 @@
 // a log and a reciprocal each, 16 continued-fraction reciprocals, exp/log
 // pairs of the Poisson and boost draws) and registers.  Memory is no
 // bound: K2 writes 4 bytes per path, K3 nothing per path (one double per
-// block).  The design therefore keeps one antithetic pair per thread with
-// all state in registers, evaluates only the branch a lane takes (the TPU
-// kernel computes both sides of every select), leaves the data-dependent
-// Poisson loop as soon as the count is settled (the count cannot change
-// once u <= cdf), and for K3 runs one resident wave of blocks that each
-// walk a fixed stride of pairs, so no path data touches memory.
+// block).  The design keeps all state in registers, evaluates only the
+// branch a lane takes (the TPU kernel computes both sides of every select),
+// leaves the data-dependent Poisson loop as soon as the count is settled
+// (the count cannot change once u <= cdf), and for K3 runs one resident
+// wave of blocks that each walk a fixed stride of pairs, so no path data
+// touches memory.  K2 keeps one antithetic pair per thread.  The segment is
+// a long dependent chain, so K3 (as K4 below) runs two threads a pair, one
+// antithetic group each, the draws shared by shuffles: twice the chains in
+// flight of one pair a thread at 127 registers (2 blocks of 256 an SM),
+// with 3 blocks of 512 an SM.  A thread walks the segment in one pair a
+// thread's operations and order, and K3 sums each pair in that kernel's
+// order, so each pair's values and, at one grid, the sums keep their bits.
 // Parameters and the Sobol' table sit in shared memory; a table too large
 // for a block's shared memory (past about 450 segments) is read from global
 // memory instead, by a second instantiation of each kernel (kStaged false):
@@ -56,6 +62,9 @@ constexpr int kGqNewton = 3;
 constexpr int kGqNewtonE1 = 2;
 constexpr int kMaxKmax = 65;  // poisson_kmax never returns more
 constexpr int kThreads = 256;
+constexpr int kPriceThreads = 512;                 // K3: two threads a pair
+constexpr int kPricePairs = kPriceThreads / 2;     // pairs a round of a block
+constexpr int kPriceBlocks = 3;                    // K3's blocks an SM (40 registers)
 
 // 1/k rounded from double, as the TPU kernel's Python constant (1.0 / k).
 __constant__ float kInvK[kMaxKmax + 1] = {
@@ -254,6 +263,59 @@ __device__ __forceinline__ void exact_draw(unsigned long long pair, uint32_t idx
   }
 }
 
+// The four draws (u_pois, z_gam, u_boost, z_iv) of segment s of a pair.
+struct ExactDraw {
+  float u_pois, z_gam, u_boost, z_iv;
+};
+
+__device__ __forceinline__ ExactDraw swap_draw(const ExactDraw& d) {
+  return ExactDraw{__shfl_xor_sync(0xffffffffu, d.u_pois, 1),
+                   __shfl_xor_sync(0xffffffffu, d.z_gam, 1),
+                   __shfl_xor_sync(0xffffffffu, d.u_boost, 1),
+                   __shfl_xor_sync(0xffffffffu, d.z_iv, 1)};
+}
+
+// exact_draw shared by the two threads of a pair (`odd`: the second), each
+// drawing half: under QMC the even thread draws dims 4s, 4s+1 (u_pois,
+// z_gam) and the odd one 4s+2, 4s+3 (u_boost, z_iv); under Philox, at each
+// even s the even thread draws block s and the odd one block s + 1, kept in
+// `next` for segment s + 1.  Shuffles hand each thread the other's half.
+// Steps come in increasing order, and every lane of the warp calls it.
+// kSplit (K3): each Sobol' integer is the warp's staged high word (hw,
+// candidate c; hh::stage_high) XOR hh::sobol_low of the point, the same
+// integer hh::sobol_bits forms.
+template <bool kSplit = false>
+__device__ __forceinline__ ExactDraw exact_draw_shared(unsigned long long pair, uint32_t idx,
+                                                       const int* sobol, int s, uint32_t seed,
+                                                       uint32_t device_id, bool odd,
+                                                       ExactDraw& next, const uint32_t* hw = nullptr,
+                                                       int c = 0) {
+  if (sobol) {
+    const int dim = 4 * s + 2 * (int)odd;
+    const int* rows = sobol + dim * (hh::kSobolBits + 1);
+    float u, z;
+    if constexpr (kSplit) {
+      const uint32_t au = hw[2 * dim + c] ^ hh::sobol_low(idx, rows);
+      const uint32_t az = hw[2 * dim + 2 + c] ^ hh::sobol_low(idx, rows + (hh::kSobolBits + 1));
+      u = odd ? hh::sobol_uniform_open_of(au) : hh::sobol_uniform_top_of(au);
+      z = hh::sobol_normal_of(az);
+    } else {
+      u = odd ? hh::sobol_uniform_open(idx, rows) : hh::sobol_uniform_top(idx, rows);
+      z = hh::sobol_normal(idx, rows + (hh::kSobolBits + 1));
+    }
+    const float u_o = __shfl_xor_sync(0xffffffffu, u, 1);
+    const float z_o = __shfl_xor_sync(0xffffffffu, z, 1);
+    return odd ? ExactDraw{u_o, z_o, u, z} : ExactDraw{u, z, u_o, z_o};
+  }
+  if (s & 1) return next;
+  ExactDraw own;
+  exact_draw(pair, idx, sobol, s + (int)odd, seed, device_id, own.u_pois, own.z_gam, own.u_boost,
+             own.z_iv);
+  const ExactDraw other = swap_draw(own);
+  next = odd ? own : other;
+  return odd ? other : own;
+}
+
 // The (value, antithetic value) of global pair `pair`.  `sobol` is the
 // (4*segments, 31) table in shared memory for QMC, or null for Philox.
 __device__ __forceinline__ void exact_pair(unsigned long long pair, const ExactParams& c,
@@ -310,26 +372,54 @@ exact_values_kernel(const float* __restrict__ params, const int* __restrict__ so
   if (antithetic) out[n_paths + i] = val_a;
 }
 
+// K3: two threads a pair, one antithetic group each (thread 2q + h of a
+// block, pair q of the round, h = 1 the mirror), in K4's layout: a round of
+// a block is kPricePairs consecutive pairs and the stride grid x kPricePairs
+// pairs, so the even thread of pair q walks the pairs thread q walked one
+// pair a thread, and adds value + antithetic value (one shuffle) to its fp32
+// sum in that order; the float64 tree runs over the same kPricePairs sums.
+// At one grid the sums therefore keep their bits.  The rounds are uniform
+// over the block, so every lane reaches the draw's shuffles.
 template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPriceThreads, kPriceBlocks)
 exact_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                    double* __restrict__ partials, long long total_pairs, int segments, int kmax,
                    uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ ExactParams sp;
-  __shared__ double red[kThreads];
+  __shared__ double red[kPricePairs];
   extern __shared__ int ssob[];
   const int* table = stage_inputs<kStaged>(params, sobol, segments, sp, ssob);
+  const int q = threadIdx.x >> 1;
+  const bool odd = threadIdx.x & 1;
+  // this warp's high Sobol' words past the staged table: 2 candidates of
+  // each of the 4 * segments dimensions
+  uint32_t* hw = reinterpret_cast<uint32_t*>(ssob + 4 * segments * (hh::kSobolBits + 1)) +
+                 (threadIdx.x >> 5) * 8 * segments;
   float acc = 0.0f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs; g += stride) {
-    float val, val_a;
-    exact_pair((unsigned long long)g, sp, table, segments, kmax, true, seed, device_id,
-               point_offset, val, val_a);
-    acc += val + val_a;
+  const long long stride = (long long)gridDim.x * kPricePairs;
+  for (long long base = (long long)blockIdx.x * kPricePairs; base < total_pairs; base += stride) {
+    const long long g = base + q;
+    const unsigned long long pair = (unsigned long long)g;
+    const uint32_t idx = (uint32_t)(point_offset + g);
+    // the warp's 16 pairs are the points p0 .. p0 + 15
+    const uint32_t p0 = (uint32_t)(point_offset + base) + ((threadIdx.x & ~31u) >> 1);
+    if (kStaged && table) hh::stage_high(table, 4 * segments, p0, hw);
+    const int c = (int)(((p0 & 31u) + ((threadIdx.x & 31u) >> 1)) >> 5);
+    float v = sp.v0, iv = 0.0f;
+    ExactDraw next{};
+    for (int s = 0; s < segments; ++s) {
+      const ExactDraw d =
+          exact_draw_shared<kStaged>(pair, idx, table, s, seed, device_id, odd, next, hw, c);
+      exact_segment(v, iv, odd ? mirror_pois(d.u_pois) : d.u_pois, odd ? -d.z_gam : d.z_gam,
+                    odd ? 1.0f - d.u_boost : d.u_boost, odd ? -d.z_iv : d.z_iv, sp, kmax);
+    }
+    const float val = exact_close(v, iv, sp);
+    const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);
+    if (!odd && g < total_pairs) acc += val + val_a;
   }
-  red[threadIdx.x] = (double)acc;
+  if (!odd) red[q] = (double)acc;
   __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
+  for (int h = kPricePairs / 2; h > 0; h >>= 1) {
     if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
     __syncthreads();
   }
@@ -338,6 +428,13 @@ exact_price_kernel(const float* __restrict__ params, const int* __restrict__ sob
 
 size_t sobol_smem(const int* sobol, int segments) {
   return sobol ? sizeof(int) * 4 * segments * (hh::kSobolBits + 1) : 0;
+}
+
+// K3's staged dynamic shared memory: the table, then each warp's high words.
+size_t price_smem(bool qmc, int segments) {
+  return qmc ? sizeof(int) * 4 * segments * (hh::kSobolBits + 1) +
+                   sizeof(uint32_t) * (kPriceThreads / 32) * 8 * segments
+             : 0;
 }
 
 // ---- K4: the exact-transition surface ----
@@ -477,45 +574,6 @@ __device__ __forceinline__ void stage_surface(const float* params, const int* in
   __syncthreads();
 }
 
-// The four draws (u_pois, z_gam, u_boost, z_iv) of segment s of a pair.
-struct ExactDraw {
-  float u_pois, z_gam, u_boost, z_iv;
-};
-
-__device__ __forceinline__ ExactDraw swap_draw(const ExactDraw& d) {
-  return ExactDraw{__shfl_xor_sync(0xffffffffu, d.u_pois, 1),
-                   __shfl_xor_sync(0xffffffffu, d.z_gam, 1),
-                   __shfl_xor_sync(0xffffffffu, d.u_boost, 1),
-                   __shfl_xor_sync(0xffffffffu, d.z_iv, 1)};
-}
-
-// exact_draw shared by the two threads of a pair (`odd`: the second), each
-// drawing half: under QMC the even thread draws dims 4s, 4s+1 (u_pois,
-// z_gam) and the odd one 4s+2, 4s+3 (u_boost, z_iv); under Philox, at each
-// even s the even thread draws block s and the odd one block s + 1, kept in
-// `next` for segment s + 1.  Shuffles hand each thread the other's half.
-// Steps come in increasing order, and every lane of the warp calls it.
-__device__ __forceinline__ ExactDraw exact_draw_shared(unsigned long long pair, uint32_t idx,
-                                                       const int* sobol, int s, uint32_t seed,
-                                                       uint32_t device_id, bool odd,
-                                                       ExactDraw& next) {
-  if (sobol) {
-    const int* rows = sobol + (4 * s + 2 * (int)odd) * (hh::kSobolBits + 1);
-    const float u = odd ? hh::sobol_uniform_open(idx, rows) : hh::sobol_uniform_top(idx, rows);
-    const float z = hh::sobol_normal(idx, rows + (hh::kSobolBits + 1));
-    const float u_o = __shfl_xor_sync(0xffffffffu, u, 1);
-    const float z_o = __shfl_xor_sync(0xffffffffu, z, 1);
-    return odd ? ExactDraw{u_o, z_o, u, z} : ExactDraw{u, z, u_o, z_o};
-  }
-  if (s & 1) return next;
-  ExactDraw own;
-  exact_draw(pair, idx, sobol, s + (int)odd, seed, device_id, own.u_pois, own.z_gam, own.u_boost,
-             own.z_iv);
-  const ExactDraw other = swap_draw(own);
-  next = odd ? own : other;
-  return odd ? other : own;
-}
-
 // Adds `count` staged points' pair values (points p0, p0 + 1, ...) into
 // their float64 rows between two barriers: warp w takes each (row, point)
 // task w, w + kXsWarps, ...
@@ -616,33 +674,47 @@ extern "C" int hh_exact_values(const float* params, const int* sobol, float* out
 extern "C" int hh_exact_price(const float* params, const int* sobol, double* partials, int grid,
                               long long total_pairs, int segments, int kmax, unsigned seed,
                               unsigned device_id, long long point_offset, void* stream) {
-  const size_t smem = sobol_smem(sobol, segments);
+  const size_t smem = price_smem(sobol != nullptr, segments);
   if (smem <= hh::smem_room(exact_price_kernel<true>)) {
     const cudaError_t err = hh::allow_dynamic_smem(exact_price_kernel<true>, smem);
     if (err != cudaSuccess) return (int)err;
-    exact_price_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    exact_price_kernel<true><<<grid, kPriceThreads, smem, (cudaStream_t)stream>>>(
         params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
   } else {
-    exact_price_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    exact_price_kernel<false><<<grid, kPriceThreads, 0, (cudaStream_t)stream>>>(
         params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
   }
   return (int)cudaGetLastError();
 }
 
-// The price kernel's grid: one resident wave on the current device, taken
-// at a fixed 16-row table (4 segments under QMC) whatever the launch's
-// stream and segments, so those do not move it.
-extern "C" int hh_exact_price_grid(int* grid) {
+// K3's occupancy on the current device, taken at a fixed 16-row table (4
+// segments under QMC) whatever the launch's stream and segments, so those
+// do not move its grid: out = (threads a block, resident blocks per SM, SMs,
+// dynamic shared bytes, static shared bytes, registers a thread, local
+// (spill) bytes a thread).
+extern "C" int hh_exact_price_occupancy(int* out) {
+  const size_t smem = price_smem(true, 4);
   int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_price_kernel<true>,
-                                                        kThreads,
-                                                        sizeof(int) * 16 * (hh::kSobolBits + 1));
+                                                        kPriceThreads, smem);
   }
-  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, exact_price_kernel<true>);
+  const int vals[7] = {kPriceThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
+}
+
+// The price kernel's grid: one resident wave of it on the current device.
+extern "C" int hh_exact_price_grid(int* grid) {
+  int occ[7];
+  const int err = hh_exact_price_occupancy(occ);
+  *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
+  return err;
 }
 
 // K4 staged (the Sobol' table in shared memory) or reading the table from

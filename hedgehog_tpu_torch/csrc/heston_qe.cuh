@@ -146,7 +146,7 @@ __device__ __forceinline__ BsPartials cond_bs_partials(float iv, float j, const 
 // partials at one strike from the strike-free part of the same (IV, J)
 // under the expiry's f_base (hh::close_group, formed once per path and
 // expiry), each field to the bit cond_bs_partials's in the surface kernel
-// before the split.  The vega's exponential of -d1^2/2 is the one
+// before the split (and in K10, one strike, before its redesign).  The vega's exponential of -d1^2/2 is the one
 // Phi(cp d1) takes (|cp d1| = |d1|, and halving and negating are exact), so
 // the two share it.  y_rho is pinned as that kernel's code formed it (its
 // SASS): w (j - rho IV), with j - rho IV one FMA, less the vega term, the
@@ -170,6 +170,61 @@ __device__ __forceinline__ BsPartials close_partials(const CloseGroup& g, float 
   const float vterm = __fmul_rn(__fmul_rn(__fmul_rn(vega_sd, c.rho), iv), g.inv_sd);
   o.y_rho = kMirror ? __fmaf_rn(o.w, jr, -vterm) : __fsub_rn(__fmul_rn(o.w, jr), vterm);
   return o;
+}
+
+// ---- The split Sobol' draw (K9, K12 in heston_surface.cu; K10) ----
+//
+// A warp's 32 lanes take 32 consecutive points, so a point's bits >= 5 are
+// one of two warp-uniform values (hh_device.cuh sobol_high, sobol_low,
+// stage_high).
+
+// The (z, u) of steps [step, end) of one pair (point idx), passed in step
+// order to advance(z, u): mix_draws's numbers over a surface's steps (K9,
+// K12) or over one path's (K10, step 0 to steps).
+// Under Philox one block per two steps in mix_draws's order, running
+// across the segments (the step index counts the whole
+// trajectory, so a segment that ends on an even step leaves the block's
+// second normal and word, z_odd and w_odd, to the next segment's first
+// step).  Under QMC the Sobol' pair of step s: staged (kSplit), each
+// integer the warp's high word (hw, candidate c) XOR sobol_low of the
+// point; else the table in global memory through sobol_bits.
+template <bool kSplit, class F>
+__device__ __forceinline__ void draw_steps(unsigned long long pair, uint32_t idx, const int* sobol,
+                                           const uint32_t* hw, int c, uint32_t seed,
+                                           uint32_t device_id, int step, int end, float& z_odd,
+                                           uint32_t& w_odd, F&& advance) {
+  if (sobol) {
+    for (int s = step; s < end; ++s) {
+      const int* rows = sobol + 2 * s * (kSobolBits + 1);
+      if constexpr (kSplit) {
+        const uint32_t az = hw[4 * s + c] ^ sobol_low(idx, rows);
+        const uint32_t au = hw[4 * s + 2 + c] ^ sobol_low(idx, rows + kSobolBits + 1);
+        advance(sobol_normal_of(az), sobol_uniform_open_of(au));
+      } else {
+        advance(sobol_normal(idx, rows), sobol_uniform_open(idx, rows + kSobolBits + 1));
+      }
+    }
+    return;
+  }
+  int s = step;
+  if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
+    advance(z_odd, uniform_from_bits(w_odd));
+    ++s;
+  }
+  for (; s + 1 < end; s += 2) {
+    const U4 w = philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+    float z0, z1;
+    box_muller(w.x, w.y, z0, z1);
+    advance(z0, uniform_from_bits(w.z));
+    advance(z1, uniform_from_bits(w.w));
+  }
+  if (s < end) {
+    const U4 w = philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+    float z0;
+    box_muller(w.x, w.y, z0, z_odd);
+    advance(z0, uniform_from_bits(w.z));
+    w_odd = w.w;
+  }
 }
 
 // The parameter struct P (floats only), the tangent table (kDirs rows; none

@@ -69,6 +69,9 @@ constexpr int kGlobals = 8;  // v0, theta, inv_sigma, k_over_sigma, rho, rho2_ha
 constexpr int kPerSeg = 5;   // e, c_s2_v, c_s2_c, half_dt, ktd_over_sigma
 constexpr int kJacBlocks = 3;  // K12's blocks an SM (its register budget: 85)
 
+using hh::draw_steps;  // the split Sobol' draw (heston_qe.cuh), shared with K10
+using hh::stage_high;
+
 // Dynamic shared memory of one launch, in this order (the float64 rows first
 // for their alignment): per-warp sums, segment constants, per-point close
 // constants, K12's (4, 4) constant tangents and (4, 3) J-closure rows per
@@ -142,69 +145,6 @@ __device__ __forceinline__ void stage(const float* params, const int* nsteps, co
     for (int i = threadIdx.x; i < n; i += blockDim.x) ssob[i] = sobol[i];
   }
   __syncthreads();
-}
-
-// The high Sobol' words of this warp's round into hw[2 d + c], dimension
-// d, candidate c: the warp's points are p0 + lane, and point idx takes
-// candidate (idx >> 5) - (p0 >> 5), 0 or 1.  The warp's lanes share the
-// work; __syncwarp on both sides (the last round's reads, this one's).
-__device__ __forceinline__ void stage_high(const int* table, int dims, uint32_t p0, uint32_t* hw) {
-  const uint32_t lo = p0 & ~31u;
-  __syncwarp();
-  for (int d = (int)(threadIdx.x & 31); d < dims; d += 32) {
-    const int* row = table + d * (hh::kSobolBits + 1);
-    hw[2 * d] = hh::sobol_high(lo, row);
-    hw[2 * d + 1] = hh::sobol_high(lo + 32u, row);
-  }
-  __syncwarp();
-}
-
-// The (z, u) of steps [step, end) of one pair (point idx), passed in step
-// order to advance(z, u): hh::mix_draws's numbers over a surface's steps.
-// Under Philox one block per two steps in hh::mix_draws's order, running
-// across the segments (the step index counts the whole
-// trajectory, so a segment that ends on an even step leaves the block's
-// second normal and word, z_odd and w_odd, to the next segment's first
-// step).  Under QMC the Sobol' pair of step s: staged (kSplit), each
-// integer the warp's high word (hw, candidate c) XOR hh::sobol_low of the
-// point; else the table in global memory through hh::sobol_bits.
-template <bool kSplit, class F>
-__device__ __forceinline__ void draw_steps(unsigned long long pair, uint32_t idx, const int* sobol,
-                                           const uint32_t* hw, int c, uint32_t seed,
-                                           uint32_t device_id, int step, int end, float& z_odd,
-                                           uint32_t& w_odd, F&& advance) {
-  if (sobol) {
-    for (int s = step; s < end; ++s) {
-      const int* rows = sobol + 2 * s * (hh::kSobolBits + 1);
-      if constexpr (kSplit) {
-        const uint32_t az = hw[4 * s + c] ^ hh::sobol_low(idx, rows);
-        const uint32_t au = hw[4 * s + 2 + c] ^ hh::sobol_low(idx, rows + hh::kSobolBits + 1);
-        advance(hh::sobol_normal_of(az), hh::sobol_uniform_open_of(au));
-      } else {
-        advance(hh::sobol_normal(idx, rows), hh::sobol_uniform_open(idx, rows + hh::kSobolBits + 1));
-      }
-    }
-    return;
-  }
-  int s = step;
-  if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
-    advance(z_odd, hh::uniform_from_bits(w_odd));
-    ++s;
-  }
-  for (; s + 1 < end; s += 2) {
-    const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
-    float z0, z1;
-    hh::box_muller(w.x, w.y, z0, z1);
-    advance(z0, hh::uniform_from_bits(w.z));
-    advance(z1, hh::uniform_from_bits(w.w));
-  }
-  if (s < end) {
-    const hh::U4 w = hh::philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
-    float z0;
-    hh::box_muller(w.x, w.y, z0, z_odd);
-    advance(z0, hh::uniform_from_bits(w.z));
-    w_odd = w.w;
-  }
 }
 
 // K9: the pair's value at every point, added to the per-warp sums.  At each

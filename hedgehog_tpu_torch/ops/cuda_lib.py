@@ -24,7 +24,7 @@ import time
 import torch
 
 __all__ = ["CudaKernel", "build_library", "load_library", "resident_grid", "BUILD_ROOT",
-           "NVCC_FLAGS"]
+           "NVCC_FLAGS", "host_to_device"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "hedgehog_tpu_torch"
@@ -163,6 +163,19 @@ class CudaKernel:
             msg = load_library().hh_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+def host_to_device(array, device: torch.device) -> torch.Tensor:
+    """``array`` (numpy) on ``device`` in one copy: on a GPU from a pinned
+    buffer and asynchronous (no wait for the work already queued on the
+    stream, as a copy from pageable memory makes), on the CPU a view.  The
+    buffer is taken pinned (``Tensor.pin_memory`` would first ask CUDA
+    whether the array's pageable memory is pinned)."""
+    t = torch.from_numpy(array)
+    if device.type != "cuda":
+        return t
+    staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return staged.copy_(t).to(device, non_blocking=True)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:

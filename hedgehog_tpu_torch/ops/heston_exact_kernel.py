@@ -357,16 +357,33 @@ def _exact_values(params, table, n_paths, segments, antithetic, kmax, seed, devi
     return out
 
 
+def price_grid(device: torch.device) -> int:
+    """K3's blocks: one resident wave of it on ``device`` (two threads a
+    pair, 256 pairs a round of a block)."""
+    return resident_grid("hh_exact_price_grid", device)
+
+
+def price_occupancy(device) -> dict:
+    """K3's occupancy on ``device`` (``cuda_lib.launch_occupancy``'s keys):
+    the blocks and warps an SM behind :func:`price_grid`."""
+    return launch_occupancy("hh_exact_price_occupancy", torch.device(device))
+
+
 def _exact_price_sum(params, table, total_pairs, segments, kmax, seed, device_id,
-                     point_offset) -> torch.Tensor:
+                     point_offset, grid=None) -> torch.Tensor:
     """Launch K3 for inputs on a GPU (the float64 sum of its per-block
-    partials); the twin for inputs on the CPU."""
+    partials); the twin for inputs on the CPU.  ``grid`` (blocks of 256
+    pairs a round) defaults to :func:`price_grid`, at most one round; at
+    the grid of the one-pair-a-thread kernel (2 blocks an SM) the sum keeps
+    that kernel's bits."""
     _check_inputs(params, table, segments, kmax)
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_exact_mixing_price_sum_plain(params, table, total_pairs, segments, kmax,
                                                    seed, device_id, point_offset)
     require_cuda(params)
-    grid = min(resident_grid("hh_exact_price_grid", params.device), -(-total_pairs // 256))
+    if grid is None:
+        grid = min(price_grid(params.device), -(-total_pairs // 256))
     partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
     EXACT_PRICE_KERNEL.launch(
         params.device, params.data_ptr(), None if table is None else table.data_ptr(),

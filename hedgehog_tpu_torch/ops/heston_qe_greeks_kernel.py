@@ -27,11 +27,19 @@ import ctypes
 import numpy as np
 import torch
 
-from .cuda_lib import CudaKernel, check_grid, check_tensor, require_cuda
-from ..utils import f64
+from .cuda_lib import (
+    CudaKernel,
+    check_grid,
+    check_tensor,
+    host_to_device,
+    launch_occupancy,
+    require_cuda,
+)
+from ..utils import f64, resolve_device
 from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
     SURF_JAC_COLS,
+    _mix_params,
     _surf_params,
     check_inputs,
     check_period,
@@ -50,6 +58,7 @@ from .heston_qe_kernel import (
     surface_strike_chunks,
 )
 from .hh_device import (
+    MIX_NAMES,
     mix_c,
     mix_update,
     norm_cdf,
@@ -265,39 +274,45 @@ def _greek_table(v0, kappa, theta, sigma, dt, steps: int, n_dirs: int) -> np.nda
 def _assemble_grad7(tot, log_s0, r, T, discount, price):
     """The greek vector in GREEK_ORDER (spot, V0, κ, θ, σ, ρ, flat rate) from
     the per-path means tot = [ȳ, chain_V0, chain_κ, chain_θ, chain_σ, w̄, ρ̄];
-    the rate greek assumes ``discount = e^{−rT}``."""
+    the rate greek assumes ``discount = e^{−rT}``.  Each element takes the
+    operations of its own formula: spot discount·w̄/S0 (w = ∂Y/∂logS0), V0
+    to ρ discount·chain, the flat rate discount·w̄·T − T·price (discount term
+    included), in five launches on the tensor's device."""
     spot = float(np.exp(log_s0))
-    return torch.stack([
-        discount * tot[5] / spot,  # spot (w = ∂Y/∂logS0)
-        discount * tot[1],  # V0
-        discount * tot[2],  # kappa
-        discount * tot[3],  # theta
-        discount * tot[4],  # sigma
-        discount * tot[6],  # rho
-        discount * tot[5] * T - T * price,  # flat rate, discount term included
-    ])
+    out = discount * torch.cat([tot[5:6], tot[1:5], tot[6:7], tot[5:6]])
+    return torch.cat([out[:1] / spot, out[1:6], out[6:] * T - T * price])
+
+
+def greeks_occupancy(steps: int, qmc: bool, device) -> dict:
+    """K10's occupancy on ``device`` at ``steps`` steps on one stream
+    (``cuda_lib.launch_occupancy``'s keys): its blocks an SM against K8's
+    grid, :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.price_grid`."""
+    return launch_occupancy("hh_qe_greeks_occupancy", torch.device(device), steps, int(qmc))
 
 
 def _greek_sums(params, dtab, table, total_pairs, steps, seed, device_id,
-                point_offset) -> torch.Tensor:
+                point_offset, grid=None) -> torch.Tensor:
     """Launch K10 for inputs on a GPU (seven float64 sums of its per-block
-    partials); the twin for inputs on the CPU."""
+    partials); the twin for inputs on the CPU.  ``grid`` defaults to K8's,
+    :func:`~hedgehog_tpu_torch.ops.heston_qe_kernel.price_grid`: at one grid
+    K10's price is K8's to the bit."""
     check_inputs(params, table, steps)
     check_tensor(dtab, "tangent table", torch.float32, (N_GREEK_DIRS, N_COLS))
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_qe_mixing_greek_sums_plain(params, dtab, table, total_pairs, steps, seed,
                                                  device_id, point_offset)
     require_cuda(params)
-    grid = price_grid(params.device, table)
+    grid = price_grid(params.device, table) if grid is None else grid
     partials = torch.empty((7, grid), dtype=torch.float64, device=params.device)
     QE_GREEKS_KERNEL.launch(
         params.device, params.data_ptr(), dtab.data_ptr(),
         None if table is None else table.data_ptr(), partials.data_ptr(), grid, total_pairs,
         steps, seed & _MASK32, device_id & _MASK32, point_offset,
     )
-    # one sum per contiguous (grid,) row: the price row takes the reduction
-    # K8's partials take, so the two prices are equal to the bit
-    return torch.stack([row.sum() for row in partials])
+    # each row reduced as K8's (grid,) partials are, so the two prices are
+    # equal to the bit (the card tests hold them so)
+    return partials.sum(dim=1)
 
 
 def _vjp_sums(params, dtab, table, ct, n_paths, steps, antithetic, seed, device_id,
@@ -335,10 +350,14 @@ def heston_qe_mixing_price_and_greeks(
     derivatives of that estimator.  Returns (float64 0-dim, float64 (7,))."""
     total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
     check_period(qmc, point_offset, total_pairs)
-    params, table = mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps,
-                               seed, qmc, device)
-    dtab = torch.as_tensor(_greek_table(v0, kappa, theta, sigma, dt, steps, N_GREEK_DIRS),
-                           device=params.device)
+    dev = resolve_device(device)
+    # the parameters and the tangent table in one copy
+    n_params = len(MIX_NAMES)
+    packed = host_to_device(np.concatenate([
+        _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp),
+        _greek_table(v0, kappa, theta, sigma, dt, steps, N_GREEK_DIRS).ravel()]), dev)
+    params, dtab = packed[:n_params], packed[n_params:].view(N_GREEK_DIRS, N_COLS)
+    table = host_to_device(sobol_table(seed, 2 * steps), dev) if qmc else None
     sums = _greek_sums(params, dtab, table, total_pairs, steps, int(seed), int(device_id),
                        point_offset)
     total_paths = 2 * total_pairs

@@ -1,6 +1,7 @@
-"""Marginal cost of each phase of a QE mixing surface kernel (K9, or K12
-with its Jacobian) or of a rough-Bergomi kernel (K14 values, K16 price +
-greeks, K17 the values' VJP) on the card.
+"""Marginal cost of each phase of a Heston serving kernel (K3 the exact
+price, K10 the QE price + 7 greeks), of a QE mixing surface kernel (K9, or
+K12 with its Jacobian) or of a rough-Bergomi kernel (K14 values, K16 price
++ greeks, K17 the values' VJP) on the card.
 
 For each phase the script copies a tree's package (``--root``, default the
 repository) to ``build/phase_costs/<kernel> <phase>/``, rewrites the
@@ -13,7 +14,7 @@ computes wrong values: it exists only to be timed.
 
 Run on a GPU host, from the repository root:
 
-    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K9|K12|K14|K16|K17]
+    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K3|K9|K10|K12|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
@@ -49,6 +50,14 @@ _SURFACE_DRAW = [
      "    advance(4.0f * u - 2.0f, u);\n  }\n}\n\n"),
     ("heston_surface.cu", "    if (kStaged && table) stage_high(table, 2 * total_steps, p0, hw);\n",
      "")]
+# the same since draw_steps moved to heston_qe.cuh (shared with K10)
+_SHARED_DRAW = [
+    ("heston_qe.cuh",
+     ("  if (sobol) {\n    for (int s = step; s < end; ++s) {\n"
+      "      const int* rows = sobol + 2 * s * (kSobolBits + 1);\n      if constexpr (kSplit) {",
+      "// The parameter struct P (floats only)"),
+     _SURFACE_DRAW[0][2]),
+    _SURFACE_DRAW[1]]
 
 K9_PHASES = {
     "walk": [
@@ -86,6 +95,7 @@ K9_PHASES = {
          ("heston_surface.cu",
           "      if (table) stage_high(table, 2 * total_steps, p0, hw);\n", "")],
         _SURFACE_DRAW,
+        _SHARED_DRAW,
     ],
     "closes": [
         [("heston_surface.cu",
@@ -248,6 +258,7 @@ K12_PHASES = {
           "          z = 4.0f * u - 2.0f;\n        }\n"
           "        tan_step_surface(s, z, u, c, dc);\n")],
         _SURFACE_DRAW,
+        _SHARED_DRAW,
     ],
     "tangent walk": [
         [("heston_surface.cu",
@@ -286,8 +297,137 @@ K12_PHASES = {
     ],
 }
 
-PHASES = {"K9": K9_PHASES, "K12": K12_PHASES, "K14": K14_PHASES, "K16": K16_PHASES,
-          "K17": K17_PHASES}
+# K3: the exact segment's parts (exact_segment, shared with K2 and K4; one
+# text in both trees), then K3's draw, close and sums: one pair a thread,
+# then two threads a pair
+_HASH_DRAW = ("const uint32_t h_ = (uint32_t)pair * 2654435761u + s * 40503u;\n"
+              "{i}{d}u_pois = (float)(h_ >> 8) * (1.0f / 16777216.0f);\n"
+              "{i}{d}z_gam = 4.0f * {d}u_pois - 2.0f;\n{i}{d}u_boost = 1.0f - {d}u_pois;\n"
+              "{i}{d}z_iv = -{d}z_gam;\n")
+K3_PHASES = {
+    "draw": [
+        [("heston_exact.cu",
+          "    exact_draw(pair, idx, sobol, s, seed, device_id, u_pois, z_gam, u_boost, z_iv);\n",
+          "    {\n      " + _HASH_DRAW.format(i="      ", d="") + "    }\n")],
+        [("heston_exact.cu",
+          "      const ExactDraw d =\n          exact_draw_shared<kStaged>(pair, idx, table, s, "
+          "seed, device_id, odd, next, hw, c);\n",
+          "      ExactDraw d;\n      {\n        " + _HASH_DRAW.format(i="        ", d="d.")
+          + "      }\n"),
+         ("heston_exact.cu", "    if (kStaged && table) hh::stage_high(table, 4 * segments, p0, hw);\n",
+          "")],
+    ],
+    "Poisson count": [
+        [("heston_exact.cu", ("  if (u_pois < 0.0f) {\n", "\n  // Gamma(d/2 + N, 2c)"),
+          "  n = floorf(fabsf(u_pois) * mu * 2.0f);\n")],
+    ],
+    "gamma quantiles": [
+        [("heston_exact.cu",
+          ("__device__ __forceinline__ float gamma_qtl(float alpha, float z) {\n",
+           "// The Poisson(mu) count at u = 1 - w"),
+          "__device__ __forceinline__ float gamma_qtl(float alpha, float z) {\n"
+          "  return fmaxf(alpha + z * sqrtf(alpha), 0.01f * alpha);\n}\n\n")],
+    ],
+    "Bessel fraction": [
+        [("heston_exact.cu",
+          "    for (int m = kCfIters; m >= 1; --m) r = z * hh::rcp(2.0f * (c.nu + (float)m) + z * r);\n",
+          "    r = z * hh::rcp(2.0f * (c.nu + 1.0f) + z);\n")],
+    ],
+    "close": [
+        [("heston_exact.cu",
+          "  val = exact_close(v, iv, c);\n  val_a = antithetic ? exact_close(va, iva, c) : 0.0f;\n",
+          "  val = (v + iv) * c.close.strike;\n"
+          "  val_a = antithetic ? (va + iva) * c.close.strike : 0.0f;\n")],
+        [("heston_exact.cu", "    const float val = exact_close(v, iv, sp);\n",
+          "    const float val = (v + iv) * sp.close.strike;\n")],
+    ],
+    "sums": [
+        [("heston_exact.cu", "    acc += val + val_a;\n  }\n  red[threadIdx.x] = (double)acc;\n",
+          "    if (val + val_a == -1.0f) acc = 1.0f;\n  }\n  red[threadIdx.x] = (double)acc;\n")],
+        [("heston_exact.cu",
+          "    const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);\n"
+          "    if (!odd && g < total_pairs) acc += val + val_a;\n",
+          "    if (val == -1.0f) acc = 1.0f;\n")],
+    ],
+}
+
+# K10: one pair a thread through hh::mix_draws, then on K9's split draw
+K10_PHASES = {
+    "draw": [
+        [("heston_qe_greeks.cu",
+          "    hh::mix_draws((unsigned long long)g, table, steps, seed, device_id, point_offset,\n"
+          "                  [&](float z, float u) {\n"
+          "                    hh::tan_step(s, z, u, sp, stab);\n"
+          "                    hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n"
+          "                  });\n",
+          "    for (int s_ = 0; s_ < steps; ++s_) {\n"
+          "      const uint32_t h_ = (uint32_t)g * 2654435761u + s_ * 40503u;\n"
+          "      const float u = (float)(h_ >> 8) * (1.0f / 16777216.0f), z = 4.0f * u - 2.0f;\n"
+          "      hh::tan_step(s, z, u, sp, stab);\n"
+          "      hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n    }\n")],
+        [("heston_qe_greeks.cu",
+          ("    hh::draw_steps<kStaged>((unsigned long long)g, (uint32_t)(point_offset + g), table,",
+           "    // the close shares the vega's exponential"),
+          "    for (int s_ = 0; s_ < steps; ++s_) {\n"
+          "      const uint32_t h_ = (uint32_t)g * 2654435761u + s_ * 40503u;\n"
+          "      const float u = (float)(h_ >> 8) * (1.0f / 16777216.0f), z = 4.0f * u - 2.0f;\n"
+          "      hh::tan_step(s, z, u, sp, stab);\n"
+          "      hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n    }\n"),
+         ("heston_qe_greeks.cu", "    if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);\n",
+          "")],
+    ],
+    "tangent walk": [
+        [("heston_qe_greeks.cu",
+          "                    hh::tan_step(s, z, u, sp, stab);\n"
+          "                    hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n",
+          "                    s.iv += sp.half_dt * u;\n                    s.j += z;\n"
+          "                    sa.iv += sp.half_dt * (1.0f - u);\n                    sa.j -= z;\n"
+          "                    for (int d_ = 0; d_ < kGreekDirs; ++d_) {\n"
+          "                      s.dv[d_] = z;\n                      s.s[d_] += u;\n"
+          "                      sa.dv[d_] = -z;\n                      sa.s[d_] += 1.0f - u;\n"
+          "                    }\n")],
+        [("heston_qe_greeks.cu",
+          "                              hh::tan_step(s, z, u, sp, stab);\n"
+          "                              hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n",
+          "                              s.iv += sp.half_dt * u;\n                              s.j += z;\n"
+          "                              sa.iv += sp.half_dt * (1.0f - u);\n"
+          "                              sa.j -= z;\n"
+          "                              for (int d_ = 0; d_ < kGreekDirs; ++d_) {\n"
+          "                                s.dv[d_] = z;\n                                s.s[d_] += u;\n"
+          "                                sa.dv[d_] = -z;\n"
+          "                                sa.s[d_] += 1.0f - u;\n"
+          "                              }\n")],
+    ],
+    "close and partials": [
+        [("heston_qe_greeks.cu",
+          ("    const hh::BsPartials b = hh::cond_bs_partials(s.iv, s.j, sp.close);\n",
+           "  }\n  hh::block_sums<kThreads>(acc, red, partials);"),
+          "    acc[0] += (s.iv + s.j + sa.iv + sa.j) * sp.close.strike;\n"
+          "#pragma unroll\n"
+          "    for (int d = 0; d < kGreekDirs; ++d) {\n"
+          "      acc[1 + d] += s.s[d] + s.dv[d] + sa.s[d] + sa.dv[d];\n    }\n"
+          "    acc[5] += s.j;\n    acc[6] += sa.j;\n")],
+        [("heston_qe_greeks.cu",
+          ("    const hh::BsPartials b =\n        hh::close_partials<false>(",
+           "  }\n  hh::block_sums<kThreads>(acc, red, partials);"),
+          "    acc[0] += (s.iv + s.j + sa.iv + sa.j) * sp.close.strike;\n"
+          "#pragma unroll\n"
+          "    for (int d = 0; d < kGreekDirs; ++d) {\n"
+          "      acc[1 + d] += s.s[d] + s.dv[d] + sa.s[d] + sa.dv[d];\n    }\n"
+          "    acc[5] += s.j;\n    acc[6] += sa.j;\n")],
+    ],
+    "sums": [
+        [("heston_qe_greeks.cu",
+          "    acc[6] += b.y_rho + ba.y_rho;\n  }\n  hh::block_sums<kThreads>(acc, red, partials);\n",
+          "    acc[6] += b.y_rho + ba.y_rho;\n  }\n"
+          "  if (acc[0] == -1.0f) {\n"
+          "    for (int k_ = 0; k_ < kGreekCols; ++k_) partials[k_ * gridDim.x + blockIdx.x] = acc[k_];\n"
+          "  }\n")],
+    ],
+}
+
+PHASES = {"K3": K3_PHASES, "K9": K9_PHASES, "K10": K10_PHASES, "K12": K12_PHASES,
+          "K14": K14_PHASES, "K16": K16_PHASES, "K17": K17_PHASES}
 
 
 def _span(text: str, old) -> tuple:

@@ -1024,3 +1024,101 @@ def test_rbergomi_smile_past_64_strikes_equals_the_price_kernel(gpu, qmc):
     torch.testing.assert_close(smile.cpu(),
                                rk.rbergomi_mixing_smile_sums_plain(inp, ks, pairs, 5, 0, 0).cpu(),
                                rtol=1e-5, atol=0.0)
+
+
+# ---- K3 two threads a pair; K10 one wave of K8's grid ---------------------------
+#
+# The serving kernels on chip_smoke.py's market (2^20 pairs, seed 5; QE 11
+# steps, exact 2 segments).  K3_PARENT_BLOCKS: the one-pair-a-thread K3's
+# resident blocks an SM (127 registers, 256 threads); K8_BLOCKS: K8's (79
+# registers), whose one wave is K8's and K10's grid.  The digests are the
+# sha256 of the float64 sums of the kernels before their redesign at those
+# grids (chip_smoke.py --digest, "K3 ... sums" and "K10 ... sums").
+
+K3_PARENT_BLOCKS = 2
+K8_BLOCKS = 3
+K3_PARENT_DIGESTS = {
+    True: "67d9e42627e04a7115122cf9343f5b32ffb1cdf51feac30970eb58e555245b62",
+    False: "988ffe84eeb711fec616a675940b9964c7931b9da67c81abbdcfa13890a3bbd4",
+}
+K10_PARENT_DIGESTS = {
+    True: "f6ea45fcdcc5a04a93ea3334e1f5c085f5249d7a708b7cad47123018088e0c5f",
+    False: "2f7516876a7959152c252e554e9770492e02c22b645a3611a6081f626b991cf2",
+}
+SERVE_PAIRS = 2**20
+
+
+def _sha256(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _qe_serving_inputs(gpu, qmc):
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    dt_ = T / QE_STEPS
+    params, table = qk.mix_inputs(*MKT, dt_, 100.0, 1.0, QE_STEPS, 5, qmc, gpu)
+    dtab = torch.as_tensor(gk._greek_table(*MKT[1:2], *MKT[3:6], dt_, QE_STEPS, 4), device=gpu)
+    return params, dtab, table
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_price_kernel_at_the_earlier_grid_keeps_its_bits(gpu, qmc):
+    """K3 two threads a pair, at the one-pair-a-thread kernel's grid, sums
+    every pair's value + antithetic value in that kernel's order: its sum
+    equals that kernel's stored digest."""
+    px, tx, kmax = ek._inputs(*MKT, T / 2, 100.0, 1.0, 2, 5, qmc, gpu)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    before = ek.EXACT_PRICE_KERNEL.launches
+    sums = ek._exact_price_sum(px, tx, SERVE_PAIRS, 2, kmax, 5, 0, 0, grid=K3_PARENT_BLOCKS * sms)
+    assert ek.EXACT_PRICE_KERNEL.launches == before + 1
+    assert _sha256(sums) == K3_PARENT_DIGESTS[qmc]
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_price_kernel_at_its_grid_matches_the_values_mean(gpu, qmc):
+    """K3 at its default grid (one resident wave of it) against K2's mean
+    over the same points within chip_smoke's PRICE_RTOL (1e-6)."""
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    occ = ek.price_occupancy(gpu)
+    assert ek.price_grid(gpu) == occ["blocks_per_sm"] * sms and occ["threads"] == 512
+    values = ek.heston_exact_mixing_values(*MKT, T / 2, 100.0, 1.0, n_paths=SERVE_PAIRS,
+                                           segments=2, seed=5, antithetic=True, qmc=qmc,
+                                           device=gpu)
+    price = ek.heston_exact_mixing_vanilla_price(*MKT, T / 2, 100.0, 1.0, n_blocks=8,
+                                                 n_batches=4, segments=2, seed=5, qmc=qmc,
+                                                 device=gpu)
+    assert float(price) == pytest.approx(float(values.double().mean()), rel=1e-6)
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_greek_kernel_price_equals_the_price_kernel(gpu, qmc):
+    """K10's price column equal to K8's sum to the bit at their grid; at
+    K8_BLOCKS an SM (that grid on an H100) K10's seven sums equal the stored
+    digest of the kernel before its redesign."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    params, dtab, table = _qe_serving_inputs(gpu, qmc)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    price = qk._qe_price_sum(params, table, SERVE_PAIRS, QE_STEPS, 5, 0, 0)
+    sums = gk._greek_sums(params, dtab, table, SERVE_PAIRS, QE_STEPS, 5, 0, 0)
+    assert bool(torch.isfinite(sums).all()) and float(sums[0]) == float(price)
+    sums = gk._greek_sums(params, dtab, table, SERVE_PAIRS, QE_STEPS, 5, 0, 0,
+                          grid=K8_BLOCKS * sms)
+    assert _sha256(sums) == K10_PARENT_DIGESTS[qmc]
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_greek_kernel_holds_one_resident_wave_of_its_grid(gpu, qmc):
+    """K10's resident blocks an SM (the runtime's occupancy at its shared
+    memory) times the SMs is its grid, K8's: one wave, no tail."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    _, _, table = _qe_serving_inputs(gpu, qmc)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    occ = gk.greeks_occupancy(QE_STEPS, qmc, gpu)
+    assert qk.price_grid(gpu, table) == occ["blocks_per_sm"] * sms

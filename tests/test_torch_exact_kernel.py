@@ -162,3 +162,12 @@ def test_guards():
     with pytest.raises(ValueError, match="shape"):
         pk._exact_values(params, torch.zeros((4, 31), dtype=torch.int32), 8, SEGMENTS, True, 20,
                          0, 0, 0)
+
+
+@pytest.mark.parametrize("bad", [0, -3, True, 2.0], ids=["zero", "negative", "bool", "float"])
+def test_price_kernel_grid_is_checked(bad):
+    """``grid=`` of K3's sum (the digest runs it at the one-pair-a-thread
+    kernel's grid) takes a positive int or None, on any device."""
+    params = torch.as_tensor(pk._exact_params(*MKT, T / SEGMENTS, SEGMENTS, 100.0, 1.0))
+    with pytest.raises(ValueError, match="grid"):
+        pk._exact_price_sum(params, None, 8, SEGMENTS, 20, 0, 0, 0, grid=bad)

@@ -274,3 +274,30 @@ def test_kernel_strategy_solve_on_cpu_runs_the_twins():
                                       antithetic=True, qmc=True, device="cpu")
     assert sol.ensemble.dtype == torch.float64
     torch.testing.assert_close(sol.ensemble, want.double(), rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("bad", [0, -3, True, 2.0], ids=["zero", "negative", "bool", "float"])
+def test_greek_kernel_grid_is_checked(bad):
+    """``grid=`` of K10's sums (the digest runs them at the grid before its
+    redesign) takes a positive int or None, on any device."""
+    params, _ = pq.mix_inputs(*ARGS, STEPS, 0, False, "cpu")
+    dtab = torch.as_tensor(pg._greek_table(0.04, 2.0, 0.04, 0.3, T / STEPS, STEPS, 4))
+    with pytest.raises(ValueError, match="grid"):
+        pg._greek_sums(params, dtab, None, 8, STEPS, 0, 0, 0, grid=bad)
+
+
+def test_greek_assembly_keeps_each_formula():
+    """``_assemble_grad7`` in five launches gives each greek the float64
+    bits of its own formula: discount·w̄/S0, discount·chain, discount·ρ̄,
+    discount·w̄·T − T·price."""
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        tot = torch.as_tensor(rng.normal(size=7) * 10.0 ** rng.integers(-8, 3, size=7))
+        log_s0, T_, disc = rng.normal(4.6, 0.3), rng.uniform(0.1, 3.0), rng.uniform(0.8, 1.0)
+        price = disc * tot[0]
+        got = pg._assemble_grad7(tot, log_s0, 0.03, T_, disc, price)
+        want = torch.stack([disc * tot[5] / float(np.exp(log_s0)), disc * tot[1], disc * tot[2],
+                            disc * tot[3], disc * tot[4], disc * tot[6],
+                            disc * tot[5] * T_ - T_ * price])
+        assert torch.equal(got, want)
+
