@@ -83,6 +83,7 @@ from __future__ import annotations
 
 import datetime as dt
 import functools
+import inspect
 import json
 import math
 import re
@@ -349,15 +350,29 @@ def compare_vectors(name: str, got, want, rtol: float) -> float:
 #
 # Operations per unit, counted by hand from csrc/ as (fp32 FLOPs, an FMA as
 # two; MUFU operations).  MUFU: rcp.approx (hh::rcp), the ex2 of expf, the
-# rsqrt of sqrtf; logf and sincosf are fp32 polynomials.  Integer work
-# (Philox, the Sobol' XOR walk) is not counted.  Where a lane takes one of two
+# rsqrt of sqrtf; logf and sincosf are fp32 polynomials.  The streams'
+# integer work (Philox, the Sobol' XOR walk) is counted apart (``int_ops``):
+# its logic on the integer ALU, its multiplies on the FMA pipe beside the
+# fp32 work.  Where a lane takes one of two
 # branches, the cheaper side is counted, so the bound is a lower bound on
 # what this run's data needs (the QE draw: the exponential branch with
 # u <= p; the exact segment: no Poisson trip, the large-argument Bessel
 # ratio, the short gamma-quantile series).  The greek kernels count their
 # tangents too (K10-K12, K16-K18).  Peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s fp32, 16 MUFU
-# operations per clock per SM on 132 SMs, 3.35 TB/s.
-FP32_PEAK, MEM_PEAK, SMS, MUFU_PER_CLK = 67e12, 3.35e12, 132, 16
+# operations per clock per SM on 132 SMs, 3.35 TB/s; the integer ALU 64
+# lanes a clock an SM (NVIDIA H100 Tensor Core GPU Architecture white paper).
+FP32_PEAK, MEM_PEAK, SMS, MUFU_PER_CLK, INT_PER_CLK = 67e12, 3.35e12, 132, 16, 64
+# The streams' integer work, the least each needs: a Philox-4x32-10 block is
+# ten rounds of hh::philox4x32, each two 32x32 -> 64-bit products (one
+# IMAD.WIDE each, high and low word together, on the FMA pipe: counted as an
+# FMA, two FLOPs) and two three-input XORs (one LOP3 each, on the ALU); its
+# round keys depend on the seed alone, so a block needs no key additions.  A
+# Sobol' integer split at bit 5 is hh::sobol_low's five masked XORs (one
+# LOP3 each, the high word XORed in with the first); the masks depend on the
+# point alone and the high words are staged once per 32 points, so neither
+# is counted.  The 30-bit walk (hh::sobol_bits) is more than the work needs.
+PHILOX_ALU, PHILOX_IMAD = 10 * 2, 10 * 2
+SOBOL_ALU = 5
 
 
 def _ops(*terms):
@@ -462,18 +477,49 @@ def work(name: str, pairs: int, steps: int, qmc: bool = False, points: int = 1,
     return per_pair[0] * pairs, per_pair[1] * pairs, out_bytes * pairs
 
 
+def int_ops(name: str, pairs: int, steps: int, qmc: bool = False) -> tuple:
+    """(ALU operations, IMAD.WIDE) of the stream of one call of kernel
+    ``name`` (``work``'s arguments): each pair's Philox blocks (PRNG) or
+    Sobol' integers (QMC) times ``PHILOX_ALU`` and ``PHILOX_IMAD`` or
+    ``SOBOL_ALU``.  Per pair: Euler one block per two steps; QE mixing
+    (K7-K12) one block per two steps or 2 integers a step; QE-M one block or
+    3 integers a step; exact (K2-K4) one block or 4 integers a segment; the
+    lognormal draw a block per four pairs; rough Bergomi a block per four of
+    its 2n - 1 normals or an integer each."""
+    if name.startswith(("rbergomi", "_rb")):
+        blocks, ints = -(-(2 * steps - 1) // 4), 2 * steps - 1
+    elif name.startswith("heston_exact"):
+        blocks, ints = steps, 4 * steps
+    elif name in ("heston_qe_terminal", "heston_qe_call_price"):
+        blocks, ints = steps, 3 * steps
+    elif name == "gbm_exact_terminal":
+        blocks, ints = 0.25, 0
+    else:  # Euler, and the QE mixing kernels and surfaces
+        blocks, ints = -(-steps // 2), 2 * steps
+    if qmc:
+        return pairs * ints * SOBOL_ALU, 0.0
+    return pairs * blocks * PHILOX_ALU, pairs * blocks * PHILOX_IMAD
+
+
 def bound(name: str, pairs: int, steps: int, sm_clock_hz: float, qmc: bool = False,
           points: int = 1, expiries: int = 1) -> dict:
-    """The bound of one call: the largest of fp32 FLOPs over the fp32 peak,
-    MUFU operations over the MUFU rate at ``sm_clock_hz``, and bytes over
-    the memory rate; ``bound_by`` names the largest (MUFU and fp32 both
-    count as operations)."""
+    """The bound of one call: the largest of fp32 FLOPs (with the stream's
+    IMAD.WIDE, two each) over the fp32 peak, MUFU operations over the MUFU
+    rate at ``sm_clock_hz``, the stream's ALU operations (``int_ops``) over
+    the ALU rate and bytes over the memory rate; ``bound_by`` names the
+    largest (fp32, MUFU and integer all count as operations).
+    ``bound_fp_ms`` is the bound without the stream's integer work (the
+    figure before it was counted)."""
     flops, mufu, nbytes = work(name, pairs, steps, qmc, points, expiries)
-    t_ops = max(flops / FP32_PEAK, mufu / (MUFU_PER_CLK * SMS * sm_clock_hz))
+    alu, imad = int_ops(name, pairs, steps, qmc)
+    t_mufu = mufu / (MUFU_PER_CLK * SMS * sm_clock_hz)
+    t_fp = max(flops / FP32_PEAK, t_mufu)
+    t_ops = max((flops + 2 * imad) / FP32_PEAK, t_mufu, alu / (INT_PER_CLK * SMS * sm_clock_hz))
     t_bytes = nbytes / MEM_PEAK
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, mufu=mufu, bytes=nbytes)
+                bound_fp_ms=1e3 * max(t_fp, t_bytes), flops=flops, mufu=mufu, alu=alu,
+                imad=imad, bytes=nbytes)
 
 
 def phase_kernels(T: float, pairs: int, device: str) -> dict:
@@ -2787,7 +2833,6 @@ def output_digests(device: str) -> dict:
     at 2 steps and more), through entry points every tree since their
     port has."""
     import hashlib
-    import inspect
 
     import torch
 
@@ -2832,6 +2877,12 @@ def output_digests(device: str) -> dict:
                                             seed=seed, antithetic=True, device=dev))
     put("K6 PRNG", qk.heston_qe_call_price(*mkt, dt_m, STRIKE, disc, n_blocks=blocks, n_batches=4,
                                            steps=QEM_STEPS, seed=seed, device=dev))
+    # K6's float64 sums at the grid of the one-pair-a-thread K6
+    # (K6_PARENT_BLOCKS an SM), the bits every tree since its port gives
+    p15 = torch.as_tensor(qk._qem_params(*mkt, dt_m, strike=STRIKE), device=dev)
+    for label, n in (("", pairs), (" 2^27", SERVING_PAIRS)):
+        put(f"K6 PRNG{label} sums", qk._qem_price_sum(
+            p15, n, QEM_STEPS, seed, 0, **at_grid(qk._qem_price_sum, K6_PARENT_BLOCKS)))
     put("K13 PRNG", gbk.gbm_exact_terminal(*lognormal_law(T), n_paths=pairs, seed=seed,
                                            antithetic=True, device=dev))
     for qmc in (True, False):
@@ -2850,10 +2901,10 @@ def output_digests(device: str) -> dict:
         put(f"K8 {s}", qk.heston_qe_mixing_vanilla_price(*mkt, dt_q, STRIKE, disc, **price_kw))
         put(f"K10 {s}", *gk.heston_qe_mixing_price_and_greeks(*mkt, dt_q, STRIKE, disc, **price_kw))
         params, table = qk.mix_inputs(*mkt, dt_q, STRIKE, 1.0, QE_STEPS, seed, qmc, dev)
-        # K3's and K10's float64 sums at the grids before their redesign
-        # (K3_PARENT_BLOCKS and K8_BLOCKS an SM), the bits every tree since
-        # their port gives; the public outputs above are at the package's
-        # grid (K8's, and K10's with it, did not move)
+        # K3's, K10's and K8's float64 sums at the grids before their
+        # redesign (K3_PARENT_BLOCKS and K8_BLOCKS an SM), the bits every
+        # tree since their port gives; the public outputs above are at the
+        # package's grid (K8's, and K10's with it, did not move)
         px, tx, kmax = ek._inputs(*mkt, T / SEGMENTS, STRIKE, 1.0, SEGMENTS, seed, qmc, dev)
         for label, n in (("", pairs), (" 2^27", SERVING_PAIRS)):
             put(f"K3 {s}{label} sums", ek._exact_price_sum(
@@ -2862,6 +2913,8 @@ def output_digests(device: str) -> dict:
             put(f"K10 {s}{label} sums", gk._greek_sums(
                 params, greek_table, table, n, QE_STEPS, seed, 0, 0,
                 **at_grid(gk._greek_sums, K8_BLOCKS)))
+            put(f"K8 {s}{label} sums", qk._qe_price_sum(
+                params, table, n, QE_STEPS, seed, 0, 0, **at_grid(qk._qe_price_sum, K8_BLOCKS)))
         put(f"K11 {s}", gk._vjp_sums(params, vjp_table, table, ct, pairs, QE_STEPS, True, seed, 0, 0))
         surf_kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=pairs // qk.PAIRS_PER_BLOCK,
                        n_batches=1, **kw)
@@ -2964,6 +3017,9 @@ K3_PARENT_BLOCKS = 2
 #: K8's resident blocks an SM (79 registers, 256 threads): K8's and K10's
 #: grid, one wave of K8, is this times the SMs (396 on an H100)
 K8_BLOCKS = 3
+#: the one-pair-a-thread K6's resident blocks an SM (62 registers, 256
+#: threads); its grid was this times the SMs (528 on an H100)
+K6_PARENT_BLOCKS = 4
 
 
 #: a wide calibration surface for K4's times: quarterly expiries to 2.5 years
@@ -3044,8 +3100,11 @@ def kernel_times(device: str, only=None) -> dict:
     (the exact kernels that share K4's Poisson draw) at 2^20 pairs, 2
     segments, both streams, and K3 per serving dispatch (2^27 pairs, PRNG)
     with its grid and occupancy where the package reports them; K8 and K10,
-    :func:`qe_price_times`.  ``only`` (kernel names, e.g. K4 or K9,K12 or
-    K15,K16; K10 times K8 beside it) keeps the kernels named."""
+    :func:`qe_price_times`; K6, :func:`qem_price_times`; K1, K5, K7, K11 and
+    K13, :func:`path_kernel_times`.  ``only`` (kernel names, e.g. K4 or
+    K9,K12 or K15,K16; K10 times K8 beside it; ``K8 host``, ``K10 host`` and
+    ``K6 host`` add the host clock; ``K8 band`` times K8 and K10 at
+    K8_BAND_STEPS QMC steps) keeps the kernels named."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3078,8 +3137,12 @@ def kernel_times(device: str, only=None) -> dict:
         out["K3 grid"] = ek.price_grid(dev) if hasattr(ek, "price_grid") else None
         if hasattr(ek, "price_occupancy"):
             out["K3 occupancy"] = ek.price_occupancy(dev)
-    if only is None or {"K8", "K10", "K10 host"} & set(only):
+    if only is None or {"K8", "K8 host", "K8 band", "K10", "K10 host"} & set(only):
         out.update(qe_price_times(dev, only))
+    if only is None or {"K6", "K6 host"} & set(only):
+        out.update(qem_price_times(dev, only))
+    if only is None or set(PATH_KERNELS) & set(only):
+        out.update(path_kernel_times(dev, only))
     T_host, _, _, ex_seg = surface_grid()
     inp = surface_inputs(dev)
     for pairs in (CHECK_PAIRS, SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK):
@@ -3111,16 +3174,128 @@ def kernel_times(device: str, only=None) -> dict:
     return out
 
 
+def host_walls(fn, read, ms: float) -> dict:
+    """One synchronised call of ``fn(seed)`` on the host clock, the caller
+    reading its result with ``read`` (the median of 5 seeds), against
+    ``ms``, the back-to-back time of the same call: the wall and the idle
+    share 1 - ms / wall."""
+    import torch
+
+    walls = []
+    for seed in range(7, 12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        read(fn(seed=seed))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = sorted(walls)[2]
+    return {"synchronised wall ms": wall, "idle share": 1.0 - ms / wall}
+
+
+def profile_summary(name: str, fn) -> dict:
+    """A ``torch.profiler`` summary of one call of ``fn()``: the device ms it
+    records and the 15 operations of most host time (key, count, host ms,
+    device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    events = prof.key_averages()
+
+    def device_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    return {f"{name} profile device ms": sum(device_ms(e) for e in events),
+            f"{name} profile host": [
+                [e.key, e.count, e.cpu_time_total / 1e3, device_ms(e)]
+                for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:15]]}
+
+
 def qe_price_times(dev, only=None) -> dict:
-    """K8 and K10 (CUDA events, 5 calls after a warm-up) at 2^20 pairs, 11
-    steps, both streams, on fixed inputs at the package's grid (PERF.md's
-    rows: the wrappers with their float64 reductions; ``launch``: the
-    kernels alone, also at 2^27 pairs on PRNG), and per serving dispatch
-    (2^27 pairs, PRNG, the public wrappers on 6 seeds, as phase 4), with
-    K10/K8 and K10's occupancy where the package reports it.  ``K10
-    host`` (or no ``only``) adds K8's and K10's synchronised dispatch on
-    the host clock (the median of 5) against their back-to-back time (the
-    idle share) and a ``torch.profiler`` summary of one K10 dispatch."""
+    """K8 (and, for ``K10`` or ``K10 host``, K10 beside it; CUDA events, 5
+    calls after a warm-up) at 2^20 pairs, 11 steps, both streams, on fixed
+    inputs at the package's grid (PERF.md's rows: the wrappers with their
+    float64 reductions; ``launch``: the kernels alone, also at 2^27 pairs on
+    PRNG), and per serving dispatch (2^27 pairs, PRNG, the public wrappers
+    on 6 seeds, as phase 4) with paths/s, K10/K8 and the occupancies where
+    the package reports them.  ``K8 host`` adds K8's synchronised dispatch
+    on the host clock against its back-to-back time (the idle share) and a
+    ``torch.profiler`` summary of one K8 dispatch; ``K10 host`` (or no
+    ``only``) the same of K8 and K10, with K10's summary."""
+    import torch
+
+    from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    out = qe_band_times(dev) if only is None or "K8 band" in only else {}
+    if only is not None and not {"K8", "K8 host", "K10", "K10 host"} & set(only):
+        return out
+    greeks = only is None or bool({"K10", "K10 host"} & set(only))
+    hosts = [k for k in ("K8", "K10") if only is None or "K10 host" in only
+             or (k == "K8" and "K8 host" in only)]
+    T = float(yearfrac(REF, EXPIRY))
+    dt_q, disc = T / QE_STEPS, math.exp(-R * T)
+    dtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                           HESTON["sigma"], dt_q, QE_STEPS, 4), device=dev)
+    serving = SERVING_BLOCKS * SERVING_BATCHES * qk.PAIRS_PER_BLOCK
+    for qmc in (False, True):
+        s = "QMC" if qmc else "PRNG"
+        params, table = qk.mix_inputs(*MARKET_ARGS, dt_q, STRIKE, 1.0, QE_STEPS, 5, qmc, dev)
+        out[f"K8 {s} {CHECK_PAIRS}"] = time_ms(
+            lambda: qk._qe_price_sum(params, table, CHECK_PAIRS, QE_STEPS, 5, 0, 0))
+        if greeks:
+            out[f"K10 {s} {CHECK_PAIRS}"] = time_ms(
+                lambda: gk._greek_sums(params, dtab, table, CHECK_PAIRS, QE_STEPS, 5, 0, 0))
+        grid = out[f"grid {s}"] = qk.price_grid(dev, table)
+        # the kernels alone, without the wrappers' float64 reductions
+        partials = torch.empty((7, grid), dtype=torch.float64, device=dev)
+        sobol = None if table is None else table.data_ptr()
+        for pairs in (CHECK_PAIRS, serving):
+            out[f"K8 launch {s} {pairs}"] = time_ms(lambda: qk.QE_PRICE_KERNEL.launch(
+                dev, params.data_ptr(), sobol, partials.data_ptr(), grid, pairs, QE_STEPS, 5, 0, 0))
+            if greeks and not (qmc and pairs == serving):
+                out[f"K10 launch {s} {pairs}"] = time_ms(lambda: gk.QE_GREEKS_KERNEL.launch(
+                    dev, params.data_ptr(), dtab.data_ptr(), sobol, partials.data_ptr(), grid,
+                    pairs, QE_STEPS, 5, 0, 0))
+        if hasattr(qk, "price_occupancy"):
+            out[f"K8 occupancy {s}"] = qk.price_occupancy(QE_STEPS, qmc, dev)
+        if greeks and hasattr(gk, "greeks_occupancy"):
+            out[f"K10 occupancy {s}"] = gk.greeks_occupancy(QE_STEPS, qmc, dev)
+    kw = dict(n_blocks=SERVING_BLOCKS, n_batches=SERVING_BATCHES, steps=QE_STEPS, device=dev)
+    k8 = functools.partial(qk.heston_qe_mixing_vanilla_price, *MARKET_ARGS, dt_q, STRIKE, disc,
+                           **kw)
+    k10 = functools.partial(gk.heston_qe_mixing_price_and_greeks, *MARKET_ARGS, dt_q, STRIKE, disc,
+                            **kw)
+    out[f"K8 serving dispatch {serving}"] = ms = serving_dispatches(lambda seed: k8(seed=seed))[0]
+    out["serving K8 paths/s"] = 2 * serving / (ms * 1e-3)
+    mss = {"K8": ms}
+    if greeks:
+        out[f"K10 serving dispatch {serving}"] = mss["K10"] = serving_dispatches(
+            lambda seed: k10(seed=seed))[0]
+        out["serving K10/K8"] = mss["K10"] / ms
+    for name in hosts:
+        fn, read = (k8, float) if name == "K8" else (k10, lambda p: float(p[0]))
+        for key, val in host_walls(fn, read, mss[name]).items():
+            out[f"serving {name} {key}"] = val
+    if hosts:
+        name = hosts[-1]
+        fn = (lambda: float(k8(seed=8))) if name == "K8" else (lambda: k10(seed=8)[1].cpu())
+        out.update(profile_summary(name, fn))
+    return out
+
+
+#: QMC step counts where K8's staged table and high words hold fewer blocks an
+#: SM than its table alone (250: 2 against 3 on an H100), and where they pass
+#: the staging limit while the table alone does not (700)
+K8_BAND_STEPS = (250, 700)
+
+
+def qe_band_times(dev) -> dict:
+    """K8 and K10 (CUDA events, 5 calls after a warm-up) at 2^20 pairs on the
+    QMC stream at each of K8_BAND_STEPS steps, at the package's grid, with
+    the grid and K8's and K10's occupancy where the package reports them;
+    where K8 takes a grid, also K8 at K8_BLOCKS an SM (the grid its table
+    alone would give)."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3128,65 +3303,120 @@ def qe_price_times(dev, only=None) -> dict:
     from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
     T = float(yearfrac(REF, EXPIRY))
-    dt_q, disc = T / QE_STEPS, math.exp(-R * T)
-    dtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
-                                           HESTON["sigma"], dt_q, QE_STEPS, 4), device=dev)
-    serving = SERVING_BLOCKS * SERVING_BATCHES * qk.PAIRS_PER_BLOCK
     out = {}
+    for steps in K8_BAND_STEPS:
+        dt_b = T / steps
+        params, table = qk.mix_inputs(*MARKET_ARGS, dt_b, STRIKE, 1.0, steps, 5, True, dev)
+        dtab = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                               HESTON["sigma"], dt_b, steps, 4), device=dev)
+        key = f"QMC {steps} steps {CHECK_PAIRS}"
+        out[f"K8 {key}"] = time_ms(
+            lambda: qk._qe_price_sum(params, table, CHECK_PAIRS, steps, 5, 0, 0))
+        out[f"K10 {key}"] = time_ms(
+            lambda: gk._greek_sums(params, dtab, table, CHECK_PAIRS, steps, 5, 0, 0))
+        out[f"grid QMC {steps} steps"] = qk.price_grid(dev, table)
+        if "grid" in inspect.signature(qk._qe_price_sum).parameters:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            out[f"K8 {key} at {K8_BLOCKS} blocks an SM"] = time_ms(lambda: qk._qe_price_sum(
+                params, table, CHECK_PAIRS, steps, 5, 0, 0, grid=K8_BLOCKS * sms))
+        if hasattr(qk, "price_occupancy"):
+            out[f"K8 occupancy QMC {steps} steps"] = qk.price_occupancy(steps, True, dev)
+        if hasattr(gk, "greeks_occupancy"):
+            out[f"K10 occupancy QMC {steps} steps"] = gk.greeks_occupancy(steps, True, dev)
+    return out
+
+
+def qem_price_times(dev, only=None) -> dict:
+    """K6 (CUDA events, 5 calls after a warm-up) at 2^20 pairs, 10 steps,
+    PRNG, on fixed inputs at the package's grid (PERF.md's row: the wrapper
+    with its float64 reduction; ``launch``: the kernel alone, also at 2^27
+    pairs), its grid and occupancy where the package reports them, and per
+    serving dispatch (2^27 pairs, the public wrapper on 6 seeds, as phase 4)
+    with paths/s.  ``K6 host`` (or no ``only``) adds one synchronised
+    dispatch on the host clock against the back-to-back time (the idle
+    share) and a ``torch.profiler`` summary of one dispatch."""
+    import torch
+
+    from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T = float(yearfrac(REF, EXPIRY))
+    dt_m, disc = T / QEM_STEPS, math.exp(-R * T)
+    serving = SERVING_BLOCKS * SERVING_BATCHES * qk.PAIRS_PER_BLOCK
+    p15 = torch.as_tensor(qk._qem_params(*MARKET_ARGS, dt_m, strike=STRIKE), device=dev)
+    out = {f"K6 PRNG {CHECK_PAIRS}": time_ms(
+        lambda: qk._qem_price_sum(p15, CHECK_PAIRS, QEM_STEPS, 5, 0))}
+    grid = out["K6 grid"] = (qk.qem_price_grid(dev) if hasattr(qk, "qem_price_grid")
+                             else qk.resident_grid("hh_qem_price_grid", dev))
+    partials = torch.empty((grid,), dtype=torch.float64, device=dev)
+    for pairs in (CHECK_PAIRS, serving):
+        out[f"K6 launch PRNG {pairs}"] = time_ms(lambda: qk.QEM_PRICE_KERNEL.launch(
+            dev, p15.data_ptr(), partials.data_ptr(), grid, pairs, QEM_STEPS, 5, 0))
+    if hasattr(qk, "qem_price_occupancy"):
+        out["K6 occupancy"] = qk.qem_price_occupancy(dev)
+    k6 = functools.partial(qk.heston_qe_call_price, *MARKET_ARGS, dt_m, STRIKE, disc,
+                           n_blocks=SERVING_BLOCKS, n_batches=SERVING_BATCHES, steps=QEM_STEPS,
+                           device=dev)
+    out[f"K6 serving dispatch {serving}"] = ms = serving_dispatches(lambda seed: k6(seed=seed))[0]
+    out["serving K6 paths/s"] = 2 * serving / (ms * 1e-3)
+    if only is None or "K6 host" in only:
+        for key, val in host_walls(k6, float, ms).items():
+            out[f"serving K6 {key}"] = val
+        out.update(profile_summary("K6", lambda: float(k6(seed=8))))
+    return out
+
+
+#: the per-path kernels not redesigned, for ``--times --only``
+PATH_KERNELS = ("K1", "K5", "K7", "K11", "K13")
+
+
+def path_kernel_times(dev, only=None) -> dict:
+    """K1, K5, K7, K11 and K13 (CUDA events, 5 calls after a warm-up) at
+    PERF.md's shapes, through the launching wrappers phase 3 times: 2^20
+    pairs (K13 2^24), K1 at EULER_STEPS on PRNG, K5 at QEM_STEPS and K7 and
+    K11 at QE_STEPS on both streams."""
+    import torch
+
+    from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.ops import gbm_kernel as gbk
+    from hedgehog_tpu_torch.ops import heston_kernel as hk
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    def want(k):
+        return only is None or k in only
+
+    T = float(yearfrac(REF, EXPIRY))
+    out = {}
+    if want("K1"):
+        pe = torch.as_tensor(hk._euler_params(*MARKET_ARGS, T / EULER_STEPS), device=dev)
+        out[f"K1 PRNG {CHECK_PAIRS}"] = time_ms(
+            lambda: hk._euler_terminal(pe, CHECK_PAIRS, EULER_STEPS, 7, True, 0))
+    dt_q = T / QE_STEPS
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * CHECK_PAIRS, device=dev,
+                                             dtype=torch.float32))).reshape(2, CHECK_PAIRS)
+    t5 = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                         HESTON["sigma"], dt_q, QE_STEPS, 5), device=dev)
     for qmc in (False, True):
         s = "QMC" if qmc else "PRNG"
+        if want("K5"):
+            run5 = (*qk.qem_inputs(*MARKET_ARGS, T / QEM_STEPS, QEM_STEPS, 5, qmc, dev),
+                    CHECK_PAIRS, QEM_STEPS, True, True, 5, 0, 0)
+            out[f"K5 {s} {CHECK_PAIRS}"] = time_ms(lambda: qk._qem_terminal(*run5))
         params, table = qk.mix_inputs(*MARKET_ARGS, dt_q, STRIKE, 1.0, QE_STEPS, 5, qmc, dev)
-        out[f"K8 {s} {CHECK_PAIRS}"] = time_ms(
-            lambda: qk._qe_price_sum(params, table, CHECK_PAIRS, QE_STEPS, 5, 0, 0))
-        out[f"K10 {s} {CHECK_PAIRS}"] = time_ms(
-            lambda: gk._greek_sums(params, dtab, table, CHECK_PAIRS, QE_STEPS, 5, 0, 0))
-        grid = out[f"grid {s}"] = qk.price_grid(dev, table)
-        # the kernels alone, without the wrappers' float64 reductions
-        partials = torch.empty((7, grid), dtype=torch.float64, device=dev)
-        sobol = None if table is None else table.data_ptr()
-        for pairs in (CHECK_PAIRS, serving) if not qmc else (CHECK_PAIRS,):
-            out[f"K8 launch {s} {pairs}"] = time_ms(lambda: qk.QE_PRICE_KERNEL.launch(
-                dev, params.data_ptr(), sobol, partials.data_ptr(), grid, pairs, QE_STEPS, 5, 0, 0))
-            out[f"K10 launch {s} {pairs}"] = time_ms(lambda: gk.QE_GREEKS_KERNEL.launch(
-                dev, params.data_ptr(), dtab.data_ptr(), sobol, partials.data_ptr(), grid, pairs,
-                QE_STEPS, 5, 0, 0))
-        if hasattr(gk, "greeks_occupancy"):
-            out[f"K10 occupancy {s}"] = gk.greeks_occupancy(QE_STEPS, qmc, dev)
-    kw = dict(n_blocks=SERVING_BLOCKS, n_batches=SERVING_BATCHES, steps=QE_STEPS, device=dev)
-    k8 = functools.partial(qk.heston_qe_mixing_vanilla_price, *MARKET_ARGS, dt_q, STRIKE, disc,
-                           **kw)
-    k10 = functools.partial(gk.heston_qe_mixing_price_and_greeks, *MARKET_ARGS, dt_q, STRIKE, disc,
-                            **kw)
-    out[f"K8 serving dispatch {serving}"] = ms8 = serving_dispatches(lambda seed: k8(seed=seed))[0]
-    out[f"K10 serving dispatch {serving}"] = ms10 = serving_dispatches(
-        lambda seed: k10(seed=seed))[0]
-    out["serving K10/K8"] = ms10 / ms8
-    if only is None or "K10 host" in only:
-        for name, fn, ms in (("K8", k8, ms8), ("K10", k10, ms10)):
-            walls = []
-            for seed in range(7, 12):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                price = fn(seed=seed)
-                float(price if name == "K8" else price[0])  # the caller reads the price
-                walls.append(1e3 * (time.perf_counter() - t0))
-            wall = sorted(walls)[2]
-            out[f"serving {name} synchronised wall ms"] = wall  # the median of 5
-            out[f"serving {name} idle share"] = 1.0 - ms / wall
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            greeks = k10(seed=8)[1]
-            greeks.cpu()
-        events = prof.key_averages()
-
-        def device_ms(e):
-            return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-        out["K10 profile device ms"] = sum(device_ms(e) for e in events)
-        out["K10 profile host"] = [
-            [e.key, e.count, e.cpu_time_total / 1e3, device_ms(e)]
-            for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:15]]
+        if want("K7"):
+            out[f"K7 {s} {CHECK_PAIRS}"] = time_ms(
+                lambda: qk._qe_values(params, table, CHECK_PAIRS, QE_STEPS, True, 5, 0, 0))
+        if want("K11"):
+            out[f"K11 {s} {CHECK_PAIRS}"] = time_ms(lambda: gk._vjp_sums(
+                params, t5, table, ct, CHECK_PAIRS, QE_STEPS, True, 5, 0, 0))
+    if want("K13"):
+        mean_g, std_g = lognormal_law(T)
+        pg = torch.tensor([mean_g, std_g], dtype=torch.float32, device=dev)
+        out[f"K13 PRNG {GBM_PAIRS}"] = time_ms(
+            lambda: gbk._gbm_terminal(pg, GBM_PAIRS, True, 0, 0))
+        out[f"K13 PRNG {GBM_PAIRS}, 50 calls"] = time_ms(
+            lambda: gbk._gbm_terminal(pg, GBM_PAIRS, True, 0, 0), reps=50)
     return out
 
 
@@ -3485,7 +3715,9 @@ def main() -> int:
                   points=points.get(name, 1),
                   expiries=len(SURF_EXPIRIES) if "surface" in name else 1)
         say(f"  bound {name}: {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['flops']:.4g} fp32 "
-            f"FLOPs, {b['mufu']:.4g} MUFU, {b['bytes']:.4g} bytes); kernel {rec['ms']:.4f} ms")
+            f"FLOPs, {b['mufu']:.4g} MUFU, {b['alu']:.4g} ALU, {b['imad']:.4g} IMAD.WIDE, "
+            f"{b['bytes']:.4g} bytes; "
+            f"{b['bound_fp_ms']:.4f} ms without the integer term); kernel {rec['ms']:.4f} ms")
         rec.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         rec.setdefault("library_ms", None)
 

@@ -23,12 +23,22 @@
 // that each walk a fixed stride of pairs.  K8 sums in fp32 per thread and in
 // float64 per block (heston_qe.cuh block_sums, the tree the greek kernel
 // K10 uses for its price column), so K10's price equals K8's to the bit.
+// A warp issues about one instruction a clock here, so what K8's redesign
+// saves is instructions.  K8 is compiled once per stream, so its Philox
+// build holds no Sobol' state; under QMC it draws as K10 does
+// (heston_qe.cuh draw_steps: each Sobol' integer split at bit 5, the warp's
+// high words staged once a round).  Its grid (hh_qe_price_grid) is
+// kPriceBlocks an SM, fewer only where the shared memory of K8's launch
+// leaves room for fewer: one wave of K8 and K10, whatever registers either
+// takes.  Two threads a pair (one path each, the draws shared by shuffles)
+// ran 1.10x slower on an H100 (PERF.md).
 
 #include "heston_qe.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPriceBlocks = 3;  // K8's and K10's blocks an SM: their grid, one wave of both
 
 // The (value, antithetic value) of global pair `pair`.
 __device__ __forceinline__ void mix_pair(unsigned long long pair, const hh::MixParams& c,
@@ -62,30 +72,101 @@ qe_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol
   if (antithetic) out[n_paths + i] = val_a;
 }
 
+// K8's body on one stream (kQmc 1: the Sobol' table, 0: Philox), K10's walk
+// without the tangents: the grid-stride round is uniform over the block, so
+// every lane of a warp stages its round's high Sobol' words
+// (hh::stage_high) before the lanes past the last pair drop out, and a
+// thread walks the pairs and sums them in the order of one pair a thread.
+template <bool kStaged, int kQmc>
+__device__ __forceinline__ void price_body(const float* params, const int* sobol,
+                                           double* partials, long long total_pairs, int steps,
+                                           uint32_t seed, uint32_t device_id,
+                                           long long point_offset, hh::MixParams& sp,
+                                           double* red, int* ssob) {
+  const int* staged =
+      hh::stage_inputs<0, 2, hh::MixParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
+  const int* table = kQmc ? staged : nullptr;
+  if constexpr (kQmc == 1) __builtin_assume(table != nullptr);
+  // this warp's high words past the table: 2 candidates of each of the
+  // 2 * steps dimensions
+  uint32_t* hw = reinterpret_cast<uint32_t*>(ssob + 2 * steps * (hh::kSobolBits + 1)) +
+                 (threadIdx.x >> 5) * 4 * steps;
+  float acc[1] = {0.0f};
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < total_pairs; base += stride) {
+    const long long g = base + threadIdx.x;
+    const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
+    if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);
+    if (g >= total_pairs) continue;
+    const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
+    float v = sp.v0, iv = 0.0f, j = 0.0f, va = sp.v0, iva = 0.0f, ja = 0.0f;
+    const auto step = [&](float z, float u) {
+      hh::mix_advance(v, iv, j, z, u, sp);
+      hh::mix_advance(va, iva, ja, -z, 1.0f - u, sp);
+    };
+    if constexpr (kQmc == 1) {
+      float z_odd = 0.0f;
+      uint32_t w_odd = 0u;
+      hh::draw_steps<kStaged>((unsigned long long)g, (uint32_t)(point_offset + g), table, hw, c,
+                              0u, 0u, 0, steps, z_odd, w_odd, step);
+    } else {
+      hh::mix_draws((unsigned long long)g, nullptr, steps, seed, device_id, 0, step);
+    }
+    acc[0] += hh::cond_bs_value(iv, j, sp.close) + hh::cond_bs_value(iva, ja, sp.close);
+  }
+  hh::block_sums<kThreads>(acc, red, partials);
+}
+
+// K8, one body per stream, built for kPriceBlocks blocks an SM.
 template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kPriceBlocks)
 qe_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                 double* __restrict__ partials, long long total_pairs, int steps, uint32_t seed,
                 uint32_t device_id, long long point_offset) {
   __shared__ hh::MixParams sp;
   __shared__ double red[kThreads];
   extern __shared__ int ssob[];
-  const int* table =
-      hh::stage_inputs<0, 2, hh::MixParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
-  float acc[1] = {0.0f};
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total_pairs;
-       g += stride) {
-    float val, val_a;
-    mix_pair((unsigned long long)g, sp, table, steps, true, seed, device_id, point_offset, val,
-             val_a);
-    acc[0] += val + val_a;
+  if (sobol) {
+    price_body<kStaged, 1>(params, sobol, partials, total_pairs, steps, seed, device_id,
+                           point_offset, sp, red, ssob);
+  } else {
+    price_body<kStaged, 0>(params, sobol, partials, total_pairs, steps, seed, device_id,
+                           point_offset, sp, red, ssob);
   }
-  hh::block_sums<kThreads>(acc, red, partials);
 }
 
 size_t sobol_smem(const int* sobol, int steps) {
   return sobol ? sizeof(int) * 2 * steps * (hh::kSobolBits + 1) : 0;
+}
+
+// K8's launch at `steps` steps on one stream: under QMC the staged kernel
+// with the table and each warp's high words in dynamic shared memory where
+// they fit a block, else the kernel that reads the table from global memory.
+// Its launch, grid and occupancy all follow this one decision.
+struct PriceLaunch {
+  bool staged;
+  size_t smem;
+};
+
+PriceLaunch price_launch(bool qmc, int steps) {
+  const size_t smem = qmc ? sizeof(int) * 2 * steps * (hh::kSobolBits + 1) +
+                                sizeof(uint32_t) * (kThreads / 32) * 4 * steps
+                          : 0;
+  if (smem <= hh::smem_room(qe_price_kernel<true>)) return {true, smem};
+  return {false, 0};
+}
+
+// K8's resident blocks an SM at `launch` (after opting the staged kernel
+// into its shared memory).
+cudaError_t price_blocks_per_sm(const PriceLaunch& launch, int* per_sm) {
+  if (!launch.staged) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, qe_price_kernel<false>,
+                                                         kThreads, 0);
+  }
+  const cudaError_t err = hh::allow_dynamic_smem(qe_price_kernel<true>, launch.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, qe_price_kernel<true>, kThreads,
+                                                       launch.smem);
 }
 
 }  // namespace
@@ -108,15 +189,17 @@ extern "C" int hh_qe_values(const float* params, const int* sobol, float* out, l
   return (int)cudaGetLastError();
 }
 
-// Sums of (value + antithetic value): partials is (grid,) float64, one per block.
+// Sums of (value + antithetic value): partials is (grid,) float64, one per
+// block.  The Sobol' table and the warps' high words are staged in shared
+// memory where they fit a block, else the table is read from global memory.
 extern "C" int hh_qe_price(const float* params, const int* sobol, double* partials, int grid,
                            long long total_pairs, int steps, unsigned seed, unsigned device_id,
                            long long point_offset, void* stream) {
-  const size_t smem = sobol_smem(sobol, steps);
-  if (smem <= hh::smem_room(qe_price_kernel<true>)) {
-    const cudaError_t err = hh::allow_dynamic_smem(qe_price_kernel<true>, smem);
+  const PriceLaunch launch = price_launch(sobol != nullptr, steps);
+  if (launch.staged) {
+    const cudaError_t err = hh::allow_dynamic_smem(qe_price_kernel<true>, launch.smem);
     if (err != cudaSuccess) return (int)err;
-    qe_price_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    qe_price_kernel<true><<<grid, kThreads, launch.smem, (cudaStream_t)stream>>>(
         params, sobol, partials, total_pairs, steps, seed, device_id, point_offset);
   } else {
     qe_price_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
@@ -125,26 +208,40 @@ extern "C" int hh_qe_price(const float* params, const int* sobol, double* partia
   return (int)cudaGetLastError();
 }
 
+// K8's occupancy on the current device at `steps` steps, QMC (its table and
+// high words staged where they fit a block) or Philox: out = (threads a
+// block, resident blocks per SM, SMs, dynamic shared bytes, static shared
+// bytes, registers a thread, local (spill) bytes a thread).
+extern "C" int hh_qe_price_occupancy(int steps, int qmc, int* out) {
+  const PriceLaunch launch = price_launch(qmc != 0, steps);
+  const void* kernel = launch.staged ? (const void*)qe_price_kernel<true>
+                                     : (const void*)qe_price_kernel<false>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = price_blocks_per_sm(launch, &per_sm);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  const int vals[7] = {kThreads, per_sm, sms, (int)launch.smem, (int)attr.sharedSizeBytes,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return (int)err;
+}
+
 // The price kernels' grid (K8, and K10, which must walk the same pairs per
-// thread for its price to equal K8's): one resident wave of K8 on the
-// current device with `smem` bytes of Sobol' table per block (staged where
-// it fits a block, else none: the table is then read from global memory).
-extern "C" int hh_qe_price_grid(int smem, int* grid) {
+// thread for its price to equal K8's) at `steps` steps on one stream:
+// kPriceBlocks an SM, fewer only where K8's launch (its shared memory, or
+// the global-table kernel past the staging limit) holds fewer.  At the
+// serving steps that is the grid of the kernel before its per-stream build
+// (79 registers: 3 blocks an SM), so the sums keep their bits whatever
+// registers K8 now takes.  K10 stages the same bytes (80 registers), so the
+// grid is one wave of both.
+extern "C" int hh_qe_price_grid(int steps, int qmc, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    if ((size_t)smem <= hh::smem_room(qe_price_kernel<true>)) {
-      err = hh::allow_dynamic_smem(qe_price_kernel<true>, (size_t)smem);
-      if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qe_price_kernel<true>,
-                                                            kThreads, (size_t)smem);
-      }
-    } else {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qe_price_kernel<false>,
-                                                          kThreads, 0);
-    }
-  }
+  if (err == cudaSuccess) err = price_blocks_per_sm(price_launch(qmc != 0, steps), &per_sm);
+  per_sm = per_sm < kPriceBlocks ? per_sm : kPriceBlocks;
   *grid = sms * (per_sm > 0 ? per_sm : 1);
   return (int)err;
 }

@@ -30,12 +30,18 @@
 // of ~1000 payoffs of up to ~100 each rounds with a bias of order 1e-7 of
 // the price (K8's fp32 sum drifted 1.27e-7 from its twin at 2^27 pairs).
 // The block tree and the per-block partials are heston_qe.cuh block_sums.
+// A warp issues about one instruction a clock here, so what K6 saves is
+// instructions (hh_device.cuh rcp_normal and sqrt_normal, shared with K5).
+// Two threads a pair (the exact price kernel's layout) ran 1.09x slower on
+// an H100: the shuffles and selects it adds cost more than the latency its
+// 64 warps an SM hide (PERF.md).
 
 #include "heston_qe.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPriceBlocks = 5;  // K6's blocks an SM (48 registers at most): its grid
 
 struct QemPriceParams {
   hh::QemParams c;
@@ -76,7 +82,11 @@ qem_terminal_kernel(const float* __restrict__ params, const int* __restrict__ so
   if (antithetic) out[n_paths + i] = expf(xa);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K6: one pair a thread on K5's pairs and stream, built for kPriceBlocks
+// blocks an SM, its grid one resident wave of them (660 blocks on an H100;
+// the kernel before held 4 an SM at 62 registers, and at 4 this one runs 2%
+// slower).
+__global__ void __launch_bounds__(kThreads, kPriceBlocks)
 qem_price_kernel(const float* __restrict__ params, double* __restrict__ partials,
                  long long total_pairs, int steps, uint32_t seed, uint32_t device_id) {
   __shared__ QemPriceParams sp;
@@ -126,14 +136,29 @@ extern "C" int hh_qem_price(const float* params, double* partials, int grid,
   return (int)cudaGetLastError();
 }
 
-// K6's grid: one resident wave of qem_price_kernel on the current device.
-extern "C" int hh_qem_price_grid(int* grid) {
+// K6's occupancy on the current device: out = (threads a block, resident
+// blocks per SM, SMs, dynamic shared bytes, static shared bytes, registers a
+// thread, local bytes a thread: its stack, sincosf's reduction of a huge
+// argument, which Box-Muller's angle never needs).
+extern "C" int hh_qem_price_occupancy(int* out) {
   int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qem_price_kernel, kThreads, 0);
   }
-  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, qem_price_kernel);
+  const int vals[7] = {kThreads, per_sm, sms, 0, (int)attr.sharedSizeBytes, attr.numRegs,
+                       (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return (int)err;
+}
+
+// K6's grid: one resident wave of qem_price_kernel on the current device.
+extern "C" int hh_qem_price_grid(int* grid) {
+  int occ[7];
+  const int err = hh_qem_price_occupancy(occ);
+  *grid = occ[2] * (occ[1] > 0 ? occ[1] : 1);
+  return err;
 }

@@ -99,7 +99,7 @@ def load_library() -> ctypes.CDLL:
     lib.hh_error_string.restype = ctypes.c_char_p
     lib.hh_exact_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.hh_exact_price_grid.restype = ctypes.c_int
-    lib.hh_qe_price_grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.hh_qe_price_grid.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.hh_qe_price_grid.restype = ctypes.c_int
     lib.hh_qem_price_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.hh_qem_price_grid.restype = ctypes.c_int
@@ -116,9 +116,18 @@ def load_library() -> ctypes.CDLL:
 
 def resident_grid(symbol: str, device: torch.device, *args) -> int:
     """The grid of an accumulating price kernel on ``device``: one resident
-    wave of it, from the library's ``symbol(*args, int* grid)``."""
+    wave of it, from the library's ``symbol(*args, int* grid)``.  The
+    runtime's answer depends only on the kernel, the card and ``args``, so
+    it is asked once per (symbol, card, args)."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _resident_grid(symbol, index, *args)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_grid(symbol: str, index: int, *args) -> int:
     grid = ctypes.c_int(0)
-    with torch.cuda.device(device):
+    with torch.cuda.device(index):
         err = getattr(load_library(), symbol)(*args, ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err}")

@@ -39,6 +39,7 @@ from .cuda_lib import (
     CudaKernel,
     check_grid,
     check_tensor,
+    host_to_device,
     launch_occupancy,
     require_cuda,
     resident_grid,
@@ -220,23 +221,35 @@ def _qe_values(params, table, n_paths, steps, antithetic, seed, device_id,
 
 
 def price_grid(device: torch.device, table) -> int:
-    """Blocks of the price kernels K8 and K10 (one resident wave of K8, its
-    Sobol' table staged in shared memory where it fits a block, else read
-    from global memory): both walk the pairs with this grid, so K10's price
-    equals K8's."""
-    return resident_grid("hh_qe_price_grid", device, 0 if table is None else 4 * table.numel())
+    """Blocks of the price kernels K8 and K10: 3 an SM (the one wave of both,
+    and at the serving steps the grid of K8 before its per-stream build),
+    fewer where K8's launch at the table's steps (its staged table and high
+    words, or the global-table kernel) holds fewer.  Both walk the pairs
+    with this grid, so K10's price equals K8's."""
+    steps = 0 if table is None else table.shape[0] // 2
+    return resident_grid("hh_qe_price_grid", device, steps, int(table is not None))
 
 
-def _qe_price_sum(params, table, total_pairs, steps, seed, device_id,
-                  point_offset) -> torch.Tensor:
+def price_occupancy(steps: int, qmc: bool, device) -> dict:
+    """K8's occupancy on ``device`` at ``steps`` steps on one stream
+    (``cuda_lib.launch_occupancy``'s keys): its blocks an SM against
+    :func:`price_grid`."""
+    return launch_occupancy("hh_qe_price_occupancy", torch.device(device), steps, int(qmc))
+
+
+def _qe_price_sum(params, table, total_pairs, steps, seed, device_id, point_offset,
+                  grid=None) -> torch.Tensor:
     """Launch K8 for inputs on a GPU (the float64 sum of its per-block
-    partials); the twin for inputs on the CPU."""
+    partials); the twin for inputs on the CPU.  ``grid`` defaults to
+    :func:`price_grid`; another grid sums the same pair values in another
+    order."""
     check_inputs(params, table, steps)
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_qe_mixing_price_sum_plain(params, table, total_pairs, steps, seed,
                                                 device_id, point_offset)
     require_cuda(params)
-    grid = price_grid(params.device, table)
+    grid = price_grid(params.device, table) if grid is None else grid
     partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
     QE_PRICE_KERNEL.launch(
         params.device, params.data_ptr(), None if table is None else table.data_ptr(),
@@ -248,11 +261,12 @@ def _qe_price_sum(params, table, total_pairs, steps, seed, device_id,
 
 def mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps, seed, qmc,
                device):
-    """(params, Sobol' table or None) on ``device``."""
+    """(params, Sobol' table or None) on ``device``, each in one pinned
+    asynchronous copy (``cuda_lib.host_to_device``)."""
     dev = resolve_device(device)
-    params = torch.as_tensor(
-        _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp), device=dev)
-    table = torch.as_tensor(sobol_table(seed, 2 * steps), device=dev) if qmc else None
+    params = host_to_device(
+        _mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp), dev)
+    table = host_to_device(sobol_table(seed, 2 * steps), dev) if qmc else None
     return params, table
 
 
@@ -731,14 +745,29 @@ def _qem_terminal(params, table, n_paths, steps, antithetic, mcorr, seed, device
     return out
 
 
-def _qem_price_sum(params, total_pairs, steps, seed, device_id) -> torch.Tensor:
+def qem_price_grid(device) -> int:
+    """K6's blocks: one resident wave of it (5 blocks of 256 threads an SM;
+    the kernel before it held 4)."""
+    return resident_grid("hh_qem_price_grid", torch.device(device))
+
+
+def qem_price_occupancy(device) -> dict:
+    """K6's occupancy on ``device`` (``cuda_lib.launch_occupancy``'s keys),
+    the blocks and warps an SM behind :func:`qem_price_grid`."""
+    return launch_occupancy("hh_qem_price_occupancy", torch.device(device))
+
+
+def _qem_price_sum(params, total_pairs, steps, seed, device_id, grid=None) -> torch.Tensor:
     """Launch K6 for inputs on a GPU (the float64 sum of its per-block
-    partials); the twin for inputs on the CPU."""
+    partials); the twin for inputs on the CPU.  ``grid`` (blocks of 256
+    pairs a round) defaults to :func:`qem_price_grid`; another grid sums
+    the same payoffs in another order."""
     check_inputs(params, None, steps, len(QEM_NAMES) + 1)
+    check_grid(grid)
     if params.device.type == "cpu":
         return heston_qe_call_price_sum_plain(params, total_pairs, steps, seed, device_id)
     require_cuda(params)
-    grid = resident_grid("hh_qem_price_grid", params.device)
+    grid = qem_price_grid(params.device) if grid is None else grid
     partials = torch.empty((grid,), dtype=torch.float64, device=params.device)
     QEM_PRICE_KERNEL.launch(params.device, params.data_ptr(), partials.data_ptr(), grid,
                             total_pairs, steps, seed & _MASK32, device_id & _MASK32)
@@ -746,10 +775,11 @@ def _qem_price_sum(params, total_pairs, steps, seed, device_id) -> torch.Tensor:
 
 
 def qem_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, seed, qmc, device):
-    """(params, Sobol' table or None) of K5 on ``device``."""
+    """(params, Sobol' table or None) of K5 on ``device``, each in one
+    pinned asynchronous copy."""
     dev = resolve_device(device)
-    params = torch.as_tensor(_qem_params(log_s0, v0, r, kappa, theta, sigma, rho, dt), device=dev)
-    table = torch.as_tensor(sobol_table(seed, 3 * steps), device=dev) if qmc else None
+    params = host_to_device(_qem_params(log_s0, v0, r, kappa, theta, sigma, rho, dt), dev)
+    table = host_to_device(sobol_table(seed, 3 * steps), dev) if qmc else None
     return params, table
 
 
@@ -781,9 +811,9 @@ def heston_qe_call_price(
     payoffs accumulated on the device: K5's pairs ``[0, total)`` on K5's
     stream.  Returns a float64 0-dim tensor."""
     total_pairs = n_blocks * n_batches * PAIRS_PER_BLOCK
-    params = torch.as_tensor(
+    params = host_to_device(
         _qem_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, gamma1, gamma2, strike),
-        device=resolve_device(device))
+        resolve_device(device))
     sums = _qem_price_sum(params, total_pairs, steps, int(seed), int(device_id))
     return discount * sums / (2 * total_pairs)
 

@@ -131,12 +131,15 @@ def segment_work(s: dict) -> tuple:
 
 def k3_bound_ms(seg: tuple, pairs: int, qmc: bool) -> float:
     """K3's operations bound at ``pairs`` pairs with ``seg`` a segment (the
-    draws and closes as chip_smoke's ``work`` counts them)."""
+    draws and closes as chip_smoke's ``work`` counts them, the stream's
+    integer operations as its ``int_ops``)."""
     flops, mufu, _ = cs.work("heston_exact_mixing_vanilla_price", pairs, cs.SEGMENTS, qmc)
+    alu, imad = cs.int_ops("heston_exact_mixing_vanilla_price", pairs, cs.SEGMENTS, qmc)
     cheap_f, cheap_m = cs.EXACT_SEG
-    flops += pairs * 2 * cs.SEGMENTS * (seg[0] - cheap_f)
+    flops += pairs * 2 * cs.SEGMENTS * (seg[0] - cheap_f) + 2 * imad
     mufu += pairs * 2 * cs.SEGMENTS * (seg[1] - cheap_m)
-    return 1e3 * max(flops / cs.FP32_PEAK, mufu / (cs.MUFU_PER_CLK * cs.SMS * SM_CLOCK_HZ))
+    return 1e3 * max(flops / cs.FP32_PEAK, mufu / (cs.MUFU_PER_CLK * cs.SMS * SM_CLOCK_HZ),
+                     alu / (cs.INT_PER_CLK * cs.SMS * SM_CLOCK_HZ))
 
 
 def main() -> int:

@@ -14,7 +14,7 @@ computes wrong values: it exists only to be timed.
 
 Run on a GPU host, from the repository root:
 
-    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K3|K9|K10|K12|K14|K16|K17]
+    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K3|K6|K8|K9|K10|K12|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
@@ -426,8 +426,109 @@ K10_PHASES = {
     ],
 }
 
-PHASES = {"K3": K3_PHASES, "K9": K9_PHASES, "K10": K10_PHASES, "K12": K12_PHASES,
-          "K14": K14_PHASES, "K16": K16_PHASES, "K17": K17_PHASES}
+# K8: one pair a thread through hh::mix_draws (mix_pair, shared with K7),
+# then one body per stream (price_body: K10's split draw under QMC,
+# hh::mix_draws under PRNG)
+_MIX_HASH = ("for (int s_ = 0; s_ < steps; ++s_) {{\n"
+             "{i}  const uint32_t h_ = (uint32_t)pair * 2654435761u + s_ * 40503u;\n"
+             "{i}  const float u = (float)(h_ >> 8) * (1.0f / 16777216.0f), z = 4.0f * u - 2.0f;\n")
+K8_PHASES = {
+    "draw": [
+        [("heston_qe.cu",
+          "  hh::mix_draws(pair, sobol, steps, seed, device_id, point_offset, [&](float z, float u) {\n"
+          "    hh::mix_advance(v, iv, j, z, u, c);\n"
+          "    if (antithetic) hh::mix_advance(va, iva, ja, -z, 1.0f - u, c);\n  });\n",
+          "  " + _MIX_HASH.format(i="  ") + "    hh::mix_advance(v, iv, j, z, u, c);\n"
+          "    if (antithetic) hh::mix_advance(va, iva, ja, -z, 1.0f - u, c);\n  }\n")],
+        [("heston_qe.cu",
+          ("    if constexpr (kQmc == 1) {\n      float z_odd = 0.0f;\n",
+           "    acc[0] += hh::cond_bs_value(iv, j, sp.close)"),
+          "    " + _MIX_HASH.format(i="    ").replace("(uint32_t)pair", "(uint32_t)g")
+          + "      step(z, u);\n    }\n"),
+         ("heston_qe.cu", "    if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);\n",
+          "")],
+    ],
+    "QE step": [
+        [("heston_qe.cu",
+          "    hh::mix_advance(v, iv, j, z, u, c);\n"
+          "    if (antithetic) hh::mix_advance(va, iva, ja, -z, 1.0f - u, c);\n",
+          "    iv += c.half_dt * u;\n    j += z;\n"
+          "    if (antithetic) {\n      iva += c.half_dt * (1.0f - u);\n      ja -= z;\n    }\n")],
+        [("heston_qe.cu",
+          "      hh::mix_advance(v, iv, j, z, u, sp);\n"
+          "      hh::mix_advance(va, iva, ja, -z, 1.0f - u, sp);\n    };\n",
+          "      iv += sp.half_dt * u;\n      j += z;\n"
+          "      iva += sp.half_dt * (1.0f - u);\n      ja -= z;\n    };\n")],
+    ],
+    "close": [
+        [("heston_qe.cu",
+          "  val = hh::cond_bs_value(iv, j, c.close);\n"
+          "  val_a = antithetic ? hh::cond_bs_value(iva, ja, c.close) : 0.0f;\n",
+          "  val = (iv + j) * c.close.strike;\n"
+          "  val_a = antithetic ? (iva + ja) * c.close.strike : 0.0f;\n")],
+        [("heston_qe.cu",
+          "    acc[0] += hh::cond_bs_value(iv, j, sp.close) + hh::cond_bs_value(iva, ja, sp.close);\n",
+          "    acc[0] += (iv + j + iva + ja) * sp.close.strike;\n")],
+    ],
+    "sums": [
+        [("heston_qe.cu",
+          "    acc[0] += val + val_a;\n  }\n  hh::block_sums<kThreads>(acc, red, partials);\n",
+          "    acc[0] += val + val_a;\n  }\n"
+          "  if (acc[0] == -1.0f) partials[blockIdx.x] = acc[0];\n")],
+        [("heston_qe.cu",
+          "  }\n  hh::block_sums<kThreads>(acc, red, partials);\n}\n\n// K8, one body per stream",
+          "  }\n  if (acc[0] == -1.0f) partials[blockIdx.x] = acc[0];\n}\n\n"
+          "// K8, one body per stream")],
+    ],
+}
+
+# K6: one pair a thread through hh::qem_draws (qem_pair, shared with K5) in
+# both trees; the QE-M step's parts are hh::qem_advance's (hh_device.cuh,
+# shared with K5) and the sums (the payoffs and the block tree; the float64
+# add stays) one text in both trees
+_QEM_V_CHEAP = ("  QeDraw d;\n  d.quad = true;\n  d.a = v * c.e;\n  d.b2 = z_v * z_v;\n"
+                "  const float vn = d.a * (1.0f + d.b2);\n  float k0 = c.K0;\n")
+K6_PHASES = {
+    "draw": [
+        [("heston_qe_terminal.cu",
+          "  hh::qem_draws(pair, sobol, steps, seed, device_id, point_offset,\n"
+          "                [&](float z_v, float z_x, float u) {\n"
+          "                  hh::qem_advance(x, v, z_v, z_x, u, c, mcorr);\n"
+          "                  if (antithetic) hh::qem_advance(xa, va, -z_v, -z_x, 1.0f - u, c, "
+          "mcorr);\n                });\n",
+          "  " + _MIX_HASH.format(i="  ").replace("z = 4.0f", "z_v = 4.0f")
+          + "    const float z_x = 1.0f - 2.0f * u;\n"
+          "    hh::qem_advance(x, v, z_v, z_x, u, c, mcorr);\n"
+          "    if (antithetic) hh::qem_advance(xa, va, -z_v, -z_x, 1.0f - u, c, mcorr);\n  }\n")],
+    ],
+    "QE variance draw": [
+        [("hh_device.cuh",
+          "  QeDraw d;\n  const float vn = qe_v_draw(v, z_v, u, c, d);\n  float k0 = c.K0;\n",
+          _QEM_V_CHEAP)],
+    ],
+    "martingale correction": [
+        [("hh_device.cuh",
+          ("  if (mcorr) {\n    float log_m;\n", "  const float var_x = "),
+          "  if (mcorr) k0 = -c.K1_half_K3 * v;\n")],
+    ],
+    "log-price update": [
+        [("hh_device.cuh",
+          "  const float var_x = fmaxf(c.K3 * v + c.K4 * vn, 0.0f);\n"
+          "  x = x + c.r_dt + k0 + c.K1 * v + c.K2 * vn + sqrtf(var_x) * z_x;\n",
+          "  x = x + k0 + z_x;\n")],
+    ],
+    "sums": [
+        [("heston_qe_terminal.cu",
+          "    acc[0] += (double)(fmaxf(expf(x) - sp.strike, 0.0f) + fmaxf(expf(xa) - sp.strike, "
+          "0.0f));\n  }\n  hh::block_sums<kThreads>(acc, red, partials);\n",
+          "    acc[0] += (double)(x + xa);\n  }\n"
+          "  if (acc[0] == -1.0) partials[blockIdx.x] = acc[0];\n")],
+    ],
+}
+
+PHASES = {"K3": K3_PHASES, "K6": K6_PHASES, "K8": K8_PHASES, "K9": K9_PHASES,
+          "K10": K10_PHASES, "K12": K12_PHASES, "K14": K14_PHASES, "K16": K16_PHASES,
+          "K17": K17_PHASES}
 
 
 def _span(text: str, old) -> tuple:

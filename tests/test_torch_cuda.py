@@ -1122,3 +1122,115 @@ def test_greek_kernel_holds_one_resident_wave_of_its_grid(gpu, qmc):
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
     occ = gk.greeks_occupancy(QE_STEPS, qmc, gpu)
     assert qk.price_grid(gpu, table) == occ["blocks_per_sm"] * sms
+
+
+# ---- K8 one body per stream; K6 at 5 blocks an SM; the short rcp and sqrt forms -----
+#
+# K8_PARENT_DIGESTS: the sha256 of K8's float64 sum at K8_BLOCKS an SM (its
+# grid then and now) of the kernel before its per-stream build (chip_smoke.py
+# --digest, "K8 ... sums").  K6_PARENT_BLOCKS: the one-pair-a-thread K6's
+# resident blocks an SM (62 registers, 256 threads); K6_PARENT_DIGEST its sum
+# at that grid ("K6 PRNG sums").  Both on chip_smoke.py's market, 2^20 pairs,
+# seed 5 (QE mixing 11 steps, QE-M 10).
+
+K6_PARENT_BLOCKS = 4
+QEM_STEPS = 10
+K8_PARENT_DIGESTS = {
+    True: "ec07be1c322ab9e364d3815a334386dd936ce0e199dc1e693bd68c6701d35cc6",
+    False: "70b11442927d24311ea62d2f2ab0aa4c21b9768150529e775ca1a529c5249e30",
+}
+K6_PARENT_DIGEST = "a2c81b2d0089352f6b9a1b1b75b86161fb45b585cc489e84b58b21c7e8e842f1"
+
+
+def _qem_price_params(gpu, steps=QEM_STEPS, strike=100.0):
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    return torch.as_tensor(qk._qem_params(*MKT, T / steps, strike=strike), device=gpu)
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_price_kernel_keeps_its_bits_at_its_grid(gpu, qmc):
+    """K8 compiled once per stream, on the split Sobol' draw, at its grid
+    (K8_BLOCKS an SM, as before) sums every pair in the earlier kernel's
+    order: its sum equals that kernel's stored digest, and its default grid
+    is that grid."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    params, _, table = _qe_serving_inputs(gpu, qmc)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    before = qk.QE_PRICE_KERNEL.launches
+    sums = qk._qe_price_sum(params, table, SERVE_PAIRS, QE_STEPS, 5, 0, 0, grid=K8_BLOCKS * sms)
+    assert qk.QE_PRICE_KERNEL.launches == before + 1
+    assert _sha256(sums) == K8_PARENT_DIGESTS[qmc]
+    assert float(qk._qe_price_sum(params, table, SERVE_PAIRS, QE_STEPS, 5, 0, 0)) == float(sums)
+
+
+@pytest.mark.parametrize("qmc", [True, False])
+def test_price_kernel_holds_one_resident_wave_of_its_grid(gpu, qmc):
+    """K8's grid is K8_BLOCKS an SM, and K8 holds at least that many blocks
+    an SM (the runtime's occupancy at its shared memory): one wave."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    _, _, table = _qe_serving_inputs(gpu, qmc)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    occ = qk.price_occupancy(QE_STEPS, qmc, gpu)
+    assert qk.price_grid(gpu, table) == K8_BLOCKS * sms
+    assert occ["blocks_per_sm"] >= K8_BLOCKS
+
+
+@pytest.mark.parametrize("steps", [250, 700])
+def test_price_grid_is_one_wave_of_both_price_kernels_at_many_qmc_steps(gpu, steps):
+    """Where K8's staged table and high words hold fewer blocks an SM than
+    its table alone (250 QMC steps on an H100), or pass the staging limit
+    where the table alone would not (700), the grid follows K8's launch:
+    min(K8_BLOCKS, K8's blocks an SM) times the SMs, one wave of K8 and of
+    K10, and K10's price still equals K8's."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    dt_ = T / steps
+    params, table = qk.mix_inputs(*MKT, dt_, 100.0, 1.0, steps, 5, True, gpu)
+    dtab = torch.as_tensor(gk._greek_table(*MKT[1:2], *MKT[3:6], dt_, steps, 4), device=gpu)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    occ8 = qk.price_occupancy(steps, True, gpu)
+    occ10 = gk.greeks_occupancy(steps, True, gpu)
+    grid = qk.price_grid(gpu, table)
+    assert grid == min(K8_BLOCKS, occ8["blocks_per_sm"]) * sms
+    assert occ8["blocks_per_sm"] * sms >= grid and occ10["blocks_per_sm"] * sms >= grid
+    price = qk._qe_price_sum(params, table, 2**14, steps, 5, 0, 0)
+    sums = gk._greek_sums(params, dtab, table, 2**14, steps, 5, 0, 0)
+    assert bool(torch.isfinite(sums).all()) and float(sums[0]) == float(price)
+
+
+def test_call_price_kernel_at_the_earlier_grid_keeps_its_bits(gpu):
+    """K6 at 5 blocks an SM on the short rcp and sqrt forms, at the grid of
+    the kernel before it (K6_PARENT_BLOCKS an SM), sums every pair's two
+    payoffs in that kernel's order: its sum equals that kernel's stored
+    digest."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    before = qk.QEM_PRICE_KERNEL.launches
+    sums = qk._qem_price_sum(_qem_price_params(gpu), SERVE_PAIRS, QEM_STEPS, 5, 0,
+                             grid=K6_PARENT_BLOCKS * sms)
+    assert qk.QEM_PRICE_KERNEL.launches == before + 1
+    assert _sha256(sums) == K6_PARENT_DIGEST
+
+
+@pytest.mark.parametrize("steps", [QEM_STEPS, 7, 1])
+def test_call_price_kernel_at_its_grid_matches_the_terminal_payoff_mean(gpu, steps):
+    """K6 at its default grid (one resident wave of it) against the mean of
+    K5's call payoffs over the same pairs within chip_smoke's PRICE_RTOL
+    (1e-6), at the serving step count and at odd ones."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    occ = qk.qem_price_occupancy(gpu)
+    assert qk.qem_price_grid(gpu) == occ["blocks_per_sm"] * sms and occ["threads"] == 256
+    got = qk.heston_qe_terminal(*MKT, T / steps, n_paths=SERVE_PAIRS, steps=steps, seed=5,
+                                antithetic=True, device=gpu)
+    pay = torch.clamp(got - 100.0, min=0.0)
+    price = qk.heston_qe_call_price(*MKT, T / steps, 100.0, 1.0, n_blocks=8, n_batches=4,
+                                    steps=steps, seed=5, device=gpu)
+    want = float((pay[0] + pay[1]).double().sum()) / (2 * SERVE_PAIRS)
+    assert float(price) == pytest.approx(want, rel=1e-6)

@@ -19,7 +19,7 @@ CASES = [(k, phase) for k, phases in pc.PHASES.items() for phase in phases]
 def test_each_phase_rewrites_this_tree(kernel, phase, tmp_path):
     pc.make_copy(ROOT, tmp_path, pc.PHASES[kernel][phase])
     csrc = ROOT / "hedgehog_tpu_torch" / "csrc"
-    changed = [path.name for path in sorted(csrc.glob("*.cu"))
+    changed = [path.name for path in sorted(csrc.glob("*.cu*"))
                if (tmp_path / "hedgehog_tpu_torch" / "csrc" / path.name).read_text()
                != path.read_text()]
     assert changed, f"{kernel} {phase}: the rewrite left every source as it was"

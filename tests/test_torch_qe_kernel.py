@@ -286,6 +286,24 @@ def test_greek_kernel_grid_is_checked(bad):
         pg._greek_sums(params, dtab, None, 8, STEPS, 0, 0, 0, grid=bad)
 
 
+@pytest.mark.parametrize("bad", [0, -3, True, 2.0], ids=["zero", "negative", "bool", "float"])
+def test_price_kernel_grid_is_checked(bad):
+    """``grid=`` of K8's sum (the digest and the card tests run it at its
+    grid before the per-stream build) takes a positive int or None, on any
+    device."""
+    params, _ = pq.mix_inputs(*ARGS, STEPS, 0, False, "cpu")
+    with pytest.raises(ValueError, match="grid"):
+        pq._qe_price_sum(params, None, 8, STEPS, 0, 0, 0, grid=bad)
+
+
+def test_price_sum_twin_ignores_the_grid():
+    """On the CPU K8's sum is its twin's whatever ``grid`` names (the grid
+    orders the card's sums only)."""
+    params, table = pq.mix_inputs(*ARGS, STEPS, 0, True, "cpu")
+    want = pq._qe_price_sum(params, table, 64, STEPS, 0, 0, 0)
+    assert torch.equal(pq._qe_price_sum(params, table, 64, STEPS, 0, 0, 0, grid=7), want)
+
+
 def test_greek_assembly_keeps_each_formula():
     """``_assemble_grad7`` in five launches gives each greek the float64
     bits of its own formula: discount·w̄/S0, discount·chain, discount·ρ̄,

@@ -161,6 +161,23 @@ def test_guards():
         pq._qem_price_sum(params, 8, STEPS, 0, 0)  # no strike
 
 
+@pytest.mark.parametrize("bad", [0, -3, True, 2.0], ids=["zero", "negative", "bool", "float"])
+def test_call_price_kernel_grid_is_checked(bad):
+    """``grid=`` of K6's sum (the digest and the card tests run it at the
+    one-pair-a-thread kernel's grid) takes a positive int or None, on any
+    device."""
+    params = torch.as_tensor(pq._qem_params(*ARGS, strike=100.0))
+    with pytest.raises(ValueError, match="grid"):
+        pq._qem_price_sum(params, 8, STEPS, 0, 0, grid=bad)
+
+
+def test_call_price_sum_twin_ignores_the_grid():
+    """On the CPU K6's sum is its twin's whatever ``grid`` names."""
+    params = torch.as_tensor(pq._qem_params(*ARGS, strike=100.0))
+    want = pq._qem_price_sum(params, 64, STEPS, 0, 0)
+    assert torch.equal(pq._qem_price_sum(params, 64, STEPS, 0, 0, grid=7), want)
+
+
 def test_cpu_tensors_take_the_twins_and_launch_nothing():
     kernels = (pq.QEM_TERMINAL_KERNEL, pq.QEM_PRICE_KERNEL)
     before = [k.launches for k in kernels]
