@@ -2827,7 +2827,11 @@ def output_digests(device: str) -> dict:
     K12 run through the public wrappers at the package's grid (``K9 QMC``,
     whose last bits move with the grid) and their float64 sums at
     ``K9_PARENT_BLOCKS`` an SM (``K9 QMC sums``, ``K12 QMC sums``...),
-    comparable with every tree since K9's redesign.  K14 and
+    comparable with every tree since K9's redesign.  K1 and K2 run also at
+    ``solve``'s pairs (2^23, 2^22) and at ``EDGE_STEPS`` / ``EDGE_SEGMENTS``
+    over ``EDGE_PAIRS``, both pairings (K2 from ``EDGE_OFFSET``), and K2
+    and K3 at 160 and 252 of ``EXACT_BAND_SEGMENTS`` under QMC; K9's and
+    K12's float64 sums also at ``ODD_SURF_STEPS``.  K14 and
     K17 run also at ``solve``'s 2^22 pairs and at ``RB_EDGE_STEPS`` over
     ``RB_EDGE_PAIRS`` (a ragged last trip), antithetic and one group (K17
     at 2 steps and more), through entry points every tree since their
@@ -2875,6 +2879,16 @@ def output_digests(device: str) -> dict:
         2, pairs)
     put("K1 PRNG", hk.heston_euler_terminal(*mkt, T / EULER_STEPS, n_paths=pairs, steps=EULER_STEPS,
                                             seed=seed, antithetic=True, device=dev))
+    # K1 at solve's pairs, and at odd step counts over a ragged last block,
+    # both pairings
+    put("K1 PRNG 2^23", hk.heston_euler_terminal(*mkt, T / EULER_STEPS, n_paths=EULER_PAIRS,
+                                                 steps=EULER_STEPS, seed=seed, antithetic=True,
+                                                 device=dev))
+    for steps in EDGE_STEPS:
+        pe = torch.as_tensor(hk._euler_params(*mkt, T / steps), device=dev)
+        for anti in (True, False):
+            put(f"K1 PRNG {steps} steps{'' if anti else ' one group'}",
+                hk._euler_terminal(pe, EDGE_PAIRS, steps, seed, anti, 0))
     put("K6 PRNG", qk.heston_qe_call_price(*mkt, dt_m, STRIKE, disc, n_blocks=blocks, n_batches=4,
                                            steps=QEM_STEPS, seed=seed, device=dev))
     # K6's float64 sums at the grid of the one-pair-a-thread K6
@@ -2890,6 +2904,27 @@ def output_digests(device: str) -> dict:
         kw = dict(seed=seed, qmc=qmc, device=dev)
         put(f"K2 {s}", ek.heston_exact_mixing_values(*mkt, T / SEGMENTS, STRIKE, 1.0, n_paths=pairs,
                                                      segments=SEGMENTS, antithetic=True, **kw))
+        # K2 at solve's pairs, and at 1-3 segments over a ragged pair count
+        # from a point offset off the 32-point cells, both pairings
+        put(f"K2 {s} 2^22", ek.heston_exact_mixing_values(
+            *mkt, T / SEGMENTS, STRIKE, 1.0, n_paths=SOLVE_PAIRS, segments=SEGMENTS,
+            antithetic=True, **kw))
+        for segs in EDGE_SEGMENTS:
+            px, tx, kmax = ek._inputs(*mkt, T / segs, STRIKE, 1.0, segs, seed, qmc, dev)
+            for anti in (True, False):
+                put(f"K2 {s} {segs} segments{'' if anti else ' one group'}",
+                    ek._exact_values(px, tx, EDGE_PAIRS, segs, anti, kmax, seed, 0, EDGE_OFFSET))
+        # K2 and K3 past the staging decision, where the table (and, at 252
+        # segments, the split draw's high words) once fitted a block
+        # (K3's sums at its fixed grid)
+        mkt_b = mkt[:5] + (GLOBAL_EXACT_SIGMA, mkt[6])
+        for segs in EXACT_BAND_SEGMENTS[2:4] if qmc else ():
+            px, tx, kmax = ek._inputs(*mkt_b, GLOBAL_EXACT_YEARS / GLOBAL_EXACT_SEGMENTS, STRIKE,
+                                      1.0, segs, seed, True, dev)
+            put(f"K2 QMC {segs} segments",
+                ek._exact_values(px, tx, EDGE_PAIRS, segs, True, kmax, seed, 0, EDGE_OFFSET))
+            put(f"K3 QMC {segs} segments sums",
+                ek._exact_price_sum(px, tx, EDGE_PAIRS, segs, kmax, seed, 0, EDGE_OFFSET))
         put(f"K3 {s}", ek.heston_exact_mixing_vanilla_price(*mkt, T / SEGMENTS, STRIKE, disc,
                                                             n_blocks=blocks, n_batches=4,
                                                             segments=SEGMENTS, **kw))
@@ -2942,6 +2977,17 @@ def output_digests(device: str) -> dict:
             cal = calibration_inputs(dev, qmc, seed)
             put(f"K12 {s} 3x17 sums", gk._surface_jac_sums(*cal["jac"], pairs, seed, 0, 0, **at))
             put(f"K9 {s} 3x17 sums", qk._qe_surface_sums(*cal["price"], pairs, seed, 0, 0, **at))
+        # both at odd step splits over the expiries, where a segment ends
+        # inside a Philox block (draw_steps carries its second normal on)
+        odd_seg = ODD_SURF_STEPS
+        p_odd = torch.as_tensor(qk._surf_params(*mkt, T_host, odd_seg, SURF_STRIKES, 1.0),
+                                device=dev)
+        dct_odd, djt_odd = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                            for t in gk._surface_greek_tables(*mkt[3:6], T_host, odd_seg))
+        t_odd = torch.as_tensor(qk.sobol_table(seed, 2 * sum(odd_seg)), device=dev) if qmc else None
+        run_odd = (t_odd, odd_seg, len(SURF_STRIKES), EDGE_PAIRS, seed, 0, 0)
+        put(f"K9 {s} {odd_seg} sums", qk._qe_surface_sums(p_odd, *run_odd))
+        put(f"K12 {s} {odd_seg} sums", gk._surface_jac_sums(p_odd, dct_odd, djt_odd, *run_odd))
         t4 = torch.as_tensor(qk.sobol_table(seed, 4 * sum(ex_seg)), device=dev) if qmc else None
         for label, n in (("", pairs), (" 2^26", SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK)):
             run4 = (surf["p4"], t4, ex_seg, surf["kmaxes"], len(SURF_STRIKES), n, seed, 0, 0)
@@ -3009,6 +3055,12 @@ def output_digests(device: str) -> dict:
     return out
 
 
+#: K1's and K2's digests past their main shapes: step and segment counts,
+#: a pair count that is no multiple of a block's pairs or a warp's, and a
+#: Sobol' point offset off the warp's 32-point cells
+EDGE_STEPS, EDGE_SEGMENTS, EDGE_PAIRS, EDGE_OFFSET = (1, 3, 101), (1, 2, 3), 2**17 + 7, 777
+#: K9's and K12's digests at odd step splits over the three expiries
+ODD_SURF_STEPS = (3, 5, 7)
 #: the serving dispatch's antithetic pairs (SERVING_BLOCKS x SERVING_BATCHES x 32768)
 SERVING_PAIRS = 2**27
 #: the one-pair-a-thread K3's resident blocks an SM (127 registers, 256
@@ -3096,15 +3148,19 @@ def kernel_times(device: str, only=None) -> dict:
     (PERF.md's row) and at the 2^26-pair surface dispatch (3 x 5, exact-4 =
     5 segments) on both streams, with K4's occupancy where the package
     reports it, and the public K4 wrapper on the wide calibration surface
-    (K4_WIDE: its launches and strike chunks as a user pays them); K2 and K3
-    (the exact kernels that share K4's Poisson draw) at 2^20 pairs, 2
-    segments, both streams, and K3 per serving dispatch (2^27 pairs, PRNG)
-    with its grid and occupancy where the package reports them; K8 and K10,
-    :func:`qe_price_times`; K6, :func:`qem_price_times`; K1, K5, K7, K11 and
-    K13, :func:`path_kernel_times`.  ``only`` (kernel names, e.g. K4 or
-    K9,K12 or K15,K16; K10 times K8 beside it; ``K8 host``, ``K10 host`` and
-    ``K6 host`` add the host clock; ``K8 band`` times K8 and K10 at
-    K8_BAND_STEPS QMC steps) keeps the kernels named."""
+    (K4_WIDE: its launches and strike chunks as a user pays them); K2 (the
+    values) at 2^20 pairs and at ``solve``'s 2^22, 2 segments, both
+    streams; K3 (the exact kernels share K4's
+    Poisson draw) at 2^20 pairs, both streams, and per serving dispatch
+    (2^27 pairs, PRNG) with its grid and occupancy where the package reports
+    them; K8 and K10, :func:`qe_price_times`; K6, :func:`qem_price_times`;
+    K1, K5, K7, K11 and K13, :func:`path_kernel_times`; ``solve`` on the
+    exact and Euler routes, :func:`solve_walls`.  ``only`` (kernel names,
+    e.g. K4 or K9,K12 or K15,K16; K10 times K8 beside it; ``K8 host``,
+    ``K10 host`` and ``K6 host`` add the host clock; ``K8 band`` times K8
+    and K10 at K8_BAND_STEPS QMC steps; ``K2 band`` K2 and K3 at
+    EXACT_BAND_SEGMENTS, :func:`exact_band_times`; ``K1 solve`` and ``K2
+    solve`` the ``solve`` walls) keeps the kernels named."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3117,14 +3173,19 @@ def kernel_times(device: str, only=None) -> dict:
         out.update(rb_kernel_times(dev, only))
     if only is None or {"K9", "K12"} & set(only):
         out.update(surface_kernel_times(dev, only))
-    if only is None or "K2" in only or "K3" in only:
-        T = float(yearfrac(REF, EXPIRY))
-        dt_x = T / SEGMENTS
+    T = float(yearfrac(REF, EXPIRY))
+    dt_x = T / SEGMENTS
+    if only is None or "K2" in only:
         for qmc in (False, True):
             px, tx, kmax = ek._inputs(*MARKET_ARGS, dt_x, STRIKE, 1.0, SEGMENTS, 5, qmc, dev)
             s = "QMC" if qmc else "PRNG"
-            out[f"K2 {s} {CHECK_PAIRS}"] = time_ms(
-                lambda: ek._exact_values(px, tx, CHECK_PAIRS, SEGMENTS, True, kmax, 5, 0, 0))
+            for pairs in (CHECK_PAIRS, SOLVE_PAIRS):
+                run2 = (px, tx, pairs, SEGMENTS, True, kmax, 5, 0, 0)
+                out[f"K2 {s} {pairs}"] = time_ms(lambda: ek._exact_values(*run2))
+    if only is None or "K3" in only:
+        for qmc in (False, True):
+            px, tx, kmax = ek._inputs(*MARKET_ARGS, dt_x, STRIKE, 1.0, SEGMENTS, 5, qmc, dev)
+            s = "QMC" if qmc else "PRNG"
             out[f"K3 {s} {CHECK_PAIRS}"] = time_ms(
                 lambda: ek._exact_price_sum(px, tx, CHECK_PAIRS, SEGMENTS, kmax, 5, 0, 0))
         # the serving dispatch (phase 4's: the public wrapper on 6 seeds, PRNG)
@@ -3137,12 +3198,16 @@ def kernel_times(device: str, only=None) -> dict:
         out["K3 grid"] = ek.price_grid(dev) if hasattr(ek, "price_grid") else None
         if hasattr(ek, "price_occupancy"):
             out["K3 occupancy"] = ek.price_occupancy(dev)
+    if only is None or "K2 band" in only:
+        out.update(exact_band_times(dev))
     if only is None or {"K8", "K8 host", "K8 band", "K10", "K10 host"} & set(only):
         out.update(qe_price_times(dev, only))
     if only is None or {"K6", "K6 host"} & set(only):
         out.update(qem_price_times(dev, only))
     if only is None or set(PATH_KERNELS) & set(only):
         out.update(path_kernel_times(dev, only))
+    if only is None or {"K1 solve", "K2 solve"} & set(only):
+        out.update(solve_walls(dev, only))
     T_host, _, _, ex_seg = surface_grid()
     inp = surface_inputs(dev)
     for pairs in (CHECK_PAIRS, SURF_BLOCKS * SURF_BATCHES * qk.PAIRS_PER_BLOCK):
@@ -3191,6 +3256,11 @@ def host_walls(fn, read, ms: float) -> dict:
     return {"synchronised wall ms": wall, "idle share": 1.0 - ms / wall}
 
 
+def _device_ms(e) -> float:
+    """A ``torch.profiler`` event's own device time in ms."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
 def profile_summary(name: str, fn) -> dict:
     """A ``torch.profiler`` summary of one call of ``fn()``: the device ms it
     records and the 15 operations of most host time (key, count, host ms,
@@ -3200,13 +3270,9 @@ def profile_summary(name: str, fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
     events = prof.key_averages()
-
-    def device_ms(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    return {f"{name} profile device ms": sum(device_ms(e) for e in events),
+    return {f"{name} profile device ms": sum(_device_ms(e) for e in events),
             f"{name} profile host": [
-                [e.key, e.count, e.cpu_time_total / 1e3, device_ms(e)]
+                [e.key, e.count, e.cpu_time_total / 1e3, _device_ms(e)]
                 for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:15]]}
 
 
@@ -3281,6 +3347,35 @@ def qe_price_times(dev, only=None) -> dict:
         name = hosts[-1]
         fn = (lambda: float(k8(seed=8))) if name == "K8" else (lambda: k10(seed=8)[1].cpu())
         out.update(profile_summary(name, fn))
+    return out
+
+
+#: QMC segment counts on both sides of K2's and K3's staging decision (the
+#: table and each warp's high words staged up to ~113 segments on an H100,
+#: where 2 blocks an SM still fit; one block held them to ~230, the table
+#: alone to ~460)
+EXACT_BAND_SEGMENTS = (64, 100, 160, 252, 400)
+
+
+def exact_band_times(dev) -> dict:
+    """K2 (antithetic) and K3 (CUDA events, 5 calls after a warm-up) at
+    2^20 pairs on the QMC stream at each of EXACT_BAND_SEGMENTS segments of
+    the past-the-staging-limit case's length (GLOBAL_EXACT_YEARS over
+    GLOBAL_EXACT_SEGMENTS, under GLOBAL_EXACT_SIGMA), with the table's
+    bytes."""
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+
+    mkt = MARKET_ARGS[:5] + (GLOBAL_EXACT_SIGMA, MARKET_ARGS[6])
+    dt_b = GLOBAL_EXACT_YEARS / GLOBAL_EXACT_SEGMENTS
+    out = {}
+    for segs in EXACT_BAND_SEGMENTS:
+        px, tx, kmax = ek._inputs(*mkt, dt_b, STRIKE, 1.0, segs, 5, True, dev)
+        key = f"QMC {segs} segments {CHECK_PAIRS}"
+        out[f"K2 {key}"] = time_ms(
+            lambda: ek._exact_values(px, tx, CHECK_PAIRS, segs, True, kmax, 5, 0, 0))
+        out[f"K3 {key}"] = time_ms(
+            lambda: ek._exact_price_sum(px, tx, CHECK_PAIRS, segs, kmax, 5, 0, 0))
+        out[f"table bytes {segs} segments"] = 4 * tx.numel()
     return out
 
 
@@ -3373,8 +3468,8 @@ PATH_KERNELS = ("K1", "K5", "K7", "K11", "K13")
 def path_kernel_times(dev, only=None) -> dict:
     """K1, K5, K7, K11 and K13 (CUDA events, 5 calls after a warm-up) at
     PERF.md's shapes, through the launching wrappers phase 3 times: 2^20
-    pairs (K13 2^24), K1 at EULER_STEPS on PRNG, K5 at QEM_STEPS and K7 and
-    K11 at QE_STEPS on both streams."""
+    pairs (K13 2^24), K1 at EULER_STEPS on PRNG (also at ``solve``'s 2^23
+    pairs), K5 at QEM_STEPS and K7 and K11 at QE_STEPS on both streams."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3390,8 +3485,9 @@ def path_kernel_times(dev, only=None) -> dict:
     out = {}
     if want("K1"):
         pe = torch.as_tensor(hk._euler_params(*MARKET_ARGS, T / EULER_STEPS), device=dev)
-        out[f"K1 PRNG {CHECK_PAIRS}"] = time_ms(
-            lambda: hk._euler_terminal(pe, CHECK_PAIRS, EULER_STEPS, 7, True, 0))
+        for pairs in (CHECK_PAIRS, EULER_PAIRS):
+            out[f"K1 PRNG {pairs}"] = time_ms(
+                lambda: hk._euler_terminal(pe, pairs, EULER_STEPS, 7, True, 0))
     dt_q = T / QE_STEPS
     ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * CHECK_PAIRS, device=dev,
                                              dtype=torch.float32))).reshape(2, CHECK_PAIRS)
@@ -3417,6 +3513,59 @@ def path_kernel_times(dev, only=None) -> dict:
             lambda: gbk._gbm_terminal(pg, GBM_PAIRS, True, 0, 0))
         out[f"K13 PRNG {GBM_PAIRS}, 50 calls"] = time_ms(
             lambda: gbk._gbm_terminal(pg, GBM_PAIRS, True, 0, 0), reps=50)
+    return out
+
+
+def solve_walls(dev, only=None) -> dict:
+    """``solve`` on the card as phase 3 calls it: the exact route (K2, 2^22
+    pairs, 2 segments, both streams; ``K2 solve``) and the Euler route (K1,
+    2^23 pairs x 100 steps; ``K1 solve``).  Per call: the synchronised wall
+    on the host clock (median of 5 after a warm-up), the device time of one
+    call and its main kernel's (``torch.profiler``), and the idle share 1 -
+    device / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hedgehog_tpu_torch as ht
+
+    market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    prob = ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(),
+                                              ht.Spot()), market)
+    runs = []
+    if only is None or "K2 solve" in only:
+        runs += [(f"solve exact {'QMC' if qmc else 'PRNG'} {SOLVE_PAIRS}",
+                  ht.HestonExactMixing(use_kernel=True),
+                  ht.SimulationConfig(SOLVE_PAIRS, SEGMENTS, ht.Antithetic(), 0, qmc),
+                  "exact_values")
+                 for qmc in (True, False)]
+    if only is None or "K1 solve" in only:
+        runs.append((f"solve Euler {EULER_PAIRS} x {EULER_STEPS}",
+                     ht.EulerMaruyama(use_kernel=True),
+                     ht.SimulationConfig(EULER_PAIRS, EULER_STEPS, ht.Antithetic(), 0, False),
+                     "heston_euler"))
+    out = {}
+    for label, strat, cfg, kernel in runs:
+        method = ht.MonteCarlo(ht.HestonDynamics(), strat, cfg, device=str(dev))
+
+        def call():
+            return float(ht.solve(prob, method).price)
+
+        call()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        wall = sorted(walls)[2]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+        events = prof.key_averages()
+        device_ms = sum(_device_ms(e) for e in events)
+        out[f"{label} wall ms"] = wall
+        out[f"{label} device ms"] = device_ms
+        out[f"{label} kernel ms"] = sum(_device_ms(e) for e in events if kernel in e.key)
+        out[f"{label} idle share"] = 1.0 - device_ms / wall
     return out
 
 

@@ -24,17 +24,23 @@
 // leaves the data-dependent Poisson loop as soon as the count is settled
 // (the count cannot change once u <= cdf), and for K3 runs one resident
 // wave of blocks that each walk a fixed stride of pairs, so no path data
-// touches memory.  K2 keeps one antithetic pair per thread.  The segment is
-// a long dependent chain, so K3 (as K4 below) runs two threads a pair, one
-// antithetic group each, the draws shared by shuffles: twice the chains in
-// flight of one pair a thread at 127 registers (2 blocks of 256 an SM),
-// with 3 blocks of 512 an SM.  A thread walks the segment in one pair a
+// touches memory.  The segment is a long dependent chain, so K2 and K3 (as
+// K4 below) run two threads a pair, one antithetic group each, the draws
+// shared by shuffles (exact_group): twice the chains in flight of one pair
+// a thread at 98-127 registers (2 blocks of 256 an SM), with 3 blocks of
+// 512 an SM at 40 registers.  A thread walks the segment in one pair a
 // thread's operations and order, and K3 sums each pair in that kernel's
 // order, so each pair's values and, at one grid, the sums keep their bits.
+// K2 without antithetic pairing keeps one path a thread (no mirror to share
+// the draws with).
 // Parameters and the Sobol' table sit in shared memory; a table too large
-// for a block's shared memory (past about 450 segments) is read from global
-// memory instead, by a second instantiation of each kernel (kStaged false):
-// the same integers, so the same draws.  K2 and K3 once refused QMC runs
+// for a block's shared memory (227 KB on an H100: past about 460 segments)
+// is read from global memory instead, by a second instantiation of each
+// kernel (kStaged false): the same integers, so the same draws.  K2 and K3
+// under antithetic pairing stage each warp's high words beside the table
+// (the split draw) only where that leaves 2 blocks an SM (up to ~113
+// segments on an H100) and read the table from global memory past that
+// (pair_launch).  K2 and K3 once refused QMC runs
 // past 16 segments: nothing in the kernels needed it (no unrolled loop over
 // segments, no register that grows with them; the table then took 7.9 KB),
 // only the price grid (hh_exact_price_grid) is taken at a fixed 16-row
@@ -61,10 +67,14 @@ constexpr float kCfSwitch = 24.0f;
 constexpr int kGqNewton = 3;
 constexpr int kGqNewtonE1 = 2;
 constexpr int kMaxKmax = 65;  // poisson_kmax never returns more
-constexpr int kThreads = 256;
-constexpr int kPriceThreads = 512;                 // K3: two threads a pair
-constexpr int kPricePairs = kPriceThreads / 2;     // pairs a round of a block
-constexpr int kPriceBlocks = 3;                    // K3's blocks an SM (40 registers)
+constexpr int kThreads = 256;                      // K2 without antithetic pairing
+constexpr int kPairThreads = 512;                  // K2 and K3: two threads a pair
+constexpr int kRoundPairs = kPairThreads / 2;      // pairs a round of a block
+constexpr int kPairBlocks = 3;                     // their blocks an SM (40 registers)
+// The fewest blocks an SM at which K2 and K3 stage the Sobol' table: at 2
+// the staged split draw beat the table in global memory at 3 (100
+// segments, 1.09x), at 1 it lost (160 segments, 1.15x; PERF.md §6).
+constexpr int kStagedBlocks = 2;
 
 // 1/k rounded from double, as the TPU kernel's Python constant (1.0 / k).
 __constant__ float kInvK[kMaxKmax + 1] = {
@@ -281,7 +291,7 @@ __device__ __forceinline__ ExactDraw swap_draw(const ExactDraw& d) {
 // even s the even thread draws block s and the odd one block s + 1, kept in
 // `next` for segment s + 1.  Shuffles hand each thread the other's half.
 // Steps come in increasing order, and every lane of the warp calls it.
-// kSplit (K3): each Sobol' integer is the warp's staged high word (hw,
+// kSplit (K2, K3 staged): each Sobol' integer is the warp's staged high word (hw,
 // candidate c; hh::stage_high) XOR hh::sobol_low of the point, the same
 // integer hh::sobol_bits forms.
 template <bool kSplit = false>
@@ -316,24 +326,34 @@ __device__ __forceinline__ ExactDraw exact_draw_shared(unsigned long long pair, 
   return odd ? other : own;
 }
 
-// The (value, antithetic value) of global pair `pair`.  `sobol` is the
-// (4*segments, 31) table in shared memory for QMC, or null for Philox.
-__device__ __forceinline__ void exact_pair(unsigned long long pair, const ExactParams& c,
-                                           const int* sobol, int segments, int kmax,
-                                           bool antithetic, uint32_t seed, uint32_t device_id,
-                                           long long point_offset, float& val, float& val_a) {
-  float v = c.v0, iv = 0.0f, va = c.v0, iva = 0.0f;
-  const uint32_t idx = (uint32_t)(point_offset + (long long)pair);
+// The value of one antithetic group of pair base + threadIdx.x / 2 of a
+// round (an odd thread: the mirror), two threads a pair: the segments and
+// the close in one pair a thread's operations and order, so the value keeps
+// that kernel's bits.  kStaged QMC: the warp stages its high Sobol' words
+// in hw (hh::stage_high; its 16 pairs are the points p0 .. p0 + 15, point
+// idx taking candidate c) and each integer is the split draw's.  Every lane
+// of the warp calls it, past the last pair too.
+template <bool kStaged>
+__device__ __forceinline__ float exact_group(long long base, const ExactParams& sp,
+                                             const int* table, int segments, int kmax,
+                                             uint32_t seed, uint32_t device_id,
+                                             long long point_offset, uint32_t* hw) {
+  const bool odd = threadIdx.x & 1;
+  const long long g = base + (threadIdx.x >> 1);
+  const unsigned long long pair = (unsigned long long)g;
+  const uint32_t idx = (uint32_t)(point_offset + g);
+  const uint32_t p0 = (uint32_t)(point_offset + base) + ((threadIdx.x & ~31u) >> 1);
+  if (kStaged && table) hh::stage_high(table, 4 * segments, p0, hw);
+  const int c = (int)(((p0 & 31u) + ((threadIdx.x & 31u) >> 1)) >> 5);
+  float v = sp.v0, iv = 0.0f;
+  ExactDraw next{};
   for (int s = 0; s < segments; ++s) {
-    float u_pois, z_gam, u_boost, z_iv;
-    exact_draw(pair, idx, sobol, s, seed, device_id, u_pois, z_gam, u_boost, z_iv);
-    exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, c, kmax);
-    if (antithetic) {
-      exact_segment(va, iva, mirror_pois(u_pois), -z_gam, 1.0f - u_boost, -z_iv, c, kmax);
-    }
+    const ExactDraw d =
+        exact_draw_shared<kStaged>(pair, idx, table, s, seed, device_id, odd, next, hw, c);
+    exact_segment(v, iv, odd ? mirror_pois(d.u_pois) : d.u_pois, odd ? -d.z_gam : d.z_gam,
+                  odd ? 1.0f - d.u_boost : d.u_boost, odd ? -d.z_iv : d.z_iv, sp, kmax);
   }
-  val = exact_close(v, iv, c);
-  val_a = antithetic ? exact_close(va, iva, c) : 0.0f;
+  return exact_close(v, iv, sp);
 }
 
 // Stage the parameter vector and the Sobol' table in shared memory (with
@@ -355,71 +375,86 @@ __device__ __forceinline__ const int* stage_inputs(const float* params, const in
   return sobol ? ssob : nullptr;
 }
 
+// This warp's high Sobol' words past the staged table: 2 candidates of each
+// of the 4 * segments dimensions (K2 and K3 staged under QMC).
+__device__ __forceinline__ uint32_t* warp_high_words(int* ssob, int segments) {
+  return reinterpret_cast<uint32_t*>(ssob + 4 * segments * (hh::kSobolBits + 1)) +
+         (threadIdx.x >> 5) * 8 * segments;
+}
+
+// K2 under antithetic pairing, in K3's layout: block b takes the round of
+// kRoundPairs consecutive pairs from b * kRoundPairs, thread 2q + h group h
+// of its pair q, and writes its value to out[h * n_paths + pair].  Every
+// lane walks, so every lane reaches the draw's shuffles; the store, not the
+// walk, stops at n_paths.
+template <bool kStaged>
+__global__ void __launch_bounds__(kPairThreads, kPairBlocks)
+exact_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
+                    float* __restrict__ out, long long n_paths, int segments, int kmax,
+                    uint32_t seed, uint32_t device_id, long long point_offset) {
+  __shared__ ExactParams sp;
+  extern __shared__ int ssob[];
+  const int* table = stage_inputs<kStaged>(params, sobol, segments, sp, ssob);
+  uint32_t* hw = warp_high_words(ssob, segments);
+  const long long base = (long long)blockIdx.x * kRoundPairs;
+  const float val =
+      exact_group<kStaged>(base, sp, table, segments, kmax, seed, device_id, point_offset, hw);
+  const long long g = base + (threadIdx.x >> 1);
+  if (g < n_paths) out[((threadIdx.x & 1) ? n_paths : 0) + g] = val;
+}
+
+// K2 without antithetic pairing: one path a thread, path i drawing what
+// pair i would.
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-exact_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
-                    float* __restrict__ out, long long n_paths, int segments, int antithetic,
-                    int kmax, uint32_t seed, uint32_t device_id, long long point_offset) {
+exact_values_single_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
+                           float* __restrict__ out, long long n_paths, int segments, int kmax,
+                           uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ ExactParams sp;
   extern __shared__ int ssob[];
   const int* table = stage_inputs<kStaged>(params, sobol, segments, sp, ssob);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
-  float val, val_a;
-  exact_pair((unsigned long long)i, sp, table, segments, kmax, antithetic != 0, seed, device_id,
-             point_offset, val, val_a);
-  out[i] = val;
-  if (antithetic) out[n_paths + i] = val_a;
+  const uint32_t idx = (uint32_t)(point_offset + i);
+  float v = sp.v0, iv = 0.0f;
+  for (int s = 0; s < segments; ++s) {
+    float u_pois, z_gam, u_boost, z_iv;
+    exact_draw((unsigned long long)i, idx, table, s, seed, device_id, u_pois, z_gam, u_boost,
+               z_iv);
+    exact_segment(v, iv, u_pois, z_gam, u_boost, z_iv, sp, kmax);
+  }
+  out[i] = exact_close(v, iv, sp);
 }
 
-// K3: two threads a pair, one antithetic group each (thread 2q + h of a
-// block, pair q of the round, h = 1 the mirror), in K4's layout: a round of
-// a block is kPricePairs consecutive pairs and the stride grid x kPricePairs
-// pairs, so the even thread of pair q walks the pairs thread q walked one
-// pair a thread, and adds value + antithetic value (one shuffle) to its fp32
-// sum in that order; the float64 tree runs over the same kPricePairs sums.
-// At one grid the sums therefore keep their bits.  The rounds are uniform
-// over the block, so every lane reaches the draw's shuffles.
+// K3: K2's layout (exact_group), in K4's: a round of a block is
+// kRoundPairs consecutive pairs and the stride grid x kRoundPairs pairs, so
+// the even thread of pair q walks the pairs thread q walked one pair a
+// thread, and adds value + antithetic value (one shuffle) to its fp32 sum in
+// that order; the float64 tree runs over the same kRoundPairs sums.  At one
+// grid the sums therefore keep their bits.
 template <bool kStaged>
-__global__ void __launch_bounds__(kPriceThreads, kPriceBlocks)
+__global__ void __launch_bounds__(kPairThreads, kPairBlocks)
 exact_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                    double* __restrict__ partials, long long total_pairs, int segments, int kmax,
                    uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ ExactParams sp;
-  __shared__ double red[kPricePairs];
+  __shared__ double red[kRoundPairs];
   extern __shared__ int ssob[];
   const int* table = stage_inputs<kStaged>(params, sobol, segments, sp, ssob);
   const int q = threadIdx.x >> 1;
   const bool odd = threadIdx.x & 1;
-  // this warp's high Sobol' words past the staged table: 2 candidates of
-  // each of the 4 * segments dimensions
-  uint32_t* hw = reinterpret_cast<uint32_t*>(ssob + 4 * segments * (hh::kSobolBits + 1)) +
-                 (threadIdx.x >> 5) * 8 * segments;
+  uint32_t* hw = warp_high_words(ssob, segments);
   float acc = 0.0f;
-  const long long stride = (long long)gridDim.x * kPricePairs;
-  for (long long base = (long long)blockIdx.x * kPricePairs; base < total_pairs; base += stride) {
-    const long long g = base + q;
-    const unsigned long long pair = (unsigned long long)g;
-    const uint32_t idx = (uint32_t)(point_offset + g);
-    // the warp's 16 pairs are the points p0 .. p0 + 15
-    const uint32_t p0 = (uint32_t)(point_offset + base) + ((threadIdx.x & ~31u) >> 1);
-    if (kStaged && table) hh::stage_high(table, 4 * segments, p0, hw);
-    const int c = (int)(((p0 & 31u) + ((threadIdx.x & 31u) >> 1)) >> 5);
-    float v = sp.v0, iv = 0.0f;
-    ExactDraw next{};
-    for (int s = 0; s < segments; ++s) {
-      const ExactDraw d =
-          exact_draw_shared<kStaged>(pair, idx, table, s, seed, device_id, odd, next, hw, c);
-      exact_segment(v, iv, odd ? mirror_pois(d.u_pois) : d.u_pois, odd ? -d.z_gam : d.z_gam,
-                    odd ? 1.0f - d.u_boost : d.u_boost, odd ? -d.z_iv : d.z_iv, sp, kmax);
-    }
-    const float val = exact_close(v, iv, sp);
+  const long long stride = (long long)gridDim.x * kRoundPairs;
+  for (long long base = (long long)blockIdx.x * kRoundPairs; base < total_pairs; base += stride) {
+    const float val =
+        exact_group<kStaged>(base, sp, table, segments, kmax, seed, device_id, point_offset, hw);
     const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);
-    if (!odd && g < total_pairs) acc += val + val_a;
+    if (!odd && base + q < total_pairs) acc += val + val_a;
   }
   if (!odd) red[q] = (double)acc;
   __syncthreads();
-  for (int h = kPricePairs / 2; h > 0; h >>= 1) {
+  for (int h = kRoundPairs / 2; h > 0; h >>= 1) {
     if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
     __syncthreads();
   }
@@ -430,11 +465,64 @@ size_t sobol_smem(const int* sobol, int segments) {
   return sobol ? sizeof(int) * 4 * segments * (hh::kSobolBits + 1) : 0;
 }
 
-// K3's staged dynamic shared memory: the table, then each warp's high words.
-size_t price_smem(bool qmc, int segments) {
+// K2's and K3's staged dynamic shared memory: the table, then each warp's
+// high words.
+size_t pair_smem(bool qmc, int segments) {
   return qmc ? sizeof(int) * 4 * segments * (hh::kSobolBits + 1) +
-                   sizeof(uint32_t) * (kPriceThreads / 32) * 8 * segments
+                   sizeof(uint32_t) * (kPairThreads / 32) * 8 * segments
              : 0;
+}
+
+// K2's and K3's kernels under antithetic pairing.
+using ValuesKernel = void (*)(const float*, const int*, float*, long long, int, int, uint32_t,
+                             uint32_t, long long);
+using PriceKernel = void (*)(const float*, const int*, double*, long long, int, int, uint32_t,
+                            uint32_t, long long);
+
+// Launches K2's or K3's staged or global-table kernel through
+// launch(kernel, dynamic shared bytes): under QMC the staged one (the
+// table and each warp's high words in shared memory, the split draw) where
+// that leaves it kStagedBlocks blocks an SM (up to ~113 segments on an
+// H100), else the one that reads the table from global memory at
+// kPairBlocks blocks an SM; both form the same integers, so the same
+// draws.  Under Philox the staged one, which then stages nothing.
+template <class K, class F>
+cudaError_t pair_launch(const int* sobol, int segments, K staged, K global, F&& launch) {
+  const size_t smem = pair_smem(sobol != nullptr, segments);
+  bool use_staged = sobol == nullptr;
+  if (!use_staged && smem <= hh::smem_room(staged)) {
+    int per_sm = 0;
+    cudaError_t err = hh::allow_dynamic_smem(staged, smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, staged, kPairThreads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    use_staged = per_sm >= kStagedBlocks;
+  }
+  launch(use_staged ? staged : global, use_staged ? smem : 0);
+  return cudaGetLastError();
+}
+
+// The occupancy of a two-threads-a-pair kernel (K2, K3) on the current
+// device, taken at a fixed 16-row table (4 segments under QMC) whatever the
+// launch's stream and segments, so those do not move a grid: out = (threads
+// a block, resident blocks per SM, SMs, dynamic shared bytes, static shared
+// bytes, registers a thread, local (spill) bytes a thread).
+template <class K>
+int pair_occupancy(K kernel, int* out) {
+  const size_t smem = pair_smem(true, 4);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPairThreads, smem);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  const int vals[7] = {kPairThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
+                       attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return (int)err;
 }
 
 // ---- K4: the exact-transition surface ----
@@ -656,57 +744,45 @@ extern "C" int hh_exact_values(const float* params, const int* sobol, float* out
                                long long n_paths, int segments, int antithetic, int kmax,
                                unsigned seed, unsigned device_id, long long point_offset,
                                void* stream) {
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  const size_t smem = sobol_smem(sobol, segments);
-  if (smem <= hh::smem_room(exact_values_kernel<true>)) {
-    const cudaError_t err = hh::allow_dynamic_smem(exact_values_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    exact_values_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        params, sobol, out, n_paths, segments, antithetic, kmax, seed, device_id, point_offset);
-  } else {
-    exact_values_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        params, sobol, out, n_paths, segments, antithetic, kmax, seed, device_id, point_offset);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!antithetic) {
+    const long long blocks = (n_paths + kThreads - 1) / kThreads;
+    const size_t smem = sobol_smem(sobol, segments);
+    if (smem <= hh::smem_room(exact_values_single_kernel<true>)) {
+      const cudaError_t err = hh::allow_dynamic_smem(exact_values_single_kernel<true>, smem);
+      if (err != cudaSuccess) return (int)err;
+      exact_values_single_kernel<true><<<(unsigned)blocks, kThreads, smem, st>>>(
+          params, sobol, out, n_paths, segments, kmax, seed, device_id, point_offset);
+    } else {
+      exact_values_single_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
+          params, sobol, out, n_paths, segments, kmax, seed, device_id, point_offset);
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((n_paths + kRoundPairs - 1) / kRoundPairs);
+  return (int)pair_launch(sobol, segments, exact_values_kernel<true>, exact_values_kernel<false>,
+                          [&](ValuesKernel kernel, size_t smem) {
+                            kernel<<<blocks, kPairThreads, smem, st>>>(
+                                params, sobol, out, n_paths, segments, kmax, seed, device_id,
+                                point_offset);
+                          });
 }
 
 // Sums of (value + antithetic value): partials is (grid,) float64, one per block.
 extern "C" int hh_exact_price(const float* params, const int* sobol, double* partials, int grid,
                               long long total_pairs, int segments, int kmax, unsigned seed,
                               unsigned device_id, long long point_offset, void* stream) {
-  const size_t smem = price_smem(sobol != nullptr, segments);
-  if (smem <= hh::smem_room(exact_price_kernel<true>)) {
-    const cudaError_t err = hh::allow_dynamic_smem(exact_price_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    exact_price_kernel<true><<<grid, kPriceThreads, smem, (cudaStream_t)stream>>>(
-        params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
-  } else {
-    exact_price_kernel<false><<<grid, kPriceThreads, 0, (cudaStream_t)stream>>>(
-        params, sobol, partials, total_pairs, segments, kmax, seed, device_id, point_offset);
-  }
-  return (int)cudaGetLastError();
+  return (int)pair_launch(sobol, segments, exact_price_kernel<true>, exact_price_kernel<false>,
+                          [&](PriceKernel kernel, size_t smem) {
+                            kernel<<<grid, kPairThreads, smem, (cudaStream_t)stream>>>(
+                                params, sobol, partials, total_pairs, segments, kmax, seed,
+                                device_id, point_offset);
+                          });
 }
 
-// K3's occupancy on the current device, taken at a fixed 16-row table (4
-// segments under QMC) whatever the launch's stream and segments, so those
-// do not move its grid: out = (threads a block, resident blocks per SM, SMs,
-// dynamic shared bytes, static shared bytes, registers a thread, local
-// (spill) bytes a thread).
+// K3's occupancy (pair_occupancy).
 extern "C" int hh_exact_price_occupancy(int* out) {
-  const size_t smem = price_smem(true, 4);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_price_kernel<true>,
-                                                        kPriceThreads, smem);
-  }
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, exact_price_kernel<true>);
-  const int vals[7] = {kPriceThreads, per_sm, sms, (int)smem, (int)attr.sharedSizeBytes,
-                       attr.numRegs, (int)attr.localSizeBytes};
-  for (int i = 0; i < 7; ++i) out[i] = vals[i];
-  return (int)err;
+  return pair_occupancy(exact_price_kernel<true>, out);
 }
 
 // The price kernel's grid: one resident wave of it on the current device.

@@ -18,8 +18,9 @@ takes it, and prints per stream:
 
 then the per-segment work of those branches at these shares (hand counts
 from csrc/heston_exact.cu, in chip_smoke's units) against ``EXACT_SEG``,
-and K3's bound at 2^20 pairs both ways on an H100 (chip_smoke's peaks at
-the 1980 MHz SM clock chip_smoke reads there).
+and the bounds of K2 (the values) and K3 (the price) at 2^20 pairs both
+ways on an H100 (chip_smoke's peaks at the 1980 MHz SM clock chip_smoke
+reads there).
 
 Run on any host (CPU only, a few seconds):
 
@@ -41,6 +42,7 @@ from hedgehog_tpu_torch.models.heston_exact import GQ_NEWTON, GQ_NEWTON_E1, pois
 from hedgehog_tpu_torch.ops import heston_exact_kernel as ek  # noqa: E402
 
 SM_CLOCK_HZ = 1.98e9  # the H100's max SM clock, as chip_smoke reads it there
+KERNELS = {"k2": "heston_exact_mixing_values", "k3": "heston_exact_mixing_vanilla_price"}
 
 # hand counts (fp32 FLOPs, MUFU) of the branches, csrc/heston_exact.cu
 POISSON_TRIP = (4, 0)  # the test, p * mu * (1/k), cdf + p
@@ -129,17 +131,18 @@ def segment_work(s: dict) -> tuple:
     return cs._ops(cs.EXACT_SEG, poisson, (2, e1_extra), (2, final_extra), bessel_extra)
 
 
-def k3_bound_ms(seg: tuple, pairs: int, qmc: bool) -> float:
-    """K3's operations bound at ``pairs`` pairs with ``seg`` a segment (the
-    draws and closes as chip_smoke's ``work`` counts them, the stream's
-    integer operations as its ``int_ops``)."""
-    flops, mufu, _ = cs.work("heston_exact_mixing_vanilla_price", pairs, cs.SEGMENTS, qmc)
-    alu, imad = cs.int_ops("heston_exact_mixing_vanilla_price", pairs, cs.SEGMENTS, qmc)
+def bound_ms(name: str, seg: tuple, pairs: int, qmc: bool) -> float:
+    """The bound of exact kernel ``name`` (K2 ``heston_exact_mixing_values``
+    or K3 ``heston_exact_mixing_vanilla_price``) at ``pairs`` pairs with
+    ``seg`` a segment: the draws, closes and bytes as chip_smoke's ``work``
+    counts them, the stream's integer operations as its ``int_ops``."""
+    flops, mufu, nbytes = cs.work(name, pairs, cs.SEGMENTS, qmc)
+    alu, imad = cs.int_ops(name, pairs, cs.SEGMENTS, qmc)
     cheap_f, cheap_m = cs.EXACT_SEG
     flops += pairs * 2 * cs.SEGMENTS * (seg[0] - cheap_f) + 2 * imad
     mufu += pairs * 2 * cs.SEGMENTS * (seg[1] - cheap_m)
     return 1e3 * max(flops / cs.FP32_PEAK, mufu / (cs.MUFU_PER_CLK * cs.SMS * SM_CLOCK_HZ),
-                     alu / (cs.INT_PER_CLK * cs.SMS * SM_CLOCK_HZ))
+                     alu / (cs.INT_PER_CLK * cs.SMS * SM_CLOCK_HZ), nbytes / cs.MEM_PEAK)
 
 
 def main() -> int:
@@ -151,10 +154,11 @@ def main() -> int:
         s = shares(record(args.pairs, qmc))
         seg = segment_work(s)
         s.update(segment_flops=seg[0], segment_mufu=seg[1], cheap_flops=cs.EXACT_SEG[0],
-                 cheap_mufu=cs.EXACT_SEG[1],
-                 k3_bound_ms_cheap=cs.bound("heston_exact_mixing_vanilla_price", cs.CHECK_PAIRS,
-                                            cs.SEGMENTS, SM_CLOCK_HZ, qmc)["bound_ms"],
-                 k3_bound_ms_data=k3_bound_ms(seg, cs.CHECK_PAIRS, qmc))
+                 cheap_mufu=cs.EXACT_SEG[1])
+        for k, name in KERNELS.items():
+            s[f"{k}_bound_ms_cheap"] = cs.bound(name, cs.CHECK_PAIRS, cs.SEGMENTS, SM_CLOCK_HZ,
+                                               qmc)["bound_ms"]
+            s[f"{k}_bound_ms_data"] = bound_ms(name, seg, cs.CHECK_PAIRS, qmc)
         out["QMC" if qmc else "PRNG"] = s
     print(json.dumps(out, indent=1))
     for name, s in out.items():
@@ -164,8 +168,9 @@ def main() -> int:
               f"{s['gamma_final_newton']:.4f}; Poisson mean trips {s['poisson_mean_trips']:.4f} "
               f"(count 0: {s['poisson_share_zero']:.4f}); a segment {s['segment_flops']:.1f} FLOPs "
               f"+ {s['segment_mufu']:.2f} MUFU against the cheap {s['cheap_flops']:.0f} + "
-              f"{s['cheap_mufu']:.0f}; K3 bound at 2^20 pairs {s['k3_bound_ms_data']:.4f} ms "
-              f"against {s['k3_bound_ms_cheap']:.4f}")
+              f"{s['cheap_mufu']:.0f}; bounds at 2^20 pairs "
+              + ", ".join(f"{k.upper()} {s[f'{k}_bound_ms_data']:.4f} ms against "
+                          f"{s[f'{k}_bound_ms_cheap']:.4f}" for k in KERNELS))
     return 0
 
 

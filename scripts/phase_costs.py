@@ -1,7 +1,8 @@
-"""Marginal cost of each phase of a Heston serving kernel (K3 the exact
-price, K10 the QE price + 7 greeks), of a QE mixing surface kernel (K9, or
-K12 with its Jacobian) or of a rough-Bergomi kernel (K14 values, K16 price
-+ greeks, K17 the values' VJP) on the card.
+"""Marginal cost of each phase of a Heston kernel (K1 the Euler terminal
+prices, K2 the exact-mixing values, K3 the exact price, K6 the QE-M price,
+K8 the QE mixing price, K10 the QE price + 7 greeks), of a QE mixing
+surface kernel (K9, or K12 with its Jacobian) or of a rough-Bergomi kernel
+(K14 values, K16 price + greeks, K17 the values' VJP) on the card.
 
 For each phase the script copies a tree's package (``--root``, default the
 repository) to ``build/phase_costs/<kernel> <phase>/``, rewrites the
@@ -14,7 +15,8 @@ computes wrong values: it exists only to be timed.
 
 Run on a GPU host, from the repository root:
 
-    python3 scripts/phase_costs.py OUT.json [--root DIR] [--kernel K3|K6|K8|K9|K10|K12|K14|K16|K17]
+    python3 scripts/phase_costs.py OUT.json [--root DIR]
+        [--kernel K1|K2|K3|K6|K8|K9|K10|K12|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
@@ -298,8 +300,8 @@ K12_PHASES = {
 }
 
 # K3: the exact segment's parts (exact_segment, shared with K2 and K4; one
-# text in both trees), then K3's draw, close and sums: one pair a thread,
-# then two threads a pair
+# text in every tree), then K3's draw, close and sums: one pair a thread,
+# then two threads a pair, then that walk shared with K2 (exact_group)
 _HASH_DRAW = ("const uint32_t h_ = (uint32_t)pair * 2654435761u + s * 40503u;\n"
               "{i}{d}u_pois = (float)(h_ >> 8) * (1.0f / 16777216.0f);\n"
               "{i}{d}z_gam = 4.0f * {d}u_pois - 2.0f;\n{i}{d}u_boost = 1.0f - {d}u_pois;\n"
@@ -316,6 +318,12 @@ K3_PHASES = {
           + "      }\n"),
          ("heston_exact.cu", "    if (kStaged && table) hh::stage_high(table, 4 * segments, p0, hw);\n",
           "")],
+        [("heston_exact.cu",
+          "    const ExactDraw d =\n        exact_draw_shared<kStaged>(pair, idx, table, s, "
+          "seed, device_id, odd, next, hw, c);\n",
+          "    ExactDraw d;\n    {\n      " + _HASH_DRAW.format(i="      ", d="d.") + "    }\n"),
+         ("heston_exact.cu",
+          "  if (kStaged && table) hh::stage_high(table, 4 * segments, p0, hw);\n", "")],
     ],
     "Poisson count": [
         [("heston_exact.cu", ("  if (u_pois < 0.0f) {\n", "\n  // Gamma(d/2 + N, 2c)"),
@@ -340,6 +348,8 @@ K3_PHASES = {
           "  val_a = antithetic ? (va + iva) * c.close.strike : 0.0f;\n")],
         [("heston_exact.cu", "    const float val = exact_close(v, iv, sp);\n",
           "    const float val = (v + iv) * sp.close.strike;\n")],
+        [("heston_exact.cu", "  return exact_close(v, iv, sp);\n",
+          "  return (v + iv) * sp.close.strike;\n")],
     ],
     "sums": [
         [("heston_exact.cu", "    acc += val + val_a;\n  }\n  red[threadIdx.x] = (double)acc;\n",
@@ -348,6 +358,54 @@ K3_PHASES = {
           "    const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);\n"
           "    if (!odd && g < total_pairs) acc += val + val_a;\n",
           "    if (val == -1.0f) acc = 1.0f;\n")],
+        [("heston_exact.cu",
+          "    const float val_a = __shfl_xor_sync(0xffffffffu, val, 1);\n"
+          "    if (!odd && base + q < total_pairs) acc += val + val_a;\n",
+          "    if (val == -1.0f) acc = 1.0f;\n")],
+    ],
+}
+
+# K2 (antithetic): one pair a thread (exact_pair), then K3's walk
+# (exact_group); the segment's parts are K3's
+K2_PHASES = {
+    "draw": [K3_PHASES["draw"][0], K3_PHASES["draw"][2]],
+    "Poisson count": K3_PHASES["Poisson count"],
+    "gamma quantiles": K3_PHASES["gamma quantiles"],
+    "Bessel fraction": K3_PHASES["Bessel fraction"],
+    "close": [K3_PHASES["close"][0], K3_PHASES["close"][2]],
+    "store": [
+        [("heston_exact.cu", "  out[i] = val;\n  if (antithetic) out[n_paths + i] = val_a;\n",
+          "  if (val + val_a == -1.0f) out[i] = val;\n")],
+        [("heston_exact.cu",
+          "  if (g < n_paths) out[((threadIdx.x & 1) ? n_paths : 0) + g] = val;\n",
+          "  if (val == -1.0f) out[g] = val;\n")],
+    ],
+}
+
+# K1: a Philox block per step's parity test, then one loop body per block
+# (two calls); Box-Muller, the Euler step and the close are one text in
+# both trees
+_EULER_HASH = ("hh::U4{{(uint32_t)i * 2654435761u + {k} * 40503u, (uint32_t)i * 2246822519u ^ {k}, "
+               "(uint32_t)i + {k} * 3266489917u, (uint32_t)i ^ {k} * 668265263u}}")
+_PHILOX_K = "hh::philox_block((unsigned long long)i, (uint32_t){k}, seed, device_id)"
+K1_PHASES = {
+    "Philox": [
+        [("heston_euler.cu", _PHILOX_K.format(k="(s >> 1)"), _EULER_HASH.format(k="(uint32_t)s"))],
+        [("heston_euler.cu", _PHILOX_K.format(k="k"), _EULER_HASH.format(k="(uint32_t)k")),
+         ("heston_euler.cu", _PHILOX_K.format(k="(steps / 2)"),
+          _EULER_HASH.format(k="(uint32_t)steps"))],
+    ],
+    "Box-Muller": [
+        [("heston_euler.cu", "hh::box_muller(b0, b1, z1, z2);",
+          "z1 = (float)(int)b0 * 4.6566e-10f;\n  z2 = (float)(int)b1 * 4.6566e-10f;")],
+    ],
+    "Euler advance": [
+        [("heston_euler.cu", ("  const float v_plus = fmaxf(v, 0.0f);\n", "  x = x2;\n"),
+          "  const float x2 = x + z1 * c.dt;\n  const float v2 = v + z2 * c.dt;\n")],
+    ],
+    "expf and store": [
+        [("heston_euler.cu", ("  out[i] = expf(x);\n", "\n}\n"),
+          "  if (x + xa == -1.0f) out[i] = x;")],
     ],
 }
 
@@ -526,9 +584,9 @@ K6_PHASES = {
     ],
 }
 
-PHASES = {"K3": K3_PHASES, "K6": K6_PHASES, "K8": K8_PHASES, "K9": K9_PHASES,
-          "K10": K10_PHASES, "K12": K12_PHASES, "K14": K14_PHASES, "K16": K16_PHASES,
-          "K17": K17_PHASES}
+PHASES = {"K1": K1_PHASES, "K2": K2_PHASES, "K3": K3_PHASES, "K6": K6_PHASES, "K8": K8_PHASES,
+          "K9": K9_PHASES, "K10": K10_PHASES, "K12": K12_PHASES, "K14": K14_PHASES,
+          "K16": K16_PHASES, "K17": K17_PHASES}
 
 
 def _span(text: str, old) -> tuple:

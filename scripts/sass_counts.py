@@ -35,7 +35,8 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-DEFAULT_KERNELS = ("qe_price_kernel", "qem_price_kernel", "qe_greeks_kernel")
+DEFAULT_KERNELS = ("qe_price_kernel", "qem_price_kernel", "qe_greeks_kernel", "heston_euler_kernel",
+                   "exact_values_kernel")
 
 _ALU = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "IMNMX", "LEA", "IABS",
         "POPC", "FLO", "BREV", "PRMT", "SEL", "VIADD", "VIMNMX", "ISCADD", "BMSK", "VABSDIFF",
@@ -100,6 +101,11 @@ def listing_blocks(sass: str) -> dict:
     return {k: "\n".join(v) + "\n" for k, v in out.items()}
 
 
+def wanted(name: str, patterns) -> bool:
+    """Whether kernel ``name`` (mangled) holds one of ``patterns``."""
+    return any(k in name for k in patterns)
+
+
 def counts(instrs) -> dict:
     c = collections.Counter(op_class(op) for _, op, _, _ in instrs)
     mufu = collections.Counter(op + mods for _, op, mods, _ in instrs if op == "MUFU")
@@ -139,7 +145,7 @@ def main() -> int:
     result = {}
     listings = listing_blocks(sass) if args.dump else {}
     for name, instrs in functions(sass).items():
-        if not any(k in name for k in args.kernel):
+        if not wanted(name, args.kernel):
             continue
         if args.dump:
             out = pathlib.Path(args.dump)

@@ -10,6 +10,7 @@ means within 1e-6; a rare path crosses an fp32 threshold (a Poisson count)."""
 
 import datetime as dt
 import math
+import pathlib
 
 import pytest
 import torch
@@ -49,6 +50,61 @@ def test_euler_kernel_matches_twin(gpu):
     assert hk.EULER_KERNEL.launches == before + 1
     params = torch.as_tensor(hk._euler_params(*MKT, dt_), device=gpu)
     _assert_values_close(got, hk.heston_euler_terminal_plain(params, PAIRS, 100, 7, True, 0))
+
+
+RAGGED_PAIRS = PAIRS + 7  # no multiple of 16 (a warp's pairs) or 512 (a block's threads)
+
+
+@pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "one-group"])
+@pytest.mark.parametrize("steps", [1, 3, 101])
+def test_euler_kernel_at_odd_steps_matches_twin(gpu, steps, antithetic):
+    """K1's loop of one Philox block per two steps and its odd tail, on a
+    ragged last block, both pairings, against the twin."""
+    params = torch.as_tensor(hk._euler_params(*MKT, T / steps), device=gpu)
+    before = hk.EULER_KERNEL.launches
+    got = hk._euler_terminal(params, PAIRS + 5, steps, 7, antithetic, 0)
+    torch.cuda.synchronize()
+    assert hk.EULER_KERNEL.launches == before + 1 and got.shape == (1 + antithetic, PAIRS + 5)
+    _assert_values_close(got, hk.heston_euler_terminal_plain(params, PAIRS + 5, steps, 7,
+                                                             antithetic, 0))
+
+
+@pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "one-group"])
+@pytest.mark.parametrize("segments", [1, 2, 3])
+@pytest.mark.parametrize("qmc", [True, False])
+def test_exact_values_kernel_layouts_match_twin(gpu, qmc, segments, antithetic):
+    """K2 two threads a pair (antithetic) and one path a thread (one group)
+    at 1-3 segments on a ragged pair count from a point offset off the
+    warp's 32-point cells, against the twin."""
+    offset = 777
+    params, table, kmax = ek._inputs(*MKT, T / segments, 100.0, 1.0, segments, 5, qmc, gpu)
+    before = ek.EXACT_VALUES_KERNEL.launches
+    got = ek._exact_values(params, table, RAGGED_PAIRS, segments, antithetic, kmax, 5, 0, offset)
+    torch.cuda.synchronize()
+    assert ek.EXACT_VALUES_KERNEL.launches == before + 1
+    assert got.shape == (1 + antithetic, RAGGED_PAIRS)
+    _assert_values_close(got, ek.heston_exact_mixing_values_plain(
+        params, table, RAGGED_PAIRS, segments, antithetic, kmax, 5, 0, offset))
+
+
+def test_device_math_short_forms_keep_every_floats_bits(gpu, tmp_path):
+    """scripts/device_math_check.cu, built with the kernels' flags: the short
+    forms of hh_device.cuh equal the forms they stand in for on every float
+    of their ranges (0 that differ)."""
+    import shutil
+    import subprocess
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    root = pathlib.Path(__file__).resolve().parents[1]
+    exe = tmp_path / "device_math_check"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-o",
+                    str(exe), str(root / "scripts" / "device_math_check.cu")], check=True)
+    run = subprocess.run([str(exe)], capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    reports = dict(ln.split(": ", 1) for ln in run.stdout.splitlines() if ": " in ln)
+    for form, ref in (("rcp_normal", "rcp"), ("sqrt_normal", "sqrtf"), ("sqrt_nonneg", "sqrtf"),
+                      ("log_normal", "logf"), ("sincos_small", "sincosf")):
+        assert reports.get(f"{form} vs {ref}", "").startswith("0 floats differ in range"), run.stdout
 
 
 @pytest.mark.parametrize("qmc", [True, False])
@@ -906,6 +962,24 @@ def test_exact_kernels_past_the_staging_limit_match_twins(gpu):
     torch.testing.assert_close(ek._exact_surface_sums(*run).cpu(),
                                ek.heston_exact_mixing_surface_sums_plain(*run).cpu(),
                                rtol=1e-6 * segs / 4, atol=0.0)
+
+
+@pytest.mark.parametrize("segs", [160, 300])
+def test_exact_kernels_past_the_staging_decision_match_twins(gpu, segs):
+    """K2 and K3 at 160 and 300 QMC segments against their twins: past
+    ~113 segments they read the table from global memory, where staging it
+    would leave one block an SM; at 160 the table and each warp's high
+    words (the split draw) fit a block, at 300 the table alone (145 KiB)."""
+    pairs = WIDE_PAIRS
+    params, table, kmax = ek._inputs(*GLOBAL_EXACT_MKT, 20.0 / 480, 100.0, 1.0, segs, 5, True,
+                                     gpu)
+    assert 4 * table.numel() < _optin_bytes(gpu)
+    _chain_close(ek._exact_values(params, table, pairs, segs, True, kmax, 5, 0, 0),
+                 ek.heston_exact_mixing_values_plain(params, table, pairs, segs, True, kmax, 5, 0,
+                                                     0), segs, 2)
+    _sums_close(ek._exact_price_sum(params, table, pairs, segs, kmax, 5, 0, 0).reshape(1),
+                ek.heston_exact_mixing_price_sum_plain(params, table, pairs, segs, kmax, 5, 0,
+                                                       0).reshape(1), 1e-6 * segs / 2)
 
 
 def test_surface_kernels_past_the_staging_limit_match_twins(gpu):

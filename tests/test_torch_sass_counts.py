@@ -68,3 +68,15 @@ def test_listing_blocks_keep_each_function_whole():
     assert list(blocks) == list(sc.functions(LISTING))
     assert blocks["other_kernel"].count("MUFU.EX2") == 1
     assert "DADD" in blocks["_ZN12_GLOBAL__N_115qe_price_kernelILb1EEEvPKfPKiPdxijjx"]
+
+
+@pytest.mark.parametrize("name, counted", [
+    ("_ZN12_GLOBAL__N_119heston_euler_kernelILb1EEEvPKfPfxijj", True),
+    ("_ZN12_GLOBAL__N_119exact_values_kernelILb0EEEvPKfPKiPfxiijjx", True),
+    ("_ZN12_GLOBAL__N_126exact_values_single_kernelILb1EEEvPKfPKiPfxiijjx", False),
+    ("_ZN12_GLOBAL__N_118exact_price_kernelILb1EEEvPKfPKiPdxiijjx", False),
+], ids=["K1", "K2", "K2 one group", "K3"])
+def test_default_kernels_count_the_euler_and_exact_values_kernels(name, counted):
+    """The default patterns take K1 and K2 (antithetic, every instantiation)
+    beside the serving kernels, and no other exact kernel."""
+    assert sc.wanted(name, sc.DEFAULT_KERNELS) is counted
