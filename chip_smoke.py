@@ -2802,16 +2802,19 @@ def phase_rb_serving(f64: dict, device: str) -> dict:
 
 def kernel_name(mangled: str) -> str:
     """The ``..._kernel`` identifier in a mangled entry name (a length
-    prefix then the identifier), with its bool template argument where it
-    has one (``<true>``: the staged Sobol' table, or K14-K19 past the
-    staged steps), else the name itself."""
+    prefix then the identifier), with its bool and int template arguments
+    where it has them (``<true>``: the staged Sobol' table, or K14-K19 past
+    the staged steps; K5's and K7's ``<staged, qmc>``), else
+    the name itself."""
     for found in re.finditer(r"\d+", mangled):
         for i in range(found.start(), found.end()):
             n = int(mangled[i:found.end()])
             ident = mangled[found.end():found.end() + n]
             if len(ident) == n and ident.endswith("kernel"):
-                arg = mangled[found.end() + n:found.end() + n + 5]
-                return ident + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(arg, "")
+                m = re.match(r"I((?:L[bi]\d+E)+)E", mangled[found.end() + n:])
+                args = [("false", "true")[int(v)] if k == "b" else v
+                        for k, v in re.findall(r"L([bi])(\d+)E", m.group(1) if m else "")]
+                return ident + (f"<{', '.join(args)}>" if args else "")
     return mangled[:60]
 
 
@@ -2835,7 +2838,12 @@ def output_digests(device: str) -> dict:
     K17 run also at ``solve``'s 2^22 pairs and at ``RB_EDGE_STEPS`` over
     ``RB_EDGE_PAIRS`` (a ragged last trip), antithetic and one group (K17
     at 2 steps and more), through entry points every tree since their
-    port has."""
+    port has.  K7 and K5 run also at ``solve``'s pairs (2^22, 2^23), at
+    ``EDGE_STEPS`` over ``EDGE_PAIRS`` from ``EDGE_OFFSET``, both pairings
+    (K5 also without the martingale correction), and under QMC at
+    ``QE_BAND_STEPS`` / ``QEM_BAND_STEPS`` and ``GLOBAL_QE_STEPS`` /
+    ``GLOBAL_QEM_STEPS`` (``GLOBAL_TWIN_PAIRS`` + 7 pairs from
+    ``EDGE_OFFSET``)."""
     import hashlib
 
     import torch
@@ -2932,6 +2940,34 @@ def output_digests(device: str) -> dict:
                                              antithetic=True, **kw))
         put(f"K7 {s}", qk.heston_qe_mixing_values(*mkt, dt_q, STRIKE, 1.0, n_paths=pairs,
                                                   steps=QE_STEPS, antithetic=True, **kw))
+        # K7 and K5 at solve's pairs; at EDGE_STEPS over a ragged pair count from
+        # a point offset off the 32-point cells, both pairings (K5 also without
+        # the martingale correction); under QMC on both sides of their staging
+        # decision and past the staging limit
+        put(f"K7 {s} 2^22", qk.heston_qe_mixing_values(*mkt, dt_q, STRIKE, 1.0,
+                                                       n_paths=SOLVE_PAIRS, steps=QE_STEPS,
+                                                       antithetic=True, **kw))
+        put(f"K5 {s} 2^23", qk.heston_qe_terminal(*mkt, dt_m, n_paths=QEM_SOLVE_PAIRS,
+                                                  steps=QEM_STEPS, antithetic=True, **kw))
+        for steps in EDGE_STEPS:
+            p7, t7 = qk.mix_inputs(*mkt, T / steps, STRIKE, 1.0, steps, seed, qmc, dev)
+            p5, t5 = qk.qem_inputs(*mkt, T / steps, steps, seed, qmc, dev)
+            for anti in (True, False):
+                label = f"{steps} steps{'' if anti else ' one group'}"
+                put(f"K7 {s} {label}",
+                    qk._qe_values(p7, t7, EDGE_PAIRS, steps, anti, seed, 0, EDGE_OFFSET))
+                put(f"K5 {s} {label}",
+                    qk._qem_terminal(p5, t5, EDGE_PAIRS, steps, anti, True, seed, 0, EDGE_OFFSET))
+            put(f"K5 {s} {steps} steps no mcorr",
+                qk._qem_terminal(p5, t5, EDGE_PAIRS, steps, True, False, seed, 0, EDGE_OFFSET))
+        for steps in (*QE_BAND_STEPS, GLOBAL_QE_STEPS) if qmc else ():
+            p7, t7 = qk.mix_inputs(*mkt, T / steps, STRIKE, 1.0, steps, seed, True, dev)
+            put(f"K7 QMC {steps} steps",
+                qk._qe_values(p7, t7, GLOBAL_TWIN_PAIRS + 7, steps, True, seed, 0, EDGE_OFFSET))
+        for steps in (*QEM_BAND_STEPS, GLOBAL_QEM_STEPS) if qmc else ():
+            p5, t5 = qk.qem_inputs(*mkt, T / steps, steps, seed, True, dev)
+            put(f"K5 QMC {steps} steps", qk._qem_terminal(p5, t5, GLOBAL_TWIN_PAIRS + 7, steps,
+                                                          True, True, seed, 0, EDGE_OFFSET))
         price_kw = dict(n_blocks=blocks, n_batches=4, steps=QE_STEPS, **kw)
         put(f"K8 {s}", qk.heston_qe_mixing_vanilla_price(*mkt, dt_q, STRIKE, disc, **price_kw))
         put(f"K10 {s}", *gk.heston_qe_mixing_price_and_greeks(*mkt, dt_q, STRIKE, disc, **price_kw))
@@ -3055,7 +3091,7 @@ def output_digests(device: str) -> dict:
     return out
 
 
-#: K1's and K2's digests past their main shapes: step and segment counts,
+#: K1's, K2's, K5's and K7's digests past their main shapes: step and segment counts,
 #: a pair count that is no multiple of a block's pairs or a warp's, and a
 #: Sobol' point offset off the warp's 32-point cells
 EDGE_STEPS, EDGE_SEGMENTS, EDGE_PAIRS, EDGE_OFFSET = (1, 3, 101), (1, 2, 3), 2**17 + 7, 777
@@ -3159,8 +3195,10 @@ def kernel_times(device: str, only=None) -> dict:
     e.g. K4 or K9,K12 or K15,K16; K10 times K8 beside it; ``K8 host``,
     ``K10 host`` and ``K6 host`` add the host clock; ``K8 band`` times K8
     and K10 at K8_BAND_STEPS QMC steps; ``K2 band`` K2 and K3 at
-    EXACT_BAND_SEGMENTS, :func:`exact_band_times`; ``K1 solve`` and ``K2
-    solve`` the ``solve`` walls) keeps the kernels named."""
+    EXACT_BAND_SEGMENTS, :func:`exact_band_times`; ``K7 band`` and ``K5
+    band`` K7 and K5 at QE_BAND_STEPS and QEM_BAND_STEPS QMC steps,
+    :func:`values_band_times`; ``K1 solve``, ``K2 solve``, ``K5 solve`` and
+    ``K7 solve`` the ``solve`` walls) keeps the kernels named."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3200,13 +3238,15 @@ def kernel_times(device: str, only=None) -> dict:
             out["K3 occupancy"] = ek.price_occupancy(dev)
     if only is None or "K2 band" in only:
         out.update(exact_band_times(dev))
+    if only is None or {"K7 band", "K5 band"} & set(only):
+        out.update(values_band_times(dev, only))
     if only is None or {"K8", "K8 host", "K8 band", "K10", "K10 host"} & set(only):
         out.update(qe_price_times(dev, only))
     if only is None or {"K6", "K6 host"} & set(only):
         out.update(qem_price_times(dev, only))
     if only is None or set(PATH_KERNELS) & set(only):
         out.update(path_kernel_times(dev, only))
-    if only is None or {"K1 solve", "K2 solve"} & set(only):
+    if only is None or set(SOLVE_WALLS) & set(only):
         out.update(solve_walls(dev, only))
     T_host, _, _, ex_seg = surface_grid()
     inp = surface_inputs(dev)
@@ -3379,6 +3419,38 @@ def exact_band_times(dev) -> dict:
     return out
 
 
+#: QMC step counts on both sides of K7's and K5's staging decision: on an
+#: H100 K7 stages the table and each warp's high words at 2 blocks an SM or
+#: more up to ~300 steps, K5 up to ~200, and both read the table from
+#: global memory past that (before, each staged the table alone wherever it
+#: fitted a block: K7 to ~915 steps, K5 to ~610)
+QE_BAND_STEPS = (100, 252, 400, 700)
+QEM_BAND_STEPS = (128, 200, 252, 400)
+
+
+def values_band_times(dev, only=None) -> dict:
+    """K7 (``K7 band``) and K5 (``K5 band``), antithetic, CUDA events, 5
+    calls after a warm-up, at 2^20 pairs on the QMC stream at each of
+    QE_BAND_STEPS and QEM_BAND_STEPS steps of the serving year, with the
+    table's bytes."""
+    from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    T = float(yearfrac(REF, EXPIRY))
+    out = {}
+    for steps in QE_BAND_STEPS if only is None or "K7 band" in only else ():
+        params, table = qk.mix_inputs(*MARKET_ARGS, T / steps, STRIKE, 1.0, steps, 5, True, dev)
+        out[f"K7 QMC {steps} steps {CHECK_PAIRS}"] = time_ms(
+            lambda: qk._qe_values(params, table, CHECK_PAIRS, steps, True, 5, 0, 0))
+        out[f"K7 table bytes {steps} steps"] = 4 * table.numel()
+    for steps in QEM_BAND_STEPS if only is None or "K5 band" in only else ():
+        params, table = qk.qem_inputs(*MARKET_ARGS, T / steps, steps, 5, True, dev)
+        out[f"K5 QMC {steps} steps {CHECK_PAIRS}"] = time_ms(
+            lambda: qk._qem_terminal(params, table, CHECK_PAIRS, steps, True, True, 5, 0, 0))
+        out[f"K5 table bytes {steps} steps"] = 4 * table.numel()
+    return out
+
+
 #: QMC step counts where K8's staged table and high words hold fewer blocks an
 #: SM than its table alone (250: 2 against 3 on an H100), and where they pass
 #: the staging limit while the table alone does not (700)
@@ -3461,7 +3533,7 @@ def qem_price_times(dev, only=None) -> dict:
     return out
 
 
-#: the per-path kernels not redesigned, for ``--times --only``
+#: the per-path kernels, for ``--times --only``
 PATH_KERNELS = ("K1", "K5", "K7", "K11", "K13")
 
 
@@ -3469,7 +3541,8 @@ def path_kernel_times(dev, only=None) -> dict:
     """K1, K5, K7, K11 and K13 (CUDA events, 5 calls after a warm-up) at
     PERF.md's shapes, through the launching wrappers phase 3 times: 2^20
     pairs (K13 2^24), K1 at EULER_STEPS on PRNG (also at ``solve``'s 2^23
-    pairs), K5 at QEM_STEPS and K7 and K11 at QE_STEPS on both streams."""
+    pairs), K5 at QEM_STEPS (also at ``solve``'s 2^23) and K7 (also at
+    ``solve``'s 2^22) and K11 at QE_STEPS on both streams."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3496,13 +3569,15 @@ def path_kernel_times(dev, only=None) -> dict:
     for qmc in (False, True):
         s = "QMC" if qmc else "PRNG"
         if want("K5"):
-            run5 = (*qk.qem_inputs(*MARKET_ARGS, T / QEM_STEPS, QEM_STEPS, 5, qmc, dev),
-                    CHECK_PAIRS, QEM_STEPS, True, True, 5, 0, 0)
-            out[f"K5 {s} {CHECK_PAIRS}"] = time_ms(lambda: qk._qem_terminal(*run5))
+            p_qem, t_qem = qk.qem_inputs(*MARKET_ARGS, T / QEM_STEPS, QEM_STEPS, 5, qmc, dev)
+            for pairs in (CHECK_PAIRS, QEM_SOLVE_PAIRS):
+                out[f"K5 {s} {pairs}"] = time_ms(lambda: qk._qem_terminal(
+                    p_qem, t_qem, pairs, QEM_STEPS, True, True, 5, 0, 0))
         params, table = qk.mix_inputs(*MARKET_ARGS, dt_q, STRIKE, 1.0, QE_STEPS, 5, qmc, dev)
         if want("K7"):
-            out[f"K7 {s} {CHECK_PAIRS}"] = time_ms(
-                lambda: qk._qe_values(params, table, CHECK_PAIRS, QE_STEPS, True, 5, 0, 0))
+            for pairs in (CHECK_PAIRS, SOLVE_PAIRS):
+                out[f"K7 {s} {pairs}"] = time_ms(
+                    lambda: qk._qe_values(params, table, pairs, QE_STEPS, True, 5, 0, 0))
         if want("K11"):
             out[f"K11 {s} {CHECK_PAIRS}"] = time_ms(lambda: gk._vjp_sums(
                 params, t5, table, ct, CHECK_PAIRS, QE_STEPS, True, 5, 0, 0))
@@ -3518,8 +3593,10 @@ def path_kernel_times(dev, only=None) -> dict:
 
 def solve_walls(dev, only=None) -> dict:
     """``solve`` on the card as phase 3 calls it: the exact route (K2, 2^22
-    pairs, 2 segments, both streams; ``K2 solve``) and the Euler route (K1,
-    2^23 pairs x 100 steps; ``K1 solve``).  Per call: the synchronised wall
+    pairs, 2 segments, both streams; ``K2 solve``), the Euler route (K1,
+    2^23 pairs x 100 steps; ``K1 solve``), the QE mixing route (K7, 2^22
+    pairs x 11 steps, both streams; ``K7 solve``) and the QE-M route (K5,
+    2^23 pairs x 10 steps, both streams; ``K5 solve``).  Per call: the synchronised wall
     on the host clock (median of 5 after a warm-up), the device time of one
     call and its main kernel's (``torch.profiler``), and the idle share 1 -
     device / wall."""
@@ -3543,6 +3620,18 @@ def solve_walls(dev, only=None) -> dict:
                      ht.EulerMaruyama(use_kernel=True),
                      ht.SimulationConfig(EULER_PAIRS, EULER_STEPS, ht.Antithetic(), 0, False),
                      "heston_euler"))
+    if only is None or "K7 solve" in only:
+        runs += [(f"solve QE {'QMC' if qmc else 'PRNG'} {SOLVE_PAIRS} x {QE_STEPS}",
+                  ht.HestonQE(conditional=True, use_kernel=True),
+                  ht.SimulationConfig(SOLVE_PAIRS, QE_STEPS, ht.Antithetic(), 0, qmc),
+                  "qe_values")
+                 for qmc in (True, False)]
+    if only is None or "K5 solve" in only:
+        runs += [(f"solve QE-M {'QMC' if qmc else 'PRNG'} {QEM_SOLVE_PAIRS} x {QEM_STEPS}",
+                  ht.HestonQE(use_kernel=True),
+                  ht.SimulationConfig(QEM_SOLVE_PAIRS, QEM_STEPS, ht.Antithetic(), 0, qmc),
+                  "qem_terminal")
+                 for qmc in (True, False)]
     out = {}
     for label, strat, cfg, kernel in runs:
         method = ht.MonteCarlo(ht.HestonDynamics(), strat, cfg, device=str(dev))
@@ -3567,6 +3656,10 @@ def solve_walls(dev, only=None) -> dict:
         out[f"{label} kernel ms"] = sum(_device_ms(e) for e in events if kernel in e.key)
         out[f"{label} idle share"] = 1.0 - device_ms / wall
     return out
+
+
+#: the ``solve`` routes :func:`solve_walls` times, for ``--times --only``
+SOLVE_WALLS = ("K1 solve", "K2 solve", "K5 solve", "K7 solve")
 
 
 #: the rough-Bergomi kernels, for ``--times --only`` ("K15 wide": K15 past

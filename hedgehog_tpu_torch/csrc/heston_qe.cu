@@ -31,7 +31,9 @@
 // kPriceBlocks an SM, fewer only where the shared memory of K8's launch
 // leaves room for fewer: one wave of K8 and K10, whatever registers either
 // takes.  Two threads a pair (one path each, the draws shared by shuffles)
-// ran 1.10x slower on an H100 (PERF.md).
+// ran 1.10x slower on an H100 (PERF.md).  K7 is built once per stream, one
+// pair a thread, and draws K8's split Sobol' integers where the staged
+// table and high words keep hh::kStagedBlocks blocks an SM.
 
 #include "heston_qe.cuh"
 
@@ -40,36 +42,49 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPriceBlocks = 3;  // K8's and K10's blocks an SM: their grid, one wave of both
 
-// The (value, antithetic value) of global pair `pair`.
-__device__ __forceinline__ void mix_pair(unsigned long long pair, const hh::MixParams& c,
-                                         const int* sobol, int steps, bool antithetic,
-                                         uint32_t seed, uint32_t device_id,
-                                         long long point_offset, float& val, float& val_a) {
-  float v = c.v0, iv = 0.0f, j = 0.0f, va = c.v0, iva = 0.0f, ja = 0.0f;
-  hh::mix_draws(pair, sobol, steps, seed, device_id, point_offset, [&](float z, float u) {
-    hh::mix_advance(v, iv, j, z, u, c);
-    if (antithetic) hh::mix_advance(va, iva, ja, -z, 1.0f - u, c);
-  });
-  val = hh::cond_bs_value(iv, j, c.close);
-  val_a = antithetic ? hh::cond_bs_value(iva, ja, c.close) : 0.0f;
-}
-
-template <bool kStaged>
+// K7 on one stream (kQmc 1: the Sobol' table, 0: Philox), one pair a
+// thread: thread i walks pair i (Sobol' point point_offset + i) and writes
+// its value to out[i] and, under antithetic pairing, its antithetic value
+// to out[n_paths + i].  Staged under QMC, it draws as K8 does (heston_qe.cuh
+// draw_steps, the warp's high words staged by hh::stage_high), so every
+// lane of the last, ragged warp stages before the lanes past n_paths drop
+// out; the global-table build (kStaged false) forms the same integers
+// through sobol_bits.  The pairing stays a run-time test: a build per
+// pairing saved 4 of 554 instructions a PRNG loop of two steps, and launch
+// bounds of 5 or 6 blocks an SM did not pay (PERF.md §6).
+template <bool kStaged, int kQmc>
 __global__ void __launch_bounds__(kThreads)
 qe_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                  float* __restrict__ out, long long n_paths, int steps, int antithetic,
                  uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ hh::MixParams sp;
   extern __shared__ int ssob[];
-  const int* table =
+  const int* staged =
       hh::stage_inputs<0, 2, hh::MixParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int* table = kQmc ? staged : nullptr;
+  if constexpr (kQmc == 1) __builtin_assume(table != nullptr);
+  const long long base = (long long)blockIdx.x * blockDim.x;
+  const long long i = base + threadIdx.x;
+  const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
+  uint32_t* hw = hh::warp_high_words(ssob, 2 * steps);
+  if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);
   if (i >= n_paths) return;
-  float val, val_a;
-  mix_pair((unsigned long long)i, sp, table, steps, antithetic != 0, seed, device_id,
-           point_offset, val, val_a);
-  out[i] = val;
-  if (antithetic) out[n_paths + i] = val_a;
+  const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
+  float v = sp.v0, iv = 0.0f, j = 0.0f, va = sp.v0, iva = 0.0f, ja = 0.0f;
+  const auto step = [&](float z, float u) {
+    hh::mix_advance(v, iv, j, z, u, sp);
+    if (antithetic) hh::mix_advance(va, iva, ja, -z, 1.0f - u, sp);
+  };
+  if constexpr (kQmc == 1) {
+    float z_odd = 0.0f;
+    uint32_t w_odd = 0u;
+    hh::draw_steps<kStaged>((unsigned long long)i, (uint32_t)(point_offset + i), table, hw, c,
+                            0u, 0u, 0, steps, z_odd, w_odd, step);
+  } else {
+    hh::mix_draws((unsigned long long)i, nullptr, steps, seed, device_id, 0, step);
+  }
+  out[i] = hh::cond_bs_value(iv, j, sp.close);
+  if (antithetic) out[n_paths + i] = hh::cond_bs_value(iva, ja, sp.close);
 }
 
 // K8's body on one stream (kQmc 1: the Sobol' table, 0: Philox), K10's walk
@@ -135,10 +150,6 @@ qe_price_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
   }
 }
 
-size_t sobol_smem(const int* sobol, int steps) {
-  return sobol ? sizeof(int) * 2 * steps * (hh::kSobolBits + 1) : 0;
-}
-
 // K8's launch at `steps` steps on one stream: under QMC the staged kernel
 // with the table and each warp's high words in dynamic shared memory where
 // they fit a block, else the kernel that reads the table from global memory.
@@ -171,22 +182,25 @@ cudaError_t price_blocks_per_sm(const PriceLaunch& launch, int* per_sm) {
 
 }  // namespace
 
-// Per-path undiscounted values: out is (1 or 2, n_paths) float32.
+// Per-path undiscounted values: out is (1 or 2, n_paths) float32.  Under
+// QMC the staged build (the table and each warp's high words in dynamic
+// shared memory, the split draw) where it keeps hh::kStagedBlocks blocks an
+// SM, else the build that reads the table from global memory.
 extern "C" int hh_qe_values(const float* params, const int* sobol, float* out, long long n_paths,
                             int steps, int antithetic, unsigned seed, unsigned device_id,
                             long long point_offset, void* stream) {
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  const size_t smem = sobol_smem(sobol, steps);
-  if (smem <= hh::smem_room(qe_values_kernel<true>)) {
-    const cudaError_t err = hh::allow_dynamic_smem(qe_values_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    qe_values_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((n_paths + kThreads - 1) / kThreads);
+  const auto run = [&](auto kernel, size_t smem) {
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         params, sobol, out, n_paths, steps, antithetic, seed, device_id, point_offset);
-  } else {
-    qe_values_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        params, sobol, out, n_paths, steps, antithetic, seed, device_id, point_offset);
-  }
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  };
+  if (!sobol) return run(qe_values_kernel<false, 0>, 0);
+  const size_t smem = hh::split_smem(2 * steps, kThreads);
+  bool staged = false;
+  const cudaError_t err = hh::split_fits(qe_values_kernel<true, 1>, kThreads, smem, &staged);
+  if (err != cudaSuccess) return (int)err;
+  return staged ? run(qe_values_kernel<true, 1>, smem) : run(qe_values_kernel<false, 1>, 0);
 }
 
 // Sums of (value + antithetic value): partials is (grid,) float64, one per

@@ -227,6 +227,56 @@ __device__ __forceinline__ void draw_steps(unsigned long long pair, uint32_t idx
   }
 }
 
+// The (z_v, z_x, u) of each of `steps` steps of one pair (point idx) from
+// the staged table (K5 under QMC), passed in step order to advance(z_v,
+// z_x, u): qem_draws's numbers, dims 3s, 3s+1 and 3s+2 of the point, each
+// integer the warp's high word (hw, candidate c) XOR sobol_low of the point.
+template <class F>
+__device__ __forceinline__ void qem_split_steps(uint32_t idx, const int* sobol, const uint32_t* hw,
+                                                int c, int steps, F&& advance) {
+  for (int s = 0; s < steps; ++s) {
+    const int* rows = sobol + 3 * s * (kSobolBits + 1);
+    const uint32_t* h = hw + 6 * s + c;
+    const uint32_t av = h[0] ^ sobol_low(idx, rows);
+    const uint32_t ax = h[2] ^ sobol_low(idx, rows + kSobolBits + 1);
+    const uint32_t au = h[4] ^ sobol_low(idx, rows + 2 * (kSobolBits + 1));
+    advance(sobol_normal_of(av), sobol_normal_of(ax), sobol_uniform_open_of(au));
+  }
+}
+
+// This warp's high Sobol' words past a staged table of `dims` dimensions:
+// 2 candidates of each (stage_high), kStaged K5 and K7.
+__device__ __forceinline__ uint32_t* warp_high_words(int* ssob, int dims) {
+  return reinterpret_cast<uint32_t*>(ssob + dims * (kSobolBits + 1)) + (threadIdx.x >> 5) * 2 * dims;
+}
+
+// The staged dynamic shared memory of a QMC launch of `threads` threads a
+// block over a table of `dims` dimensions: the table, then each warp's high
+// words.
+inline size_t split_smem(int dims, int threads) {
+  return sizeof(int) * dims * (kSobolBits + 1) + sizeof(uint32_t) * (threads / 32) * 2 * dims;
+}
+
+// The fewest blocks an SM at which K5 and K7 stage the split draw, as K2
+// and K3 do: at 2 the staged split draw beat the table in global memory, at
+// 1 it lost (PERF.md §6).  Past it they read the table from global memory.
+constexpr int kStagedBlocks = 2;
+
+// Whether the staged build `kernel` runs at `smem` dynamic shared bytes
+// with kStagedBlocks blocks an SM or more (opting it into that memory).
+template <class K>
+inline cudaError_t split_fits(K kernel, int threads, size_t smem, bool* fits) {
+  *fits = false;
+  if (smem > smem_room(kernel)) return cudaSuccess;
+  int per_sm = 0;
+  cudaError_t err = allow_dynamic_smem(kernel, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  *fits = err == cudaSuccess && per_sm >= kStagedBlocks;
+  return err;
+}
+
 // The parameter struct P (floats only), the tangent table (kDirs rows; none
 // for the primal kernels) and the Sobol' table (kDimsPerStep dims per step:
 // 2 for mixing, 3 for QE-M) into shared memory, for the QE kernels of

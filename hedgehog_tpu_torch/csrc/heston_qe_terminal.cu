@@ -17,8 +17,10 @@
 // Per step and path: two or three polished reciprocals, a square root and
 // one or two logs for the QE draw and the martingale correction, the
 // square root of the log-price variance, and for the stream a Philox call
-// and a Box-Muller pair (or a Sobol' XOR walk over three dimensions).  K5
-// writes 4 bytes per path once, K6 one double per block.  The design keeps
+// and a Box-Muller pair (or three Sobol' integers, each a staged high word
+// XOR the point's five low rows, and two inverse normals).  K5 is built
+// once per stream, so neither build carries the other's state.  K5 writes
+// 4 bytes per path once, K6 one double per block.  The design keeps
 // one antithetic pair per thread with (log S, V) of both paths in registers,
 // shares the pair's draws (normals negated, u mirrored), evaluates only the
 // QE branch and the martingale-correction branch a lane takes (the TPU
@@ -42,6 +44,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPriceBlocks = 5;  // K6's blocks an SM (48 registers at most): its grid
+constexpr int kTerminalQmcBlocks = 4;  // K5's blocks an SM under QMC (PERF.md §6)
 
 struct QemPriceParams {
   hh::QemParams c;
@@ -64,20 +67,47 @@ __device__ __forceinline__ void qem_pair(unsigned long long pair, const hh::QemP
                 });
 }
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+// K5 on one stream (kQmc 1: the Sobol' table, 0: Philox), one pair a
+// thread: thread i walks pair i (Sobol' point point_offset + i) and writes
+// S_T to out[i] and, under antithetic pairing, the antithetic path's to
+// out[n_paths + i].  The Philox build is K6's walk at K6's kPriceBlocks
+// blocks an SM.  Staged under QMC, each Sobol' integer is the warp's high
+// word XOR sobol_low (heston_qe.cuh qem_split_steps, the high words staged
+// by hh::stage_high over 3 * steps dimensions), so every lane of the last,
+// ragged warp stages before the lanes past n_paths drop out; the
+// global-table build (kStaged false) forms the same integers through
+// sobol_bits.  The pairing and the martingale correction stay run-time
+// tests: a build per pairing saved 13 of 853 instructions of the staged
+// QMC step loop, none of the Philox one, and moved no time by 2% (PERF.md
+// §6).
+template <bool kStaged, int kQmc>
+__global__ void __launch_bounds__(kThreads, kQmc ? kTerminalQmcBlocks : kPriceBlocks)
 qem_terminal_kernel(const float* __restrict__ params, const int* __restrict__ sobol,
                     float* __restrict__ out, long long n_paths, int steps, int antithetic,
                     int mcorr, uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ hh::QemParams sp;
   extern __shared__ int ssob[];
-  const int* table =
+  const int* staged =
       hh::stage_inputs<0, 3, hh::QemParams, kStaged>(params, nullptr, sobol, steps, sp, nullptr, ssob);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int* table = kQmc ? staged : nullptr;
+  if constexpr (kQmc == 1) __builtin_assume(table != nullptr);
+  const long long base = (long long)blockIdx.x * blockDim.x;
+  const long long i = base + threadIdx.x;
+  const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
+  uint32_t* hw = hh::warp_high_words(ssob, 3 * steps);
+  if (kStaged && kQmc) hh::stage_high(table, 3 * steps, p0, hw);
   if (i >= n_paths) return;
-  float x, xa;
-  qem_pair((unsigned long long)i, sp, table, steps, antithetic != 0, mcorr != 0, seed, device_id,
-           point_offset, x, xa);
+  const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
+  float v = sp.v0, va = sp.v0, x = sp.log_s0, xa = sp.log_s0;
+  const auto step = [&](float z_v, float z_x, float u) {
+    hh::qem_advance(x, v, z_v, z_x, u, sp, mcorr != 0);
+    if (antithetic) hh::qem_advance(xa, va, -z_v, -z_x, 1.0f - u, sp, mcorr != 0);
+  };
+  if constexpr (kStaged && kQmc == 1) {
+    hh::qem_split_steps((uint32_t)(point_offset + i), table, hw, c, steps, step);
+  } else {
+    hh::qem_draws((unsigned long long)i, table, steps, seed, device_id, point_offset, step);
+  }
   out[i] = expf(x);
   if (antithetic) out[n_paths + i] = expf(xa);
 }
@@ -106,24 +136,26 @@ qem_price_kernel(const float* __restrict__ params, double* __restrict__ partials
 }  // namespace
 
 // Terminal prices: out is (1 or 2, n_paths) float32; params (14,) float32;
-// sobol the (3*steps, 31) table or null (Philox), staged in shared memory
-// where it fits a block, else read from global memory.
+// sobol the (3*steps, 31) table or null (Philox).  Under QMC the staged
+// build (the table and each warp's high words in dynamic shared memory, the
+// split draw) where it keeps hh::kStagedBlocks blocks an SM, else the build
+// that reads the table from global memory.
 extern "C" int hh_qem_terminal(const float* params, const int* sobol, float* out,
                                long long n_paths, int steps, int antithetic, int mcorr,
                                unsigned seed, unsigned device_id, long long point_offset,
                                void* stream) {
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  const size_t smem = sobol ? sizeof(int) * 3 * steps * (hh::kSobolBits + 1) : 0;
-  if (smem <= hh::smem_room(qem_terminal_kernel<true>)) {
-    const cudaError_t err = hh::allow_dynamic_smem(qem_terminal_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    qem_terminal_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((n_paths + kThreads - 1) / kThreads);
+  const auto run = [&](auto kernel, size_t smem) {
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         params, sobol, out, n_paths, steps, antithetic, mcorr, seed, device_id, point_offset);
-  } else {
-    qem_terminal_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        params, sobol, out, n_paths, steps, antithetic, mcorr, seed, device_id, point_offset);
-  }
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  };
+  if (!sobol) return run(qem_terminal_kernel<false, 0>, 0);
+  const size_t smem = hh::split_smem(3 * steps, kThreads);
+  bool staged = false;
+  const cudaError_t err = hh::split_fits(qem_terminal_kernel<true, 1>, kThreads, smem, &staged);
+  if (err != cudaSuccess) return (int)err;
+  return staged ? run(qem_terminal_kernel<true, 1>, smem) : run(qem_terminal_kernel<false, 1>, 0);
 }
 
 // Sums of the pairs' two call payoffs: partials is (grid,) float64, one per

@@ -1,6 +1,7 @@
 """Marginal cost of each phase of a Heston kernel (K1 the Euler terminal
-prices, K2 the exact-mixing values, K3 the exact price, K6 the QE-M price,
-K8 the QE mixing price, K10 the QE price + 7 greeks), of a QE mixing
+prices, K2 the exact-mixing values, K3 the exact price, K5 the QE-M
+terminal prices, K6 the QE-M price, K7 the QE mixing values, K8 the QE
+mixing price, K10 the QE price + 7 greeks), of a QE mixing
 surface kernel (K9, or K12 with its Jacobian) or of a rough-Bergomi kernel
 (K14 values, K16 price + greeks, K17 the values' VJP) on the card.
 
@@ -16,7 +17,7 @@ computes wrong values: it exists only to be timed.
 Run on a GPU host, from the repository root:
 
     python3 scripts/phase_costs.py OUT.json [--root DIR]
-        [--kernel K1|K2|K3|K6|K8|K9|K10|K12|K14|K16|K17]
+        [--kernel K1|K2|K3|K5|K6|K7|K8|K9|K10|K12|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
@@ -584,9 +585,76 @@ K6_PHASES = {
     ],
 }
 
-PHASES = {"K1": K1_PHASES, "K2": K2_PHASES, "K3": K3_PHASES, "K6": K6_PHASES, "K8": K8_PHASES,
-          "K9": K9_PHASES, "K10": K10_PHASES, "K12": K12_PHASES, "K14": K14_PHASES,
-          "K16": K16_PHASES, "K17": K17_PHASES}
+# K7: one pair a thread through mix_pair (K8's first alternatives), then
+# one build per stream (qe_values_kernel: K8's split draw under QMC,
+# hh::mix_draws under PRNG)
+_K7_OUT = ("  out[i] = hh::cond_bs_value(iv, j, sp.close);\n"
+           "  if (antithetic) out[n_paths + i] = hh::cond_bs_value(iva, ja, sp.close);\n")
+K7_PHASES = {
+    "draw": [
+        K8_PHASES["draw"][0],
+        [("heston_qe.cu", ("  if constexpr (kQmc == 1) {\n    float z_odd = 0.0f;\n", _K7_OUT),
+          "  " + _MIX_HASH.format(i="  ").replace("(uint32_t)pair", "(uint32_t)i")
+          + "    step(z, u);\n  }\n"),
+         ("heston_qe.cu",
+          "  uint32_t* hw = hh::warp_high_words(ssob, 2 * steps);\n"
+          "  if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);\n",
+          "  uint32_t* hw = hh::warp_high_words(ssob, 2 * steps);\n")],
+    ],
+    "QE step": [
+        K8_PHASES["QE step"][0],
+        [("heston_qe.cu",
+          "    hh::mix_advance(v, iv, j, z, u, sp);\n"
+          "    if (antithetic) hh::mix_advance(va, iva, ja, -z, 1.0f - u, sp);\n",
+          "    iv += sp.half_dt * u;\n    j += z;\n"
+          "    if (antithetic) {\n      iva += sp.half_dt * (1.0f - u);\n      ja -= z;\n    }\n")],
+    ],
+    "close": [
+        K8_PHASES["close"][0],
+        [("heston_qe.cu", _K7_OUT,
+          "  out[i] = (iv + j) * sp.close.strike;\n"
+          "  if (antithetic) out[n_paths + i] = (iva + ja) * sp.close.strike;\n")],
+    ],
+    "store": [
+        [("heston_qe.cu", "  out[i] = val;\n  if (antithetic) out[n_paths + i] = val_a;\n",
+          "  if (val + val_a == -1.0f) out[i] = val;\n")],
+        [("heston_qe.cu", _K7_OUT,
+          "  {\n    const float val = hh::cond_bs_value(iv, j, sp.close);\n"
+          "    const float val_a = antithetic ? hh::cond_bs_value(iva, ja, sp.close) : 0.0f;\n"
+          "    if (val + val_a == -1.0f) out[i] = val;\n  }\n")],
+    ],
+}
+
+# K5: one pair a thread through qem_pair (K6's), then one build per stream
+# (qem_terminal_kernel: the split QE-M draw under QMC, hh::qem_draws under
+# PRNG); the QE-M step's parts and the store (one text) are K6's and the
+# parent's
+K5_PHASES = {
+    "draw": [
+        K6_PHASES["draw"][0],
+        [("heston_qe_terminal.cu",
+          ("  if constexpr (kStaged && kQmc == 1) {\n    hh::qem_split_steps(",
+           "  out[i] = expf(x);\n"),
+          "  " + _MIX_HASH.format(i="  ").replace("(uint32_t)pair", "(uint32_t)i")
+          .replace("z = 4.0f", "z_v = 4.0f")
+          + "    step(z_v, 1.0f - 2.0f * u, u);\n  }\n"),
+         ("heston_qe_terminal.cu",
+          "  uint32_t* hw = hh::warp_high_words(ssob, 3 * steps);\n"
+          "  if (kStaged && kQmc) hh::stage_high(table, 3 * steps, p0, hw);\n",
+          "  uint32_t* hw = hh::warp_high_words(ssob, 3 * steps);\n")],
+    ],
+    "QE variance draw": K6_PHASES["QE variance draw"],
+    "martingale correction": K6_PHASES["martingale correction"],
+    "log-price update": K6_PHASES["log-price update"],
+    "expf and store": [
+        [("heston_qe_terminal.cu", "  out[i] = expf(x);\n  if (antithetic) out[n_paths + i] = expf(xa);\n",
+          "  if (x + xa == -1.0f) out[i] = x;\n")],
+    ],
+}
+
+PHASES = {"K1": K1_PHASES, "K2": K2_PHASES, "K3": K3_PHASES, "K5": K5_PHASES, "K6": K6_PHASES,
+          "K7": K7_PHASES, "K8": K8_PHASES, "K9": K9_PHASES, "K10": K10_PHASES,
+          "K12": K12_PHASES, "K14": K14_PHASES, "K16": K16_PHASES, "K17": K17_PHASES}
 
 
 def _span(text: str, old) -> tuple:

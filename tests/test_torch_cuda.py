@@ -233,6 +233,36 @@ def test_qe_terminal_kernels_match_twins(gpu, qmc):
                                          rel=1e-6)
 
 
+@pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "one-group"])
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("qmc", [True, False])
+def test_qe_values_and_terminal_kernels_at_the_edges_match_twins(gpu, qmc, steps, antithetic):
+    """K7 and K5 (each built per stream and pairing) at 1 and 3 steps over a
+    ragged pair count from a point offset off the warp's 32-point cells,
+    both pairings, against their twins; K5 also without the martingale
+    correction."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    offset = 777
+    params, table = qk.mix_inputs(*MKT, T / steps, 100.0, 1.0, steps, 5, qmc, gpu)
+    before = qk.QE_VALUES_KERNEL.launches
+    got = qk._qe_values(params, table, RAGGED_PAIRS, steps, antithetic, 5, 0, offset)
+    torch.cuda.synchronize()
+    assert qk.QE_VALUES_KERNEL.launches == before + 1
+    assert got.shape == (1 + antithetic, RAGGED_PAIRS)
+    _assert_values_close(got, qk.heston_qe_mixing_values_plain(params, table, RAGGED_PAIRS, steps,
+                                                               antithetic, 5, 0, offset))
+    p5, t5 = qk.qem_inputs(*MKT, T / steps, steps, 5, qmc, gpu)
+    for mcorr in (True, False):
+        before = qk.QEM_TERMINAL_KERNEL.launches
+        got = qk._qem_terminal(p5, t5, RAGGED_PAIRS, steps, antithetic, mcorr, 5, 0, offset)
+        torch.cuda.synchronize()
+        assert qk.QEM_TERMINAL_KERNEL.launches == before + 1
+        assert got.shape == (1 + antithetic, RAGGED_PAIRS)
+        _assert_values_close(got, qk.heston_qe_terminal_plain(p5, t5, RAGGED_PAIRS, steps,
+                                                              antithetic, mcorr, 5, 0, offset))
+
+
 @pytest.mark.parametrize("n_paths", [PAIRS, PAIRS + 3], ids=["aligned", "ragged"])
 def test_gbm_kernel_matches_twin(gpu, n_paths):
     """K13 per path: 16-byte stores where the rows are aligned, scalar stores
@@ -933,6 +963,31 @@ def test_qe_kernels_past_the_staging_limit_match_twins(gpu):
     assert 4 * t5.numel() > _optin_bytes(gpu)
     _chain_close(qk._qem_terminal(p5, t5, pairs, n, True, True, 5, 0, 0),
                  qk.heston_qe_terminal_plain(p5, t5, pairs, n, True, True, 5, 0, 0), n, 10)
+
+
+@pytest.mark.parametrize("kernel, steps", [("K7", 252), ("K7", 400), ("K5", 200), ("K5", 252)])
+def test_qe_values_and_terminal_kernels_past_the_staging_decision_match_twins(gpu, kernel, steps):
+    """K7 and K5 under QMC on both sides of their staging decision against
+    their twins, from a point offset off the warp's 32-point cells: they
+    stage the table and each warp's high words (the split draw) where 2
+    blocks an SM still hold them (K7 to ~300 steps, K5 to ~200 on an H100)
+    and read the table from global memory past that, where the table alone
+    still fits a block."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    pairs, offset = WIDE_PAIRS + 7, 777
+    if kernel == "K7":
+        params, table = qk.mix_inputs(*MKT, T / steps, 100.0, 1.0, steps, 5, True, gpu)
+        assert 4 * table.numel() < _optin_bytes(gpu)
+        _chain_close(qk._qe_values(params, table, pairs, steps, True, 5, 0, offset),
+                     qk.heston_qe_mixing_values_plain(params, table, pairs, steps, True, 5, 0,
+                                                      offset), steps, 11)
+    else:
+        params, table = qk.qem_inputs(*MKT, T / steps, steps, 5, True, gpu)
+        assert 4 * table.numel() < _optin_bytes(gpu)
+        _chain_close(qk._qem_terminal(params, table, pairs, steps, True, True, 5, 0, offset),
+                     qk.heston_qe_terminal_plain(params, table, pairs, steps, True, True, 5, 0,
+                                                 offset), steps, 10)
 
 
 def test_exact_kernels_past_the_staging_limit_match_twins(gpu):

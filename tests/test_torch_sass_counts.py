@@ -80,3 +80,21 @@ def test_default_kernels_count_the_euler_and_exact_values_kernels(name, counted)
     """The default patterns take K1 and K2 (antithetic, every instantiation)
     beside the serving kernels, and no other exact kernel."""
     assert sc.wanted(name, sc.DEFAULT_KERNELS) is counted
+
+
+@pytest.mark.parametrize("name, counted", [
+    ("_ZN12_GLOBAL__N_116qe_values_kernelILb1ELi1EEEvPKfPKiPfxiijjx", True),
+    ("_ZN12_GLOBAL__N_116qe_values_kernelILb0ELi1EEEvPKfPKiPfxiijjx", True),
+    ("_ZN12_GLOBAL__N_116qe_values_kernelILb0ELi0EEEvPKfPKiPfxiijjx", True),
+    ("_ZN12_GLOBAL__N_119qem_terminal_kernelILb1ELi1EEEvPKfPKiPfxiiijjx", True),
+    ("_ZN12_GLOBAL__N_119qem_terminal_kernelILb0ELi1EEEvPKfPKiPfxiiijjx", True),
+    ("_ZN12_GLOBAL__N_119qem_terminal_kernelILb0ELi0EEEvPKfPKiPfxiiijjx", True),
+    ("_ZN12_GLOBAL__N_113qe_vjp_kernelILb1EEEvPKfS2_PKiS2_Pdxiijjx", False),
+    ("_ZN12_GLOBAL__N_116rb_values_kernelILb1EEEvPKfPKiPfxiijjx", False),
+], ids=["K7 staged QMC", "K7 global QMC", "K7 PRNG", "K5 staged QMC", "K5 global QMC", "K5 PRNG",
+        "K11", "K14"])
+def test_default_kernels_count_every_values_and_terminal_build(name, counted):
+    """The default patterns take each stream's build of K7 (qe_values_kernel)
+    and K5 (qem_terminal_kernel), and neither K11 nor the rough-Bergomi
+    values kernel."""
+    assert sc.wanted(name, sc.DEFAULT_KERNELS) is counted
