@@ -2843,7 +2843,13 @@ def output_digests(device: str) -> dict:
     (K5 also without the martingale correction), and under QMC at
     ``QE_BAND_STEPS`` / ``QEM_BAND_STEPS`` and ``GLOBAL_QE_STEPS`` /
     ``GLOBAL_QEM_STEPS`` (``GLOBAL_TWIN_PAIRS`` + 7 pairs from
-    ``EDGE_OFFSET``)."""
+    ``EDGE_OFFSET``).  K11 runs also at ``solve``'s 2^22 pairs, at
+    ``EDGE_STEPS`` over ``EDGE_PAIRS`` from ``EDGE_OFFSET`` (both pairings
+    under PRNG, antithetic under QMC) and under QMC at ``QE_BAND_STEPS`` and
+    ``GLOBAL_QE_STEPS`` (``GLOBAL_TWIN_PAIRS`` + 7 pairs from
+    ``EDGE_OFFSET``), each under a smooth cotangent, and the gradients of
+    ``torch.autograd.grad`` through the QE mixing ``solve`` (K7 forward, K11
+    backward) at 2^22 pairs."""
     import hashlib
 
     import torch
@@ -2883,8 +2889,16 @@ def output_digests(device: str) -> dict:
         return ({"grid": blocks_per_sm * sms} if "grid" in inspect.signature(fn).parameters
                 else {})
 
-    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device=dev, dtype=torch.float32))).reshape(
-        2, pairs)
+    def smooth_ct(n):
+        return (0.5 + 0.5 * torch.sin(torch.arange(2 * n, device=dev, dtype=torch.float32))
+                ).reshape(2, n)
+
+    def vjp_table_at(steps):
+        return torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                               HESTON["sigma"], T / steps, steps, 5), device=dev)
+
+    ct, ct22, ct_edge = smooth_ct(pairs), smooth_ct(SOLVE_PAIRS), smooth_ct(EDGE_PAIRS)
+    ct_band = smooth_ct(GLOBAL_TWIN_PAIRS + 7)
     put("K1 PRNG", hk.heston_euler_terminal(*mkt, T / EULER_STEPS, n_paths=pairs, steps=EULER_STEPS,
                                             seed=seed, antithetic=True, device=dev))
     # K1 at solve's pairs, and at odd step counts over a ragged last block,
@@ -2958,12 +2972,19 @@ def output_digests(device: str) -> dict:
                     qk._qe_values(p7, t7, EDGE_PAIRS, steps, anti, seed, 0, EDGE_OFFSET))
                 put(f"K5 {s} {label}",
                     qk._qem_terminal(p5, t5, EDGE_PAIRS, steps, anti, True, seed, 0, EDGE_OFFSET))
+                if anti or not qmc:
+                    put(f"K11 {s} {label}", gk._vjp_sums(
+                        p7, vjp_table_at(steps), t7, ct_edge[:1 + anti].contiguous(),
+                        EDGE_PAIRS, steps, anti, seed, 0, EDGE_OFFSET))
             put(f"K5 {s} {steps} steps no mcorr",
                 qk._qem_terminal(p5, t5, EDGE_PAIRS, steps, True, False, seed, 0, EDGE_OFFSET))
         for steps in (*QE_BAND_STEPS, GLOBAL_QE_STEPS) if qmc else ():
             p7, t7 = qk.mix_inputs(*mkt, T / steps, STRIKE, 1.0, steps, seed, True, dev)
             put(f"K7 QMC {steps} steps",
                 qk._qe_values(p7, t7, GLOBAL_TWIN_PAIRS + 7, steps, True, seed, 0, EDGE_OFFSET))
+            put(f"K11 QMC {steps} steps",
+                gk._vjp_sums(p7, vjp_table_at(steps), t7, ct_band, GLOBAL_TWIN_PAIRS + 7, steps,
+                             True, seed, 0, EDGE_OFFSET))
         for steps in (*QEM_BAND_STEPS, GLOBAL_QEM_STEPS) if qmc else ():
             p5, t5 = qk.qem_inputs(*mkt, T / steps, steps, seed, True, dev)
             put(f"K5 QMC {steps} steps", qk._qem_terminal(p5, t5, GLOBAL_TWIN_PAIRS + 7, steps,
@@ -2987,6 +3008,19 @@ def output_digests(device: str) -> dict:
             put(f"K8 {s}{label} sums", qk._qe_price_sum(
                 params, table, n, QE_STEPS, seed, 0, 0, **at_grid(qk._qe_price_sum, K8_BLOCKS)))
         put(f"K11 {s}", gk._vjp_sums(params, vjp_table, table, ct, pairs, QE_STEPS, True, seed, 0, 0))
+        put(f"K11 {s} 2^22", gk._vjp_sums(params, vjp_table, table, ct22, SOLVE_PAIRS, QE_STEPS,
+                                          True, seed, 0, 0))
+        # the gradients of autograd through the QE mixing solve (K7 forward,
+        # K11 backward) in its seven market leaves
+        leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in PARAMS7]
+        spot, v0, kappa, theta, sigma, rho, r = leaves
+        sol = ht.solve(ht.PricingProblem(
+            ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(), ht.Spot()),
+            ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho)),
+            ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True, use_kernel=True),
+                          ht.SimulationConfig(SOLVE_PAIRS, QE_STEPS, ht.Antithetic(), seed, qmc),
+                          device=device))
+        put(f"K11 {s} autograd", torch.stack(torch.autograd.grad(sol.price, leaves)))
         surf_kw = dict(n_strikes=len(SURF_STRIKES), n_blocks=pairs // qk.PAIRS_PER_BLOCK,
                        n_batches=1, **kw)
         # the public surface wrappers at the package's grid (its last bits
@@ -3196,9 +3230,12 @@ def kernel_times(device: str, only=None) -> dict:
     ``K10 host`` and ``K6 host`` add the host clock; ``K8 band`` times K8
     and K10 at K8_BAND_STEPS QMC steps; ``K2 band`` K2 and K3 at
     EXACT_BAND_SEGMENTS, :func:`exact_band_times`; ``K7 band`` and ``K5
-    band`` K7 and K5 at QE_BAND_STEPS and QEM_BAND_STEPS QMC steps,
-    :func:`values_band_times`; ``K1 solve``, ``K2 solve``, ``K5 solve`` and
-    ``K7 solve`` the ``solve`` walls) keeps the kernels named."""
+    band`` K7 and K5 at QE_BAND_STEPS and QEM_BAND_STEPS QMC steps, ``K11
+    band`` K11 at QE_BAND_STEPS, :func:`values_band_times`; ``K1 solve``,
+    ``K2 solve``, ``K5 solve`` and ``K7 solve`` the ``solve`` walls, ``K11
+    autograd`` the wall of ``torch.autograd.grad`` through the QE mixing
+    ``solve``, K7 forward and K11 backward, :func:`solve_walls`) keeps the
+    kernels named."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3238,7 +3275,7 @@ def kernel_times(device: str, only=None) -> dict:
             out["K3 occupancy"] = ek.price_occupancy(dev)
     if only is None or "K2 band" in only:
         out.update(exact_band_times(dev))
-    if only is None or {"K7 band", "K5 band"} & set(only):
+    if only is None or {"K7 band", "K5 band", "K11 band"} & set(only):
         out.update(values_band_times(dev, only))
     if only is None or {"K8", "K8 host", "K8 band", "K10", "K10 host"} & set(only):
         out.update(qe_price_times(dev, only))
@@ -3429,11 +3466,14 @@ QEM_BAND_STEPS = (128, 200, 252, 400)
 
 
 def values_band_times(dev, only=None) -> dict:
-    """K7 (``K7 band``) and K5 (``K5 band``), antithetic, CUDA events, 5
-    calls after a warm-up, at 2^20 pairs on the QMC stream at each of
-    QE_BAND_STEPS and QEM_BAND_STEPS steps of the serving year, with the
-    table's bytes."""
+    """K7 (``K7 band``), K11 (``K11 band``, under a smooth cotangent) and
+    K5 (``K5 band``), antithetic, CUDA events, 5 calls after a warm-up, at
+    2^20 pairs on the QMC stream at each of QE_BAND_STEPS (K7, K11) and
+    QEM_BAND_STEPS (K5) steps of the serving year, with the table's bytes."""
+    import torch
+
     from hedgehog_tpu_torch.core.dates import yearfrac
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
     from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
     T = float(yearfrac(REF, EXPIRY))
@@ -3443,6 +3483,14 @@ def values_band_times(dev, only=None) -> dict:
         out[f"K7 QMC {steps} steps {CHECK_PAIRS}"] = time_ms(
             lambda: qk._qe_values(params, table, CHECK_PAIRS, steps, True, 5, 0, 0))
         out[f"K7 table bytes {steps} steps"] = 4 * table.numel()
+    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * CHECK_PAIRS, device=dev, dtype=torch.float32))
+          ).reshape(2, CHECK_PAIRS)
+    for steps in QE_BAND_STEPS if only is None or "K11 band" in only else ():
+        params, table = qk.mix_inputs(*MARKET_ARGS, T / steps, STRIKE, 1.0, steps, 5, True, dev)
+        t5 = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                             HESTON["sigma"], T / steps, steps, 5), device=dev)
+        out[f"K11 QMC {steps} steps {CHECK_PAIRS}"] = time_ms(
+            lambda: gk._vjp_sums(params, t5, table, ct, CHECK_PAIRS, steps, True, 5, 0, 0))
     for steps in QEM_BAND_STEPS if only is None or "K5 band" in only else ():
         params, table = qk.qem_inputs(*MARKET_ARGS, T / steps, steps, 5, True, dev)
         out[f"K5 QMC {steps} steps {CHECK_PAIRS}"] = time_ms(
@@ -3542,7 +3590,8 @@ def path_kernel_times(dev, only=None) -> dict:
     PERF.md's shapes, through the launching wrappers phase 3 times: 2^20
     pairs (K13 2^24), K1 at EULER_STEPS on PRNG (also at ``solve``'s 2^23
     pairs), K5 at QEM_STEPS (also at ``solve``'s 2^23) and K7 (also at
-    ``solve``'s 2^22) and K11 at QE_STEPS on both streams."""
+    ``solve``'s 2^22) and K11 (also at autograd's 2^22) at QE_STEPS on both
+    streams."""
     import torch
 
     from hedgehog_tpu_torch.core.dates import yearfrac
@@ -3562,8 +3611,8 @@ def path_kernel_times(dev, only=None) -> dict:
             out[f"K1 PRNG {pairs}"] = time_ms(
                 lambda: hk._euler_terminal(pe, pairs, EULER_STEPS, 7, True, 0))
     dt_q = T / QE_STEPS
-    ct = (0.5 + 0.5 * torch.sin(torch.arange(2 * CHECK_PAIRS, device=dev,
-                                             dtype=torch.float32))).reshape(2, CHECK_PAIRS)
+    cts = {n: (0.5 + 0.5 * torch.sin(torch.arange(2 * n, device=dev, dtype=torch.float32))
+               ).reshape(2, n) for n in (CHECK_PAIRS, SOLVE_PAIRS)}
     t5 = torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
                                          HESTON["sigma"], dt_q, QE_STEPS, 5), device=dev)
     for qmc in (False, True):
@@ -3578,9 +3627,9 @@ def path_kernel_times(dev, only=None) -> dict:
             for pairs in (CHECK_PAIRS, SOLVE_PAIRS):
                 out[f"K7 {s} {pairs}"] = time_ms(
                     lambda: qk._qe_values(params, table, pairs, QE_STEPS, True, 5, 0, 0))
-        if want("K11"):
-            out[f"K11 {s} {CHECK_PAIRS}"] = time_ms(lambda: gk._vjp_sums(
-                params, t5, table, ct, CHECK_PAIRS, QE_STEPS, True, 5, 0, 0))
+        for pairs in (CHECK_PAIRS, SOLVE_PAIRS) if want("K11") else ():
+            out[f"K11 {s} {pairs}"] = time_ms(lambda: gk._vjp_sums(
+                params, t5, table, cts[pairs], pairs, QE_STEPS, True, 5, 0, 0))
     if want("K13"):
         mean_g, std_g = lognormal_law(T)
         pg = torch.tensor([mean_g, std_g], dtype=torch.float32, device=dev)
@@ -3596,50 +3645,77 @@ def solve_walls(dev, only=None) -> dict:
     pairs, 2 segments, both streams; ``K2 solve``), the Euler route (K1,
     2^23 pairs x 100 steps; ``K1 solve``), the QE mixing route (K7, 2^22
     pairs x 11 steps, both streams; ``K7 solve``) and the QE-M route (K5,
-    2^23 pairs x 10 steps, both streams; ``K5 solve``).  Per call: the synchronised wall
-    on the host clock (median of 5 after a warm-up), the device time of one
-    call and its main kernel's (``torch.profiler``), and the idle share 1 -
-    device / wall."""
+    2^23 pairs x 10 steps, both streams; ``K5 solve``); and
+    ``torch.autograd.grad`` of the QE mixing route's price in its seven
+    market leaves (K7 forward, K11 backward, both streams; ``K11
+    autograd``).  Per call: the synchronised wall on the host clock (median
+    of 5 after a warm-up), the device time of one call and its kernels'
+    (``torch.profiler``), and the idle share 1 - device / wall; for the
+    autograd route also the forward's and the backward's walls (the price
+    read between them), the 15 operations of most host time in the profiled
+    call, and the wall of rebuilding K11's inputs on the host as the
+    backward once did (``mix_inputs`` and the tangent table's copy)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
-    market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
-    prob = ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(),
-                                              ht.Spot()), market)
+    def problem(leaves=None):
+        spot, v0, kappa, theta, sigma, rho, r = leaves or PARAMS7
+        market = ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho)
+        return ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(),
+                                                  ht.Spot()), market)
+
+    prob, qe = problem(), ht.HestonQE(conditional=True, use_kernel=True)
     runs = []
     if only is None or "K2 solve" in only:
         runs += [(f"solve exact {'QMC' if qmc else 'PRNG'} {SOLVE_PAIRS}",
                   ht.HestonExactMixing(use_kernel=True),
                   ht.SimulationConfig(SOLVE_PAIRS, SEGMENTS, ht.Antithetic(), 0, qmc),
-                  "exact_values")
+                  ("exact_values",), False)
                  for qmc in (True, False)]
     if only is None or "K1 solve" in only:
         runs.append((f"solve Euler {EULER_PAIRS} x {EULER_STEPS}",
                      ht.EulerMaruyama(use_kernel=True),
                      ht.SimulationConfig(EULER_PAIRS, EULER_STEPS, ht.Antithetic(), 0, False),
-                     "heston_euler"))
+                     ("heston_euler",), False))
     if only is None or "K7 solve" in only:
-        runs += [(f"solve QE {'QMC' if qmc else 'PRNG'} {SOLVE_PAIRS} x {QE_STEPS}",
-                  ht.HestonQE(conditional=True, use_kernel=True),
+        runs += [(f"solve QE {'QMC' if qmc else 'PRNG'} {SOLVE_PAIRS} x {QE_STEPS}", qe,
                   ht.SimulationConfig(SOLVE_PAIRS, QE_STEPS, ht.Antithetic(), 0, qmc),
-                  "qe_values")
+                  ("qe_values",), False)
                  for qmc in (True, False)]
     if only is None or "K5 solve" in only:
         runs += [(f"solve QE-M {'QMC' if qmc else 'PRNG'} {QEM_SOLVE_PAIRS} x {QEM_STEPS}",
                   ht.HestonQE(use_kernel=True),
                   ht.SimulationConfig(QEM_SOLVE_PAIRS, QEM_STEPS, ht.Antithetic(), 0, qmc),
-                  "qem_terminal")
+                  ("qem_terminal",), False)
+                 for qmc in (True, False)]
+    if only is None or "K11 autograd" in only:
+        runs += [(f"autograd QE {'QMC' if qmc else 'PRNG'} {SOLVE_PAIRS} x {QE_STEPS}", qe,
+                  ht.SimulationConfig(SOLVE_PAIRS, QE_STEPS, ht.Antithetic(), 0, qmc),
+                  ("qe_values", "qe_vjp"), True)
                  for qmc in (True, False)]
     out = {}
-    for label, strat, cfg, kernel in runs:
+    for label, strat, cfg, kernels, grad in runs:
         method = ht.MonteCarlo(ht.HestonDynamics(), strat, cfg, device=str(dev))
+        halves = []
 
         def call():
-            return float(ht.solve(prob, method).price)
+            if not grad:
+                return float(ht.solve(prob, method).price)
+            leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in PARAMS7]
+            t0 = time.perf_counter()
+            sol = ht.solve(problem(leaves), method)
+            price = float(sol.price)
+            t1 = time.perf_counter()
+            grads = [float(g) for g in torch.autograd.grad(sol.price, leaves)]
+            halves.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+            return price, grads
 
         call()
+        halves.clear()
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -3653,13 +3729,33 @@ def solve_walls(dev, only=None) -> dict:
         device_ms = sum(_device_ms(e) for e in events)
         out[f"{label} wall ms"] = wall
         out[f"{label} device ms"] = device_ms
-        out[f"{label} kernel ms"] = sum(_device_ms(e) for e in events if kernel in e.key)
+        for kernel in kernels:
+            key = "kernel ms" if len(kernels) == 1 else f"{kernel} ms"
+            out[f"{label} {key}"] = sum(_device_ms(e) for e in events if kernel in e.key)
         out[f"{label} idle share"] = 1.0 - device_ms / wall
+        if grad:
+            out[f"{label} forward wall ms"] = sorted(f for f, _ in halves[:5])[2]
+            out[f"{label} backward wall ms"] = sorted(b for _, b in halves[:5])[2]
+            out[f"{label} profile host"] = [
+                [e.key, e.count, e.cpu_time_total / 1e3, _device_ms(e)]
+                for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:15]]
+            T = float(ht.yearfrac(REF, EXPIRY))
+            rebuild = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                qk.mix_inputs(*MARKET_ARGS, T / QE_STEPS, STRIKE, 1.0, QE_STEPS, 0, cfg.qmc, dev)
+                torch.as_tensor(gk._greek_table(HESTON["V0"], HESTON["kappa"], HESTON["theta"],
+                                                HESTON["sigma"], T / QE_STEPS, QE_STEPS, 5),
+                                device=dev)
+                torch.cuda.synchronize()
+                rebuild.append(1e3 * (time.perf_counter() - t0))
+            out[f"{label} backward input rebuild ms"] = sorted(rebuild[1:])[2]
     return out
 
 
 #: the ``solve`` routes :func:`solve_walls` times, for ``--times --only``
-SOLVE_WALLS = ("K1 solve", "K2 solve", "K5 solve", "K7 solve")
+SOLVE_WALLS = ("K1 solve", "K2 solve", "K5 solve", "K7 solve", "K11 autograd")
 
 
 #: the rough-Bergomi kernels, for ``--times --only`` ("K15 wide": K15 past

@@ -78,8 +78,8 @@ qe_values_kernel(const float* __restrict__ params, const int* __restrict__ sobol
   if constexpr (kQmc == 1) {
     float z_odd = 0.0f;
     uint32_t w_odd = 0u;
-    hh::draw_steps<kStaged>((unsigned long long)i, (uint32_t)(point_offset + i), table, hw, c,
-                            0u, 0u, 0, steps, z_odd, w_odd, step);
+    hh::draw_steps<true, kStaged>((unsigned long long)i, (uint32_t)(point_offset + i), table, hw,
+                                  c, 0u, 0u, 0, steps, z_odd, w_odd, step);
   } else {
     hh::mix_draws((unsigned long long)i, nullptr, steps, seed, device_id, 0, step);
   }
@@ -122,8 +122,8 @@ __device__ __forceinline__ void price_body(const float* params, const int* sobol
     if constexpr (kQmc == 1) {
       float z_odd = 0.0f;
       uint32_t w_odd = 0u;
-      hh::draw_steps<kStaged>((unsigned long long)g, (uint32_t)(point_offset + g), table, hw, c,
-                              0u, 0u, 0, steps, z_odd, w_odd, step);
+      hh::draw_steps<true, kStaged>((unsigned long long)g, (uint32_t)(point_offset + g), table,
+                                    hw, c, 0u, 0u, 0, steps, z_odd, w_odd, step);
     } else {
       hh::mix_draws((unsigned long long)g, nullptr, steps, seed, device_id, 0, step);
     }

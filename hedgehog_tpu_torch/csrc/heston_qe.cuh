@@ -172,7 +172,7 @@ __device__ __forceinline__ BsPartials close_partials(const CloseGroup& g, float 
   return o;
 }
 
-// ---- The split Sobol' draw (K9, K12 in heston_surface.cu; K10) ----
+// ---- The split Sobol' draw (K9, K12 in heston_surface.cu; K7, K8, K10, K11) ----
 //
 // A warp's 32 lanes take 32 consecutive points, so a point's bits >= 5 are
 // one of two warp-uniform values (hh_device.cuh sobol_high, sobol_low,
@@ -180,50 +180,58 @@ __device__ __forceinline__ BsPartials close_partials(const CloseGroup& g, float 
 
 // The (z, u) of steps [step, end) of one pair (point idx), passed in step
 // order to advance(z, u): mix_draws's numbers over a surface's steps (K9,
-// K12) or over one path's (K10, step 0 to steps).
-// Under Philox one block per two steps in mix_draws's order, running
-// across the segments (the step index counts the whole
+// K12) or over one path's (K7, K8, K10, K11: step 0 to steps), on the
+// stream kQmc names, so that a build for one stream holds no code of the
+// other.  Under Philox one block per two steps in mix_draws's order,
+// running across the segments (the step index counts the whole
 // trajectory, so a segment that ends on an even step leaves the block's
 // second normal and word, z_odd and w_odd, to the next segment's first
 // step).  Under QMC the Sobol' pair of step s: staged (kSplit), each
 // integer the warp's high word (hw, candidate c) XOR sobol_low of the
 // point; else the table in global memory through sobol_bits.
-template <bool kSplit, class F>
+template <bool kQmc, bool kSplit, class F>
 __device__ __forceinline__ void draw_steps(unsigned long long pair, uint32_t idx, const int* sobol,
                                            const uint32_t* hw, int c, uint32_t seed,
                                            uint32_t device_id, int step, int end, float& z_odd,
                                            uint32_t& w_odd, F&& advance) {
-  if (sobol) {
+  if constexpr (kQmc && kSplit) {
+    // the point's low-bit masks, formed once and held: left free, ptxas
+    // formed them again every step in K7 (17 more instructions a step, 6%
+    // of K7 at 2^22 pairs on an H100, PERF.md)
+    uint32_t m[5];
+    sobol_low_masks(idx, m);
+    asm volatile("" : "+r"(m[0]), "+r"(m[1]), "+r"(m[2]), "+r"(m[3]), "+r"(m[4]));
     for (int s = step; s < end; ++s) {
       const int* rows = sobol + 2 * s * (kSobolBits + 1);
-      if constexpr (kSplit) {
-        const uint32_t az = hw[4 * s + c] ^ sobol_low(idx, rows);
-        const uint32_t au = hw[4 * s + 2 + c] ^ sobol_low(idx, rows + kSobolBits + 1);
-        advance(sobol_normal_of(az), sobol_uniform_open_of(au));
-      } else {
-        advance(sobol_normal(idx, rows), sobol_uniform_open(idx, rows + kSobolBits + 1));
-      }
+      const uint32_t az = hw[4 * s + c] ^ sobol_low_of(m, rows);
+      const uint32_t au = hw[4 * s + 2 + c] ^ sobol_low_of(m, rows + kSobolBits + 1);
+      advance(sobol_normal_of(az), sobol_uniform_open_of(au));
     }
-    return;
-  }
-  int s = step;
-  if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
-    advance(z_odd, uniform_from_bits(w_odd));
-    ++s;
-  }
-  for (; s + 1 < end; s += 2) {
-    const U4 w = philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
-    float z0, z1;
-    box_muller(w.x, w.y, z0, z1);
-    advance(z0, uniform_from_bits(w.z));
-    advance(z1, uniform_from_bits(w.w));
-  }
-  if (s < end) {
-    const U4 w = philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
-    float z0;
-    box_muller(w.x, w.y, z0, z_odd);
-    advance(z0, uniform_from_bits(w.z));
-    w_odd = w.w;
+  } else if constexpr (kQmc) {
+    for (int s = step; s < end; ++s) {
+      const int* rows = sobol + 2 * s * (kSobolBits + 1);
+      advance(sobol_normal(idx, rows), sobol_uniform_open(idx, rows + kSobolBits + 1));
+    }
+  } else {
+    int s = step;
+    if (s & 1) {  // a segment has >= 1 step, so the block of step s - 1 was drawn
+      advance(z_odd, uniform_from_bits(w_odd));
+      ++s;
+    }
+    for (; s + 1 < end; s += 2) {
+      const U4 w = philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+      float z0, z1;
+      box_muller(w.x, w.y, z0, z1);
+      advance(z0, uniform_from_bits(w.z));
+      advance(z1, uniform_from_bits(w.w));
+    }
+    if (s < end) {
+      const U4 w = philox_block(pair, (uint32_t)(s >> 1), seed, device_id);
+      float z0;
+      box_muller(w.x, w.y, z0, z_odd);
+      advance(z0, uniform_from_bits(w.z));
+      w_odd = w.w;
+    }
   }
 }
 
@@ -245,7 +253,7 @@ __device__ __forceinline__ void qem_split_steps(uint32_t idx, const int* sobol, 
 }
 
 // This warp's high Sobol' words past a staged table of `dims` dimensions:
-// 2 candidates of each (stage_high), kStaged K5 and K7.
+// 2 candidates of each (stage_high), kStaged K5, K7 and K11.
 __device__ __forceinline__ uint32_t* warp_high_words(int* ssob, int dims) {
   return reinterpret_cast<uint32_t*>(ssob + dims * (kSobolBits + 1)) + (threadIdx.x >> 5) * 2 * dims;
 }
@@ -257,9 +265,9 @@ inline size_t split_smem(int dims, int threads) {
   return sizeof(int) * dims * (kSobolBits + 1) + sizeof(uint32_t) * (threads / 32) * 2 * dims;
 }
 
-// The fewest blocks an SM at which K5 and K7 stage the split draw, as K2
-// and K3 do: at 2 the staged split draw beat the table in global memory, at
-// 1 it lost (PERF.md §6).  Past it they read the table from global memory.
+// The fewest blocks an SM at which K5, K7 and K11 stage the split draw, as
+// K2 and K3 do: at 2 the staged split draw beat the table in global memory,
+// at 1 it lost (PERF.md §6).  Past it they read the table from global memory.
 constexpr int kStagedBlocks = 2;
 
 // Whether the staged build `kernel` runs at `smem` dynamic shared bytes

@@ -30,6 +30,12 @@
 // at bit 5 as K9 and K12 do (hh::draw_steps: the same numbers as
 // hh::mix_draws), and closes each path with hh::close_partials (the vega
 // sharing Phi(cp d1)'s exponential), each field to cond_bs_partials's bits.
+// K11 runs one pair a thread on a grid of ceil(n_paths / 256) blocks, so
+// each block's float64 sums keep their bits; it is built as K7 is, once per
+// stream (its Philox build holds no Sobol' state), draws K7's split Sobol'
+// integers where the staged table and high words keep hh::kStagedBlocks
+// blocks an SM (the table in global memory past that), and closes with
+// K10's hh::close_partials.
 
 #include "heston_qe.cuh"
 
@@ -41,6 +47,10 @@ constexpr int kVjpDirs = 5;     // V0, kappa, theta, sigma, T
 constexpr int kGreekCols = 7;   // y, chain x 4, w, y_rho
 constexpr int kVjpCols = 8;     // chain x 5, w, y_rho, y_strike
 constexpr int kGreekBlocks = 3;  // K10's blocks an SM: K8's grid is one wave of both
+// K11's Philox build's blocks an SM: at 3 (80 registers, no spill) it took
+// 0.62 ms at 2^22 pairs on an H100 against 0.67 at 2 (110 registers) and
+// 0.64 at 4 (PERF.md); its QMC builds are declared for hh::kStagedBlocks.
+constexpr int kVjpBlocks = 3;
 
 // K10's body on one stream (kQmc 1: the Sobol' table, 0: Philox), so that
 // the other stream's draw state holds no registers.  The grid-stride round
@@ -76,11 +86,12 @@ __device__ __forceinline__ void greeks_body(const float* params, const float* ta
     hh::tan_init(sa, sp);
     float z_odd = 0.0f;
     uint32_t w_odd = 0u;
-    hh::draw_steps<kStaged>((unsigned long long)g, (uint32_t)(point_offset + g), table, hw, c,
-                            seed, device_id, 0, steps, z_odd, w_odd, [&](float z, float u) {
-                              hh::tan_step(s, z, u, sp, stab);
-                              hh::tan_step(sa, -z, 1.0f - u, sp, stab);
-                            });
+    hh::draw_steps<kQmc == 1, kStaged>((unsigned long long)g, (uint32_t)(point_offset + g), table,
+                                       hw, c, seed, device_id, 0, steps, z_odd, w_odd,
+                                       [&](float z, float u) {
+                                         hh::tan_step(s, z, u, sp, stab);
+                                         hh::tan_step(sa, -z, 1.0f - u, sp, stab);
+                                       });
     // the close shares the vega's exponential with Phi(cp d1)
     // (hh::close_partials), each field to the bit cond_bs_partials's
     const hh::BsPartials b =
@@ -121,11 +132,16 @@ qe_greeks_kernel(const float* __restrict__ params, const float* __restrict__ tab
   }
 }
 
-// Adds path `st`'s cotangent-weighted contributions to the eight sums.
+// Adds path `st`'s cotangent-weighted contributions to the eight sums.  The
+// close shares the vega's exponential with Phi(cp d1) (hh::close_partials),
+// each field to cond_bs_partials's bits in K11 before its redesign, whose
+// compiler fused y_rho's first product into its subtraction on both paths:
+// the form close_partials pins for the mirror.
 __device__ __forceinline__ void weighted_sums(const hh::TanState<kVjpDirs>& st, float ct,
                                               const hh::MixParams& c,
                                               const float (*tab)[hh::kTanCols], float* acc) {
-  const hh::BsPartials b = hh::cond_bs_partials(st.iv, st.j, c.close);
+  const hh::BsPartials b =
+      hh::close_partials<true>(hh::close_group(st.iv, st.j, c.close), st.iv, st.j, c.close);
 #pragma unroll
   for (int d = 0; d < kVjpDirs; ++d) {
     const float div = hh::div_real(st, c, tab, d);
@@ -136,37 +152,92 @@ __device__ __forceinline__ void weighted_sums(const hh::TanState<kVjpDirs>& st, 
   acc[7] += ct * (-c.close.cp * b.phi2);
 }
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+// The block's eight float64 sums by hh::block_sums' tree (at each level h
+// the sum of thread t + h's subtree is added to thread t's, t < h), all
+// eight columns at once: the levels 128 to 32 through shared memory (the
+// upper half's sums), 16 to 1 in warp 0 by shuffles.  The same additions
+// in the same order, so the same bits, with 5 barriers where block_sums
+// takes 10 a column: at one pair a thread the tree was a sixth of K11's
+// time on an H100 (PERF.md).
+__device__ __forceinline__ void vjp_block_sums(const float (&acc)[kVjpCols],
+                                               double (*red)[kThreads / 2], double* partials) {
+  const int t = threadIdx.x;
+  double v[kVjpCols];
+#pragma unroll
+  for (int k = 0; k < kVjpCols; ++k) v[k] = (double)acc[k];
+#pragma unroll
+  for (int h = kThreads / 2; h >= 32; h >>= 1) {
+    if (t >= h && t < 2 * h) {
+#pragma unroll
+      for (int k = 0; k < kVjpCols; ++k) red[k][t - h] = v[k];
+    }
+    __syncthreads();
+    if (t < h) {
+#pragma unroll
+      for (int k = 0; k < kVjpCols; ++k) v[k] += red[k][t];
+    }
+    if (h > 32) __syncthreads();  // the next level rewrites what this one read
+  }
+  if (t < 32) {
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1) {
+#pragma unroll
+      for (int k = 0; k < kVjpCols; ++k) v[k] += __shfl_down_sync(0xffffffffu, v[k], h);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int k = 0; k < kVjpCols; ++k) partials[(long long)k * gridDim.x + blockIdx.x] = v[k];
+    }
+  }
+}
+
+// K11 on one stream (kQmc 1: the Sobol' table, 0: Philox), one pair a
+// thread: thread i walks pair i (Sobol' point point_offset + i) with its
+// tangents and adds its cotangent-weighted sums, ct[i] and, under
+// antithetic pairing, ct[n_paths + i] for the antithetic path; the block
+// sums them in float64 (vjp_block_sums).  Staged under QMC, it draws K7's
+// split Sobol' integers (hh::draw_steps, the warp's high words staged by
+// hh::stage_high), so every lane of the last, ragged warp stages before the
+// lanes past n_paths drop out; the global-table build (kStaged false) forms
+// the same integers through sobol_bits.  The pairing stays a run-time test,
+// as in K7.
+template <bool kStaged, int kQmc>
+__global__ void __launch_bounds__(kThreads, kQmc ? hh::kStagedBlocks : kVjpBlocks)
 qe_vjp_kernel(const float* __restrict__ params, const float* __restrict__ tab,
               const int* __restrict__ sobol, const float* __restrict__ ct,
               double* __restrict__ partials, long long n_paths, int steps, int antithetic,
               uint32_t seed, uint32_t device_id, long long point_offset) {
   __shared__ hh::MixParams sp;
   __shared__ float stab[kVjpDirs][hh::kTanCols];
-  __shared__ double red[kThreads];
+  __shared__ double red[kVjpCols][kThreads / 2];
   extern __shared__ int ssob[];
-  const int* table = hh::stage_inputs<kVjpDirs, 2, hh::MixParams, kStaged>(params, tab, sobol,
-                                                                          steps, sp, stab, ssob);
+  const int* staged = hh::stage_inputs<kVjpDirs, 2, hh::MixParams, kStaged>(params, tab, sobol,
+                                                                           steps, sp, stab, ssob);
+  const int* table = kQmc ? staged : nullptr;
+  if constexpr (kQmc == 1) __builtin_assume(table != nullptr);
+  const long long base = (long long)blockIdx.x * blockDim.x;
+  const long long i = base + threadIdx.x;
+  const uint32_t p0 = (uint32_t)(point_offset + base) + (threadIdx.x & ~31u);
+  uint32_t* hw = hh::warp_high_words(ssob, 2 * steps);
+  if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);
   float acc[kVjpCols] = {};
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_paths) {
+    const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
     hh::TanState<kVjpDirs> s, sa;
     hh::tan_init(s, sp);
     hh::tan_init(sa, sp);
-    hh::mix_draws((unsigned long long)i, table, steps, seed, device_id, point_offset,
-                  [&](float z, float u) {
-                    hh::tan_step(s, z, u, sp, stab);
-                    if (antithetic) hh::tan_step(sa, -z, 1.0f - u, sp, stab);
-                  });
+    float z_odd = 0.0f;
+    uint32_t w_odd = 0u;
+    hh::draw_steps<kQmc == 1, kStaged>((unsigned long long)i, (uint32_t)(point_offset + i), table,
+                                       hw, c, seed, device_id, 0, steps, z_odd, w_odd,
+                                       [&](float z, float u) {
+                                         hh::tan_step(s, z, u, sp, stab);
+                                         if (antithetic) hh::tan_step(sa, -z, 1.0f - u, sp, stab);
+                                       });
     weighted_sums(s, ct[i], sp, stab, acc);
     if (antithetic) weighted_sums(sa, ct[n_paths + i], sp, stab, acc);
   }
-  hh::block_sums<kThreads>(acc, red, partials);
-}
-
-size_t sobol_smem(const int* sobol, int steps) {
-  return sobol ? sizeof(int) * 2 * steps * (hh::kSobolBits + 1) : 0;
+  vjp_block_sums(acc, red, partials);
 }
 
 // K10's staged dynamic shared memory: the table, then each warp's high words.
@@ -199,25 +270,27 @@ extern "C" int hh_qe_greeks(const float* params, const float* tab, const int* so
 }
 
 // Cotangent-weighted sums over the paths: ct is (1 or 2, n_paths) float32,
-// partials (8, ceil(n_paths / 256)) float64.
+// partials (8, ceil(n_paths / 256)) float64.  Under QMC the staged build
+// (the table and each warp's high words in dynamic shared memory, the split
+// draw) where it keeps hh::kStagedBlocks blocks an SM, else the build that
+// reads the table from global memory.
 extern "C" int hh_qe_values_vjp(const float* params, const float* tab, const int* sobol,
                                 const float* ct, double* partials, long long n_paths, int steps,
                                 int antithetic, unsigned seed, unsigned device_id,
                                 long long point_offset, void* stream) {
-  const long long blocks = (n_paths + kThreads - 1) / kThreads;
-  const size_t smem = sobol_smem(sobol, steps);
-  if (smem <= hh::smem_room(qe_vjp_kernel<true>)) {
-    const cudaError_t err = hh::allow_dynamic_smem(qe_vjp_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    qe_vjp_kernel<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        params, tab, sobol, ct, partials, n_paths, steps, antithetic, seed, device_id,
-        point_offset);
-  } else {
-    qe_vjp_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        params, tab, sobol, ct, partials, n_paths, steps, antithetic, seed, device_id,
-        point_offset);
-  }
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((n_paths + kThreads - 1) / kThreads);
+  const auto run = [&](auto kernel, size_t smem) {
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(params, tab, sobol, ct, partials,
+                                                             n_paths, steps, antithetic, seed,
+                                                             device_id, point_offset);
+    return (int)cudaGetLastError();
+  };
+  if (!sobol) return run(qe_vjp_kernel<false, 0>, 0);
+  const size_t smem = hh::split_smem(2 * steps, kThreads);
+  bool staged = false;
+  const cudaError_t err = hh::split_fits(qe_vjp_kernel<true, 1>, kThreads, smem, &staged);
+  if (err != cudaSuccess) return (int)err;
+  return staged ? run(qe_vjp_kernel<true, 1>, smem) : run(qe_vjp_kernel<false, 1>, 0);
 }
 
 // K10's occupancy on the current device at `steps` steps, QMC (its table and

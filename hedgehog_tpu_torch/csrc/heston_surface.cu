@@ -69,8 +69,28 @@ constexpr int kGlobals = 8;  // v0, theta, inv_sigma, k_over_sigma, rho, rho2_ha
 constexpr int kPerSeg = 5;   // e, c_s2_v, c_s2_c, half_dt, ktd_over_sigma
 constexpr int kJacBlocks = 3;  // K12's blocks an SM (its register budget: 85)
 
-using hh::draw_steps;  // the split Sobol' draw (heston_qe.cuh), shared with K10
+using hh::draw_steps;  // the split Sobol' draw (heston_qe.cuh), shared with K7, K8, K10, K11
 using hh::stage_high;
+
+// draw_steps on the stream kQmc names (1 Sobol', 0 Philox: K12 is built
+// once per stream), or on the one `sobol` names at run time (-1: K9's one
+// body for both).
+template <int kQmc, bool kSplit, class F>
+__device__ __forceinline__ void draw_segment(unsigned long long pair, uint32_t idx,
+                                             const int* sobol, const uint32_t* hw, int c,
+                                             uint32_t seed, uint32_t device_id, int step, int end,
+                                             float& z_odd, uint32_t& w_odd, F&& advance) {
+  if constexpr (kQmc >= 0) {
+    draw_steps<kQmc == 1, kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd,
+                                  w_odd, advance);
+  } else if (sobol) {
+    draw_steps<true, kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd, w_odd,
+                             advance);
+  } else {
+    draw_steps<false, kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd, w_odd,
+                              advance);
+  }
+}
 
 // Dynamic shared memory of one launch, in this order (the float64 rows first
 // for their alignment): per-warp sums, segment constants, per-point close
@@ -150,7 +170,7 @@ __device__ __forceinline__ void stage(const float* params, const int* nsteps, co
 // K9: the pair's value at every point, added to the per-warp sums.  At each
 // expiry each path's close is split at the strike (hh::close_group once,
 // hh::close_value per strike: cond_bs_value's bits).
-template <bool kSplit>
+template <bool kSplit, int kQmc>
 __device__ __forceinline__ void price_pair(unsigned long long pair, bool live, const int* sobol,
                                            const uint32_t* hw, int c, uint32_t seed,
                                            uint32_t device_id, long long point_offset, float v0,
@@ -166,11 +186,11 @@ __device__ __forceinline__ void price_pair(unsigned long long pair, bool live, c
     const hh::SurfSeg sc = segs[i];
     const int end = step + nsteps[i];
     if (live) {
-      draw_steps<kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd, w_odd,
-                         [&](float z, float u) {
-                           hh::mix_advance(v, iv, j, z, u, sc);
-                           hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);
-                         });
+      draw_segment<kQmc, kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd,
+                                 w_odd, [&](float z, float u) {
+                                   hh::mix_advance(v, iv, j, z, u, sc);
+                                   hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);
+                                 });
     }
     step = end;
     const hh::CloseGroup g = hh::close_group(iv, j, close[i * m]);
@@ -242,7 +262,7 @@ __device__ __forceinline__ float surf_dj(const SurfTan& st, const hh::SurfSeg& c
 // K9's draw (draw_steps) and, at each expiry, each path's close split at
 // the strike (hh::close_group once, hh::close_partials per strike:
 // cond_bs_partials's bits, so the surface column is K9's).
-template <bool kSplit>
+template <bool kSplit, int kQmc>
 __device__ __forceinline__ void jac_pair(unsigned long long pair, bool live, const int* sobol,
                                          const uint32_t* hw, int c, uint32_t seed,
                                          uint32_t device_id, long long point_offset, float v0,
@@ -262,11 +282,11 @@ __device__ __forceinline__ void jac_pair(unsigned long long pair, bool live, con
     const float (*dc)[4] = dct + kDirs * i;
     const int end = step + nsteps[i];
     if (live) {
-      draw_steps<kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd, w_odd,
-                         [&](float z, float u) {
-                           tan_step_surface(s, z, u, sc, dc);
-                           tan_step_surface(sa, -z, 1.0f - u, sc, dc);
-                         });
+      draw_segment<kQmc, kSplit>(pair, idx, sobol, hw, c, seed, device_id, step, end, z_odd,
+                                 w_odd, [&](float z, float u) {
+                                   tan_step_surface(s, z, u, sc, dc);
+                                   tan_step_surface(sa, -z, 1.0f - u, sc, dc);
+                                 });
     }
     step = end;
     float dj[kDirs], dja[kDirs];
@@ -332,14 +352,15 @@ __device__ __forceinline__ void surface_body(const float* params, const int* nst
     if (kStaged && table) stage_high(table, 2 * total_steps, p0, hw);
     const int c = (int)(((p0 & 31u) + (threadIdx.x & 31u)) >> 5);
     if constexpr (kJac) {
-      jac_pair<kStaged>((unsigned long long)g, g < total_pairs, table, hw, c, seed, device_id,
-                        point_offset, v0, segs, close,
-                        reinterpret_cast<const float(*)[4]>(smem + l.dct),
-                        reinterpret_cast<const float(*)[3]>(smem + l.djt), ssteps, n_exp, m, wacc,
-                        l.n_cols);
+      jac_pair<kStaged, kQmc>((unsigned long long)g, g < total_pairs, table, hw, c, seed,
+                              device_id, point_offset, v0, segs, close,
+                              reinterpret_cast<const float(*)[4]>(smem + l.dct),
+                              reinterpret_cast<const float(*)[3]>(smem + l.djt), ssteps, n_exp, m,
+                              wacc, l.n_cols);
     } else {
-      price_pair<kStaged>((unsigned long long)g, g < total_pairs, table, hw, c, seed, device_id,
-                          point_offset, v0, segs, close, ssteps, n_exp, m, wacc, l.n_cols);
+      price_pair<kStaged, kQmc>((unsigned long long)g, g < total_pairs, table, hw, c, seed,
+                                device_id, point_offset, v0, segs, close, ssteps, n_exp, m, wacc,
+                                l.n_cols);
     }
   }
   hh::block_columns(wacc, l.n_cols, partials);

@@ -40,14 +40,13 @@ from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
     SURF_JAC_COLS,
     _mix_params,
+    _qe_values,
     _surf_params,
     check_inputs,
     check_period,
     check_surface,
     heston_qe_mixing_surface_price,
-    heston_qe_mixing_values,
     mix_draws,
-    mix_inputs,
     pair_chunks,
     price_grid,
     segment_dts,
@@ -365,6 +364,35 @@ def heston_qe_mixing_price_and_greeks(
     return price, _assemble_grad7(sums / total_paths, log_s0, r, dt * steps, discount, price)
 
 
+def _values_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps, seed, qmc,
+                   device, tangents: bool):
+    """K7's parameters, under QMC the Sobol' table, and (``tangents``) K11's
+    (5, 8) tangent table on ``device``: the parameters and the tangent table
+    in one pinned asynchronous copy, the table in another
+    (``cuda_lib.host_to_device``).  Returns (params, tangent table or None,
+    Sobol' table or None)."""
+    dev = resolve_device(device)
+    rows = [_mix_params(log_s0, v0, r, kappa, theta, sigma, rho, dt, steps, strike, cp)]
+    if tangents:
+        rows.append(_greek_table(v0, kappa, theta, sigma, dt, steps, N_VJP_DIRS).ravel())
+    packed = host_to_device(np.concatenate(rows), dev)
+    n_params = len(MIX_NAMES)
+    params = packed[:n_params]
+    dtab = packed[n_params:].view(N_VJP_DIRS, N_COLS) if tangents else None
+    table = host_to_device(sobol_table(seed, 2 * steps), dev) if qmc else None
+    return params, dtab, table
+
+
+def _vjp_grads(sums, r, dt, steps):
+    """The nine gradients of :func:`_mixing_values_vjp` from K11's eight
+    sums, on the sums' device."""
+    ch_v0, ch_k, ch_th, ch_sig, ch_T, w_sum, rho_sum, k_sum = sums.unbind()
+    T = dt * steps
+    # f_base = e^{logS0 + rT}; the values are undiscounted
+    return (w_sum, ch_v0, w_sum * T, ch_k, ch_th, ch_sig, rho_sum, (ch_T + w_sum * r) * steps,
+            k_sum)
+
+
 def _mixing_values_vjp(
     log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, ct,
     *, n_paths: int, steps: int, seed, antithetic: bool, device_id=0,
@@ -376,21 +404,19 @@ def _mixing_values_vjp(
     values' stream.  QMC is antithetic-only here."""
     if qmc and not antithetic:
         raise ValueError("kernel QMC path is antithetic-only")
-    params, table = mix_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp, steps,
-                               seed, qmc, ct.device)
-    dtab = torch.as_tensor(_greek_table(v0, kappa, theta, sigma, dt, steps, N_VJP_DIRS),
-                           device=params.device)
+    params, dtab, table = _values_inputs(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, cp,
+                                         steps, seed, qmc, ct.device, True)
     sums = _vjp_sums(params, dtab, table, ct.to(torch.float32).contiguous(), n_paths, steps,
                      antithetic, int(seed), int(device_id), point_offset)
-    ch_v0, ch_k, ch_th, ch_sig, ch_T, w_sum, rho_sum, k_sum = sums.unbind()
-    T = dt * steps
-    # f_base = e^{logS0 + rT}; the values are undiscounted
-    return (w_sum, ch_v0, w_sum * T, ch_k, ch_th, ch_sig, rho_sum, (ch_T + w_sum * r) * steps,
-            k_sum)
+    return _vjp_grads(sums, r, dt, steps)
 
 
 class _MixingValues(torch.autograd.Function):
-    """K7 forward, K11 backward, over the nine differentiable scalars."""
+    """K7 forward, K11 backward, over the nine differentiable scalars.  The
+    forward builds the device inputs once: K7's parameters with, where a
+    gradient may be asked, K11's tangent table in the same copy, and under
+    QMC the Sobol' table; the backward launches K11 on them and brings its
+    eight sums to the scalars' device in one copy."""
 
     @staticmethod
     def forward(ctx, log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, opts):
@@ -399,13 +425,27 @@ class _MixingValues(torch.autograd.Function):
         ctx.metas = [(x.dtype, x.device) for x in inputs]
         ctx.opts = opts
         cp, kw = opts
-        return heston_qe_mixing_values(*ctx.args, cp, **kw)
+        check_period(kw["qmc"], kw["point_offset"],
+                     -(-kw["n_paths"] // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK)
+        params, dtab, table = _values_inputs(*ctx.args, cp, kw["steps"], kw["seed"], kw["qmc"],
+                                             kw["device"], any(ctx.needs_input_grad[:9]))
+        ctx.device_inputs = (params, dtab, table)
+        return _qe_values(params, table, kw["n_paths"], kw["steps"], kw["antithetic"],
+                          int(kw["seed"]), int(kw["device_id"]), kw["point_offset"])
 
     @staticmethod
     def backward(ctx, ct):
         cp, kw = ctx.opts
-        kw = {k: v for k, v in kw.items() if k != "device"}
-        grads = _mixing_values_vjp(*ctx.args, cp, ct, **kw)
+        if kw["qmc"] and not kw["antithetic"]:
+            raise ValueError("kernel QMC path is antithetic-only")
+        params, dtab, table = ctx.device_inputs
+        sums = _vjp_sums(params, dtab, table, ct.to(torch.float32).contiguous(), kw["n_paths"],
+                         kw["steps"], kw["antithetic"], int(kw["seed"]), int(kw["device_id"]),
+                         kw["point_offset"])
+        devices = {dev for _, dev in ctx.metas}
+        if len(devices) == 1:  # the scalars' device: one copy, not one per gradient
+            sums = sums.to(devices.pop())
+        grads = _vjp_grads(sums, ctx.args[2], ctx.args[7], kw["steps"])
         return (*(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas)),
                 None)
 

@@ -1,7 +1,7 @@
 """Marginal cost of each phase of a Heston kernel (K1 the Euler terminal
 prices, K2 the exact-mixing values, K3 the exact price, K5 the QE-M
 terminal prices, K6 the QE-M price, K7 the QE mixing values, K8 the QE
-mixing price, K10 the QE price + 7 greeks), of a QE mixing
+mixing price, K10 the QE price + 7 greeks, K11 the values' VJP), of a QE mixing
 surface kernel (K9, or K12 with its Jacobian) or of a rough-Bergomi kernel
 (K14 values, K16 price + greeks, K17 the values' VJP) on the card.
 
@@ -17,7 +17,7 @@ computes wrong values: it exists only to be timed.
 Run on a GPU host, from the repository root:
 
     python3 scripts/phase_costs.py OUT.json [--root DIR]
-        [--kernel K1|K2|K3|K5|K6|K7|K8|K9|K10|K12|K14|K16|K17]
+        [--kernel K1|K2|K3|K5|K6|K7|K8|K9|K10|K11|K12|K14|K16|K17]
 
 Each rewrite names the source text it replaces (the kernel before its
 redesign, or after it); a tree with neither raises, so the phases are
@@ -62,6 +62,16 @@ _SHARED_DRAW = [
      _SURFACE_DRAW[0][2]),
     _SURFACE_DRAW[1]]
 
+# the same since the stream is draw_steps' template argument (K9 and K12
+# through heston_surface.cu draw_segment)
+_SHARED_DRAW_T = [
+    ("heston_qe.cuh",
+     ("  if constexpr (kQmc && kSplit) {\n",
+      "// The (z_v, z_x, u) of each of `steps` steps of one pair"),
+     _SURFACE_DRAW[0][2]),
+    _SURFACE_DRAW[1]]
+_IND = " " * 35  # the surface kernels' draw_segment lambdas
+
 K9_PHASES = {
     "walk": [
         [("heston_surface.cu",
@@ -80,6 +90,11 @@ K9_PHASES = {
           "                           iv += sc.half_dt * u;\n                           j += z;\n"
           "                           iva += sc.half_dt * (1.0f - u);\n"
           "                           ja -= z;\n")],
+        [("heston_surface.cu",
+          f"{_IND}hh::mix_advance(v, iv, j, z, u, sc);\n"
+          f"{_IND}hh::mix_advance(va, iva, ja, -z, 1.0f - u, sc);\n",
+          f"{_IND}iv += sc.half_dt * u;\n{_IND}j += z;\n"
+          f"{_IND}iva += sc.half_dt * (1.0f - u);\n{_IND}ja -= z;\n")],
     ],
     "draw": [
         [("heston_surface.cu",
@@ -99,6 +114,7 @@ K9_PHASES = {
           "      if (table) stage_high(table, 2 * total_steps, p0, hw);\n", "")],
         _SURFACE_DRAW,
         _SHARED_DRAW,
+        _SHARED_DRAW_T,
     ],
     "closes": [
         [("heston_surface.cu",
@@ -262,6 +278,7 @@ K12_PHASES = {
           "        tan_step_surface(s, z, u, c, dc);\n")],
         _SURFACE_DRAW,
         _SHARED_DRAW,
+        _SHARED_DRAW_T,
     ],
     "tangent walk": [
         [("heston_surface.cu",
@@ -277,6 +294,12 @@ K12_PHASES = {
           "                           s.div[0] += z;\n"
           "                           sa.iv += sc.half_dt * (1.0f - u);\n"
           "                           sa.j -= z;\n                           sa.div[0] -= z;\n")],
+        [("heston_surface.cu",
+          f"{_IND}tan_step_surface(s, z, u, sc, dc);\n"
+          f"{_IND}tan_step_surface(sa, -z, 1.0f - u, sc, dc);\n",
+          f"{_IND}s.iv += sc.half_dt * u;\n{_IND}s.j += z;\n{_IND}s.div[0] += z;\n"
+          f"{_IND}sa.iv += sc.half_dt * (1.0f - u);\n{_IND}sa.j -= z;\n"
+          f"{_IND}sa.div[0] -= z;\n")],
     ],
     "closes": [
         [("heston_surface.cu", (f"        const hh::BsPartials b = hh::{close};\n",
@@ -411,6 +434,13 @@ K1_PHASES = {
 }
 
 # K10: one pair a thread through hh::mix_draws, then on K9's split draw
+# K10's draw rewritten to a hash of the pair and step
+_K10_HASH = ("    for (int s_ = 0; s_ < steps; ++s_) {\n"
+             "      const uint32_t h_ = (uint32_t)g * 2654435761u + s_ * 40503u;\n"
+             "      const float u = (float)(h_ >> 8) * (1.0f / 16777216.0f), z = 4.0f * u - 2.0f;\n"
+             "      hh::tan_step(s, z, u, sp, stab);\n"
+             "      hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n    }\n")
+_IND10 = " " * 41  # K10's draw_steps lambda since the stream is its template argument
 K10_PHASES = {
     "draw": [
         [("heston_qe_greeks.cu",
@@ -432,6 +462,12 @@ K10_PHASES = {
           "      const float u = (float)(h_ >> 8) * (1.0f / 16777216.0f), z = 4.0f * u - 2.0f;\n"
           "      hh::tan_step(s, z, u, sp, stab);\n"
           "      hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n    }\n"),
+         ("heston_qe_greeks.cu", "    if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);\n",
+          "")],
+        [("heston_qe_greeks.cu",
+          ("    hh::draw_steps<kQmc == 1, kStaged>((unsigned long long)g,",
+           "    // the close shares the vega's exponential"),
+          _K10_HASH),
          ("heston_qe_greeks.cu", "    if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);\n",
           "")],
     ],
@@ -456,6 +492,15 @@ K10_PHASES = {
           "                                sa.dv[d_] = -z;\n"
           "                                sa.s[d_] += 1.0f - u;\n"
           "                              }\n")],
+        [("heston_qe_greeks.cu",
+          f"{_IND10}hh::tan_step(s, z, u, sp, stab);\n"
+          f"{_IND10}hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n",
+          f"{_IND10}s.iv += sp.half_dt * u;\n{_IND10}s.j += z;\n"
+          f"{_IND10}sa.iv += sp.half_dt * (1.0f - u);\n{_IND10}sa.j -= z;\n"
+          f"{_IND10}for (int d_ = 0; d_ < kGreekDirs; ++d_) {{\n"
+          f"{_IND10}  s.dv[d_] = z;\n{_IND10}  s.s[d_] += u;\n"
+          f"{_IND10}  sa.dv[d_] = -z;\n{_IND10}  sa.s[d_] += 1.0f - u;\n"
+          f"{_IND10}}}\n")],
     ],
     "close and partials": [
         [("heston_qe_greeks.cu",
@@ -652,8 +697,74 @@ K5_PHASES = {
     ],
 }
 
+# K11: one build for both streams through hh::mix_draws, then one build per
+# stream (K7's split draw under QMC, draw_steps' Philox side under PRNG) with
+# K10's close; the QE step and the tangent step are tan_step's (heston_qe.cuh,
+# shared with K10; one text in both trees): the QE step is V's draw with its
+# two tangent coefficients (qe_v_coeffs) and the carries (mix_update), the
+# tangent step the five directions' dV and running sums
+_K11_HASH = ("    for (int s_ = 0; s_ < steps; ++s_) {\n"
+             "      const uint32_t h_ = (uint32_t)i * 2654435761u + s_ * 40503u;\n"
+             "      const float u = (float)(h_ >> 8) * (1.0f / 16777216.0f), z = 4.0f * u - 2.0f;\n"
+             "      hh::tan_step(s, z, u, sp, stab);\n"
+             "      if (antithetic) hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n    }\n")
+_K11_SUMS = ("    {\n      const float c0 = ct[i], c1 = antithetic ? ct[n_paths + i] : 0.0f;\n"
+             "#pragma unroll\n      for (int d_ = 0; d_ < kVjpDirs; ++d_) {\n"
+             "        acc[d_] += c0 * (s.s[d_] + s.dv[d_]) + c1 * (sa.s[d_] + sa.dv[d_]);\n"
+             "      }\n      acc[5] += c0 * s.iv + c1 * sa.iv;\n"
+             "      acc[6] += c0 * s.j + c1 * sa.j;\n      acc[7] += c0 + c1;\n    }\n")
+_K11_TREE = ("  if (acc[0] == -1.0f) {\n"
+             "    for (int k_ = 0; k_ < kVjpCols; ++k_) partials[k_ * gridDim.x + blockIdx.x] = acc[k_];\n"
+             "  }\n")
+K11_PHASES = {
+    "draw": [
+        [("heston_qe_greeks.cu",
+          "    hh::mix_draws((unsigned long long)i, table, steps, seed, device_id, point_offset,\n"
+          "                  [&](float z, float u) {\n"
+          "                    hh::tan_step(s, z, u, sp, stab);\n"
+          "                    if (antithetic) hh::tan_step(sa, -z, 1.0f - u, sp, stab);\n"
+          "                  });\n",
+          _K11_HASH)],
+        [("heston_qe_greeks.cu",
+          ("    float z_odd = 0.0f;\n    uint32_t w_odd = 0u;\n"
+           "    hh::draw_steps<kQmc == 1, kStaged>((unsigned long long)i,",
+           "    weighted_sums(s, ct[i], sp, stab, acc);\n"),
+          _K11_HASH),
+         ("heston_qe_greeks.cu",
+          "  if (kStaged && kQmc) hh::stage_high(table, 2 * steps, p0, hw);\n"
+          "  float acc[kVjpCols] = {};\n",
+          "  float acc[kVjpCols] = {};\n")],
+    ],
+    "QE step": [
+        [("heston_qe.cuh", "  const float vn = qe_v_coeffs(st.v, z, u, c, cm, cs);\n",
+          "  cm = z;\n  cs = u;\n  const float vn = st.v + c.half_dt * z;\n"),
+         ("heston_qe.cuh", "  mix_update(st.v, st.iv, st.j, vn, c);\n}\n\n// dIV of direction d",
+          "  st.iv += c.half_dt * u;\n  st.j += z;\n  st.v = vn;\n}\n\n// dIV of direction d")],
+    ],
+    "tangent step": [
+        [("heston_qe.cuh",
+          ("  const float a_coef = cm * c.e + cs * c.c_s2_v;\n",
+           "  mix_update(st.v, st.iv, st.j, vn, c);\n}\n\n// dIV of direction d"),
+          "#pragma unroll\n  for (int d = 0; d < kDirs; ++d) {\n"
+          "    st.dv[d] = cm;\n    st.s[d] = st.s[d] + cs;\n  }\n")],
+    ],
+    "close and weighted sums": [
+        [("heston_qe_greeks.cu",
+          "    weighted_sums(s, ct[i], sp, stab, acc);\n"
+          "    if (antithetic) weighted_sums(sa, ct[n_paths + i], sp, stab, acc);\n",
+          _K11_SUMS)],
+    ],
+    "block reduction": [
+        [("heston_qe_greeks.cu",
+          "  }\n  hh::block_sums<kThreads>(acc, red, partials);\n}\n\nsize_t sobol_smem",
+          "  }\n" + _K11_TREE + "}\n\nsize_t sobol_smem")],
+        [("heston_qe_greeks.cu", "  }\n  vjp_block_sums(acc, red, partials);\n}\n",
+          "  }\n" + _K11_TREE + "}\n")],
+    ],
+}
+
 PHASES = {"K1": K1_PHASES, "K2": K2_PHASES, "K3": K3_PHASES, "K5": K5_PHASES, "K6": K6_PHASES,
-          "K7": K7_PHASES, "K8": K8_PHASES, "K9": K9_PHASES, "K10": K10_PHASES,
+          "K7": K7_PHASES, "K8": K8_PHASES, "K9": K9_PHASES, "K10": K10_PHASES, "K11": K11_PHASES,
           "K12": K12_PHASES, "K14": K14_PHASES, "K16": K16_PHASES, "K17": K17_PHASES}
 
 

@@ -36,7 +36,7 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 DEFAULT_KERNELS = ("qe_price_kernel", "qem_price_kernel", "qe_greeks_kernel", "heston_euler_kernel",
-                   "exact_values_kernel", "qe_values_kernel", "qem_terminal_kernel")
+                   "exact_values_kernel", "qe_values_kernel", "qem_terminal_kernel", "qe_vjp_kernel")
 
 _ALU = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "IMNMX", "LEA", "IABS",
         "POPC", "FLO", "BREV", "PRMT", "SEL", "VIADD", "VIMNMX", "ISCADD", "BMSK", "VABSDIFF",

@@ -10,7 +10,7 @@ each variant again in reverse order, the tree again.
 
 Run on a GPU host, from the repository root:
 
-    python3 scripts/variant_times.py OUT.json --kernel "K5|K7|K5 band|K7 band"
+    python3 scripts/variant_times.py OUT.json --kernel "K5|K7|K11|K5 band|K7 band|K11 band"
         [--root DIR]
 """
 
@@ -51,8 +51,24 @@ VARIANTS = {
         "split draw at 1 block an SM": _blocks("heston_qe.cuh", "kStagedBlocks", 2, 1),
         "table in global memory": _blocks("heston_qe.cuh", "kStagedBlocks", 2, 1000),
     },
+    # K11: its Philox build at 2 and 4 blocks an SM (the tree: 3), and a
+    # build whose pairing is antithetic at compile time (what a build per
+    # pairing would save; the timed calls are antithetic)
+    "K11": {
+        "PRNG 2 blocks": _blocks("heston_qe_greeks.cu", "kVjpBlocks", 3, 2),
+        "PRNG 4 blocks": _blocks("heston_qe_greeks.cu", "kVjpBlocks", 3, 4),
+        "antithetic build": [[("heston_qe_greeks.cu",
+                               "  if (i < n_paths) {\n    const int c = ",
+                               "  if (i < n_paths) {\n    constexpr bool antithetic = true;\n"
+                               "    const int c = ")]],
+    },
 }
 VARIANTS["K5 band"] = VARIANTS["K7 band"]
+# K11's QMC builds at 3 blocks an SM (the tree: hh::kStagedBlocks, which
+# also sets their launch bounds, so K7's two band variants rebuild them
+# too): the global-table build (117 registers) past the staging decision
+VARIANTS["K11 band"] = {**VARIANTS["K7 band"], "QMC 3 blocks": [[(
+    "heston_qe_greeks.cu", "kQmc ? hh::kStagedBlocks : kVjpBlocks", "kQmc ? 3 : kVjpBlocks")]]}
 
 
 def main() -> int:

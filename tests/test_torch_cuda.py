@@ -237,10 +237,11 @@ def test_qe_terminal_kernels_match_twins(gpu, qmc):
 @pytest.mark.parametrize("steps", [1, 3])
 @pytest.mark.parametrize("qmc", [True, False])
 def test_qe_values_and_terminal_kernels_at_the_edges_match_twins(gpu, qmc, steps, antithetic):
-    """K7 and K5 (each built per stream and pairing) at 1 and 3 steps over a
-    ragged pair count from a point offset off the warp's 32-point cells,
-    both pairings, against their twins; K5 also without the martingale
-    correction."""
+    """K7, K5 and K11 (each built per stream) at 1 and 3 steps over a ragged
+    pair count from a point offset off the warp's 32-point cells, both
+    pairings (K11 antithetic under QMC, as its autograd route runs it),
+    against their twins; K5 also without the martingale correction."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
     from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
     offset = 777
@@ -261,6 +262,30 @@ def test_qe_values_and_terminal_kernels_at_the_edges_match_twins(gpu, qmc, steps
         assert got.shape == (1 + antithetic, RAGGED_PAIRS)
         _assert_values_close(got, qk.heston_qe_terminal_plain(p5, t5, RAGGED_PAIRS, steps,
                                                               antithetic, mcorr, 5, 0, offset))
+    if qmc and not antithetic:
+        return
+    vtab = _vjp_table(gpu, steps)
+    ct = _smooth_ct(gpu, RAGGED_PAIRS)[:1 + antithetic].contiguous()
+    before = gk.QE_VJP_KERNEL.launches
+    sums = gk._vjp_sums(params, vtab, table, ct, RAGGED_PAIRS, steps, antithetic, 5, 0, offset)
+    torch.cuda.synchronize()
+    assert gk.QE_VJP_KERNEL.launches == before + 1
+    _sums_close(sums, gk.heston_qe_mixing_vjp_sums_plain(params, vtab, table, ct, RAGGED_PAIRS,
+                                                         steps, antithetic, 5, 0, offset))
+
+
+def _vjp_table(gpu, steps):
+    """K11's (5, 8) tangent table at ``steps`` steps of ``T``."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+
+    return torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, T / steps, steps, 5),
+                           device=gpu)
+
+
+def _smooth_ct(gpu, n):
+    """A smooth (2, n) cotangent in (0, 1)."""
+    return 0.5 + 0.5 * torch.sin(torch.arange(2 * n, device=gpu, dtype=torch.float32)).reshape(
+        2, n)
 
 
 @pytest.mark.parametrize("n_paths", [PAIRS, PAIRS + 3], ids=["aligned", "ragged"])
@@ -965,18 +990,27 @@ def test_qe_kernels_past_the_staging_limit_match_twins(gpu):
                  qk.heston_qe_terminal_plain(p5, t5, pairs, n, True, True, 5, 0, 0), n, 10)
 
 
-@pytest.mark.parametrize("kernel, steps", [("K7", 252), ("K7", 400), ("K5", 200), ("K5", 252)])
+@pytest.mark.parametrize("kernel, steps", [("K7", 252), ("K7", 400), ("K5", 200), ("K5", 252),
+                                           ("K11", 252), ("K11", 400)])
 def test_qe_values_and_terminal_kernels_past_the_staging_decision_match_twins(gpu, kernel, steps):
-    """K7 and K5 under QMC on both sides of their staging decision against
-    their twins, from a point offset off the warp's 32-point cells: they
-    stage the table and each warp's high words (the split draw) where 2
-    blocks an SM still hold them (K7 to ~300 steps, K5 to ~200 on an H100)
-    and read the table from global memory past that, where the table alone
-    still fits a block."""
+    """K7, K11 and K5 under QMC on both sides of their staging decision
+    against their twins, from a point offset off the warp's 32-point cells:
+    they stage the table and each warp's high words (the split draw) where 2
+    blocks an SM still hold them (K7 and K11 to ~300 steps, K5 to ~200 on an
+    H100) and read the table from global memory past that, where the table
+    alone still fits a block."""
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
     from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
 
     pairs, offset = WIDE_PAIRS + 7, 777
-    if kernel == "K7":
+    if kernel == "K11":
+        params, table = qk.mix_inputs(*MKT, T / steps, 100.0, 1.0, steps, 5, True, gpu)
+        assert 4 * table.numel() < _optin_bytes(gpu)
+        vtab, ct = _vjp_table(gpu, steps), _smooth_ct(gpu, pairs)
+        _sums_close(gk._vjp_sums(params, vtab, table, ct, pairs, steps, True, 5, 0, offset),
+                    gk.heston_qe_mixing_vjp_sums_plain(params, vtab, table, ct, pairs, steps, True,
+                                                       5, 0, offset), max(1e-5, 1e-6 * steps / 11))
+    elif kernel == "K7":
         params, table = qk.mix_inputs(*MKT, T / steps, 100.0, 1.0, steps, 5, True, gpu)
         assert 4 * table.numel() < _optin_bytes(gpu)
         _chain_close(qk._qe_values(params, table, pairs, steps, True, 5, 0, offset),
@@ -988,6 +1022,54 @@ def test_qe_values_and_terminal_kernels_past_the_staging_decision_match_twins(gp
         _chain_close(qk._qem_terminal(params, table, pairs, steps, True, True, 5, 0, offset),
                      qk.heston_qe_terminal_plain(params, table, pairs, steps, True, True, 5, 0,
                                                  offset), steps, 10)
+
+
+def test_vjp_kernel_staged_and_global_qmc_builds_give_equal_bits(gpu, tmp_path):
+    """K11 under QMC at 252 steps, where this tree stages the split draw,
+    against a copy of the package whose every QMC launch reads the table
+    from global memory (scripts/variant_times.py's "table in global memory"
+    edit of hh::kStagedBlocks), run in a process of its own: the eight
+    float64 sums are equal to the bit (the same integers, and each block's
+    sums in the same order), and both builds' against the twin."""
+    import subprocess
+    import sys
+
+    from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "scripts"))
+    import variant_times
+
+    variant_times.phase_costs.make_copy(root, tmp_path, variant_times.VARIANTS["K11 band"][
+        "table in global memory"])
+    steps, pairs, offset = 252, WIDE_PAIRS + 7, 777
+    script = (
+        "import math, sys, torch\n"
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "from hedgehog_tpu_torch.ops import heston_qe_greeks_kernel as gk\n"
+        "from hedgehog_tpu_torch.ops import heston_qe_kernel as qk\n"
+        f"T, steps, pairs = {T!r}, {steps}, {pairs}\n"
+        f"params, table = qk.mix_inputs(*{MKT!r}, T / steps, 100.0, 1.0, steps, 5, True, 'cuda')\n"
+        "vtab = torch.as_tensor(gk._greek_table(0.04, 2.0, 0.04, 0.3, T / steps, steps, 5),"
+        " device='cuda')\n"
+        "ct = 0.5 + 0.5 * torch.sin(torch.arange(2 * pairs, device='cuda',"
+        " dtype=torch.float32)).reshape(2, pairs)\n"
+        f"sums = gk._vjp_sums(params, vtab, table, ct, pairs, steps, True, 5, 0, {offset})\n"
+        "assert gk.__file__.startswith(sys.path[0]), gk.__file__\n"
+        "print(' '.join(float(x).hex() for x in sums.cpu()))\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    global_sums = torch.tensor([float.fromhex(x) for x in proc.stdout.split()],
+                               dtype=torch.float64)
+    params, table = qk.mix_inputs(*MKT, T / steps, 100.0, 1.0, steps, 5, True, gpu)
+    vtab, ct = _vjp_table(gpu, steps), _smooth_ct(gpu, pairs)
+    staged = gk._vjp_sums(params, vtab, table, ct, pairs, steps, True, 5, 0, offset).cpu()
+    assert staged.tolist() == global_sums.tolist()
+    _sums_close(staged, gk.heston_qe_mixing_vjp_sums_plain(params, vtab, table, ct, pairs, steps,
+                                                           True, 5, 0, offset),
+                max(1e-5, 1e-6 * steps / 11))
 
 
 def test_exact_kernels_past_the_staging_limit_match_twins(gpu):

@@ -192,6 +192,26 @@ def test_autograd_through_the_values_twin_matches_the_greeks_twin(qmc):
     assert (np.abs(got - want) <= 1e-5 * np.abs(want).max() + 1e-5 * np.abs(want)).all(), (got, want)
 
 
+@pytest.mark.parametrize("qmc", [True, False], ids=["qmc", "prng"])
+def test_autograd_backward_keeps_the_standalone_vjps_bits(qmc):
+    """The differentiable view's backward runs K11 on the forward's inputs
+    (kept on the autograd context, the tangent table in the parameters'
+    copy) and brings its sums to the scalars' device in one copy; its nine
+    gradients equal, to the bit, those of ``_mixing_values_vjp``, which
+    builds every input anew from the scalars as the backward once did,
+    under the same cotangent."""
+    n = 4096
+    leaves = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in ARGS[:9]]
+    vals = pg.heston_qe_mixing_values_diff(*leaves, ARGS[9], n_paths=n, steps=STEPS, seed=3,
+                                           antithetic=True, qmc=qmc, device="cpu")
+    ct = torch.as_tensor(_cotangent(2, n), dtype=torch.float32)
+    got = torch.autograd.grad(vals, leaves, grad_outputs=ct)
+    want = pg._mixing_values_vjp(*ARGS, ct, n_paths=n, steps=STEPS, seed=3, antithetic=True,
+                                 qmc=qmc)
+    assert [g.dtype for g in got] == [torch.float64] * 9
+    assert [float(g).hex() for g in got] == [float(w).hex() for w in want]
+
+
 def test_cpu_tensors_take_the_twins_and_launch_nothing():
     kernels = (pq.QE_VALUES_KERNEL, pq.QE_PRICE_KERNEL, pg.QE_GREEKS_KERNEL, pg.QE_VJP_KERNEL)
     before = [k.launches for k in kernels]

@@ -89,12 +89,16 @@ def test_default_kernels_count_the_euler_and_exact_values_kernels(name, counted)
     ("_ZN12_GLOBAL__N_119qem_terminal_kernelILb1ELi1EEEvPKfPKiPfxiiijjx", True),
     ("_ZN12_GLOBAL__N_119qem_terminal_kernelILb0ELi1EEEvPKfPKiPfxiiijjx", True),
     ("_ZN12_GLOBAL__N_119qem_terminal_kernelILb0ELi0EEEvPKfPKiPfxiiijjx", True),
-    ("_ZN12_GLOBAL__N_113qe_vjp_kernelILb1EEEvPKfS2_PKiS2_Pdxiijjx", False),
+    ("_ZN12_GLOBAL__N_113qe_vjp_kernelILb1EEEvPKfS2_PKiS2_Pdxiijjx", True),
+    ("_ZN12_GLOBAL__N_113qe_vjp_kernelILb1ELi1EEEvPKfS2_PKiS2_Pdxiijjx", True),
+    ("_ZN12_GLOBAL__N_113qe_vjp_kernelILb0ELi1EEEvPKfS2_PKiS2_Pdxiijjx", True),
+    ("_ZN12_GLOBAL__N_113qe_vjp_kernelILb0ELi0EEEvPKfS2_PKiS2_Pdxiijjx", True),
     ("_ZN12_GLOBAL__N_116rb_values_kernelILb1EEEvPKfPKiPfxiijjx", False),
 ], ids=["K7 staged QMC", "K7 global QMC", "K7 PRNG", "K5 staged QMC", "K5 global QMC", "K5 PRNG",
-        "K11", "K14"])
+        "K11", "K11 staged QMC", "K11 global QMC", "K11 PRNG", "K14"])
 def test_default_kernels_count_every_values_and_terminal_build(name, counted):
-    """The default patterns take each stream's build of K7 (qe_values_kernel)
-    and K5 (qem_terminal_kernel), and neither K11 nor the rough-Bergomi
-    values kernel."""
+    """The default patterns take each stream's build of K7 (qe_values_kernel),
+    K5 (qem_terminal_kernel) and K11 (qe_vjp_kernel, and its one build for
+    both streams before its redesign), and not the rough-Bergomi values
+    kernel."""
     assert sc.wanted(name, sc.DEFAULT_KERNELS) is counted
