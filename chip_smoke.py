@@ -67,6 +67,24 @@ row; phase 4 times 6 serving dispatches of K15, K16 and K19 (the
 greek-vector / price and smile / price ratios), K18 beside K17, and holds
 K16's spot, xi0 and rate greeks against central differences of K15.
 
+The calibration path (phase 3, its own launch window for K7 and K11) runs
+``solve(CalibrationProblem, OptimizerAlgo(), lb=, ub=)`` on the card: (a)
+BASELINE.json config 5, 51 Carr-Madan quotes in complex128 and five Heston
+parameters by bounded L-BFGS (recovered within rel 1e-1, converged, the
+fitted prices within RMSE 1e-6 of the quotes); (b) the Monte Carlo basket of
+tests/agreement/test_conditional_mc.py:380-413 through the kernels at 2^22
+QMC pairs, 12 steps (each objective one K7 launch per payoff, each gradient
+one K11 launch per payoff; V0 and sigma within rel 5e-2 of 0.04 and 0.30);
+(c) the same basket through the float64 fast path (one simulation per
+objective; its prices against the per-payoff float64 solves on the same
+points, its fit against (b)'s); (d) the Black-Scholes goldens with their
+delta and vega by ForwardAD, ReverseAD, FiniteDifference and AnalyticGreek,
+and ``BatchGreekProblem(ReverseAD)`` of the 7-parameter Heston vector
+through the kernels against K10, and the TypeError of forward-mode and
+second-order AD through the kernels.  It prints each fit's wall,
+iterations, objective evaluations and ms per evaluation, and one
+evaluation's wall, device-busy ms and idle share (``torch.profiler``).
+
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
 rough-Bergomi path; a kernel of a path with no launch in its window fails
@@ -173,6 +191,28 @@ GN_STEPS, GN_BLOCKS, GN_BATCHES, GN_ITERS = 16, 64, 4, 12
 # The rough-Bergomi path: bench.py's serving metric rbergomi_kernel
 # (bench.py:668-713): xi0 0.04, eta 1.9, H 0.08, rho -0.9, a call K = 100
 # expiring 2024-12-31, 64 steps, 128 x 64 blocks of 2048 pairs = 2^24 pairs
+# The calibration path: solve(CalibrationProblem, OptimizerAlgo()) on the card.
+# (a) BASELINE.json config 5 (bench.py:716-774; tests/unit/test_calibration.py:79-113):
+# 51 Carr-Madan quotes, five Heston parameters, bounded L-BFGS
+CAL_REF = dt.date(2020, 1, 1)
+CAL_TRUE = (0.010201, 6.21, 0.019, 0.61, -0.7)  # V0, kappa, theta, sigma, rho
+CAL_R = 0.0319
+CAL_GUESS = (0.02, 3.0, 0.03, 0.4, -0.3)
+CAL_LB, CAL_UB = (1e-5, 1e-3, 1e-5, 1e-3, -0.99), (1.0, 20.0, 1.0, 5.0, 0.99)
+CAL_RTOL = 1e-1
+CAL_PRICE_RMSE = 1e-6  # the fit's prices against the 51 quotes (prices up to ~40)
+# (b), (c) the Monte Carlo basket of tests/agreement/test_conditional_mc.py:380-413
+MC_CAL_EXPIRY = dt.date(2021, 1, 1)
+MC_CAL_MARKET = (0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)  # r, spot, V0, kappa, theta, sigma, rho
+MC_CAL_STRIKES = (85.0, 95.0, 100.0, 105.0, 120.0)
+MC_CAL_GUESS = (0.09, 0.6)  # V0, sigma
+MC_CAL_LB, MC_CAL_UB = (1e-3, 0.05), (0.5, 1.5)
+MC_CAL_STEPS = 12
+MC_CAL_RTOL = 5e-2
+FAST_PATH_RTOL = 1e-12  # the fast path and the per-payoff solve: the same float64 paths
+BS_GOLDENS = (("Call", 90.0, 1.0, 16.6994), ("Put", 90.0, 1.0, 2.3101),
+              ("Put", 110.0, dt.date(2024, 4, 1), 9.8237))  # tests/unit/test_black_scholes.py:52-57
+
 RB_MARKET = dict(xi0=0.04, eta=1.9, hurst=0.08, rho=-0.9)
 RB_SCALARS = (RB_MARKET["eta"], RB_MARKET["hurst"], RB_MARKET["rho"], R)  # eta, H, rho, r0
 RB_EXPIRY = dt.date(2024, 12, 31)
@@ -1334,7 +1374,7 @@ def calibration_inputs(device, qmc: bool = False, seed: int = 5) -> dict:
 
 def carr_madan_surface(market, expiries, strikes):
     """(n_exp, m) float64 Carr-Madan call prices, one strike-vector solve
-    per expiry."""
+    per expiry on the card, brought to the host."""
     import torch
 
     import hedgehog_tpu_torch as ht
@@ -1343,7 +1383,7 @@ def carr_madan_surface(market, expiries, strikes):
     k = torch.tensor(strikes, dtype=torch.float64)
     return torch.stack([ht.solve(ht.PricingProblem(ht.VanillaOption(k, e, ht.European(), ht.Call(),
                                                                     ht.Spot()), market),
-                                 method).price for e in expiries])
+                                 method).price for e in expiries]).cpu()
 
 
 def compare_points(name: str, got, want, pairs: int, discount: float,
@@ -1649,6 +1689,255 @@ def phase_surface_calibration(device: str) -> dict:
     check(rmse <= rmses[0] / 10 and rmse <= 0.02, f"Gauss-Newton: final rmse {rmse} (first {rmses[0]})")
     return dict(x=[float(v) for v in x], rmse=rmse, first_rmse=rmses[0], iterations=len(rmses),
                 seconds=seconds)
+
+
+def eval_profile(objective_and_grad, device: str) -> dict:
+    """One objective-and-gradient evaluation: its synchronised wall (the
+    median of 3), and the busy ms of the device events (kernels and copies)
+    that ``torch.profiler`` records for one more, with the idle share
+    1 - busy / wall ("not measured" where the profiler records no device
+    event).  Busy is the union of the events' intervals, so an overlap
+    counts once; their plain sum and the profiled evaluation's own wall are
+    kept beside it, and busy never exceeds that wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync = device_sync(device)
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        objective_and_grad()
+        sync()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        objective_and_grad()
+        sync()
+        profiled_wall = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    device_ms = busy_us / 1e3
+    check(device_ms <= profiled_wall,
+          f"{device_ms} ms of device events in a {profiled_wall} ms evaluation")
+    idle = 1.0 - device_ms / wall if device_ms > 0 else "not measured"
+    return {"eval wall ms": wall, "eval device ms": device_ms,
+            "eval device sum ms": sum(end - start for start, end in spans) / 1e3,
+            "eval profiled wall ms": profiled_wall, "idle share": idle}
+
+
+def device_sync(device: str):
+    """A function that waits for ``device``'s queued work (a no-op off the
+    card)."""
+    import torch
+
+    return torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+
+
+def phase_calibration_path(smi: str, device: str) -> dict:
+    """``solve(CalibrationProblem, OptimizerAlgo(), lb=, ub=)`` on the card:
+    (a) BASELINE config 5 over Carr-Madan in complex128; (b) the Monte Carlo
+    basket through the kernels (each objective one K7 launch per payoff, each
+    gradient one K11 launch per payoff); (c) the same basket through the
+    float64 fast path (one simulation per objective); (d) the Black-Scholes
+    goldens' greeks by AD, FD and closed form, and ``BatchGreekProblem
+    (ReverseAD)`` of the 7-parameter Heston vector through the kernels
+    against K10."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.calibration.calibration import _apply_lenses, _basket_prices
+    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import (
+        QE_VJP_KERNEL,
+        heston_qe_mixing_price_and_greeks,
+    )
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import PAIRS_PER_BLOCK, QE_VALUES_KERNEL
+
+    say(f"phase 3 (calibration path): solve(CalibrationProblem, OptimizerAlgo()) on {device}; "
+        f"{smi}")
+    out, sync, dev_type = {}, device_sync(device), torch.device(device).type
+
+    def run(name, calib, lb, ub, max_iters):
+        quotes = torch.as_tensor(calib.quotes)
+
+        def objective_and_grad(x):
+            prices = _basket_prices(_apply_lenses(calib.pricing_problem, calib.accessors, x),
+                                    calib.pricing_method)
+            loss = torch.sum((prices - quotes) ** 2)
+            return torch.autograd.grad(loss, x)
+
+        guess = torch.tensor(calib.initial_guess, dtype=torch.float64, device=device)
+        objective_and_grad(guess.requires_grad_(True))  # warm-up: the host tables and caches
+        sync()
+        t0 = time.perf_counter()
+        res = ht.solve(calib, ht.OptimizerAlgo(max_iters=max_iters), lb=lb, ub=ub)
+        sync()
+        wall = time.perf_counter() - t0
+        u = [float(v) for v in res.u]
+        check(res.u.device.type == dev_type and res.loss.device.type == dev_type,
+              f"{name}: the L-BFGS state left the card ({res.u.device}, {res.loss.device})")
+        rec = {"u": u, "loss": float(res.loss), "converged": bool(res.converged),
+               "iterations": int(res.iterations), "evaluations": int(res.evaluations),
+               "wall s": wall, "ms per evaluation": 1e3 * wall / max(1, res.evaluations)}
+        x = torch.tensor(u, dtype=torch.float64, device=device).requires_grad_(True)
+        rec.update(eval_profile(lambda: objective_and_grad(x), device))
+        say(f"  ({name}) u {[round(v, 6) for v in u]}, loss {rec['loss']:.3e}, converged "
+            f"{rec['converged']}, {rec['iterations']} iterations, {rec['evaluations']} "
+            f"evaluations, wall {wall:.3f} s, {rec['ms per evaluation']:.3f} ms per evaluation; "
+            f"one evaluation {rec['eval wall ms']:.3f} ms wall, {rec['eval device ms']:.3f} ms "
+            f"on the device (events summed {rec['eval device sum ms']:.3f} ms, profiled wall "
+            f"{rec['eval profiled wall ms']:.3f} ms), idle share {rec['idle share']}")
+        return res, rec
+
+    # (a) BASELINE config 5: 51 Carr-Madan quotes, complex128 on the card
+    cm = ht.CarrMadan(1.0, 32.0, ht.HestonDynamics(), device=device)
+    expiries = [CAL_REF + dt.timedelta(days=d) for d in CAL_EXPIRY_DAYS]
+    payoffs = [ht.VanillaOption(k, e, ht.European(), ht.Call(), ht.Spot())
+               for e in expiries for k in CAL_STRIKES]
+    true_market = ht.HestonInputs(CAL_REF, CAL_R, SPOT, *CAL_TRUE)
+    quote_sols = ht.solve(ht.BasketPricingProblem(payoffs, true_market), cm).solutions
+    check(all(sol.price.device.type == dev_type and sol.integral_solution.device.type == dev_type
+              and sol.integral_solution.dtype == torch.complex128 for sol in quote_sols),
+          "(a): Carr-Madan priced off the card or not in complex128")
+    quotes = torch.stack([sol.price for sol in quote_sols])
+    lenses = tuple(ht.FieldLens(f"market_inputs.{n}")
+                   for n in ("V0", "kappa", "theta", "sigma", "rho"))
+    calib = ht.CalibrationProblem(
+        ht.BasketPricingProblem(payoffs, ht.HestonInputs(CAL_REF, CAL_R, SPOT, *CAL_GUESS)),
+        quotes, CAL_GUESS, cm, lenses)
+    res, rec = run("a: Carr-Madan, BASELINE config 5", calib, CAL_LB, CAL_UB, 300)
+    fitted = ht.solve(ht.BasketPricingProblem(payoffs, _apply_lenses(
+        calib.pricing_problem, lenses, res.u).market_inputs), cm).solutions
+    rec["price rmse"] = float(torch.sqrt(torch.mean(
+        (torch.stack([s.price for s in fitted]) - quotes) ** 2)))
+    say(f"  (a) recovered {[round(v, 6) for v in rec['u']]} against {CAL_TRUE} (rel "
+        f"{CAL_RTOL:g}); price rmse {rec['price rmse']:.3e} (limit {CAL_PRICE_RMSE:g})")
+    check(rec["price rmse"] <= CAL_PRICE_RMSE,
+          f"(a) the fitted prices miss the quotes: rmse {rec['price rmse']}")
+    check(rec["converged"] and 0 < rec["iterations"] <= 300, f"(a) did not converge: {rec}")
+    check(all(abs(g - w) <= CAL_RTOL * abs(w) for g, w in zip(rec["u"], CAL_TRUE)),
+          f"(a) recovered {rec['u']}, not {CAL_TRUE}")
+    out["a"] = rec
+
+    # (b) the Monte Carlo basket through K7 (objective) and K11 (gradient)
+    r, spot, v0, kappa, theta, sigma, rho = MC_CAL_MARKET
+    market = ht.HestonInputs(CAL_REF, r, spot, v0, kappa, theta, sigma, rho)
+    mc_payoffs = tuple(ht.VanillaOption(k, MC_CAL_EXPIRY, ht.European(), ht.Call(), ht.Spot())
+                       for k in MC_CAL_STRIKES)
+    oracle = ht.CarrMadan(1.0, 64.0, ht.HestonDynamics(), nodes=1024, device=device)
+    mc_quotes = torch.stack([s.price for s in ht.solve(ht.BasketPricingProblem(mc_payoffs, market),
+                                                       oracle).solutions])
+    cfg = ht.SimulationConfig(SOLVE_PAIRS, MC_CAL_STEPS, ht.Antithetic(), 0, True)
+    guess_market = ht.HestonInputs(CAL_REF, r, spot, MC_CAL_GUESS[0], kappa, theta,
+                                   MC_CAL_GUESS[1], rho)
+    mc_lenses = (ht.FieldLens("market_inputs.V0"), ht.FieldLens("market_inputs.sigma"))
+
+    def mc_calib(use_kernel):
+        method = ht.MonteCarlo(ht.HestonDynamics(),
+                               ht.HestonQE(conditional=True, use_kernel=use_kernel), cfg,
+                               device=device)
+        return ht.CalibrationProblem(ht.BasketPricingProblem(mc_payoffs, guess_market),
+                                     mc_quotes, MC_CAL_GUESS, method, mc_lenses)
+
+    want = (v0, sigma)
+    for k in (QE_VALUES_KERNEL, QE_VJP_KERNEL):
+        k.launches = 0
+    res_b, rec_b = run(f"b: kernels K7 + K11, {SOLVE_PAIRS} QMC pairs x {MC_CAL_STEPS} steps",
+                       mc_calib(True), MC_CAL_LB, MC_CAL_UB, 200)
+    rec_b["launches"] = {"K7": QE_VALUES_KERNEL.launches, "K11": QE_VJP_KERNEL.launches}
+    say(f"  (b) launches in the window {rec_b['launches']} ({len(MC_CAL_STRIKES)} payoffs)")
+    check(QE_VALUES_KERNEL.launches > 0 and QE_VJP_KERNEL.launches > 0,
+          f"(b): K7/K11 not launched in the calibration window: {rec_b['launches']}")
+    check(all(abs(g - w) <= MC_CAL_RTOL * w for g, w in zip(rec_b["u"], want)),
+          f"(b) recovered {rec_b['u']}, not {want} (rel {MC_CAL_RTOL})")
+    out["b"] = rec_b
+
+    # (c) the same basket through the float64 fast path, one simulation per objective
+    fast = mc_calib(False)
+    x = torch.tensor(rec_b["u"], dtype=torch.float64, device=device)
+    basket = _apply_lenses(fast.pricing_problem, mc_lenses, x)
+    fast_sol = ht.solve(basket, fast.pricing_method)
+    per_payoff = torch.stack([ht.solve(ht.PricingProblem(p, basket.market_inputs),
+                                       fast.pricing_method).price for p in mc_payoffs])
+    fast_prices = torch.stack([s.price for s in fast_sol.solutions])
+    check(fast_sol.solutions[0].ensemble is None, "(c): the basket did not take the fast path")
+    compare_vectors("(c) fast-path basket against the per-payoff float64 solves", fast_prices,
+                    per_payoff, FAST_PATH_RTOL)
+    res_c, rec_c = run(f"c: float64 fast path, {SOLVE_PAIRS} QMC pairs x {MC_CAL_STEPS} steps",
+                       fast, MC_CAL_LB, MC_CAL_UB, 200)
+    check(all(abs(g - w) <= MC_CAL_RTOL * abs(w) for g, w in zip(rec_c["u"], rec_b["u"])),
+          f"(c) fitted {rec_c['u']} against (b)'s {rec_b['u']} (rel {MC_CAL_RTOL})")
+    out["c"] = rec_c
+
+    # (d) greeks: the Black-Scholes goldens by AD, FD and closed form on the card
+    bs_method = ht.BlackScholesAnalytic(device=device)
+    for cp, strike, expiry, golden in BS_GOLDENS:
+        expiry = ht.add_yearfrac(REF, expiry) if isinstance(expiry, float) else expiry
+        prob = ht.PricingProblem(ht.VanillaOption(strike, expiry, ht.European(), getattr(ht, cp)(),
+                                                  ht.Spot()),
+                                 ht.BlackScholesInputs(REF, 0.05, 100.0, 0.2))
+        price = ht.solve(prob, bs_method).price
+        check(price.device.type == dev_type and abs(float(price) - golden) <= 1e-4,
+              f"(d) BS {cp} {strike}: {float(price)} on {price.device}, golden {golden}")
+        row = []
+        for lens in (ht.SpotLens(), ht.VolLens()):
+            gp = ht.GreekProblem(prob, lens)
+            fwd, rev, fd, an = (float(ht.solve(gp, m, bs_method).greek) for m in (
+                ht.ForwardAD(), ht.ReverseAD(), ht.FiniteDifference(1e-4), ht.AnalyticGreek()))
+            check(abs(fwd - an) <= 1e-10 * abs(an) and abs(rev - an) <= 1e-10 * abs(an)
+                  and abs(fd - an) <= 1e-6 * abs(an),
+                  f"(d) BS {cp} {strike} {type(lens).__name__}: AD {fwd}/{rev}, FD {fd}, "
+                  f"closed form {an}")
+            row.append(an)
+        say(f"  (d) BS {cp} K={strike}: price {float(price):.4f} (golden {golden}), delta "
+            f"{row[0]:.8f}, vega {row[1]:.8f}: ForwardAD, ReverseAD within 1e-10 and FD within "
+            "1e-6 of the closed forms")
+
+    # (d) the 7-parameter Heston vector through the kernels, one backward, against K10
+    heston = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    hprob = ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(), ht.Spot()),
+                              heston)
+    method = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True, use_kernel=True),
+                           ht.SimulationConfig(SOLVE_PAIRS, QE_STEPS, ht.Antithetic(), 0, False),
+                           device=device)
+    lenses7 = (ht.SpotLens(), *(ht.FieldLens(f"market_inputs.{n}")
+                                for n in ("V0", "kappa", "theta", "sigma", "rho")),
+               ht.ZeroRateSpineLens(0))
+    t0 = time.perf_counter()
+    batch = ht.solve(ht.BatchGreekProblem(hprob, lenses7), ht.ReverseAD(), method)
+    seconds = time.perf_counter() - t0
+    T = float(ht.yearfrac(REF, EXPIRY))
+    _, greeks = heston_qe_mixing_price_and_greeks(
+        *MARKET_ARGS, T / QE_STEPS, STRIKE, math.exp(-R * T),
+        n_blocks=SOLVE_PAIRS // (4 * PAIRS_PER_BLOCK), n_batches=4, steps=QE_STEPS, seed=0,
+        device=device)
+    got = torch.stack([batch[lens] for lens in lenses7])
+    say(f"  (d) BatchGreekProblem(ReverseAD) through K7 -> K11, {SOLVE_PAIRS} PRNG pairs: "
+        + ", ".join(f"{k} {float(g):.8f}" for k, g in zip(GREEK_ORDER, got)) + f"; {seconds:.3f} s")
+    compare_vectors("(d) BatchGreekProblem(ReverseAD) against K10's greeks", got, greeks,
+                    AUTOGRAD_RTOL)
+    for gm, gprob in ((ht.ForwardAD(), ht.GreekProblem(hprob, ht.SpotLens())),
+                      (ht.ReverseAD(), ht.SecondOrderGreekProblem(hprob))):
+        try:
+            ht.solve(gprob, gm, method)
+        except TypeError as exc:
+            check("ReverseAD" in str(exc) and "use_kernel=False" in str(exc), str(exc))
+        else:
+            check(False, f"(d) {type(gm).__name__} {type(gprob).__name__} through the kernels "
+                         "returned a derivative")
+    say("  (d) ForwardAD and second-order ReverseAD through use_kernel=True raise TypeError")
+    out["launches"] = {"K7": QE_VALUES_KERNEL.launches, "K11": QE_VJP_KERNEL.launches}
+    say(f"launches on the calibration path: {out['launches']}")
+    check(all(n > 0 for n in out["launches"].values()),
+          f"K7/K11 not launched on the calibration path: {out['launches']}")
+    return out
 
 
 def phase_surface_serving(cm_surf, device: str) -> dict:
@@ -4121,12 +4410,16 @@ def main() -> int:
         check(n > 0, f"{name} was not launched on the rough-Bergomi path")
     launches.update(rb_launches)
 
+    # the calibration path, with its own launch window for K7 and K11
+    calibration_path = phase_calibration_path(smi, "cuda")
+
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
                     "calibration": calibration, "rb_path": rb_path, "rb_serving": rb_serving,
                     "rb_occupancy": rb_occupancy, "rb_curve": rb_curve, "rb_smile": rb_smile,
                     "rb_surface": rb_surface, "heston_cells": heston_cells,
                     "past_old_limits": past_limits, "global_tables": global_tables,
+                    "calibration_path": calibration_path,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

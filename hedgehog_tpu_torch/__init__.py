@@ -16,8 +16,12 @@ kernels and their Jacobian through ``ops.heston_qe_kernel
 the price + 6-greek vector, the values' backward (bucketed
 forward-variance vegas included) and the one-simulation smile
 (``ops.rbergomi_kernel``), and its float64 (expiry × strike) surface
-(``rbergomi_surface_mc``).  ``MonteCarlo`` and the kernel
-wrappers run on the GPU unless the caller asks for ``device="cpu"``.
+(``rbergomi_surface_mc``).  Greeks and calibration run through lenses
+(``GreekProblem``, ``BatchGreekProblem``, ``CalibrationProblem`` solved by
+bounded L-BFGS or a bracketed root) over interpolated rate curves and
+rectangular vol surfaces.  ``MonteCarlo``, ``CarrMadan``,
+``BlackScholesAnalytic`` and the kernel wrappers run on the GPU unless the
+caller asks for ``device="cpu"``.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
 """
@@ -48,16 +52,76 @@ from .core.payoffs import (
     VanillaOption,
     parity_transform,
 )
+from .core.lenses import (
+    FieldLens,
+    Lens,
+    SpotLens,
+    VolLens,
+    ZeroRateSpineLens,
+    lens_get,
+    lens_set,
+)
 from .core.problems import (
     AnalyticSolution,
+    BasketPricingProblem,
+    BasketPricingSolution,
     CarrMadanSolution,
     MonteCarloSolution,
     PricingProblem,
 )
 from .core.solve import AbstractPricingMethod, register_solver, solve
 from .market.inputs import BlackScholesInputs, HestonInputs, RoughBergomiInputs
-from .market.rate_curve import FlatRateCurve, df, df_yf, zero_rate, zero_rate_yf
-from .market.vol_surface import FlatVolSurface, get_vol
+from .market.rate_curve import (
+    FlatRateCurve,
+    RateCurve,
+    df,
+    df_yf,
+    forward_rate,
+    is_flat,
+    spine_tenors,
+    spine_zeros,
+    zero_rate,
+    zero_rate_yf,
+)
+from .market.vol_surface import (
+    FlatVolSurface,
+    Interpolator2D,
+    RectVolSurface,
+    get_vol,
+    get_vol_yf,
+    spine_strikes,
+    spine_vols,
+    surface_spine_tenors,
+)
+from .math.interpolation import INTERP_KINDS, interp1d, interp2d_nested
+from .math.optimize import LBFGSResult, argmin_ift, minimize_lbfgs
+from .math.rootfind import RootResult, bisect_root, implicit_root, implicit_root_full
+from .greeks.greeks import (
+    AnalyticGreek,
+    BatchGreekProblem,
+    FDBackward,
+    FDCentral,
+    FDForward,
+    FiniteDifference,
+    ForwardAD,
+    GreekMethod,
+    GreekProblem,
+    GreekResult,
+    ReverseAD,
+    SecondOrderGreekProblem,
+)
+from .calibration.implied import (
+    implied_vol,
+    implied_vol_bs,
+    iv_to_price_bs,
+    rect_vol_surface_from_prices,
+)
+from .calibration.calibration import (
+    CalibrationProblem,
+    CalibrationSolution,
+    OptimizerAlgo,
+    RootFinderAlgo,
+)
 from .methods.black_scholes import BlackScholesAnalytic
 from .methods.carr_madan import CarrMadan
 from .methods.montecarlo import (
@@ -88,11 +152,23 @@ __all__ = [
     "add_yearfrac", "ticks_to_datetime", "to_ticks", "yearfrac",
     "American", "Call", "European", "Forward", "Put", "Spot", "VanillaOption",
     "parity_transform",
-    "AnalyticSolution", "CarrMadanSolution", "MonteCarloSolution", "PricingProblem",
+    "Lens", "FieldLens", "SpotLens", "VolLens", "ZeroRateSpineLens", "lens_get", "lens_set",
+    "AnalyticSolution", "BasketPricingProblem", "BasketPricingSolution", "CarrMadanSolution",
+    "MonteCarloSolution", "PricingProblem",
     "AbstractPricingMethod", "register_solver", "solve",
     "BlackScholesInputs", "HestonInputs", "RoughBergomiInputs",
-    "FlatRateCurve", "df", "df_yf", "zero_rate", "zero_rate_yf",
-    "FlatVolSurface", "get_vol",
+    "FlatRateCurve", "RateCurve", "df", "df_yf", "forward_rate", "is_flat", "spine_tenors",
+    "spine_zeros", "zero_rate", "zero_rate_yf",
+    "FlatVolSurface", "Interpolator2D", "RectVolSurface", "get_vol", "get_vol_yf",
+    "spine_strikes", "spine_vols", "surface_spine_tenors",
+    "INTERP_KINDS", "interp1d", "interp2d_nested",
+    "LBFGSResult", "argmin_ift", "minimize_lbfgs",
+    "RootResult", "bisect_root", "implicit_root", "implicit_root_full",
+    "AnalyticGreek", "BatchGreekProblem", "FDBackward", "FDCentral", "FDForward",
+    "FiniteDifference", "ForwardAD", "GreekMethod", "GreekProblem", "GreekResult", "ReverseAD",
+    "SecondOrderGreekProblem",
+    "implied_vol", "implied_vol_bs", "iv_to_price_bs", "rect_vol_surface_from_prices",
+    "CalibrationProblem", "CalibrationSolution", "OptimizerAlgo", "RootFinderAlgo",
     "BlackScholesAnalytic", "CarrMadan",
     "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonExactMixing", "HestonQE",
     "MonteCarlo",

@@ -116,5 +116,6 @@ def parity_transform(call_price, opt: VanillaOption, spot, rate_curve):
         return call_price
     from ..market.rate_curve import df
 
-    strike = torch.as_tensor(opt.strike, dtype=torch.float64)
-    return call_price - spot + strike * df(rate_curve, opt.expiry)
+    dev = call_price.device
+    strike = torch.as_tensor(opt.strike, dtype=torch.float64, device=dev)
+    return call_price - spot + strike * df(rate_curve, opt.expiry).to(dev)

@@ -1,20 +1,22 @@
 """Problem container and the solution types the ported methods return.
 
 Port of ``hedgehog_tpu/core/problems.py`` (reference
-src/pricing_methods/pricing_methods.jl:19-22 and
-src/solutions/pricing_solutions.jl), for the methods of this slice.
+src/pricing_methods/pricing_methods.jl:19-22, src/calibration/basket.jl and
+src/solutions/pricing_solutions.jl), for the methods the port has.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Tuple
 
 __all__ = [
     "PricingProblem",
+    "BasketPricingProblem",
     "AnalyticSolution",
     "MonteCarloSolution",
     "CarrMadanSolution",
+    "BasketPricingSolution",
 ]
 
 _frozen = dataclasses.dataclass(frozen=True)
@@ -26,6 +28,18 @@ class PricingProblem:
 
     payoff: Any
     market_inputs: Any
+
+
+@_frozen
+class BasketPricingProblem:
+    """Many payoffs priced under one market scenario (basket.jl:10-13);
+    ``payoffs`` is a tuple."""
+
+    payoffs: Tuple[Any, ...]
+    market_inputs: Any
+
+    def __post_init__(self):
+        object.__setattr__(self, "payoffs", tuple(self.payoffs))
 
 
 @_frozen
@@ -53,3 +67,12 @@ class CarrMadanSolution:
     method: Any
     price: Any
     integral_solution: Any
+
+
+@_frozen
+class BasketPricingSolution:
+    problem: Any
+    solutions: Tuple[Any, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "solutions", tuple(self.solutions))

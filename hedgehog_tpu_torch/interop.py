@@ -20,14 +20,16 @@ __all__ = ["from_reference"]
 
 @functools.lru_cache(maxsize=None)
 def _port_classes() -> dict:
-    from .core import dates, payoffs, problems
+    from .calibration import calibration
+    from .core import dates, lenses, payoffs, problems
+    from .greeks import greeks
     from .market import inputs, rate_curve, vol_surface
     from .methods import black_scholes, carr_madan, montecarlo
     from .models import dynamics, rough_bergomi
 
     classes = {}
-    for mod in (dates, payoffs, problems, inputs, rate_curve, vol_surface, black_scholes,
-                carr_madan, montecarlo, dynamics, rough_bergomi):
+    for mod in (dates, payoffs, problems, lenses, inputs, rate_curve, vol_surface, black_scholes,
+                carr_madan, montecarlo, dynamics, rough_bergomi, greeks, calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:
                 classes[name] = obj
@@ -74,5 +76,5 @@ def from_reference(obj):
         return obj
     if isinstance(obj, tuple):
         return tuple(from_reference(x) for x in obj)
-    arr = np.asarray(obj)
+    arr = np.array(obj)  # a writable copy: torch refuses to share read-only arrays
     return arr.item() if arr.ndim == 0 else arr

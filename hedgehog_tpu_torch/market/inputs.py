@@ -3,7 +3,10 @@
 Port of ``hedgehog_tpu/market/inputs.py`` for the markets the port prices
 (reference src/market_inputs/market_inputs.jl:28-88).  Scalar rates and vols
 are wrapped into a flat curve / flat surface as the reference's convenience
-constructors do.
+constructors do.  Black-Scholes markets also take an interpolated
+``RateCurve`` and a ``RectVolSurface``; the Heston and rough-Bergomi markets
+keep a flat rate, the contract the mixing kernels and estimators drift and
+discount on (one short rate r: discount e^{−rT}).
 """
 
 from __future__ import annotations
@@ -14,9 +17,9 @@ from typing import Any
 import torch
 
 from ..core.dates import ACT365F, to_ticks, yearfrac
-from ..utils import f64
-from .rate_curve import FlatRateCurve
-from .vol_surface import FlatVolSurface
+from ..utils import device_of, f64
+from .rate_curve import FlatRateCurve, RateCurve
+from .vol_surface import FlatVolSurface, RectVolSurface
 
 __all__ = [
     "BlackScholesInputs",
@@ -30,9 +33,14 @@ __all__ = [
 _frozen = dataclasses.dataclass(frozen=True)
 
 
-def _wrap_rate(rate, reference_date, daycount):
-    if isinstance(rate, FlatRateCurve):
+def _wrap_rate(rate, reference_date, daycount, curves=False):
+    if isinstance(rate, FlatRateCurve) or (curves and isinstance(rate, RateCurve)):
         return rate
+    if isinstance(rate, RateCurve):
+        raise TypeError(
+            "this market drifts and discounts at one short rate: give it a number or a "
+            "FlatRateCurve (an interpolated RateCurve prices under BlackScholesInputs)"
+        )
     return FlatRateCurve(reference_date, rate, daycount)
 
 
@@ -41,10 +49,12 @@ def carry_yield(market):
     return getattr(market, "dividend_yield", 0.0)
 
 
-def forward_spot(market, T) -> torch.Tensor:
+def forward_spot(market, T, device=None) -> torch.Tensor:
     """The carry-adjusted spot ``spot·e^{−qT}``; divide by D(T) for the
-    T-forward."""
-    return f64(market.spot) * torch.exp(-f64(carry_yield(market)) * f64(T))
+    T-forward.  On ``device``, else on the device of the market's tensors."""
+    q = carry_yield(market)
+    dev = device_of(market.spot, q, T) if device is None else device
+    return f64(market.spot, device=dev) * torch.exp(-f64(q, device=dev) * f64(T, device=dev))
 
 
 def market_yearfrac(market, t):
@@ -68,8 +78,8 @@ class BlackScholesInputs:
     def __post_init__(self):
         ref = to_ticks(self.reference_date)
         object.__setattr__(self, "reference_date", ref)
-        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount))
-        if not isinstance(self.sigma, FlatVolSurface):
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+        if not isinstance(self.sigma, (FlatVolSurface, RectVolSurface)):
             object.__setattr__(self, "sigma", FlatVolSurface(self.sigma, ref))
 
 

@@ -10,12 +10,15 @@ the CF-decay-aware ``bound="auto"``, evaluated in native complex128:
 The call price is the real part of ∫_{-bound}^{bound}; puts follow by
 parity.  The panel rule spends ``nodes`` Gauss–Legendre points on the
 central peak [−c, c] and max(32, nodes//2) log-substituted points on each
-tail, so its accuracy does not depend on the bound.
+tail, so its accuracy does not depend on the bound.  ``CarrMadan.device``
+names where the nodes, the strikes, the market scalars and the price live:
+the GPU unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -28,7 +31,7 @@ from ..market.inputs import forward_spot, market_yearfrac
 from ..market.rate_curve import df
 from ..market.vol_surface import get_vol
 from ..models.dynamics import HestonDynamics, LognormalDynamics, terminal_log_cf
-from ..utils import f64
+from ..utils import f64, resolve_device
 
 __all__ = ["CarrMadan"]
 
@@ -37,21 +40,33 @@ __all__ = ["CarrMadan"]
 class CarrMadan(AbstractPricingMethod):
     """Carr–Madan method: damping ``alpha``, integration ``bound`` (a float,
     or "auto" for 16/(σ_eff·√T) with the Heston linear-tail envelope), model
-    ``dynamics``, and ``nodes`` Gauss–Legendre points on the central panel."""
+    ``dynamics``, and ``nodes`` Gauss–Legendre points on the central panel,
+    computed on ``device``."""
 
     alpha: float = 1.0
     bound: Any = "auto"
     dynamics: Any = LognormalDynamics()
     nodes: int = 256
+    device: str = "cuda"
 
 
-def _panel_nodes(bound, n: int):
+@functools.lru_cache(maxsize=None)
+def _gauss_legendre(n: int):
+    """The n-point Gauss–Legendre rule on [−1, 1] (read-only arrays): an
+    n × n eigenproblem on the host, tens of ms at n = 256, so it is solved
+    once per n rather than once per price."""
+    nodes, weights = np.polynomial.legendre.leggauss(n)
+    nodes.flags.writeable = weights.flags.writeable = False
+    return nodes, weights
+
+
+def _panel_nodes(bound, n: int, device):
     """n-point GL on [−c, c] plus max(32, n//2) log-substituted GL points on
     each tail [±c, ±bound], with c = min(8, bound/4)."""
-    bound = f64(bound)
+    bound = f64(bound, device=device)
     c = torch.clamp(0.25 * bound, max=8.0)
-    xc, wc = (f64(a) for a in np.polynomial.legendre.leggauss(n))
-    xt, wt = (f64(a) for a in np.polynomial.legendre.leggauss(max(32, n // 2)))
+    xc, wc = (f64(a.copy(), device=device) for a in _gauss_legendre(n))
+    xt, wt = (f64(a.copy(), device=device) for a in _gauss_legendre(max(32, n // 2)))
     L = torch.log(bound / c)
     t = 0.5 * L * (xt + 1.0)
     v_t = c * torch.exp(t)
@@ -59,18 +74,19 @@ def _panel_nodes(bound, n: int):
     return torch.cat([xc * c, v_t, -v_t]), torch.cat([wc * c, w_t, w_t])
 
 
-def _auto_bound(prob: PricingProblem, dynamics) -> torch.Tensor:
+def _auto_bound(prob: PricingProblem, dynamics, device) -> torch.Tensor:
     """CF-decay-aware truncation 16/(σ_eff·√T), floored at 64; for Heston
     also the linear tail envelope 34/c_lin (carr_madan.py:172-241)."""
     market = prob.market_inputs
-    T = f64(market_yearfrac(market, prob.payoff.expiry))
+    T = f64(market_yearfrac(market, prob.payoff.expiry), device=device)
     if isinstance(dynamics, LognormalDynamics):
-        sigma = f64(get_vol(market.sigma, prob.payoff.expiry, prob.payoff.strike))
+        sigma = f64(get_vol(market.sigma, prob.payoff.expiry, prob.payoff.strike), device=device)
         s = torch.sqrt(torch.clamp(torch.min(sigma**2 * T), min=1e-16))
         return torch.clamp(16.0 / s, min=64.0)
     if isinstance(dynamics, HestonDynamics):
         V0, kappa, theta, sigma, rho = (
-            f64(p) for p in (market.V0, market.kappa, market.theta, market.sigma, market.rho)
+            f64(p, device=device)
+            for p in (market.V0, market.kappa, market.theta, market.sigma, market.rho)
         )
         s2 = theta * T + (V0 - theta) * (1.0 - torch.exp(-kappa * T)) / kappa
         c_lin = torch.sqrt(torch.clamp(1.0 - rho**2, min=2.5e-3)) * (V0 + kappa * theta * T) / sigma
@@ -83,7 +99,7 @@ def _auto_bound(prob: PricingProblem, dynamics) -> torch.Tensor:
     )
 
 
-def _quad_nodes(prob: PricingProblem, method: CarrMadan):
+def _quad_nodes(prob: PricingProblem, method: CarrMadan, device):
     bound = method.bound
     if isinstance(bound, str):
         if bound != "auto":
@@ -91,8 +107,8 @@ def _quad_nodes(prob: PricingProblem, method: CarrMadan):
                 f"string bound must be 'auto', got {bound!r} (pass a float "
                 "for a fixed truncation)"
             )
-        bound = _auto_bound(prob, method.dynamics)
-    return _panel_nodes(bound, method.nodes)
+        bound = _auto_bound(prob, method.dynamics, device)
+    return _panel_nodes(bound, method.nodes, device)
 
 
 @register_solver(CarrMadan)
@@ -100,12 +116,13 @@ def _solve_carr_madan(prob: PricingProblem, method: CarrMadan) -> CarrMadanSolut
     payoff = prob.payoff
     require_european(payoff, "CarrMadan", spot_only=True)
     market = prob.market_inputs
-    K = f64(payoff.strike)
+    device = resolve_device(method.device)
+    K = f64(payoff.strike, device=device)
     logK = torch.log(K)
     alpha = method.alpha
-    D = df(market.rate, payoff.expiry)
+    D = f64(df(market.rate, payoff.expiry), device=device)
 
-    v, w = _quad_nodes(prob, method)
+    v, w = _quad_nodes(prob, method, device)
     damp = torch.exp(-alpha * logK) / (2.0 * torch.pi)
     logK_b = logK[..., None]  # strike grids broadcast against the nodes
 
@@ -116,5 +133,6 @@ def _solve_carr_madan(prob: PricingProblem, method: CarrMadan) -> CarrMadanSolut
     integral = torch.sum(w * integrand, dim=-1)
     call_price = integral.real
     T = market_yearfrac(market, payoff.expiry)
-    price = parity_transform(call_price, payoff, forward_spot(market, T), market.rate)
+    price = parity_transform(call_price, payoff, forward_spot(market, T, device=device),
+                             market.rate)
     return CarrMadanSolution(prob, method, price, integral)

@@ -55,15 +55,18 @@ def lognormal_terminal_law(market, expiry_ticks):
     (montecarlo.jl:293-303, with the drift scaled by T — see the JAX
     module's note on the reference's √T slip)."""
     r = zero_rate(market.rate, expiry_ticks)
-    sigma = f64(market.sigma.sigma)
-    T = f64(market_yearfrac(market, expiry_ticks))
-    mean = torch.log(f64(market.spot)) + (r - carry_yield(market) - 0.5 * sigma**2) * T
+    dev = r.device
+    sigma = f64(market.sigma.sigma, device=dev)
+    T = f64(market_yearfrac(market, expiry_ticks), device=dev)
+    mean = (torch.log(f64(market.spot, device=dev))
+            + (r - f64(carry_yield(market), device=dev) - 0.5 * sigma**2) * T)
     return mean, sigma * torch.sqrt(T)
 
 
 def lognormal_cf(u, mean, std) -> torch.Tensor:
     """CF of a Normal(mean, std) log-price: E[e^{iuX}]."""
     u = _c128(u)
+    mean, std = f64(mean, device=u.device), f64(std, device=u.device)
     return torch.exp(1j * u * mean - 0.5 * std**2 * u**2)
 
 
@@ -77,7 +80,7 @@ def heston_cf(u, S0, V0, kappa, theta, sigma, rho, r, T) -> torch.Tensor:
     """
     u = _c128(u)
     S0, V0, kappa, theta, sigma, rho, r, T = (
-        f64(p) for p in (S0, V0, kappa, theta, sigma, rho, r, T)
+        f64(p, device=u.device) for p in (S0, V0, kappa, theta, sigma, rho, r, T)
     )
     iu = 1j * u
     beta = kappa - rho * sigma * iu

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from .autograd_limits import host_float_kernel, no_derivative
 from .cuda_lib import CudaKernel, check_tensor, require_cuda
 from .hh_device import box_muller, philox_block
 
@@ -96,4 +97,4 @@ def gbm_exact_terminal_adapter(prob, config, key=None, device_id=0, *, device):
         float(mean), float(std), n_paths=config.trajectories, seed=seed_from_key(config, key),
         antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
         device=device)
-    return out.to(torch.float64)
+    return no_derivative(out.to(torch.float64), host_float_kernel("K13"), mean, std)

@@ -34,6 +34,7 @@ from ..models.heston_exact import (
 )
 from ..math.counter_rng import uniform_from_bits
 from ..utils import resolve_device
+from .autograd_limits import host_float_kernel, no_derivative
 from .cuda_lib import (
     CudaKernel,
     check_grid,
@@ -658,11 +659,12 @@ def heston_exact_mixing_values_adapter(prob, config, strat, key=None, device_id=
     from ..market.inputs import carry_yield, market_yearfrac
     from ..market.rate_curve import zero_rate_yf
     from ..methods.montecarlo import Antithetic
-    from .heston_kernel import seed_from_key
+    from .heston_kernel import heston_scalars, seed_from_key
 
     market = prob.market_inputs
     T = market_yearfrac(market, prob.payoff.expiry)
-    r0 = float(zero_rate_yf(market.rate, 0.0)) - float(carry_yield(market))
+    rate, carry = zero_rate_yf(market.rate, 0.0), carry_yield(market)
+    r0 = float(rate) - float(carry)
     out = heston_exact_mixing_values(
         np.log(float(market.spot)), float(market.V0), r0, float(market.kappa),
         float(market.theta), float(market.sigma), float(market.rho), T / config.steps,
@@ -672,4 +674,5 @@ def heston_exact_mixing_values_adapter(prob, config, strat, key=None, device_id=
         antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
         qmc=config.qmc, point_offset=point_offset, device=device,
     )
-    return out.to(torch.float64)
+    return no_derivative(out.to(torch.float64), host_float_kernel("K2"), *heston_scalars(market),
+                         rate, carry, prob.payoff.expiry, prob.payoff.strike)

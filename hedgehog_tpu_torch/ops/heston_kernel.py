@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from .autograd_limits import host_float_kernel, no_derivative
 from .cuda_lib import CudaKernel, check_tensor, require_cuda
 from .hh_device import box_muller, philox_block
 
@@ -118,6 +119,12 @@ def heston_euler_terminal(log_s0, v0, r, kappa, theta, sigma, rho, dt, *, n_path
     return _euler_terminal(params, n_paths, steps, int(seed), antithetic, int(device_id))
 
 
+def heston_scalars(market) -> tuple:
+    """The Heston market's six model scalars (spot, V0, κ, θ, σ, ρ), which
+    the kernels without a backward read as host floats."""
+    return (market.spot, market.V0, market.kappa, market.theta, market.sigma, market.rho)
+
+
 def heston_euler_terminal_adapter(prob, config, key=None, device_id=0, *, device):
     """``MonteCarlo(HestonDynamics(), EulerMaruyama(use_kernel=True))``:
     float64 terminal prices (n_groups, trajectories) from the kernel, the
@@ -129,7 +136,8 @@ def heston_euler_terminal_adapter(prob, config, key=None, device_id=0, *, device
 
     market = prob.market_inputs
     T = market_yearfrac(market, prob.payoff.expiry)
-    r0 = float(zero_rate_yf(market.rate, 0.0)) - float(carry_yield(market))
+    rate, carry = zero_rate_yf(market.rate, 0.0), carry_yield(market)
+    r0 = float(rate) - float(carry)
     out = heston_euler_terminal(
         np.log(float(market.spot)), float(market.V0), r0, float(market.kappa),
         float(market.theta), float(market.sigma), float(market.rho), T / config.steps,
@@ -137,4 +145,5 @@ def heston_euler_terminal_adapter(prob, config, key=None, device_id=0, *, device
         antithetic=isinstance(config.variance_reduction, Antithetic), device_id=device_id,
         device=device,
     )
-    return out.to(torch.float64)
+    return no_derivative(out.to(torch.float64), host_float_kernel("K1"), *heston_scalars(market),
+                         rate, carry, prob.payoff.expiry)

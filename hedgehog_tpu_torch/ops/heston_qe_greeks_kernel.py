@@ -36,6 +36,7 @@ from .cuda_lib import (
     require_cuda,
 )
 from ..utils import f64, resolve_device
+from .autograd_limits import ForwardState, first_order_only, refuse_forward_mode
 from .heston_qe_kernel import (
     PAIRS_PER_BLOCK,
     SURF_JAC_COLS,
@@ -416,26 +417,31 @@ class _MixingValues(torch.autograd.Function):
     forward builds the device inputs once: K7's parameters with, where a
     gradient may be asked, K11's tangent table in the same copy, and under
     QMC the Sobol' table; the backward launches K11 on them and brings its
-    eight sums to the scalars' device in one copy."""
+    eight sums to the scalars' device in one copy.  No forward mode and no
+    double backward (ops/autograd_limits.py)."""
 
     @staticmethod
-    def forward(ctx, log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, opts):
-        inputs = (log_s0, v0, r, kappa, theta, sigma, rho, dt, strike)
-        ctx.args = tuple(float(x) for x in inputs)
-        ctx.metas = [(x.dtype, x.device) for x in inputs]
-        ctx.opts = opts
-        cp, kw = opts
+    def forward(log_s0, v0, r, kappa, theta, sigma, rho, dt, strike, opts):
+        cp, kw, fwd = opts
+        args = tuple(float(x) for x in (log_s0, v0, r, kappa, theta, sigma, rho, dt, strike))
         check_period(kw["qmc"], kw["point_offset"],
                      -(-kw["n_paths"] // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK)
-        params, dtab, table = _values_inputs(*ctx.args, cp, kw["steps"], kw["seed"], kw["qmc"],
-                                             kw["device"], any(ctx.needs_input_grad[:9]))
-        ctx.device_inputs = (params, dtab, table)
+        params, dtab, table = _values_inputs(*args, cp, kw["steps"], kw["seed"], kw["qmc"],
+                                             kw["device"], kw["tangents"])
+        fwd.state = (args, (params, dtab, table))
         return _qe_values(params, table, kw["n_paths"], kw["steps"], kw["antithetic"],
                           int(kw["seed"]), int(kw["device_id"]), kw["point_offset"])
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.metas = [(x.dtype, x.device) for x in inputs[:9]]
+        ctx.save_for_backward(*inputs[:9])
+        ctx.opts = inputs[9]
+        ctx.args, ctx.device_inputs = ctx.opts[2].state
+
+    @staticmethod
     def backward(ctx, ct):
-        cp, kw = ctx.opts
+        cp, kw, _ = ctx.opts
         if kw["qmc"] and not kw["antithetic"]:
             raise ValueError("kernel QMC path is antithetic-only")
         params, dtab, table = ctx.device_inputs
@@ -446,8 +452,13 @@ class _MixingValues(torch.autograd.Function):
         if len(devices) == 1:  # the scalars' device: one copy, not one per gradient
             sums = sums.to(devices.pop())
         grads = _vjp_grads(sums, ctx.args[2], ctx.args[7], kw["steps"])
-        return (*(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas)),
-                None)
+        grads = tuple(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas))
+        return (*first_order_only(grads, "K11 (the QE mixing values' VJP)", ct,
+                                  *ctx.saved_tensors), None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        refuse_forward_mode("K7 (the QE mixing values, K11 its backward)")
 
 
 def heston_qe_mixing_values_diff(
@@ -463,8 +474,9 @@ def heston_qe_mixing_values_diff(
     args = tuple(torch.as_tensor(x, dtype=torch.float64)
                  for x in (log_s0, v0, r, kappa, theta, sigma, rho, dt, strike))
     kw = dict(n_paths=n_paths, steps=steps, seed=seed, antithetic=antithetic,
-              device_id=device_id, qmc=qmc, point_offset=point_offset, device=device)
-    return _MixingValues.apply(*args, (cp, kw))
+              device_id=device_id, qmc=qmc, point_offset=point_offset, device=device,
+              tangents=torch.is_grad_enabled() and any(a.requires_grad for a in args))
+    return _MixingValues.apply(*args, (cp, kw, ForwardState()))
 
 
 # ---- surface Jacobian: K12, the surface and its 7-parameter Jacobian ---------------
@@ -655,32 +667,43 @@ def heston_qe_mixing_surface_price_and_jacobian(
 
 class _SurfacePrice(torch.autograd.Function):
     """The surface over (log S0, V0, r, κ, θ, σ, ρ): K9 forward, or K12
-    when an input needs a gradient, whose Jacobian the backward contracts."""
+    when an input needs a gradient, whose Jacobian the backward contracts.
+    No forward mode and no double backward (ops/autograd_limits.py)."""
 
     @staticmethod
-    def forward(ctx, log_s0, v0, r, kappa, theta, sigma, rho, opts):
-        inputs = (log_s0, v0, r, kappa, theta, sigma, rho)
-        ctx.metas = [(x.dtype, x.device) for x in inputs]
-        log_s0, v0, r, kappa, theta, sigma, rho = (float(x) for x in inputs)
-        T_host, strikes, carry, kw = opts
+    def forward(log_s0, v0, r, kappa, theta, sigma, rho, opts):
+        log_s0, v0, r, kappa, theta, sigma, rho = (
+            float(x) for x in (log_s0, v0, r, kappa, theta, sigma, rho))
+        T_host, strikes, carry, kw, jacobian, fwd = opts
         discounts = [np.exp(-r * t) for t in T_host]
         args = (log_s0, v0, r - carry, kappa, theta, sigma, rho, T_host, strikes, discounts)
-        if not any(ctx.needs_input_grad[:7]):
+        if not jacobian:  # no input needs a gradient
             return heston_qe_mixing_surface_price(*args, **kw)
         surface, jac = heston_qe_mixing_surface_price_and_jacobian(*args, **kw)
-        ctx.save_for_backward(jac)
-        ctx.spot = float(np.exp(log_s0))
+        fwd.state = (jac, float(np.exp(log_s0)))
         return surface
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.metas = [(x.dtype, x.device) for x in inputs[:7]]
+        fwd = inputs[7][-1]
+        if fwd.state:
+            jac, ctx.spot = fwd.state
+            ctx.save_for_backward(jac, *inputs[:7])
+
+    @staticmethod
     def backward(ctx, ct):
-        (jac,) = ctx.saved_tensors
+        jac, *inputs = ctx.saved_tensors
         g = torch.einsum("emp,em->p", jac, ct.to(jac))
         spot_g, v0_g, k_g, th_g, sig_g, rho_g, r_g = g.unbind()
         # the Jacobian's spot column is ∂/∂spot; the argument is log S0
         grads = (spot_g * ctx.spot, v0_g, r_g, k_g, th_g, sig_g, rho_g)
-        return (*(x.to(dtype=dtype, device=dev) for x, (dtype, dev) in zip(grads, ctx.metas)),
-                None)
+        grads = tuple(x.to(dtype=dtype, device=dev) for x, (dtype, dev) in zip(grads, ctx.metas))
+        return (*first_order_only(grads, "K12 (the QE surface's Jacobian)", ct, *inputs), None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        refuse_forward_mode("K9/K12 (the QE surface, K12's Jacobian its backward)")
 
 
 def heston_qe_mixing_surface_price_diff(
@@ -700,5 +723,7 @@ def heston_qe_mixing_surface_price_diff(
                  for x in (log_s0, v0, r, kappa, theta, sigma, rho))
     kw = dict(seg_steps=seg_steps, n_strikes=n_strikes, n_blocks=n_blocks, n_batches=n_batches,
               seed=seed, cp=cp, device_id=device_id, device=device)
-    opts = (tuple(float(t) for t in T_host), [float(k) for k in strikes], float(carry), kw)
+    jacobian = torch.is_grad_enabled() and any(a.requires_grad for a in args)
+    opts = (tuple(float(t) for t in T_host), [float(k) for k in strikes], float(carry), kw,
+            jacobian, ForwardState())
     return _SurfacePrice.apply(*args, opts)

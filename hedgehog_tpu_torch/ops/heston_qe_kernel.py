@@ -35,6 +35,7 @@ import torch
 
 from ..math.counter_rng import uniform_from_bits
 from ..utils import f64, resolve_device
+from .autograd_limits import host_float_kernel, no_derivative
 from .cuda_lib import (
     CudaKernel,
     check_grid,
@@ -826,7 +827,7 @@ def heston_qe_terminal_adapter(prob, config, strat, key=None, device_id=0, point
     ``config.seed`` (one shared sequence, sliced by ``point_offset``); under
     PRNG an explicit ``key`` reseeds the stream."""
     from ..methods.montecarlo import Antithetic, sim_params
-    from .heston_kernel import seed_from_key
+    from .heston_kernel import heston_scalars, seed_from_key
 
     market, T, r0 = sim_params(prob)
     out = heston_qe_terminal(
@@ -838,4 +839,5 @@ def heston_qe_terminal_adapter(prob, config, strat, key=None, device_id=0, point
         martingale_correction=strat.martingale_correction, qmc=config.qmc,
         point_offset=point_offset, device=device,
     )
-    return out.to(torch.float64)
+    return no_derivative(out.to(torch.float64), host_float_kernel("K5"), *heston_scalars(market),
+                         r0, prob.payoff.expiry)

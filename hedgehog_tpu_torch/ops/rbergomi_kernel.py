@@ -46,6 +46,12 @@ import numpy as np
 import torch
 
 from ..utils import f64, resolve_device
+from .autograd_limits import (
+    ForwardState,
+    first_order_only,
+    no_derivative,
+    refuse_forward_mode,
+)
 from .cuda_lib import CudaKernel, check_tensor, launch_occupancy, require_cuda, resident_grid
 from .heston_qe_greeks_kernel import cond_bs_partials
 from .heston_qe_kernel import check_period, pair_chunks
@@ -1032,18 +1038,17 @@ def _rb_values_vjp_curve(
 class _RbValues(torch.autograd.Function):
     """K14 forward over (spot, xi0, eta, hurst, rho, r0, T, strike); the
     backward K17, or K18 when the level is a curve (xi, tenors) in xi0's
-    place."""
+    place.  No forward mode and no double backward (ops/autograd_limits.py)."""
 
     @staticmethod
-    def forward(ctx, opts, spot, *rest):
-        cp, quad_nodes, kw = opts
-        ctx.metas = [(x.dtype, x.device) for x in (spot, *rest)]
-        ctx.opts = opts
+    def forward(opts, spot, *rest):
+        cp, quad_nodes, kw, fwd = opts
         head = len(rest) - 6  # 1: xi0; 2: (xi, tenors)
-        ctx.head = tuple(v.detach().cpu() for v in rest[:head])
-        ctx.args = tuple(float(x) for x in (spot, *rest[head:]))
-        spot, eta, hurst, rho, r0, T, strike = ctx.args
-        level = ctx.head[::-1] if head == 2 else float(ctx.head[0])
+        level_in = tuple(v.detach().cpu() for v in rest[:head])
+        args = tuple(float(x) for x in (spot, *rest[head:]))
+        fwd.state = (level_in, args)
+        spot, eta, hurst, rho, r0, T, strike = args
+        level = level_in[::-1] if head == 2 else float(level_in[0])
         chol, _, coefs, _, _ = _rb_diff_coeffs(level, eta, hurst, T, kw["steps"], quad_nodes,
                                                tangent=False)
         f_base = spot * math.exp(r0 * T)
@@ -1051,13 +1056,25 @@ class _RbValues(torch.autograd.Function):
                                       math.log(f_base / strike), strike, cp, rho, **kw)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.metas = [(x.dtype, x.device) for x in inputs[1:]]
+        ctx.save_for_backward(*inputs[1:])
+        ctx.opts = inputs[0]
+        ctx.head, ctx.args = ctx.opts[3].state
+
+    @staticmethod
     def backward(ctx, ct):
-        cp, quad_nodes, kw = ctx.opts
+        cp, quad_nodes, kw, _ = ctx.opts
         kw = {k: v for k, v in kw.items() if k != "device"}
         vjp = _rb_values_vjp_curve if len(ctx.head) == 2 else _rb_values_vjp
         grads = vjp(ctx.args[0], *ctx.head, *ctx.args[1:], cp, ct, quad_nodes=quad_nodes, **kw)
-        return (None,
-                *(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas)))
+        grads = tuple(g.to(dtype=dtype, device=dev) for g, (dtype, dev) in zip(grads, ctx.metas))
+        return (None, *first_order_only(grads, "K17/K18 (the rough-Bergomi values' VJPs)", ct,
+                                        *ctx.saved_tensors))
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        refuse_forward_mode("K14 (the rough-Bergomi values, K17/K18 their backward)")
 
 
 def rbergomi_mixing_values_diff(
@@ -1082,21 +1099,7 @@ def rbergomi_mixing_values_diff(
                  for x in (spot, *head, eta, hurst, rho, r0, T, strike))
     kw = dict(n_paths=n_paths, steps=steps, seed=seed, antithetic=antithetic,
               device_id=device_id, qmc=qmc, point_offset=point_offset, device=device)
-    return _RbValues.apply((cp, quad_nodes, kw), *args)
-
-
-class _PrimalOnly(torch.autograd.Function):
-    """Values whose gradient is not ported: the forward passes them through,
-    the backward raises."""
-
-    @staticmethod
-    def forward(ctx, values, reason, *leaves):
-        ctx.reason = reason
-        return values.clone()
-
-    @staticmethod
-    def backward(ctx, ct):
-        raise NotImplementedError(ctx.reason)
+    return _RbValues.apply((cp, quad_nodes, kw, ForwardState()), *args)
 
 
 def rbergomi_mixing_values_adapter(prob, config, strat, key=None, device_id=0, point_offset=0,
@@ -1126,9 +1129,7 @@ def rbergomi_mixing_values_adapter(prob, config, strat, key=None, device_id=0, p
     curve = isinstance(market.xi0, ForwardVarianceCurve)
     trace = _rb_trace_inputs(prob, config, strat.quad_nodes)
     out = rbergomi_mixing_values(*trace.values_args(), **kw)
-    leaves = [x for x in (market.spot, market.eta, market.hurst, market.rho, market.rate.rate,
-                          *((market.xi0.xi, market.xi0.tenors) if curve else (market.xi0,)))
-              if isinstance(x, torch.Tensor) and x.requires_grad]
-    return _PrimalOnly.apply(out.to(torch.float64),
-                             "the rough-Bergomi values kernel is differentiable at steps >= 2",
-                             *leaves)
+    return no_derivative(out.to(torch.float64),
+                         "the rough-Bergomi values kernel is differentiable at steps >= 2",
+                         market.spot, market.eta, market.hurst, market.rho, market.rate.rate,
+                         *((market.xi0.xi, market.xi0.tenors) if curve else (market.xi0,)))

@@ -75,7 +75,7 @@ def test_prng_price_against_black_scholes(use_kernel):
     per-pair payoffs of the Black-Scholes price (the draw is exact, so no
     bias allowance; mirrors tests/agreement/test_montecarlo_black_scholes.py)."""
     prob = ht.from_reference(_problem())
-    bs = float(ht.solve(prob, ht.BlackScholesAnalytic()).price)
+    bs = float(ht.solve(prob, ht.BlackScholesAnalytic(device="cpu")).price)
     cfg = ht.from_reference(_config(2**17, seed=5, qmc=False))
     sol = ht.solve(prob, ht.MonteCarlo(ht.LognormalDynamics(), ht.BlackScholesExact(use_kernel),
                                        cfg, device="cpu"))
@@ -137,7 +137,7 @@ def test_pathwise_delta_through_solve_matches_analytic():
     price = ht.solve(ht.PricingProblem(payoff, market), ht.MonteCarlo(config=cfg,
                                                                       device="cpu")).price
     (delta,) = torch.autograd.grad(price, [spot])
-    an = ht.solve(ht.from_reference(_problem()), ht.BlackScholesAnalytic()).price
+    an = ht.solve(ht.from_reference(_problem()), ht.BlackScholesAnalytic(device="cpu")).price
     delta_an = float(hh.solve(hh.GreekProblem(_problem(), hh.SpotLens()), hh.AnalyticGreek(),
                               hh.BlackScholesAnalytic()).greek)
     assert float(delta) == pytest.approx(delta_an, rel=3e-2)

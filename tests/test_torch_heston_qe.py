@@ -131,7 +131,7 @@ def test_main_path_against_carr_madan(use_kernel):
     """PRNG stream, 16384 pairs, 11 steps: within 4 standard errors plus 5 bp
     (the QE-11 scheme bias, +3.5 bp in bench.py) of the port's Carr–Madan."""
     prob = ht.from_reference(_problem())
-    cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics())).price)
+    cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device="cpu")).price)
     cfg = ht.SimulationConfig(16384, 11, ht.Antithetic(), 4, False)
     sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(),
                                        ht.HestonQE(use_kernel=use_kernel, conditional=True), cfg,

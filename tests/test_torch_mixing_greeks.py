@@ -162,7 +162,8 @@ def test_greek_vector_against_carr_madan_differences():
             spot, v0, kappa, theta, sigma, rho, r = p
             market = ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho)
             out.append(float(ht.solve(ht.PricingProblem(prob.payoff, market),
-                                      ht.CarrMadan(1.0, 32.0, ht.HestonDynamics())).price))
+                                      ht.CarrMadan(1.0, 32.0, ht.HestonDynamics(),
+                                                   device="cpu")).price))
         return (out[0] - out[1]) / (2 * h)
 
     assert float(g["spot"]) == pytest.approx(cm(0, 0.5), rel=3e-2)

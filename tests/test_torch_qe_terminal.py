@@ -150,7 +150,7 @@ def test_prng_price_against_carr_madan(market, oracle):
     budget (8.6 bp), so a statistically sound bound on another stream is 4
     standard errors of the per-pair payoffs plus 10 bp for the QE-M-16 bias."""
     prob = ht.from_reference(_problem(market=market))
-    cm = float(ht.solve(prob, ht.from_reference(oracle)).price)
+    cm = float(ht.solve(prob, _cpu(oracle)).price)
     sols = [ht.solve(prob, _cpu(_method(150_000, 16, seed=i, qmc=False))) for i in range(4)]
     disc = float(ht.df(prob.market_inputs.rate, prob.payoff.expiry))
     pay = disc * torch.cat([ht.reduce_payoffs(s.ensemble, prob.payoff) for s in sols])

@@ -209,7 +209,7 @@ def test_eta_zero_is_black_scholes():
                  ht.MonteCarlo(ht.RoughBergomiDynamics(), ht.RoughBergomiMixing(), cfg,
                                device="cpu")).price
     p_bs = ht.solve(ht.PricingProblem(opt, ht.BlackScholesInputs(REF, 0.03, 100.0, 0.2)),
-                    ht.BlackScholesAnalytic()).price
+                    ht.BlackScholesAnalytic(device="cpu")).price
     assert float(p) == pytest.approx(float(p_bs), rel=1e-12)
 
 
@@ -249,7 +249,7 @@ def test_dispatch_guards():
         ht.solve(prob, ht.MonteCarlo(ht.RoughBergomiDynamics(), ht.HestonQE(conditional=True),
                                      cfg, device="cpu"))
     with pytest.raises(TypeError, match="RoughBergomiDynamics"):
-        ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.RoughBergomiDynamics()))
+        ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.RoughBergomiDynamics(), device="cpu"))
     with pytest.raises(TypeError, match="no terminal law"):
         terminal_log_cf(prob, ht.RoughBergomiDynamics())
     with pytest.raises(TypeError, match="never materializes"):

@@ -62,7 +62,7 @@ def test_main_path_against_carr_madan():
     """PRNG stream, 16384 pairs: within 4 standard errors plus 1 bp of
     scheme bias of the port's own Carr-Madan price."""
     prob = ht.from_reference(_problem())
-    cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics())).price)
+    cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device="cpu")).price)
     cfg = ht.SimulationConfig(16384, 2, ht.Antithetic(), 4, False)
     sol = ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True), cfg,
                                        device="cpu"))
@@ -74,7 +74,7 @@ def test_main_path_against_carr_madan():
 def test_american_payoff_raises():
     prob = ht.from_reference(_problem(exercise=hh.American()))
     for method in (_cpu(_method(True)), _cpu(_method(False)),
-                   ht.CarrMadan(1.0, "auto", ht.HestonDynamics()),
+                   ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device="cpu"),
                    ht.MonteCarlo(ht.HestonDynamics(), ht.EulerMaruyama(True),
                                  ht.SimulationConfig(64, 4), device="cpu")):
         with pytest.raises(TypeError, match="European"):

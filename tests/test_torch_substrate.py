@@ -69,7 +69,8 @@ def test_black_scholes_goldens():
     market = ht.BlackScholesInputs(REF, 0.05, 100.0, 0.2)
     for cp, want in ((ht.Call(), 16.6994), (ht.Put(), 2.3101)):
         payoff = ht.VanillaOption(90.0, expiry, ht.European(), cp, ht.Spot())
-        price = float(ht.solve(ht.PricingProblem(payoff, market), ht.BlackScholesAnalytic()).price)
+        price = float(ht.solve(ht.PricingProblem(payoff, market),
+                               ht.BlackScholesAnalytic(device="cpu")).price)
         assert price == pytest.approx(want, abs=1e-4)
 
 
@@ -83,7 +84,8 @@ def test_carr_madan_matches_reference(market, dynamics, strike, cp):
     prob = hh.PricingProblem(payoff, market)
     method = hh.CarrMadan(1.0, "auto", getattr(hh, dynamics)())
     want = np.asarray(hh.solve(prob, method).price)
-    got = ht.solve(ht.from_reference(prob), ht.from_reference(method)).price.numpy()
+    got = ht.solve(ht.from_reference(prob),
+                   dataclasses.replace(ht.from_reference(method), device="cpu")).price.numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=0.0)
 
@@ -91,8 +93,10 @@ def test_carr_madan_matches_reference(market, dynamics, strike, cp):
 def test_carr_madan_black_scholes_market_matches_analytic():
     payoff = ht.VanillaOption(95.0, EXPIRY, ht.European(), ht.Call(), ht.Spot())
     prob = ht.PricingProblem(payoff, ht.from_reference(BS))
-    cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.LognormalDynamics())).price)
-    assert cm == pytest.approx(float(ht.solve(prob, ht.BlackScholesAnalytic()).price), rel=1e-10)
+    cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.LognormalDynamics(),
+                                           device="cpu")).price)
+    bs = float(ht.solve(prob, ht.BlackScholesAnalytic(device="cpu")).price)
+    assert cm == pytest.approx(bs, rel=1e-10)
 
 
 def test_from_reference_round_trip():
@@ -218,7 +222,7 @@ def test_import_never_reaches_jax():
         cfg = ht.SimulationConfig(64, 2, ht.Antithetic(), 0, True)
         ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True), cfg,
                                      device="cpu"))
-        ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics()))
+        ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device="cpu"))
         ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(), cfg, device="cpu"))
         bs = ht.BlackScholesInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.2)
         ht.solve(ht.PricingProblem(prob.payoff, bs), ht.MonteCarlo(config=cfg, device="cpu"))
