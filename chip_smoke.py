@@ -4186,6 +4186,244 @@ def rb_wide_times(dev) -> dict:
     return out
 
 
+#: the exact-greeks phase: bench.py's market at 2^20 QMC pairs x 2 segments,
+#: and the CPU comparison at 2^16 pairs
+EXACT_GREEK_PAIRS, EXACT_GREEK_CPU_PAIRS = 2**20, 2**16
+#: test_exact_greeks.py's limits against central Carr-Madan differences
+EXACT_GREEK_RTOL, EXACT_GREEK_ATOL = 5e-2, 2e-2
+EXACT_GREEK_LENSES = {"spot": "market_inputs.spot", "V0": "market_inputs.V0",
+                      "kappa": "market_inputs.kappa", "theta": "market_inputs.theta",
+                      "sigma": "market_inputs.sigma", "rho": "market_inputs.rho",
+                      "rate": "market_inputs.rate.rate"}
+#: the american phase: CRR and LSM sizes, and the dual bound's nested paths
+CRR_STEPS, LSM_PAIRS, LSM_STEPS, LSM_DEGREE = 2000, 2**17, 100, 5
+DUAL_OUTER, DUAL_INNER, DUAL_STEPS = 4096, 128, 24
+AMERICAN_GOLDENS = (("Call", "Spot", 0.25225758542934945),
+                    ("Put", "Forward", 0.07409148128021317))
+
+
+def say_profile(label: str, rec: dict) -> None:
+    say(f"  {label}: wall {rec['eval wall ms']:.3f} ms, {rec['eval device ms']:.3f} ms on the "
+        f"device (events summed {rec['eval device sum ms']:.3f} ms, profiled wall "
+        f"{rec['eval profiled wall ms']:.3f} ms), idle share {rec['idle share']}")
+
+
+def phase_exact_greeks(smi: str, device: str) -> dict:
+    """Greeks through the float64 exact-mixing ``solve`` on the card (bench.py's
+    market, 2^20 QMC pairs x 2 segments): ``BatchGreekProblem(ReverseAD)``
+    against ``heston_exact_price_and_greeks`` (1e-10), both against central
+    Carr-Madan differences (rel 5e-2 / abs 2e-2, tests/agreement/
+    test_exact_greeks.py), and the card's vector against the same code's on
+    the CPU at 2^16 pairs (1e-10).  Prints each solve's wall and idle
+    share."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    say(f"phase 3 (exact greeks): likelihood-ratio greeks through HestonExactMixing() on "
+        f"{device}; {smi}")
+    market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    prob = ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(), ht.Spot()),
+                             market)
+
+    def method(pairs, dev):
+        cfg = ht.SimulationConfig(pairs, SEGMENTS, ht.Antithetic(), 1, True)
+        return ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(), cfg, device=dev)
+
+    mc = method(EXACT_GREEK_PAIRS, device)
+    lenses = [ht.FieldLens(path) for path in EXACT_GREEK_LENSES.values()]
+    batch = ht.solve(ht.BatchGreekProblem(prob, lenses), ht.ReverseAD(), mc)
+    rev = torch.stack([batch[lens] for lens in lenses])
+    price, greeks = ht.heston_exact_price_and_greeks(prob, mc)
+    vec = torch.stack([greeks[k] for k in GREEK_ORDER])
+    check(rev.device.type == torch.device(device).type == vec.device.type,
+          f"the greeks left the card ({rev.device}, {vec.device})")
+    say(f"  heston_exact_price_and_greeks, {EXACT_GREEK_PAIRS} QMC pairs: price "
+        f"{float(price):.8f}, " + ", ".join(f"{k} {float(g):.8f}" for k, g in zip(GREEK_ORDER, vec)))
+    compare_vectors("BatchGreekProblem(ReverseAD) against heston_exact_price_and_greeks",
+                    rev, vec, 1e-10)
+    cm = ht.CarrMadan(1.0, 32.0, ht.HestonDynamics(), device=device)
+    fd = ht.FiniteDifference(1e-4, ht.FDCentral())
+    cm_greeks = [float(ht.solve(ht.GreekProblem(prob, lens), fd, cm).greek) for lens in lenses]
+    for name, got, want in zip(GREEK_ORDER, vec.tolist(), cm_greeks):
+        check(abs(got - want) <= EXACT_GREEK_ATOL + EXACT_GREEK_RTOL * abs(want),
+              f"exact greek {name}: {got} against Carr-Madan's central difference {want}")
+        check(got != 0.0, f"exact greek {name} is zero")
+    say("  against central Carr-Madan differences (rel 5e-2, abs 2e-2): "
+        + ", ".join(f"{k} {g:.6f}" for k, g in zip(GREEK_ORDER, cm_greeks)))
+    small_price, small = ht.heston_exact_price_and_greeks(prob, method(EXACT_GREEK_CPU_PAIRS,
+                                                                       device))
+    cpu_price, cpu = ht.heston_exact_price_and_greeks(prob, method(EXACT_GREEK_CPU_PAIRS, "cpu"))
+    compare_vectors(f"the card's greek vector against the CPU's at {EXACT_GREEK_CPU_PAIRS} pairs",
+                    torch.stack([small[k] for k in GREEK_ORDER]).cpu(),
+                    torch.stack([cpu[k] for k in GREEK_ORDER]), 1e-10)
+    check(abs(float(small_price) - float(cpu_price)) <= 1e-10 * abs(float(cpu_price)),
+          f"the card's price {float(small_price)} against the CPU's {float(cpu_price)}")
+    out = {"greeks": dict(zip(GREEK_ORDER, vec.tolist())), "carr_madan": cm_greeks,
+           "price": float(price), "nvidia_smi": smi}
+    for label, fn in (
+            ("heston_exact_price_and_greeks", lambda: ht.heston_exact_price_and_greeks(prob, mc)),
+            ("BatchGreekProblem(ReverseAD)", lambda: ht.solve(
+                ht.BatchGreekProblem(prob, lenses), ht.ReverseAD(), mc)),
+            ("solve (price only)", lambda: ht.solve(prob, mc))):
+        out[label] = eval_profile(fn, device)
+        say_profile(f"{label}, {EXACT_GREEK_PAIRS} pairs ({smi})", out[label])
+    return out
+
+
+def lsm_price_se(sol) -> float:
+    """Standard error of an antithetic LSM price, over the pair means of the
+    per-path discounted stopping values (the groups are the halves of the
+    flattened path axis)."""
+    import torch
+
+    from hedgehog_tpu_torch.methods.lsm import _lsm_setup
+
+    log_disc, _ = _lsm_setup(sol.problem, sol.method)
+    tau, value = sol.stopping_info
+    v = torch.exp(tau * log_disc) * value
+    half = v.numel() // 2
+    return float(torch.std(0.5 * (v[:half] + v[half:])) / math.sqrt(half))
+
+
+def phase_american(smi: str, device: str) -> dict:
+    """Early exercise on the card: CRR(2000) for the American put (S = K =
+    100, r = 0.05, sigma = 0.2, 1y) equal to the CPU's (1e-12) and the CRR
+    goldens; LSM (BlackScholesExact, 2^17 pairs x 100 steps, degree 5) and
+    the quarterly Bermudan put within 4 SE + 1% of CRR's; conditional LSM
+    under Heston; the Andersen-Broadie dual bound (4096 x 128 nested paths)
+    bracketing CRR(2000) (Black-Scholes) and an Euler-grid LSM primal
+    (Heston).  Prints each solve's wall and idle share."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    say(f"phase 3 (american): CRR, LSM and the dual bound on {device}; {smi}")
+    out = {"nvidia_smi": smi}
+    ref, exp1 = dt.date(2020, 1, 1), dt.date(2021, 1, 1)
+    bs = ht.BlackScholesInputs(ref, 0.05, 100.0, 0.2)
+
+    def put(style, market=bs, strike=100.0, expiry=exp1):
+        return ht.PricingProblem(ht.VanillaOption(strike, expiry, style, ht.Put(), ht.Spot()),
+                                 market)
+
+    # CRR: the card against the CPU, and the goldens
+    crr, crr_cpu = ht.CoxRossRubinsteinMethod(CRR_STEPS, device), ht.CoxRossRubinsteinMethod(
+        CRR_STEPS, "cpu")
+    am = ht.solve(put(ht.American()), crr).price
+    am_cpu = float(ht.solve(put(ht.American()), crr_cpu).price)
+    check(am.device.type == torch.device(device).type, f"CRR priced on {am.device}")
+    check(abs(float(am) - am_cpu) <= 1e-12 * abs(am_cpu),
+          f"CRR({CRR_STEPS}) on the card {float(am)!r} against the CPU's {am_cpu!r}")
+    gold_market = ht.BlackScholesInputs(ref, 0.2, 1.0, 0.4)
+    for cp, und, golden in AMERICAN_GOLDENS:
+        gp = ht.PricingProblem(ht.VanillaOption(1.0, dt.date(2020, 12, 31), ht.American(),
+                                                getattr(ht, cp)(), getattr(ht, und)()),
+                               gold_market)
+        got = float(ht.solve(gp, ht.CoxRossRubinsteinMethod(80, device)).price)
+        check(abs(got - golden) <= 1e-8, f"CRR golden {cp} on {und}: {got!r}, golden {golden!r}")
+    say(f"  CRR({CRR_STEPS}) American put {float(am):.10f} (the CPU's {am_cpu:.10f}, "
+        "within 1e-12); the two CRR(80) goldens within 1e-8")
+
+    # LSM against CRR, American and quarterly Bermudan
+    cfg = ht.SimulationConfig(LSM_PAIRS, LSM_STEPS, ht.Antithetic(), 12345)
+    lsm = ht.LSM(ht.MonteCarlo(ht.LognormalDynamics(), ht.BlackScholesExact(), cfg,
+                               device=device), LSM_DEGREE)
+    quarters = (dt.date(2020, 4, 1), dt.date(2020, 7, 1), dt.date(2020, 10, 1))
+    rows = {}
+    for label, style in (("American", ht.American()), ("Bermudan", ht.Bermudan(quarters))):
+        prob = put(style)
+        sol = ht.solve(prob, lsm)
+        lattice = float(ht.solve(prob, crr).price)
+        se = lsm_price_se(sol)
+        err = abs(float(sol.price) - lattice)
+        check(err <= 4.0 * se + 0.01 * lattice,
+              f"LSM {label} put {float(sol.price)} against CRR {lattice}: {err} > 4 SE ({se}) + 1%")
+        rows[label] = {"lsm": float(sol.price), "crr": lattice, "se": se,
+                       **eval_profile(lambda: ht.solve(prob, lsm), device)}
+        say(f"  LSM {label} put ({LSM_PAIRS} pairs x {LSM_STEPS} steps, degree {LSM_DEGREE}): "
+            f"{float(sol.price):.6f}, CRR {lattice:.6f}, SE {se:.6f}")
+        say_profile(f"LSM {label} solve ({smi})", rows[label])
+    rows["CRR"] = eval_profile(lambda: ht.solve(put(ht.American()), crr), device)
+    say_profile(f"CRR({CRR_STEPS}) solve ({smi})", rows["CRR"])
+    out["lsm"] = rows
+
+    # conditional LSM under Heston, and the dual bounds
+    hm = ht.HestonInputs(dt.date(2024, 1, 1), 0.03, 100.0, *HESTON.values())
+    dual_exp = dt.date(2024, 12, 31)
+    hprob = put(ht.American(), hm, 110.0, dual_exp)
+    lsm_c = ht.LSM(ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True),
+                                 ht.SimulationConfig(20_000, DUAL_STEPS, seed=0), device=device),
+                   degree=3)
+    p_cond = float(ht.solve(hprob, lsm_c).price)
+    lsm_e = ht.LSM(ht.MonteCarlo(ht.HestonDynamics(), ht.EulerMaruyama(),
+                                 ht.SimulationConfig(30_000, 48, seed=2), device=device), degree=4)
+    p_euler = float(ht.solve(hprob, lsm_e).price)
+    check(abs(p_cond - p_euler) <= 2e-2 * p_euler,
+          f"conditional LSM {p_cond} against the Euler-grid LSM {p_euler} (rel 2e-2)")
+    db = ht.lsm_dual_bound(hprob, lsm_c, n_outer=DUAL_OUTER, n_inner=DUAL_INNER)
+    lo, up = float(db.lower), float(db.upper)
+    check(lo <= up and lo - 3 * float(db.se_lower) <= p_euler
+          and up + 3 * float(db.se_upper) >= p_euler - 0.05,
+          f"Heston dual bound [{lo}, {up}] does not bracket the Euler-grid LSM {p_euler}")
+    say(f"  Heston conditional LSM {p_cond:.6f}, Euler-grid LSM {p_euler:.6f}; dual bound "
+        f"[{lo:.6f}, {up:.6f}] (SE {float(db.se_lower):.6f}, {float(db.se_upper):.6f}), "
+        f"primal {float(db.primal):.6f}")
+    bs_dual = ht.BlackScholesInputs(dt.date(2024, 1, 1), 0.05, 100.0, 0.3)
+    bprob = put(ht.American(), bs_dual, 110.0, dual_exp)
+    truth = float(ht.solve(bprob, crr).price)
+    lsm_b = ht.LSM(ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(),
+                                 ht.SimulationConfig(20_000, DUAL_STEPS, seed=0), device=device),
+                   degree=5)
+    db_b = ht.lsm_dual_bound(bprob, lsm_b, n_outer=DUAL_OUTER, n_inner=DUAL_INNER)
+    lo_b, up_b = float(db_b.lower), float(db_b.upper)
+    check(lo_b - 3 * float(db_b.se_lower) <= truth <= up_b + 3 * float(db_b.se_upper)
+          and float(db_b.gap) < 0.05 * truth,
+          f"Black-Scholes dual bound [{lo_b}, {up_b}] against CRR {truth}")
+    say(f"  Black-Scholes dual bound [{lo_b:.6f}, {up_b:.6f}] brackets CRR({CRR_STEPS}) "
+        f"{truth:.6f}, gap {float(db_b.gap):.6f}")
+    out["dual"] = {
+        "heston": {"lower": lo, "upper": up, "primal": float(db.primal), "euler_lsm": p_euler,
+                   "conditional_lsm": p_cond},
+        "black_scholes": {"lower": lo_b, "upper": up_b, "crr": truth, "gap": float(db_b.gap)},
+    }
+    for label, fn in (("conditional LSM solve", lambda: ht.solve(hprob, lsm_c)),
+                      ("lsm_dual_bound (Heston)", lambda: ht.lsm_dual_bound(
+                          hprob, lsm_c, n_outer=DUAL_OUTER, n_inner=DUAL_INNER)),
+                      ("lsm_dual_bound (Black-Scholes)", lambda: ht.lsm_dual_bound(
+                          bprob, lsm_b, n_outer=DUAL_OUTER, n_inner=DUAL_INNER))):
+        out[label] = eval_profile(fn, device)
+        say_profile(f"{label} ({smi})", out[label])
+    return out
+
+
+#: the phases ``--only`` runs alone
+ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american}
+
+
+def only_main(names: str) -> int:
+    """``--only "exact greeks,american"``: the named phases alone on the card
+    (they launch no CUDA kernel, so nothing is built)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    smi = smi_query("name,power.limit")
+    say(smi)
+    result = {}
+    for name in names.split(","):
+        check(name in ONLY_PHASES, f"no phase {name!r}; --only takes {sorted(ONLY_PHASES)}")
+        result[name] = ONLY_PHASES[name](smi, "cuda")
+    result["elapsed_s"] = time.perf_counter() - t0
+    say(json.dumps(result))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def digest_main(argv: list) -> int:
     """``--digest OUT [--root DIR]``: build the kernels of the package in DIR
     (default: beside this script) and write its :func:`output_digests` to
@@ -4412,6 +4650,9 @@ def main() -> int:
 
     # the calibration path, with its own launch window for K7 and K11
     calibration_path = phase_calibration_path(smi, "cuda")
+    # greeks through the exact-mixing flagship, and early exercise (no kernel)
+    exact_greeks = phase_exact_greeks(smi, "cuda")
+    american = phase_american(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -4419,8 +4660,8 @@ def main() -> int:
                     "rb_occupancy": rb_occupancy, "rb_curve": rb_curve, "rb_smile": rb_smile,
                     "rb_surface": rb_surface, "heston_cells": heston_cells,
                     "past_old_limits": past_limits, "global_tables": global_tables,
-                    "calibration_path": calibration_path,
-                    "build_s": build_s, "nvidia_smi": smi,
+                    "calibration_path": calibration_path, "exact_greeks": exact_greeks,
+                    "american": american, "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)
@@ -4434,6 +4675,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if len(sys.argv) == 3 and sys.argv[1] == "--only":
+            sys.exit(only_main(sys.argv[2]))
         sys.exit(digest_main(sys.argv[1:]) if len(sys.argv) > 1 else main())
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -21,7 +21,14 @@ forward-variance vegas included) and the one-simulation smile
 bounded L-BFGS or a bracketed root) over interpolated rate curves and
 rectangular vol surfaces.  ``MonteCarlo``, ``CarrMadan``,
 ``BlackScholesAnalytic`` and the kernel wrappers run on the GPU unless the
-caller asks for ``device="cpu"``.
+caller asks for ``device="cpu"``.  Early exercise: the Cox-Ross-Rubinstein
+lattice (``CoxRossRubinsteinMethod``), Longstaff-Schwartz (``LSM``) over
+the Monte Carlo grids (``simulate_price_grid``; the conditional Heston
+bridge with the joint (S, V) basis) and its Andersen-Broadie dual bound
+(``lsm_dual_bound``), for American and Bermudan vanillas, on the GPU too.
+The exact-mixing estimator's greeks (``heston_exact_price_and_greeks``, or
+AD through ``solve``) carry the likelihood-ratio term of its Poisson
+counts.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
 """
@@ -44,6 +51,7 @@ from .core.dates import (
 )
 from .core.payoffs import (
     American,
+    Bermudan,
     Call,
     European,
     Forward,
@@ -66,6 +74,8 @@ from .core.problems import (
     BasketPricingProblem,
     BasketPricingSolution,
     CarrMadanSolution,
+    CRRSolution,
+    LSMSolution,
     MonteCarloSolution,
     PricingProblem,
 )
@@ -124,6 +134,9 @@ from .calibration.calibration import (
 )
 from .methods.black_scholes import BlackScholesAnalytic
 from .methods.carr_madan import CarrMadan
+from .methods.crr import CoxRossRubinsteinMethod
+from .methods.duality import DualBound, lsm_dual_bound
+from .methods.lsm import LSM
 from .methods.montecarlo import (
     Antithetic,
     BlackScholesExact,
@@ -134,12 +147,18 @@ from .methods.montecarlo import (
     NoVarianceReduction,
     RoughBergomiMixing,
     SimulationConfig,
+    mc_path_values,
     reduce_payoffs,
     simulate_conditional_values,
+    simulate_price_grid,
     simulate_terminal_prices,
 )
 from .methods.heston_surface import heston_surface_mc
-from .methods.mixing_greeks import GREEK_ORDER, heston_mixing_price_and_greeks
+from .methods.mixing_greeks import (
+    GREEK_ORDER,
+    heston_exact_price_and_greeks,
+    heston_mixing_price_and_greeks,
+)
 from .methods.rough_bergomi_surface import rbergomi_surface_mc
 from .models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
 from .models.rough_bergomi import ForwardVarianceCurve
@@ -150,11 +169,11 @@ __all__ = [
     "ACT365F", "MILLISECONDS_IN_DAY", "MILLISECONDS_IN_YEAR_365", "SECONDS_IN_YEAR_365",
     "Act360", "Act365Fixed", "Act36525", "ActActISDA", "DayCount", "Thirty360E",
     "add_yearfrac", "ticks_to_datetime", "to_ticks", "yearfrac",
-    "American", "Call", "European", "Forward", "Put", "Spot", "VanillaOption",
+    "American", "Bermudan", "Call", "European", "Forward", "Put", "Spot", "VanillaOption",
     "parity_transform",
     "Lens", "FieldLens", "SpotLens", "VolLens", "ZeroRateSpineLens", "lens_get", "lens_set",
     "AnalyticSolution", "BasketPricingProblem", "BasketPricingSolution", "CarrMadanSolution",
-    "MonteCarloSolution", "PricingProblem",
+    "CRRSolution", "LSMSolution", "MonteCarloSolution", "PricingProblem",
     "AbstractPricingMethod", "register_solver", "solve",
     "BlackScholesInputs", "HestonInputs", "RoughBergomiInputs",
     "FlatRateCurve", "RateCurve", "df", "df_yf", "forward_rate", "is_flat", "spine_tenors",
@@ -169,12 +188,14 @@ __all__ = [
     "SecondOrderGreekProblem",
     "implied_vol", "implied_vol_bs", "iv_to_price_bs", "rect_vol_surface_from_prices",
     "CalibrationProblem", "CalibrationSolution", "OptimizerAlgo", "RootFinderAlgo",
-    "BlackScholesAnalytic", "CarrMadan",
+    "BlackScholesAnalytic", "CarrMadan", "CoxRossRubinsteinMethod", "LSM", "DualBound",
+    "lsm_dual_bound",
     "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonExactMixing", "HestonQE",
     "MonteCarlo",
-    "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig", "reduce_payoffs",
-    "simulate_conditional_values", "simulate_terminal_prices",
-    "GREEK_ORDER", "heston_mixing_price_and_greeks", "heston_surface_mc", "rbergomi_surface_mc",
+    "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig", "mc_path_values",
+    "reduce_payoffs", "simulate_conditional_values", "simulate_price_grid",
+    "simulate_terminal_prices",
+    "GREEK_ORDER", "heston_exact_price_and_greeks", "heston_mixing_price_and_greeks", "heston_surface_mc", "rbergomi_surface_mc",
     "HestonDynamics", "LognormalDynamics", "RoughBergomiDynamics", "ForwardVarianceCurve",
     "GREEK_ORDER_RB",
     "from_reference",

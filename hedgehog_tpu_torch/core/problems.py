@@ -14,6 +14,8 @@ __all__ = [
     "PricingProblem",
     "BasketPricingProblem",
     "AnalyticSolution",
+    "CRRSolution",
+    "LSMSolution",
     "MonteCarloSolution",
     "CarrMadanSolution",
     "BasketPricingSolution",
@@ -47,6 +49,26 @@ class AnalyticSolution:
     problem: Any
     method: Any
     price: Any
+
+
+@_frozen
+class CRRSolution:
+    problem: Any
+    method: Any
+    price: Any
+
+
+@_frozen
+class LSMSolution:
+    """LSM price, the stopping rule ``stopping_info`` = (stop step per path
+    as float64, stop value per path) and the simulated spot grid
+    (steps + 1, paths)."""
+
+    problem: Any
+    method: Any
+    price: Any
+    stopping_info: Any
+    spot_paths: Any
 
 
 @_frozen

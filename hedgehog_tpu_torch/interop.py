@@ -24,12 +24,13 @@ def _port_classes() -> dict:
     from .core import dates, lenses, payoffs, problems
     from .greeks import greeks
     from .market import inputs, rate_curve, vol_surface
-    from .methods import black_scholes, carr_madan, montecarlo
+    from .methods import black_scholes, carr_madan, crr, duality, lsm, montecarlo
     from .models import dynamics, rough_bergomi
 
     classes = {}
     for mod in (dates, payoffs, problems, lenses, inputs, rate_curve, vol_surface, black_scholes,
-                carr_madan, montecarlo, dynamics, rough_bergomi, greeks, calibration):
+                carr_madan, crr, lsm, duality, montecarlo, dynamics, rough_bergomi, greeks,
+                calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:
                 classes[name] = obj

@@ -15,35 +15,11 @@ import numpy as np
 import torch
 
 from ..utils import device_of, f64
+from .linalg import tridiag_solve
 
 __all__ = ["interp1d", "interp2d_nested", "INTERP_KINDS"]
 
 INTERP_KINDS = ("linear", "quadratic", "cubic")
-
-
-def _tridiag_solve(dl, d, du, b):
-    """Thomas algorithm over the last axis (the JAX package's
-    ``math/linalg.tridiag_solve``): ``dl``/``du`` are the sub/super-diagonals
-    (length n, ``dl[..., 0]`` and ``du[..., -1]`` ignored), leading axes of
-    ``b`` batch."""
-    n = d.shape[-1]
-    c_prev = torch.zeros_like(b[..., 0])
-    y_prev = torch.zeros_like(b[..., 0])
-    cs, ys = [], []
-    for i in range(n):
-        dl_i = dl[..., i] if i > 0 else torch.zeros_like(d[..., 0])
-        du_i = du[..., i] if i < n - 1 else torch.zeros_like(d[..., 0])
-        denom = d[..., i] - dl_i * c_prev
-        c_prev = du_i / denom
-        y_prev = (b[..., i] - dl_i * y_prev) / denom
-        cs.append(c_prev)
-        ys.append(y_prev)
-    x_next = torch.zeros_like(b[..., 0])
-    xs = [None] * n
-    for i in reversed(range(n)):
-        x_next = ys[i] - cs[i] * x_next
-        xs[i] = x_next
-    return torch.stack(xs, dim=-1)
 
 
 def _natural_cubic_second_derivs(xs, ys):
@@ -58,7 +34,7 @@ def _natural_cubic_second_derivs(xs, ys):
     du = torch.cat([zero, h[1:].expand(batch + h[1:].shape), zero], dim=-1)
     slope = (ys[..., 1:] - ys[..., :-1]) / h
     rhs = torch.cat([zero, 6.0 * (slope[..., 1:] - slope[..., :-1]), zero], dim=-1)
-    return _tridiag_solve(dl, d, du, rhs)
+    return tridiag_solve(dl, d, du, rhs)
 
 
 def _linear(xq, xs, ys):

@@ -10,7 +10,11 @@ Heston case (identity leverage, flat drift r0) and terminal prices:
 Normals come from the Philox layout of the Euler kernel
 (csrc/hh_device.cuh) in float64, or under ``qmc=True`` from the JAX
 package's layout: Sobol' dims step-major × (Z₁, Z₂), each Brownian path
-built by bridge ordering (math/brownian_bridge.py).
+built by bridge ordering (math/brownian_bridge.py).  Every market field
+given as a tensor keeps its autograd history and forward tangents (the
+pathwise greeks).  ``return_grid=True``
+returns every step's price (the grid of ``simulate_price_grid``) from the
+same draws.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from ..math.counter_rng import prng_key
 from ..math.sobol import sobol_uniforms
 from ..ops.heston_kernel import seed_from_key
 from ..ops.hh_device import box_muller, philox_block
+from ..utils import f64
 from .montecarlo import Antithetic, sim_params
 
 __all__ = ["heston_euler_paths"]
@@ -43,25 +48,28 @@ def _bridge_normals(config, key, dt, point_offset, device) -> torch.Tensor:
 
 
 def heston_euler_paths(prob, config, key=None, device_id=0, point_offset=0, *,
-                       device) -> torch.Tensor:
-    """Terminal prices (n_groups, trajectories), float64."""
+                       device, return_grid: bool = False) -> torch.Tensor:
+    """Terminal prices (n_groups, trajectories), or with ``return_grid`` the
+    grid (n_groups, steps + 1, trajectories), float64."""
     market, T, r0 = sim_params(prob)
     steps = config.steps
     dt = T / steps
     sqrt_dt = math.sqrt(dt)
-    kappa, theta, sigma, rho = (float(market.kappa), float(market.theta),
-                                float(market.sigma), float(market.rho))
-    rho_bar = math.sqrt(1.0 - rho**2)
+    spot, v0, kappa, theta, sigma, rho, r0 = (
+        f64(x, device=device) for x in (market.spot, market.V0, market.kappa, market.theta,
+                                        market.sigma, market.rho, r0))
+    rho_bar = torch.sqrt(1.0 - rho**2)
     anti = isinstance(config.variance_reduction, Antithetic)
-    shape = (2 if anti else 1, config.trajectories)
-    x = torch.full(shape, math.log(float(market.spot)), dtype=torch.float64, device=device)
-    v = torch.full(shape, float(market.V0), dtype=torch.float64, device=device)
+    zeros = torch.zeros((2 if anti else 1, config.trajectories), dtype=torch.float64,
+                        device=device)
+    x, v = zeros + torch.log(spot), zeros + v0
     sign = torch.tensor([1.0, -1.0] if anti else [1.0], dtype=torch.float64, device=device)[:, None]
     if config.qmc:
         zq = _bridge_normals(config, key, dt, point_offset, device)
     else:
         seed = seed_from_key(config, key)
         pair = torch.arange(config.trajectories, dtype=torch.int64, device=device)
+    xs = [x]
     for s in range(steps):
         if config.qmc:
             z1, z2 = zq[s, 0], zq[s, 1]
@@ -71,7 +79,12 @@ def heston_euler_paths(prob, config, key=None, device_id=0, point_offset=0, *,
             z1, z2 = box_muller(words[2 * (s % 2)], words[2 * (s % 2) + 1], dtype=torch.float64)
         z1, z2 = sign * z1, sign * z2
         v_plus = torch.clamp(v, min=0.0)
-        sqrt_v = torch.sqrt(v_plus)
+        # double where: sqrt'(0) = inf would turn a truncated path's zero
+        # cotangent into NaN
+        sqrt_v = torch.where(v > 0.0, torch.sqrt(torch.where(v > 0.0, v, 1.0)), 0.0)
         x = x + (r0 - 0.5 * v_plus) * dt + sqrt_v * sqrt_dt * z1
         v = v + kappa * (theta - v_plus) * dt + sigma * sqrt_v * sqrt_dt * (rho * z1 + rho_bar * z2)
+        xs.append(x)
+    if return_grid:
+        return torch.exp(torch.stack(xs, dim=1))
     return torch.exp(x)

@@ -2,9 +2,16 @@
 conditional Black-Scholes close it finishes with.
 
 Port of ``_heston_exact_mixing_values``, ``conditional_payoff_close`` and
-``_conditional_bs_close`` from ``hedgehog_tpu/methods/montecarlo.py``
-(primal only: the JAX version also bakes a likelihood-ratio term into the
-values for its greeks, which are not part of this port).
+``_conditional_bs_close`` from ``hedgehog_tpu/methods/montecarlo.py``.
+
+The Poisson count of each exact transition is a step function of the
+parameters, so plain pathwise AD would drop the dependence of the count's
+law on its rate (the V-leg greeks badly biased).  The values therefore
+carry the likelihood-ratio surrogate ``vals + sg(vals − b)·(L − sg(L))``
+with L the per-path frozen-count Poisson log-likelihood and b the batch
+mean (per strike on a strike grid): the primal is unchanged to the bit,
+and ``torch.autograd.grad`` or ``torch.func.jvp`` through ``solve`` is
+unbiased in every market field given as a tensor.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from ..ops.hh_device import box_muller, philox_block
 from ..utils import f64
 from .montecarlo import Antithetic, sim_params
 
-__all__ = ["conditional_payoff_close", "heston_exact_mixing_values"]
+__all__ = ["conditional_payoff_close", "heston_exact_mixing_values", "score_surrogate"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -93,28 +100,55 @@ def _draws(config, key, segments, paths, anti, device_id, point_offset, device):
     return groups(u_pois, True), groups(z_gam, False), groups(u_boost, True), groups(z_iv, False)
 
 
+def exact_params(market, device):
+    """(V0, κ, θ, σ) as float64 tensors on ``device`` where any is a tensor
+    (their history kept), else as floats."""
+    fields = (market.V0, market.kappa, market.theta, market.sigma)
+    if any(isinstance(x, torch.Tensor) for x in fields):
+        return tuple(f64(x, device=device) for x in fields)
+    return tuple(float(x) for x in fields)
+
+
+def score_surrogate(vals, logl):
+    """``vals + sg(vals − b)·(L − sg(L))``, b the batch mean (per strike for
+    (g, m, paths) values): the primal is ``vals``, the gradient adds the
+    score term E[(f − b)·∂L]."""
+    if vals.ndim == 3:
+        b = torch.mean(vals, dim=(0, -1)).detach()[None, :, None]
+        logl = logl[:, None, :]
+    else:
+        b = torch.mean(vals).detach()
+    return vals + (vals - b).detach() * (logl - logl.detach())
+
+
 def heston_exact_mixing_values(prob, config, key=None, device_id=0, point_offset=0, *,
-                               device):
+                               device, with_score=False):
     """Per-path UNDISCOUNTED conditional vanilla values (n_groups, paths),
-    float64, from the exact-transition segmented mixing scheme."""
+    float64, from the exact-transition segmented mixing scheme, with the
+    likelihood-ratio surrogate baked in; ``with_score=True`` returns the
+    plain values and the per-path frozen-count log-likelihood instead."""
     market, T, r0 = sim_params(prob)
     segments = config.steps
     dt = T / segments
     paths = config.trajectories
-    c = cir_exact_constants(market.kappa, market.theta, market.sigma, dt)
+    v0, kappa, theta, sigma = exact_params(market, device)
+    c = cir_exact_constants(kappa, theta, sigma, dt)
     # raises for markets whose Poisson-mixture count cannot be truncated safely
-    kmax = poisson_kmax(market.kappa, market.theta, market.sigma, dt, market.V0)
+    kmax = poisson_kmax(kappa, theta, sigma, dt, v0)
     anti = isinstance(config.variance_reduction, Antithetic)
     u_pois, z_gam, u_boost, z_iv = _draws(config, key, segments, paths, anti, device_id,
                                           point_offset, device)
-    v = torch.full((z_gam.shape[1], paths), float(market.V0), dtype=torch.float64, device=device)
+    v = torch.zeros((z_gam.shape[1], paths), dtype=torch.float64, device=device) + v0
     iv = torch.zeros_like(v)
+    logl = torch.zeros_like(v)
     for i in range(segments):
-        y, _ = cir_exact_step_score(v, u_pois[i], z_gam[i], u_boost[i], c, kmax)
+        y, ll = cir_exact_step_score(v, u_pois[i], z_gam[i], u_boost[i], c, kmax)
+        logl = logl + ll
         m1, s2 = iv_cond_moments(v, y, c)
         iv = iv + iv_gamma_draw(m1, s2, z_iv[i])
         v = y
-    kappa, sigma = float(market.kappa), float(market.sigma)
-    j = (v - float(market.V0) - kappa * float(market.theta) * T + kappa * iv) / sigma
-    return _conditional_bs_close(prob, market, T, r0, iv, j)
-
+    j = (v - v0 - kappa * theta * T + kappa * iv) / sigma
+    vals = _conditional_bs_close(prob, market, T, r0, iv, j)
+    if with_score:
+        return vals, logl
+    return score_surrogate(vals, logl)

@@ -19,11 +19,11 @@ Draws, with the step or segment index running across all segments:
   ``sum(seg_steps)`` segments (QMC dims 4k..4k + 3; PRNG Philox block k at
   global segment k), the stream of the exact-mixing kernels.
 
-The QE surface keeps the autograd history of every market field that is a
-tensor.  The exact surface is primal only: the JAX package closes it through
-a likelihood-ratio surrogate whose gradient the port does not have yet, so it
-raises when a market field requires grad rather than return a biased
-pathwise gradient.
+Both surfaces keep the autograd history and forward tangents of every
+market field that is a tensor.  The exact surface closes each point
+through the likelihood-ratio surrogate (the frozen-count Poisson
+log-likelihood accumulated up to that expiry, ``score_logl``), so its
+gradient in the Heston parameters is unbiased; the primal is unchanged.
 """
 
 from __future__ import annotations
@@ -68,9 +68,12 @@ def validate_surface_expiries(market, expiries):
     return T_host
 
 
-def _surface_close_row(market, T_i, r0, iv, j, strikes_i, cp_i):
+def _surface_close_row(market, T_i, r0, iv, j, strikes_i, cp_i, score_logl=None):
     """Close one expiry's (IV, J) against its strikes with the conditional
-    Black-Scholes formula: DISCOUNTED mean prices (m,)."""
+    Black-Scholes formula: DISCOUNTED mean prices (m,).  ``score_logl``
+    (g, paths), the frozen-count Poisson log-likelihood up to this expiry,
+    closes each point through the likelihood-ratio surrogate (b = the
+    point's batch mean)."""
     dev = iv.device
     spot, rho = f64(market.spot, device=dev), f64(market.rho, device=dev)
     f_eff = spot * torch.exp(r0 * T_i + rho * j - 0.5 * rho**2 * iv)
@@ -85,6 +88,10 @@ def _surface_close_row(market, T_i, r0, iv, j, strikes_i, cp_i):
     d2 = d1 - sd_b
     ncdf = torch.special.ndtr
     vals = cp_b * (f_b * ncdf(cp_b * d1) - k_b * ncdf(cp_b * d2))
+    if score_logl is not None:
+        from .heston_exact_mixing import score_surrogate
+
+        vals = score_surrogate(vals, score_logl)
     return df_yf(market.rate, T_i).to(dev) * torch.mean(vals, dim=(0, -1))
 
 
@@ -122,18 +129,12 @@ def _mixing_surface_rows(market, T_host, per_exp_strikes, per_exp_cp, config, ke
     return rows
 
 
-def _requires_grad(market) -> bool:
-    fields = (market.spot, market.V0, market.kappa, market.theta, market.sigma, market.rho,
-              market.rate.rate, carry_yield(market))
-    return any(isinstance(x, torch.Tensor) and x.requires_grad for x in fields)
-
-
 def _exact_surface_rows(market, T_host, per_exp_strikes, per_exp_cp, config, key=None,
                         device_id=0, point_offset=0, *, device):
     """Exact-transition core: per expiry gap the exact CIR transition and
     the gamma-matched conditional ∫V draw of models/heston_exact.py, J
     accumulated through the per-segment CIR identity, the carries closed at
-    each expiry.  Primal only (see the module docstring)."""
+    each expiry through the likelihood-ratio surrogate."""
     from ..models.heston_exact import (
         cir_exact_constants,
         cir_exact_step_score,
@@ -141,25 +142,19 @@ def _exact_surface_rows(market, T_host, per_exp_strikes, per_exp_cp, config, key
         iv_gamma_draw,
         poisson_kmax,
     )
-    from .heston_exact_mixing import _draws
+    from .heston_exact_mixing import _draws, exact_params
 
-    if _requires_grad(market):
-        raise TypeError(
-            "the exact-transition surface is primal only: its unbiased gradient needs the "
-            "likelihood-ratio surrogate, which is not ported; use the QE surface "
-            "(strategy=None) for gradients"
-        )
     r0 = zero_rate_yf(market.rate, 0.0) - f64(carry_yield(market))
     seg_len, seg_steps = surface_seg_steps(T_host, config.steps, min_first=2)
     paths = config.trajectories
     anti = isinstance(config.variance_reduction, Antithetic)
     u_pois, z_gam, u_boost, z_iv = _draws(config, key, sum(seg_steps), paths, anti, device_id,
                                           point_offset, device)
-    v0, kappa, theta, sigma = (float(x) for x in (market.V0, market.kappa, market.theta,
-                                                  market.sigma))
-    v = torch.full(z_gam.shape[1:], v0, dtype=torch.float64, device=device)
+    v0, kappa, theta, sigma = exact_params(market, device)
+    v = torch.zeros(z_gam.shape[1:], dtype=torch.float64, device=device) + v0
     iv = torch.zeros_like(v)
     j = torch.zeros_like(v)
+    logl = torch.zeros_like(v)
     rows, offset = [], 0
     for i, steps_i in enumerate(seg_steps):
         dt_i = seg_len[i] / steps_i
@@ -167,7 +162,8 @@ def _exact_surface_rows(market, T_host, per_exp_strikes, per_exp_cp, config, key
         kmax = poisson_kmax(kappa, theta, sigma, dt_i, v0)
         ktd = kappa * theta * dt_i
         for k in range(offset, offset + steps_i):
-            y, _ = cir_exact_step_score(v, u_pois[k], z_gam[k], u_boost[k], c, kmax)
+            y, ll = cir_exact_step_score(v, u_pois[k], z_gam[k], u_boost[k], c, kmax)
+            logl = logl + ll
             m1, s2 = iv_cond_moments(v, y, c)
             iv_seg = iv_gamma_draw(m1, s2, z_iv[k])
             iv = iv + iv_seg
@@ -175,7 +171,7 @@ def _exact_surface_rows(market, T_host, per_exp_strikes, per_exp_cp, config, key
             v = y
         offset += steps_i
         rows.append(_surface_close_row(market, T_host[i], r0.to(device), iv, j,
-                                       per_exp_strikes[i], per_exp_cp[i]))
+                                       per_exp_strikes[i], per_exp_cp[i], score_logl=logl))
     return rows
 
 

@@ -14,18 +14,21 @@ J = ∫√V dW_v, so only the QE variance scan needs tangents:
 
 The tangent tables (:func:`greek_tables`) also feed the greek kernels'
 tangent table (ops/heston_qe_greeks_kernel.py), so the two cannot drift.
-``heston_exact_price_and_greeks`` (the exact scheme's likelihood-ratio
-greeks) is not ported yet.
+
+:func:`heston_exact_price_and_greeks` is the exact-transition scheme's
+price and greek vector in one reverse pass: pathwise through the frozen
+Poisson counts plus their likelihood-ratio score (Glasserman ch. 7).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from ..core.payoffs import require_european
-from ..market.rate_curve import df_yf
+from ..market.rate_curve import df_yf, zero_rate_yf
 from ..models.heston_qe import qe_constants, qe_v_step_with_coeffs
 from ..utils import f64, resolve_device
 
@@ -33,6 +36,7 @@ __all__ = [
     "GREEK_ORDER",
     "cond_bs_value_and_partials",
     "greek_tables",
+    "heston_exact_price_and_greeks",
     "heston_mixing_price_and_greeks",
 ]
 
@@ -207,3 +211,53 @@ def heston_mixing_price_and_greeks(prob, method, key=None):
         "rate": D * m_y_f0 * f0 * T - T * price,
     }
     return price, greeks
+
+
+def heston_exact_price_and_greeks(prob, method, key=None):
+    """Price and the unbiased 7-parameter greek dict (keys
+    :data:`GREEK_ORDER`) of a European vanilla under ``MonteCarlo(
+    HestonDynamics(), HestonExactMixing())``, from one reverse pass over the
+    stacked parameter vector on the same draws as the seeded ``solve`` (the
+    price equals its price).  The counts are frozen and the per-path
+    Poisson log-likelihood L enters through the surrogate
+    ``vals + sg(vals − b)·(L − sg(L))``, b = sg(mean(vals)): the score term
+    that plain pathwise AD through the exact scheme misses.  Flat-rate
+    convention as :func:`heston_mixing_price_and_greeks`.  Returns float64
+    0-dim tensors on ``method.device``."""
+    from ..market.inputs import HestonInputs, carry_yield, market_yearfrac
+    from ..models.dynamics import HestonDynamics
+    from .heston_exact_mixing import heston_exact_mixing_values, score_surrogate
+    from .montecarlo import HestonExactMixing, MonteCarlo
+
+    if not (isinstance(method, MonteCarlo) and isinstance(method.dynamics, HestonDynamics)
+            and isinstance(method.strategy, HestonExactMixing)):
+        raise TypeError(
+            "heston_exact_price_and_greeks requires MonteCarlo(HestonDynamics, "
+            "HestonExactMixing())"
+        )
+    if method.strategy.use_kernel:
+        raise TypeError(
+            "heston_exact_price_and_greeks draws the pure-torch streams; the "
+            "exact kernels are primal-only (serve kernel greeks from the QE "
+            "mixing greek kernel)"
+        )
+    require_european(prob.payoff, "heston_exact_price_and_greeks", spot_only=True)
+    if torch.as_tensor(prob.payoff.strike).ndim > 0:
+        raise TypeError("scalar strike only (loop over a strike grid outside)")
+
+    device = resolve_device(method.device)
+    market = prob.market_inputs
+    T = market_yearfrac(market, prob.payoff.expiry)
+    r0 = zero_rate_yf(market.rate, 0.0)
+    params = torch.stack([f64(x, device=device).detach() for x in (
+        market.spot, market.V0, market.kappa, market.theta, market.sigma, market.rho, r0)])
+    params.requires_grad_(True)
+    spot, v0, kappa, theta, sigma, rho, r = params.unbind(0)
+    m2 = HestonInputs(market.reference_date, r, spot, v0, kappa, theta, sigma, rho,
+                      dividend_yield=carry_yield(market), daycount=market.daycount)
+    vals, logl = heston_exact_mixing_values(dataclasses.replace(prob, market_inputs=m2),
+                                            method.config, key=key, device=device,
+                                            with_score=True)
+    price = df_yf(m2.rate, T).to(device) * torch.mean(score_surrogate(vals, logl))
+    (grad,) = torch.autograd.grad(price, params)
+    return price.detach(), dict(zip(GREEK_ORDER, grad.unbind(0)))

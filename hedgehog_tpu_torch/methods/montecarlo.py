@@ -11,10 +11,13 @@ estimators live beside it: ``gbm_exact.py`` (exact lognormal draw),
 mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
 ``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close);
 ``use_kernel=True`` routes them through the CUDA kernels of
-``hedgehog_tpu_torch.ops``.
+``hedgehog_tpu_torch.ops``.  ``simulate_price_grid`` and
+``simulate_conditional_grid`` give the whole path grids the early-exercise
+methods regress on (methods/lsm.py), and ``mc_path_values`` the per-path
+value estimates of every strategy.
 
-On the QE paths, the rough-Bergomi mixing path and the exact GBM draw,
-market fields that are 0-dim tensors stay tensors, so
+On the QE paths, the exact-mixing and rough-Bergomi mixing paths and the
+GBM samplers, market fields that are 0-dim tensors stay tensors, so
 ``torch.autograd.grad`` of a ``solve`` price reaches them (on the QE and
 rough-Bergomi mixing paths through the kernels' backward as well).
 
@@ -51,6 +54,9 @@ __all__ = [
     "Antithetic",
     "simulate_terminal_prices",
     "simulate_conditional_values",
+    "simulate_price_grid",
+    "simulate_conditional_grid",
+    "mc_path_values",
     "reduce_payoffs",
 ]
 
@@ -274,12 +280,10 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
         )
     route = None
     if isinstance(dyn, LognormalDynamics) and isinstance(strat, (EulerMaruyama, BlackScholesExact)):
-        if isinstance(strat, EulerMaruyama) and not strat.use_kernel:
-            raise TypeError(
-                "(LognormalDynamics, EulerMaruyama(use_kernel=False)), the JAX package's "
-                "_gbm_euler_paths, is not ported yet; use BlackScholesExact"
-            )
-        route = "gbm"
+        # log-Euler GBM increments sum exactly: EulerMaruyama(use_kernel=True)
+        # runs the exact lognormal kernel, as in the JAX package
+        route = ("gbm_euler" if isinstance(strat, EulerMaruyama) and not strat.use_kernel
+                 else "gbm")
     elif isinstance(dyn, HestonDynamics) and isinstance(strat, (EulerMaruyama, HestonQE)):
         route = "euler" if isinstance(strat, EulerMaruyama) else "qe"
     if route is None:
@@ -296,6 +300,10 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
         )
     device = resolve_device(method.device)
     kw = dict(key=key, device_id=device_id, device=device)
+    if route == "gbm_euler":
+        from .gbm_euler import gbm_euler_paths
+
+        return gbm_euler_paths(prob, config, point_offset=point_offset, return_grid=False, **kw)
     if route == "gbm":
         if strat.use_kernel:
             from ..ops.gbm_kernel import gbm_exact_terminal_adapter
@@ -317,6 +325,99 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
     from .heston_euler import heston_euler_paths
 
     return heston_euler_paths(prob, config, point_offset=point_offset, **kw)
+
+
+def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
+                        point_offset=0) -> torch.Tensor:
+    """The price grid (n_groups, steps + 1, trajectories), float64 on
+    ``method.device``, for the grid methods (LSM): lognormal dynamics step
+    with the exact per-step lognormal transition (the log-Euler GBM paths,
+    whatever the strategy), Heston Euler and QE(-M) with the terminal
+    samplers' steppers and draws, and ``HestonQE(conditional=True)`` with
+    the conditional bridge (its S grid; LSM takes the V grid too through
+    :func:`simulate_conditional_grid`)."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    kw = dict(key=key, point_offset=point_offset)
+    if isinstance(strat, HestonQE) and strat.conditional:
+        if not isinstance(dyn, HestonDynamics):
+            raise TypeError("HestonQE(conditional=True) requires HestonDynamics")
+        return simulate_conditional_grid(prob, config, device=method.device, **kw)[0]
+    device = resolve_device(method.device)
+    if isinstance(dyn, LognormalDynamics):
+        from .gbm_euler import gbm_euler_paths
+
+        return gbm_euler_paths(prob, config, return_grid=True, device=device, **kw)
+    if isinstance(dyn, HestonDynamics) and isinstance(strat, EulerMaruyama):
+        from .heston_euler import heston_euler_paths
+
+        return heston_euler_paths(prob, config, return_grid=True, device=device, **kw)
+    if isinstance(dyn, HestonDynamics) and isinstance(strat, HestonQE):
+        from .heston_qe_paths import heston_qe_paths
+
+        return heston_qe_paths(prob, config, strat, return_grid=True, device=device, **kw)
+    raise TypeError(
+        f"unsupported grid simulation ({type(dyn).__name__}, {type(strat).__name__})"
+    )
+
+
+def simulate_conditional_grid(prob: PricingProblem, config: SimulationConfig, key=None,
+                              point_offset=0, *, device="cuda"):
+    """(S, V) grids, each (n_groups, steps + 1, trajectories) float64 on
+    ``device``: the QE variance path plus the exact conditional lognormal
+    bridge for S over each step, given the step's trapezoid ∫V proxy IV and
+    the CIR identity J = (V' − V − κθΔ + κ·IV)/σ:
+
+        logS' = logS + r0·Δ − IV/2 + ρ·J + √((1 − ρ²)·IV)·Z⊥,
+
+    one extra normal per step.  The draws per step are (Z_V, Z⊥, U): under
+    QMC Sobol' dims 3s, 3s + 1, 3s + 2 randomized by the unsplit base key
+    (the JAX package's points), under PRNG the QE-M Philox layout."""
+    from ..models.heston_qe import qe_constants, qe_v_step
+    from .heston_qe_paths import qe_m_draws
+
+    dev = resolve_device(device)
+    market, T, r0 = sim_params(prob)
+    dt = T / config.steps
+    spot, v0, kappa, theta, sigma, rho, r0 = (
+        f64(x, device=dev) for x in (market.spot, market.V0, market.kappa, market.theta,
+                                     market.sigma, market.rho, r0))
+    c = qe_constants(kappa, theta, sigma, rho, r0, dt)
+    ktd = kappa * theta * dt
+    rho_bar2 = 1.0 - rho**2
+    z_v, z_perp, u = qe_m_draws(config, key, 0, point_offset, device=dev, split_key=False)
+    zeros = torch.zeros(z_v.shape[1:], dtype=torch.float64, device=dev)
+    x, v = torch.log(spot) + zeros, v0 + zeros
+    xs, vs = [x], [v]
+    for k in range(config.steps):
+        v_new = qe_v_step(v, z_v[k], u[k], c)
+        iv = 0.5 * dt * (v + v_new)
+        j = (v_new - v - ktd + kappa * iv) / sigma
+        x = x + r0 * dt - 0.5 * iv + rho * j + torch.sqrt(
+            torch.clamp(rho_bar2 * iv, min=1e-18)) * z_perp[k]
+        v = v_new
+        xs.append(x)
+        vs.append(v)
+    return torch.exp(torch.stack(xs, dim=1)), torch.stack(vs, dim=1)
+
+
+def mc_path_values(prob: PricingProblem, method: MonteCarlo, key=None, device_id=0,
+                   point_offset=0) -> torch.Tensor:
+    """Per-path undiscounted value estimates, antithetic groups averaged,
+    for every strategy: the conditional values of the mixing strategies or
+    the payoffs of the terminal samples.  Shape (paths,), or (m, paths) for
+    a strike grid (the path axis last)."""
+    if _is_conditional_strategy(method.strategy):
+        values = simulate_conditional_values(prob, method, key=key, device_id=device_id,
+                                             point_offset=point_offset)
+        return torch.mean(values, dim=0)
+    if not isinstance(prob.payoff, VanillaOption):
+        raise TypeError(
+            "mc_path_values covers single-asset terminal-sample payoffs; price "
+            f"{type(prob.payoff).__name__} through solve(...)"
+        )
+    samples = simulate_terminal_prices(prob, method, key=key, device_id=device_id,
+                                       point_offset=point_offset)
+    return reduce_payoffs(samples, prob.payoff)
 
 
 def reduce_payoffs(samples: torch.Tensor, payoff) -> torch.Tensor:

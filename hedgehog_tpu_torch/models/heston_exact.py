@@ -1,6 +1,6 @@
 """Exact-transition segmented mixing scheme for Heston, in float64 torch.
 
-Port of ``hedgehog_tpu/models/heston_exact.py`` (primal only).  Per
+Port of ``hedgehog_tpu/models/heston_exact.py``.  Per
 segment of length Δ:
 
 1. V_{t+Δ} | V_t — the exact CIR transition as a Poisson(λ/2)-mixed
@@ -14,14 +14,21 @@ segment of length Δ:
 3. J = ∫√V dW_v follows from the CIR identity, and the payoff closes with
    the conditional Black–Scholes formula (methods/heston_exact_mixing.py).
 
-Path-independent constants are Python floats computed with numpy in
-float64; per-path functions take float64 tensors.
+Path-independent constants are computed with numpy in float64 when the
+parameters are numbers (the kernels' host coefficients), and as float64
+tensors when any parameter is a tensor, so autograd and forward-mode
+tangents reach κ, θ, σ, Δ and V0.  The Poisson count is frozen (no
+derivative), and :func:`lam_of_eta` differentiates by the implicit function
+theorem, as the JAX package's ``custom_jvp`` does; the greeks then add the
+count's likelihood-ratio score (methods/heston_exact_mixing.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import device_of, f64
 
 __all__ = [
     "POISSON_KMAX",
@@ -45,6 +52,21 @@ CF_ITERS = 24
 CF_SWITCH = 24.0
 
 
+def _lib(*xs):
+    """(module, values): torch and float64 tensors on one device when any
+    input is a tensor (their autograd history and tangents kept), numpy and
+    floats otherwise."""
+    if any(isinstance(x, torch.Tensor) for x in xs):
+        dev = device_of(*xs)
+        return torch, tuple(f64(x, device=dev) for x in xs)
+    return np, tuple(float(x) for x in xs)
+
+
+def _host(x) -> float:
+    """A parameter's value as a float, read without its autograd history."""
+    return float(x.detach()) if isinstance(x, torch.Tensor) else float(x)
+
+
 def poisson_kmax(kappa, theta, sigma, dt, v0) -> int:
     """Poisson trip count with a provable tail: the smallest k with
     P(N > k) < 1e-8 at the rate λ(v_b)/2, v_b = m + 6s from the worst
@@ -52,10 +74,11 @@ def poisson_kmax(kappa, theta, sigma, dt, v0) -> int:
 
     Raises ValueError when even ``POISSON_KMAX_CAP`` trips cannot meet the
     tail (λ/2 ≳ 40, e.g. vol-of-vol σ ≲ 0.05 at κΔ ~ 1): a clamped count
-    would price with a large hidden bias.  The JAX version's ``default``
-    (its count under tracing) has no counterpart: inputs here are concrete."""
-    k_, th = float(kappa), float(theta)
-    s_, d_, v = float(sigma), float(dt), float(v0)
+    would price with a large hidden bias.  The count is static: tensor
+    inputs are read on the host, their history untouched.  The JAX
+    version's ``default`` (its count under tracing) has no counterpart:
+    inputs here are concrete."""
+    k_, th, s_, d_, v = (_host(x) for x in (kappa, theta, sigma, dt, v0))
     e = np.exp(-k_ * d_)
     em = -np.expm1(-k_ * d_)
     cfac = s_ * s_ * em / (4.0 * k_)
@@ -83,15 +106,16 @@ def poisson_kmax(kappa, theta, sigma, dt, v0) -> int:
 
 def cir_exact_constants(kappa, theta, sigma, dt) -> dict:
     """Per-segment path-independent constants of the transition sampler and
-    the conditional ∫V moments."""
-    kappa, theta, sigma, dt = (float(x) for x in (kappa, theta, sigma, dt))
-    e = np.exp(-kappa * dt)
-    em = -np.expm1(-kappa * dt)
+    the conditional ∫V moments: floats from numbers, float64 tensors when
+    any input is a tensor."""
+    xp, (kappa, theta, sigma, dt) = _lib(kappa, theta, sigma, dt)
+    e = xp.exp(-kappa * dt)
+    em = -xp.expm1(-kappa * dt)
     cfac = sigma**2 * em / (4.0 * kappa)  # noncentral-χ² scale / 2
     d_half = 2.0 * kappa * theta / sigma**2  # half the χ² dof
     t2 = kappa * dt / 2.0
-    s = np.sinh(t2)
-    c1 = np.cosh(t2) / s  # coth
+    s = xp.sinh(t2)
+    c1 = xp.cosh(t2) / s  # coth
     c2 = 1.0 / (s * s)  # csch²
     return dict(
         kappa=kappa, sigma=sigma, dt=dt,
@@ -107,8 +131,9 @@ def cir_exact_constants(kappa, theta, sigma, dt) -> dict:
 
 def cir_exact_shared_coeffs(kappa, theta, sigma) -> dict:
     """Δ-independent kernel coefficients: (d_half, nu, nu2, an1-3, ad1-3 of
-    the Bessel asymptotic series, m1f, s2f, inv_kappa)."""
-    kappa, theta, sigma = (float(x) for x in (kappa, theta, sigma))
+    the Bessel asymptotic series, m1f, s2f, inv_kappa); tensors when any
+    input is a tensor."""
+    _, (kappa, theta, sigma) = _lib(kappa, theta, sigma)
     d_half = 2.0 * kappa * theta / sigma**2
     nu = d_half - 1.0
 
@@ -198,9 +223,7 @@ def _gq_horner(coeffs, t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def lam_of_eta(eta: torch.Tensor, trips: int = GQ_NEWTON) -> torch.Tensor:
-    """Solve λ − 1 − ln λ = η²/2 with sign(η) = sign(λ−1): series for
-    |η| < 0.5, fixed-trip Newton from a cube/exp-tail start otherwise."""
+def _lam_of_eta_primal(eta: torch.Tensor, trips: int) -> torch.Tensor:
     lam_s = 1.0 + eta * (1.0 + eta * (1.0 / 3.0 + eta * (1.0 / 36.0
             + eta * (-1.0 / 270.0 + eta * (1.0 / 4320.0)))))
     cube = torch.clamp((1.0 + eta / 3.0) ** 3, min=1e-12)
@@ -212,6 +235,50 @@ def lam_of_eta(eta: torch.Tensor, trips: int = GQ_NEWTON) -> torch.Tensor:
         den = torch.where(torch.abs(lam - 1.0) < 1e-12, 1e-12, lam - 1.0)
         lam = torch.clamp(lam - f * lam / den, min=1e-30)
     return torch.where(torch.abs(eta) < 0.5, lam_s, lam)
+
+
+def _lam_of_eta_slope(eta: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """dλ/dη = η·λ/(λ − 1) from (1 − 1/λ)·dλ = η·dη; the 0/0 at η → 0 is
+    closed by the series branch's own derivative (the primal's |η| < 0.5
+    switch)."""
+    dser = 1.0 + eta * (2.0 / 3.0 + eta * (1.0 / 12.0
+           + eta * (-2.0 / 135.0 + eta * (1.0 / 864.0))))
+    den = torch.where(torch.abs(lam - 1.0) < 1e-12, 1e-12, lam - 1.0)
+    return torch.where(torch.abs(eta) < 0.5, dser, eta * lam / den)
+
+
+class _LamOfEta(torch.autograd.Function):
+    """λ(η) with the implicit derivative in both modes: ``backward`` for
+    autograd, ``jvp`` for ``torch.func.jvp`` and forward-mode AD (the JAX
+    package's ``custom_jvp``), never a derivative of the Newton trips."""
+
+    @staticmethod
+    def forward(eta, trips):
+        return _lam_of_eta_primal(eta, trips)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        eta, _ = inputs
+        ctx.save_for_backward(eta, output)
+        ctx.save_for_forward(eta, output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        eta, lam = ctx.saved_tensors
+        return grad * _lam_of_eta_slope(eta, lam), None
+
+    @staticmethod
+    def jvp(ctx, eta_t, _):
+        eta, lam = ctx.saved_tensors
+        return _lam_of_eta_slope(eta, lam) * eta_t
+
+
+def lam_of_eta(eta: torch.Tensor, trips: int = GQ_NEWTON) -> torch.Tensor:
+    """Solve λ − 1 − ln λ = η²/2 with sign(η) = sign(λ−1): series for
+    |η| < 0.5, fixed-trip Newton from a cube/exp-tail start otherwise.
+    Differentiable in η by the implicit function theorem (exact for the
+    equation; the trips are not differentiated)."""
+    return _LamOfEta.apply(eta, trips)
 
 
 def gamma_qtl(alpha: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -237,10 +304,12 @@ def gamma_qtl(alpha: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 def cir_exact_step_score(x, u_pois, z_gam, u_boost, c: dict, kmax: int = POISSON_KMAX):
     """One exact CIR transition V_t = x → V_{t+Δ} plus the Poisson score
-    ``N·log λ − λ`` of the drawn count (the likelihood-ratio term the JAX
-    package's greeks need; the port's estimator is primal only)."""
+    ``N·log λ − λ`` of the drawn count N, which is frozen (no derivative):
+    summed over segments, the per-path log-likelihood whose gradient is the
+    likelihood-ratio term pathwise AD misses.  λ is floored at 1e-30 inside
+    the log only."""
     lam = x * c["lam_fac"]
-    n = poisson_inv(lam, u_pois, kmax)
+    n = poisson_inv(lam.detach(), u_pois, kmax)
     log_lik = n * torch.log(torch.clamp(lam, min=1e-30)) - lam
     alpha = c["d_half"] + n
     u_safe = torch.clamp(u_boost, min=1e-300)

@@ -104,8 +104,9 @@ def test_kernel_twin_and_float64_sampler_draw_the_same_normals(antithetic):
 def test_lognormal_routes():
     """EulerMaruyama(use_kernel=True) under LognormalDynamics runs K13 (the
     log-Euler increments sum to the exact law), as in the JAX package; the
-    kernel strategies refuse qmc=True; EulerMaruyama(use_kernel=False)
-    (``_gbm_euler_paths``) is not ported and says so."""
+    kernel strategies refuse qmc=True; EulerMaruyama(use_kernel=False) runs
+    the log-Euler paths (``_gbm_euler_paths``), whose terminal prices are
+    the last column of the price grid."""
     prob = ht.from_reference(_problem())
     cfg = ht.from_reference(_config(256, qmc=False))
     euler = ht.simulate_terminal_prices(prob, ht.MonteCarlo(
@@ -117,9 +118,10 @@ def test_lognormal_routes():
     for strat in (ht.BlackScholesExact(use_kernel=True), ht.EulerMaruyama(use_kernel=True)):
         with pytest.raises(ValueError, match="qmc"):
             ht.solve(prob, ht.MonteCarlo(ht.LognormalDynamics(), strat, qmc, device="cpu"))
-    with pytest.raises(TypeError, match="_gbm_euler_paths"):
-        ht.solve(prob, ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(), cfg,
-                                     device="cpu"))
+    log_euler = ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(), cfg, device="cpu")
+    sol = ht.solve(prob, log_euler)
+    assert bool(torch.isfinite(sol.price))
+    assert torch.equal(ht.simulate_price_grid(prob, log_euler)[:, -1], sol.ensemble)
     with pytest.raises(TypeError, match="unsupported"):
         ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.BlackScholesExact(), cfg,
                                      device="cpu"))

@@ -99,9 +99,11 @@ def test_unsupported_combinations_raise():
     prob = ht.from_reference(_problem())
     with pytest.raises(TypeError, match="never materializes"):
         ht.simulate_terminal_prices(prob, _cpu(_method(True)))
-    with pytest.raises(TypeError, match="_gbm_euler_paths, is not ported"):
-        ht.solve(prob, ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(),
-                                     ht.SimulationConfig(64, 4), device="cpu"))
+    # (LognormalDynamics, EulerMaruyama()) prices through the log-Euler paths now
+    bs = dataclasses.replace(prob, market_inputs=ht.BlackScholesInputs(REF, 0.03, 100.0, 0.2))
+    assert bool(torch.isfinite(ht.solve(bs, ht.MonteCarlo(
+        ht.LognormalDynamics(), ht.EulerMaruyama(), ht.SimulationConfig(64, 4),
+        device="cpu")).price))
     with pytest.raises(TypeError, match="unsupported"):
         ht.solve(prob, ht.MonteCarlo(ht.HestonDynamics(), ht.BlackScholesExact(),
                                      ht.SimulationConfig(64, 4), device="cpu"))

@@ -158,20 +158,28 @@ def test_multi_expiry_prng_surface_shares_its_paths():
 
 
 def test_exact_surface_refuses_gradients():
+    """The exact surface no longer refuses a gradient request: it closes
+    each point through the likelihood-ratio surrogate, so a market tensor
+    that requires grad gets a finite, nonzero gradient (held against JAX's
+    in tests/test_torch_exact_greeks.py), and the primal is the detached
+    surface to the bit."""
     _, tm = _markets()
     cfg = ht.SimulationConfig(256, 3, ht.Antithetic(), 0, True)
     sigma = torch.tensor(H[3], dtype=torch.float64, requires_grad=True)
-    with pytest.raises(TypeError, match="primal only"):
-        ht.heston_surface_mc(dataclasses.replace(tm, sigma=sigma), EXPIRIES, STRIKES, cfg,
-                             strategy=ht.HestonExactMixing(), device="cpu")
+    surf_g = ht.heston_surface_mc(dataclasses.replace(tm, sigma=sigma), EXPIRIES, STRIKES, cfg,
+                                  strategy=ht.HestonExactMixing(), device="cpu")
+    (g_sigma,) = torch.autograd.grad(surf_g.sum(), sigma)
     rate = torch.tensor(R, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(TypeError, match="primal only"):
-        ht.heston_surface_mc(ht.HestonInputs(REF, rate, SPOT, *H), EXPIRIES, STRIKES, cfg,
-                             strategy=ht.HestonExactMixing(), device="cpu")
-    # without a gradient request the same tensors price
+    surf_r = ht.heston_surface_mc(ht.HestonInputs(REF, rate, SPOT, *H), EXPIRIES, STRIKES, cfg,
+                                  strategy=ht.HestonExactMixing(), device="cpu")
+    (g_rate,) = torch.autograd.grad(surf_r.sum(), rate)
+    assert bool(torch.isfinite(g_sigma)) and float(g_sigma) != 0.0
+    assert bool(torch.isfinite(g_rate)) and float(g_rate) != 0.0
+    # without a gradient request the same tensors price the same surface
     surf = ht.heston_surface_mc(dataclasses.replace(tm, sigma=sigma.detach()), EXPIRIES, STRIKES,
                                 cfg, strategy=ht.HestonExactMixing(), device="cpu")
     assert bool(torch.isfinite(surf).all())
+    assert torch.equal(surf, surf_g.detach())
 
 
 def test_default_device_is_the_gpu():
