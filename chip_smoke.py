@@ -85,6 +85,19 @@ second-order AD through the kernels.  It prints each fit's wall,
 iterations, objective evaluations and ms per evaluation, and one
 evaluation's wall, device-busy ms and idle share (``torch.profiler``).
 
+Two more phases launch no kernel (their slice reaches no TPU kernel) and
+close the run; ``--only "broadie kaya,quotes"`` runs them alone.  "broadie
+kaya": ``solve`` with HestonBroadieKaya(128, 64) at 2^20 antithetic pairs
+(complex128 and float64 on the card) within 4 SE of Carr-Madan plus the
+series allowance of scripts/bk_truncation.py, 2^12 pairs' V_T,
+∫V and terminal prices against the CPU's on the same Philox stream (1e-9),
+and the weekly σ = 0.1 market (λ/2 ≈ 408); "quotes": ``resolve_quotes_batch``
+on 12 expiries × 41 strikes (forward observations, mid prices missing where
+mid IVs are quoted), ``price_to_iv`` through Carr-Madan and
+``calibrate_svi_slices`` on the 12 slices, each against the CPU (1e-10;
+SVI parameters 2e-4) and the truth.  Each prints its walls, idle shares
+(``eval_profile``) and the seconds of its steps.
+
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
 rough-Bergomi path; a kernel of a path with no launch in its window fails
@@ -1691,45 +1704,48 @@ def phase_surface_calibration(device: str) -> dict:
                 seconds=seconds)
 
 
-def eval_profile(objective_and_grad, device: str) -> dict:
-    """One objective-and-gradient evaluation: its synchronised wall (the
-    median of 3), and the busy ms of the device events (kernels and copies)
-    that ``torch.profiler`` records for one more, with the idle share
-    1 - busy / wall ("not measured" where the profiler records no device
-    event).  Busy is the union of the events' intervals, so an overlap
-    counts once; their plain sum and the profiled evaluation's own wall are
-    kept beside it, and busy never exceeds that wall."""
+def eval_profile(objective_and_grad, device: str, reps: int = 3) -> dict:
+    """One call (an objective-and-gradient evaluation, a solve, a fit): its
+    synchronised wall (the median of ``reps``), and the busy ms of the
+    device events (kernels and copies) that ``torch.profiler`` records for
+    one more, with the idle share 1 - busy / wall ("not measured" where the
+    profiler records no device event).  Busy is the union of the events'
+    intervals, so an overlap counts once; their plain sum and the profiled
+    call's own wall are kept beside it, and busy never exceeds that wall.
+    The events are read from the profiler's raw kineto results:
+    ``prof.events()`` builds a Python object an event, tens of seconds for
+    a call of ~10^5 small operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync = device_sync(device)
     walls = []
-    for _ in range(3):
+    for _ in range(reps):
         sync()
         t0 = time.perf_counter()
         objective_and_grad()
         sync()
         walls.append(1e3 * (time.perf_counter() - t0))
-    wall = sorted(walls)[1]
+    wall = sorted(walls)[reps // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sync()
         t0 = time.perf_counter()
         objective_and_grad()
         sync()
         profiled_wall = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, float("-inf")
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy_ns, reach = 0, float("-inf")
     for start, end in spans:
         if end > reach:
-            busy_us += end - max(start, reach)
+            busy_ns += end - max(start, reach)
             reach = end
-    device_ms = busy_us / 1e3
+    device_ms = busy_ns / 1e6
     check(device_ms <= profiled_wall,
           f"{device_ms} ms of device events in a {profiled_wall} ms evaluation")
     idle = 1.0 - device_ms / wall if device_ms > 0 else "not measured"
     return {"eval wall ms": wall, "eval device ms": device_ms,
-            "eval device sum ms": sum(end - start for start, end in spans) / 1e3,
+            "eval device sum ms": sum(end - start for start, end in spans) / 1e6,
             "eval profiled wall ms": profiled_wall, "idle share": idle}
 
 
@@ -4397,13 +4413,270 @@ def phase_american(smi: str, device: str) -> dict:
     return out
 
 
+#: the broadie kaya phase: pairs of the price, of its per-path check against
+#: the CPU and of the weekly market; the series allowance is the larger over
+#: the two markets of scripts/bk_truncation.py's |mean| + 4 SE of the price
+#: difference between the sampler's series (128 terms, std_mult 5, hi_mult
+#: 11) and a wider one (512, 10, 22) on the same 32768 pairs, on the CPU:
+#: 0.839 bp for the bench market (its mean 0.377 bp, SE 0.115: the step
+#: h = π/(mean + 5·std) aliases ∫V's upper tail), 5.8e-5 bp for the weekly
+BK_PAIRS, BK_CPU_PAIRS, BK_WEEK_PAIRS, BK_SEED = 2**20, 2**12, 2**16, 11
+BK_TERMS, BK_ITERS = 128, 64
+BK_SERIES_BP = 0.84
+BK_PATH_RTOL = 1e-9
+BK_WEEK = (dt.date(2024, 1, 8), 0.1)  # one week, vol of vol 0.1: λ/2 ≈ 408
+#: the quotes phase: 12 monthly expiries × 41 strikes on a raw-SVI surface
+QUOTE_EXPIRIES = tuple(dt.date(2024 + (m // 12), m % 12 + 1, 1) for m in range(1, 13))
+QUOTE_K = tuple(-0.4 + 0.02 * i for i in range(41))  # log-forward moneyness
+QUOTE_RTOL = 1e-10
+SVI_ATOL = 2e-4  # tests/unit/test_svi.py:81
+QUOTE_CM_STRIKES = (80.0, 90.0, 100.0, 110.0, 125.0)
+
+
+def svi_truth(t: float) -> tuple:
+    """The quotes phase's raw-SVI slice at tenor t (a, b, ρ, m, σ): total
+    variance grows with t."""
+    return (0.02 * t + 0.002, 0.08 + 0.04 * t, -0.3 - 0.1 * t, 0.02 * t, 0.15 + 0.1 * t)
+
+
+def phase_broadie_kaya(smi: str, device: str) -> dict:
+    """Broadie-Kaya exact sampling on the card (bench.py's market, K = 100,
+    one year): ``solve`` at 2^20 antithetic pairs, 128 terms, 64 bisection
+    trips, within 4 SE of Carr-Madan plus the series allowance;
+    2^12 pairs' V_T, ∫V and terminal prices against the CPU's on the same
+    Philox stream (1e-9); the weekly σ = 0.1 market (λ/2 ≈ 408, past the
+    exact scheme's trip cap) priced and held to Carr-Madan too.  Prints the
+    solve's wall and idle share."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.distributions import broadie_kaya as bk
+
+    say(f"phase 3 (broadie kaya): HestonBroadieKaya({BK_TERMS}, {BK_ITERS}) on {device}; {smi}")
+    strat = ht.HestonBroadieKaya(BK_TERMS, BK_ITERS)
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+
+    def method(pairs, dev):
+        cfg = ht.SimulationConfig(pairs, 1, ht.Antithetic(), BK_SEED)
+        return ht.MonteCarlo(ht.HestonDynamics(), strat, cfg, device=dev)
+
+    def price_check(label, prob, pairs):
+        cm = float(ht.solve(prob, ht.CarrMadan(1.0, "auto", ht.HestonDynamics(),
+                                               device=device)).price)
+        sol = ht.solve(prob, method(pairs, device))
+        check(sol.ensemble.device.type == torch.device(device).type,
+              f"Broadie-Kaya sampled on {sol.ensemble.device}")
+        check(bool(torch.isfinite(sol.ensemble).all()), f"{label}: non-finite terminal prices")
+        per_pair = float(ht.df(prob.market_inputs.rate, prob.payoff.expiry)) * ht.reduce_payoffs(
+            sol.ensemble, prob.payoff)
+        price, se = float(sol.price), float(per_pair.std()) / math.sqrt(pairs)
+        err_bp = 1e4 * (price - cm) / cm
+        bound_bp = 1e4 * 4.0 * se / cm + BK_SERIES_BP
+        say(f"  {label}, {pairs} pairs: {price:.8f} against Carr-Madan {cm:.8f}: {err_bp:+.3f} bp "
+            f"(4 SE + the series allowance: {bound_bp:.3f} bp)")
+        check(abs(err_bp) <= bound_bp, f"{label}: {err_bp} bp against Carr-Madan, bound {bound_bp}")
+        return {"price": price, "carr_madan": cm, "se": se, "err_bp": err_bp,
+                "bound_bp": bound_bp}
+
+    market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    prob = ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(), ht.Spot()),
+                             market)
+    out["bench"] = price_check("the bench market", prob, BK_PAIRS)
+    lap("bench market")
+
+    small = ht.SimulationConfig(BK_CPU_PAIRS, 1, ht.Antithetic(), BK_SEED)
+    card = bk.broadie_kaya_paths(prob, small, strat, device=device)
+    lap("paths on the card")
+    cpu = bk.broadie_kaya_paths(prob, small, strat, device="cpu")
+    lap("paths on the CPU")
+    rel = {}
+    for name in ("VT", "IV", "ST"):
+        got, want = getattr(card, name).cpu(), getattr(cpu, name)
+        rel[name] = float(torch.max(torch.abs(got - want) / torch.abs(want)))
+        check(rel[name] <= BK_PATH_RTOL,
+              f"Broadie-Kaya {name} on the card against the CPU: rel {rel[name]} > {BK_PATH_RTOL}")
+    say(f"  {BK_CPU_PAIRS} pairs on the card against the CPU, the same Philox stream: largest rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (limit {BK_PATH_RTOL})")
+    out["card_vs_cpu_rel"] = rel
+
+    expiry, sigma = BK_WEEK
+    week = ht.HestonInputs(REF, R, SPOT, *{**HESTON, "sigma": sigma}.values())
+    week_prob = ht.PricingProblem(ht.VanillaOption(STRIKE, expiry, ht.European(), ht.Call(),
+                                                   ht.Spot()), week)
+    out["weekly"] = price_check(f"the weekly market (sigma {sigma})", week_prob, BK_WEEK_PAIRS)
+    lap("weekly market")
+    out["solve"] = eval_profile(lambda: ht.solve(prob, method(BK_PAIRS, device)), device, reps=1)
+    say_profile(f"Broadie-Kaya solve, {BK_PAIRS} pairs ({smi})", out["solve"])
+    lap("profile")
+    say_laps(out)
+    return out
+
+
+def laps(out: dict):
+    """A function that records the seconds since its last call under
+    ``out["seconds"][name]``."""
+    out["seconds"] = {}
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        out["seconds"][name] = now - last[0]
+        last[0] = now
+
+    return lap
+
+
+def say_laps(out: dict) -> None:
+    say("  seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in out["seconds"].items()))
+
+
+def quote_grid():
+    """(expiries, tenors, forwards, strikes (12, 41), true SVI params (12, 5),
+    mid IVs) of the quotes phase, as numpy."""
+    import numpy as np
+
+    import hedgehog_tpu_torch as ht
+
+    tenors = np.array([float(ht.yearfrac(REF, e)) for e in QUOTE_EXPIRIES])
+    forwards = SPOT * np.exp(R * tenors) * (1.0 + 0.001 * np.arange(len(tenors)))
+    k = np.array(QUOTE_K)
+    strikes = forwards[:, None] * np.exp(k)[None, :]
+    params = np.array([svi_truth(t) for t in tenors])
+    a, b, rho, m, sig = (params[:, i, None] for i in range(5))
+    w = a + b * (rho * (k - m) + np.sqrt((k - m) ** 2 + sig**2))
+    return tenors, forwards, strikes, params, np.sqrt(w / tenors[:, None])
+
+
+def phase_quotes(smi: str, device: str) -> dict:
+    """The market-data layer on the card: ``resolve_quotes_batch`` on 12
+    monthly expiries × 41 strikes under forward observations, with missing
+    mid prices (their mid IVs given), bid IVs and ask prices with gaps;
+    ``price_to_iv`` through Carr-Madan at five strikes; and
+    ``calibrate_svi_slices`` on the 12 slices of resolved mid IVs.  Each
+    against the same call on the CPU (quotes 1e-10, SVI parameters 2e-4)
+    and against the truth.  Prints each call's wall and idle share."""
+    import numpy as np
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    say(f"phase 3 (quotes): quote resolution, implied vols and SVI fits on {device}; {smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    tenors, forwards, strikes, params, ivs = quote_grid()
+    mid_price = ht.iv_to_price_bs(torch.from_numpy(ivs), torch.from_numpy(strikes),
+                                  torch.from_numpy(tenors)[:, None],
+                                  torch.from_numpy(forwards * np.exp(-R * tenors))[:, None],
+                                  R).numpy()
+    rng = np.random.default_rng(19)
+    gone = rng.uniform(size=ivs.shape) < 0.1  # mid prices missing, their mid IVs quoted
+    mid_price_q = np.where(gone, np.nan, mid_price)
+    mid_iv_q = np.where(gone, ivs, np.nan)
+    bid_iv = np.where(rng.uniform(size=ivs.shape) < 0.1, np.nan, ivs - 0.005)
+    ask_price = np.where(rng.uniform(size=ivs.shape) < 0.1, np.nan, mid_price * 1.01 + 0.01)
+    expiry_ticks = np.array([float(ht.to_ticks(e)) for e in QUOTE_EXPIRIES])[:, None]
+
+    def resolve(dev):
+        cfg = ht.VolQuoteConfig(iv_model=ht.BlackScholesAnalytic(device=dev))
+        return ht.resolve_quotes_batch(strikes, expiry_ticks, ht.ForwardObs(forwards[:, None]), R,
+                                       REF, mid_price=mid_price_q, mid_iv=mid_iv_q, bid_iv=bid_iv,
+                                       ask_price=ask_price, config=cfg)
+
+    card, cpu = resolve(device), resolve("cpu")
+    lap("resolve")
+    worst = 0.0
+    for name in ("bid_price", "mid_price", "ask_price", "bid_iv", "mid_iv", "ask_iv"):
+        got, want = getattr(card, name), getattr(cpu, name)
+        check(got.device.type == torch.device(device).type, f"{name} resolved on {got.device}")
+        got = got.cpu()
+        check(torch.equal(torch.isnan(got), torch.isnan(want)), f"{name}: NaN lanes differ")
+        keep = ~torch.isnan(want)
+        err = float(torch.max(torch.abs(got[keep] - want[keep])
+                              / torch.clamp(torch.abs(want[keep]), min=1.0)))
+        check(err <= QUOTE_RTOL, f"resolve_quotes_batch {name}: card against CPU {err}")
+        worst = max(worst, err)
+    iv_err = float(np.max(np.abs(card.mid_iv.cpu().numpy() - ivs)))
+    check(iv_err <= 1e-8, f"resolved mid IVs against the truth: {iv_err}")
+    say(f"  resolve_quotes_batch {ivs.shape[0]} x {ivs.shape[1]} (ForwardObs, {int(gone.sum())} "
+        f"mid prices from IVs): card against CPU {worst:.3e} (limit {QUOTE_RTOL}), mid IVs "
+        f"against the truth {iv_err:.3e}")
+    out["resolve"] = {"card_vs_cpu": worst, "mid_iv_vs_truth": iv_err}
+
+    row = 5  # the half-year expiry
+    S_row = float(forwards[row] * np.exp(-R * tenors[row]))
+
+    def cm_ivs(dev):
+        cm = ht.CarrMadan(1.0, "auto", ht.LognormalDynamics(), device=dev)
+        got = []
+        for K in QUOTE_CM_STRIKES:
+            opt = ht.VanillaOption(K, QUOTE_EXPIRIES[row], ht.European(), ht.Call(), ht.Spot())
+            p = ht.iv_to_price_bs(0.25, K, tenors[row], S_row, R)
+            got.append(ht.price_to_iv(opt, S_row, R, p, REF, cm))
+        return torch.stack([torch.as_tensor(x).reshape(()) for x in got])
+
+    cm_card, cm_cpu = cm_ivs(device), cm_ivs("cpu")
+    lap("price_to_iv")
+    check(cm_card.device.type == torch.device(device).type, f"price_to_iv ran on {cm_card.device}")
+    cm_err = float(torch.max(torch.abs(cm_card.cpu() - cm_cpu)))
+    cm_truth = float(torch.max(torch.abs(cm_cpu - 0.25)))
+    check(cm_err <= QUOTE_RTOL and cm_truth <= 1e-8,
+          f"price_to_iv through Carr-Madan: card against CPU {cm_err}, against 0.25 {cm_truth}")
+    say(f"  price_to_iv through CarrMadan, {len(QUOTE_CM_STRIKES)} strikes: card against CPU "
+        f"{cm_err:.3e}, against the true 0.25 {cm_truth:.3e}")
+    out["price_to_iv"] = {"card_vs_cpu": cm_err, "vs_truth": cm_truth}
+
+    fit_ivs = card.mid_iv.cpu().numpy()
+    fit_card = ht.calibrate_svi_slices(tenors, forwards, strikes, fit_ivs, device=device)
+    lap("SVI fit on the card")
+    fit_cpu = ht.calibrate_svi_slices(tenors, forwards, strikes, fit_ivs, device="cpu")
+    lap("SVI fit on the CPU")
+    check(fit_card[0].device.type == torch.device(device).type, "the SVI fit left the card")
+    p_err = float(torch.max(torch.abs(fit_card[0].cpu() - fit_cpu[0])))
+    p_truth = float(np.max(np.abs(fit_card[0].cpu().numpy() - params)))
+    check(bool(fit_card[2].all()) and p_err <= SVI_ATOL and p_truth <= SVI_ATOL,
+          f"calibrate_svi_slices: converged {fit_card[2].tolist()}, card against CPU {p_err}, "
+          f"against the truth {p_truth}")
+    say(f"  calibrate_svi_slices, {len(tenors)} slices x {len(QUOTE_K)} strikes: parameters card "
+        f"against CPU {p_err:.3e}, against the truth {p_truth:.3e} (limit {SVI_ATOL}); largest "
+        f"loss {float(fit_card[1].max()):.3e}")
+    out["svi"] = {"card_vs_cpu": p_err, "vs_truth": p_truth, "loss": fit_card[1].max().item()}
+
+    surf = ht.SVIVolSurface(REF, tenors, fit_card[0], forwards, device=device)
+    grid_iv = torch.stack([surf.vol_yf(float(t), torch.from_numpy(strikes[i]))
+                           for i, t in enumerate(tenors)])
+    sv_err = float(np.max(np.abs(grid_iv.cpu().numpy() - ivs)))
+    check(sv_err <= 1e-4, f"the fitted SVIVolSurface against the quoted IVs: {sv_err}")
+    say(f"  the fitted SVIVolSurface on the card against the quoted IVs: {sv_err:.3e}")
+    cfg = ht.VolQuoteConfig(iv_model=ht.BlackScholesAnalytic(device=device))
+    cm = ht.CarrMadan(1.0, "auto", ht.LognormalDynamics(), device=device)
+    opt = ht.VanillaOption(100.0, QUOTE_EXPIRIES[row], ht.European(), ht.Call(), ht.Spot())
+    lap("surface")
+    for label, reps, fn in (
+            ("resolve_quotes_batch 12 x 41", 3, lambda: ht.resolve_quotes_batch(
+                strikes, expiry_ticks, ht.ForwardObs(forwards[:, None]), R, REF,
+                mid_price=mid_price_q, mid_iv=mid_iv_q, bid_iv=bid_iv, ask_price=ask_price,
+                config=cfg)),
+            ("price_to_iv through CarrMadan (one quote)", 3, lambda: ht.price_to_iv(
+                opt, S_row, R, 7.0, REF, cm)),
+            ("calibrate_svi_slices 12 x 41", 1, lambda: ht.calibrate_svi_slices(
+                tenors, forwards, strikes, fit_ivs, device=device))):
+        out[label] = eval_profile(fn, device, reps=reps)
+        say_profile(f"{label} ({smi})", out[label])
+    lap("profiles")
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
-ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american}
+ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
+               "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes}
 
 
 def only_main(names: str) -> int:
-    """``--only "exact greeks,american"``: the named phases alone on the card
-    (they launch no CUDA kernel, so nothing is built)."""
+    """``--only "exact greeks,american,broadie kaya,quotes"``: the named
+    phases alone on the card (they launch no CUDA kernel, so nothing is
+    built)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4653,6 +4926,9 @@ def main() -> int:
     # greeks through the exact-mixing flagship, and early exercise (no kernel)
     exact_greeks = phase_exact_greeks(smi, "cuda")
     american = phase_american(smi, "cuda")
+    # Broadie-Kaya sampling and the market-data layer (no kernel)
+    broadie_kaya = phase_broadie_kaya(smi, "cuda")
+    quotes = phase_quotes(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -4661,7 +4937,8 @@ def main() -> int:
                     "rb_surface": rb_surface, "heston_cells": heston_cells,
                     "past_old_limits": past_limits, "global_tables": global_tables,
                     "calibration_path": calibration_path, "exact_greeks": exact_greeks,
-                    "american": american, "build_s": build_s, "nvidia_smi": smi,
+                    "american": american, "broadie_kaya": broadie_kaya, "quotes": quotes,
+                    "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **rec)

@@ -29,6 +29,11 @@ bridge with the joint (S, V) basis) and its Andersen-Broadie dual bound
 The exact-mixing estimator's greeks (``heston_exact_price_and_greeks``, or
 AD through ``solve``) carry the likelihood-ratio term of its Poisson
 counts.
+Market quotes resolve through ``VolQuote`` and ``resolve_quotes_batch``
+(bid/mid/ask prices and implied vols under their policies), smiles fit to
+raw-SVI slices (``calibrate_svi_slices``, ``SVIVolSurface``), and
+``HestonBroadieKaya`` samples Heston terminals exactly (complex128 on the
+card).
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
 """
@@ -93,6 +98,27 @@ from .market.rate_curve import (
     zero_rate,
     zero_rate_yf,
 )
+from .market.svi import (
+    SVIVolSurface,
+    calibrate_svi_slices,
+    check_svi_arbitrage,
+    svi_butterfly_margin,
+    svi_calendar_margin,
+    svi_total_variance,
+)
+from .market.vol_quotes import (
+    ForwardObs,
+    FuturesObs,
+    ResolvedQuotes,
+    SpotObs,
+    VolQuote,
+    VolQuoteConfig,
+    iv_to_price,
+    price_to_iv,
+    resolve_quotes_batch,
+    underlying_forward,
+    underlying_spot,
+)
 from .market.vol_surface import (
     FlatVolSurface,
     Interpolator2D,
@@ -141,6 +167,7 @@ from .methods.montecarlo import (
     Antithetic,
     BlackScholesExact,
     EulerMaruyama,
+    HestonBroadieKaya,
     HestonExactMixing,
     HestonQE,
     MonteCarlo,
@@ -180,6 +207,10 @@ __all__ = [
     "spine_zeros", "zero_rate", "zero_rate_yf",
     "FlatVolSurface", "Interpolator2D", "RectVolSurface", "get_vol", "get_vol_yf",
     "spine_strikes", "spine_vols", "surface_spine_tenors",
+    "SVIVolSurface", "calibrate_svi_slices", "check_svi_arbitrage", "svi_butterfly_margin",
+    "svi_calendar_margin", "svi_total_variance",
+    "ForwardObs", "FuturesObs", "ResolvedQuotes", "SpotObs", "VolQuote", "VolQuoteConfig",
+    "iv_to_price", "price_to_iv", "resolve_quotes_batch", "underlying_forward", "underlying_spot",
     "INTERP_KINDS", "interp1d", "interp2d_nested",
     "LBFGSResult", "argmin_ift", "minimize_lbfgs",
     "RootResult", "bisect_root", "implicit_root", "implicit_root_full",
@@ -190,7 +221,8 @@ __all__ = [
     "CalibrationProblem", "CalibrationSolution", "OptimizerAlgo", "RootFinderAlgo",
     "BlackScholesAnalytic", "CarrMadan", "CoxRossRubinsteinMethod", "LSM", "DualBound",
     "lsm_dual_bound",
-    "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonExactMixing", "HestonQE",
+    "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonBroadieKaya", "HestonExactMixing",
+    "HestonQE",
     "MonteCarlo",
     "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig", "mc_path_values",
     "reduce_payoffs", "simulate_conditional_values", "simulate_price_grid",

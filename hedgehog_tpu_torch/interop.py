@@ -23,14 +23,14 @@ def _port_classes() -> dict:
     from .calibration import calibration
     from .core import dates, lenses, payoffs, problems
     from .greeks import greeks
-    from .market import inputs, rate_curve, vol_surface
+    from .market import inputs, rate_curve, svi, vol_quotes, vol_surface
     from .methods import black_scholes, carr_madan, crr, duality, lsm, montecarlo
     from .models import dynamics, rough_bergomi
 
     classes = {}
-    for mod in (dates, payoffs, problems, lenses, inputs, rate_curve, vol_surface, black_scholes,
-                carr_madan, crr, lsm, duality, montecarlo, dynamics, rough_bergomi, greeks,
-                calibration):
+    for mod in (dates, payoffs, problems, lenses, inputs, rate_curve, vol_surface, svi,
+                vol_quotes, black_scholes, carr_madan, crr, lsm, duality, montecarlo, dynamics,
+                rough_bergomi, greeks, calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:
                 classes[name] = obj

@@ -4,9 +4,9 @@ Port of ``hedgehog_tpu/market/inputs.py`` for the markets the port prices
 (reference src/market_inputs/market_inputs.jl:28-88).  Scalar rates and vols
 are wrapped into a flat curve / flat surface as the reference's convenience
 constructors do.  Black-Scholes markets also take an interpolated
-``RateCurve`` and a ``RectVolSurface``; the Heston and rough-Bergomi markets
-keep a flat rate, the contract the mixing kernels and estimators drift and
-discount on (one short rate r: discount e^{−rT}).
+``RateCurve`` and a ``RectVolSurface`` or ``SVIVolSurface``; the Heston and
+rough-Bergomi markets keep a flat rate, the contract the mixing kernels and
+estimators drift and discount on (one short rate r: discount e^{−rT}).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from ..core.dates import ACT365F, to_ticks, yearfrac
 from ..utils import device_of, f64
 from .rate_curve import FlatRateCurve, RateCurve
+from .svi import SVIVolSurface
 from .vol_surface import FlatVolSurface, RectVolSurface
 
 __all__ = [
@@ -79,7 +80,7 @@ class BlackScholesInputs:
         ref = to_ticks(self.reference_date)
         object.__setattr__(self, "reference_date", ref)
         object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
-        if not isinstance(self.sigma, (FlatVolSurface, RectVolSurface)):
+        if not isinstance(self.sigma, (FlatVolSurface, RectVolSurface, SVIVolSurface)):
             object.__setattr__(self, "sigma", FlatVolSurface(self.sigma, ref))
 
 

@@ -1,7 +1,8 @@
 """Volatility surfaces: flat vol and rectangular (tenor × strike) surfaces.
 
 Port of ``hedgehog_tpu/market/vol_surface.py`` (reference
-src/market_inputs/vol_surface.jl) without the SVI surface.  The rectangular
+src/market_inputs/vol_surface.jl); the SVI surface lives in ``svi.py`` and
+looks up through :func:`get_vol_yf` as these do.  The rectangular
 surface stores its vol grid directly; a lookup runs the nested 1-D
 interpolation of the reference Interpolator2D (strike first, then tenor)
 with constant extrapolation on both axes, recomputed at every lookup, so
@@ -98,12 +99,17 @@ AnyVolSurface = Union[FlatVolSurface, RectVolSurface]
 
 def get_vol_yf(surface: AnyVolSurface, t, strike):
     """Vol lookup with the time to expiry in year fractions
-    (vol_surface.jl:96-98, :178-180)."""
+    (vol_surface.jl:96-98, :178-180); an ``SVIVolSurface`` evaluates its
+    slices."""
     if isinstance(surface, FlatVolSurface):
         return surface.sigma
     if isinstance(surface, RectVolSurface):
         return interp2d_nested(t, strike, surface.tenors, surface.strikes, surface.vols,
                                kind_x=surface.interp_time, kind_y=surface.interp_strike)
+    from .svi import SVIVolSurface
+
+    if isinstance(surface, SVIVolSurface):
+        return surface.vol_yf(t, strike)
     raise TypeError(f"not a vol surface the port has: {type(surface).__name__}")
 
 

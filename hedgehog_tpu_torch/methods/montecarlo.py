@@ -9,7 +9,8 @@ estimators live beside it: ``gbm_exact.py`` (exact lognormal draw),
 ``heston_euler.py`` (full-truncation log-Euler), ``heston_qe_paths.py``
 (the QE-M terminal sampler), ``heston_exact_mixing.py`` (exact-transition
 mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
-``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close);
+``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close) and
+``distributions/broadie_kaya.py`` (exact Broadie-Kaya terminal sampling);
 ``use_kernel=True`` routes them through the CUDA kernels of
 ``hedgehog_tpu_torch.ops``.  ``simulate_price_grid`` and
 ``simulate_conditional_grid`` give the whole path grids the early-exercise
@@ -46,6 +47,7 @@ __all__ = [
     "SimulationConfig",
     "MonteCarlo",
     "EulerMaruyama",
+    "HestonBroadieKaya",
     "HestonExactMixing",
     "HestonQE",
     "RoughBergomiMixing",
@@ -99,6 +101,20 @@ class HestonExactMixing(SimulationStrategy):
     (ops/heston_exact_kernel.py)."""
 
     use_kernel: bool = False
+
+
+@_frozen
+class HestonBroadieKaya(SimulationStrategy):
+    """Exact Heston terminal sampling (Broadie-Kaya,
+    distributions/broadie_kaya.py): V_T from the exact CIR transition, ∫V
+    given its endpoints by inverting its conditional CF's Fourier series of
+    ``cf_terms`` terms by ``inversion_iters`` bisection trips, and log S_T
+    conditionally Gaussian; no discretization bias.  A sampler and price
+    oracle, on the card in float64 and complex128: a derivative through it
+    raises, and ``qmc=True`` is refused as in the JAX package."""
+
+    cf_terms: int = 128
+    inversion_iters: int = 64
 
 
 @_frozen
@@ -278,6 +294,8 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
             "never materializes terminal samples (logS_T is integrated out "
             "analytically); price through solve(...)"
         )
+    if isinstance(strat, HestonBroadieKaya):
+        return _broadie_kaya_terminal(prob, method, key, device_id)
     route = None
     if isinstance(dyn, LognormalDynamics) and isinstance(strat, (EulerMaruyama, BlackScholesExact)):
         # log-Euler GBM increments sum exactly: EulerMaruyama(use_kernel=True)
@@ -325,6 +343,27 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
     from .heston_euler import heston_euler_paths
 
     return heston_euler_paths(prob, config, point_offset=point_offset, **kw)
+
+
+def _broadie_kaya_terminal(prob, method, key, device_id):
+    """The Broadie-Kaya branch of :func:`simulate_terminal_prices`, with the
+    JAX package's guards (montecarlo.py:3309-3356)."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    if config.qmc:
+        # the sampler draws its own PRNG stream: a silent pseudo-random
+        # fallback would betray the accuracy the caller sized the run for
+        raise ValueError(
+            "qmc=True is not supported with the GBM/Euler kernel strategies or "
+            "HestonBroadieKaya; use the float64 samplers or HestonQE(use_kernel=True)"
+        )
+    if not isinstance(dyn, HestonDynamics):
+        raise TypeError(
+            f"unsupported (dynamics, strategy) = ({type(dyn).__name__}, {type(strat).__name__})"
+        )
+    from ..distributions.broadie_kaya import broadie_kaya_terminal_prices
+
+    return broadie_kaya_terminal_prices(prob, config, strat, key=key, device_id=device_id,
+                                        device=resolve_device(method.device))
 
 
 def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,

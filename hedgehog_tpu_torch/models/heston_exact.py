@@ -40,6 +40,7 @@ __all__ = [
     "poisson_inv",
     "lam_of_eta",
     "gamma_qtl",
+    "boosted_gamma",
     "cir_exact_step_score",
     "iv_cond_moments",
     "iv_gamma_draw",
@@ -302,6 +303,13 @@ def gamma_qtl(alpha: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return alpha * lam_of_eta(eta)
 
 
+def boosted_gamma(alpha, z_gam: torch.Tensor, u_boost: torch.Tensor) -> torch.Tensor:
+    """Gamma(α, 1) from one normal and one uniform: the saddlepoint quantile
+    at α + 1 and the small-shape boost Γ(α) = Γ(α+1)·U^{1/α}."""
+    u_safe = torch.clamp(u_boost, min=1e-300)
+    return gamma_qtl(alpha + 1.0, z_gam) * u_safe ** (1.0 / alpha)
+
+
 def cir_exact_step_score(x, u_pois, z_gam, u_boost, c: dict, kmax: int = POISSON_KMAX):
     """One exact CIR transition V_t = x → V_{t+Δ} plus the Poisson score
     ``N·log λ − λ`` of the drawn count N, which is frozen (no derivative):
@@ -311,19 +319,17 @@ def cir_exact_step_score(x, u_pois, z_gam, u_boost, c: dict, kmax: int = POISSON
     lam = x * c["lam_fac"]
     n = poisson_inv(lam.detach(), u_pois, kmax)
     log_lik = n * torch.log(torch.clamp(lam, min=1e-30)) - lam
-    alpha = c["d_half"] + n
-    u_safe = torch.clamp(u_boost, min=1e-300)
-    g = gamma_qtl(alpha + 1.0, z_gam) * u_safe ** (1.0 / alpha)
-    return 2.0 * c["cfac"] * g, log_lik
+    return 2.0 * c["cfac"] * boosted_gamma(c["d_half"] + n, z_gam, u_boost), log_lik
 
 
-def iv_cond_moments(x, y, c: dict):
+def iv_cond_moments(x, y, c: dict, ratio=None):
     """Exact conditional (mean, variance) of ∫_t^{t+Δ} V ds given the
-    endpoints V_t = x, V_{t+Δ} = y, through W = z·I_{ν+1}(z)/I_ν(z) + ν."""
+    endpoints V_t = x, V_{t+Δ} = y, through W = z·I_{ν+1}(z)/I_ν(z) + ν;
+    the ratio from :func:`bessel_ratio` unless given (a function of z)."""
     kappa, dt = c["kappa"], c["dt"]
     t2, c1, c2 = c["t2"], c["c1"], c["c2"]
     z = c["z_fac"] * torch.sqrt(torch.clamp(x * y, min=1e-30))
-    W = z * bessel_ratio(c["nu"], z) + c["nu"]
+    W = z * (bessel_ratio(c["nu"], z) if ratio is None else ratio(z)) + c["nu"]
     q, p = c["q"], c["p_c"]
     xy = (x + y) * c["inv_sig2"]
     l1 = 1.0 / kappa - (dt / 2.0) * c1 - xy * (c1 - t2 * c2) + W * q

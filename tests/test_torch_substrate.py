@@ -122,7 +122,7 @@ def test_from_reference_round_trip():
 
 def test_from_reference_rejects_what_the_port_lacks():
     with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.HestonBroadieKaya())
+        ht.from_reference(hh.MertonExact())
     with pytest.raises(TypeError, match="no counterpart"):
         ht.from_reference(hh.CarrMadan(1.0, "auto", hh.HestonDynamics(), quadrature="gl"))
 
