@@ -85,8 +85,8 @@ second-order AD through the kernels.  It prints each fit's wall,
 iterations, objective evaluations and ms per evaluation, and one
 evaluation's wall, device-busy ms and idle share (``torch.profiler``).
 
-Two more phases launch no kernel (their slice reaches no TPU kernel) and
-close the run; ``--only "broadie kaya,quotes"`` runs them alone.  "broadie
+Three more phases launch no kernel (their slices reach no TPU kernel) and
+close the run; ``--only "broadie kaya,quotes,exotics"`` runs them alone.  "broadie
 kaya": ``solve`` with HestonBroadieKaya(128, 64) at 2^20 antithetic pairs
 (complex128 and float64 on the card) within 4 SE of Carr-Madan plus the
 series allowance of scripts/bk_truncation.py, 2^12 pairs' V_T,
@@ -95,8 +95,16 @@ and the weekly σ = 0.1 market (λ/2 ≈ 408); "quotes": ``resolve_quotes_batch`
 on 12 expiries × 41 strikes (forward observations, mid prices missing where
 mid IVs are quoted), ``price_to_iv`` through Carr-Madan and
 ``calibrate_svi_slices`` on the 12 slices, each against the CPU (1e-10;
-SVI parameters 2e-4) and the truth.  Each prints its walls, idle shares
-(``eval_profile``) and the seconds of its steps.
+SVI parameters 2e-4) and the truth; "exotics": every exotic closed form
+and the Carr-Madan digital on a 41-strike grid against the CPU (1e-12), at
+2^20 antithetic pairs four GBM bridge and grid estimators within 4 SE of
+their closed forms, a Heston down-and-out call on the exact grid (64 steps,
+the Richardson pair; knock-in + knock-out = the vanilla payoff per path,
+below Carr-Madan's vanilla), a phoenix autocallable on the QE conditional
+grid (12 x 21 steps) and an up-and-out call on the rough-Bergomi Euler grid
+(64 steps), the first 4096 pairs of the last three against the CPU
+(1e-10).  Each prints its walls, idle shares (``eval_profile``), the
+exotics also their peak memory, and the seconds of its steps.
 
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
@@ -4668,13 +4676,234 @@ def phase_quotes(smi: str, device: str) -> dict:
     return out
 
 
+EXO_PAIRS = 2**20  # antithetic pairs of every Monte Carlo check of phase exotics
+EXO_CPU_PAIRS = 4096  # the first pairs, priced again on the CPU
+EXO_CARD_RTOL = 1e-12  # the closed forms and the digital, card against CPU
+EXO_PATH_RTOL = 1e-10  # per-path values, card against CPU
+EXO_SEED = 7
+EXO_T1 = dt.date(2024, 7, 1)  # the compound's decision and the chooser's choice date
+EXO_BS = dict(rate=R, spot=SPOT, sigma=0.25, dividend_yield=0.01)
+#: tests/agreement/test_heston_barrier_pde.py's Feller-violating case: the exact
+#: grid's Poisson trip count allows 64 segments only at such a vol of vol
+EXO_HESTON = dict(V0=0.04, kappa=1.0, theta=0.04, sigma=0.9, rho=-0.7)
+EXO_EXACT_STEPS = 64
+EXO_AUTOCALL = (12, 21)  # periods x steps a period on the QE conditional grid
+EXO_RB_STEPS = 64
+
+
+def exotic_closed_forms():
+    """(label, payoff) of phase exotics (a): every closed form, over the
+    41-strike grid where the contract has a strike."""
+    import numpy as np
+
+    import hedgehog_tpu_torch as ht
+
+    K = np.linspace(80.0, 120.0, 41)
+    C, P, E = ht.Call(), ht.Put(), EXPIRY
+    return [
+        ("digital call", ht.DigitalOption(K, E, cash=10.0)),
+        ("digital put", ht.DigitalOption(K, E, call_put=P, cash=10.0)),
+        ("down-and-out call", ht.BarrierOption(K, E, 85.0)),
+        ("down-and-in put, rebate", ht.BarrierOption(K, E, 90.0, call_put=P, knock=ht.KnockIn(),
+                                                     rebate=2.0)),
+        ("up-and-out call, rebate at hit", ht.BarrierOption(K, E, 125.0, direction=ht.Up(),
+                                                            rebate=3.0, rebate_at_hit=True)),
+        ("up-and-in put", ht.BarrierOption(K, E, 115.0, call_put=P, direction=ht.Up(),
+                                           knock=ht.KnockIn())),
+        ("double knock-out call, rebate", ht.DoubleBarrierOption(K, E, 75.0, 130.0, rebate=1.0)),
+        ("double knock-in put", ht.DoubleBarrierOption(K, E, 75.0, 130.0, call_put=P,
+                                                       knock=ht.KnockIn())),
+        ("geometric Asian call", ht.AsianOption(K, E, 12, averaging=ht.GeometricAverage())),
+        ("fixed-strike lookback call", ht.LookbackOption(E, K, ht.FixedStrike(), C,
+                                                         running_extremum=105.0)),
+        ("fixed-strike lookback put", ht.LookbackOption(E, K, ht.FixedStrike(), P)),
+        ("floating-strike lookback put", ht.LookbackOption(E, call_put=P)),
+        ("forward start", ht.ForwardStartOption(K / 100.0, E, EXO_T1)),
+        ("cliquet", ht.Cliquet(E, 12, -0.01, 0.04, 100.0)),
+        ("variance swap", ht.VarianceSwap((K / 400.0) ** 2, E, 252, 100.0)),
+        ("compound call on call", ht.CompoundOption(K / 20.0, EXO_T1, 100.0, E)),
+        ("compound put on put", ht.CompoundOption(K / 20.0, EXO_T1, 100.0, E, call_put=P,
+                                                  inner_call_put=P)),
+        ("chooser", ht.ChooserOption(K, E, EXO_T1)),
+    ]
+
+
+def exotic_profile(label: str, fn, device: str, out: dict):
+    """``eval_profile`` of one call (its wall and the profiled run) with the
+    card's peak memory over both, printed and kept under ``out[label]``."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = eval_profile(fn, device, reps=1)
+    rec["peak memory GB"] = torch.cuda.max_memory_allocated() / 1e9
+    say_profile(label, rec)
+    say(f"    peak memory {rec['peak memory GB']:.3f} GB")
+    out[label] = rec
+    return rec
+
+
+def phase_exotics(smi: str, device: str) -> dict:
+    """The path-dependent and exotic payoffs on the card (no kernel: the JAX
+    estimators run on plain grids).  (a) every Black-Scholes closed form and
+    the Carr-Madan digital on a 41-strike grid against the same call on the
+    CPU (1e-12); at 2^20 antithetic pairs, (b) the GBM up-and-out call and
+    floating-strike lookback (one bridge), the geometric Asian (Euler, 252
+    steps) and the double knock-out (64 steps) under PRNG within 4 SE of
+    their closed forms; (c) a Heston down-and-out call on the exact grid,
+    64 steps with the Richardson pair, under QMC: knock-in plus knock-out
+    equal to the grid's vanilla payoff on every path, below the Carr-Madan
+    vanilla; (d) a phoenix autocallable on the QE conditional grid, 12
+    periods x 21 steps; (e) an up-and-out call on the rough-Bergomi Euler
+    grid, 64 steps.  In (c)-(e) the first 4096 pairs' values on the card
+    equal the CPU's (1e-10).  Prints each Monte Carlo call's wall, device
+    ms, idle share and peak memory."""
+    import numpy as np
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    say(f"phase 3 (exotics): the path-dependent payoffs on {device}; {smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    bs = ht.BlackScholesInputs(REF, **EXO_BS)
+
+    # (a) the closed forms and the Carr-Madan digital, card against CPU
+    worst = 0.0
+    for label, payoff in exotic_closed_forms():
+        prob = ht.PricingProblem(payoff, bs)
+        card = ht.solve(prob, ht.BlackScholesAnalytic(device=device)).price
+        check(card.device.type == torch.device(device).type, f"{label} priced on {card.device}")
+        cpu = ht.solve(prob, ht.BlackScholesAnalytic(device="cpu")).price
+        worst = max(worst, compare_vectors(f"closed form {label}", card, cpu, EXO_CARD_RTOL))
+    heston = ht.HestonInputs(REF, R, SPOT, *EXO_HESTON.values())
+    K = np.linspace(80.0, 120.0, 41)
+    for market, dyn in ((bs, ht.LognormalDynamics()), (heston, ht.HestonDynamics())):
+        for cp in (ht.Call(), ht.Put()):
+            prob = ht.PricingProblem(ht.DigitalOption(K, EXPIRY, call_put=cp, cash=10.0), market)
+            card, cpu = (ht.solve(prob, ht.CarrMadan(1.0, "auto", dyn, device=d)).price
+                         for d in (device, "cpu"))
+            worst = max(worst, compare_vectors(
+                f"Carr-Madan digital {type(cp).__name__}, {type(dyn).__name__}", card, cpu,
+                EXO_CARD_RTOL))
+    out["closed_forms_card_vs_cpu"] = worst
+    lap("closed forms")
+
+    def method(dyn, strat, steps, qmc, pairs=EXO_PAIRS, dev=device):
+        cfg = ht.SimulationConfig(pairs, steps, ht.Antithetic(), EXO_SEED, qmc)
+        return ht.MonteCarlo(dyn, strat, cfg, device=dev)
+
+    def pair_se(sol, discount):
+        pair = sol.ensemble.mean(dim=0)
+        check(bool(torch.isfinite(pair).all()), "non-finite path values")
+        return discount * float(pair.std()) / math.sqrt(pair.numel())
+
+    # (b) GBM prices in law against their closed forms
+    D = float(ht.df(bs.rate, EXPIRY))
+    gbm = ht.LognormalDynamics()
+    for label, payoff, strat, steps in (
+            ("up-and-out call, one bridge",
+             ht.BarrierOption(100.0, EXPIRY, 125.0, direction=ht.Up()), ht.BlackScholesExact(), 1),
+            ("floating-strike lookback call, one bridge", ht.LookbackOption(EXPIRY),
+             ht.BlackScholesExact(), 1),
+            ("geometric Asian call, Euler 252 steps",
+             ht.AsianOption(100.0, EXPIRY, 252, averaging=ht.GeometricAverage()),
+             ht.EulerMaruyama(), 252),
+            ("double knock-out call, Euler 64 steps",
+             ht.DoubleBarrierOption(100.0, EXPIRY, 75.0, 130.0), ht.EulerMaruyama(), 64)):
+        prob = ht.PricingProblem(payoff, bs)
+        mc = method(gbm, strat, steps, False)
+        closed = float(ht.solve(prob, ht.BlackScholesAnalytic(device=device)).price)
+        sol = ht.solve(prob, mc)
+        price, se = float(sol.price), pair_se(sol, D)
+        say(f"  {label}, {EXO_PAIRS} PRNG pairs: {price:.8f} against the closed form "
+            f"{closed:.8f}: {price - closed:+.3e} (4 SE {4 * se:.3e})")
+        check(abs(price - closed) <= 4.0 * se, f"{label}: {price} against {closed}, SE {se}")
+        out[label] = {"price": price, "closed": closed, "se": se}
+        exotic_profile(f"{label} ({smi})", lambda: ht.solve(prob, mc), device, out)
+    lap("GBM in law")
+
+    def card_vs_cpu(label, prob, mc_of, values):
+        small = ht.solve(prob, mc_of(EXO_CPU_PAIRS, "cpu")).ensemble
+        return compare_vectors(f"{label}: the first {EXO_CPU_PAIRS} pairs, card against CPU",
+                               values[..., :EXO_CPU_PAIRS].reshape(-1), small.reshape(-1),
+                               EXO_PATH_RTOL)
+
+    # (c) the exact Heston grid with the Richardson pair
+    hprob = lambda knock: ht.PricingProblem(ht.BarrierOption(100.0, EXPIRY, 85.0, knock=knock),
+                                            heston)
+    exact_of = lambda pairs, dev: method(ht.HestonDynamics(), ht.HestonExactMixing(),
+                                         EXO_EXACT_STEPS, True, pairs, dev)
+    ko = ht.solve(hprob(ht.KnockOut()), exact_of(EXO_PAIRS, device))
+    ki = ht.solve(hprob(ht.KnockIn()), exact_of(EXO_PAIRS, device))
+    s_grid = ht.methods.montecarlo.simulate_exact_conditional_grid(
+        hprob(ht.KnockOut()), exact_of(EXO_PAIRS, device).config, device=device)[0]
+    pay = torch.clamp(s_grid[:, -1] - 100.0, min=0.0)
+    parity = float(torch.max(torch.abs(ko.ensemble + ki.ensemble - pay)))
+    cm = float(ht.solve(ht.PricingProblem(ht.VanillaOption(100.0, EXPIRY), heston),
+                        ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device=device)).price)
+    D_h = float(ht.df(heston.rate, EXPIRY))
+    se = pair_se(ko, D_h)
+    say(f"  Heston down-and-out call, exact grid {EXO_EXACT_STEPS} steps with Richardson, "
+        f"{EXO_PAIRS} QMC pairs: {float(ko.price):.8f} (SE {se:.3e}), knock-in "
+        f"{float(ki.price):.8f}, Carr-Madan vanilla {cm:.8f}; |KI + KO - vanilla payoff| per "
+        f"path at most {parity:.3e}")
+    check(parity <= 1e-9 * float(pay.max()), f"knock-in + knock-out against the vanilla: {parity}")
+    check(0.0 < float(ko.price) < cm, f"the knock-out {float(ko.price)} against the vanilla {cm}")
+    card_vs_cpu("Heston exact down-and-out", hprob(ht.KnockOut()), exact_of, ko.ensemble)
+    out["heston exact barrier"] = {"ko": float(ko.price), "ki": float(ki.price), "vanilla": cm,
+                                   "se": se, "parity": parity}
+    exotic_profile(f"Heston exact down-and-out, {EXO_EXACT_STEPS} steps ({smi})",
+                   lambda: ht.solve(hprob(ht.KnockOut()), exact_of(EXO_PAIRS, device)), device,
+                   out)
+    lap("Heston exact barrier")
+
+    # (d) a phoenix autocallable on the QE conditional grid
+    periods, per = EXO_AUTOCALL
+    qe_market = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+    ac = ht.PricingProblem(ht.Autocallable(EXPIRY, periods, 1.0, 0.01, 0.7, 0.8, 100.0),
+                           qe_market)
+    qe_of = lambda pairs, dev: method(ht.HestonDynamics(), ht.HestonQE(conditional=True),
+                                      periods * per, False, pairs, dev)
+    sol = ht.solve(ac, qe_of(EXO_PAIRS, device))
+    price, se = float(sol.price), pair_se(sol, 1.0)
+    say(f"  phoenix autocallable, {periods} periods x {per} steps, QE conditional grid, "
+        f"{EXO_PAIRS} PRNG pairs: {price:.8f} (SE {se:.3e})")
+    check(0.0 < price < 100.0 * (1.0 + periods * 0.01), f"autocallable price {price}")
+    card_vs_cpu("QE autocallable", ac, qe_of, sol.ensemble)
+    out["autocallable"] = {"price": price, "se": se}
+    exotic_profile(f"autocallable, QE conditional {periods * per} steps ({smi})",
+                   lambda: ht.solve(ac, qe_of(EXO_PAIRS, device)), device, out)
+    lap("autocallable")
+
+    # (e) an up-and-out call on the rough-Bergomi Euler grid
+    rb_market = ht.RoughBergomiInputs(REF, R, SPOT, *RB_MARKET.values())
+    rb = ht.PricingProblem(ht.BarrierOption(100.0, EXPIRY, 130.0, direction=ht.Up()), rb_market)
+    rb_of = lambda pairs, dev: method(ht.RoughBergomiDynamics(), ht.EulerMaruyama(),
+                                      EXO_RB_STEPS, True, pairs, dev)
+    sol = ht.solve(rb, rb_of(EXO_PAIRS, device))
+    van = float(ht.solve(ht.PricingProblem(ht.VanillaOption(100.0, EXPIRY), rb_market),
+                         rb_of(EXO_PAIRS, device)).price)
+    price, se = float(sol.price), pair_se(sol, float(ht.df(rb_market.rate, EXPIRY)))
+    say(f"  rough-Bergomi up-and-out call, Euler {EXO_RB_STEPS} steps, {EXO_PAIRS} QMC pairs: "
+        f"{price:.8f} (SE {se:.3e}), the vanilla on the same grid {van:.8f}")
+    check(0.0 < price < van, f"the rough-Bergomi knock-out {price} against its vanilla {van}")
+    card_vs_cpu("rough-Bergomi up-and-out", rb, rb_of, sol.ensemble)
+    out["rbergomi barrier"] = {"price": price, "se": se, "vanilla": van}
+    exotic_profile(f"rough-Bergomi up-and-out, {EXO_RB_STEPS} steps ({smi})",
+                   lambda: ht.solve(rb, rb_of(EXO_PAIRS, device)), device, out)
+    lap("rough-Bergomi barrier")
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
 ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
-               "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes}
+               "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes,
+               "exotics": phase_exotics}
 
 
 def only_main(names: str) -> int:
-    """``--only "exact greeks,american,broadie kaya,quotes"``: the named
+    """``--only "exact greeks,american,broadie kaya,quotes,exotics"``: the named
     phases alone on the card (they launch no CUDA kernel, so nothing is
     built)."""
     import torch
@@ -4929,6 +5158,8 @@ def main() -> int:
     # Broadie-Kaya sampling and the market-data layer (no kernel)
     broadie_kaya = phase_broadie_kaya(smi, "cuda")
     quotes = phase_quotes(smi, "cuda")
+    # the path-dependent and exotic payoffs (no kernel)
+    exotics = phase_exotics(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -4938,6 +5169,7 @@ def main() -> int:
                     "past_old_limits": past_limits, "global_tables": global_tables,
                     "calibration_path": calibration_path, "exact_greeks": exact_greeks,
                     "american": american, "broadie_kaya": broadie_kaya, "quotes": quotes,
+                    "exotics": exotics,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

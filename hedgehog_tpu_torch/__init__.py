@@ -3,7 +3,11 @@
 The JAX package ``hedgehog_tpu`` stays the reference; this package ports it
 slice by slice and keeps its module tree and public names.  It prices a
 European vanilla under Heston, Black-Scholes or rough Bergomi by Monte
-Carlo through ``solve(PricingProblem(...), MonteCarlo(...))``, with
+Carlo through ``solve(PricingProblem(...), MonteCarlo(...))``, and the
+path-dependent and exotic payoffs (digital, barrier, double barrier, Asian,
+lookback, forward start, cliquet, autocallable, variance swap, compound,
+chooser) through the closed forms, the Carr–Madan digital and the
+Brownian-bridge grid estimators, with
 hand-written CUDA kernels for the Euler, exact-mixing, QE-mixing and QE-M
 schemes and the exact lognormal draw (``ops/``, sources in ``csrc/``), checked against the
 Carr–Madan Fourier price, and its 7-parameter greek vector
@@ -56,13 +60,32 @@ from .core.dates import (
 )
 from .core.payoffs import (
     American,
+    ArithmeticAverage,
+    AsianOption,
+    Autocallable,
+    BarrierOption,
     Bermudan,
     Call,
+    ChooserOption,
+    Cliquet,
+    CompoundOption,
+    DigitalOption,
+    DoubleBarrierOption,
+    Down,
     European,
+    FixedStrike,
+    FloatingStrike,
     Forward,
+    ForwardStartOption,
+    GeometricAverage,
+    KnockIn,
+    KnockOut,
+    LookbackOption,
     Put,
     Spot,
+    Up,
     VanillaOption,
+    VarianceSwap,
     parity_transform,
 )
 from .core.lenses import (
@@ -129,6 +152,7 @@ from .market.vol_surface import (
     spine_vols,
     surface_spine_tenors,
 )
+from .math.bvn import bvn_cdf
 from .math.interpolation import INTERP_KINDS, interp1d, interp2d_nested
 from .math.optimize import LBFGSResult, argmin_ift, minimize_lbfgs
 from .math.rootfind import RootResult, bisect_root, implicit_root, implicit_root_full
@@ -174,6 +198,7 @@ from .methods.montecarlo import (
     NoVarianceReduction,
     RoughBergomiMixing,
     SimulationConfig,
+    heston_variance_swap_strike,
     mc_path_values,
     reduce_payoffs,
     simulate_conditional_values,
@@ -198,6 +223,10 @@ __all__ = [
     "add_yearfrac", "ticks_to_datetime", "to_ticks", "yearfrac",
     "American", "Bermudan", "Call", "European", "Forward", "Put", "Spot", "VanillaOption",
     "parity_transform",
+    "DigitalOption", "BarrierOption", "DoubleBarrierOption", "Up", "Down", "KnockIn", "KnockOut",
+    "AsianOption", "ArithmeticAverage", "GeometricAverage", "LookbackOption", "FloatingStrike",
+    "FixedStrike", "ForwardStartOption", "CompoundOption", "ChooserOption", "Cliquet",
+    "Autocallable", "VarianceSwap",
     "Lens", "FieldLens", "SpotLens", "VolLens", "ZeroRateSpineLens", "lens_get", "lens_set",
     "AnalyticSolution", "BasketPricingProblem", "BasketPricingSolution", "CarrMadanSolution",
     "CRRSolution", "LSMSolution", "MonteCarloSolution", "PricingProblem",
@@ -211,7 +240,7 @@ __all__ = [
     "svi_calendar_margin", "svi_total_variance",
     "ForwardObs", "FuturesObs", "ResolvedQuotes", "SpotObs", "VolQuote", "VolQuoteConfig",
     "iv_to_price", "price_to_iv", "resolve_quotes_batch", "underlying_forward", "underlying_spot",
-    "INTERP_KINDS", "interp1d", "interp2d_nested",
+    "bvn_cdf", "INTERP_KINDS", "interp1d", "interp2d_nested",
     "LBFGSResult", "argmin_ift", "minimize_lbfgs",
     "RootResult", "bisect_root", "implicit_root", "implicit_root_full",
     "AnalyticGreek", "BatchGreekProblem", "FDBackward", "FDCentral", "FDForward",
@@ -224,7 +253,8 @@ __all__ = [
     "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonBroadieKaya", "HestonExactMixing",
     "HestonQE",
     "MonteCarlo",
-    "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig", "mc_path_values",
+    "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig",
+    "heston_variance_swap_strike", "mc_path_values",
     "reduce_payoffs", "simulate_conditional_values", "simulate_price_grid",
     "simulate_terminal_prices",
     "GREEK_ORDER", "heston_exact_price_and_greeks", "heston_mixing_price_and_greeks", "heston_surface_mc", "rbergomi_surface_mc",

@@ -8,11 +8,13 @@ the CF-decay-aware ``bound="auto"``, evaluated in native complex128:
     ψ(v)         = D(T)·φ(v − (α+1)i) / (α² + α − v² + i·v·(2α+1))
 
 The call price is the real part of ∫_{-bound}^{bound}; puts follow by
-parity.  The panel rule spends ``nodes`` Gauss–Legendre points on the
-central peak [−c, c] and max(32, nodes//2) log-substituted points on each
-tail, so its accuracy does not depend on the bound.  ``CarrMadan.device``
-names where the nodes, the strikes, the market scalars and the price live:
-the GPU unless the caller asks for the CPU.
+parity.  Cash-or-nothing digitals invert the CF by Gil-Pelaez on the same
+nodes (``_solve_carr_madan_digital``); the path-dependent payoffs raise.
+The panel rule spends ``nodes`` Gauss–Legendre points on the central peak
+[−c, c] and max(32, nodes//2) log-substituted points on each tail, so its
+accuracy does not depend on the bound.  ``CarrMadan.device`` names where
+the nodes, the strikes, the market scalars and the price live: the GPU
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +26,16 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core.payoffs import parity_transform, require_european
+from ..core.payoffs import (
+    AsianOption,
+    BarrierOption,
+    DigitalOption,
+    DoubleBarrierOption,
+    LookbackOption,
+    VanillaOption,
+    parity_transform,
+    require_european,
+)
 from ..core.problems import CarrMadanSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import forward_spot, market_yearfrac
@@ -111,12 +122,49 @@ def _quad_nodes(prob: PricingProblem, method: CarrMadan, device):
     return _panel_nodes(bound, method.nodes, device)
 
 
+def _solve_carr_madan_digital(prob: PricingProblem, method: CarrMadan,
+                              device) -> CarrMadanSolution:
+    """Cash-or-nothing digital by Gil-Pelaez inversion on the same nodes:
+    P(S_T > K) = ½ + (1/π)∫₀^∞ Im[e^{−iu·lnK}φ(u)]/u du.  The integrand is
+    even in u, so the symmetric node set integrates it with one ½·Σ w·g;
+    digital puts follow from the cash parity."""
+    payoff = prob.payoff
+    market = prob.market_inputs
+    if method.nodes % 2:
+        raise ValueError(
+            "digital Carr-Madan needs an even node count (an odd "
+            "Gauss-Legendre rule places a node at u=0, where the Gil-Pelaez "
+            "integrand's 1/u form is indeterminate)"
+        )
+    K = f64(payoff.strike, device=device)
+    D = f64(df(market.rate, payoff.expiry), device=device)
+    v, w = _quad_nodes(prob, method, device)
+    logK_b = torch.log(K)[..., None]
+    phi = terminal_log_cf(prob, method.dynamics)
+    g = torch.imag(phi(v + 0.0j) * torch.exp(-1j * v * logK_b)) / v
+    p_itm = 0.5 + (0.5 / torch.pi) * torch.sum(w * g, dim=-1)
+    call_price = D * f64(payoff.cash, device=device) * p_itm
+    price = parity_transform(call_price, payoff, f64(market.spot, device=device), market.rate)
+    return CarrMadanSolution(prob, method, price, p_itm)
+
+
 @register_solver(CarrMadan)
 def _solve_carr_madan(prob: PricingProblem, method: CarrMadan) -> CarrMadanSolution:
     payoff = prob.payoff
     require_european(payoff, "CarrMadan", spot_only=True)
     market = prob.market_inputs
     device = resolve_device(method.device)
+    if isinstance(payoff, (BarrierOption, AsianOption, DoubleBarrierOption, LookbackOption)):
+        raise TypeError(
+            f"CarrMadan prices path-independent payoffs (the CF of log S_T "
+            f"carries no path law); {type(payoff).__name__} prices "
+            f"analytically under Black-Scholes (where a closed form exists) "
+            f"or via grid Monte Carlo"
+        )
+    if isinstance(payoff, DigitalOption):
+        return _solve_carr_madan_digital(prob, method, device)
+    if not isinstance(payoff, VanillaOption):
+        raise TypeError(f"CarrMadan prices vanillas and digitals; got {type(payoff).__name__}")
     K = f64(payoff.strike, device=device)
     logK = torch.log(K)
     alpha = method.alpha

@@ -54,8 +54,7 @@ def _solve_crr(prob: PricingProblem, method: CoxRossRubinsteinMethod) -> CRRSolu
     if not isinstance(payoff, VanillaOption):
         raise TypeError(
             f"the port's CRR lattice prices vanilla options; {type(payoff).__name__} "
-            "(barrier and knock-in lattices) waits for the path-dependent payoffs of "
-            "core/payoffs.py"
+            "needs the barrier and knock-in lattices, which are not ported yet"
         )
     if not isinstance(market, BlackScholesInputs):
         raise TypeError(

@@ -147,8 +147,8 @@ def _lsm_setup(prob: PricingProblem, method: LSM):
         )
     if not isinstance(payoff, VanillaOption):
         raise TypeError(
-            f"the port's LSM prices vanilla options; {type(payoff).__name__} waits for the "
-            "path-dependent payoffs of core/payoffs.py"
+            f"the port's LSM prices vanilla options; {type(payoff).__name__} needs the "
+            "barrier and knock-in LSM estimators, which are not ported yet"
         )
     device = resolve_device(method.mc_method.device)
     market = prob.market_inputs

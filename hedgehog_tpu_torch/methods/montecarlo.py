@@ -1,5 +1,5 @@
 """Monte Carlo pricing: dynamics × strategy × config, for European vanillas
-under Black-Scholes, Heston and rough Bergomi.
+and the path-dependent payoffs under Black-Scholes, Heston and rough Bergomi.
 
 Port of the slice of ``hedgehog_tpu/methods/montecarlo.py`` that prices a
 European vanilla under Heston, Black-Scholes and rough Bergomi (reference
@@ -14,8 +14,13 @@ mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
 ``use_kernel=True`` routes them through the CUDA kernels of
 ``hedgehog_tpu_torch.ops``.  ``simulate_price_grid`` and
 ``simulate_conditional_grid`` give the whole path grids the early-exercise
-methods regress on (methods/lsm.py), and ``mc_path_values`` the per-path
-value estimates of every strategy.
+methods regress on (methods/lsm.py), ``simulate_exact_conditional_grid``
+the exact-transition (S, V, ∫V) grid, and ``mc_path_values`` the per-path
+value estimates of every strategy.  The path-dependent payoffs price on
+these grids: barriers, double barriers, lookbacks and autocallables through
+the Brownian-bridge estimators of ``bridge_mc.py`` (its primitives are
+re-exported here), Asians, variance swaps, forward starts, cliquets and the
+two-date contracts through ``exotic_mc.py``.
 
 On the QE paths, the exact-mixing and rough-Bergomi mixing paths and the
 GBM samplers, market fields that are 0-dim tensors stay tensors, so
@@ -35,7 +40,22 @@ from typing import Any
 
 import torch
 
-from ..core.payoffs import VanillaOption, require_european
+from ..core.payoffs import (
+    AsianOption,
+    Autocallable,
+    BarrierOption,
+    ChooserOption,
+    Cliquet,
+    CompoundOption,
+    DigitalOption,
+    DoubleBarrierOption,
+    ForwardStartOption,
+    LookbackOption,
+    VanillaOption,
+    VarianceSwap,
+    require_european,
+    require_single_asset,
+)
 from ..core.problems import MonteCarloSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import carry_yield, market_yearfrac
@@ -58,6 +78,12 @@ __all__ = [
     "simulate_conditional_values",
     "simulate_price_grid",
     "simulate_conditional_grid",
+    "simulate_exact_conditional_grid",
+    "brownian_bridge_survival_factors",
+    "brownian_bridge_survival",
+    "brownian_bridge_extremum",
+    "double_bridge_survival_factors",
+    "heston_variance_swap_strike",
     "mc_path_values",
     "reduce_payoffs",
 ]
@@ -209,6 +235,17 @@ def sim_params(prob: PricingProblem):
     return market, T, r0
 
 
+def _require_no_dividend_schedule(market, what: str):
+    """Raise when a discrete-dividend schedule reaches an estimator whose
+    math assumes a dividend-free path law, rather than ignore it."""
+    if getattr(market, "dividends", None) is not None:
+        raise TypeError(
+            f"{what} does not support a discrete DividendSchedule; "
+            "price the spot model on EulerMaruyama grids (ex-date drops), "
+            "or strip the schedule if the dividend-free law is intended"
+        )
+
+
 def _is_conditional_strategy(strat) -> bool:
     """True for the strategies that price through the conditional (mixing)
     estimator and never materialize terminal samples."""
@@ -296,6 +333,18 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
         )
     if isinstance(strat, HestonBroadieKaya):
         return _broadie_kaya_terminal(prob, method, key, device_id)
+    if isinstance(dyn, RoughBergomiDynamics) and isinstance(strat, EulerMaruyama):
+        if config.qmc and strat.use_kernel:
+            raise ValueError(
+                "qmc=True is not supported with the GBM/Euler kernel strategies; use the "
+                "float64 samplers or HestonQE(use_kernel=True)"
+            )
+        if strat.use_kernel:
+            raise TypeError("rough Bergomi has no fused kernel; drop use_kernel=True")
+        from .rough_bergomi_mixing import rbergomi_euler_paths
+
+        return rbergomi_euler_paths(prob, config, key, device_id, point_offset,
+                                    return_grid=False, device=resolve_device(method.device))
     route = None
     if isinstance(dyn, LognormalDynamics) and isinstance(strat, (EulerMaruyama, BlackScholesExact)):
         # log-Euler GBM increments sum exactly: EulerMaruyama(use_kernel=True)
@@ -394,6 +443,10 @@ def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
         from .heston_qe_paths import heston_qe_paths
 
         return heston_qe_paths(prob, config, strat, return_grid=True, device=device, **kw)
+    if isinstance(dyn, RoughBergomiDynamics) and isinstance(strat, EulerMaruyama):
+        from .rough_bergomi_mixing import rbergomi_euler_paths
+
+        return rbergomi_euler_paths(prob, config, return_grid=True, device=device, **kw)
     raise TypeError(
         f"unsupported grid simulation ({type(dyn).__name__}, {type(strat).__name__})"
     )
@@ -439,6 +492,23 @@ def simulate_conditional_grid(prob: PricingProblem, config: SimulationConfig, ke
     return torch.exp(torch.stack(xs, dim=1)), torch.stack(vs, dim=1)
 
 
+def simulate_exact_conditional_grid(prob: PricingProblem, config: SimulationConfig, key=None,
+                                    point_offset=0, *, device="cuda", device_id=0):
+    """(S, V, ∫V) grids of shapes (n_groups, steps + 1, trajectories),
+    (n_groups, steps + 1, trajectories) and (n_groups, steps, trajectories),
+    float64 on ``device``: the exact-transition grid behind
+    :class:`HestonExactMixing`'s path payoffs (V by the exact noncentral-χ²
+    step, each segment's ∫V drawn from its exact conditional moments, log S
+    by the conditional Gaussian step).  Draws per step (u_pois, z_gam,
+    u_boost, z_iv, z⊥): under QMC Sobol' dims 5s..5s + 4 of the unsplit
+    base key, under PRNG the exact-mixing Philox block and a tagged block
+    for z⊥ (methods/heston_exact_mixing.py)."""
+    from .heston_exact_mixing import exact_conditional_grid
+
+    return exact_conditional_grid(prob, config, key, device_id, point_offset,
+                                  device=resolve_device(device))
+
+
 def mc_path_values(prob: PricingProblem, method: MonteCarlo, key=None, device_id=0,
                    point_offset=0) -> torch.Tensor:
     """Per-path undiscounted value estimates, antithetic groups averaged,
@@ -469,10 +539,35 @@ def reduce_payoffs(samples: torch.Tensor, payoff) -> torch.Tensor:
     return torch.mean(payoff(samples), dim=0)
 
 
+def _path_solver(payoff):
+    """The estimator of a path-dependent payoff, in the JAX dispatch's
+    order, or None for the terminal-sample payoffs."""
+    from . import bridge_mc, exotic_mc
+
+    for cls, solver in ((BarrierOption, bridge_mc._solve_barrier_mc),
+                        (DoubleBarrierOption, bridge_mc._solve_double_barrier_mc),
+                        (LookbackOption, bridge_mc._solve_lookback_mc),
+                        (AsianOption, exotic_mc._solve_asian_mc),
+                        (VarianceSwap, exotic_mc._solve_variance_swap_mc),
+                        (ForwardStartOption, exotic_mc._solve_forward_start_mc),
+                        (Cliquet, exotic_mc._solve_cliquet_mc),
+                        (Autocallable, bridge_mc._solve_autocall_mc),
+                        ((CompoundOption, ChooserOption), exotic_mc._solve_two_date_mc)):
+        if isinstance(payoff, cls):
+            return solver
+    require_single_asset(payoff)
+    return None
+
+
 @register_solver(MonteCarlo)
 def _solve_montecarlo(prob: PricingProblem, method: MonteCarlo) -> MonteCarloSolution:
     payoff = prob.payoff
+    solver = _path_solver(payoff)
+    if solver is not None:
+        return solver(prob, method)
     require_european(payoff, "MonteCarlo", spot_only=True)
+    if not isinstance(payoff, (VanillaOption, DigitalOption)):
+        raise TypeError(f"MonteCarlo has no estimator for {type(payoff).__name__}")
     device = resolve_device(method.device)
     discount = df(prob.market_inputs.rate, payoff.expiry).to(device)
     if _is_conditional_strategy(method.strategy):
@@ -483,3 +578,14 @@ def _solve_montecarlo(prob: PricingProblem, method: MonteCarlo) -> MonteCarloSol
     payoffs = reduce_payoffs(samples, payoff)
     price = discount * torch.mean(payoffs, dim=-1)
     return MonteCarloSolution(prob, method, price, samples)
+
+
+# the bridge primitives and the variance-swap oracle live beside their
+# estimators; they import this module, so they come last
+from .bridge_mc import (  # noqa: E402
+    brownian_bridge_extremum,
+    brownian_bridge_survival,
+    brownian_bridge_survival_factors,
+    double_bridge_survival_factors,
+)
+from .exotic_mc import heston_variance_swap_strike  # noqa: E402

@@ -42,6 +42,7 @@ __all__ = [
     "gamma_qtl",
     "boosted_gamma",
     "cir_exact_step_score",
+    "cir_exact_step",
     "iv_cond_moments",
     "iv_gamma_draw",
 ]
@@ -320,6 +321,12 @@ def cir_exact_step_score(x, u_pois, z_gam, u_boost, c: dict, kmax: int = POISSON
     n = poisson_inv(lam.detach(), u_pois, kmax)
     log_lik = n * torch.log(torch.clamp(lam, min=1e-30)) - lam
     return 2.0 * c["cfac"] * boosted_gamma(c["d_half"] + n, z_gam, u_boost), log_lik
+
+
+def cir_exact_step(x, u_pois, z_gam, u_boost, c: dict, kmax: int = POISSON_KMAX):
+    """One exact CIR transition V_t = x → V_{t+Δ} from (uniform, normal,
+    uniform), without the score."""
+    return cir_exact_step_score(x, u_pois, z_gam, u_boost, c, kmax)[0]
 
 
 def iv_cond_moments(x, y, c: dict, ratio=None):

@@ -66,10 +66,12 @@ _BM_ZERO_CELL = 2.0**-24
 _U_OPEN_MAX = 1.0 - 2.0**-24
 
 
-def philox_block(pair: torch.Tensor, block: int, seed: int, device_id: int):
+def philox_block(pair: torch.Tensor, block: int, seed: int, device_id: int, tag: int = 0):
     """The four Philox words of draw block ``block`` of each antithetic pair
-    (int64 tensor of global pair indices); layout in math/counter_rng.py."""
-    ctr = (pair & _MASK32, pair >> 32, torch.full_like(pair, block), torch.zeros_like(pair))
+    (int64 tensor of global pair indices); layout in math/counter_rng.py.
+    ``tag`` fills the counter's last word: 0 for the kernels' streams, a
+    constant of its own for each stream drawn beside them."""
+    ctr = (pair & _MASK32, pair >> 32, torch.full_like(pair, block), torch.full_like(pair, tag))
     return philox4x32(ctr, (seed, device_id))
 
 

@@ -155,8 +155,11 @@ def test_crr_guards():
     put = ht.VanillaOption(100.0, EXPIRY_1Y, ht.American(), ht.Put(), ht.Spot())
     with pytest.raises(TypeError, match="Black-Scholes"):
         ht.solve(ht.PricingProblem(put, heston), _crr(10))
-    with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.BarrierOption(100.0, EXPIRY_1Y, 80.0))
+    barrier = ht.from_reference(hh.PricingProblem(
+        hh.BarrierOption(100.0, EXPIRY_1Y, 80.0, hh.American()),
+        hh.BlackScholesInputs(REF, 0.03, 100.0, 0.2)))
+    with pytest.raises(TypeError, match="knock-in lattices"):
+        ht.solve(barrier, _crr(10))
 
 
 # -- Bermudan masks ----------------------------------------------------------------
@@ -259,7 +262,7 @@ def test_grid_guards():
                         ht.from_reference(QMC), device=CPU)
     with pytest.raises(TypeError, match="HestonDynamics"):
         ht.simulate_price_grid(prob, bad)
-    rb = ht.MonteCarlo(ht.RoughBergomiDynamics(), ht.EulerMaruyama(), ht.from_reference(QMC),
+    rb = ht.MonteCarlo(ht.RoughBergomiDynamics(), ht.RoughBergomiMixing(), ht.from_reference(QMC),
                        device=CPU)
     with pytest.raises(TypeError, match="unsupported grid"):
         ht.simulate_price_grid(prob, rb)
