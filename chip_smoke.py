@@ -106,6 +106,20 @@ grid (12 x 21 steps) and an up-and-out call on the rough-Bergomi Euler grid
 (1e-10).  Each prints its walls, idle shares (``eval_profile``), the
 exotics also their peak memory, and the seconds of its steps.
 
+The last phase, "barriers and dividends" (``--only "barriers and
+dividends"`` builds the kernels and runs it alone), drives K13 in a launch
+window of its own: ``BlackScholesExact(use_kernel=True)`` at 2^24 pairs on
+a market with two cash dividends, its draws against the twin from the
+escrowed law and its price within 4 SE of the escrowed closed form; then,
+with no kernel, the escrowed closed form, Carr-Madan and CRR(2000) card
+against CPU (1e-12), the barrier and knock-in lattices (card against CPU,
+in-out parity, Reiner-Rubinstein, the American bounds), the barrier and
+knock-in LSM on the GBM Euler grid against the lattices and on the
+conditional Heston grid between their bounds (4096 pairs card against
+CPU), and the 1-D PDE against Black-Scholes, CRR, Reiner-Rubinstein, the
+dividend Euler grid and the dividend LSM (card against CPU, 1e-10), each
+solve's wall, idle share and peak memory printed.
+
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
 rough-Bergomi path; a kernel of a path with no launch in its window fails
@@ -4896,16 +4910,318 @@ def phase_exotics(smi: str, device: str) -> dict:
     return out
 
 
+BD_MARKET = dict(rate=0.03, spot=100.0, sigma=0.2)  # tests/unit/test_discrete_dividends.py
+BD_EX_DATES = (dt.date(2024, 4, 1), dt.date(2024, 10, 1))
+BD_AMOUNTS = (2.0, 2.0)
+BD_K13_PAIRS = 2**24  # BlackScholesExact(use_kernel=True) on the dividend market, PRNG
+BD_CRR_STEPS = 2000
+#: pairs, steps, degree of the barrier LSM on the GBM Euler grid: the knock-outs'
+#: first-passage exercise leg converges from above at O(dt), +1.6% over CRR(2000)
+#: for the down-and-out put at 100 steps on the card, so it runs the 200 steps of
+#: tests/agreement/test_american_barrier.py, whose 1% it is held to
+BD_LSM = (2**17, 200, 5)
+BD_HESTON_LSM = (2**15, 32, 3)  # the same on the conditional Heston grid
+BD_CPU_PAIRS = 4096  # the Heston barrier LSM's pairs priced again on the CPU
+BD_PDE = (400, 200)  # space x time steps
+BD_SEED = 5
+BD_CARD_RTOL = 1e-12  # closed forms, Carr-Madan and the lattices, card against CPU
+BD_LSM_RTOL = 1e-10  # the LSM price on the same pairs, and the PDE, card against CPU
+
+
+def phase_barriers_dividends(smi: str, device: str) -> dict:
+    """Barrier and knock-in early exercise, discrete cash dividends and the
+    1-D PDE engine on the card (no kernel but K13: the lattices, LSM and the
+    PDE are plain PyTorch).  (a) K13 under a dividend schedule (S = 100,
+    r = 0.03, sigma = 0.2, 2.0 at 2024-04-01 and 2024-10-01, 1y) at 2^24 PRNG
+    pairs through ``BlackScholesExact(use_kernel=True)``: its launch count in
+    this window, its draws against the plain twin from the escrowed law,
+    and the price within 4 SE of the escrowed closed form; (b) the escrowed
+    closed form, Carr-Madan and CRR(2000) with the schedule, card against
+    CPU (1e-12), the American call above the European; (c) the barrier
+    lattices at CRR(2000), card against CPU: the American down-and-out put
+    and up-and-out call, knock-in + knock-out = vanilla, the European
+    knock-out against Reiner-Rubinstein (rel 2e-2), the American knock-in
+    between its European and the American vanilla; (d) the barrier LSM on
+    the GBM Euler grid (2^17 pairs x 200 steps, degree 5) against CRR(2000)
+    (down-and-out put within 4 SE + 1%, the American up-in call and down-in
+    put within 4 SE + 2%); (e) on the conditional Heston grid (2^15 pairs x
+    32 steps, degree 3) an up-and-out and a down-in put between their
+    European and the vanilla American, and 4096 pairs card against CPU
+    (stopping steps equal, price 1e-10); (f) the PDE at 400 x 200: the
+    European call against Black-Scholes, the American put against CRR(2000),
+    an up-and-out call against Reiner-Rubinstein, the spot-model dividend put
+    against the Euler-grid Monte Carlo and the dividend LSM put against the
+    PDE (the Euler grid under QMC at 2^17 pairs x 48 steps, rel 5e-3; the
+    LSM as in (d), rel 2e-2), card against CPU (1e-10).  Prints each solve's
+    wall, idle share and peak memory."""
+    import dataclasses
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.models.dynamics import lognormal_terminal_law
+    from hedgehog_tpu_torch.ops import gbm_kernel as gk
+    from hedgehog_tpu_torch.ops.heston_kernel import seed_from_key
+
+    say(f"phase 3 (barriers and dividends): lattices, LSM, the PDE and K13 on {device}; {smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    E = EXPIRY
+    divs = ht.DividendSchedule(BD_EX_DATES, BD_AMOUNTS)
+    dmkt = ht.BlackScholesInputs(REF, dividends=divs, **BD_MARKET)
+    bs_card, bs_cpu = ht.BlackScholesAnalytic(device=device), ht.BlackScholesAnalytic(device="cpu")
+    crr_card = ht.CoxRossRubinsteinMethod(BD_CRR_STEPS, device)
+    crr_cpu = ht.CoxRossRubinsteinMethod(BD_CRR_STEPS, "cpu")
+
+    def price(prob, method) -> float:
+        p = ht.solve(prob, method).price
+        check(p.device.type == torch.device(method.device if hasattr(method, "device")
+                                            else method.mc_method.device).type,
+              f"{type(method).__name__} priced on {p.device}")
+        return float(p)
+
+    def same(label, prob, card, cpu, rtol) -> float:
+        got, want = price(prob, card), price(prob, cpu)
+        check(abs(got - want) <= rtol * abs(want), f"{label}: card {got!r}, CPU {want!r}")
+        return got
+
+    # (a) K13 on the escrowed law
+    call = ht.PricingProblem(ht.VanillaOption(STRIKE, E), dmkt)
+    cfg = ht.SimulationConfig(BD_K13_PAIRS, 1, ht.Antithetic(), BD_SEED)
+    k13 = ht.MonteCarlo(ht.LognormalDynamics(), ht.BlackScholesExact(use_kernel=True), cfg,
+                        device=device)
+    gk.GBM_KERNEL.launches = 0
+    sol = ht.solve(call, k13)
+    torch.cuda.synchronize()
+    k13_launches = gk.GBM_KERNEL.launches
+    check(k13_launches > 0, "K13 was not launched on the dividend path")
+    mean, std = lognormal_terminal_law(dmkt, call.payoff.expiry)
+    params = torch.tensor([float(mean), float(std)], dtype=torch.float32, device=device)
+    twin = gk.gbm_exact_terminal_plain(params, BD_K13_PAIRS, True, seed_from_key(cfg, None), 0)
+    draws = sol.ensemble.float()
+    rel = (draws.double() - twin.double()).abs() / twin.double().abs().clamp(min=1e-3)
+    share = float((rel <= 1e-4).double().mean())
+    mean_rel = abs(float(draws.double().mean()) / float(twin.double().mean()) - 1.0)
+    check(share >= 0.999 and mean_rel <= 1e-6,
+          f"K13 on the dividend law: {share} of draws within 1e-4 of the twin, means {mean_rel}")
+    D = float(ht.df(dmkt.rate, E))
+    pair = torch.clamp(sol.ensemble - STRIKE, min=0.0).mean(dim=0)
+    se = D * float(pair.std()) / math.sqrt(pair.numel())
+    closed = price(call, bs_card)
+    err = float(sol.price) - closed
+    say(f"  K13, {BD_K13_PAIRS} PRNG pairs on the escrowed law (S* = "
+        f"{float(ht.escrowed_spot(dmkt, ht.yearfrac(REF, E))):.10f}): {float(sol.price):.8f} "
+        f"against the escrowed closed form {closed:.8f}: {err:+.3e} (4 SE {4 * se:.3e}); "
+        f"{share:.6f} of draws within 1e-4 of the twin, means within {mean_rel:.2e}; "
+        f"{k13_launches} K13 launch(es) in this window")
+    check(abs(err) <= 4.0 * se, f"K13 dividend call {float(sol.price)} against {closed}, SE {se}")
+    out["k13"] = {"price": float(sol.price), "closed": closed, "se": se, "launches": k13_launches,
+                  "twin_share": share, "twin_mean_rel": mean_rel}
+    del sol, twin, draws, rel, pair  # the later peaks count only their own solves
+    exotic_profile(f"K13 dividend call solve, {BD_K13_PAIRS} pairs ({smi})",
+                   lambda: ht.solve(call, k13), device, out)
+    lap("K13")
+
+    # (b) the escrowed engines, card against CPU
+    cm_card, cm_cpu = (ht.CarrMadan(1.0, "auto", ht.LognormalDynamics(), device=d)
+                       for d in (device, "cpu"))
+    esc = {}
+    for cp in (ht.Call(), ht.Put()):
+        name = type(cp).__name__
+        eu = ht.PricingProblem(ht.VanillaOption(STRIKE, E, ht.European(), cp), dmkt)
+        am = ht.PricingProblem(ht.VanillaOption(STRIKE, E, ht.American(), cp), dmkt)
+        esc[name] = {"bs": same(f"escrowed BS {name}", eu, bs_card, bs_cpu, BD_CARD_RTOL),
+                     "cm": same(f"escrowed Carr-Madan {name}", eu, cm_card, cm_cpu, BD_CARD_RTOL),
+                     "crr_eu": same(f"CRR European {name}", eu, crr_card, crr_cpu, BD_CARD_RTOL),
+                     "crr_am": same(f"CRR American {name}", am, crr_card, crr_cpu, BD_CARD_RTOL)}
+        say(f"  {name} with the schedule: BS {esc[name]['bs']:.10f}, Carr-Madan "
+            f"{esc[name]['cm']:.10f}, CRR({BD_CRR_STEPS}) European {esc[name]['crr_eu']:.10f}, "
+            f"American {esc[name]['crr_am']:.10f} (card = CPU within {BD_CARD_RTOL:g})")
+    check(esc["Call"]["crr_am"] > esc["Call"]["crr_eu"] + 0.01,
+          f"the American call {esc['Call']['crr_am']} holds no ex-dividend premium over "
+          f"{esc['Call']['crr_eu']}")
+    out["escrowed"] = esc
+    am_call = ht.PricingProblem(ht.VanillaOption(STRIKE, E, ht.American()), dmkt)
+    exotic_profile(f"CRR({BD_CRR_STEPS}) American call with the schedule ({smi})",
+                   lambda: ht.solve(am_call, crr_card), device, out)
+    lap("escrowed engines")
+
+    # (c) the barrier lattices
+    bmkt = ht.BlackScholesInputs(REF, 0.05, 100.0, 0.25)
+    A, Eu, P, C, Up, KI = ht.American(), ht.European(), ht.Put(), ht.Call(), ht.Up(), ht.KnockIn()
+    lat = {}
+    for label, payoff in (
+            ("American down-and-out put", ht.BarrierOption(110.0, E, 80.0, A, P)),
+            ("American up-and-out call", ht.BarrierOption(100.0, E, 120.0, A, C, direction=Up)),
+            ("European up-and-out call", ht.BarrierOption(100.0, E, 120.0, Eu, C, direction=Up)),
+            ("European up-and-in call", ht.BarrierOption(100.0, E, 120.0, Eu, C, direction=Up,
+                                                         knock=KI)),
+            ("European vanilla call", ht.VanillaOption(100.0, E)),
+            ("European down-and-out put", ht.BarrierOption(110.0, E, 80.0, Eu, P)),
+            ("American down-in put", ht.BarrierOption(110.0, E, 85.0, A, P, knock=KI)),
+            ("European down-in put", ht.BarrierOption(110.0, E, 85.0, Eu, P, knock=KI)),
+            ("American up-in call", ht.BarrierOption(100.0, E, 120.0, A, C, direction=Up,
+                                                     knock=KI)),
+            ("American vanilla put", ht.VanillaOption(110.0, E, A, P)),
+            ("American vanilla call", ht.VanillaOption(100.0, E, A, C))):
+        lat[label] = same(label, ht.PricingProblem(payoff, bmkt), crr_card, crr_cpu, BD_CARD_RTOL)
+    rr = price(ht.PricingProblem(ht.BarrierOption(100.0, E, 120.0, Eu, C, direction=Up), bmkt),
+               bs_card)
+    parity = lat["European up-and-in call"] + lat["European up-and-out call"] - lat[
+        "European vanilla call"]
+    check(abs(parity) <= 1e-10, f"knock-in + knock-out - vanilla = {parity}")
+    check(abs(lat["European up-and-out call"] / rr - 1.0) <= 2e-2,
+          f"CRR up-and-out call {lat['European up-and-out call']} against Reiner-Rubinstein {rr}")
+    check(lat["European down-and-out put"] <= lat["American down-and-out put"]
+          <= lat["American vanilla put"] * (1 + 1e-4), f"the down-and-out put's bounds: {lat}")
+    check(lat["American up-and-out call"] > 5 * lat["European up-and-out call"],
+          f"the up-and-out call's early-exercise premium: {lat}")
+    check(lat["European down-in put"] < lat["American down-in put"] <= lat["American vanilla put"],
+          f"the American knock-in's bounds: {lat}")
+    for label, value in lat.items():
+        say(f"  CRR({BD_CRR_STEPS}) {label}: {value:.10f} (card = CPU within {BD_CARD_RTOL:g})")
+    say(f"  knock-in + knock-out - vanilla {parity:+.3e}; Reiner-Rubinstein up-and-out call "
+        f"{rr:.10f} ({lat['European up-and-out call'] / rr - 1.0:+.3e})")
+    out["lattices"] = dict(lat, reiner_rubinstein=rr, parity=parity)
+    for label, payoff in (("down-and-out put", ht.BarrierOption(110.0, E, 80.0, A, P)),
+                          ("down-in put", ht.BarrierOption(110.0, E, 85.0, A, P, knock=KI))):
+        prob = ht.PricingProblem(payoff, bmkt)
+        exotic_profile(f"CRR({BD_CRR_STEPS}) American {label} ({smi})",
+                       lambda: ht.solve(prob, crr_card), device, out)
+    lap("barrier lattices")
+
+    # (d) the barrier LSM on the GBM Euler grid
+    pairs, steps, degree = BD_LSM
+    gbm_lsm = ht.LSM(ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(),
+                                   ht.SimulationConfig(pairs, steps, ht.Antithetic(), BD_SEED),
+                                   device=device), degree)
+    lsm = {}
+    for label, payoff, lattice, slack in (
+            ("American down-and-out put", ht.BarrierOption(110.0, E, 80.0, A, P),
+             lat["American down-and-out put"], 0.01),
+            ("American up-in call", ht.BarrierOption(100.0, E, 120.0, A, C, direction=Up,
+                                                     knock=KI),
+             lat["American up-in call"], 0.02),
+            ("American down-in put", ht.BarrierOption(110.0, E, 85.0, A, P, knock=KI),
+             lat["American down-in put"], 0.02)):
+        prob = ht.PricingProblem(payoff, bmkt)
+        sol = ht.solve(prob, gbm_lsm)
+        se = lsm_price_se(sol)
+        err = float(sol.price) - lattice
+        say(f"  LSM {label} ({pairs} pairs x {steps} steps, degree {degree}): "
+            f"{float(sol.price):.6f}, CRR({BD_CRR_STEPS}) {lattice:.6f}: {err:+.4f} (4 SE "
+            f"{4 * se:.4f} + {slack:.0%}; SE over the pairs' stopping values)")
+        check(abs(err) <= 4.0 * se + slack * lattice,
+              f"LSM {label} {float(sol.price)} against CRR {lattice}, SE {se}")
+        lsm[label] = {"lsm": float(sol.price), "crr": lattice, "se": se}
+        exotic_profile(f"LSM {label}, GBM Euler grid ({smi})", lambda: ht.solve(prob, gbm_lsm),
+                       device, out)
+    out["gbm_lsm"] = lsm
+    lap("barrier LSM, GBM")
+
+    # (e) the barrier LSM on the conditional Heston grid
+    pairs, steps, degree = BD_HESTON_LSM
+    hm = ht.HestonInputs(REF, R, SPOT, *HESTON.values())
+
+    def heston_mc(n, dev):
+        return ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True),
+                             ht.SimulationConfig(n, steps, ht.Antithetic(), BD_SEED), device=dev)
+
+    van = price(ht.PricingProblem(ht.VanillaOption(110.0, E, A, P), hm),
+                ht.LSM(heston_mc(pairs, device), degree))
+    hest = {"vanilla American put": van}
+    for label, payoff in (("up-and-out put", ht.BarrierOption(110.0, E, 130.0, A, P,
+                                                              direction=Up)),
+                          ("down-in put", ht.BarrierOption(110.0, E, 85.0, A, P, knock=KI))):
+        prob = ht.PricingProblem(payoff, hm)
+        am = price(prob, ht.LSM(heston_mc(pairs, device), degree))
+        eu = price(ht.PricingProblem(dataclasses.replace(payoff, exercise_style=Eu), hm),
+                   heston_mc(pairs, device))
+        say(f"  Heston conditional LSM American {label} ({pairs} pairs x {steps} steps, degree "
+            f"{degree}): European {eu:.6f} <= American {am:.6f} <= vanilla American {van:.6f}")
+        check(eu <= am <= van, f"Heston {label}: {eu}, {am}, {van}")
+        sols = [ht.solve(prob, ht.LSM(heston_mc(BD_CPU_PAIRS, d), degree)) for d in (device, "cpu")]
+        check(torch.equal(sols[0].stopping_info[0].cpu(), sols[1].stopping_info[0]),
+              f"Heston {label}: the stopping steps differ between the card and the CPU")
+        check(abs(float(sols[0].price) / float(sols[1].price) - 1.0) <= BD_LSM_RTOL,
+              f"Heston {label} on {BD_CPU_PAIRS} pairs: card {float(sols[0].price)!r}, CPU "
+              f"{float(sols[1].price)!r}")
+        hest[label] = {"european": eu, "american": am}
+        exotic_profile(f"Heston conditional LSM {label} ({smi})",
+                       lambda: ht.solve(prob, ht.LSM(heston_mc(pairs, device), degree)), device,
+                       out)
+    say(f"  the first {BD_CPU_PAIRS} pairs: stopping steps equal, prices within {BD_LSM_RTOL:g}")
+    out["heston_lsm"] = hest
+    lap("barrier LSM, Heston")
+
+    # (f) the PDE
+    space, time_steps = BD_PDE
+    pde_card, pde_cpu = (ht.PDEMethod(space_steps=space, time_steps=time_steps, device=d)
+                         for d in (device, "cpu"))
+    pmkt = ht.BlackScholesInputs(REF, 0.05, 100.0, 0.2)
+    spot_model = ht.BlackScholesInputs(REF, 0.05, 100.0, 0.25, dividends=ht.DividendSchedule(
+        [dt.date(2024, 6, 1)], [5.0]))
+    pde = {}
+    checks = (
+        ("European call", ht.VanillaOption(100.0, E), pmkt, bs_card, "abs", 6e-4),
+        ("American put", ht.VanillaOption(110.0, E, A, P), pmkt, crr_card, "rel", 1e-3),
+        ("up-and-out call", ht.BarrierOption(100.0, E, 130.0, direction=Up), pmkt, bs_card,
+         "abs", 8e-4))
+    for label, payoff, market, oracle, kind, tol in checks:
+        prob = ht.PricingProblem(payoff, market)
+        got = same(f"PDE {label}", prob, pde_card, pde_cpu, BD_LSM_RTOL)
+        want = price(prob, oracle)
+        err = got - want if kind == "abs" else got / want - 1.0
+        say(f"  PDE {label} ({space} x {time_steps}): {got:.8f}, {type(oracle).__name__} "
+            f"{want:.8f}: {err:+.3e} ({kind} {tol:g}; card = CPU within {BD_LSM_RTOL:g})")
+        check(abs(err) <= tol, f"PDE {label} {got} against {want}")
+        pde[label] = {"pde": got, "oracle": want}
+    put = ht.PricingProblem(ht.VanillaOption(100.0, E, Eu, P), spot_model)
+    p_pde = same("PDE dividend put", put, pde_card, pde_cpu, BD_LSM_RTOL)
+    euler = ht.MonteCarlo(ht.LognormalDynamics(), ht.EulerMaruyama(),
+                          ht.SimulationConfig(BD_LSM[0], 48, ht.Antithetic(), BD_SEED, True),
+                          device=device)
+    sol = ht.solve(put, euler)
+    D = float(ht.df(spot_model.rate, E))
+    pair = torch.clamp(100.0 - sol.ensemble, min=0.0).mean(dim=0)
+    se = D * float(pair.std()) / math.sqrt(pair.numel())
+    say(f"  spot-model dividend put: PDE {p_pde:.8f}, Euler grid {BD_LSM[0]} QMC pairs x 48 "
+        f"steps {float(sol.price):.8f} (the pairs' SE {se:.2e}, a bound under QMC; rel "
+        f"{float(sol.price) / p_pde - 1.0:+.3e}, tolerance 5e-3 of "
+        "tests/unit/test_discrete_dividends.py)")
+    check(abs(float(sol.price) / p_pde - 1.0) <= 5e-3,
+          f"the dividend put: Euler grid {float(sol.price)} against the PDE {p_pde}")
+    am_put = ht.PricingProblem(ht.VanillaOption(100.0, E, A, P), spot_model)
+    p_am = same("PDE dividend American put", am_put, pde_card, pde_cpu, BD_LSM_RTOL)
+    p_lsm = price(am_put, gbm_lsm)
+    say(f"  dividend American put: PDE {p_am:.8f}, LSM {p_lsm:.8f} "
+        f"({p_lsm / p_am - 1.0:+.3e}, tolerance 2e-2)")
+    check(abs(p_lsm / p_am - 1.0) <= 2e-2, f"the dividend American put: LSM {p_lsm}, PDE {p_am}")
+    pde["dividend put"] = {"pde": p_pde, "euler": float(sol.price), "se": se}
+    pde["dividend American put"] = {"pde": p_am, "lsm": p_lsm}
+    out["pde"] = pde
+    for label, prob in (("American put", ht.PricingProblem(ht.VanillaOption(110.0, E, A, P),
+                                                           pmkt)),
+                        ("dividend American put", am_put)):
+        exotic_profile(f"PDE {label}, {space} x {time_steps} ({smi})",
+                       lambda: ht.solve(prob, pde_card), device, out)
+    lap("PDE")
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
 ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
                "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes,
-               "exotics": phase_exotics}
+               "exotics": phase_exotics, "barriers and dividends": phase_barriers_dividends}
+#: the phases of ``ONLY_PHASES`` that launch a kernel (K13), so ``--only`` builds the library
+KERNEL_PHASES = {"barriers and dividends"}
 
 
 def only_main(names: str) -> int:
-    """``--only "exact greeks,american,broadie kaya,quotes,exotics"``: the named
-    phases alone on the card (they launch no CUDA kernel, so nothing is
-    built)."""
+    """``--only "exact greeks,american,broadie kaya,quotes,exotics,barriers and
+    dividends"``: the named phases alone on the card (the kernels are built
+    only for a phase of ``KERNEL_PHASES``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4915,8 +5231,16 @@ def only_main(names: str) -> int:
     smi = smi_query("name,power.limit")
     say(smi)
     result = {}
-    for name in names.split(","):
+    names = names.split(",")
+    for name in names:
         check(name in ONLY_PHASES, f"no phase {name!r}; --only takes {sorted(ONLY_PHASES)}")
+    if KERNEL_PHASES & set(names):
+        from hedgehog_tpu_torch.ops import cuda_lib
+
+        lib, result["build_s"] = cuda_lib.build_library()
+        cuda_lib.load_library()
+        say(f"  kernels built in {result['build_s']:.3f} s into {lib.parent}")
+    for name in names:
         result[name] = ONLY_PHASES[name](smi, "cuda")
     result["elapsed_s"] = time.perf_counter() - t0
     say(json.dumps(result))
@@ -5160,6 +5484,8 @@ def main() -> int:
     quotes = phase_quotes(smi, "cuda")
     # the path-dependent and exotic payoffs (no kernel)
     exotics = phase_exotics(smi, "cuda")
+    # barrier early exercise, discrete dividends and the PDE (K13 in its own window)
+    barriers_dividends = phase_barriers_dividends(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -5169,7 +5495,7 @@ def main() -> int:
                     "past_old_limits": past_limits, "global_tables": global_tables,
                     "calibration_path": calibration_path, "exact_greeks": exact_greeks,
                     "american": american, "broadie_kaya": broadie_kaya, "quotes": quotes,
-                    "exotics": exotics,
+                    "exotics": exotics, "barriers_and_dividends": barriers_dividends,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

@@ -29,7 +29,15 @@ caller asks for ``device="cpu"``.  Early exercise: the Cox-Ross-Rubinstein
 lattice (``CoxRossRubinsteinMethod``), Longstaff-Schwartz (``LSM``) over
 the Monte Carlo grids (``simulate_price_grid``; the conditional Heston
 bridge with the joint (S, V) basis) and its Andersen-Broadie dual bound
-(``lsm_dual_bound``), for American and Bermudan vanillas, on the GPU too.
+(``lsm_dual_bound``), for American and Bermudan vanillas, and the lattice
+and LSM for American, Bermudan and European single barriers (knock-outs
+with bridge-corrected edges or survival factors, knock-ins by parity or
+the hit-time quadrature), on the GPU too; the 1-D finite-difference engine
+(``PDEMethod``) prices vanillas, digitals and barriers with early
+exercise.  Discrete cash dividends (``DividendSchedule`` on
+``BlackScholesInputs``) price in the escrowed convention on the
+terminal-law engines and in the spot model on the PDE and the log-Euler
+grid.
 The exact-mixing estimator's greeks (``heston_exact_price_and_greeks``, or
 AD through ``solve``) carry the likelihood-ratio term of its Poisson
 counts.
@@ -105,10 +113,12 @@ from .core.problems import (
     CRRSolution,
     LSMSolution,
     MonteCarloSolution,
+    PDESolution,
     PricingProblem,
 )
 from .core.solve import AbstractPricingMethod, register_solver, solve
-from .market.inputs import BlackScholesInputs, HestonInputs, RoughBergomiInputs
+from .market.dividends import DividendSchedule, dividend_pv, escrowed_spot
+from .market.inputs import BlackScholesInputs, HestonInputs, RoughBergomiInputs, forward_spot
 from .market.rate_curve import (
     FlatRateCurve,
     RateCurve,
@@ -187,6 +197,7 @@ from .methods.carr_madan import CarrMadan
 from .methods.crr import CoxRossRubinsteinMethod
 from .methods.duality import DualBound, lsm_dual_bound
 from .methods.lsm import LSM
+from .methods.pde import PDEMethod
 from .methods.montecarlo import (
     Antithetic,
     BlackScholesExact,
@@ -229,9 +240,10 @@ __all__ = [
     "Autocallable", "VarianceSwap",
     "Lens", "FieldLens", "SpotLens", "VolLens", "ZeroRateSpineLens", "lens_get", "lens_set",
     "AnalyticSolution", "BasketPricingProblem", "BasketPricingSolution", "CarrMadanSolution",
-    "CRRSolution", "LSMSolution", "MonteCarloSolution", "PricingProblem",
+    "CRRSolution", "LSMSolution", "MonteCarloSolution", "PDESolution", "PricingProblem",
     "AbstractPricingMethod", "register_solver", "solve",
-    "BlackScholesInputs", "HestonInputs", "RoughBergomiInputs",
+    "BlackScholesInputs", "HestonInputs", "RoughBergomiInputs", "forward_spot",
+    "DividendSchedule", "dividend_pv", "escrowed_spot",
     "FlatRateCurve", "RateCurve", "df", "df_yf", "forward_rate", "is_flat", "spine_tenors",
     "spine_zeros", "zero_rate", "zero_rate_yf",
     "FlatVolSurface", "Interpolator2D", "RectVolSurface", "get_vol", "get_vol_yf",
@@ -248,7 +260,8 @@ __all__ = [
     "SecondOrderGreekProblem",
     "implied_vol", "implied_vol_bs", "iv_to_price_bs", "rect_vol_surface_from_prices",
     "CalibrationProblem", "CalibrationSolution", "OptimizerAlgo", "RootFinderAlgo",
-    "BlackScholesAnalytic", "CarrMadan", "CoxRossRubinsteinMethod", "LSM", "DualBound",
+    "BlackScholesAnalytic", "CarrMadan", "CoxRossRubinsteinMethod", "LSM", "PDEMethod",
+    "DualBound",
     "lsm_dual_bound",
     "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonBroadieKaya", "HestonExactMixing",
     "HestonQE",

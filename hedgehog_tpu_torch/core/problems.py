@@ -18,6 +18,7 @@ __all__ = [
     "LSMSolution",
     "MonteCarloSolution",
     "CarrMadanSolution",
+    "PDESolution",
     "BasketPricingSolution",
 ]
 
@@ -89,6 +90,19 @@ class CarrMadanSolution:
     method: Any
     price: Any
     integral_solution: Any
+
+
+@_frozen
+class PDESolution:
+    """Finite-difference solution: the price and the t = 0 value slice on
+    the spot grid, ``grid_spots`` and ``grid_values`` (None for composite
+    solves such as the knock-in parity)."""
+
+    problem: Any
+    method: Any
+    price: Any
+    grid_spots: Any
+    grid_values: Any
 
 
 @_frozen

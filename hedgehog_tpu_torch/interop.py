@@ -23,13 +23,13 @@ def _port_classes() -> dict:
     from .calibration import calibration
     from .core import dates, lenses, payoffs, problems
     from .greeks import greeks
-    from .market import inputs, rate_curve, svi, vol_quotes, vol_surface
-    from .methods import black_scholes, carr_madan, crr, duality, lsm, montecarlo
+    from .market import dividends, inputs, rate_curve, svi, vol_quotes, vol_surface
+    from .methods import black_scholes, carr_madan, crr, duality, lsm, montecarlo, pde
     from .models import dynamics, rough_bergomi
 
     classes = {}
-    for mod in (dates, payoffs, problems, lenses, inputs, rate_curve, vol_surface, svi,
-                vol_quotes, black_scholes, carr_madan, crr, lsm, duality, montecarlo, dynamics,
+    for mod in (dates, payoffs, problems, lenses, inputs, dividends, rate_curve, vol_surface, svi,
+                vol_quotes, pde, black_scholes, carr_madan, crr, lsm, duality, montecarlo, dynamics,
                 rough_bergomi, greeks, calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:

@@ -51,11 +51,22 @@ def carry_yield(market):
 
 
 def forward_spot(market, T, device=None) -> torch.Tensor:
-    """The carry-adjusted spot ``spot·e^{−qT}``; divide by D(T) for the
-    T-forward.  On ``device``, else on the device of the market's tensors."""
+    """The carry-adjusted escrowed spot ``(spot − PV(cash divs ≤ T))·e^{−qT}``;
+    divide by D(T) for the T-forward.  For the terminal-law methods this
+    substitution alone prices continuous carry and discrete cash dividends
+    in the escrowed convention (market/dividends.py); a market without a
+    schedule subtracts nothing.  On ``device``, else on the device of the
+    market's tensors."""
     q = carry_yield(market)
     dev = device_of(market.spot, q, T) if device is None else device
-    return f64(market.spot, device=dev) * torch.exp(-f64(q, device=dev) * f64(T, device=dev))
+    spot = f64(market.spot, device=dev)
+    if getattr(market, "dividends", None) is not None:
+        from .dividends import escrowed_spot
+
+        # raises when PV(schedule) >= spot: no lognormal model is behind a
+        # non-positive escrowed spot
+        spot = escrowed_spot(market, T, device=dev)
+    return spot * torch.exp(-f64(q, device=dev) * f64(T, device=dev))
 
 
 def market_yearfrac(market, t):
@@ -67,13 +78,22 @@ def market_yearfrac(market, t):
 @_frozen
 class BlackScholesInputs:
     """Black-Scholes market data: reference date (ticks), rate curve, spot,
-    vol surface, continuous dividend yield."""
+    vol surface, continuous dividend yield.
+
+    ``dividends`` (default None) attaches a
+    :class:`~hedgehog_tpu_torch.market.dividends.DividendSchedule` of
+    discrete cash dividends: the terminal-law engines (closed forms,
+    Carr–Madan, the exact samplers, CRR) price the escrowed convention
+    through :func:`forward_spot`; the grid engines (PDE jump conditions,
+    the log-Euler grid's ex-date drops) price the piecewise-lognormal spot
+    model (market/dividends.py)."""
 
     reference_date: Any
     rate: Any
     spot: Any
     sigma: Any
     dividend_yield: Any = 0.0
+    dividends: Any = None
     daycount: Any = ACT365F
 
     def __post_init__(self):

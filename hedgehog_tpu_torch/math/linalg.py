@@ -99,9 +99,13 @@ def tridiag_solve_pcr(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     du = torch.where(idx == n - 1, torch.zeros_like(du), du)
 
     def shift(a, s, fill):
-        # a[..., i − s] (s > 0) or a[..., i + s] (s < 0), ``fill`` out of range
-        valid = (idx >= s) if s > 0 else (idx < n + s)
-        return torch.where(valid, torch.roll(a, s, dims=-1), torch.full_like(a, fill))
+        # a[..., i − s] (s > 0) or a[..., i + s] (s < 0), ``fill`` out of
+        # range: one padded copy
+        if abs(s) >= n:
+            return torch.full_like(a, fill)
+        if s > 0:
+            return torch.nn.functional.pad(a[..., :n - s], (s, 0), value=fill)
+        return torch.nn.functional.pad(a[..., -s:], (0, -s), value=fill)
 
     s = 1
     for _ in range(stages):

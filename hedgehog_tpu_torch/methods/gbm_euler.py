@@ -15,7 +15,12 @@ so the grid is exact at its dates.  The normals:
   4k .. 4k + 3, in float64.
 
 Antithetic pairs negate Z.  A spot, rate or vol given as a tensor keeps its
-autograd history.  Discrete cash dividends wait for ``market/dividends.py``.
+autograd history.  Discrete cash dividends (market/dividends.py) price the
+piecewise-lognormal spot model: each ex-date is snapped to its nearest grid
+time and the path drops there by the cash amount,
+``x ← log(max(e^x − d_k, 1e-8·S0))`` (the step taken on every step, the
+drop 0 off the ex-dates), the same discretization as the PDE engine's jump
+conditions.
 """
 
 from __future__ import annotations
@@ -62,11 +67,6 @@ def gbm_euler_paths(prob, config, key=None, device_id=0, point_offset=0, *, retu
     """Terminal prices (n_groups, trajectories), or with ``return_grid`` the
     grid (n_groups, steps + 1, trajectories), float64 on ``device``."""
     market, T, r0 = sim_params(prob)
-    if getattr(market, "dividends", None) is not None:
-        raise TypeError(
-            "discrete cash dividends on the GBM grid wait for market/dividends.py, "
-            "which the port does not have yet"
-        )
     sigma = (market.sigma.sigma if isinstance(market.sigma, FlatVolSurface)
              else get_vol(market.sigma, prob.payoff.expiry, market.spot))
     sigma, r0 = f64(sigma, device=device), f64(r0, device=device)
@@ -76,11 +76,21 @@ def gbm_euler_paths(prob, config, key=None, device_id=0, point_offset=0, *, retu
     z = torch.stack([z, -z], dim=1) if isinstance(config.variance_reduction, Antithetic) else z[:, None]
     drift = (r0 - 0.5 * sigma**2) * dt
     vol_dt = sigma * math.sqrt(dt)
-    x = torch.zeros(z.shape[1:], dtype=torch.float64, device=device) + torch.log(
-        f64(market.spot, device=device))
+    spot = f64(market.spot, device=device)
+    x = torch.zeros(z.shape[1:], dtype=torch.float64, device=device) + torch.log(spot)
+    d_steps = None
+    if getattr(market, "dividends", None) is not None:
+        from ..market.dividends import dividend_step_amounts
+
+        d_steps = dividend_step_amounts(market, T, steps, device=device)  # (steps,)
+        floor = 1e-8 * spot
     xs = [x]
     for k in range(steps):
         x = x + drift + vol_dt * z[k]
+        if d_steps is not None:
+            # the ex-date drop in price space (d_k = 0 off the ex-dates: the
+            # exp/log round trip is then the identity up to rounding)
+            x = torch.log(torch.maximum(torch.exp(x) - d_steps[k], floor))
         xs.append(x)
     if return_grid:
         return torch.exp(torch.stack(xs, dim=1))

@@ -23,10 +23,15 @@ the regression runs on the joint (S, V) basis, V being part of Heston's
 Markov state; ``rao_blackwell`` replaces the terminal target by its
 conditional expectation over the last step.
 
-The barrier and knock-in estimators (``surv_factors``, ``rebate_spec``,
-``barrier_eval``, ``hit_exercise_value``) wait for the path-dependent
-payoffs, and the sharded regression (``psum_axis``) for the port's
-sharding.
+Single barriers run on the bridge grids of ``methods/bridge_mc.py``
+(LognormalDynamics × EulerMaruyama, discrete dividends included, and the
+conditional Heston grid with the joint basis): a knock-out carries the
+per-segment no-cross factors in its stopping state (the knock-adjusted
+continuation, the rebate's hold-value leg, and for American holders the
+exercise at first passage), a knock-in integrates the live option's value
+at the barrier, from a second regression localized there, against each
+path's first-hit-segment law.  The sharded regression (``psum_axis``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -36,11 +41,23 @@ from typing import Any
 
 import torch
 
-from ..core.payoffs import American, Bermudan, VanillaOption, bermudan_step_mask
+from ..core.payoffs import (
+    American,
+    AsianOption,
+    BarrierOption,
+    Bermudan,
+    DoubleBarrierOption,
+    KnockIn,
+    LookbackOption,
+    Spot,
+    Up,
+    VanillaOption,
+    bermudan_step_mask,
+)
 from ..core.problems import LSMSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import market_yearfrac
-from ..market.rate_curve import df_yf
+from ..market.rate_curve import df, df_yf
 from ..math.linalg import cholesky_solve_small
 from ..utils import f64, resolve_device
 from .montecarlo import (
@@ -95,7 +112,8 @@ def _joint_basis(s, v, degree: int):
 
 def lsm_backward_induction(spots, payoff, log_disc, degree: int, strike_scale, *, vols=None,
                            terminal_value=None, exercise_mask=None,
-                           collect_betas: bool = False):
+                           collect_betas: bool = False, surv_factors=None, rebate_spec=None,
+                           barrier_eval=None, hit_exercise_value=None):
     """Backward stopping-rule induction over a (steps + 1, paths) price grid:
     returns (tau, value) per path, tau as float64.  ``vols`` (a matching
     variance grid) regresses on the joint (S, V) basis; ``terminal_value``
@@ -103,27 +121,111 @@ def lsm_backward_induction(spots, payoff, log_disc, degree: int, strike_scale, *
     ``exercise_mask`` (steps,) bool gates exercise per grid date (None:
     every date); ``collect_betas`` also returns the per-step coefficients
     stacked in induction order t = steps − 1 … 1, the frozen policy the
-    dual bound replays."""
+    dual bound replays.
+
+    ``surv_factors`` (knock-outs): the (steps, paths) per-segment bridge
+    no-cross factors q_t.  The stopping state gains the future survival
+    fsurv = Π_{s=t}^{τ−1} q_s, so the regressed continuation is the
+    knock-adjusted value; exercise yields the intrinsic, and the fit is
+    weighted by the past survival A_t = Π_{s<t} q_s.  The regressors gain
+    q_t, q_t² and q_t·s, the shape of the boundary layer at the barrier.
+    ``rebate_spec = (R, at_hit)`` carries the rebate's hold-value leg
+    R_t = (1 − q_t)·rb_t + q_t·disc·R_{t+1} in the target;
+    ``hit_exercise_value`` (American knock-outs only) is the undiscounted
+    intrinsic at the barrier, exercised at first passage:
+    rb_t = max(intrinsic(H)·disc^½, rb_t).  Returns (tau, value, fsurv,
+    rleg), fsurv = Π_{s=1}^{τ−1} q_s (the t = 0 factor is the caller's).
+
+    ``barrier_eval = (h_scaled, intrinsic_h)`` (knock-ins): each step also
+    fits the same continuation targets with a Gaussian kernel in log(S/H)
+    on a basis centred at the barrier, and returns (tau, value, ys) with
+    ys the live option's value at the barrier at t = steps − 1 … 1 (the
+    exercise max at exercise dates only): a scalar per step on spot-only
+    grids, per path in v on joint-basis grids."""
+    if barrier_eval is not None and surv_factors is not None:
+        raise TypeError("barrier_eval is for knock-ins; surv_factors for knock-outs")
+    if collect_betas and (barrier_eval is not None or surv_factors is not None):
+        raise TypeError("collect_betas supports plain vanilla grids only")
     nsteps = spots.shape[0] - 1
-    tau = torch.full((spots.shape[1],), float(nsteps), dtype=torch.float64, device=spots.device)
+    dev = spots.device
+    n = spots.shape[1]
+    tau = torch.full((n,), float(nsteps), dtype=torch.float64, device=dev)
     value = payoff(spots[nsteps]) if terminal_value is None else terminal_value
-    betas = []
+    barrier = surv_factors is not None
+    if barrier:
+        # past survival A_t = Π_{s<t} q_s, (steps + 1, paths), A_0 = 1
+        past_surv = torch.cat([torch.ones_like(surv_factors[:1]),
+                               torch.cumprod(surv_factors, dim=0)])
+        fsurv = torch.ones((n,), dtype=torch.float64, device=dev)
+        rleg = torch.zeros((n,), dtype=torch.float64, device=dev)
+        rebate, rebate_at_hit = rebate_spec if rebate_spec is not None else (0.0, False)
+        rebate = f64(rebate, device=dev)
+        disc = torch.exp(log_disc)
+        half_disc = torch.exp(0.5 * log_disc)
+    betas, ys = [], []
     for t in range(nsteps - 1, 0, -1):  # t = 0 excluded (lsm.jl:114)
         s_t = spots[t]
-        continuation = torch.exp((tau - t) * log_disc) * value
+        if barrier:
+            q_t = surv_factors[t]
+            fsurv_cont = fsurv * q_t
+            # the rebate leg at t: a hit in [t, t + 1) pays rb_t (at the
+            # segment midpoint, or R discounted from expiry), a survivor
+            # carries the discounted leg downstream
+            rb_t = rebate * half_disc if rebate_at_hit else rebate * torch.exp(
+                (nsteps - t) * log_disc)
+            if hit_exercise_value is not None:
+                rb_t = torch.maximum(hit_exercise_value * half_disc, rb_t)
+            rleg_cont = (1.0 - q_t) * rb_t + q_t * disc * rleg
+            continuation = torch.exp((tau - t) * log_disc) * value * fsurv_cont + rleg_cont
+        else:
+            continuation = torch.exp((tau - t) * log_disc) * value
         payoff_t = payoff(s_t)
         itm = payoff_t > 0.0
+        w = itm.to(torch.float64)
+        if barrier:
+            w = w * past_surv[t]
         if vols is None:
             phi = _poly_basis(s_t / strike_scale, degree)
         else:
             phi = _joint_basis(s_t / strike_scale, vols[t], degree)
-        beta = _masked_lstsq_beta(phi, continuation, itm.to(torch.float64))
+        if barrier:
+            s_n = s_t / strike_scale
+            phi = torch.cat([phi, q_t[:, None], (q_t * q_t)[:, None], (q_t * s_n)[:, None]],
+                            dim=1)
+        beta = _masked_lstsq_beta(phi, continuation, w)
         exercise = itm & (payoff_t > phi @ beta)
         if exercise_mask is not None:
             exercise = exercise & exercise_mask[t]
         tau = torch.where(exercise, float(t), tau)
         value = torch.where(exercise, payoff_t, value)
         betas.append(beta)
+        if barrier:
+            fsurv = torch.where(exercise, 1.0, fsurv_cont)
+            rleg = torch.where(exercise, 0.0, rleg_cont)
+        elif barrier_eval is not None:
+            h_scaled, intrinsic_h = barrier_eval
+            # a second regression of the same targets, localized at the
+            # barrier (the policy fit is in-the-money only, so at an
+            # out-of-the-money barrier it would extrapolate), on powers of
+            # u = log(S/H)/hw: well conditioned, and its value at H is β[0]
+            lx = torch.log(s_t / (h_scaled * strike_scale))
+            hw = torch.clamp(0.5 * torch.std(lx, correction=0), min=0.05)
+            u = lx / hw
+            w_h = torch.exp(-0.5 * u * u)
+            if vols is None:
+                cont_h = _masked_lstsq_beta(_poly_basis(u, degree), continuation, w_h)[0]
+            else:
+                beta_h = _masked_lstsq_beta(_joint_basis(u, vols[t], degree), continuation, w_h)
+                cont_h = _joint_basis(torch.zeros_like(u), vols[t], degree) @ beta_h
+            # the live option exercises at exercise dates only
+            exercised_h = torch.maximum(intrinsic_h, cont_h)
+            ys.append(exercised_h if exercise_mask is None
+                      else torch.where(exercise_mask[t], exercised_h, cont_h))
+    if barrier:
+        return tau, value, fsurv, rleg
+    if barrier_eval is not None:
+        return tau, value, (torch.stack(ys) if ys else torch.zeros((0,), dtype=torch.float64,
+                                                                  device=dev))
     if collect_betas:
         return tau, value, torch.stack(betas)
     return tau, value
@@ -145,11 +247,23 @@ def _lsm_setup(prob: PricingProblem, method: LSM):
             "LSM prices American/Bermudan options (lsm.jl solve signature :99-102; "
             "Bermudan is a beyond-reference extension)."
         )
-    if not isinstance(payoff, VanillaOption):
+    if isinstance(payoff, AsianOption):
         raise TypeError(
-            f"the port's LSM prices vanilla options; {type(payoff).__name__} needs the "
-            "barrier and knock-in LSM estimators, which are not ported yet"
+            "LSM's stopping state carries no running-average state; American "
+            "Asian pricing is unsupported"
         )
+    if isinstance(payoff, LookbackOption):
+        raise TypeError(
+            "LSM's stopping state carries no running-extremum state; "
+            "American lookback pricing is unsupported"
+        )
+    if isinstance(payoff, DoubleBarrierOption):
+        raise TypeError(
+            "barrier LSM carries the single-barrier survival state only; "
+            "American double-barrier pricing is unsupported"
+        )
+    if not isinstance(payoff, (VanillaOption, BarrierOption)):
+        raise TypeError(f"the port's LSM has no induction for {type(payoff).__name__}")
     device = resolve_device(method.mc_method.device)
     market = prob.market_inputs
     T = market_yearfrac(market, payoff.expiry)
@@ -213,9 +327,152 @@ def _fit_grid(prob: PricingProblem, method: LSM, mc_method=None):
 @register_solver(LSM)
 def _solve_lsm(prob: PricingProblem, method: LSM) -> LSMSolution:
     log_disc, strike_scale = _lsm_setup(prob, method)
+    if isinstance(prob.payoff, BarrierOption):
+        if isinstance(prob.payoff.knock, KnockIn):
+            return _solve_lsm_knock_in(prob, method, log_disc, strike_scale)
+        return _solve_lsm_knock_out(prob, method, log_disc, strike_scale)
     spots, vols, terminal = _fit_grid(prob, method)
     tau, value = lsm_backward_induction(
         spots, device_payoff(prob.payoff, spots.device), log_disc, method.degree, strike_scale, vols=vols,
         terminal_value=terminal, exercise_mask=_exercise_mask(prob, method))
     price = torch.mean(torch.exp(tau * log_disc) * value)
     return LSMSolution(prob, method, price, (tau, value), spots)
+
+
+def _barrier_grid(prob: PricingProblem, method: LSM):
+    """The guards of the barrier estimators, then the bridge grid flattened
+    to (steps + 1, paths): ``(payoff on the device, spots, survival
+    factors, segment midpoints, vols or None, spot grid, segment
+    variances)``."""
+    from .bridge_mc import barrier_grid_factors
+
+    payoff = prob.payoff
+    if not isinstance(payoff.underlying, Spot):
+        raise TypeError("barrier LSM monitors the spot; use Spot underlying")
+    if torch.as_tensor(payoff.strike).ndim > 0 or torch.as_tensor(payoff.barrier).ndim > 0:
+        raise TypeError(
+            "barrier LSM prices one (strike, barrier) pair per solve; loop "
+            "over contracts for grids"
+        )
+    spot_grid, factors, t_mids, v_grid, seg_vars = barrier_grid_factors(prob, method.mc_method)
+    nsteps = factors.shape[0]
+    spots = spot_grid.reshape(nsteps + 1, -1)  # (steps + 1, g·paths)
+    surv = factors.reshape(nsteps, -1)
+    vols = _flatten_grid(v_grid) if v_grid is not None else None
+    return (device_payoff(payoff, spots.device), spots, surv, t_mids, vols, spot_grid,
+            seg_vars)
+
+
+def _first_hit(surv):
+    """(past survival (steps + 1, paths), P(first hit in segment k) (steps,
+    paths)) from the per-segment no-cross factors."""
+    past = torch.cat([torch.ones_like(surv[:1]), torch.cumprod(surv, dim=0)])
+    return past, past[:-1] * (1.0 - surv)
+
+
+def _solve_lsm_knock_in(prob: PricingProblem, method: LSM, log_disc,
+                        strike_scale) -> LSMSolution:
+    """American/Bermudan knock-in LSM, the hit-time estimator on a simulated
+    grid (under Heston the live option's value at the hit depends on
+    (τ, V_τ), which a lattice cannot carry).  By the strong Markov property
+
+        KI = E[Σ_k 1{first hit ∈ seg k}·D(t_k)·V_live(t_k, H, V_k)] + R·D(T)·P(never hit),
+
+    the first-hit-segment law per path from the bridge factors and
+    V_live(t, H, v) the vanilla induction's continuation fitted at the
+    barrier (``barrier_eval``).  On Heston grids the never-hit survival of
+    the rebate leg takes the Richardson pair with the every-second-node
+    pass of the same grid.  Already beyond the barrier at inception, the
+    contract is the live option: the same induction's vanilla price."""
+    from .bridge_mc import (
+        _RICH_W,
+        _coarse_bridge_inputs,
+        _richardson_applies,
+        brownian_bridge_survival_factors,
+    )
+
+    market = prob.market_inputs
+    payoff, spots, surv, t_mids, vols, spot_grid, seg_vars = _barrier_grid(prob, method)
+    dev = spots.device
+    barrier = f64(payoff.barrier, device=dev)
+    up = isinstance(payoff.direction, Up)
+    mc_cfg = method.mc_method.config
+    surv_T_coarse = None
+    if _richardson_applies(method.mc_method.dynamics, mc_cfg.steps):
+        _, T, _ = sim_params(prob)
+        lg2, sv2, _ = _coarse_bridge_inputs(torch.log(spot_grid), seg_vars, T, mc_cfg.steps)
+        f2 = brownian_bridge_survival_factors(lg2, sv2, torch.log(barrier), up)
+        surv_T_coarse = torch.prod(f2, dim=0).reshape(-1)
+
+    intrinsic_h = payoff(barrier)
+    tau, value, ys_rev = lsm_backward_induction(
+        spots, payoff, log_disc, method.degree, strike_scale, vols=vols,
+        exercise_mask=_exercise_mask(prob, method),
+        barrier_eval=(barrier / strike_scale, intrinsic_h))
+    # V_live(t_k, H[, V_k]) for k = 0..steps: t = 0 reuses t = 1's fit (the
+    # induction excludes t = 0), the terminal hit is the intrinsic at H
+    ys = torch.flip(ys_rev, dims=(0,))  # t = 1..steps − 1
+    y_full = torch.cat([ys[:1], ys, torch.full_like(ys[:1], 0.0) + intrinsic_h], dim=0)
+    v_mid = 0.5 * (y_full[:-1] + y_full[1:])  # the segment midpoints' value
+    if v_mid.ndim == 1:
+        v_mid = v_mid[:, None]  # against the path axis
+
+    past, first_hit = _first_hit(surv)
+    d_mid = df_yf(market.rate, t_mids).to(dev)
+    knocked_leg = torch.mean(torch.sum(d_mid[:, None] * first_hit * v_mid, dim=0))
+    surv_T = past[-1]
+    if surv_T_coarse is not None:
+        surv_T = _RICH_W * surv_T - (_RICH_W - 1.0) * surv_T_coarse
+    D_T = df(market.rate, payoff.expiry).to(dev)
+    rebate_leg = f64(payoff.rebate, device=dev) * D_T * torch.mean(surv_T)
+    spot = f64(market.spot, device=dev)
+    knocked_root = (spot >= barrier) if up else (spot <= barrier)
+    vanilla_price = torch.mean(torch.exp(tau * log_disc) * value)
+    price = torch.where(knocked_root, vanilla_price, knocked_leg + rebate_leg)
+    return LSMSolution(prob, method, price, (tau, value), spots)
+
+
+def _solve_lsm_knock_out(prob: PricingProblem, method: LSM, log_disc,
+                         strike_scale) -> LSMSolution:
+    """American/Bermudan knock-out LSM: the stopping induction over the
+    bridge grid with the per-segment no-cross factors in the stopping state
+    (``lsm_backward_induction``'s ``surv_factors``).  A path contributes
+    A_τ·disc^τ·intrinsic(S_τ), A_τ = Π_{s<τ} q_s = q_0·fsurv the survival to
+    exercise, plus the rebate, paid only when the barrier is hit before
+    exercise: at the hit (Σ_{k<τ} P(first hit in k)·D(t_mid_k)·R) or at
+    expiry (R·D(T)·(1 − A_τ)); an American holder at the hit takes the
+    better of the intrinsic at H and the rebate."""
+    market = prob.market_inputs
+    payoff, spots, surv, t_mids, vols, _, _ = _barrier_grid(prob, method)
+    dev = spots.device
+    ex_mask = _exercise_mask(prob, method)
+    # exercise at first passage: continuous (American) exercise only
+    hit_ex = (payoff(f64(payoff.barrier, device=dev))
+              if ex_mask is None and isinstance(payoff.exercise_style, American) else None)
+    rebate = f64(payoff.rebate, device=dev)
+    tau, value, fsurv, _ = lsm_backward_induction(
+        spots, payoff, log_disc, method.degree, strike_scale, vols=vols, surv_factors=surv,
+        rebate_spec=(rebate, payoff.rebate_at_hit), exercise_mask=ex_mask,
+        hit_exercise_value=hit_ex)
+    a_tau = surv[0] * fsurv  # Π_{s<τ} q_s: the t = 0 segment's factor is ours
+    price = torch.mean(a_tau * torch.exp(tau * log_disc) * value)
+    nsteps = surv.shape[0]
+    D_T = df(market.rate, payoff.expiry).to(dev)
+    k = torch.arange(nsteps, dtype=torch.float64, device=dev)
+    before_tau = (k[:, None] < tau[None, :]).to(torch.float64)
+    _, first_hit = _first_hit(surv)
+    d_mid = df_yf(market.rate, t_mids).to(dev)
+    if payoff.rebate_at_hit:
+        # without a first-passage right (Bermudan) the hit pays the rebate as
+        # it stands: a max against a phantom 0 intrinsic would clamp a
+        # negative rebate
+        hit_pay = d_mid * (rebate if hit_ex is None else torch.maximum(hit_ex, rebate))
+        leg = torch.mean(torch.sum(hit_pay[:, None] * first_hit * before_tau, dim=0))
+    elif hit_ex is not None:
+        # at the hit the holder exercises intrinsic(H) now or holds for the
+        # rebate at expiry
+        hit_pay = torch.maximum(hit_ex * d_mid, rebate * D_T)
+        leg = torch.mean(torch.sum(hit_pay[:, None] * first_hit * before_tau, dim=0))
+    else:
+        leg = rebate * D_T * torch.mean(1.0 - a_tau)
+    return LSMSolution(prob, method, price + leg, (tau, value), spots)

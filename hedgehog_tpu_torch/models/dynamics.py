@@ -53,13 +53,20 @@ def _c128(u) -> torch.Tensor:
 def lognormal_terminal_law(market, expiry_ticks):
     """(mean, std) of log S_T under risk-neutral GBM at ``expiry_ticks``
     (montecarlo.jl:293-303, with the drift scaled by T — see the JAX
-    module's note on the reference's √T slip)."""
+    module's note on the reference's √T slip), started from the escrowed
+    spot when the market carries a dividend schedule."""
     r = zero_rate(market.rate, expiry_ticks)
     dev = r.device
     sigma = f64(market.sigma.sigma, device=dev)
     T = f64(market_yearfrac(market, expiry_ticks), device=dev)
-    mean = (torch.log(f64(market.spot, device=dev))
-            + (r - f64(carry_yield(market), device=dev) - 0.5 * sigma**2) * T)
+    # discrete cash dividends enter as the escrowed spot S0 − PV(divs ≤ T)
+    # (market/dividends.py), so exp(mean + std²/2)·df(T) == forward_spot(T)
+    spot = f64(market.spot, device=dev)
+    if getattr(market, "dividends", None) is not None:
+        from ..market.dividends import escrowed_spot
+
+        spot = escrowed_spot(market, T, device=dev)
+    mean = torch.log(spot) + (r - f64(carry_yield(market), device=dev) - 0.5 * sigma**2) * T
     return mean, sigma * torch.sqrt(T)
 
 

@@ -155,10 +155,12 @@ def test_crr_guards():
     put = ht.VanillaOption(100.0, EXPIRY_1Y, ht.American(), ht.Put(), ht.Spot())
     with pytest.raises(TypeError, match="Black-Scholes"):
         ht.solve(ht.PricingProblem(put, heston), _crr(10))
+    # a barrier carries across and prices on the barrier lattices, which
+    # monitor the spot only
     barrier = ht.from_reference(hh.PricingProblem(
-        hh.BarrierOption(100.0, EXPIRY_1Y, 80.0, hh.American()),
+        hh.BarrierOption(100.0, EXPIRY_1Y, 80.0, hh.American(), underlying=hh.Forward()),
         hh.BlackScholesInputs(REF, 0.03, 100.0, 0.2)))
-    with pytest.raises(TypeError, match="knock-in lattices"):
+    with pytest.raises(TypeError, match="monitors the spot"):
         ht.solve(barrier, _crr(10))
 
 

@@ -1523,3 +1523,84 @@ def test_calibrate_svi_slices_on_the_card_matches_the_cpu(gpu):
     price = ht.solve(ht.PricingProblem(opt, mkt), ht.BlackScholesAnalytic(device=gpu)).price
     (g,) = torch.autograd.grad(price, p)
     assert g.device.type == "cuda" and bool(torch.isfinite(g).all()) and float(g[2].abs().max()) == 0
+
+
+DIV_REF, DIV_EXPIRY = dt.date(2024, 1, 1), dt.date(2025, 1, 1)
+
+
+def _dividend_market():
+    divs = ht.DividendSchedule([dt.date(2024, 4, 1), dt.date(2024, 10, 1)], [2.0, 2.0])
+    return ht.BlackScholesInputs(DIV_REF, 0.03, 100.0, 0.2, dividends=divs)
+
+
+def test_k13_draws_the_escrowed_law_on_a_dividend_market(gpu):
+    """``BlackScholesExact(use_kernel=True)`` on a dividend market launches
+    K13 once with the escrowed (mean, std), and its draws match the twin's
+    on the CPU from the same (mean, std)."""
+    from hedgehog_tpu_torch.models.dynamics import lognormal_terminal_law
+    from hedgehog_tpu_torch.ops import gbm_kernel as gk
+
+    prob = ht.PricingProblem(ht.VanillaOption(100.0, DIV_EXPIRY), _dividend_market())
+    cfg = ht.SimulationConfig(PAIRS, 1, ht.Antithetic(), 9)
+    before = gk.GBM_KERNEL.launches
+    card = ht.simulate_terminal_prices(prob, ht.MonteCarlo(
+        ht.LognormalDynamics(), ht.BlackScholesExact(use_kernel=True), cfg, device=gpu))
+    torch.cuda.synchronize()
+    assert gk.GBM_KERNEL.launches == before + 1
+    mean, std = lognormal_terminal_law(prob.market_inputs, prob.payoff.expiry)
+    twin = gk.gbm_exact_terminal(float(mean), float(std), n_paths=PAIRS, seed=9, antithetic=True,
+                                 device="cpu")
+    _assert_values_close(card.float(), twin.to(gpu))
+
+
+def test_barrier_lattices_on_the_card_match_the_cpu(gpu):
+    """The knock-out, the American knock-in quadrature, the European
+    knock-in parity and the dividend lattice, card against CPU to 1e-12."""
+    market = ht.BlackScholesInputs(DIV_REF, 0.05, 100.0, 0.25)
+    cases = [(ht.BarrierOption(110.0, DIV_EXPIRY, 80.0, ht.American(), ht.Put()), market),
+             (ht.BarrierOption(110.0, DIV_EXPIRY, 85.0, ht.American(), ht.Put(),
+                               knock=ht.KnockIn(), rebate=2.0), market),
+             (ht.BarrierOption(100.0, DIV_EXPIRY, 120.0, direction=ht.Up(), knock=ht.KnockIn()),
+              market),
+             (ht.VanillaOption(100.0, DIV_EXPIRY, ht.American()), _dividend_market())]
+    for payoff, mkt in cases:
+        prob = ht.PricingProblem(payoff, mkt)
+        card = ht.solve(prob, ht.CoxRossRubinsteinMethod(300, device=gpu)).price
+        cpu = ht.solve(prob, ht.CoxRossRubinsteinMethod(300, device="cpu")).price
+        assert card.device.type == "cuda"
+        assert float(card) == pytest.approx(float(cpu), rel=1e-12)
+
+
+def test_pde_on_the_card_matches_the_cpu(gpu):
+    """The American put, an American knock-out and a dividend call on the
+    PDE, card against CPU to 1e-10."""
+    market = ht.BlackScholesInputs(DIV_REF, 0.05, 100.0, 0.2)
+    cases = [(ht.VanillaOption(110.0, DIV_EXPIRY, ht.American(), ht.Put()), market),
+             (ht.BarrierOption(100.0, DIV_EXPIRY, 80.0, ht.American(), ht.Put()), market),
+             (ht.VanillaOption(100.0, DIV_EXPIRY, ht.American()), _dividend_market())]
+    for payoff, mkt in cases:
+        prob = ht.PricingProblem(payoff, mkt)
+        card = ht.solve(prob, ht.PDEMethod(space_steps=200, time_steps=100, device=gpu))
+        cpu = ht.solve(prob, ht.PDEMethod(space_steps=200, time_steps=100, device="cpu"))
+        assert card.price.device.type == "cuda"
+        assert float(card.price) == pytest.approx(float(cpu.price), rel=1e-10)
+        assert torch.allclose(card.grid_values.cpu(), cpu.grid_values, rtol=1e-10, atol=1e-10)
+
+
+def test_barrier_lsm_on_the_card_matches_the_cpu(gpu):
+    """A GBM knock-out on a dividend market and a Heston knock-in on QMC
+    grids: the stopping steps equal and the price within 1e-10."""
+    heston = ht.HestonInputs(DIV_REF, 0.05, 100.0, 0.0625, 2.0, 0.0625, 0.4, -0.6)
+    cfg = ht.SimulationConfig(1024, 16, ht.Antithetic(), 0, True)
+    cases = [(ht.BarrierOption(110.0, DIV_EXPIRY, 80.0, ht.American(), ht.Put()),
+              _dividend_market(), ht.LognormalDynamics(), ht.EulerMaruyama(), 4),
+             (ht.BarrierOption(110.0, DIV_EXPIRY, 85.0, ht.American(), ht.Put(),
+                               knock=ht.KnockIn(), rebate=2.0),
+              heston, ht.HestonDynamics(), ht.HestonQE(conditional=True), 3)]
+    for payoff, mkt, dyn, strat, degree in cases:
+        prob = ht.PricingProblem(payoff, mkt)
+        sols = [ht.solve(prob, ht.LSM(ht.MonteCarlo(dyn, strat, cfg, device=d), degree))
+                for d in (gpu, "cpu")]
+        assert sols[0].price.device.type == "cuda"
+        assert torch.equal(sols[0].stopping_info[0].cpu(), sols[1].stopping_info[0])
+        assert float(sols[0].price) == pytest.approx(float(sols[1].price), rel=1e-10)
