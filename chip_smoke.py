@@ -120,6 +120,17 @@ CPU), and the 1-D PDE against Black-Scholes, CRR, Reiner-Rubinstein, the
 dividend Euler grid and the dividend LSM (card against CPU, 1e-10), each
 solve's wall, idle share and peak memory printed.
 
+Then "jumps and adi" (``--only "jumps and adi"``; no kernel, no build)
+closes the run: the Heston 2-D ADI at 400 x 64 x 200 (the European call and
+put against Carr-Madan, the American put against conditional LSM, knock-in
++ knock-out = vanilla), the bridge estimators' Heston down-and-out call
+(Richardson alpha = 0.75) within 25 bp of the ADI on three markets and the
+exact grid within 1%, Carr-Madan's Gauss-Legendre rule, FFT smile and error
+estimate, and at 2^20 antithetic pairs the Merton, Kou and variance-gamma
+exact samplers and grids and the Bates mixing estimator within 4 SE of
+their closed forms, an American put by LSM on the Merton grid; card against
+CPU for the deterministic prices and the first 4096 pairs (1e-10).
+
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
 rough-Bergomi path; a kernel of a path with no launch in its window fails
@@ -5210,18 +5221,297 @@ def phase_barriers_dividends(smi: str, device: str) -> dict:
     return out
 
 
+JA_REF, JA_EXPIRY = dt.date(2025, 1, 1), dt.date(2026, 1, 1)
+#: tests/unit/test_pde_heston.py's market (r = 0.03, S = 100)
+JA_HESTON = dict(V0=0.04, kappa=2.0, theta=0.05, sigma=0.4, rho=-0.7)
+JA_PDE = (400, 64, 200)  # spot x variance x time steps: the JAX package's PDEMethod defaults
+JA_PDE_CPU = (64, 16, 32)  # the grid of the ADI's card-against-CPU checks
+#: (sigma_v, kappa) of tests/agreement/test_heston_barrier_pde.py's down-and-out call
+#: (K = 100, H = 85, bench.py's market otherwise); the last is phase exotics' market
+JA_BARRIER_CASES = ((0.3, 2.0), (0.6, 2.0), (0.9, 1.0))
+JA_BRIDGE_BP = 25.0  # test_heston_barrier_pde.py's bound on bridge MC against the ADI
+JA_PAIRS = 2**20  # antithetic pairs of every Monte Carlo check of this phase
+JA_CPU_PAIRS = 4096  # the first pairs, priced again on the CPU
+JA_LSM = (2**16, 50, 4)  # pairs, steps, degree of the LSM checks
+JA_SEED = 7
+JA_RTOL = 1e-10  # card against CPU: deterministic prices and per-path values
+JA_QE_BP = 5.0  # the Bates mixing estimator's QE-12 scheme allowance (test_bates.py: +1.9 bp)
+#: the markets of tests/unit/test_merton.py, test_kou.py, test_variance_gamma.py, test_bates.py
+JA_JUMPS = {
+    "merton": ("MertonInputs", "MertonJumpDynamics", (0.03, 100.0, 0.2, 0.5, -0.1, 0.15)),
+    "kou": ("KouInputs", "KouJumpDynamics", (0.05, 100.0, 0.16, 1.0, 0.4, 10.0, 5.0)),
+    "vg": ("VarianceGammaInputs", "VarianceGammaDynamics", (0.05, 100.0, 0.18, 0.25, -0.14)),
+    "bates": ("BatesInputs", "BatesDynamics",
+              (0.05, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7, 0.5, -0.1, 0.15)),
+}
+
+
+def phase_jumps_adi(smi: str, device: str) -> dict:
+    """The Heston 2-D ADI, the rest of Carr-Madan and the jump and
+    variance-gamma families on the card (no kernel: every solve is plain
+    PyTorch).  (a) The ADI at the JAX defaults (400 x 64 x 200) on
+    test_pde_heston.py's market: the European call and put against
+    Carr-Madan (abs 3e-3), the American put against conditional LSM (2^16
+    pairs x 50 steps, rel 2e-2), knock-in + knock-out = vanilla (1e-9);
+    (b) the down-and-out call of test_heston_barrier_pde.py on its three
+    markets: bridge Monte Carlo on the QE conditional grid (Richardson
+    alpha = 0.75, 2^20 PRNG pairs x 64 steps) within 25 bp of the ADI, and on
+    the Feller-violating one phase exotics' exact grid (64 steps, QMC) within
+    1%; (c) Carr-Madan: the Gauss-Legendre rule (bound 100, 2048 nodes)
+    against the panel rule (1e-9), the FFT smile against the panel engine
+    per strike (1e-8) and ``carr_madan_error_estimate`` (< 1e-8); (d) at
+    2^20 antithetic PRNG pairs, Merton's exact sampler against
+    ``MertonAnalytic``, Kou's and variance gamma's exact samplers and grids
+    (variance gamma at a boosted per-step shape) and Merton's grid against
+    Carr-Madan, within 4 SE, the Bates mixing estimator within 4 SE + 5 bp,
+    and an American put by LSM on the Merton grid above its European price
+    (its jump-free corner within 2% of CRR(2000)).  Card against CPU
+    (1e-10): the ADI's five routes at 64 x 16 x 32 (a full-size solve takes
+    the host ~18 s), Carr-Madan, the FFT smile at K >= 1, the series and the
+    first 4096 pairs of each sampler.  Prints the profiled solves' wall,
+    idle share and peak memory."""
+    import dataclasses
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.methods import carr_madan as pcm
+
+    say(f"phase 3 (jumps and adi): the Heston ADI, Carr-Madan and the jump families on "
+        f"{device}; {smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    E, P, A = JA_EXPIRY, ht.Put(), ht.American()
+    hm = ht.HestonInputs(JA_REF, R, SPOT, *JA_HESTON.values())
+    ns, nv, nt = JA_PDE
+    adi = ht.PDEMethod(ht.HestonDynamics(), ns, nt, var_steps=nv, device=device)
+
+    def price(prob, method) -> float:
+        p = ht.solve(prob, method).price
+        check(p.device.type == torch.device(method.device).type,
+              f"{type(method).__name__} priced on {p.device}")
+        check(bool(torch.isfinite(p).all()), f"{type(method).__name__}: price {p}")
+        return float(p)
+
+    def same(label, prob, method) -> float:
+        got = price(prob, method)
+        want = price(prob, dataclasses.replace(method, device="cpu"))
+        check(abs(got - want) <= JA_RTOL * abs(want), f"{label}: card {got!r}, CPU {want!r}")
+        return got
+
+    # (a) the ADI on test_pde_heston.py's market, on the card at the JAX defaults
+    cm_card = ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device=device)
+    call, put = ht.VanillaOption(100.0, E), ht.VanillaOption(100.0, E, call_put=P)
+    rec = {}
+    for label, payoff in (("European call", call), ("European put", put)):
+        prob = ht.PricingProblem(payoff, hm)
+        got, want = price(prob, adi), price(prob, cm_card)
+        say(f"  ADI {label} ({ns} x {nv} x {nt}): {got:.8f}, Carr-Madan {want:.8f}: "
+            f"{got - want:+.3e} (abs 3e-3)")
+        check(abs(got - want) <= 3e-3, f"ADI {label} {got} against Carr-Madan {want}")
+        rec[label] = {"adi": got, "carr_madan": want}
+    am_payoff = ht.VanillaOption(110.0, E, A, P)
+    am = ht.PricingProblem(am_payoff, hm)
+    p_am = price(am, adi)
+    p_eu = price(ht.PricingProblem(dataclasses.replace(am_payoff, exercise_style=ht.European()),
+                                   hm), cm_card)
+    lsm_pairs, lsm_steps, degree = JA_LSM
+    lsm = ht.LSM(ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True),
+                               ht.SimulationConfig(lsm_pairs, lsm_steps, ht.Antithetic(),
+                                                   JA_SEED), device=device), degree)
+    sol = ht.solve(am, lsm)
+    p_lsm, se = float(sol.price), lsm_price_se(sol)
+    say(f"  ADI American put (K = 110): {p_am:.8f} (European, Carr-Madan {p_eu:.8f}); "
+        f"conditional LSM {lsm_pairs} pairs x {lsm_steps} steps: {p_lsm:.8f} (SE {se:.2e}; "
+        f"{p_lsm / p_am - 1.0:+.3e}, rel 2e-2)")
+    check(p_am > p_eu and abs(p_lsm / p_am - 1.0) <= 2e-2,
+          f"ADI American put {p_am} (European {p_eu}) against LSM {p_lsm}")
+    rec["American put"] = {"adi": p_am, "european": p_eu, "lsm": p_lsm, "lsm_se": se}
+    up_in = ht.BarrierOption(100.0, E, 130.0, direction=ht.Up(), knock=ht.KnockIn())
+    up_out = dataclasses.replace(up_in, knock=ht.KnockOut())
+    p_ki, p_ko = (price(ht.PricingProblem(b, hm), adi) for b in (up_in, up_out))
+    parity = p_ki + p_ko - rec["European call"]["adi"]
+    say(f"  ADI up-in call {p_ki:.8f} (parity) + up-out call {p_ko:.8f} - call: {parity:+.3e} "
+        "(1e-9)")
+    check(abs(parity) <= 1e-9 and 0.0 < p_ko, f"knock-in + knock-out - vanilla {parity}")
+    rec["up-in call"] = {"ki": p_ki, "ko": p_ko, "parity": parity}
+    out["adi"] = rec
+    exotic_profile(f"ADI American put, {ns} x {nv} x {nt} ({smi})",
+                   lambda: ht.solve(am, adi), device, out)
+    lap("ADI")
+
+    # (b) bridge Monte Carlo against the ADI: Richardson's alpha = 0.75 under Heston
+    rec = {}
+    ko = ht.BarrierOption(100.0, EXPIRY, 85.0, direction=ht.Down(), knock=ht.KnockOut())
+    for sigma_v, kappa in JA_BARRIER_CASES:
+        bm = ht.HestonInputs(REF, R, SPOT, 0.04, kappa, 0.04, sigma_v, -0.7)
+        prob = ht.PricingProblem(ko, bm)
+        p_adi = price(prob, adi)
+        mc = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonQE(conditional=True),
+                           ht.SimulationConfig(JA_PAIRS, 64, ht.Antithetic(), JA_SEED),
+                           device=device)
+        sol = ht.solve(prob, mc)
+        pair = sol.ensemble.mean(dim=0)
+        se = float(ht.df(bm.rate, EXPIRY)) * float(pair.std()) / math.sqrt(pair.numel())
+        bp = 1e4 * (float(sol.price) / p_adi - 1.0)
+        say(f"  down-and-out call, sigma_v {sigma_v}, kappa {kappa}: ADI {p_adi:.8f}, bridge QE "
+            f"conditional 64 steps (Richardson) {float(sol.price):.8f} (SE {se:.2e}): "
+            f"{bp:+.2f} bp (bound {JA_BRIDGE_BP:g} bp)")
+        check(abs(bp) <= JA_BRIDGE_BP, f"bridge MC {float(sol.price)} against the ADI {p_adi}")
+        rec[f"sigma_v {sigma_v}"] = {"adi": p_adi, "bridge": float(sol.price), "se": se, "bp": bp}
+    exact = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(),
+                          ht.SimulationConfig(JA_PAIRS, EXO_EXACT_STEPS, ht.Antithetic(),
+                                              EXO_SEED, True), device=device)
+    p_ex = price(prob, exact)
+    say(f"  the same on phase exotics' exact grid ({EXO_EXACT_STEPS} steps, QMC): {p_ex:.8f}, "
+        f"{p_ex / p_adi - 1.0:+.3e} from the ADI (rel 1e-2)")
+    check(abs(p_ex / p_adi - 1.0) <= 1e-2, f"exact grid {p_ex} against the ADI {p_adi}")
+    rec["exact grid, sigma_v 0.9"] = {"adi": p_adi, "exact": p_ex}
+    out["bridge_vs_adi"] = rec
+    lap("bridge against ADI")
+
+    # (a') every ADI route, card against CPU, at a grid the host solves in a second
+    small = {d: dataclasses.replace(adi, space_steps=JA_PDE_CPU[0], var_steps=JA_PDE_CPU[1],
+                                    time_steps=JA_PDE_CPU[2], device=d) for d in (device, "cpu")}
+    worst = 0.0
+    for label, prob in (("call", ht.PricingProblem(call, hm)), ("put", ht.PricingProblem(put, hm)),
+                        ("American put", am), ("up-in call", ht.PricingProblem(up_in, hm)),
+                        ("down-and-out call", prob)):
+        got, want = price(prob, small[device]), price(prob, small["cpu"])
+        check(abs(got - want) <= JA_RTOL * abs(want), f"ADI {label}: card {got!r}, CPU {want!r}")
+        worst = max(worst, abs(got - want))
+    say(f"  ADI at {' x '.join(map(str, JA_PDE_CPU))}, card against CPU on the five routes: max "
+        f"abs diff {worst:.3e} (rel {JA_RTOL:g})")
+    out["adi_card_vs_cpu"] = worst
+    lap("ADI card against CPU")
+
+    # (c) Carr-Madan, the rest
+    strikes = torch.tensor([70.0, 85.0, 100.0, 115.0, 140.0], dtype=torch.float64)
+    grid = ht.PricingProblem(ht.VanillaOption(strikes, E), hm)
+    panel = ht.solve(grid, cm_card).price
+    gl = ht.CarrMadan(1.0, 100.0, ht.HestonDynamics(), nodes=2048, quadrature="gl",
+                      device=device)
+    gl_prices = ht.solve(grid, gl).price
+    compare_vectors("Carr-Madan Gauss-Legendre (bound 100, 2048 nodes) against the panel rule",
+                    gl_prices, panel, 1e-9)
+    compare_vectors("Carr-Madan Gauss-Legendre, card against CPU", gl_prices,
+                    ht.solve(grid, dataclasses.replace(gl, device="cpu")).price, JA_RTOL)
+    ks, calls = pcm.carr_madan_fft_smile(grid, ht.HestonDynamics(), device=device)
+    check(calls.device.type == torch.device(device).type, f"the FFT smile on {calls.device}")
+    ks_cpu, calls_cpu = pcm.carr_madan_fft_smile(grid, ht.HestonDynamics(), device="cpu")
+    live = ks_cpu >= 1.0
+    fft_diff = float(torch.max(torch.abs(calls.cpu()[live] - calls_cpu[live])))
+    say(f"  FFT smile ({calls.numel()} strikes), card against CPU at K >= 1: max abs diff "
+        f"{fft_diff:.3e} (1e-10)")
+    check(fft_diff <= 1e-10, f"the FFT smile, card against CPU: {fft_diff}")
+    idx = torch.nonzero((ks.cpu() > 60.0) & (ks.cpu() < 170.0)).flatten()[::37]
+    per_strike = ht.solve(ht.PricingProblem(ht.VanillaOption(ks[idx], E), hm), cm_card).price
+    worst = float(torch.max(torch.abs(calls[idx] - per_strike)))
+    say(f"  FFT smile against the panel engine at {idx.numel()} strikes in (60, 170): max abs "
+        f"diff {worst:.3e} (1e-8)")
+    check(worst <= 1e-8, f"the FFT smile against the panel engine: {worst}")
+    est = ht.carr_madan_error_estimate(grid, cm_card)
+    say(f"  carr_madan_error_estimate (auto bound): refinement {est['refinement']:.3e}, tail "
+        f"{est['tail']:.3e} (total < 1e-8)")
+    check(est["total"] < 1e-8, f"the error estimate {est}")
+    out["carr_madan"] = {"fft_vs_panel": worst, "fft_card_vs_cpu": fft_diff,
+                         "error_estimate": {k: est[k] for k in ("refinement", "tail", "total")}}
+    lap("Carr-Madan")
+
+    # (d) the jump families at JA_PAIRS antithetic PRNG pairs
+    markets = {name: getattr(ht, inputs)(REF, *args) for name, (inputs, _, args)
+               in JA_JUMPS.items()}
+    dyns = {name: getattr(ht, dyn)() for name, (_, dyn, _) in JA_JUMPS.items()}
+    call = ht.VanillaOption(100.0, EXPIRY)
+    oracle = {}
+    for name in JA_JUMPS:
+        prob = ht.PricingProblem(call, markets[name])
+        oracle[name] = same(f"Carr-Madan {name}", prob,
+                            ht.CarrMadan(1.0, "auto", dyns[name], device=device))
+    series = same("MertonAnalytic", ht.PricingProblem(call, markets["merton"]),
+                  ht.MertonAnalytic(device=device))
+    say(f"  oracles: Carr-Madan {', '.join(f'{k} {v:.8f}' for k, v in oracle.items())}; "
+        f"MertonAnalytic {series:.8f} ({series - oracle['merton']:+.2e} from Carr-Madan)")
+    check(abs(series - oracle["merton"]) <= 1e-6, f"the Merton series {series}")
+    oracle["merton"] = series
+    rec = {}
+    for label, name, strat, steps, allowance_bp in (
+            ("Merton exact", "merton", ht.MertonExact(), 1, 0.0),
+            ("Merton grid, 8 steps", "merton", ht.EulerMaruyama(), 8, 0.0),
+            ("Kou exact", "kou", ht.KouExact(), 1, 0.0),
+            ("Kou grid, 4 steps", "kou", ht.EulerMaruyama(), 4, 0.0),
+            ("VG exact", "vg", ht.VarianceGammaExact(), 1, 0.0),
+            ("VG grid, 8 steps (boosted shape 0.5)", "vg", ht.EulerMaruyama(), 8, 0.0),
+            ("Bates mixing, QE 12 steps", "bates", ht.HestonQE(conditional=True), 12,
+             JA_QE_BP)):
+        prob = ht.PricingProblem(call, markets[name])
+
+        def mc_of(n, dev, strat=strat, steps=steps, name=name):
+            return ht.MonteCarlo(dyns[name], strat,
+                                 ht.SimulationConfig(n, steps, ht.Antithetic(), JA_SEED),
+                                 device=dev)
+
+        values = ht.mc_path_values(prob, mc_of(JA_PAIRS, device))
+        check(values.device.type == torch.device(device).type, f"{label} on {values.device}")
+        check(bool(torch.isfinite(values).all()), f"{label}: non-finite path values")
+        D = float(ht.df(markets[name].rate, EXPIRY))
+        p_mc = D * float(values.mean())
+        se = D * float(values.std()) / math.sqrt(values.numel())
+        want = oracle[name]
+        bp = 1e4 * (p_mc / want - 1.0)
+        say(f"  {label}, {JA_PAIRS} PRNG pairs: {p_mc:.8f} against {want:.8f}: {bp:+.2f} bp "
+            f"({(p_mc - want) / se:+.2f} SE; 4 SE + {allowance_bp:g} bp)")
+        check(abs(p_mc - want) <= 4.0 * se + 1e-4 * allowance_bp * want,
+              f"{label} {p_mc} against {want}, SE {se}")
+        compare_vectors(f"{label}: the first {JA_CPU_PAIRS} pairs, card against CPU",
+                        values[:JA_CPU_PAIRS], ht.mc_path_values(prob, mc_of(JA_CPU_PAIRS, "cpu")),
+                        JA_RTOL)
+        rec[label] = {"price": p_mc, "oracle": want, "se": se, "bp": bp}
+        exotic_profile(f"{label} solve, {JA_PAIRS} pairs ({smi})",
+                       lambda prob=prob, mc_of=mc_of: ht.solve(prob, mc_of(JA_PAIRS, device)),
+                       device, out)
+    # an American put by LSM on the Merton grid
+    am_put = ht.VanillaOption(105.0, EXPIRY, A, P)
+    merton_lsm = ht.LSM(ht.MonteCarlo(dyns["merton"], ht.EulerMaruyama(),
+                                      ht.SimulationConfig(lsm_pairs, lsm_steps, ht.Antithetic(),
+                                                          JA_SEED), device=device), degree)
+    sol = ht.solve(ht.PricingProblem(am_put, markets["merton"]), merton_lsm)
+    p_am, se = float(sol.price), lsm_price_se(sol)
+    p_eu = price(ht.PricingProblem(dataclasses.replace(am_put, exercise_style=ht.European()),
+                                   markets["merton"]), ht.MertonAnalytic(device=device))
+    no_jumps = float(ht.solve(ht.PricingProblem(am_put, dataclasses.replace(
+        markets["merton"], jump_intensity=0.0)), merton_lsm).price)
+    crr = price(ht.PricingProblem(am_put, ht.BlackScholesInputs(REF, 0.03, 100.0, 0.2)),
+                ht.CoxRossRubinsteinMethod(BD_CRR_STEPS, device))
+    say(f"  LSM American put (K = 105) on the Merton grid, {lsm_pairs} pairs x {lsm_steps} steps: "
+        f"{p_am:.8f} (SE {se:.2e}) above the European {p_eu:.8f}; at lambda = 0 {no_jumps:.8f} "
+        f"against CRR({BD_CRR_STEPS}) {crr:.8f} ({no_jumps / crr - 1.0:+.3e}, rel 2e-2)")
+    check(p_am > p_eu and p_am > no_jumps and abs(no_jumps / crr - 1.0) <= 2e-2,
+          f"Merton LSM {p_am}, European {p_eu}, jump-free {no_jumps}, CRR {crr}")
+    rec["Merton LSM American put"] = {"lsm": p_am, "se": se, "european": p_eu,
+                                      "no_jumps": no_jumps, "crr": crr}
+    out["jumps"] = rec
+    exotic_profile(f"LSM American put, Merton grid {lsm_pairs} x {lsm_steps} ({smi})",
+                   lambda: ht.solve(ht.PricingProblem(am_put, markets["merton"]), merton_lsm),
+                   device, out)
+    lap("jump families")
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
 ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
                "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes,
-               "exotics": phase_exotics, "barriers and dividends": phase_barriers_dividends}
+               "exotics": phase_exotics, "barriers and dividends": phase_barriers_dividends,
+               "jumps and adi": phase_jumps_adi}
 #: the phases of ``ONLY_PHASES`` that launch a kernel (K13), so ``--only`` builds the library
 KERNEL_PHASES = {"barriers and dividends"}
 
 
 def only_main(names: str) -> int:
     """``--only "exact greeks,american,broadie kaya,quotes,exotics,barriers and
-    dividends"``: the named phases alone on the card (the kernels are built
-    only for a phase of ``KERNEL_PHASES``)."""
+    dividends,jumps and adi"``: the named phases alone on the card (the
+    kernels are built only for a phase of ``KERNEL_PHASES``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5486,6 +5776,8 @@ def main() -> int:
     exotics = phase_exotics(smi, "cuda")
     # barrier early exercise, discrete dividends and the PDE (K13 in its own window)
     barriers_dividends = phase_barriers_dividends(smi, "cuda")
+    # the Heston ADI, Carr-Madan's rest and the jump families (no kernel)
+    jumps_adi = phase_jumps_adi(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -5496,6 +5788,7 @@ def main() -> int:
                     "calibration_path": calibration_path, "exact_greeks": exact_greeks,
                     "american": american, "broadie_kaya": broadie_kaya, "quotes": quotes,
                     "exotics": exotics, "barriers_and_dividends": barriers_dividends,
+                    "jumps_and_adi": jumps_adi,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

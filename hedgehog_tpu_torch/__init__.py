@@ -45,7 +45,13 @@ Market quotes resolve through ``VolQuote`` and ``resolve_quotes_batch``
 (bid/mid/ask prices and implied vols under their policies), smiles fit to
 raw-SVI slices (``calibrate_svi_slices``, ``SVIVolSurface``), and
 ``HestonBroadieKaya`` samples Heston terminals exactly (complex128 on the
-card).
+card).  ``PDEMethod(HestonDynamics())`` is the Heston 2-D Craig–Sneyd ADI
+solver.  The jump and variance-gamma families (``MertonJumpDynamics``,
+``KouJumpDynamics``, ``VarianceGammaDynamics``, ``BatesDynamics`` on their
+inputs) price through Carr–Madan (panel or Gauss–Legendre quadrature, the
+FFT smile, ``carr_madan_error_estimate``), ``MertonAnalytic``, the exact
+samplers ``MertonExact``, ``KouExact`` and ``VarianceGammaExact``, their
+Euler grids (LSM, Asians) and the Bates mixing estimator.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
 """
@@ -118,7 +124,18 @@ from .core.problems import (
 )
 from .core.solve import AbstractPricingMethod, register_solver, solve
 from .market.dividends import DividendSchedule, dividend_pv, escrowed_spot
-from .market.inputs import BlackScholesInputs, HestonInputs, RoughBergomiInputs, forward_spot
+from .market.inputs import (
+    BatesInputs,
+    BlackScholesInputs,
+    HestonInputs,
+    KouInputs,
+    MertonInputs,
+    RoughBergomiInputs,
+    VarianceGammaInputs,
+    carry_yield,
+    forward_spot,
+    market_yearfrac,
+)
 from .market.rate_curve import (
     FlatRateCurve,
     RateCurve,
@@ -193,10 +210,11 @@ from .calibration.calibration import (
     RootFinderAlgo,
 )
 from .methods.black_scholes import BlackScholesAnalytic
-from .methods.carr_madan import CarrMadan
+from .methods.carr_madan import CarrMadan, carr_madan_error_estimate
 from .methods.crr import CoxRossRubinsteinMethod
 from .methods.duality import DualBound, lsm_dual_bound
 from .methods.lsm import LSM
+from .methods.merton import MertonAnalytic
 from .methods.pde import PDEMethod
 from .methods.montecarlo import (
     Antithetic,
@@ -205,10 +223,13 @@ from .methods.montecarlo import (
     HestonBroadieKaya,
     HestonExactMixing,
     HestonQE,
+    KouExact,
+    MertonExact,
     MonteCarlo,
     NoVarianceReduction,
     RoughBergomiMixing,
     SimulationConfig,
+    VarianceGammaExact,
     heston_variance_swap_strike,
     mc_path_values,
     reduce_payoffs,
@@ -223,7 +244,17 @@ from .methods.mixing_greeks import (
     heston_mixing_price_and_greeks,
 )
 from .methods.rough_bergomi_surface import rbergomi_surface_mc
-from .models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
+from .models.dynamics import (
+    BatesDynamics,
+    HestonDynamics,
+    KouJumpDynamics,
+    LognormalDynamics,
+    MertonJumpDynamics,
+    RoughBergomiDynamics,
+    VarianceGammaDynamics,
+    heston_cf,
+    lognormal_cf,
+)
 from .models.rough_bergomi import ForwardVarianceCurve
 from .ops.rbergomi_kernel import GREEK_ORDER_RB
 from .interop import from_reference
@@ -243,6 +274,8 @@ __all__ = [
     "CRRSolution", "LSMSolution", "MonteCarloSolution", "PDESolution", "PricingProblem",
     "AbstractPricingMethod", "register_solver", "solve",
     "BlackScholesInputs", "HestonInputs", "RoughBergomiInputs", "forward_spot",
+    "MertonInputs", "KouInputs", "VarianceGammaInputs", "BatesInputs", "carry_yield",
+    "market_yearfrac",
     "DividendSchedule", "dividend_pv", "escrowed_spot",
     "FlatRateCurve", "RateCurve", "df", "df_yf", "forward_rate", "is_flat", "spine_tenors",
     "spine_zeros", "zero_rate", "zero_rate_yf",
@@ -261,10 +294,11 @@ __all__ = [
     "implied_vol", "implied_vol_bs", "iv_to_price_bs", "rect_vol_surface_from_prices",
     "CalibrationProblem", "CalibrationSolution", "OptimizerAlgo", "RootFinderAlgo",
     "BlackScholesAnalytic", "CarrMadan", "CoxRossRubinsteinMethod", "LSM", "PDEMethod",
+    "carr_madan_error_estimate", "MertonAnalytic",
     "DualBound",
     "lsm_dual_bound",
     "Antithetic", "BlackScholesExact", "EulerMaruyama", "HestonBroadieKaya", "HestonExactMixing",
-    "HestonQE",
+    "HestonQE", "MertonExact", "KouExact", "VarianceGammaExact",
     "MonteCarlo",
     "NoVarianceReduction", "RoughBergomiMixing", "SimulationConfig",
     "heston_variance_swap_strike", "mc_path_values",
@@ -272,6 +306,8 @@ __all__ = [
     "simulate_terminal_prices",
     "GREEK_ORDER", "heston_exact_price_and_greeks", "heston_mixing_price_and_greeks", "heston_surface_mc", "rbergomi_surface_mc",
     "HestonDynamics", "LognormalDynamics", "RoughBergomiDynamics", "ForwardVarianceCurve",
+    "MertonJumpDynamics", "KouJumpDynamics", "VarianceGammaDynamics", "BatesDynamics",
+    "heston_cf", "lognormal_cf",
     "GREEK_ORDER_RB",
     "from_reference",
 ]

@@ -24,12 +24,13 @@ def _port_classes() -> dict:
     from .core import dates, lenses, payoffs, problems
     from .greeks import greeks
     from .market import dividends, inputs, rate_curve, svi, vol_quotes, vol_surface
-    from .methods import black_scholes, carr_madan, crr, duality, lsm, montecarlo, pde
+    from .methods import black_scholes, carr_madan, crr, duality, lsm, merton, montecarlo, pde
     from .models import dynamics, rough_bergomi
 
     classes = {}
     for mod in (dates, payoffs, problems, lenses, inputs, dividends, rate_curve, vol_surface, svi,
-                vol_quotes, pde, black_scholes, carr_madan, crr, lsm, duality, montecarlo, dynamics,
+                vol_quotes, pde, black_scholes, carr_madan, crr, lsm, duality, merton, montecarlo,
+                dynamics,
                 rough_bergomi, greeks, calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:

@@ -1,10 +1,13 @@
-"""Market-input containers: Black-Scholes, Heston and rough Bergomi.
+"""Market-input containers: Black-Scholes, Heston, rough Bergomi and the
+jump and variance-gamma families (Merton, Kou, variance gamma, Bates).
 
 Port of ``hedgehog_tpu/market/inputs.py`` for the markets the port prices
 (reference src/market_inputs/market_inputs.jl:28-88).  Scalar rates and vols
 are wrapped into a flat curve / flat surface as the reference's convenience
 constructors do.  Black-Scholes markets also take an interpolated
-``RateCurve`` and a ``RectVolSurface`` or ``SVIVolSurface``; the Heston and
+``RateCurve`` and a ``RectVolSurface`` or ``SVIVolSurface``, and so do the
+Merton, Kou and variance-gamma markets (their CFs and samplers read the zero
+rate to expiry, as the JAX package's do); the Heston, Bates and
 rough-Bergomi markets keep a flat rate, the contract the mixing kernels and
 estimators drift and discount on (one short rate r: discount e^{−rT}).
 """
@@ -26,6 +29,10 @@ __all__ = [
     "BlackScholesInputs",
     "HestonInputs",
     "RoughBergomiInputs",
+    "MertonInputs",
+    "KouInputs",
+    "VarianceGammaInputs",
+    "BatesInputs",
     "carry_yield",
     "forward_spot",
     "market_yearfrac",
@@ -142,6 +149,132 @@ class RoughBergomiInputs:
     eta: Any
     hurst: Any
     rho: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount))
+
+
+def _host_value(x):
+    """A market field as a Python float for a construction-time guard, or
+    None for a tensor (never read back from the device; JAX skips traced
+    values the same way)."""
+    if isinstance(x, torch.Tensor):
+        return None
+    return float(x)
+
+
+@_frozen
+class MertonInputs:
+    """Merton (1976) lognormal jump-diffusion market data:
+    dS/S = (r − q − λκ̄)dt + σ dW + (e^J − 1)dN with J ~ N(jump_mean,
+    jump_std²), N a Poisson(jump_intensity) process and
+    κ̄ = e^{jump_mean + jump_std²/2} − 1 the martingale compensator.
+    ``sigma`` is the diffusion volatility (a number, not a vol surface)."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    sigma: Any
+    jump_intensity: Any
+    jump_mean: Any
+    jump_std: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+
+
+@_frozen
+class KouInputs:
+    """Kou (2002) double-exponential jump-diffusion market data:
+    dS/S = (r − q − λκ̄)dt + σ dW + (e^J − 1)dN with jump sizes upward
+    Exp(eta_up) with probability ``p_up``, downward −Exp(eta_down)
+    otherwise, N a Poisson(``jump_intensity``) process, and
+    κ̄ = p·η₁/(η₁−1) + (1−p)·η₂/(η₂+1) − 1.  ``eta_up`` must exceed 1
+    (E[e^J] finite), checked when it is a number."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    sigma: Any
+    jump_intensity: Any
+    p_up: Any
+    eta_up: Any
+    eta_down: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+        e1 = _host_value(self.eta_up)
+        if e1 is not None and e1 <= 1.0:
+            raise ValueError(f"eta_up must exceed 1 for E[e^J] to be finite (got {e1})")
+
+
+@_frozen
+class VarianceGammaInputs:
+    """Variance Gamma market data (Madan–Carr–Chang 1998):
+    log S_T = log S0 + (r − q + ω)T + θ·G_T + σ·W_{G_T}, the gamma
+    subordinator G_T ~ Gamma(T/ν, scale ν), ω = ln(1 − θν − σ²ν/2)/ν the
+    martingale correction; 1 − θν − σ²ν/2 > 0 is required (checked when
+    the three are numbers)."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    sigma: Any
+    nu: Any
+    theta: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+        theta, nu, sigma = (_host_value(x) for x in (self.theta, self.nu, self.sigma))
+        if None in (theta, nu, sigma):
+            return
+        margin = 1.0 - theta * nu - 0.5 * sigma**2 * nu
+        if margin <= 0.0:
+            raise ValueError(
+                f"VG needs 1 − θν − σ²ν/2 > 0 for a finite forward "
+                f"(got {margin:.6f}); reduce θ·ν or σ²·ν"
+            )
+
+
+@_frozen
+class BatesInputs:
+    """Bates (1996) market data: Heston stochastic variance plus Merton
+    lognormal jumps,
+
+        dS/S = (r − q − λκ̄)dt + √V dW₁ + (e^J − 1)dN
+        dV   = κ(θ − V)dt + σ√V dW₂,   corr(dW₁, dW₂) = ρ,
+
+    J ~ N(jump_mean, jump_std²), N ~ Poisson(jump_intensity·t) independent
+    of (W₁, W₂), κ̄ = e^{μ_J+σ_J²/2} − 1.  A flat rate, as on
+    :class:`HestonInputs`."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    V0: Any
+    kappa: Any
+    theta: Any
+    sigma: Any
+    rho: Any
+    jump_intensity: Any
+    jump_mean: Any
+    jump_std: Any
     dividend_yield: Any = 0.0
     daycount: Any = ACT365F
 

@@ -10,7 +10,9 @@ estimators live beside it: ``gbm_exact.py`` (exact lognormal draw),
 (the QE-M terminal sampler), ``heston_exact_mixing.py`` (exact-transition
 mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
 ``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close) and
-``distributions/broadie_kaya.py`` (exact Broadie-Kaya terminal sampling);
+``distributions/broadie_kaya.py`` (exact Broadie-Kaya terminal sampling)
+and ``jump_mc.py`` (the Merton, Kou, variance-gamma and Bates samplers and
+grids, and the Bates mixing estimator);
 ``use_kernel=True`` routes them through the CUDA kernels of
 ``hedgehog_tpu_torch.ops``.  ``simulate_price_grid`` and
 ``simulate_conditional_grid`` give the whole path grids the early-exercise
@@ -60,7 +62,15 @@ from ..core.problems import MonteCarloSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
 from ..market.inputs import carry_yield, market_yearfrac
 from ..market.rate_curve import df, zero_rate_yf
-from ..models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
+from ..models.dynamics import (
+    BatesDynamics,
+    HestonDynamics,
+    KouJumpDynamics,
+    LognormalDynamics,
+    MertonJumpDynamics,
+    RoughBergomiDynamics,
+    VarianceGammaDynamics,
+)
 from ..utils import f64, resolve_device
 
 __all__ = [
@@ -72,6 +82,9 @@ __all__ = [
     "HestonQE",
     "RoughBergomiMixing",
     "BlackScholesExact",
+    "MertonExact",
+    "KouExact",
+    "VarianceGammaExact",
     "NoVarianceReduction",
     "Antithetic",
     "simulate_terminal_prices",
@@ -192,6 +205,34 @@ class BlackScholesExact(SimulationStrategy):
 
 
 @_frozen
+class MertonExact(SimulationStrategy):
+    """Exact Merton terminal sampling (pair with MertonJumpDynamics and
+    MertonInputs): the Poisson jump count by fixed-trip CDF inversion from
+    one uniform, then the conditional normal close of log S_T given the
+    count; no discretization error.  The per-path payoffs carry the
+    frozen-count likelihood-ratio surrogate, so autograd through ``solve``
+    is unbiased in every market field, the intensity λ included
+    (methods/jump_mc.py)."""
+
+
+@_frozen
+class KouExact(SimulationStrategy):
+    """Exact Kou terminal sampling (pair with KouJumpDynamics and
+    KouInputs): the Poisson count by inversion, each double-exponential
+    jump size by its inverse CDF, the exact diffusion normal.  Pathwise
+    autograd misses the (λ, p_up) sensitivities: differentiate the
+    Carr–Madan route for those."""
+
+
+@_frozen
+class VarianceGammaExact(SimulationStrategy):
+    """Exact variance-gamma terminal sampling (pair with
+    VarianceGammaDynamics and VarianceGammaInputs): one gamma subordinator
+    draw G ~ Gamma(T/ν, ν) by the corrected-saddlepoint quantile (boosted
+    below shape 1) and one normal, log S += (r − q + ω)T + θG + σ√G·Z."""
+
+
+@_frozen
 class SimulationConfig:
     """MC run configuration (montecarlo.jl:58-79): ``trajectories`` paths
     (antithetic pairs under :class:`Antithetic`), ``steps`` time steps (or
@@ -258,6 +299,22 @@ def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=No
     """Per-path undiscounted conditional vanilla values (n_groups, paths),
     float64 on ``method.device``."""
     dyn, strat, config = method.dynamics, method.strategy, method.config
+    if isinstance(dyn, BatesDynamics):
+        if not (isinstance(strat, HestonQE) and strat.conditional):
+            raise TypeError(
+                "Bates conditional MC runs on HestonQE(conditional=True); "
+                f"got {type(strat).__name__}"
+            )
+        if strat.use_kernel:
+            raise TypeError(
+                "the fused mixing kernels are Heston-only; Bates conditional "
+                "MC is a float64 torch estimator (drop use_kernel=True)"
+            )
+        require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
+        from .jump_mc import bates_qe_mixing_values
+
+        return bates_qe_mixing_values(prob, config, key, device_id, point_offset,
+                                      device=resolve_device(method.device))
     if isinstance(dyn, RoughBergomiDynamics) or isinstance(strat, RoughBergomiMixing):
         return _rbergomi_conditional_values(prob, method, key, device_id, point_offset)
     if not (isinstance(strat, (HestonQE, HestonExactMixing)) and isinstance(dyn, HestonDynamics)):
@@ -333,6 +390,8 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
         )
     if isinstance(strat, HestonBroadieKaya):
         return _broadie_kaya_terminal(prob, method, key, device_id)
+    if isinstance(dyn, _JUMP_DYNAMICS):
+        return _jump_terminal(prob, method, key, device_id, point_offset)
     if isinstance(dyn, RoughBergomiDynamics) and isinstance(strat, EulerMaruyama):
         if config.qmc and strat.use_kernel:
             raise ValueError(
@@ -394,6 +453,48 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
     return heston_euler_paths(prob, config, point_offset=point_offset, **kw)
 
 
+_JUMP_DYNAMICS = (MertonJumpDynamics, KouJumpDynamics, VarianceGammaDynamics, BatesDynamics)
+
+
+def _jump_routes():
+    """(dynamics, exact strategy, its sampler, the Euler grid, the family's
+    name in the messages) of each jump family (jump_mc.py imports this
+    module, so it is imported here)."""
+    from . import jump_mc as j
+
+    return ((MertonJumpDynamics, MertonExact, j.merton_exact_terminal, j.merton_euler_paths,
+             "Merton"),
+            (KouJumpDynamics, KouExact, j.kou_exact_terminal, j.kou_euler_paths, "Kou"),
+            (VarianceGammaDynamics, VarianceGammaExact, j.vg_exact_terminal, j.vg_euler_paths,
+             "VG"),
+            (BatesDynamics, None, None, j.bates_euler_paths, "Bates"))
+
+
+def _jump_terminal(prob, method, key, device_id, point_offset):
+    """The jump and variance-gamma branch of :func:`simulate_terminal_prices`
+    (montecarlo.py:3357-3395), with the JAX package's guards."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    if config.qmc and getattr(strat, "use_kernel", False):
+        raise ValueError(
+            "qmc=True is not supported with the GBM/Euler kernel strategies or "
+            "HestonBroadieKaya; use the float64 samplers or HestonQE(use_kernel=True)"
+        )
+    kw = dict(key=key, device_id=device_id, point_offset=point_offset,
+              device=resolve_device(method.device))
+    for dyn_cls, exact_cls, exact, euler, name in _jump_routes():
+        if not isinstance(dyn, dyn_cls):
+            continue
+        if exact_cls is not None and isinstance(strat, exact_cls):
+            return exact(prob, config, **kw)
+        if isinstance(strat, EulerMaruyama):
+            if strat.use_kernel:
+                raise TypeError(f"{name} has no fused kernel; drop use_kernel=True")
+            return euler(prob, config, return_grid=False, **kw)
+    raise TypeError(
+        f"unsupported (dynamics, strategy) = ({type(dyn).__name__}, {type(strat).__name__})"
+    )
+
+
 def _broadie_kaya_terminal(prob, method, key, device_id):
     """The Broadie-Kaya branch of :func:`simulate_terminal_prices`, with the
     JAX package's guards (montecarlo.py:3309-3356)."""
@@ -447,6 +548,11 @@ def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
         from .rough_bergomi_mixing import rbergomi_euler_paths
 
         return rbergomi_euler_paths(prob, config, return_grid=True, device=device, **kw)
+    if isinstance(dyn, _JUMP_DYNAMICS) and isinstance(strat, EulerMaruyama):
+        # exact jump increments a step; the Brownian-bridge barrier
+        # corrections do not apply between jump grid dates
+        euler = next(r[3] for r in _jump_routes() if isinstance(dyn, r[0]))
+        return euler(prob, config, return_grid=True, device=device, **kw)
     raise TypeError(
         f"unsupported grid simulation ({type(dyn).__name__}, {type(strat).__name__})"
     )
@@ -524,9 +630,20 @@ def mc_path_values(prob: PricingProblem, method: MonteCarlo, key=None, device_id
             "mc_path_values covers single-asset terminal-sample payoffs; price "
             f"{type(prob.payoff).__name__} through solve(...)"
         )
+    if _merton_scored(method):
+        # the likelihood-ratio surrogate on every route keeps λ-gradients unbiased
+        from .jump_mc import merton_payoffs_with_score
+
+        return merton_payoffs_with_score(prob, method.config, prob.payoff, key, device_id,
+                                         point_offset, device=resolve_device(method.device))
     samples = simulate_terminal_prices(prob, method, key=key, device_id=device_id,
                                        point_offset=point_offset)
     return reduce_payoffs(samples, prob.payoff)
+
+
+def _merton_scored(method) -> bool:
+    return isinstance(method.strategy, MertonExact) and isinstance(method.dynamics,
+                                                                   MertonJumpDynamics)
 
 
 def reduce_payoffs(samples: torch.Tensor, payoff) -> torch.Tensor:
@@ -574,6 +691,13 @@ def _solve_montecarlo(prob: PricingProblem, method: MonteCarlo) -> MonteCarloSol
         values = simulate_conditional_values(prob, method)
         price = discount * torch.mean(values, dim=(0, -1))
         return MonteCarloSolution(prob, method, price, values)
+    if _merton_scored(method):
+        # the likelihood-ratio surrogate in the per-path payoffs: autograd
+        # through solve is unbiased in the jump intensity too
+        from .jump_mc import merton_payoffs_with_score
+
+        payoffs = merton_payoffs_with_score(prob, method.config, payoff, device=device)
+        return MonteCarloSolution(prob, method, discount * torch.mean(payoffs, dim=-1), payoffs)
     samples = simulate_terminal_prices(prob, method)
     payoffs = reduce_payoffs(samples, payoff)
     price = discount * torch.mean(payoffs, dim=-1)

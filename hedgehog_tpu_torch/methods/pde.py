@@ -31,8 +31,9 @@ Monte Carlo error.
   with exercise just before the drop (Bermudans when the ex-date is an
   exercise date) and the Dirichlet row pinned again.
 
-The CEV and local-vol dynamics and the Heston 2-D ADI solver
-(``pde2d.py``) are not ported; their dynamics raise TypeError.
+``PDEMethod(HestonDynamics())`` runs the Heston 2-D ADI solver of
+``pde2d.py`` on a (variance × spot) grid of ``var_steps`` + 1 rows.  The
+CEV and local-vol dynamics are not ported; their dynamics raise TypeError.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ from ..core.payoffs import (
 )
 from ..core.problems import PDESolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
-from ..market.inputs import BlackScholesInputs, carry_yield, market_yearfrac
+from ..market.inputs import BlackScholesInputs, HestonInputs, carry_yield, market_yearfrac
 from ..market.rate_curve import df, df_yf
 from ..market.vol_surface import get_vol
 from ..math.interpolation import interp1d
@@ -71,12 +72,14 @@ __all__ = ["PDEMethod", "convection_diffusion_operator"]
 @dataclasses.dataclass(frozen=True)
 class PDEMethod(AbstractPricingMethod):
     """1-D finite-difference theta-scheme on ``device`` (the GPU unless the
-    caller asks for the CPU).  ``space_steps`` / ``time_steps`` set the
+    caller asks for the CPU), or the 2-D Craig–Sneyd ADI solver under
+    ``HestonDynamics`` (pde2d.py).  ``space_steps`` / ``time_steps`` set the
     (N + 1)-node spot grid and the number of backward steps; ``theta`` the
     implicitness (0.5 Crank-Nicolson, 1.0 fully implicit); ``rannacher``
     how many startup steps run fully implicit; ``n_std`` the grid
     half-width in terminal standard deviations; ``cluster`` the sinh
-    clustering scale as a fraction of the strike."""
+    clustering scale as a fraction of the strike; ``var_steps`` the
+    variance intervals of the 2-D grid (Heston only)."""
 
     dynamics: Any = LognormalDynamics()
     space_steps: int = 400
@@ -85,6 +88,7 @@ class PDEMethod(AbstractPricingMethod):
     rannacher: int = 2
     n_std: float = 7.0
     cluster: float = 0.1
+    var_steps: int = 64
     device: str = "cuda"
 
 
@@ -294,13 +298,15 @@ def _check_supported(prob: PricingProblem, method: PDEMethod):
             "around the strike); loop over contracts for grids"
         )
     if isinstance(method.dynamics, HestonDynamics):
-        raise TypeError(
-            "PDEMethod(HestonDynamics()) is the 2-D ADI solver (pde2d.py), "
-            "which the port does not have yet (ROADMAP.md Queue 1, item 7)"
-        )
+        if not isinstance(prob.market_inputs, HestonInputs):
+            raise TypeError(
+                f"PDEMethod(HestonDynamics()) prices HestonInputs markets; got "
+                f"{type(prob.market_inputs).__name__}"
+            )
+        return
     if not isinstance(method.dynamics, LognormalDynamics):
         raise TypeError(
-            f"the port's PDEMethod supports LognormalDynamics, got "
+            f"the port's PDEMethod supports LognormalDynamics and HestonDynamics, got "
             f"{type(method.dynamics).__name__}; the CEV and local-vol PDE "
             "dynamics come with their model families (ROADMAP.md Queue 1, "
             "item 8.2)"
@@ -315,6 +321,10 @@ def _check_supported(prob: PricingProblem, method: PDEMethod):
 @register_solver(PDEMethod)
 def _solve_pde(prob: PricingProblem, method: PDEMethod) -> PDESolution:
     _check_supported(prob, method)
+    if isinstance(method.dynamics, HestonDynamics):
+        from .pde2d import solve_pde_heston
+
+        return solve_pde_heston(prob, method)
     payoff = prob.payoff
     market = prob.market_inputs
     if isinstance(payoff, BarrierOption):

@@ -1,11 +1,13 @@
 """Price dynamics markers, the lognormal terminal law and the characteristic
 functions of log S_T, in native complex128.
 
-Port of the Black-Scholes, Heston and rough-Bergomi parts of
-``hedgehog_tpu/models/dynamics.py`` (reference montecarlo.jl:286-320 and
-src/distributions/heston.jl:307-319).  The JAX package also carries a
-split real/imaginary form for the TPU, which has no complex128; the port
-does not need it.
+Port of the Black-Scholes, Heston, rough-Bergomi, jump-diffusion (Merton,
+Kou, Bates) and variance-gamma parts of ``hedgehog_tpu/models/dynamics.py``
+(reference montecarlo.jl:286-320 and src/distributions/heston.jl:307-319).
+The JAX package also carries a split real/imaginary form for the TPU, which
+has no complex128; the port does not need it.  The ``*_terminal_params``
+helpers give every parameter as a float64 tensor on the rate's device (T a
+Python float), keeping the market fields' autograd history.
 """
 
 from __future__ import annotations
@@ -22,9 +24,20 @@ __all__ = [
     "LognormalDynamics",
     "HestonDynamics",
     "RoughBergomiDynamics",
+    "MertonJumpDynamics",
+    "KouJumpDynamics",
+    "VarianceGammaDynamics",
+    "BatesDynamics",
     "lognormal_terminal_law",
+    "merton_terminal_params",
+    "kou_terminal_params",
+    "vg_terminal_params",
+    "bates_jump_factor",
     "lognormal_cf",
     "heston_cf",
+    "merton_cf",
+    "kou_cf",
+    "vg_cf",
     "terminal_log_cf",
 ]
 
@@ -44,6 +57,32 @@ class RoughBergomiDynamics:
     """Rough Bergomi (Bayer–Friz–Gatheral 2016): no characteristic function,
     so Monte Carlo is its only pricer (models/rough_bergomi.py).  Markets
     carry :class:`~hedgehog_tpu_torch.market.inputs.RoughBergomiInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MertonJumpDynamics:
+    """Merton (1976) lognormal jump-diffusion: dS/S = (r − λκ̄)dt + σ dW +
+    (e^J − 1)dN, J ~ N(μ_J, σ_J²), N a Poisson(λ) process, κ̄ = e^{μ_J +
+    σ_J²/2} − 1.  Markets carry :class:`~hedgehog_tpu_torch.market.inputs.MertonInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class KouJumpDynamics:
+    """Kou (2002) double-exponential jump-diffusion.  Markets carry
+    :class:`~hedgehog_tpu_torch.market.inputs.KouInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class VarianceGammaDynamics:
+    """Variance Gamma (Madan–Carr–Chang 1998): Brownian motion with drift
+    time-changed by a gamma subordinator.  Markets carry
+    :class:`~hedgehog_tpu_torch.market.inputs.VarianceGammaInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BatesDynamics:
+    """Bates (1996): Heston variance plus Merton lognormal jumps.  Markets
+    carry :class:`~hedgehog_tpu_torch.market.inputs.BatesInputs`."""
 
 
 def _c128(u) -> torch.Tensor:
@@ -68,6 +107,96 @@ def lognormal_terminal_law(market, expiry_ticks):
         spot = escrowed_spot(market, T, device=dev)
     mean = torch.log(spot) + (r - f64(carry_yield(market), device=dev) - 0.5 * sigma**2) * T
     return mean, sigma * torch.sqrt(T)
+
+
+def _carry_log_spot(market, T, dev):
+    """log S0 − qT: the carry folded into the log-spot of a one-shot terminal
+    law (the drift r stays the discounting rate)."""
+    return (torch.log(f64(market.spot, device=dev))
+            - f64(carry_yield(market), device=dev) * T)
+
+
+def merton_terminal_params(market, expiry_ticks):
+    """(log_s0, r, T, sigma, lam, mu_j, s_j, kbar) of a Merton market at an
+    expiry, κ̄ = expm1(μ_J + σ_J²/2) the jump compensator."""
+    r = zero_rate(market.rate, expiry_ticks)
+    dev = r.device
+    T = market_yearfrac(market, expiry_ticks)
+    sigma, lam, mu_j, s_j = (f64(x, device=dev) for x in (
+        market.sigma, market.jump_intensity, market.jump_mean, market.jump_std))
+    kbar = torch.expm1(mu_j + 0.5 * s_j**2)
+    return (_carry_log_spot(market, T, dev), r, T, sigma, lam, mu_j, s_j, kbar)
+
+
+def kou_terminal_params(market, expiry_ticks):
+    """(log_s0, r, T, sigma, lam, p, eta1, eta2, kbar) of a Kou market,
+    κ̄ = p·η₁/(η₁−1) + (1−p)·η₂/(η₂+1) − 1."""
+    r = zero_rate(market.rate, expiry_ticks)
+    dev = r.device
+    T = market_yearfrac(market, expiry_ticks)
+    sigma, lam, p, e1, e2 = (f64(x, device=dev) for x in (
+        market.sigma, market.jump_intensity, market.p_up, market.eta_up, market.eta_down))
+    kbar = p * e1 / (e1 - 1.0) + (1.0 - p) * e2 / (e2 + 1.0) - 1.0
+    return (_carry_log_spot(market, T, dev), r, T, sigma, lam, p, e1, e2, kbar)
+
+
+def vg_terminal_params(market, expiry_ticks):
+    """(log_s0, r, T, sigma, nu, theta, omega) of a variance-gamma market,
+    ω = ln(1 − θν − σ²ν/2)/ν the martingale correction."""
+    r = zero_rate(market.rate, expiry_ticks)
+    dev = r.device
+    T = market_yearfrac(market, expiry_ticks)
+    sigma, nu, theta = (f64(x, device=dev) for x in (market.sigma, market.nu, market.theta))
+    omega = torch.log(1.0 - theta * nu - 0.5 * sigma**2 * nu) / nu
+    return (_carry_log_spot(market, T, dev), r, T, sigma, nu, theta, omega)
+
+
+def bates_jump_factor(u, lam, mu_j, s_j, T) -> torch.Tensor:
+    """Jump multiplier of the Bates CF: exp(λT(e^{iuμ_J − ½u²σ_J²} − 1) −
+    iu·λκ̄T), the Merton jump block with its compensator."""
+    u = _c128(u)
+    lam, mu_j, s_j, T = (f64(x, device=u.device) for x in (lam, mu_j, s_j, T))
+    kbar = torch.expm1(mu_j + 0.5 * s_j**2)
+    iu = 1j * u
+    return torch.exp(lam * T * (torch.exp(iu * mu_j - 0.5 * u**2 * s_j**2) - 1.0)
+                     - iu * lam * kbar * T)
+
+
+def merton_cf(u, log_s0, r, T, sigma, lam, mu_j, s_j, kbar) -> torch.Tensor:
+    """Merton CF of log S_T:
+    φ(u) = exp(iu·(log S0 + (r − σ²/2 − λκ̄)T) − ½u²σ²T + λT·(e^{iuμ_J − ½u²σ_J²} − 1))."""
+    u = _c128(u)
+    log_s0, r, T, sigma, lam, mu_j, s_j, kbar = (
+        f64(x, device=u.device) for x in (log_s0, r, T, sigma, lam, mu_j, s_j, kbar))
+    iu = 1j * u
+    drift = log_s0 + (r - 0.5 * sigma**2 - lam * kbar) * T
+    jump = lam * T * (torch.exp(iu * mu_j - 0.5 * u**2 * s_j**2) - 1.0)
+    return torch.exp(iu * drift - 0.5 * u**2 * sigma**2 * T + jump)
+
+
+def kou_cf(u, log_s0, r, T, sigma, lam, p, e1, e2, kbar) -> torch.Tensor:
+    """Kou CF of log S_T:
+    φ(u) = exp(iu·(log S0 + (r − σ²/2 − λκ̄)T) − ½u²σ²T
+               + λT·(p·η₁/(η₁ − iu) + (1−p)·η₂/(η₂ + iu) − 1))."""
+    u = _c128(u)
+    log_s0, r, T, sigma, lam, p, e1, e2, kbar = (
+        f64(x, device=u.device) for x in (log_s0, r, T, sigma, lam, p, e1, e2, kbar))
+    iu = 1j * u
+    drift = log_s0 + (r - 0.5 * sigma**2 - lam * kbar) * T
+    phi_j = p * e1 / (e1 - iu) + (1.0 - p) * e2 / (e2 + iu)
+    return torch.exp(iu * drift - 0.5 * u**2 * sigma**2 * T + lam * T * (phi_j - 1.0))
+
+
+def vg_cf(u, log_s0, r, T, sigma, nu, theta, omega) -> torch.Tensor:
+    """Variance Gamma CF of log S_T:
+    φ(u) = e^{iu·(log S0 + (r + ω)T)} · (1 − iuθν + ½σ²ν u²)^{−T/ν}."""
+    u = _c128(u)
+    log_s0, r, T, sigma, nu, theta, omega = (
+        f64(x, device=u.device) for x in (log_s0, r, T, sigma, nu, theta, omega))
+    iu = 1j * u
+    drift = log_s0 + (r + omega) * T
+    base = 1.0 - iu * theta * nu + 0.5 * sigma**2 * nu * u**2
+    return torch.exp(iu * drift) * base ** (-T / nu)
 
 
 def lognormal_cf(u, mean, std) -> torch.Tensor:
@@ -116,4 +245,22 @@ def terminal_log_cf(prob, dynamics):
         return lambda u: heston_cf(
             u, s_eff, market.V0, market.kappa, market.theta, market.sigma, market.rho, r, T
         )
+    if isinstance(dynamics, BatesDynamics):
+        from ..market.inputs import forward_spot
+
+        r = zero_rate(market.rate, expiry)
+        T = market_yearfrac(market, expiry)
+        s_eff = forward_spot(market, T)
+        return lambda u: heston_cf(
+            u, s_eff, market.V0, market.kappa, market.theta, market.sigma, market.rho, r, T
+        ) * bates_jump_factor(u, market.jump_intensity, market.jump_mean, market.jump_std, T)
+    if isinstance(dynamics, MertonJumpDynamics):
+        params = merton_terminal_params(market, expiry)
+        return lambda u: merton_cf(u, *params)
+    if isinstance(dynamics, KouJumpDynamics):
+        params = kou_terminal_params(market, expiry)
+        return lambda u: kou_cf(u, *params)
+    if isinstance(dynamics, VarianceGammaDynamics):
+        params = vg_terminal_params(market, expiry)
+        return lambda u: vg_cf(u, *params)
     raise TypeError(f"no terminal law for dynamics {type(dynamics).__name__}")

@@ -125,7 +125,7 @@ def test_pde_rejects_unsupported():
                  pde)
     with pytest.raises(TypeError, match="evolves the spot"):
         ht.solve(ht.PricingProblem(dataclasses.replace(o, underlying=ht.Forward()), mkt), pde)
-    with pytest.raises(TypeError, match="pde2d.py"):
+    with pytest.raises(TypeError, match="prices HestonInputs markets"):
         ht.solve(ht.PricingProblem(o, mkt), dataclasses.replace(pde, dynamics=ht.HestonDynamics()))
     with pytest.raises(TypeError, match="item 8.2"):
         ht.solve(ht.PricingProblem(o, mkt),

@@ -122,9 +122,16 @@ def test_from_reference_round_trip():
 
 def test_from_reference_rejects_what_the_port_lacks():
     with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.MertonExact())
+        ht.from_reference(hh.BachelierExact())
+
+    @dataclasses.dataclass(frozen=True)
+    class CarrMadan:  # a reference class with a field the port's CarrMadan lacks
+        alpha: float = 1.0
+        legacy: int = 0
+
+    assert ht.from_reference(CarrMadan(alpha=2.0)).alpha == 2.0  # the default carries
     with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.CarrMadan(1.0, "auto", hh.HestonDynamics(), quadrature="gl"))
+        ht.from_reference(CarrMadan(legacy=1))
 
 
 def test_montecarlo_defaults_are_the_reference_ones():
