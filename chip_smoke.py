@@ -120,16 +120,29 @@ CPU), and the 1-D PDE against Black-Scholes, CRR, Reiner-Rubinstein, the
 dividend Euler grid and the dividend LSM (card against CPU, 1e-10), each
 solve's wall, idle share and peak memory printed.
 
-Then "jumps and adi" (``--only "jumps and adi"``; no kernel, no build)
-closes the run: the Heston 2-D ADI at 400 x 64 x 200 (the European call and
-put against Carr-Madan, the American put against conditional LSM, knock-in
-+ knock-out = vanilla), the bridge estimators' Heston down-and-out call
+Then "jumps and adi" (``--only "jumps and adi"``; no kernel, no build):
+the Heston 2-D ADI at 400 x 64 x 200 (the European call and put against
+Carr-Madan, the American put against conditional LSM; knock-in + knock-out
+= vanilla at 50 time steps), the bridge estimators' Heston down-and-out call
 (Richardson alpha = 0.75) within 25 bp of the ADI on three markets and the
 exact grid within 1%, Carr-Madan's Gauss-Legendre rule, FFT smile and error
 estimate, and at 2^20 antithetic pairs the Merton, Kou and variance-gamma
 exact samplers and grids and the Bates mixing estimator within 4 SE of
 their closed forms, an American put by LSM on the Merton grid; card against
 CPU for the deterministic prices and the first 4096 pairs (1e-10).
+
+"normal and local vol" (``--only "normal and local vol"``; no kernel, no
+build) closes the run: the Bachelier, CEV and SABR closed forms on 41
+strikes card against CPU (1e-12), parity and ``implied_normal_vol``; at
+2^20 antithetic PRNG pairs ``BachelierExact`` and the Bachelier, CEV and
+SABR Euler grids (64 steps) within 4 SE plus scripts/normal_lv_bias.py's
+scheme allowance of their closed forms; the local-vol grid (2^20 QMC pairs
+x 50 steps) on the Heston-implied cubic surface against Heston Carr-Madan,
+the CEV and local-vol PDE at 400 x 200 against CEVAnalytic and
+Black-Scholes; ``calibrate_leverage`` at the JAX defaults and the SLV grid
+(2^20 pairs x 64 steps) repricing the skew surface's vanillas within 2e-2 at
+mixing 1 and 0, and an American put by LSM on it; card against CPU for the
+first 4096 pairs of each route, the PDE and a small calibration (1e-10).
 
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
@@ -5226,6 +5239,7 @@ JA_REF, JA_EXPIRY = dt.date(2025, 1, 1), dt.date(2026, 1, 1)
 JA_HESTON = dict(V0=0.04, kappa=2.0, theta=0.05, sigma=0.4, rho=-0.7)
 JA_PDE = (400, 64, 200)  # spot x variance x time steps: the JAX package's PDEMethod defaults
 JA_PDE_CPU = (64, 16, 32)  # the grid of the ADI's card-against-CPU checks
+JA_PARITY_STEPS = 50  # time steps of the ADI's in-out parity check
 #: (sigma_v, kappa) of tests/agreement/test_heston_barrier_pde.py's down-and-out call
 #: (K = 100, H = 85, bench.py's market otherwise); the last is phase exotics' market
 JA_BARRIER_CASES = ((0.3, 2.0), (0.6, 2.0), (0.9, 1.0))
@@ -5252,7 +5266,8 @@ def phase_jumps_adi(smi: str, device: str) -> dict:
     PyTorch).  (a) The ADI at the JAX defaults (400 x 64 x 200) on
     test_pde_heston.py's market: the European call and put against
     Carr-Madan (abs 3e-3), the American put against conditional LSM (2^16
-    pairs x 50 steps, rel 2e-2), knock-in + knock-out = vanilla (1e-9);
+    pairs x 50 steps, rel 2e-2), knock-in + knock-out = vanilla (1e-9, at
+    50 time steps);
     (b) the down-and-out call of test_heston_barrier_pde.py on its three
     markets: bridge Monte Carlo on the QE conditional grid (Richardson
     alpha = 0.75, 2^20 PRNG pairs x 64 steps) within 25 bp of the ADI, and on
@@ -5329,10 +5344,14 @@ def phase_jumps_adi(smi: str, device: str) -> dict:
     rec["American put"] = {"adi": p_am, "european": p_eu, "lsm": p_lsm, "lsm_se": se}
     up_in = ht.BarrierOption(100.0, E, 130.0, direction=ht.Up(), knock=ht.KnockIn())
     up_out = dataclasses.replace(up_in, knock=ht.KnockOut())
-    p_ki, p_ko = (price(ht.PricingProblem(b, hm), adi) for b in (up_in, up_out))
-    parity = p_ki + p_ko - rec["European call"]["adi"]
-    say(f"  ADI up-in call {p_ki:.8f} (parity) + up-out call {p_ko:.8f} - call: {parity:+.3e} "
-        "(1e-9)")
+    # in-out parity is the engine's identity at any grid: JA_PARITY_STEPS time
+    # steps (the ADI's host-bound wall is linear in them)
+    parity_adi = dataclasses.replace(adi, time_steps=JA_PARITY_STEPS)
+    p_ki, p_ko, p_van = (price(ht.PricingProblem(b, hm), parity_adi)
+                         for b in (up_in, up_out, call))
+    parity = p_ki + p_ko - p_van
+    say(f"  ADI at {ns} x {nv} x {JA_PARITY_STEPS}: up-in call {p_ki:.8f} (parity) + up-out call "
+        f"{p_ko:.8f} - call: {parity:+.3e} (1e-9)")
     check(abs(parity) <= 1e-9 and 0.0 < p_ko, f"knock-in + knock-out - vanilla {parity}")
     rec["up-in call"] = {"ki": p_ki, "ko": p_ko, "parity": parity}
     out["adi"] = rec
@@ -5499,18 +5518,353 @@ def phase_jumps_adi(smi: str, device: str) -> dict:
     return out
 
 
+NL_PAIRS = 2**20  # antithetic pairs of every Monte Carlo check of phase "normal and local vol"
+NL_CPU_PAIRS = 4096  # the first pairs, priced again on the CPU
+NL_SEED = 7
+NL_STEPS = 64  # the Euler grids' steps (Bachelier, CEV, SABR, SLV)
+NL_LV_STEPS = 50  # tests/unit/test_local_vol.py:56
+NL_CARD_RTOL = 1e-12  # the closed forms, card against CPU
+NL_PATH_RTOL = 1e-10  # per-path values, the PDE and the leverage, card against CPU
+NL_STRIKES = tuple(60.0 + 2.0 * i for i in range(41))
+NL_EXPIRY = dt.date(2024, 12, 31)  # T = 1 under ACT/365, the JAX tests' expiry
+#: the markets of tests/unit/test_bachelier.py, test_cev.py and test_sabr.py
+NL_BACHELIER = dict(rate=0.05, spot=100.0, sigma=20.0)
+NL_CEV = dict(rate=0.05, spot=100.0, sigma=2.0, beta=0.5, dividend_yield=0.01)
+NL_SABR = dict(rate=0.03, spot=100.0, alpha=0.2, beta=0.7, rho=-0.3, nu=0.4)
+#: tests/unit/test_local_vol.py:33-50: the Heston market behind the cubic surface
+NL_HESTON = (0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
+NL_LV_TENORS = (0.25, 0.5, 1.0, 1.5, 2.0)
+NL_LV_STRIKES = (70.0, 80.0, 90.0, 100.0, 110.0, 120.0, 135.0)
+NL_LV_CASES = ((90.0, 3e-3), (100.0, 3e-3), (110.0, 5e-3))  # strike, test_local_vol.py's rel
+#: tests/unit/test_slv.py:74-90: the skew surface and its Heston block
+NL_SLV_REF, NL_SLV_EXPIRY = dt.date(2025, 1, 1), dt.date(2026, 1, 1)
+NL_SLV = dict(V0=0.0625, kappa=1.5, theta=0.0625, sigma=0.5, rho=-0.6)
+NL_SLV_STRIKES = (85.0, 100.0, 115.0)
+NL_SLV_RTOL = 2e-2  # test_slv.py:90
+NL_LSM = (2**16, 50, 4)  # pairs, steps, degree of the SLV American put
+NL_PDE = (400, 200)  # space x time steps, the JAX defaults
+NL_PDE_CPU = (100, 50)  # the grid of the PDE's card-against-CPU checks
+#: each Euler route's scheme allowance in bp beside its 4 SE: the larger
+#: |error| of scripts/normal_lv_bias.py at 2^17 and 2^20 QMC pairs on the CPU,
+#: rounded up (CEV -6.8 and -4.8 bp; SABR -10.8 and -9.0 bp, Euler and
+#: Hagan's expansion together); Bachelier's increments are exact
+NL_BIAS_BP = {"Bachelier exact": 0.0, "Bachelier Euler": 0.0, "CEV Euler": 7.0,
+              "SABR Euler": 12.0}
+
+
+def nl_markets(ht) -> dict:
+    """The Bachelier, CEV and SABR markets of phase "normal and local vol"
+    (ht: the port's package)."""
+    return {"bachelier": ht.BachelierInputs(REF, **NL_BACHELIER),
+            "cev": ht.CEVInputs(REF, **NL_CEV), "sabr": ht.SABRInputs(REF, **NL_SABR)}
+
+
+def nl_lv_surface(ht, device: str):
+    """The Heston-implied cubic surface of tests/unit/test_local_vol.py:33-50:
+    Carr-Madan prices on ``device`` inverted to implied vols there."""
+    import torch
+
+    hm = ht.HestonInputs(REF, *NL_HESTON)
+    cm = ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device=device)
+    strikes = torch.tensor(NL_LV_STRIKES, dtype=torch.float64, device=device)
+    ivs = []
+    for tt in NL_LV_TENORS:
+        po = ht.VanillaOption(strikes, ht.add_yearfrac(REF, tt))
+        px = ht.solve(ht.PricingProblem(po, hm), cm).price
+        ivs.append(ht.implied_vol_bs(px, strikes, tt, NL_HESTON[1], NL_HESTON[0]))
+    return ht.RectVolSurface(REF, torch.tensor(NL_LV_TENORS, dtype=torch.float64, device=device),
+                             strikes, torch.stack(ivs), interp_time="linear",
+                             interp_strike="cubic")
+
+
+def nl_slv_market(ht, mixing: float, device: str):
+    """test_slv.py's skew-surface SLV market (uncalibrated) on ``device``."""
+    import torch
+
+    strikes = torch.tensor([70.0, 85.0, 100.0, 115.0, 130.0], dtype=torch.float64,
+                           device=device)
+    row = torch.clamp(0.25 - 0.10 * torch.log(strikes / 100.0), 0.12, 0.45)
+    surf = ht.RectVolSurface(NL_SLV_REF, torch.tensor([0.5, 1.5], dtype=torch.float64,
+                                                      device=device),
+                             strikes, torch.stack([row, row]), interp_strike="cubic")
+    return ht.SLVInputs(NL_SLV_REF, 0.03, 100.0, **NL_SLV, sigma_surface=surf, mixing=mixing)
+
+
+def nl_mc_routes(ht) -> list:
+    """(label, market key, dynamics, strategy, steps, strike, oracle method)
+    of the Monte Carlo checks against the closed forms."""
+    return [("Bachelier exact", "bachelier", ht.NormalDynamics(), ht.BachelierExact(), 1, 95.0,
+             ht.BachelierAnalytic),
+            ("Bachelier Euler", "bachelier", ht.NormalDynamics(), ht.EulerMaruyama(), NL_STEPS,
+             95.0, ht.BachelierAnalytic),
+            ("CEV Euler", "cev", ht.CEVDynamics(), ht.EulerMaruyama(), NL_STEPS, 100.0,
+             ht.CEVAnalytic),
+            ("SABR Euler", "sabr", ht.SABRDynamics(), ht.EulerMaruyama(), NL_STEPS, 100.0,
+             ht.SABRAnalytic)]
+
+
+def phase_normal_local_vol(smi: str, device: str) -> dict:
+    """The normal and local-vol families on the card (no kernel: every solve
+    is plain PyTorch).  (a) Bachelier, CEV (terms 2048) and SABR over 41
+    strikes, calls and puts, card against CPU (1e-12), parity, and
+    ``implied_normal_vol`` back to sigma_N (1e-8); (b) at 2^20 antithetic
+    PRNG pairs ``BachelierExact`` and the Bachelier, CEV and SABR Euler grids
+    (64 steps) within 4 SE plus the scheme allowance (``NL_BIAS_BP``) of
+    their closed forms; (c) the local-vol Euler grid (2^20 QMC pairs x 50 steps)
+    on the Heston-implied cubic surface against Heston Carr-Madan at K = 90,
+    100, 110 (test_local_vol.py's rel 3e-3, 3e-3, 5e-3), and the CEV and
+    local-vol PDE at 400 x 200 against CEVAnalytic (rel 2e-4) and a flat
+    surface against Black-Scholes (abs 2e-3), and an American put on the
+    Heston-implied surface; (d) ``calibrate_leverage`` at
+    the JAX defaults (64 steps, 32768 particles, 65 bins) on test_slv.py's
+    skew surface at mixing 1 and 0, the SLV grid (2^20 pairs x 64 steps)
+    repricing the vanillas at K = 85, 100, 115 within 2e-2, and an American
+    put by LSM on the SLV grid (2^16 x 50).  Card against CPU (1e-10): the
+    first 4096 pairs of every Monte Carlo route, the CEV and local-vol PDE at
+    100 x 50, and a calibration at 4096 particles.  Prints each profiled
+    solve's wall, idle share and peak memory."""
+    import dataclasses
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    say(f"phase 3 (normal and local vol): Bachelier, CEV, SABR, Dupire local vol and SLV on "
+        f"{device}; {smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    markets = nl_markets(ht)
+    T = float(ht.yearfrac(REF, NL_EXPIRY))
+    cpu = "cpu"
+
+    def on(method, dev):
+        return dataclasses.replace(method, device=dev)
+
+    def price(prob, method) -> torch.Tensor:
+        p = ht.solve(prob, method).price
+        check(p.device.type == torch.device(method.device).type,
+              f"{type(method).__name__} priced on {p.device}")
+        check(bool(torch.isfinite(p).all()), f"{type(method).__name__}: price {p}")
+        return p
+
+    # (a) the closed forms over 41 strikes, card against CPU
+    strikes = torch.tensor(NL_STRIKES, dtype=torch.float64)
+    rec = {}
+    for key, analytic in (("bachelier", ht.BachelierAnalytic()),
+                          ("cev", ht.CEVAnalytic(terms=2048)), ("sabr", ht.SABRAnalytic())):
+        got = {}
+        for cp in (ht.Call(), ht.Put()):
+            prob = ht.PricingProblem(ht.VanillaOption(strikes.to(device), NL_EXPIRY,
+                                                      call_put=cp), markets[key])
+            got[type(cp).__name__] = price(prob, on(analytic, device))
+            compare_vectors(f"{type(analytic).__name__} {type(cp).__name__.lower()}s, card "
+                            f"against CPU", got[type(cp).__name__],
+                            price(dataclasses.replace(prob, payoff=dataclasses.replace(
+                                prob.payoff, strike=strikes)), on(analytic, cpu)), NL_CARD_RTOL)
+        m = markets[key]
+        fwd = ht.forward_spot(m, T) / ht.df(m.rate, NL_EXPIRY)
+        D = float(ht.df(m.rate, NL_EXPIRY))
+        parity = float(torch.max(torch.abs(got["Call"].cpu() - got["Put"].cpu()
+                                           - D * (float(fwd) - strikes))))
+        say(f"  {type(analytic).__name__}: call - put - D(F - K) over 41 strikes: max "
+            f"{parity:.3e} (1e-10)")
+        check(parity <= 1e-10, f"{key} parity {parity}")
+        rec[key] = {"parity": parity}
+        if key == "bachelier":
+            iv = ht.implied_normal_vol(got["Call"], float(fwd), strikes.to(device), T, D, 1.0)
+            err = float(torch.max(torch.abs(iv - NL_BACHELIER["sigma"])))
+            say(f"  implied_normal_vol of the 41 calls: max |iv - sigma_N| {err:.3e} (1e-8)")
+            check(err <= 1e-8, f"implied_normal_vol round trip {err}")
+            rec[key]["implied_normal_vol"] = err
+    exotic_profile(f"CEVAnalytic, 41 strikes ({smi})", lambda: ht.solve(ht.PricingProblem(
+        ht.VanillaOption(strikes.to(device), NL_EXPIRY), markets["cev"]),
+        ht.CEVAnalytic(device=device)), device, out)
+    out["closed_forms"] = rec
+    lap("closed forms")
+
+    # (b) the Monte Carlo routes against their closed forms
+    rec = {}
+    for label, key, dyn, strat, steps, K, oracle in nl_mc_routes(ht):
+        prob = ht.PricingProblem(ht.VanillaOption(K, NL_EXPIRY), markets[key])
+
+        def mc_of(n, dev, dyn=dyn, strat=strat, steps=steps):
+            return ht.MonteCarlo(dyn, strat, ht.SimulationConfig(n, steps, ht.Antithetic(),
+                                                                 NL_SEED), device=dev)
+
+        values = ht.mc_path_values(prob, mc_of(NL_PAIRS, device))
+        check(values.device.type == torch.device(device).type, f"{label} on {values.device}")
+        check(bool(torch.isfinite(values).all()), f"{label}: non-finite path values")
+        D = float(ht.df(markets[key].rate, NL_EXPIRY))
+        p_mc = D * float(values.mean())
+        se = D * float(values.std()) / math.sqrt(values.numel())
+        want = float(price(prob, oracle(device=device)))
+        bp = 1e4 * (p_mc / want - 1.0)
+        allowance = NL_BIAS_BP[label]
+        say(f"  {label}, {NL_PAIRS} PRNG pairs x {steps} steps: {p_mc:.8f} against "
+            f"{oracle.__name__} {want:.8f}: {bp:+.2f} bp ({(p_mc - want) / se:+.2f} SE; 4 SE + "
+            f"{allowance:g} bp)")
+        check(abs(p_mc - want) <= 4.0 * se + 1e-4 * allowance * want,
+              f"{label} {p_mc} against {want}, SE {se}")
+        compare_vectors(f"{label}: the first {NL_CPU_PAIRS} pairs, card against CPU",
+                        values[:NL_CPU_PAIRS],
+                        ht.mc_path_values(prob, mc_of(NL_CPU_PAIRS, cpu)), NL_PATH_RTOL)
+        rec[label] = {"price": p_mc, "oracle": want, "se": se, "bp": bp}
+        exotic_profile(f"{label} solve, {NL_PAIRS} pairs x {steps} steps ({smi})",
+                       lambda prob=prob, mc_of=mc_of: ht.solve(prob, mc_of(NL_PAIRS, device)),
+                       device, out)
+    out["monte_carlo"] = rec
+    lap("Monte Carlo routes")
+
+    # (c) Dupire local vol: the Monte Carlo round trip and the PDE
+    rec = {}
+    lv_market = ht.BlackScholesInputs(REF, NL_HESTON[0], NL_HESTON[1], nl_lv_surface(ht, device))
+    hm = ht.HestonInputs(REF, *NL_HESTON)
+    cm = ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device=device)
+    ks = torch.tensor([k for k, _ in NL_LV_CASES], dtype=torch.float64, device=device)
+    lv_prob = ht.PricingProblem(ht.VanillaOption(ks, NL_EXPIRY), lv_market)
+
+    def lv_mc(n, dev):  # QMC, as tests/unit/test_local_vol.py:56
+        return ht.MonteCarlo(ht.LocalVolDynamics(), ht.EulerMaruyama(),
+                             ht.SimulationConfig(n, NL_LV_STEPS, ht.Antithetic(), NL_SEED, True),
+                             device=dev)
+
+    got = price(lv_prob, lv_mc(NL_PAIRS, device))
+    want = price(ht.PricingProblem(ht.VanillaOption(ks, NL_EXPIRY), hm), cm)
+    for (K, tol), g, w in zip(NL_LV_CASES, got.tolist(), want.tolist()):
+        say(f"  local vol, {NL_PAIRS} QMC pairs x {NL_LV_STEPS} steps, K = {K:g}: {g:.8f} "
+            f"against Heston Carr-Madan {w:.8f}: {g / w - 1.0:+.3e} (rel {tol:g})")
+        check(abs(g / w - 1.0) <= tol, f"local vol K={K}: {g} against {w}")
+        rec[f"K={K:g}"] = {"lv_mc": g, "heston": w}
+    cpu_market = dataclasses.replace(lv_market, sigma=dataclasses.replace(
+        lv_market.sigma, tenors=lv_market.sigma.tenors.cpu(), strikes=lv_market.sigma.strikes.cpu(),
+        vols=lv_market.sigma.vols.cpu()))
+    one = ht.VanillaOption(100.0, NL_EXPIRY)
+    compare_vectors(f"local vol grid: the first {NL_CPU_PAIRS} pairs, card against CPU",
+                    ht.simulate_price_grid(ht.PricingProblem(one, lv_market),
+                                           lv_mc(NL_CPU_PAIRS, device)),
+                    ht.simulate_price_grid(ht.PricingProblem(one, cpu_market),
+                                           lv_mc(NL_CPU_PAIRS, cpu)), NL_PATH_RTOL)
+    exotic_profile(f"local vol solve, {NL_PAIRS} pairs x {NL_LV_STEPS} steps ({smi})",
+                   lambda: ht.solve(lv_prob, lv_mc(NL_PAIRS, device)), device, out)
+    lap("local vol Monte Carlo")
+    ns, nt = NL_PDE
+    cev_pde = ht.PDEMethod(ht.CEVDynamics(), ns, nt, device=device)
+    cev_m = ht.CEVInputs(REF, 0.05, 100.0, sigma=2.0, beta=0.5)  # tests/unit/test_pde.py:243
+    cev_prob = ht.PricingProblem(ht.VanillaOption(100.0, NL_EXPIRY), cev_m)
+    p_pde = float(price(cev_prob, cev_pde))
+    p_cf = float(price(cev_prob, ht.CEVAnalytic(device=device)))
+    say(f"  CEV PDE ({ns} x {nt}): {p_pde:.8f} against CEVAnalytic {p_cf:.8f}: "
+        f"{p_pde / p_cf - 1.0:+.3e} (rel 2e-4)")
+    check(abs(p_pde / p_cf - 1.0) <= 2e-4, f"CEV PDE {p_pde} against {p_cf}")
+    lv_pde = ht.PDEMethod(ht.LocalVolDynamics(), ns, nt, device=device)
+    flat = ht.BlackScholesInputs(REF, 0.05, 100.0, 0.25)  # test_pde.py:258
+    flat_prob = ht.PricingProblem(ht.VanillaOption(105.0, NL_EXPIRY), flat)
+    p_lv = float(price(flat_prob, lv_pde))
+    p_bs = float(price(flat_prob, ht.BlackScholesAnalytic(device=device)))
+    say(f"  local-vol PDE on a flat surface ({ns} x {nt}): {p_lv:.8f} against Black-Scholes "
+        f"{p_bs:.8f}: {p_lv - p_bs:+.3e} (abs 2e-3)")
+    check(abs(p_lv - p_bs) <= 2e-3, f"local-vol PDE {p_lv} against {p_bs}")
+    am_prob = ht.PricingProblem(ht.VanillaOption(110.0, NL_EXPIRY, ht.American(), ht.Put()),
+                                lv_market)
+    p_am = float(price(am_prob, lv_pde))
+    say(f"  local-vol PDE American put (K = 110) on the Heston-implied surface: {p_am:.8f}")
+    # card against CPU on a grid the host solves in a second (the GPU host's
+    # CPU takes ~10 s for the full-size local-vol solve)
+    worst = 0.0
+    for pde, prob, cpu_prob in ((cev_pde, cev_prob, cev_prob),
+                                (lv_pde, am_prob, ht.PricingProblem(am_prob.payoff, cpu_market))):
+        small = dataclasses.replace(pde, space_steps=NL_PDE_CPU[0], time_steps=NL_PDE_CPU[1])
+        got, want = float(price(prob, small)), float(price(cpu_prob, on(small, cpu)))
+        check(abs(got - want) <= NL_PATH_RTOL * abs(want),
+              f"{type(pde.dynamics).__name__} PDE: card {got!r}, CPU {want!r}")
+        worst = max(worst, abs(got - want))
+    say(f"  CEV and local-vol PDE at {NL_PDE_CPU[0]} x {NL_PDE_CPU[1]}, card against CPU: max "
+        f"abs diff {worst:.3e} (rel {NL_PATH_RTOL:g})")
+    rec["pde"] = {"cev": p_pde, "cev_closed_form": p_cf, "lv_flat": p_lv, "bs": p_bs,
+                  "lv_american_put": p_am, "card_vs_cpu": worst}
+    exotic_profile(f"local-vol PDE American put, {ns} x {nt} ({smi})",
+                   lambda: ht.solve(am_prob, lv_pde), device, out)
+    out["local_vol"] = rec
+    lap("local-vol PDE")
+
+    # (d) SLV: the particle calibration at the JAX defaults, repricing, LSM
+    rec = {}
+    calls = ht.VanillaOption(torch.tensor(NL_SLV_STRIKES, dtype=torch.float64, device=device),
+                             NL_SLV_EXPIRY)
+    for mixing in (1.0, 0.0):
+        m = nl_slv_market(ht, mixing, device)
+        lev = ht.calibrate_leverage(m, NL_SLV_EXPIRY, device=device)
+        check(lev.values.device.type == torch.device(device).type and
+              bool(torch.isfinite(lev.values).all()), f"leverage on {lev.values.device}")
+        slv = ht.MonteCarlo(ht.SLVDynamics(), ht.EulerMaruyama(),
+                            ht.SimulationConfig(NL_PAIRS, NL_STEPS, ht.Antithetic(), NL_SEED),
+                            device=device)
+        got = price(ht.PricingProblem(calls, m.with_leverage(lev)), slv)
+        want = price(ht.PricingProblem(calls, ht.BlackScholesInputs(
+            NL_SLV_REF, 0.03, 100.0, m.sigma_surface)), ht.BlackScholesAnalytic(device=device))
+        errs = (got / want - 1.0).tolist()
+        say(f"  SLV mixing {mixing:g}: leverage at 64 steps x 32768 particles x 65 bins (max "
+            f"{float(lev.values.max()):.3f}); {NL_PAIRS} pairs x {NL_STEPS} steps at K = "
+            f"{NL_SLV_STRIKES}: {[f'{e:+.3e}' for e in errs]} against the surface's "
+            f"Black-Scholes (rel {NL_SLV_RTOL:g})")
+        check(max(abs(e) for e in errs) <= NL_SLV_RTOL, f"SLV mixing {mixing}: {errs}")
+        rec[f"mixing {mixing:g}"] = {"rel_errors": errs, "leverage_max": float(lev.values.max())}
+        if mixing == 1.0:
+            exotic_profile(f"calibrate_leverage, 64 x 32768 x 65 ({smi})",
+                           lambda m=m: ht.calibrate_leverage(m, NL_SLV_EXPIRY, device=device),
+                           device, out)
+            exotic_profile(f"SLV solve, {NL_PAIRS} pairs x {NL_STEPS} steps, 3 strikes ({smi})",
+                           lambda m=m, lev=lev, slv=slv: ht.solve(
+                               ht.PricingProblem(calls, m.with_leverage(lev)), slv), device, out)
+            lsm_pairs, lsm_steps, degree = NL_LSM
+            lsm = ht.LSM(ht.MonteCarlo(ht.SLVDynamics(), ht.EulerMaruyama(), ht.SimulationConfig(
+                lsm_pairs, lsm_steps, ht.Antithetic(), NL_SEED), device=device), degree)
+            am = ht.VanillaOption(100.0, NL_SLV_EXPIRY, ht.American(), ht.Put())
+            sol = ht.solve(ht.PricingProblem(am, m.with_leverage(lev)), lsm)
+            p_am, se = float(sol.price), lsm_price_se(sol)
+            p_eu = float(price(ht.PricingProblem(dataclasses.replace(
+                am, exercise_style=ht.European()), ht.BlackScholesInputs(
+                NL_SLV_REF, 0.03, 100.0, m.sigma_surface)), ht.BlackScholesAnalytic(device=device)))
+            say(f"  LSM American put (K = 100) on the SLV grid, {lsm_pairs} pairs x {lsm_steps} "
+                f"steps: {p_am:.8f} (SE {se:.2e}) above the surface's European {p_eu:.8f}")
+            check(p_am > p_eu, f"SLV LSM American put {p_am} against European {p_eu}")
+            rec["lsm_american_put"] = {"lsm": p_am, "se": se, "european": p_eu}
+            # card against CPU: a calibration at 4096 particles, and the paths
+            small = dict(steps=16, paths=NL_CPU_PAIRS, bins=33)
+            lev_card = ht.calibrate_leverage(m, NL_SLV_EXPIRY, device=device, **small)
+            surf = m.sigma_surface
+            m_cpu = dataclasses.replace(m, sigma_surface=dataclasses.replace(
+                surf, tenors=surf.tenors.cpu(), strikes=surf.strikes.cpu(), vols=surf.vols.cpu()))
+            lev_cpu = ht.calibrate_leverage(m_cpu, NL_SLV_EXPIRY, device=cpu, **small)
+            compare_vectors(f"calibrate_leverage ({small}), card against CPU", lev_card.values,
+                            lev_cpu.values, NL_PATH_RTOL)
+            lev_host = ht.LeverageSurface(lev.t_grid.cpu(), lev.x_grid.cpu(), lev.values.cpu())
+            cfg = ht.SimulationConfig(NL_CPU_PAIRS, NL_STEPS, ht.Antithetic(), NL_SEED)
+            one = ht.VanillaOption(100.0, NL_SLV_EXPIRY)
+            compare_vectors(f"SLV grid: the first {NL_CPU_PAIRS} pairs, card against CPU",
+                            ht.simulate_price_grid(ht.PricingProblem(one, m.with_leverage(lev)),
+                                                   dataclasses.replace(slv, config=cfg)),
+                            ht.simulate_price_grid(
+                                ht.PricingProblem(one, m_cpu.with_leverage(lev_host)),
+                                dataclasses.replace(slv, config=cfg, device=cpu)), NL_PATH_RTOL)
+    out["slv"] = rec
+    lap("SLV")
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
 ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
                "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes,
                "exotics": phase_exotics, "barriers and dividends": phase_barriers_dividends,
-               "jumps and adi": phase_jumps_adi}
+               "jumps and adi": phase_jumps_adi, "normal and local vol": phase_normal_local_vol}
 #: the phases of ``ONLY_PHASES`` that launch a kernel (K13), so ``--only`` builds the library
 KERNEL_PHASES = {"barriers and dividends"}
 
 
 def only_main(names: str) -> int:
     """``--only "exact greeks,american,broadie kaya,quotes,exotics,barriers and
-    dividends,jumps and adi"``: the named phases alone on the card (the
+    dividends,jumps and adi,normal and local vol"``: the named phases alone on the card (the
     kernels are built only for a phase of ``KERNEL_PHASES``)."""
     import torch
 
@@ -5778,6 +6132,8 @@ def main() -> int:
     barriers_dividends = phase_barriers_dividends(smi, "cuda")
     # the Heston ADI, Carr-Madan's rest and the jump families (no kernel)
     jumps_adi = phase_jumps_adi(smi, "cuda")
+    # the normal and local-vol families (no kernel)
+    normal_local_vol = phase_normal_local_vol(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -5788,7 +6144,7 @@ def main() -> int:
                     "calibration_path": calibration_path, "exact_greeks": exact_greeks,
                     "american": american, "broadie_kaya": broadie_kaya, "quotes": quotes,
                     "exotics": exotics, "barriers_and_dividends": barriers_dividends,
-                    "jumps_and_adi": jumps_adi,
+                    "jumps_and_adi": jumps_adi, "normal_and_local_vol": normal_local_vol,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

@@ -51,7 +51,14 @@ solver.  The jump and variance-gamma families (``MertonJumpDynamics``,
 inputs) price through Carr–Madan (panel or Gauss–Legendre quadrature, the
 FFT smile, ``carr_madan_error_estimate``), ``MertonAnalytic``, the exact
 samplers ``MertonExact``, ``KouExact`` and ``VarianceGammaExact``, their
-Euler grids (LSM, Asians) and the Bates mixing estimator.
+Euler grids (LSM, Asians) and the Bates mixing estimator.  The normal and
+local-vol families price through ``BachelierAnalytic`` (and
+``implied_normal_vol``), ``CEVAnalytic`` (``ncx2_cdf``, differentiable in
+β), ``SABRAnalytic`` (``hagan_vol``), ``BachelierExact`` and the Euler grids
+of ``NormalDynamics``, ``CEVDynamics``, ``SABRDynamics``,
+``LocalVolDynamics`` (``dupire_local_vol`` per path) and ``SLVDynamics``
+(on a leverage from ``calibrate_leverage``), and the PDE under the CEV and
+local-vol dynamics.
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
 """
@@ -125,12 +132,16 @@ from .core.problems import (
 from .core.solve import AbstractPricingMethod, register_solver, solve
 from .market.dividends import DividendSchedule, dividend_pv, escrowed_spot
 from .market.inputs import (
+    BachelierInputs,
     BatesInputs,
     BlackScholesInputs,
+    CEVInputs,
     HestonInputs,
     KouInputs,
     MertonInputs,
     RoughBergomiInputs,
+    SABRInputs,
+    SLVInputs,
     VarianceGammaInputs,
     carry_yield,
     forward_spot,
@@ -209,15 +220,19 @@ from .calibration.calibration import (
     OptimizerAlgo,
     RootFinderAlgo,
 )
+from .methods.bachelier import BachelierAnalytic, bachelier_price, implied_normal_vol
 from .methods.black_scholes import BlackScholesAnalytic
 from .methods.carr_madan import CarrMadan, carr_madan_error_estimate
+from .methods.cev import CEVAnalytic, cev_call_price, cev_survival, ncx2_cdf
 from .methods.crr import CoxRossRubinsteinMethod
 from .methods.duality import DualBound, lsm_dual_bound
 from .methods.lsm import LSM
 from .methods.merton import MertonAnalytic
 from .methods.pde import PDEMethod
+from .methods.sabr import SABRAnalytic, hagan_vol
 from .methods.montecarlo import (
     Antithetic,
+    BachelierExact,
     BlackScholesExact,
     EulerMaruyama,
     HestonBroadieKaya,
@@ -246,15 +261,22 @@ from .methods.mixing_greeks import (
 from .methods.rough_bergomi_surface import rbergomi_surface_mc
 from .models.dynamics import (
     BatesDynamics,
+    CEVDynamics,
     HestonDynamics,
     KouJumpDynamics,
+    LocalVolDynamics,
     LognormalDynamics,
     MertonJumpDynamics,
+    NormalDynamics,
     RoughBergomiDynamics,
+    SABRDynamics,
+    SLVDynamics,
     VarianceGammaDynamics,
     heston_cf,
     lognormal_cf,
 )
+from .models.local_vol import dupire_local_vol
+from .models.slv import LeverageSurface, calibrate_leverage, leverage_at
 from .models.rough_bergomi import ForwardVarianceCurve
 from .ops.rbergomi_kernel import GREEK_ORDER_RB
 from .interop import from_reference
@@ -309,5 +331,10 @@ __all__ = [
     "MertonJumpDynamics", "KouJumpDynamics", "VarianceGammaDynamics", "BatesDynamics",
     "heston_cf", "lognormal_cf",
     "GREEK_ORDER_RB",
+    "BachelierInputs", "BachelierAnalytic", "BachelierExact", "NormalDynamics",
+    "bachelier_price", "implied_normal_vol", "CEVInputs", "CEVAnalytic", "CEVDynamics",
+    "cev_call_price", "cev_survival", "ncx2_cdf", "SABRInputs", "SABRAnalytic", "SABRDynamics",
+    "hagan_vol", "LocalVolDynamics", "dupire_local_vol", "SLVInputs", "SLVDynamics",
+    "LeverageSurface", "calibrate_leverage", "leverage_at",
     "from_reference",
 ]

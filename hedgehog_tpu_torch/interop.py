@@ -24,14 +24,25 @@ def _port_classes() -> dict:
     from .core import dates, lenses, payoffs, problems
     from .greeks import greeks
     from .market import dividends, inputs, rate_curve, svi, vol_quotes, vol_surface
-    from .methods import black_scholes, carr_madan, crr, duality, lsm, merton, montecarlo, pde
-    from .models import dynamics, rough_bergomi
+    from .methods import (
+        bachelier,
+        black_scholes,
+        carr_madan,
+        cev,
+        crr,
+        duality,
+        lsm,
+        merton,
+        montecarlo,
+        pde,
+        sabr,
+    )
+    from .models import dynamics, rough_bergomi, slv
 
     classes = {}
     for mod in (dates, payoffs, problems, lenses, inputs, dividends, rate_curve, vol_surface, svi,
                 vol_quotes, pde, black_scholes, carr_madan, crr, lsm, duality, merton, montecarlo,
-                dynamics,
-                rough_bergomi, greeks, calibration):
+                bachelier, cev, sabr, dynamics, rough_bergomi, slv, greeks, calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:
                 classes[name] = obj

@@ -1,13 +1,14 @@
-"""Market-input containers: Black-Scholes, Heston, rough Bergomi and the
-jump and variance-gamma families (Merton, Kou, variance gamma, Bates).
+"""Market-input containers: Black-Scholes, Heston, rough Bergomi, the jump
+and variance-gamma families (Merton, Kou, variance gamma, Bates) and the
+normal and local-vol families (Bachelier, CEV, SABR, SLV).
 
 Port of ``hedgehog_tpu/market/inputs.py`` for the markets the port prices
 (reference src/market_inputs/market_inputs.jl:28-88).  Scalar rates and vols
 are wrapped into a flat curve / flat surface as the reference's convenience
 constructors do.  Black-Scholes markets also take an interpolated
 ``RateCurve`` and a ``RectVolSurface`` or ``SVIVolSurface``, and so do the
-Merton, Kou and variance-gamma markets (their CFs and samplers read the zero
-rate to expiry, as the JAX package's do); the Heston, Bates and
+Merton, Kou, variance-gamma, Bachelier, CEV, SABR and SLV markets (their
+pricers read the curve, as the JAX package's do); the Heston, Bates and
 rough-Bergomi markets keep a flat rate, the contract the mixing kernels and
 estimators drift and discount on (one short rate r: discount e^{−rT}).
 """
@@ -33,6 +34,10 @@ __all__ = [
     "KouInputs",
     "VarianceGammaInputs",
     "BatesInputs",
+    "BachelierInputs",
+    "CEVInputs",
+    "SABRInputs",
+    "SLVInputs",
     "carry_yield",
     "forward_spot",
     "market_yearfrac",
@@ -282,3 +287,109 @@ class BatesInputs:
         ref = to_ticks(self.reference_date)
         object.__setattr__(self, "reference_date", ref)
         object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount))
+
+
+@_frozen
+class BachelierInputs:
+    """Bachelier (normal) market data: the T-forward F = spot·e^{−qT}/D(T)
+    follows dF = σ_N dW with ``sigma`` the normal volatility in price units
+    per √year (prices can go negative)."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    sigma: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+
+
+@_frozen
+class CEVInputs:
+    """CEV market data: dS = (r − q)·S dt + σ·S^β dW, elasticity ``beta``
+    in (0, 1) (checked when it is a number), absorbing at zero.  ``sigma``
+    is the CEV scale: a lognormal vol σ_ln at spot S means σ = σ_ln·S^{1−β}."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    sigma: Any
+    beta: Any
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+        b = _host_value(self.beta)
+        if b is not None and not 0.0 < b < 1.0:
+            raise ValueError(
+                f"CEV elasticity beta must lie in (0, 1); got {b} "
+                "(beta = 1 IS Black-Scholes — use BlackScholesInputs)"
+            )
+
+
+@_frozen
+class SABRInputs:
+    """SABR market data on the T-forward F = spot·e^{−qT}/D(T):
+    dF = α F^β dW₁, dα = ν α dW₂, corr(dW₁, dW₂) = ρ.  ``beta`` is the CEV
+    backbone exponent, a plain number (it is fixed, not calibrated)."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    alpha: Any
+    beta: Any = 1.0
+    rho: Any = 0.0
+    nu: Any = 0.0
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+
+
+@_frozen
+class SLVInputs:
+    """Stochastic-local-vol market data (models/slv.py):
+
+        dS/S = (r − q)dt + L(t, S)·√V dW₁
+        dV   = κ(θ − V)dt + mixing·σ·√V dW₂,   corr(dW₁, dW₂) = ρ
+
+    ``sigma_surface`` is the market implied-vol surface the model reprices
+    (a number is wrapped flat); ``mixing`` ∈ [0, 1] scales the vol of vol
+    (0 pure local vol, 1 full Heston); ``leverage`` is the calibrated
+    :class:`~hedgehog_tpu_torch.models.slv.LeverageSurface`, None until
+    :func:`~hedgehog_tpu_torch.models.slv.calibrate_leverage` fills it."""
+
+    reference_date: Any
+    rate: Any
+    spot: Any
+    V0: Any
+    kappa: Any
+    theta: Any
+    sigma: Any
+    rho: Any
+    sigma_surface: Any
+    mixing: Any = 1.0
+    leverage: Any = None
+    dividend_yield: Any = 0.0
+    daycount: Any = ACT365F
+
+    def __post_init__(self):
+        ref = to_ticks(self.reference_date)
+        object.__setattr__(self, "reference_date", ref)
+        object.__setattr__(self, "rate", _wrap_rate(self.rate, ref, self.daycount, curves=True))
+        if not isinstance(self.sigma_surface, (FlatVolSurface, RectVolSurface, SVIVolSurface)):
+            object.__setattr__(self, "sigma_surface", FlatVolSurface(self.sigma_surface, ref))
+
+    def with_leverage(self, leverage) -> "SLVInputs":
+        """A copy carrying a calibrated leverage surface."""
+        return dataclasses.replace(self, leverage=leverage)

@@ -147,23 +147,37 @@ class SVIVolSurface:
         slices' total variances at fixed k, proportional to t outside the
         tenor range.  ``t`` is a scalar (strike any shape); loop over
         expiries for time batches."""
-        dev, tt, p, _ = self._arrays()
-        t = f64(t, device=dev)
-        if t.ndim > 0:
+        if torch.as_tensor(t).ndim > 0:
             raise TypeError("SVIVolSurface.total_variance takes a scalar t; loop over "
                             "expiries for batched lookups")
-        k = torch.log(f64(strike, device=dev) / self.forward_at(t))
-        w_slices = _slices_w(p, k)
+        return self._paired_total_variance(t, strike)
+
+    def _paired_total_variance(self, t, strike):
+        """:meth:`total_variance` entry by entry, ``t`` broadcast against
+        ``strike``."""
+        dev, tt, p, _ = self._arrays()
+        t, strike = torch.broadcast_tensors(f64(t, device=dev), f64(strike, device=dev))
+        k = torch.log(strike / self.forward_at(t))
+        w_slices = _slices_w(p, k)  # (n, *k.shape)
         if tt.shape[0] == 1:
             return w_slices[0] * (t / tt[0])
-        idx = torch.clamp(torch.searchsorted(tt, t.reshape(1), right=True)[0] - 1, 0,
-                          tt.shape[0] - 2)
+        idx = torch.clamp(torch.searchsorted(tt, t.detach().reshape(-1).contiguous(),
+                                             right=True) - 1,
+                          0, tt.shape[0] - 2).reshape(t.shape)
         t0, t1 = tt[idx], tt[idx + 1]
-        w0, w1 = w_slices[idx], w_slices[idx + 1]
+        w0 = torch.gather(w_slices, 0, idx[None])[0]
+        w1 = torch.gather(w_slices, 0, (idx + 1)[None])[0]
         inner = w0 + (t - t0) / (t1 - t0) * (w1 - w0)
         below = w_slices[0] * (t / tt[0])
         above = w_slices[-1] * (t / tt[-1])
         return torch.where(t < tt[0], below, torch.where(t > tt[-1], above, inner))
+
+    def vol_paired(self, t, strike):
+        """Implied vol at pairs (t_i, strike_i), ``t`` broadcast against
+        ``strike``: the per-path lookups of the local-vol engines."""
+        t = f64(t, device=resolve_device(self.device))
+        w = self._paired_total_variance(t, strike)
+        return torch.sqrt(torch.clamp(w, min=1e-14) / torch.clamp(t, min=1e-12))
 
     def vol_yf(self, t, strike):
         t = f64(t, device=resolve_device(self.device))

@@ -64,7 +64,9 @@ def interp1d(x, xs, ys, kind: str = "linear"):
     out_shape = ys.shape[:-1] + x.shape
     if xs.shape[0] == 1:
         return torch.broadcast_to(ys[..., 0].reshape(ys.shape[:-1] + (1,) * x.ndim), out_shape)
-    xq = torch.clamp(x, xs[0], xs[-1]).reshape(-1)
+    # jnp.clip's min(max(·)): at an end knot the x-gradient is halved, as
+    # JAX's is (torch.clamp would pass it whole)
+    xq = torch.minimum(torch.maximum(x, xs[0]), xs[-1]).reshape(-1)
     if kind == "linear" or (kind == "quadratic" and xs.shape[0] == 2):
         return _linear(xq, xs, ys).reshape(out_shape)
     if kind == "quadratic":

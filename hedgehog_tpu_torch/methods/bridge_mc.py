@@ -10,7 +10,9 @@ series for a corridor, and an exact inverse-CDF draw of each segment's
 extremum for a lookback.  The grids: GBM log-Euler (σ²Δt, exact at any
 step count) or one exact bridge over [0, T] (``BlackScholesExact``), the
 conditional Heston QE grid (trapezoid ∫V), the exact Heston grid (sampled
-∫V) and the rough-Bergomi Euler grid (V_k·Δt).  On Heston grids the
+∫V), the rough-Bergomi Euler grid (V_k·Δt) and, for barriers, the
+Bachelier grid in price space (the T-forward is Brownian; the barrier maps
+to H/c(t) at each grid time, σ_N²Δt).  On Heston grids the
 barrier estimators combine the fine and the every-second-node pass of the
 same grid by Richardson's weight 2^α/(2^α − 1), α = 0.75.
 
@@ -31,7 +33,12 @@ from ..core.payoffs import KnockOut, Up, require_european
 from ..market.rate_curve import df, df_yf
 from ..market.vol_surface import FlatVolSurface, get_vol
 from ..math.counter_rng import uniform_from_bits
-from ..models.dynamics import HestonDynamics, LognormalDynamics, RoughBergomiDynamics
+from ..models.dynamics import (
+    HestonDynamics,
+    LognormalDynamics,
+    NormalDynamics,
+    RoughBergomiDynamics,
+)
 from ..ops.heston_kernel import seed_from_key
 from ..ops.hh_device import philox_block
 from ..utils import f64, resolve_device
@@ -232,13 +239,39 @@ def barrier_grid_factors(prob, method):
     (steps,), the (g, steps + 1, paths) Heston variance grid or None, and
     the segment variances the factors were built from."""
     payoff = prob.payoff
-    spot_grid, seg_vars, v_grid = _bridge_log_grid(prob, method, "barrier")
-    log_b = torch.log(f64(payoff.barrier, device=spot_grid.device))
-    factors = brownian_bridge_survival_factors(torch.log(spot_grid), seg_vars, log_b,
-                                               isinstance(payoff.direction, Up))
+    up = isinstance(payoff.direction, Up)
     _, T, _ = mc.sim_params(prob)
+    if isinstance(method.dynamics, NormalDynamics) and isinstance(method.strategy,
+                                                                  mc.EulerMaruyama):
+        spot_grid, factors, seg_vars = _bachelier_barrier_factors(prob, method, T, up)
+        v_grid = None
+    else:
+        spot_grid, seg_vars, v_grid = _bridge_log_grid(prob, method, "barrier")
+        log_b = torch.log(f64(payoff.barrier, device=spot_grid.device))
+        factors = brownian_bridge_survival_factors(torch.log(spot_grid), seg_vars, log_b, up)
     t_mids = _mid_times(T, method.config.steps, spot_grid.device)
     return spot_grid, factors, t_mids, v_grid, seg_vars
+
+
+def _bachelier_barrier_factors(prob, method, T: float, up: bool):
+    """The Bachelier grid's bridge factors in price space: the T-forward
+    F = S/c(t), c = D(T)/D(t)·e^{q(T−t)}, is the Brownian coordinate, so the
+    barrier is the per-grid-time level H/c(t_k) and a segment's variance
+    σ_N²Δt.  ``(spot_grid, factors, seg_vars)``."""
+    if method.strategy.use_kernel:
+        raise TypeError("Bachelier has no fused kernel; drop use_kernel=True")
+    from .normal_lv_mc import forward_ratio
+
+    market = prob.market_inputs
+    steps = method.config.steps
+    spot_grid = torch.movedim(mc.simulate_price_grid(prob, method), 1, 0)  # (steps+1, g, paths)
+    dev = spot_grid.device
+    c = forward_ratio(market, T, steps, dev)
+    barrier_k = (f64(prob.payoff.barrier, device=dev) / c)[:, None, None]
+    seg_vars = f64(market.sigma, device=dev) ** 2 * (T / steps)
+    factors = brownian_bridge_survival_factors(spot_grid / c[:, None, None], seg_vars,
+                                               barrier_k, up)
+    return spot_grid, factors, seg_vars
 
 
 # Richardson weight 2^α/(2^α − 1) of the bridge-bias extrapolation on

@@ -23,7 +23,7 @@ from ..market.rate_curve import df
 from ..market.vol_surface import FlatVolSurface
 from ..math.counter_rng import prng_key
 from ..math.sobol import sobol_uniforms
-from ..models.dynamics import LognormalDynamics
+from ..models.dynamics import LognormalDynamics, NormalDynamics
 from ..ops.gbm_kernel import gbm_normals
 from ..utils import device_of, f64, resolve_device
 from .black_scholes import bs_price
@@ -56,6 +56,12 @@ def _solve_asian_mc(prob, method):
         )
     if torch.as_tensor(payoff.strike).ndim > 0:
         raise TypeError("Asian MC prices one strike per solve; vmap for grids")
+    if isinstance(payoff.averaging, GeometricAverage) and isinstance(method.dynamics,
+                                                                     NormalDynamics):
+        raise TypeError(
+            "geometric averaging is undefined under NormalDynamics "
+            "(Bachelier paths can go negative); use ArithmeticAverage"
+        )
     discount = _discount(prob, resolve_device(method.device))
     obs = simulate_price_grid(prob, method)[:, 1:, :]  # (g, steps, paths)
     if isinstance(payoff.averaging, GeometricAverage):

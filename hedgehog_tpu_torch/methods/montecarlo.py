@@ -12,7 +12,9 @@ mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
 ``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close) and
 ``distributions/broadie_kaya.py`` (exact Broadie-Kaya terminal sampling)
 and ``jump_mc.py`` (the Merton, Kou, variance-gamma and Bates samplers and
-grids, and the Bates mixing estimator);
+grids, and the Bates mixing estimator) and ``normal_lv_mc.py`` (the
+Bachelier, CEV, SABR, local-vol and SLV samplers and grids, SLV on the
+Heston Euler stepper);
 ``use_kernel=True`` routes them through the CUDA kernels of
 ``hedgehog_tpu_torch.ops``.  ``simulate_price_grid`` and
 ``simulate_conditional_grid`` give the whole path grids the early-exercise
@@ -64,11 +66,16 @@ from ..market.inputs import carry_yield, market_yearfrac
 from ..market.rate_curve import df, zero_rate_yf
 from ..models.dynamics import (
     BatesDynamics,
+    CEVDynamics,
     HestonDynamics,
     KouJumpDynamics,
+    LocalVolDynamics,
     LognormalDynamics,
     MertonJumpDynamics,
+    NormalDynamics,
     RoughBergomiDynamics,
+    SABRDynamics,
+    SLVDynamics,
     VarianceGammaDynamics,
 )
 from ..utils import f64, resolve_device
@@ -85,6 +92,7 @@ __all__ = [
     "MertonExact",
     "KouExact",
     "VarianceGammaExact",
+    "BachelierExact",
     "NoVarianceReduction",
     "Antithetic",
     "simulate_terminal_prices",
@@ -230,6 +238,13 @@ class VarianceGammaExact(SimulationStrategy):
     VarianceGammaDynamics and VarianceGammaInputs): one gamma subordinator
     draw G ~ Gamma(T/ν, ν) by the corrected-saddlepoint quantile (boosted
     below shape 1) and one normal, log S += (r − q + ω)T + θG + σ√G·Z."""
+
+
+@_frozen
+class BachelierExact(SimulationStrategy):
+    """Exact Bachelier terminal draw (pair with NormalDynamics and
+    BachelierInputs): S_T = F + σ_N√T·Z from one normal, no discretization
+    error, negative prices allowed."""
 
 
 @_frozen
@@ -392,6 +407,8 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
         return _broadie_kaya_terminal(prob, method, key, device_id)
     if isinstance(dyn, _JUMP_DYNAMICS):
         return _jump_terminal(prob, method, key, device_id, point_offset)
+    if isinstance(dyn, _NORMAL_LV_DYNAMICS):
+        return _normal_lv_terminal(prob, method, key, device_id, point_offset)
     if isinstance(dyn, RoughBergomiDynamics) and isinstance(strat, EulerMaruyama):
         if config.qmc and strat.use_kernel:
             raise ValueError(
@@ -495,6 +512,47 @@ def _jump_terminal(prob, method, key, device_id, point_offset):
     )
 
 
+_NORMAL_LV_DYNAMICS = (NormalDynamics, CEVDynamics, SABRDynamics, LocalVolDynamics,
+                       SLVDynamics)
+
+
+def _normal_lv_routes():
+    """(dynamics, its Euler grid, the family's name in the messages) of the
+    normal and local-vol families (their samplers import this module)."""
+    from . import normal_lv_mc as n
+
+    return ((NormalDynamics, n.bachelier_euler_paths, "Bachelier"),
+            (SABRDynamics, n.sabr_euler_paths, "SABR"),
+            (LocalVolDynamics, n.local_vol_euler_paths, "local vol"),
+            (CEVDynamics, n.cev_euler_paths, "CEV"),
+            (SLVDynamics, n.slv_euler_paths, "SLV"))
+
+
+def _normal_lv_terminal(prob, method, key, device_id, point_offset):
+    """The normal and local-vol branch of :func:`simulate_terminal_prices`
+    (montecarlo.py:3395-3437), with the JAX package's guards."""
+    dyn, strat, config = method.dynamics, method.strategy, method.config
+    if config.qmc and getattr(strat, "use_kernel", False):
+        raise ValueError(
+            "qmc=True is not supported with the GBM/Euler kernel strategies or "
+            "HestonBroadieKaya; use the float64 samplers or HestonQE(use_kernel=True)"
+        )
+    kw = dict(key=key, device_id=device_id, point_offset=point_offset,
+              device=resolve_device(method.device))
+    if isinstance(strat, BachelierExact) and isinstance(dyn, NormalDynamics):
+        from .normal_lv_mc import bachelier_exact_terminal
+
+        return bachelier_exact_terminal(prob, config, **kw)
+    if isinstance(strat, EulerMaruyama):
+        _, euler, name = next(r for r in _normal_lv_routes() if isinstance(dyn, r[0]))
+        if strat.use_kernel:
+            raise TypeError(f"{name} has no fused kernel; drop use_kernel=True")
+        return euler(prob, config, return_grid=False, **kw)
+    raise TypeError(
+        f"unsupported (dynamics, strategy) = ({type(dyn).__name__}, {type(strat).__name__})"
+    )
+
+
 def _broadie_kaya_terminal(prob, method, key, device_id):
     """The Broadie-Kaya branch of :func:`simulate_terminal_prices`, with the
     JAX package's guards (montecarlo.py:3309-3356)."""
@@ -522,9 +580,10 @@ def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
     ``method.device``, for the grid methods (LSM): lognormal dynamics step
     with the exact per-step lognormal transition (the log-Euler GBM paths,
     whatever the strategy), Heston Euler and QE(-M) with the terminal
-    samplers' steppers and draws, and ``HestonQE(conditional=True)`` with
-    the conditional bridge (its S grid; LSM takes the V grid too through
-    :func:`simulate_conditional_grid`)."""
+    samplers' steppers and draws, ``HestonQE(conditional=True)`` with the
+    conditional bridge (its S grid; LSM takes the V grid too through
+    :func:`simulate_conditional_grid`), and the jump, normal and local-vol
+    families' Euler grids with their terminal samplers' draws."""
     dyn, strat, config = method.dynamics, method.strategy, method.config
     kw = dict(key=key, point_offset=point_offset)
     if isinstance(strat, HestonQE) and strat.conditional:
@@ -552,6 +611,9 @@ def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
         # exact jump increments a step; the Brownian-bridge barrier
         # corrections do not apply between jump grid dates
         euler = next(r[3] for r in _jump_routes() if isinstance(dyn, r[0]))
+        return euler(prob, config, return_grid=True, device=device, **kw)
+    if isinstance(dyn, _NORMAL_LV_DYNAMICS) and isinstance(strat, EulerMaruyama):
+        euler = next(r[1] for r in _normal_lv_routes() if isinstance(dyn, r[0]))
         return euler(prob, config, return_grid=True, device=device, **kw)
     raise TypeError(
         f"unsupported grid simulation ({type(dyn).__name__}, {type(strat).__name__})"

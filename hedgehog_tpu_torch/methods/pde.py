@@ -2,7 +2,10 @@
 device.
 
 Port of the 1-D engine of ``hedgehog_tpu/methods/pde.py`` under
-``LognormalDynamics`` (the Black-Scholes generator).  One backward solve
+``LognormalDynamics`` (the Black-Scholes generator), ``CEVDynamics`` (the
+σ·S^β diffusion on ``CEVInputs``) and ``LocalVolDynamics`` (Dupire's
+σ_loc(t, S) from a ``BlackScholesInputs`` surface at each step's mid
+time).  One backward solve
 values every spot level at once, American and Bermudan exercise is a
 projection (no regression noise), and barriers and digitals price without
 Monte Carlo error.
@@ -32,8 +35,7 @@ Monte Carlo error.
   exercise date) and the Dirichlet row pinned again.
 
 ``PDEMethod(HestonDynamics())`` runs the Heston 2-D ADI solver of
-``pde2d.py`` on a (variance × spot) grid of ``var_steps`` + 1 rows.  The
-CEV and local-vol dynamics are not ported; their dynamics raise TypeError.
+``pde2d.py`` on a (variance × spot) grid of ``var_steps`` + 1 rows.
 """
 
 from __future__ import annotations
@@ -58,12 +60,18 @@ from ..core.payoffs import (
 )
 from ..core.problems import PDESolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
-from ..market.inputs import BlackScholesInputs, HestonInputs, carry_yield, market_yearfrac
+from ..market.inputs import (
+    BlackScholesInputs,
+    CEVInputs,
+    HestonInputs,
+    carry_yield,
+    market_yearfrac,
+)
 from ..market.rate_curve import df, df_yf
 from ..market.vol_surface import get_vol
 from ..math.interpolation import interp1d
 from ..math.linalg import tridiag_solve_pcr
-from ..models.dynamics import HestonDynamics, LognormalDynamics
+from ..models.dynamics import CEVDynamics, HestonDynamics, LocalVolDynamics, LognormalDynamics
 from ..utils import f64, resolve_device
 
 __all__ = ["PDEMethod", "convection_diffusion_operator"]
@@ -100,6 +108,33 @@ def _sinh_grid(s_lo, s_hi, center, scale, n: int) -> torch.Tensor:
     u = torch.linspace(0.0, 1.0, n + 1, dtype=torch.float64, device=center.device)
     s = center + scale * torch.sinh(c1 + u * (c2 - c1))
     return torch.cat([s_lo.reshape(1), s[1:-1], s_hi.reshape(1)])
+
+
+def _reference_vol(market, dynamics, payoff, dev) -> torch.Tensor:
+    """A lognormal-vol proxy that sizes the grid: σ·S₀^{β−1} under CEV,
+    else the implied vol at (expiry, strike)."""
+    if isinstance(dynamics, CEVDynamics):
+        return (f64(market.sigma, device=dev)
+                * torch.clamp(f64(market.spot, device=dev), min=1e-12) ** (
+                    f64(market.beta, device=dev) - 1.0))
+    return f64(get_vol(market.sigma, payoff.expiry, payoff.strike), device=dev)
+
+
+def _local_sigmas(market, dynamics, payoff, s_grid, t_mid) -> torch.Tensor:
+    """σ(t, S) in price-vol units (dS = … + σ·S dW) at the grid nodes:
+    (M, n + 1) at the steps' mid times under local vol, (n + 1,) otherwise
+    (CEV's σ·S^{β−1}, or the flat implied vol)."""
+    dev = s_grid.device
+    if isinstance(dynamics, CEVDynamics):
+        return f64(market.sigma, device=dev) * torch.clamp(s_grid, min=1e-12) ** (
+            f64(market.beta, device=dev) - 1.0)
+    if isinstance(dynamics, LocalVolDynamics):
+        from ..models.local_vol import dupire_local_vol
+
+        sig = dupire_local_vol(market, t_mid[:, None], s_grid[None, :])
+        return torch.broadcast_to(f64(sig, device=dev), (t_mid.shape[0], s_grid.shape[0]))
+    sigma = f64(get_vol(market.sigma, payoff.expiry, payoff.strike), device=dev)
+    return torch.broadcast_to(sigma, s_grid.shape)
 
 
 def convection_diffusion_operator(x, dcoef, drift, kill):
@@ -190,13 +225,14 @@ def _pde_backward(market, method: PDEMethod, payoff, s_grid, v_T, dirichlet) -> 
     T = market_yearfrac(market, payoff.expiry)
     dt = T / M
     q = f64(carry_yield(market), device=dev)
-    sigma = f64(get_vol(market.sigma, payoff.expiry, payoff.strike), device=dev)
 
-    # curve-exact forward rates over [t_k, t_{k+1}] and every step's operator
+    # curve-exact forward rates over [t_k, t_{k+1}], mid-step local vols and
+    # every step's operator
     t_edges = torch.arange(M + 1, dtype=torch.float64, device=dev) * dt
     log_df = torch.log(df_yf(market.rate, t_edges).to(dev))
     r_steps = (-(log_df[1:] - log_df[:-1]) / dt)[:, None]  # (M, 1)
-    sig = torch.broadcast_to(sigma, s_grid.shape)
+    t_mid = (torch.arange(M, dtype=torch.float64, device=dev) + 0.5) * dt
+    sig = _local_sigmas(market, method.dynamics, payoff, s_grid, t_mid)
     lower, main, upper = convection_diffusion_operator(
         s_grid, 0.5 * sig**2 * s_grid**2, (r_steps - q) * s_grid, r_steps)
     # Rannacher: the first steps walked (nearest expiry, i ≥ M − rannacher)
@@ -297,24 +333,32 @@ def _check_supported(prob: PricingProblem, method: PDEMethod):
             "PDEMethod prices one contract per solve (its grid is built "
             "around the strike); loop over contracts for grids"
         )
-    if isinstance(method.dynamics, HestonDynamics):
-        if not isinstance(prob.market_inputs, HestonInputs):
+    dyn, market = method.dynamics, prob.market_inputs
+    if isinstance(dyn, HestonDynamics):
+        if not isinstance(market, HestonInputs):
             raise TypeError(
                 f"PDEMethod(HestonDynamics()) prices HestonInputs markets; got "
-                f"{type(prob.market_inputs).__name__}"
+                f"{type(market).__name__}"
             )
         return
-    if not isinstance(method.dynamics, LognormalDynamics):
+    if not isinstance(dyn, (LognormalDynamics, CEVDynamics, LocalVolDynamics)):
         raise TypeError(
-            f"the port's PDEMethod supports LognormalDynamics and HestonDynamics, got "
-            f"{type(method.dynamics).__name__}; the CEV and local-vol PDE "
-            "dynamics come with their model families (ROADMAP.md Queue 1, "
-            "item 8.2)"
+            f"PDEMethod supports Lognormal/CEV/LocalVol dynamics (1-D grid) "
+            f"and Heston (2-D ADI), got {type(dyn).__name__}; "
+            "other stochastic-vol/jump models use their MC/Fourier engines"
         )
-    if not isinstance(prob.market_inputs, BlackScholesInputs):
+    want = CEVInputs if isinstance(dyn, CEVDynamics) else BlackScholesInputs
+    if not isinstance(market, want):
         raise TypeError(
-            f"PDEMethod(LognormalDynamics()) prices BlackScholesInputs markets; got "
-            f"{type(prob.market_inputs).__name__}"
+            f"PDEMethod({type(dyn).__name__}()) prices {want.__name__} markets; got "
+            f"{type(market).__name__}"
+        )
+    if getattr(market, "dividends", None) is not None and not isinstance(dyn, LognormalDynamics):
+        raise TypeError(
+            "discrete-dividend PDE jump conditions are wired for "
+            "LognormalDynamics (a Dupire surface already embeds its own "
+            "dividend assumptions); strip the schedule or use "
+            "LognormalDynamics"
         )
 
 
@@ -340,7 +384,7 @@ def _solve_pde(prob: PricingProblem, method: PDEMethod) -> PDESolution:
     dev = resolve_device(method.device)
     T = market_yearfrac(market, payoff.expiry)
     k = f64(payoff.strike, device=dev)
-    sigma_ref = f64(get_vol(market.sigma, payoff.expiry, payoff.strike), device=dev)
+    sigma_ref = _reference_vol(market, method.dynamics, payoff, dev)
     s_lo, s_hi = _grid_bounds(market, payoff, sigma_ref, T, method.n_std, dev)
     if getattr(market, "dividends", None) is not None:
         # the cash drops push the path band down: widen the lower bound by
@@ -367,7 +411,7 @@ def _solve_pde_knock_out(prob: PricingProblem, method: PDEMethod) -> PDESolution
         raise TypeError("PDEMethod prices one (strike, barrier) pair per solve")
     dev = resolve_device(method.device)
     T = market_yearfrac(market, payoff.expiry)
-    sigma_ref = f64(get_vol(market.sigma, payoff.expiry, payoff.strike), device=dev)
+    sigma_ref = _reference_vol(market, method.dynamics, payoff, dev)
     s_lo, s_hi = _grid_bounds(market, payoff, sigma_ref, T, method.n_std, dev)
     up = isinstance(payoff.direction, Up)
     H = f64(payoff.barrier, device=dev)

@@ -1,8 +1,10 @@
 """Price dynamics markers, the lognormal terminal law and the characteristic
 functions of log S_T, in native complex128.
 
-Port of the Black-Scholes, Heston, rough-Bergomi, jump-diffusion (Merton,
-Kou, Bates) and variance-gamma parts of ``hedgehog_tpu/models/dynamics.py``
+Port of ``hedgehog_tpu/models/dynamics.py``: the Black-Scholes, Heston,
+rough-Bergomi, jump-diffusion (Merton, Kou, Bates), variance-gamma, normal,
+CEV, SABR, local-vol and SLV markers, the CIR-family Euler update the SLV
+pricer and its leverage calibration share, and the characteristic functions
 (reference montecarlo.jl:286-320 and src/distributions/heston.jl:307-319).
 The JAX package also carries a split real/imaginary form for the TPU, which
 has no complex128; the port does not need it.  The ``*_terminal_params``
@@ -28,6 +30,12 @@ __all__ = [
     "KouJumpDynamics",
     "VarianceGammaDynamics",
     "BatesDynamics",
+    "NormalDynamics",
+    "CEVDynamics",
+    "SABRDynamics",
+    "LocalVolDynamics",
+    "SLVDynamics",
+    "cir_family_euler_update",
     "lognormal_terminal_law",
     "merton_terminal_params",
     "kou_terminal_params",
@@ -83,6 +91,64 @@ class VarianceGammaDynamics:
 class BatesDynamics:
     """Bates (1996): Heston variance plus Merton lognormal jumps.  Markets
     carry :class:`~hedgehog_tpu_torch.market.inputs.BatesInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalDynamics:
+    """Bachelier: the T-forward follows dF = σ_N dW (σ_N in price units), so
+    it can go negative.  No log-price CF; pricing runs through
+    :class:`~hedgehog_tpu_torch.methods.bachelier.BachelierAnalytic` or Monte
+    Carlo.  Markets carry :class:`~hedgehog_tpu_torch.market.inputs.BachelierInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CEVDynamics:
+    """Constant elasticity of variance: dS = (r − q)·S dt + σ·S^β dW,
+    β ∈ (0, 1), absorbing at zero.  No log-price CF (the law has an atom at
+    zero); pricing runs through the Schroder closed form, price-space Euler
+    Monte Carlo or the PDE.  Markets carry
+    :class:`~hedgehog_tpu_torch.market.inputs.CEVInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SABRDynamics:
+    """SABR on the T-forward: dF = α F^β dW₁, dα = ν α dW₂,
+    corr(dW₁, dW₂) = ρ.  No tractable CF; pricing runs through Hagan's
+    expansion or Euler Monte Carlo.  Markets carry
+    :class:`~hedgehog_tpu_torch.market.inputs.SABRInputs`."""
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalVolDynamics:
+    """Dupire local volatility: GBM with σ_loc(t, S) from the market's
+    implied-vol surface (models/local_vol.py).  Markets are
+    :class:`~hedgehog_tpu_torch.market.inputs.BlackScholesInputs` whose
+    ``sigma`` is a surface."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SLVDynamics:
+    """Stochastic local vol: Heston variance with a leverage L(t, S)
+    calibrated so the model reprices the market's vanilla surface
+    (models/slv.py).  No CF; pricing runs through Euler Monte Carlo on a
+    calibrated :class:`~hedgehog_tpu_torch.market.inputs.SLVInputs` market."""
+
+
+def cir_family_euler_update(x, v, z1, z2, *, lev_x, fk, kappa, theta, sig_v, rho, rho_bar,
+                            dt, sqrt_dt):
+    """One full-truncation log-Euler step of the CIR-variance family, the
+    single (log S, V) update of the SLV pricing stepper
+    (methods/heston_euler.py) and of the particle leverage calibration
+    (models/slv.py), so the model the calibration fits is the model the
+    pricer simulates.  ``lev_x`` is each particle's leverage L(t_k, S).
+    V⁺ takes JAX's tie rule at V = 0 (half the gradient to each side), and
+    the double-where square root keeps a truncated path's gradient finite."""
+    v_plus = torch.maximum(v, torch.zeros_like(v))
+    sqrt_v = torch.where(v > 0.0, torch.sqrt(torch.where(v > 0.0, v, 1.0)), 0.0)
+    sig_s = lev_x * sqrt_v
+    x_new = x + (fk - 0.5 * sig_s**2) * dt + sig_s * sqrt_dt * z1
+    v_new = v + kappa * (theta - v_plus) * dt + sig_v * sqrt_v * sqrt_dt * (rho * z1 + rho_bar * z2)
+    return x_new, v_new
 
 
 def _c128(u) -> torch.Tensor:

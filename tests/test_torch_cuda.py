@@ -8,6 +8,7 @@ FMAs and its expf/logf/sincosf differ from the twins' by an ulp, so ≥ 99.9%
 of values agree within 1e-4 relative (values below 1e-3 absolutely) and the
 means within 1e-6; a rare path crosses an fp32 threshold (a Poisson count)."""
 
+import dataclasses
 import datetime as dt
 import math
 import pathlib
@@ -1604,3 +1605,80 @@ def test_barrier_lsm_on_the_card_matches_the_cpu(gpu):
         assert sols[0].price.device.type == "cuda"
         assert torch.equal(sols[0].stopping_info[0].cpu(), sols[1].stopping_info[0])
         assert float(sols[0].price) == pytest.approx(float(sols[1].price), rel=1e-10)
+
+
+NL_REF, NL_EXPIRY = dt.date(2024, 1, 1), dt.date(2024, 12, 31)
+
+
+def test_normal_and_cev_families_on_the_card_match_the_cpu(gpu):
+    """The Bachelier, CEV (its incomplete gamma's loops and β-gradient) and
+    SABR closed forms to 1e-12, and their Euler grids on 1024 PRNG pairs
+    per path to 1e-10."""
+    beta = torch.tensor(0.5, dtype=torch.float64, requires_grad=True)
+    markets = {"bach": ht.BachelierInputs(NL_REF, 0.05, 100.0, 20.0),
+               "cev": ht.CEVInputs(NL_REF, 0.05, 100.0, 2.0, beta, dividend_yield=0.01),
+               "sabr": ht.SABRInputs(NL_REF, 0.03, 100.0, 0.2, 0.7, -0.3, 0.4)}
+    strikes = torch.linspace(60.0, 140.0, 9, dtype=torch.float64)
+    for key, method, dyn in (("bach", ht.BachelierAnalytic, ht.NormalDynamics()),
+                             ("cev", ht.CEVAnalytic, ht.CEVDynamics()),
+                             ("sabr", ht.SABRAnalytic, ht.SABRDynamics())):
+        prices = [ht.solve(ht.PricingProblem(ht.VanillaOption(strikes.to(d), NL_EXPIRY),
+                                             markets[key]), method(device=d)).price
+                  for d in (gpu, "cpu")]
+        assert prices[0].device.type == "cuda"
+        # 1e-12 of each price and of the largest (chip_smoke's compare_vectors):
+        # the CEV legs' lgamma-weighted sums round differently on the card
+        assert torch.allclose(prices[0].detach().cpu(), prices[1].detach(), rtol=1e-12,
+                              atol=1e-12 * float(prices[1].abs().max()))
+        grids = [ht.simulate_price_grid(
+            ht.PricingProblem(ht.VanillaOption(100.0, NL_EXPIRY), markets[key]),
+            ht.MonteCarlo(dyn, ht.EulerMaruyama(), ht.SimulationConfig(1024, 16, ht.Antithetic(),
+                                                                        3), device=d))
+            for d in (gpu, "cpu")]
+        assert torch.allclose(grids[0].detach().cpu(), grids[1].detach(), rtol=1e-10, atol=1e-10)
+    grads = [torch.autograd.grad(ht.solve(ht.PricingProblem(ht.VanillaOption(100.0, NL_EXPIRY),
+                                                            markets["cev"]),
+                                          ht.CEVAnalytic(device=d)).price, beta)[0]
+             for d in (gpu, "cpu")]
+    assert float(grads[0]) == pytest.approx(float(grads[1]), rel=1e-10)
+
+
+def test_local_vol_and_slv_on_the_card_match_the_cpu(gpu):
+    """Dupire local vol on a cubic surface, the local-vol grid (QMC) and the
+    PDE, a leverage calibration and the SLV grid on it, card against CPU to
+    1e-10."""
+    strikes = torch.tensor([70.0, 85.0, 100.0, 115.0, 130.0], dtype=torch.float64)
+    row = torch.clamp(0.25 - 0.10 * torch.log(strikes / 100.0), 0.12, 0.45)
+    vols = torch.stack([row, 1.05 * row])
+    tenors = torch.tensor([0.5, 1.5], dtype=torch.float64)
+
+    def market(d):
+        surf = ht.RectVolSurface(NL_REF, tenors.to(d), strikes.to(d), vols.to(d),
+                                 interp_strike="cubic")
+        return (ht.BlackScholesInputs(NL_REF, 0.03, 100.0, surf),
+                ht.SLVInputs(NL_REF, 0.03, 100.0, 0.0625, 1.5, 0.0625, 0.5, -0.6,
+                             sigma_surface=surf))
+
+    t = torch.tensor([0.1, 0.7, 1.2], dtype=torch.float64)[:, None]
+    k = torch.tensor([75.0, 100.0, 125.0], dtype=torch.float64)[None, :]
+    lvs = [ht.dupire_local_vol(market(d)[0], t.to(d), k.to(d)) for d in (gpu, "cpu")]
+    assert lvs[0].device.type == "cuda"
+    assert torch.allclose(lvs[0].cpu(), lvs[1], rtol=1e-12, atol=0)
+    call = ht.VanillaOption(100.0, NL_EXPIRY)
+    cfg = ht.SimulationConfig(1024, 12, ht.Antithetic(), 0, True)
+    grids = [ht.simulate_price_grid(ht.PricingProblem(call, market(d)[0]), ht.MonteCarlo(
+        ht.LocalVolDynamics(), ht.EulerMaruyama(), cfg, device=d)) for d in (gpu, "cpu")]
+    assert torch.allclose(grids[0].cpu(), grids[1], rtol=1e-10, atol=0)
+    pdes = [ht.solve(ht.PricingProblem(ht.VanillaOption(110.0, NL_EXPIRY, ht.American(),
+                                                        ht.Put()), market(d)[0]),
+                     ht.PDEMethod(ht.LocalVolDynamics(), 200, 100, device=d)).price
+            for d in (gpu, "cpu")]
+    assert float(pdes[0]) == pytest.approx(float(pdes[1]), rel=1e-10)
+    levs = [ht.calibrate_leverage(market(d)[1], NL_EXPIRY, steps=12, paths=2048, bins=33,
+                                  device=d) for d in (gpu, "cpu")]
+    assert torch.allclose(levs[0].values.cpu(), levs[1].values, rtol=1e-10, atol=1e-12)
+    grids = [ht.simulate_price_grid(ht.PricingProblem(call, market(d)[1].with_leverage(levs[1])),
+                                    ht.MonteCarlo(ht.SLVDynamics(), ht.EulerMaruyama(),
+                                                  dataclasses.replace(cfg, qmc=False), device=d))
+             for d in (gpu, "cpu")]
+    assert torch.allclose(grids[0].cpu(), grids[1], rtol=1e-10, atol=0)

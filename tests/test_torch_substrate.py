@@ -122,7 +122,7 @@ def test_from_reference_round_trip():
 
 def test_from_reference_rejects_what_the_port_lacks():
     with pytest.raises(TypeError, match="no counterpart"):
-        ht.from_reference(hh.BachelierExact())
+        ht.from_reference(hh.HullWhiteAnalytic())
 
     @dataclasses.dataclass(frozen=True)
     class CarrMadan:  # a reference class with a field the port's CarrMadan lacks

@@ -1,6 +1,5 @@
 """The port's SVI surface (hedgehog_tpu_torch/market/svi.py) against the JAX
-package's: the cases of tests/unit/test_svi.py but the Dupire one (the
-port has no local-vol model yet), on the CPU.
+package's: the cases of tests/unit/test_svi.py, on the CPU.
 
 Tolerances: slice evaluations, forwards and margins against JAX to 1e-12
 relative; fitted parameters within 2e-4 of the truth and of JAX's fit (the
@@ -258,3 +257,13 @@ def test_slice_entry_points_run_without_jax():
                          cwd=pathlib.Path(__file__).resolve().parents[1], timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_svi_feeds_dupire_local_vol():
+    """tests/unit/test_svi.py:113 on the port's surface, and the local vol
+    against JAX's at the same point."""
+    mkt = ht.BlackScholesInputs(REF, RATE, S0, _surface())
+    lv = ht.dupire_local_vol(mkt, 0.5, 100.0)
+    assert bool(torch.isfinite(lv)) and 0.05 < float(lv) < 1.0
+    want = hh.dupire_local_vol(hh.BlackScholesInputs(REF, RATE, S0, _j_surface()), 0.5, 100.0)
+    np.testing.assert_allclose(_np(lv), _np(want), rtol=RTOL)
