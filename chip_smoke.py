@@ -132,7 +132,7 @@ their closed forms, an American put by LSM on the Merton grid; card against
 CPU for the deterministic prices and the first 4096 pairs (1e-10).
 
 "normal and local vol" (``--only "normal and local vol"``; no kernel, no
-build) closes the run: the Bachelier, CEV and SABR closed forms on 41
+build): the Bachelier, CEV and SABR closed forms on 41
 strikes card against CPU (1e-12), parity and ``implied_normal_vol``; at
 2^20 antithetic PRNG pairs ``BachelierExact`` and the Bachelier, CEV and
 SABR Euler grids (64 steps) within 4 SE plus scripts/normal_lv_bias.py's
@@ -143,6 +143,19 @@ Black-Scholes; ``calibrate_leverage`` at the JAX defaults and the SLV grid
 (2^20 pairs x 64 steps) repricing the skew surface's vanillas within 2e-2 at
 mixing 1 and 0, and an American put by LSM on it; card against CPU for the
 first 4096 pairs of each route, the PDE and a small calibration (1e-10).
+
+"rates baskets and vix" (``--only "rates baskets and vix"`` builds the
+kernels: its n = 1 check launches K7) closes the run: the Hull-White closed
+forms (bonds, bond options, caplets, caps, Jamshidian swaptions) card
+against CPU (1e-12) and the swaption vega (1e-10); at 2^20 antithetic PRNG
+pairs the exact short-rate Monte Carlo within 4 SE of them, the x-grid's
+European corner against Jamshidian and the Bermudan LSM below the grid;
+Heston-Hull-White (2^20 pairs x 32 steps) at its Black-Scholes-Hull-White
+and Heston corners, parity and the martingale discount; multi-asset
+Black-Scholes (Margrabe, the geometric basket, Stulz, Kirk) and Heston
+(sigma_v -> 0, and the n = 1 basket against the single-asset solve through
+K7); VIX at the defaults against the exact CIR draw of V_T; card against CPU
+for the first 4096 pairs of each Monte Carlo route (1e-10).
 
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
@@ -5853,19 +5866,420 @@ def phase_normal_local_vol(smi: str, device: str) -> dict:
     return out
 
 
+RT_PAIRS = 2**20  # antithetic pairs of every Monte Carlo check of phase "rates baskets and vix"
+RT_CPU_PAIRS = 4096  # the first pairs, priced again on the CPU
+RT_SEED = 7
+RT_HW_STEPS = 4  # the exact Hull-White transitions of tests/unit/test_hull_white.py
+RT_STEPS = 32  # Heston-Hull-White and multi-asset Heston steps
+RT_CARD_RTOL = 1e-12  # the closed forms, the grid and VIX, card against CPU
+RT_PATH_RTOL = 1e-10  # per-path values and the swaption vega, card against CPU
+#: tests/unit/test_hull_white.py's market: a curve on 5 tenors, a = 0.1, sigma = 0.012
+RT_REF = dt.date(2024, 1, 1)
+RT_TENORS, RT_ZEROS = (0.5, 1.0, 2.0, 3.0, 5.0), (0.02, 0.025, 0.03, 0.032, 0.035)
+RT_SWAP_DATES = (dt.date(2026, 1, 1), dt.date(2027, 1, 1), dt.date(2028, 1, 1))
+RT_EXPIRY = dt.date(2024, 12, 31)  # T = 1, tests/unit/test_heston_hull_white.py
+#: the grid's European corner against Jamshidian: test_hull_white.py:247's rel
+#: (the two engines differ by 1.8e-5 payer, 6.2e-5 receiver at 257 nodes, as in JAX)
+RT_GRID_JAMSHIDIAN = 2e-4
+#: the Heston corner against Carr-Madan beside 4 SE: test_heston_hull_white.py:80's
+#: rel 3e-3, the allowance of the hybrid's QE scheme at 32 steps
+RT_HESTON_CORNER = 3e-3
+#: tests/unit/test_vix.py's market and expiry
+RT_VIX_REF, RT_VIX_EXPIRY = dt.date(2025, 1, 1), dt.date(2025, 7, 1)
+RT_VIX = dict(V0=0.04, kappa=2.0, theta=0.05, sigma=0.6, rho=-0.7)
+RT_VIX_JUMPS = (0.3, -0.1, 0.15)
+
+
+def rt_hw_market(ht, device: str, sigma=0.012):
+    """test_hull_white.py's Hull-White market, its curve's spine on ``device``."""
+    import torch
+
+    tenors = torch.tensor(RT_TENORS, dtype=torch.float64, device=device)
+    zeros = torch.tensor(RT_ZEROS, dtype=torch.float64, device=device)
+    return ht.HullWhiteInputs(RT_REF, ht.RateCurve(RT_REF, tenors, zeros), 0.1, sigma)
+
+
+def rt_hw_payoffs(ht) -> dict:
+    e, b = dt.date(2025, 1, 1), dt.date(2028, 1, 1)
+    strip = [dt.date(2024, 7, 1), e, dt.date(2025, 7, 1), dt.date(2026, 1, 1)]
+    return {"zcb": ht.ZeroCouponBond(dt.date(2027, 1, 1)),
+            "bond call": ht.BondOption(0.92, e, b), "bond put": ht.BondOption(0.92, e, b, ht.Put()),
+            "caplet": ht.Caplet(0.03, e, dt.date(2025, 7, 1), 100.0),
+            "floorlet": ht.Caplet(0.03, e, dt.date(2025, 7, 1), 100.0, ht.Put()),
+            "cap": ht.CapFloor(0.03, strip, 100.0), "floor": ht.CapFloor(0.03, strip, 100.0, ht.Put()),
+            "payer": ht.Swaption(0.032, e, RT_SWAP_DATES, True, 100.0),
+            "receiver": ht.Swaption(0.032, e, RT_SWAP_DATES, False, 100.0),
+            "bermudan": ht.Swaption(0.032, e, RT_SWAP_DATES, True, 100.0,
+                                    ht.Bermudan([dt.date(2026, 1, 1), dt.date(2027, 1, 1)]))}
+
+
+def rt_pair_se(values, discount: float = 1.0) -> float:
+    """The standard error of a price from its per-path values (n_groups, ...,
+    pairs): antithetic groups averaged first."""
+    pairs = values.mean(dim=0).double()
+    return discount * float(pairs.std(dim=-1).max()) / math.sqrt(pairs.shape[-1])
+
+
+def rt_within(label: str, got: float, want: float, se: float, allowance: float = 0.0) -> dict:
+    """Check |got − want| ≤ 4 SE + allowance·|want| and print it."""
+    bp = 1e4 * (got / want - 1.0) if want else float("nan")
+    say(f"  {label}: {got:.8f} against {want:.8f}: {bp:+.2f} bp ({(got - want) / se:+.2f} SE; "
+        f"4 SE + {allowance:g} rel)")
+    check(abs(got - want) <= 4.0 * se + allowance * abs(want), f"{label}: {got} against {want}, "
+          f"SE {se}")
+    return {"price": got, "oracle": want, "se": se, "bp": bp}
+
+
+def phase_rates_baskets_vix(smi: str, device: str) -> dict:
+    """Rates, multi-asset and VIX on the card (plain PyTorch, but for one K7
+    launch).  (a) The Hull-White closed forms on test_hull_white.py's market
+    (ZCB, bond options, caplet and floorlet, cap and floor, payer and receiver
+    Jamshidian swaptions) card against CPU (1e-12), the swaption vega by
+    autograd (1e-10); (b) ``HullWhiteMonteCarlo`` at 2^20 antithetic PRNG pairs
+    x 4 exact steps, the ZCB martingale, a bond option, a caplet and a
+    swaption within 4 SE of the closed forms, the first 4096 QMC pairs card
+    against CPU (1e-10); (c) ``HullWhiteGrid`` (257 nodes) card against CPU,
+    its European corner against Jamshidian (rel 2e-4), the Bermudan LSM at
+    2^20 pairs within 1e-2 below the grid; (d) Heston-Hull-White at 2^20 pairs
+    x 32 steps: the Black-Scholes-Hull-White corner (4 SE), the Heston corner
+    against Carr-Madan (4 SE + 3e-3), parity and the martingale discount (4
+    SE); (e) multi-asset Black-Scholes at 2^20 pairs: Margrabe, the geometric
+    basket and the Stulz best-of and worst-of within 4 SE, Kirk within
+    test_multi_asset.py's 3e-3 and 6e-3, nine closed forms card against CPU;
+    (f) multi-asset Heston at 2^20 pairs x 32 steps: sigma_v -> 0 against Stulz
+    and Margrabe (4 SE), the n = 1 basket against ``solve`` through K7 at 2^20
+    QMC pairs (rel 1e-2), the first 4096 pairs card against CPU; (g) VIX at
+    the defaults (128 nodes x 2048 terms): the future and the K = 20 call and
+    put card against CPU, the future and calls at K = 15, 20, 25 against the
+    port's exact CIR draw of V_T at 2^20
+    (4 SE), the sigma_v -> 0 limit, the series/Edgeworth switch and the Bates
+    convexity term.  Prints each profiled solve's wall, idle share and peak
+    memory."""
+    import dataclasses
+    from statistics import NormalDist
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.distributions.broadie_kaya import sample_noncentral_chisq
+    from hedgehog_tpu_torch.methods import vix as pvix
+    from hedgehog_tpu_torch.models import hull_white as phw
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import QE_VALUES_KERNEL
+
+    say(f"phase 3 (rates baskets and vix): Hull-White, Heston-Hull-White, multi-asset and VIX on "
+        f"{device}; {smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    cpu = "cpu"
+
+    def on(method, dev):
+        return dataclasses.replace(method, device=dev)
+
+    def solve(prob, method):
+        sol = ht.solve(prob, method)
+        p = torch.as_tensor(sol.price)
+        check(p.device.type == torch.device(method.device).type,
+              f"{type(method).__name__} priced on {p.device}")
+        check(bool(torch.isfinite(p).all()), f"{type(method).__name__}: price {p}")
+        return sol
+
+    # (a) the Hull-White closed forms, card against CPU
+    rec = {}
+    hw_card, hw_cpu = rt_hw_market(ht, device), rt_hw_market(ht, cpu)
+    payoffs = rt_hw_payoffs(ht)
+    analytic = ht.HullWhiteAnalytic(device=device)
+    names = [n for n in payoffs if n != "bermudan"]
+    card = torch.stack([solve(ht.PricingProblem(payoffs[n], hw_card), analytic).price
+                        for n in names])
+    host = torch.stack([solve(ht.PricingProblem(payoffs[n], hw_cpu), on(analytic, cpu)).price
+                        for n in names])
+    compare_vectors(f"Hull-White closed forms {names}, card against CPU", card, host, RT_CARD_RTOL)
+    cf = dict(zip(names, card.tolist()))
+    vegas = []
+    for dev, market in ((device, hw_card), (cpu, hw_cpu)):
+        sig = torch.tensor(0.012, dtype=torch.float64, device=dev, requires_grad=True)
+        price = solve(ht.PricingProblem(payoffs["payer"], dataclasses.replace(market, sigma=sig)),
+                      on(analytic, dev)).price
+        vegas.append(torch.autograd.grad(price, sig)[0])
+    compare_vectors("payer swaption vega through x* (autograd), card against CPU", vegas[0],
+                    vegas[1], RT_PATH_RTOL)
+    rec["closed_forms"], rec["swaption_vega"] = cf, float(vegas[0])
+    exotic_profile(f"HullWhiteAnalytic payer swaption, Jamshidian ({smi})",
+                   lambda: ht.solve(ht.PricingProblem(payoffs["payer"], hw_card), analytic),
+                   device, out)
+    lap("Hull-White closed forms")
+
+    # (b) the exact short-rate Monte Carlo
+    def hw_mc(n, dev, qmc=False):
+        return ht.HullWhiteMonteCarlo(ht.SimulationConfig(n, RT_HW_STEPS, ht.Antithetic(), RT_SEED,
+                                                          qmc), device=dev)
+
+    for name in ("zcb", "bond call", "caplet", "payer"):
+        sol = solve(ht.PricingProblem(payoffs[name], hw_card), hw_mc(RT_PAIRS, device))
+        rec[f"mc {name}"] = rt_within(
+            f"HullWhiteMonteCarlo {name}, {RT_PAIRS} PRNG pairs x {RT_HW_STEPS} steps",
+            float(sol.price), cf[name], rt_pair_se(sol.ensemble))
+        compare_vectors(f"HullWhiteMonteCarlo {name}: the first {RT_CPU_PAIRS} QMC pairs, card "
+                        f"against CPU",
+                        solve(ht.PricingProblem(payoffs[name], hw_card),
+                              hw_mc(RT_CPU_PAIRS, device, True)).ensemble,
+                        solve(ht.PricingProblem(payoffs[name], hw_cpu),
+                              hw_mc(RT_CPU_PAIRS, cpu, True)).ensemble, RT_PATH_RTOL)
+    exotic_profile(f"HullWhiteMonteCarlo payer swaption, {RT_PAIRS} pairs x {RT_HW_STEPS} steps "
+                   f"({smi})", lambda: ht.solve(ht.PricingProblem(payoffs["payer"], hw_card),
+                                                hw_mc(RT_PAIRS, device)), device, out)
+    lap("Hull-White Monte Carlo")
+
+    # (c) the Bermudan swaption: grid, Jamshidian corner, LSM
+    grid = ht.HullWhiteGrid(device=device)
+    berm = ht.PricingProblem(payoffs["bermudan"], hw_card)
+    got = [solve(ht.PricingProblem(payoffs[n], hw_card), grid).price for n in ("payer", "bermudan")]
+    want = [solve(ht.PricingProblem(payoffs[n], hw_cpu), on(grid, cpu)).price
+            for n in ("payer", "bermudan")]
+    compare_vectors("HullWhiteGrid (257 nodes) European and Bermudan payer, card against CPU",
+                    torch.stack(got), torch.stack(want), RT_CARD_RTOL)
+    for name in ("payer", "receiver"):
+        g = float(solve(ht.PricingProblem(payoffs[name], hw_card), grid).price)
+        rel = g / cf[name] - 1.0
+        say(f"  HullWhiteGrid European {name} {g:.10f} against Jamshidian {cf[name]:.10f}: "
+            f"{rel:+.3e} (rel {RT_GRID_JAMSHIDIAN:g})")
+        check(abs(rel) <= RT_GRID_JAMSHIDIAN, f"grid {name} {g} against Jamshidian {cf[name]}")
+        rec[f"grid european {name}"] = {"grid": g, "jamshidian": cf[name], "rel": rel}
+    p_grid = float(got[1])
+    lsm = solve(berm, hw_mc(RT_PAIRS, device))
+    p_lsm = float(lsm.price)
+    say(f"  Bermudan LSM, {RT_PAIRS} pairs: {p_lsm:.8f} (SE {rt_pair_se(lsm.ensemble):.2e}) "
+        f"against the grid {p_grid:.8f}: {p_lsm / p_grid - 1.0:+.3e} (rel 1e-2, below x 1.005)")
+    check(abs(p_lsm / p_grid - 1.0) <= 1e-2 and p_lsm < 1.005 * p_grid,
+          f"Bermudan LSM {p_lsm} against the grid {p_grid}")
+    rec["bermudan"] = {"grid": p_grid, "lsm": p_lsm}
+    exotic_profile(f"HullWhiteGrid Bermudan, 257 nodes ({smi})", lambda: ht.solve(berm, grid),
+                   device, out)
+    exotic_profile(f"Bermudan LSM, {RT_PAIRS} pairs ({smi})",
+                   lambda: ht.solve(berm, hw_mc(RT_PAIRS, device)), device, out)
+    lap("Bermudan swaption")
+
+    # (d) Heston-Hull-White
+    def hhw(market, K, cp=None, pairs=RT_PAIRS, dev=device, seed=RT_SEED):
+        return solve(ht.PricingProblem(ht.VanillaOption(K, RT_EXPIRY, call_put=cp or ht.Call()),
+                                       market),
+                     ht.MonteCarlo(ht.HestonHullWhiteDynamics(), ht.HestonQE(conditional=True),
+                                   ht.SimulationConfig(pairs, RT_STEPS, ht.Antithetic(), seed),
+                                   device=dev))
+
+    T, D = 1.0, math.exp(-0.03)
+    s_s, a, sr, rho_sr = 0.2, 0.1, 0.015, -0.3
+    bshw = ht.HestonHullWhiteInputs(RT_REF, 0.03, 100.0, s_s**2, 2.0, s_s**2, 1e-8, 0.0, a, sr,
+                                    rho_sr)
+    ks = torch.tensor([90.0, 100.0, 110.0], dtype=torch.float64, device=device)
+    sol = hhw(bshw, ks)
+    b, g = float(phw.hw_b(a, T)), float(phw.hw_gamma(a, T))
+    tot = s_s**2 * T + 2 * rho_sr * s_s * sr * (T - b) / a + sr**2 * g
+    ncdf = NormalDist().cdf
+    pairs = sol.ensemble.mean(dim=0)
+    for i, k in enumerate(ks.tolist()):
+        d1 = (math.log(100.0 / D / k) + 0.5 * tot) / math.sqrt(tot)
+        want = D * (100.0 / D * ncdf(d1) - k * ncdf(d1 - math.sqrt(tot)))
+        rec[f"bshw K={k:g}"] = rt_within(
+            f"Heston-Hull-White sigma_v -> 0, K = {k:g}, {RT_PAIRS} pairs x {RT_STEPS} steps, "
+            f"against Black-Scholes-Hull-White", float(sol.price[i]), want,
+            D * float(pairs[i].std()) / math.sqrt(RT_PAIRS))
+    corner = ht.HestonHullWhiteInputs(RT_REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7, 0.1, 1e-10,
+                                      0.0)
+    sol = hhw(corner, 100.0)
+    hm = ht.HestonInputs(RT_REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
+    cm = float(solve(ht.PricingProblem(ht.VanillaOption(100.0, RT_EXPIRY), hm),
+                     ht.CarrMadan(1.0, "auto", ht.HestonDynamics(), device=device)).price)
+    rec["heston corner"] = rt_within(
+        f"Heston-Hull-White sigma_r -> 0, {RT_PAIRS} pairs x {RT_STEPS} steps, against Heston "
+        f"Carr-Madan", float(sol.price), cm, rt_pair_se(sol.ensemble, D), RT_HESTON_CORNER)
+    hhw_m = ht.HestonHullWhiteInputs(RT_REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.6, 0.1, 0.012,
+                                     -0.3)
+    kp = torch.tensor([80.0, 120.0], dtype=torch.float64, device=device)
+    diff = (hhw(hhw_m, kp).ensemble - hhw(hhw_m, kp, ht.Put()).ensemble).mean(dim=0) * D
+    for i, k in enumerate(kp.tolist()):
+        rec[f"parity K={k:g}"] = rt_within(
+            f"Heston-Hull-White call - put at K = {k:g} against S0 - K P(0, T)",
+            float(diff[i].mean()), 100.0 - k * D, float(diff[i].std()) / math.sqrt(RT_PAIRS))
+    disc = (diff[0] - diff[1]) / (40.0 * D)
+    rec["martingale"] = rt_within("Heston-Hull-White E[D_path / P(0, T)]", float(disc.mean()), 1.0,
+                                  float(disc.std()) / math.sqrt(RT_PAIRS))
+    compare_vectors(f"Heston-Hull-White: the first {RT_CPU_PAIRS} pairs, card against CPU",
+                    hhw(hhw_m, 100.0, pairs=RT_CPU_PAIRS).ensemble,
+                    hhw(hhw_m, 100.0, pairs=RT_CPU_PAIRS, dev=cpu).ensemble, RT_PATH_RTOL)
+    exotic_profile(f"Heston-Hull-White call, {RT_PAIRS} pairs x {RT_STEPS} steps ({smi})",
+                   lambda: hhw(hhw_m, 100.0), device, out)
+    lap("Heston-Hull-White")
+
+    # (e) multi-asset Black-Scholes
+    ma = ht.MultiAssetBSInputs(RT_REF, 0.03, [100.0, 95.0], [0.25, 0.2], [[1.0, 0.5], [0.5, 1.0]])
+    w = [0.6, 0.4]
+    ma_payoffs = {"exchange": ht.SpreadOption(0.0, RT_EXPIRY),
+                  "kirk 5": ht.SpreadOption(5.0, RT_EXPIRY),
+                  "kirk 15": ht.SpreadOption(15.0, RT_EXPIRY),
+                  "geometric call": ht.BasketOption(95.0, RT_EXPIRY, w, geometric=True),
+                  "geometric put": ht.BasketOption(95.0, RT_EXPIRY, w, call_put=ht.Put(),
+                                                   geometric=True),
+                  "best-of call": ht.RainbowOption(100.0, RT_EXPIRY, best=True),
+                  "worst-of call": ht.RainbowOption(100.0, RT_EXPIRY, best=False),
+                  "best-of put": ht.RainbowOption(100.0, RT_EXPIRY, True, call_put=ht.Put()),
+                  "worst-of put": ht.RainbowOption(100.0, RT_EXPIRY, False, call_put=ht.Put())}
+    bs_card, bs_cpu = ht.BlackScholesAnalytic(device=device), ht.BlackScholesAnalytic(device=cpu)
+    ma_cf = torch.stack([solve(ht.PricingProblem(p, ma), bs_card).price
+                         for p in ma_payoffs.values()])
+    compare_vectors(f"multi-asset closed forms {list(ma_payoffs)}, card against CPU", ma_cf,
+                    torch.stack([solve(ht.PricingProblem(p, ma), bs_cpu).price
+                                 for p in ma_payoffs.values()]), RT_CARD_RTOL)
+    ma_cf = dict(zip(ma_payoffs, ma_cf.tolist()))
+
+    def ma_mc(n, dev, steps=1, qmc=False, dyn=None, strat=None):
+        return ht.MonteCarlo(dyn or ht.LognormalDynamics(), strat or ht.BlackScholesExact(),
+                             ht.SimulationConfig(n, steps, ht.Antithetic(), RT_SEED, qmc),
+                             device=dev)
+
+    for name, allowance in (("exchange", 0.0), ("geometric call", 0.0), ("best-of call", 0.0),
+                            ("worst-of call", 0.0), ("kirk 5", 3e-3), ("kirk 15", 6e-3)):
+        sol = solve(ht.PricingProblem(ma_payoffs[name], ma), ma_mc(RT_PAIRS, device))
+        rec[f"ma {name}"] = rt_within(f"multi-asset Black-Scholes {name}, {RT_PAIRS} PRNG pairs",
+                                      float(sol.price), ma_cf[name], rt_pair_se(sol.ensemble, D),
+                                      allowance)
+    arith = ht.PricingProblem(ht.BasketOption(95.0, RT_EXPIRY, w), ma)
+    compare_vectors(f"arithmetic basket: the first {RT_CPU_PAIRS} pairs, card against CPU",
+                    solve(arith, ma_mc(RT_CPU_PAIRS, device)).ensemble,
+                    solve(arith, ma_mc(RT_CPU_PAIRS, cpu)).ensemble, RT_PATH_RTOL)
+    exotic_profile(f"multi-asset arithmetic basket, {RT_PAIRS} pairs ({smi})",
+                   lambda: ht.solve(arith, ma_mc(RT_PAIRS, device)), device, out)
+    lap("multi-asset Black-Scholes")
+
+    # (f) multi-asset Heston
+    heston_dyn, qe = ht.HestonDynamics(), ht.HestonQE(conditional=True)
+    flat = ht.MultiAssetHestonInputs(RT_REF, 0.03, [100.0, 95.0], [0.04, 0.09], [2.0, 1.5],
+                                     [0.04, 0.09], [1e-4, 1e-4], [0.0, 0.0], [[1.0, 0.5], [0.5, 1.0]])
+    bs_flat = ht.MultiAssetBSInputs(RT_REF, 0.03, [100.0, 95.0], [0.2, 0.3],
+                                    [[1.0, 0.5], [0.5, 1.0]])
+    for name in ("best-of call", "exchange"):
+        payoff = ma_payoffs[name]
+        sol = solve(ht.PricingProblem(payoff, flat), ma_mc(RT_PAIRS, device, RT_STEPS,
+                                                           dyn=heston_dyn, strat=qe))
+        want = float(solve(ht.PricingProblem(payoff, bs_flat), bs_card).price)
+        rec[f"ma heston {name}"] = rt_within(
+            f"multi-asset Heston sigma_v -> 0 {name}, {RT_PAIRS} pairs x {RT_STEPS} steps",
+            float(sol.price), want, rt_pair_se(sol.ensemble, D))
+    one = ht.MultiAssetHestonInputs(RT_REF, 0.03, [100.0], [0.04], [2.0], [0.04], [0.3], [-0.6],
+                                    [[1.0]])
+    p_multi = float(solve(ht.PricingProblem(ht.BasketOption(100.0, RT_EXPIRY, [1.0]), one),
+                          ma_mc(RT_PAIRS, device, RT_STEPS, True, heston_dyn, qe)).price)
+    launches = QE_VALUES_KERNEL.launches
+    single = ht.HestonInputs(RT_REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.6)
+    p_k7 = float(solve(ht.PricingProblem(ht.VanillaOption(100.0, RT_EXPIRY), single),
+                       ma_mc(RT_PAIRS, device, RT_STEPS, True, heston_dyn,
+                             ht.HestonQE(conditional=True, use_kernel=True))).price)
+    k7 = QE_VALUES_KERNEL.launches - launches
+    say(f"  multi-asset Heston n = 1 basket, {RT_PAIRS} QMC pairs x {RT_STEPS} steps: {p_multi:.8f} "
+        f"against the single-asset solve through K7 ({k7} launches) {p_k7:.8f}: "
+        f"{p_multi / p_k7 - 1.0:+.3e} (rel 1e-2)")
+    check(k7 > 0, "the n = 1 reduction did not launch K7")
+    check(abs(p_multi / p_k7 - 1.0) <= 1e-2, f"n = 1 basket {p_multi} against K7 {p_k7}")
+    rec["n=1 reduction"] = {"basket": p_multi, "k7": p_k7, "k7_launches": k7}
+    mh = ht.MultiAssetHestonInputs(RT_REF, 0.03, [100.0, 95.0], [0.04, 0.09], [2.0, 1.5],
+                                   [0.04, 0.09], [0.3, 0.4], [-0.6, -0.5], [[1.0, 0.5], [0.5, 1.0]])
+    rb = ht.PricingProblem(ma_payoffs["best-of call"], mh)
+    compare_vectors(f"multi-asset Heston best-of: the first {RT_CPU_PAIRS} pairs, card against CPU",
+                    solve(rb, ma_mc(RT_CPU_PAIRS, device, RT_STEPS, dyn=heston_dyn,
+                                    strat=qe)).ensemble,
+                    solve(rb, ma_mc(RT_CPU_PAIRS, cpu, RT_STEPS, dyn=heston_dyn,
+                                    strat=qe)).ensemble, RT_PATH_RTOL)
+    exotic_profile(f"multi-asset Heston best-of, {RT_PAIRS} pairs x {RT_STEPS} steps ({smi})",
+                   lambda: ht.solve(rb, ma_mc(RT_PAIRS, device, RT_STEPS, dyn=heston_dyn,
+                                              strat=qe)), device, out)
+    lap("multi-asset Heston")
+
+    # (g) VIX at the defaults: futures and options, card against CPU and
+    # against the exact draw
+    def vix_market(sigma=RT_VIX["sigma"], jumps=None):
+        p = dict(RT_VIX, sigma=sigma)
+        args = (RT_VIX_REF, 0.03, 100.0, p["V0"], p["kappa"], p["theta"], p["sigma"], p["rho"])
+        return ht.BatesInputs(*args, *jumps) if jumps else ht.HestonInputs(*args)
+
+    vix = ht.VIXAnalytic(device=device)
+    vix_payoffs = [ht.VIXFuture(RT_VIX_EXPIRY)] + [
+        ht.VIXOption(k, RT_VIX_EXPIRY, call_put=cp) for cp in (ht.Call(), ht.Put())
+        for k in (15.0, 20.0, 25.0)]
+    m = vix_market()
+    prices = torch.stack([solve(ht.PricingProblem(p, m), vix).price for p in vix_payoffs])
+    # the future, the call and the put at K = 20 on the host too (the host's CPU
+    # takes seconds a price at the defaults)
+    compare_vectors("VIX future, call and put at K = 20 (128 x 2048), card against CPU",
+                    prices[[0, 2, 5]],
+                    torch.stack([solve(ht.PricingProblem(vix_payoffs[i], m), on(vix, cpu)).price
+                                 for i in (0, 2, 5)]), RT_CARD_RTOL)
+    T_v = ht.yearfrac(RT_VIX_REF, RT_VIX_EXPIRY)
+    D_v = math.exp(-0.03 * T_v)
+
+    def exact_vix(market, seed):
+        a_, b_, c_bar, d, lam = (float(x) for x in pvix.vix_params(market, T_v, 30.0 / 365.0))
+        chi = sample_noncentral_chisq(seed, d, lam, RT_PAIRS, device=device)
+        return 100.0 * torch.sqrt(a_ * c_bar * chi + b_)
+
+    draw = exact_vix(m, RT_SEED)
+    n = draw.numel()
+    rec["vix future"] = rt_within(f"VIX future against the exact CIR draw ({n} draws)",
+                                  float(prices[0]), float(draw.mean()),
+                                  float(draw.std()) / math.sqrt(n))
+    for i, k in enumerate((15.0, 20.0, 25.0)):
+        pay = D_v * torch.clamp(draw - k, min=0.0)
+        rec[f"vix call {k:g}"] = rt_within(f"VIX call K = {k:g} against the exact CIR draw",
+                                           float(prices[1 + i]), float(pay.mean()),
+                                           float(pay.std()) / math.sqrt(n))
+    m0 = vix_market(1e-6)
+    a_, b_ = (float(x) for x in pvix.vix_params(m0, T_v, 30.0 / 365.0)[:2])
+    limit = 100.0 * math.sqrt(a_ * (0.05 - 0.01 * math.exp(-2.0 * T_v)) + b_)
+    f0 = float(solve(ht.PricingProblem(vix_payoffs[0], m0), vix).price)
+    say(f"  VIX future at sigma_v = 1e-6: {f0:.10f} against 100 sqrt(a m_T + b) {limit:.10f}: "
+        f"{f0 / limit - 1.0:+.3e} (rel 1e-9)")
+    check(abs(f0 / limit - 1.0) <= 1e-9, f"VIX sigma_v -> 0: {f0} against {limit}")
+    switch = [float(solve(ht.PricingProblem(vix_payoffs[0], vix_market(s)), vix).price)
+              for s in (0.0022, 0.0018)]
+    rel = abs(switch[0] - switch[1]) / switch[0]
+    say(f"  VIX future across the series/Edgeworth switch (sigma_v 0.0022, 0.0018): {switch}, "
+        f"{rel:.3e} apart (1e-4)")
+    check(rel < 1e-4, f"VIX switch {switch}")
+    mb = vix_market(jumps=RT_VIX_JUMPS)
+    lam_j, mu_j, sig_j = RT_VIX_JUMPS
+    shift = (float(pvix.vix_params(mb, T_v, 30.0 / 365.0)[1])
+             - float(pvix.vix_params(m, T_v, 30.0 / 365.0)[1]))
+    jump = 2.0 * lam_j * (math.exp(mu_j + 0.5 * sig_j**2) - 1.0 - mu_j)
+    check(abs(shift / jump - 1.0) <= 1e-12, f"Bates b shift {shift} against {jump}")
+    fb = float(solve(ht.PricingProblem(vix_payoffs[0], mb), vix).price)
+    check(fb > float(prices[0]), f"Bates VIX future {fb} not above Heston's {float(prices[0])}")
+    draw_b = exact_vix(mb, RT_SEED + 1)
+    rec["bates future"] = rt_within(f"Bates VIX future (b shift {shift:.6e}) against the exact draw",
+                                    fb, float(draw_b.mean()), float(draw_b.std()) / math.sqrt(n))
+    rec["vix_limit"], rec["vix_switch"] = {"future": f0, "limit": limit}, switch
+    exotic_profile(f"VIX future, 128 nodes x 2048 terms ({smi})",
+                   lambda: ht.solve(ht.PricingProblem(vix_payoffs[0], m), vix), device, out)
+    exotic_profile(f"VIX put K = 20, 128 nodes x 2048 terms ({smi})",
+                   lambda: ht.solve(ht.PricingProblem(vix_payoffs[5], m), vix), device, out)
+    lap("VIX")
+    out["checks"] = rec
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
 ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
                "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes,
                "exotics": phase_exotics, "barriers and dividends": phase_barriers_dividends,
-               "jumps and adi": phase_jumps_adi, "normal and local vol": phase_normal_local_vol}
-#: the phases of ``ONLY_PHASES`` that launch a kernel (K13), so ``--only`` builds the library
-KERNEL_PHASES = {"barriers and dividends"}
+               "jumps and adi": phase_jumps_adi, "normal and local vol": phase_normal_local_vol,
+               "rates baskets and vix": phase_rates_baskets_vix}
+#: the phases of ``ONLY_PHASES`` that launch a kernel (K13; K7), so ``--only`` builds the library
+KERNEL_PHASES = {"barriers and dividends", "rates baskets and vix"}
 
 
 def only_main(names: str) -> int:
     """``--only "exact greeks,american,broadie kaya,quotes,exotics,barriers and
-    dividends,jumps and adi,normal and local vol"``: the named phases alone on the card (the
-    kernels are built only for a phase of ``KERNEL_PHASES``)."""
+    dividends,jumps and adi,normal and local vol,rates baskets and vix"``: the named phases
+    alone on the card (the kernels are built only for a phase of ``KERNEL_PHASES``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6134,6 +6548,8 @@ def main() -> int:
     jumps_adi = phase_jumps_adi(smi, "cuda")
     # the normal and local-vol families (no kernel)
     normal_local_vol = phase_normal_local_vol(smi, "cuda")
+    # rates, multi-asset and VIX (no kernel of their own; K7 for the n = 1 reduction)
+    rates_baskets_vix = phase_rates_baskets_vix(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -6145,6 +6561,7 @@ def main() -> int:
                     "american": american, "broadie_kaya": broadie_kaya, "quotes": quotes,
                     "exotics": exotics, "barriers_and_dividends": barriers_dividends,
                     "jumps_and_adi": jumps_adi, "normal_and_local_vol": normal_local_vol,
+                    "rates_baskets_and_vix": rates_baskets_vix,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

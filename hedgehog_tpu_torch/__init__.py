@@ -58,7 +58,15 @@ local-vol families price through ``BachelierAnalytic`` (and
 of ``NormalDynamics``, ``CEVDynamics``, ``SABRDynamics``,
 ``LocalVolDynamics`` (``dupire_local_vol`` per path) and ``SLVDynamics``
 (on a leverage from ``calibrate_leverage``), and the PDE under the CEV and
-local-vol dynamics.
+local-vol dynamics.  Rates: the Hull-White closed forms (bonds, bond
+options, caplets, caps, Jamshidian swaptions; ``HullWhiteAnalytic``), its
+exact short-rate Monte Carlo (``HullWhiteMonteCarlo``, Bermudan swaptions by
+Longstaff–Schwartz) and x-grid induction (``HullWhiteGrid``), and the
+Heston-Hull-White mixing estimator (``HestonHullWhiteDynamics``).
+Multi-asset: spread, basket and rainbow options on correlated
+Black-Scholes markets (Margrabe, Kirk, the geometric basket, Stulz, and the
+correlated terminal draw) and correlated Heston markets (Monte Carlo).  VIX
+futures and options under Heston and Bates (``VIXAnalytic``).
 Deterministic layers run in float64; the kernels and their plain twins in
 float32.  Importing the package imports no jax and builds nothing.
 """
@@ -85,8 +93,12 @@ from .core.payoffs import (
     AsianOption,
     Autocallable,
     BarrierOption,
+    BasketOption,
     Bermudan,
+    BondOption,
     Call,
+    CapFloor,
+    Caplet,
     ChooserOption,
     Cliquet,
     CompoundOption,
@@ -103,10 +115,14 @@ from .core.payoffs import (
     KnockOut,
     LookbackOption,
     Put,
+    RainbowOption,
     Spot,
+    SpreadOption,
+    Swaption,
     Up,
     VanillaOption,
     VarianceSwap,
+    ZeroCouponBond,
     parity_transform,
 )
 from .core.lenses import (
@@ -132,13 +148,18 @@ from .core.problems import (
 from .core.solve import AbstractPricingMethod, register_solver, solve
 from .market.dividends import DividendSchedule, dividend_pv, escrowed_spot
 from .market.inputs import (
+    AbstractMarketInputs,
     BachelierInputs,
     BatesInputs,
     BlackScholesInputs,
     CEVInputs,
+    HestonHullWhiteInputs,
     HestonInputs,
+    HullWhiteInputs,
     KouInputs,
     MertonInputs,
+    MultiAssetBSInputs,
+    MultiAssetHestonInputs,
     RoughBergomiInputs,
     SABRInputs,
     SLVInputs,
@@ -146,6 +167,7 @@ from .market.inputs import (
     carry_yield,
     forward_spot,
     market_yearfrac,
+    quanto_dividend_yield,
 )
 from .market.rate_curve import (
     FlatRateCurve,
@@ -230,6 +252,15 @@ from .methods.lsm import LSM
 from .methods.merton import MertonAnalytic
 from .methods.pde import PDEMethod
 from .methods.sabr import SABRAnalytic, hagan_vol
+from .methods.hull_white import HullWhiteAnalytic, HullWhiteGrid, HullWhiteMonteCarlo, hw_zbo_price
+from .methods.multi_asset import (
+    geometric_basket_price,
+    kirk_spread_price,
+    margrabe_price,
+    rainbow_prices,
+    stulz_min_call_price,
+)
+from .methods.vix import VIXAnalytic, VIXFuture, VIXOption, vix_future_price, vix_option_price
 from .methods.montecarlo import (
     Antithetic,
     BachelierExact,
@@ -272,6 +303,7 @@ from .models.dynamics import (
     SABRDynamics,
     SLVDynamics,
     VarianceGammaDynamics,
+    HestonHullWhiteDynamics,
     heston_cf,
     lognormal_cf,
 )
@@ -336,5 +368,13 @@ __all__ = [
     "cev_call_price", "cev_survival", "ncx2_cdf", "SABRInputs", "SABRAnalytic", "SABRDynamics",
     "hagan_vol", "LocalVolDynamics", "dupire_local_vol", "SLVInputs", "SLVDynamics",
     "LeverageSurface", "calibrate_leverage", "leverage_at",
+    "AbstractMarketInputs",
+    "ZeroCouponBond", "BondOption", "Caplet", "CapFloor", "Swaption", "HullWhiteInputs",
+    "HullWhiteAnalytic", "HullWhiteGrid", "HullWhiteMonteCarlo", "hw_zbo_price",
+    "HestonHullWhiteInputs", "HestonHullWhiteDynamics",
+    "SpreadOption", "BasketOption", "RainbowOption", "MultiAssetBSInputs",
+    "MultiAssetHestonInputs", "quanto_dividend_yield", "margrabe_price", "kirk_spread_price",
+    "geometric_basket_price", "rainbow_prices", "stulz_min_call_price",
+    "VIXFuture", "VIXOption", "VIXAnalytic", "vix_future_price", "vix_option_price",
     "from_reference",
 ]

@@ -7,8 +7,10 @@ and knock, averaging, lookback strike style), ``VanillaOption`` whose call
 broadcasts the intrinsic value over a tensor of prices, the exotic
 contracts the JAX package grew beyond the reference (digital, single and
 double barrier, Asian, lookback, forward start, compound, chooser, cliquet,
-autocallable, variance swap), and the Bermudan exercise mask of the
-backward inductions.  The multi-asset and rate payoffs are not ported.
+autocallable, variance swap), the multi-asset payoffs (spread, basket,
+rainbow), the interest-rate family (zero-coupon bond, bond option, caplet,
+cap/floor, swaption), and the Bermudan exercise mask of the backward
+inductions.
 """
 
 from __future__ import annotations
@@ -55,10 +57,17 @@ __all__ = [
     "Averaging",
     "ArithmeticAverage",
     "GeometricAverage",
+    "SpreadOption",
+    "BasketOption",
+    "RainbowOption",
+    "ZeroCouponBond",
+    "BondOption",
+    "Caplet",
+    "CapFloor",
+    "Swaption",
     "bermudan_step_mask",
     "parity_transform",
     "require_european",
-    "require_single_asset",
 ]
 
 _frozen = dataclasses.dataclass(frozen=True)
@@ -513,6 +522,208 @@ class VarianceSwap:
         return self.notional * (realized_var - _as(self.strike_var, realized_var))
 
 
+@_frozen
+class SpreadOption:
+    """A two-asset spread option: pays max(cp·(S¹_T − S²_T − K), 0) at
+    ``expiry`` on a multi-asset market's first two assets.  K = 0 is the
+    exchange option (Margrabe's exact closed form); K ≠ 0 prices by Kirk's
+    approximation or correlated terminal Monte Carlo."""
+
+    strike: Any
+    expiry: Any
+    exercise_style: ExerciseStyle = European()
+    call_put: CallPut = Call()
+    underlying: Underlying = Spot()
+
+    def __post_init__(self):
+        object.__setattr__(self, "expiry", to_ticks(self.expiry))
+
+    def __call__(self, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(self.call_put() * (s1 - s2 - _as(self.strike, s1)), min=0.0)
+
+
+@_frozen
+class BasketOption:
+    """A weighted basket option: pays max(cp·(B_T − K), 0) with B the
+    ``weights``-weighted arithmetic average (``geometric=False``, Monte
+    Carlo only) or the geometric average Π S_i^{w_i} (``geometric=True``,
+    exactly lognormal under correlated GBM: the closed-form oracle).
+    ``__call__`` maps the asset tensor (..., n_assets) to the intrinsic."""
+
+    strike: Any
+    expiry: Any
+    weights: Any
+    exercise_style: ExerciseStyle = European()
+    call_put: CallPut = Call()
+    underlying: Underlying = Spot()
+    geometric: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "expiry", to_ticks(self.expiry))
+
+    def __call__(self, spots: torch.Tensor) -> torch.Tensor:
+        w = _as(self.weights, spots)
+        if self.geometric:
+            basket = torch.exp(torch.sum(w * torch.log(spots), dim=-1))
+        else:
+            basket = torch.sum(w * spots, dim=-1)
+        return torch.clamp(self.call_put() * (basket - _as(self.strike, basket)), min=0.0)
+
+
+@_frozen
+class RainbowOption:
+    """A best-of (``best=True``) or worst-of option on two or more assets:
+    pays max(cp·(ext_i S^i_T − K), 0) at ``expiry``, ext the maximum or the
+    minimum over the assets.  Two assets price in closed form (Stulz 1982);
+    any number by correlated terminal Monte Carlo.  ``__call__`` maps the
+    asset tensor (..., n_assets) to the intrinsic."""
+
+    strike: Any
+    expiry: Any
+    best: bool = True
+    exercise_style: ExerciseStyle = European()
+    call_put: CallPut = Call()
+    underlying: Underlying = Spot()
+
+    def __post_init__(self):
+        object.__setattr__(self, "expiry", to_ticks(self.expiry))
+
+    def __call__(self, spots: torch.Tensor) -> torch.Tensor:
+        ext = torch.amax(spots, dim=-1) if self.best else torch.amin(spots, dim=-1)
+        return torch.clamp(self.call_put() * (ext - _as(self.strike, ext)), min=0.0)
+
+
+@_frozen
+class ZeroCouponBond:
+    """A unit zero-coupon bond paying 1 at ``maturity``: under a curve-fitted
+    short-rate model its price is the curve's discount factor."""
+
+    maturity: Any
+
+    def __post_init__(self):
+        object.__setattr__(self, "maturity", to_ticks(self.maturity))
+
+    @property
+    def expiry(self):
+        return self.maturity
+
+
+@_frozen
+class BondOption:
+    """European option, exercising at ``expiry``, on a unit zero-coupon bond
+    maturing at ``bond_maturity`` (> expiry): pays max(cp·(P(T_E, T_B) − K), 0)
+    at T_E."""
+
+    strike: Any
+    expiry: Any
+    bond_maturity: Any
+    call_put: CallPut = Call()
+
+    def __post_init__(self):
+        object.__setattr__(self, "expiry", to_ticks(self.expiry))
+        object.__setattr__(self, "bond_maturity", to_ticks(self.bond_maturity))
+        if self.bond_maturity <= self.expiry:
+            raise ValueError("bond_maturity must exceed the option expiry")
+
+
+@_frozen
+class Caplet:
+    """A caplet (``Call()``) or floorlet (``Put()``) on the simple forward
+    rate L(start, end): pays notional·τ·max(cp·(L − strike_rate), 0) at
+    ``end``, τ = yearfrac(start, end); equivalently notional·(1 + X·τ) bond
+    puts (calls) struck at 1/(1 + X·τ) exercising at ``start``."""
+
+    strike_rate: Any
+    start: Any
+    end: Any
+    notional: Any = 1.0
+    call_put: CallPut = Call()
+
+    def __post_init__(self):
+        object.__setattr__(self, "start", to_ticks(self.start))
+        object.__setattr__(self, "end", to_ticks(self.end))
+        if self.end <= self.start:
+            raise ValueError("caplet end must exceed start")
+
+    @property
+    def expiry(self):  # the rate fixes at start
+        return self.start
+
+
+@_frozen
+class CapFloor:
+    """A cap (``Call()``) or floor (``Put()``): the strip of caplets on
+    consecutive ``dates`` pairs, priced as the sum of its caplets.  The first
+    period fixes at dates[0] (a spot-start cap includes today's known
+    fixing)."""
+
+    strike_rate: Any
+    dates: Any
+    notional: Any = 1.0
+    call_put: CallPut = Call()
+
+    def __post_init__(self):
+        d = tuple(to_ticks(x) for x in self.dates)
+        if len(d) < 2:
+            raise ValueError("CapFloor needs at least two dates (one period)")
+        if any(b <= a for a, b in zip(d, d[1:])):
+            raise ValueError("CapFloor dates must be strictly increasing")
+        object.__setattr__(self, "dates", d)
+
+    @property
+    def expiry(self):  # the last payment
+        return self.dates[-1]
+
+    def caplets(self):
+        """The equivalent Caplet strip."""
+        return tuple(Caplet(self.strike_rate, a, b, self.notional, self.call_put)
+                     for a, b in zip(self.dates, self.dates[1:]))
+
+
+@_frozen
+class Swaption:
+    """A payer (``payer=True``: pay fixed X, receive float) or receiver
+    swaption on a unit-notional swap with fixed payments at
+    ``payment_dates`` (strictly increasing, the first after ``expiry``;
+    accruals from consecutive gaps starting at ``expiry``).  At T_E the
+    fixed+principal leg is Σ c_i·P(T_E, t_i), c_i = X·τ_i (+1 at t_n), and
+    the payer pays max(1 − Σ c_i P, 0).  ``Bermudan(dates)`` adds exercise
+    on reset dates (payment dates but the last; co-terminal), ``expiry``
+    always the first exercise date."""
+
+    strike_rate: Any
+    expiry: Any
+    payment_dates: Any
+    payer: bool = True
+    notional: Any = 1.0
+    exercise_style: ExerciseStyle = European()
+
+    def __post_init__(self):
+        object.__setattr__(self, "expiry", to_ticks(self.expiry))
+        dates = tuple(to_ticks(d) for d in self.payment_dates)
+        if len(dates) == 0:
+            raise ValueError("swaption needs at least one payment date")
+        if any(b <= a for a, b in zip(dates, dates[1:])) or dates[0] <= self.expiry:
+            raise ValueError("payment_dates must be strictly increasing and after expiry")
+        object.__setattr__(self, "payment_dates", dates)
+        if isinstance(self.exercise_style, Bermudan):
+            extra = tuple(to_ticks(d) for d in self.exercise_style.exercise_dates)
+            if any(d not in dates[:-1] for d in extra):
+                raise ValueError(
+                    "Bermudan swaption exercise dates must be reset dates: "
+                    "payment dates except the last (co-terminal convention)"
+                )
+        elif not isinstance(self.exercise_style, European):
+            raise TypeError("Swaption exercise_style must be European or Bermudan(dates)")
+
+    def exercise_ticks(self):
+        """Sorted exercise dates in ticks: expiry, then any Bermudan reset
+        dates."""
+        extra = (tuple(to_ticks(d) for d in self.exercise_style.exercise_dates)
+                 if isinstance(self.exercise_style, Bermudan) else ())
+        return tuple(sorted({self.expiry, *extra}))
+
+
 def bermudan_step_mask(style: ExerciseStyle, market, expiry, nsteps: int,
                        device="cpu") -> torch.Tensor:
     """The (nsteps,) bool exercise mask of the backward inductions (CRR
@@ -551,16 +762,6 @@ def require_european(payoff: VanillaOption, method_name: str, spot_only: bool = 
         raise TypeError(f"{method_name} prices European options only.")
     if spot_only and not isinstance(payoff.underlying, Spot):
         raise TypeError(f"{method_name} prices options on Spot only.")
-
-
-def require_single_asset(payoff):
-    """Raise for the multi-asset payoffs (``SpreadOption``, ``BasketOption``,
-    ``RainbowOption``), whose pricers are not ported."""
-    if type(payoff).__name__ in ("SpreadOption", "BasketOption", "RainbowOption"):
-        raise TypeError(
-            f"{type(payoff).__name__} is a multi-asset payoff; the port has no "
-            "counterpart of hedgehog_tpu/methods/multi_asset.py yet"
-        )
 
 
 def parity_transform(call_price, opt: VanillaOption, spot, rate_curve):

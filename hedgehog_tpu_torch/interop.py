@@ -31,18 +31,22 @@ def _port_classes() -> dict:
         cev,
         crr,
         duality,
+        hull_white,
         lsm,
         merton,
         montecarlo,
+        multi_asset,
         pde,
         sabr,
+        vix,
     )
     from .models import dynamics, rough_bergomi, slv
 
     classes = {}
     for mod in (dates, payoffs, problems, lenses, inputs, dividends, rate_curve, vol_surface, svi,
                 vol_quotes, pde, black_scholes, carr_madan, crr, lsm, duality, merton, montecarlo,
-                bachelier, cev, sabr, dynamics, rough_bergomi, slv, greeks, calibration):
+                bachelier, cev, sabr, hull_white, multi_asset, vix, dynamics, rough_bergomi, slv,
+                greeks, calibration):
         for name, obj in vars(mod).items():
             if isinstance(obj, type) and dataclasses.is_dataclass(obj) and obj.__module__ == mod.__name__:
                 classes[name] = obj

@@ -23,6 +23,7 @@ from ..core.dates import yearfrac
 from ..core.payoffs import (
     AsianOption,
     BarrierOption,
+    BasketOption,
     ChooserOption,
     Cliquet,
     CompoundOption,
@@ -33,11 +34,12 @@ from ..core.payoffs import (
     GeometricAverage,
     KnockIn,
     LookbackOption,
+    RainbowOption,
+    SpreadOption,
     Up,
     VanillaOption,
     VarianceSwap,
     require_european,
-    require_single_asset,
 )
 from ..core.problems import AnalyticSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
@@ -518,7 +520,10 @@ def _solve_bs_analytic(prob: PricingProblem, method: BlackScholesAnalytic) -> An
             f"only; price {type(payoff).__name__} on the PDE or grid-MC "
             f"engines (spot model) instead"
         )
-    require_single_asset(payoff)
+    if isinstance(payoff, (SpreadOption, BasketOption, RainbowOption)):
+        from .multi_asset import solve_multi_asset_analytic
+
+        return solve_multi_asset_analytic(prob, method)
     device = resolve_device(method.device)
     if isinstance(payoff, (CompoundOption, ChooserOption)):
         return _solve_bs_two_date(prob, method, device)

@@ -12,7 +12,10 @@ mixing), ``heston_qe_mixing.py`` (QE variance path, conditional close) and
 ``rough_bergomi_mixing.py`` (exact Volterra draws, conditional close) and
 ``distributions/broadie_kaya.py`` (exact Broadie-Kaya terminal sampling)
 and ``jump_mc.py`` (the Merton, Kou, variance-gamma and Bates samplers and
-grids, and the Bates mixing estimator) and ``normal_lv_mc.py`` (the
+grids, and the Bates mixing estimator) and ``heston_hull_white.py`` (the
+Heston-Hull-White mixing estimator) and ``multi_asset.py`` (the correlated
+Black-Scholes and Heston terminal samplers of the spread, basket and
+rainbow payoffs) and ``normal_lv_mc.py`` (the
 Bachelier, CEV, SABR, local-vol and SLV samplers and grids, SLV on the
 Heston Euler stepper);
 ``use_kernel=True`` routes them through the CUDA kernels of
@@ -48,6 +51,7 @@ from ..core.payoffs import (
     AsianOption,
     Autocallable,
     BarrierOption,
+    BasketOption,
     ChooserOption,
     Cliquet,
     CompoundOption,
@@ -55,10 +59,11 @@ from ..core.payoffs import (
     DoubleBarrierOption,
     ForwardStartOption,
     LookbackOption,
+    RainbowOption,
+    SpreadOption,
     VanillaOption,
     VarianceSwap,
     require_european,
-    require_single_asset,
 )
 from ..core.problems import MonteCarloSolution, PricingProblem
 from ..core.solve import AbstractPricingMethod, register_solver
@@ -68,6 +73,7 @@ from ..models.dynamics import (
     BatesDynamics,
     CEVDynamics,
     HestonDynamics,
+    HestonHullWhiteDynamics,
     KouJumpDynamics,
     LocalVolDynamics,
     LognormalDynamics,
@@ -330,6 +336,23 @@ def simulate_conditional_values(prob: PricingProblem, method: MonteCarlo, key=No
 
         return bates_qe_mixing_values(prob, config, key, device_id, point_offset,
                                       device=resolve_device(method.device))
+    if isinstance(dyn, HestonHullWhiteDynamics):
+        if not (isinstance(strat, HestonQE) and strat.conditional):
+            raise TypeError(
+                "Heston-Hull-White prices through the three-factor "
+                "conditional mixing estimator: pair HestonHullWhiteDynamics "
+                f"with HestonQE(conditional=True); got {type(strat).__name__}"
+            )
+        if strat.use_kernel:
+            raise TypeError(
+                "the fused mixing kernels are single-factor Heston; the "
+                "hybrid estimator is a float64 torch estimator (drop use_kernel=True)"
+            )
+        require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
+        from .heston_hull_white import hhw_mixing_values
+
+        return hhw_mixing_values(prob, config, key, device_id, point_offset,
+                                 device=resolve_device(method.device))
     if isinstance(dyn, RoughBergomiDynamics) or isinstance(strat, RoughBergomiMixing):
         return _rbergomi_conditional_values(prob, method, key, device_id, point_offset)
     if not (isinstance(strat, (HestonQE, HestonExactMixing)) and isinstance(dyn, HestonDynamics)):
@@ -402,6 +425,12 @@ def simulate_terminal_prices(prob: PricingProblem, method: MonteCarlo, key=None,
             f"{type(strat).__name__} is a conditional (mixing) strategy and "
             "never materializes terminal samples (logS_T is integrated out "
             "analytically); price through solve(...)"
+        )
+    if isinstance(dyn, HestonHullWhiteDynamics):
+        raise TypeError(
+            "Heston-Hull-White prices through the three-factor conditional "
+            "mixing estimator only (terminal samples never materialize): "
+            "pair HestonHullWhiteDynamics with HestonQE(conditional=True)"
         )
     if isinstance(strat, HestonBroadieKaya):
         return _broadie_kaya_terminal(prob, method, key, device_id)
@@ -719,9 +748,9 @@ def reduce_payoffs(samples: torch.Tensor, payoff) -> torch.Tensor:
 
 
 def _path_solver(payoff):
-    """The estimator of a path-dependent payoff, in the JAX dispatch's
-    order, or None for the terminal-sample payoffs."""
-    from . import bridge_mc, exotic_mc
+    """The estimator of a path-dependent or multi-asset payoff, in the JAX
+    dispatch's order, or None for the single-asset terminal-sample payoffs."""
+    from . import bridge_mc, exotic_mc, multi_asset
 
     for cls, solver in ((BarrierOption, bridge_mc._solve_barrier_mc),
                         (DoubleBarrierOption, bridge_mc._solve_double_barrier_mc),
@@ -731,10 +760,11 @@ def _path_solver(payoff):
                         (ForwardStartOption, exotic_mc._solve_forward_start_mc),
                         (Cliquet, exotic_mc._solve_cliquet_mc),
                         (Autocallable, bridge_mc._solve_autocall_mc),
+                        ((SpreadOption, BasketOption, RainbowOption),
+                         multi_asset.solve_multi_asset_mc),
                         ((CompoundOption, ChooserOption), exotic_mc._solve_two_date_mc)):
         if isinstance(payoff, cls):
             return solver
-    require_single_asset(payoff)
     return None
 
 

@@ -3,7 +3,7 @@ functions of log S_T, in native complex128.
 
 Port of ``hedgehog_tpu/models/dynamics.py``: the Black-Scholes, Heston,
 rough-Bergomi, jump-diffusion (Merton, Kou, Bates), variance-gamma, normal,
-CEV, SABR, local-vol and SLV markers, the CIR-family Euler update the SLV
+CEV, SABR, local-vol, SLV and Heston-Hull-White markers, the CIR-family Euler update the SLV
 pricer and its leverage calibration share, and the characteristic functions
 (reference montecarlo.jl:286-320 and src/distributions/heston.jl:307-319).
 The JAX package also carries a split real/imaginary form for the TPU, which
@@ -35,6 +35,7 @@ __all__ = [
     "SABRDynamics",
     "LocalVolDynamics",
     "SLVDynamics",
+    "HestonHullWhiteDynamics",
     "cir_family_euler_update",
     "lognormal_terminal_law",
     "merton_terminal_params",
@@ -132,6 +133,16 @@ class SLVDynamics:
     calibrated so the model reprices the market's vanilla surface
     (models/slv.py).  No CF; pricing runs through Euler Monte Carlo on a
     calibrated :class:`~hedgehog_tpu_torch.market.inputs.SLVInputs` market."""
+
+
+@dataclasses.dataclass(frozen=True)
+class HestonHullWhiteDynamics:
+    """Heston variance with a Hull-White short rate under the equity.  No
+    closed form or simple CF under correlation: pricing runs through the
+    three-factor conditional mixing Monte Carlo (W_v ⊥ W_r, so log S_T given
+    the (V, x) paths is normal;
+    methods/heston_hull_white.py).  Markets carry
+    :class:`~hedgehog_tpu_torch.market.inputs.HestonHullWhiteInputs`."""
 
 
 def cir_family_euler_update(x, v, z1, z2, *, lev_x, fk, kappa, theta, sig_v, rho, rho_bar,

@@ -3,24 +3,16 @@ every name in ``hedgehog_tpu_torch.__all__`` resolves, and every name of
 ``hedgehog_tpu.__all__`` the port lacks stands in ``NOT_YET_PORTED`` beside
 the ROADMAP.md Queue 1 item that will port it.  The list must equal the
 gap exactly: a name that goes missing fails, and so does a ported name
-left on the list (the list shrinks with each slice)."""
+left on the list.  The list is empty: the port exports every name of the
+reference, and every market-input container subclasses
+``AbstractMarketInputs``."""
 
 import hedgehog_tpu as hh
 import hedgehog_tpu_torch as ht
 
-#: ROADMAP.md Queue 1 item → the JAX export names it ports
-NOT_YET_PORTED = {
-    "8.3 rates": (
-        "ZeroCouponBond", "BondOption", "Caplet", "CapFloor", "Swaption", "HullWhiteInputs",
-        "HullWhiteAnalytic", "HullWhiteGrid", "HullWhiteMonteCarlo", "hw_zbo_price",
-        "HestonHullWhiteInputs", "HestonHullWhiteDynamics"),
-    "8.4 multi-asset": (
-        "SpreadOption", "BasketOption", "RainbowOption", "MultiAssetBSInputs",
-        "MultiAssetHestonInputs", "quanto_dividend_yield", "margrabe_price", "kirk_spread_price",
-        "geometric_basket_price", "rainbow_prices", "stulz_min_call_price"),
-    "8.5 VIX": ("VIXFuture", "VIXOption", "VIXAnalytic", "vix_future_price", "vix_option_price"),
-    "10 export parity": ("AbstractMarketInputs",),
-}
+#: ROADMAP.md Queue 1 item → the JAX export names it ports (empty: the port
+#: exports every name of the reference)
+NOT_YET_PORTED = {}
 
 
 def test_port_exports_resolve():
@@ -48,5 +40,32 @@ def test_this_slice_exports_where_the_reference_does():
                  "CEVDynamics", "cev_call_price", "cev_survival", "ncx2_cdf", "SABRInputs",
                  "SABRAnalytic", "SABRDynamics", "hagan_vol", "LocalVolDynamics",
                  "dupire_local_vol", "SLVInputs", "SLVDynamics", "LeverageSurface",
-                 "calibrate_leverage", "leverage_at"):
+                 "calibrate_leverage", "leverage_at",
+                 "ZeroCouponBond", "BondOption", "Caplet", "CapFloor", "Swaption",
+                 "HullWhiteInputs", "HullWhiteAnalytic", "HullWhiteGrid", "HullWhiteMonteCarlo",
+                 "hw_zbo_price", "HestonHullWhiteInputs", "HestonHullWhiteDynamics",
+                 "SpreadOption", "BasketOption", "RainbowOption", "MultiAssetBSInputs",
+                 "MultiAssetHestonInputs", "quanto_dividend_yield", "margrabe_price",
+                 "kirk_spread_price", "geometric_basket_price", "rainbow_prices",
+                 "stulz_min_call_price", "VIXFuture", "VIXOption", "VIXAnalytic",
+                 "vix_future_price", "vix_option_price", "AbstractMarketInputs"):
         assert name in hh.__all__ and name in ht.__all__, name
+
+
+def test_every_market_inputs_class_subclasses_the_abstract_base():
+    """Every market-input container of the port (each class of
+    market/inputs.py named ``*Inputs``) is an ``AbstractMarketInputs``, as in
+    the reference, and every reference container has its counterpart."""
+    import inspect
+
+    from hedgehog_tpu.market import inputs as jinputs
+    from hedgehog_tpu_torch.market import inputs as pinputs
+
+    def containers(mod):
+        return {name: cls for name, cls in vars(mod).items()
+                if inspect.isclass(cls) and name.endswith("Inputs") and cls.__module__ == mod.__name__}
+
+    port = containers(pinputs)
+    assert set(containers(jinputs)) <= set(port)
+    for name, cls in port.items():
+        assert issubclass(cls, ht.AbstractMarketInputs), name

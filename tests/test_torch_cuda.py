@@ -1682,3 +1682,88 @@ def test_local_vol_and_slv_on_the_card_match_the_cpu(gpu):
                                                   dataclasses.replace(cfg, qmc=False), device=d))
              for d in (gpu, "cpu")]
     assert torch.allclose(grids[0].cpu(), grids[1], rtol=1e-10, atol=0)
+
+
+def _hw_market(d, sigma=0.012):
+    tenors = torch.tensor([0.5, 1.0, 2.0, 3.0, 5.0], dtype=torch.float64, device=d)
+    zeros = torch.tensor([0.02, 0.025, 0.03, 0.032, 0.035], dtype=torch.float64, device=d)
+    return ht.HullWhiteInputs(NL_REF, ht.RateCurve(NL_REF, tenors, zeros), 0.1, sigma)
+
+
+def test_hull_white_and_heston_hull_white_on_the_card_match_the_cpu(gpu):
+    """The Hull-White closed forms (Jamshidian's root, its σ-gradient) and the
+    Bermudan grid to 1e-12, the exact short-rate Monte Carlo (QMC), the
+    Bermudan LSM and the Heston-Hull-White estimator (Philox) per path on
+    1024 pairs to 1e-10."""
+    swap_dates = [dt.date(2026, 1, 1), dt.date(2027, 1, 1), dt.date(2028, 1, 1)]
+    e = dt.date(2025, 1, 1)
+    payoffs = [ht.ZeroCouponBond(dt.date(2027, 1, 1)), ht.BondOption(0.92, e, dt.date(2028, 1, 1)),
+               ht.Caplet(0.03, e, dt.date(2025, 7, 1), 100.0),
+               ht.CapFloor(0.03, [NL_REF, dt.date(2024, 7, 1), e], 100.0),
+               ht.Swaption(0.032, e, swap_dates, True, 100.0)]
+    berm = ht.Swaption(0.032, e, swap_dates, True, 100.0,
+                       ht.Bermudan([dt.date(2026, 1, 1), dt.date(2027, 1, 1)]))
+    for payoff in payoffs:
+        prices = [ht.solve(ht.PricingProblem(payoff, _hw_market(d)),
+                           ht.HullWhiteAnalytic(device=d)).price for d in (gpu, "cpu")]
+        assert prices[0].device.type == "cuda"
+        assert float(prices[0]) == pytest.approx(float(prices[1]), rel=1e-12)
+    grids = [ht.solve(ht.PricingProblem(berm, _hw_market(d)), ht.HullWhiteGrid(device=d)).price
+             for d in (gpu, "cpu")]
+    assert float(grids[0]) == pytest.approx(float(grids[1]), rel=1e-12)
+    vegas = []
+    for d in (gpu, "cpu"):
+        sig = torch.tensor(0.012, dtype=torch.float64, device=d, requires_grad=True)
+        price = ht.solve(ht.PricingProblem(payoffs[-1], _hw_market(d, sig)),
+                         ht.HullWhiteAnalytic(device=d)).price
+        vegas.append(torch.autograd.grad(price, sig)[0])
+    assert float(vegas[0]) == pytest.approx(float(vegas[1]), rel=1e-10)
+    cfg = ht.SimulationConfig(1024, 4, ht.Antithetic(), 3, True)
+    for payoff, config in ((payoffs[-1], cfg), (berm, dataclasses.replace(cfg, qmc=False))):
+        vals = [ht.solve(ht.PricingProblem(payoff, _hw_market(d)),
+                         ht.HullWhiteMonteCarlo(config, device=d)).ensemble for d in (gpu, "cpu")]
+        assert torch.allclose(vals[0].cpu(), vals[1], rtol=1e-10, atol=1e-12)
+    hhw = ht.HestonHullWhiteInputs(NL_REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.6, 0.1, 0.012,
+                                   -0.3)
+    vals = [ht.solve(ht.PricingProblem(ht.VanillaOption(100.0, NL_EXPIRY), hhw), ht.MonteCarlo(
+        ht.HestonHullWhiteDynamics(), ht.HestonQE(conditional=True),
+        ht.SimulationConfig(1024, 16, ht.Antithetic(), 3), device=d)).ensemble
+        for d in (gpu, "cpu")]
+    assert torch.allclose(vals[0].cpu(), vals[1], rtol=1e-10, atol=1e-12)
+
+
+def test_multi_asset_and_vix_on_the_card_match_the_cpu(gpu):
+    """The multi-asset closed forms (Margrabe, Kirk, the geometric basket,
+    Stulz) to 1e-12, the correlated Black-Scholes and Heston draws per path
+    on 1024 pairs (QMC and Philox) to 1e-10, and VIX futures and options at
+    32 nodes x 256 terms to 1e-12."""
+    ma = ht.MultiAssetBSInputs(NL_REF, 0.03, [100.0, 95.0], [0.25, 0.2], [[1.0, 0.5], [0.5, 1.0]])
+    mh = ht.MultiAssetHestonInputs(NL_REF, 0.03, [100.0, 95.0], [0.04, 0.09], [2.0, 1.5],
+                                   [0.04, 0.09], [0.3, 0.4], [-0.6, -0.5], [[1.0, 0.5], [0.5, 1.0]])
+    payoffs = [ht.SpreadOption(0.0, NL_EXPIRY), ht.SpreadOption(5.0, NL_EXPIRY),
+               ht.BasketOption(95.0, NL_EXPIRY, [0.6, 0.4], geometric=True),
+               ht.RainbowOption(100.0, NL_EXPIRY), ht.RainbowOption(100.0, NL_EXPIRY, False,
+                                                                  call_put=ht.Put())]
+    for payoff in payoffs:
+        prices = [ht.solve(ht.PricingProblem(payoff, ma), ht.BlackScholesAnalytic(device=d)).price
+                  for d in (gpu, "cpu")]
+        assert prices[0].device.type == "cuda"
+        assert float(prices[0]) == pytest.approx(float(prices[1]), rel=1e-12)
+    basket = ht.BasketOption(97.0, NL_EXPIRY, [0.5, 0.5])
+    for market, dyn, strat, steps in ((ma, ht.LognormalDynamics(), ht.BlackScholesExact(), 1),
+                                      (mh, ht.HestonDynamics(), ht.HestonQE(conditional=True), 8)):
+        for qmc in (False, True):
+            cfg = ht.SimulationConfig(1024, steps, ht.Antithetic(), 3, qmc)
+            vals = [ht.solve(ht.PricingProblem(basket, market),
+                             ht.MonteCarlo(dyn, strat, cfg, device=d)).ensemble
+                    for d in (gpu, "cpu")]
+            assert torch.allclose(vals[0].cpu(), vals[1], rtol=1e-10, atol=1e-12)
+    ref, expiry = dt.date(2025, 1, 1), dt.date(2025, 7, 1)
+    for market in (ht.HestonInputs(ref, 0.03, 100.0, 0.04, 2.0, 0.05, 0.6, -0.7),
+                   ht.BatesInputs(ref, 0.03, 100.0, 0.04, 2.0, 0.05, 0.6, -0.7, 0.3, -0.1, 0.15)):
+        for payoff in (ht.VIXFuture(expiry), ht.VIXOption(20.0, expiry),
+                       ht.VIXOption(20.0, expiry, call_put=ht.Put())):
+            prices = [ht.solve(ht.PricingProblem(payoff, market),
+                               ht.VIXAnalytic(nodes=32, terms=256, device=d)).price
+                      for d in (gpu, "cpu")]
+            assert float(prices[0]) == pytest.approx(float(prices[1]), rel=1e-12)

@@ -185,13 +185,15 @@ def test_path_mc_refusals_match_reference():
             hh.solve(prob, method)
         with pytest.raises(err, match=match):
             ht.solve(ht.from_reference(prob), _port(method))
-    # the multi-asset payoffs have no port yet
-    spread = type("SpreadOption", (), {"exercise_style": ht.European(),
-                                       "underlying": ht.Spot()})()
-    prob = ht.PricingProblem(spread, ht.from_reference(BS))
-    for method in (ht.MonteCarlo(device=CPU), ht.BlackScholesAnalytic(device=CPU)):
-        with pytest.raises(TypeError, match="multi_asset"):
-            ht.solve(prob, method)
+    # the multi-asset payoffs reach methods/multi_asset.py, which refuses
+    # the arithmetic basket's closed form as JAX does
+    market = hh.MultiAssetBSInputs(REF, 0.05, jnp.asarray([100.0, 95.0]), jnp.asarray([0.25, 0.2]),
+                                   jnp.asarray([[1.0, 0.5], [0.5, 1.0]]))
+    prob = hh.PricingProblem(hh.BasketOption(95.0, EXPIRY, jnp.asarray([0.5, 0.5])), market)
+    with pytest.raises(TypeError, match="no lognormal closed form"):
+        hh.solve(prob, hh.BlackScholesAnalytic())
+    with pytest.raises(TypeError, match="no lognormal closed form"):
+        ht.solve(ht.from_reference(prob), ht.BlackScholesAnalytic(device=CPU))
 
 
 def test_path_mc_defaults_to_the_gpu():
