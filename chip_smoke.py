@@ -145,7 +145,7 @@ mixing 1 and 0, and an American put by LSM on it; card against CPU for the
 first 4096 pairs of each route, the PDE and a small calibration (1e-10).
 
 "rates baskets and vix" (``--only "rates baskets and vix"`` builds the
-kernels: its n = 1 check launches K7) closes the run: the Hull-White closed
+kernels: its n = 1 check launches K7) comes next: the Hull-White closed
 forms (bonds, bond options, caplets, caps, Jamshidian swaptions) card
 against CPU (1e-12) and the swaption vega (1e-10); at 2^20 antithetic PRNG
 pairs the exact short-rate Monte Carlo within 4 SE of them, the x-grid's
@@ -156,6 +156,24 @@ Black-Scholes (Margrabe, the geometric basket, Stulz, Kirk) and Heston
 (sigma_v -> 0, and the n = 1 basket against the single-asset solve through
 K7); VIX at the defaults against the exact CIR draw of V_T; card against CPU
 for the first 4096 pairs of each Monte Carlo route (1e-10).
+
+"sharding and utilities" (``--only "sharding and utilities"`` builds the
+kernels) closes the run: (a) K2 (2 segments) and K7 (11 steps) under QMC
+over 4 disjoint point_offset slices of 2^20 pairs concatenate to one
+2^22-pair call bit for bit, each slice against its twin; (b) an nccl
+process group of one rank: the sharded exact flagship through K2 at 2^22
+QMC pairs equal to ``solve`` (rel 1e-9); (c) 4 gloo ranks sharing the card
+(``hedgehog_tpu_torch.parallel.dryrun.run_ranks``): the dry run's five
+phases against their replays, then at full width the sharded flagship (K2,
+2^22 QMC pairs) and the 2 x 2 multi-slice price, the sharded QE price (K7,
+2^22 x 11 QMC) and its 7-leaf gradient (K11) against the single-device
+kernel ``solve``'s, a PRNG Euler price through K1 (2^22 x 100) within 4 SE +
+10 bp of Carr-Madan, the sharded LSM (2^17 pairs x 100 steps, degree 5)
+against its replay (1e-8) and CRR(2000), and the 3 x 5 QE surface (2^20
+QMC pairs) against the single-device surface (1e-9), each rank's K1, K2,
+K7 and K11 launches counted in a window of its own; (d) a checkpoint of
+device tensors, ``time_fn`` and ``trace`` on the card.  The sharded walls
+are 4 ranks on one card: collective overhead, not scaling.
 
 The launch counters are reset just before phase 3 and read after phase 4,
 once for the main path, once for the surface path and once for the
@@ -176,6 +194,7 @@ import functools
 import inspect
 import json
 import math
+import pathlib
 import re
 import subprocess
 import sys
@@ -6266,19 +6285,444 @@ def phase_rates_baskets_vix(smi: str, device: str) -> dict:
     return out
 
 
+# the sharded path (phase "sharding and utilities"): 4 ranks share the card
+SHARD_RANKS = 4
+SHARD_SLICE_PAIRS = 2**20  # a slice of the composition check (a); 4 make SOLVE_PAIRS
+SHARD_SURF_PAIRS = 2**20
+SHARD_PRICE_RTOL = 1e-9  # sharded against solve: float64 sums in another order (JAX's 1e-9)
+SHARD_REPLAY_RTOL = 1e-8  # the LSM's global regression against its replay (dry run phase 3)
+# the 7-leaf gradient of the sharded K7 price (K11 on each rank's 2^20 pairs, the
+# gradients summed in float64) against the single-device kernel solve's (K11
+# on 2^22 pairs): the same fp32 tangents summed in another grouping, within
+# SHARD_GRAD_RTOL of the largest component plus SHARD_GRAD_RTOL of each
+SHARD_GRAD_RTOL = 1e-6
+SHARD_WALL_LABEL = "4 ranks on one card: collective overhead, not scaling"
+
+
+def shard_problems(ht):
+    """(Heston problem, the Black-Scholes American put of phase "american")."""
+    heston = ht.PricingProblem(ht.VanillaOption(STRIKE, EXPIRY, ht.European(), ht.Call(),
+                                                ht.Spot()),
+                               ht.HestonInputs(REF, R, SPOT, *HESTON.values()))
+    put = ht.PricingProblem(ht.VanillaOption(100.0, dt.date(2021, 1, 1), ht.American(), ht.Put(),
+                                             ht.Spot()),
+                            ht.BlackScholesInputs(dt.date(2020, 1, 1), 0.05, 100.0, 0.2))
+    return heston, put
+
+
+def shard_methods(ht, device: str) -> dict:
+    """The full-width methods of the sharded checks, by label."""
+    def mc(strat, pairs, steps, qmc, seed=0, dyn=None):
+        cfg = ht.SimulationConfig(pairs, steps, ht.Antithetic(), seed, qmc)
+        return ht.MonteCarlo(dyn or ht.HestonDynamics(), strat, cfg, device=device)
+
+    return {"K2 flagship": mc(ht.HestonExactMixing(use_kernel=True), SOLVE_PAIRS, SEGMENTS, True),
+            "K7 price": mc(ht.HestonQE(use_kernel=True, conditional=True), SOLVE_PAIRS, QE_STEPS,
+                           True),
+            "K1 Euler": mc(ht.EulerMaruyama(use_kernel=True), SOLVE_PAIRS, EULER_STEPS, False),
+            "LSM": ht.LSM(mc(ht.BlackScholesExact(), LSM_PAIRS, LSM_STEPS, False, 12345,
+                             ht.LognormalDynamics()), LSM_DEGREE),
+            "surface": mc(ht.HestonQE(conditional=True), SHARD_SURF_PAIRS, SURF_QE_STEPS, True, 5)}
+
+
+def shard_leaves(device):
+    """The 7 Heston leaves (spot, V0, kappa, theta, sigma, rho, rate) on ``device``."""
+    import torch
+
+    return [torch.tensor(x, dtype=torch.float64, device=device, requires_grad=True)
+            for x in PARAMS7]
+
+
+def shard_qe_grad(price_of, payoff, device):
+    """(price, its gradient in the 7 leaves) of ``price_of(problem)`` on a
+    Heston market built from :func:`shard_leaves`."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+
+    leaves = shard_leaves(device)
+    spot, v0, kappa, theta, sigma, rho, r = leaves
+    price = price_of(ht.PricingProblem(payoff, ht.HestonInputs(REF, r, spot, v0, kappa, theta,
+                                                               sigma, rho)))
+    return price, torch.autograd.grad(price, leaves)
+
+
+def shard_rank(device: str) -> dict:
+    """One rank of the 4-rank check (c): the dry run's five phases, then the
+    full-width sharded calls with the K1, K2, K7 and K11 launches of this
+    rank counted from 0, each call's wall (median of 3, synchronised) and
+    one profiled call's idle share, and this rank's peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops.heston_exact_kernel import EXACT_VALUES_KERNEL
+    from hedgehog_tpu_torch.ops.heston_kernel import EULER_KERNEL
+    from hedgehog_tpu_torch.ops.heston_qe_greeks_kernel import QE_VJP_KERNEL
+    from hedgehog_tpu_torch.ops.heston_qe_kernel import QE_VALUES_KERNEL
+    from hedgehog_tpu_torch.parallel import (make_multislice_mesh, make_paths_mesh,
+                                             sharded_lsm_price_fn, sharded_mc_price_fn,
+                                             sharded_mc_price_multislice_fn, sharded_surface_fn)
+    from hedgehog_tpu_torch.parallel.dryrun import dryrun_rank
+    from hedgehog_tpu_torch.parallel.sharding import rank_device
+
+    dev = rank_device(device)
+    torch.cuda.init()  # the allocator's statistics exist from here
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = {"dryrun": dryrun_rank(device), "rank": dist.get_rank(), "device": str(dev)}
+    out["dryrun_s"] = time.perf_counter() - t0
+    heston, put = shard_problems(ht)
+    methods = shard_methods(ht, device)
+    mesh, mesh2d = make_paths_mesh(), make_multislice_mesh(2)
+    kernels = {"K1": EULER_KERNEL, "K2": EXACT_VALUES_KERNEL, "K7": QE_VALUES_KERNEL,
+               "K11": QE_VJP_KERNEL}
+    for k in kernels.values():
+        k.launches = 0
+    flagship = sharded_mc_price_fn(methods["K2 flagship"], mesh)
+    multislice = sharded_mc_price_multislice_fn(methods["K2 flagship"], mesh2d)
+    qe = sharded_mc_price_fn(methods["K7 price"], mesh)
+    euler = sharded_mc_price_fn(methods["K1 Euler"], mesh)
+    lsm = sharded_lsm_price_fn(methods["LSM"], mesh)
+    surface = sharded_surface_fn(methods["surface"], mesh)
+    calls = {"K2 flagship": lambda: flagship(heston), "multi-slice": lambda: multislice(heston),
+             "K7 price + K11 gradient": lambda: shard_qe_grad(qe, heston.payoff, dev),
+             "K1 Euler": lambda: euler(heston),
+             "LSM": lambda: lsm(put),
+             "surface": lambda: surface(heston.market_inputs, SURF_EXPIRIES, SURF_STRIKES)}
+    results, walls = {}, {}
+    for label, fn in calls.items():
+        results[label] = fn()
+        torch.cuda.synchronize(dev)
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t1))
+        walls[label] = sorted(times)[1]
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    price, grad = results.pop("K7 price + K11 gradient")
+    out["values"] = {k: torch.as_tensor(v).detach().cpu().tolist() for k, v in results.items()}
+    out["values"]["K7 price"] = float(price.detach())
+    out["values"]["K11 gradient"] = [float(g) for g in grad]
+    out["walls_ms"] = walls
+    out["profile"] = {label: eval_profile(calls[label], str(dev))
+                      for label in ("K2 flagship", "K7 price + K11 gradient")}
+    out["peak_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    return out
+
+
+def shard_slices(device: str) -> dict:
+    """(a): K2 and K7 under QMC on 4 disjoint point_offset slices of
+    SHARD_SLICE_PAIRS pairs against one full-range call (bit for bit), and
+    each slice against its twin on the same points."""
+    import torch
+
+    from hedgehog_tpu_torch.models.heston_exact import poisson_kmax
+    from hedgehog_tpu_torch.ops import heston_exact_kernel as ek
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    import hedgehog_tpu_torch as ht
+
+    dev = torch.device(device)
+    T = float(ht.yearfrac(REF, EXPIRY))
+    per, n = SHARD_SLICE_PAIRS, SHARD_RANKS
+    dt_x, dt_q = T / SEGMENTS, T / QE_STEPS
+    kmax = poisson_kmax(HESTON["kappa"], HESTON["theta"], HESTON["sigma"], dt_x, HESTON["V0"])
+    px = torch.as_tensor(ek._exact_params(*MARKET_ARGS, dt_x, SEGMENTS, STRIKE, 1.0), device=dev)
+    xtable = torch.as_tensor(ek.sobol_table(5, 4 * SEGMENTS), device=dev)
+    pq, qtable = qk.mix_inputs(*MARKET_ARGS, dt_q, STRIKE, 1.0, QE_STEPS, 5, True, dev)
+    kernels = {
+        "K2": (lambda pairs, off: ek.heston_exact_mixing_values(
+            *MARKET_ARGS, dt_x, STRIKE, 1.0, n_paths=pairs, segments=SEGMENTS, seed=5,
+            antithetic=True, qmc=True, point_offset=off, device=dev),
+               lambda off: ek.heston_exact_mixing_values_plain(px, xtable, per, SEGMENTS, True,
+                                                               kmax, 5, 0, off)),
+        "K7": (lambda pairs, off: qk.heston_qe_mixing_values(
+            *MARKET_ARGS, dt_q, STRIKE, 1.0, n_paths=pairs, steps=QE_STEPS, seed=5,
+            antithetic=True, qmc=True, point_offset=off, device=dev),
+               lambda off: qk.heston_qe_mixing_values_plain(pq, qtable, per, QE_STEPS, True, 5, 0,
+                                                            off)),
+    }
+    out = {}
+    for name, (kernel, twin) in kernels.items():
+        full = kernel(n * per, 0)
+        parts = [kernel(per, i * per) for i in range(n)]
+        equal = bool(torch.equal(torch.cat(parts, dim=-1), full))
+        say(f"  (a) {name}: {n} QMC slices of {per} pairs concatenated "
+            f"{'equal' if equal else 'DIFFER FROM'} one {n * per}-pair call bit for bit")
+        check(equal, f"{name}: the slices do not compose to the full-range call")
+        errs = [compare_values(f"{name} slice {i} (point_offset {i * per}) against its twin",
+                               part, twin(i * per)) for i, part in enumerate(parts)]
+        out[name] = {"bitwise": equal, "max_abs_err": max(errs)}
+    return out
+
+
+def shard_nccl(device: str, smi: str) -> dict:
+    """(b): an nccl process group of one rank: the sharded exact flagship
+    through K2 equal to ``solve`` on the same method."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.ops.heston_exact_kernel import EXACT_VALUES_KERNEL
+    from hedgehog_tpu_torch.parallel import make_paths_mesh, sharded_mc_price
+
+    heston, _ = shard_problems(ht)
+    method = shard_methods(ht, device)["K2 flagship"]
+    with tempfile.TemporaryDirectory(prefix="hh_nccl_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method="file://" + tmp + "/rendezvous", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            before = EXACT_VALUES_KERNEL.launches
+            t0 = time.perf_counter()
+            price = float(sharded_mc_price(heston, method, make_paths_mesh()))
+            wall = time.perf_counter() - t0
+            launches = EXACT_VALUES_KERNEL.launches - before
+        finally:
+            dist.destroy_process_group()
+    ref = float(ht.solve(heston, method).price)
+    rel = abs(price / ref - 1.0)
+    say(f"  (b) nccl, world size 1: sharded K2 flagship ({SOLVE_PAIRS} QMC pairs, {launches} K2 "
+        f"launch) {price:.12f} against solve {ref:.12f}, rel {rel:.3e} (limit "
+        f"{SHARD_PRICE_RTOL:g}); first call {wall:.3f} s ({smi})")
+    check(launches == 1 and rel <= SHARD_PRICE_RTOL,
+          f"nccl sharded price {price} against solve {ref} ({launches} K2 launches)")
+    return {"price": price, "solve": ref, "rel": rel, "k2_launches": launches, "first_call_s": wall}
+
+
+def shard_references(device: str) -> dict:
+    """The single-device counterparts of :func:`shard_rank`'s full-width
+    calls on the card, with their synchronised walls and one profiled call's
+    idle share: ``solve`` of each method (the K7 one with the 7-leaf
+    gradient), the LSM replay and a single-device LSM for its SE, CRR(2000),
+    Carr-Madan and the single-device surface."""
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.parallel.dryrun import lsm_replay
+
+    heston, put = shard_problems(ht)
+    methods = shard_methods(ht, device)
+    surf_cfg = methods["surface"]
+    calls = {"K2 flagship": lambda: ht.solve(heston, methods["K2 flagship"]).price,
+             "K7 price + K11 gradient": lambda: shard_qe_grad(
+                 lambda prob: ht.solve(prob, methods["K7 price"]).price, heston.payoff, device),
+             "K1 Euler": lambda: ht.solve(heston, methods["K1 Euler"]),
+             "LSM": lambda: ht.solve(put, methods["LSM"]),
+             "surface": lambda: ht.heston_surface_mc(
+                 heston.market_inputs, SURF_EXPIRIES, SURF_STRIKES, surf_cfg.config,
+                 strategy=surf_cfg.strategy, device=device)}
+    out = {label: fn() for label, fn in calls.items()}
+    refs = {"walls": {label: eval_profile(fn, device) for label, fn in calls.items()}}
+    price, grad = out["K7 price + K11 gradient"]
+    refs.update({"K2 flagship": float(out["K2 flagship"]), "K7 price": float(price.detach()),
+                 "K11 gradient": torch.stack(grad).tolist(), "surface": out["surface"].tolist()})
+    euler = out["K1 Euler"]
+    disc = float(ht.df(heston.market_inputs.rate, heston.payoff.expiry))
+    refs["K1 SE"] = disc * float(ht.reduce_payoffs(euler.ensemble, heston.payoff).std()) \
+        / math.sqrt(SOLVE_PAIRS)
+    refs["K1 solve"] = float(euler.price)
+    refs["LSM SE"] = lsm_price_se(out["LSM"])
+    refs["LSM solve"] = float(out["LSM"].price)
+    refs["LSM replay"] = float(lsm_replay(put, methods["LSM"], SHARD_RANKS, device))
+    refs["CRR"] = float(ht.solve(put, ht.CoxRossRubinsteinMethod(CRR_STEPS, device)).price)
+    refs["Carr-Madan"] = float(ht.solve(heston, ht.CarrMadan(1.0, "auto", ht.HestonDynamics(),
+                                                             device=device)).price)
+    return refs
+
+
+def shard_utilities(device: str, smi: str) -> dict:
+    """(d): a checkpoint of a market's and a curve's tensors on the card
+    (same bits, same device), ``time_fn`` of the K2 ``solve`` beside this
+    script's synchronised wall, and a ``trace`` whose events name a CUDA
+    kernel (:func:`shard_trace`, in a process of its own)."""
+    import tempfile
+
+    import torch
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.parallel.dryrun import run_ranks
+    from hedgehog_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+    from hedgehog_tpu_torch.utils.profiling import time_fn
+
+    params = [x.detach() for x in shard_leaves(device)]
+    spot, v0, kappa, theta, sigma, rho, r = params
+    curve = ht.RateCurve(REF, torch.tensor([0.5, 1.0, 2.0], dtype=torch.float64, device=device),
+                         torch.tensor([0.03, 0.031, 0.033], dtype=torch.float64, device=device))
+    state = {"market": ht.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho),
+             "curve": curve, "step": 17}
+    zeros = {"market": ht.HestonInputs(REF, *(torch.zeros_like(x) for x in (r, spot, v0, kappa,
+                                                                            theta, sigma, rho))),
+             "curve": ht.RateCurve(REF, torch.zeros_like(curve.tenors),
+                                   torch.zeros_like(curve.zero_rates)), "step": 0}
+    heston, _ = shard_problems(ht)
+    method = shard_methods(ht, device)["K2 flagship"]
+    with tempfile.TemporaryDirectory(prefix="hh_utils_") as tmp:
+        save_pytree(tmp + "/state", state)
+        loaded = load_pytree(tmp + "/state", zeros)
+        pairs = [(getattr(loaded["market"], f), getattr(state["market"], f))
+                 for f in ("spot", "V0", "kappa", "theta", "sigma", "rho")]
+        pairs += [(loaded["curve"].zero_rates, curve.zero_rates), (loaded["curve"].tenors,
+                                                                   curve.tenors)]
+        same = all(torch.equal(a, b) and a.device == b.device for a, b in pairs)
+        say(f"  (d) checkpoint of {len(pairs)} market and curve tensors on {device}: "
+            f"{'same bits, same device' if same else 'DIFFERENT'}; step {loaded['step']}")
+        check(same and loaded["step"] == 17, "the checkpoint round trip changed a tensor")
+
+        solve = functools.partial(ht.solve, heston, method)
+        median_s = time_fn(solve, reps=5, warmup=1)
+        walls = eval_profile(solve, device)
+        say(f"  (d) time_fn(solve K2, {SOLVE_PAIRS} QMC pairs): {1e3 * median_s:.3f} ms median; "
+            f"this script's synchronised wall {walls['eval wall ms']:.3f} ms ({smi})")
+        check(median_s > 0.0, "time_fn gave no time")
+
+    # the trace in a process of its own: in a full run this process has held
+    # dozens of profiler sessions, and two of them (one right after the 4
+    # ranks, one a trace of this solve) recorded no device event at all
+    rec = run_ranks(1, shard_trace, device, backend="gloo", timeout=300.0)[0]
+    say(f"  (d) trace (a fresh process): {rec['files']} file, {rec['events']} events; CUDA "
+        f"kernels {[n[:48] for n in rec['kernels']]}")
+    check(any("exact" in n for n in rec["kernels"]), f"the trace names no K2 kernel: {rec}")
+    return {"checkpoint_same": same, "time_fn_ms": 1e3 * median_s,
+            "wall_ms": walls["eval wall ms"], "trace_kernels": rec["kernels"]}
+
+
+def shard_trace(device: str) -> dict:
+    """``trace`` around one K2 ``solve``: the trace files written and the
+    CUDA kernels their events name."""
+    import tempfile
+
+    import hedgehog_tpu_torch as ht
+    from hedgehog_tpu_torch.utils.profiling import trace
+
+    heston, _ = shard_problems(ht)
+    method = shard_methods(ht, device)["K2 flagship"]
+    with tempfile.TemporaryDirectory(prefix="hh_trace_") as tmp:
+        # a first traced call warms up the kernels and the profiler (CUPTI
+        # starts with the process's first session); the second is read
+        for logdir in (tmp + "/warm-up", tmp + "/trace"):
+            with trace(logdir):
+                ht.solve(heston, method)
+        files = list(pathlib.Path(tmp, "trace").glob("trace_*.json"))
+        events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    return {"files": len(files), "events": len(events),
+            "kernels": sorted({e["name"] for e in events if e.get("cat") == "kernel"})}
+
+
+def phase_sharding_utilities(smi: str, device: str) -> dict:
+    """Path sharding over torch.distributed and the checkpoint and profiling
+    utilities on the card (the module docstring's (a)-(d))."""
+    import torch
+
+    from hedgehog_tpu_torch.parallel.dryrun import default_backend, run_ranks
+
+    say(f"phase 3 (sharding and utilities): path sharding over torch.distributed on {device}; "
+        f"{smi}")
+    out = {"nvidia_smi": smi}
+    lap = laps(out)
+    out["slices"] = shard_slices(device)
+    lap("slice composition")
+    out["nccl"] = shard_nccl(device, smi)
+    lap("nccl world size 1")
+
+    backend = default_backend(SHARD_RANKS, device)
+    say(f"  (c) {SHARD_RANKS} ranks over {backend} on {torch.cuda.device_count()} card(s)")
+    ranks = run_ranks(SHARD_RANKS, shard_rank, device, backend=backend, timeout=900.0)
+    lap("4 ranks")
+    for phase, rec in ranks[0]["dryrun"].items():
+        say(f"  dryrun_multichip({SHARD_RANKS}) {rec['line']} [{backend}, {ranks[0]['device']}]")
+    for r, rank in enumerate(ranks):
+        say(f"  rank {r} on {rank['device']}: launches {rank['launches']}, peak "
+            f"{rank['peak_mb']:.1f} MB, dry run {rank['dryrun_s']:.2f} s")
+        check(all(n > 0 for n in rank["launches"].values()),
+              f"rank {r}: a kernel of the sharded path was not launched: {rank['launches']}")
+        check(rank["values"] == ranks[0]["values"],
+              f"rank {r}'s sharded results differ from rank 0's")
+    got = ranks[0]["values"]
+    refs = shard_references(device)
+    lap("single-device references")
+
+    def rel(a, b):
+        return abs(a / b - 1.0)
+
+    checks = {
+        "K2 flagship against solve": (rel(got["K2 flagship"], refs["K2 flagship"]),
+                                      SHARD_PRICE_RTOL),
+        "multi-slice against 1-D": (rel(got["multi-slice"], got["K2 flagship"]), 1e-12),
+        "K7 price against solve": (rel(got["K7 price"], refs["K7 price"]), SHARD_PRICE_RTOL),
+        "LSM against its replay": (rel(got["LSM"], refs["LSM replay"]), SHARD_REPLAY_RTOL),
+    }
+    for label, (err, limit) in checks.items():
+        say(f"  (c) {label}: rel {err:.3e} (limit {limit:g})")
+        check(err <= limit, f"sharded {label}: rel {err:.3e} > {limit:g}")
+    grad, want = (torch.tensor(x, dtype=torch.float64) for x in (got["K11 gradient"],
+                                                                 refs["K11 gradient"]))
+    worst = float(((grad - want).abs() / want.abs()).max())
+    say(f"  (c) sharded 7-leaf gradient {[round(x, 8) for x in got['K11 gradient']]}, largest "
+        f"per-leaf rel {worst:.3e}")
+    out["grad_max_rel"] = worst
+    compare_vectors("(c) sharded K7/K11 gradient against the single-device kernel solve's",
+                    grad, want, SHARD_GRAD_RTOL)
+    cm = refs["Carr-Madan"]
+    err = got["K1 Euler"] - cm
+    bound = 4.0 * refs["K1 SE"] + EULER_ALLOWANCE_BP * 1e-4 * cm
+    say(f"  (c) sharded K1 Euler ({SOLVE_PAIRS} PRNG pairs x {EULER_STEPS}): {got['K1 Euler']:.10f}"
+        f", Carr-Madan {cm:.10f}, err {err:+.3e}, 4 SE + {EULER_ALLOWANCE_BP:g} bp = {bound:.3e}")
+    check(abs(err) <= bound, "sharded K1 Euler price outside 4 SE + 10 bp of Carr-Madan")
+    crr = refs["CRR"]
+    err = got["LSM"] - crr
+    bound = 4.0 * refs["LSM SE"] + 0.01 * crr
+    say(f"  (c) sharded LSM put ({LSM_PAIRS} pairs x {LSM_STEPS} steps, degree {LSM_DEGREE}): "
+        f"{got['LSM']:.6f}, replay {refs['LSM replay']:.6f}, CRR({CRR_STEPS}) {crr:.6f}, "
+        f"4 SE + 1% = {bound:.3e}")
+    check(abs(err) <= bound, "sharded LSM outside 4 SE + 1% of CRR")
+    surf, surf_ref = (torch.tensor(x, dtype=torch.float64) for x in (got["surface"],
+                                                                     refs["surface"]))
+    surf_err = float(((surf - surf_ref).abs() / surf_ref.abs()).max())
+    say(f"  (c) sharded 3 x 5 QE surface ({SHARD_SURF_PAIRS} QMC pairs x {SURF_QE_STEPS}) against "
+        f"the single-device surface: rel {surf_err:.3e} (limit {SHARD_PRICE_RTOL:g})")
+    check(surf_err <= SHARD_PRICE_RTOL, "sharded surface against the single-device surface")
+
+    say(f"  walls per call, {SHARD_WALL_LABEL} ({smi}):")
+    for label, ms in ranks[0]["walls_ms"].items():
+        single = refs["walls"].get(label)
+        say(f"    {label}: sharded {ms:.3f} ms (median of 3, rank 0)" + (
+            f", single-device {single['eval wall ms']:.3f} ms, idle share {single['idle share']}"
+            if single else ""))
+    for label, prof in ranks[0]["profile"].items():
+        say_profile(f"rank 0, sharded {label} ({SHARD_WALL_LABEL}; {smi})", prof)
+    out["ranks"] = [{k: rank[k] for k in ("launches", "walls_ms", "profile", "peak_mb",
+                                          "dryrun_s", "values")} for rank in ranks]
+    out["references"] = {k: v for k, v in refs.items() if k != "surface"}
+    out["utilities"] = shard_utilities(device, smi)
+    lap("utilities")
+    say_laps(out)
+    return out
+
+
 #: the phases ``--only`` runs alone
 ONLY_PHASES = {"exact greeks": phase_exact_greeks, "american": phase_american,
                "broadie kaya": phase_broadie_kaya, "quotes": phase_quotes,
                "exotics": phase_exotics, "barriers and dividends": phase_barriers_dividends,
                "jumps and adi": phase_jumps_adi, "normal and local vol": phase_normal_local_vol,
-               "rates baskets and vix": phase_rates_baskets_vix}
-#: the phases of ``ONLY_PHASES`` that launch a kernel (K13; K7), so ``--only`` builds the library
-KERNEL_PHASES = {"barriers and dividends", "rates baskets and vix"}
+               "rates baskets and vix": phase_rates_baskets_vix,
+               "sharding and utilities": phase_sharding_utilities}
+#: the phases of ``ONLY_PHASES`` that launch a kernel (K13; K7; K1, K2, K7, K11), so
+#: ``--only`` builds the library
+KERNEL_PHASES = {"barriers and dividends", "rates baskets and vix", "sharding and utilities"}
 
 
 def only_main(names: str) -> int:
     """``--only "exact greeks,american,broadie kaya,quotes,exotics,barriers and
-    dividends,jumps and adi,normal and local vol,rates baskets and vix"``: the named phases
+    dividends,jumps and adi,normal and local vol,rates baskets and vix,sharding and
+    utilities"``: the named phases
     alone on the card (the kernels are built only for a phase of ``KERNEL_PHASES``)."""
     import torch
 
@@ -6550,6 +6994,9 @@ def main() -> int:
     normal_local_vol = phase_normal_local_vol(smi, "cuda")
     # rates, multi-asset and VIX (no kernel of their own; K7 for the n = 1 reduction)
     rates_baskets_vix = phase_rates_baskets_vix(smi, "cuda")
+    # path sharding over torch.distributed (K1, K2, K7, K11 launched in the ranks'
+    # own windows) and the checkpoint and profiling utilities
+    sharding_utilities = phase_sharding_utilities(smi, "cuda")
 
     say(json.dumps({"serving": serving, "qe_serving": qe_serving, "qem_serving": qem_serving,
                     "surface_serving": surface_serving, "surface_bias_bp": biases,
@@ -6562,6 +7009,7 @@ def main() -> int:
                     "exotics": exotics, "barriers_and_dividends": barriers_dividends,
                     "jumps_and_adi": jumps_adi, "normal_and_local_vol": normal_local_vol,
                     "rates_baskets_and_vix": rates_baskets_vix,
+                    "sharding_and_utilities": sharding_utilities,
                     "build_s": build_s, "nvidia_smi": smi,
                     "elapsed_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": [

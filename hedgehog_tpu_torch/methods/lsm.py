@@ -30,8 +30,12 @@ per-segment no-cross factors in its stopping state (the knock-adjusted
 continuation, the rebate's hold-value leg, and for American holders the
 exercise at first passage), a knock-in integrates the live option's value
 at the barrier, from a second regression localized there, against each
-path's first-hit-segment law.  The sharded regression (``psum_axis``) is
-not ported.
+path's first-hit-segment law.
+
+Under path sharding (``parallel/sharding.py``) each rank holds its own
+paths and the regression is global: ``psum_group`` sums each step's
+(n_terms × n_terms) normal equations over the ranks before the ridge, as
+the JAX package's ``psum_axis`` does.
 """
 
 from __future__ import annotations
@@ -84,17 +88,24 @@ class LSM(AbstractPricingMethod):
     rao_blackwell: bool = True
 
 
-def _masked_lstsq_beta(phi, y, w):
+def _masked_lstsq_beta(phi, y, w, group=None):
     """β of the fit y ~ phi·β over the rows where w = 1: weighted normal
     equations with a ridge of 1e-10·(1 + tr(A)/n), so a system with no
-    in-the-money path stays solvable (its fit is masked out downstream)."""
+    in-the-money path stays solvable (its fit is masked out downstream).
+    With a ``torch.distributed`` ``group`` the normal equations are summed
+    over its ranks first: every rank fits on the paths of all."""
     n_terms = phi.shape[1]
     phw = phi * w[:, None]
     A = phw.T @ phi
     b = phw.T @ y
+    if group is not None:
+        from ..parallel.collectives import all_reduce_sum, replicate
+
+        A, b = all_reduce_sum(A, group), all_reduce_sum(b, group)
     eye = torch.eye(n_terms, dtype=A.dtype, device=A.device)
     ridge = 1e-10 * eye * (1.0 + torch.trace(A) / n_terms)
-    return cholesky_solve_small(A + ridge, b)
+    beta = cholesky_solve_small(A + ridge, b)
+    return beta if group is None else replicate(beta, group)
 
 
 def _poly_basis(x, degree: int):
@@ -110,12 +121,14 @@ def _joint_basis(s, v, degree: int):
     return torch.stack(terms, dim=1)
 
 
-def lsm_backward_induction(spots, payoff, log_disc, degree: int, strike_scale, *, vols=None,
-                           terminal_value=None, exercise_mask=None,
+def lsm_backward_induction(spots, payoff, log_disc, degree: int, strike_scale, *,
+                           psum_group=None, vols=None, terminal_value=None, exercise_mask=None,
                            collect_betas: bool = False, surv_factors=None, rebate_spec=None,
                            barrier_eval=None, hit_exercise_value=None):
     """Backward stopping-rule induction over a (steps + 1, paths) price grid:
-    returns (tau, value) per path, tau as float64.  ``vols`` (a matching
+    returns (tau, value) per path, tau as float64.  ``psum_group`` (a
+    ``torch.distributed`` group; each rank passes its own paths) makes
+    every regression global over the group's ranks.  ``vols`` (a matching
     variance grid) regresses on the joint (S, V) basis; ``terminal_value``
     replaces the terminal payoff as the initial stopping value;
     ``exercise_mask`` (steps,) bool gates exercise per grid date (None:
@@ -192,7 +205,7 @@ def lsm_backward_induction(spots, payoff, log_disc, degree: int, strike_scale, *
             s_n = s_t / strike_scale
             phi = torch.cat([phi, q_t[:, None], (q_t * q_t)[:, None], (q_t * s_n)[:, None]],
                             dim=1)
-        beta = _masked_lstsq_beta(phi, continuation, w)
+        beta = _masked_lstsq_beta(phi, continuation, w, psum_group)
         exercise = itm & (payoff_t > phi @ beta)
         if exercise_mask is not None:
             exercise = exercise & exercise_mask[t]
@@ -213,9 +226,11 @@ def lsm_backward_induction(spots, payoff, log_disc, degree: int, strike_scale, *
             u = lx / hw
             w_h = torch.exp(-0.5 * u * u)
             if vols is None:
-                cont_h = _masked_lstsq_beta(_poly_basis(u, degree), continuation, w_h)[0]
+                cont_h = _masked_lstsq_beta(_poly_basis(u, degree), continuation, w_h,
+                                            psum_group)[0]
             else:
-                beta_h = _masked_lstsq_beta(_joint_basis(u, vols[t], degree), continuation, w_h)
+                beta_h = _masked_lstsq_beta(_joint_basis(u, vols[t], degree), continuation, w_h,
+                                            psum_group)
                 cont_h = _joint_basis(torch.zeros_like(u), vols[t], degree) @ beta_h
             # the live option exercises at exercise dates only
             exercised_h = torch.maximum(intrinsic_h, cont_h)

@@ -604,7 +604,7 @@ def _broadie_kaya_terminal(prob, method, key, device_id):
 
 
 def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
-                        point_offset=0) -> torch.Tensor:
+                        point_offset=0, *, device_id=0) -> torch.Tensor:
     """The price grid (n_groups, steps + 1, trajectories), float64 on
     ``method.device``, for the grid methods (LSM): lognormal dynamics step
     with the exact per-step lognormal transition (the log-Euler GBM paths,
@@ -612,9 +612,10 @@ def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
     samplers' steppers and draws, ``HestonQE(conditional=True)`` with the
     conditional bridge (its S grid; LSM takes the V grid too through
     :func:`simulate_conditional_grid`), and the jump, normal and local-vol
-    families' Euler grids with their terminal samplers' draws."""
+    families' Euler grids with their terminal samplers' draws.  Under PRNG
+    ``device_id`` keys an independent stream (a rank of a sharded run)."""
     dyn, strat, config = method.dynamics, method.strategy, method.config
-    kw = dict(key=key, point_offset=point_offset)
+    kw = dict(key=key, point_offset=point_offset, device_id=device_id)
     if isinstance(strat, HestonQE) and strat.conditional:
         if not isinstance(dyn, HestonDynamics):
             raise TypeError("HestonQE(conditional=True) requires HestonDynamics")
@@ -650,7 +651,7 @@ def simulate_price_grid(prob: PricingProblem, method: MonteCarlo, key=None,
 
 
 def simulate_conditional_grid(prob: PricingProblem, config: SimulationConfig, key=None,
-                              point_offset=0, *, device="cuda"):
+                              point_offset=0, *, device="cuda", device_id=0):
     """(S, V) grids, each (n_groups, steps + 1, trajectories) float64 on
     ``device``: the QE variance path plus the exact conditional lognormal
     bridge for S over each step, given the step's trapezoid ∫V proxy IV and
@@ -673,7 +674,7 @@ def simulate_conditional_grid(prob: PricingProblem, config: SimulationConfig, ke
     c = qe_constants(kappa, theta, sigma, rho, r0, dt)
     ktd = kappa * theta * dt
     rho_bar2 = 1.0 - rho**2
-    z_v, z_perp, u = qe_m_draws(config, key, 0, point_offset, device=dev, split_key=False)
+    z_v, z_perp, u = qe_m_draws(config, key, device_id, point_offset, device=dev, split_key=False)
     zeros = torch.zeros(z_v.shape[1:], dtype=torch.float64, device=dev)
     x, v = torch.log(spot) + zeros, v0 + zeros
     xs, vs = [x], [v]

@@ -7,6 +7,10 @@ left on the list.  The list is empty: the port exports every name of the
 reference, and every market-input container subclasses
 ``AbstractMarketInputs``."""
 
+import importlib
+
+import pytest
+
 import hedgehog_tpu as hh
 import hedgehog_tpu_torch as ht
 
@@ -69,3 +73,14 @@ def test_every_market_inputs_class_subclasses_the_abstract_base():
     assert set(containers(jinputs)) <= set(port)
     for name, cls in port.items():
         assert issubclass(cls, ht.AbstractMarketInputs), name
+
+
+@pytest.mark.parametrize("module", ["parallel", "utils.checkpoint", "utils.profiling"])
+def test_submodule_exports_exist_in_the_port(module):
+    """Every name of the JAX submodule's ``__all__`` is in the port's module
+    of the same path."""
+    ref = importlib.import_module(f"hedgehog_tpu.{module}")
+    port = importlib.import_module(f"hedgehog_tpu_torch.{module}")
+    missing = [name for name in ref.__all__ if getattr(port, name, None) is None]
+    assert not missing
+    assert set(ref.__all__) <= set(port.__all__)

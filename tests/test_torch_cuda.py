@@ -1767,3 +1767,51 @@ def test_multi_asset_and_vix_on_the_card_match_the_cpu(gpu):
                                ht.VIXAnalytic(nodes=32, terms=256, device=d)).price
                       for d in (gpu, "cpu")]
             assert float(prices[0]) == pytest.approx(float(prices[1]), rel=1e-12)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K7"])
+def test_kernel_slices_compose_over_disjoint_offsets(gpu, kernel):
+    """4 disjoint point_offset slices of one Sobol' sequence through K2 (2
+    segments) or K7 (11 steps), concatenated, are the full-range call bit
+    for bit: why a QMC sharded price equals the single-device one."""
+    from hedgehog_tpu_torch.ops import heston_qe_kernel as qk
+
+    if kernel == "K2":
+        kern, fn, kw = ek.EXACT_VALUES_KERNEL, ek.heston_exact_mixing_values, dict(segments=2)
+        args = (*MKT, T / 2, 100.0, 1.0)
+    else:
+        kern, fn, kw = qk.QE_VALUES_KERNEL, qk.heston_qe_mixing_values, dict(steps=QE_STEPS)
+        args = (*MKT, T / QE_STEPS, 100.0, 1.0)
+    per = PAIRS // 4
+    kw.update(seed=5, antithetic=True, qmc=True, device=gpu)
+    before = kern.launches
+    full = fn(*args, n_paths=PAIRS, **kw)
+    parts = [fn(*args, n_paths=per, point_offset=i * per, **kw) for i in range(4)]
+    assert kern.launches == before + 5
+    assert torch.equal(torch.cat(parts, dim=-1), full)
+
+
+def test_nccl_world_of_one_sharded_flagship_equals_solve(gpu, tmp_path):
+    """An nccl process group of one rank: the sharded exact flagship through
+    K2 equals ``solve`` (float64 sums in another order)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from hedgehog_tpu_torch.parallel import make_paths_mesh, sharded_mc_price
+
+    prob = ht.PricingProblem(
+        ht.VanillaOption(100.0, dt.date(2025, 1, 1)),
+        ht.HestonInputs(dt.date(2024, 1, 1), 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7))
+    method = ht.MonteCarlo(ht.HestonDynamics(), ht.HestonExactMixing(True),
+                           ht.SimulationConfig(PAIRS, 2, ht.Antithetic(), 0, True), device="cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        before = ek.EXACT_VALUES_KERNEL.launches
+        price = float(sharded_mc_price(prob, method, make_paths_mesh()))
+        assert ek.EXACT_VALUES_KERNEL.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    assert price == pytest.approx(float(ht.solve(prob, method).price), rel=1e-9)
